@@ -8,23 +8,37 @@ code is non-zero and the final ``ok`` line is never printed:
 
 1. env      -- Python, torch and CUDA versions; the card's name and power
                limit as ``nvidia-smi`` reports them.
-2. build    -- compile every CUDA kernel of the main path from ``csrc/``.
+2. build    -- compile every CUDA kernel from ``csrc/``, one nvcc per
+               source, all started together.
 3. check    -- each kernel against its plain PyTorch version (float64 on
-               the same inputs upcast): on random batches at the main
-               path's shapes and more, on the gram stacks the main path
+               the same inputs upcast).  K1: on random batches at the main
+               path's shapes and more, on the gram stacks the exact lane
                hands it (the first airfoil fold's, the protein split's),
-               NaN isolation of a non-PD matrix, the backward.
-4. time     -- each kernel, its plain version and the library call on the
-               main path's gram stacks, with the bound from the card's peaks.
-5. parity   -- the fit objective and gradient on the card (float32, through
-               the kernel) against the CPU (float64, Cholesky) on the first
-               airfoil fold's stack.
+               NaN isolation of a non-PD matrix, the backward.  K2 and
+               K2-VJP: all seven tile transforms on the protein-matfree
+               row stack (9, 4065, 9) at the path's widths n = 1, 8, 9
+               and on a ragged (3, 1000, 5) stack at n = 1, 4.
+4. time     -- each kernel, its plain version and the library call at the
+               main path's shapes, with the bound from the card's peaks.
+5. parity   -- the exact-lane objective and gradient on the card (float32,
+               through K1) against the CPU (float64, Cholesky) on the
+               first airfoil fold's stack.
 6. airfoil  -- the reference's acceptance config, 10-fold CV; RMSE < 2.1.
 7. protein  -- the CASP config at full size (stand-in data, E = 366).
 8. profile  -- one protein objective evaluation under torch.profiler:
                wall ms, device-busy ms and share, the top kernels; and
                the host magic solve's share of the PPA build.
-9. kernels  -- one line with every kernel's numbers.
+9. matfree-parity -- the matrix-free objective and gradient at init theta
+               on the protein-matfree stack (E = 9, s = 4065): on the card
+               (K2) against the iterative lane on the card (materialized
+               gram) and against the CPU in float64, the same probes.
+10. protein-matfree -- the fit on the matrix-free lane: phase seconds,
+               launches (asserted against nfev), solver metrics, RMSE;
+               the peak memory of one objective evaluation beside the
+               iterative lane's; the same config fitted on the iterative
+               and exact lanes.
+11. matfree-profile -- one matrix-free evaluation under torch.profiler.
+12. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -43,14 +57,28 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# peak rates by card name, from NVIDIA's data sheets: (bytes/s, f32 flop/s
-# outside the tensor cores)
+# peak rates by card name: (bytes/s, f32 flop/s outside the tensor cores,
+# special-function results/s).  Memory and f32 rates from NVIDIA's data
+# sheets; the special-function (exp) rate is 16 results per clock per SM
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) times the SM count and the boost clock.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),
-    "H200": (4.8e12, 67e12),
+    "H100 PCIe": (2.0e12, 51e12, 114 * 16 * 1.755e9),
+    "H100 NVL": (3.9e12, 60e12, 132 * 16 * 1.785e9),
+    "H100": (3.35e12, 67e12, 132 * 16 * 1.98e9),
+    "H200": (4.8e12, 67e12, 132 * 16 * 1.98e9),
 }
+
+# the seven tile transforms of K2 with the parameters they are checked at
+MATFREE_FAMILIES = {
+    "rbf": [1.0], "matern12": [0.8], "matern32": [0.8], "matern52": [0.8],
+    "rq": [0.9, 1.3], "dot": [0.5], "poly": [0.7],
+}
+POLY_DEGREE = 2
+
+# kernel names as the profiler reports them
+K2_NAMES = {"streamed_matvec": "streamed_matvec_kernel",
+            "streamed_matvec_vjp": "streamed_matvec_vjp_kernel"}
 
 
 # host seconds per fit phase, as the estimator reports them
@@ -96,9 +124,11 @@ def time_ms(fn, reps: int = 20, windows: int = 5) -> float:
     return float(np.median(times))
 
 
-def profile_objective(torch, vag, theta, reps: int = 10) -> dict:
+def profile_objective(torch, vag, theta, reps: int = 10, shares=None) -> dict:
     """Wall time of ``reps`` objective evaluations (unprofiled), then the
-    device kernel time of ``reps`` more under ``torch.profiler``."""
+    device kernel time of ``reps`` more under ``torch.profiler``;
+    ``shares`` maps a label to a kernel-name substring whose device time,
+    share and launches per evaluation are reported too."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -120,6 +150,13 @@ def profile_objective(torch, vag, theta, reps: int = 10) -> dict:
     device_ms = sum(k[0] for k in kernels)
     if device_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
+    named = {}
+    for label, key in (shares or {}).items():
+        picked = [k for k in kernels if key in k[1]]
+        ms = sum(k[0] for k in picked)
+        named[label] = {"device_ms": ms, "device_share": ms / device_ms,
+                        "wall_share": ms / wall_ms,
+                        "per_eval": sum(k[2] for k in picked)}
     return {
         "eval_wall_ms": wall_ms,
         "eval_device_ms": device_ms,
@@ -127,6 +164,7 @@ def profile_objective(torch, vag, theta, reps: int = 10) -> dict:
         "kernel_launches_per_eval": sum(k[2] for k in kernels),
         "top": [{"ms": ms, "name": name[:90], "per_eval": n}
                 for ms, name, n in kernels[:6]],
+        **({"kernels": named} if shares else {}),
     }
 
 
@@ -197,6 +235,101 @@ def check_spd_inv_logdet(torch, spd, stacks):
     return errs
 
 
+def check_streamed_matvec(torch, sm, x_slice):
+    """K2 and K2-VJP against their plain versions in float64 on the same
+    inputs upcast, for all seven tile transforms: on the protein-matfree
+    row stack at every width the main path launches them with (n = 1: the
+    quad leg, n = 8: the surrogate leg, n = 9: a CG step), which covers
+    the accumulator templates 1, 8 and 16, and on a ragged (3, 1000, 5)
+    stack with n = 1 and n = 4 (the template 4).  Bars: K2 within 1e-5
+    of the largest |output| (a float32 sum of s terms); the
+    theta-cotangent within 1e-4 of the largest |cotangent| (float32
+    partial sums over s^2 pairs).  Returns the errors, absolute and
+    relative to those scales, keyed ``label/n<width>/family``."""
+    gen = np.random.default_rng(7)
+    ragged = torch.as_tensor(gen.normal(size=(3, 1000, 5)), dtype=torch.float32, device="cuda")
+    errs = {}
+    for label, x, n in (("slice", x_slice, 1), ("slice", x_slice, 8), ("slice", x_slice, 9),
+                        ("ragged", ragged, 1), ("ragged", ragged, 4)):
+        shape = tuple(x.shape[:2]) + (n,)
+        v = torch.as_tensor(gen.normal(size=shape), dtype=torch.float32, device="cuda")
+        w = torch.as_tensor(gen.normal(size=shape), dtype=torch.float32, device="cuda")
+        for family, params in MATFREE_FAMILIES.items():
+            par = torch.tensor(params, dtype=torch.float32, device="cuda")
+            out = sm.streamed_matvec(x, v, family, par, POLY_DEGREE)
+            grad = sm.streamed_matvec_vjp(x, w, v, family, par, POLY_DEGREE)
+            torch.cuda.synchronize()
+            x64, v64, p64 = x.double(), v.double(), par.double()
+            ref = sm.streamed_matvec_plain(x64, v64, family, p64, POLY_DEGREE)
+            gref = sm.streamed_matvec_vjp_plain(x64, w.double(), v64, family, p64, POLY_DEGREE)
+            e_mv = (out.double() - ref).abs().max().item()
+            e_vjp = (grad.double() - gref).abs().max().item()
+            s_mv, s_vjp = ref.abs().max().item(), gref.abs().max().item()
+            key = f"{label}/n{n}/{family}"
+            if not e_mv <= 1e-5 * s_mv:
+                raise AssertionError(f"K2 {key}: err {e_mv} > 1e-5 * {s_mv}")
+            if not e_vjp <= 1e-4 * s_vjp:
+                raise AssertionError(f"K2-VJP {key}: err {e_vjp} > 1e-4 * {s_vjp}")
+            errs[key] = {"matvec": e_mv, "matvec_rel": e_mv / s_mv,
+                         "vjp": e_vjp, "vjp_rel": e_vjp / s_vjp}
+    return errs
+
+
+def time_streamed_matvec(torch, sm, x, peaks):
+    """K2 (n = 9: a CG step; n = 1, 8: the differentiable legs) and K2-VJP
+    (n = 1, 8) on the protein-matfree row stack with the RBF map at
+    sigma = 1, beside the plain version and a library yardstick that
+    materializes the gram (``cdist``^2 -> ``exp`` -> ``bmm``).  The bound
+    is the largest of: FP32 flops over the f32 peak, the ``exp``s over
+    the special-function rate, the bytes over the memory rate.  K is
+    symmetric, so the least work computes each distance and its map once
+    per unordered off-diagonal pair (2p + 3 flops and one ``exp`` for the
+    value; 2p + 6 and one ``exp`` for the derivative) and only the
+    accumulation once per ordered pair (2n flops for K V; 2n + 2 for the
+    VJP's <W_i, V_j> and its product with dk)."""
+    bw, f32, sfu = peaks
+    e, s, p = x.shape
+    pairs, half = e * s * s, e * s * (s - 1) // 2
+    par = torch.ones(1, dtype=torch.float32, device="cuda")
+    gen = np.random.default_rng(11)
+    out = {}
+
+    def gram():
+        return torch.exp(-0.5 * torch.cdist(x, x) ** 2)
+
+    for n in (9, 1, 8):
+        v = torch.as_tensor(gen.normal(size=(e, s, n)), dtype=torch.float32, device="cuda")
+        w = torch.as_tensor(gen.normal(size=(e, s, n)), dtype=torch.float32, device="cuda")
+        legs = [("streamed_matvec", half * (2 * p + 3) + pairs * 2 * n, 4 * e * s * (p + 2 * n),
+                 lambda v=v: sm.streamed_matvec(x, v, "rbf", par),
+                 lambda v=v: sm.streamed_matvec_plain(x, v, "rbf", par),
+                 lambda v=v: torch.bmm(gram(), v))]
+        if n != 9:
+            def library_vjp(v=v, w=w):
+                d = torch.cdist(x, x) ** 2
+                return torch.sum(torch.bmm(w, v.mT) * torch.exp(-0.5 * d) * d)
+
+            legs.append(("streamed_matvec_vjp", half * (2 * p + 6) + pairs * (2 * n + 2),
+                         4 * e * s * (p + 2 * n),
+                         lambda v=v, w=w: sm.streamed_matvec_vjp(x, w, v, "rbf", par),
+                         lambda v=v, w=w: sm.streamed_matvec_vjp_plain(x, w, v, "rbf", par),
+                         library_vjp))
+        for name, flops, nbytes, kernel, plain, library in legs:
+            times = (flops / f32, half / sfu, nbytes / bw)
+            row = {
+                "ms": time_ms(kernel),
+                "plain_ms": time_ms(plain, reps=5, windows=3),
+                "library_ms": time_ms(library, reps=5, windows=3),
+                "library": "materializing: cdist^2 -> exp -> bmm"
+                           + ("" if name == "streamed_matvec" else " (W V^T * dk/dsigma, sum)"),
+                "bound_ms": max(times) * 1e3,
+                "bound_by": "bytes" if times[2] == max(times) else "operations",
+                "flops": flops, "exps": half, "bytes": nbytes,
+            }
+            out.setdefault(name, {})[f"n{n}"] = row
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -209,6 +342,7 @@ def main() -> int:
         Const,
         EyeKernel,
         GaussianProcessRegression,
+        RBFKernel,
         WhiteNoiseKernel,
     )
     from spark_gp_tpu_torch.data import load_airfoil, load_protein
@@ -216,7 +350,9 @@ def main() -> int:
     from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
     from spark_gp_tpu_torch.models.ppa import magic_solve
     from spark_gp_tpu_torch.ops import cuda_lib
+    from spark_gp_tpu_torch.ops import iterative as it_ops
     from spark_gp_tpu_torch.ops import spd_linalg as spd
+    from spark_gp_tpu_torch.ops import streamed_matvec as sm
     from spark_gp_tpu_torch.ops.scaling import fit_scaler, scale
     from spark_gp_tpu_torch.parallel.experts import group_for_experts
     from spark_gp_tpu_torch.utils.validation import kfold_indices, rmse
@@ -231,14 +367,17 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": name, "nvidia_smi": smi})
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     start = time.perf_counter()
-    built = cuda_lib.build("spd_inv_logdet", force=True)
-    emit({"phase": "build", "seconds": time.perf_counter() - start,
-          "kernels": {"spd_inv_logdet": {
-              "seconds": built[0],
-              "ptxas": [ln for ln in built[1].splitlines()
-                        if "registers" in ln or "spill" in ln]}}})
+    built = cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec"], force=True)
+    report = {}
+    for source, (seconds, log) in built.items():
+        regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines()
+                       if "registers" in ln})
+        spills = [ln.strip() for ln in log.splitlines()
+                  if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
+        report[source] = {"seconds": seconds, "registers": regs, "spills": spills}
+    emit({"phase": "build", "seconds": time.perf_counter() - start, "kernels": report})
 
     # the main path's data and the gram stacks it hands K1 at init theta:
     # the first airfoil CV fold's training rows and the protein training
@@ -274,13 +413,28 @@ def main() -> int:
             raise AssertionError(f"{label} stack {tuple(stacks[label].shape)}, "
                                  f"expected {shape}")
 
+    # the protein-matfree configuration: the same split, experts of
+    # s = 4065 (E = 9, one masked row), the isotropic RBF
+    def matfree_kernel():
+        return 1.0 * RBFKernel(1.0, 1e-6, 10) + WhiteNoiseKernel(0.1, 0.0, 1.0)
+
+    mf_data = group_for_experts(xp[tr], yp_tr, 4096, dtype=torch.float32, device="cuda")
+    if tuple(mf_data.x.shape) != (9, 4065, 9):
+        raise AssertionError(f"protein-matfree stack {tuple(mf_data.x.shape)}")
+    gram_stack_bytes = 9 * 4065 * 4065 * 4
+
     # 3. check
     errs = check_spd_inv_logdet(torch, spd, stacks)
     emit({"phase": "check", "kernel": "spd_inv_logdet", "passed": True,
           "max_abs_err": errs})
+    k2_errs = check_streamed_matvec(torch, sm, mf_data.x)
+    emit({"phase": "check", "kernel": "streamed_matvec + streamed_matvec_vjp",
+          "passed": True, "bars": {"matvec": "1e-5 * max|ref|", "vjp": "1e-4 * max|ref|"},
+          "errors": k2_errs})
 
-    # 4. time, on the main path's gram stacks
-    bw, f32 = peaks_for(name)
+    # 4. time, at the main path's shapes
+    peaks = peaks_for(name)
+    bw, f32 = peaks[:2]
     timing = {}
     for label, k in stacks.items():
         b, n = k.shape[0], k.shape[-1]
@@ -304,6 +458,12 @@ def main() -> int:
         timing[label] = row
         emit({"phase": "time", "kernel": "spd_inv_logdet", "input": label, "shape": [b, n],
               "bytes": nbytes, "flops": flops, **row, "card": smi})
+    launches = (sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches)
+    k2_timing = time_streamed_matvec(torch, sm, mf_data.x, peaks)
+    sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches = launches
+    for kname, rows in k2_timing.items():
+        emit({"phase": "time", "kernel": kname, "input": "protein-matfree",
+              "shape": list(mf_data.x.shape), "rows": rows, "card": smi})
 
     # 5. parity: the objective and its gradient, card vs CPU, on the first
     # airfoil fold's stack
@@ -397,9 +557,161 @@ def main() -> int:
     emit({"phase": "profile", "config": "protein", "magic_solve_seconds": solve_s,
           **profile_objective(torch, make_value_and_grad(raw.kernel, data), raw.theta)})
 
-    # 9. kernels: the numbers at the protein stack, then at the airfoil
-    # fold's; launches over both fits
+    # 9. matfree-parity at init theta on the protein-matfree stack: the
+    # matrix-free objective on the card against the iterative lane on the
+    # card and against the CPU in float64, all with the card's probes.
+    # Bars, relative (value; gradient over its largest component): 1e-5
+    # and 1e-5 against the iterative lane (the same float32 engine on the
+    # same probes; only the products differ); 1e-5 and 1e-3 against the
+    # CPU, whose float64 CG stopped at tol 1e-5 takes another path.
+    mf_kernel = matfree_kernel() + Const(1e-3) * EyeKernel()
+    theta0 = mf_kernel.init_theta()
+    cfg = it_ops.solver_config(4065)
+    g1, g2 = it_ops.draw_probes(cfg, (9,), cfg.rank, 4065, torch.float32, "cuda")
+    draw_probes = it_ops.draw_probes
+    it_ops.draw_probes = lambda cfg, batch, rank, s, dtype, device: (
+        g1.to(device=device, dtype=dtype), g2.to(device=device, dtype=dtype))
+    try:
+        out = {}
+        for label, lane, device, dtype in (("matfree", "matfree", "cuda", torch.float32),
+                                           ("iterative", "iterative", "cuda", torch.float32),
+                                           ("cpu_f64", "matfree", "cpu", torch.float64)):
+            it_ops.set_solver_lane(lane)
+            data = (mf_data if device == "cuda" else
+                    group_for_experts(xp[tr], yp_tr, 4096, dtype=dtype, device=device))
+            start = time.perf_counter()
+            out[label] = make_value_and_grad(mf_kernel, data)(theta0)
+            out[label] += (time.perf_counter() - start,)
+    finally:
+        it_ops.draw_probes = draw_probes
+        it_ops.set_solver_lane(None)
+    v_mf, g_mf, _ = out["matfree"]
+    parity = {"value": v_mf, "grad": g_mf.tolist(),
+              "seconds": {k: o[2] for k, o in out.items()}}
+    bars = {"iterative": (1e-5, 1e-5), "cpu_f64": (1e-5, 1e-3)}
+    for label, (bar_v, bar_g) in bars.items():
+        v_ref, g_ref, _ = out[label]
+        dv = abs(v_mf - v_ref) / abs(v_ref)
+        dg = float(np.max(np.abs(g_mf - g_ref)) / np.max(np.abs(g_ref)))
+        parity[label] = {"value": v_ref, "grad": g_ref.tolist(),
+                         "rel_value_err": dv, "rel_grad_err": dg,
+                         "bars": {"rel_value": bar_v, "rel_grad": bar_g}}
+        if not (dv <= bar_v and dg <= bar_g):
+            raise AssertionError(f"matfree vs {label}: rel dv {dv}, dg {dg}")
+    emit({"phase": "matfree-parity", "theta": theta0.tolist(), **parity})
+
+    # 10. protein-matfree: the fit on the matrix-free lane, its launches
+    # (K2: iters + 2 per evaluation, K2-VJP: 2; the post-fit solver report
+    # counted on its own), then the same config on the iterative and
+    # exact lanes.  RMSE bars: within 2% of the iterative lane's (the same
+    # surrogate objective) and 5% of the exact lane's.
+    def matfree_gp(lane):
+        return (
+            GaussianProcessRegression()
+            .setKernel(matfree_kernel)
+            .setSigma2(1e-3)
+            .setDatasetSizeForExpert(4096)
+            .setActiveSetSize(1000)
+            .setMaxIter(10)
+            .setSeed(13)
+            .setSolverLane(lane)
+        )
+
+    report_launches = {}
+    emit_solver_stats = GaussianProcessRegression._emit_solver_stats
+
+    def counted_emit(self, *args):
+        before = (sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches)
+        emit_solver_stats(self, *args)
+        report_launches["streamed_matvec"] = sm.streamed_matvec.launches - before[0]
+        report_launches["streamed_matvec_vjp"] = sm.streamed_matvec_vjp.launches - before[1]
+
+    fits = {}
+    for lane in ("matfree", "iterative", "exact"):
+        if lane == "matfree":
+            GaussianProcessRegression._emit_solver_stats = counted_emit
+        try:
+            sm.streamed_matvec.launches = sm.streamed_matvec_vjp.launches = 0
+            start = time.perf_counter()
+            model = matfree_gp(lane).fit(xp[tr], yp_tr)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - start
+            total = (sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches)
+        finally:
+            GaussianProcessRegression._emit_solver_stats = emit_solver_stats
+            it_ops.set_solver_lane(None)
+        pred = model.predict(xp[te]) * y_std + y_mean
+        if not np.all(np.isfinite(pred)) or pred.shape != te.shape:
+            raise AssertionError(f"protein-matfree ({lane}) predictions not finite")
+        fits[lane] = {"rmse": rmse(yp[te], pred), "fit_seconds": fit_s,
+                      **{key: model.metrics[key] for key in PHASES},
+                      "nfev": model.metrics["lbfgs_nfev"],
+                      "theta": model.raw_predictor.theta.tolist(),
+                      **{k: v for k, v in model.metrics.items() if k.startswith("solver")}}
+        if lane == "matfree":
+            mf_model, mf_total = model, total
+    nfev = fits["matfree"]["nfev"]
+    launches_k2 = mf_total[0] - report_launches["streamed_matvec"]
+    launches_vjp = mf_total[1] - report_launches["streamed_matvec_vjp"]
+    if launches_k2 != nfev * (cfg.iters + 2) or launches_vjp != nfev * 2:
+        raise AssertionError(f"protein-matfree: {launches_k2} K2 and {launches_vjp} "
+                             f"K2-VJP launches for {nfev} evaluations")
+    if report_launches != {"streamed_matvec": cfg.iters, "streamed_matvec_vjp": 0}:
+        raise AssertionError(f"solver report launches {report_launches}")
+    if fits["matfree"]["solver.matfree_engaged"] != 1.0:
+        raise AssertionError("the matfree fit did not engage the matrix-free lane")
+
+    # peak CUDA memory of one objective evaluation at the fitted theta,
+    # above what was allocated before it, on each solver lane
+    peaks_eval = {}
+    for lane in ("matfree", "iterative"):
+        it_ops.set_solver_lane(lane)
+        try:
+            vag = make_value_and_grad(mf_kernel, mf_data)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            vag(mf_model.raw_predictor.theta)
+            peaks_eval[lane] = torch.cuda.max_memory_allocated() - base
+        finally:
+            it_ops.set_solver_lane(None)
+    if not peaks_eval["matfree"] < gram_stack_bytes / 4:
+        raise AssertionError(f"matfree evaluation peak {peaks_eval['matfree']} bytes "
+                             f">= a quarter of the {gram_stack_bytes}-byte gram stack")
+    rm, ri, rx = (fits[k]["rmse"] for k in ("matfree", "iterative", "exact"))
+    emit({"phase": "protein-matfree", "num_experts": mf_model.metrics["num_experts"],
+          "expert_size": mf_model.metrics["expert_size"], **fits["matfree"],
+          "launches": {"streamed_matvec": launches_k2, "streamed_matvec_vjp": launches_vjp,
+                       "solver_report": report_launches},
+          "eval_peak_cuda_bytes": peaks_eval, "gram_stack_bytes": gram_stack_bytes,
+          "iterative": fits["iterative"], "exact": fits["exact"],
+          "rmse_bars": {"vs_iterative": 0.02, "vs_exact": 0.05}})
+    if not (abs(rm - ri) <= 0.02 * ri and abs(rm - rx) <= 0.05 * rx):
+        raise AssertionError(f"protein-matfree RMSE {rm}: iterative {ri}, exact {rx}")
+
+    # 11. matfree-profile: one matrix-free evaluation at the fitted theta
+    it_ops.set_solver_lane("matfree")
+    try:
+        launches = (sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches)
+        prof = profile_objective(torch, make_value_and_grad(mf_kernel, mf_data),
+                                 mf_model.raw_predictor.theta, reps=3, shares=K2_NAMES)
+        sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches = launches
+    finally:
+        it_ops.set_solver_lane(None)
+    emit({"phase": "matfree-profile", "config": "protein-matfree", **prof})
+
+    # 12. kernels: K1 at the protein stack, then at the airfoil fold's,
+    # launches over both exact-lane fits; K2 at a CG step's width (n = 9)
+    # and K2-VJP at the surrogate leg's (n = 8), launches over the
+    # protein-matfree fit (optimization and solver report).  Each error
+    # is the RBF map's (the path's) at the shape its entry names.
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    k2_rows, vjp_rows = k2_timing["streamed_matvec"], k2_timing["streamed_matvec_vjp"]
+
+    def leg(rows, n, err):
+        return {"shape": [9, 4065, 9, n], **{key: rows[f"n{n}"][key] for key in keys},
+                "max_abs_err": k2_errs[f"slice/n{n}/rbf"][err]}
+
     emit({"kernels": [{
         "name": "spd_inv_logdet",
         "route": "cuda",
@@ -413,6 +725,29 @@ def main() -> int:
         **{key: timing["protein"][key] for key in keys},
         "airfoil_fold": {"shape": [14, 97],
                          **{key: timing["airfoil_fold"][key] for key in keys}},
+        "checked": True,
+    }, {
+        "name": "streamed_matvec",
+        "route": "cuda",
+        "source": "spark_gp_tpu_torch/csrc/streamed_matvec.cu",
+        "replaces": "spark_gp_tpu/ops/pallas_matvec.py:211",
+        "launches": launches_k2 + report_launches["streamed_matvec"],
+        "launches_optimize": launches_k2,
+        "launches_solver_report": report_launches["streamed_matvec"],
+        **leg(k2_rows, 9, "matvec"),
+        "max_rel_err_all_checks": max(e["matvec_rel"] for e in k2_errs.values()),
+        "legs": {f"n{n}": leg(k2_rows, n, "matvec") for n in (1, 8)},
+        "checked": True,
+    }, {
+        "name": "streamed_matvec_vjp",
+        "route": "cuda",
+        "source": "spark_gp_tpu_torch/csrc/streamed_matvec.cu",
+        "replaces": "spark_gp_tpu/ops/pallas_matvec.py:133",
+        "replaces_note": "no Pallas kernel: XLA differentiates the checkpointed scan",
+        "launches": launches_vjp,
+        **leg(vjp_rows, 8, "vjp"),
+        "max_rel_err_all_checks": max(e["vjp_rel"] for e in k2_errs.values()),
+        "legs": {"n1": leg(vjp_rows, 1, "vjp")},
         "checked": True,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,15 +8,25 @@ setter names and numerics match the JAX package, which stays the
 reference the port is tested against.
 
 Entry points run on ``cuda`` (float32) unless the caller asks for ``cpu``
-(float64).  On the card the batched SPD inverse of every objective
-evaluation is the hand-written CUDA kernel ``csrc/spd_inv_logdet.cu``.
+(float64).  On the card the batched SPD inverse of every exact-lane
+objective evaluation is the hand-written CUDA kernel
+``csrc/spd_inv_logdet.cu``; on the matrix-free solver lane
+(``setSolverLane("matfree")``) every gram-matrix product is the
+hand-written kernel ``csrc/streamed_matvec.cu``, and the ``[E, s, s]``
+gram stack is never built.
 """
 
 from spark_gp_tpu_torch.kernels import (
     ARDRBFKernel,
     Const,
+    DotProductKernel,
     EyeKernel,
     Kernel,
+    Matern12Kernel,
+    Matern32Kernel,
+    Matern52Kernel,
+    PolynomialKernel,
+    RationalQuadraticKernel,
     RBFKernel,
     Scalar,
     SumKernel,
@@ -36,6 +46,12 @@ __all__ = [
     "Kernel",
     "RBFKernel",
     "ARDRBFKernel",
+    "Matern12Kernel",
+    "Matern32Kernel",
+    "Matern52Kernel",
+    "RationalQuadraticKernel",
+    "DotProductKernel",
+    "PolynomialKernel",
     "EyeKernel",
     "WhiteNoiseKernel",
     "SumKernel",

@@ -10,6 +10,17 @@ from spark_gp_tpu_torch.kernels.base import (
     SumKernel,
     TrainableScaleKernel,
     WhiteNoiseKernel,
+    supports_matfree,
+)
+from spark_gp_tpu_torch.kernels.families import (
+    DotProductKernel,
+    PolynomialKernel,
+    RationalQuadraticKernel,
+)
+from spark_gp_tpu_torch.kernels.matern import (
+    Matern12Kernel,
+    Matern32Kernel,
+    Matern52Kernel,
 )
 from spark_gp_tpu_torch.kernels.rbf import ARDRBFKernel, RBFKernel
 
@@ -25,4 +36,11 @@ __all__ = [
     "WhiteNoiseKernel",
     "RBFKernel",
     "ARDRBFKernel",
+    "Matern12Kernel",
+    "Matern32Kernel",
+    "Matern52Kernel",
+    "RationalQuadraticKernel",
+    "DotProductKernel",
+    "PolynomialKernel",
+    "supports_matfree",
 ]

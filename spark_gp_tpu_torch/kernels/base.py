@@ -15,8 +15,12 @@ The composition DSL is the JAX package's:
 >>> k = Scalar(1.0).between(0).and_(30) * ARDRBFKernel(5)
 >>> k = Const(1.0) * EyeKernel()
 
-Not ported yet: products of kernels, the theta-invariant gram cache
-(``prepare``) and the matrix-free matvec protocol (ROADMAP.md queue 1).
+The matrix-free matvec protocol (``prepare_matvec`` /
+``matvec_from_prepared``, :func:`supports_matfree`) lets the matfree
+solver lane apply a kernel's gram without building it.
+
+Not ported yet: products of kernels and the theta-invariant gram cache
+(``prepare``) (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -39,9 +43,20 @@ class Kernel:
     * ``cross(theta, x_test, x_train)`` -- ``[..., t, n]`` cross kernel.
     * ``diag(theta, x)`` / ``self_diag(theta, x)`` -- ``[..., n]``.
     * ``white_noise_var(theta)`` -- scalar white-noise variance.
+    * ``prepare_matvec(x)`` / ``matvec_from_prepared(theta, mcache, v)`` --
+      the matrix-free streaming hooks: ``prepare_matvec`` returns the
+      theta-invariant streaming operand (the ``[..., s, p]`` row stack
+      itself for every streamed family), ``matvec_from_prepared`` computes
+      ``gram(theta, x) @ v`` for ``v [..., s, n]`` without building the
+      gram (``ops/streamed_matvec.py``).  ``None`` (the class default)
+      means "cannot stream"; composites null both per instance when a
+      child lacks them, so ``matvec_from_prepared is None`` is the one
+      capability test (:func:`supports_matfree`).
     """
 
     n_hypers: int = 0
+    prepare_matvec = None
+    matvec_from_prepared = None
 
     def init_theta(self) -> np.ndarray:
         return np.zeros((0,), dtype=np.float64)
@@ -169,6 +184,12 @@ class EyeKernel(Kernel):
     def white_noise_var(self, theta):
         return torch.ones((), dtype=theta.dtype, device=theta.device)
 
+    def prepare_matvec(self, x):
+        return None  # the identity needs no operand
+
+    def matvec_from_prepared(self, theta, mcache, v):
+        return v
+
 
 class SumKernel(Kernel):
     """``k1 + k2`` with concatenated hyperparameter vectors (``k1`` first)."""
@@ -177,6 +198,10 @@ class SumKernel(Kernel):
         self.k1 = k1
         self.k2 = k2
         self.n_hypers = k1.n_hypers + k2.n_hypers
+        if k1.matvec_from_prepared is None or k2.matvec_from_prepared is None:
+            # streaming composes: both children or neither
+            self.prepare_matvec = None
+            self.matvec_from_prepared = None
 
     def _split(self, theta):
         return theta[: self.k1.n_hypers], theta[self.k1.n_hypers:]
@@ -192,6 +217,16 @@ class SumKernel(Kernel):
     def gram(self, theta, x):
         t1, t2 = self._split(theta)
         return self.k1.gram(t1, x) + self.k2.gram(t2, x)
+
+    def prepare_matvec(self, x):
+        return self.k1.prepare_matvec(x), self.k2.prepare_matvec(x)
+
+    def matvec_from_prepared(self, theta, mcache, v):
+        # (K1 + K2) v = K1 v + K2 v: two streamed passes, still no gram
+        t1, t2 = self._split(theta)
+        c1, c2 = mcache
+        return (self.k1.matvec_from_prepared(t1, c1, v)
+                + self.k2.matvec_from_prepared(t2, c2, v))
 
     def cross(self, theta, x_test, x_train):
         t1, t2 = self._split(theta)
@@ -222,6 +257,9 @@ class TrainableScaleKernel(Kernel):
         self.lower = float(lower)
         self.upper = float(upper)
         self.n_hypers = 1 + kernel.n_hypers
+        if kernel.matvec_from_prepared is None:
+            self.prepare_matvec = None
+            self.matvec_from_prepared = None
 
     def init_theta(self):
         return np.concatenate([[self.c0], self.kernel.init_theta()])
@@ -235,6 +273,13 @@ class TrainableScaleKernel(Kernel):
 
     def gram(self, theta, x):
         return theta[0] * self.kernel.gram(theta[1:], x)
+
+    def prepare_matvec(self, x):
+        return self.kernel.prepare_matvec(x)
+
+    def matvec_from_prepared(self, theta, mcache, v):
+        # (C K) v = C (K v): the scale rides outside the stream
+        return theta[0] * self.kernel.matvec_from_prepared(theta[1:], mcache, v)
 
     def cross(self, theta, x_test, x_train):
         return theta[0] * self.kernel.cross(theta[1:], x_test, x_train)
@@ -258,6 +303,9 @@ class ConstScaleKernel(Kernel):
         self.kernel = kernel
         self.c = float(c)
         self.n_hypers = kernel.n_hypers
+        if kernel.matvec_from_prepared is None:
+            self.prepare_matvec = None
+            self.matvec_from_prepared = None
 
     def init_theta(self):
         return self.kernel.init_theta()
@@ -267,6 +315,12 @@ class ConstScaleKernel(Kernel):
 
     def gram(self, theta, x):
         return self.c * self.kernel.gram(theta, x)
+
+    def prepare_matvec(self, x):
+        return self.kernel.prepare_matvec(x)
+
+    def matvec_from_prepared(self, theta, mcache, v):
+        return self.c * self.kernel.matvec_from_prepared(theta, mcache, v)
 
     def cross(self, theta, x_test, x_train):
         return self.c * self.kernel.cross(theta, x_test, x_train)
@@ -336,6 +390,14 @@ def Const(c: float) -> Scalar:
 def WhiteNoiseKernel(initial: float, lower: float, upper: float) -> Kernel:
     """Trainable white noise: ``(initial between lower and upper) * EyeKernel``."""
     return Scalar(initial, lower, upper) * EyeKernel()
+
+
+def supports_matfree(kernel: Kernel) -> bool:
+    """True when ``kernel`` (and, for composites, every child) implements
+    the streaming matvec protocol, so it can run the matrix-free solver
+    lane.  ``False`` -- ARD metrics, custom kernels -- keeps the
+    materialized path."""
+    return kernel.matvec_from_prepared is not None
 
 
 def masked_gram_stack(kernel: Kernel, theta, x, mask):

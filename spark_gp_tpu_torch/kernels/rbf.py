@@ -1,6 +1,8 @@
 """RBF and ARD-RBF kernels: one matmul for the distances (``ops/distance.py``)
 followed by an elementwise ``exp``.  Hyperparameter derivatives come from
-autograd."""
+autograd.  The RBF map is one definition (``ops/streamed_matvec.rbf_tile``)
+shared by ``gram``, ``cross`` and the matfree lane's streamed tiles; the
+ARD metric has no streaming form."""
 
 from __future__ import annotations
 
@@ -13,22 +15,24 @@ from spark_gp_tpu_torch.ops.distance import (
     weighted_sq_dist,
     weighted_sq_dist_self,
 )
+from spark_gp_tpu_torch.ops.streamed_matvec import rbf_tile, streamed_matvec
 
 
 class RBFKernel(ScalarLengthscaleHypers):
     """``k(x_i, x_j) = exp(-|x_i - x_j|^2 / (2 sigma^2))`` with one trainable
     length-scale ``sigma`` bounded in ``[lower, upper]``."""
 
-    @staticmethod
-    def _k(theta, sqd):
-        sigma = theta[0]
-        return torch.exp(sqd / (-2.0 * sigma * sigma))
-
     def gram(self, theta, x):
-        return self._k(theta, sq_dist_self(x))
+        return rbf_tile(theta, sq_dist_self(x))
 
     def cross(self, theta, x_test, x_train):
-        return self._k(theta, sq_dist(x_test, x_train))
+        return rbf_tile(theta, sq_dist(x_test, x_train))
+
+    def prepare_matvec(self, x):
+        return x
+
+    def matvec_from_prepared(self, theta, mcache, v):
+        return streamed_matvec(mcache, v, "rbf", theta)
 
 
 class ARDRBFKernel(ARDHypers):

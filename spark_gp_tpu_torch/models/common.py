@@ -14,12 +14,21 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from spark_gp_tpu_torch.kernels.base import Const, EyeKernel, Kernel
+from spark_gp_tpu_torch.kernels.base import (
+    Const,
+    EyeKernel,
+    Kernel,
+    masked_gram_stack,
+    supports_matfree,
+)
 from spark_gp_tpu_torch.models import ppa
+from spark_gp_tpu_torch.models.likelihood import masked_matfree_operator
 from spark_gp_tpu_torch.models.active_set import (
     ActiveSetProvider,
     RandomActiveSetProvider,
 )
+from spark_gp_tpu_torch.ops import iterative as it_ops
+from spark_gp_tpu_torch.ops.streamed_matvec import matvec_tiles
 from spark_gp_tpu_torch.optimize.lbfgsb import (
     OptimizeResult,
     log_space_applicable,
@@ -132,6 +141,21 @@ class GaussianProcessParams:
             raise _not_ported("sharding experts over several devices", 6)
         return self
 
+    def setSolverLane(self, value: str):
+        """Solver lane of the fit objective (``ops/iterative.py``):
+        ``"exact"`` (the default: batched factorizations), ``"iterative"``
+        (batched preconditioned CG + stochastic Lanczos quadrature on the
+        materialized gram stack), ``"matfree"`` (the same solver with every
+        gram product streamed, so the ``[E, s, s]`` stack is never built;
+        kernels without the streaming protocol run ``"iterative"``) or
+        ``"auto"`` (iterative from ``GP_SOLVER_AUTO_THRESHOLD`` rows per
+        expert, default 1024).  A fluent veneer over the process-wide
+        setting (``set_solver_lane`` / ``GP_SOLVER_LANE``): it applies to
+        every later fit.  The engaged lane and the convergence report
+        (``solver.*``) land in ``model.metrics``."""
+        it_ops.set_solver_lane(value)
+        return self
+
     def setCheckpointDir(self, path: Optional[str]):
         if path is not None:
             raise _not_ported("optimizer checkpointing", 7)
@@ -163,6 +187,7 @@ class GaussianProcessParams:
     set_optimizer = setOptimizer
     set_num_restarts = setNumRestarts
     set_mesh = setMesh
+    set_solver_lane = setSolverLane
     set_checkpoint_dir = setCheckpointDir
 
 
@@ -253,3 +278,45 @@ class GaussianProcessCommons(GaussianProcessParams):
             u2=np.asarray(u2, dtype=np.float64),
             device=str(device),
         )
+
+    def _emit_solver_stats(self, metrics: dict, kernel: Kernel, theta,
+                           data: ExpertData) -> None:
+        """The solver lane's fit-time record, into ``metrics``.
+
+        Always stamps the engaged lane (``solver_lane``).  On the iterative
+        and matfree lanes it also runs one forward pass of the solver at
+        the fitted theta over the first (at most) 8 experts and records
+        ``solver.cg_iters``, ``solver.precond_rank``, ``solver.probes`` and
+        ``solver.residual``.  A matfree fit's pass runs the streamed
+        operator the fit ran -- never a materialized stand-in -- and adds
+        ``solver.matfree_engaged`` and ``solver.matvec_tiles``."""
+        resolved = it_ops.resolve_solver(data.expert_size)
+        metrics["solver_lane"] = resolved
+        if resolved not in ("iterative", "matfree"):
+            return
+        probe = min(8, data.num_experts)
+        x_p, mask_p = data.x[:probe], data.mask[:probe]
+        y_p = data.y[:probe] * mask_p
+        theta_p = torch.as_tensor(
+            np.asarray(theta, dtype=np.float64), dtype=data.x.dtype, device=data.x.device
+        )
+        with torch.no_grad():
+            if resolved == "matfree" and supports_matfree(kernel):
+                _, mv_sg, diag_sg, col_sg = masked_matfree_operator(
+                    kernel, theta_p, x_p, mask_p
+                )
+                report = it_ops.solver_report(
+                    None, y_p, matvec=mv_sg, diag=diag_sg, col_fn=col_sg
+                )
+                metrics["solver.matfree_engaged"] = 1.0
+                metrics["solver.matvec_tiles"] = float(matvec_tiles(data.expert_size))
+            else:
+                report = it_ops.solver_report(
+                    masked_gram_stack(kernel, theta_p, x_p, mask_p), y_p
+                )
+                if resolved == "matfree":
+                    # matfree asked, but the kernel cannot stream: the fit
+                    # ran the materialized iterative lane
+                    metrics["solver.matfree_engaged"] = 0.0
+        for key in ("cg_iters", "precond_rank", "probes", "residual"):
+            metrics[f"solver.{key}"] = float(report[key])

@@ -1,9 +1,10 @@
 """Gaussian Process Regression -- BCM fit + PPA prediction.
 
 ``fit`` groups the points into experts, optimizes the noise-augmented
-kernel's hyperparameters against the summed per-expert exact NLL
-(autograd gradients, host L-BFGS-B within the kernel's box bounds), then
-builds the m-point Projected Process model.  The fitted model predicts
+kernel's hyperparameters against the summed per-expert NLL on the solver
+lane in effect (``setSolverLane``; autograd gradients, host L-BFGS-B
+within the kernel's box bounds), then builds the m-point Projected
+Process model.  The fitted model predicts
 the posterior mean (``predict``) and variance (``predict_with_var``).
 """
 
@@ -80,6 +81,7 @@ class GaussianProcessRegression(GaussianProcessCommons):
             "optimize_seconds": clock[2] - clock[1],
             "ppa_seconds": clock[3] - clock[2],
         }
+        self._emit_solver_stats(model.metrics, kernel, res.theta, data)
         return model
 
 

@@ -1,18 +1,24 @@
-"""BCM (product-of-experts) marginal likelihood for GP regression, exact lane.
+"""BCM (product-of-experts) marginal likelihood for GP regression.
 
 Per expert, with the noise-augmented kernel matrix K,
 
     NLL_e = 1/2 y^T K^-1 y + 1/2 log|K|      (constant term dropped)
 
 and the objective is the sum over experts.  The gradient is autograd's.
-Two branches compute the same value, as in the JAX package:
+The solver lane (``ops/iterative.py``) picks how the two terms are
+computed, as in the JAX package:
 
-* a CUDA float32 stack with ``s <= 512`` goes through the batched
-  inverse kernel (``ops/spd_linalg.spd_inv_logdet``): ``K^-1`` and the
-  logdets in one launch, then ``alpha = K^-1 y``; its backward is two
-  batched matmuls;
-* anything else (the CPU, float64, larger experts) takes one batched
-  Cholesky, one vector solve and the logdet from the diagonal.
+* ``matfree`` (for kernels with the streaming protocol): CG / SLQ on the
+  injected operator of :func:`masked_matfree_operator`; every product is
+  the streamed kernel ``ops/streamed_matvec.py`` and the ``[E, s, s]``
+  gram stack is never built;
+* ``iterative`` (and ``matfree`` for a kernel that cannot stream): the
+  same CG / SLQ engine on the materialized gram stack;
+* ``exact``: on a CUDA float32 stack with ``s <= 512`` the batched
+  inverse kernel (``ops/spd_linalg.spd_inv_logdet``), then
+  ``alpha = K^-1 y``; anything else (the CPU, float64, larger experts)
+  one batched Cholesky, one vector solve and the logdet from the
+  diagonal.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
+from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack, supports_matfree
+from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops.linalg import chol_logdet, chol_solve, cholesky
 from spark_gp_tpu_torch.ops.spd_linalg import kernel_applies, spd_inv_logdet
 from spark_gp_tpu_torch.parallel.experts import ExpertData
@@ -43,10 +50,73 @@ def nll_from_cholesky(kmat, ym):
     )
 
 
+def masked_matfree_operator(kernel: Kernel, theta, x, mask, jitter=None):
+    """The masked (and optionally jittered) NLL operator as closures: the
+    matfree lane's stand-in for ``masked_gram_stack``.
+
+    With ``m`` the 0/1 mask the materialized operator is
+    ``M K M + diag(1 - m) + c I`` (``c = jitter * trace / s``, the
+    trace-relative ridge, when ``jitter`` -- a scalar or ``[E]`` -- is
+    given), so its product is ``m * K(m * v) + ((1 - m) + c) * v``: the
+    kernel's product streams, the masking and the ridge are O(s) dressing
+    applied here.
+
+    Returns ``(matvec, matvec_sg, diag_sg, col_fn_sg)`` for
+    ``ops.iterative.inv_quad_logdet_matfree``: ``matvec`` differentiable in
+    ``theta``, ``matvec_sg`` its detached twin, ``diag_sg [E, s]`` the
+    detached diagonal and ``col_fn_sg(piv)`` the pivot-column oracle.  A
+    column is ``kernel.cross`` against the single pivot row with its own
+    entry pinned from ``diag_sg`` (the Eye ridge's ``cross`` is zero)."""
+    s = x.shape[-2]
+    mcache = kernel.prepare_matvec(x)
+    mdiag = mask * kernel.diag(theta, x) + (1.0 - mask)
+    if jitter is not None:
+        trace = torch.sum(mdiag, dim=-1)
+        ok = torch.isfinite(trace) & (trace > 0)
+        scale = torch.where(ok, trace / s, torch.ones_like(trace))
+        c = torch.as_tensor(jitter, dtype=x.dtype, device=x.device) * scale
+    else:
+        c = x.new_zeros(mask.shape[:-1])
+    diag_sg = (mdiag + c[..., None]).detach()
+    theta_sg, c_sg = theta.detach(), c.detach()
+
+    def _apply(th, cj, v):
+        mv = mask[..., None] * kernel.matvec_from_prepared(th, mcache, mask[..., None] * v)
+        return mv + ((1.0 - mask) + cj[..., None])[..., None] * v
+
+    def matvec(v):
+        return _apply(theta, c, v)
+
+    def matvec_sg(v):
+        return _apply(theta_sg, c_sg, v)
+
+    iota = torch.arange(s, device=x.device)
+
+    def col_fn_sg(piv):
+        x_piv = torch.gather(x, -2, piv[..., None, None].expand(piv.shape + (1, x.shape[-1])))
+        kcol = kernel.cross(theta_sg, x_piv, x)[..., 0, :]  # K[piv, :] = K[:, piv]
+        m_piv = torch.gather(mask, -1, piv[..., None])
+        d_piv = torch.gather(diag_sg, -1, piv[..., None])
+        return torch.where(iota == piv[..., None], d_piv, mask * kcol * m_piv)
+
+    return matvec, matvec_sg, diag_sg, col_fn_sg
+
+
 def batched_nll(kernel: Kernel, theta, data: ExpertData):
-    """Sum of per-expert NLLs over the ``[E, s, ...]`` stack."""
-    kmat = masked_gram_stack(kernel, theta, data.x, data.mask)
+    """Sum of per-expert NLLs over the ``[E, s, ...]`` stack, on the lane
+    ``ops.iterative.resolve_solver`` picks for the expert size."""
+    resolved = it_ops.resolve_solver(data.expert_size)
     ym = data.y * data.mask
+    if resolved == "matfree" and supports_matfree(kernel):
+        # this branch runs before any gram is built: every product streams
+        quad, logdet = it_ops.inv_quad_logdet_matfree(
+            *masked_matfree_operator(kernel, theta, data.x, data.mask), ym
+        )
+        return 0.5 * torch.sum(quad) + 0.5 * torch.sum(logdet)
+    kmat = masked_gram_stack(kernel, theta, data.x, data.mask)
+    if resolved in ("iterative", "matfree"):
+        quad, logdet = it_ops.inv_quad_logdet(kmat, ym)
+        return 0.5 * torch.sum(quad) + 0.5 * torch.sum(logdet)
     if kernel_applies(kmat):
         return nll_from_inverse(kmat, ym)
     return nll_from_cholesky(kmat, ym)

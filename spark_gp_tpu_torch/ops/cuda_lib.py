@@ -60,36 +60,46 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str, force: bool = False):
-    """Compile ``csrc/<name>.cu`` unless it is built already (always with
-    ``force``).  Returns ``(seconds, log)`` for a compile made now (``log``
-    is nvcc's ``-Xptxas -v`` report), ``None`` when the built library was
-    reused; raises with the compiler's output when the build fails."""
-    target = library_path(name)
-    if target.is_file() and not force:
-        return None
+def build_all(names, force: bool = False) -> dict:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built
+    already (all of them with ``force``), one ``nvcc`` per source, all
+    started together.  Returns ``{name: (seconds, log)}`` for the compiles
+    made now (``log`` is nvcc's ``-Xptxas -v`` report); raises with the
+    compiler's output when a build fails."""
+    todo = [n for n in names if force or not library_path(n).is_file()]
+    if not todo:
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = nvcc_path()
     start = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        Path(tmp).unlink(missing_ok=True)
-        raise RuntimeError(
-            f"kernel build failed: {name}: nvcc exit {proc.returncode}\n{proc.stdout}"
+    jobs = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, target)
-    return time.perf_counter() - start, proc.stdout
+        jobs[name] = (proc, tmp)
+    done, failed = {}, []
+    for name, (proc, tmp) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            Path(tmp).unlink(missing_ok=True)
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, library_path(name))
+        done[name] = (time.perf_counter() - start, log)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return done
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        build(name)
+        build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib

@@ -1,0 +1,458 @@
+"""Iterative expert inference: the batched CG / Lanczos solver lanes, the
+port of the JAX package's ``ops/iterative.py`` (regression part).
+
+The exact lane pays a batched ``[E, s, s]`` factorization per objective
+evaluation; past a few hundred rows per expert that factorization (and,
+on the matfree lane, the gram stack itself) is the cost.  Following
+GPyTorch's blackbox matrix-matrix inference (arXiv 1809.11165) this
+module expresses the marginal NLL's two terms through products alone:
+
+* **batched preconditioned conjugate gradients** over the whole stack,
+  multi-RHS so the solve against ``y`` and the probe vectors share one
+  product per step (:func:`batched_pcg`), with a fixed trip count and
+  converged columns frozen by ``torch.where`` -- no host sync in the loop;
+* a **partial pivoted-Cholesky preconditioner** of rank ``k << s``,
+  built from a column oracle (:func:`pivoted_cholesky_cols`) and applied
+  through the Woodbury identity; its exact log-determinant anchors the
+  log-det estimate;
+* **stochastic Lanczos quadrature** for the log-det from the PCG
+  coefficients (:func:`slq_logdet_from_coeffs`), with the Hutchinson
+  surrogate ``mean_i v_i^T K u_i`` carrying its gradient.
+
+No autograd traverses the CG loop: the quadratic term is the CG
+iterate's variational value ``2 a^T y - a^T K a`` with ``a`` detached
+(exact gradient ``-a a^T``), and the log-det is
+``(slq - surr).detach() + surr``.  Only two products of the operator are
+differentiated per evaluation.
+
+:func:`inv_quad_logdet_matfree` takes the operator as closures -- the
+matfree lane streams every product through ``ops/streamed_matvec.py`` and
+never builds the gram -- and :func:`inv_quad_logdet` runs the same
+engine on a materialized stack (``torch`` matmuls).
+
+Lane selection: ``GP_SOLVER_LANE`` in {``exact``, ``iterative``,
+``matfree``, ``auto``}, :func:`set_solver_lane` (process-wide),
+:func:`solver_lane_scope` (thread-local), default ``exact``.  ``auto``
+switches to ``iterative`` when the expert size reaches
+``GP_SOLVER_AUTO_THRESHOLD`` (default 1024); the JAX package's flip to
+``matfree`` under a memory budget waits for the memory planner
+(ROADMAP.md queue 1, item 2).  Knobs, read when an objective is built:
+``GP_SOLVER_MAX_ITERS`` (default ``min(s, 64)``), ``GP_SOLVER_PROBES``
+(8), ``GP_SOLVER_PRECOND_RANK`` (``min(s, 64)``), ``GP_SOLVER_CG_TOL``
+(1e-5), ``GP_SOLVER_SEED`` (0; the probes are redrawn from it at every
+evaluation, so the objective is a deterministic surrogate).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from spark_gp_tpu_torch.ops.linalg import chol_solve, cholesky
+
+# --------------------------------------------------------------------------
+# the solver-lane policy
+# --------------------------------------------------------------------------
+
+SOLVER_LANES = ("exact", "iterative", "matfree", "auto")
+
+_LANE_OVERRIDE: Optional[str] = None
+_SCOPE = threading.local()
+
+
+def _validate_lane(lane, source: str) -> str:
+    lane = str(lane).strip().lower()
+    if lane not in SOLVER_LANES:
+        raise ValueError(
+            f"{source}={lane!r} is not a solver lane; use one of "
+            f"{sorted(SOLVER_LANES)}"
+        )
+    return lane
+
+
+def active_solver_lane() -> str:
+    """The lane in effect: innermost :func:`solver_lane_scope`, else the
+    :func:`set_solver_lane` process override, else ``GP_SOLVER_LANE``,
+    else ``exact``."""
+    scoped = getattr(_SCOPE, "lane", None)
+    if scoped is not None:
+        return scoped
+    if _LANE_OVERRIDE is not None:
+        return _LANE_OVERRIDE
+    env = os.environ.get("GP_SOLVER_LANE")
+    if env is None or not env.strip():
+        return "exact"
+    return _validate_lane(env, "GP_SOLVER_LANE")
+
+
+def set_solver_lane(lane):
+    """Process-wide lane setter (the programmatic twin of
+    ``GP_SOLVER_LANE``); ``None`` clears the override.  Returns the
+    previous override."""
+    global _LANE_OVERRIDE
+    previous = _LANE_OVERRIDE
+    _LANE_OVERRIDE = None if lane is None else _validate_lane(lane, "set_solver_lane")
+    return previous
+
+
+@contextlib.contextmanager
+def solver_lane_scope(lane):
+    """Pin the lane for this thread inside the block; ``None`` is a no-op."""
+    if lane is None:
+        yield
+        return
+    lane = _validate_lane(lane, "solver_lane_scope")
+    prev = getattr(_SCOPE, "lane", None)
+    _SCOPE.lane = lane
+    try:
+        yield
+    finally:
+        _SCOPE.lane = prev
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "").strip()
+    try:
+        return int(raw) if raw else default
+    except ValueError:
+        return default
+
+
+def auto_threshold() -> int:
+    """Expert size at which ``auto`` switches to ``iterative``
+    (``GP_SOLVER_AUTO_THRESHOLD``, default 1024)."""
+    return _env_int("GP_SOLVER_AUTO_THRESHOLD", 1024)
+
+
+def resolve_solver(expert_size: int, lane: Optional[str] = None) -> str:
+    """``exact``, ``iterative`` or ``matfree`` for experts of
+    ``expert_size`` rows under ``lane`` (default: the active lane);
+    ``auto`` resolves by the size threshold alone."""
+    lane = active_solver_lane() if lane is None else _validate_lane(lane, "resolve_solver")
+    if lane != "auto":
+        return lane
+    return "exact" if int(expert_size) < auto_threshold() else "iterative"
+
+
+class SolverConfig(NamedTuple):
+    """The iterative lane's knobs for one expert size."""
+
+    iters: int
+    probes: int
+    rank: int
+    tol: float
+    seed: int
+
+
+def solver_config(expert_size: int) -> SolverConfig:
+    """The knobs for experts of ``expert_size`` rows, from the
+    ``GP_SOLVER_*`` variables with the JAX package's defaults."""
+    s = int(expert_size)
+    iters = _env_int("GP_SOLVER_MAX_ITERS", 0) or min(s, 64)
+    rank = _env_int("GP_SOLVER_PRECOND_RANK", 0) or min(s, 64)
+    raw = os.environ.get("GP_SOLVER_CG_TOL", "").strip()
+    try:
+        tol = float(raw) if raw else 1e-5
+    except ValueError:
+        tol = 1e-5
+    return SolverConfig(
+        iters=min(iters, s),
+        probes=_env_int("GP_SOLVER_PROBES", 8),
+        rank=min(rank, s),
+        tol=tol,
+        seed=_env_int("GP_SOLVER_SEED", 0),
+    )
+
+
+# --------------------------------------------------------------------------
+# partial pivoted Cholesky + Woodbury preconditioner
+# --------------------------------------------------------------------------
+
+
+def pivoted_cholesky_cols(diag0, col_fn, rank: int):
+    """Greedy rank-``k`` pivoted partial Cholesky from a column oracle:
+    ``diag0 [..., s]`` is the SPD stack's diagonal and ``col_fn(piv)``
+    returns the ``[..., s]`` column at the per-batch pivot ``piv [...]``.
+    Returns ``(L [..., s, k], delta [...])`` with ``L L^T ~= K`` on the k
+    dominant pivots and ``delta`` the mean residual diagonal, floored at
+    ``100 eps trace / s`` so ``P = L L^T + delta I`` is SPD.  No host sync:
+    pivots stay on the device."""
+    s = diag0.shape[-1]
+    k = max(1, min(int(rank), s))
+    batch = diag0.shape[:-1]
+    trace = torch.sum(diag0, dim=-1)
+    scale = torch.where(trace > 0, trace / s, torch.ones_like(trace))
+    floor = 100.0 * torch.finfo(diag0.dtype).eps * scale
+    lmat = diag0.new_zeros(batch + (s, k))
+    d = diag0
+    iota = torch.arange(s, device=diag0.device)
+    for j in range(k):
+        piv = torch.argmax(d, dim=-1)
+        dmax = torch.gather(d, -1, piv[..., None])[..., 0]
+        ok = dmax > floor
+        col = col_fn(piv)
+        lrow = torch.gather(lmat, -2, piv[..., None, None].expand(batch + (1, k)))[..., 0, :]
+        proj = torch.einsum("...sk,...k->...s", lmat, lrow)
+        denom = torch.sqrt(torch.where(ok, dmax, 1.0))
+        newcol = torch.where(ok[..., None], (col - proj) / denom[..., None], 0.0)
+        lmat[..., :, j] = newcol
+        d = torch.clamp_min(d - newcol * newcol, 0.0)
+        # exclude the chosen pivot from later rounds
+        d = torch.where(iota == piv[..., None], -torch.inf, d)
+    resid = torch.where(d > 0, d, 0.0)
+    delta = torch.maximum(torch.sum(resid, dim=-1) / max(s - k, 1), floor)
+    return lmat, delta
+
+
+def _gather_col(kmat):
+    """The column oracle of a materialized ``[..., s, s]`` stack."""
+    s = kmat.shape[-1]
+
+    def col_fn(piv):
+        idx = piv[..., None, None].expand(piv.shape + (s, 1))
+        return torch.gather(kmat, -1, idx)[..., 0]
+
+    return col_fn
+
+
+def pivoted_cholesky(kmat, rank: int):
+    """:func:`pivoted_cholesky_cols` of a materialized ``[..., s, s]`` SPD
+    stack (pass a detached view: the preconditioner is numerics, never
+    part of the autograd graph)."""
+    return pivoted_cholesky_cols(torch.diagonal(kmat, dim1=-2, dim2=-1), _gather_col(kmat), rank)
+
+
+def woodbury_factor(lmat, delta):
+    """Cholesky of ``C = delta I_k + L^T L`` (``[..., k, k]``); NaN when it
+    fails."""
+    k = lmat.shape[-1]
+    eye = torch.eye(k, dtype=lmat.dtype, device=lmat.device)
+    return cholesky(delta[..., None, None] * eye + lmat.mT @ lmat)
+
+
+def woodbury_apply(lmat, delta, cfac, v):
+    """``P^-1 v`` for ``P = L L^T + delta I`` by the Woodbury identity;
+    ``v`` is ``[..., s, n]``."""
+    inner = chol_solve(cfac, lmat.mT @ v)
+    return (v - lmat @ inner) / delta[..., None, None]
+
+
+def woodbury_logdet(lmat, delta, cfac):
+    """``log|P| = (s - k) log delta + log|delta I + L^T L|``, exactly."""
+    s, k = lmat.shape[-2], lmat.shape[-1]
+    logdet_c = 2.0 * torch.sum(torch.log(torch.diagonal(cfac, dim1=-2, dim2=-1)), dim=-1)
+    return (s - k) * torch.log(delta) + logdet_c
+
+
+# --------------------------------------------------------------------------
+# batched multi-RHS preconditioned conjugate gradients
+# --------------------------------------------------------------------------
+
+
+class PcgResult(NamedTuple):
+    x: torch.Tensor          # [..., m, n] solutions
+    alphas: torch.Tensor     # [t, ..., n] CG step sizes (1.0 past convergence)
+    betas: torch.Tensor      # [t, ..., n] CG conjugation coeffs (0.0 past conv.)
+    rel_resid: torch.Tensor  # [..., n] final relative residual norms
+    iters_used: torch.Tensor  # [..., n] live iterations per RHS
+
+
+def batched_pcg(matvec, rhs, precond=None, iters: int = 32, tol: float = 1e-5) -> PcgResult:
+    """Preconditioned CG over a batched multi-RHS stack ``[..., m, n]``.
+
+    A fixed trip count of ``iters`` steps, each one ``matvec`` of the whole
+    block; a column freezes (its state stops updating) once its relative
+    residual is under ``tol``.  The per-step ``(alpha, beta)`` records are
+    the Lanczos tridiagonal of the preconditioned operator, for
+    :func:`slq_logdet_from_coeffs`.  Nothing in the loop reads a value on
+    the host."""
+    tiny = torch.finfo(rhs.dtype).tiny
+    apply_p = precond if precond is not None else (lambda v: v)
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = apply_p(r)
+    p = z
+    rz = torch.sum(r * z, dim=-2)
+    rr0 = torch.sum(r * r, dim=-2)
+    thresh = (tol * tol) * torch.clamp_min(rr0, tiny)
+    alphas, betas, lives = [], [], []
+    for _ in range(int(iters)):
+        live = torch.sum(r * r, dim=-2) > thresh
+        ap = matvec(p)
+        pap = torch.sum(p * ap, dim=-2)
+        ok = live & (pap > tiny)
+        alpha = torch.where(ok, rz / torch.where(ok, pap, 1.0), 0.0)
+        x2 = x + alpha[..., None, :] * p
+        r2 = r - alpha[..., None, :] * ap
+        z2 = apply_p(r2)
+        rz2 = torch.sum(r2 * z2, dim=-2)
+        beta = torch.where(ok, rz2 / torch.where(ok, rz, 1.0), 0.0)
+        p2 = z2 + beta[..., None, :] * p
+        # frozen columns carry their state unchanged
+        keep = ok[..., None, :]
+        x = torch.where(keep, x2, x)
+        r = torch.where(keep, r2, r)
+        z = torch.where(keep, z2, z)
+        p = torch.where(keep, p2, p)
+        rz = torch.where(ok, rz2, rz)
+        live_next = ok & (torch.sum(r * r, dim=-2) > thresh)
+        # identity-pad frozen steps so T decouples into [live block] + I
+        alphas.append(torch.where(ok, alpha, 1.0))
+        betas.append(torch.where(ok & live_next, beta, 0.0))
+        lives.append(ok)
+    rel = torch.sqrt(torch.sum(r * r, dim=-2) / torch.clamp_min(rr0, tiny))
+    return PcgResult(
+        x=x,
+        alphas=torch.stack(alphas),
+        betas=torch.stack(betas),
+        rel_resid=rel,
+        iters_used=torch.stack(lives).to(rhs.dtype).sum(dim=0),
+    )
+
+
+def slq_logdet_from_coeffs(alphas, betas, weights):
+    """Stochastic Lanczos quadrature from the PCG coefficients.
+
+    ``alphas`` / ``betas`` are ``[t, ..., n]`` per-probe records; the
+    Lanczos tridiagonal has ``T_jj = 1/alpha_j + beta_{j-1}/alpha_{j-1}``
+    and ``T_{j,j+1} = sqrt(beta_j)/alpha_j``.  With probes ``z ~ N(0, P)``
+    and ``weights = z^T P^-1 z``, ``mean_i weights_i e1^T log(T_i) e1``
+    estimates ``logdet(K) - logdet(P)`` (Gardner et al. 2018); the small
+    eigenproblems run as one batched ``eigh``."""
+    t = alphas.shape[0]
+    a = torch.movedim(alphas, 0, -1)  # [..., n, t]
+    b = torch.movedim(betas, 0, -1)
+    inv_a = 1.0 / a
+    diag = inv_a + torch.cat([torch.zeros_like(b[..., :1]), b[..., :-1] * inv_a[..., :-1]], dim=-1)
+    tmat = torch.diag_embed(diag)
+    if t > 1:
+        off = torch.sqrt(torch.clamp_min(b[..., :-1], 0.0)) * inv_a[..., :-1]
+        tmat = tmat + torch.diag_embed(off, offset=1) + torch.diag_embed(off, offset=-1)
+    evals, evecs = torch.linalg.eigh(tmat)
+    log_evals = torch.log(torch.clamp_min(evals, 1e-12))
+    e1sq = evecs[..., 0, :] ** 2  # first component of each eigenvector
+    per_probe = torch.sum(e1sq * log_evals, dim=-1)  # [..., n]
+    return torch.sum(weights * per_probe, dim=-1) / per_probe.shape[-1]
+
+
+def draw_probes(cfg: SolverConfig, batch, rank: int, s: int, dtype, device):
+    """The Gaussian draws behind the probes, ``g1 [*batch, rank, r]`` and
+    ``g2 [*batch, s, r]``, from a generator on ``device`` seeded with
+    ``cfg.seed`` at every call, so each evaluation sees the same probes.
+    (The JAX package draws them with ``jax.random``; the tests inject its
+    draws here.)"""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(cfg.seed))
+    shape = tuple(batch)
+    g1 = torch.randn(shape + (rank, cfg.probes), generator=gen, dtype=dtype, device=device)
+    g2 = torch.randn(shape + (s, cfg.probes), generator=gen, dtype=dtype, device=device)
+    return g1, g2
+
+
+# --------------------------------------------------------------------------
+# the marginal-NLL engine
+# --------------------------------------------------------------------------
+
+
+def _solve_pass(matvec_sg, diag_sg, col_fn_sg, y, cfg: SolverConfig):
+    """The forward-only part of the engine: the preconditioner, the probes
+    ``z = L g1 + sqrt(delta) g2 ~ N(0, P)``, one PCG against ``[y, Z]``
+    and the log-det value ``logdet(P) + SLQ``."""
+    s = y.shape[-1]
+    lmat, delta = pivoted_cholesky_cols(diag_sg, col_fn_sg, cfg.rank)
+    cfac = woodbury_factor(lmat, delta)
+    g1, g2 = draw_probes(cfg, y.shape[:-1], lmat.shape[-1], s, y.dtype, y.device)
+    z = lmat @ g1 + torch.sqrt(delta)[..., None, None] * g2
+    res = batched_pcg(
+        matvec_sg,
+        torch.cat([y[..., None], z], dim=-1),
+        precond=lambda v: woodbury_apply(lmat, delta, cfac, v),
+        iters=cfg.iters,
+        tol=cfg.tol,
+    )
+    vtil = woodbury_apply(lmat, delta, cfac, z)  # P^-1 Z
+    weights = torch.sum(z * vtil, dim=-2)         # z^T P^-1 z  [E, r]
+    logdet_val = woodbury_logdet(lmat, delta, cfac) + slq_logdet_from_coeffs(
+        res.alphas[..., 1:], res.betas[..., 1:], weights
+    )
+    return res, vtil, logdet_val
+
+
+def inv_quad_logdet_matfree(matvec, matvec_sg, diag_sg, col_fn_sg, y,
+                            config: Optional[SolverConfig] = None):
+    """``(y^T K^-1 y [E], logdet K [E])`` with the operator injected: the
+    matfree lane's marginal-NLL engine.
+
+    ``matvec(v)`` is the differentiable ``K @ v`` on ``[E, s, n]`` blocks;
+    ``matvec_sg`` its detached twin the CG loop runs on; ``diag_sg [E, s]``
+    and ``col_fn_sg(piv)`` the detached diagonal and pivot-column oracle
+    of the preconditioner.  The value is the CG/SLQ estimate; the gradient
+    flows only through the two ``matvec`` calls (module doc)."""
+    cfg = config or solver_config(y.shape[-1])
+    with torch.no_grad():
+        res, vtil, logdet_val = _solve_pass(matvec_sg, diag_sg.detach(), col_fn_sg,
+                                            y.detach(), cfg)
+    alpha = res.x[..., 0]   # K^-1 y   [E, s]
+    u = res.x[..., 1:]      # K^-1 Z   [E, s, r]
+    ka = matvec(alpha[..., None])[..., 0]
+    quad = 2.0 * torch.sum(alpha * y, dim=-1) - torch.sum(alpha * ka, dim=-1)
+    surr = torch.sum(vtil * matvec(u), dim=(-2, -1)) / cfg.probes
+    logdet = (logdet_val - surr).detach() + surr
+    return quad, logdet
+
+
+def inv_quad_logdet(kmat, y, config: Optional[SolverConfig] = None):
+    """:func:`inv_quad_logdet_matfree` on a materialized ``[E, s, s]`` SPD
+    stack (the iterative lane): the same engine, with ``torch`` matmuls
+    for the products.  NaN or inf in ``kmat`` gives NaN outputs."""
+    km = kmat.detach()
+    return inv_quad_logdet_matfree(
+        lambda v: kmat @ v, lambda v: km @ v,
+        torch.diagonal(km, dim1=-2, dim2=-1), _gather_col(km), y, config,
+    )
+
+
+# --------------------------------------------------------------------------
+# diagnostics: the post-fit convergence probe
+# --------------------------------------------------------------------------
+
+
+def solver_report(kmat, y, config: Optional[SolverConfig] = None, *,
+                  matvec=None, diag=None, col_fn=None) -> dict:
+    """Convergence diagnostics of the iterative lane at the fitted
+    hyperparameters: one forward pass of the engine over the stack,
+    reporting the knobs, the achieved residuals of the ``y`` column and
+    value finiteness.  Operator mode (``kmat=None`` with the detached
+    ``matvec`` / ``diag`` / ``col_fn``) reruns the matfree program itself,
+    streamed products and no gram."""
+    if matvec is None:
+        if kmat is None:
+            raise ValueError(
+                "solver_report: operator mode (kmat=None) requires the "
+                "matvec/diag/col_fn closures"
+            )
+        km = kmat.detach()
+        return solver_report(None, y, config, matvec=lambda v: km @ v,
+                             diag=torch.diagonal(km, dim1=-2, dim2=-1),
+                             col_fn=_gather_col(km))
+    cfg = config or solver_config(y.shape[-1])
+    with torch.no_grad():
+        res, _, logdet = _solve_pass(matvec, diag, col_fn, y, cfg)
+        quad = torch.sum(res.x[..., 0] * y, dim=-1)
+    rel = res.rel_resid[..., 0].cpu().numpy()
+    iters = res.iters_used[..., 0].cpu().numpy()
+    return {
+        "cg_iters": float(iters.max(initial=0.0)),
+        "cg_iters_mean": float(iters.mean()) if iters.size else 0.0,
+        "residual": float(rel.max(initial=0.0)),
+        "precond_rank": float(cfg.rank),
+        "probes": float(cfg.probes),
+        "max_iters": float(cfg.iters),
+        "quad_finite": bool(np.all(np.isfinite(quad.cpu().numpy()))),
+        "logdet_finite": bool(np.all(np.isfinite(logdet.cpu().numpy()))),
+    }
