@@ -16,8 +16,10 @@ code is non-zero and the final ``ok`` line is never printed:
                hands it (the first airfoil fold's, the protein split's),
                NaN isolation of a non-PD matrix, the backward.  K2 and
                K2-VJP: all seven tile transforms on the protein-matfree
-               row stack (9, 4065, 9) at the path's widths n = 1, 8, 9
-               and on a ragged (3, 1000, 5) stack at n = 1, 4.
+               row stack (9, 4065, 9) at the path's widths n = 1, 8, 9,
+               on a ragged (3, 1000, 5) stack at n = 1, 4, on (2, 777, 21)
+               at n = 9 (two feature chunks) and on (2, 130, 20) at n = 17
+               (two right-hand-side chunks).
 4. time     -- each kernel, its plain version and the library call at the
                main path's shapes, with the bound from the card's peaks.
 5. parity   -- the exact-lane objective and gradient on the card (float32,
@@ -31,7 +33,8 @@ code is non-zero and the final ``ok`` line is never printed:
 9. matfree-parity -- the matrix-free objective and gradient at init theta
                on the protein-matfree stack (E = 9, s = 4065): on the card
                (K2) against the iterative lane on the card (materialized
-               gram) and against the CPU in float64, the same probes.
+               gram) and against the CPU in float64, the same probes;
+               and, with no bar, the same engine fed float64 products.
 10. protein-matfree -- the fit on the matrix-free lane: phase seconds,
                launches (asserted against nfev), solver metrics, RMSE;
                the peak memory of one objective evaluation beside the
@@ -76,9 +79,9 @@ MATFREE_FAMILIES = {
 }
 POLY_DEGREE = 2
 
-# kernel names as the profiler reports them
-K2_NAMES = {"streamed_matvec": "streamed_matvec_kernel",
-            "streamed_matvec_vjp": "streamed_matvec_vjp_kernel"}
+# kernel names as the profiler reports them (K2 with its squared-norm prologue)
+K2_NAMES = {"streamed_matvec": ("streamed_matvec_kernel", "streamed_matvec_sqnorms_kernel"),
+            "streamed_matvec_vjp": ("streamed_matvec_vjp_kernel",)}
 
 
 # host seconds per fit phase, as the estimator reports them
@@ -127,7 +130,7 @@ def time_ms(fn, reps: int = 20, windows: int = 5) -> float:
 def profile_objective(torch, vag, theta, reps: int = 10, shares=None) -> dict:
     """Wall time of ``reps`` objective evaluations (unprofiled), then the
     device kernel time of ``reps`` more under ``torch.profiler``;
-    ``shares`` maps a label to a kernel-name substring whose device time,
+    ``shares`` maps a label to kernel-name substrings whose device time,
     share and launches per evaluation are reported too."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -151,8 +154,8 @@ def profile_objective(torch, vag, theta, reps: int = 10, shares=None) -> dict:
     if device_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
     named = {}
-    for label, key in (shares or {}).items():
-        picked = [k for k in kernels if key in k[1]]
+    for label, keys in (shares or {}).items():
+        picked = [k for k in kernels if any(key in k[1] for key in keys)]
         ms = sum(k[0] for k in picked)
         named[label] = {"device_ms": ms, "device_share": ms / device_ms,
                         "wall_share": ms / wall_ms,
@@ -240,17 +243,26 @@ def check_streamed_matvec(torch, sm, x_slice):
     inputs upcast, for all seven tile transforms: on the protein-matfree
     row stack at every width the main path launches them with (n = 1: the
     quad leg, n = 8: the surrogate leg, n = 9: a CG step), which covers
-    the accumulator templates 1, 8 and 16, and on a ragged (3, 1000, 5)
-    stack with n = 1 and n = 4 (the template 4).  Bars: K2 within 1e-5
+    K2's accumulator templates 1, 8 and 9; on a ragged (3, 1000, 5) stack
+    with n = 1 and n = 4 (s a multiple of neither tile; the template 4);
+    on (2, 777, 21) at n = 9 (p > 16: two feature chunks, s ragged); and
+    on (2, 130, 20) at n = 17 (the template 16 over two right-hand-side
+    chunks, the second one column wide).  Bars: K2 within 1e-5
     of the largest |output| (a float32 sum of s terms); the
     theta-cotangent within 1e-4 of the largest |cotangent| (float32
     partial sums over s^2 pairs).  Returns the errors, absolute and
     relative to those scales, keyed ``label/n<width>/family``."""
     gen = np.random.default_rng(7)
     ragged = torch.as_tensor(gen.normal(size=(3, 1000, 5)), dtype=torch.float32, device="cuda")
+    # features scaled by p^-1/2, so the maps stay away from 0 at p = 20, 21
+    extra = np.random.default_rng(8)
+    wide, chunked = (torch.as_tensor(extra.normal(size=shape) / np.sqrt(shape[-1]),
+                                     dtype=torch.float32, device="cuda")
+                     for shape in ((2, 777, 21), (2, 130, 20)))
     errs = {}
     for label, x, n in (("slice", x_slice, 1), ("slice", x_slice, 8), ("slice", x_slice, 9),
-                        ("ragged", ragged, 1), ("ragged", ragged, 4)):
+                        ("ragged", ragged, 1), ("ragged", ragged, 4), ("wide", wide, 9),
+                        ("chunked", chunked, 17)):
         shape = tuple(x.shape[:2]) + (n,)
         v = torch.as_tensor(gen.normal(size=shape), dtype=torch.float32, device="cuda")
         w = torch.as_tensor(gen.normal(size=shape), dtype=torch.float32, device="cuda")
@@ -564,26 +576,37 @@ def main() -> int:
     # and 1e-5 against the iterative lane (the same float32 engine on the
     # same probes; only the products differ); 1e-5 and 1e-3 against the
     # CPU, whose float64 CG stopped at tol 1e-5 takes another path.
+    # Recorded beside them, with no bar: the same float32 engine on the
+    # card fed the plain float64 product rounded to float32 in place of
+    # K2's, which says how far the engine carries a product's rounding.
     mf_kernel = matfree_kernel() + Const(1e-3) * EyeKernel()
     theta0 = mf_kernel.init_theta()
     cfg = it_ops.solver_config(4065)
     g1, g2 = it_ops.draw_probes(cfg, (9,), cfg.rank, 4065, torch.float32, "cuda")
-    draw_probes = it_ops.draw_probes
+    draw_probes, launch = it_ops.draw_probes, sm._launch
     it_ops.draw_probes = lambda cfg, batch, rank, s, dtype, device: (
         g1.to(device=device, dtype=dtype), g2.to(device=device, dtype=dtype))
+    family_of = {spec.fid: name for name, spec in sm.TILE_TRANSFORMS.items()}
+
+    def f64_product(x, v, params, spec, degree):
+        return sm.streamed_matvec_plain(x.double(), v.double(), family_of[spec.fid],
+                                        params.double(), degree).float()
+
     try:
         out = {}
         for label, lane, device, dtype in (("matfree", "matfree", "cuda", torch.float32),
                                            ("iterative", "iterative", "cuda", torch.float32),
-                                           ("cpu_f64", "matfree", "cpu", torch.float64)):
+                                           ("cpu_f64", "matfree", "cpu", torch.float64),
+                                           ("f64_products", "matfree", "cuda", torch.float32)):
             it_ops.set_solver_lane(lane)
+            sm._launch = f64_product if label == "f64_products" else launch
             data = (mf_data if device == "cuda" else
                     group_for_experts(xp[tr], yp_tr, 4096, dtype=dtype, device=device))
             start = time.perf_counter()
             out[label] = make_value_and_grad(mf_kernel, data)(theta0)
             out[label] += (time.perf_counter() - start,)
     finally:
-        it_ops.draw_probes = draw_probes
+        it_ops.draw_probes, sm._launch = draw_probes, launch
         it_ops.set_solver_lane(None)
     v_mf, g_mf, _ = out["matfree"]
     parity = {"value": v_mf, "grad": g_mf.tolist(),
@@ -598,6 +621,10 @@ def main() -> int:
                          "bars": {"rel_value": bar_v, "rel_grad": bar_g}}
         if not (dv <= bar_v and dg <= bar_g):
             raise AssertionError(f"matfree vs {label}: rel dv {dv}, dg {dg}")
+    v_f64p = out["f64_products"][0]
+    parity["f64_products"] = {"value": v_f64p, **{
+        f"rel_value_err_vs_{label}": abs(v_f64p - out[label][0]) / abs(out[label][0])
+        for label in ("matfree", "iterative", "cpu_f64")}}
     emit({"phase": "matfree-parity", "theta": theta0.tolist(), **parity})
 
     # 10. protein-matfree: the fit on the matrix-free lane, its launches

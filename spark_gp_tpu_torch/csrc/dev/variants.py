@@ -1,0 +1,165 @@
+"""Compare versions of the K2 forward kernel on the card.
+
+    python3 spark_gp_tpu_torch/csrc/dev/variants.py SPEC.json [--out variants.json]
+
+SPEC maps a variant name to ``[source, edits]``: ``source`` is a path
+relative to the repository root whose C entry points are those of
+``spark_gp_tpu_torch/csrc/streamed_matvec.cu``; ``edits`` is a list of
+``[find, replace]`` pairs, each of which must match exactly once.
+
+Every variant is built with the package's nvcc flags (one nvcc each, all
+started together) and run through the package's wrapper
+(``ops/streamed_matvec.py``) with its library in place of the package's:
+- checked by ``chip_smoke.check_streamed_matvec`` (every shape, width,
+  tile transform and bar of the chip smoke run; a variant that drops work
+  on purpose fails it and is timed all the same);
+- measured for the bias of K: the mean of (out - ref) / ref with V = 1
+  (RBF, sigma 0.6 and 1.0), which a random V averages away;
+- timed by ``chip_smoke.time_ms`` with the RBF map at sigma = 1 on the
+  (9, 4065, 9) stack at n = 9, 1, 8, 16 (the variants in order, then in
+  reverse), and the VJP at n = 8, 1.
+The ptxas registers and spill stores of each forward instance, the card's
+name and power limit and all numbers go to ``--out`` as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[3]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+from spark_gp_tpu_torch.ops import cuda_lib  # noqa: E402
+from spark_gp_tpu_torch.ops import streamed_matvec as sm  # noqa: E402
+
+
+def sources(spec: dict) -> dict:
+    out = {}
+    for name, (path, edits) in spec.items():
+        text = (REPO / path).read_text()
+        for find, replace in edits:
+            if text.count(find) != 1:
+                raise SystemExit(f"{name}: {find!r} matches {text.count(find)} times")
+            text = text.replace(find, replace)
+        out[name] = text
+    return out
+
+
+def build(texts: dict, build_dir: Path) -> dict:
+    """{name: (library, {"F<family>/NB<width>": [registers, spill bytes]})}"""
+    procs = {}
+    for name, text in texts.items():
+        src = build_dir / f"{name}.cu"
+        src.write_text(text)
+        procs[name] = subprocess.Popen(
+            [cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-o", str(build_dir / f"lib{name}.so"),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"{name}: nvcc exit {proc.returncode}\n{log[-4000:]}")
+        regs, entry = {}, None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '\S*streamed_matvec_kernelILi(\d)ELi(\d+)EE", line)
+            if m:
+                entry = f"F{m.group(1)}/NB{m.group(2)}"
+                regs[entry] = [None, 0]
+            elif "Compiling entry function" in line:
+                entry = None
+            elif entry and "Used" in line:
+                regs[entry][0] = int(line.split("Used ")[1].split()[0])
+            elif entry and "bytes spill stores" in line:
+                regs[entry][1] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        libs[name] = (sm.bind(ctypes.CDLL(str(build_dir / f"lib{name}.so"))), regs)
+    return libs
+
+
+def _measure(libs: dict) -> dict:
+    """Checks, bias and times of every variant, each run through the
+    wrapper with its library swapped in."""
+    def use(name):
+        sm._library = lambda lib=libs[name][0]: lib
+
+    gen = np.random.default_rng(0)
+    x = torch.as_tensor(gen.normal(size=(9, 4065, 9)) / 3.0, dtype=torch.float32, device="cuda")
+    result = {"max_rel_err": {}, "failed": {}, "bias": {}, "ms": {}}
+    for name in libs:
+        use(name)
+        try:
+            errs = chip_smoke.check_streamed_matvec(torch, sm, x)
+            result["max_rel_err"][name] = max(e["matvec_rel"] for e in errs.values())
+        except AssertionError as err:
+            result["max_rel_err"][name] = None
+            result["failed"][name] = str(err)
+
+    ones = torch.ones((9, 4065, 1), dtype=torch.float32, device="cuda")
+    for sigma in (0.6, 1.0):
+        par = torch.tensor([sigma], dtype=torch.float32, device="cuda")
+        ref = sm.streamed_matvec_plain(x.double(), ones.double(), "rbf", par.double())
+        for name in libs:
+            use(name)
+            rel = (sm.streamed_matvec(x, ones, "rbf", par).double() - ref) / ref
+            result["bias"].setdefault(f"sigma{sigma}", {})[name] = {
+                "mean_rel": rel.mean().item(), "max_rel": rel.abs().max().item()}
+
+    par = torch.ones(1, dtype=torch.float32, device="cuda")
+    order = list(libs) + list(libs)[::-1]
+    for n in (9, 1, 8, 16):
+        v = torch.as_tensor(gen.normal(size=(9, 4065, n)), dtype=torch.float32, device="cuda")
+        for name in order:
+            use(name)
+            result["ms"].setdefault(f"n{n}", {}).setdefault(name, []).append(
+                chip_smoke.time_ms(lambda: sm.streamed_matvec(x, v, "rbf", par)))
+    for n in (8, 1):
+        v, w = (torch.as_tensor(gen.normal(size=(9, 4065, n)), dtype=torch.float32,
+                                device="cuda") for _ in range(2))
+        for name in libs:
+            use(name)
+            result["ms"].setdefault(f"vjp_n{n}", {})[name] = chip_smoke.time_ms(
+                lambda: sm.streamed_matvec_vjp(x, w, v, "rbf", par))
+    return result
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("spec")
+    parser.add_argument("--out", default="variants.json")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("variants.py: no CUDA device available", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    texts = sources(json.loads(Path(args.spec).read_text()))
+    start = time.perf_counter()
+    package_library = sm._library
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = build(texts, Path(tmp))
+            print(f"built {len(libs)} variants in {time.perf_counter() - start:.1f} s", flush=True)
+            result = _measure(libs)
+            result.update(card=card, registers={k: e[1] for k, e in libs.items()})
+    finally:
+        sm._library = package_library
+    print(json.dumps({k: result[k] for k in ("max_rel_err", "bias", "ms")}), flush=True)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

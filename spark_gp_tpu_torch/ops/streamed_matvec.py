@@ -32,7 +32,7 @@ import torch
 
 from spark_gp_tpu_torch.ops import cuda_lib
 
-#: rows per block of the CUDA kernel: the row tile of ``solver.matvec_tiles``
+#: rows per block of the CUDA forward kernel: the row tile of ``solver.matvec_tiles``
 ROW_TILE = 64
 #: column tile of the plain version (the JAX package's default tile)
 PLAIN_TILE = 512
@@ -166,11 +166,11 @@ def kernel_applies(x: torch.Tensor) -> bool:
     return x.is_cuda and x.dtype == torch.float32
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = cuda_lib.load("streamed_matvec")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a library built from
+    ``csrc/streamed_matvec.cu``."""
     ints = [ctypes.c_int] * 6
-    lib.streamed_matvec_f32.argtypes = [ctypes.c_void_p] * 4 + ints + [ctypes.c_void_p]
+    lib.streamed_matvec_f32.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
     lib.streamed_matvec_f32.restype = ctypes.c_int
     lib.streamed_matvec_vjp_f32.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
     lib.streamed_matvec_vjp_f32.restype = ctypes.c_int
@@ -178,6 +178,12 @@ def _library():
     lib.streamed_matvec_vjp_blocks.restype = ctypes.c_longlong
     lib.streamed_matvec_row_tile.argtypes = []
     lib.streamed_matvec_row_tile.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = bind(cuda_lib.load("streamed_matvec"))
     if lib.streamed_matvec_row_tile() != ROW_TILE:
         raise RuntimeError("csrc/streamed_matvec.cu and ROW_TILE disagree on the row tile")
     return lib
@@ -211,9 +217,11 @@ def _launch(x, v, params, spec, degree):
     out = torch.empty_like(v)
     if out.numel() == 0:
         return out.zero_()
+    # scratch for the rows' squared norms, which the kernel's prologue fills
+    sqn = torch.empty((batch, s), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _library().streamed_matvec_f32(
-            x.data_ptr(), v.data_ptr(), params.data_ptr(), out.data_ptr(),
+            x.data_ptr(), v.data_ptr(), params.data_ptr(), sqn.data_ptr(), out.data_ptr(),
             batch, s, p, n, spec.fid, int(degree),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -72,6 +72,22 @@ def test_plain_matches_jax(family, vector):
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_plain_matches_jax_wide_features(family):
+    """p above the kernel's 16-feature chunk, s ragged against every tile,
+    and the CG step's width n = 9."""
+    params, j_map = FAMILIES[family]
+    x, v = _inputs(seed=3, shape=(2, 37, 21), n=9)
+    x = x / np.sqrt(x.shape[-1])
+    kind = sm.TILE_TRANSFORMS[family].kind
+    want = j_matvec(jnp.asarray(x), jnp.asarray(v), j_map, jnp.asarray(params),
+                    kind=kind, tile=16)
+    got = sm.streamed_matvec(torch.as_tensor(x), torch.as_tensor(v), family,
+                             torch.tensor(params, dtype=torch.float64), degree=DEGREE)
+    assert got.shape == want.shape
+    assert _rel(got.numpy(), want) <= 1e-10
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_gradients_match_jax(family):
     """theta- and v-gradients of ``sum(w * (K v))`` through the autograd
     Function against ``jax.grad`` of the differentiable (scan) path."""
@@ -125,11 +141,14 @@ def test_matvec_tiles_and_library_path():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,n", [((3, 1000, 5), 1), ((2, 130, 20), 4), ((2, 130, 20), 17),
-                                     ((9, 4065, 9), 1), ((9, 4065, 9), 8), ((9, 4065, 9), 9)])
+                                     ((9, 4065, 9), 1), ((9, 4065, 9), 8), ((9, 4065, 9), 9),
+                                     ((2, 777, 21), 9), ((3, 1000, 5), 9), ((1, 7, 3), 9)])
 def test_kernels_match_plain_on_card(shape, n):
     """Both kernels against the plain version in float64 on the same
     inputs: K2 within 1e-5 of the largest output, the VJP within 1e-4 of
-    the plain cotangent, for every family."""
+    the plain cotangent, for every family; the shapes cover every
+    accumulator width, s ragged against the tiles and smaller than one,
+    and p over one feature chunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     rng = np.random.default_rng(0)
