@@ -8,11 +8,13 @@ code is non-zero and the final ``ok`` line is never printed:
 
 1. env      -- Python, torch and CUDA versions; the card's name and power
                limit as ``nvidia-smi`` reports them.
-2. build    -- compile every CUDA kernel from ``csrc/``, one nvcc per
-               source, all started together.
+2. build    -- compile every CUDA kernel from ``csrc/``, and K1's first
+               design from ``csrc/dev/``, one nvcc per source, all
+               started together.
 3. check    -- each kernel against its plain PyTorch version (float64 on
                the same inputs upcast).  K1: on random batches at the main
-               path's shapes and more, on the gram stacks the exact lane
+               path's shapes and more (ragged panels, the workspace kernel
+               at n = 129 .. 512), on the gram stacks the exact lane
                hands it (the first airfoil fold's, the protein split's),
                NaN isolation of a non-PD matrix, the backward.  K2 and
                K2-VJP: all seven tile transforms on the protein-matfree
@@ -21,15 +23,18 @@ code is non-zero and the final ``ok`` line is never printed:
                at n = 9 (two feature chunks) and on (2, 130, 20) at n = 17
                (two right-hand-side chunks).
 4. time     -- each kernel, its plain version and the library call at the
-               main path's shapes, with the bound from the card's peaks.
+               main path's shapes, with the bound from the card's peaks;
+               K1 also at (2, 256) and (1, 512), and its first design in
+               turns with it at the main path's shapes.
 5. parity   -- the exact-lane objective and gradient on the card (float32,
                through K1) against the CPU (float64, Cholesky) on the
                first airfoil fold's stack.
 6. airfoil  -- the reference's acceptance config, 10-fold CV; RMSE < 2.1.
 7. protein  -- the CASP config at full size (stand-in data, E = 366).
 8. profile  -- one protein objective evaluation under torch.profiler:
-               wall ms, device-busy ms and share, the top kernels; and
-               the host magic solve's share of the PPA build.
+               wall ms, device-busy ms and share, the top kernels, K1's
+               device ms and share; and the host magic solve's share of
+               the PPA build.
 9. matfree-parity -- the matrix-free objective and gradient at init theta
                on the protein-matfree stack (E = 9, s = 4065): on the card
                (K2) against the iterative lane on the card (materialized
@@ -84,6 +89,9 @@ K2_NAMES = {"streamed_matvec": ("streamed_matvec_kernel", "streamed_matvec_sqnor
             "streamed_matvec_vjp": ("streamed_matvec_vjp_kernel",)}
 
 
+# K1's first design, a source under csrc/ built and timed beside K1
+K1_FIRST_DESIGN = "dev/spd_inv_logdet_first"
+
 # host seconds per fit phase, as the estimator reports them
 PHASES = ("group_seconds", "optimize_seconds", "ppa_seconds")
 
@@ -121,6 +129,34 @@ def time_ms(fn, reps: int = 20, windows: int = 5) -> float:
         start.record()
         for _ in range(reps):
             fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return float(np.median(times))
+
+
+def time_device_ms(fn, reps: int = 20, windows: int = 5) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph and
+    replayed in ``windows`` CUDA-event windows, the median.  No host work
+    runs between the launches, so a kernel shorter than its wrapper's host
+    overhead reads its own time and not the host's."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         stop.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / reps)
@@ -171,6 +207,64 @@ def profile_objective(torch, vag, theta, reps: int = 10, shares=None) -> dict:
     }
 
 
+def airfoil_kernel():
+    """The airfoil acceptance config's kernel (examples/airfoil.py)."""
+    from spark_gp_tpu_torch import ARDRBFKernel, Const, EyeKernel
+
+    return 1.0 * ARDRBFKernel(5) + Const(1.0) * EyeKernel()
+
+
+def protein_kernel():
+    """The protein config's kernel (examples/protein.py)."""
+    from spark_gp_tpu_torch import ARDRBFKernel, WhiteNoiseKernel
+
+    return 1.0 * ARDRBFKernel(9, 9 ** -0.5) + WhiteNoiseKernel(0.1, 0.0, 1.0)
+
+
+def main_path_data() -> dict:
+    """Airfoil (z-scored) with its 10 CV folds; the protein stand-in with
+    its 80/20 split, features and training targets standardized."""
+    from spark_gp_tpu_torch.data import load_airfoil, load_protein
+    from spark_gp_tpu_torch.ops.scaling import fit_scaler, scale
+    from spark_gp_tpu_torch.utils.validation import kfold_indices
+
+    x, y = load_airfoil()
+    x = scale(x)
+    xp, yp = load_protein()
+    perm = np.random.default_rng(13).permutation(xp.shape[0])
+    cut = int(0.8 * xp.shape[0])
+    tr, te = perm[:cut], perm[cut:]
+    mean, std = fit_scaler(xp[tr])
+    y_mean, y_std = yp[tr].mean(), yp[tr].std()
+    return {"x": x, "y": y, "folds": list(kfold_indices(x.shape[0], 10, seed=13)),
+            "xp": (xp - mean) / std, "yp": yp, "tr": tr, "te": te,
+            "yp_tr": (yp[tr] - y_mean) / y_std, "y_mean": y_mean, "y_std": y_std}
+
+
+def exact_lane_stacks(torch, d: dict) -> dict:
+    """The gram stacks the exact lane hands K1 at init theta: the first
+    airfoil CV fold's training rows (14, 97) and the protein training
+    split (366, 100), each with its config's kernel plus sigma2 * I."""
+    from spark_gp_tpu_torch import Const, EyeKernel
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+
+    train = d["folds"][0][0]
+    stacks = {}
+    for label, factory, sigma2, xs, ys, shape in [
+        ("airfoil_fold", airfoil_kernel, 1e-4, d["x"][train], d["y"][train], (14, 97)),
+        ("protein", protein_kernel, 1e-3, d["xp"][d["tr"]], d["yp_tr"], (366, 100)),
+    ]:
+        kernel = factory() + Const(sigma2) * EyeKernel()
+        data = group_for_experts(xs, ys, 100, dtype=torch.float32, device="cuda")
+        theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device="cuda")
+        stacks[label] = masked_gram_stack(kernel, theta, data.x, data.mask)
+        if tuple(stacks[label].shape) != (shape[0], shape[1], shape[1]):
+            raise AssertionError(f"{label} stack {tuple(stacks[label].shape)}, "
+                                 f"expected {shape}")
+    return stacks
+
+
 def check_against_plain(torch, spd, k, label: str) -> float:
     """K1 on ``k`` against its plain version in float64 on the same input
     upcast, at the JAX package's bars (inverse within 5e-5 max|K^-1|,
@@ -190,11 +284,12 @@ def check_against_plain(torch, spd, k, label: str) -> float:
 
 def check_spd_inv_logdet(torch, spd, stacks):
     """K1 against its plain version on random SPD batches (the main path's
-    shapes among them), on the main path's own gram stacks ``stacks``, on a
-    batch with a non-PD matrix, and in the backward."""
+    shapes among them, ragged last panels at n = 113, 127, the workspace
+    kernel from n = 129), on the main path's own gram stacks ``stacks``, on
+    a batch with a non-PD matrix, and in the backward."""
     errs = {}
-    for b, n in [(1, 4), (5, 60), (7, 64), (8, 128), (3, 100), (3, 200),
-                 (2, 256), (1, 512), (14, 97), (14, 100), (366, 100)]:
+    for b, n in [(1, 4), (5, 60), (7, 64), (8, 128), (3, 100), (3, 113), (2, 127),
+                 (2, 129), (3, 200), (2, 256), (1, 512), (14, 97), (14, 100), (366, 100)]:
         k = torch.as_tensor(spd_batch(b, n, seed=n), device="cuda")
         errs[f"{b}x{n}"] = check_against_plain(torch, spd, k, f"({b},{n})")
     for label, k in stacks.items():
@@ -236,6 +331,56 @@ def check_spd_inv_logdet(torch, spd, stacks):
         if not bool((err <= 1e-4 * (ref.abs() + ref.abs().max())).all()):
             raise AssertionError(f"backward at ({b},{n}): err {err.max().item()}")
     return errs
+
+
+def time_spd_inv_logdet(torch, spd, first_design, inputs: dict, compared: dict, peaks) -> dict:
+    """K1, its plain version and the library call (``cholesky`` then
+    ``cholesky_inverse``) on each ``[B, n, n]`` input, and on the inputs
+    ``compared`` the first design too (the library ``first_design`` run
+    through the same wrapper), in turns: kernel, first design, first
+    design, kernel; each reads the mean of its two.  K1's ``ms`` and
+    ``first_design_ms`` are device times (``time_device_ms``: the new
+    kernel is shorter than the wrapper's host overhead); ``wall_ms`` is the
+    eager loop's time per call, host overhead included, as ``plain_ms`` and
+    ``library_ms`` are.  The bound is the larger of the bytes (K read once,
+    K^-1 and logdet written once) over the memory rate and the B n^3 flops
+    over the f32 peak."""
+    bw, f32 = peaks[:2]
+    package_library = spd._library
+    out = {}
+    for label, k in {**compared, **inputs}.items():
+        b, n = k.shape[0], k.shape[-1]
+
+        def library(k=k):
+            chol = torch.linalg.cholesky(k)
+            logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+            return torch.cholesky_inverse(chol), logdet
+
+        def kernel(k=k):
+            return spd.spd_inv_logdet(k)
+
+        turns = {"ms": [], "first_design_ms": []} if label in compared else {"ms": []}
+        for key in ("ms", "first_design_ms", "first_design_ms", "ms"):
+            if key not in turns:
+                continue
+            spd._library = package_library if key == "ms" else (lambda: first_design)
+            try:
+                turns[key].append(time_device_ms(kernel))
+            finally:
+                spd._library = package_library
+        nbytes = 2 * b * n * n * 4 + b * 4
+        flops = b * n ** 3
+        out[label] = {
+            "shape": [b, n],
+            **{key: float(np.mean(v)) for key, v in turns.items()},
+            "wall_ms": time_ms(kernel),
+            "plain_ms": time_ms(lambda k=k: spd.spd_inv_logdet_plain(k)),
+            "library_ms": time_ms(library),
+            "bound_ms": max(nbytes / bw, flops / f32) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= flops / f32 else "operations",
+            "bytes": nbytes, "flops": flops,
+        }
+    return out
 
 
 def check_streamed_matvec(torch, sm, x_slice):
@@ -350,24 +495,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from spark_gp_tpu_torch import (
-        ARDRBFKernel,
         Const,
         EyeKernel,
         GaussianProcessRegression,
         RBFKernel,
         WhiteNoiseKernel,
     )
-    from spark_gp_tpu_torch.data import load_airfoil, load_protein
-    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
     from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
     from spark_gp_tpu_torch.models.ppa import magic_solve
     from spark_gp_tpu_torch.ops import cuda_lib
     from spark_gp_tpu_torch.ops import iterative as it_ops
     from spark_gp_tpu_torch.ops import spd_linalg as spd
     from spark_gp_tpu_torch.ops import streamed_matvec as sm
-    from spark_gp_tpu_torch.ops.scaling import fit_scaler, scale
     from spark_gp_tpu_torch.parallel.experts import group_for_experts
-    from spark_gp_tpu_torch.utils.validation import kfold_indices, rmse
+    from spark_gp_tpu_torch.utils.validation import rmse
 
     # 1. env
     smi = subprocess.run(
@@ -379,9 +520,11 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": name, "nvidia_smi": smi})
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source, all started together; K1's first
+    # design (csrc/dev/) is built to be timed beside it
     start = time.perf_counter()
-    built = cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec"], force=True)
+    built = cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec", K1_FIRST_DESIGN],
+                               force=True)
     report = {}
     for source, (seconds, log) in built.items():
         regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines()
@@ -391,39 +534,12 @@ def main() -> int:
         report[source] = {"seconds": seconds, "registers": regs, "spills": spills}
     emit({"phase": "build", "seconds": time.perf_counter() - start, "kernels": report})
 
-    # the main path's data and the gram stacks it hands K1 at init theta:
-    # the first airfoil CV fold's training rows and the protein training
-    # split, each with its config's kernel plus sigma2 * I
-    x, y = load_airfoil()
-    x = scale(x)
-    folds = list(kfold_indices(x.shape[0], 10, seed=13))
-    xp, yp = load_protein()
-    perm = np.random.default_rng(13).permutation(xp.shape[0])
-    cut = int(0.8 * xp.shape[0])
-    tr, te = perm[:cut], perm[cut:]
-    mean, std = fit_scaler(xp[tr])
-    xp = (xp - mean) / std
-    y_mean, y_std = yp[tr].mean(), yp[tr].std()
-    yp_tr = (yp[tr] - y_mean) / y_std
-
-    def airfoil_kernel():
-        return 1.0 * ARDRBFKernel(5) + Const(1.0) * EyeKernel()
-
-    def protein_kernel():
-        return 1.0 * ARDRBFKernel(9, 9 ** -0.5) + WhiteNoiseKernel(0.1, 0.0, 1.0)
-
-    stacks = {}
-    for label, factory, sigma2, xs, ys, shape in [
-        ("airfoil_fold", airfoil_kernel, 1e-4, x[folds[0][0]], y[folds[0][0]], (14, 97)),
-        ("protein", protein_kernel, 1e-3, xp[tr], yp_tr, (366, 100)),
-    ]:
-        kernel = factory() + Const(sigma2) * EyeKernel()
-        data = group_for_experts(xs, ys, 100, dtype=torch.float32, device="cuda")
-        theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device="cuda")
-        stacks[label] = masked_gram_stack(kernel, theta, data.x, data.mask)
-        if tuple(stacks[label].shape) != (shape[0], shape[1], shape[1]):
-            raise AssertionError(f"{label} stack {tuple(stacks[label].shape)}, "
-                                 f"expected {shape}")
+    # the main path's data and the gram stacks it hands K1 at init theta
+    data_main = main_path_data()
+    x, y, folds = data_main["x"], data_main["y"], data_main["folds"]
+    xp, yp, tr, te = (data_main[key] for key in ("xp", "yp", "tr", "te"))
+    yp_tr, y_mean, y_std = (data_main[key] for key in ("yp_tr", "y_mean", "y_std"))
+    stacks = exact_lane_stacks(torch, data_main)
 
     # the protein-matfree configuration: the same split, experts of
     # s = 4065 (E = 9, one masked row), the isotropic RBF
@@ -444,32 +560,17 @@ def main() -> int:
           "passed": True, "bars": {"matvec": "1e-5 * max|ref|", "vjp": "1e-4 * max|ref|"},
           "errors": k2_errs})
 
-    # 4. time, at the main path's shapes
+    # 4. time, at the main path's shapes (and K1 on the workspace kernel's)
     peaks = peaks_for(name)
-    bw, f32 = peaks[:2]
-    timing = {}
-    for label, k in stacks.items():
-        b, n = k.shape[0], k.shape[-1]
-
-        def library(k=k):
-            chol = torch.linalg.cholesky(k)
-            logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
-            return torch.cholesky_inverse(chol), logdet
-
-        launches = spd.spd_inv_logdet.launches
-        row = {
-            "ms": time_ms(lambda k=k: spd.spd_inv_logdet(k)),
-            "plain_ms": time_ms(lambda k=k: spd.spd_inv_logdet_plain(k)),
-            "library_ms": time_ms(library),
-        }
-        spd.spd_inv_logdet.launches = launches
-        nbytes = 2 * b * n * n * 4 + b * 4
-        flops = b * n ** 3
-        row["bound_ms"] = max(nbytes / bw, flops / f32) * 1e3
-        row["bound_by"] = "bytes" if nbytes / bw >= flops / f32 else "operations"
-        timing[label] = row
-        emit({"phase": "time", "kernel": "spd_inv_logdet", "input": label, "shape": [b, n],
-              "bytes": nbytes, "flops": flops, **row, "card": smi})
+    first_design = spd.bind(cuda_lib.load(K1_FIRST_DESIGN))
+    launches = spd.spd_inv_logdet.launches
+    timing = time_spd_inv_logdet(torch, spd, first_design, {
+        "2x256": torch.as_tensor(spd_batch(2, 256, seed=256), device="cuda"),
+        "1x512": torch.as_tensor(spd_batch(1, 512, seed=512), device="cuda"),
+    }, stacks, peaks)
+    spd.spd_inv_logdet.launches = launches
+    for label, row in timing.items():
+        emit({"phase": "time", "kernel": "spd_inv_logdet", "input": label, **row, "card": smi})
     launches = (sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches)
     k2_timing = time_streamed_matvec(torch, sm, mf_data.x, peaks)
     sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches = launches
@@ -566,8 +667,11 @@ def main() -> int:
     solve_s = time.perf_counter() - start
     data = group_for_experts(xp[tr], yp_tr, 100,
                              dtype=torch.float32, device="cuda")
-    emit({"phase": "profile", "config": "protein", "magic_solve_seconds": solve_s,
-          **profile_objective(torch, make_value_and_grad(raw.kernel, data), raw.theta)})
+    launches = spd.spd_inv_logdet.launches
+    prof = profile_objective(torch, make_value_and_grad(raw.kernel, data), raw.theta,
+                             shares={"spd_inv_logdet": ("spd_inv_logdet",)})
+    spd.spd_inv_logdet.launches = launches
+    emit({"phase": "profile", "config": "protein", "magic_solve_seconds": solve_s, **prof})
 
     # 9. matfree-parity at init theta on the protein-matfree stack: the
     # matrix-free objective on the card against the iterative lane on the
@@ -749,9 +853,13 @@ def main() -> int:
         "launches_protein": launches_protein,
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
-        **{key: timing["protein"][key] for key in keys},
-        "airfoil_fold": {"shape": [14, 97],
-                         **{key: timing["airfoil_fold"][key] for key in keys}},
+        **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
+        "airfoil_fold": {"shape": [14, 97], "max_abs_err": errs["airfoil_fold"],
+                         **{key: timing["airfoil_fold"][key]
+                            for key in keys + ("first_design_ms",)}},
+        "workspace_kernel": {label: {"shape": timing[label]["shape"], "max_abs_err": errs[label],
+                                     **{key: timing[label][key] for key in keys}}
+                             for label in ("2x256", "1x512")},
         "checked": True,
     }, {
         "name": "streamed_matvec",

@@ -1,6 +1,7 @@
 // CPU emulation of the CUDA subset used by the kernels: each block runs as
 // blockDim.x std::threads with a real barrier; warp shuffles through a
-// shared slot array and per-warp barriers.
+// shared slot array and per-warp barriers; dynamic shared memory is one
+// buffer, sized by the launch (blocks run one after another).
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -20,6 +21,7 @@
 #define __align__(n) __attribute__((aligned(n)))
 
 struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct uint3 { unsigned x = 0, y = 0, z = 0; };
 struct dim3 {
   unsigned x, y, z;
@@ -27,7 +29,10 @@ struct dim3 {
 };
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 
 inline thread_local uint3 threadIdx;
 inline uint3 blockIdx;
@@ -35,8 +40,13 @@ inline dim3 blockDim, gridDim;
 inline std::barrier<>* g_block_bar = nullptr;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_bar;
 inline float g_shfl[1024];
+// emulate.py turns `extern __shared__ T name[];` into a pointer to this;
+// each block starts with it all NaN, so a read of a word never written shows
+inline std::vector<float4> g_dynamic_shared;
+inline void* emu_dynamic_shared() { return g_dynamic_shared.data(); }
 
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int off) {
   const int t = threadIdx.x;
   g_shfl[t] = v;
@@ -45,7 +55,20 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   g_warp_bar[t / 32]->arrive_and_wait();
   return r;
 }
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int t = threadIdx.x;
+  g_shfl[t] = v;
+  g_warp_bar[t / 32]->arrive_and_wait();
+  const float r = g_shfl[t / 32 * 32 + (src & 31)];
+  g_warp_bar[t / 32]->arrive_and_wait();
+  return r;
+}
 inline int min(int a, int b) { return a < b ? a : b; }
+// the card's rsqrtf is an approximation (relative error up to ~2^-22.9);
+// here off by 2^-22, so code that refines it is checked for doing so
+inline float rsqrtf(float x) {
+  return static_cast<float>((1.0 + 0x1p-22) / std::sqrt(static_cast<double>(x)));
+}
 
 // Shared addresses are 32 bits on the card; here they are offsets from one
 // variable of the library, which every __shared__ (a static) lies near.
@@ -71,13 +94,16 @@ inline void emu_cp_async_ca_shared_global(unsigned dst, const void* src, int byt
 inline void emu_cp_async_wait_all() {}
 
 template <class F>
-void emu_launch(F f, dim3 g, dim3 b, int = 0, cudaStream_t = nullptr) {
+void emu_launch(F f, dim3 g, dim3 b, size_t shared_bytes = 0, cudaStream_t = nullptr) {
   gridDim = g;
   blockDim = b;
+  const float nan = std::nanf("");
   for (unsigned z = 0; z < g.z; ++z)
     for (unsigned y = 0; y < g.y; ++y)
       for (unsigned x = 0; x < g.x; ++x) {
         blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
+        g_dynamic_shared.assign((shared_bytes + sizeof(float4) - 1) / sizeof(float4),
+                                float4{nan, nan, nan, nan});
         std::barrier<> bar(b.x);
         g_block_bar = &bar;
         g_warp_bar.clear();

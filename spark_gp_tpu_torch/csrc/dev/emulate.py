@@ -1,18 +1,27 @@
-"""Run ``csrc/streamed_matvec.cu`` on the CPU, for checking a kernel's
-indexing before it goes to the card.
+"""Run a kernel source of ``csrc/`` on the CPU, for checking its indexing
+before it goes to the card.
 
-    python3 spark_gp_tpu_torch/csrc/dev/emulate.py [SOURCE.cu]
+    python3 spark_gp_tpu_torch/csrc/dev/emulate.py [SOURCE.cu ...]
 
-The source is translated to plain C++ (``cuda_emu.h`` runs each block as
-``blockDim.x`` threads with a real barrier and emulated warp shuffles;
-a launch becomes a loop over blocks and each inline-PTX statement a call
-of the header's emulation of that instruction), built with
-``g++`` into a temporary directory, and both entry points are held
-against the plain float64 versions of ``ops/streamed_matvec.py`` on
-ragged shapes, every accumulator width and p over one feature chunk.
+With no argument it runs ``csrc/streamed_matvec.cu`` and
+``csrc/spd_inv_logdet.cu``; a source is checked as K1 if it defines
+``spd_inv_logdet_f32``, else as K2.  The source is translated to plain C++
+(``cuda_emu.h`` runs each block as ``blockDim.x`` threads with a real
+barrier and emulated warp shuffles; a launch becomes a loop over blocks,
+``extern __shared__`` a pointer to the launch's buffer, NaN-filled for each
+block, and each inline-PTX statement a call of the header's emulation of
+that instruction), built with ``g++`` into a temporary directory, and held
+against the plain float64 versions:
+- K2 and K2-VJP (``ops/streamed_matvec.py``) on ragged shapes, every
+  accumulator width and p over one feature chunk; bars 1e-5 and 1e-4 of
+  the largest value;
+- K1 (``ops/spd_linalg.py``) at n = 4 .. 128 (ragged last panels, a full
+  128) and 129 (the workspace kernel), on batches of two kinds of SPD
+  matrix, and a batch with a non-PD matrix whose batch mates must stay
+  within the bar; bars K^-1 within 5e-5 of max|K^-1|, logdet within
+  1e-4 + 1e-5 |logdet|.
 This checks tiling, staging and bounds; it says nothing about speed, and
-nvcc may still refuse what g++ takes.  Exits 1 if a case misses its bar
-(K2 1e-5 and the VJP 1e-4 of the largest value).
+nvcc may still refuse what g++ takes.  Exits 1 if a case misses its bar.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
 
+from spark_gp_tpu_torch.ops import spd_linalg as spd  # noqa: E402
 from spark_gp_tpu_torch.ops import streamed_matvec as sm  # noqa: E402
 
 FAMILIES = {"rbf": [0.7], "matern12": [0.8], "matern32": [0.8], "matern52": [0.8],
@@ -39,6 +49,9 @@ FAMILIES = {"rbf": [0.7], "matern12": [0.8], "matern32": [0.8], "matern52": [0.8
 CASES = [((2, 100, 5), 1), ((2, 100, 5), 4), ((2, 100, 5), 8), ((1, 100, 5), 9),
          ((2, 77, 21), 9), ((1, 33, 3), 9), ((1, 64, 9), 9), ((1, 130, 20), 17),
          ((1, 5, 2), 3), ((1, 96, 16), 16), ((1, 40, 33), 2)]
+#: K1 (batch, n): one panel, ragged last panels (60, 97, 100, 113), a full
+#: 128, the workspace kernel at 129
+K1_CASES = [(2, 4), (2, 16), (2, 60), (2, 97), (2, 100), (1, 113), (1, 128), (1, 129)]
 
 
 def _close(text: str, i: int) -> int:
@@ -97,6 +110,9 @@ def _asm_call(body: str) -> str:
 def translate(text: str) -> str:
     """CUDA source -> C++ for ``cuda_emu.h``."""
     text = text.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
+    # extern __shared__ [__align__(n)] T name[];  ->  T* name = the launch's buffer
+    text = re.sub(r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?(\w+)\s+(\w+)\[\];",
+                  r"\1* \2 = static_cast<\1*>(emu_dynamic_shared());", text)
     # kernel<<<cfg>>>(args);  ->  emu_launch([&] { kernel(args); }, cfg);
     text = re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);",
                   lambda m: f"emu_launch([&] {{ {m.group(1)}({m.group(3)}); }}, {m.group(2)});",
@@ -109,16 +125,23 @@ def translate(text: str) -> str:
     return "".join(out) + text
 
 
+def is_k1(source: Path) -> bool:
+    return "spd_inv_logdet_f32" in source.read_text()
+
+
 def build(source: Path, out: Path) -> ctypes.CDLL:
+    """The emulated library of ``source``, its entry points declared.
+    Each library keeps its own copy of the header's globals
+    (``-fno-gnu-unique``), so K1's and K2's can share a process."""
     cpp = out.with_suffix(".cpp")
     cpp.write_text(translate(source.read_text()))
-    cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wall",
-           "-Wno-unused-function", "-Wno-unknown-pragmas", "-I", str(HERE), "-o", str(out),
-           str(cpp)]
+    cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-fno-gnu-unique",
+           "-Wall", "-Wno-unused-function", "-Wno-unknown-pragmas", "-I", str(HERE),
+           "-o", str(out), str(cpp)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(proc.stdout + proc.stderr)
-    return sm.bind(ctypes.CDLL(str(out)))
+    return (spd.bind if is_k1(source) else sm.bind)(ctypes.CDLL(str(out)))
 
 
 def check(lib, shape, n, family, params, rng) -> tuple[float, float]:
@@ -147,22 +170,88 @@ def check(lib, shape, n, family, params, rng) -> tuple[float, float]:
             float(np.abs(grad - gref).max() / np.abs(gref).max()))
 
 
+def spd_stack(b: int, n: int, rng, kind: str) -> np.ndarray:
+    """``[b, n, n]`` float32 SPD: ``"wishart"``, A A^T + n I (condition
+    number ~5); ``"gram"``, an RBF gram of points in 3-D plus 0.1 I
+    (condition number up to ~1e2 at n = 128, inverse entries of order 10)."""
+    if kind == "wishart":
+        a = rng.normal(size=(b, n, n))
+        k = a @ a.transpose(0, 2, 1) + n * np.eye(n)
+    else:
+        x = rng.normal(size=(b, n, 3))
+        d = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
+        k = np.exp(-0.5 * d) + 0.1 * np.eye(n)
+    return k.astype(np.float32)
+
+
+def check_spd(lib, k: np.ndarray) -> tuple[float, np.ndarray]:
+    """K1 on ``k`` against the plain float64 version: the error of K^-1
+    relative to max|K^-1| over the finite matrices of the batch, and each
+    matrix's logdet error over its bar 1e-4 + 1e-5 |logdet| (NaN where the
+    plain version gives NaN)."""
+    b, n = k.shape[:2]
+    kinv = np.full_like(k, np.nan)
+    ld = np.full(b, np.nan, np.float32)
+    ws = np.empty_like(k) if n > lib.spd_inv_logdet_smem_max_n() else None
+    err = lib.spd_inv_logdet_f32(k.ctypes.data, kinv.ctypes.data, ld.ctypes.data,
+                                 None if ws is None else ws.ctypes.data, b, n, None)
+    if err:
+        raise SystemExit(f"entry returned {err} at ({b}, {n})")
+    ref, ld_ref = (a.numpy() for a in spd.spd_inv_logdet_plain(torch.as_tensor(k).double()))
+    finite = np.isfinite(ld_ref)
+    diff = np.abs(kinv[finite] - ref[finite]).max() if finite.any() else 0.0
+    rel = float(diff / np.abs(ref[finite]).max()) if finite.any() else 0.0
+    ld_rel = np.abs(ld - ld_ref) / (1e-4 + 1e-5 * np.abs(ld_ref))
+    if not np.array_equal(np.isfinite(ld), finite) or not np.array_equal(
+            np.isfinite(kinv).all(axis=(1, 2)), finite):
+        rel = float("inf")  # NaN where the plain version is finite, or the reverse
+    return rel, ld_rel
+
+
+def main_k1(lib, rng) -> int:
+    failed = 0
+    print("smem max n", lib.spd_inv_logdet_smem_max_n())
+    for b, n in K1_CASES:
+        for kind in ("wishart", "gram"):
+            rel, ld_rel = check_spd(lib, spd_stack(b, n, rng, kind))
+            ok = rel <= 5e-5 and bool((ld_rel <= 1).all())
+            failed += not ok
+            print(f"{'ok  ' if ok else 'FAIL'} K1 ({b}, {n}) {kind}: K^-1 {rel:.2e}  "
+                  f"logdet/bar {ld_rel.max():.2e}", flush=True)
+    k = spd_stack(3, 100, rng, "wishart")
+    k[1, 0, 0] = -1.0
+    rel, ld_rel = check_spd(lib, k)
+    ok = rel <= 5e-5 and bool((ld_rel[[0, 2]] <= 1).all())
+    failed += not ok
+    print(f"{'ok  ' if ok else 'FAIL'} K1 non-PD batch mate: K^-1 {rel:.2e}", flush=True)
+    return failed
+
+
+def main_k2(lib, rng) -> int:
+    failed = 0
+    print("row tile", lib.streamed_matvec_row_tile())
+    for shape, n in CASES:
+        for family, params in FAMILIES.items():
+            e_mv, e_vjp = check(lib, shape, n, family, params, rng)
+            ok = e_mv <= 1e-5 and e_vjp <= 1e-4
+            failed += not ok
+            print(f"{'ok  ' if ok else 'FAIL'} {shape} n={n} {family}: "
+                  f"K2 {e_mv:.2e}  VJP {e_vjp:.2e}", flush=True)
+    return failed
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("source", nargs="?", default=str(HERE.parent / "streamed_matvec.cu"))
+    parser.add_argument("source", nargs="*",
+                        default=[str(HERE.parent / "streamed_matvec.cu"),
+                                 str(HERE.parent / "spd_inv_logdet.cu")])
     args = parser.parse_args()
     rng = np.random.default_rng(0)
     failed = 0
     with tempfile.TemporaryDirectory() as tmp:
-        lib = build(Path(args.source), Path(tmp) / "libemu.so")
-        print("row tile", lib.streamed_matvec_row_tile())
-        for shape, n in CASES:
-            for family, params in FAMILIES.items():
-                e_mv, e_vjp = check(lib, shape, n, family, params, rng)
-                ok = e_mv <= 1e-5 and e_vjp <= 1e-4
-                failed += not ok
-                print(f"{'ok  ' if ok else 'FAIL'} {shape} n={n} {family}: "
-                      f"K2 {e_mv:.2e}  VJP {e_vjp:.2e}", flush=True)
+        for i, source in enumerate(map(Path, args.source)):
+            lib = build(source, Path(tmp) / f"libemu{i}.so")
+            failed += (main_k1 if is_k1(source) else main_k2)(lib, rng)
     print(f"{failed} failed")
     return 1 if failed else 0
 

@@ -1,15 +1,15 @@
-"""Compare versions of the K2 forward kernel on the card.
+"""Compare versions of a kernel on the card: K2's forward kernel, or K1.
 
-    python3 spark_gp_tpu_torch/csrc/dev/variants.py SPEC.json [--out variants.json]
+    python3 spark_gp_tpu_torch/csrc/dev/variants.py SPEC.json [--kernel K] [--out variants.json]
 
 SPEC maps a variant name to ``[source, edits]``: ``source`` is a path
 relative to the repository root whose C entry points are those of
-``spark_gp_tpu_torch/csrc/streamed_matvec.cu``; ``edits`` is a list of
+``spark_gp_tpu_torch/csrc/<K>.cu``; ``edits`` is a list of
 ``[find, replace]`` pairs, each of which must match exactly once.
 
 Every variant is built with the package's nvcc flags (one nvcc each, all
-started together) and run through the package's wrapper
-(``ops/streamed_matvec.py``) with its library in place of the package's:
+started together) and run through the package's wrapper with its library in place of the
+package's.  ``--kernel streamed_matvec`` (the default; ``ops/streamed_matvec.py``):
 - checked by ``chip_smoke.check_streamed_matvec`` (every shape, width,
   tile transform and bar of the chip smoke run; a variant that drops work
   on purpose fails it and is timed all the same);
@@ -18,7 +18,14 @@ started together) and run through the package's wrapper
 - timed by ``chip_smoke.time_ms`` with the RBF map at sigma = 1 on the
   (9, 4065, 9) stack at n = 9, 1, 8, 16 (the variants in order, then in
   reverse), and the VJP at n = 8, 1.
-The ptxas registers and spill stores of each forward instance, the card's
+``--kernel spd_inv_logdet`` (``ops/spd_linalg.py``):
+- checked by ``chip_smoke.check_spd_inv_logdet`` on the exact lane's gram
+  stacks (``chip_smoke.exact_lane_stacks``) and all its random shapes;
+- timed on the airfoil fold's (14, 97) and the protein (366, 100) stacks
+  and on random SPD batches at (2, 256) and (1, 512): device time by
+  ``chip_smoke.time_device_ms`` (the variants in order, then in reverse)
+  and the eager loop's wall time per call by ``chip_smoke.time_ms``.
+The ptxas registers and spill stores of each kernel instance, the card's
 name and power limit and all numbers go to ``--out`` as JSON.
 """
 
@@ -42,7 +49,15 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
 from spark_gp_tpu_torch.ops import cuda_lib  # noqa: E402
+from spark_gp_tpu_torch.ops import spd_linalg as spd  # noqa: E402
 from spark_gp_tpu_torch.ops import streamed_matvec as sm  # noqa: E402
+
+#: per kernel: its wrapper module, and a pattern naming each kernel
+#: instance in ptxas's "Compiling entry function" lines
+KERNELS = {
+    "streamed_matvec": (sm, r"streamed_matvec_kernelILi(\d)ELi(\d+)EE", "F{0}/NB{1}"),
+    "spd_inv_logdet": (spd, r"(spd_inv_logdet\w*?_kernel)", "{0}"),
+}
 
 
 def sources(spec: dict) -> dict:
@@ -57,8 +72,9 @@ def sources(spec: dict) -> dict:
     return out
 
 
-def build(texts: dict, build_dir: Path) -> dict:
-    """{name: (library, {"F<family>/NB<width>": [registers, spill bytes]})}"""
+def build(texts: dict, build_dir: Path, kernel: str) -> dict:
+    """{name: (library, {instance: [registers, spill bytes]})}"""
+    module, pattern, label = KERNELS[kernel]
     procs = {}
     for name, text in texts.items():
         src = build_dir / f"{name}.cu"
@@ -73,9 +89,9 @@ def build(texts: dict, build_dir: Path) -> dict:
             raise SystemExit(f"{name}: nvcc exit {proc.returncode}\n{log[-4000:]}")
         regs, entry = {}, None
         for line in log.splitlines():
-            m = re.search(r"Compiling entry function '\S*streamed_matvec_kernelILi(\d)ELi(\d+)EE", line)
+            m = re.search(pattern, line) if "Compiling entry function" in line else None
             if m:
-                entry = f"F{m.group(1)}/NB{m.group(2)}"
+                entry = label.format(*m.groups())
                 regs[entry] = [None, 0]
             elif "Compiling entry function" in line:
                 entry = None
@@ -83,7 +99,7 @@ def build(texts: dict, build_dir: Path) -> dict:
                 regs[entry][0] = int(line.split("Used ")[1].split()[0])
             elif entry and "bytes spill stores" in line:
                 regs[entry][1] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
-        libs[name] = (sm.bind(ctypes.CDLL(str(build_dir / f"lib{name}.so"))), regs)
+        libs[name] = (module.bind(ctypes.CDLL(str(build_dir / f"lib{name}.so"))), regs)
     return libs
 
 
@@ -133,9 +149,43 @@ def _measure(libs: dict) -> dict:
     return result
 
 
+def _measure_k1(libs: dict) -> dict:
+    """Checks and times of every K1 variant, each run through the wrapper
+    with its library swapped in."""
+    def use(name):
+        spd._library = lambda lib=libs[name][0]: lib
+
+    stacks = chip_smoke.exact_lane_stacks(torch, chip_smoke.main_path_data())
+    result = {"max_abs_err": {}, "failed": {}, "ms": {}, "wall_ms": {}}
+    for name in libs:
+        use(name)
+        try:
+            errs = chip_smoke.check_spd_inv_logdet(torch, spd, stacks)
+            result["max_abs_err"][name] = {"all": max(errs.values()),
+                                           **{k: errs[k] for k in stacks}}
+        except AssertionError as err:
+            result["max_abs_err"][name] = None
+            result["failed"][name] = str(err)
+    inputs = {"14x97": stacks["airfoil_fold"], "366x100": stacks["protein"],
+              **{f"{b}x{n}": torch.as_tensor(chip_smoke.spd_batch(b, n, seed=n), device="cuda")
+                 for b, n in ((2, 256), (1, 512))}}
+    order = list(libs) + list(libs)[::-1]
+    for label, k in inputs.items():
+        for name in order:
+            use(name)
+            result["ms"].setdefault(label, {}).setdefault(name, []).append(
+                chip_smoke.time_device_ms(lambda k=k: spd.spd_inv_logdet(k)))
+        for name in libs:
+            use(name)
+            result["wall_ms"].setdefault(label, {})[name] = chip_smoke.time_ms(
+                lambda k=k: spd.spd_inv_logdet(k))
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("spec")
+    parser.add_argument("--kernel", choices=sorted(KERNELS), default="streamed_matvec")
     parser.add_argument("--out", default="variants.json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -146,16 +196,17 @@ def main() -> int:
     print(card, flush=True)
     texts = sources(json.loads(Path(args.spec).read_text()))
     start = time.perf_counter()
-    package_library = sm._library
+    module = KERNELS[args.kernel][0]
+    package_library = module._library
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            libs = build(texts, Path(tmp))
+            libs = build(texts, Path(tmp), args.kernel)
             print(f"built {len(libs)} variants in {time.perf_counter() - start:.1f} s", flush=True)
-            result = _measure(libs)
+            result = (_measure_k1 if args.kernel == "spd_inv_logdet" else _measure)(libs)
             result.update(card=card, registers={k: e[1] for k, e in libs.items()})
     finally:
-        sm._library = package_library
-    print(json.dumps({k: result[k] for k in ("max_rel_err", "bias", "ms")}), flush=True)
+        module._library = package_library
+    print(json.dumps({k: v for k, v in result.items() if k not in ("failed", "card")}), flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     return 0

@@ -53,11 +53,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``; ``name`` may name a subdirectory
+    (``dev/<file>``)."""
     source = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(
         source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{Path(name).name}-{digest}.so"
 
 
 def build_all(names, force: bool = False) -> dict:

@@ -6,8 +6,9 @@ The BCM likelihood needs, for every expert's ``s x s`` gram: ``log|K|``,
 ``(K^-1, log|K|)`` for a ``[B, n, n]`` batch in one pass:
 
 * on a CUDA float32 batch with ``n <= 512`` it launches the hand-written
-  kernel ``csrc/spd_inv_logdet.cu`` (one thread block per matrix: Cholesky,
-  ``W = L^-1`` by forward substitution, ``K^-1 = W^T W``);
+  kernel ``csrc/spd_inv_logdet.cu`` (one thread block per matrix: a
+  blocked Cholesky, ``W = L^-1`` block row by block row, ``K^-1 = W^T W``;
+  above ``n = 128`` a column-by-column version on a workspace);
 * on a CPU tensor it runs :func:`spd_inv_logdet_plain`, the same function
   in plain PyTorch (Cholesky, logdet from the diagonal, ``cholesky_inverse``);
 * anything else on CUDA raises -- there is no silent fallback.
@@ -52,15 +53,20 @@ def kernel_applies(k: torch.Tensor) -> bool:
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = cuda_lib.load("spd_inv_logdet")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a library built from
+    ``csrc/spd_inv_logdet.cu``."""
     fn = lib.spd_inv_logdet_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.spd_inv_logdet_smem_max_n.argtypes = []
     lib.spd_inv_logdet_smem_max_n.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return bind(cuda_lib.load("spd_inv_logdet"))
 
 
 def _launch(k: torch.Tensor):

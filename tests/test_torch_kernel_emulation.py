@@ -1,13 +1,18 @@
-"""The CUDA source of K2 and K2-VJP (``csrc/streamed_matvec.cu``) on the CPU.
+"""The CUDA sources of K1, K2 and K2-VJP (``csrc/*.cu``) on the CPU.
 
-``csrc/dev/emulate.py`` translates the source to C++ over an emulation of
+``csrc/dev/emulate.py`` translates a source to C++ over an emulation of
 the CUDA subset it uses (each block as real threads with a barrier, warp
-shuffles, ``cp.async`` as a plain copy) and builds it with g++.  Both
-entries are held against the plain float64 version at the card's bars
-(K2 1e-5 and the VJP 1e-4 of the largest value) on shapes that exercise
-ragged tiles, every accumulator width, two feature chunks and two
-right-hand-side chunks.  This covers the kernels' tiling, staging and
-bounds here; their speed, and what only nvcc refuses, show on the card.
+shuffles, dynamic shared memory NaN-filled for each block, ``cp.async`` as
+a plain copy) and builds it with g++.  K2 and K2-VJP are held against the
+plain float64 version at the card's bars (K2 1e-5 and the VJP 1e-4 of the
+largest value) on shapes that exercise ragged tiles, every accumulator
+width, two feature chunks and two right-hand-side chunks.  K1 is held
+against its plain float64 version at the card's bars (K^-1 within 5e-5 of
+max|K^-1|, logdet within 1e-4 + 1e-5 |logdet|) at n from one panel to a
+full 128 with ragged last panels, at 129 (the workspace kernel), and on a
+batch with a non-PD matrix.  This covers the kernels' tiling, staging,
+barriers and bounds here; their speed, and what only nvcc refuses, show
+on the card.
 """
 
 import importlib.util
@@ -17,21 +22,31 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from spark_gp_tpu_torch.ops import spd_linalg as spd
 from spark_gp_tpu_torch.ops import streamed_matvec as sm
 
 EMULATE = Path(__file__).resolve().parents[1] / "spark_gp_tpu_torch" / "csrc" / "dev" / "emulate.py"
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def _emulated(tmp_path_factory, source: str):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the emulated kernel source")
-    spec = importlib.util.spec_from_file_location("k2_emulate", EMULATE)
+    spec = importlib.util.spec_from_file_location("kernel_emulate", EMULATE)
     emu = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(emu)
-    lib = emu.build(emu.HERE.parent / "streamed_matvec.cu",
-                    tmp_path_factory.mktemp("emulated") / "libstreamed_matvec.so")
+    lib = emu.build(emu.HERE.parent / f"{source}.cu",
+                    tmp_path_factory.mktemp("emulated") / f"lib{source}.so")
     return emu, lib
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    return _emulated(tmp_path_factory, "streamed_matvec")
+
+
+@pytest.fixture(scope="module")
+def emulated_k1(tmp_path_factory):
+    return _emulated(tmp_path_factory, "spd_inv_logdet")
 
 
 def test_row_tile_agrees_with_the_wrapper(emulated):
@@ -48,3 +63,44 @@ def test_kernel_source_matches_plain(emulated, shape, n):
     for family, params in emu.FAMILIES.items():
         e_mv, e_vjp = emu.check(lib, shape, n, family, params, rng)
         assert e_mv <= 1e-5 and e_vjp <= 1e-4, (family, e_mv, e_vjp)
+
+
+def test_k1_smem_max_n_agrees_with_the_source(emulated_k1):
+    _, lib = emulated_k1
+    assert lib.spd_inv_logdet_smem_max_n() == 128
+    assert lib.spd_inv_logdet_smem_max_n() < spd.N_MAX
+
+
+@pytest.mark.parametrize("b,n", [(2, 4), (2, 16), (2, 60), (2, 97), (2, 100), (1, 113),
+                                 (1, 128), (1, 129)])
+@pytest.mark.parametrize("kind", ["wishart", "gram"])
+def test_k1_source_matches_plain(emulated_k1, b, n, kind):
+    emu, lib = emulated_k1
+    rel, ld_rel = emu.check_spd(lib, emu.spd_stack(b, n, np.random.default_rng(n), kind))
+    assert rel <= 5e-5, rel
+    assert (ld_rel <= 1).all(), ld_rel
+
+
+def test_k1_non_pd_matrix_is_nan_and_alone(emulated_k1):
+    emu, lib = emulated_k1
+    k = emu.spd_stack(3, 100, np.random.default_rng(1), "wishart")
+    k[1, 0, 0] = -1.0
+    kinv = np.zeros_like(k)
+    ld = np.zeros(3, np.float32)
+    assert lib.spd_inv_logdet_f32(k.ctypes.data, kinv.ctypes.data, ld.ctypes.data, None,
+                                  3, 100, None) == 0
+    assert np.isfinite(kinv).all(axis=(1, 2)).tolist() == [True, False, True]
+    assert np.isfinite(ld).tolist() == [True, False, True]
+    # check_spd holds the finite batch mates to the bar and NaN to NaN
+    rel, ld_rel = emu.check_spd(lib, k)
+    assert rel <= 5e-5 and (ld_rel[[0, 2]] <= 1).all(), (rel, ld_rel)
+
+
+def test_k1_output_is_exactly_symmetric(emulated_k1):
+    emu, lib = emulated_k1
+    for n in (97, 100):
+        k = emu.spd_stack(1, n, np.random.default_rng(n), "gram")
+        kinv = np.zeros_like(k)
+        ld = np.zeros(1, np.float32)
+        lib.spd_inv_logdet_f32(k.ctypes.data, kinv.ctypes.data, ld.ctypes.data, None, 1, n, None)
+        assert np.array_equal(kinv, kinv.transpose(0, 2, 1))
