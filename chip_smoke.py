@@ -13,10 +13,12 @@ code is non-zero and the final ``ok`` line is never printed:
                started together.
 3. check    -- each kernel against its plain PyTorch version (float64 on
                the same inputs upcast).  K1: on random batches at the main
-               path's shapes and more (ragged panels, the workspace kernel
+               path's shapes and more (ragged panels, the workspace path
                at n = 129 .. 512), on the gram stacks the exact lane
-               hands it (the first airfoil fold's, the protein split's),
-               NaN isolation of a non-PD matrix, the backward.  K2 and
+               hands it (the first airfoil fold's at expert 100 and 450,
+               the protein split's at expert 100 and 400), NaN isolation
+               of a non-PD matrix and the backward, each at n = 100 and
+               on the workspace path.  K2 and
                K2-VJP: all seven tile transforms on the protein-matfree
                row stack (9, 4065, 9) at the path's widths n = 1, 8, 9,
                on a ragged (3, 1000, 5) stack at n = 1, 4, on (2, 777, 21)
@@ -25,28 +27,32 @@ code is non-zero and the final ``ok`` line is never printed:
 4. time     -- each kernel, its plain version and the library call at the
                main path's shapes, with the bound from the card's peaks;
                K1 also at (2, 256) and (1, 512), and its first design in
-               turns with it at the main path's shapes.
+               turns with it at all six of its shapes.
 5. parity   -- the exact-lane objective and gradient on the card (float32,
                through K1) against the CPU (float64, Cholesky) on the
                first airfoil fold's stack.
 6. airfoil  -- the reference's acceptance config, 10-fold CV; RMSE < 2.1.
-7. protein  -- the CASP config at full size (stand-in data, E = 366).
-8. profile  -- one protein objective evaluation under torch.profiler:
+7. airfoil-expert450 -- the airfoil config at expert 450 (E = 3,
+               s = 451: K1's workspace path), 10-fold CV; RMSE < 2.1; one
+               evaluation profiled for K1's share; one fold again with
+               K1's first design.
+8. protein  -- the CASP config at full size (stand-in data, E = 366).
+9. profile  -- one protein objective evaluation under torch.profiler:
                wall ms, device-busy ms and share, the top kernels, K1's
                device ms and share; and the host magic solve's share of
                the PPA build.
-9. matfree-parity -- the matrix-free objective and gradient at init theta
+10. matfree-parity -- the matrix-free objective and gradient at init theta
                on the protein-matfree stack (E = 9, s = 4065): on the card
                (K2) against the iterative lane on the card (materialized
                gram) and against the CPU in float64, the same probes;
                and, with no bar, the same engine fed float64 products.
-10. protein-matfree -- the fit on the matrix-free lane: phase seconds,
+11. protein-matfree -- the fit on the matrix-free lane: phase seconds,
                launches (asserted against nfev), solver metrics, RMSE;
                the peak memory of one objective evaluation beside the
                iterative lane's; the same config fitted on the iterative
                and exact lanes.
-11. matfree-profile -- one matrix-free evaluation under torch.profiler.
-12. kernels -- one line with every kernel's numbers.
+12. matfree-profile -- one matrix-free evaluation under torch.profiler.
+13. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -214,6 +220,46 @@ def airfoil_kernel():
     return 1.0 * ARDRBFKernel(5) + Const(1.0) * EyeKernel()
 
 
+def airfoil_gp(expert: int):
+    """The airfoil acceptance config (examples/airfoil.py) at ``expert``
+    points an expert (the reference's is 100)."""
+    from spark_gp_tpu_torch import GaussianProcessRegression
+
+    return (
+        GaussianProcessRegression()
+        .setDatasetSizeForExpert(expert)
+        .setActiveSetSize(1000)
+        .setSigma2(1e-4)
+        .setKernel(airfoil_kernel)
+        .setSeed(13)
+    )
+
+
+def airfoil_cv(gp, x, y, folds) -> dict:
+    """A fit and predict per fold: the mean test RMSE, the evaluations and
+    phase seconds summed over folds, each fold's (E, s), the first fold's
+    model and the seconds of the whole."""
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    start = time.perf_counter()
+    scores, nfev, shapes, first = [], 0, set(), None
+    phases = dict.fromkeys(PHASES, 0.0)
+    for train, test in folds:
+        model = copy.copy(gp).fit(x[train], y[train])
+        pred = model.predict(x[test])
+        if not np.all(np.isfinite(pred)) or pred.shape != test.shape:
+            raise AssertionError("airfoil predictions not finite")
+        scores.append(rmse(y[test], pred))
+        nfev += model.metrics["lbfgs_nfev"]
+        shapes.add((model.metrics["num_experts"], model.metrics["expert_size"]))
+        for key in PHASES:
+            phases[key] += model.metrics[key]
+        if first is None:
+            first = model
+    return {"rmse": float(np.mean(scores)), "seconds": time.perf_counter() - start,
+            "nfev": nfev, **phases, "experts": sorted(shapes), "first_model": first}
+
+
 def protein_kernel():
     """The protein config's kernel (examples/protein.py)."""
     from spark_gp_tpu_torch import ARDRBFKernel, WhiteNoiseKernel
@@ -242,21 +288,26 @@ def main_path_data() -> dict:
 
 
 def exact_lane_stacks(torch, d: dict) -> dict:
-    """The gram stacks the exact lane hands K1 at init theta: the first
-    airfoil CV fold's training rows (14, 97) and the protein training
-    split (366, 100), each with its config's kernel plus sigma2 * I."""
+    """The gram stacks the exact lane hands K1 at init theta, each with its
+    config's kernel plus sigma2 * I: the first airfoil CV fold's training
+    rows at expert 100 (14, 97) and at expert 450 (3, 451), the protein
+    training split at expert 100 (366, 100) and at expert 400 (91, 403)."""
     from spark_gp_tpu_torch import Const, EyeKernel
     from spark_gp_tpu_torch.kernels.base import masked_gram_stack
     from spark_gp_tpu_torch.parallel.experts import group_for_experts
 
     train = d["folds"][0][0]
+    airfoil = (airfoil_kernel, 1e-4, d["x"][train], d["y"][train])
+    protein = (protein_kernel, 1e-3, d["xp"][d["tr"]], d["yp_tr"])
     stacks = {}
-    for label, factory, sigma2, xs, ys, shape in [
-        ("airfoil_fold", airfoil_kernel, 1e-4, d["x"][train], d["y"][train], (14, 97)),
-        ("protein", protein_kernel, 1e-3, d["xp"][d["tr"]], d["yp_tr"], (366, 100)),
+    for label, (factory, sigma2, xs, ys), expert, shape in [
+        ("airfoil_fold", airfoil, 100, (14, 97)),
+        ("protein", protein, 100, (366, 100)),
+        ("airfoil_expert450", airfoil, 450, (3, 451)),
+        ("protein_expert400", protein, 400, (91, 403)),
     ]:
         kernel = factory() + Const(sigma2) * EyeKernel()
-        data = group_for_experts(xs, ys, 100, dtype=torch.float32, device="cuda")
+        data = group_for_experts(xs, ys, expert, dtype=torch.float32, device="cuda")
         theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device="cuda")
         stacks[label] = masked_gram_stack(kernel, theta, data.x, data.mask)
         if tuple(stacks[label].shape) != (shape[0], shape[1], shape[1]):
@@ -285,8 +336,10 @@ def check_against_plain(torch, spd, k, label: str) -> float:
 def check_spd_inv_logdet(torch, spd, stacks):
     """K1 against its plain version on random SPD batches (the main path's
     shapes among them, ragged last panels at n = 113, 127, the workspace
-    kernel from n = 129), on the main path's own gram stacks ``stacks``, on
-    a batch with a non-PD matrix, and in the backward."""
+    path from n = 129), on the main path's own gram stacks ``stacks``, on
+    a batch with a non-PD matrix, and in the backward; the last two at
+    n = 100 and on the workspace path (n = 300, 451), where each matrix
+    spans many blocks."""
     errs = {}
     for b, n in [(1, 4), (5, 60), (7, 64), (8, 128), (3, 100), (3, 113), (2, 127),
                  (2, 129), (3, 200), (2, 256), (1, 512), (14, 97), (14, 100), (366, 100)]:
@@ -296,23 +349,26 @@ def check_spd_inv_logdet(torch, spd, stacks):
         errs[label] = check_against_plain(torch, spd, k, label)
 
     # a non-PD matrix gives NaN; its batch mates stay exact
-    k = torch.as_tensor(spd_batch(4, 100, seed=1), device="cuda")
-    k[2, 0, 0] = -1.0
-    kinv, ld = spd.spd_inv_logdet(k)
-    torch.cuda.synchronize()
-    bad = ~torch.isfinite(kinv).all(dim=(1, 2))
-    if bad.tolist() != [False, False, True, False] or torch.isfinite(ld[2]):
-        raise AssertionError(f"non-PD isolation: bad={bad.tolist()} ld={ld.tolist()}")
-    keep = [0, 1, 3]
-    kinv_ref, ld_ref = spd.spd_inv_logdet_plain(k[keep].double())
-    if not (kinv[keep].double() - kinv_ref).abs().max().item() <= 5e-5 * kinv_ref.abs().max().item():
-        raise AssertionError("non-PD batch mates disagree with the plain version")
+    for n in (100, 300):
+        k = torch.as_tensor(spd_batch(4, n, seed=1), device="cuda")
+        k[2, 0, 0] = -1.0
+        kinv, ld = spd.spd_inv_logdet(k)
+        torch.cuda.synchronize()
+        bad = ~torch.isfinite(kinv).all(dim=(1, 2))
+        if bad.tolist() != [False, False, True, False] or torch.isfinite(ld[2]):
+            raise AssertionError(f"non-PD isolation at n = {n}: bad={bad.tolist()} "
+                                 f"ld={ld.tolist()}")
+        keep = [0, 1, 3]
+        kinv_ref, ld_ref = spd.spd_inv_logdet_plain(k[keep].double())
+        scale = kinv_ref.abs().max().item()
+        if not (kinv[keep].double() - kinv_ref).abs().max().item() <= 5e-5 * scale:
+            raise AssertionError(f"non-PD batch mates disagree with the plain version at n = {n}")
 
     # backward: the autograd function against autograd through the plain
     # float64 Cholesky, at rtol 1e-4.  The cotangent of K^-1 is symmetric,
     # as in the likelihood (0.5 y y^T): the Cholesky backward returns the
     # symmetrized gradient, the VJP formula the plain one.
-    for b, n in [(3, 100), (14, 97)]:
+    for b, n in [(3, 100), (14, 97), (2, 451)]:
         gen = np.random.default_rng(b)
         k64 = torch.as_tensor(spd_batch(b, n, seed=b), device="cuda").double()
         g = torch.as_tensor(gen.normal(size=(b, n, n)), device="cuda")
@@ -333,22 +389,22 @@ def check_spd_inv_logdet(torch, spd, stacks):
     return errs
 
 
-def time_spd_inv_logdet(torch, spd, first_design, inputs: dict, compared: dict, peaks) -> dict:
-    """K1, its plain version and the library call (``cholesky`` then
-    ``cholesky_inverse``) on each ``[B, n, n]`` input, and on the inputs
-    ``compared`` the first design too (the library ``first_design`` run
-    through the same wrapper), in turns: kernel, first design, first
-    design, kernel; each reads the mean of its two.  K1's ``ms`` and
-    ``first_design_ms`` are device times (``time_device_ms``: the new
-    kernel is shorter than the wrapper's host overhead); ``wall_ms`` is the
-    eager loop's time per call, host overhead included, as ``plain_ms`` and
+def time_spd_inv_logdet(torch, spd, first_design, inputs: dict, peaks) -> dict:
+    """K1, its first design (the library ``first_design`` run through the
+    same wrapper), its plain version and the library call (``cholesky``
+    then ``cholesky_inverse``) on each ``[B, n, n]`` input.  K1 and the
+    first design run in turns: kernel, first design, first design,
+    kernel; each reads the mean of its two.  ``ms`` and
+    ``first_design_ms`` are device times (``time_device_ms``: the kernel is
+    shorter than the wrapper's host overhead); ``wall_ms`` is the eager
+    loop's time per call, host overhead included, as ``plain_ms`` and
     ``library_ms`` are.  The bound is the larger of the bytes (K read once,
     K^-1 and logdet written once) over the memory rate and the B n^3 flops
     over the f32 peak."""
     bw, f32 = peaks[:2]
     package_library = spd._library
     out = {}
-    for label, k in {**compared, **inputs}.items():
+    for label, k in inputs.items():
         b, n = k.shape[0], k.shape[-1]
 
         def library(k=k):
@@ -359,10 +415,8 @@ def time_spd_inv_logdet(torch, spd, first_design, inputs: dict, compared: dict, 
         def kernel(k=k):
             return spd.spd_inv_logdet(k)
 
-        turns = {"ms": [], "first_design_ms": []} if label in compared else {"ms": []}
+        turns = {"ms": [], "first_design_ms": []}
         for key in ("ms", "first_design_ms", "first_design_ms", "ms"):
-            if key not in turns:
-                continue
             spd._library = package_library if key == "ms" else (lambda: first_design)
             try:
                 turns[key].append(time_device_ms(kernel))
@@ -560,14 +614,15 @@ def main() -> int:
           "passed": True, "bars": {"matvec": "1e-5 * max|ref|", "vjp": "1e-4 * max|ref|"},
           "errors": k2_errs})
 
-    # 4. time, at the main path's shapes (and K1 on the workspace kernel's)
+    # 4. time, at the main path's shapes (and K1 on the workspace path's)
     peaks = peaks_for(name)
     first_design = spd.bind(cuda_lib.load(K1_FIRST_DESIGN))
     launches = spd.spd_inv_logdet.launches
     timing = time_spd_inv_logdet(torch, spd, first_design, {
+        **stacks,
         "2x256": torch.as_tensor(spd_batch(2, 256, seed=256), device="cuda"),
         "1x512": torch.as_tensor(spd_batch(1, 512, seed=512), device="cuda"),
-    }, stacks, peaks)
+    }, peaks)
     spd.spd_inv_logdet.launches = launches
     for label, row in timing.items():
         emit({"phase": "time", "kernel": "spd_inv_logdet", "input": label, **row, "card": smi})
@@ -597,40 +652,59 @@ def main() -> int:
         emit({"phase": "parity", "rel_value_err": dv, "rel_grad_err": dg})
 
     # 6. airfoil: 10-fold CV of the reference's acceptance config
-    gp = (
-        GaussianProcessRegression()
-        .setDatasetSizeForExpert(100)
-        .setActiveSetSize(1000)
-        .setSigma2(1e-4)
-        .setKernel(airfoil_kernel)
-        .setSeed(13)
-    )
     spd.spd_inv_logdet.launches = 0
-    start = time.perf_counter()
-    scores, nfev = [], 0
-    phases = dict.fromkeys(PHASES, 0.0)
-    for train, test in folds:
-        model = copy.copy(gp).fit(x[train], y[train])
-        pred = model.predict(x[test])
-        if not np.all(np.isfinite(pred)) or pred.shape != test.shape:
-            raise AssertionError("airfoil predictions not finite")
-        scores.append(rmse(y[test], pred))
-        nfev += model.metrics["lbfgs_nfev"]
-        for key in PHASES:
-            phases[key] += model.metrics[key]
-    seconds = time.perf_counter() - start
+    cv = airfoil_cv(airfoil_gp(100), x, y, folds)
     launches_airfoil = spd.spd_inv_logdet.launches
-    score = float(np.mean(scores))
-    emit({"phase": "airfoil", "rmse": score, "seconds": seconds,
-          "launches": launches_airfoil, "nfev": nfev, **phases,
+    model = cv.pop("first_model")
+    emit({"phase": "airfoil", **cv, "launches": launches_airfoil,
           "num_experts": model.metrics["num_experts"],
           "expert_size": model.metrics["expert_size"]})
-    if not score < 2.1:
-        raise AssertionError(f"airfoil 10-fold RMSE {score} >= 2.1")
-    if launches_airfoil != nfev or launches_airfoil == 0:
-        raise AssertionError(f"airfoil: {launches_airfoil} launches for {nfev} evaluations")
+    if not cv["rmse"] < 2.1:
+        raise AssertionError(f"airfoil 10-fold RMSE {cv['rmse']} >= 2.1")
+    if launches_airfoil != cv["nfev"] or launches_airfoil == 0:
+        raise AssertionError(f"airfoil: {launches_airfoil} launches for {cv['nfev']} evaluations")
 
-    # 7. protein stand-in at full size: 45,730 x 9, 80/20 split, E = 366
+    # 7. airfoil-expert450: the same config at expert 450, E = 3 and
+    # s = 451 on every fold, so every evaluation runs K1's workspace path
+    spd.spd_inv_logdet.launches = 0
+    cv = airfoil_cv(airfoil_gp(450), x, y, folds)
+    launches_450 = spd.spd_inv_logdet.launches
+    model = cv.pop("first_model")
+    if cv["experts"] != [(3, 451)]:
+        raise AssertionError(f"airfoil-expert450: (E, s) per fold {cv['experts']}")
+    if not cv["rmse"] < 2.1:
+        raise AssertionError(f"airfoil-expert450 10-fold RMSE {cv['rmse']} >= 2.1")
+    if launches_450 != cv["nfev"] or launches_450 == 0:
+        raise AssertionError(f"airfoil-expert450: {launches_450} launches for "
+                             f"{cv['nfev']} evaluations")
+    # K1's share: one evaluation of the first fold at its fitted theta
+    # under the profiler; and that fold fitted again with K1's first design
+    # between two fits with K1, for the optimize seconds side by side
+    train0 = folds[0][0]
+    data = group_for_experts(x[train0], y[train0], 450, dtype=torch.float32, device="cuda")
+    raw = model.raw_predictor
+    prof = profile_objective(torch, make_value_and_grad(raw.kernel, data), raw.theta,
+                             shares={"spd_inv_logdet": ("spd_inv_logdet",)})
+    k1_eval = prof["kernels"]["spd_inv_logdet"]
+    package_library = spd._library
+    fold0 = {"kernel": [], "first_design": []}
+    try:
+        for key in ("kernel", "first_design", "kernel"):
+            spd._library = package_library if key == "kernel" else (lambda: first_design)
+            fit = copy.copy(airfoil_gp(450)).fit(x[train0], y[train0])
+            fold0[key].append({k: fit.metrics[k] for k in ("optimize_seconds", "lbfgs_nfev")})
+    finally:
+        spd._library = package_library
+    spd.spd_inv_logdet.launches = launches_450
+    emit({"phase": "airfoil-expert450", **cv, "launches": launches_450,
+          "num_experts": 3, "expert_size": 451,
+          "k1_device_ms_per_eval": k1_eval["device_ms"],
+          "k1_device_share": k1_eval["device_share"], "k1_wall_share": k1_eval["wall_share"],
+          "k1_optimize_share_est": k1_eval["device_ms"] * cv["nfev"] / 1e3
+                                   / cv["optimize_seconds"],
+          "eval_profile": prof, "fold0_optimize": fold0})
+
+    # 8. protein stand-in at full size: 45,730 x 9, 80/20 split, E = 366
     gp = (
         GaussianProcessRegression()
         .setKernel(protein_kernel)
@@ -659,7 +733,7 @@ def main() -> int:
     if launches_protein != model.metrics["lbfgs_nfev"] or launches_protein == 0:
         raise AssertionError(f"protein: {launches_protein} launches")
 
-    # 8. profile: where one protein objective evaluation spends its time,
+    # 9. profile: where one protein objective evaluation spends its time,
     # and how much of the PPA build is the host magic solve
     raw = model.raw_predictor
     start = time.perf_counter()
@@ -673,7 +747,7 @@ def main() -> int:
     spd.spd_inv_logdet.launches = launches
     emit({"phase": "profile", "config": "protein", "magic_solve_seconds": solve_s, **prof})
 
-    # 9. matfree-parity at init theta on the protein-matfree stack: the
+    # 10. matfree-parity at init theta on the protein-matfree stack: the
     # matrix-free objective on the card against the iterative lane on the
     # card and against the CPU in float64, all with the card's probes.
     # Bars, relative (value; gradient over its largest component): 1e-5
@@ -731,7 +805,7 @@ def main() -> int:
         for label in ("matfree", "iterative", "cpu_f64")}}
     emit({"phase": "matfree-parity", "theta": theta0.tolist(), **parity})
 
-    # 10. protein-matfree: the fit on the matrix-free lane, its launches
+    # 11. protein-matfree: the fit on the matrix-free lane, its launches
     # (K2: iters + 2 per evaluation, K2-VJP: 2; the post-fit solver report
     # counted on its own), then the same config on the iterative and
     # exact lanes.  RMSE bars: within 2% of the iterative lane's (the same
@@ -820,7 +894,7 @@ def main() -> int:
     if not (abs(rm - ri) <= 0.02 * ri and abs(rm - rx) <= 0.05 * rx):
         raise AssertionError(f"protein-matfree RMSE {rm}: iterative {ri}, exact {rx}")
 
-    # 11. matfree-profile: one matrix-free evaluation at the fitted theta
+    # 12. matfree-profile: one matrix-free evaluation at the fitted theta
     it_ops.set_solver_lane("matfree")
     try:
         launches = (sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches)
@@ -831,11 +905,12 @@ def main() -> int:
         it_ops.set_solver_lane(None)
     emit({"phase": "matfree-profile", "config": "protein-matfree", **prof})
 
-    # 12. kernels: K1 at the protein stack, then at the airfoil fold's,
-    # launches over both exact-lane fits; K2 at a CG step's width (n = 9)
-    # and K2-VJP at the surrogate leg's (n = 8), launches over the
-    # protein-matfree fit (optimization and solver report).  Each error
-    # is the RBF map's (the path's) at the shape its entry names.
+    # 13. kernels: K1 at the protein stack, then at the airfoil fold's and
+    # on the workspace path, launches over the three exact-lane fits; K2
+    # at a CG step's width (n = 9) and K2-VJP at the surrogate leg's
+    # (n = 8), launches over the protein-matfree fit (optimization and
+    # solver report).  Each error is the RBF map's (the path's) at the
+    # shape its entry names.
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k2_rows, vjp_rows = k2_timing["streamed_matvec"], k2_timing["streamed_matvec_vjp"]
 
@@ -848,9 +923,10 @@ def main() -> int:
         "route": "cuda",
         "source": "spark_gp_tpu_torch/csrc/spd_inv_logdet.cu",
         "replaces": "spark_gp_tpu/ops/pallas_linalg.py:228",
-        "launches": launches_airfoil + launches_protein,
+        "launches": launches_airfoil + launches_protein + launches_450,
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
+        "launches_airfoil_expert450": launches_450,
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
@@ -858,8 +934,10 @@ def main() -> int:
                          **{key: timing["airfoil_fold"][key]
                             for key in keys + ("first_design_ms",)}},
         "workspace_kernel": {label: {"shape": timing[label]["shape"], "max_abs_err": errs[label],
-                                     **{key: timing[label][key] for key in keys}}
-                             for label in ("2x256", "1x512")},
+                                     **{key: timing[label][key]
+                                        for key in keys + ("first_design_ms",)}}
+                             for label in ("2x256", "1x512", "airfoil_expert450",
+                                           "protein_expert400")},
         "checked": True,
     }, {
         "name": "streamed_matvec",

@@ -1,12 +1,14 @@
 // CPU emulation of the CUDA subset used by the kernels: each block runs as
 // blockDim.x std::threads with a real barrier; warp shuffles through a
 // shared slot array and per-warp barriers; dynamic shared memory is one
-// buffer, sized by the launch (blocks run one after another).
+// buffer, the launch's bytes of it used (blocks run one after another).
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -41,9 +43,12 @@ inline std::barrier<>* g_block_bar = nullptr;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_bar;
 inline float g_shfl[1024];
 // emulate.py turns `extern __shared__ T name[];` into a pointer to this;
-// each block starts with it all NaN, so a read of a word never written shows
-inline std::vector<float4> g_dynamic_shared;
-inline void* emu_dynamic_shared() { return g_dynamic_shared.data(); }
+// each block starts with the launch's bytes of it all NaN, so a read of a
+// word never written shows.  A static array (a block's most, 227 KB), so it
+// lies near g_shared_base below and cp.async can address it.
+inline constexpr size_t kEmuSharedBytes = 232448;
+alignas(16) inline float4 g_dynamic_shared[kEmuSharedBytes / sizeof(float4)];
+inline void* emu_dynamic_shared() { return g_dynamic_shared; }
 
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
@@ -91,6 +96,9 @@ inline void emu_cp_async_ca_shared_global(unsigned dst, const void* src, int byt
   std::memset(emu_shared(dst), 0, bytes);
   std::memcpy(emu_shared(dst), src, src_bytes);
 }
+inline void emu_cp_async_cg_shared_global(unsigned dst, const void* src, int bytes) {
+  std::memcpy(emu_shared(dst), src, bytes);
+}
 inline void emu_cp_async_wait_all() {}
 
 template <class F>
@@ -102,8 +110,9 @@ void emu_launch(F f, dim3 g, dim3 b, size_t shared_bytes = 0, cudaStream_t = nul
     for (unsigned y = 0; y < g.y; ++y)
       for (unsigned x = 0; x < g.x; ++x) {
         blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
-        g_dynamic_shared.assign((shared_bytes + sizeof(float4) - 1) / sizeof(float4),
-                                float4{nan, nan, nan, nan});
+        if (shared_bytes > kEmuSharedBytes) std::abort();
+        std::fill_n(g_dynamic_shared, (shared_bytes + sizeof(float4) - 1) / sizeof(float4),
+                    float4{nan, nan, nan, nan});
         std::barrier<> bar(b.x);
         g_block_bar = &bar;
         g_warp_bar.clear();

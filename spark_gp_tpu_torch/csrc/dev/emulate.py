@@ -16,9 +16,10 @@ against the plain float64 versions:
   accumulator width and p over one feature chunk; bars 1e-5 and 1e-4 of
   the largest value;
 - K1 (``ops/spd_linalg.py``) at n = 4 .. 128 (ragged last panels, a full
-  128) and 129 (the workspace kernel), on batches of two kinds of SPD
-  matrix, and a batch with a non-PD matrix whose batch mates must stay
-  within the bar; bars K^-1 within 5e-5 of max|K^-1|, logdet within
+  128) and on the workspace path (n = 129, 200, 256, with the workspace
+  the entry asks for, NaN-filled), on batches of two kinds of SPD matrix,
+  and batches with a non-PD matrix at n = 100 and 300 whose batch mates
+  must stay within the bar; bars K^-1 within 5e-5 of max|K^-1|, logdet within
   1e-4 + 1e-5 |logdet|.
 This checks tiling, staging and bounds; it says nothing about speed, and
 nvcc may still refuse what g++ takes.  Exits 1 if a case misses its bar.
@@ -50,8 +51,9 @@ CASES = [((2, 100, 5), 1), ((2, 100, 5), 4), ((2, 100, 5), 8), ((1, 100, 5), 9),
          ((2, 77, 21), 9), ((1, 33, 3), 9), ((1, 64, 9), 9), ((1, 130, 20), 17),
          ((1, 5, 2), 3), ((1, 96, 16), 16), ((1, 40, 33), 2)]
 #: K1 (batch, n): one panel, ragged last panels (60, 97, 100, 113), a full
-#: 128, the workspace kernel at 129
-K1_CASES = [(2, 4), (2, 16), (2, 60), (2, 97), (2, 100), (1, 113), (1, 128), (1, 129)]
+#: 128; the workspace path at 129, a ragged 200 and a whole-tile 256
+K1_CASES = [(2, 4), (2, 16), (2, 60), (2, 97), (2, 100), (1, 113), (1, 128), (1, 129),
+            (2, 200), (2, 256)]
 
 
 def _close(text: str, i: int) -> int:
@@ -184,6 +186,13 @@ def spd_stack(b: int, n: int, rng, kind: str) -> np.ndarray:
     return k.astype(np.float32)
 
 
+def workspace(lib, b: int, n: int):
+    """The workspace the entry asks for at ``(b, n)``, NaN-filled so a read
+    of a word never written shows; ``None`` when it asks for none."""
+    floats = lib.spd_inv_logdet_workspace_floats(b, n)
+    return np.full(floats, np.nan, np.float32) if floats else None
+
+
 def check_spd(lib, k: np.ndarray) -> tuple[float, np.ndarray]:
     """K1 on ``k`` against the plain float64 version: the error of K^-1
     relative to max|K^-1| over the finite matrices of the batch, and each
@@ -192,7 +201,7 @@ def check_spd(lib, k: np.ndarray) -> tuple[float, np.ndarray]:
     b, n = k.shape[:2]
     kinv = np.full_like(k, np.nan)
     ld = np.full(b, np.nan, np.float32)
-    ws = np.empty_like(k) if n > lib.spd_inv_logdet_smem_max_n() else None
+    ws = workspace(lib, b, n)
     err = lib.spd_inv_logdet_f32(k.ctypes.data, kinv.ctypes.data, ld.ctypes.data,
                                  None if ws is None else ws.ctypes.data, b, n, None)
     if err:
@@ -218,12 +227,14 @@ def main_k1(lib, rng) -> int:
             failed += not ok
             print(f"{'ok  ' if ok else 'FAIL'} K1 ({b}, {n}) {kind}: K^-1 {rel:.2e}  "
                   f"logdet/bar {ld_rel.max():.2e}", flush=True)
-    k = spd_stack(3, 100, rng, "wishart")
-    k[1, 0, 0] = -1.0
-    rel, ld_rel = check_spd(lib, k)
-    ok = rel <= 5e-5 and bool((ld_rel[[0, 2]] <= 1).all())
-    failed += not ok
-    print(f"{'ok  ' if ok else 'FAIL'} K1 non-PD batch mate: K^-1 {rel:.2e}", flush=True)
+    for n in (100, 300):
+        k = spd_stack(3, n, rng, "wishart")
+        k[1, 0, 0] = -1.0
+        rel, ld_rel = check_spd(lib, k)
+        ok = rel <= 5e-5 and bool((ld_rel[[0, 2]] <= 1).all())
+        failed += not ok
+        print(f"{'ok  ' if ok else 'FAIL'} K1 non-PD batch mate at n = {n}: K^-1 {rel:.2e}",
+              flush=True)
     return failed
 
 

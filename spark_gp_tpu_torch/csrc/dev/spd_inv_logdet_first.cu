@@ -121,6 +121,11 @@ spd_inv_logdet_kernel(const float* __restrict__ k, float* __restrict__ kinv,
 // caller passes a [batch, n, n] float workspace; the entry refuses NULL.
 extern "C" int spd_inv_logdet_smem_max_n() { return kSmemMaxN; }
 
+// Floats of the workspace the entry needs: [batch, n, n] above kSmemMaxN.
+extern "C" long long spd_inv_logdet_workspace_floats(int batch, int n) {
+  return n <= kSmemMaxN ? 0 : static_cast<long long>(batch) * n * n;
+}
+
 extern "C" int spd_inv_logdet_f32(const float* k, float* kinv, float* logdet,
                                   float* workspace, int batch, int n,
                                   void* stream) {

@@ -21,8 +21,10 @@ package's.  ``--kernel streamed_matvec`` (the default; ``ops/streamed_matvec.py`
 ``--kernel spd_inv_logdet`` (``ops/spd_linalg.py``):
 - checked by ``chip_smoke.check_spd_inv_logdet`` on the exact lane's gram
   stacks (``chip_smoke.exact_lane_stacks``) and all its random shapes;
-- timed on the airfoil fold's (14, 97) and the protein (366, 100) stacks
-  and on random SPD batches at (2, 256) and (1, 512): device time by
+- timed on the airfoil fold's (14, 97) and the protein (366, 100) stacks,
+  on random SPD batches at (2, 256) and (1, 512), and on the airfoil
+  fold's stack at expert 450 (3, 451) and the protein split's at expert
+  400 (91, 403): device time by
   ``chip_smoke.time_device_ms`` (the variants in order, then in reverse)
   and the eager loop's wall time per call by ``chip_smoke.time_ms``.
 The ptxas registers and spill stores of each kernel instance, the card's
@@ -168,7 +170,8 @@ def _measure_k1(libs: dict) -> dict:
             result["failed"][name] = str(err)
     inputs = {"14x97": stacks["airfoil_fold"], "366x100": stacks["protein"],
               **{f"{b}x{n}": torch.as_tensor(chip_smoke.spd_batch(b, n, seed=n), device="cuda")
-                 for b, n in ((2, 256), (1, 512))}}
+                 for b, n in ((2, 256), (1, 512))},
+              "3x451": stacks["airfoil_expert450"], "91x403": stacks["protein_expert400"]}
     order = list(libs) + list(libs)[::-1]
     for label, k in inputs.items():
         for name in order:

@@ -6,9 +6,12 @@ The BCM likelihood needs, for every expert's ``s x s`` gram: ``log|K|``,
 ``(K^-1, log|K|)`` for a ``[B, n, n]`` batch in one pass:
 
 * on a CUDA float32 batch with ``n <= 512`` it launches the hand-written
-  kernel ``csrc/spd_inv_logdet.cu`` (one thread block per matrix: a
-  blocked Cholesky, ``W = L^-1`` block row by block row, ``K^-1 = W^T W``;
-  above ``n = 128`` a column-by-column version on a workspace);
+  kernels of ``csrc/spd_inv_logdet.cu``: a blocked Cholesky, ``W = L^-1``
+  block row by block row, ``K^-1 = W^T W``; up to ``n = 128`` one thread
+  block per matrix in shared memory, above it a sequence of launches over
+  32 x 32 tiles of a workspace (many blocks per matrix), whose size the
+  library reports.  The launch counter counts one per call, however many
+  CUDA launches the call makes;
 * on a CPU tensor it runs :func:`spd_inv_logdet_plain`, the same function
   in plain PyTorch (Cholesky, logdet from the diagonal, ``cholesky_inverse``);
 * anything else on CUDA raises -- there is no silent fallback.
@@ -61,6 +64,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.spd_inv_logdet_smem_max_n.argtypes = []
     lib.spd_inv_logdet_smem_max_n.restype = ctypes.c_int
+    lib.spd_inv_logdet_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.spd_inv_logdet_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -78,8 +83,9 @@ def _launch(k: torch.Tensor):
         return kinv, logdet.zero_()
     lib = _library()
     # above the library's shared-memory limit the kernel works in a
-    # [B, n, n] workspace
-    workspace = torch.empty_like(k) if n > lib.spd_inv_logdet_smem_max_n() else None
+    # workspace of the size the library asks for
+    floats = lib.spd_inv_logdet_workspace_floats(batch, n)
+    workspace = torch.empty(floats, dtype=k.dtype, device=k.device) if floats else None
     with torch.cuda.device(k.device):
         err = lib.spd_inv_logdet_f32(
             k.data_ptr(), kinv.data_ptr(), logdet.data_ptr(),

@@ -9,8 +9,9 @@ largest value) on shapes that exercise ragged tiles, every accumulator
 width, two feature chunks and two right-hand-side chunks.  K1 is held
 against its plain float64 version at the card's bars (K^-1 within 5e-5 of
 max|K^-1|, logdet within 1e-4 + 1e-5 |logdet|) at n from one panel to a
-full 128 with ragged last panels, at 129 (the workspace kernel), and on a
-batch with a non-PD matrix.  This covers the kernels' tiling, staging,
+full 128 with ragged last panels, on the tiled workspace path (n = 129, a
+ragged 200, a whole-tile 256, batches of two, every matrix over many
+blocks), and on batches with a non-PD matrix on both paths.  This covers the kernels' tiling, staging,
 barriers and bounds here; their speed, and what only nvcc refuses, show
 on the card.
 """
@@ -21,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from spark_gp_tpu_torch.ops import spd_linalg as spd
 from spark_gp_tpu_torch.ops import streamed_matvec as sm
@@ -72,7 +74,7 @@ def test_k1_smem_max_n_agrees_with_the_source(emulated_k1):
 
 
 @pytest.mark.parametrize("b,n", [(2, 4), (2, 16), (2, 60), (2, 97), (2, 100), (1, 113),
-                                 (1, 128), (1, 129)])
+                                 (1, 128), (1, 129), (2, 200), (2, 256)])
 @pytest.mark.parametrize("kind", ["wishart", "gram"])
 def test_k1_source_matches_plain(emulated_k1, b, n, kind):
     emu, lib = emulated_k1
@@ -81,26 +83,45 @@ def test_k1_source_matches_plain(emulated_k1, b, n, kind):
     assert (ld_rel <= 1).all(), ld_rel
 
 
+def _entry(emu, lib, k):
+    """The C entry on ``k`` with the workspace it asks for: (K^-1, logdet)."""
+    b, n = k.shape[:2]
+    kinv = np.zeros_like(k)
+    ld = np.zeros(b, np.float32)
+    ws = emu.workspace(lib, b, n)
+    assert lib.spd_inv_logdet_f32(k.ctypes.data, kinv.ctypes.data, ld.ctypes.data,
+                                  None if ws is None else ws.ctypes.data, b, n, None) == 0
+    return kinv, ld
+
+
 def test_k1_non_pd_matrix_is_nan_and_alone(emulated_k1):
     emu, lib = emulated_k1
-    k = emu.spd_stack(3, 100, np.random.default_rng(1), "wishart")
-    k[1, 0, 0] = -1.0
-    kinv = np.zeros_like(k)
-    ld = np.zeros(3, np.float32)
-    assert lib.spd_inv_logdet_f32(k.ctypes.data, kinv.ctypes.data, ld.ctypes.data, None,
-                                  3, 100, None) == 0
-    assert np.isfinite(kinv).all(axis=(1, 2)).tolist() == [True, False, True]
-    assert np.isfinite(ld).tolist() == [True, False, True]
-    # check_spd holds the finite batch mates to the bar and NaN to NaN
-    rel, ld_rel = emu.check_spd(lib, k)
-    assert rel <= 5e-5 and (ld_rel[[0, 2]] <= 1).all(), (rel, ld_rel)
+    # n = 200: the workspace path, where each matrix spans many blocks
+    for n in (100, 200):
+        k = emu.spd_stack(3, n, np.random.default_rng(1), "wishart")
+        k[1, 0, 0] = -1.0
+        kinv, ld = _entry(emu, lib, k)
+        assert np.isfinite(kinv).all(axis=(1, 2)).tolist() == [True, False, True], n
+        assert np.isfinite(ld).tolist() == [True, False, True], n
+        # the batch mates within the bars of check_spd
+        ref, ld_ref = (a.numpy() for a in
+                       spd.spd_inv_logdet_plain(torch.as_tensor(k[[0, 2]]).double()))
+        assert np.abs(kinv[[0, 2]] - ref).max() <= 5e-5 * np.abs(ref).max(), n
+        assert (np.abs(ld[[0, 2]] - ld_ref) <= 1e-4 + 1e-5 * np.abs(ld_ref)).all(), n
 
 
 def test_k1_output_is_exactly_symmetric(emulated_k1):
     emu, lib = emulated_k1
-    for n in (97, 100):
-        k = emu.spd_stack(1, n, np.random.default_rng(n), "gram")
-        kinv = np.zeros_like(k)
-        ld = np.zeros(1, np.float32)
-        lib.spd_inv_logdet_f32(k.ctypes.data, kinv.ctypes.data, ld.ctypes.data, None, 1, n, None)
-        assert np.array_equal(kinv, kinv.transpose(0, 2, 1))
+    for n in (97, 100, 200):
+        kinv, _ = _entry(emu, lib, emu.spd_stack(1, n, np.random.default_rng(n), "gram"))
+        assert np.array_equal(kinv, kinv.transpose(0, 2, 1)), n
+
+
+def test_k1_workspace_size_query(emulated_k1):
+    """No workspace at n <= 128; above it at least the [B, n, n] working
+    copy, growing with the batch."""
+    _, lib = emulated_k1
+    assert lib.spd_inv_logdet_workspace_floats(5, 128) == 0
+    for n in (129, 200, 512):
+        one = lib.spd_inv_logdet_workspace_floats(1, n)
+        assert one >= n * n and lib.spd_inv_logdet_workspace_floats(3, n) == 3 * one

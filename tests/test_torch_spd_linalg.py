@@ -111,7 +111,7 @@ def test_library_path_tracks_source_and_flags():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(3, 100), (366, 100), (2, 256)])
+@pytest.mark.parametrize("b,n", [(3, 100), (366, 100), (2, 256), (3, 451), (91, 403)])
 def test_kernel_matches_plain_on_card(b, n):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
