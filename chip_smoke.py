@@ -8,9 +8,9 @@ code is non-zero and the final ``ok`` line is never printed:
 
 1. env      -- Python, torch and CUDA versions; the card's name and power
                limit as ``nvidia-smi`` reports them.
-2. build    -- compile every CUDA kernel from ``csrc/``, and K1's first
-               design from ``csrc/dev/``, one nvcc per source, all
-               started together.
+2. build    -- compile every CUDA kernel from ``csrc/``, and the first
+               designs of K1 and K2-VJP from ``csrc/dev/``, one nvcc per
+               source, all started together.
 3. check    -- each kernel against its plain PyTorch version (float64 on
                the same inputs upcast).  K1: on random batches at the main
                path's shapes and more (ragged panels, the workspace path
@@ -23,11 +23,13 @@ code is non-zero and the final ``ok`` line is never printed:
                row stack (9, 4065, 9) at the path's widths n = 1, 8, 9,
                on a ragged (3, 1000, 5) stack at n = 1, 4, on (2, 777, 21)
                at n = 9 (two feature chunks) and on (2, 130, 20) at n = 17
-               (two right-hand-side chunks).
+               (right-hand sides in chunks); two VJP calls on the same
+               inputs must give bit-identical gradients.
 4. time     -- each kernel, its plain version and the library call at the
                main path's shapes, with the bound from the card's peaks;
                K1 also at (2, 256) and (1, 512), and its first design in
-               turns with it at all six of its shapes.
+               turns with it at all six of its shapes; K2-VJP's first
+               design in turns with it at n = 8 and n = 1.
 5. parity   -- the exact-lane objective and gradient on the card (float32,
                through K1) against the CPU (float64, Cholesky) on the
                first airfoil fold's stack.
@@ -51,6 +53,11 @@ code is non-zero and the final ``ok`` line is never printed:
                the peak memory of one objective evaluation beside the
                iterative lane's; the same config fitted on the iterative
                and exact lanes.
+    vjp-witness -- the matfree fit again with K2-VJP's first design in
+               place of its kernel (K2 unchanged), and, with no bar, the
+               objective's gradient at init theta, midway, and at both
+               fits' theta through K2-VJP, its first design and the plain
+               VJP in float64, on the same probes.
 12. matfree-profile -- one matrix-free evaluation under torch.profiler.
 13. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -66,6 +73,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -90,13 +98,18 @@ MATFREE_FAMILIES = {
 }
 POLY_DEGREE = 2
 
-# kernel names as the profiler reports them (K2 with its squared-norm prologue)
+# kernel names as the profiler reports them (each with its squared-norm prologue)
 K2_NAMES = {"streamed_matvec": ("streamed_matvec_kernel", "streamed_matvec_sqnorms_kernel"),
-            "streamed_matvec_vjp": ("streamed_matvec_vjp_kernel",)}
+            "streamed_matvec_vjp": ("streamed_matvec_vjp_kernel",
+                                    "streamed_matvec_vjp_sqnorms_kernel")}
+# each K2-VJP instance in ptxas's "Compiling entry function" lines
+VJP_PTXAS = (r"streamed_matvec_vjp_kernelILi(\d)ELi(\d+)EE", "F{0}/NB{1}")
 
 
-# K1's first design, a source under csrc/ built and timed beside K1
+# the first designs of K1 and K2-VJP, sources under csrc/ built and timed
+# beside the kernels
 K1_FIRST_DESIGN = "dev/spd_inv_logdet_first"
+VJP_FIRST_DESIGN = "dev/streamed_matvec_vjp_first"
 
 # host seconds per fit phase, as the estimator reports them
 PHASES = ("group_seconds", "optimize_seconds", "ppa_seconds")
@@ -111,6 +124,26 @@ def peaks_for(name: str):
         if key in name:
             return value
     raise RuntimeError(f"no peak rates known for {name!r}")
+
+
+def ptxas_usage(log: str, pattern: str, label: str) -> dict:
+    """{instance: [registers, spill-store bytes]} of every kernel instance
+    whose mangled name matches ``pattern`` in nvcc's ``-Xptxas -v`` log;
+    ``label`` formats the pattern's groups."""
+    import re
+
+    usage, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(pattern, line)
+            entry = label.format(*m.groups()) if m else None
+            if entry:
+                usage[entry] = [None, 0]
+        elif entry and "Used" in line:
+            usage[entry][0] = int(line.split("Used ")[1].split()[0])
+        elif entry and "bytes spill stores" in line:
+            usage[entry][1] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+    return usage
 
 
 def spd_batch(b: int, n: int, seed: int = 0) -> np.ndarray:
@@ -167,6 +200,22 @@ def time_device_ms(fn, reps: int = 20, windows: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / reps)
     return float(np.median(times))
+
+
+def time_in_turns(module, first_design, fn) -> dict:
+    """Device ms of ``fn`` through ``module``'s wrapper, on the package's
+    library and on the library ``first_design`` in turns: kernel, first
+    design, first design, kernel; ``ms`` and ``first_design_ms`` are the
+    mean of each pair."""
+    package_library = module._library
+    turns = {"ms": [], "first_design_ms": []}
+    for key in ("ms", "first_design_ms", "first_design_ms", "ms"):
+        module._library = package_library if key == "ms" else (lambda: first_design)
+        try:
+            turns[key].append(time_device_ms(fn))
+        finally:
+            module._library = package_library
+    return {key: float(np.mean(v)) for key, v in turns.items()}
 
 
 def profile_objective(torch, vag, theta, reps: int = 10, shares=None) -> dict:
@@ -402,7 +451,6 @@ def time_spd_inv_logdet(torch, spd, first_design, inputs: dict, peaks) -> dict:
     K^-1 and logdet written once) over the memory rate and the B n^3 flops
     over the f32 peak."""
     bw, f32 = peaks[:2]
-    package_library = spd._library
     out = {}
     for label, k in inputs.items():
         b, n = k.shape[0], k.shape[-1]
@@ -415,18 +463,11 @@ def time_spd_inv_logdet(torch, spd, first_design, inputs: dict, peaks) -> dict:
         def kernel(k=k):
             return spd.spd_inv_logdet(k)
 
-        turns = {"ms": [], "first_design_ms": []}
-        for key in ("ms", "first_design_ms", "first_design_ms", "ms"):
-            spd._library = package_library if key == "ms" else (lambda: first_design)
-            try:
-                turns[key].append(time_device_ms(kernel))
-            finally:
-                spd._library = package_library
         nbytes = 2 * b * n * n * 4 + b * 4
         flops = b * n ** 3
         out[label] = {
             "shape": [b, n],
-            **{key: float(np.mean(v)) for key, v in turns.items()},
+            **time_in_turns(spd, first_design, kernel),
             "wall_ms": time_ms(kernel),
             "plain_ms": time_ms(lambda k=k: spd.spd_inv_logdet_plain(k)),
             "library_ms": time_ms(library),
@@ -449,8 +490,10 @@ def check_streamed_matvec(torch, sm, x_slice):
     chunks, the second one column wide).  Bars: K2 within 1e-5
     of the largest |output| (a float32 sum of s terms); the
     theta-cotangent within 1e-4 of the largest |cotangent| (float32
-    partial sums over s^2 pairs).  Returns the errors, absolute and
-    relative to those scales, keyed ``label/n<width>/family``."""
+    partial sums over s^2 pairs), and bit-identical over two calls (the
+    blocks' partial sums are closed in a fixed order).  Returns the
+    errors, absolute and relative to those scales, keyed
+    ``label/n<width>/family``."""
     gen = np.random.default_rng(7)
     ragged = torch.as_tensor(gen.normal(size=(3, 1000, 5)), dtype=torch.float32, device="cuda")
     # features scaled by p^-1/2, so the maps stay away from 0 at p = 20, 21
@@ -469,7 +512,11 @@ def check_streamed_matvec(torch, sm, x_slice):
             par = torch.tensor(params, dtype=torch.float32, device="cuda")
             out = sm.streamed_matvec(x, v, family, par, POLY_DEGREE)
             grad = sm.streamed_matvec_vjp(x, w, v, family, par, POLY_DEGREE)
+            again = sm.streamed_matvec_vjp(x, w, v, family, par, POLY_DEGREE)
             torch.cuda.synchronize()
+            if not torch.equal(grad, again):
+                raise AssertionError(f"K2-VJP {label}/n{n}/{family}: two calls differ: "
+                                     f"{grad.tolist()} vs {again.tolist()}")
             x64, v64, p64 = x.double(), v.double(), par.double()
             ref = sm.streamed_matvec_plain(x64, v64, family, p64, POLY_DEGREE)
             gref = sm.streamed_matvec_vjp_plain(x64, w.double(), v64, family, p64, POLY_DEGREE)
@@ -486,18 +533,24 @@ def check_streamed_matvec(torch, sm, x_slice):
     return errs
 
 
-def time_streamed_matvec(torch, sm, x, peaks):
+def time_streamed_matvec(torch, sm, x, peaks, vjp_first_design):
     """K2 (n = 9: a CG step; n = 1, 8: the differentiable legs) and K2-VJP
     (n = 1, 8) on the protein-matfree row stack with the RBF map at
     sigma = 1, beside the plain version and a library yardstick that
-    materializes the gram (``cdist``^2 -> ``exp`` -> ``bmm``).  The bound
+    materializes the gram (``cdist``^2 -> ``exp`` -> ``bmm``).  K2-VJP
+    runs in turns with its first design (the library
+    ``vjp_first_design`` through the same wrapper): kernel, first design,
+    first design, kernel; each reads the mean of its two device times
+    (``time_device_ms``: at n = 1 the eager loop reads the wrapper's host
+    time as often as the kernel's), and ``wall_ms`` is the eager loop.  The bound
     is the largest of: FP32 flops over the f32 peak, the ``exp``s over
     the special-function rate, the bytes over the memory rate.  K is
     symmetric, so the least work computes each distance and its map once
     per unordered off-diagonal pair (2p + 3 flops and one ``exp`` for the
-    value; 2p + 6 and one ``exp`` for the derivative) and only the
-    accumulation once per ordered pair (2n flops for K V; 2n + 2 for the
-    VJP's <W_i, V_j> and its product with dk)."""
+    value; 2p + 6 and one ``exp`` for the derivative).  K V accumulates
+    once per ordered pair (2n flops).  The VJP needs only the off-diagonal
+    pairs, since the RBF map's dk/dsigma is 0 at r = 0: per unordered one
+    4n flops for <W_i, V_j> + <W_j, V_i> and 2 for its product with dk."""
     bw, f32, sfu = peaks
     e, s, p = x.shape
     pairs, half = e * s * s, e * s * (s - 1) // 2
@@ -520,7 +573,7 @@ def time_streamed_matvec(torch, sm, x, peaks):
                 d = torch.cdist(x, x) ** 2
                 return torch.sum(torch.bmm(w, v.mT) * torch.exp(-0.5 * d) * d)
 
-            legs.append(("streamed_matvec_vjp", half * (2 * p + 6) + pairs * (2 * n + 2),
+            legs.append(("streamed_matvec_vjp", half * (2 * p + 8 + 4 * n),
                          4 * e * s * (p + 2 * n),
                          lambda v=v, w=w: sm.streamed_matvec_vjp(x, w, v, "rbf", par),
                          lambda v=v, w=w: sm.streamed_matvec_vjp_plain(x, w, v, "rbf", par),
@@ -528,7 +581,8 @@ def time_streamed_matvec(torch, sm, x, peaks):
         for name, flops, nbytes, kernel, plain, library in legs:
             times = (flops / f32, half / sfu, nbytes / bw)
             row = {
-                "ms": time_ms(kernel),
+                **({**time_in_turns(sm, vjp_first_design, kernel), "wall_ms": time_ms(kernel)}
+                   if name == "streamed_matvec_vjp" else {"ms": time_ms(kernel)}),
                 "plain_ms": time_ms(plain, reps=5, windows=3),
                 "library_ms": time_ms(library, reps=5, windows=3),
                 "library": "materializing: cdist^2 -> exp -> bmm"
@@ -574,11 +628,11 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": name, "nvidia_smi": smi})
 
-    # 2. build: one nvcc per source, all started together; K1's first
-    # design (csrc/dev/) is built to be timed beside it
+    # 2. build: one nvcc per source, all started together; the first
+    # designs of K1 and K2-VJP (csrc/dev/) are built to be timed beside them
     start = time.perf_counter()
-    built = cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec", K1_FIRST_DESIGN],
-                               force=True)
+    built = cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec", K1_FIRST_DESIGN,
+                                VJP_FIRST_DESIGN], force=True)
     report = {}
     for source, (seconds, log) in built.items():
         regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines()
@@ -627,7 +681,8 @@ def main() -> int:
     for label, row in timing.items():
         emit({"phase": "time", "kernel": "spd_inv_logdet", "input": label, **row, "card": smi})
     launches = (sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches)
-    k2_timing = time_streamed_matvec(torch, sm, mf_data.x, peaks)
+    vjp_first = sm.bind(cuda_lib.load(VJP_FIRST_DESIGN))
+    k2_timing = time_streamed_matvec(torch, sm, mf_data.x, peaks, vjp_first)
     sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches = launches
     for kname, rows in k2_timing.items():
         emit({"phase": "time", "kernel": kname, "input": "protein-matfree",
@@ -866,6 +921,69 @@ def main() -> int:
     if fits["matfree"]["solver.matfree_engaged"] != 1.0:
         raise AssertionError("the matfree fit did not engage the matrix-free lane")
 
+    # vjp-witness: the fit with the VJP entries of K2-VJP's first design
+    # (the forward from the package's library), then the objective's
+    # gradient on the matfree lane at four theta through three VJPs, all
+    # on the matfree-parity probes.  Launches of this phase are not the
+    # main path's: the counters are restored after it.
+    package_library = sm._library
+    lib = package_library()
+    first_vjp = types.SimpleNamespace(
+        streamed_matvec_f32=lib.streamed_matvec_f32,
+        streamed_matvec_row_tile=lib.streamed_matvec_row_tile,
+        streamed_matvec_vjp_f32=vjp_first.streamed_matvec_vjp_f32,
+        streamed_matvec_vjp_blocks=vjp_first.streamed_matvec_vjp_blocks)
+    launches = (sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches)
+
+    def f64_vjp(x, w, v, params, spec, degree):
+        return sm.streamed_matvec_vjp_plain(x.double(), w.double(), v.double(),
+                                            family_of[spec.fid], params.double(),
+                                            degree).float()
+
+    launch_vjp = sm._launch_vjp
+    try:
+        sm._library = lambda: first_vjp
+        start = time.perf_counter()
+        model = matfree_gp("matfree").fit(xp[tr], yp_tr)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - start
+        sm._library = package_library
+        pred = model.predict(xp[te]) * y_std + y_mean
+        if not np.all(np.isfinite(pred)) or pred.shape != te.shape:
+            raise AssertionError("protein-matfree (first-design VJP) predictions not finite")
+        first_fit = {"rmse": rmse(yp[te], pred), "fit_seconds": fit_s,
+                     "nfev": model.metrics["lbfgs_nfev"],
+                     "theta": model.raw_predictor.theta.tolist()}
+        thetas = {"init": theta0, "midway": (theta0 + mf_model.raw_predictor.theta) / 2,
+                  "fit": mf_model.raw_predictor.theta, "first_design_fit": model.raw_predictor.theta}
+        it_ops.set_solver_lane("matfree")
+        it_ops.draw_probes = lambda cfg, batch, rank, s, dtype, device: (
+            g1.to(device=device, dtype=dtype), g2.to(device=device, dtype=dtype))
+        witness = {}
+        for point, theta in thetas.items():
+            grads = {}
+            for label in ("kernel", "first_design", "f64_vjp"):
+                sm._library = (lambda: first_vjp) if label == "first_design" else package_library
+                sm._launch_vjp = f64_vjp if label == "f64_vjp" else launch_vjp
+                grads[label] = np.asarray(make_value_and_grad(mf_kernel, mf_data)(theta)[1])
+            ref = grads["f64_vjp"]
+            witness[point] = {
+                "grad_f64_vjp": ref.tolist(),
+                **{f"rel_grad_err_{label}": float(np.max(np.abs(grads[label] - ref))
+                                                  / np.max(np.abs(ref)))
+                   for label in ("kernel", "first_design")},
+                **{f"grad_err_{label}": (grads[label] - ref).tolist()
+                   for label in ("kernel", "first_design")}}
+    finally:
+        sm._library, sm._launch_vjp = package_library, launch_vjp
+        it_ops.draw_probes = draw_probes
+        it_ops.set_solver_lane(None)
+    sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches = launches
+    emit({"phase": "vjp-witness", "config": "protein-matfree",
+          "kernel_fit": {key: fits["matfree"][key]
+                         for key in ("rmse", "fit_seconds", "nfev", "theta")},
+          "first_design_fit": first_fit, "gradients": witness})
+
     # peak CUDA memory of one objective evaluation at the fitted theta,
     # above what was allocated before it, on each solver lane
     peaks_eval = {}
@@ -914,9 +1032,14 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k2_rows, vjp_rows = k2_timing["streamed_matvec"], k2_timing["streamed_matvec_vjp"]
 
-    def leg(rows, n, err):
-        return {"shape": [9, 4065, 9, n], **{key: rows[f"n{n}"][key] for key in keys},
+    def leg(rows, n, err, extra=()):
+        return {"shape": [9, 4065, 9, n], **{key: rows[f"n{n}"][key] for key in keys + extra},
                 "max_abs_err": k2_errs[f"slice/n{n}/rbf"][err]}
+
+    # registers and spill bytes of the VJP's instances at the path's widths
+    vjp_ptxas = {key: value for key, value in
+                 ptxas_usage(built["streamed_matvec"][1], *VJP_PTXAS).items()
+                 if key.endswith(("/NB1", "/NB8"))}
 
     emit({"kernels": [{
         "name": "spd_inv_logdet",
@@ -958,9 +1081,11 @@ def main() -> int:
         "replaces": "spark_gp_tpu/ops/pallas_matvec.py:133",
         "replaces_note": "no Pallas kernel: XLA differentiates the checkpointed scan",
         "launches": launches_vjp,
-        **leg(vjp_rows, 8, "vjp"),
+        **leg(vjp_rows, 8, "vjp", ("first_design_ms", "wall_ms")),
         "max_rel_err_all_checks": max(e["vjp_rel"] for e in k2_errs.values()),
-        "legs": {"n1": leg(vjp_rows, 1, "vjp")},
+        "legs": {"n1": leg(vjp_rows, 1, "vjp", ("first_design_ms", "wall_ms"))},
+        "first_design_source": f"spark_gp_tpu_torch/csrc/{VJP_FIRST_DESIGN}.cu",
+        "ptxas_registers_spill_bytes": vjp_ptxas,
         "checked": True,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

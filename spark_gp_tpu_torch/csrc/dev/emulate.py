@@ -13,8 +13,11 @@ block, and each inline-PTX statement a call of the header's emulation of
 that instruction), built with ``g++`` into a temporary directory, and held
 against the plain float64 versions:
 - K2 and K2-VJP (``ops/streamed_matvec.py``) on ragged shapes, every
-  accumulator width and p over one feature chunk; bars 1e-5 and 1e-4 of
-  the largest value;
+  accumulator width, p over one feature chunk, an odd count of row tiles
+  (the VJP's off-diagonal tile pairs), two experts (a VJP block's run of
+  tile pairs crosses from one to the next: the emulation reports one SM)
+  and right-hand sides in chunks; bars 1e-5 and 1e-4 of the largest
+  value, every VJP partial sum written (they start NaN);
 - K1 (``ops/spd_linalg.py``) at n = 4 .. 128 (ragged last panels, a full
   128) and on the workspace path (n = 129, 200, 256, with the workspace
   the entry asks for, NaN-filled), on batches of two kinds of SPD matrix,
@@ -46,10 +49,12 @@ from spark_gp_tpu_torch.ops import streamed_matvec as sm  # noqa: E402
 
 FAMILIES = {"rbf": [0.7], "matern12": [0.8], "matern32": [0.8], "matern52": [0.8],
             "rq": [0.9, 1.3], "dot": [0.5], "poly": [0.7]}
-#: (shape, n): ragged s, s below one tile, p over one feature chunk, every width
+#: (shape, n): ragged s, s below one tile, p over one feature chunk, every
+#: width, three row tiles (off-diagonal tile pairs), two experts
 CASES = [((2, 100, 5), 1), ((2, 100, 5), 4), ((2, 100, 5), 8), ((1, 100, 5), 9),
          ((2, 77, 21), 9), ((1, 33, 3), 9), ((1, 64, 9), 9), ((1, 130, 20), 17),
-         ((1, 5, 2), 3), ((1, 96, 16), 16), ((1, 40, 33), 2)]
+         ((1, 5, 2), 3), ((1, 96, 16), 16), ((1, 40, 33), 2), ((1, 130, 5), 1),
+         ((1, 130, 5), 8), ((2, 130, 5), 8), ((1, 130, 5), 16)]
 #: K1 (batch, n): one panel, ragged last panels (60, 97, 100, 113), a full
 #: 128; the workspace path at 129, a ragged 200 and a whole-tile 256
 K1_CASES = [(2, 4), (2, 16), (2, 60), (2, 97), (2, 100), (1, 113), (1, 128), (1, 129),
@@ -146,23 +151,44 @@ def build(source: Path, out: Path) -> ctypes.CDLL:
     return (spd.bind if is_k1(source) else sm.bind)(ctypes.CDLL(str(out)))
 
 
+def stack(shape, n, rng):
+    """float32 ``x [b, s, p]`` (features scaled by p^-1/2), ``v`` and ``w
+    [b, s, n]``."""
+    b, s, p = shape
+    x = (rng.normal(size=shape) / np.sqrt(p)).astype(np.float32)
+    v, w = (rng.normal(size=(b, s, n)).astype(np.float32) for _ in range(2))
+    return x, v, w
+
+
+def vjp_partials(lib, x, w, v, par, fid: int, spare: int = 0) -> np.ndarray:
+    """The VJP entry's partial sums: ``[streamed_matvec_vjp_blocks + spare,
+    2]``, NaN before the call, so a pair never written, or one written past
+    the count, shows.  The squared-norm scratch starts NaN too."""
+    b, s, p = x.shape
+    n = v.shape[-1]
+    part = np.full((lib.streamed_matvec_vjp_blocks(b, s, n) + spare, 2), np.nan, np.float32)
+    sqn = np.full((b, s), np.nan, np.float32)
+    err = lib.streamed_matvec_vjp_f32(x.ctypes.data, w.ctypes.data, v.ctypes.data,
+                                      par.ctypes.data, sqn.ctypes.data, part.ctypes.data, b, s,
+                                      p, n, fid, 2, None)
+    if err:
+        raise SystemExit(f"VJP entry returned {err} at {x.shape} n={n}")
+    return part
+
+
 def check(lib, shape, n, family, params, rng) -> tuple[float, float]:
     """Relative errors of both entries against the plain float64 versions."""
     b, s, p = shape
     spec = sm.TILE_TRANSFORMS[family]
-    x = (rng.normal(size=shape) / np.sqrt(p)).astype(np.float32)
-    v, w = (rng.normal(size=(b, s, n)).astype(np.float32) for _ in range(2))
+    x, v, w = stack(shape, n, rng)
     par = np.array(params, np.float32)
     out = np.full((b, s, n), np.nan, np.float32)
     sqn = np.empty((b, s), np.float32)
     err = lib.streamed_matvec_f32(x.ctypes.data, v.ctypes.data, par.ctypes.data, sqn.ctypes.data,
                                   out.ctypes.data, b, s, p, n, spec.fid, 2, None)
-    part = np.zeros((lib.streamed_matvec_vjp_blocks(b, s, n), 2), np.float32)
-    err |= lib.streamed_matvec_vjp_f32(x.ctypes.data, w.ctypes.data, v.ctypes.data,
-                                       par.ctypes.data, part.ctypes.data, b, s, p, n, spec.fid,
-                                       2, None)
     if err:
         raise SystemExit(f"entry returned {err} at {shape} n={n}")
+    part = vjp_partials(lib, x, w, v, par, spec.fid)
     x64, v64, p64 = (torch.as_tensor(a).double() for a in (x, v, par))
     ref = sm.streamed_matvec_plain(x64, v64, family, p64, 2).numpy()
     gref = sm.streamed_matvec_vjp_plain(x64, torch.as_tensor(w).double(), v64, family, p64,

@@ -1,4 +1,4 @@
-"""Compare versions of a kernel on the card: K2's forward kernel, or K1.
+"""Compare versions of a kernel on the card: K2's forward kernel, K2-VJP, or K1.
 
     python3 spark_gp_tpu_torch/csrc/dev/variants.py SPEC.json [--kernel K] [--out variants.json]
 
@@ -17,7 +17,15 @@ package's.  ``--kernel streamed_matvec`` (the default; ``ops/streamed_matvec.py`
   (RBF, sigma 0.6 and 1.0), which a random V averages away;
 - timed by ``chip_smoke.time_ms`` with the RBF map at sigma = 1 on the
   (9, 4065, 9) stack at n = 9, 1, 8, 16 (the variants in order, then in
-  reverse), and the VJP at n = 8, 1.
+  reverse).
+``--kernel streamed_matvec_vjp`` (the same wrapper and library):
+- checked by ``chip_smoke.check_streamed_matvec`` as above (the VJP's
+  errors are reported);
+- timed with the RBF map at sigma = 1 on the (9, 4065, 9) stack at n = 8
+  and n = 1: device time by ``chip_smoke.time_device_ms`` (the variants
+  in order, then in reverse; the eager loop at n = 1 reads the host as
+  often as the kernel) and the eager loop's time by
+  ``chip_smoke.time_ms``.
 ``--kernel spd_inv_logdet`` (``ops/spd_linalg.py``):
 - checked by ``chip_smoke.check_spd_inv_logdet`` on the exact lane's gram
   stacks (``chip_smoke.exact_lane_stacks``) and all its random shapes;
@@ -36,7 +44,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import subprocess
 import sys
 import tempfile
@@ -54,14 +61,6 @@ from spark_gp_tpu_torch.ops import cuda_lib  # noqa: E402
 from spark_gp_tpu_torch.ops import spd_linalg as spd  # noqa: E402
 from spark_gp_tpu_torch.ops import streamed_matvec as sm  # noqa: E402
 
-#: per kernel: its wrapper module, and a pattern naming each kernel
-#: instance in ptxas's "Compiling entry function" lines
-KERNELS = {
-    "streamed_matvec": (sm, r"streamed_matvec_kernelILi(\d)ELi(\d+)EE", "F{0}/NB{1}"),
-    "spd_inv_logdet": (spd, r"(spd_inv_logdet\w*?_kernel)", "{0}"),
-}
-
-
 def sources(spec: dict) -> dict:
     out = {}
     for name, (path, edits) in spec.items():
@@ -76,7 +75,7 @@ def sources(spec: dict) -> dict:
 
 def build(texts: dict, build_dir: Path, kernel: str) -> dict:
     """{name: (library, {instance: [registers, spill bytes]})}"""
-    module, pattern, label = KERNELS[kernel]
+    module, pattern, label, _ = KERNELS[kernel]
     procs = {}
     for name, text in texts.items():
         src = build_dir / f"{name}.cu"
@@ -89,46 +88,45 @@ def build(texts: dict, build_dir: Path, kernel: str) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc exit {proc.returncode}\n{log[-4000:]}")
-        regs, entry = {}, None
-        for line in log.splitlines():
-            m = re.search(pattern, line) if "Compiling entry function" in line else None
-            if m:
-                entry = label.format(*m.groups())
-                regs[entry] = [None, 0]
-            elif "Compiling entry function" in line:
-                entry = None
-            elif entry and "Used" in line:
-                regs[entry][0] = int(line.split("Used ")[1].split()[0])
-            elif entry and "bytes spill stores" in line:
-                regs[entry][1] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
-        libs[name] = (module.bind(ctypes.CDLL(str(build_dir / f"lib{name}.so"))), regs)
+        libs[name] = (module.bind(ctypes.CDLL(str(build_dir / f"lib{name}.so"))),
+                      chip_smoke.ptxas_usage(log, pattern, label))
     return libs
 
 
-def _measure(libs: dict) -> dict:
-    """Checks, bias and times of every variant, each run through the
-    wrapper with its library swapped in."""
-    def use(name):
-        sm._library = lambda lib=libs[name][0]: lib
+def _use_k2(libs: dict, name: str) -> None:
+    """Run the K2 wrapper on variant ``name``'s library."""
+    sm._library = lambda lib=libs[name][0]: lib
 
+
+def _k2_checked(libs: dict, key: str):
+    """The (9, 4065, 9) stack and its generator, and every variant through
+    ``chip_smoke.check_streamed_matvec``: the largest error ``key`` over
+    its checks, or the check that failed."""
     gen = np.random.default_rng(0)
     x = torch.as_tensor(gen.normal(size=(9, 4065, 9)) / 3.0, dtype=torch.float32, device="cuda")
-    result = {"max_rel_err": {}, "failed": {}, "bias": {}, "ms": {}}
+    result = {"max_rel_err": {}, "failed": {}}
     for name in libs:
-        use(name)
+        _use_k2(libs, name)
         try:
             errs = chip_smoke.check_streamed_matvec(torch, sm, x)
-            result["max_rel_err"][name] = max(e["matvec_rel"] for e in errs.values())
+            result["max_rel_err"][name] = max(e[key] for e in errs.values())
         except AssertionError as err:
             result["max_rel_err"][name] = None
             result["failed"][name] = str(err)
+    return gen, x, result
 
+
+def _measure(libs: dict) -> dict:
+    """Checks, bias and times of every K2 variant, each run through the
+    wrapper with its library swapped in."""
+    gen, x, result = _k2_checked(libs, "matvec_rel")
+    result.update(bias={}, ms={})
     ones = torch.ones((9, 4065, 1), dtype=torch.float32, device="cuda")
     for sigma in (0.6, 1.0):
         par = torch.tensor([sigma], dtype=torch.float32, device="cuda")
         ref = sm.streamed_matvec_plain(x.double(), ones.double(), "rbf", par.double())
         for name in libs:
-            use(name)
+            _use_k2(libs, name)
             rel = (sm.streamed_matvec(x, ones, "rbf", par).double() - ref) / ref
             result["bias"].setdefault(f"sigma{sigma}", {})[name] = {
                 "mean_rel": rel.mean().item(), "max_rel": rel.abs().max().item()}
@@ -138,16 +136,33 @@ def _measure(libs: dict) -> dict:
     for n in (9, 1, 8, 16):
         v = torch.as_tensor(gen.normal(size=(9, 4065, n)), dtype=torch.float32, device="cuda")
         for name in order:
-            use(name)
+            _use_k2(libs, name)
             result["ms"].setdefault(f"n{n}", {}).setdefault(name, []).append(
                 chip_smoke.time_ms(lambda: sm.streamed_matvec(x, v, "rbf", par)))
+    return result
+
+
+def _measure_vjp(libs: dict) -> dict:
+    """Checks and times of every K2-VJP variant, each run through the
+    wrapper with its library swapped in."""
+    gen, x, result = _k2_checked(libs, "vjp_rel")
+    result.update(ms={}, wall_ms={})
+    par = torch.ones(1, dtype=torch.float32, device="cuda")
+    order = list(libs) + list(libs)[::-1]
     for n in (8, 1):
         v, w = (torch.as_tensor(gen.normal(size=(9, 4065, n)), dtype=torch.float32,
                                 device="cuda") for _ in range(2))
+
+        def call():
+            return sm.streamed_matvec_vjp(x, w, v, "rbf", par)
+
+        for name in order:
+            _use_k2(libs, name)
+            result["ms"].setdefault(f"n{n}", {}).setdefault(name, []).append(
+                chip_smoke.time_device_ms(call))
         for name in libs:
-            use(name)
-            result["ms"].setdefault(f"vjp_n{n}", {})[name] = chip_smoke.time_ms(
-                lambda: sm.streamed_matvec_vjp(x, w, v, "rbf", par))
+            _use_k2(libs, name)
+            result["wall_ms"].setdefault(f"n{n}", {})[name] = chip_smoke.time_ms(call)
     return result
 
 
@@ -185,6 +200,15 @@ def _measure_k1(libs: dict) -> dict:
     return result
 
 
+#: per kernel: its wrapper module, a pattern naming each kernel instance in
+#: ptxas's "Compiling entry function" lines, and what measures a variant
+KERNELS = {
+    "streamed_matvec": (sm, r"streamed_matvec_kernelILi(\d)ELi(\d+)EE", "F{0}/NB{1}", _measure),
+    "streamed_matvec_vjp": (sm, *chip_smoke.VJP_PTXAS, _measure_vjp),
+    "spd_inv_logdet": (spd, r"(spd_inv_logdet\w*?_kernel)", "{0}", _measure_k1),
+}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("spec")
@@ -205,7 +229,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             libs = build(texts, Path(tmp), args.kernel)
             print(f"built {len(libs)} variants in {time.perf_counter() - start:.1f} s", flush=True)
-            result = (_measure_k1 if args.kernel == "spd_inv_logdet" else _measure)(libs)
+            result = KERNELS[args.kernel][3](libs)
             result.update(card=card, registers={k: e[1] for k, e in libs.items()})
     finally:
         module._library = package_library

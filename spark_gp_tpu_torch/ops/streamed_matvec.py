@@ -172,7 +172,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ints = [ctypes.c_int] * 6
     lib.streamed_matvec_f32.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
     lib.streamed_matvec_f32.restype = ctypes.c_int
-    lib.streamed_matvec_vjp_f32.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
+    lib.streamed_matvec_vjp_f32.argtypes = [ctypes.c_void_p] * 6 + ints + [ctypes.c_void_p]
     lib.streamed_matvec_vjp_f32.restype = ctypes.c_int
     lib.streamed_matvec_vjp_blocks.argtypes = [ctypes.c_int] * 3
     lib.streamed_matvec_vjp_blocks.restype = ctypes.c_longlong
@@ -243,11 +243,14 @@ def _launch_vjp(x, w, v, params, spec, degree):
     if v.numel() == 0:
         return grad
     lib = _library()
-    partial = torch.empty((lib.streamed_matvec_vjp_blocks(batch, s, n), 2),
-                          dtype=x.dtype, device=x.device)
+    # scratch for the rows' squared norms, which the kernel's prologue fills
+    sqn = torch.empty((batch, s), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
+        # one partial sum per block; the block count follows the card's SMs
+        partial = torch.empty((lib.streamed_matvec_vjp_blocks(batch, s, n), 2),
+                              dtype=x.dtype, device=x.device)
         err = lib.streamed_matvec_vjp_f32(
-            x.data_ptr(), w.data_ptr(), v.data_ptr(), params.data_ptr(),
+            x.data_ptr(), w.data_ptr(), v.data_ptr(), params.data_ptr(), sqn.data_ptr(),
             partial.data_ptr(), batch, s, p, n, spec.fid, int(degree),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -6,7 +6,13 @@ shuffles, dynamic shared memory NaN-filled for each block, ``cp.async`` as
 a plain copy) and builds it with g++.  K2 and K2-VJP are held against the
 plain float64 version at the card's bars (K2 1e-5 and the VJP 1e-4 of the
 largest value) on shapes that exercise ragged tiles, every accumulator
-width, two feature chunks and two right-hand-side chunks.  K1 is held
+width, two feature chunks and two right-hand-side chunks; the VJP also on
+three row tiles (off-diagonal tile pairs of its symmetric walk), on two
+experts at n = 1 and 8 (a block's run of tile pairs crosses from one to
+the next), on runs of two tile pairs in two right-hand-side chunks each
+(the row tile restaged every step), for the count of partial sums it
+writes and for bit-identical partials over two calls.  The emulation
+reports one SM, so the VJP's grid is four blocks.  K1 is held
 against its plain float64 version at the card's bars (K^-1 within 5e-5 of
 max|K^-1|, logdet within 1e-4 + 1e-5 |logdet|) at n from one panel to a
 full 128 with ragged last panels, on the tiled workspace path (n = 129, a
@@ -58,13 +64,42 @@ def test_row_tile_agrees_with_the_wrapper(emulated):
 
 @pytest.mark.parametrize("shape,n", [((2, 70, 5), 1), ((1, 70, 5), 4), ((1, 70, 5), 8),
                                      ((1, 70, 5), 9), ((1, 70, 21), 9), ((1, 20, 20), 17),
-                                     ((1, 5, 2), 3)])
+                                     ((1, 5, 2), 3), ((1, 130, 5), 1), ((1, 130, 5), 8),
+                                     ((2, 100, 5), 8), ((1, 130, 5), 16)])
 def test_kernel_source_matches_plain(emulated, shape, n):
     emu, lib = emulated
     rng = np.random.default_rng(sum(shape) + n)
     for family, params in emu.FAMILIES.items():
         e_mv, e_vjp = emu.check(lib, shape, n, family, params, rng)
         assert e_mv <= 1e-5 and e_vjp <= 1e-4, (family, e_mv, e_vjp)
+
+
+def test_vjp_writes_exactly_the_partials_it_reports(emulated):
+    """Every one of the ``streamed_matvec_vjp_blocks`` partial pairs is
+    written and none past them (the buffer starts NaN): one tile pair, a
+    run crossing row tiles, and one crossing experts."""
+    emu, lib = emulated
+    rng = np.random.default_rng(5)
+    par = np.array([0.7], np.float32)
+    for shape, n in [((1, 5, 2), 1), ((1, 130, 5), 8), ((3, 200, 4), 1)]:
+        x, v, w = emu.stack(shape, n, rng)
+        blocks = lib.streamed_matvec_vjp_blocks(shape[0], shape[1], n)
+        part = emu.vjp_partials(lib, x, w, v, par, sm.TILE_TRANSFORMS["rbf"].fid, spare=3)
+        assert blocks >= 1 and part.shape == (blocks + 3, 2)
+        assert np.isfinite(part[:blocks]).all(), shape
+        assert np.isnan(part[blocks:]).all(), shape
+
+
+def test_vjp_partials_are_bit_identical_over_two_calls(emulated):
+    """Each block sums its run in a fixed order, so two calls on the same
+    inputs give the same partials to the bit."""
+    emu, lib = emulated
+    x, v, w = emu.stack((2, 130, 5), 8, np.random.default_rng(6))
+    par = np.array([0.9, 1.3], np.float32)
+    fid = sm.TILE_TRANSFORMS["rq"].fid
+    first = emu.vjp_partials(lib, x, w, v, par, fid)
+    assert np.isfinite(first).all()
+    assert np.array_equal(first, emu.vjp_partials(lib, x, w, v, par, fid))
 
 
 def test_k1_smem_max_n_agrees_with_the_source(emulated_k1):
