@@ -25,11 +25,16 @@ code is non-zero and the final ``ok`` line is never printed:
                at n = 9 (two feature chunks) and on (2, 130, 20) at n = 17
                (right-hand sides in chunks); two VJP calls on the same
                inputs must give bit-identical gradients.
+    gpc-check -- K1 against its plain version on the classifier's
+               B = I + W^1/2 K W^1/2 stacks at the converged Laplace mode
+               (init theta): the MNIST training stack (16, 100) and the
+               first iris fold's first one-vs-rest problem (7, 20).
 4. time     -- each kernel, its plain version and the library call at the
                main path's shapes, with the bound from the card's peaks;
                K1 also at (2, 256) and (1, 512), and its first design in
                turns with it at all six of its shapes; K2-VJP's first
-               design in turns with it at n = 8 and n = 1.
+               design in turns with it at n = 8 and n = 1; K1 also at the
+               classifier's B stacks.
 5. parity   -- the exact-lane objective and gradient on the card (float32,
                through K1) against the CPU (float64, Cholesky) on the
                first airfoil fold's stack.
@@ -59,7 +64,21 @@ code is non-zero and the final ``ok`` line is never printed:
                fits' theta through K2-VJP, its first design and the plain
                VJP in float64, on the same probes.
 12. matfree-profile -- one matrix-free evaluation under torch.profiler.
-13. kernels -- one line with every kernel's numbers.
+13. gpc-parity -- the Laplace objective and gradient on the card
+               (float32, K1) against the CPU (float64, Cholesky) on the
+               MNIST training stack at init theta, 0.7x and 1.3x; the
+               float32 gram's error at p = 784; Newton iterations each side.
+14. gpc-mnist -- examples/mnist.py's config (784 features, RBF(10), expert
+               100, active 100, tol 1e-3) on the MNIST stand-in, 80/20 at
+               seed 13: accuracy above quality.py's bar, phase seconds,
+               Newton iterations and objective calls, K1 launches (asserted
+               equal to their sum); the same fit on the CPU; one evaluation
+               at the fitted theta under torch.profiler.
+15. gpc-mnist-iterative -- the same fit on the iterative lane: no K1 launch.
+16. iris-ovr -- examples/iris.py's one-vs-rest 10-fold CV (30 binary fits
+               at E = 7, s = 20): accuracy >= 0.9, K1 launches, and the
+               same CV on the CPU.
+17. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -113,6 +132,15 @@ VJP_FIRST_DESIGN = "dev/streamed_matvec_vjp_first"
 
 # host seconds per fit phase, as the estimator reports them
 PHASES = ("group_seconds", "optimize_seconds", "ppa_seconds")
+# a classifier fit's metrics that the classifier phases report
+GPC_METRICS = ("num_experts", "expert_size", "lbfgs_nfev", "newton_iterations",
+               "objective_calls") + PHASES
+# the JAX package's accuracies on the same configs and data on the CPU
+# (examples/mnist.py and examples/iris.py, float64), for comparison
+JAX_CPU_ACCURACY = {"gpc_mnist": 0.8725, "iris_ovr": 0.9333333333333333}
+# quality.py's bars: the MNIST stand-in's (planted Bayes accuracy 0.970,
+# less the healthy Laplace path's margin) and iris one-vs-rest's
+GPC_BARS = {"gpc_mnist": 0.84, "iris_ovr": 0.9}
 
 
 def emit(obj) -> None:
@@ -365,10 +393,121 @@ def exact_lane_stacks(torch, d: dict) -> dict:
     return stacks
 
 
-def check_against_plain(torch, spd, k, label: str) -> float:
+def mnist_gpc(device=None):
+    """The reference's MNIST classifier config (examples/mnist.py)."""
+    from spark_gp_tpu_torch import GaussianProcessClassifier, RBFKernel
+
+    return (
+        GaussianProcessClassifier(device=device)
+        .setDatasetSizeForExpert(100)
+        .setActiveSetSize(100)
+        .setKernel(lambda: RBFKernel(10.0))
+        .setTol(1e-3)
+    )
+
+
+def iris_gpc(device=None):
+    """The reference's iris classifier config (examples/iris.py)."""
+    from spark_gp_tpu_torch import GaussianProcessClassifier
+
+    return GaussianProcessClassifier(device=device).setDatasetSizeForExpert(20) \
+        .setActiveSetSize(30)
+
+
+def classifier_data() -> dict:
+    """The MNIST stand-in z-scored (as examples/mnist.py does) with the
+    training rows of ``train_validation_split(seed=13)``; iris with its
+    10 CV folds at seed 13 (examples/iris.py)."""
+    from spark_gp_tpu_torch.data import load_iris, load_mnist_binary
+    from spark_gp_tpu_torch.ops.scaling import scale
+    from spark_gp_tpu_torch.utils.validation import kfold_indices
+
+    xm, ym = load_mnist_binary()
+    xm = scale(xm)
+    perm = np.random.default_rng(13).permutation(xm.shape[0])
+    xi, yi = load_iris()
+    return {"xm": xm, "ym": ym, "tr_m": perm[:int(0.8 * xm.shape[0])], "xi": xi, "yi": yi,
+            "folds_i": list(kfold_indices(xi.shape[0], 10, seed=13))}
+
+
+def gpc_b_stacks(torch, lap, d: dict) -> dict:
+    """The B = I + W^1/2 K W^1/2 stacks the classifier hands K1, at init
+    theta and the converged Laplace mode there: the MNIST training stack
+    (16, 100) and the first iris fold's first one-vs-rest problem
+    (versicolor against the rest, (7, 20))."""
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
+
+    train = d["folds_i"][0][0]
+    out = {}
+    for label, gp, xs, ys, shape in [
+        ("gpc_mnist", mnist_gpc(), d["xm"][d["tr_m"]], d["ym"][d["tr_m"]], (16, 100)),
+        ("iris_fold", iris_gpc(), d["xi"][train], (d["yi"][train] == 0).astype(np.float64),
+         (7, 20)),
+    ]:
+        kernel = gp._get_kernel()
+        data = gp._group(xs, ys, torch.device("cuda"))
+        theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device="cuda")
+        kmat = masked_gram_stack(kernel, theta, data.x, data.mask)
+        f, _ = lap.laplace_mode_batch(kmat, data.y, data.mask, torch.zeros_like(data.y),
+                                      gp._tol)
+        pi = torch.sigmoid(f)
+        sqw = torch.sqrt(pi * (1.0 - pi) * data.mask)
+        out[label] = (torch.eye(shape[1], device="cuda")
+                      + sqw[:, :, None] * kmat * sqw[:, None, :])
+        if tuple(out[label].shape) != (shape[0], shape[1], shape[1]):
+            raise AssertionError(f"{label} B stack {tuple(out[label].shape)}, expected {shape}")
+    return out
+
+
+def split_fit(gp, x, y) -> dict:
+    """examples/mnist.py's measurement: ``train_validation_split`` at seed
+    13 (80/20), accuracy on the held-out rows; with the fitted model's
+    metrics and the seconds of the whole."""
+    from spark_gp_tpu_torch.utils.validation import accuracy, train_validation_split
+
+    fitted = []
+
+    class Keep:
+        def fit(self, xs, ys):
+            fitted.append(gp.fit(xs, ys))
+            return fitted[-1]
+
+    start = time.perf_counter()
+    acc = train_validation_split(Keep(), x, y, train_ratio=0.8, metric=accuracy, seed=13)
+    seconds = time.perf_counter() - start
+    metrics = fitted[0].metrics
+    return {"accuracy": acc, "seconds": seconds, **{k: metrics[k] for k in GPC_METRICS},
+            "newton_per_eval": metrics["newton_iterations"] / metrics["objective_calls"],
+            "model": fitted[0]}
+
+
+def iris_cv(torch, d: dict, device=None) -> dict:
+    """examples/iris.py's measurement: one-vs-rest over the binary
+    classifier, 10-fold CV at seed 13; the mean accuracy, the metrics
+    summed over the 30 binary fits and the seconds of the whole."""
+    from spark_gp_tpu_torch.utils.validation import OneVsRest, accuracy
+
+    start = time.perf_counter()
+    scores, sums, shapes = [], dict.fromkeys(GPC_METRICS[2:], 0), set()
+    for train, test in d["folds_i"]:
+        ovr = OneVsRest(lambda: iris_gpc(device)).fit(d["xi"][train], d["yi"][train])
+        scores.append(accuracy(d["yi"][test], ovr.predict(d["xi"][test])))
+        for model in ovr.models_:
+            shapes.add((model.metrics["num_experts"], model.metrics["expert_size"]))
+            for key in sums:
+                sums[key] += model.metrics[key]
+    if device is None:
+        torch.cuda.synchronize()
+    return {"accuracy": float(np.mean(scores)), "seconds": time.perf_counter() - start,
+            "experts": sorted(shapes), **sums,
+            "newton_per_eval": sums["newton_iterations"] / sums["objective_calls"]}
+
+
+def check_against_plain(torch, spd, k, label: str):
     """K1 on ``k`` against its plain version in float64 on the same input
     upcast, at the JAX package's bars (inverse within 5e-5 max|K^-1|,
-    logdet rtol 1e-5 / atol 1e-4).  Returns the largest absolute error."""
+    logdet rtol 1e-5 / atol 1e-4).  Returns the largest absolute errors
+    of the inverse and of the logdet."""
     kinv, ld = spd.spd_inv_logdet(k)
     torch.cuda.synchronize()
     kinv_ref, ld_ref = spd.spd_inv_logdet_plain(k.double())
@@ -379,7 +518,7 @@ def check_against_plain(torch, spd, k, label: str) -> float:
         raise AssertionError(f"K^-1 of {label}: err {err} > 5e-5 * {scale}")
     if not bool((ld_err <= 1e-4 + 1e-5 * ld_ref.abs()).all()):
         raise AssertionError(f"logdet of {label}: err {ld_err.max().item()}")
-    return max(err, ld_err.max().item())
+    return err, ld_err.max().item()
 
 
 def check_spd_inv_logdet(torch, spd, stacks):
@@ -393,9 +532,9 @@ def check_spd_inv_logdet(torch, spd, stacks):
     for b, n in [(1, 4), (5, 60), (7, 64), (8, 128), (3, 100), (3, 113), (2, 127),
                  (2, 129), (3, 200), (2, 256), (1, 512), (14, 97), (14, 100), (366, 100)]:
         k = torch.as_tensor(spd_batch(b, n, seed=n), device="cuda")
-        errs[f"{b}x{n}"] = check_against_plain(torch, spd, k, f"({b},{n})")
+        errs[f"{b}x{n}"] = max(check_against_plain(torch, spd, k, f"({b},{n})"))
     for label, k in stacks.items():
-        errs[label] = check_against_plain(torch, spd, k, label)
+        errs[label] = max(check_against_plain(torch, spd, k, label))
 
     # a non-PD matrix gives NaN; its batch mates stay exact
     for n in (100, 300):
@@ -595,6 +734,133 @@ def time_streamed_matvec(torch, sm, x, peaks, vjp_first_design):
     return out
 
 
+def classifier_phases(torch, spd, lap, it_ops, cdata: dict):
+    """The classifier's phases (13-16 of the module doc); returns K1's
+    launches over the gpc-mnist fit and over the iris CV."""
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+
+    # 13. gpc-parity: the Laplace objective and its gradient, on the card
+    # (float32, K1 for every B) against the CPU (float64, Cholesky), on
+    # the MNIST training stack at init theta, 0.7x and 1.3x it.  Bars,
+    # relative (value; gradient over its largest component): 1e-4 and
+    # 1e-3.  With no bar: the float32 gram's largest error at p = 784 and
+    # each side's Newton iterations.
+    xm_tr, ym_tr = cdata["xm"][cdata["tr_m"]], cdata["ym"][cdata["tr_m"]]
+    mnist_kernel = mnist_gpc()._get_kernel()
+    theta0 = mnist_kernel.init_theta()
+    sides = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        data = group_for_experts(xm_tr, ym_tr, 100, dtype=dtype, device=device)
+        theta_t = torch.as_tensor(theta0, dtype=dtype, device=device)
+        sides[device] = (data, lap.make_laplace_objective(mnist_kernel, data, 1e-3),
+                         masked_gram_stack(mnist_kernel, theta_t, data.x, data.mask))
+    gram_err = (sides["cuda"][2].double().cpu() - sides["cpu"][2]).abs().max().item()
+    points = []
+    for factor in (1.0, 0.7, 1.3):
+        out = {}
+        for device, (data, objective, _) in sides.items():
+            before = lap.laplace_mode_batch.iterations
+            value, grad, _ = objective(theta0 * factor, torch.zeros_like(data.y))
+            out[device] = (value, grad, lap.laplace_mode_batch.iterations - before)
+        (v_gpu, g_gpu, it_gpu), (v_cpu, g_cpu, it_cpu) = out["cuda"], out["cpu"]
+        dv = abs(v_gpu - v_cpu) / abs(v_cpu)
+        dg = float(np.max(np.abs(g_gpu - g_cpu)) / np.max(np.abs(g_cpu)))
+        points.append({"theta": (theta0 * factor).tolist(), "value_cuda": v_gpu,
+                       "value_cpu": v_cpu, "grad_cuda": g_gpu.tolist(),
+                       "grad_cpu": g_cpu.tolist(), "rel_value_err": dv, "rel_grad_err": dg,
+                       "newton_iterations": {"cuda": it_gpu, "cpu": it_cpu}})
+        if not (dv <= 1e-4 and dg <= 1e-3):
+            raise AssertionError(f"gpc card vs CPU objective at {factor} x init theta: "
+                                 f"rel dv {dv}, dg {dg}")
+    emit({"phase": "gpc-parity", "config": "gpc-mnist", "shape": [16, 100, 784],
+          "bars": {"rel_value": 1e-4, "rel_grad": 1e-3},
+          "gram_max_abs_err_f32": gram_err, "points": points})
+
+    # 14. gpc-mnist: examples/mnist.py's config on the MNIST stand-in,
+    # train_validation_split at seed 13, on the card and again on the CPU.
+    # K1 runs once a Newton iteration and once an evaluation (the
+    # converged-state pass); the host reads one flag a Newton iteration
+    # (one more as each loop ends) and the value and gradient once an
+    # evaluation.  Then one evaluation at the fitted theta, warm-started
+    # from its own mode, under the profiler.
+    spd.spd_inv_logdet.launches = 0
+    lap.laplace_mode_batch.iterations = lap.batched_neg_logz.calls = 0
+    fit = split_fit(mnist_gpc(), cdata["xm"], cdata["ym"])
+    launches_gpc_mnist = spd.spd_inv_logdet.launches
+    iterations, calls = lap.laplace_mode_batch.iterations, lap.batched_neg_logz.calls
+    model = fit.pop("model")
+    if (iterations, calls) != (fit["newton_iterations"], fit["objective_calls"]):
+        raise AssertionError(f"gpc-mnist: counters {iterations}, {calls} against the "
+                             f"fit's metrics {fit['newton_iterations']}, "
+                             f"{fit['objective_calls']}")
+    if launches_gpc_mnist != iterations + calls or iterations == 0 or calls == 0:
+        raise AssertionError(f"gpc-mnist: {launches_gpc_mnist} K1 launches for {iterations} "
+                             f"Newton iterations and {calls} objective calls")
+    if (fit["num_experts"], fit["expert_size"]) != (16, 100):
+        raise AssertionError(f"gpc-mnist stack ({fit['num_experts']}, {fit['expert_size']})")
+    if not fit["accuracy"] > GPC_BARS["gpc_mnist"]:
+        raise AssertionError(f"gpc-mnist accuracy {fit['accuracy']} <= "
+                             f"{GPC_BARS['gpc_mnist']}")
+    cpu_fit = split_fit(mnist_gpc("cpu"), cdata["xm"], cdata["ym"])
+    cpu_fit.pop("model")
+    data = group_for_experts(xm_tr, ym_tr, 100, dtype=torch.float32, device="cuda")
+    theta_fit = model.raw_predictor.theta
+    objective = lap.make_laplace_objective(model.raw_predictor.kernel, data, 1e-3)
+    f_warm = objective(theta_fit, torch.zeros_like(data.y))[2]
+    before = (spd.spd_inv_logdet.launches, lap.laplace_mode_batch.iterations,
+              lap.batched_neg_logz.calls)
+    prof = profile_objective(torch, lambda theta: objective(theta, f_warm), theta_fit,
+                             shares={"spd_inv_logdet": ("spd_inv_logdet",)})
+    prof["newton_per_eval"] = ((lap.laplace_mode_batch.iterations - before[1])
+                               / (lap.batched_neg_logz.calls - before[2]))
+    spd.spd_inv_logdet.launches = before[0]
+    emit({"phase": "gpc-mnist", "shape": [16, 100, 784], **fit, "launches": launches_gpc_mnist,
+          "host_reads": iterations + 2 * calls, "theta": theta_fit.tolist(),
+          "bar": GPC_BARS["gpc_mnist"], "jax_cpu_accuracy": JAX_CPU_ACCURACY["gpc_mnist"],
+          "cpu": cpu_fit, "eval_profile": prof})
+
+    # 15. gpc-mnist-iterative: the same fit on the iterative lane, whose
+    # B systems are CG solves and SLQ log-dets: no K1 launch
+    spd.spd_inv_logdet.launches = 0
+    try:
+        it_fit = split_fit(mnist_gpc().setSolverLane("iterative"), cdata["xm"], cdata["ym"])
+    finally:
+        it_ops.set_solver_lane(None)
+    launches_iterative = spd.spd_inv_logdet.launches
+    lane = it_fit.pop("model").metrics["solver_lane"]
+    emit({"phase": "gpc-mnist-iterative", **it_fit, "solver_lane": lane,
+          "launches": launches_iterative, "bar": GPC_BARS["gpc_mnist"]})
+    if lane != "iterative" or launches_iterative != 0:
+        raise AssertionError(f"gpc-mnist-iterative: lane {lane}, {launches_iterative} K1 "
+                             "launches")
+    if not it_fit["accuracy"] > GPC_BARS["gpc_mnist"]:
+        raise AssertionError(f"gpc-mnist-iterative accuracy {it_fit['accuracy']}")
+
+    # 16. iris-ovr: examples/iris.py's one-vs-rest 10-fold CV at seed 13
+    # (30 binary fits, each E = 7, s = 20), on the card and on the CPU
+    spd.spd_inv_logdet.launches = 0
+    lap.laplace_mode_batch.iterations = lap.batched_neg_logz.calls = 0
+    iris = iris_cv(torch, cdata)
+    launches_iris = spd.spd_inv_logdet.launches
+    if launches_iris != iris["newton_iterations"] + iris["objective_calls"] \
+            or launches_iris == 0:
+        raise AssertionError(f"iris-ovr: {launches_iris} K1 launches for "
+                             f"{iris['newton_iterations']} Newton iterations and "
+                             f"{iris['objective_calls']} objective calls")
+    if iris["experts"] != [(7, 20)]:
+        raise AssertionError(f"iris-ovr: (E, s) per fit {iris['experts']}")
+    iris_cpu = iris_cv(torch, cdata, "cpu")
+    emit({"phase": "iris-ovr", **iris, "launches": launches_iris,
+          "host_reads": iris["newton_iterations"] + 2 * iris["objective_calls"],
+          "bar": GPC_BARS["iris_ovr"], "jax_cpu_accuracy": JAX_CPU_ACCURACY["iris_ovr"],
+          "cpu": iris_cpu})
+    if not iris["accuracy"] >= GPC_BARS["iris_ovr"]:
+        raise AssertionError(f"iris-ovr 10-fold accuracy {iris['accuracy']} < "
+                             f"{GPC_BARS['iris_ovr']}")
+    return launches_gpc_mnist, launches_iris
+
+
 def main() -> int:
     import torch
 
@@ -609,6 +875,7 @@ def main() -> int:
         RBFKernel,
         WhiteNoiseKernel,
     )
+    from spark_gp_tpu_torch.models import laplace as lap
     from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
     from spark_gp_tpu_torch.models.ppa import magic_solve
     from spark_gp_tpu_torch.ops import cuda_lib
@@ -648,6 +915,9 @@ def main() -> int:
     xp, yp, tr, te = (data_main[key] for key in ("xp", "yp", "tr", "te"))
     yp_tr, y_mean, y_std = (data_main[key] for key in ("yp_tr", "y_mean", "y_std"))
     stacks = exact_lane_stacks(torch, data_main)
+    # the classifiers' data and the B stacks they hand K1
+    cdata = classifier_data()
+    b_stacks = gpc_b_stacks(torch, lap, cdata)
 
     # the protein-matfree configuration: the same split, experts of
     # s = 4065 (E = 9, one masked row), the isotropic RBF
@@ -663,6 +933,14 @@ def main() -> int:
     errs = check_spd_inv_logdet(torch, spd, stacks)
     emit({"phase": "check", "kernel": "spd_inv_logdet", "passed": True,
           "max_abs_err": errs})
+    gpc_errs = {label: check_against_plain(torch, spd, k, label)
+                for label, k in b_stacks.items()}
+    emit({"phase": "gpc-check", "kernel": "spd_inv_logdet", "passed": True,
+          "shapes": {label: list(k.shape[:2]) for label, k in b_stacks.items()},
+          "bars": {"inverse": "5e-5 * max|B^-1|", "logdet": "1e-4 + 1e-5 * |logdet|"},
+          "max_abs_err": {label: {"inverse": e[0], "logdet": e[1]}
+                          for label, e in gpc_errs.items()}})
+    gpc_errs = {label: max(e) for label, e in gpc_errs.items()}
     k2_errs = check_streamed_matvec(torch, sm, mf_data.x)
     emit({"phase": "check", "kernel": "streamed_matvec + streamed_matvec_vjp",
           "passed": True, "bars": {"matvec": "1e-5 * max|ref|", "vjp": "1e-4 * max|ref|"},
@@ -674,6 +952,7 @@ def main() -> int:
     launches = spd.spd_inv_logdet.launches
     timing = time_spd_inv_logdet(torch, spd, first_design, {
         **stacks,
+        **b_stacks,
         "2x256": torch.as_tensor(spd_batch(2, 256, seed=256), device="cuda"),
         "1x512": torch.as_tensor(spd_batch(1, 512, seed=512), device="cuda"),
     }, peaks)
@@ -1023,8 +1302,13 @@ def main() -> int:
         it_ops.set_solver_lane(None)
     emit({"phase": "matfree-profile", "config": "protein-matfree", **prof})
 
-    # 13. kernels: K1 at the protein stack, then at the airfoil fold's and
-    # on the workspace path, launches over the three exact-lane fits; K2
+    # 13-16. the classifier: gpc-parity, gpc-mnist, gpc-mnist-iterative,
+    # iris-ovr
+    launches_gpc_mnist, launches_iris = classifier_phases(torch, spd, lap, it_ops, cdata)
+
+    # 17. kernels: K1 at the protein stack, then at the airfoil fold's, on
+    # the workspace path and at the classifiers' B stacks, launches over
+    # the three exact-lane regression fits and the two classifier runs; K2
     # at a CG step's width (n = 9) and K2-VJP at the surrogate leg's
     # (n = 8), launches over the protein-matfree fit (optimization and
     # solver report).  Each error is the RBF map's (the path's) at the
@@ -1046,10 +1330,13 @@ def main() -> int:
         "route": "cuda",
         "source": "spark_gp_tpu_torch/csrc/spd_inv_logdet.cu",
         "replaces": "spark_gp_tpu/ops/pallas_linalg.py:228",
-        "launches": launches_airfoil + launches_protein + launches_450,
+        "launches": (launches_airfoil + launches_protein + launches_450
+                     + launches_gpc_mnist + launches_iris),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
+        "launches_gpc_mnist": launches_gpc_mnist,
+        "launches_iris": launches_iris,
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
@@ -1061,6 +1348,10 @@ def main() -> int:
                                         for key in keys + ("first_design_ms",)}}
                              for label in ("2x256", "1x512", "airfoil_expert450",
                                            "protein_expert400")},
+        "gpc_b_stacks": {label: {"shape": timing[label]["shape"], "max_abs_err": gpc_errs[label],
+                                 **{key: timing[label][key]
+                                    for key in keys + ("first_design_ms",)}}
+                         for label in b_stacks},
         "checked": True,
     }, {
         "name": "streamed_matvec",

@@ -1,19 +1,21 @@
 """spark_gp_tpu_torch -- the PyTorch / CUDA port of ``spark_gp_tpu``.
 
-Gaussian Process regression at scale with the reference library's design:
-a Bayesian Committee Machine (product-of-experts) hyperparameter fit that
-sums the exact NLL of each expert's small gram, and a Projected Process
-model on an m-point active set for prediction.  Kernels, theta layout,
-setter names and numerics match the JAX package, which stays the
-reference the port is tested against.
+Gaussian Process regression and binary classification at scale with the
+reference library's design: a Bayesian Committee Machine
+(product-of-experts) hyperparameter fit that sums each expert's exact NLL
+(regression) or Laplace evidence (classification) over its small gram,
+and a Projected Process model on an m-point active set for prediction.
+Kernels, theta layout, setter names and numerics match the JAX package,
+which stays the reference the port is tested against.
 
 Entry points run on ``cuda`` (float32) unless the caller asks for ``cpu``
 (float64).  On the card the batched SPD inverse of every exact-lane
-objective evaluation is the hand-written CUDA kernel
-``csrc/spd_inv_logdet.cu``; on the matrix-free solver lane
-(``setSolverLane("matfree")``) every gram-matrix product is the
-hand-written kernel ``csrc/streamed_matvec.cu``, and the ``[E, s, s]``
-gram stack is never built.
+objective evaluation, and of every Newton iteration of the classifier,
+is the hand-written CUDA kernel ``csrc/spd_inv_logdet.cu``; on the
+matrix-free solver lane (``setSolverLane("matfree")``) every gram-matrix
+product of the regression objective is the hand-written kernel
+``csrc/streamed_matvec.cu``, and the ``[E, s, s]`` gram stack is never
+built.
 """
 
 from spark_gp_tpu_torch.kernels import (
@@ -35,6 +37,10 @@ from spark_gp_tpu_torch.kernels import (
 from spark_gp_tpu_torch.models.active_set import (
     ActiveSetProvider,
     RandomActiveSetProvider,
+)
+from spark_gp_tpu_torch.models.gpc import (
+    GaussianProcessClassificationModel,
+    GaussianProcessClassifier,
 )
 from spark_gp_tpu_torch.models.gpr import (
     GaussianProcessRegression,
@@ -59,6 +65,8 @@ __all__ = [
     "Const",
     "GaussianProcessRegression",
     "GaussianProcessRegressionModel",
+    "GaussianProcessClassifier",
+    "GaussianProcessClassificationModel",
     "ActiveSetProvider",
     "RandomActiveSetProvider",
     "NotPositiveDefiniteException",

@@ -5,7 +5,8 @@ A GP's state is its hyperparameter vector plus the PPA model built on it:
 statistics ``u1``/``u2``.  Given those arrays (for example the fields of a
 JAX model's ``raw_predictor``, as numpy) and a port kernel of the same
 expression -- hence the same theta layout -- :func:`predictor_from_fields`
-builds the port's predictor, which then computes what the JAX model does.
+builds the port's predictor, which then computes what the JAX model does;
+:func:`classifier_from_fields` wraps it into a classification model.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Mapping
 import numpy as np
 
 from spark_gp_tpu_torch.kernels.base import Kernel
+from spark_gp_tpu_torch.models.gpc import GaussianProcessClassificationModel
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 
 FIELDS = ("theta", "active", "magic_vector", "magic_matrix", "u1", "u2")
@@ -47,4 +49,16 @@ def predictor_from_fields(
         u1=arr("u1"),
         u2=arr("u2"),
         device=None if device is None else str(device),
+    )
+
+
+def classifier_from_fields(
+    fields: Mapping, kernel: Kernel, device=None
+) -> GaussianProcessClassificationModel:
+    """The port's binary classification model from a JAX classifier's
+    ``raw_predictor`` fields (:func:`predictor_from_fields`): the same
+    latent mean, hence the same ``predict_raw``, ``predict_proba`` and
+    ``predict``."""
+    return GaussianProcessClassificationModel(
+        predictor_from_fields(fields, kernel, device)
     )

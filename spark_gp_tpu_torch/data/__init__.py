@@ -2,8 +2,12 @@
 
 from spark_gp_tpu_torch.data.datasets import (
     load_airfoil,
+    load_iris,
+    load_mnist_binary,
     load_protein,
     make_synthetics,
 )
 
-__all__ = ["make_synthetics", "load_airfoil", "load_protein"]
+__all__ = [
+    "make_synthetics", "load_airfoil", "load_protein", "load_iris", "load_mnist_binary",
+]

@@ -6,6 +6,10 @@
 * :func:`load_protein` -- UCI CASP protein, 45730 rows x 9 features: the
   CSV at ``path`` when given, else a synthetic stand-in of the same shape
   (the same generator and seed as the JAX package's stand-in).
+* :func:`load_iris` -- UCI iris, 150 rows x 4 features, 3 classes
+  (``files/iris.csv``, a copy of the JAX package's file).
+* :func:`load_mnist_binary` -- MNIST 6-vs-8: a label-first CSV at ``path``
+  when given, else the JAX package's seeded 784-d stand-in, row for row.
 """
 
 from __future__ import annotations
@@ -51,6 +55,52 @@ def _synthetic_regression(n: int, p: int, seed: int,
         + noise * rng.normal(size=n)
     )
     return x, y
+
+
+def load_iris(path: str | None = None):
+    """``(x [150, 4], y [150] in {0, 1, 2})`` with the reference's class
+    indices: versicolor 0, setosa 1, virginica 2."""
+    name2idx = {"Iris-versicolor": 0, "Iris-setosa": 1, "Iris-virginica": 2}
+    xs, ys = [], []
+    with open(path or os.path.join(_DATA_DIR, "iris.csv")) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            *feats, name = line.split(",")
+            xs.append([float(v) for v in feats])
+            ys.append(name2idx[name])
+    return np.asarray(xs), np.asarray(ys, dtype=np.float64)
+
+
+#: planted Bayes accuracy of the MNIST stand-in: two unit-covariance
+#: Gaussians whose centers lie d apart have Bayes accuracy Phi(d / 2)
+MNIST_STANDIN_BAYES_ACCURACY = 0.970
+_MNIST_STANDIN_SEPARATION = 3.76  # 2 * Phi^-1(0.970)
+
+
+def load_mnist_binary(path: str | None = None, digits=(6, 8), seed: int = 0):
+    """MNIST ``digits[0]``-vs-``digits[1]`` as ``(x [n, 784], y in {0, 1})``:
+    the rows of those digits in a label-first CSV at ``path``, else a
+    seeded stand-in of the same width -- 1000 points a class around two
+    centers ``MNIST_STANDIN_BAYES_ACCURACY`` apart in Bayes accuracy,
+    shuffled -- the JAX package's stand-in, row for row."""
+    if path is not None:
+        raw = np.loadtxt(
+            path, delimiter=",", skiprows=1 if _has_header(path) else 0, ndmin=2
+        )
+        labels = raw[:, 0]
+        keep = np.isin(labels, digits)
+        return raw[keep, 1:], (labels[keep] == digits[1]).astype(np.float64)
+    rng = np.random.default_rng(seed)
+    n_per = 1000
+    direction = rng.normal(size=784)
+    direction *= (_MNIST_STANDIN_SEPARATION / 2.0) / np.linalg.norm(direction)
+    centers = np.stack([-direction, direction])
+    x = np.concatenate([centers[i] + rng.normal(size=(n_per, 784)) for i in range(2)])
+    y = np.concatenate([np.zeros(n_per), np.ones(n_per)])
+    perm = rng.permutation(2 * n_per)
+    return x[perm], y[perm]
 
 
 def _has_header(path: str) -> bool:

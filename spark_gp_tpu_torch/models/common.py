@@ -225,6 +225,23 @@ class GaussianProcessCommons(GaussianProcessParams):
             log_space=self._use_log_space(kernel),
         )
 
+    def _optimize_latent_host(self, kernel: Kernel, objective: Callable, f0):
+        """Host L-BFGS-B over a latent-carrying objective ``(theta, f0) ->
+        (value, grad, f_new)``: every evaluation, line-search trials
+        included, starts from the latent modes the previous one left
+        (the reference mutates them in place, GPClf.scala:53-60), and one
+        last evaluation at theta* settles them (GPClf.scala:60).  Returns
+        ``(OptimizeResult, f_final)``."""
+        state = {"f": f0}
+
+        def value_and_grad(theta):
+            value, grad, state["f"] = objective(theta, state["f"])
+            return value, grad
+
+        res = self._optimize_hypers_body(kernel, value_and_grad)
+        _, _, f_final = objective(res.theta, state["f"])
+        return res, f_final
+
     def _select_active(self, kernel, theta, x, y) -> np.ndarray:
         provider = self._active_set_provider
         if getattr(provider, "uses_fit_outputs", True):

@@ -1,0 +1,153 @@
+"""Gaussian Process classification (binary, sigmoid link) by the Laplace
+approximation -- the counterpart of the reference's
+GaussianProcessClassifier.
+
+``fit`` (GPClf.scala:48-66) checks that the labels are 0 or 1, groups the
+points into experts with a zero latent vector each, runs host L-BFGS-B on
+the summed Laplace ``-log Z`` (``models/laplace.py``; the latent modes
+warm-start every evaluation), settles the modes with one last evaluation
+at theta*, and builds the Projected Process model with the latent modes
+as its regression targets.
+
+The model (GPClf.scala:137-162) predicts the latent mean ``f*`` through
+the PPA predictor: ``predict_raw = (-f*, f*)``, ``predict_proba`` the
+sigmoid of ``f*`` or, with ``averaged=True``, its expectation under the
+latent Gaussian by 32-point Gauss-Hermite quadrature, and ``predict`` the
+sign.  Binary only, as in the reference; ``utils.validation.OneVsRest``
+reduces a multiclass problem to it.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spark_gp_tpu_torch.models import laplace
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
+from spark_gp_tpu_torch.ops import iterative as it_ops
+from spark_gp_tpu_torch.ops.integrator import Integrator
+from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
+from spark_gp_tpu_torch.utils.device import resolve_device
+
+
+class GaussianProcessClassifier(GaussianProcessCommons):
+    """Binary GP classifier with the reference's fluent API:
+
+    >>> gp = (GaussianProcessClassifier(device="cpu")
+    ...       .setKernel(lambda: RBFKernel(10.0))
+    ...       .setDatasetSizeForExpert(100)
+    ...       .setActiveSetSize(100)
+    ...       .setTol(1e-3))
+    >>> model = gp.fit(x, y)          # y in {0, 1}
+    >>> proba = model.predict_proba(x_test)
+    """
+
+    def fit(self, x, y) -> "GaussianProcessClassificationModel":
+        x = np.asarray(x, dtype=np.float64)
+        y = np.asarray(y, dtype=np.float64)
+        if x.ndim != 2:
+            raise ValueError(f"x must be [N, p], got shape {x.shape}")
+        if y.shape != (x.shape[0],):
+            raise ValueError(f"y must be [N], got shape {y.shape}")
+        if not (np.all(np.isfinite(x)) and np.all(np.isfinite(y))):
+            raise ValueError(
+                "x and y must be finite (quarantine of non-finite rows is "
+                "not ported yet: ROADMAP.md queue 1, item 2)"
+            )
+        if not np.all(np.isin(y, (0.0, 1.0))):
+            raise ValueError("Only 0 and 1 labels are supported.")
+        device = resolve_device(self._device)
+        iterations = laplace.laplace_mode_batch.iterations
+        calls = laplace.batched_neg_logz.calls
+        # host wall-clock per phase; each phase ends in a device-to-host copy
+        clock = [time.perf_counter()]
+        data = self._group(x, y, device)
+        kernel = self._get_kernel()
+        clock.append(time.perf_counter())
+        objective = laplace.make_laplace_objective(kernel, data, self._tol)
+        res, f_final = self._optimize_latent_host(
+            kernel, objective, torch.zeros_like(data.y)
+        )
+        clock.append(time.perf_counter())
+        # the latent modes are the PPA targets, and the active-set
+        # provider sees them in place of the labels (GPClf.scala:62-65)
+        latent = f_final * data.mask
+        raw = self._projected_process(
+            kernel, res.theta, x, ungroup(latent.cpu().numpy(), x.shape[0]),
+            ExpertData(x=data.x, y=latent, mask=data.mask),
+        )
+        clock.append(time.perf_counter())
+        model = GaussianProcessClassificationModel(raw)
+        model.metrics = {
+            "num_experts": data.num_experts,
+            "expert_size": data.expert_size,
+            "solver_lane": it_ops.resolve_solver(data.expert_size),
+            "lbfgs_iters": res.nit,
+            "lbfgs_nfev": res.nfev,
+            "final_nll": res.fun,
+            "newton_iterations": laplace.laplace_mode_batch.iterations - iterations,
+            "objective_calls": laplace.batched_neg_logz.calls - calls,
+            "group_seconds": clock[1] - clock[0],
+            "optimize_seconds": clock[2] - clock[1],
+            "ppa_seconds": clock[3] - clock[2],
+        }
+        return model
+
+    def fit_distributed(self, data, active_set=None):
+        raise _not_ported("the multi-host classifier fit", 6)
+
+
+class GaussianProcessClassificationModel:
+    """Sigmoid link on the PPA latent mean (GPClf.scala:137-162)."""
+
+    num_classes = 2
+
+    def __init__(self, raw_predictor: ProjectedProcessRawPredictor):
+        self.raw_predictor = raw_predictor
+        self.metrics: Optional[dict] = None
+        self._integrator = None
+
+    def _latent_mean(self, x_test) -> np.ndarray:
+        return self.raw_predictor.predict_mean(x_test).cpu().numpy()
+
+    def predict_raw(self, x_test) -> np.ndarray:
+        """``[t, 2]`` of ``(-f, f)`` (GPClf.scala:153-156)."""
+        f = self._latent_mean(x_test)
+        return np.stack([-f, f], axis=1)
+
+    def predict_proba(self, x_test, averaged: bool = False) -> np.ndarray:
+        """``[t, 2]`` class probabilities: the sigmoid of the latent mean
+        (``averaged=False``, the reference's), or ``E[sigmoid(f)]`` under
+        the latent Gaussian by 32-point Gauss-Hermite quadrature on the
+        predictive variance (``averaged=True``)."""
+        if not averaged:
+            p1 = 1.0 / (1.0 + np.exp(-self._latent_mean(x_test)))
+            return np.stack([1.0 - p1, p1], axis=1)
+        f, var = self.raw_predictor(x_test)
+        if var is None:
+            raise ValueError(
+                "model was fitted with setPredictiveVariance(False); "
+                "averaged probabilities need the latent variance -- use "
+                "averaged=False or refit with variances enabled"
+            )
+        if self._integrator is None:
+            self._integrator = Integrator(32)
+        p1 = self._integrator.expected_of_function_of_normal(
+            f, torch.clamp_min(var, 0.0), torch.sigmoid
+        ).cpu().numpy()
+        return np.stack([1.0 - p1, p1], axis=1)
+
+    def predict(self, x_test) -> np.ndarray:
+        """Labels ``{0, 1}`` from the sign of the latent mean."""
+        return (self._latent_mean(x_test) > 0.0).astype(np.float64)
+
+    def save(self, path: str) -> None:
+        raise _not_ported("saving a model", 7)
+
+    @staticmethod
+    def load(path: str) -> "GaussianProcessClassificationModel":
+        raise _not_ported("loading a model", 7)

@@ -1,5 +1,6 @@
 """Iterative expert inference: the batched CG / Lanczos solver lanes, the
-port of the JAX package's ``ops/iterative.py`` (regression part).
+port of the JAX package's ``ops/iterative.py`` (regression and the binary
+classifier's B-system solvers).
 
 The exact lane pays a batched ``[E, s, s]`` factorization per objective
 evaluation; past a few hundred rows per expert that factorization (and,
@@ -28,7 +29,11 @@ differentiated per evaluation.
 :func:`inv_quad_logdet_matfree` takes the operator as closures -- the
 matfree lane streams every product through ``ops/streamed_matvec.py`` and
 never builds the gram -- and :func:`inv_quad_logdet` runs the same
-engine on a materialized stack (``torch`` matmuls).
+engine on a materialized stack (``torch`` matmuls).  :func:`spd_solve`
+and :func:`spd_logdet` solve and take the log-det of the binary Laplace
+classifier's ``B`` systems on the same preconditioner and engine; the
+multiclass classifier's factored operators wait for that estimator
+(ROADMAP.md queue 1, item 8).
 
 Lane selection: ``GP_SOLVER_LANE`` in {``exact``, ``iterative``,
 ``matfree``, ``auto``}, :func:`set_solver_lane` (process-wide),
@@ -415,6 +420,108 @@ def inv_quad_logdet(kmat, y, config: Optional[SolverConfig] = None):
         lambda v: kmat @ v, lambda v: km @ v,
         torch.diagonal(km, dim1=-2, dim2=-1), _gather_col(km), y, config,
     )
+
+
+# --------------------------------------------------------------------------
+# SPD solve / logdet of materialized operators (the Laplace B systems)
+# --------------------------------------------------------------------------
+
+
+def _cg_only(matvec, b, iters, tol, precond=None):
+    return batched_pcg(matvec, b, precond, iters, tol).x
+
+
+def _spd_preconditioner(am, cfg: SolverConfig):
+    """``(P^-1 applier, lmat, delta, cfac)`` for a detached SPD stack: the
+    rank-k pivoted-Cholesky + Woodbury preconditioner of the marginal
+    engine.  The Laplace systems ``B = I + sqrtW K sqrtW`` have eigenvalues
+    >= 1 but a conditioning of ``1 + lambda_max(K W)``, in the thousands on
+    dense grams, where unpreconditioned float32 CG loses conjugacy."""
+    lmat, delta = pivoted_cholesky(am, cfg.rank)
+    cfac = woodbury_factor(lmat, delta)
+    return (lambda v: woodbury_apply(lmat, delta, cfac, v)), lmat, delta, cfac
+
+
+def build_spd_preconditioner(amat, config: Optional[SolverConfig] = None):
+    """The preconditioner triple ``(lmat, delta, cfac)`` of an SPD stack,
+    for callers that run several :func:`spd_solve` / :func:`spd_logdet`
+    against one stack (the classifier's Newton step, its full inverse and
+    its log-det) and so build it once.  Built from the detached stack: the
+    preconditioner is numerics, never part of the autograd graph."""
+    cfg = config or solver_config(amat.shape[-1])
+    _, lmat, delta, cfac = _spd_preconditioner(amat.detach(), cfg)
+    return lmat, delta, cfac
+
+
+def _precond_applier(amat, cfg: SolverConfig, precond):
+    if precond is None:
+        return _spd_preconditioner(amat.detach(), cfg)
+    lmat, delta, cfac = precond
+    return (lambda v: woodbury_apply(lmat, delta, cfac, v)), lmat, delta, cfac
+
+
+class _SpdSolve(torch.autograd.Function):
+    """``x = A^-1 b`` by a solver; the backward solves the symmetric system
+    again (``b_bar = A^-1 x_bar``, ``A_bar = -b_bar x^T``), which is the
+    exact implicit gradient at convergence."""
+
+    @staticmethod
+    def forward(ctx, amat, b, solve):
+        x = solve(amat.detach(), b.detach())
+        ctx.solve = solve
+        ctx.save_for_backward(amat, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g_x):
+        amat, x = ctx.saved_tensors
+        g_b = ctx.solve(amat.detach(), g_x)
+        g_a = -g_b @ x.mT if ctx.needs_input_grad[0] else None
+        return g_a, g_b, None
+
+
+def spd_solve(amat, b, config: Optional[SolverConfig] = None, precond=None):
+    """``A^-1 b`` for a materialized SPD stack ``A [..., s, s]`` and ``b``
+    of ``[..., s]`` or ``[..., s, n]``, by pivoted-Cholesky preconditioned
+    CG; differentiable in ``A`` and ``b`` by solving again in the backward.
+    ``precond`` is an optional prebuilt :func:`build_spd_preconditioner`
+    triple."""
+    cfg = config or solver_config(amat.shape[-1])
+    vector = b.ndim == amat.ndim - 1
+    b2 = b[..., None] if vector else b
+    apply_p = _precond_applier(amat, cfg, precond)[0]
+
+    def solve(a, rhs):
+        return _cg_only(lambda v: a @ v, rhs, cfg.iters, cfg.tol, precond=apply_p)
+
+    x = _SpdSolve.apply(amat, b2, solve)
+    return x[..., 0] if vector else x
+
+
+def spd_logdet(amat, config: Optional[SolverConfig] = None, precond=None):
+    """``logdet(A) [...]`` for a materialized SPD stack: the exact
+    ``logdet(P)`` of the preconditioner plus preconditioned SLQ of the
+    remainder, on probes ``z ~ N(0, P)`` drawn from ``seed + 1`` (the JAX
+    package's draw for this function), with the Hutchinson surrogate
+    ``mean_i (P^-1 z_i)^T A (A^-1 z_i)`` carrying the gradient.
+    ``precond`` is an optional prebuilt :func:`build_spd_preconditioner`
+    triple."""
+    s = amat.shape[-1]
+    cfg = config or solver_config(s)
+    am = amat.detach()
+    apply_p, lmat, delta, cfac = _precond_applier(am, cfg, precond)
+    g1, g2 = draw_probes(cfg._replace(seed=cfg.seed + 1), am.shape[:-2],
+                         lmat.shape[-1], s, am.dtype, am.device)
+    z = lmat @ g1 + torch.sqrt(delta)[..., None, None] * g2
+    with torch.no_grad():
+        res = batched_pcg(lambda v: am @ v, z, apply_p, cfg.iters, cfg.tol)
+        vtil = apply_p(z)                       # P^-1 z
+        weights = torch.sum(z * vtil, dim=-2)   # z^T P^-1 z
+        val = woodbury_logdet(lmat, delta, cfac) + slq_logdet_from_coeffs(
+            res.alphas, res.betas, weights
+        )
+    surr = torch.sum(vtil * (amat @ res.x), dim=(-2, -1)) / cfg.probes
+    return (val - surr).detach() + surr
 
 
 # --------------------------------------------------------------------------

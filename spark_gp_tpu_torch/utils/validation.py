@@ -1,6 +1,7 @@
-"""Model evaluation: RMSE and shuffled k-fold cross-validation (the
-counterparts of Spark ML's RegressionEvaluator and CrossValidator with an
-empty grid)."""
+"""Model evaluation: RMSE, accuracy, shuffled k-fold cross-validation,
+a single train/validation split and the one-vs-rest multiclass reduction
+(the counterparts of Spark ML's evaluators, CrossValidator with an empty
+grid, TrainValidationSplit and OneVsRest)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,13 @@ import numpy as np
 def rmse(y_true, y_pred) -> float:
     err = np.asarray(y_true) - np.asarray(y_pred)
     return float(np.sqrt(np.mean(err * err)))
+
+
+def accuracy(y_true, y_pred) -> float:
+    return float(np.mean(np.asarray(y_true) == np.asarray(y_pred)))
+
+
+accuracy.greater_is_better = True
 
 
 def kfold_indices(n: int, num_folds: int, seed: int = 0):
@@ -36,3 +44,55 @@ def cross_validate(estimator, x, y, num_folds: int = 10, metric=rmse,
         model = copy.copy(estimator).fit(x[train_idx], y[train_idx])
         scores.append(metric(y[test_idx], model.predict(x[test_idx])))
     return float(np.mean(scores))
+
+
+def train_validation_split(estimator, x, y, train_ratio: float = 0.8,
+                           metric=accuracy, seed: int = 0) -> float:
+    """``metric`` on the held-out share after one fit of ``estimator`` on a
+    shuffled ``train_ratio`` share (the JAX package's split: the same rows
+    for the same seed)."""
+    x = np.asarray(x)
+    y = np.asarray(y)
+    perm = np.random.default_rng(seed).permutation(x.shape[0])
+    cut = int(train_ratio * x.shape[0])
+    train_idx, test_idx = perm[:cut], perm[cut:]
+    model = estimator.fit(x[train_idx], y[train_idx])
+    return metric(y[test_idx], model.predict(x[test_idx]))
+
+
+class OneVsRest:
+    """Multiclass reduction over a binary classifier exposing
+    ``predict_raw``: one fresh estimator per class, fitted on "this class
+    or not"; :meth:`predict` picks the class whose model emits the largest
+    raw latent."""
+
+    def __init__(self, classifier_factory):
+        """``classifier_factory() -> estimator`` (a fresh one per class)."""
+        self.classifier_factory = classifier_factory
+        self.models_ = None
+        self.classes_ = None
+
+    def fit(self, x, y) -> "OneVsRest":
+        x = np.asarray(x)
+        y = np.asarray(y)
+        self.classes_ = np.unique(y)
+        self.models_ = [
+            self.classifier_factory().fit(x, (y == cls).astype(np.float64))
+            for cls in self.classes_
+        ]
+        return self
+
+    def _latents(self, x_test) -> np.ndarray:
+        return np.stack([m.predict_raw(x_test)[:, 1] for m in self.models_], axis=1)
+
+    def predict(self, x_test) -> np.ndarray:
+        return self.classes_[np.argmax(self._latents(x_test), axis=1)]
+
+    def predict_proba(self, x_test) -> np.ndarray:
+        """``[t, C]`` per-class sigmoids renormalized to sum to 1, computed
+        in log space (a softmax over ``log_sigmoid`` of the latents), so
+        saturated sigmoids can neither zero a row nor move its argmax away
+        from :meth:`predict`.  Columns follow ``classes_``."""
+        from scipy.special import log_expit, softmax
+
+        return softmax(log_expit(self._latents(x_test)), axis=1)

@@ -32,6 +32,8 @@ def test_import_pulls_in_no_jax():
         "import sys, spark_gp_tpu_torch, spark_gp_tpu_torch.convert\n"
         "import spark_gp_tpu_torch.ops.cuda_lib, spark_gp_tpu_torch.data\n"
         "import spark_gp_tpu_torch.utils.validation, spark_gp_tpu_torch.ops.scaling\n"
+        "import spark_gp_tpu_torch.models.laplace, spark_gp_tpu_torch.models.gpc\n"
+        "import spark_gp_tpu_torch.ops.integrator\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'spark_gp_tpu' or m.startswith('spark_gp_tpu.')]\n"
         "print(bad)\n"
