@@ -25,10 +25,11 @@ code is non-zero and the final ``ok`` line is never printed:
                at n = 9 (two feature chunks) and on (2, 130, 20) at n = 17
                (right-hand sides in chunks); two VJP calls on the same
                inputs must give bit-identical gradients.
-    gpc-check -- K1 against its plain version on the classifier's
+    gpc-check -- K1 against its plain version on the classifiers'
                B = I + W^1/2 K W^1/2 stacks at the converged Laplace mode
-               (init theta): the MNIST training stack (16, 100) and the
-               first iris fold's first one-vs-rest problem (7, 20).
+               (init theta): the MNIST training stack (16, 100), the
+               first iris fold's first one-vs-rest problem (7, 20) and
+               the same fold's multiclass B_c stack (E * C = 21, 20).
 4. time     -- each kernel, its plain version and the library call at the
                main path's shapes, with the bound from the card's peaks;
                K1 also at (2, 256) and (1, 512), and its first design in
@@ -78,7 +79,26 @@ code is non-zero and the final ``ok`` line is never printed:
 16. iris-ovr -- examples/iris.py's one-vs-rest 10-fold CV (30 binary fits
                at E = 7, s = 20): accuracy >= 0.9, K1 launches, and the
                same CV on the CPU.
-17. kernels -- one line with every kernel's numbers.
+17. gpc-mc-parity -- the multiclass objective and gradient on the card
+               (float32, K1 for every B_c stack) against the CPU (float64)
+               on the first iris fold at two theta; the Newton iterations
+               agree.
+18. iris-native -- examples/iris.py --native (make_native_gpc): the
+               multiclass softmax-Laplace classifier, 10-fold CV at seed
+               13: accuracy > 0.9 and within 0.02 of the JAX package's,
+               K1 launches = Newton iterations + 2 x objective calls, the
+               gram cache engaged; the same CV on the CPU; one evaluation
+               under torch.profiler.
+19. iris-native-iterative -- the same CV on the iterative lane: no K1
+               launch, accuracy within 0.04 of the JAX package's there.
+20. gram-cache -- the cached RBF gram against the uncached one on the card
+               at the gpc-mnist (16, 100, 784) and iris (7, 20, 4) stacks;
+               gram_cache_engaged 1 on gpc-mnist, iris-ovr and
+               iris-native, 0 on airfoil, airfoil-expert450, protein and
+               protein-matfree (ARD, or the matfree lane); one gpc-mnist
+               evaluation at the fitted theta with the cache and with
+               GP_GRAM_CACHE=0, in turns, under torch.profiler.
+21. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -136,11 +156,19 @@ PHASES = ("group_seconds", "optimize_seconds", "ppa_seconds")
 GPC_METRICS = ("num_experts", "expert_size", "lbfgs_nfev", "newton_iterations",
                "objective_calls") + PHASES
 # the JAX package's accuracies on the same configs and data on the CPU
-# (examples/mnist.py and examples/iris.py, float64), for comparison
-JAX_CPU_ACCURACY = {"gpc_mnist": 0.8725, "iris_ovr": 0.9333333333333333}
+# (examples/mnist.py and examples/iris.py; iris-native from quality.py's
+# iris_native_mc part, on the exact lane and with GP_SOLVER_LANE=iterative),
+# for comparison
+JAX_CPU_ACCURACY = {"gpc_mnist": 0.8725, "iris_ovr": 0.9333333333333333,
+                    "iris_native": 0.9333333333333333,
+                    "iris_native_iterative": 0.9333333333333333}
 # quality.py's bars: the MNIST stand-in's (planted Bayes accuracy 0.970,
-# less the healthy Laplace path's margin) and iris one-vs-rest's
-GPC_BARS = {"gpc_mnist": 0.84, "iris_ovr": 0.9}
+# less the healthy Laplace path's margin) and iris one-vs-rest's and
+# native multiclass's
+GPC_BARS = {"gpc_mnist": 0.84, "iris_ovr": 0.9, "iris_native": 0.9}
+# how far the port's iris-native accuracy may sit from the JAX package's on
+# the same folds: exact lane, iterative lane (SLQ probes, float32)
+IRIS_NATIVE_SPREAD = {"exact": 0.02, "iterative": 0.04}
 
 
 def emit(obj) -> None:
@@ -414,6 +442,16 @@ def iris_gpc(device=None):
         .setActiveSetSize(30)
 
 
+def iris_native_gpc(device=None):
+    """The native multiclass iris config (examples/iris.py
+    ``make_native_gpc``): expert 20, active 30, the default RBF kernel,
+    sigma2 and tol."""
+    from spark_gp_tpu_torch import GaussianProcessMulticlassClassifier
+
+    return GaussianProcessMulticlassClassifier(device=device) \
+        .setDatasetSizeForExpert(20).setActiveSetSize(30)
+
+
 def classifier_data() -> dict:
     """The MNIST stand-in z-scored (as examples/mnist.py does) with the
     training rows of ``train_validation_split(seed=13)``; iris with its
@@ -459,6 +497,30 @@ def gpc_b_stacks(torch, lap, d: dict) -> dict:
     return out
 
 
+def mc_b_stack(torch, lap_mc, d: dict):
+    """The ``[E * C, s, s]`` stack of B_c = I + D_c^1/2 K D_c^1/2 the
+    multiclass classifier hands K1, at init theta and the converged mode
+    there, on the first iris fold (E = 7, C = 3, s = 20)."""
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
+    from spark_gp_tpu_torch.models.gpc_mc import _one_hot_masked
+
+    train = d["folds_i"][0][0]
+    gp = iris_native_gpc()
+    kernel = gp._get_kernel()
+    data = gp._group(d["xi"][train], d["yi"][train], torch.device("cuda"))
+    y1h = _one_hot_masked(data.y, data.mask, 3)
+    theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device="cuda")
+    kmat = masked_gram_stack(kernel, theta, data.x, data.mask)
+    f, _ = lap_mc.laplace_mc_mode(kmat, y1h, data.mask, torch.zeros_like(y1h), gp._tol)
+    sq = torch.sqrt(torch.softmax(f, dim=-1) * data.mask[..., None]).movedim(-1, 1)
+    b_mats = (torch.eye(kmat.shape[-1], device="cuda")
+              + sq[..., :, None] * kmat[:, None] * sq[..., None, :])
+    b_mats = b_mats.reshape(-1, kmat.shape[-1], kmat.shape[-1])
+    if tuple(b_mats.shape) != (21, 20, 20):
+        raise AssertionError(f"iris-native B stack {tuple(b_mats.shape)}, expected (21, 20, 20)")
+    return b_mats
+
+
 def split_fit(gp, x, y) -> dict:
     """examples/mnist.py's measurement: ``train_validation_split`` at seed
     13 (80/20), accuracy on the held-out rows; with the fitted model's
@@ -478,29 +540,48 @@ def split_fit(gp, x, y) -> dict:
     metrics = fitted[0].metrics
     return {"accuracy": acc, "seconds": seconds, **{k: metrics[k] for k in GPC_METRICS},
             "newton_per_eval": metrics["newton_iterations"] / metrics["objective_calls"],
-            "model": fitted[0]}
+            "gram_cache_engaged": metrics["gram_cache_engaged"], "model": fitted[0]}
 
 
 def iris_cv(torch, d: dict, device=None) -> dict:
     """examples/iris.py's measurement: one-vs-rest over the binary
     classifier, 10-fold CV at seed 13; the mean accuracy, the metrics
     summed over the 30 binary fits and the seconds of the whole."""
-    from spark_gp_tpu_torch.utils.validation import OneVsRest, accuracy
+    from spark_gp_tpu_torch.utils.validation import OneVsRest
+
+    return cv_fits(torch, d, lambda: OneVsRest(lambda: iris_gpc(device)),
+                   lambda ovr: ovr.models_, device)
+
+
+def iris_native_cv(torch, d: dict, device=None) -> dict:
+    """examples/iris.py --native's measurement: the multiclass classifier,
+    10-fold CV at seed 13, on the lane in effect; the mean accuracy, the
+    metrics summed over the 10 fits and the seconds of the whole."""
+    return cv_fits(torch, d, lambda: iris_native_gpc(device), lambda model: [model], device)
+
+
+def cv_fits(torch, d: dict, make, models, device) -> dict:
+    """A fit of ``make()`` per iris fold: the mean accuracy, the metrics of
+    the fitted classifiers (``models(fitted)``) summed, their (E, s) and
+    ``gram_cache_engaged`` values, and the seconds of the whole."""
+    from spark_gp_tpu_torch.utils.validation import accuracy
 
     start = time.perf_counter()
-    scores, sums, shapes = [], dict.fromkeys(GPC_METRICS[2:], 0), set()
+    scores, sums, shapes, engaged = [], dict.fromkeys(GPC_METRICS[2:], 0), set(), set()
     for train, test in d["folds_i"]:
-        ovr = OneVsRest(lambda: iris_gpc(device)).fit(d["xi"][train], d["yi"][train])
-        scores.append(accuracy(d["yi"][test], ovr.predict(d["xi"][test])))
-        for model in ovr.models_:
+        fitted = make().fit(d["xi"][train], d["yi"][train])
+        scores.append(accuracy(d["yi"][test], fitted.predict(d["xi"][test])))
+        for model in models(fitted):
             shapes.add((model.metrics["num_experts"], model.metrics["expert_size"]))
+            engaged.add(model.metrics["gram_cache_engaged"])
             for key in sums:
                 sums[key] += model.metrics[key]
     if device is None:
         torch.cuda.synchronize()
     return {"accuracy": float(np.mean(scores)), "seconds": time.perf_counter() - start,
             "experts": sorted(shapes), **sums,
-            "newton_per_eval": sums["newton_iterations"] / sums["objective_calls"]}
+            "newton_per_eval": sums["newton_iterations"] / sums["objective_calls"],
+            "gram_cache_engaged": sorted(engaged)}
 
 
 def check_against_plain(torch, spd, k, label: str):
@@ -734,10 +815,11 @@ def time_streamed_matvec(torch, sm, x, peaks, vjp_first_design):
     return out
 
 
-def classifier_phases(torch, spd, lap, it_ops, cdata: dict):
-    """The classifier's phases (13-16 of the module doc); returns K1's
-    launches over the gpc-mnist fit and over the iris CV."""
-    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
+def classifier_phases(torch, spd, lap, it_ops, cdata: dict) -> dict:
+    """The binary classifier's phases (13-16 of the module doc); returns
+    K1's launches over the gpc-mnist fit and over the iris CV, the
+    gpc-mnist fit's theta and each config's ``gram_cache_engaged``."""
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack, prepare_gram_cache
     from spark_gp_tpu_torch.parallel.experts import group_for_experts
 
     # 13. gpc-parity: the Laplace objective and its gradient, on the card
@@ -806,7 +888,10 @@ def classifier_phases(torch, spd, lap, it_ops, cdata: dict):
     cpu_fit.pop("model")
     data = group_for_experts(xm_tr, ym_tr, 100, dtype=torch.float32, device="cuda")
     theta_fit = model.raw_predictor.theta
-    objective = lap.make_laplace_objective(model.raw_predictor.kernel, data, 1e-3)
+    kernel = model.raw_predictor.kernel
+    # with the gram cache, as the fit evaluates it
+    objective = lap.make_laplace_objective(kernel, data, 1e-3,
+                                           prepare_gram_cache(kernel, data.x))
     f_warm = objective(theta_fit, torch.zeros_like(data.y))[2]
     before = (spd.spd_inv_logdet.launches, lap.laplace_mode_batch.iterations,
               lap.batched_neg_logz.calls)
@@ -858,7 +943,209 @@ def classifier_phases(torch, spd, lap, it_ops, cdata: dict):
     if not iris["accuracy"] >= GPC_BARS["iris_ovr"]:
         raise AssertionError(f"iris-ovr 10-fold accuracy {iris['accuracy']} < "
                              f"{GPC_BARS['iris_ovr']}")
-    return launches_gpc_mnist, launches_iris
+    return {"launches_gpc_mnist": launches_gpc_mnist, "launches_iris": launches_iris,
+            "theta_gpc_mnist": theta_fit,
+            "engaged": {"gpc_mnist": [fit["gram_cache_engaged"]],
+                        "iris_ovr": iris["gram_cache_engaged"]}}
+
+
+def multiclass_phases(torch, spd, lap_mc, it_ops, cdata: dict) -> dict:
+    """The multiclass classifier's phases (17-19 of the module doc);
+    returns K1's launches over the iris-native CV and its
+    ``gram_cache_engaged`` values."""
+    from spark_gp_tpu_torch.kernels.base import prepare_gram_cache
+    from spark_gp_tpu_torch.models.gpc_mc import _one_hot_masked
+
+    # 17. gpc-mc-parity: the multiclass objective and its gradient on the
+    # card (float32, K1 for every B_c) against the CPU (float64, Cholesky)
+    # on the first iris fold, at init theta and 1.5x it, from zero
+    # latents, tol 1e-6 (the config's).  Bars as gpc-parity's, relative:
+    # 1e-4 on the value, 1e-3 on the gradient over its largest component;
+    # both sides take the same number of Newton iterations.
+    train = cdata["folds_i"][0][0]
+    gp = iris_native_gpc()
+    kernel = gp._get_kernel()
+    theta0 = kernel.init_theta()
+    sides = {}
+    for device in ("cuda", "cpu"):
+        data = gp._group(cdata["xi"][train], cdata["yi"][train], torch.device(device))
+        y1h = _one_hot_masked(data.y, data.mask, 3)
+        sides[device] = (y1h, lap_mc.make_mc_objective(
+            kernel, data.x, y1h, data.mask, gp._tol, prepare_gram_cache(kernel, data.x)))
+    points = []
+    for factor in (1.0, 1.5):
+        out = {}
+        for device, (y1h, objective) in sides.items():
+            before = lap_mc.laplace_mc_mode.iterations
+            value, grad, _ = objective(theta0 * factor, torch.zeros_like(y1h))
+            out[device] = (value, grad, lap_mc.laplace_mc_mode.iterations - before)
+        (v_gpu, g_gpu, it_gpu), (v_cpu, g_cpu, it_cpu) = out["cuda"], out["cpu"]
+        dv = abs(v_gpu - v_cpu) / abs(v_cpu)
+        dg = float(np.max(np.abs(g_gpu - g_cpu)) / np.max(np.abs(g_cpu)))
+        points.append({"theta": (theta0 * factor).tolist(), "value_cuda": v_gpu,
+                       "value_cpu": v_cpu, "grad_cuda": g_gpu.tolist(),
+                       "grad_cpu": g_cpu.tolist(), "rel_value_err": dv, "rel_grad_err": dg,
+                       "newton_iterations": {"cuda": it_gpu, "cpu": it_cpu}})
+        if not (dv <= 1e-4 and dg <= 1e-3 and it_gpu == it_cpu):
+            raise AssertionError(f"gpc-mc card vs CPU objective at {factor} x init theta: "
+                                 f"rel dv {dv}, dg {dg}, Newton {it_gpu} / {it_cpu}")
+    emit({"phase": "gpc-mc-parity", "config": "iris-native", "shape": [7, 20, 3],
+          "bars": {"rel_value": 1e-4, "rel_grad": 1e-3}, "points": points})
+
+    # 18. iris-native: make_native_gpc's 10-fold CV at seed 13 (E = 7,
+    # s = 20, C = 3 on every fold), on the card and on the CPU.  K1 runs
+    # once a Newton iteration (the [21, 20, 20] B_c stack) and twice an
+    # evaluation (the differentiable step and the determinants, both
+    # through K1's backward too).  Then one evaluation of the first
+    # fold's objective at its fitted theta, warm-started from its own
+    # mode, under the profiler.
+    spd.spd_inv_logdet.launches = 0
+    lap_mc.laplace_mc_mode.iterations = lap_mc.batched_neg_logz_mc.calls = 0
+    # the Newton loops' lengths, by a wrapper in the loop's place for this
+    # CV: the loop counts into whatever the module name holds
+    mode, lengths = lap_mc.laplace_mc_mode, []
+
+    def counted_mode(*args):
+        before = counted_mode.iterations
+        out = mode(*args)
+        lengths.append(counted_mode.iterations - before)
+        return out
+
+    counted_mode.iterations = 0
+    lap_mc.laplace_mc_mode = counted_mode
+    try:
+        native = iris_native_cv(torch, cdata)
+    finally:
+        lap_mc.laplace_mc_mode = mode
+        mode.iterations = counted_mode.iterations
+    launches = spd.spd_inv_logdet.launches
+    iterations, calls = lap_mc.laplace_mc_mode.iterations, lap_mc.batched_neg_logz_mc.calls
+    if (iterations, calls) != (native["newton_iterations"], native["objective_calls"]):
+        raise AssertionError(f"iris-native: counters {iterations}, {calls} against the fits' "
+                             f"metrics {native['newton_iterations']}, "
+                             f"{native['objective_calls']}")
+    if launches != iterations + 2 * calls or calls == 0:
+        raise AssertionError(f"iris-native: {launches} K1 launches for {iterations} Newton "
+                             f"iterations and {calls} objective calls")
+    if native["experts"] != [(7, 20)] or native["gram_cache_engaged"] != [1.0]:
+        raise AssertionError(f"iris-native: (E, s) {native['experts']}, gram cache "
+                             f"{native['gram_cache_engaged']}")
+    native_cpu = iris_native_cv(torch, cdata, "cpu")
+    model = iris_native_gpc().fit(cdata["xi"][train], cdata["yi"][train])
+    data = gp._group(cdata["xi"][train], cdata["yi"][train], torch.device("cuda"))
+    y1h = _one_hot_masked(data.y, data.mask, 3)
+    objective = lap_mc.make_mc_objective(kernel, data.x, y1h, data.mask, gp._tol,
+                                         prepare_gram_cache(kernel, data.x))
+    theta_fit = model.raw_predictor.theta
+    f_warm = objective(theta_fit, torch.zeros_like(y1h))[2]
+    before = (spd.spd_inv_logdet.launches, lap_mc.laplace_mc_mode.iterations,
+              lap_mc.batched_neg_logz_mc.calls)
+    prof = profile_objective(torch, lambda theta: objective(theta, f_warm), theta_fit,
+                             shares={"spd_inv_logdet": ("spd_inv_logdet",)})
+    prof["newton_per_eval"] = ((lap_mc.laplace_mc_mode.iterations - before[1])
+                               / (lap_mc.batched_neg_logz_mc.calls - before[2]))
+    spd.spd_inv_logdet.launches = launches
+    spread = abs(native["accuracy"] - JAX_CPU_ACCURACY["iris_native"])
+    emit({"phase": "iris-native", "shape": [7, 20, 3], "b_stack": [21, 20], **native,
+          "launches": launches, "launches_rule": "newton_iterations + 2 * objective_calls",
+          "host_reads": iterations + 2 * calls,
+          "newton_loop_lengths": {str(n): lengths.count(n) for n in sorted(set(lengths))},
+          "bar": GPC_BARS["iris_native"],
+          "jax_cpu_accuracy": JAX_CPU_ACCURACY["iris_native"], "spread": spread,
+          "cpu": native_cpu, "eval_profile": prof})
+    if not (native["accuracy"] > GPC_BARS["iris_native"]
+            and spread <= IRIS_NATIVE_SPREAD["exact"]):
+        raise AssertionError(f"iris-native 10-fold accuracy {native['accuracy']}: bar "
+                             f"{GPC_BARS['iris_native']}, JAX {JAX_CPU_ACCURACY['iris_native']}")
+
+    # 19. iris-native-iterative: the same CV on the iterative lane, whose
+    # Newton steps are CG solves on the factored operator and whose
+    # determinant is SLQ: no K1 launch
+    spd.spd_inv_logdet.launches = 0
+    try:
+        it_ops.set_solver_lane("iterative")
+        native_it = iris_native_cv(torch, cdata)
+    finally:
+        it_ops.set_solver_lane(None)
+    launches_iterative = spd.spd_inv_logdet.launches
+    spread_it = abs(native_it["accuracy"] - JAX_CPU_ACCURACY["iris_native_iterative"])
+    emit({"phase": "iris-native-iterative", **native_it, "solver_lane": "iterative",
+          "launches": launches_iterative,
+          "jax_cpu_accuracy": JAX_CPU_ACCURACY["iris_native_iterative"],
+          "spread": spread_it})
+    if launches_iterative != 0 or spread_it > IRIS_NATIVE_SPREAD["iterative"]:
+        raise AssertionError(f"iris-native-iterative: {launches_iterative} K1 launches, "
+                             f"accuracy {native_it['accuracy']}")
+    return {"launches_iris_native": launches,
+            "engaged": {"iris_native": native["gram_cache_engaged"]}}
+
+
+def gram_cache_phase(torch, lap, cdata: dict, theta_gpc_mnist, engaged: dict) -> None:
+    """20. gram-cache: the cached RBF gram against the uncached one on the
+    card, within float32 rounding (and, recorded, each against the
+    float64 gram on the CPU) at the gpc-mnist and iris stacks; which configs engaged the cache (asserted); one
+    gpc-mnist evaluation at the fitted theta with the cache and with
+    ``GP_GRAM_CACHE=0``, in turns (cached, uncached, uncached, cached),
+    under the profiler.  No speed is claimed: the distance GEMM the cache
+    saves is a few microseconds of an evaluation that is mostly idle."""
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack, prepare_gram_cache
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+
+    xm_tr, ym_tr = cdata["xm"][cdata["tr_m"]], cdata["ym"][cdata["tr_m"]]
+    train_i = cdata["folds_i"][0][0]
+    grams = {}
+    for label, gp, xs, ys in [("gpc_mnist", mnist_gpc(), xm_tr, ym_tr),
+                              ("iris", iris_native_gpc(), cdata["xi"][train_i],
+                               cdata["yi"][train_i])]:
+        kernel = gp._get_kernel()
+        out = {}
+        for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            data = gp._group(xs, ys, torch.device(device))
+            theta = torch.as_tensor(kernel.init_theta(), dtype=dtype, device=device)
+            out[device] = (masked_gram_stack(kernel, theta, data.x, data.mask,
+                                             prepare_gram_cache(kernel, data.x)),
+                           masked_gram_stack(kernel, theta, data.x, data.mask))
+        (cached, plain), (ref, _) = out["cuda"], out["cpu"]
+        grams[label] = {
+            "shape": list(gp._group(xs, ys, torch.device("cpu")).x.shape),
+            "max_abs_cached_vs_uncached": (cached - plain).abs().max().item(),
+            "max_abs_cached_vs_f64": (cached.double().cpu() - ref).abs().max().item(),
+            "max_abs_uncached_vs_f64": (plain.double().cpu() - ref).abs().max().item(),
+        }
+        # entries are at most 1: float32 rounding is a few times 1.2e-7
+        # (the distances' own float32 error, ~1e-5 on iris's unscaled
+        # features, is the same with and without the cache: recorded)
+        if not grams[label]["max_abs_cached_vs_uncached"] <= 4 * 1.2e-7:
+            raise AssertionError(f"cached {label} gram off the uncached one: {grams[label]}")
+    expected = {"gpc_mnist": [1.0], "iris_ovr": [1.0], "iris_native": [1.0],
+                "airfoil": [0.0], "airfoil_expert450": [0.0], "protein": [0.0],
+                "protein_matfree": [0.0]}
+    if engaged != expected:
+        raise AssertionError(f"gram_cache_engaged {engaged}, expected {expected}")
+
+    kernel = mnist_gpc()._get_kernel()
+    data = group_for_experts(xm_tr, ym_tr, 100, dtype=torch.float32, device="cuda")
+    caches = {"cached": prepare_gram_cache(kernel, data.x)}
+    os.environ["GP_GRAM_CACHE"] = "0"
+    try:
+        caches["uncached"] = prepare_gram_cache(kernel, data.x)
+    finally:
+        del os.environ["GP_GRAM_CACHE"]
+    if caches["cached"] is None or caches["uncached"] is not None:
+        raise AssertionError("GP_GRAM_CACHE did not switch the gpc-mnist cache")
+    metrics = ("eval_wall_ms", "eval_device_ms", "device_busy_share",
+               "kernel_launches_per_eval")
+    turns = {"cached": [], "uncached": []}
+    for key in ("cached", "uncached", "uncached", "cached"):
+        objective = lap.make_laplace_objective(kernel, data, 1e-3, caches[key])
+        f_warm = objective(theta_gpc_mnist, torch.zeros_like(data.y))[2]
+        prof = profile_objective(torch, lambda theta: objective(theta, f_warm),
+                                 theta_gpc_mnist)
+        turns[key].append({metric: prof[metric] for metric in metrics})
+    evals = {key: {metric: float(np.mean([r[metric] for r in runs])) for metric in metrics}
+             for key, runs in turns.items()}
+    emit({"phase": "gram-cache", "grams": grams, "engaged": engaged,
+          "gpc_mnist_eval": evals, "gpc_mnist_eval_turns": turns})
 
 
 def main() -> int:
@@ -876,6 +1163,7 @@ def main() -> int:
         WhiteNoiseKernel,
     )
     from spark_gp_tpu_torch.models import laplace as lap
+    from spark_gp_tpu_torch.models import laplace_mc as lap_mc
     from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
     from spark_gp_tpu_torch.models.ppa import magic_solve
     from spark_gp_tpu_torch.ops import cuda_lib
@@ -918,6 +1206,9 @@ def main() -> int:
     # the classifiers' data and the B stacks they hand K1
     cdata = classifier_data()
     b_stacks = gpc_b_stacks(torch, lap, cdata)
+    b_stacks["iris_native"] = mc_b_stack(torch, lap_mc, cdata)
+    # each config's gram_cache_engaged, asserted in the gram-cache phase
+    engaged = {}
 
     # the protein-matfree configuration: the same split, experts of
     # s = 4065 (E = 9, one masked row), the isotropic RBF
@@ -990,6 +1281,7 @@ def main() -> int:
     cv = airfoil_cv(airfoil_gp(100), x, y, folds)
     launches_airfoil = spd.spd_inv_logdet.launches
     model = cv.pop("first_model")
+    engaged["airfoil"] = [model.metrics["gram_cache_engaged"]]
     emit({"phase": "airfoil", **cv, "launches": launches_airfoil,
           "num_experts": model.metrics["num_experts"],
           "expert_size": model.metrics["expert_size"]})
@@ -1004,6 +1296,7 @@ def main() -> int:
     cv = airfoil_cv(airfoil_gp(450), x, y, folds)
     launches_450 = spd.spd_inv_logdet.launches
     model = cv.pop("first_model")
+    engaged["airfoil_expert450"] = [model.metrics["gram_cache_engaged"]]
     if cv["experts"] != [(3, 451)]:
         raise AssertionError(f"airfoil-expert450: (E, s) per fold {cv['experts']}")
     if not cv["rmse"] < 2.1:
@@ -1055,6 +1348,7 @@ def main() -> int:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - start
     launches_protein = spd.spd_inv_logdet.launches
+    engaged["protein"] = [model.metrics["gram_cache_engaged"]]
     pred = model.predict(xp[te]) * y_std + y_mean
     if not np.all(np.isfinite(pred)) or pred.shape != te.shape:
         raise AssertionError("protein predictions not finite")
@@ -1189,6 +1483,7 @@ def main() -> int:
                       **{k: v for k, v in model.metrics.items() if k.startswith("solver")}}
         if lane == "matfree":
             mf_model, mf_total = model, total
+            engaged["protein_matfree"] = [model.metrics["gram_cache_engaged"]]
     nfev = fits["matfree"]["nfev"]
     launches_k2 = mf_total[0] - report_launches["streamed_matvec"]
     launches_vjp = mf_total[1] - report_launches["streamed_matvec_vjp"]
@@ -1302,13 +1597,21 @@ def main() -> int:
         it_ops.set_solver_lane(None)
     emit({"phase": "matfree-profile", "config": "protein-matfree", **prof})
 
-    # 13-16. the classifier: gpc-parity, gpc-mnist, gpc-mnist-iterative,
-    # iris-ovr
-    launches_gpc_mnist, launches_iris = classifier_phases(torch, spd, lap, it_ops, cdata)
+    # 13-16. the binary classifier: gpc-parity, gpc-mnist,
+    # gpc-mnist-iterative, iris-ovr
+    binary = classifier_phases(torch, spd, lap, it_ops, cdata)
+    launches_gpc_mnist, launches_iris = binary["launches_gpc_mnist"], binary["launches_iris"]
+    # 17-19. the multiclass classifier: gpc-mc-parity, iris-native,
+    # iris-native-iterative
+    multiclass = multiclass_phases(torch, spd, lap_mc, it_ops, cdata)
+    launches_iris_native = multiclass["launches_iris_native"]
+    # 20. gram-cache
+    engaged.update(binary["engaged"], **multiclass["engaged"])
+    gram_cache_phase(torch, lap, cdata, binary["theta_gpc_mnist"], engaged)
 
-    # 17. kernels: K1 at the protein stack, then at the airfoil fold's, on
+    # 21. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
-    # the three exact-lane regression fits and the two classifier runs; K2
+    # the three exact-lane regression fits and the three classifier runs; K2
     # at a CG step's width (n = 9) and K2-VJP at the surrogate leg's
     # (n = 8), launches over the protein-matfree fit (optimization and
     # solver report).  Each error is the RBF map's (the path's) at the
@@ -1331,12 +1634,13 @@ def main() -> int:
         "source": "spark_gp_tpu_torch/csrc/spd_inv_logdet.cu",
         "replaces": "spark_gp_tpu/ops/pallas_linalg.py:228",
         "launches": (launches_airfoil + launches_protein + launches_450
-                     + launches_gpc_mnist + launches_iris),
+                     + launches_gpc_mnist + launches_iris + launches_iris_native),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
         "launches_gpc_mnist": launches_gpc_mnist,
         "launches_iris": launches_iris,
+        "launches_iris_native": launches_iris_native,
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},

@@ -1,9 +1,10 @@
 """spark_gp_tpu_torch -- the PyTorch / CUDA port of ``spark_gp_tpu``.
 
-Gaussian Process regression and binary classification at scale with the
-reference library's design: a Bayesian Committee Machine
-(product-of-experts) hyperparameter fit that sums each expert's exact NLL
-(regression) or Laplace evidence (classification) over its small gram,
+Gaussian Process regression and classification (binary, and multiclass
+by the softmax link) at scale with the reference library's design: a
+Bayesian Committee Machine (product-of-experts) hyperparameter fit that
+sums each expert's exact NLL (regression) or Laplace evidence
+(classification) over its small gram,
 and a Projected Process model on an m-point active set for prediction.
 Kernels, theta layout, setter names and numerics match the JAX package,
 which stays the reference the port is tested against.
@@ -11,7 +12,9 @@ which stays the reference the port is tested against.
 Entry points run on ``cuda`` (float32) unless the caller asks for ``cpu``
 (float64).  On the card the batched SPD inverse of every exact-lane
 objective evaluation, and of every Newton iteration of the classifier,
-is the hand-written CUDA kernel ``csrc/spd_inv_logdet.cu``; on the
+is the hand-written CUDA kernel ``csrc/spd_inv_logdet.cu`` (for the
+multiclass classifier, over every expert's and class's ``B_c`` at
+once); on the
 matrix-free solver lane (``setSolverLane("matfree")``) every gram-matrix
 product of the regression objective is the hand-written kernel
 ``csrc/streamed_matvec.cu``, and the ``[E, s, s]`` gram stack is never
@@ -42,6 +45,10 @@ from spark_gp_tpu_torch.models.gpc import (
     GaussianProcessClassificationModel,
     GaussianProcessClassifier,
 )
+from spark_gp_tpu_torch.models.gpc_mc import (
+    GaussianProcessMulticlassClassifier,
+    GaussianProcessMulticlassModel,
+)
 from spark_gp_tpu_torch.models.gpr import (
     GaussianProcessRegression,
     GaussianProcessRegressionModel,
@@ -67,6 +74,8 @@ __all__ = [
     "GaussianProcessRegressionModel",
     "GaussianProcessClassifier",
     "GaussianProcessClassificationModel",
+    "GaussianProcessMulticlassClassifier",
+    "GaussianProcessMulticlassModel",
     "ActiveSetProvider",
     "RandomActiveSetProvider",
     "NotPositiveDefiniteException",

@@ -6,7 +6,9 @@ statistics ``u1``/``u2``.  Given those arrays (for example the fields of a
 JAX model's ``raw_predictor``, as numpy) and a port kernel of the same
 expression -- hence the same theta layout -- :func:`predictor_from_fields`
 builds the port's predictor, which then computes what the JAX model does;
-:func:`classifier_from_fields` wraps it into a classification model.
+:func:`classifier_from_fields` wraps it into a binary classification
+model and :func:`multiclass_from_fields` (``magic_vector [m, C]``) into a
+multiclass one.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 
 from spark_gp_tpu_torch.kernels.base import Kernel
 from spark_gp_tpu_torch.models.gpc import GaussianProcessClassificationModel
+from spark_gp_tpu_torch.models.gpc_mc import GaussianProcessMulticlassModel
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 
 FIELDS = ("theta", "active", "magic_vector", "magic_matrix", "u1", "u2")
@@ -62,3 +65,21 @@ def classifier_from_fields(
     return GaussianProcessClassificationModel(
         predictor_from_fields(fields, kernel, device)
     )
+
+
+def multiclass_from_fields(
+    fields: Mapping, kernel: Kernel, device=None
+) -> GaussianProcessMulticlassModel:
+    """The port's multiclass model from a JAX multiclass model's
+    ``raw_predictor`` fields (:func:`predictor_from_fields`, with the
+    ``[m, C]`` magic vector): the same C latent means, hence the same
+    ``predict_raw``, ``predict_proba`` and ``predict``.  Raises
+    ``ValueError`` when the magic vector is not ``[m, C]``."""
+    predictor = predictor_from_fields(fields, kernel, device)
+    mv = predictor.magic_vector
+    if mv.ndim != 2 or mv.shape[0] != predictor.active.shape[0]:
+        raise ValueError(
+            f"a multiclass model's magic vector is [m, C]; got {mv.shape} "
+            f"for {predictor.active.shape[0]} active points"
+        )
+    return GaussianProcessMulticlassModel(predictor)

@@ -15,17 +15,27 @@ The composition DSL is the JAX package's:
 >>> k = Scalar(1.0).between(0).and_(30) * ARDRBFKernel(5)
 >>> k = Const(1.0) * EyeKernel()
 
+The theta-invariant gram cache (``prepare`` / ``gram_from_cache``,
+:func:`prepare_gram_cache`): kernels whose gram factors through a
+structure that does not depend on theta -- the squared-distance block of
+the isotropic RBF, Matern and rational-quadratic kernels, the inner
+products of the dot-product and polynomial kernels -- build it once per
+fit, and every objective evaluation then pays only the elementwise theta
+map.  ARD kernels (theta-weighted distances) keep ``prepare = None``, and
+a composite drops it when a child lacks it.  ``GP_GRAM_CACHE=0`` turns
+the cache off for every later fit (:func:`gram_cache_enabled`).
+
 The matrix-free matvec protocol (``prepare_matvec`` /
 ``matvec_from_prepared``, :func:`supports_matfree`) lets the matfree
 solver lane apply a kernel's gram without building it.
 
-Not ported yet: products of kernels and the theta-invariant gram cache
-(``prepare``) (ROADMAP.md queue 1).
+Not ported yet: products of kernels (ROADMAP.md queue 1, item 8).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Tuple
 
 import numpy as np
@@ -43,6 +53,11 @@ class Kernel:
     * ``cross(theta, x_test, x_train)`` -- ``[..., t, n]`` cross kernel.
     * ``diag(theta, x)`` / ``self_diag(theta, x)`` -- ``[..., n]``.
     * ``white_noise_var(theta)`` -- scalar white-noise variance.
+    * ``prepare(x)`` / ``gram_from_cache(theta, cache)`` -- the
+      theta-invariant cache: ``gram_from_cache(theta, prepare(x))`` equals
+      ``gram(theta, x)``.  ``None`` (the class default) means the kernel
+      has no invariant; composites null it per instance when a child
+      lacks it, so ``prepare is None`` is the one capability test.
     * ``prepare_matvec(x)`` / ``matvec_from_prepared(theta, mcache, v)`` --
       the matrix-free streaming hooks: ``prepare_matvec`` returns the
       theta-invariant streaming operand (the ``[..., s, p]`` row stack
@@ -55,6 +70,7 @@ class Kernel:
     """
 
     n_hypers: int = 0
+    prepare = None
     prepare_matvec = None
     matvec_from_prepared = None
 
@@ -76,6 +92,13 @@ class Kernel:
 
     def self_diag(self, theta, x):
         raise NotImplementedError
+
+    def gram_from_cache(self, theta, cache):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no theta-invariant structure "
+            "(prepare is None); check kernel.prepare before taking the "
+            "cached gram path"
+        )
 
     def white_noise_var(self, theta):
         return torch.zeros((), dtype=theta.dtype, device=theta.device)
@@ -160,6 +183,12 @@ class ARDHypers(StationaryKernel):
         return self.lower_b, self.upper_b
 
 
+def _identity_stack(x):
+    """``[..., n, n]`` identities for rows ``x [..., n, *]``."""
+    n = x.shape[-2]
+    return torch.eye(n, dtype=x.dtype, device=x.device).expand(*x.shape[:-2], n, n)
+
+
 class EyeKernel(Kernel):
     """Identity kernel: ``K = I`` on training points, 0 across sets, unit
     white-noise variance."""
@@ -167,9 +196,7 @@ class EyeKernel(Kernel):
     n_hypers = 0
 
     def gram(self, theta, x):
-        n = x.shape[-2]
-        eye = torch.eye(n, dtype=x.dtype, device=x.device)
-        return eye.expand(*x.shape[:-2], n, n)
+        return _identity_stack(x)
 
     def cross(self, theta, x_test, x_train):
         shape = x_test.shape[:-1] + x_train.shape[-2:-1]
@@ -183,6 +210,14 @@ class EyeKernel(Kernel):
 
     def white_noise_var(self, theta):
         return torch.ones((), dtype=theta.dtype, device=theta.device)
+
+    def prepare(self, x):
+        # a zero-byte carrier of the batch shape, n, dtype and device:
+        # the identity needs nothing else
+        return x.new_zeros(x.shape[:-1] + (0,))
+
+    def gram_from_cache(self, theta, cache):
+        return _identity_stack(cache)
 
     def prepare_matvec(self, x):
         return None  # the identity needs no operand
@@ -198,6 +233,9 @@ class SumKernel(Kernel):
         self.k1 = k1
         self.k2 = k2
         self.n_hypers = k1.n_hypers + k2.n_hypers
+        if k1.prepare is None or k2.prepare is None:
+            # the cache is the pair of the children's: both or neither
+            self.prepare = None
         if k1.matvec_from_prepared is None or k2.matvec_from_prepared is None:
             # streaming composes: both children or neither
             self.prepare_matvec = None
@@ -217,6 +255,14 @@ class SumKernel(Kernel):
     def gram(self, theta, x):
         t1, t2 = self._split(theta)
         return self.k1.gram(t1, x) + self.k2.gram(t2, x)
+
+    def prepare(self, x):
+        return self.k1.prepare(x), self.k2.prepare(x)
+
+    def gram_from_cache(self, theta, cache):
+        t1, t2 = self._split(theta)
+        c1, c2 = cache
+        return self.k1.gram_from_cache(t1, c1) + self.k2.gram_from_cache(t2, c2)
 
     def prepare_matvec(self, x):
         return self.k1.prepare_matvec(x), self.k2.prepare_matvec(x)
@@ -257,6 +303,8 @@ class TrainableScaleKernel(Kernel):
         self.lower = float(lower)
         self.upper = float(upper)
         self.n_hypers = 1 + kernel.n_hypers
+        if kernel.prepare is None:
+            self.prepare = None
         if kernel.matvec_from_prepared is None:
             self.prepare_matvec = None
             self.matvec_from_prepared = None
@@ -273,6 +321,12 @@ class TrainableScaleKernel(Kernel):
 
     def gram(self, theta, x):
         return theta[0] * self.kernel.gram(theta[1:], x)
+
+    def prepare(self, x):
+        return self.kernel.prepare(x)
+
+    def gram_from_cache(self, theta, cache):
+        return theta[0] * self.kernel.gram_from_cache(theta[1:], cache)
 
     def prepare_matvec(self, x):
         return self.kernel.prepare_matvec(x)
@@ -303,6 +357,8 @@ class ConstScaleKernel(Kernel):
         self.kernel = kernel
         self.c = float(c)
         self.n_hypers = kernel.n_hypers
+        if kernel.prepare is None:
+            self.prepare = None
         if kernel.matvec_from_prepared is None:
             self.prepare_matvec = None
             self.matvec_from_prepared = None
@@ -315,6 +371,12 @@ class ConstScaleKernel(Kernel):
 
     def gram(self, theta, x):
         return self.c * self.kernel.gram(theta, x)
+
+    def prepare(self, x):
+        return self.kernel.prepare(x)
+
+    def gram_from_cache(self, theta, cache):
+        return self.c * self.kernel.gram_from_cache(theta, cache)
 
     def prepare_matvec(self, x):
         return self.kernel.prepare_matvec(x)
@@ -400,7 +462,35 @@ def supports_matfree(kernel: Kernel) -> bool:
     return kernel.matvec_from_prepared is not None
 
 
-def masked_gram_stack(kernel: Kernel, theta, x, mask):
+def gram_cache_enabled() -> bool:
+    """The process knob: ``GP_GRAM_CACHE=0`` turns the gram cache off for
+    every fit (each evaluation then rebuilds the distances, as before the
+    cache).  Read on the host when a fit builds its cache."""
+    return os.environ.get("GP_GRAM_CACHE", "1") != "0"
+
+
+def supports_gram_cache(kernel: Kernel) -> bool:
+    """True when ``kernel`` has a theta-invariant structure and the knob
+    has not turned the cache off."""
+    return kernel.prepare is not None and gram_cache_enabled()
+
+
+@torch.no_grad()
+def prepare_gram_cache(kernel: Kernel, x):
+    """The per-expert theta-invariant cache of an ``[E, s, p]`` stack, one
+    ``prepare`` pass in the stack's dtype on its device; ``None`` when the
+    kernel has no invariant or ``GP_GRAM_CACHE=0``."""
+    if not supports_gram_cache(kernel):
+        return None
+    return kernel.prepare(x)
+
+
+def masked_gram_stack(kernel: Kernel, theta, x, mask, cache=None):
     """``[E, s, s]`` stack of masked per-expert grams from ``x [E, s, p]``
-    and ``mask [E, s]`` -- the gram build of the fit objective."""
-    return masked_kernel_matrix(kernel.gram(theta, x), mask)
+    and ``mask [E, s]`` -- the gram build of every fit objective.  With a
+    ``cache`` from :func:`prepare_gram_cache` the gram comes from
+    ``gram_from_cache`` and ``x`` is not read: only the elementwise theta
+    map is built (and differentiated) per evaluation."""
+    if cache is None:
+        return masked_kernel_matrix(kernel.gram(theta, x), mask)
+    return masked_kernel_matrix(kernel.gram_from_cache(theta, cache), mask)

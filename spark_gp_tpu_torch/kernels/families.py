@@ -9,7 +9,8 @@ package's ``kernels/families.py``.
   integer degree, ``theta = [c]``.
 
 Each map is one definition in ``ops/streamed_matvec.py``, shared by
-``gram``, ``cross`` and the matfree lane's streamed tiles.  The ARD
+``gram``, ``gram_from_cache`` (over the cached squared distances or inner
+products), ``cross`` and the matfree lane's streamed tiles.  The ARD
 rational quadratic, the periodic and the spectral-mixture kernels are not
 ported yet (ROADMAP.md queue 1, item 8).
 """
@@ -66,6 +67,13 @@ class RationalQuadraticKernel(StationaryKernel):
     def gram(self, theta, x):
         return rq_tile(theta, sq_dist_self(x))
 
+    def prepare(self, x):
+        # sigma and alpha both act through the elementwise map
+        return sq_dist_self(x)
+
+    def gram_from_cache(self, theta, cache):
+        return rq_tile(theta, cache)
+
     def cross(self, theta, x_test, x_train):
         return rq_tile(theta, sq_dist(x_test, x_train))
 
@@ -98,6 +106,11 @@ class _OneHyper(Kernel):
     def self_diag(self, theta, x):
         return self.diag(theta, x)
 
+    def prepare(self, x):
+        # the inner products are the theta-invariant cache; the
+        # hyperparameter acts elementwise on them
+        return x @ x.mT
+
     def prepare_matvec(self, x):
         return x
 
@@ -112,6 +125,9 @@ class DotProductKernel(_OneHyper):
 
     def gram(self, theta, x):
         return dot_tile(theta, x @ x.mT)
+
+    def gram_from_cache(self, theta, cache):
+        return dot_tile(theta, cache)
 
     def cross(self, theta, x_test, x_train):
         return dot_tile(theta, x_test @ x_train.mT)
@@ -138,6 +154,9 @@ class PolynomialKernel(_OneHyper):
 
     def gram(self, theta, x):
         return poly_tile(theta, x @ x.mT, self.degree)
+
+    def gram_from_cache(self, theta, cache):
+        return poly_tile(theta, cache, self.degree)
 
     def cross(self, theta, x_test, x_train):
         return poly_tile(theta, x_test @ x_train.mT, self.degree)

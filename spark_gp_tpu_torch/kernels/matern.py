@@ -10,7 +10,8 @@ With r = |x_i - x_j| and length-scale ``sigma`` (the RBF's convention):
 ``r`` is ``sqrt(max(r^2, 1e-24))``: the floor keeps the derivative finite
 on the pinned zero diagonal and moves k by under 1e-12 there.  The map is
 one definition (``ops/streamed_matvec.matern_tile``) shared by ``gram``,
-``cross`` and the matfree lane's streamed tiles.  The ARD variants are not
+``gram_from_cache`` (over the cached squared distances), ``cross`` and the
+matfree lane's streamed tiles.  The ARD variants are not
 ported yet (ROADMAP.md queue 1, item 8).
 """
 
@@ -28,6 +29,14 @@ class _MaternIso(ScalarLengthscaleHypers):
 
     def gram(self, theta, x):
         return matern_tile(self._nu2, theta, sq_dist_self(x))
+
+    def prepare(self, x):
+        # sigma acts only through the elementwise map: the squared
+        # distances are the theta-invariant cache
+        return sq_dist_self(x)
+
+    def gram_from_cache(self, theta, cache):
+        return matern_tile(self._nu2, theta, cache)
 
     def cross(self, theta, x_test, x_train):
         return matern_tile(self._nu2, theta, sq_dist(x_test, x_train))

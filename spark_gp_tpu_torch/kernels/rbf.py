@@ -1,8 +1,9 @@
 """RBF and ARD-RBF kernels: one matmul for the distances (``ops/distance.py``)
 followed by an elementwise ``exp``.  Hyperparameter derivatives come from
 autograd.  The RBF map is one definition (``ops/streamed_matvec.rbf_tile``)
-shared by ``gram``, ``cross`` and the matfree lane's streamed tiles; the
-ARD metric has no streaming form."""
+shared by ``gram``, ``gram_from_cache``, ``cross`` and the matfree lane's
+streamed tiles.  The ARD metric weighs the distances by theta, so it has
+neither a gram cache (``prepare`` stays None) nor a streaming form."""
 
 from __future__ import annotations
 
@@ -24,6 +25,13 @@ class RBFKernel(ScalarLengthscaleHypers):
 
     def gram(self, theta, x):
         return rbf_tile(theta, sq_dist_self(x))
+
+    def prepare(self, x):
+        # the theta-invariant squared-distance block, pinned diagonal
+        return sq_dist_self(x)
+
+    def gram_from_cache(self, theta, cache):
+        return rbf_tile(theta, cache)
 
     def cross(self, theta, x_test, x_train):
         return rbf_tile(theta, sq_dist(x_test, x_train))

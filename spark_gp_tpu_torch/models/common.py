@@ -19,6 +19,7 @@ from spark_gp_tpu_torch.kernels.base import (
     EyeKernel,
     Kernel,
     masked_gram_stack,
+    prepare_gram_cache,
     supports_matfree,
 )
 from spark_gp_tpu_torch.models import ppa
@@ -209,6 +210,18 @@ class GaussianProcessCommons(GaussianProcessParams):
             x, y, self._dataset_size_for_expert,
             dtype=working_dtype(device), device=device,
         )
+
+    def _gram_cache(self, kernel: Kernel, data: ExpertData):
+        """The fit's theta-invariant gram cache (``kernels/base.py``), built
+        once on the stack's device in its dtype and handed to every
+        objective evaluation; ``None`` when the kernel has no invariant
+        (ARD, or a composite with such a child), when ``GP_GRAM_CACHE=0``,
+        or when the fit runs the matfree lane with a kernel that streams:
+        the cache is the ``[E, s, s]`` block that lane never builds.  The
+        fits record the outcome as ``gram_cache_engaged``."""
+        if supports_matfree(kernel) and it_ops.resolve_solver(data.expert_size) == "matfree":
+            return None
+        return prepare_gram_cache(kernel, data.x)
 
     def _optimize_hypers_body(
         self, kernel: Kernel, value_and_grad: Callable

@@ -3,7 +3,8 @@ approximation -- the counterpart of the reference's
 GaussianProcessClassifier.
 
 ``fit`` (GPClf.scala:48-66) checks that the labels are 0 or 1, groups the
-points into experts with a zero latent vector each, runs host L-BFGS-B on
+points into experts with a zero latent vector each, builds the gram
+cache once (``kernels/base.py``), runs host L-BFGS-B on
 the summed Laplace ``-log Z`` (``models/laplace.py``; the latent modes
 warm-start every evaluation), settles the modes with one last evaluation
 at theta*, and builds the Projected Process model with the latent modes
@@ -67,8 +68,9 @@ class GaussianProcessClassifier(GaussianProcessCommons):
         clock = [time.perf_counter()]
         data = self._group(x, y, device)
         kernel = self._get_kernel()
+        cache = self._gram_cache(kernel, data)
         clock.append(time.perf_counter())
-        objective = laplace.make_laplace_objective(kernel, data, self._tol)
+        objective = laplace.make_laplace_objective(kernel, data, self._tol, cache)
         res, f_final = self._optimize_latent_host(
             kernel, objective, torch.zeros_like(data.y)
         )
@@ -91,6 +93,7 @@ class GaussianProcessClassifier(GaussianProcessCommons):
             "final_nll": res.fun,
             "newton_iterations": laplace.laplace_mode_batch.iterations - iterations,
             "objective_calls": laplace.batched_neg_logz.calls - calls,
+            "gram_cache_engaged": float(cache is not None),
             "group_seconds": clock[1] - clock[0],
             "optimize_seconds": clock[2] - clock[1],
             "ppa_seconds": clock[3] - clock[2],

@@ -1,0 +1,187 @@
+"""Native multiclass GP classification (softmax Laplace), the port of the
+JAX package's ``models/gpc_mc.py`` (host-optimizer fit).
+
+One model with C coupled latent functions under the softmax link
+(``models/laplace_mc.py``), in place of C independent one-vs-rest binary
+fits: the probabilities sum to one by construction, and the per-class
+factorizations of a Newton step batch into one ``[E * C, s, s]`` pass.
+
+``fit`` checks that the labels are integers ``0 .. C-1`` (C from the
+largest label, at least 2), groups the points into experts with a
+one-hot target stack ``[E, s, C]`` (padded rows all zero), builds the
+gram cache once (``kernels/base.py``), runs host L-BFGS-B on the summed
+``-log Z`` with the latent ``[E, s, C]`` stack warm-starting every
+evaluation, settles the latents with one last evaluation at theta*, and
+builds the Projected Process model over the per-class latents: one
+active set, one U1 and one magic matrix shared by the classes, a magic
+vector ``[m, C]``.  The active-set provider sees each point's strongest
+class latent as its target.
+
+Not ported here: the on-device, sharded, checkpointed and multi-start
+fits (ROADMAP.md queue 1, items 4, 6, 7 and 5).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spark_gp_tpu_torch.models import laplace_mc
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
+from spark_gp_tpu_torch.ops import iterative as it_ops
+from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
+from spark_gp_tpu_torch.utils.device import resolve_device
+
+
+def _one_hot_masked(y, mask, n_classes: int):
+    """One-hot targets ``[E, s, C]`` of the label stack; padded rows all
+    zero."""
+    one_hot = torch.nn.functional.one_hot(y.to(torch.int64), n_classes)
+    return one_hot.to(mask.dtype) * mask[..., None]
+
+
+def _validated_labels(x, y):
+    """``(x float64, integer labels, C)``, or ``ValueError`` for shapes,
+    non-finite values or labels that are not integers ``0 .. C-1`` with
+    ``C >= 2``."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y)
+    if x.ndim != 2:
+        raise ValueError(f"x must be [N, p], got shape {x.shape}")
+    if y.shape != (x.shape[0],):
+        raise ValueError(f"y must be [N], got shape {y.shape}")
+    y64 = np.asarray(y, dtype=np.float64)
+    if not (np.all(np.isfinite(x)) and np.all(np.isfinite(y64))):
+        raise ValueError(
+            "x and y must be finite (quarantine of non-finite rows is "
+            "not ported yet: ROADMAP.md queue 1, item 2)"
+        )
+    y_int = y64.astype(np.int64)
+    if not np.all(y_int == y64) or y_int.min() < 0:
+        raise ValueError("labels must be integers 0 .. C-1")
+    n_classes = int(y_int.max()) + 1
+    if n_classes < 2:
+        raise ValueError("need at least 2 classes")
+    return x, y_int, n_classes
+
+
+class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
+    """C-class GP classifier (softmax Laplace) with the reference's fluent
+    API; labels are integers ``0 .. C-1``:
+
+    >>> gp = (GaussianProcessMulticlassClassifier(device="cpu")
+    ...       .setDatasetSizeForExpert(20)
+    ...       .setActiveSetSize(30))
+    >>> model = gp.fit(x, y)
+    >>> proba = model.predict_proba(x_test)     # [t, C]
+    """
+
+    def fit(self, x, y) -> "GaussianProcessMulticlassModel":
+        x, y_int, n_classes = _validated_labels(x, y)
+        device = resolve_device(self._device)
+        iterations = laplace_mc.laplace_mc_mode.iterations
+        calls = laplace_mc.batched_neg_logz_mc.calls
+        # host wall-clock per phase; each phase ends in a device-to-host copy
+        clock = [time.perf_counter()]
+        data = self._group(x, y_int.astype(np.float64), device)
+        y1h = _one_hot_masked(data.y, data.mask, n_classes)
+        kernel = self._get_kernel()
+        cache = self._gram_cache(kernel, data)
+        clock.append(time.perf_counter())
+        objective = laplace_mc.make_mc_objective(
+            kernel, data.x, y1h, data.mask, self._tol, cache
+        )
+        res, f_final = self._optimize_latent_host(kernel, objective, torch.zeros_like(y1h))
+        clock.append(time.perf_counter())
+        # the per-class latent modes are the PPA targets; the provider
+        # sees each point's strongest class latent
+        latents = f_final * data.mask[..., None]
+        margin = torch.max(latents, dim=-1).values.cpu().numpy()
+        raw = self._projected_process(
+            kernel, res.theta, x, ungroup(margin, x.shape[0]),
+            ExpertData(x=data.x, y=latents, mask=data.mask),
+        )
+        clock.append(time.perf_counter())
+        model = GaussianProcessMulticlassModel(raw)
+        model.metrics = {
+            "num_experts": data.num_experts,
+            "expert_size": data.expert_size,
+            "num_classes": n_classes,
+            "solver_lane": it_ops.resolve_solver(data.expert_size),
+            "lbfgs_iters": res.nit,
+            "lbfgs_nfev": res.nfev,
+            "final_nll": res.fun,
+            "newton_iterations": laplace_mc.laplace_mc_mode.iterations - iterations,
+            "objective_calls": laplace_mc.batched_neg_logz_mc.calls - calls,
+            "gram_cache_engaged": float(cache is not None),
+            "group_seconds": clock[1] - clock[0],
+            "optimize_seconds": clock[2] - clock[1],
+            "ppa_seconds": clock[3] - clock[2],
+        }
+        return model
+
+    def fit_distributed(self, data, n_classes=None, active_set=None):
+        raise _not_ported("the multi-host multiclass fit", 6)
+
+
+class GaussianProcessMulticlassModel:
+    """Softmax link over the C per-class PPA latent means.  The predictor's
+    ``magic_vector`` is ``[m, C]``; the variance operator is shared, so
+    every class latent has the same variance at a point."""
+
+    def __init__(self, raw_predictor: ProjectedProcessRawPredictor):
+        self.raw_predictor = raw_predictor
+        self.metrics: Optional[dict] = None
+
+    @property
+    def num_classes(self) -> int:
+        return int(np.asarray(self.raw_predictor.magic_vector).shape[1])
+
+    def predict_raw(self, x_test) -> np.ndarray:
+        """``[t, C]`` latent class scores (the softmax logits)."""
+        return self.raw_predictor.predict_mean(x_test).cpu().numpy()
+
+    def predict_proba(self, x_test, averaged: bool = False, mc_samples: int = 256,
+                      seed: int = 0) -> np.ndarray:
+        """``[t, C]`` class probabilities: the softmax of the latent means
+        (``averaged=False``), or its Monte-Carlo expectation under the
+        latent Gaussian (``averaged=True``: ``mc_samples`` draws of
+        ``numpy.random.default_rng(seed)``, the JAX package's, in chunks
+        of the same size, so both packages see the same draws)."""
+        if not averaged:
+            f = torch.as_tensor(self.predict_raw(x_test), dtype=torch.float64)
+            return torch.softmax(f, dim=-1).numpy()
+        f, var = self.raw_predictor(x_test)
+        if var is None:
+            raise ValueError(
+                "model was fitted with setPredictiveVariance(False); "
+                "averaged probabilities need the latent variance -- use "
+                "averaged=False or refit with variances enabled"
+            )
+        f = f.cpu().numpy().astype(np.float64)
+        sd = np.sqrt(np.maximum(var.cpu().numpy().astype(np.float64), 0.0))[:, None]
+        rng = np.random.default_rng(seed)
+        chunk = max(1, ProjectedProcessRawPredictor._PREDICT_CHUNK_ELEMS
+                    // max(1, mc_samples * f.shape[1]))
+        out = np.empty_like(f)
+        for start in range(0, f.shape[0], chunk):
+            fb, sb = f[start:start + chunk], sd[start:start + chunk]
+            eps = rng.standard_normal((mc_samples,) + fb.shape)
+            probs = torch.softmax(torch.as_tensor(fb[None] + sb[None] * eps), dim=-1)
+            out[start:start + chunk] = torch.mean(probs, dim=0).numpy()
+        return out
+
+    def predict(self, x_test) -> np.ndarray:
+        """Class labels ``0 .. C-1`` (the largest latent)."""
+        return np.argmax(self.predict_raw(x_test), axis=-1).astype(np.float64)
+
+    def save(self, path: str) -> None:
+        raise _not_ported("saving a model", 7)
+
+    @staticmethod
+    def load(path: str) -> "GaussianProcessMulticlassModel":
+        raise _not_ported("loading a model", 7)

@@ -1,6 +1,8 @@
 """Gaussian Process Regression -- BCM fit + PPA prediction.
 
-``fit`` groups the points into experts, optimizes the noise-augmented
+``fit`` groups the points into experts, builds the kernel's
+theta-invariant gram cache once (``kernels/base.py``; kernels without
+one, and the matfree lane, go without), optimizes the noise-augmented
 kernel's hyperparameters against the summed per-expert NLL on the solver
 lane in effect (``setSolverLane``; autograd gradients, host L-BFGS-B
 within the kernel's box bounds), then builds the m-point Projected
@@ -65,8 +67,9 @@ class GaussianProcessRegression(GaussianProcessCommons):
         clock = [time.perf_counter()]
         data = self._group(x, y, device)
         kernel = self._get_kernel()
+        cache = self._gram_cache(kernel, data)
         clock.append(time.perf_counter())
-        res = self._optimize_hypers_body(kernel, make_value_and_grad(kernel, data))
+        res = self._optimize_hypers_body(kernel, make_value_and_grad(kernel, data, cache))
         clock.append(time.perf_counter())
         raw = self._projected_process(kernel, res.theta, x, y, data)
         clock.append(time.perf_counter())
@@ -77,6 +80,7 @@ class GaussianProcessRegression(GaussianProcessCommons):
             "lbfgs_iters": res.nit,
             "lbfgs_nfev": res.nfev,
             "final_nll": res.fun,
+            "gram_cache_engaged": float(cache is not None),
             "group_seconds": clock[1] - clock[0],
             "optimize_seconds": clock[2] - clock[1],
             "ppa_seconds": clock[3] - clock[2],

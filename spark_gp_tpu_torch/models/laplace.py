@@ -162,14 +162,16 @@ def laplace_mode_batch(kmat, y, mask, f0, tol):
 laplace_mode_batch.iterations = 0
 
 
-def batched_neg_logz(kernel: Kernel, tol, theta, data: ExpertData, f0):
+def batched_neg_logz(kernel: Kernel, tol, theta, data: ExpertData, f0, cache=None):
     """``(-sum_e log Z_e, its gradient in theta, f_modes [E, s])`` over the
     expert stack (module doc); ``theta`` is a tensor on the stack's
-    device."""
+    device.  With the fit's gram ``cache`` (``kernels/base.py``) the
+    surrogate's reverse pass differentiates only the theta map, not the
+    distances."""
     batched_neg_logz.calls += 1
     th = theta.detach().requires_grad_(True)
     with torch.enable_grad():
-        kmat_g = masked_gram_stack(kernel, th, data.x, data.mask)
+        kmat_g = masked_gram_stack(kernel, th, data.x, data.mask, cache)
     kmat = kmat_g.detach()
     y, mask = data.y, data.mask
     with torch.no_grad():
@@ -220,17 +222,18 @@ def expert_neg_logz_and_grad(kernel: Kernel, tol, theta, x, y, mask, f0):
     return neg_z, neg_grad, f[0]
 
 
-def make_laplace_objective(kernel: Kernel, data: ExpertData, tol):
+def make_laplace_objective(kernel: Kernel, data: ExpertData, tol, cache=None):
     """``(theta float64 numpy, f0 [E, s]) -> (float, float64 numpy grad,
     f_new [E, s])`` for the host optimizer: theta is cast to the stack's
     dtype and device, the value and gradient come back to the host in one
-    transfer, and the latent modes stay on the device."""
+    transfer, and the latent modes (and the gram ``cache``) stay on the
+    device."""
 
     def objective(theta, f0):
         t = torch.as_tensor(
             np.asarray(theta, dtype=np.float64), dtype=data.x.dtype, device=data.x.device
         )
-        value, grad, f_new = batched_neg_logz(kernel, tol, t, data, f0)
+        value, grad, f_new = batched_neg_logz(kernel, tol, t, data, f0, cache)
         host = torch.cat([value[None], grad]).to(torch.float64).cpu().numpy()
         return float(host[0]), host[1:], f_new
 

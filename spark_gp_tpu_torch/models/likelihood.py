@@ -102,9 +102,12 @@ def masked_matfree_operator(kernel: Kernel, theta, x, mask, jitter=None):
     return matvec, matvec_sg, diag_sg, col_fn_sg
 
 
-def batched_nll(kernel: Kernel, theta, data: ExpertData):
+def batched_nll(kernel: Kernel, theta, data: ExpertData, cache=None):
     """Sum of per-expert NLLs over the ``[E, s, ...]`` stack, on the lane
-    ``ops.iterative.resolve_solver`` picks for the expert size."""
+    ``ops.iterative.resolve_solver`` picks for the expert size.  ``cache``
+    is the fit's theta-invariant gram cache (``kernels/base.py``); the
+    exact and iterative branches build the gram from it, the matfree
+    branch never builds a gram and is never handed one."""
     resolved = it_ops.resolve_solver(data.expert_size)
     ym = data.y * data.mask
     if resolved == "matfree" and supports_matfree(kernel):
@@ -113,7 +116,7 @@ def batched_nll(kernel: Kernel, theta, data: ExpertData):
             *masked_matfree_operator(kernel, theta, data.x, data.mask), ym
         )
         return 0.5 * torch.sum(quad) + 0.5 * torch.sum(logdet)
-    kmat = masked_gram_stack(kernel, theta, data.x, data.mask)
+    kmat = masked_gram_stack(kernel, theta, data.x, data.mask, cache)
     if resolved in ("iterative", "matfree"):
         quad, logdet = it_ops.inv_quad_logdet(kmat, ym)
         return 0.5 * torch.sum(quad) + 0.5 * torch.sum(logdet)
@@ -122,17 +125,18 @@ def batched_nll(kernel: Kernel, theta, data: ExpertData):
     return nll_from_cholesky(kmat, ym)
 
 
-def make_value_and_grad(kernel: Kernel, data: ExpertData):
+def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None):
     """``theta (float64 numpy) -> (float, float64 numpy grad)``: theta is cast
     to the stack's dtype and device, and the value and gradient come back
-    to the host in one transfer."""
+    to the host in one transfer.  ``cache``: as for :func:`batched_nll`,
+    resident on the device across evaluations."""
 
     def vag(theta):
         t = torch.as_tensor(
             np.asarray(theta, dtype=np.float64), dtype=data.x.dtype,
             device=data.x.device,
         ).requires_grad_(True)
-        value = batched_nll(kernel, t, data)
+        value = batched_nll(kernel, t, data, cache)
         (grad,) = torch.autograd.grad(value, t)
         host = torch.cat([value.detach()[None], grad]).to(torch.float64).cpu().numpy()
         return float(host[0]), host[1:]

@@ -3,13 +3,15 @@ the predictor (R&W ch. 8.3.4).
 
 * Statistics -- against the m-point active set A, over all experts'
   points:  ``U1 = sum K_mn K_nm`` and ``u2 = sum K_mn y``, in float64 on
-  the device, in chunks that cap the ``[m, chunk]`` cross kernel.
+  the device, in chunks that cap the ``[m, chunk]`` cross kernel.  ``y``
+  is ``[E, s]`` (one target, ``u2 [m]``) or ``[E, s, C]`` (the multiclass
+  classifier's C latent stacks, which share U1: ``u2 [m, C]``).
 * Solve -- with ``sn2`` the total white-noise variance of the fitted
   noise-augmented kernel, ``PD = sn2 K_mm + U1``:
-  ``magicVector = PD^-1 u2`` and ``magicMatrix = sn2 PD^-1 - K_mm^-1``,
+  ``magicVector = PD^-1 u2`` (``[m]`` or ``[m, C]``) and ``magicMatrix = sn2 PD^-1 - K_mm^-1``,
   in host float64 numpy/scipy (Cholesky factors are the PD check, under
   the jitter ladder of ``ops/linalg.py``).
-* Predict -- ``mean = k(x, A) magicVector`` and
+* Predict -- ``mean = k(x, A) magicVector`` (``[t]`` or ``[t, C]``) and
   ``var = k(x, x) + k(x, A) magicMatrix k(x, A)^T``, in the working dtype,
   in chunks that cap the ``[t, m]`` cross kernel.
 """
@@ -34,18 +36,20 @@ _STATS_CHUNK_ELEMS = 64 * 1024 * 1024
 
 
 def _flat_stats(kernel: Kernel, theta, active, xf, yf, maskf):
-    """``(K_mn K_nm, K_mn y)`` over a flat ``[c, p]`` chunk of points."""
+    """``(K_mn K_nm, K_mn y)`` over a flat ``[c, p]`` chunk of points;
+    ``yf`` is ``[c]`` or ``[c, C]``."""
     kmn = kernel.cross(theta, active, xf) * maskf[None, :]  # [m, c]
-    return kmn @ kmn.T, kmn @ (yf * maskf)
+    return kmn @ kmn.T, kmn @ (yf * (maskf if yf.ndim == 1 else maskf[:, None]))
 
 
 @torch.no_grad()
 def kmn_stats(kernel: Kernel, theta, active, data: ExpertData):
-    """``(U1 [m, m], u2 [m])`` accumulated over every expert's points, in the
-    dtype and on the device of its inputs (the fit passes float64)."""
+    """``(U1 [m, m], u2 [m] or [m, C])`` accumulated over every expert's
+    points, in the dtype and on the device of its inputs (the fit passes
+    float64); ``data.y`` is ``[E, s]`` or ``[E, s, C]``."""
     e, s, p = data.x.shape
     xf = data.x.reshape(e * s, p)
-    yf = data.y.reshape(e * s)
+    yf = data.y.reshape((e * s,) + tuple(data.y.shape[2:]))
     maskf = data.mask.reshape(e * s)
     n_flat = e * s
     chunk = max(1, min(n_flat, _STATS_CHUNK_ELEMS // max(active.shape[0], 1)))
@@ -92,7 +96,8 @@ def magic_solve(kernel: Kernel, theta, active, u1, u2,
 class ProjectedProcessRawPredictor:
     """``(mean, variance)`` predictor against the m-point model.
 
-    Model: ``theta [h]``, ``active [m, p]``, ``magic_vector [m]``,
+    Model: ``theta [h]``, ``active [m, p]``, ``magic_vector [m]`` (or
+    ``[m, C]``: C latent means sharing the variance),
     ``magic_matrix [m, m]`` (``None`` for a mean-only model), and the
     additive statistics ``u1``/``u2`` behind the solve.  Predictions run on
     ``device`` (``None`` means ``cuda``) in its working dtype."""
@@ -110,7 +115,8 @@ class ProjectedProcessRawPredictor:
     _PREDICT_CHUNK_ELEMS = 32 * 1024 * 1024
 
     def predict_mean(self, x_test) -> torch.Tensor:
-        """Mean-only prediction ``[t]`` (skips the O(t m^2) variance)."""
+        """Mean-only prediction ``[t]`` or ``[t, C]`` (skips the O(t m^2)
+        variance)."""
         return self._run(x_test, mean_only=True)[0]
 
     def __call__(self, x_test):
@@ -146,7 +152,7 @@ class ProjectedProcessRawPredictor:
                     self.kernel.self_diag(theta, part)
                     + torch.einsum("tm,mk,tk->t", cross, mm, cross)
                 )
-        mean = torch.cat(means) if means else x_test.new_zeros((0,))
+        mean = torch.cat(means) if means else x_test.new_zeros((0,) + mv.shape[1:])
         if mm is None:
             return mean, None
         return mean, torch.cat(vars_) if vars_ else x_test.new_zeros((0,))

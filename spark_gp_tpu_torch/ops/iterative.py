@@ -31,9 +31,10 @@ matfree lane streams every product through ``ops/streamed_matvec.py`` and
 never builds the gram -- and :func:`inv_quad_logdet` runs the same
 engine on a materialized stack (``torch`` matmuls).  :func:`spd_solve`
 and :func:`spd_logdet` solve and take the log-det of the binary Laplace
-classifier's ``B`` systems on the same preconditioner and engine; the
-multiclass classifier's factored operators wait for that estimator
-(ROADMAP.md queue 1, item 8).
+classifier's ``B`` systems on the same preconditioner and engine;
+:func:`factored_solve` and :func:`factored_logdet` those of the
+multiclass classifier, ``I + S^T K_blk S``, applied through per-class
+products and never materialized.
 
 Lane selection: ``GP_SOLVER_LANE`` in {``exact``, ``iterative``,
 ``matfree``, ``auto``}, :func:`set_solver_lane` (process-wide),
@@ -521,6 +522,121 @@ def spd_logdet(amat, config: Optional[SolverConfig] = None, precond=None):
             res.alphas, res.betas, weights
         )
     surr = torch.sum(vtil * (amat @ res.x), dim=(-2, -1)) / cfg.probes
+    return (val - surr).detach() + surr
+
+
+# --------------------------------------------------------------------------
+# factored operators: B' = I + S^T K_blk S (the multiclass Laplace system)
+# --------------------------------------------------------------------------
+
+
+def _factored_matvec(kmat, smat, v):
+    """``(I + S^T K_blk S) v`` on ``[E, s, C]`` latent vectors, with
+    ``S [E, s, C, C]`` the per-row factor of the softmax Hessian
+    (``W = S S^T``) and ``K_blk = I_C (x) K`` applied class by class:
+    the ``[sC, sC]`` block operator is never built."""
+    sv = torch.einsum("escd,esd->esc", smat, v)
+    ksv = torch.einsum("est,etc->esc", kmat, sv)
+    return v + torch.einsum("esdc,esd->esc", smat, ksv)
+
+
+def _factored_matvec_probes(kmat, smat, v):
+    """:func:`_factored_matvec` on a probe-batched ``v [E, n, s, C]``: the
+    probe axis rides the products, so the gram stack is read once an
+    application."""
+    sv = torch.einsum("escd,ensd->ensc", smat, v)
+    ksv = torch.einsum("est,entc->ensc", kmat, sv)
+    return v + torch.einsum("esdc,ensd->ensc", smat, ksv)
+
+
+class _FactoredSolve(torch.autograd.Function):
+    """``x = B'^-1 b`` by CG; the backward solves the symmetric system
+    again (``b_bar = B'^-1 x_bar``) and takes ``kmat`` and ``smat``'s
+    cotangents from the VJP of the matvec at ``x`` against ``-b_bar``:
+    the exact implicit gradient at convergence (the JAX package's
+    symmetric ``custom_linear_solve``)."""
+
+    @staticmethod
+    def forward(ctx, kmat, smat, b, solve):
+        km, sm = kmat.detach(), smat.detach()
+        x = solve(km, sm, b.detach())
+        ctx.solve = solve
+        ctx.save_for_backward(km, sm, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g_x):
+        km, sm, x = ctx.saved_tensors
+        g_b = ctx.solve(km, sm, g_x)
+        need_k, need_s = ctx.needs_input_grad[:2]
+        g_k = g_s = None
+        if need_k or need_s:
+            with torch.enable_grad():
+                k = km.detach().requires_grad_(need_k)
+                s_ = sm.detach().requires_grad_(need_s)
+                # <B' x, -b_bar>: a scalar, so no cotangent is handed in
+                inner = -torch.sum(_factored_matvec(k, s_, x) * g_b)
+                wrt = [t for t, need in ((k, need_k), (s_, need_s)) if need]
+                grads = iter(torch.autograd.grad(inner, wrt))
+            g_k = next(grads) if need_k else None
+            g_s = next(grads) if need_s else None
+        return g_k, g_s, g_b, None
+
+
+def factored_solve(kmat, smat, b, config: Optional[SolverConfig] = None):
+    """``(I + S^T K_blk S)^-1 b`` for ``b [E, s, C]`` by unpreconditioned
+    CG on the factored operator; differentiable in ``kmat``, ``smat`` and
+    ``b`` (:class:`_FactoredSolve`)."""
+    e, s, c = b.shape
+    cfg = config or solver_config(s)
+
+    def solve(km, sm, rhs):
+        def mv(vflat):
+            v = vflat[..., 0].reshape(e, s, c)
+            return _factored_matvec(km, sm, v).reshape(e, s * c)[..., None]
+
+        x = _cg_only(mv, rhs.reshape(e, s * c)[..., None], cfg.iters, cfg.tol)
+        return x[..., 0].reshape(e, s, c)
+
+    return _FactoredSolve.apply(kmat, smat, b, solve)
+
+
+def draw_rademacher(cfg: SolverConfig, shape, dtype, device):
+    """Rademacher (+-1) probes of ``shape`` from a generator on ``device``
+    seeded with ``cfg.seed`` at every call, as :func:`draw_probes` draws
+    its Gaussians.  (The tests inject the JAX package's draws here.)"""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(cfg.seed))
+    bits = torch.randint(0, 2, tuple(shape), generator=gen, device=device)
+    return (2 * bits - 1).to(dtype)
+
+
+def factored_logdet(kmat, smat, config: Optional[SolverConfig] = None):
+    """``logdet(I + S^T K_blk S) [E]``, which by Sylvester equals
+    ``logdet(I + K_blk W)``: SLQ on Rademacher probes (drawn from
+    ``seed + 2``, the JAX package's draw for this function) through the
+    factored operator, with the Hutchinson surrogate through the
+    differentiable matvec carrying the gradient to ``kmat`` and
+    ``smat``."""
+    e, s = kmat.shape[0], kmat.shape[-1]
+    c = smat.shape[-1]
+    cfg = config or solver_config(s)
+    km, sm = kmat.detach(), smat.detach()
+    z = draw_rademacher(cfg._replace(seed=cfg.seed + 2), (e, s * c, cfg.probes),
+                        km.dtype, km.device)
+
+    def to_probes(vs):  # [E, sC, n] -> [E, n, s, C]
+        return vs.movedim(-1, 1).reshape(e, cfg.probes, s, c)
+
+    with torch.no_grad():
+        res = batched_pcg(
+            lambda vs: _factored_matvec_probes(km, sm, to_probes(vs))
+            .reshape(e, cfg.probes, s * c).movedim(1, -1),
+            z, None, cfg.iters, cfg.tol,
+        )
+        val = slq_logdet_from_coeffs(res.alphas, res.betas, torch.sum(z * z, dim=-2))
+    bu = _factored_matvec_probes(kmat, smat, to_probes(res.x)).reshape(e, cfg.probes, s * c)
+    surr = torch.einsum("enm,enm->e", z.movedim(-1, 1), bu) / cfg.probes
     return (val - surr).detach() + surr
 
 

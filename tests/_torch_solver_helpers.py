@@ -42,6 +42,14 @@ def jax_probes(cfg, batch, rank, s, dtype, device):
     )
 
 
+def jax_rademacher(cfg, shape, dtype, device):
+    """The JAX package's Rademacher draw (``factored_logdet``), in the
+    port's ``draw_rademacher`` form."""
+    k1, _ = j_it._probe_keys(cfg.seed)
+    z = jax.random.rademacher(k1, tuple(shape), dtype=jnp.float64)
+    return torch.as_tensor(np.array(z), dtype=dtype, device=device)
+
+
 @pytest.fixture
 def solver_env(monkeypatch):
     """Default lanes in both packages, no inherited knobs, the two pinned
@@ -51,6 +59,7 @@ def solver_env(monkeypatch):
     monkeypatch.setenv("GP_SOLVER_PRECOND_RANK", "16")
     monkeypatch.setenv("GP_SOLVER_CG_TOL", "1e-12")
     monkeypatch.setattr(t_it, "draw_probes", jax_probes)
+    monkeypatch.setattr(t_it, "draw_rademacher", jax_rademacher)
     j_it.set_solver_lane(None)
     t_it.set_solver_lane(None)
     yield
