@@ -18,7 +18,9 @@ code is non-zero and the final ``ok`` line is never printed:
                hands it (the first airfoil fold's at expert 100 and 450,
                the protein split's at expert 100 and 400), NaN isolation
                of a non-PD matrix and the backward, each at n = 100 and
-               on the workspace path.  K2 and
+               on the workspace path; the Synthetics and timeseries
+               stacks (18, 100), (20, 100), (2, 120) and the LOO
+               objective's cotangent through K1's VJP at (18, 100).  K2 and
                K2-VJP: all seven tile transforms on the protein-matfree
                row stack (9, 4065, 9) at the path's widths n = 1, 8, 9,
                on a ragged (3, 1000, 5) stack at n = 1, 4, on (2, 777, 21)
@@ -98,7 +100,29 @@ code is non-zero and the final ``ok`` line is never printed:
                protein-matfree (ARD, or the matfree lane); one gpc-mnist
                evaluation at the fitted theta with the cache and with
                GP_GRAM_CACHE=0, in turns, under torch.profiler.
-21. kernels -- one line with every kernel's numbers.
+21. synthetics -- examples/synthetics.py verbatim (Synthetics.scala:
+               k-means active set, 2000 x 1), 10-fold CV at seed 13
+               (E = 18, s = 100): RMSE < 0.11, K1 launches = evaluations,
+               the gram cache engaged.
+22. synthetics-objectives -- quality.py's objectives part: the same config
+               fitted with the marginal, LOO and ELBO objectives on the
+               1500 / 500 split: each RMSE < 0.11, NLPD, K1 launches =
+               evaluations (marginal, LOO) and 0 (ELBO), the gram cache
+               engaged except for the ELBO.
+23. synthetics-loo -- a fit on all 2000 rows, then gp.loo: LOO RMSE < 0.11
+               and within (0.5, 2) of the CV RMSE, one K1 launch at (20, 100).
+24. objective-parity -- the LOO and ELBO objectives and gradients on the
+               card (float32) against the CPU (float64) at init theta and
+               theta*; one evaluation of each under torch.profiler.
+25. timeseries-sm -- examples/timeseries.py make_gp("sm", 8) verbatim
+               (E = 2, s = 120, eight host restarts): extrapolation RMSE
+               < 0.1, every restart's NLL, K1 launches = the restarts'
+               evaluations; the RBF contrast with no bar.
+26. kernel-families -- the ARD Matern, ARD-RQ, periodic and spectral
+               mixture kernels and two products: gram, cross, NLL and
+               gradient on the card against the CPU at (4, 100, 5).
+27. regression-phases -- the seconds of phases 21-26.
+28. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -169,6 +193,31 @@ GPC_BARS = {"gpc_mnist": 0.84, "iris_ovr": 0.9, "iris_native": 0.9}
 # how far the port's iris-native accuracy may sit from the JAX package's on
 # the same folds: exact lane, iterative lane (SLQ probes, float32)
 IRIS_NATIVE_SPREAD = {"exact": 0.02, "iterative": 0.04}
+
+
+# the JAX package's numbers on the Synthetics and timeseries configs, on
+# the CPU (QUALITY_r05.json: the loo, objectives and spectral_mixture
+# parts), for comparison
+JAX_CPU_REGRESSION = {
+    "synthetics_cv_rmse": 0.09964753137871492,
+    "loo_rmse": 0.1011248379945755, "loo_cv_ratio": 1.0148253207622977,
+    "objectives": {"marginal": {"rmse": 0.09616492138033646, "nlpd": -0.9188056824936754,
+                                "final_objective": -2570.724609375},
+                   "loo": {"rmse": 0.09619868319016818, "nlpd": -0.9187437335545845,
+                           "final_objective": -1292.34423828125},
+                   "elbo": {"rmse": 0.09627648916225783, "nlpd": -0.9189714244803228,
+                            "final_objective": -532.0234375}},
+    "sm_extrapolation_rmse": 0.0091528613318421, "rbf_extrapolation_rmse": 0.8069934819636092,
+}
+# the reference's Synthetics bar (Synthetics.scala) and the timeseries
+# example's extrapolation bar (examples/timeseries.py)
+SYNTHETICS_BAR, TIMESERIES_BAR = 0.11, 0.1
+# card (float32) against the CPU (float64) on an objective: PERF.md's
+# regression bars (value; gradient over its largest component at init
+# theta), and for the ELBO the classifiers' (its trace term tr K_nn /
+# (2 sigma2) - tr Q_nn / (2 sigma2) cancels two sums ~150 times the
+# bound, so float32 keeps ~1e-5 of it)
+OBJECTIVE_BARS = {"loo": (1e-5, 1e-4), "elbo": (1e-4, 1e-3)}
 
 
 def emit(obj) -> None:
@@ -340,29 +389,32 @@ def airfoil_gp(expert: int):
     )
 
 
-def airfoil_cv(gp, x, y, folds) -> dict:
+def regression_cv(gp, x, y, folds) -> dict:
     """A fit and predict per fold: the mean test RMSE, the evaluations and
-    phase seconds summed over folds, each fold's (E, s), the first fold's
-    model and the seconds of the whole."""
+    phase seconds summed over folds, each fold's (E, s) and
+    ``gram_cache_engaged``, the first fold's model and the seconds of the
+    whole."""
     from spark_gp_tpu_torch.utils.validation import rmse
 
     start = time.perf_counter()
-    scores, nfev, shapes, first = [], 0, set(), None
+    scores, nfev, shapes, engaged, first = [], 0, set(), set(), None
     phases = dict.fromkeys(PHASES, 0.0)
     for train, test in folds:
         model = copy.copy(gp).fit(x[train], y[train])
         pred = model.predict(x[test])
         if not np.all(np.isfinite(pred)) or pred.shape != test.shape:
-            raise AssertionError("airfoil predictions not finite")
+            raise AssertionError("CV predictions not finite")
         scores.append(rmse(y[test], pred))
         nfev += model.metrics["lbfgs_nfev"]
         shapes.add((model.metrics["num_experts"], model.metrics["expert_size"]))
+        engaged.add(model.metrics["gram_cache_engaged"])
         for key in PHASES:
             phases[key] += model.metrics[key]
         if first is None:
             first = model
     return {"rmse": float(np.mean(scores)), "seconds": time.perf_counter() - start,
-            "nfev": nfev, **phases, "experts": sorted(shapes), "first_model": first}
+            "nfev": nfev, **phases, "experts": sorted(shapes),
+            "gram_cache_engaged": sorted(engaged), "first_model": first}
 
 
 def protein_kernel():
@@ -1148,6 +1200,391 @@ def gram_cache_phase(torch, lap, cdata: dict, theta_gpc_mnist, engaged: dict) ->
           "gpc_mnist_eval": evals, "gpc_mnist_eval_turns": turns})
 
 
+def synthetics_gp(objective: str = "marginal", device=None):
+    """examples/synthetics.py ``make_gp`` (Synthetics.scala), copied:
+    ``1.0 * RBF(0.1, 1e-6, 10) + WhiteNoise(0.5, 0, 1)`` with sigma2 1e-3,
+    or for the ELBO the kernel without the noise term and sigma2 1e-2;
+    the k-means provider, expert 100, active 100, seed 13."""
+    from spark_gp_tpu_torch import (
+        GaussianProcessRegression,
+        KMeansActiveSetProvider,
+        RBFKernel,
+        WhiteNoiseKernel,
+    )
+
+    if objective == "elbo":
+        def kernel_factory():
+            return 1.0 * RBFKernel(0.1, 1e-6, 10)
+        sigma2 = 1e-2
+    else:
+        def kernel_factory():
+            return 1.0 * RBFKernel(0.1, 1e-6, 10) + WhiteNoiseKernel(0.5, 0, 1)
+        sigma2 = 1e-3
+    return (
+        GaussianProcessRegression(device=device)
+        .setKernel(kernel_factory)
+        .setDatasetSizeForExpert(100)
+        .setActiveSetProvider(KMeansActiveSetProvider())
+        .setActiveSetSize(100)
+        .setSeed(13)
+        .setSigma2(sigma2)
+        .setObjective(objective)
+    )
+
+
+def timeseries_signal(x):
+    """examples/timeseries.py ``signal``, copied: two frequencies."""
+    return np.cos(2 * np.pi * 1.0 * x[:, 0]) + 0.5 * np.cos(2 * np.pi * 2.6 * x[:, 0])
+
+
+def timeseries_data():
+    """examples/timeseries.py ``make_data``, copied: three periods in
+    (240 points), one out (60)."""
+    rng = np.random.default_rng(0)
+    xs = np.linspace(0, 3, 240)[:, None]
+    xe = np.linspace(3, 4, 60)[:, None]
+    return xs, timeseries_signal(xs) + 0.03 * rng.normal(size=240), xe, timeseries_signal(xe)
+
+
+def timeseries_gp(kind: str = "sm", restarts: int = 8, device=None):
+    """examples/timeseries.py ``make_gp``, copied: the spectral mixture
+    (or the RBF contrast), expert 120, active 100, sigma2 1e-3, seed 3,
+    maxiter 150, ``restarts`` host restarts."""
+    from spark_gp_tpu_torch import (
+        GaussianProcessRegression,
+        RBFKernel,
+        SpectralMixtureKernel,
+        WhiteNoiseKernel,
+    )
+
+    if kind == "rbf":
+        def kernel_factory():
+            return 1.0 * RBFKernel(1.0, 1e-3, 100) + WhiteNoiseKernel(0.05, 0, 1)
+    else:
+        def kernel_factory():
+            return (1.0 * SpectralMixtureKernel(1, 3, means=np.array([[0.8], [2.0], [3.0]]))
+                    + WhiteNoiseKernel(0.05, 0, 1))
+    return (
+        GaussianProcessRegression(device=device)
+        .setKernel(kernel_factory)
+        .setDatasetSizeForExpert(120)
+        .setActiveSetSize(100)
+        .setSigma2(1e-3)
+        .setSeed(3)
+        .setMaxIter(150)
+        .setNumRestarts(restarts)
+    )
+
+
+def regression_data() -> dict:
+    """The Synthetics data (2000 x 1) with its 10 CV folds at seed 13 and
+    quality.py's objectives split (``default_rng(5)``, 1500 / 500); the
+    timeseries data."""
+    from spark_gp_tpu_torch.data import make_synthetics
+    from spark_gp_tpu_torch.utils.validation import kfold_indices
+
+    x, y = make_synthetics()
+    perm = np.random.default_rng(5).permutation(len(y))
+    return {"x": x, "y": y, "folds": list(kfold_indices(x.shape[0], 10, seed=13)),
+            "tr": perm[:1500], "te": perm[1500:], "ts": timeseries_data()}
+
+
+def regression_stacks(torch, d: dict) -> dict:
+    """The gram stacks the new regression configs hand K1 at init theta:
+    the first Synthetics fold's (18, 100), all 2000 rows' (20, 100, the
+    ``gp.loo`` stack) and the timeseries spectral mixture's (2, 120)."""
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
+
+    xs, ys = d["ts"][:2]
+    train = d["folds"][0][0]
+    stacks = {}
+    for label, gp, x, y, shape in [
+        ("synthetics_fold", synthetics_gp(), d["x"][train], d["y"][train], (18, 100)),
+        ("synthetics_all", synthetics_gp(), d["x"], d["y"], (20, 100)),
+        ("timeseries", timeseries_gp(), xs, ys, (2, 120)),
+    ]:
+        kernel = gp._get_kernel()
+        data = gp._group(x, y, torch.device("cuda"))
+        theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device="cuda")
+        stacks[label] = masked_gram_stack(kernel, theta, data.x, data.mask)
+        if tuple(stacks[label].shape) != (shape[0], shape[1], shape[1]):
+            raise AssertionError(f"{label} stack {tuple(stacks[label].shape)}, expected {shape}")
+    return stacks
+
+
+def check_loo_cotangent(torch, spd, d: dict) -> dict:
+    """The LOO objective's cotangent through K1's VJP: the gradient in K of
+    ``-sum(log p(y_i | y_-i))`` on the first Synthetics fold's (18, 100)
+    stack at init theta, through K1 (float32) against the same through
+    ``spd_inv_logdet_plain`` in float64 on the input upcast; the first
+    cotangent with a diagonal term and a y-dependent rank-one part.  That
+    cotangent is not symmetric, so K1's VJP (``-K^-1 G K^-1``) is not
+    either, while the Cholesky backward returns its symmetric part; the
+    gram is symmetric, so theta sees only that part, and the symmetric
+    parts are compared.  Bar as the backward check's: within 1e-4 of
+    |ref| + max|ref|."""
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
+    from spark_gp_tpu_torch.models.loo import moments_from_inverse
+
+    train = d["folds"][0][0]
+    gp = synthetics_gp()
+    kernel = gp._get_kernel()
+    data = gp._group(d["x"][train], d["y"][train], torch.device("cuda"))
+    theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device="cuda")
+    k32 = masked_gram_stack(kernel, theta, data.x, data.mask).detach()
+    grads, values = [], []
+    for fn, dtype in [(spd.spd_inv_logdet, torch.float32),
+                      (spd.spd_inv_logdet_plain, torch.float64)]:
+        kk = k32.to(dtype, copy=True).requires_grad_(True)
+        mask = data.mask.to(dtype)
+        _, _, logp = moments_from_inverse(fn(kk)[0], data.y.to(dtype) * mask)
+        value = -torch.sum(logp * mask)
+        value.backward()
+        torch.cuda.synchronize()
+        grads.append(0.5 * (kk.grad + kk.grad.mT).double())
+        values.append(value.item())
+    ref = grads[1]
+    err = (grads[0] - ref).abs()
+    if not bool((err <= 1e-4 * (ref.abs() + ref.abs().max())).all()):
+        raise AssertionError(f"LOO cotangent at (18, 100): err {err.max().item()}")
+    return {"shape": [18, 100], "max_abs_err": err.max().item(),
+            "max_abs_ref": ref.abs().max().item(),
+            "rel_value_err": abs(values[0] - values[1]) / abs(values[1]),
+            "diag_share": float(torch.diagonal(ref, dim1=-2, dim2=-1).abs().sum()
+                                / ref.abs().sum())}
+
+
+def regression_phases(torch, spd, d: dict, smi: str) -> dict:
+    """The Synthetics and timeseries configs, the LOO and ELBO objectives
+    and the new kernel families (the phases after gram-cache in the module
+    doc); returns K1's launches on each."""
+    from spark_gp_tpu_torch.kernels.base import prepare_gram_cache
+    from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+    from spark_gp_tpu_torch.utils.validation import nlpd, rmse
+
+    start_all = time.perf_counter()
+    x, y, tr, te = d["x"], d["y"], d["tr"], d["te"]
+    launches = {}
+
+    # synthetics: examples/synthetics.py verbatim, 10-fold CV at seed 13
+    # (E = 18, s = 100 on every fold); K1 once an evaluation; the
+    # isotropic RBF engages the gram cache
+    spd.spd_inv_logdet.launches = 0
+    cv = regression_cv(synthetics_gp(), x, y, d["folds"])
+    cv.pop("first_model")
+    cv["launches"] = launches["synthetics"] = spd.spd_inv_logdet.launches
+    emit({"phase": "synthetics", **cv, "bar": SYNTHETICS_BAR,
+          "jax_cpu_rmse": JAX_CPU_REGRESSION["synthetics_cv_rmse"]})
+    if not (cv["rmse"] < SYNTHETICS_BAR and cv["experts"] == [(18, 100)]
+            and cv["launches"] == cv["nfev"] > 0 and cv["gram_cache_engaged"] == [1.0]):
+        raise AssertionError(f"synthetics: {cv}")
+
+    # synthetics-objectives: quality.py's objectives part, one fit per
+    # objective on the 1500 / 500 split (E = 15, s = 100).  K1 once an
+    # evaluation for the marginal NLL and for LOO; none for the ELBO,
+    # whose [m, m] factors are torch.linalg calls; the ELBO takes no gram
+    # cache
+    objectives, models = {}, {}
+    for objective, rule, cached in (("marginal", 1, 1.0), ("loo", 1, 1.0), ("elbo", 0, 0.0)):
+        spd.spd_inv_logdet.launches = 0
+        start = time.perf_counter()
+        model = synthetics_gp(objective).fit(x[tr], y[tr])
+        mean, var = model.predict_with_var(x[te])
+        seconds = time.perf_counter() - start
+        m = model.metrics
+        models[objective] = model
+        objectives[objective] = {
+            "rmse": rmse(y[te], mean), "nlpd": nlpd(y[te], mean, var),
+            "final_objective": m["final_nll"], "nfev": m["lbfgs_nfev"],
+            "launches": spd.spd_inv_logdet.launches, "seconds": seconds,
+            "gram_cache_engaged": m["gram_cache_engaged"],
+            **{key: m[key] for key in PHASES},
+            "jax_cpu": JAX_CPU_REGRESSION["objectives"][objective]}
+        launches[f"objectives_{objective}"] = spd.spd_inv_logdet.launches
+        row = objectives[objective]
+        if not (row["rmse"] < SYNTHETICS_BAR and np.isfinite(row["nlpd"])
+                and row["launches"] == rule * row["nfev"] and row["nfev"] > 0
+                and row["gram_cache_engaged"] == cached and m["objective"] == objective
+                and (m["num_experts"], m["expert_size"]) == (15, 100)):
+            raise AssertionError(f"synthetics-objectives {objective}: {row}")
+    emit({"phase": "synthetics-objectives", "split": [1500, 500], "bar": SYNTHETICS_BAR,
+          **objectives})
+
+    # synthetics-loo: the marginal fit on all 2000 rows, then gp.loo at
+    # its theta: one K1 launch at (20, 100)
+    spd.spd_inv_logdet.launches = 0
+    gp = synthetics_gp()
+    model = gp.fit(x, y)
+    fit_launches = spd.spd_inv_logdet.launches
+    if fit_launches != model.metrics["lbfgs_nfev"]:
+        raise AssertionError(f"synthetics-loo fit: {fit_launches} K1 launches for "
+                             f"{model.metrics['lbfgs_nfev']} evaluations")
+    spd.spd_inv_logdet.launches = 0
+    start = time.perf_counter()
+    diag = gp.loo(x, y, model)
+    loo_seconds = time.perf_counter() - start
+    loo_launches = spd.spd_inv_logdet.launches
+    launches["synthetics_loo"] = fit_launches + loo_launches
+    ratio = diag["loo_rmse"] / cv["rmse"]
+    emit({"phase": "synthetics-loo", "loo_rmse": diag["loo_rmse"], "cv_rmse": cv["rmse"],
+          "ratio": ratio, "loo_log_pseudo_likelihood": diag["loo_log_pseudo_likelihood"],
+          "loo_seconds": loo_seconds, "loo_launches": loo_launches,
+          "fit_nfev": model.metrics["lbfgs_nfev"], "fit_launches": fit_launches,
+          "shape": [model.metrics["num_experts"], model.metrics["expert_size"]],
+          "bar": SYNTHETICS_BAR, "ratio_band": [0.5, 2.0],
+          "jax_cpu": {"loo_rmse": JAX_CPU_REGRESSION["loo_rmse"],
+                      "ratio": JAX_CPU_REGRESSION["loo_cv_ratio"]}})
+    if not (diag["loo_rmse"] < SYNTHETICS_BAR and 0.5 < ratio < 2.0 and loo_launches == 1
+            and (model.metrics["num_experts"], model.metrics["expert_size"]) == (20, 100)):
+        raise AssertionError(f"synthetics-loo: loo_rmse {diag['loo_rmse']}, ratio {ratio}, "
+                             f"{loo_launches} K1 launches")
+
+    # objective-parity: the LOO and ELBO objectives and their gradients on
+    # the card (float32) against the CPU (float64), on the objectives
+    # split's training stack, at init theta and at the card fit's theta*
+    # (the ELBO over the fit's own inducing set).  The gradient's error is
+    # taken over the largest component of the init-theta gradient: at
+    # theta* the gradient is close to 0.  Then one evaluation of each at
+    # theta* under the profiler.  None of these launches is the main path's.
+    before = spd.spd_inv_logdet.launches
+    parity, profiles = {}, {}
+    for objective in ("loo", "elbo"):
+        model = models[objective]
+        kernel = model.raw_predictor.kernel
+        extra = (model.raw_predictor.active, synthetics_gp(objective)._sigma2) \
+            if objective == "elbo" else ()
+        sides = {}
+        for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            data = group_for_experts(x[tr], y[tr], 100, dtype=dtype, device=device)
+            cache = None if objective == "elbo" else prepare_gram_cache(kernel, data.x)
+            sides[device] = make_value_and_grad(kernel, data, cache, objective, extra)
+        points, scale = [], None
+        bar_v, bar_g = OBJECTIVE_BARS[objective]
+        for label, theta in (("init", kernel.init_theta()), ("fit", model.raw_predictor.theta)):
+            (v_gpu, g_gpu), (v_cpu, g_cpu) = sides["cuda"](theta), sides["cpu"](theta)
+            scale = scale or float(np.max(np.abs(g_cpu)))
+            dv = abs(v_gpu - v_cpu) / abs(v_cpu)
+            dg = float(np.max(np.abs(g_gpu - g_cpu))) / scale
+            points.append({"theta": label, "value_cuda": v_gpu, "value_cpu": v_cpu,
+                           "grad_cuda": g_gpu.tolist(), "grad_cpu": g_cpu.tolist(),
+                           "rel_value_err": dv, "rel_grad_err": dg})
+            if not (dv <= bar_v and dg <= bar_g):
+                raise AssertionError(f"{objective} card vs CPU at {label} theta: rel dv {dv}, "
+                                     f"dg {dg}")
+        parity[objective] = {"bars": {"rel_value": bar_v, "rel_grad": bar_g}, "points": points}
+        profiles[objective] = profile_objective(
+            torch, sides["cuda"], model.raw_predictor.theta,
+            shares={"spd_inv_logdet": ("spd_inv_logdet",)})
+    spd.spd_inv_logdet.launches = before
+    emit({"phase": "objective-parity", "shape": [15, 100], **parity, "eval_profile": profiles})
+
+    # timeseries-sm: examples/timeseries.py make_gp("sm", 8) verbatim
+    # (E = 2, s = 120): eight host restarts, K1 once an evaluation of
+    # every restart; the spectral mixture has no gram cache.  Then the
+    # RBF contrast, with no bar
+    ts = {}
+    xs, ys, xe, ye = d["ts"]
+    for kind in ("sm", "rbf"):
+        spd.spd_inv_logdet.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        model = timeseries_gp(kind).fit(xs, ys)
+        pred = model.predict(xe)
+        seconds = time.perf_counter() - start
+        m = model.metrics
+        ts[kind] = {"extrapolation_rmse": rmse(ye, pred), "seconds": seconds,
+                    "restart_nlls": [m[f"restart_{r}_nll"] for r in range(m["num_restarts"])],
+                    "best_restart": m["best_restart"], "restarts_nfev": m["restarts_nfev"],
+                    "best_nfev": m["lbfgs_nfev"], "launches": spd.spd_inv_logdet.launches,
+                    "gram_cache_engaged": m["gram_cache_engaged"],
+                    "shape": [m["num_experts"], m["expert_size"]],
+                    "peak_cuda_bytes_above_base": torch.cuda.max_memory_allocated() - base,
+                    **{key: m[key] for key in PHASES}}
+        launches[f"timeseries_{kind}"] = spd.spd_inv_logdet.launches
+        if not (np.all(np.isfinite(pred)) and ts[kind]["launches"] == m["restarts_nfev"]
+                and ts[kind]["shape"] == [2, 120]
+                and m["gram_cache_engaged"] == (0.0 if kind == "sm" else 1.0)):
+            raise AssertionError(f"timeseries-{kind}: {ts[kind]}")
+    emit({"phase": "timeseries-sm", **ts["sm"], "bar": TIMESERIES_BAR,
+          "jax_cpu_rmse": JAX_CPU_REGRESSION["sm_extrapolation_rmse"],
+          "rbf_contrast": ts["rbf"],
+          "rbf_jax_cpu_rmse": JAX_CPU_REGRESSION["rbf_extrapolation_rmse"]})
+    if not ts["sm"]["extrapolation_rmse"] < TIMESERIES_BAR:
+        raise AssertionError(f"timeseries-sm extrapolation RMSE "
+                             f"{ts['sm']['extrapolation_rmse']} >= {TIMESERIES_BAR}")
+
+    # kernel-families: each new kernel (and RBF * Periodic, RBF *
+    # Matern12) on the card in float32 against the port on the CPU in
+    # float64 at E = 4, s = 100, p = 5: gram, cross, and one exact-lane
+    # NLL and gradient (plus white noise and sigma2 I), the product of
+    # isotropic kernels through its gram cache.  Recorded, with one bar:
+    # the periodic gram's cos-sum cancellation, widest at p = 5, within
+    # 1e-5 of the CPU's (entries are at most 1)
+    launches_before = spd.spd_inv_logdet.launches
+    families = kernel_family_checks(torch)
+    spd.spd_inv_logdet.launches = launches_before
+    emit({"phase": "kernel-families", "shape": [4, 100, 5], "families": families})
+
+    seconds = time.perf_counter() - start_all
+    emit({"phase": "regression-phases", "seconds": seconds, "card": smi})
+    return launches
+
+
+def kernel_family_checks(torch) -> dict:
+    """The kernel-families phase's numbers (see ``regression_phases``)."""
+    import spark_gp_tpu_torch as tgp
+    from spark_gp_tpu_torch.kernels.base import prepare_gram_cache
+    from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+
+    p = 5
+    families = {
+        "ard_matern32": lambda: tgp.ARDMatern32Kernel(p, 0.7),
+        "ard_matern52": lambda: tgp.ARDMatern52Kernel(p, 0.7),
+        "ard_rq": lambda: tgp.ARDRationalQuadraticKernel(p, 0.7, 1.5),
+        "periodic": lambda: tgp.PeriodicKernel(2.0, 0.9),
+        "spectral_mixture": lambda: tgp.SpectralMixtureKernel(p, 3),
+        "rbf_x_periodic": lambda: tgp.RBFKernel(1.5) * tgp.PeriodicKernel(2.0, 0.9),
+        "rbf_x_matern12": lambda: tgp.RBFKernel(1.5) * tgp.Matern12Kernel(1.2),
+    }
+    rng = np.random.default_rng(17)
+    x, xt = rng.normal(size=(400, p)), rng.normal(size=(4, 30, p))
+    y = np.sin(x.sum(axis=1)) + 0.1 * rng.normal(size=400)
+    out = {}
+    for name, make in families.items():
+        kernel = make() + tgp.WhiteNoiseKernel(0.1, 0, 1) + tgp.Const(1e-3) * tgp.EyeKernel()
+        theta = kernel.init_theta() * np.linspace(0.9, 1.1, kernel.n_hypers)
+        side = {}
+        for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            data = group_for_experts(x, y, 100, dtype=dtype, device=device)
+            cache = prepare_gram_cache(kernel, data.x)
+            th = torch.as_tensor(theta, dtype=dtype, device=device)
+            xtd = torch.as_tensor(xt, dtype=dtype, device=device)
+            with torch.no_grad():
+                gram = make().gram(th[:make().n_hypers], data.x)
+                cross = make().cross(th[:make().n_hypers], xtd, data.x)
+            value, grad = make_value_and_grad(kernel, data, cache)(theta)
+            side[device] = (gram.double().cpu(), cross.double().cpu(), value, grad,
+                            cache is not None)
+        (g32, c32, v32, gr32, cached), (g64, c64, v64, gr64, _) = side["cuda"], side["cpu"]
+        out[name] = {
+            "gram_max_abs_err": (g32 - g64).abs().max().item(),
+            "gram_max_rel_err": ((g32 - g64).abs().max() / g64.abs().max()).item(),
+            "cross_max_rel_err": ((c32 - c64).abs().max() / c64.abs().max()).item(),
+            "nll_rel_err": abs(v32 - v64) / abs(v64),
+            "grad_rel_err": float(np.max(np.abs(gr32 - gr64)) / np.max(np.abs(gr64))),
+            "gram_cache_engaged": cached,
+        }
+        finite = np.isfinite(v32) and np.all(np.isfinite(gr32))
+        if not finite or (name == "rbf_x_matern12") != cached \
+                or (name == "periodic" and not out[name]["gram_max_abs_err"] <= 1e-5):
+            raise AssertionError(f"kernel-families {name}: {out[name]}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1203,6 +1640,9 @@ def main() -> int:
     xp, yp, tr, te = (data_main[key] for key in ("xp", "yp", "tr", "te"))
     yp_tr, y_mean, y_std = (data_main[key] for key in ("yp_tr", "y_mean", "y_std"))
     stacks = exact_lane_stacks(torch, data_main)
+    # the Synthetics and timeseries data and the stacks they hand K1
+    rdata = regression_data()
+    stacks.update(regression_stacks(torch, rdata))
     # the classifiers' data and the B stacks they hand K1
     cdata = classifier_data()
     b_stacks = gpc_b_stacks(torch, lap, cdata)
@@ -1224,6 +1664,9 @@ def main() -> int:
     errs = check_spd_inv_logdet(torch, spd, stacks)
     emit({"phase": "check", "kernel": "spd_inv_logdet", "passed": True,
           "max_abs_err": errs})
+    loo_cotangent = check_loo_cotangent(torch, spd, rdata)
+    emit({"phase": "check", "kernel": "spd_inv_logdet", "check": "loo-cotangent",
+          "passed": True, **loo_cotangent})
     gpc_errs = {label: check_against_plain(torch, spd, k, label)
                 for label, k in b_stacks.items()}
     emit({"phase": "gpc-check", "kernel": "spd_inv_logdet", "passed": True,
@@ -1278,7 +1721,7 @@ def main() -> int:
 
     # 6. airfoil: 10-fold CV of the reference's acceptance config
     spd.spd_inv_logdet.launches = 0
-    cv = airfoil_cv(airfoil_gp(100), x, y, folds)
+    cv = regression_cv(airfoil_gp(100), x, y, folds)
     launches_airfoil = spd.spd_inv_logdet.launches
     model = cv.pop("first_model")
     engaged["airfoil"] = [model.metrics["gram_cache_engaged"]]
@@ -1293,7 +1736,7 @@ def main() -> int:
     # 7. airfoil-expert450: the same config at expert 450, E = 3 and
     # s = 451 on every fold, so every evaluation runs K1's workspace path
     spd.spd_inv_logdet.launches = 0
-    cv = airfoil_cv(airfoil_gp(450), x, y, folds)
+    cv = regression_cv(airfoil_gp(450), x, y, folds)
     launches_450 = spd.spd_inv_logdet.launches
     model = cv.pop("first_model")
     engaged["airfoil_expert450"] = [model.metrics["gram_cache_engaged"]]
@@ -1608,8 +2051,11 @@ def main() -> int:
     # 20. gram-cache
     engaged.update(binary["engaged"], **multiclass["engaged"])
     gram_cache_phase(torch, lap, cdata, binary["theta_gpc_mnist"], engaged)
+    # 21-27. the Synthetics and timeseries configs, the objectives and the
+    # new kernel families
+    regression = regression_phases(torch, spd, rdata, smi)
 
-    # 21. kernels: K1 at the protein stack, then at the airfoil fold's, on
+    # 28. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
     # the three exact-lane regression fits and the three classifier runs; K2
     # at a CG step's width (n = 9) and K2-VJP at the surrogate leg's
@@ -1634,13 +2080,15 @@ def main() -> int:
         "source": "spark_gp_tpu_torch/csrc/spd_inv_logdet.cu",
         "replaces": "spark_gp_tpu/ops/pallas_linalg.py:228",
         "launches": (launches_airfoil + launches_protein + launches_450
-                     + launches_gpc_mnist + launches_iris + launches_iris_native),
+                     + launches_gpc_mnist + launches_iris + launches_iris_native
+                     + sum(regression.values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
         "launches_gpc_mnist": launches_gpc_mnist,
         "launches_iris": launches_iris,
         "launches_iris_native": launches_iris_native,
+        **{f"launches_{key}": value for key, value in regression.items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
@@ -1656,6 +2104,11 @@ def main() -> int:
                                  **{key: timing[label][key]
                                     for key in keys + ("first_design_ms",)}}
                          for label in b_stacks},
+        "regression_stacks": {label: {"shape": timing[label]["shape"], "max_abs_err": errs[label],
+                                      **{key: timing[label][key]
+                                         for key in keys + ("first_design_ms", "wall_ms")}}
+                              for label in ("synthetics_fold", "synthetics_all", "timeseries")},
+        "loo_cotangent_max_abs_err": loo_cotangent["max_abs_err"],
         "checked": True,
     }, {
         "name": "streamed_matvec",

@@ -6,6 +6,9 @@ Bayesian Committee Machine (product-of-experts) hyperparameter fit that
 sums each expert's exact NLL (regression) or Laplace evidence
 (classification) over its small gram,
 and a Projected Process model on an m-point active set for prediction.
+Regression also trains on the leave-one-out pseudo-likelihood or the
+Titsias ELBO (``setObjective``), from several starting points
+(``setNumRestarts``), with random or k-means inducing points.
 Kernels, theta layout, setter names and numerics match the JAX package,
 which stays the reference the port is tested against.
 
@@ -14,7 +17,7 @@ Entry points run on ``cuda`` (float32) unless the caller asks for ``cpu``
 objective evaluation, and of every Newton iteration of the classifier,
 is the hand-written CUDA kernel ``csrc/spd_inv_logdet.cu`` (for the
 multiclass classifier, over every expert's and class's ``B_c`` at
-once); on the
+once; for the LOO objective, the gram stack whatever the lane); on the
 matrix-free solver lane (``setSolverLane("matfree")``) every gram-matrix
 product of the regression objective is the hand-written kernel
 ``csrc/streamed_matvec.cu``, and the ``[E, s, s]`` gram stack is never
@@ -22,6 +25,9 @@ built.
 """
 
 from spark_gp_tpu_torch.kernels import (
+    ARDMatern32Kernel,
+    ARDMatern52Kernel,
+    ARDRationalQuadraticKernel,
     ARDRBFKernel,
     Const,
     DotProductKernel,
@@ -30,15 +36,20 @@ from spark_gp_tpu_torch.kernels import (
     Matern12Kernel,
     Matern32Kernel,
     Matern52Kernel,
+    PeriodicKernel,
     PolynomialKernel,
+    ProductKernel,
     RationalQuadraticKernel,
     RBFKernel,
     Scalar,
+    SpectralMixtureKernel,
     SumKernel,
+    ThetaOverrideKernel,
     WhiteNoiseKernel,
 )
 from spark_gp_tpu_torch.models.active_set import (
     ActiveSetProvider,
+    KMeansActiveSetProvider,
     RandomActiveSetProvider,
 )
 from spark_gp_tpu_torch.models.gpc import (
@@ -62,12 +73,19 @@ __all__ = [
     "Matern12Kernel",
     "Matern32Kernel",
     "Matern52Kernel",
+    "ARDMatern32Kernel",
+    "ARDMatern52Kernel",
     "RationalQuadraticKernel",
+    "ARDRationalQuadraticKernel",
+    "PeriodicKernel",
+    "SpectralMixtureKernel",
     "DotProductKernel",
     "PolynomialKernel",
     "EyeKernel",
     "WhiteNoiseKernel",
     "SumKernel",
+    "ProductKernel",
+    "ThetaOverrideKernel",
     "Scalar",
     "Const",
     "GaussianProcessRegression",
@@ -78,5 +96,6 @@ __all__ = [
     "GaussianProcessMulticlassModel",
     "ActiveSetProvider",
     "RandomActiveSetProvider",
+    "KMeansActiveSetProvider",
     "NotPositiveDefiniteException",
 ]

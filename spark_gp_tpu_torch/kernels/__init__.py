@@ -5,19 +5,26 @@ from spark_gp_tpu_torch.kernels.base import (
     ConstScaleKernel,
     EyeKernel,
     Kernel,
+    ProductKernel,
     Scalar,
     StationaryKernel,
     SumKernel,
+    ThetaOverrideKernel,
     TrainableScaleKernel,
     WhiteNoiseKernel,
     supports_matfree,
 )
 from spark_gp_tpu_torch.kernels.families import (
+    ARDRationalQuadraticKernel,
     DotProductKernel,
+    PeriodicKernel,
     PolynomialKernel,
     RationalQuadraticKernel,
+    SpectralMixtureKernel,
 )
 from spark_gp_tpu_torch.kernels.matern import (
+    ARDMatern32Kernel,
+    ARDMatern52Kernel,
     Matern12Kernel,
     Matern32Kernel,
     Matern52Kernel,
@@ -29,6 +36,8 @@ __all__ = [
     "StationaryKernel",
     "EyeKernel",
     "SumKernel",
+    "ProductKernel",
+    "ThetaOverrideKernel",
     "TrainableScaleKernel",
     "ConstScaleKernel",
     "Scalar",
@@ -39,7 +48,12 @@ __all__ = [
     "Matern12Kernel",
     "Matern32Kernel",
     "Matern52Kernel",
+    "ARDMatern32Kernel",
+    "ARDMatern52Kernel",
     "RationalQuadraticKernel",
+    "ARDRationalQuadraticKernel",
+    "PeriodicKernel",
+    "SpectralMixtureKernel",
     "DotProductKernel",
     "PolynomialKernel",
     "supports_matfree",

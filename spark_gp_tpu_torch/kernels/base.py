@@ -29,7 +29,9 @@ The matrix-free matvec protocol (``prepare_matvec`` /
 ``matvec_from_prepared``, :func:`supports_matfree`) lets the matfree
 solver lane apply a kernel's gram without building it.
 
-Not ported yet: products of kernels (ROADMAP.md queue 1, item 8).
+``k1 * k2`` of two kernels is their elementwise (Schur) product
+(:class:`ProductKernel`), and :class:`ThetaOverrideKernel` restarts a
+kernel from another starting point (``setNumRestarts``).
 """
 
 from __future__ import annotations
@@ -115,10 +117,7 @@ class Kernel:
         if isinstance(other, (int, float)):
             return Scalar(float(other)) * self
         if isinstance(other, Kernel):
-            raise NotImplementedError(
-                "products of kernels are not ported yet "
-                "(ROADMAP.md queue 1, item 8)"
-            )
+            return ProductKernel(self, other)
         return NotImplemented
 
 
@@ -226,8 +225,66 @@ class EyeKernel(Kernel):
         return v
 
 
-class SumKernel(Kernel):
-    """``k1 + k2`` with concatenated hyperparameter vectors (``k1`` first)."""
+class ThetaOverrideKernel(Kernel):
+    """The same kernel started from another hyperparameter point: every
+    computation is the wrapped kernel's, ``init_theta`` is ``theta0``.
+    Restart r of ``setNumRestarts`` wraps the model kernel this way, so
+    the fit path runs unchanged."""
+
+    def __init__(self, inner: Kernel, theta0) -> None:
+        self.inner = inner
+        self.theta0_ = tuple(float(v) for v in np.asarray(theta0).ravel())
+        if len(self.theta0_) != inner.n_hypers:
+            raise ValueError(
+                f"theta0 has {len(self.theta0_)} entries; kernel has "
+                f"{inner.n_hypers} hyperparameters"
+            )
+        self.n_hypers = inner.n_hypers
+        if inner.prepare is None:
+            self.prepare = None
+        if inner.matvec_from_prepared is None:
+            self.prepare_matvec = None
+            self.matvec_from_prepared = None
+
+    def init_theta(self):
+        return np.array(self.theta0_, dtype=np.float64)
+
+    def bounds(self):
+        return self.inner.bounds()
+
+    def gram(self, theta, x):
+        return self.inner.gram(theta, x)
+
+    def cross(self, theta, x_test, x_train):
+        return self.inner.cross(theta, x_test, x_train)
+
+    def diag(self, theta, x):
+        return self.inner.diag(theta, x)
+
+    def self_diag(self, theta, x):
+        return self.inner.self_diag(theta, x)
+
+    def prepare(self, x):
+        # the cache does not depend on theta: every restart shares one
+        return self.inner.prepare(x)
+
+    def gram_from_cache(self, theta, cache):
+        return self.inner.gram_from_cache(theta, cache)
+
+    def prepare_matvec(self, x):
+        return self.inner.prepare_matvec(x)
+
+    def matvec_from_prepared(self, theta, mcache, v):
+        return self.inner.matvec_from_prepared(theta, mcache, v)
+
+    def white_noise_var(self, theta):
+        return self.inner.white_noise_var(theta)
+
+
+class _PairKernel(Kernel):
+    """Binary composites: the children's theta vectors and bounds
+    concatenate (``k1`` first); the composite's gram cache and streaming
+    hooks exist only when both children have them."""
 
     def __init__(self, k1: Kernel, k2: Kernel) -> None:
         self.k1 = k1
@@ -252,12 +309,16 @@ class SumKernel(Kernel):
         lo2, hi2 = self.k2.bounds()
         return np.concatenate([lo1, lo2]), np.concatenate([hi1, hi2])
 
+    def prepare(self, x):
+        return self.k1.prepare(x), self.k2.prepare(x)
+
+
+class SumKernel(_PairKernel):
+    """``k1 + k2`` with concatenated hyperparameter vectors (``k1`` first)."""
+
     def gram(self, theta, x):
         t1, t2 = self._split(theta)
         return self.k1.gram(t1, x) + self.k2.gram(t2, x)
-
-    def prepare(self, x):
-        return self.k1.prepare(x), self.k2.prepare(x)
 
     def gram_from_cache(self, theta, cache):
         t1, t2 = self._split(theta)
@@ -289,6 +350,48 @@ class SumKernel(Kernel):
     def white_noise_var(self, theta):
         t1, t2 = self._split(theta)
         return self.k1.white_noise_var(t1) + self.k2.white_noise_var(t2)
+
+
+class ProductKernel(_PairKernel):
+    """``k1 * k2``: the elementwise (Schur) product of two kernels, PSD by
+    the Schur product theorem; ``RBFKernel(..) * PeriodicKernel(..)`` is
+    the quasi-periodic kernel.  Its ``white_noise_var`` is 0, and a factor
+    that carries white noise is refused (:func:`_carries_white_noise`):
+    add the noise at the top level, ``k1 * k2 + WhiteNoiseKernel(...)``.
+    The gram cache is the pair of the factors' caches; a product does not
+    stream."""
+
+    def __init__(self, k1: Kernel, k2: Kernel) -> None:
+        super().__init__(k1, k2)
+        for factor in (k1, k2):
+            if _carries_white_noise(factor):
+                raise ValueError(
+                    "kernel products cannot contain white-noise factors "
+                    "(the product's delta ridge is not representable as a "
+                    "flat white_noise_var); add the noise at the top "
+                    "level: k1 * k2 + WhiteNoiseKernel(...)"
+                )
+
+    def gram(self, theta, x):
+        t1, t2 = self._split(theta)
+        return self.k1.gram(t1, x) * self.k2.gram(t2, x)
+
+    def gram_from_cache(self, theta, cache):
+        t1, t2 = self._split(theta)
+        c1, c2 = cache
+        return self.k1.gram_from_cache(t1, c1) * self.k2.gram_from_cache(t2, c2)
+
+    def cross(self, theta, x_test, x_train):
+        t1, t2 = self._split(theta)
+        return self.k1.cross(t1, x_test, x_train) * self.k2.cross(t2, x_test, x_train)
+
+    def diag(self, theta, x):
+        t1, t2 = self._split(theta)
+        return self.k1.diag(t1, x) * self.k2.diag(t2, x)
+
+    def self_diag(self, theta, x):
+        t1, t2 = self._split(theta)
+        return self.k1.self_diag(t1, x) * self.k2.self_diag(t2, x)
 
 
 class TrainableScaleKernel(Kernel):
@@ -395,6 +498,25 @@ class ConstScaleKernel(Kernel):
 
     def white_noise_var(self, theta):
         return self.c * self.kernel.white_noise_var(theta)
+
+
+def _carries_white_noise(kernel: Kernel) -> bool:
+    """Can ``kernel`` ever contribute a white-noise ridge?  A walk of the
+    composition for ``EyeKernel``, not a probe at one theta: a trainable
+    noise that starts at 0 (``WhiteNoiseKernel(0.0, 0, 1)``) can train to
+    a ridge.  A ``Const(0) * ...`` branch is inert.  Kernels outside the
+    algebra are probed at their initial theta."""
+    if isinstance(kernel, EyeKernel):
+        return True
+    if isinstance(kernel, _PairKernel):
+        return _carries_white_noise(kernel.k1) or _carries_white_noise(kernel.k2)
+    if isinstance(kernel, TrainableScaleKernel):
+        return _carries_white_noise(kernel.kernel)
+    if isinstance(kernel, ConstScaleKernel):
+        return kernel.c != 0.0 and _carries_white_noise(kernel.kernel)
+    if isinstance(kernel, ThetaOverrideKernel):
+        return _carries_white_noise(kernel.inner)
+    return float(kernel.white_noise_var(torch.as_tensor(kernel.init_theta()))) != 0.0
 
 
 class Scalar:

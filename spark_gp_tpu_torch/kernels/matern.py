@@ -1,5 +1,5 @@
-"""Isotropic Matern kernels (nu = 1/2, 3/2, 5/2), the JAX package's
-``kernels/matern.py``.
+"""Matern kernels (nu = 1/2, 3/2, 5/2 isotropic; 3/2 and 5/2 ARD), the JAX
+package's ``kernels/matern.py``.
 
 With r = |x_i - x_j| and length-scale ``sigma`` (the RBF's convention):
 
@@ -11,15 +11,31 @@ With r = |x_i - x_j| and length-scale ``sigma`` (the RBF's convention):
 on the pinned zero diagonal and moves k by under 1e-12 there.  The map is
 one definition (``ops/streamed_matvec.matern_tile``) shared by ``gram``,
 ``gram_from_cache`` (over the cached squared distances), ``cross`` and the
-matfree lane's streamed tiles.  The ARD variants are not
-ported yet (ROADMAP.md queue 1, item 8).
+matfree lane's streamed tiles.
+
+The ARD variants weigh each feature by a trainable inverse length-scale
+(``r^2 = |(x_i - x_j) * beta|^2``, the ARD-RBF's convention) and take the
+same floored ``sqrt``; like the ARD-RBF they have neither a gram cache nor
+a streaming form.
 """
 
 from __future__ import annotations
 
-from spark_gp_tpu_torch.kernels.base import ScalarLengthscaleHypers
-from spark_gp_tpu_torch.ops.distance import sq_dist, sq_dist_self
-from spark_gp_tpu_torch.ops.streamed_matvec import matern_tile, streamed_matvec
+import math
+
+from spark_gp_tpu_torch.kernels.base import ARDHypers, ScalarLengthscaleHypers
+from spark_gp_tpu_torch.ops.distance import (
+    sq_dist,
+    sq_dist_self,
+    weighted_sq_dist,
+    weighted_sq_dist_self,
+)
+from spark_gp_tpu_torch.ops.streamed_matvec import (
+    matern_of_a,
+    matern_tile,
+    safe_r,
+    streamed_matvec,
+)
 
 
 class _MaternIso(ScalarLengthscaleHypers):
@@ -62,5 +78,32 @@ class Matern32Kernel(_MaternIso):
 
 class Matern52Kernel(_MaternIso):
     """Matern nu = 5/2: twice-differentiable sample paths."""
+
+    _nu2 = 5
+
+
+class _MaternARD(ARDHypers):
+    """Per-feature inverse length-scales ``beta`` (``theta = beta``)."""
+
+    _nu2: int
+
+    def _of_sqd(self, sqd):
+        return matern_of_a(self._nu2, math.sqrt(self._nu2) * safe_r(sqd))
+
+    def gram(self, theta, x):
+        return self._of_sqd(weighted_sq_dist_self(x, theta))
+
+    def cross(self, theta, x_test, x_train):
+        return self._of_sqd(weighted_sq_dist(x_test, x_train, theta))
+
+
+class ARDMatern32Kernel(_MaternARD):
+    """ARD Matern nu = 3/2."""
+
+    _nu2 = 3
+
+
+class ARDMatern52Kernel(_MaternARD):
+    """ARD Matern nu = 5/2."""
 
     _nu2 = 5

@@ -1,14 +1,22 @@
 """Active-set (inducing point) providers.
 
 The SPI takes the full training rows (host numpy), the kernel and the
-optimal hyperparameters, and returns the ``[m, p]`` active points.  Only
-the uniform random provider is ported; the k-means and greedy providers
-are ROADMAP.md queue 1, item 8.
+optimal hyperparameters, and returns the ``[m, p]`` active points.
+
+* :data:`RandomActiveSetProvider` -- a uniform sample of training rows;
+* :class:`KMeansActiveSetProvider` -- k-means centroids: k-means++
+  seeding, then Lloyd steps, on the fit's device in float64.
+
+The greedy provider is ROADMAP.md queue 1, item 8; the sharded-stack
+entry point (``from_stack``) comes with the mesh, item 6.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from spark_gp_tpu_torch.ops.distance import sq_dist
 
 
 class ActiveSetProvider:
@@ -37,3 +45,60 @@ class _RandomActiveSetProvider(ActiveSetProvider):
 
 
 RandomActiveSetProvider = _RandomActiveSetProvider()
+
+
+class KMeansActiveSetProvider(ActiveSetProvider):
+    """K-means centroids as the active set: k-means++ D^2 seeding, then
+    ``max_iter`` Lloyd steps (the JAX package's, whose default is the
+    reference's 20), in float64 on ``device`` -- the fit passes its own.
+
+    The draws come from a ``torch.Generator`` on that device seeded with
+    ``seed``: the same rows for the same seed and device, but not the JAX
+    package's rows, whose PRNG cannot be reproduced here (nor the same
+    rows on the CPU and the card).  A Lloyd step keeps an empty cluster's
+    previous centroid and breaks ties of the distance as ``torch.argmin``
+    does: the lowest centroid index wins."""
+
+    uses_fit_outputs = False
+
+    def __init__(self, max_iter: int = 20):
+        self.max_iter = max_iter
+
+    def __call__(self, active_set_size, x, y, kernel, theta_opt, seed,
+                 device="cpu"):
+        xt = torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
+        k = min(active_set_size, xt.shape[0])
+        gen = torch.Generator(device=xt.device).manual_seed(int(seed))
+        centroids = _lloyd(xt, _kmeanspp_init(gen, xt, k), self.max_iter)
+        return centroids.cpu().numpy()
+
+
+def _kmeanspp_init(gen: torch.Generator, x, k: int):
+    """k-means++ seeding (Arthur and Vassilvitskii 2007): each next seed is
+    drawn with weight its squared distance to the nearest seed so far, so
+    a chosen row (weight 0) and its duplicates are never drawn again while
+    any spread remains; when none does, the draw is uniform."""
+    n = x.shape[0]
+    idx = torch.randint(n, (1,), generator=gen, device=x.device)
+    centroids = [x[idx]]
+    min_d2 = torch.sum((x - x[idx]) ** 2, dim=1)
+    for _ in range(1, k):
+        weights = torch.where(min_d2.max() > 0, min_d2, torch.ones_like(min_d2))
+        idx = torch.multinomial(weights, 1, generator=gen)
+        centroids.append(x[idx])
+        min_d2 = torch.minimum(min_d2, torch.sum((x - x[idx]) ** 2, dim=1))
+    return torch.cat(centroids)
+
+
+def _lloyd(x, centroids, max_iter: int):
+    """``max_iter`` Lloyd steps from ``centroids [k, p]`` over ``x [n, p]``:
+    assignment by the squared distance, then each centroid the mean of its
+    points (a one-hot matmul); an empty cluster keeps its centroid."""
+    k = centroids.shape[0]
+    for _ in range(max_iter):
+        assign = torch.argmin(sq_dist(x, centroids), dim=1)
+        onehot = torch.nn.functional.one_hot(assign, k).to(x.dtype)  # [n, k]
+        counts = onehot.sum(dim=0)[:, None]
+        sums = onehot.mT @ x
+        centroids = torch.where(counts > 0, sums / torch.clamp_min(counts, 1.0), centroids)
+    return centroids

@@ -18,6 +18,7 @@ from spark_gp_tpu_torch.kernels.base import (
     Const,
     EyeKernel,
     Kernel,
+    ThetaOverrideKernel,
     masked_gram_stack,
     prepare_gram_cache,
     supports_matfree,
@@ -26,6 +27,7 @@ from spark_gp_tpu_torch.models import ppa
 from spark_gp_tpu_torch.models.likelihood import masked_matfree_operator
 from spark_gp_tpu_torch.models.active_set import (
     ActiveSetProvider,
+    KMeansActiveSetProvider,
     RandomActiveSetProvider,
 )
 from spark_gp_tpu_torch.ops import iterative as it_ops
@@ -58,6 +60,8 @@ class GaussianProcessParams:
         self._tol: float = 1e-6
         self._seed: int = 0
         self._hyper_space: str = "auto"
+        self._num_restarts: int = 1
+        self._restart_scale: float = 0.5
         self._predictive_variance: bool = True
         self._device = device
 
@@ -130,11 +134,24 @@ class GaussianProcessParams:
             raise _not_ported("the on-device optimizer", 4)
         return self
 
+    #: whether the estimator's fit runs the multi-start driver
+    _restarts_ported = False
+
     def setNumRestarts(self, value: int, scale: float = 0.5):
+        """Multi-start hyperparameter optimization: ``value`` > 1 runs
+        L-BFGS-B from the kernel's initial theta and from ``value - 1``
+        seeded perturbations of it (``scale`` wide; log-normal in the log
+        hyper space, else relative-scale normal, clipped to the bounds),
+        one after another on the host, and keeps the lowest final
+        objective (:meth:`GaussianProcessCommons._optimize_with_restarts`).
+        Regression only; the classifiers' restarts and the batched device
+        multi-start are ROADMAP.md queue 1, items 5 and 4."""
         if int(value) < 1:
             raise ValueError("number of restarts must be >= 1")
-        if int(value) > 1:
-            raise _not_ported("multi-start fitting", 5)
+        if int(value) > 1 and not self._restarts_ported:
+            raise _not_ported(f"multi-start fitting of {type(self).__name__}", 5)
+        self._num_restarts = int(value)
+        self._restart_scale = float(scale)
         return self
 
     def setMesh(self, mesh):
@@ -201,6 +218,9 @@ def _default_kernel_factory() -> Kernel:
 class GaussianProcessCommons(GaussianProcessParams):
     """Shared training skeleton: group -> optimize -> active set -> PPA."""
 
+    #: the hyperparameter objective (regression's ``setObjective``)
+    _objective = "marginal"
+
     def _get_kernel(self) -> Kernel:
         """User kernel + sigma2 * I -- the noise-augmented model kernel."""
         return self._kernel_factory() + Const(self._sigma2) * EyeKernel()
@@ -218,7 +238,11 @@ class GaussianProcessCommons(GaussianProcessParams):
         (ARD, or a composite with such a child), when ``GP_GRAM_CACHE=0``,
         or when the fit runs the matfree lane with a kernel that streams:
         the cache is the ``[E, s, s]`` block that lane never builds.  The
-        fits record the outcome as ``gram_cache_engaged``."""
+        fits record the outcome as ``gram_cache_engaged``.  The ELBO
+        objective takes none: its grams are cross kernels against the
+        inducing set, which the self-distance cache does not cover."""
+        if self._objective == "elbo":
+            return None
         if supports_matfree(kernel) and it_ops.resolve_solver(data.expert_size) == "matfree":
             return None
         return prepare_gram_cache(kernel, data.x)
@@ -238,6 +262,58 @@ class GaussianProcessCommons(GaussianProcessParams):
             log_space=self._use_log_space(kernel),
         )
 
+    def _optimize_with_restarts(self, kernel: Kernel, value_and_grad: Callable):
+        """The sequential multi-start driver (the JAX package's
+        ``_fit_with_restarts``): L-BFGS-B from each row of
+        :meth:`_restart_theta_batch` in turn, restart r through a
+        :class:`ThetaOverrideKernel` of ``kernel``; the lowest finite final
+        objective wins (the first on a tie).  Unlike the JAX driver the PPA
+        model is built once, for the winner: it plays no part in the
+        choice.  Returns ``(OptimizeResult, metrics)``, the metrics
+        ``restart_{r}_nll``, ``num_restarts``, ``best_restart`` and
+        ``restarts_nfev`` (the evaluations of every restart); empty for
+        one restart.  Raises ``RuntimeError`` when no restart ends
+        finite."""
+        if self._num_restarts <= 1:
+            return self._optimize_hypers_body(kernel, value_and_grad), {}
+        results = [
+            self._optimize_hypers_body(ThetaOverrideKernel(kernel, theta0), value_and_grad)
+            for theta0 in self._restart_theta_batch(kernel)
+        ]
+        nlls = [res.fun if np.isfinite(res.fun) else np.inf for res in results]
+        best = int(np.argmin(nlls))
+        if not np.isfinite(nlls[best]):
+            raise RuntimeError(
+                "every restart produced a non-finite final NLL — the model "
+                "configuration is numerically unusable at these settings"
+            )
+        metrics = {f"restart_{r}_nll": nll for r, nll in enumerate(nlls)}
+        metrics.update(num_restarts=self._num_restarts, best_restart=best,
+                       restarts_nfev=sum(res.nfev for res in results))
+        return results[best], metrics
+
+    def _restart_theta_batch(self, kernel: Kernel) -> np.ndarray:
+        """``[R, h]`` starting points: row 0 is ``init_theta``, rows 1+
+        seeded perturbations from numpy's ``default_rng(seed ^ 0x5EED5)``
+        (log-normal in the log hyper space; else additive, scaled by
+        ``|theta0|`` where nonzero and by the finite bound span otherwise),
+        clipped to the bounds -- the JAX package's points, bit for bit."""
+        theta0 = kernel.init_theta()
+        lower, upper = kernel.bounds()
+        use_log = self._use_log_space(kernel)
+        rng = np.random.default_rng(self._seed ^ 0x5EED5)
+        span = np.where(np.isfinite(upper - lower) & (upper > lower), upper - lower, 1.0)
+        lin_scale = np.where(np.abs(theta0) > 0.0, np.abs(theta0), span)
+        rows = [theta0]
+        for _ in range(1, self._num_restarts):
+            eps = self._restart_scale * rng.standard_normal(theta0.shape)
+            if use_log:
+                t_r = np.exp(np.log(theta0) + eps)
+            else:
+                t_r = theta0 + eps * lin_scale
+            rows.append(np.clip(t_r, lower, upper))
+        return np.stack(rows)
+
     def _optimize_latent_host(self, kernel: Kernel, objective: Callable, f0):
         """Host L-BFGS-B over a latent-carrying objective ``(theta, f0) ->
         (value, grad, f_new)``: every evaluation, line-search trials
@@ -255,27 +331,33 @@ class GaussianProcessCommons(GaussianProcessParams):
         _, _, f_final = objective(res.theta, state["f"])
         return res, f_final
 
-    def _select_active(self, kernel, theta, x, y) -> np.ndarray:
+    def _select_active(self, kernel, theta, x, y, device) -> np.ndarray:
+        """The configured provider's ``[m, p]`` rows; the k-means provider
+        runs on the fit's ``device``."""
         provider = self._active_set_provider
+        kw = {"device": device} if isinstance(provider, KMeansActiveSetProvider) else {}
         if getattr(provider, "uses_fit_outputs", True):
             active = provider(
-                self._active_set_size, x, y, kernel, theta, self._seed
+                self._active_set_size, x, y, kernel, theta, self._seed, **kw
             )
         else:
             active = provider(
-                self._active_set_size, x, None, kernel, None, self._seed
+                self._active_set_size, x, None, kernel, None, self._seed, **kw
             )
         return np.asarray(active)
 
     def _projected_process(
         self, kernel: Kernel, theta_opt: np.ndarray, x: np.ndarray,
-        y: np.ndarray, data: ExpertData,
+        y: np.ndarray, data: ExpertData, active: Optional[np.ndarray] = None,
     ) -> ppa.ProjectedProcessRawPredictor:
         """Active set -> (U1, u2) in float64 on the fit's device -> magic
-        solve -> predictor.  The statistics run in float64 because the
-        normal equations square the conditioning (sigma2 as small as 1e-4)."""
-        active = self._select_active(kernel, theta_opt, x, y)
+        solve -> predictor.  ``active`` is a set selected before the
+        optimization (the ELBO's), else the provider selects one at
+        ``theta_opt``.  The statistics run in float64 because the normal
+        equations square the conditioning (sigma2 as small as 1e-4)."""
         device = data.x.device
+        if active is None:
+            active = self._select_active(kernel, theta_opt, x, y, device)
         f64 = torch.float64
         data64 = ExpertData(
             x=data.x.to(f64), y=data.y.to(f64), mask=data.mask.to(f64)

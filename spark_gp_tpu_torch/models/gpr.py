@@ -2,12 +2,16 @@
 
 ``fit`` groups the points into experts, builds the kernel's
 theta-invariant gram cache once (``kernels/base.py``; kernels without
-one, and the matfree lane, go without), optimizes the noise-augmented
-kernel's hyperparameters against the summed per-expert NLL on the solver
-lane in effect (``setSolverLane``; autograd gradients, host L-BFGS-B
-within the kernel's box bounds), then builds the m-point Projected
-Process model.  The fitted model predicts
-the posterior mean (``predict``) and variance (``predict_with_var``).
+one, the matfree lane and the ELBO go without), optimizes the
+noise-augmented kernel's hyperparameters against the objective
+``setObjective`` names -- the summed per-expert NLL on the solver lane in
+effect (``setSolverLane``), the LOO pseudo-likelihood (``models/loo.py``)
+or the Titsias ELBO (``models/sgpr.py``) -- with autograd gradients and
+host L-BFGS-B within the kernel's box bounds, from one starting point or
+several (``setNumRestarts``), then builds the m-point Projected Process
+model.  The fitted model predicts the posterior mean (``predict``) and
+variance (``predict_with_var``); ``loo`` gives the per-expert
+leave-one-out diagnostics at a fitted model's theta.
 """
 
 from __future__ import annotations
@@ -17,10 +21,20 @@ from typing import Optional
 
 import numpy as np
 
-from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons
 from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
-from spark_gp_tpu_torch.utils.device import resolve_device
+from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
+
+
+def _check_xy(x, y):
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    if x.ndim != 2:
+        raise ValueError(f"x must be [N, p], got shape {x.shape}")
+    if y.shape != (x.shape[0],):
+        raise ValueError(f"y must be [N], got shape {y.shape}")
+    return x, y
 
 
 class GaussianProcessRegression(GaussianProcessCommons):
@@ -35,26 +49,27 @@ class GaussianProcessRegression(GaussianProcessCommons):
     >>> mean = model.predict(x_test)
     """
 
+    _restarts_ported = True
+
     def setObjective(self, objective: str) -> "GaussianProcessRegression":
-        """Only ``"marginal"`` (the BCM NLL) is ported."""
+        """``"marginal"`` (the default, the BCM NLL), ``"loo"`` (the LOO log
+        pseudo-likelihood, R&W section 5.4.2) or ``"elbo"`` (the Titsias
+        collapsed bound, with ``sigma2`` the likelihood noise: the active
+        set is selected once, before the optimization, at the kernel's
+        initial theta, shared by every restart and reused by the PPA
+        build)."""
         if objective not in ("marginal", "loo", "elbo"):
             raise ValueError(
                 f"unknown objective {objective!r}; "
                 "expected 'marginal', 'loo' or 'elbo'"
             )
-        if objective != "marginal":
-            raise _not_ported(f"the {objective!r} objective", 8)
+        self._objective = objective
         return self
 
     set_objective = setObjective
 
     def fit(self, x, y) -> "GaussianProcessRegressionModel":
-        x = np.asarray(x, dtype=np.float64)
-        y = np.asarray(y, dtype=np.float64)
-        if x.ndim != 2:
-            raise ValueError(f"x must be [N, p], got shape {x.shape}")
-        if y.shape != (x.shape[0],):
-            raise ValueError(f"y must be [N], got shape {y.shape}")
+        x, y = _check_xy(x, y)
         if not (np.all(np.isfinite(x)) and np.all(np.isfinite(y))):
             raise ValueError(
                 "x and y must be finite (quarantine of non-finite rows is "
@@ -68,15 +83,23 @@ class GaussianProcessRegression(GaussianProcessCommons):
         data = self._group(x, y, device)
         kernel = self._get_kernel()
         cache = self._gram_cache(kernel, data)
+        active, extra = None, ()
+        if self._objective == "elbo":
+            # the bound needs its inducing set before the optimization
+            active = self._select_active(kernel, kernel.init_theta(), x, y, device)
+            extra = (active, self._sigma2)
         clock.append(time.perf_counter())
-        res = self._optimize_hypers_body(kernel, make_value_and_grad(kernel, data, cache))
+        res, restart_metrics = self._optimize_with_restarts(
+            kernel, make_value_and_grad(kernel, data, cache, self._objective, extra)
+        )
         clock.append(time.perf_counter())
-        raw = self._projected_process(kernel, res.theta, x, y, data)
+        raw = self._projected_process(kernel, res.theta, x, y, data, active)
         clock.append(time.perf_counter())
         model = GaussianProcessRegressionModel(raw)
         model.metrics = {
             "num_experts": data.num_experts,
             "expert_size": data.expert_size,
+            "objective": self._objective,
             "lbfgs_iters": res.nit,
             "lbfgs_nfev": res.nfev,
             "final_nll": res.fun,
@@ -84,9 +107,31 @@ class GaussianProcessRegression(GaussianProcessCommons):
             "group_seconds": clock[1] - clock[0],
             "optimize_seconds": clock[2] - clock[1],
             "ppa_seconds": clock[3] - clock[2],
+            **restart_metrics,
         }
         self._emit_solver_stats(model.metrics, kernel, res.theta, data)
         return model
+
+    def loo(self, x, y, model: "Optional[GaussianProcessRegressionModel]" = None) -> dict:
+        """Exact per-expert leave-one-out diagnostics (``models/loo.py``)
+        of ``(x, y)`` grouped as this estimator groups them, at ``model``'s
+        fitted theta when given, else at the kernel's initial theta; one
+        batched inverse on the estimator's device."""
+        from spark_gp_tpu_torch.models.loo import loo_diagnostics
+
+        x, y, kernel, theta = self._resolve_eval_inputs(x, y, model)
+        device = resolve_device(self._device)
+        return loo_diagnostics(kernel, theta, x, y, self._dataset_size_for_expert,
+                               working_dtype(device), device)
+
+    def _resolve_eval_inputs(self, x, y, model):
+        """Checked ``(x, y)`` with the kernel and theta to evaluate at: the
+        model's fitted ones when given, else the initial theta."""
+        x, y = _check_xy(x, y)
+        if model is not None:
+            return x, y, model.raw_predictor.kernel, model.raw_predictor.theta
+        kernel = self._get_kernel()
+        return x, y, kernel, kernel.init_theta()
 
 
 class GaussianProcessRegressionModel:

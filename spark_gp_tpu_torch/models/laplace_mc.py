@@ -18,7 +18,8 @@ and the normalizer's log-determinant splits the same way:
 
 Every ``B_c`` is inverted in one batched pass over the ``[E * C, s, s]``
 stack: on a CUDA float32 stack with ``s <= 512`` the hand-written kernel
-of ``ops/spd_linalg.py`` (K1), on the CPU one batched Cholesky.  On the
+of ``ops/spd_linalg.py`` (K1), on the CPU one batched Cholesky
+(``spd_linalg.batched_spd_inv_logdet``).  On the
 iterative lanes the Newton step is one CG solve on the factored operator
 ``I + S^T K_blk S`` and the log-determinant its SLQ estimate
 (``ops/iterative.py``).
@@ -47,24 +48,7 @@ import torch
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops import spd_linalg
-from spark_gp_tpu_torch.ops.linalg import chol_logdet, chol_solve, cholesky
-
-
-def _batched_spd_inv_logdet(mats):
-    """``(B^-1, logdet B)`` of an ``[..., s, s]`` SPD stack, flattened to
-    one ``[B, s, s]`` batch before the call: K1 on a stack it takes
-    (``spd_linalg.kernel_applies``), else one batched Cholesky.  The
-    multiclass step consumes the inverses as matrices, so both branches
-    build them."""
-    shape = mats.shape
-    flat = mats.reshape((-1,) + shape[-2:])
-    if spd_linalg.kernel_applies(flat):
-        inv, logdet = spd_linalg.spd_inv_logdet(flat)
-    else:
-        chol_l = cholesky(flat)
-        eye = torch.eye(shape[-1], dtype=mats.dtype, device=mats.device).expand(flat.shape)
-        inv, logdet = chol_solve(chol_l, eye), chol_logdet(chol_l)
-    return inv.reshape(shape), logdet.reshape(shape[:-2])
+from spark_gp_tpu_torch.ops.linalg import chol_solve, cholesky
 
 
 class McStep(NamedTuple):
@@ -104,7 +88,7 @@ def _mc_newton_quantities(kmat, y1h, mask, f, with_logdet: bool = True) -> McSte
     eye = torch.eye(kmat.shape[-1], dtype=kmat.dtype, device=kmat.device)
     sq_ec = sqd.movedim(-1, 1)  # [E, C, s]
     b_mats = eye + sq_ec[..., :, None] * kmat[:, None] * sq_ec[..., None, :]
-    binv, logdet_b = _batched_spd_inv_logdet(b_mats)  # [E, C, s, s], [E, C]
+    binv, logdet_b = spd_linalg.batched_spd_inv_logdet(b_mats)  # [E, C, s, s], [E, C]
 
     # E_c = sqrt(D_c) B_c^-1 sqrt(D_c); M = chol(sum_c E_c + pad identity)
     e_mats = sq_ec[..., :, None] * binv * sq_ec[..., None, :]

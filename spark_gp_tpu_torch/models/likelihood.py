@@ -1,4 +1,6 @@
-"""BCM (product-of-experts) marginal likelihood for GP regression.
+"""The regression objectives: the BCM (product-of-experts) marginal
+likelihood, and the dispatch to the LOO and ELBO objectives
+(:func:`objective_fn`).
 
 Per expert, with the noise-augmented kernel matrix K,
 
@@ -125,18 +127,49 @@ def batched_nll(kernel: Kernel, theta, data: ExpertData, cache=None):
     return nll_from_cholesky(kmat, ym)
 
 
-def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None):
-    """``theta (float64 numpy) -> (float, float64 numpy grad)``: theta is cast
-    to the stack's dtype and device, and the value and gradient come back
-    to the host in one transfer.  ``cache``: as for :func:`batched_nll`,
-    resident on the device across evaluations."""
+def objective_fn(objective: str):
+    """The stack objective ``setObjective`` selects, as
+    ``(kernel, theta, data, cache, *extra) -> scalar``: the BCM marginal
+    NLL (:func:`batched_nll`, on the solver lane in effect), the negative
+    LOO log pseudo-likelihood (``models/loo.py``; K1 or the Cholesky
+    branch whatever the lane) or the negative Titsias ELBO
+    (``models/sgpr.py``; ``extra = (active, sigma2)``, no gram cache)."""
+    if objective == "marginal":
+        return batched_nll
+    if objective == "loo":
+        from spark_gp_tpu_torch.models.loo import batched_loo_nll
+
+        return batched_loo_nll
+    if objective == "elbo":
+        from spark_gp_tpu_torch.models.sgpr import batched_elbo_nll
+
+        return lambda kernel, theta, data, cache, active, sigma2: batched_elbo_nll(
+            kernel, theta, data, active, sigma2)
+    raise ValueError(
+        f"unknown objective {objective!r}; expected 'marginal', 'loo' or 'elbo'"
+    )
+
+
+def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
+                        objective: str = "marginal", extra=()):
+    """``theta (float64 numpy) -> (float, float64 numpy grad)`` of
+    ``objective`` (:func:`objective_fn`; ``extra`` is the ELBO's
+    ``(active [m, p] numpy, sigma2)``): theta is cast to the stack's dtype
+    and device, and the value and gradient come back to the host in one
+    transfer.  ``cache``: as for :func:`batched_nll`, resident on the
+    device across evaluations."""
+    fn = objective_fn(objective)
+    if objective == "elbo":
+        active, sigma2 = extra
+        extra = (torch.as_tensor(np.asarray(active, dtype=np.float64), dtype=data.x.dtype,
+                                 device=data.x.device), sigma2)
 
     def vag(theta):
         t = torch.as_tensor(
             np.asarray(theta, dtype=np.float64), dtype=data.x.dtype,
             device=data.x.device,
         ).requires_grad_(True)
-        value = batched_nll(kernel, t, data, cache)
+        value = fn(kernel, t, data, cache, *extra)
         (grad,) = torch.autograd.grad(value, t)
         host = torch.cat([value.detach()[None], grad]).to(torch.float64).cpu().numpy()
         return float(host[0]), host[1:]

@@ -16,6 +16,10 @@ The BCM likelihood needs, for every expert's ``s x s`` gram: ``log|K|``,
   in plain PyTorch (Cholesky, logdet from the diagonal, ``cholesky_inverse``);
 * anything else on CUDA raises -- there is no silent fallback.
 
+:func:`batched_spd_inv_logdet` is the callers' gate: K1 on a stack the
+kernel takes (:func:`kernel_applies`), one batched Cholesky otherwise --
+the CPU, float64, and a CUDA stack with ``n > 512``.
+
 A non-PD matrix yields NaN for that matrix, never an exception.  The
 gradient is a :class:`torch.autograd.Function` whose backward is the JAX
 package's VJP, ``K_bar = -K^-1 G K^-1 + g_logdet K^-1``: two batched
@@ -30,7 +34,7 @@ import functools
 import torch
 
 from spark_gp_tpu_torch.ops import cuda_lib
-from spark_gp_tpu_torch.ops.linalg import chol_logdet, cholesky
+from spark_gp_tpu_torch.ops.linalg import chol_logdet, chol_solve, cholesky
 
 N_MAX = 512  # largest matrix the kernel takes
 
@@ -138,3 +142,19 @@ def spd_inv_logdet(k: torch.Tensor):
 
 #: kernel launches since the last reset (the wrapper's launch counter)
 spd_inv_logdet.launches = 0
+
+
+def batched_spd_inv_logdet(mats):
+    """``(B^-1, logdet B)`` of an ``[..., s, s]`` SPD stack, flattened to
+    one ``[B, s, s]`` batch before the call: K1 on a stack it takes
+    (:func:`kernel_applies`), else one batched Cholesky, whose inverse is
+    two triangular solves against the identity."""
+    shape = mats.shape
+    flat = mats.reshape((-1,) + shape[-2:])
+    if kernel_applies(flat):
+        inv, logdet = spd_inv_logdet(flat)
+    else:
+        chol_l = cholesky(flat)
+        eye = torch.eye(shape[-1], dtype=mats.dtype, device=mats.device).expand(flat.shape)
+        inv, logdet = chol_solve(chol_l, eye), chol_logdet(chol_l)
+    return inv.reshape(shape), logdet.reshape(shape[:-2])

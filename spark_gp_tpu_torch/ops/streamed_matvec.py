@@ -46,14 +46,20 @@ def rbf_tile(params, sqd, degree: int = 1):
     return torch.exp(sqd / (-2.0 * sigma * sigma))
 
 
-def _safe_r(sqd):
+def safe_r(sqd):
+    """``sqrt(max(r^2, 1e-24))``: the Matern distance, with a finite
+    derivative at coincident points."""
     return torch.sqrt(torch.clamp_min(sqd, R2_FLOOR))
 
 
 def matern_tile(nu2: int, params, sqd, degree: int = 1):
     """Matern with ``2 nu = nu2`` in {1, 3, 5} of the scaled distance
     ``a = sqrt(nu2) r / sigma``."""
-    a = math.sqrt(nu2) * _safe_r(sqd) / params[0]
+    return matern_of_a(nu2, math.sqrt(nu2) * safe_r(sqd) / params[0])
+
+
+def matern_of_a(nu2: int, a):
+    """The Matern correlation of the scaled distance ``a``."""
     if nu2 == 1:
         return torch.exp(-a)
     if nu2 == 3:

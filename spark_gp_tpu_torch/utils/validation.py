@@ -1,4 +1,5 @@
-"""Model evaluation: RMSE, accuracy, shuffled k-fold cross-validation,
+"""Model evaluation: RMSE, accuracy, the mean negative log predictive
+density, shuffled k-fold cross-validation,
 a single train/validation split and the one-vs-rest multiclass reduction
 (the counterparts of Spark ML's evaluators, CrossValidator with an empty
 grid, TrainValidationSplit and OneVsRest)."""
@@ -20,6 +21,18 @@ def accuracy(y_true, y_pred) -> float:
 
 
 accuracy.greater_is_better = True
+
+
+def nlpd(y_true, mean, var) -> float:
+    """Mean negative log predictive density under Gaussian predictive
+    marginals (R&W eq. 2.34), from ``model.predict_with_var``'s output.
+    The variance is floored at 1e-12: a zero predictive variance scores a
+    finite (large) penalty, and an exact interpolation at most
+    ``log(1e-12)``."""
+    y = np.asarray(y_true, dtype=np.float64)
+    mu = np.asarray(mean, dtype=np.float64)
+    v = np.maximum(np.asarray(var, dtype=np.float64), 1e-12)
+    return float(np.mean(0.5 * (np.log(2.0 * np.pi * v) + (y - mu) ** 2 / v)))
 
 
 def kfold_indices(n: int, num_folds: int, seed: int = 0):

@@ -86,11 +86,13 @@ def test_non_finite_rows_raise():
     "call",
     [
         lambda gp: gp.setOptimizer("device"),
-        lambda gp: gp.setNumRestarts(3),
+        # restarts are ported for regression only
+        lambda gp: tgp.GaussianProcessClassifier(device="cpu").setNumRestarts(3),
         lambda gp: gp.setMesh(object()),
         lambda gp: gp.setCheckpointDir("ckpt"),
-        lambda gp: gp.setObjective("loo"),
-        lambda gp: gp.setObjective("elbo"),
+        lambda gp: tgp.GaussianProcessMulticlassClassifier(device="cpu").setNumRestarts(2),
+        # the batched device multi-start waits for the device optimizer
+        lambda gp: gp.setObjective("elbo").setNumRestarts(2).setOptimizer("device"),
     ],
 )
 def test_unported_options_name_their_roadmap_item(call):
@@ -103,6 +105,8 @@ def test_ported_options_accept_defaults():
     assert gp.setOptimizer("auto") is gp and gp.setOptimizer("host") is gp
     assert gp.setNumRestarts(1) is gp and gp.setMesh(None) is gp
     assert gp.setCheckpointDir(None) is gp and gp.setObjective("marginal") is gp
+    assert gp.setObjective("loo") is gp and gp.setObjective("elbo") is gp
+    assert gp.setNumRestarts(3) is gp and gp._num_restarts == 3
     with pytest.raises(ValueError):
         gp.setOptimizer("gpu")
     with pytest.raises(ValueError):

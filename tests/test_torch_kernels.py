@@ -113,8 +113,8 @@ def test_scalar_dsl_bounds_match_jax():
             np.testing.assert_array_equal(t_b, j_b)
     with pytest.raises(ValueError):
         tgp.Scalar(-1.0) * tgp.RBFKernel()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgp.RBFKernel() * tgp.RBFKernel()
+    product = tgp.RBFKernel(0.5) * tgp.RBFKernel(2.0)
+    np.testing.assert_array_equal(product.init_theta(), [0.5, 2.0])
 
 
 def test_self_distance_diagonal_has_finite_gradient():
