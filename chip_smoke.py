@@ -20,7 +20,9 @@ code is non-zero and the final ``ok`` line is never printed:
                of a non-PD matrix and the backward, each at n = 100 and
                on the workspace path; the Synthetics and timeseries
                stacks (18, 100), (20, 100), (2, 120) and the LOO
-               objective's cotangent through K1's VJP at (18, 100).  K2 and
+               objective's cotangent through K1's VJP at (18, 100); EP's
+               B stack (7, 20), the Poisson config's (20, 100) and the
+               greedy-scale gram stack (400, 100).  K2 and
                K2-VJP: all seven tile transforms on the protein-matfree
                row stack (9, 4065, 9) at the path's widths n = 1, 8, 9,
                on a ragged (3, 1000, 5) stack at n = 1, 4, on (2, 777, 21)
@@ -122,7 +124,30 @@ code is non-zero and the final ``ok`` line is never printed:
                mixture kernels and two products: gram, cross, NLL and
                gradient on the card against the CPU at (4, 100, 5).
 27. regression-phases -- the seconds of phases 21-26.
-28. kernels -- one line with every kernel's numbers.
+28. greedy-vs-random -- quality.py's part verbatim: the greedy (Seeger)
+               provider against random at seeds 13, 17, 29 on density-
+               skewed 1-d data (E = 20, s = 100, m = 24): greedy RMSE
+               < 0.05 and below the best random; K1 launches = evaluations.
+29. greedy-scale -- quality.py's part verbatim on the Year-MSD stand-in
+               (40,000 x 90 training rows, E = 400, s = 100, m = 512):
+               greedy and random RMSE within 0.02 of the JAX package's,
+               fit and selection seconds; K1 launches = evaluations.
+30. joint-posterior -- the Synthetics config on the 1500 / 500 split:
+               predict_with_cov's diagonal against predict_with_var,
+               20,000 posterior draws against the covariance, update with
+               the 500 rows against the statistics of all 2000.
+31. iris-ep -- examples/iris.py --ep verbatim (one-vs-rest EP, E = 7,
+               s = 20), 10-fold CV on the card and the CPU: accuracy > 0.9,
+               K1 launches = sweeps + evaluations + fits.
+32-34. poisson, poisson-nb, poisson-iterative -- quality.py's poisson
+               part verbatim (E = 20, s = 100): rate error < 0.1 / 0.15 /
+               0.1, K1 launches = Newton iterations + 2 x evaluations (0 on
+               the iterative lane); the exact-lane fits again on the CPU.
+35. new-objective-parity -- EP's and the Poisson objective's value and
+               gradient at init theta and theta*: K1 against the Cholesky
+               route on the card, and the card against the CPU.
+36. slice6-phases -- the seconds of phases 28-35.
+37. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -612,28 +637,34 @@ def iris_native_cv(torch, d: dict, device=None) -> dict:
     return cv_fits(torch, d, lambda: iris_native_gpc(device), lambda model: [model], device)
 
 
-def cv_fits(torch, d: dict, make, models, device) -> dict:
+def cv_fits(torch, d: dict, make, models, device, engine: str = "newton_iterations") -> dict:
     """A fit of ``make()`` per iris fold: the mean accuracy, the metrics of
-    the fitted classifiers (``models(fitted)``) summed, their (E, s) and
-    ``gram_cache_engaged`` values, and the seconds of the whole."""
+    the fitted classifiers (``models(fitted)``) summed (``engine`` names
+    the inference engine's count: Newton iterations, or EP's sweeps), their
+    number, (E, s) and ``gram_cache_engaged`` values, and the seconds of
+    the whole."""
     from spark_gp_tpu_torch.utils.validation import accuracy
 
     start = time.perf_counter()
-    scores, sums, shapes, engaged = [], dict.fromkeys(GPC_METRICS[2:], 0), set(), set()
+    keys = ("lbfgs_nfev", engine, "objective_calls") + PHASES
+    scores, sums, shapes, engaged, fits = [], dict.fromkeys(keys, 0), set(), set(), []
     for train, test in d["folds_i"]:
         fitted = make().fit(d["xi"][train], d["yi"][train])
         scores.append(accuracy(d["yi"][test], fitted.predict(d["xi"][test])))
         for model in models(fitted):
+            fits.append(model)
             shapes.add((model.metrics["num_experts"], model.metrics["expert_size"]))
             engaged.add(model.metrics["gram_cache_engaged"])
             for key in sums:
                 sums[key] += model.metrics[key]
     if device is None:
         torch.cuda.synchronize()
+    per_eval = "newton_per_eval" if engine == "newton_iterations" else f"{engine}_per_eval"
     return {"accuracy": float(np.mean(scores)), "seconds": time.perf_counter() - start,
-            "experts": sorted(shapes), **sums,
-            "newton_per_eval": sums["newton_iterations"] / sums["objective_calls"],
-            "gram_cache_engaged": sorted(engaged)}
+            "experts": sorted(shapes), **sums, "fits": len(fits),
+            per_eval: sums[engine] / sums["objective_calls"],
+            "gram_cache_engaged": sorted(engaged),
+            "first_theta": fits[0].raw_predictor.theta.tolist()}
 
 
 def check_against_plain(torch, spd, k, label: str):
@@ -1585,6 +1616,499 @@ def kernel_family_checks(torch) -> dict:
     return out
 
 
+# the JAX package's numbers on this slice's configs on the CPU
+# (QUALITY_r05.json: the greedy_vs_random, greedy_scale, iris_ep and
+# poisson parts), for comparison
+JAX_CPU_SLICE6 = {
+    "greedy_rmse": 0.010887112873454743,
+    "random_rmses": [0.1530516769296176, 0.15334854217587543, 0.14690949019052327],
+    "greedy_scale": {"greedy": 0.6051842540933051, "random": 0.6095638809416019,
+                     "greedy_fit_seconds": 22.400155260998872,
+                     "greedy_active_set_seconds": 16.847409398003947},
+    "iris_ep": 0.9400000000000001,
+    "poisson": 0.024360798610672363, "poisson_nb": 0.04785056044988611,
+}
+# quality.py's bars: greedy below 0.05 and below the best random seed;
+# each greedy-scale RMSE within 0.02 of the JAX package's; iris EP; the
+# Poisson and NB rate errors (the iterative lane held to Poisson's)
+SLICE6_BARS = {"greedy": 0.05, "greedy_scale_spread": 0.02, "iris_ep": 0.9,
+               "poisson": 0.1, "poisson_nb": 0.15, "poisson_iterative": 0.1}
+# the joint posterior: predict_with_cov's diagonal against predict_with_var
+# (float32 on the card), over the prior variance k(x, x): the variance
+# k(x, x) + k(x, A) M k(x, A)^T cancels ~1.5 to ~0.01 here, so float32
+# rounding of the two evaluation orders is ~1e-7 of k(x, x) and ~1e-5 of
+# the variance itself (recorded); and update's float64 statistics
+# against the A u B statistics
+JOINT_BARS = {"cov_diag_rel_prior": 1e-5, "update_stats_rel": 1e-8}
+# card vs CPU and K1 route vs Cholesky route on the EP and generic
+# Laplace objectives: the classifiers' bars (value; gradient over its
+# largest component at init theta)
+NEW_OBJECTIVE_BARS = (1e-4, 1e-3)
+
+
+def greedy_vs_random_data():
+    """quality.py ``part_greedy_vs_random``'s data, copied: 2000 points,
+    95% of them in [0, 0.5), the rest spread over [0.5, 20)."""
+    rng = np.random.default_rng(7)
+    n = 2000
+    x = np.concatenate(
+        [rng.uniform(0.0, 0.5, size=int(0.95 * n)),
+         rng.uniform(0.5, 20.0, size=n - int(0.95 * n))]
+    )[:, None]
+    return x, np.sin(1.5 * x[:, 0]) + 0.01 * rng.normal(size=n)
+
+
+def greedy_vs_random_gp(provider, seed: int, device=None):
+    """quality.py ``part_greedy_vs_random``'s estimator, copied:
+    ``RBF(0.3, 1e-6, 10)``, active 24, maxiter 30."""
+    from spark_gp_tpu_torch import GaussianProcessRegression, RBFKernel
+
+    return (GaussianProcessRegression(device=device)
+            .setKernel(lambda: RBFKernel(0.3, 1e-6, 10)).setActiveSetSize(24)
+            .setActiveSetProvider(provider).setMaxIter(30).setSeed(seed))
+
+
+def prep_regression(loader, n: int):
+    """quality.py ``_prep_regression``, copied: the 80/20 split at seed 13,
+    features z-scored and targets standardized on the training rows;
+    ``(x, ys, tr, te)``."""
+    from spark_gp_tpu_torch.ops.scaling import fit_scaler
+
+    x, y = loader(None, n=n)
+    perm = np.random.default_rng(13).permutation(x.shape[0])
+    cut = int(0.8 * x.shape[0])
+    tr, te = perm[:cut], perm[cut:]
+    mean, std = fit_scaler(x[tr])
+    x = (x - mean) / std
+    return x, (y - y[tr].mean()) / y[tr].std(), tr, te
+
+
+def ard_kernel_factory(p: int):
+    """quality.py ``_ard_kernel_factory``, copied: dimension-aware ARD init
+    and trained white noise."""
+    from spark_gp_tpu_torch import ARDRBFKernel, WhiteNoiseKernel
+
+    return lambda: 1.0 * ARDRBFKernel(p, p ** -0.5) + WhiteNoiseKernel(0.1, 0.0, 1.0)
+
+
+def greedy_scale_gp(provider, max_iter: int, p: int, m: int = 512):
+    """quality.py ``part_greedy_scale``'s ``make_gp``, copied: expert 100,
+    active ``m``, seed 13."""
+    from spark_gp_tpu_torch import GaussianProcessRegression
+
+    return (GaussianProcessRegression().setKernel(ard_kernel_factory(p))
+            .setDatasetSizeForExpert(100).setActiveSetSize(m)
+            .setActiveSetProvider(provider).setMaxIter(max_iter).setSeed(13))
+
+
+def ep_gpc(device=None):
+    """examples/iris.py ``make_ep_gpc``, copied: the EP engine at expert 20,
+    active 30."""
+    from spark_gp_tpu_torch import GaussianProcessEPClassifier
+
+    return GaussianProcessEPClassifier(device=device).setDatasetSizeForExpert(20) \
+        .setActiveSetSize(30)
+
+
+def poisson_data() -> dict:
+    """quality.py ``part_poisson``'s data, copied: rate exp(1 + sin 2x) on
+    2000 points of [0, 4] at seed 42, Poisson counts, then gamma-Poisson
+    (dispersion 2) counts from the same generator."""
+    rng = np.random.default_rng(42)
+    n = 2000
+    x = np.linspace(0, 4, n)[:, None]
+    rate = np.exp(1.0 + np.sin(2 * x[:, 0]))
+    y = rng.poisson(rate).astype(np.float64)
+    lam = rate * rng.gamma(shape=2.0, scale=0.5, size=n)
+    return {"x": x, "rate": rate, "y": y, "y_nb": rng.poisson(lam).astype(np.float64)}
+
+
+def poisson_gp(dispersion=None, device=None):
+    """quality.py ``part_poisson``'s estimators, copied: ``1.0 * RBF(0.5,
+    1e-2, 10)``, active 100, maxiter 25 (expert 100, sigma2 1e-3)."""
+    from spark_gp_tpu_torch import (
+        GaussianProcessNegativeBinomialRegression,
+        GaussianProcessPoissonRegression,
+        RBFKernel,
+    )
+
+    gp = (GaussianProcessPoissonRegression(device=device) if dispersion is None
+          else GaussianProcessNegativeBinomialRegression(dispersion, device=device))
+    return gp.setKernel(lambda: 1.0 * RBFKernel(0.5, 1e-2, 10.0)).setActiveSetSize(100) \
+        .setMaxIter(25)
+
+
+def timed_greedy():
+    """The greedy provider, recording the seconds of each selection (the
+    card synchronized at both ends) in ``seconds``."""
+    import torch
+
+    from spark_gp_tpu_torch import GreedilyOptimizingActiveSetProvider
+
+    class Timed(GreedilyOptimizingActiveSetProvider):
+        def __init__(self):
+            self.seconds = []
+
+        def __call__(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            rows = super().__call__(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - start)
+            return rows
+
+    return Timed()
+
+
+def slice6_data() -> dict:
+    """The data of this slice's configs: greedy-vs-random's, the Year-MSD
+    stand-in (50,000 x 90) prepared as quality.py does, the Poisson / NB
+    counts."""
+    from spark_gp_tpu_torch.data import load_year_msd
+
+    xg, yg = greedy_vs_random_data()
+    xy, ysy, tr, te = prep_regression(load_year_msd, 50000)
+    return {"xg": xg, "yg": yg, "xy": xy, "ysy": ysy, "tr_y": tr, "te_y": te,
+            **poisson_data()}
+
+
+def slice6_stacks(torch, ep, lg, d6: dict, cdata: dict) -> dict:
+    """The stacks this slice hands K1, from the fits' own inputs at init
+    theta: EP's B = I + S K S at the converged sites of the first iris
+    fold's first one-vs-rest problem (7, 20); the generic Laplace's
+    B = I + W^1/2 K W^1/2 at the Poisson config's converged mode
+    (20, 100); the greedy-scale fit's marginal gram stack (400, 100)."""
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
+
+    dev = torch.device("cuda")
+    out = {}
+    train = cdata["folds_i"][0][0]
+    gp = ep_gpc()
+    kernel = gp._get_kernel()
+    data = gp._group(cdata["xi"][train], (cdata["yi"][train] == 0).astype(np.float64), dev)
+    theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device=dev)
+    kmat = masked_gram_stack(kernel, theta, data.x, data.mask)
+    zeros = torch.zeros_like(data.y)
+    tau, _, _ = ep.ep_fit_sites(kmat, (2.0 * data.y - 1.0) * data.mask, data.mask, zeros,
+                                zeros, gp._tol)
+    sq = torch.sqrt(tau)
+    out["ep_iris_b"] = (torch.eye(kmat.shape[-1], device=dev)
+                        + sq[:, :, None] * kmat * sq[:, None, :])
+
+    gp = poisson_gp()
+    kernel = gp._get_kernel()
+    data = gp._group(d6["x"], d6["y"], dev)
+    theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device=dev)
+    kmat = masked_gram_stack(kernel, theta, data.x, data.mask)
+    f, _ = lg.laplace_generic_mode(gp._likelihood, kmat, data.y, data.mask,
+                                   torch.zeros_like(data.y), gp._tol)
+    sqw = torch.sqrt(torch.exp(f) * data.mask)
+    out["poisson_b"] = (torch.eye(kmat.shape[-1], device=dev)
+                        + sqw[:, :, None] * kmat * sqw[:, None, :])
+
+    gp = greedy_scale_gp(None, 12, d6["xy"].shape[1])
+    kernel = gp._get_kernel()
+    data = gp._group(d6["xy"][d6["tr_y"]], d6["ysy"][d6["tr_y"]], dev)
+    theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device=dev)
+    out["year_msd"] = masked_gram_stack(kernel, theta, data.x, data.mask)
+    for label, shape in (("ep_iris_b", (7, 20)), ("poisson_b", (20, 100)),
+                         ("year_msd", (400, 100))):
+        if tuple(out[label].shape) != (shape[0], shape[1], shape[1]):
+            raise AssertionError(f"{label} stack {tuple(out[label].shape)}, expected {shape}")
+    return out
+
+
+def count_fit(gp, d6: dict, y) -> dict:
+    """A count-regression fit on quality.py's Poisson data: the mean
+    relative error of the predicted rate against the planted one, the
+    fit's metrics and Newton iterations per evaluation, the seconds."""
+    start = time.perf_counter()
+    model = gp.fit(d6["x"], y)
+    rate = model.predict_rate(d6["x"])
+    seconds = time.perf_counter() - start
+    if not (np.all(np.isfinite(rate)) and rate.shape == d6["rate"].shape):
+        raise AssertionError("count predictions not finite")
+    m = model.metrics
+    return {"mean_relative_rate_error": float(np.mean(np.abs(rate - d6["rate"]) / d6["rate"])),
+            "seconds": seconds, "theta": model.raw_predictor.theta.tolist(),
+            **{key: m[key] for key in ("num_experts", "expert_size", "solver_lane",
+                                       "lbfgs_nfev", "newton_iterations", "objective_calls",
+                                       "gram_cache_engaged") + PHASES},
+            "newton_per_eval": m["newton_iterations"] / m["objective_calls"]}
+
+
+def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> dict:
+    """This slice's phases (the greedy provider, the joint posterior, EP,
+    count regression; the module doc's phases after regression-phases);
+    returns K1's launches on each."""
+    from spark_gp_tpu_torch import RandomActiveSetProvider
+    from spark_gp_tpu_torch.kernels.base import prepare_gram_cache
+    from spark_gp_tpu_torch.models import ep
+    from spark_gp_tpu_torch.models import laplace_generic as lg
+    from spark_gp_tpu_torch.models.ppa import kmn_stats
+    from spark_gp_tpu_torch.ops import iterative as it_ops
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+    from spark_gp_tpu_torch.utils.validation import OneVsRest, rmse
+
+    start_all = time.perf_counter()
+    launches = {}
+
+    # greedy-vs-random: quality.py's part verbatim (E = 20, s = 100): the
+    # greedy fit at seed 13, random at seeds 13, 17, 29; RMSE on the
+    # training rows; K1 once an evaluation of every fit
+    spd.spd_inv_logdet.launches = 0
+    start = time.perf_counter()
+    rows, nfev = {}, 0
+    for label, provider, seed in (("greedy", timed_greedy(), 13),
+                                  ("random_13", RandomActiveSetProvider, 13),
+                                  ("random_17", RandomActiveSetProvider, 17),
+                                  ("random_29", RandomActiveSetProvider, 29)):
+        fit_start = time.perf_counter()
+        model = greedy_vs_random_gp(provider, seed).fit(d6["xg"], d6["yg"])
+        pred = model.predict(d6["xg"])
+        m = model.metrics
+        rows[label] = {"rmse": rmse(d6["yg"], pred), "seconds": time.perf_counter() - fit_start,
+                       "nfev": m["lbfgs_nfev"], "gram_cache_engaged": m["gram_cache_engaged"],
+                       "shape": [m["num_experts"], m["expert_size"]]}
+        if label == "greedy":
+            rows[label]["active_set_seconds"] = provider.seconds[0]
+        nfev += m["lbfgs_nfev"]
+        if not (np.all(np.isfinite(pred)) and rows[label]["shape"] == [20, 100]):
+            raise AssertionError(f"greedy-vs-random {label}: {rows[label]}")
+    launches["greedy_vs_random"] = spd.spd_inv_logdet.launches
+    best_random = min(rows[k]["rmse"] for k in rows if k != "greedy")
+    emit({"phase": "greedy-vs-random", **rows, "best_random_rmse": best_random,
+          "launches": launches["greedy_vs_random"], "nfev": nfev,
+          "seconds": time.perf_counter() - start, "bar": SLICE6_BARS["greedy"],
+          "jax_cpu": {"greedy_rmse": JAX_CPU_SLICE6["greedy_rmse"],
+                      "random_rmses": JAX_CPU_SLICE6["random_rmses"]}})
+    if not (rows["greedy"]["rmse"] < SLICE6_BARS["greedy"] and rows["greedy"]["rmse"] < best_random
+            and launches["greedy_vs_random"] == nfev > 0):
+        raise AssertionError(f"greedy-vs-random: greedy {rows['greedy']['rmse']}, best random "
+                             f"{best_random}, {launches['greedy_vs_random']} K1 launches for "
+                             f"{nfev} evaluations")
+
+    # greedy-scale: quality.py's part verbatim on the Year-MSD stand-in
+    # (40,000 x 90 training rows, E = 400, s = 100, m = 512): one warm-up
+    # fit of each provider at maxiter 1, then greedy and random at
+    # maxiter 12; K1 once an evaluation at (400, 100)
+    xy, ysy, tr, te = d6["xy"], d6["ysy"], d6["tr_y"], d6["te_y"]
+    p = xy.shape[1]
+    spd.spd_inv_logdet.launches = 0
+    nfev = 0
+    start = time.perf_counter()
+    for provider in (RandomActiveSetProvider, timed_greedy()):
+        nfev += greedy_scale_gp(provider, 1, p).fit(xy[tr], ysy[tr]).metrics["lbfgs_nfev"]
+    warmup_seconds = time.perf_counter() - start
+    scale = {}
+    for label, provider in (("greedy", timed_greedy()), ("random", RandomActiveSetProvider)):
+        torch.cuda.synchronize()
+        fit_start = time.perf_counter()
+        model = greedy_scale_gp(provider, 12, p).fit(xy[tr], ysy[tr])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - fit_start
+        pred = model.predict(xy[te])
+        m = model.metrics
+        scale[label] = {"fit_seconds": seconds, "rmse_scaled": rmse(ysy[te], pred),
+                        "nfev": m["lbfgs_nfev"], "gram_cache_engaged": m["gram_cache_engaged"],
+                        "shape": [m["num_experts"], m["expert_size"]],
+                        **{key: m[key] for key in PHASES},
+                        "jax_cpu_rmse": JAX_CPU_SLICE6["greedy_scale"][label]}
+        if label == "greedy":
+            scale[label]["active_set_seconds"] = provider.seconds[0]
+        nfev += m["lbfgs_nfev"]
+        if not (np.all(np.isfinite(pred)) and scale[label]["shape"] == [400, 100]
+                and m["gram_cache_engaged"] == 0.0):
+            raise AssertionError(f"greedy-scale {label}: {scale[label]}")
+    launches["greedy_scale"] = spd.spd_inv_logdet.launches
+    emit({"phase": "greedy-scale", "n": int(xy.shape[0]), "p": p, "m": 512, **scale,
+          "launches": launches["greedy_scale"], "nfev": nfev, "warmup_seconds": warmup_seconds,
+          "seconds": time.perf_counter() - start,
+          "bar_spread": SLICE6_BARS["greedy_scale_spread"],
+          "jax_cpu_greedy_fit_seconds": JAX_CPU_SLICE6["greedy_scale"]["greedy_fit_seconds"],
+          "jax_cpu_greedy_active_set_seconds":
+              JAX_CPU_SLICE6["greedy_scale"]["greedy_active_set_seconds"], "card": smi})
+    for label in ("greedy", "random"):
+        if not abs(scale[label]["rmse_scaled"] - JAX_CPU_SLICE6["greedy_scale"][label]) \
+                < SLICE6_BARS["greedy_scale_spread"]:
+            raise AssertionError(f"greedy-scale {label} RMSE {scale[label]['rmse_scaled']}")
+    if launches["greedy_scale"] != nfev:
+        raise AssertionError(f"greedy-scale: {launches['greedy_scale']} K1 launches for {nfev} "
+                             "evaluations")
+
+    # joint-posterior: the Synthetics config fitted on the objectives
+    # split's 1500 rows (A); predict_with_cov against predict_with_var on
+    # 200 held-out rows; 20,000 posterior draws at 50 of them against the
+    # covariance; update with the 500 held-out rows (B) against the
+    # statistics of A and B together at the same theta and active set
+    x, y, tr_s, te_s = rdata["x"], rdata["y"], rdata["tr"], rdata["te"]
+    spd.spd_inv_logdet.launches = 0
+    start = time.perf_counter()
+    model = synthetics_gp().fit(x[tr_s], y[tr_s])
+    launches["joint_posterior"] = spd.spd_inv_logdet.launches
+    nfev = model.metrics["lbfgs_nfev"]
+    xt = x[te_s][:200]
+    mean, cov = model.predict_with_cov(xt)
+    mean_v, var = model.predict_with_var(xt)
+    prior = float(np.max(model.raw_predictor.kernel.self_diag(
+        torch.as_tensor(model.raw_predictor.theta), torch.as_tensor(xt)).numpy()))
+    diag_err = float(np.max(np.abs(np.diag(cov) - var))) / prior
+    diag_err_var = float(np.max(np.abs(np.diag(cov) - var) / np.abs(var)))
+    mean_err = float(np.max(np.abs(mean - mean_v)) / np.max(np.abs(mean_v)))
+    n_draws = 20000
+    draws = model.sample_posterior(xt[:50], n_samples=n_draws, seed=5)
+    c50 = np.asarray(cov[:50, :50], dtype=np.float64)
+    centered = draws - draws.mean(axis=0)
+    sample_cov = centered.T @ centered / (n_draws - 1)
+    cov_err = float(np.linalg.norm(sample_cov - c50) / np.linalg.norm(c50))
+    # 5 standard deviations of a sample covariance's Frobenius error
+    cov_bar = 5.0 * float(np.sqrt((np.linalg.norm(c50) ** 2 + np.trace(c50) ** 2)
+                                  / n_draws) / np.linalg.norm(c50))
+    updated = model.update(x[te_s], y[te_s])
+    raw, up = model.raw_predictor, updated.raw_predictor
+    # the statistics of A and B together: A's rows as the fit held them
+    # (float32 on the card), B's as update reads them (float64)
+    xa = x[tr_s].astype(np.float32).astype(np.float64)
+    ya = y[tr_s].astype(np.float32).astype(np.float64)
+    union = group_for_experts(np.concatenate([xa, x[te_s]]), np.concatenate([ya, y[te_s]]), 100,
+                              dtype=torch.float64, device="cuda")
+    u1, u2 = kmn_stats(raw.kernel, torch.as_tensor(raw.theta, device="cuda"),
+                       torch.as_tensor(raw.active, device="cuda"), union)
+    u1, u2 = u1.cpu().numpy(), u2.cpu().numpy()
+    stats_err = max(float(np.max(np.abs(up.u1 - u1)) / np.max(np.abs(u1))),
+                    float(np.max(np.abs(up.u2 - u2)) / np.max(np.abs(u2))))
+    pred_up = updated.predict(x[te_s])
+    joint = {"cov_diag_err_rel_prior": diag_err, "cov_diag_err_rel_var": diag_err_var,
+             "prior_variance": prior, "mean_rel_err": mean_err, "t": 200,
+             "draws": n_draws, "sample_cov_rel_fro_err": cov_err, "sample_cov_bar": cov_bar,
+             "update_stats_rel_err": stats_err,
+             "rmse_held_out_before": rmse(y[te_s], model.predict(x[te_s])),
+             "rmse_held_out_after_update": rmse(y[te_s], pred_up),
+             "nfev": nfev, "launches": launches["joint_posterior"],
+             "gram_cache_engaged": model.metrics["gram_cache_engaged"],
+             "seconds": time.perf_counter() - start}
+    emit({"phase": "joint-posterior", "split": [1500, 500], **joint, "bars": JOINT_BARS})
+    if not (diag_err <= JOINT_BARS["cov_diag_rel_prior"] and cov_err <= cov_bar
+            and stats_err <= JOINT_BARS["update_stats_rel"] and np.all(np.isfinite(pred_up))
+            and np.all(np.isfinite(draws)) and launches["joint_posterior"] == nfev > 0):
+        raise AssertionError(f"joint-posterior: {joint}")
+
+    # iris-ep: examples/iris.py --ep verbatim (one-vs-rest over EP, 30
+    # binary fits at E = 7, s = 20), 10-fold CV at seed 13, on the card
+    # and on the CPU.  K1 once a site sweep, once an evaluation (log Z_EP,
+    # differentiated) and once a fit (the posterior mean)
+    spd.spd_inv_logdet.launches = 0
+    sweeps, calls = ep.ep_fit_sites.sweeps, ep.batched_neg_logz_ep.calls
+    iris = cv_fits(torch, cdata, lambda: OneVsRest(ep_gpc), lambda ovr: ovr.models_, None,
+                   engine="ep_sweeps")
+    launches["iris_ep"] = spd.spd_inv_logdet.launches
+    if (ep.ep_fit_sites.sweeps - sweeps, ep.batched_neg_logz_ep.calls - calls) \
+            != (iris["ep_sweeps"], iris["objective_calls"]):
+        raise AssertionError(f"iris-ep: counters against the fits' metrics {iris}")
+    iris_cpu = cv_fits(torch, cdata, lambda: OneVsRest(lambda: ep_gpc("cpu")),
+                       lambda ovr: ovr.models_, "cpu", engine="ep_sweeps")
+    emit({"phase": "iris-ep", **iris, "launches": launches["iris_ep"],
+          "bar": SLICE6_BARS["iris_ep"], "jax_cpu_accuracy": JAX_CPU_SLICE6["iris_ep"],
+          "cpu": iris_cpu})
+    if not (iris["accuracy"] > SLICE6_BARS["iris_ep"] and iris["experts"] == [(7, 20)]
+            and iris["gram_cache_engaged"] == [0.0] and launches["iris_ep"]
+            == iris["ep_sweeps"] + iris["objective_calls"] + iris["fits"] > 0):
+        raise AssertionError(f"iris-ep: accuracy {iris['accuracy']}, {launches['iris_ep']} K1 "
+                             f"launches, {iris}")
+
+    # poisson, poisson-nb, poisson-iterative: quality.py's poisson part
+    # verbatim (E = 20, s = 100), on the card (and the CPU for the Newton
+    # iterations an evaluation); K1 once a Newton iteration and twice an
+    # evaluation on the exact lane, never on the iterative one
+    counts = {}
+    for label, dispersion, y_counts, lane in (("poisson", None, d6["y"], None),
+                                              ("poisson_nb", 2.0, d6["y_nb"], None),
+                                              ("poisson_iterative", None, d6["y"], "iterative")):
+        spd.spd_inv_logdet.launches = 0
+        try:
+            gp = poisson_gp(dispersion)
+            if lane is not None:
+                gp.setSolverLane(lane)
+            row = count_fit(gp, d6, y_counts)
+        finally:
+            it_ops.set_solver_lane(None)
+        row["launches"] = launches[label] = spd.spd_inv_logdet.launches
+        expected = 0 if lane else row["newton_iterations"] + 2 * row["objective_calls"]
+        if lane is None:
+            row["cpu"] = count_fit(poisson_gp(dispersion, "cpu"), d6, y_counts)
+        counts[label] = row
+        emit({"phase": label.replace("_", "-"), **row, "bar": SLICE6_BARS[label],
+              "jax_cpu": JAX_CPU_SLICE6.get(label)})
+        if not (row["mean_relative_rate_error"] < SLICE6_BARS[label]
+                and row["launches"] == expected and row["objective_calls"] > 0
+                and (row["num_experts"], row["expert_size"]) == (20, 100)
+                and row["gram_cache_engaged"] == 1.0
+                and row["solver_lane"] == (lane or "exact")):
+            raise AssertionError(f"{label}: {row}")
+
+    # new-objective-parity: EP's and the Poisson objective's value and
+    # theta-gradient at init theta and at the card fit's theta*: through
+    # K1 (float32) against the Cholesky route on the card (float32), and
+    # against the CPU (float64), from zero sites / latents; none of these
+    # launches is the main path's.  The gradient's error is taken over the
+    # largest component of the CPU's init-theta gradient
+    before = spd.spd_inv_logdet.launches
+    start = time.perf_counter()
+    train = cdata["folds_i"][0][0]
+    ep_kernel = ep_gpc()._get_kernel()
+    pois_gp = poisson_gp()
+    pois_kernel = pois_gp._get_kernel()
+    configs = {
+        "ep": (ep_kernel, cdata["xi"][train], (cdata["yi"][train] == 0).astype(np.float64), 20,
+               iris["first_theta"],
+               lambda data: ep.make_ep_objective(ep_kernel, data, 1e-6),
+               lambda data: (torch.zeros_like(data.y), torch.zeros_like(data.y))),
+        "poisson": (pois_kernel, d6["x"], d6["y"], 100, counts["poisson"]["theta"],
+                    lambda data: lg.make_generic_objective(
+                        pois_gp._likelihood, pois_kernel, data.x, data.y, data.mask, 1e-6,
+                        prepare_gram_cache(pois_kernel, data.x)),
+                    lambda data: torch.zeros_like(data.y)),
+    }
+    package_applies = spd.kernel_applies
+    parity = {}
+    bar_v, bar_g = NEW_OBJECTIVE_BARS
+    for name, (kernel, xs, ys, expert, theta_fit, make, carry) in configs.items():
+        points, scale = [], None
+        for label, theta in (("init", kernel.init_theta()), ("fit", np.asarray(theta_fit))):
+            out = {}
+            for side, device, dtype in (("k1", "cuda", torch.float32),
+                                        ("cholesky", "cuda", torch.float32),
+                                        ("cpu", "cpu", torch.float64)):
+                data = group_for_experts(xs, ys, expert, dtype=dtype, device=device)
+                try:
+                    if side == "cholesky":
+                        spd.kernel_applies = lambda k: False
+                    value, grad, _ = make(data)(theta, carry(data))
+                finally:
+                    spd.kernel_applies = package_applies
+                out[side] = (value, np.asarray(grad))
+            scale = scale or float(np.max(np.abs(out["cpu"][1])))
+            row = {"theta": label}
+            for a, b in (("k1", "cholesky"), ("k1", "cpu")):
+                dv = abs(out[a][0] - out[b][0]) / abs(out[b][0])
+                dg = float(np.max(np.abs(out[a][1] - out[b][1]))) / scale
+                row[f"{a}_vs_{b}"] = {"rel_value_err": dv, "rel_grad_err": dg}
+                if not (dv <= bar_v and dg <= bar_g):
+                    raise AssertionError(f"{name} {a} vs {b} at {label} theta: rel dv {dv}, "
+                                         f"dg {dg}")
+            row.update(value_k1=out["k1"][0], value_cpu=out["cpu"][0],
+                       grad_k1=out["k1"][1].tolist(), grad_cpu=out["cpu"][1].tolist())
+            points.append(row)
+        parity[name] = points
+    spd.spd_inv_logdet.launches = before
+    emit({"phase": "new-objective-parity", "bars": {"rel_value": bar_v, "rel_grad": bar_g},
+          "shapes": {"ep": [7, 20], "poisson": [20, 100]}, **parity,
+          "seconds": time.perf_counter() - start})
+
+    emit({"phase": "slice6-phases", "seconds": time.perf_counter() - start_all, "card": smi})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1599,7 +2123,9 @@ def main() -> int:
         RBFKernel,
         WhiteNoiseKernel,
     )
+    from spark_gp_tpu_torch.models import ep
     from spark_gp_tpu_torch.models import laplace as lap
+    from spark_gp_tpu_torch.models import laplace_generic as lap_gen
     from spark_gp_tpu_torch.models import laplace_mc as lap_mc
     from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
     from spark_gp_tpu_torch.models.ppa import magic_solve
@@ -1647,6 +2173,10 @@ def main() -> int:
     cdata = classifier_data()
     b_stacks = gpc_b_stacks(torch, lap, cdata)
     b_stacks["iris_native"] = mc_b_stack(torch, lap_mc, cdata)
+    # this slice's data and the stacks it hands K1: EP's and the Poisson
+    # config's B, the greedy-scale fit's gram
+    d6 = slice6_data()
+    stacks.update(slice6_stacks(torch, ep, lap_gen, d6, cdata))
     # each config's gram_cache_engaged, asserted in the gram-cache phase
     engaged = {}
 
@@ -2054,8 +2584,11 @@ def main() -> int:
     # 21-27. the Synthetics and timeseries configs, the objectives and the
     # new kernel families
     regression = regression_phases(torch, spd, rdata, smi)
+    # 29-37. this slice: the greedy provider, the joint posterior, EP and
+    # count regression
+    slice6 = slice6_phases(torch, spd, d6, rdata, cdata, smi)
 
-    # 28. kernels: K1 at the protein stack, then at the airfoil fold's, on
+    # 37. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
     # the three exact-lane regression fits and the three classifier runs; K2
     # at a CG step's width (n = 9) and K2-VJP at the surrogate leg's
@@ -2081,7 +2614,7 @@ def main() -> int:
         "replaces": "spark_gp_tpu/ops/pallas_linalg.py:228",
         "launches": (launches_airfoil + launches_protein + launches_450
                      + launches_gpc_mnist + launches_iris + launches_iris_native
-                     + sum(regression.values())),
+                     + sum(regression.values()) + sum(slice6.values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
@@ -2089,6 +2622,7 @@ def main() -> int:
         "launches_iris": launches_iris,
         "launches_iris_native": launches_iris_native,
         **{f"launches_{key}": value for key, value in regression.items()},
+        **{f"launches_{key}": value for key, value in slice6.items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
@@ -2108,6 +2642,10 @@ def main() -> int:
                                       **{key: timing[label][key]
                                          for key in keys + ("first_design_ms", "wall_ms")}}
                               for label in ("synthetics_fold", "synthetics_all", "timeseries")},
+        "slice6_stacks": {label: {"shape": timing[label]["shape"], "max_abs_err": errs[label],
+                                  **{key: timing[label][key]
+                                     for key in keys + ("first_design_ms", "wall_ms")}}
+                          for label in ("ep_iris_b", "poisson_b", "year_msd")},
         "loo_cotangent_max_abs_err": loo_cotangent["max_abs_err"],
         "checked": True,
     }, {

@@ -8,7 +8,11 @@ sums each expert's exact NLL (regression) or Laplace evidence
 and a Projected Process model on an m-point active set for prediction.
 Regression also trains on the leave-one-out pseudo-likelihood or the
 Titsias ELBO (``setObjective``), from several starting points
-(``setNumRestarts``), with random or k-means inducing points.
+(``setNumRestarts``), with random, k-means or greedy (Seeger) inducing
+points, and its model gives the joint posterior covariance, posterior
+draws and online updates.  The binary classifier also runs Expectation
+Propagation (probit), and count data fit by the Laplace approximation
+with Poisson or Negative Binomial likelihoods.
 Kernels, theta layout, setter names and numerics match the JAX package,
 which stays the reference the port is tested against.
 
@@ -17,7 +21,9 @@ Entry points run on ``cuda`` (float32) unless the caller asks for ``cpu``
 objective evaluation, and of every Newton iteration of the classifier,
 is the hand-written CUDA kernel ``csrc/spd_inv_logdet.cu`` (for the
 multiclass classifier, over every expert's and class's ``B_c`` at
-once; for the LOO objective, the gram stack whatever the lane); on the
+once; for the LOO objective, the gram stack whatever the lane; for EP,
+every site sweep's ``B``; for count regression, every Newton
+iteration's ``B``); on the
 matrix-free solver lane (``setSolverLane("matfree")``) every gram-matrix
 product of the regression objective is the hand-written kernel
 ``csrc/streamed_matvec.cu``, and the ``[E, s, s]`` gram stack is never
@@ -49,12 +55,22 @@ from spark_gp_tpu_torch.kernels import (
 )
 from spark_gp_tpu_torch.models.active_set import (
     ActiveSetProvider,
+    GreedilyOptimizingActiveSetProvider,
     KMeansActiveSetProvider,
     RandomActiveSetProvider,
+)
+from spark_gp_tpu_torch.models.gp_poisson import (
+    GaussianProcessNegativeBinomialRegression,
+    GaussianProcessPoissonModel,
+    GaussianProcessPoissonRegression,
 )
 from spark_gp_tpu_torch.models.gpc import (
     GaussianProcessClassificationModel,
     GaussianProcessClassifier,
+)
+from spark_gp_tpu_torch.models.gpc_ep import (
+    GaussianProcessEPClassificationModel,
+    GaussianProcessEPClassifier,
 )
 from spark_gp_tpu_torch.models.gpc_mc import (
     GaussianProcessMulticlassClassifier,
@@ -94,8 +110,14 @@ __all__ = [
     "GaussianProcessClassificationModel",
     "GaussianProcessMulticlassClassifier",
     "GaussianProcessMulticlassModel",
+    "GaussianProcessEPClassifier",
+    "GaussianProcessEPClassificationModel",
+    "GaussianProcessPoissonRegression",
+    "GaussianProcessNegativeBinomialRegression",
+    "GaussianProcessPoissonModel",
     "ActiveSetProvider",
     "RandomActiveSetProvider",
     "KMeansActiveSetProvider",
+    "GreedilyOptimizingActiveSetProvider",
     "NotPositiveDefiniteException",
 ]

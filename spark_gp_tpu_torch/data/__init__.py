@@ -5,9 +5,11 @@ from spark_gp_tpu_torch.data.datasets import (
     load_iris,
     load_mnist_binary,
     load_protein,
+    load_year_msd,
     make_synthetics,
 )
 
 __all__ = [
-    "make_synthetics", "load_airfoil", "load_protein", "load_iris", "load_mnist_binary",
+    "make_synthetics", "load_airfoil", "load_protein", "load_year_msd", "load_iris",
+    "load_mnist_binary",
 ]

@@ -6,6 +6,8 @@
 * :func:`load_protein` -- UCI CASP protein, 45730 rows x 9 features: the
   CSV at ``path`` when given, else a synthetic stand-in of the same shape
   (the same generator and seed as the JAX package's stand-in).
+* :func:`load_year_msd` -- Year-Prediction-MSD, 515345 rows x 90
+  features: likewise (the stand-in's signal on 8 of the 90 features).
 * :func:`load_iris` -- UCI iris, 150 rows x 4 features, 3 classes
   (``files/iris.csv``, a copy of the JAX package's file).
 * :func:`load_mnist_binary` -- MNIST 6-vs-8: a label-first CSV at ``path``
@@ -20,9 +22,14 @@ import numpy as np
 
 _DATA_DIR = os.path.join(os.path.dirname(__file__), "files")
 
-#: additive noise level of the protein stand-in
+#: additive noise level of the regression stand-ins
 STANDIN_NOISE = 0.1
-_PROTEIN_FEATURES, _PROTEIN_SEED = 9, 7
+#: (features, seed, effective_dim) of each regression stand-in, the JAX
+#: package's ``_STANDIN_PARAMS``
+_STANDIN_PARAMS = {
+    "protein": (9, 7, None),
+    "year_msd": (90, 11, 8),
+}
 
 
 def make_synthetics(n: int = 2000, noise_var: float = 0.01, seed: int = 13):
@@ -42,12 +49,17 @@ def load_airfoil(path: str | None = None):
 
 
 def _synthetic_regression(n: int, p: int, seed: int,
-                          noise: float = STANDIN_NOISE):
-    """``y = sin(w1.x) + 0.5 cos(3 w2.x) + 0.1 (w1.x)^2 + noise``."""
+                          noise: float = STANDIN_NOISE, effective_dim=None):
+    """``y = sin(w1.x) + 0.5 cos(3 w2.x) + 0.1 (w1.x)^2 + noise``, the
+    signal on the first ``effective_dim`` features (all when None), the
+    rest distractors."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, p))
-    w1 = rng.normal(size=p) / np.sqrt(p)
-    w2 = rng.normal(size=p) / np.sqrt(p)
+    k = p if effective_dim is None else min(effective_dim, p)
+    w1 = np.zeros(p)
+    w2 = np.zeros(p)
+    w1[:k] = rng.normal(size=k) / np.sqrt(k)
+    w2[:k] = rng.normal(size=k) / np.sqrt(k)
     y = (
         np.sin(x @ w1)
         + 0.5 * np.cos(3.0 * (x @ w2))
@@ -113,12 +125,9 @@ def _has_header(path: str) -> bool:
         return True
 
 
-def load_protein(path: str | None = None, n: int | None = None,
-                 seed: int = _PROTEIN_SEED):
-    """UCI CASP (``RMSD,F1..F9``): ``(x [N, 9], y [N])``.  ``n`` subsamples
-    the CSV (rows kept in order) or sizes the stand-in."""
-    if path is None:
-        return _synthetic_regression(n or 45730, _PROTEIN_FEATURES, seed)
+def _target_first_csv(path: str, n, seed: int):
+    """``(x, y)`` of a CSV whose first column is the target; ``n``
+    subsamples it (rows kept in order)."""
     raw = np.loadtxt(
         path, delimiter=",", skiprows=1 if _has_header(path) else 0, ndmin=2
     )
@@ -127,3 +136,25 @@ def load_protein(path: str | None = None, n: int | None = None,
         return x, y
     idx = np.sort(np.random.default_rng(seed).choice(x.shape[0], size=n, replace=False))
     return x[idx], y[idx]
+
+
+def load_protein(path: str | None = None, n: int | None = None,
+                 seed: int = _STANDIN_PARAMS["protein"][1]):
+    """UCI CASP (``RMSD,F1..F9``): ``(x [N, 9], y [N])``.  ``n`` subsamples
+    the CSV (rows kept in order) or sizes the stand-in."""
+    if path is not None:
+        return _target_first_csv(path, n, seed)
+    p, _, eff = _STANDIN_PARAMS["protein"]
+    return _synthetic_regression(n or 45730, p, seed, effective_dim=eff)
+
+
+def load_year_msd(path: str | None = None, n: int | None = None,
+                  seed: int = _STANDIN_PARAMS["year_msd"][1]):
+    """Year-Prediction-MSD (``year,F1..F90``): ``(x [N, 90], y [N])``.
+    ``n`` subsamples the CSV (rows kept in order) or sizes the stand-in,
+    the JAX package's: 515,345 rows by default, the signal on the first
+    8 of the 90 features."""
+    if path is not None:
+        return _target_first_csv(path, n, seed)
+    p, _, eff = _STANDIN_PARAMS["year_msd"]
+    return _synthetic_regression(n or 515345, p, seed, effective_dim=eff)

@@ -5,10 +5,13 @@ optimal hyperparameters, and returns the ``[m, p]`` active points.
 
 * :data:`RandomActiveSetProvider` -- a uniform sample of training rows;
 * :class:`KMeansActiveSetProvider` -- k-means centroids: k-means++
-  seeding, then Lloyd steps, on the fit's device in float64.
+  seeding, then Lloyd steps, on the fit's device in float64;
+* :class:`GreedilyOptimizingActiveSetProvider` -- Seeger et al. 2003 fast
+  forward selection (``greedy.py``), on the fit's device in its working
+  dtype.
 
-The greedy provider is ROADMAP.md queue 1, item 8; the sharded-stack
-entry point (``from_stack``) comes with the mesh, item 6.
+The sharded-stack entry point (``from_stack``) comes with the mesh,
+ROADMAP.md queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -71,6 +74,23 @@ class KMeansActiveSetProvider(ActiveSetProvider):
         gen = torch.Generator(device=xt.device).manual_seed(int(seed))
         centroids = _lloyd(xt, _kmeanspp_init(gen, xt, k), self.max_iter)
         return centroids.cpu().numpy()
+
+
+class GreedilyOptimizingActiveSetProvider(ActiveSetProvider):
+    """Seeger et al. 2003 fast forward selection (ASP.scala:59-136) on
+    ``device`` (the fit passes its own; ``None`` means ``cuda``): the same
+    rows as the JAX package's provider in float64.  ``kernel`` is the
+    noise-augmented model kernel the fit hands every provider."""
+
+    def __call__(self, active_set_size, x, y, kernel, theta_opt, seed, device=None):
+        from spark_gp_tpu_torch.models.greedy import greedy_active_set
+
+        return greedy_active_set(active_set_size, x, y, kernel, theta_opt, seed, device)
+
+    def from_stack(self, active_set_size, data, kernel, theta, seed, mesh):
+        from spark_gp_tpu_torch.models.common import _not_ported
+
+        raise _not_ported("greedy selection from a sharded expert stack", 6)
 
 
 def _kmeanspp_init(gen: torch.Generator, x, k: int):

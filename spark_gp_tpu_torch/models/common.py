@@ -27,6 +27,7 @@ from spark_gp_tpu_torch.models import ppa
 from spark_gp_tpu_torch.models.likelihood import masked_matfree_operator
 from spark_gp_tpu_torch.models.active_set import (
     ActiveSetProvider,
+    GreedilyOptimizingActiveSetProvider,
     KMeansActiveSetProvider,
     RandomActiveSetProvider,
 )
@@ -179,6 +180,50 @@ class GaussianProcessParams:
             raise _not_ported("optimizer checkpointing", 7)
         return self
 
+    def setCheckpointInterval(self, iters: int):
+        """The device optimizer's checkpoint segment length: not ported."""
+        if int(iters) < 1:
+            raise ValueError("checkpoint interval must be >= 1")
+        raise _not_ported("optimizer checkpointing", 7)
+
+    def setProfileDir(self, path: Optional[str]):
+        """``None`` (no trace), the only value the port takes."""
+        if path is not None:
+            raise _not_ported("profiler traces of a fit", 3)
+        return self
+
+    def setExpertQuarantine(self, value: bool):
+        """``False``, the port's behaviour: a non-finite row raises
+        ``ValueError`` before the fit."""
+        if bool(value):
+            raise _not_ported("expert quarantine", 2)
+        return self
+
+    def setFitRetries(self, value: int):
+        """``0``, the port's behaviour: the first failure is final."""
+        if int(value) < 0:
+            raise ValueError("fit retries must be >= 0")
+        if int(value) > 0:
+            raise _not_ported("fit retries", 2)
+        return self
+
+    def setPrecisionLane(self, value: str):
+        """``"strict"``, the port's only lane (``ops/precision.py``)."""
+        if value not in ("strict", "mixed", "fast"):
+            raise ValueError("precision lane must be 'strict', 'mixed' or 'fast'")
+        if value != "strict":
+            raise _not_ported(f"the {value!r} precision lane", 14)
+        return self
+
+    def setAggregationPolicy(self, value: str):
+        """``"poe"``, the port's only policy (the plain product of
+        experts)."""
+        if value not in ("poe", "gpoe", "rbcm", "healed"):
+            raise ValueError("aggregation policy must be 'poe', 'gpoe', 'rbcm' or 'healed'")
+        if value != "poe":
+            raise _not_ported(f"the {value!r} aggregation policy", 8)
+        return self
+
     def _use_log_space(self, kernel) -> bool:
         if self._hyper_space == "linear":
             return False
@@ -207,6 +252,12 @@ class GaussianProcessParams:
     set_mesh = setMesh
     set_solver_lane = setSolverLane
     set_checkpoint_dir = setCheckpointDir
+    set_checkpoint_interval = setCheckpointInterval
+    set_profile_dir = setProfileDir
+    set_expert_quarantine = setExpertQuarantine
+    set_fit_retries = setFitRetries
+    set_precision_lane = setPrecisionLane
+    set_aggregation_policy = setAggregationPolicy
 
 
 def _default_kernel_factory() -> Kernel:
@@ -220,6 +271,8 @@ class GaussianProcessCommons(GaussianProcessParams):
 
     #: the hyperparameter objective (regression's ``setObjective``)
     _objective = "marginal"
+    #: whether the PPA model keeps U1 and u2 for ``update`` (regression)
+    _keeps_update_statistics = False
 
     def _get_kernel(self) -> Kernel:
         """User kernel + sigma2 * I -- the noise-augmented model kernel."""
@@ -332,10 +385,11 @@ class GaussianProcessCommons(GaussianProcessParams):
         return res, f_final
 
     def _select_active(self, kernel, theta, x, y, device) -> np.ndarray:
-        """The configured provider's ``[m, p]`` rows; the k-means provider
-        runs on the fit's ``device``."""
+        """The configured provider's ``[m, p]`` rows; the k-means and
+        greedy providers run on the fit's ``device``."""
         provider = self._active_set_provider
-        kw = {"device": device} if isinstance(provider, KMeansActiveSetProvider) else {}
+        on_device = (KMeansActiveSetProvider, GreedilyOptimizingActiveSetProvider)
+        kw = {"device": device} if isinstance(provider, on_device) else {}
         if getattr(provider, "uses_fit_outputs", True):
             active = provider(
                 self._active_set_size, x, y, kernel, theta, self._seed, **kw
@@ -386,8 +440,11 @@ class GaussianProcessCommons(GaussianProcessParams):
             active=active64,
             magic_vector=magic_vector,
             magic_matrix=magic_matrix,
-            u1=np.asarray(u1, dtype=np.float64),
-            u2=np.asarray(u2, dtype=np.float64),
+            # kept only where they sum over the raw targets (regression),
+            # so that model.update() can fold new rows in; the Laplace
+            # families' statistics sum over latent targets
+            u1=np.asarray(u1, dtype=np.float64) if self._keeps_update_statistics else None,
+            u2=np.asarray(u2, dtype=np.float64) if self._keeps_update_statistics else None,
             device=str(device),
         )
 

@@ -62,28 +62,22 @@ class GaussianProcessClassifier(GaussianProcessCommons):
         if not np.all(np.isin(y, (0.0, 1.0))):
             raise ValueError("Only 0 and 1 labels are supported.")
         device = resolve_device(self._device)
-        iterations = laplace.laplace_mode_batch.iterations
-        calls = laplace.batched_neg_logz.calls
         # host wall-clock per phase; each phase ends in a device-to-host copy
         clock = [time.perf_counter()]
         data = self._group(x, y, device)
         kernel = self._get_kernel()
         cache = self._gram_cache(kernel, data)
         clock.append(time.perf_counter())
-        objective = laplace.make_laplace_objective(kernel, data, self._tol, cache)
-        res, f_final = self._optimize_latent_host(
-            kernel, objective, torch.zeros_like(data.y)
-        )
+        res, latent, engine_metrics = self._fit_latent(kernel, data, cache)
         clock.append(time.perf_counter())
-        # the latent modes are the PPA targets, and the active-set
-        # provider sees them in place of the labels (GPClf.scala:62-65)
-        latent = f_final * data.mask
+        # the latent targets replace the labels in the PPA build, and the
+        # active-set provider sees them too (GPClf.scala:62-65)
         raw = self._projected_process(
             kernel, res.theta, x, ungroup(latent.cpu().numpy(), x.shape[0]),
             ExpertData(x=data.x, y=latent, mask=data.mask),
         )
         clock.append(time.perf_counter())
-        model = GaussianProcessClassificationModel(raw)
+        model = self._make_model(raw)
         model.metrics = {
             "num_experts": data.num_experts,
             "expert_size": data.expert_size,
@@ -91,14 +85,30 @@ class GaussianProcessClassifier(GaussianProcessCommons):
             "lbfgs_iters": res.nit,
             "lbfgs_nfev": res.nfev,
             "final_nll": res.fun,
-            "newton_iterations": laplace.laplace_mode_batch.iterations - iterations,
-            "objective_calls": laplace.batched_neg_logz.calls - calls,
+            **engine_metrics,
             "gram_cache_engaged": float(cache is not None),
             "group_seconds": clock[1] - clock[0],
             "optimize_seconds": clock[2] - clock[1],
             "ppa_seconds": clock[3] - clock[2],
         }
         return model
+
+    def _fit_latent(self, kernel, data: ExpertData, cache):
+        """The inference engine's part of the fit: ``(OptimizeResult, the
+        latent PPA targets [E, s], the engine's metrics)``.  Laplace: host
+        L-BFGS-B on the summed ``-log Z`` (the latent modes warm-start
+        every evaluation), the modes as the targets."""
+        iterations = laplace.laplace_mode_batch.iterations
+        calls = laplace.batched_neg_logz.calls
+        objective = laplace.make_laplace_objective(kernel, data, self._tol, cache)
+        res, f_final = self._optimize_latent_host(kernel, objective, torch.zeros_like(data.y))
+        return res, f_final * data.mask, {
+            "newton_iterations": laplace.laplace_mode_batch.iterations - iterations,
+            "objective_calls": laplace.batched_neg_logz.calls - calls,
+        }
+
+    def _make_model(self, raw):
+        return GaussianProcessClassificationModel(raw)
 
     def fit_distributed(self, data, active_set=None):
         raise _not_ported("the multi-host classifier fit", 6)

@@ -9,9 +9,11 @@ effect (``setSolverLane``), the LOO pseudo-likelihood (``models/loo.py``)
 or the Titsias ELBO (``models/sgpr.py``) -- with autograd gradients and
 host L-BFGS-B within the kernel's box bounds, from one starting point or
 several (``setNumRestarts``), then builds the m-point Projected Process
-model.  The fitted model predicts the posterior mean (``predict``) and
-variance (``predict_with_var``); ``loo`` gives the per-expert
-leave-one-out diagnostics at a fitted model's theta.
+model.  The fitted model predicts the posterior mean (``predict``),
+variance (``predict_with_var``) and joint covariance
+(``predict_with_cov``), draws from the joint posterior
+(``sample_posterior``) and folds new rows in (``update``); ``loo`` gives
+the per-expert leave-one-out diagnostics at a fitted model's theta.
 """
 
 from __future__ import annotations
@@ -20,10 +22,13 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
+from spark_gp_tpu_torch.models.active_set import GreedilyOptimizingActiveSetProvider
 from spark_gp_tpu_torch.models.common import GaussianProcessCommons
 from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
+from spark_gp_tpu_torch.ops.linalg import psd_safe_cholesky_np
 from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
 
 
@@ -50,6 +55,7 @@ class GaussianProcessRegression(GaussianProcessCommons):
     """
 
     _restarts_ported = True
+    _keeps_update_statistics = True
 
     def setObjective(self, objective: str) -> "GaussianProcessRegression":
         """``"marginal"`` (the default, the BCM NLL), ``"loo"`` (the LOO log
@@ -85,6 +91,7 @@ class GaussianProcessRegression(GaussianProcessCommons):
         cache = self._gram_cache(kernel, data)
         active, extra = None, ()
         if self._objective == "elbo":
+            self._check_elbo_provider(kernel)
             # the bound needs its inducing set before the optimization
             active = self._select_active(kernel, kernel.init_theta(), x, y, device)
             extra = (active, self._sigma2)
@@ -112,6 +119,22 @@ class GaussianProcessRegression(GaussianProcessCommons):
         self._emit_solver_stats(model.metrics, kernel, res.theta, data)
         return model
 
+    def _check_elbo_provider(self, kernel) -> None:
+        """The greedy provider scores by dividing by the white noise: with
+        the ELBO it selects at the initial theta, where a model kernel
+        without noise (``setSigma2(0)`` and no noise term) has none."""
+        provider = self._active_set_provider
+        greedy = provider is GreedilyOptimizingActiveSetProvider or isinstance(
+            provider, GreedilyOptimizingActiveSetProvider
+        )
+        theta0 = torch.as_tensor(kernel.init_theta())
+        if greedy and float(kernel.white_noise_var(theta0)) == 0.0:
+            raise ValueError(
+                "setObjective('elbo') with the greedy provider needs "
+                "nonzero white noise (the Seeger scores divide by it); "
+                "set a nonzero sigma2, or use the random/k-means provider"
+            )
+
     def loo(self, x, y, model: "Optional[GaussianProcessRegressionModel]" = None) -> dict:
         """Exact per-expert leave-one-out diagnostics (``models/loo.py``)
         of ``(x, y)`` grouped as this estimator groups them, at ``model``'s
@@ -135,7 +158,9 @@ class GaussianProcessRegression(GaussianProcessCommons):
 
 
 class GaussianProcessRegressionModel:
-    """Fitted model: posterior mean / variance against the m-point active set."""
+    """Fitted model: posterior mean / variance (and the joint covariance
+    and posterior draws) against the m-point active set; ``update`` folds
+    new rows in without a refit."""
 
     def __init__(self, raw_predictor: ProjectedProcessRawPredictor):
         self.raw_predictor = raw_predictor
@@ -152,3 +177,28 @@ class GaussianProcessRegressionModel:
                 "use predict(), or refit with variances enabled"
             )
         return mean.cpu().numpy(), var.cpu().numpy()
+
+    def predict_with_cov(self, x_test):
+        """``(mean [t], cov [t, t])``: the joint predictive covariance of
+        the test points (the reference exposes only the per-point
+        variance); ``diag(cov)`` is ``predict_with_var``'s variance up to
+        rounding."""
+        mean, cov = self.raw_predictor.predict_with_cov(x_test)
+        return mean.cpu().numpy(), cov.cpu().numpy()
+
+    def sample_posterior(self, x_test, n_samples: int = 1, seed: int = 0) -> np.ndarray:
+        """``[n_samples, t]`` joint draws from the posterior over the test
+        points: ``mean + L eps``, with ``L`` the jitter-repaired Cholesky
+        of the predictive covariance in float64 on the host and ``eps``
+        from numpy's ``default_rng(seed)``, the JAX package's draws."""
+        mean, cov = self.predict_with_cov(x_test)
+        chol = psd_safe_cholesky_np(np.asarray(cov, dtype=np.float64), "predictive covariance")
+        eps = np.random.default_rng(seed).standard_normal((n_samples, mean.shape[0]))
+        return mean[None, :] + eps @ chol.T
+
+    def update(self, x_new, y_new) -> "GaussianProcessRegressionModel":
+        """A new model with ``(x_new, y_new)`` folded into the PPA
+        statistics at the fitted theta and active set, without a refit
+        (``ProjectedProcessRawPredictor.with_additional_data``); this
+        model is left as it is."""
+        return GaussianProcessRegressionModel(self.raw_predictor.with_additional_data(x_new, y_new))

@@ -13,7 +13,11 @@ the predictor (R&W ch. 8.3.4).
   the jitter ladder of ``ops/linalg.py``).
 * Predict -- ``mean = k(x, A) magicVector`` (``[t]`` or ``[t, C]``) and
   ``var = k(x, x) + k(x, A) magicMatrix k(x, A)^T``, in the working dtype,
-  in chunks that cap the ``[t, m]`` cross kernel.
+  in chunks that cap the ``[t, m]`` cross kernel; the joint covariance
+  ``K(x, x) + k(x, A) magicMatrix k(x, A)^T`` (``predict_with_cov``).
+* Update -- the statistics are sums over points, so new rows fold in as
+  ``U1 += C C^T``, ``u2 += C y`` with ``C = K(A, x_new)``, then one magic
+  solve at the same theta and active set (``with_additional_data``).
 """
 
 from __future__ import annotations
@@ -114,6 +118,74 @@ class ProjectedProcessRawPredictor:
     # cap on the [t, m] cross-kernel intermediate per chunk: 32M entries
     _PREDICT_CHUNK_ELEMS = 32 * 1024 * 1024
 
+    def with_additional_data(self, x_new, y_new) -> "ProjectedProcessRawPredictor":
+        """A new predictor with ``(x_new, y_new)`` folded into the
+        statistics (``U1 += C C^T``, ``u2 += C y``, ``C = K(A, x_new)``,
+        in float64 on the predictor's device, in chunks that cap ``C``),
+        then the host magic solve at the same theta and active set.  The
+        projected process with its inducing set and kernel held fixed:
+        refit when the new rows may move the hyperparameters."""
+        if self.u1 is None or self.u2 is None:
+            raise ValueError(
+                "this model does not carry updatable PPA statistics: only "
+                "regression fits store them (the Laplace families' "
+                "statistics are over latent targets — refit those; pre-r4 "
+                "saves lack them — refit to enable incremental updates)"
+            )
+        x_new = np.asarray(x_new, dtype=np.float64)
+        y_new = np.asarray(y_new, dtype=np.float64)
+        if x_new.ndim != 2 or x_new.shape[1] != self.active.shape[1]:
+            raise ValueError(
+                f"x_new must be [t, {self.active.shape[1]}], got "
+                f"{tuple(x_new.shape)}"
+            )
+        if y_new.shape != (x_new.shape[0],):
+            raise ValueError(
+                f"y_new must be [{x_new.shape[0]}], got {tuple(y_new.shape)}"
+            )
+        device = resolve_device(self.device)
+
+        def put(a):
+            return torch.tensor(np.asarray(a, dtype=np.float64), device=device)
+
+        theta, active = put(self.theta), put(self.active)
+        u1, u2 = put(self.u1), put(self.u2)
+        xt, yt = put(x_new), put(y_new)
+        chunk = max(1, self._PREDICT_CHUNK_ELEMS // max(1, active.shape[0]))
+        with torch.no_grad():
+            for start in range(0, xt.shape[0], chunk):
+                cross = self.kernel.cross(theta, active, xt[start:start + chunk])  # [m, c]
+                u1 = u1 + cross @ cross.T
+                u2 = u2 + cross @ yt[start:start + chunk]
+        u1, u2 = u1.cpu().numpy(), u2.cpu().numpy()
+        magic_vector, magic_matrix = magic_solve(
+            self.kernel, self.theta, self.active, u1, u2,
+            with_variance=self.magic_matrix is not None,
+        )
+        return ProjectedProcessRawPredictor(
+            kernel=self.kernel, theta=self.theta, active=self.active,
+            magic_vector=magic_vector, magic_matrix=magic_matrix,
+            u1=u1, u2=u2, device=self.device,
+        )
+
+    def predict_with_cov(self, x_test):
+        """``(mean [t], cov [t, t])``: the joint predictive covariance
+        ``K(x, x) + k(x, A) magicMatrix k(x, A)^T``, symmetrized; its
+        diagonal is ``predict``'s variance up to rounding.  Not chunked:
+        the result is ``O(t^2)``."""
+        if self.magic_matrix is None:
+            raise ValueError(
+                "model was fitted with setPredictiveVariance(False); "
+                "no covariance operator is available"
+            )
+        x_test, put = self._inputs(x_test)
+        theta, active = put(self.theta), put(self.active)
+        with torch.no_grad():
+            cross = self.kernel.cross(theta, x_test, active)  # [t, m]
+            mean = cross @ put(self.magic_vector)
+            cov = self.kernel.gram(theta, x_test) + cross @ put(self.magic_matrix) @ cross.T
+        return mean, 0.5 * (cov + cov.T)
+
     def predict_mean(self, x_test) -> torch.Tensor:
         """Mean-only prediction ``[t]`` or ``[t, C]`` (skips the O(t m^2)
         variance)."""
@@ -123,8 +195,9 @@ class ProjectedProcessRawPredictor:
         """``(mean [t], var [t])``; ``var`` is None for mean-only models."""
         return self._run(x_test, mean_only=self.magic_matrix is None)
 
-    @torch.no_grad()
-    def _run(self, x_test, mean_only: bool):
+    def _inputs(self, x_test):
+        """``x_test`` checked and on the predictor's device in its working
+        dtype, with the function that puts the model's arrays there."""
         device = resolve_device(self.device)
         dtype = working_dtype(device)
         p = self.active.shape[1]
@@ -138,6 +211,11 @@ class ProjectedProcessRawPredictor:
         def put(a):
             return torch.as_tensor(np.asarray(a), device=device).to(dtype)
 
+        return x_test, put
+
+    @torch.no_grad()
+    def _run(self, x_test, mean_only: bool):
+        x_test, put = self._inputs(x_test)
         theta, active, mv = put(self.theta), put(self.active), put(self.magic_vector)
         mm = None if mean_only else put(self.magic_matrix)
         t = x_test.shape[0]

@@ -93,11 +93,37 @@ def test_non_finite_rows_raise():
         lambda gp: tgp.GaussianProcessMulticlassClassifier(device="cpu").setNumRestarts(2),
         # the batched device multi-start waits for the device optimizer
         lambda gp: gp.setObjective("elbo").setNumRestarts(2).setOptimizer("device"),
+        # the JAX package's remaining setters, each naming its item
+        lambda gp: gp.setProfileDir("profile"),
+        lambda gp: gp.setCheckpointInterval(5),
+        lambda gp: gp.setExpertQuarantine(True),
+        lambda gp: gp.setFitRetries(2),
+        lambda gp: gp.setPrecisionLane("mixed"),
+        lambda gp: gp.setAggregationPolicy("rbcm"),
     ],
 )
 def test_unported_options_name_their_roadmap_item(call):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item \d"):
         call(tgp.GaussianProcessRegression(device="cpu"))
+
+
+@pytest.mark.parametrize("estimator", [
+    "GaussianProcessRegression", "GaussianProcessClassifier", "GaussianProcessEPClassifier",
+    "GaussianProcessMulticlassClassifier", "GaussianProcessPoissonRegression",
+])
+def test_parity_setters_take_what_the_port_does(estimator):
+    gp = getattr(tgp, estimator)(device="cpu")
+    assert gp.setProfileDir(None) is gp and gp.setExpertQuarantine(False) is gp
+    assert gp.setFitRetries(0) is gp and gp.setPrecisionLane("strict") is gp
+    assert gp.setAggregationPolicy("poe") is gp
+    with pytest.raises(ValueError):
+        gp.setCheckpointInterval(0)
+    with pytest.raises(ValueError):
+        gp.setFitRetries(-1)
+    with pytest.raises(ValueError):
+        gp.setPrecisionLane("bf16")
+    with pytest.raises(ValueError):
+        gp.setAggregationPolicy("mean")
 
 
 def test_ported_options_accept_defaults():

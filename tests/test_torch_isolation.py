@@ -36,7 +36,10 @@ def test_import_pulls_in_no_jax():
         "import spark_gp_tpu_torch.ops.integrator\n"
         "import spark_gp_tpu_torch.models.laplace_mc, spark_gp_tpu_torch.models.gpc_mc\n"
         "import spark_gp_tpu_torch.models.loo, spark_gp_tpu_torch.models.sgpr\n"
-        "import spark_gp_tpu_torch.models.active_set\n"
+        "import spark_gp_tpu_torch.models.active_set, spark_gp_tpu_torch.models.greedy\n"
+        "import spark_gp_tpu_torch.models.ep, spark_gp_tpu_torch.models.gpc_ep\n"
+        "import spark_gp_tpu_torch.models.laplace_generic\n"
+        "import spark_gp_tpu_torch.models.gp_poisson\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'spark_gp_tpu' or m.startswith('spark_gp_tpu.')]\n"
         "print(bad)\n"
