@@ -22,8 +22,10 @@ code is non-zero and the final ``ok`` line is never printed:
                stacks (18, 100), (20, 100), (2, 120) and the LOO
                objective's cotangent through K1's VJP at (18, 100); EP's
                B stack (7, 20), the Poisson config's (20, 100) and the
-               greedy-scale gram stack (400, 100).  K2 and
-               K2-VJP: all seven tile transforms on the protein-matfree
+               greedy-scale gram stack (400, 100); the clustered and
+               heteroscedastic aggregation fits' gram stacks (64, 64),
+               (32, 64) and the health probe's one-expert stack (1, 97).
+               K2 and K2-VJP: all seven tile transforms on the protein-matfree
                row stack (9, 4065, 9) at the path's widths n = 1, 8, 9,
                on a ragged (3, 1000, 5) stack at n = 1, 4, on (2, 777, 21)
                at n = 9 (two feature chunks) and on (2, 130, 20) at n = 17
@@ -147,7 +149,31 @@ code is non-zero and the final ``ok`` line is never printed:
                gradient at init theta and theta*: K1 against the Cholesky
                route on the card, and the card against the CPU.
 36. slice6-phases -- the seconds of phases 28-35.
-37. kernels -- one line with every kernel's numbers.
+37. aggregation -- quality.py's aggregation part through the port: the
+               clustered stand-in (4096 + 1024 rows, E = 64, s = 64,
+               ARD-RBF + white noise, active 256, 15 iterations) scored
+               under poe, gpoe, rbcm and healed, the heteroscedastic ramp
+               (2048 training rows) under poe and healed; every bar of
+               quality.py; K1 launches = the two fits' evaluations.
+38. poe-parity -- the five PoE modes on the card (float32) against the CPU
+               (float64) at the clustered fit's theta: the largest mean and
+               relative variance errors (recorded, no bar).
+39. selection -- GP_AGG_SELECT=1 on pairwise-duplicated rows (E = 12):
+               at least a quarter dropped, renorm 2, held-out NLPD within
+               1% of the fit without selection.
+40. quarantine -- the first airfoil fold at expert 100 with a NaN expert
+               (the data screen) and a 1e300-scaled one (inf in float32:
+               the recovery ladder on the card): exactly those two
+               quarantined, one retry, RMSE within 5% of the clean fit on
+               the kept rows (and the full clean fit's recorded); K1
+               launches = 1 + E + (rungs - 1) x unhealthy experts + the
+               retry's evaluations.
+41. weighted-matfree -- the marginal objective with per-expert weights and
+               jitter on the matrix-free lane (K2, K2-VJP) against the
+               iterative lane on the card, protein-matfree stack, same
+               probes: 1e-5 / 1e-5.
+42. slice7-phases -- the seconds of phases 37-41.
+43. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -2109,6 +2135,358 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the expert-weight plane (PoE aggregation, selection, quarantine)
+# ---------------------------------------------------------------------------
+
+# the JAX package's ``python quality.py --parts aggregation`` on the CPU
+# (float32, JAX's default there), for comparison
+JAX_CPU_AGGREGATION = {
+    "clustered": {"poe": {"nlpd": 5.9917807712457485, "coverage90": 0.408203125,
+                          "rmse_scaled": 0.06898042391181261},
+                  "gpoe": {"nlpd": -1.0501158283532983, "coverage90": 0.9873046875,
+                           "rmse_scaled": 0.06898042391181261},
+                  "rbcm": {"nlpd": 16.612996572256133, "coverage90": 0.337890625,
+                           "rmse_scaled": 0.06011950570439133},
+                  "healed": {"nlpd": -1.3856843284969942, "coverage90": 0.890625,
+                             "rmse_scaled": 0.0602419146610377}},
+    "heteroscedastic": {"poe": {"nlpd": 13.699521973084558, "coverage90": 0.3388671875,
+                                "rmse_scaled": 0.3224370108588016},
+                        "healed": {"nlpd": 0.2835657658593719, "coverage90": 0.90234375,
+                                   "rmse_scaled": 0.3224386221774402}},
+}
+# quality.py's aggregation bars: the healed product's 90% coverage band,
+# plain PoE's overconfidence, and the planted-SNR RMSE bar's structural
+# part (sqrt(0.0609^2 + clustered_noise_floor^2))
+AGG_COVERAGE_BAND, AGG_POE_COVERAGE_MAX, AGG_STRUCTURAL_RMSE = (0.84, 0.97), 0.80, 0.0609
+# fit-time selection may worsen the held-out NLPD by 1% of its size at most
+# (the JAX package's test_aggregation.py bar); a fit that quarantines two of
+# airfoil's 14 experts keeps its test RMSE within 5% of the clean fit on the
+# rows the quarantine keeps (the full clean fit's RMSE is recorded beside
+# it: two experts' rows are an eighth of the training set, and on the first
+# fold that data loss alone costs 7.8% in float64 on the CPU)
+SELECTION_NLPD_REL, QUARANTINE_RMSE_REL = 0.01, 0.05
+
+
+def aggregation_gp(p: int, lengthscale: float, device=None):
+    """quality.py ``part_aggregation``'s estimator: ARD-RBF + white noise,
+    expert 64, active 256, 15 iterations, seed 13."""
+    from spark_gp_tpu_torch import ARDRBFKernel, GaussianProcessRegression, WhiteNoiseKernel
+
+    return (GaussianProcessRegression(device=device)
+            .setKernel(lambda: 1.0 * ARDRBFKernel(p, lengthscale) + WhiteNoiseKernel(0.1, 0.0, 1.0))
+            .setDatasetSizeForExpert(64).setActiveSetSize(256).setMaxIter(15).setSeed(13))
+
+
+def policy_scores(gp, model, x_tr, ys_tr, x_te, ys_te, modes) -> dict:
+    """quality.py ``_policy_scores``: held-out NLPD, 90% coverage and
+    scaled RMSE of each PoE mode at the fitted theta."""
+    out = {}
+    for mode in modes:
+        mu, var = gp.poe_predictor(x_tr, ys_tr, model=model, mode=mode).predict_with_var(x_te)
+        var = np.maximum(np.asarray(var, np.float64), 1e-12)
+        err = np.asarray(ys_te, np.float64) - np.asarray(mu, np.float64)
+        out[mode] = {"nlpd": float(np.mean(0.5 * np.log(2 * np.pi * var) + err ** 2 / (2 * var))),
+                     "coverage90": float(np.mean(np.abs(err) <= 1.6449 * np.sqrt(var))),
+                     "rmse_scaled": float(np.sqrt(np.mean(err ** 2)))}
+    return out
+
+
+def slice7_data() -> dict:
+    """quality.py ``part_aggregation``'s data: the clustered stand-in (4096
+    training rows, the next 1024 held out, targets standardized on the
+    training rows) and the heteroscedastic ramp (3072 rows, every third
+    held out); the selection phase's pairwise-duplicated rows (the JAX
+    package's test_aggregation.py: 240 rows twice, E = 12, expert 2j + 1 a
+    copy of expert 2j) with 160 held-out rows."""
+    from spark_gp_tpu_torch.data import make_clustered, make_heteroscedastic
+
+    x, y = make_clustered(4096 + 1024)
+    ys = (y - y[:4096].mean()) / y[:4096].std()
+    xh, yh, _ = make_heteroscedastic(3072)
+    te = np.zeros(yh.shape[0], bool)
+    te[::3] = True
+    yh = (yh - yh[~te].mean()) / yh[~te].std()
+    rng = np.random.default_rng(0)
+    xb = rng.normal(size=(240, 2))
+    yb = np.sin(xb.sum(axis=1)) + 0.05 * rng.normal(size=240)
+    x_sel_te = rng.normal(size=(160, 2))
+    y_sel_te = np.sin(x_sel_te.sum(axis=1)) + 0.05 * rng.normal(size=160)
+    return {"xc": x[:4096], "yc": ys[:4096], "xc_te": x[4096:], "yc_te": ys[4096:],
+            "xh": xh[~te], "yh": yh[~te], "xh_te": xh[te], "yh_te": yh[te],
+            "x_sel": np.repeat(xb, 2, axis=0), "y_sel": np.repeat(yb, 2),
+            "x_sel_te": x_sel_te, "y_sel_te": y_sel_te}
+
+
+def slice7_stacks(torch, d7: dict, stacks: dict) -> dict:
+    """The stacks this slice hands K1 at init theta: the clustered fit's
+    gram stack (64, 64), the heteroscedastic fit's (32, 64), and the
+    health probe's one-expert stack (1, 97): expert 0 of the first airfoil
+    fold's gram (the probe evaluates each expert on its own)."""
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
+
+    out = {}
+    for label, gp, xs, ys in (("clustered", aggregation_gp(2, 0.7), d7["xc"], d7["yc"]),
+                              ("heteroscedastic", aggregation_gp(1, 0.5), d7["xh"], d7["yh"])):
+        kernel = gp._get_kernel()
+        data = gp._group(xs, ys, torch.device("cuda"))
+        theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device="cuda")
+        out[label] = masked_gram_stack(kernel, theta, data.x, data.mask)
+    out["quarantine_probe"] = stacks["airfoil_fold"][:1].contiguous()
+    for label, shape in (("clustered", (64, 64)), ("heteroscedastic", (32, 64)),
+                         ("quarantine_probe", (1, 97))):
+        if tuple(out[label].shape) != (shape[0], shape[1], shape[1]):
+            raise AssertionError(f"{label} stack {tuple(out[label].shape)}, expected {shape}")
+    return out
+
+
+def poisoned_airfoil(x, y, experts: int, nan_expert: int, huge_expert: int):
+    """Airfoil training rows with every row of one expert given a NaN
+    feature and every row of another scaled by 1e300 (the JAX package's
+    ``chaos.poison_expert`` kinds ``nan`` and ``huge``: round-robin
+    grouping puts row i in expert i % E)."""
+    x, y = np.array(x, dtype=np.float64), np.array(y, dtype=np.float64)
+    rows = np.arange(nan_expert, x.shape[0], experts)
+    x[rows, np.random.default_rng(1).integers(0, x.shape[1], size=rows.shape[0])] = np.nan
+    x[np.arange(huge_expert, x.shape[0], experts)] *= 1e300
+    return x, y
+
+
+def weighted_matfree_phase(torch, mf_data) -> dict:
+    """weighted-matfree: the marginal objective with per-expert weights and
+    the recovery ladder's jitter on the matrix-free lane (K2, K2-VJP)
+    against the iterative lane on the card, on the protein-matfree stack at
+    init theta with the same probes (matfree-parity's bars); returns K2's
+    and K2-VJP's launches on the matrix-free evaluation."""
+    from spark_gp_tpu_torch import Const, EyeKernel, RBFKernel, WhiteNoiseKernel
+    from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
+    from spark_gp_tpu_torch.ops import iterative as it_ops
+    from spark_gp_tpu_torch.ops import streamed_matvec as sm
+
+    start = time.perf_counter()
+    kernel = (1.0 * RBFKernel(1.0, 1e-6, 10) + WhiteNoiseKernel(0.1, 0.0, 1.0)
+              + Const(1e-3) * EyeKernel())
+    e, s = mf_data.num_experts, mf_data.expert_size
+    extra = (np.where(np.arange(e) % 3 == 1, 1e-3, 0.0), np.linspace(1.0, 0.0, e))
+    cfg = it_ops.solver_config(s)
+    g1, g2 = it_ops.draw_probes(cfg, (e,), cfg.rank, s, mf_data.x.dtype, mf_data.x.device)
+    draw_probes = it_ops.draw_probes
+    it_ops.draw_probes = lambda cfg, batch, rank, s, dtype, device: (g1, g2)
+    k2 = {}
+    try:
+        out = {}
+        for lane in ("matfree", "iterative"):
+            it_ops.set_solver_lane(lane)
+            sm.streamed_matvec.launches = sm.streamed_matvec_vjp.launches = 0
+            out[lane] = make_value_and_grad(kernel, mf_data, None, "marginal", extra)(
+                kernel.init_theta())
+            if lane == "matfree":
+                k2 = {"streamed_matvec": sm.streamed_matvec.launches,
+                      "streamed_matvec_vjp": sm.streamed_matvec_vjp.launches}
+    finally:
+        it_ops.draw_probes = draw_probes
+        it_ops.set_solver_lane(None)
+    (v_mf, g_mf), (v_it, g_it) = out["matfree"], out["iterative"]
+    dv = abs(v_mf - v_it) / abs(v_it)
+    dg = float(np.max(np.abs(g_mf - g_it)) / np.max(np.abs(g_it)))
+    emit({"phase": "weighted-matfree", "shape": [e, s, mf_data.x.shape[-1]],
+          "weights": extra[1].tolist(), "jitter": extra[0].tolist(), "value": v_mf,
+          "value_iterative": v_it, "rel_value_err": dv, "rel_grad_err": dg,
+          "bars": {"rel_value": 1e-5, "rel_grad": 1e-5}, "launches": k2,
+          "seconds": time.perf_counter() - start})
+    if not (dv <= 1e-5 and dg <= 1e-5 and min(k2.values()) > 0):
+        raise AssertionError(f"weighted-matfree: rel dv {dv}, dg {dg}, launches {k2}")
+    return k2
+
+
+def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
+    """This slice's phases (aggregation, poe-parity, selection,
+    quarantine, weighted-matfree); returns K1's launches on each, and K2's
+    and K2-VJP's on the weighted matrix-free evaluation."""
+    from spark_gp_tpu_torch import GaussianProcessRegression, RBFKernel
+    from spark_gp_tpu_torch.data import clustered_noise_floor
+    from spark_gp_tpu_torch.models.poe import make_poe_predictor
+    from spark_gp_tpu_torch.ops.linalg import JITTER_SCHEDULE
+    from spark_gp_tpu_torch.resilience import diagnose_experts
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    launches = {}
+    start_all = time.perf_counter()
+
+    # aggregation: quality.py's part through the port on the card
+    spd.spd_inv_logdet.launches = 0
+    start = time.perf_counter()
+    gp = aggregation_gp(2, 0.7)
+    model = gp.fit(d7["xc"], d7["yc"])
+    clustered = policy_scores(gp, model, d7["xc"], d7["yc"], d7["xc_te"], d7["yc_te"],
+                              ("poe", "gpoe", "rbcm", "healed"))
+    gph = aggregation_gp(1, 0.5)
+    modelh = gph.fit(d7["xh"], d7["yh"])
+    hetero = policy_scores(gph, modelh, d7["xh"], d7["yh"], d7["xh_te"], d7["yh_te"],
+                           ("poe", "healed"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches["aggregation"] = spd.spd_inv_logdet.launches
+    nfev = model.metrics["lbfgs_nfev"] + modelh.metrics["lbfgs_nfev"]
+    rmse_bar = float(np.hypot(AGG_STRUCTURAL_RMSE, clustered_noise_floor()))
+    lo, hi = AGG_COVERAGE_BAND
+    bars = {
+        "clustered_healed_nlpd_below_poe": clustered["healed"]["nlpd"] < clustered["poe"]["nlpd"],
+        "clustered_healed_coverage_in_band": lo <= clustered["healed"]["coverage90"] <= hi,
+        "clustered_poe_coverage_below": clustered["poe"]["coverage90"] < AGG_POE_COVERAGE_MAX,
+        "clustered_healed_rmse_below_bar": clustered["healed"]["rmse_scaled"] < rmse_bar,
+        "hetero_healed_nlpd_below_poe": hetero["healed"]["nlpd"] < hetero["poe"]["nlpd"],
+        "hetero_healed_coverage_in_band": lo <= hetero["healed"]["coverage90"] <= hi,
+    }
+    emit({"phase": "aggregation", "clustered": clustered, "heteroscedastic": hetero,
+          "rmse_bar": rmse_bar, "coverage_band": list(AGG_COVERAGE_BAND), "bars": bars,
+          "jax_cpu": JAX_CPU_AGGREGATION, "seconds": seconds, "launches": launches["aggregation"],
+          "nfev": nfev, "shapes": {"clustered": [model.metrics["num_experts"],
+                                                 model.metrics["expert_size"]],
+                                   "heteroscedastic": [modelh.metrics["num_experts"],
+                                                       modelh.metrics["expert_size"]]},
+          "theta": {"clustered": model.raw_predictor.theta.tolist(),
+                    "heteroscedastic": modelh.raw_predictor.theta.tolist()},
+          **{f"{k}_seconds": model.metrics[k + "_seconds"] for k in ("optimize", "ppa")}})
+    if not all(bars.values()):
+        raise AssertionError(f"aggregation bars: {bars}")
+    if launches["aggregation"] != nfev or nfev == 0:
+        raise AssertionError(f"aggregation: {launches['aggregation']} launches for {nfev} "
+                             "evaluations")
+    if (model.metrics["num_experts"], model.metrics["expert_size"]) != (64, 64):
+        raise AssertionError(f"clustered stack {model.metrics['num_experts']}")
+
+    # poe-parity: the five modes on the card (float32) against the CPU
+    # (float64) at the clustered fit's theta, on the held-out rows
+    start = time.perf_counter()
+    kernel, theta = model.raw_predictor.kernel, model.raw_predictor.theta
+    parity = {}
+    for mode in ("poe", "gpoe", "bcm", "rbcm", "healed"):
+        out = {}
+        for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            pred = make_poe_predictor(kernel, theta, d7["xc"], d7["yc"], 64, mode=mode,
+                                      dtype=dtype, device=device)
+            out[device] = pred.predict_with_var(d7["xc_te"])
+        (m_gpu, v_gpu), (m_cpu, v_cpu) = out["cuda"], out["cpu"]
+        if not (np.all(np.isfinite(m_gpu)) and np.all(np.isfinite(v_gpu))):
+            raise AssertionError(f"poe-parity {mode}: card predictions not finite")
+        parity[mode] = {
+            "max_abs_mean_err": float(np.max(np.abs(m_gpu - m_cpu))),
+            "max_rel_mean_err": float(np.max(np.abs(m_gpu - m_cpu)) / np.max(np.abs(m_cpu))),
+            "max_rel_var_err": float(np.max(np.abs(v_gpu - v_cpu) / np.abs(v_cpu))),
+            "min_var_cpu": float(np.min(v_cpu)),
+        }
+    emit({"phase": "poe-parity", "config": "clustered", "shape": [64, 64, 1024], **parity,
+          "max_rel_mean_err": max(r["max_rel_mean_err"] for r in parity.values()),
+          "max_rel_var_err": max(r["max_rel_var_err"] for r in parity.values()),
+          "seconds": time.perf_counter() - start})
+
+    # selection: GP_AGG_SELECT=1 on the duplicated rows against the fit
+    # without it; the held-out NLPD within 1%
+    def selection_gp():
+        return (GaussianProcessRegression().setKernel(lambda: RBFKernel(1.0))
+                .setDatasetSizeForExpert(40).setActiveSetSize(30).setSigma2(1e-3)
+                .setMaxIter(5).setSeed(7))
+
+    def nlpd(m):
+        mean, var = m.predict_with_var(d7["x_sel_te"])
+        var = np.maximum(np.asarray(var, np.float64), 1e-12)
+        err = d7["y_sel_te"] - np.asarray(mean, np.float64)
+        return float(np.mean(0.5 * np.log(2 * np.pi * var) + err ** 2 / (2 * var)))
+
+    spd.spd_inv_logdet.launches = 0
+    start = time.perf_counter()
+    saved = {key: os.environ.pop(key, None) for key in ("GP_AGG_SELECT", "GP_AGG_SELECT_MODE")}
+    try:
+        off = selection_gp().fit(d7["x_sel"], d7["y_sel"])
+        os.environ["GP_AGG_SELECT"] = "1"
+        on = selection_gp().fit(d7["x_sel"], d7["y_sel"])
+    finally:
+        os.environ.pop("GP_AGG_SELECT", None)
+        os.environ.update({key: value for key, value in saved.items() if value is not None})
+    launches["selection"] = spd.spd_inv_logdet.launches
+    sel = {"nlpd_off": nlpd(off), "nlpd_on": nlpd(on),
+           "final_nll_off": off.metrics["final_nll"],
+           "final_nll_renormalized_on": on.metrics["final_nll_renormalized"],
+           **{key: on.metrics[key] for key in ("agg.selection_dropped", "agg.renorm",
+                                               "agg.effective_experts", "num_experts")},
+           "nfev": [off.metrics["lbfgs_nfev"], on.metrics["lbfgs_nfev"]],
+           "launches": launches["selection"], "seconds": time.perf_counter() - start}
+    emit({"phase": "selection", **sel, "bar_nlpd_rel": SELECTION_NLPD_REL})
+    if not (sel["agg.selection_dropped"] >= 0.25 * on.metrics["num_experts"]
+            and sel["agg.renorm"] == 2.0
+            and sel["nlpd_on"] - sel["nlpd_off"] <= SELECTION_NLPD_REL * abs(sel["nlpd_off"])
+            and launches["selection"] == sum(sel["nfev"])):
+        raise AssertionError(f"selection: {sel}")
+
+    # quarantine: the first airfoil fold at expert 100 with one expert's
+    # rows NaN (the data screen drops it) and another's scaled by 1e300
+    # (finite on the host, inf in float32 on the card: the first evaluation
+    # fails, the health probe finds the expert at every jitter rung, the
+    # recovery quarantines it and the retry fits), against the clean fit on
+    # the other experts' rows and the clean fit on all rows
+    x, y, folds = data_main["x"], data_main["y"], data_main["folds"]
+    train, test = folds[0]
+    experts, nan_expert, huge_expert = 14, 3, 9
+    start = time.perf_counter()
+    clean = airfoil_gp(100).fit(x[train], y[train])
+    full_rmse = rmse(y[test], clean.predict(x[test]))
+    kept = ~np.isin(np.arange(train.shape[0]) % experts, [nan_expert, huge_expert])
+    survivors = airfoil_gp(100).fit(x[train][kept], y[train][kept])
+    clean_rmse = rmse(y[test], survivors.predict(x[test]))
+    xq, yq = poisoned_airfoil(x[train], y[train], experts, nan_expert, huge_expert)
+    spd.spd_inv_logdet.launches = 0
+    model = airfoil_gp(100).fit(xq, yq)
+    launches["quarantine"] = spd.spd_inv_logdet.launches
+    pred = model.predict(x[test])
+    if not np.all(np.isfinite(pred)):
+        raise AssertionError("quarantine predictions not finite")
+    m = model.metrics
+    # one failed first evaluation, then the probe: every expert on its own
+    # at rung 0, the one unhealthy expert alone at each jitter rung (the
+    # huge expert never heals), then the retry's evaluations
+    probes = len(JITTER_SCHEDULE)
+    unhealthy = 1  # the huge expert; the NaN one is masked inert by the screen
+    probe_launches = experts + (probes - 1) * unhealthy
+    rule = 1 + probe_launches + m["lbfgs_nfev"]
+    q = {"rmse": rmse(y[test], pred), "clean_rmse": clean_rmse,
+         "rmse_rel_change": rmse(y[test], pred) / clean_rmse - 1.0,
+         "full_clean_rmse": full_rmse, "rmse_rel_change_full": rmse(y[test], pred) / full_rmse - 1.0,
+         **{key: m.get(key) for key in ("experts_active_initial", "experts_quarantined",
+                                        "bcm_renorm", "experts_jittered", "fit_retries",
+                                        "final_nll", "final_nll_renormalized",
+                                        "agg.effective_experts", "lbfgs_nfev")},
+         "clean_final_nll": clean.metrics["final_nll"], "probe_rungs": probes,
+         "launches": launches["quarantine"],
+         "launches_rule": "1 + E + (rungs - 1) * unhealthy + nfev",
+         "probe_launches": probe_launches,
+         "active_set_finite": bool(np.all(np.isfinite(model.raw_predictor.active))),
+         "seconds": time.perf_counter() - start}
+    # which experts: the screen's (host rows) and the probe's on the card's
+    # screened stack (these launches are not the fit's)
+    gp = airfoil_gp(100)
+    finite = gp._finite_row_mask(xq, yq)
+    q["screened"] = sorted(set((np.flatnonzero(~finite) % experts).tolist()))
+    stack = gp._group(xq, yq, torch.device("cuda")).with_experts_masked(
+        np.isin(np.arange(experts), q["screened"]))
+    kernel = gp._get_kernel()
+    report = diagnose_experts(kernel, kernel.init_theta(), stack)
+    q["probed_bad"] = np.flatnonzero(report.bad).tolist()
+    q["probed_jitter_max"] = float(report.jitter.max())
+    emit({"phase": "quarantine", "poisoned": {"nan": nan_expert, "huge": huge_expert},
+          "bar_rmse_rel": QUARANTINE_RMSE_REL, **q})
+    if not (m["experts_quarantined"] == 2.0 and m["bcm_renorm"] == experts / (experts - 2)
+            and m.get("fit_retries") == 1.0 and q["active_set_finite"]
+            and q["screened"] == [nan_expert] and q["probed_bad"] == [huge_expert]
+            and abs(q["rmse_rel_change"]) <= QUARANTINE_RMSE_REL
+            and launches["quarantine"] == rule):
+        raise AssertionError(f"quarantine: {q}, rule {rule}")
+
+    k2 = weighted_matfree_phase(torch, mf_data)
+    emit({"phase": "slice7-phases", "seconds": time.perf_counter() - start_all, "card": smi})
+    return launches, k2
+
+
 def main() -> int:
     import torch
 
@@ -2177,6 +2555,10 @@ def main() -> int:
     # config's B, the greedy-scale fit's gram
     d6 = slice6_data()
     stacks.update(slice6_stacks(torch, ep, lap_gen, d6, cdata))
+    # slice 7's data and the stacks it hands K1: the aggregation fits' gram
+    # stacks and the health probe's one-expert stack
+    d7 = slice7_data()
+    stacks.update(slice7_stacks(torch, d7, stacks))
     # each config's gram_cache_engaged, asserted in the gram-cache phase
     engaged = {}
 
@@ -2587,6 +2969,9 @@ def main() -> int:
     # 29-37. this slice: the greedy provider, the joint posterior, EP and
     # count regression
     slice6 = slice6_phases(torch, spd, d6, rdata, cdata, smi)
+    # 37-42. slice 7: PoE aggregation, fit-time selection, quarantine,
+    # the weighted matrix-free objective
+    slice7, k2_weighted = slice7_phases(torch, spd, d7, data_main, mf_data, smi)
 
     # 37. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
@@ -2614,7 +2999,8 @@ def main() -> int:
         "replaces": "spark_gp_tpu/ops/pallas_linalg.py:228",
         "launches": (launches_airfoil + launches_protein + launches_450
                      + launches_gpc_mnist + launches_iris + launches_iris_native
-                     + sum(regression.values()) + sum(slice6.values())),
+                     + sum(regression.values()) + sum(slice6.values())
+                     + sum(slice7.values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
@@ -2623,6 +3009,7 @@ def main() -> int:
         "launches_iris_native": launches_iris_native,
         **{f"launches_{key}": value for key, value in regression.items()},
         **{f"launches_{key}": value for key, value in slice6.items()},
+        **{f"launches_{key}": value for key, value in slice7.items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
@@ -2646,6 +3033,10 @@ def main() -> int:
                                   **{key: timing[label][key]
                                      for key in keys + ("first_design_ms", "wall_ms")}}
                           for label in ("ep_iris_b", "poisson_b", "year_msd")},
+        "slice7_stacks": {label: {"shape": timing[label]["shape"], "max_abs_err": errs[label],
+                                  **{key: timing[label][key]
+                                     for key in keys + ("first_design_ms", "wall_ms")}}
+                          for label in ("clustered", "heteroscedastic", "quarantine_probe")},
         "loo_cotangent_max_abs_err": loo_cotangent["max_abs_err"],
         "checked": True,
     }, {
@@ -2653,8 +3044,10 @@ def main() -> int:
         "route": "cuda",
         "source": "spark_gp_tpu_torch/csrc/streamed_matvec.cu",
         "replaces": "spark_gp_tpu/ops/pallas_matvec.py:211",
-        "launches": launches_k2 + report_launches["streamed_matvec"],
+        "launches": (launches_k2 + report_launches["streamed_matvec"]
+                     + k2_weighted["streamed_matvec"]),
         "launches_optimize": launches_k2,
+        "launches_weighted_matfree": k2_weighted["streamed_matvec"],
         "launches_solver_report": report_launches["streamed_matvec"],
         **leg(k2_rows, 9, "matvec"),
         "max_rel_err_all_checks": max(e["matvec_rel"] for e in k2_errs.values()),
@@ -2666,7 +3059,8 @@ def main() -> int:
         "source": "spark_gp_tpu_torch/csrc/streamed_matvec.cu",
         "replaces": "spark_gp_tpu/ops/pallas_matvec.py:133",
         "replaces_note": "no Pallas kernel: XLA differentiates the checkpointed scan",
-        "launches": launches_vjp,
+        "launches": launches_vjp + k2_weighted["streamed_matvec_vjp"],
+        "launches_weighted_matfree": k2_weighted["streamed_matvec_vjp"],
         **leg(vjp_rows, 8, "vjp", ("first_design_ms", "wall_ms")),
         "max_rel_err_all_checks": max(e["vjp_rel"] for e in k2_errs.values()),
         "legs": {"n1": leg(vjp_rows, 1, "vjp", ("first_design_ms", "wall_ms"))},

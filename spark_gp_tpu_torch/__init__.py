@@ -12,7 +12,11 @@ Titsias ELBO (``setObjective``), from several starting points
 points, and its model gives the joint posterior covariance, posterior
 draws and online updates.  The binary classifier also runs Expectation
 Propagation (probit), and count data fit by the Laplace approximation
-with Poisson or Negative Binomial likelihoods.
+with Poisson or Negative Binomial likelihoods.  Regression also predicts
+by a product of experts (``poe_predictor``: PoE, gPoE, BCM, rBCM or the
+healed product), and every fit screens out experts with non-finite rows
+and recovers a failed attempt by per-expert jitter escalation and
+quarantine (``setExpertQuarantine``, ``setFitRetries``).
 Kernels, theta layout, setter names and numerics match the JAX package,
 which stays the reference the port is tested against.
 
@@ -81,6 +85,10 @@ from spark_gp_tpu_torch.models.gpr import (
     GaussianProcessRegressionModel,
 )
 from spark_gp_tpu_torch.ops.linalg import NotPositiveDefiniteException
+from spark_gp_tpu_torch.resilience.quarantine import (
+    ExpertQuarantineError,
+    NonFiniteFitError,
+)
 
 __all__ = [
     "Kernel",
@@ -120,4 +128,6 @@ __all__ = [
     "KMeansActiveSetProvider",
     "GreedilyOptimizingActiveSetProvider",
     "NotPositiveDefiniteException",
+    "ExpertQuarantineError",
+    "NonFiniteFitError",
 ]

@@ -158,3 +158,56 @@ def load_year_msd(path: str | None = None, n: int | None = None,
         return _target_first_csv(path, n, seed)
     p, _, eff = _STANDIN_PARAMS["year_msd"]
     return _synthetic_regression(n or 515345, p, seed, effective_dim=eff)
+
+
+#: planted additive noise of the clustered stand-in, the calibrated side
+#: of the aggregation bars (:func:`clustered_noise_floor`)
+CLUSTERED_NOISE = 0.05
+
+#: noise ramp endpoints of the heteroscedastic stand-in: sigma(t) runs
+#: linearly from LOW to HIGH across the input range
+HETERO_NOISE_LOW = 0.02
+HETERO_NOISE_HIGH = 0.40
+
+
+def make_clustered(n: int = 4096, p: int = 2, n_clusters: int = 8, seed: int = 3,
+                   noise: float = CLUSTERED_NOISE, spread: float = 0.15):
+    """Disjoint-cluster regression, the aggregation plane's canary:
+    ``n_clusters`` well-separated Gaussian blobs, each with its own local
+    response (a sinusoid plus an offset) and the planted noise.  Far from
+    its own cluster every expert reverts to the prior, so the plain
+    product of experts is overconfident there by construction.  Row ``i``
+    belongs to cluster ``i % n_clusters``, so round-robin grouping pins
+    every expert to one cluster whenever ``n_clusters`` divides ``E``.
+    Returns ``(x [n, p], y [n])``, the JAX package's values."""
+    rng = np.random.default_rng(seed)
+    centers = 4.0 * rng.normal(size=(n_clusters, p))
+    assign = np.arange(n) % n_clusters
+    x = centers[assign] + spread * rng.normal(size=(n, p))
+    w = rng.normal(size=(n_clusters, p))
+    offsets = 2.0 * rng.normal(size=n_clusters)
+    y = (
+        np.sin(np.einsum("np,np->n", x - centers[assign], w[assign]) * 3.0)
+        + offsets[assign]
+        + noise * rng.normal(size=n)
+    )
+    return x, y
+
+
+def clustered_noise_floor(n: int = 4096) -> float:
+    """Irreducible scaled RMSE of :func:`make_clustered`: the planted noise
+    over the target's standard deviation."""
+    _, y = make_clustered(n)
+    return CLUSTERED_NOISE / float(np.std(y))
+
+
+def make_heteroscedastic(n: int = 4096, seed: int = 5):
+    """1-d regression with input-dependent noise, the calibration canary:
+    ``y = sin(6 t) + sigma(t) eps`` with ``sigma`` ramping linearly from
+    :data:`HETERO_NOISE_LOW` to :data:`HETERO_NOISE_HIGH` over ``t in
+    [0, 1]``.  Returns ``(x [n, 1], y [n], sigma [n])``."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(size=n))
+    sigma = HETERO_NOISE_LOW + (HETERO_NOISE_HIGH - HETERO_NOISE_LOW) * t
+    y = np.sin(6.0 * t) + sigma * rng.normal(size=n)
+    return t[:, None], y, sigma

@@ -9,6 +9,7 @@ item that ports them.
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -38,7 +39,7 @@ from spark_gp_tpu_torch.optimize.lbfgsb import (
     log_space_applicable,
     minimize_lbfgsb,
 )
-from spark_gp_tpu_torch.parallel.experts import ExpertData, group_for_experts
+from spark_gp_tpu_torch.parallel.experts import ExpertData, group_for_experts, num_experts_for
 from spark_gp_tpu_torch.utils.device import working_dtype
 
 
@@ -64,6 +65,8 @@ class GaussianProcessParams:
         self._num_restarts: int = 1
         self._restart_scale: float = 0.5
         self._predictive_variance: bool = True
+        self._expert_quarantine: bool = True
+        self._fit_retries: int = 2
         self._device = device
 
     def setKernel(self, value: Union[Kernel, Callable[[], Kernel]]):
@@ -193,18 +196,22 @@ class GaussianProcessParams:
         return self
 
     def setExpertQuarantine(self, value: bool):
-        """``False``, the port's behaviour: a non-finite row raises
-        ``ValueError`` before the fit."""
-        if bool(value):
-            raise _not_ported("expert quarantine", 2)
+        """``True`` (default): experts carrying non-finite rows are dropped
+        before the fit (the data screen), and experts whose NLL or
+        gradient is non-finite during it are repaired by jitter escalation
+        or dropped, with renormalization (``resilience/quarantine.py``).
+        A failure of every expert still raises.  ``False``: any non-finite
+        expert fails the fit."""
+        self._expert_quarantine = bool(value)
         return self
 
     def setFitRetries(self, value: int):
-        """``0``, the port's behaviour: the first failure is final."""
+        """How many times a failed fit attempt is retried (with backoff)
+        after quarantine or jitter repair; default 2, 0 makes the first
+        failure final."""
         if int(value) < 0:
             raise ValueError("fit retries must be >= 0")
-        if int(value) > 0:
-            raise _not_ported("fit retries", 2)
+        self._fit_retries = int(value)
         return self
 
     def setPrecisionLane(self, value: str):
@@ -216,12 +223,14 @@ class GaussianProcessParams:
         return self
 
     def setAggregationPolicy(self, value: str):
-        """``"poe"``, the port's only policy (the plain product of
-        experts)."""
-        if value not in ("poe", "gpoe", "rbcm", "healed"):
-            raise ValueError("aggregation policy must be 'poe', 'gpoe', 'rbcm' or 'healed'")
-        if value != "poe":
-            raise _not_ported(f"the {value!r} aggregation policy", 8)
+        """Expert-aggregation policy of the PoE predictor
+        (``models/aggregation.py``): ``"poe"`` (the plain product of
+        experts), ``"gpoe"``, ``"rbcm"`` or ``"healed"``.  A fluent veneer
+        over the process-wide setting (``set_agg_policy`` /
+        ``GP_AGG_POLICY``); fits stamp it as ``agg.policy``."""
+        from spark_gp_tpu_torch.models.aggregation import set_agg_policy
+
+        set_agg_policy(value)
         return self
 
     def _use_log_space(self, kernel) -> bool:
@@ -260,6 +269,21 @@ class GaussianProcessParams:
     set_aggregation_policy = setAggregationPolicy
 
 
+class FitLog:
+    """What a fit records beside its result: the metrics that join
+    ``model.metrics``, warnings on the package's logger, and the
+    aggregation weights of fit-time selection, which a quarantine
+    zeroes."""
+
+    def __init__(self) -> None:
+        self.metrics: dict = {}
+        self.agg_weights: Optional[np.ndarray] = None
+
+    @staticmethod
+    def warn(message: str) -> None:
+        logging.getLogger("spark_gp_tpu_torch").warning(message)
+
+
 def _default_kernel_factory() -> Kernel:
     from spark_gp_tpu_torch.kernels.rbf import RBFKernel
 
@@ -283,6 +307,238 @@ class GaussianProcessCommons(GaussianProcessParams):
             x, y, self._dataset_size_for_expert,
             dtype=working_dtype(device), device=device,
         )
+
+    def _group_screened(self, log: FitLog, x, y, device) -> ExpertData:
+        """Group, and the data screen: experts carrying a non-finite row
+        are quarantined here, before the objective meets it.  Round-robin
+        grouping puts row ``i`` in expert ``i % E``, so the bad experts
+        follow from the bad rows in host numpy."""
+        bad_experts = None
+        if self._expert_quarantine:
+            finite = self._finite_row_mask(x, y)
+            if finite is not None:
+                e = num_experts_for(x.shape[0], self._dataset_size_for_expert)
+                bad_experts = np.zeros(e, dtype=bool)
+                bad_experts[np.flatnonzero(~finite) % e] = True
+        data = self._group(x, y, device)
+        if bad_experts is not None:
+            data = self._apply_quarantine(log, data, bad_experts, "data screen")
+        return data
+
+    @staticmethod
+    def _finite_row_mask(x, y=None):
+        """bool [N] of the rows whose features (and labels, when given) are
+        all finite, or ``None`` when every row is: the one test behind the
+        data screen and the provider-row filters."""
+        finite = np.all(np.isfinite(x), axis=1)
+        if y is not None:
+            finite &= np.all(np.isfinite(np.asarray(y).reshape(x.shape[0], -1)), axis=1)
+        return None if finite.all() else finite
+
+    def _screen_rows(self, x, y):
+        """``(x, y)`` without their non-finite rows: the active-set
+        providers sample the raw rows, and one NaN row in the active set
+        would poison the PPA statistics that the quarantine cleaned."""
+        if not self._expert_quarantine:
+            return x, y
+        finite = self._finite_row_mask(x, y)
+        if finite is None:
+            return x, y
+        return x[finite], np.asarray(y)[finite]
+
+    def _provider_rows_filter(self, x):
+        """``(x_filtered, n_orig, row_filter)`` for the latent-target
+        estimators: their providers sample the raw rows while their targets
+        are per-point latents of the original length, so both are filtered
+        by the same finite-row mask (``row_filter`` applies it to a
+        ``[n_orig]`` vector)."""
+        n_orig = x.shape[0]
+        finite = self._finite_row_mask(x) if self._expert_quarantine else None
+        if finite is None:
+            return x, n_orig, (lambda t: t)
+        return x[finite], n_orig, (lambda t: np.asarray(t)[finite])
+
+    @staticmethod
+    def _log_renormalized_nll(metrics: dict) -> None:
+        """With experts quarantined or deselected, the full-stack-comparable
+        objective ``final_nll_renormalized = final_nll * bcm_renorm *
+        agg.renorm``; ``final_nll`` stays the optimizer's reduced sum."""
+        renorm = metrics.get("bcm_renorm")
+        agg_renorm = metrics.get("agg.renorm")
+        if agg_renorm is not None and float(agg_renorm) != 1.0:
+            renorm = (1.0 if renorm is None else renorm) * float(agg_renorm)
+        if renorm is not None and "final_nll" in metrics:
+            metrics["final_nll_renormalized"] = metrics["final_nll"] * renorm
+
+    def _apply_quarantine(self, log: FitLog, data: ExpertData, bad, source: str) -> ExpertData:
+        """Make the ``bad`` experts inert and account for it:
+        ``experts_active_initial`` is pinned at the first drop, so later
+        rounds count against the original stack, and ``bcm_renorm`` maps
+        the reduced sum back to a full-stack-comparable NLL."""
+        from spark_gp_tpu_torch.models.aggregation import effective_expert_count
+        from spark_gp_tpu_torch.resilience.quarantine import (
+            GLOBAL_FAILURE_ADVICE,
+            ExpertQuarantineError,
+            quarantine_experts,
+            renorm_factor,
+        )
+
+        bad = np.asarray(bad, dtype=bool)
+        n_bad = int(bad.sum())
+        if n_bad == 0:
+            return data
+        active = int((data.mask.sum(dim=1) > 0).sum())
+        if n_bad >= active:
+            raise ExpertQuarantineError(
+                f"{source}: all {active} active expert(s) are non-finite — "
+                + GLOBAL_FAILURE_ADVICE
+            )
+        data = quarantine_experts(data, bad)
+        metrics = log.metrics
+        base = metrics.setdefault("experts_active_initial", float(active))
+        dropped = metrics.get("experts_quarantined", 0.0) + n_bad
+        metrics["experts_quarantined"] = dropped
+        renorm = renorm_factor(base, dropped)
+        metrics["bcm_renorm"] = renorm
+        if log.agg_weights is not None:
+            # a quarantined expert's aggregation weight is exactly 0
+            log.agg_weights = np.where(bad, 0.0, log.agg_weights)
+            metrics["agg.effective_experts"] = effective_expert_count(log.agg_weights)
+        log.warn(
+            f"{source}: quarantined {n_bad} non-finite expert(s) "
+            f"({int(dropped)}/{int(base)} total dropped); BCM objective "
+            f"renormalized by {renorm:.4f}"
+        )
+        return data
+
+    def _apply_expert_selection(self, log: FitLog, data: ExpertData):
+        """Fit-time expert selection (``models/aggregation.py``), before any
+        objective evaluation: ``drop`` mode compacts the stack to the kept
+        experts, ``downweight`` mode hands back fractional weights for the
+        marginal objective.  Returns ``(data, extra)``, ``extra`` either
+        ``()`` or the marginal objective's ``(None, weights)`` (slot 0 is
+        the recovery loop's jitter).  Off unless ``GP_AGG_SELECT``."""
+        from spark_gp_tpu_torch.models import aggregation as agg
+
+        if not agg.selection_enabled():
+            return data, ()
+        mode = agg.selection_mode()
+        if mode == "downweight" and self._objective != "marginal":
+            # only the marginal objective takes the weights; masking works
+            # for every objective
+            log.warn(
+                "aggregation selection: downweight mode requires the "
+                "marginal objective; falling back to drop semantics "
+                f"for objective {self._objective!r}"
+            )
+            mode = "drop"
+        report = agg.select_experts(data, mode=mode, seed=self._seed)
+        weights = np.asarray(report.weights, dtype=np.float64)
+        log.agg_weights = weights
+        log.metrics["agg.selection_dropped"] = float(report.num_dropped)
+        log.metrics["agg.renorm"] = report.renorm
+        log.metrics["agg.effective_experts"] = agg.effective_expert_count(weights)
+        if report.clean:
+            return data, ()
+        if report.mode == "downweight":
+            log.warn(
+                "aggregation selection: "
+                f"{int(np.sum((weights > 0) & (weights < 1.0)))} "
+                f"expert(s) down-weighted of {report.num_active} "
+                f"(threshold {report.threshold:.2f}); weighted "
+                f"objective renormalizes by {report.renorm:.4f}"
+            )
+            return data, (None, torch.as_tensor(weights, dtype=data.x.dtype,
+                                                device=data.x.device))
+        keep = np.flatnonzero(~report.drop)
+        # the kept experts all carry w_e = 1 in the compacted stack
+        log.agg_weights = weights[keep]
+        log.warn(
+            f"aggregation selection: dropped {report.num_dropped} "
+            f"redundant expert(s) of {report.num_active} before "
+            f"factorization (threshold {report.threshold:.2f}); "
+            f"objective renormalizes by {report.renorm:.4f}"
+        )
+        idx = torch.as_tensor(keep, device=data.x.device)
+        return ExpertData(x=data.x[idx], y=data.y[idx], mask=data.mask[idx]), ()
+
+    def _run_with_expert_resilience(self, log: FitLog, data: ExpertData, run_fit):
+        """Bounded recovery around one complete fit attempt.
+
+        ``run_fit(data, extra, cache)`` is the whole optimize-to-PPA
+        pipeline.  Selection runs first, then the gram cache is built from
+        its stack.  On ``NotPositiveDefiniteException`` or
+        ``NonFiniteFitError`` the per-expert health probe runs at the
+        initial theta, unhealthy experts walk the jitter ladder, the
+        irreparable ones are quarantined (and the cache rebuilt from the
+        repaired stack), and the fit is retried with backoff.  A failure
+        the probe cannot pin on experts is re-raised as it was; any other
+        error (a CUDA error among them) propagates untouched."""
+        from spark_gp_tpu_torch.ops.linalg import NotPositiveDefiniteException
+        from spark_gp_tpu_torch.resilience.quarantine import NonFiniteFitError, diagnose_experts
+        from spark_gp_tpu_torch.resilience.retry import (
+            RetryBudgetExceededError,
+            retry_with_backoff,
+        )
+
+        data, sel_extra = self._apply_expert_selection(log, data)
+        cache = self._gram_cache(self._get_kernel(), data)
+        if not self._expert_quarantine or self._fit_retries < 1:
+            return run_fit(data, sel_extra, cache)
+        state = {"data": data, "extra": sel_extra, "cache": cache}
+        # the probe needs an objective that decomposes over experts; the
+        # ELBO's faults are diagnosed through the marginal NLL
+        probe_objective = self._objective if self._objective in ("marginal", "loo") else "marginal"
+
+        def attempt():
+            return run_fit(state["data"], state["extra"], state["cache"])
+
+        def recover(attempt_idx, exc):
+            kernel = self._get_kernel()
+            report = diagnose_experts(kernel, kernel.init_theta(), state["data"],
+                                      objective=probe_objective,
+                                      allow_jitter=self._objective == "marginal")
+            if report.clean:
+                raise exc  # not a per-expert fault
+            if report.num_jittered:
+                log.metrics["experts_jittered"] = report.num_jittered
+                log.warn(
+                    f"fit recovery: {report.num_jittered} expert(s) "
+                    "repaired by adaptive jitter escalation "
+                    f"(max relative jitter {report.jitter.max():.1e})"
+                )
+                # slot 0 is the jitter operand; selection's weights survive
+                state["extra"] = (torch.as_tensor(report.jitter, dtype=state["data"].x.dtype,
+                                                  device=state["data"].x.device),
+                                  ) + tuple(state["extra"][1:])
+            if report.num_dropped:
+                state["data"] = self._apply_quarantine(log, state["data"], report.bad,
+                                                       "fit recovery")
+                # the dropped experts have new (benign) rows
+                state["cache"] = self._gram_cache(kernel, state["data"])
+            log.metrics["fit_retries"] = float(attempt_idx + 1)
+
+        try:
+            return retry_with_backoff(
+                attempt, attempts=self._fit_retries + 1, base_delay_s=0.05,
+                retry_on=(NotPositiveDefiniteException, NonFiniteFitError),
+                on_retry=recover, describe=f"{type(self).__name__} fit",
+            )
+        except RetryBudgetExceededError as err:
+            raise err.__cause__ from err
+
+    @staticmethod
+    def _emit_aggregation_stats(metrics: dict, data: ExpertData) -> None:
+        """Stamp the engaged predict policy (``agg.policy``) and, unless
+        selection already did, the effective expert count of the fitted
+        stack (its active experts at unit weight)."""
+        from spark_gp_tpu_torch.models import aggregation as agg
+
+        metrics["agg.policy"] = agg.active_agg_policy()
+        if "agg.effective_experts" not in metrics:
+            active = (data.mask.sum(dim=1) > 0).cpu().numpy()
+            metrics["agg.effective_experts"] = agg.effective_expert_count(
+                active.astype(np.float64))
 
     def _gram_cache(self, kernel: Kernel, data: ExpertData):
         """The fit's theta-invariant gram cache (``kernels/base.py``), built
@@ -325,7 +581,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         choice.  Returns ``(OptimizeResult, metrics)``, the metrics
         ``restart_{r}_nll``, ``num_restarts``, ``best_restart`` and
         ``restarts_nfev`` (the evaluations of every restart); empty for
-        one restart.  Raises ``RuntimeError`` when no restart ends
+        one restart.  Raises ``NonFiniteFitError`` when no restart ends
         finite."""
         if self._num_restarts <= 1:
             return self._optimize_hypers_body(kernel, value_and_grad), {}
@@ -336,7 +592,9 @@ class GaussianProcessCommons(GaussianProcessParams):
         nlls = [res.fun if np.isfinite(res.fun) else np.inf for res in results]
         best = int(np.argmin(nlls))
         if not np.isfinite(nlls[best]):
-            raise RuntimeError(
+            from spark_gp_tpu_torch.resilience.quarantine import NonFiniteFitError
+
+            raise NonFiniteFitError(
                 "every restart produced a non-finite final NLL — the model "
                 "configuration is numerically unusable at these settings"
             )

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
+from spark_gp_tpu_torch.models.aggregation import weighted_expert_sum
 from spark_gp_tpu_torch.ops import spd_linalg
 from spark_gp_tpu_torch.parallel.experts import ExpertData
 
@@ -150,11 +151,13 @@ def _ep_log_z(kmat, y_pm, mask, tau, nu):
     return term_sites + term_norm + term_match - 0.5 * logdet_b - quad
 
 
-def batched_neg_logz_ep(kernel: Kernel, tol, theta, data: ExpertData, sites0):
+def batched_neg_logz_ep(kernel: Kernel, tol, theta, data: ExpertData, sites0, weights=None):
     """``(-sum_e log Z_EP, its gradient in theta, (tau, nu))`` over the
     expert stack; ``theta`` is a tensor on the stack's device.  The sites
     run to convergence from ``sites0`` on the detached gram and are held
-    constant in the differentiated ``log Z_EP`` (module doc)."""
+    constant in the differentiated ``log Z_EP`` (module doc).  ``weights``
+    (``[E]``, ``models/aggregation.py``) weights each expert's ``log
+    Z_EP``; ``None`` keeps the plain sum."""
     batched_neg_logz_ep.calls += 1
     tau0, nu0 = sites0
     y_pm = (2.0 * data.y - 1.0) * data.mask  # {0,1} -> {-1,+1}, masked
@@ -162,7 +165,7 @@ def batched_neg_logz_ep(kernel: Kernel, tol, theta, data: ExpertData, sites0):
     with torch.enable_grad():
         kmat = masked_gram_stack(kernel, th, data.x, data.mask)
         tau, nu, _ = ep_fit_sites(kmat.detach(), y_pm, data.mask, tau0, nu0, tol)
-        value = -torch.sum(_ep_log_z(kmat, y_pm, data.mask, tau, nu))
+        value = -weighted_expert_sum(_ep_log_z(kmat, y_pm, data.mask, tau, nu), weights)
         (grad,) = torch.autograd.grad(value, th)
     return value.detach(), grad, (tau, nu)
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models import laplace_generic as lg
-from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import FitLog, GaussianProcessCommons, _not_ported
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
@@ -42,18 +42,14 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
         y = np.asarray(y, dtype=np.float64)
         if np.any(y < 0) or not np.all(y == np.floor(y)):
             raise ValueError("targets must be non-negative integer counts")
-        if not np.all(np.isfinite(x)):
-            raise ValueError(
-                "x must be finite (quarantine of non-finite rows is not "
-                "ported yet: ROADMAP.md queue 1, item 2)"
-            )
         device = resolve_device(self._device)
         lik = self._likelihood
         iterations = lg.laplace_generic_mode.iterations
         calls = lg.batched_neg_logz_generic.calls
         # host wall-clock per phase; each phase ends in a device-to-host copy
         clock = [time.perf_counter()]
-        data = self._group(x, y, device)
+        log = FitLog()
+        data = self._group_screened(log, x, y, device)
         kernel = self._get_kernel()
         cache = self._gram_cache(kernel, data)
         clock.append(time.perf_counter())
@@ -64,8 +60,9 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
         # the latent log-rates replace the counts in the PPA build and as
         # the provider's targets (GPClf.scala:62-65)
         latent = f_final * data.mask
+        x_prov, n_orig, row_filter = self._provider_rows_filter(x)
         raw = self._projected_process(
-            kernel, res.theta, x, ungroup(latent.cpu().numpy(), x.shape[0]),
+            kernel, res.theta, x_prov, row_filter(ungroup(latent.cpu().numpy(), n_orig)),
             ExpertData(x=data.x, y=latent, mask=data.mask),
         )
         clock.append(time.perf_counter())
@@ -84,7 +81,10 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
             "group_seconds": clock[1] - clock[0],
             "optimize_seconds": clock[2] - clock[1],
             "ppa_seconds": clock[3] - clock[2],
+            **log.metrics,
         }
+        self._log_renormalized_nll(model.metrics)
+        self._emit_aggregation_stats(model.metrics, data)
         return model
 
     def fit_distributed(self, data, active_set=None):

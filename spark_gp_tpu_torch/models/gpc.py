@@ -3,7 +3,8 @@ approximation -- the counterpart of the reference's
 GaussianProcessClassifier.
 
 ``fit`` (GPClf.scala:48-66) checks that the labels are 0 or 1, groups the
-points into experts with a zero latent vector each, builds the gram
+points into experts with a zero latent vector each (the data screen
+quarantines experts with non-finite rows), builds the gram
 cache once (``kernels/base.py``), runs host L-BFGS-B on
 the summed Laplace ``-log Z`` (``models/laplace.py``; the latent modes
 warm-start every evaluation), settles the modes with one last evaluation
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models import laplace
-from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import FitLog, GaussianProcessCommons, _not_ported
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops.integrator import Integrator
@@ -54,26 +55,24 @@ class GaussianProcessClassifier(GaussianProcessCommons):
             raise ValueError(f"x must be [N, p], got shape {x.shape}")
         if y.shape != (x.shape[0],):
             raise ValueError(f"y must be [N], got shape {y.shape}")
-        if not (np.all(np.isfinite(x)) and np.all(np.isfinite(y))):
-            raise ValueError(
-                "x and y must be finite (quarantine of non-finite rows is "
-                "not ported yet: ROADMAP.md queue 1, item 2)"
-            )
         if not np.all(np.isin(y, (0.0, 1.0))):
             raise ValueError("Only 0 and 1 labels are supported.")
         device = resolve_device(self._device)
+        log = FitLog()
         # host wall-clock per phase; each phase ends in a device-to-host copy
         clock = [time.perf_counter()]
-        data = self._group(x, y, device)
+        data = self._group_screened(log, x, y, device)
         kernel = self._get_kernel()
         cache = self._gram_cache(kernel, data)
         clock.append(time.perf_counter())
         res, latent, engine_metrics = self._fit_latent(kernel, data, cache)
         clock.append(time.perf_counter())
         # the latent targets replace the labels in the PPA build, and the
-        # active-set provider sees them too (GPClf.scala:62-65)
+        # active-set provider sees them too (GPClf.scala:62-65); it gets
+        # only the finite rows, and their targets
+        x_prov, n_orig, row_filter = self._provider_rows_filter(x)
         raw = self._projected_process(
-            kernel, res.theta, x, ungroup(latent.cpu().numpy(), x.shape[0]),
+            kernel, res.theta, x_prov, row_filter(ungroup(latent.cpu().numpy(), n_orig)),
             ExpertData(x=data.x, y=latent, mask=data.mask),
         )
         clock.append(time.perf_counter())
@@ -90,7 +89,10 @@ class GaussianProcessClassifier(GaussianProcessCommons):
             "group_seconds": clock[1] - clock[0],
             "optimize_seconds": clock[2] - clock[1],
             "ppa_seconds": clock[3] - clock[2],
+            **log.metrics,
         }
+        self._log_renormalized_nll(model.metrics)
+        self._emit_aggregation_stats(model.metrics, data)
         return model
 
     def _fit_latent(self, kernel, data: ExpertData, cache):

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models import laplace_mc
-from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import FitLog, GaussianProcessCommons, _not_ported
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
@@ -45,9 +45,8 @@ def _one_hot_masked(y, mask, n_classes: int):
 
 
 def _validated_labels(x, y):
-    """``(x float64, integer labels, C)``, or ``ValueError`` for shapes,
-    non-finite values or labels that are not integers ``0 .. C-1`` with
-    ``C >= 2``."""
+    """``(x float64, integer labels, C)``, or ``ValueError`` for shapes or
+    labels that are not integers ``0 .. C-1`` with ``C >= 2``."""
     x = np.asarray(x, dtype=np.float64)
     y = np.asarray(y)
     if x.ndim != 2:
@@ -55,12 +54,8 @@ def _validated_labels(x, y):
     if y.shape != (x.shape[0],):
         raise ValueError(f"y must be [N], got shape {y.shape}")
     y64 = np.asarray(y, dtype=np.float64)
-    if not (np.all(np.isfinite(x)) and np.all(np.isfinite(y64))):
-        raise ValueError(
-            "x and y must be finite (quarantine of non-finite rows is "
-            "not ported yet: ROADMAP.md queue 1, item 2)"
-        )
-    y_int = y64.astype(np.int64)
+    with np.errstate(invalid="ignore"):
+        y_int = y64.astype(np.int64)
     if not np.all(y_int == y64) or y_int.min() < 0:
         raise ValueError("labels must be integers 0 .. C-1")
     n_classes = int(y_int.max()) + 1
@@ -87,7 +82,8 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
         calls = laplace_mc.batched_neg_logz_mc.calls
         # host wall-clock per phase; each phase ends in a device-to-host copy
         clock = [time.perf_counter()]
-        data = self._group(x, y_int.astype(np.float64), device)
+        log = FitLog()
+        data = self._group_screened(log, x, y_int.astype(np.float64), device)
         y1h = _one_hot_masked(data.y, data.mask, n_classes)
         kernel = self._get_kernel()
         cache = self._gram_cache(kernel, data)
@@ -101,8 +97,9 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
         # sees each point's strongest class latent
         latents = f_final * data.mask[..., None]
         margin = torch.max(latents, dim=-1).values.cpu().numpy()
+        x_prov, n_orig, row_filter = self._provider_rows_filter(x)
         raw = self._projected_process(
-            kernel, res.theta, x, ungroup(margin, x.shape[0]),
+            kernel, res.theta, x_prov, row_filter(ungroup(margin, n_orig)),
             ExpertData(x=data.x, y=latents, mask=data.mask),
         )
         clock.append(time.perf_counter())
@@ -121,7 +118,10 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
             "group_seconds": clock[1] - clock[0],
             "optimize_seconds": clock[2] - clock[1],
             "ppa_seconds": clock[3] - clock[2],
+            **log.metrics,
         }
+        self._log_renormalized_nll(model.metrics)
+        self._emit_aggregation_stats(model.metrics, data)
         return model
 
     def fit_distributed(self, data, n_classes=None, active_set=None):

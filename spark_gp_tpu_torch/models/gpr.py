@@ -9,11 +9,14 @@ effect (``setSolverLane``), the LOO pseudo-likelihood (``models/loo.py``)
 or the Titsias ELBO (``models/sgpr.py``) -- with autograd gradients and
 host L-BFGS-B within the kernel's box bounds, from one starting point or
 several (``setNumRestarts``), then builds the m-point Projected Process
-model.  The fitted model predicts the posterior mean (``predict``),
-variance (``predict_with_var``) and joint covariance
-(``predict_with_cov``), draws from the joint posterior
+model.  The data screen quarantines experts with non-finite rows, and a
+failed attempt is retried after the per-expert recovery ladder
+(``models/common.py``, ``resilience/``).  The fitted model predicts the
+posterior mean (``predict``), variance (``predict_with_var``) and joint
+covariance (``predict_with_cov``), draws from the joint posterior
 (``sample_posterior``) and folds new rows in (``update``); ``loo`` gives
-the per-expert leave-one-out diagnostics at a fitted model's theta.
+the per-expert leave-one-out diagnostics at a fitted model's theta, and
+``poe_predictor`` the product-of-experts predictor (``models/poe.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models.active_set import GreedilyOptimizingActiveSetProvider
-from spark_gp_tpu_torch.models.common import GaussianProcessCommons
+from spark_gp_tpu_torch.models.common import FitLog, GaussianProcessCommons
 from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops.linalg import psd_safe_cholesky_np
@@ -76,32 +79,46 @@ class GaussianProcessRegression(GaussianProcessCommons):
 
     def fit(self, x, y) -> "GaussianProcessRegressionModel":
         x, y = _check_xy(x, y)
-        if not (np.all(np.isfinite(x)) and np.all(np.isfinite(y))):
-            raise ValueError(
-                "x and y must be finite (quarantine of non-finite rows is "
-                "not ported yet: ROADMAP.md queue 1, item 2)"
-            )
         device = resolve_device(self._device)
+        log = FitLog()
         # host wall-clock per phase: each phase ends in a device-to-host
         # copy (the optimizer's per-evaluation fetch, the statistics'
-        # fetch), so the clock covers the device work
-        clock = [time.perf_counter()]
-        data = self._group(x, y, device)
+        # fetch), so the clock covers the device work; the optimize phase
+        # spans every attempt and the recovery between them
+        clock = {"start": time.perf_counter()}
+        data = self._group_screened(log, x, y, device)
+        # the providers sample raw host rows: hand them only finite ones
+        x, y = self._screen_rows(x, y)
         kernel = self._get_kernel()
-        cache = self._gram_cache(kernel, data)
-        active, extra = None, ()
         if self._objective == "elbo":
             self._check_elbo_provider(kernel)
-            # the bound needs its inducing set before the optimization
-            active = self._select_active(kernel, kernel.init_theta(), x, y, device)
-            extra = (active, self._sigma2)
-        clock.append(time.perf_counter())
-        res, restart_metrics = self._optimize_with_restarts(
-            kernel, make_value_and_grad(kernel, data, cache, self._objective, extra)
-        )
-        clock.append(time.perf_counter())
-        raw = self._projected_process(kernel, res.theta, x, y, data, active)
-        clock.append(time.perf_counter())
+
+        def run_fit(data_r, rextra, cache):
+            clock.setdefault("grouped", time.perf_counter())
+            x_r, y_r = x, y
+            if data_r is not data:
+                # recovery or selection rebuilt the stack: the provider rows
+                # come from it (a poisoned row can be finite, and one in the
+                # active set would poison the PPA statistics)
+                keep = data_r.mask > 0
+                x_r = data_r.x[keep].to(torch.float64).cpu().numpy()
+                y_r = data_r.y[keep].to(torch.float64).cpu().numpy()
+            active, extra = None, (rextra if self._objective == "marginal" else ())
+            if self._objective == "elbo":
+                # the bound needs its inducing set before the optimization,
+                # selected from this attempt's rows
+                active = self._select_active(kernel, kernel.init_theta(), x_r, y_r, device)
+                extra = (active, self._sigma2)
+            res, restart_metrics = self._optimize_with_restarts(
+                kernel, make_value_and_grad(kernel, data_r, cache, self._objective, extra)
+            )
+            clock["optimized"] = time.perf_counter()
+            raw = self._projected_process(kernel, res.theta, x_r, y_r, data_r, active)
+            clock["done"] = time.perf_counter()
+            return res, restart_metrics, raw, data_r, cache
+
+        res, restart_metrics, raw, data_fit, cache = self._run_with_expert_resilience(
+            log, data, run_fit)
         model = GaussianProcessRegressionModel(raw)
         model.metrics = {
             "num_experts": data.num_experts,
@@ -111,12 +128,15 @@ class GaussianProcessRegression(GaussianProcessCommons):
             "lbfgs_nfev": res.nfev,
             "final_nll": res.fun,
             "gram_cache_engaged": float(cache is not None),
-            "group_seconds": clock[1] - clock[0],
-            "optimize_seconds": clock[2] - clock[1],
-            "ppa_seconds": clock[3] - clock[2],
+            "group_seconds": clock["grouped"] - clock["start"],
+            "optimize_seconds": clock["optimized"] - clock["grouped"],
+            "ppa_seconds": clock["done"] - clock["optimized"],
             **restart_metrics,
+            **log.metrics,
         }
-        self._emit_solver_stats(model.metrics, kernel, res.theta, data)
+        self._log_renormalized_nll(model.metrics)
+        self._emit_solver_stats(model.metrics, kernel, res.theta, data_fit)
+        self._emit_aggregation_stats(model.metrics, data_fit)
         return model
 
     def _check_elbo_provider(self, kernel) -> None:
@@ -148,13 +168,31 @@ class GaussianProcessRegression(GaussianProcessCommons):
                                working_dtype(device), device)
 
     def _resolve_eval_inputs(self, x, y, model):
-        """Checked ``(x, y)`` with the kernel and theta to evaluate at: the
-        model's fitted ones when given, else the initial theta."""
+        """Checked ``(x, y)`` with the kernel and theta to evaluate at, for
+        ``loo`` and ``poe_predictor``: the model's fitted ones when given,
+        else the initial theta."""
         x, y = _check_xy(x, y)
         if model is not None:
             return x, y, model.raw_predictor.kernel, model.raw_predictor.theta
         kernel = self._get_kernel()
         return x, y, kernel, kernel.init_theta()
+
+    def poe_predictor(self, x, y, model: "Optional[GaussianProcessRegressionModel]" = None,
+                      mode: Optional[str] = None):
+        """Product-of-experts predictor over this estimator's expert split
+        (``models/poe.py``), the inducing-set-free alternative to the PPA
+        model: each expert answers from its exact s-point posterior and
+        the answers combine by precision weighting (``mode``: ``"rbcm"``,
+        ``"gpoe"``, ``"bcm"``, ``"poe"`` or ``"healed"``; ``None`` is the
+        engaged aggregation policy, else ``"rbcm"``).  At ``model``'s
+        fitted theta when given, else the initial theta, on the
+        estimator's device."""
+        from spark_gp_tpu_torch.models.poe import make_poe_predictor
+
+        x, y, kernel, theta = self._resolve_eval_inputs(x, y, model)
+        device = resolve_device(self._device)
+        return make_poe_predictor(kernel, theta, x, y, self._dataset_size_for_expert, mode=mode,
+                                  dtype=working_dtype(device), device=device)
 
 
 class GaussianProcessRegressionModel:

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
+from spark_gp_tpu_torch.models.aggregation import weighted_expert_sum
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops import spd_linalg
 from spark_gp_tpu_torch.ops.linalg import chol_logdet, chol_solve, cholesky
@@ -162,12 +163,15 @@ def laplace_mode_batch(kmat, y, mask, f0, tol):
 laplace_mode_batch.iterations = 0
 
 
-def batched_neg_logz(kernel: Kernel, tol, theta, data: ExpertData, f0, cache=None):
+def batched_neg_logz(kernel: Kernel, tol, theta, data: ExpertData, f0, cache=None,
+                     weights=None):
     """``(-sum_e log Z_e, its gradient in theta, f_modes [E, s])`` over the
     expert stack (module doc); ``theta`` is a tensor on the stack's
     device.  With the fit's gram ``cache`` (``kernels/base.py``) the
     surrogate's reverse pass differentiates only the theta map, not the
-    distances."""
+    distances.  ``weights`` (``[E]``, ``models/aggregation.py``) makes the
+    evidence and its gradient ``sum_e w_e (.)_e``; ``None`` keeps the
+    plain sums."""
     batched_neg_logz.calls += 1
     th = theta.detach().requires_grad_(True)
     with torch.enable_grad():
@@ -191,14 +195,19 @@ def batched_neg_logz(kernel: Kernel, tol, theta, data: ExpertData, f0, cache=Non
         kdiag = torch.diagonal(kmat, dim1=-2, dim2=-1)
         s2 = -0.5 * (kdiag - csum) * d3_log_p
         u = s2 - torch.einsum("eij,ej->ei", r_mat, torch.einsum("eij,ej->ei", kmat, s2))
+        # each expert's surrogate terms at its weight
+        wa, wr, wu = a, r_mat, u
+        if weights is not None:
+            w = torch.as_tensor(weights, dtype=kmat.dtype, device=kmat.device)
+            wa, wr, wu = a * w[:, None], r_mat * w[:, None, None], u * w[:, None]
     with torch.enable_grad():
         surrogate = (
-            0.5 * torch.einsum("ei,eij,ej->", a, kmat_g, a)
-            - 0.5 * torch.sum(r_mat * kmat_g)
-            + torch.einsum("ei,eij,ej->", u, kmat_g, grad_log_p)
+            0.5 * torch.einsum("ei,eij,ej->", wa, kmat_g, a)
+            - 0.5 * torch.sum(wr * kmat_g)
+            + torch.einsum("ei,eij,ej->", wu, kmat_g, grad_log_p)
         )
         (grad,) = torch.autograd.grad(surrogate, th)
-    return -torch.sum(log_z), -grad, f
+    return -weighted_expert_sum(log_z, weights), -grad, f
 
 
 #: objective evaluations since the last reset

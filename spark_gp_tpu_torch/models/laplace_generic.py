@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
+from spark_gp_tpu_torch.models.aggregation import weighted_expert_sum
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops import spd_linalg
 
@@ -228,11 +229,13 @@ laplace_generic_mode.iterations = 0
 
 
 def batched_neg_logz_generic(lik: Likelihood, kernel: Kernel, tol, theta, x, y, mask, f0,
-                             cache=None):
+                             cache=None, weights=None):
     """``(-sum_e log Z_e, its gradient in theta, f_modes [E, s])`` for any
     likelihood (module doc); ``theta`` is a tensor on the stack's device.
     With the fit's gram ``cache`` (``kernels/base.py``) the gram is built,
-    and differentiated, from it."""
+    and differentiated, from it.  ``weights`` (``[E]``,
+    ``models/aggregation.py``) weights each expert's evidence; ``None``
+    keeps the plain sum."""
     batched_neg_logz_generic.calls += 1
     th = theta.detach().requires_grad_(True)
     with torch.enable_grad():
@@ -243,7 +246,7 @@ def batched_neg_logz_generic(lik: Likelihood, kernel: Kernel, tol, theta, x, y, 
         # in value but carries the mode's derivative in theta
         det = _gen_newton_quantities(lik, kmat, y, mask, stp.f_new)
         log_z = _gen_objective(lik, stp.a, stp.f_new, y, mask) - det.half_logdet_b
-        value = -torch.sum(log_z)
+        value = -weighted_expert_sum(log_z, weights)
         (grad,) = torch.autograd.grad(value, th)
     return value.detach(), grad, f_hat
 

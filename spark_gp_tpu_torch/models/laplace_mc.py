@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
+from spark_gp_tpu_torch.models.aggregation import weighted_expert_sum
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops import spd_linalg
 from spark_gp_tpu_torch.ops.linalg import chol_solve, cholesky
@@ -181,13 +182,16 @@ def laplace_mc_mode(kmat, y1h, mask, f0, tol):
 laplace_mc_mode.iterations = 0
 
 
-def batched_neg_logz_mc(kernel: Kernel, tol, theta, x, y1h, mask, f0, cache=None):
+def batched_neg_logz_mc(kernel: Kernel, tol, theta, x, y1h, mask, f0, cache=None,
+                        weights=None):
     """``(-sum_e log Z_e, its gradient in theta, f_modes [E, s, C])`` over
     the stack (module doc); ``theta`` is a tensor on the stack's device.
     The mode is found without gradients, then one differentiable Newton
     step is taken from it and the determinants are evaluated at the
     stepped iterate.  With the fit's gram ``cache`` (``kernels/base.py``)
-    the gram is built, and differentiated, from it."""
+    the gram is built, and differentiated, from it.  ``weights`` (``[E]``,
+    ``models/aggregation.py``) weights each expert's evidence; ``None``
+    keeps the plain sum."""
     batched_neg_logz_mc.calls += 1
     th = theta.detach().requires_grad_(True)
     with torch.enable_grad():
@@ -199,7 +203,7 @@ def batched_neg_logz_mc(kernel: Kernel, tol, theta, x, y1h, mask, f0, cache=None
         det = _mc_newton_quantities(kmat, y1h, mask, stp.f_new)
         log_z = (_mc_objective(stp.a, stp.f_new, y1h, mask)
                  - det.half_logdet_b - det.half_logdet_m)
-        value = -torch.sum(log_z)
+        value = -weighted_expert_sum(log_z, weights)
         (grad,) = torch.autograd.grad(value, th)
     return value.detach(), grad, f_hat
 

@@ -30,26 +30,40 @@ import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack, supports_matfree
 from spark_gp_tpu_torch.ops import iterative as it_ops
-from spark_gp_tpu_torch.ops.linalg import chol_logdet, chol_solve, cholesky
+from spark_gp_tpu_torch.ops.linalg import chol_logdet, chol_solve, cholesky, trace_scale
 from spark_gp_tpu_torch.ops.spd_linalg import kernel_applies, spd_inv_logdet
 from spark_gp_tpu_torch.parallel.experts import ExpertData
 
 
-def nll_from_inverse(kmat, ym, inv_logdet=spd_inv_logdet):
-    """Summed NLL of a ``[E, s, s]`` stack through an inverse + logdet
-    function (the kernel branch)."""
+def nll_from_inverse(kmat, ym, inv_logdet=spd_inv_logdet, weights=None):
+    """Summed (or ``weights``-weighted) NLL of a ``[E, s, s]`` stack through
+    an inverse + logdet function (the kernel branch)."""
     kinv, logdet = inv_logdet(kmat)
     alpha = torch.einsum("eij,ej->ei", kinv, ym)
-    return 0.5 * torch.einsum("ei,ei->", ym, alpha) + 0.5 * torch.sum(logdet)
+    if weights is None:
+        return 0.5 * torch.einsum("ei,ei->", ym, alpha) + 0.5 * torch.sum(logdet)
+    return (0.5 * torch.einsum("ei,ei,e->", ym, alpha, weights)
+            + 0.5 * torch.sum(weights * logdet))
 
 
-def nll_from_cholesky(kmat, ym):
-    """Summed NLL of a ``[E, s, s]`` stack through one batched Cholesky."""
+def nll_from_cholesky(kmat, ym, weights=None):
+    """Summed (or ``weights``-weighted) NLL of a ``[E, s, s]`` stack
+    through one batched Cholesky."""
     chol_l = cholesky(kmat)
     alpha = chol_solve(chol_l, ym)
-    return 0.5 * torch.einsum("ei,ei->", ym, alpha) + 0.5 * torch.sum(
-        chol_logdet(chol_l)
-    )
+    if weights is None:
+        return 0.5 * torch.einsum("ei,ei->", ym, alpha) + 0.5 * torch.sum(
+            chol_logdet(chol_l)
+        )
+    return (0.5 * torch.einsum("ei,ei,e->", ym, alpha, weights)
+            + 0.5 * torch.sum(weights * chol_logdet(chol_l)))
+
+
+def _quad_logdet_nll(quad, logdet, weights):
+    """The iterative lanes' NLL from per-expert ``quad`` and ``logdet``."""
+    if weights is None:
+        return 0.5 * torch.sum(quad) + 0.5 * torch.sum(logdet)
+    return 0.5 * torch.sum(weights * quad) + 0.5 * torch.sum(weights * logdet)
 
 
 def masked_matfree_operator(kernel: Kernel, theta, x, mask, jitter=None):
@@ -73,9 +87,7 @@ def masked_matfree_operator(kernel: Kernel, theta, x, mask, jitter=None):
     mcache = kernel.prepare_matvec(x)
     mdiag = mask * kernel.diag(theta, x) + (1.0 - mask)
     if jitter is not None:
-        trace = torch.sum(mdiag, dim=-1)
-        ok = torch.isfinite(trace) & (trace > 0)
-        scale = torch.where(ok, trace / s, torch.ones_like(trace))
+        scale = trace_scale(torch.sum(mdiag, dim=-1), s)
         c = torch.as_tensor(jitter, dtype=x.dtype, device=x.device) * scale
     else:
         c = x.new_zeros(mask.shape[:-1])
@@ -104,42 +116,62 @@ def masked_matfree_operator(kernel: Kernel, theta, x, mask, jitter=None):
     return matvec, matvec_sg, diag_sg, col_fn_sg
 
 
-def batched_nll(kernel: Kernel, theta, data: ExpertData, cache=None):
+def batched_nll(kernel: Kernel, theta, data: ExpertData, cache=None, jitter=None,
+                weights=None):
     """Sum of per-expert NLLs over the ``[E, s, ...]`` stack, on the lane
     ``ops.iterative.resolve_solver`` picks for the expert size.  ``cache``
     is the fit's theta-invariant gram cache (``kernels/base.py``); the
     exact and iterative branches build the gram from it, the matfree
-    branch never builds a gram and is never handed one."""
+    branch never builds a gram and is never handed one.
+
+    ``jitter`` (scalar or ``[E]``, trace-relative) is the recovery
+    ladder's escalation operand (``resilience/quarantine.py``): every lane
+    adds ``jitter * trace / s * I`` to each expert's operator.
+    ``weights`` (``[E]``) is the aggregation plane's per-expert weight
+    operand (``models/aggregation.py``): the objective becomes
+    ``sum_e w_e NLL_e``.  ``None`` for either keeps the plain sum."""
     resolved = it_ops.resolve_solver(data.expert_size)
     ym = data.y * data.mask
+    if weights is not None:
+        weights = torch.as_tensor(weights, dtype=data.x.dtype, device=data.x.device)
     if resolved == "matfree" and supports_matfree(kernel):
-        # this branch runs before any gram is built: every product streams
+        # this branch runs before any gram is built: every product streams,
+        # and the ridge rides the operator
         quad, logdet = it_ops.inv_quad_logdet_matfree(
-            *masked_matfree_operator(kernel, theta, data.x, data.mask), ym
+            *masked_matfree_operator(kernel, theta, data.x, data.mask, jitter), ym
         )
-        return 0.5 * torch.sum(quad) + 0.5 * torch.sum(logdet)
+        return _quad_logdet_nll(quad, logdet, weights)
     kmat = masked_gram_stack(kernel, theta, data.x, data.mask, cache)
+    if jitter is not None:
+        s = kmat.shape[-1]
+        scale = trace_scale(torch.diagonal(kmat, dim1=-2, dim2=-1).sum(-1), s)
+        boost = torch.as_tensor(jitter, dtype=kmat.dtype, device=kmat.device)
+        kmat = kmat + (boost * scale)[..., None, None] * torch.eye(
+            s, dtype=kmat.dtype, device=kmat.device)
     if resolved in ("iterative", "matfree"):
         quad, logdet = it_ops.inv_quad_logdet(kmat, ym)
-        return 0.5 * torch.sum(quad) + 0.5 * torch.sum(logdet)
+        return _quad_logdet_nll(quad, logdet, weights)
     if kernel_applies(kmat):
-        return nll_from_inverse(kmat, ym)
-    return nll_from_cholesky(kmat, ym)
+        return nll_from_inverse(kmat, ym, weights=weights)
+    return nll_from_cholesky(kmat, ym, weights=weights)
 
 
 def objective_fn(objective: str):
     """The stack objective ``setObjective`` selects, as
     ``(kernel, theta, data, cache, *extra) -> scalar``: the BCM marginal
-    NLL (:func:`batched_nll`, on the solver lane in effect), the negative
-    LOO log pseudo-likelihood (``models/loo.py``; K1 or the Cholesky
-    branch whatever the lane) or the negative Titsias ELBO
-    (``models/sgpr.py``; ``extra = (active, sigma2)``, no gram cache)."""
+    NLL (:func:`batched_nll`, on the solver lane in effect; ``extra`` is
+    the recovery loop's ``(jitter,)`` or ``(jitter, weights)``, absent
+    on a clean fit), the negative LOO log pseudo-likelihood
+    (``models/loo.py``; K1 or the Cholesky branch whatever the lane;
+    ``extra`` ignored) or the negative Titsias ELBO (``models/sgpr.py``;
+    ``extra = (active, sigma2)``, no gram cache)."""
     if objective == "marginal":
         return batched_nll
     if objective == "loo":
         from spark_gp_tpu_torch.models.loo import batched_loo_nll
 
-        return batched_loo_nll
+        return lambda kernel, theta, data, cache, *extra: batched_loo_nll(
+            kernel, theta, data, cache)
     if objective == "elbo":
         from spark_gp_tpu_torch.models.sgpr import batched_elbo_nll
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
+from spark_gp_tpu_torch.models.aggregation import weighted_expert_sum
 from spark_gp_tpu_torch.ops import spd_linalg
 from spark_gp_tpu_torch.parallel.experts import ExpertData, group_for_experts, ungroup
 
@@ -53,13 +54,15 @@ def moments_from_inverse(kinv, ym):
     return mu, var, log_density
 
 
-def batched_loo_nll(kernel: Kernel, theta, data: ExpertData, cache=None):
+def batched_loo_nll(kernel: Kernel, theta, data: ExpertData, cache=None, weights=None):
     """The negative LOO log pseudo-likelihood over the expert stack
     (R&W eq. 5.13), the objective ``setObjective("loo")`` minimizes in
     place of the marginal NLL: the masked sum of the per-point log
-    densities, negated."""
+    densities, negated; with the aggregation plane's per-expert
+    ``weights`` (``models/aggregation.py``) each expert's sum enters at
+    its weight."""
     _, _, log_density = loo_moments(kernel, theta, data.x, data.y, data.mask, cache)
-    return -torch.sum(log_density * data.mask)
+    return -weighted_expert_sum(log_density * data.mask, weights)
 
 
 @torch.no_grad()

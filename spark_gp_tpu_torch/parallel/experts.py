@@ -33,6 +33,29 @@ class ExpertData:
     def expert_size(self) -> int:
         return self.x.shape[1]
 
+    def with_experts_masked(self, drop, benign_row=None) -> "ExpertData":
+        """The stack with the ``drop``-flagged experts made inert (the
+        quarantine primitive, ``resilience/quarantine.py``): mask and
+        labels zeroed, so the masked gram embedding turns each dropped
+        expert into an identity block that adds exactly 0 to every
+        reduction, and features replaced by ``benign_row`` (default: the
+        first kept expert's first point), because a fully masked expert
+        still flows through ``kernel.gram`` and ``0 * NaN`` would
+        re-poison the sum.  Shapes are unchanged."""
+        drop = np.asarray(drop, dtype=bool)
+        if not drop.any():
+            return self
+        drop_dev = torch.as_tensor(drop, device=self.x.device)
+        if benign_row is None:
+            benign_row = self.x[int(np.argmax(~drop)), :1]  # [1, p]
+        x = torch.where(drop_dev[:, None, None], benign_row[None], self.x)
+        # zero by selection, never by multiplication: a dropped expert's
+        # labels may be NaN or inf, and 0 * NaN = NaN
+        y = torch.where(drop_dev.reshape((-1,) + (1,) * (self.y.ndim - 1)),
+                        torch.zeros((), dtype=self.y.dtype, device=self.y.device), self.y)
+        keep = (~drop_dev).to(self.mask.dtype)
+        return ExpertData(x=x, y=y, mask=self.mask * keep[:, None])
+
 
 def num_experts_for(n_points: int, dataset_size_for_expert: int) -> int:
     """E = round(N / s) (half-up), at least 1."""

@@ -6,6 +6,7 @@ linear space; a 2-restart host fit with the same per-restart final NLLs
 (1e-6) and best restart; and the Synthetics config with the k-means
 provider below the reference's 0.11 RMSE bar on every objective."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ rtol 1e-5 and both ``predict_proba`` modes within 1e-6 (as the binary
 classifier's fit test); the inverse route of the B systems (K1's, through
 its plain version) against the Cholesky route at 1e-10."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

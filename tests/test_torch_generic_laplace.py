@@ -12,6 +12,7 @@ systems (K1's, through its plain version) against the Cholesky route at
 NB fit at n = 200, maxiter 5, against the JAX package's host-optimizer
 fits (theta rtol 1e-5, rates rtol 1e-6)."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ the Gauss-Hermite integrator, the data loaders and the evaluation
 helpers against the JAX package's; one-vs-rest on iris; and the
 estimator surface this slice leaves out."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import copy
 
 import jax.numpy as jnp
@@ -153,10 +154,15 @@ def test_estimator_surface():
     gp = _iris_gpc(tgp, device="cpu")
     with pytest.raises(ValueError, match="Only 0 and 1 labels"):
         copy.copy(gp).fit(x, y)
+    # a non-finite row: quarantined with its expert (4 % 8), as the JAX
+    # package does; with the quarantine off the fit fails at its first
+    # evaluation
     bad = x.copy()
     bad[4, 2] = np.inf
-    with pytest.raises(ValueError, match="finite"):
-        copy.copy(gp).fit(bad, (y == 1).astype(np.float64))
+    model = copy.copy(gp).setMaxIter(3).fit(bad, (y == 1).astype(np.float64))
+    assert model.metrics["experts_quarantined"] == 1.0 and model.metrics["bcm_renorm"] == 8 / 7
+    with pytest.raises(tgp.NotPositiveDefiniteException):
+        copy.copy(gp).setExpertQuarantine(False).fit(bad, (y == 1).astype(np.float64))
     with pytest.raises(ValueError, match="shape"):
         copy.copy(gp).fit(x[:, 0], y)
     with pytest.raises(NotImplementedError, match="item 6"):

@@ -2,11 +2,15 @@
 CPU) and agree on the fitted theta (rtol 1e-5) and the predictions
 (rtol 1e-6); plus the estimator surface this slice leaves out."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import numpy as np
 import pytest
 
 import spark_gp_tpu as jgp
 import spark_gp_tpu_torch as tgp
+from spark_gp_tpu.models import aggregation as j_agg
+from spark_gp_tpu_torch.models import aggregation as t_agg
+from spark_gp_tpu_torch.models.poe import make_poe_predictor
 
 P = 3
 
@@ -76,10 +80,18 @@ def test_set_device_and_snake_case_aliases():
 
 
 def test_non_finite_rows_raise():
-    x, y = _data(n=60)
-    x[3, 1] = np.nan
-    with pytest.raises(ValueError, match="finite"):
-        _estimator(tgp, device="cpu").fit(x, y)
+    """With the quarantine off a non-finite row fails the fit in both
+    packages (its expert's NLL is not finite at the first evaluation);
+    with it on, the default, both drop that row's expert."""
+    x, y = _data(n=150)
+    x[3, 1] = np.nan  # expert 3 % 3 = 0
+    with pytest.raises(jgp.NotPositiveDefiniteException):
+        _estimator(jgp).setExpertQuarantine(False).fit(x, y)
+    with pytest.raises(tgp.NotPositiveDefiniteException):
+        _estimator(tgp, device="cpu").setExpertQuarantine(False).fit(x, y)
+    model = _estimator(tgp, device="cpu").fit(x, y)
+    assert model.metrics["experts_quarantined"] == 1.0 and model.metrics["bcm_renorm"] == 1.5
+    assert np.all(np.isfinite(model.predict(x[4:9])))
 
 
 @pytest.mark.parametrize(
@@ -96,10 +108,13 @@ def test_non_finite_rows_raise():
         # the JAX package's remaining setters, each naming its item
         lambda gp: gp.setProfileDir("profile"),
         lambda gp: gp.setCheckpointInterval(5),
-        lambda gp: gp.setExpertQuarantine(True),
-        lambda gp: gp.setFitRetries(2),
+        # (quarantine, retries and the aggregation policies are ported:
+        # test_resilience_setters_match_jax)
+        lambda gp: gp.setPrecisionLane("fast"),
+        lambda gp: tgp.GaussianProcessClassifier(device="cpu").fit_distributed(None),
         lambda gp: gp.setPrecisionLane("mixed"),
-        lambda gp: gp.setAggregationPolicy("rbcm"),
+        lambda gp: make_poe_predictor(tgp.RBFKernel(), np.ones(1), np.zeros((4, 1)),
+                                      np.zeros(4), 2, mesh=object()),
     ],
 )
 def test_unported_options_name_their_roadmap_item(call):
@@ -115,7 +130,10 @@ def test_parity_setters_take_what_the_port_does(estimator):
     gp = getattr(tgp, estimator)(device="cpu")
     assert gp.setProfileDir(None) is gp and gp.setExpertQuarantine(False) is gp
     assert gp.setFitRetries(0) is gp and gp.setPrecisionLane("strict") is gp
-    assert gp.setAggregationPolicy("poe") is gp
+    try:
+        assert gp.setAggregationPolicy("poe") is gp
+    finally:
+        t_agg.set_agg_policy(None)
     with pytest.raises(ValueError):
         gp.setCheckpointInterval(0)
     with pytest.raises(ValueError):
@@ -124,6 +142,28 @@ def test_parity_setters_take_what_the_port_does(estimator):
         gp.setPrecisionLane("bf16")
     with pytest.raises(ValueError):
         gp.setAggregationPolicy("mean")
+
+
+@pytest.mark.parametrize("setter,values", [
+    ("setExpertQuarantine", (False, True)),
+    ("setFitRetries", (0, 1, 5)),
+    ("setAggregationPolicy", ("poe", "gpoe", "rbcm", "healed")),
+])
+def test_resilience_setters_match_jax(setter, values):
+    """The JAX package's defaults (quarantine on, 2 retries, the ``poe``
+    policy when none is engaged), and every value its setters take."""
+    j_gp, t_gp = jgp.GaussianProcessRegression(), tgp.GaussianProcessRegression(device="cpu")
+    assert (t_gp._expert_quarantine, t_gp._fit_retries) == (j_gp._expert_quarantine,
+                                                            j_gp._fit_retries) == (True, 2)
+    try:
+        for value in values:
+            assert getattr(t_gp, setter)(value) is t_gp
+            getattr(j_gp, setter)(value)
+            assert (t_gp._expert_quarantine, t_gp._fit_retries, t_agg.active_agg_policy()) == (
+                j_gp._expert_quarantine, j_gp._fit_retries, j_agg.active_agg_policy())
+    finally:
+        j_agg.set_agg_policy(None)
+        t_agg.set_agg_policy(None)
 
 
 def test_ported_options_accept_defaults():

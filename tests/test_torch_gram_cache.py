@@ -9,6 +9,7 @@ the fits record whether the cache engaged.  The JAX package's own float64
 gram-cache parity tests fail in some environments (ROADMAP.md queue 3),
 so the oracles here are numpy, not the JAX package."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import numpy as np
 import pytest
 import torch

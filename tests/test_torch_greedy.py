@@ -7,6 +7,7 @@ greedy regression fit against the JAX package's host-optimizer fit (theta
 rtol 1e-5, the same active rows, predictions rtol 1e-6, as
 test_torch_gpr.py); and the Year-MSD stand-in row for row."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import logging
 
 import jax

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, and its entry points refuse to run on the CPU unless asked."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import os
 import re
 import shutil
@@ -14,6 +15,8 @@ import torch
 
 import spark_gp_tpu_torch as tgp
 from spark_gp_tpu_torch.models import ppa
+from spark_gp_tpu_torch.models.aggregation import redundancy_matrix
+from spark_gp_tpu_torch.models.poe import make_poe_predictor
 from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
 
 REPO = Path(__file__).resolve().parent.parent
@@ -40,6 +43,9 @@ def test_import_pulls_in_no_jax():
         "import spark_gp_tpu_torch.models.ep, spark_gp_tpu_torch.models.gpc_ep\n"
         "import spark_gp_tpu_torch.models.laplace_generic\n"
         "import spark_gp_tpu_torch.models.gp_poisson\n"
+        "import spark_gp_tpu_torch.models.poe, spark_gp_tpu_torch.models.aggregation\n"
+        "import spark_gp_tpu_torch.resilience, spark_gp_tpu_torch.resilience.quarantine\n"
+        "import spark_gp_tpu_torch.resilience.retry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'spark_gp_tpu' or m.startswith('spark_gp_tpu.')]\n"
         "print(bad)\n"
@@ -76,6 +82,12 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(monkeypatch):
     )
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pred.predict_mean(x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_poe_predictor(tgp.RBFKernel(), np.ones(1), x, y, 10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        redundancy_matrix(np.ones((3, 4)))
+    assert make_poe_predictor(tgp.RBFKernel(), np.ones(1), x, y, 10,
+                              device="cpu").data.x.dtype == torch.float64
     assert resolve_device("cpu").type == "cpu"
     assert working_dtype(resolve_device("cpu")) == torch.float64
     model = tgp.GaussianProcessRegression(device="cpu").setDatasetSizeForExpert(10) \

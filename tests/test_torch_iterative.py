@@ -5,6 +5,7 @@ below s: the pivoted Cholesky, Woodbury, batched PCG and SLQ within
 ``solver_report`` with the JAX probes injected within 1e-9 relative; and
 the lane policy."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -102,7 +103,7 @@ def test_inv_quad_logdet_both_engines_match_jax(solver_env):
         q, ld = j_it.inv_quad_logdet(km, jnp.asarray(y), j_cfg)
         return jnp.sum(q) + jnp.sum(ld), (q, ld)
 
-    (_, (j_q, j_ld)), j_g = jax.value_and_grad(j_loss, has_aux=True)(jnp.asarray(k))
+    (_, (j_q, j_ld)), j_g = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(jnp.asarray(k))
     km = torch.as_tensor(k).requires_grad_(True)
     t_q, t_ld = t_it.inv_quad_logdet(km, torch.as_tensor(y), t_cfg)
     (t_g,) = torch.autograd.grad(t_q.sum() + t_ld.sum(), km)

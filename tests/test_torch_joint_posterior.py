@@ -7,6 +7,7 @@ whose Cholesky amplifies the covariance's rounding); the covariance's
 diagonal equal to ``predict_with_var``'s variance to 1e-12 relative; the
 JAX package's error messages."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -22,6 +22,7 @@ barriers and bounds here; their speed, and what only nvcc refuses, show
 on the card.
 """
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import importlib.util
 import shutil
 from pathlib import Path

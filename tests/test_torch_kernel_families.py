@@ -4,6 +4,7 @@ kernels against the JAX package's (float64): ``gram`` / ``cross`` /
 the streamed product equal to the materialized one, and the same answer
 to ``supports_matfree`` for composites, ARD and products."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

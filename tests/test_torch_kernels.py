@@ -4,6 +4,7 @@ Same numpy inputs (seeded), float64 on both sides (the JAX session runs
 with x64); kernel values agree to rtol 1e-12, the expert stack bit for bit.
 """
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

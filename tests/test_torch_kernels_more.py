@@ -8,6 +8,7 @@ answers to ``supports_gram_cache`` / ``supports_matfree``; the product's
 gram from its cache; the white-noise rejection; finite ARD-Matern
 gradients at coincident rows."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ branch; padding, the warm start and the launch count; ``spd_solve`` /
 ``spd_logdet`` with the JAX probes injected, at preconditioner rank 16
 below s (tests/_torch_solver_helpers.py says why)."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ is run on the CPU through the plain inverse and held against the Cholesky
 branch.
 """
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ and CG run to convergence; see ``_torch_solver_helpers``).
 * a spy kernel whose ``gram`` raises runs the matfree lane untouched.
 """
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

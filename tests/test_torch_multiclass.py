@@ -13,6 +13,7 @@ injected (tests/_torch_solver_helpers.py); the fitted estimator's theta
 (1e-5) and probabilities (1e-6, averaged too); a JAX model carried
 across (1e-10); label validation."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -314,7 +315,7 @@ def test_multiclass_from_fields_carries_a_jax_model(blob_fits):
     ([0, 1, 2.5], "integers"),
     ([0, -1, 1], "integers"),
     ([0, 0, 0], "at least 2 classes"),
-    ([0, 1, np.nan], "finite"),
+    ([0, 1, np.nan], "integers"),  # the JAX package's message
 ], ids=["fraction", "negative", "one_class", "nan"])
 def test_label_validation(labels, match):
     x = np.random.default_rng(0).normal(size=(24, 2))

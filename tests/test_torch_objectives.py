@@ -11,6 +11,7 @@ predictions within 1e-6 of the JAX package's.  K1's branch forced on the
 CPU (its plain forward and its own VJP) against the Cholesky branch, one
 forward a LOO evaluation and none in the backward."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import copy
 
 import jax

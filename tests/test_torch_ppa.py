@@ -2,6 +2,7 @@
 package at a fixed theta and active set (float64, rel 1e-10), and
 ``convert.py`` carrying a JAX-fitted model across."""
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

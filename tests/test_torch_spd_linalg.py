@@ -6,6 +6,7 @@ interpret mode (float32, the JAX test's bars).  The CUDA kernel itself
 runs only on a card: the ``cuda``-marked test skips here.
 """
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

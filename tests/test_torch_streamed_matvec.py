@@ -7,6 +7,7 @@ of the differentiable scan (1e-9).  The two CUDA kernels run only on a
 card: the ``cuda``-marked tests skip here.
 """
 
+import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -101,7 +102,7 @@ def test_gradients_match_jax(family):
                        differentiable=True)
         return jnp.sum(jnp.asarray(w) * out)
 
-    j_gp, j_gv = jax.grad(j_loss, argnums=(0, 1))(jnp.asarray(params), jnp.asarray(v))
+    j_gp, j_gv = jax.jit(jax.grad(j_loss, argnums=(0, 1)))(jnp.asarray(params), jnp.asarray(v))
     par = torch.tensor(params, dtype=torch.float64, requires_grad=True)
     vv = torch.as_tensor(v).requires_grad_(True)
     loss = torch.sum(torch.as_tensor(w) * sm.streamed_matvec(torch.as_tensor(x), vv, family,
