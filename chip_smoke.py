@@ -173,8 +173,40 @@ code is non-zero and the final ``ok`` line is never printed:
                iterative lane on the card, protein-matfree stack, same
                probes: 1e-5 / 1e-5.
 42. slice7-phases -- the seconds of phases 37-41.
-43. kernels -- one line with every kernel's numbers.
-The last line is ``{"ok": true, "device": {...}}``.
+43. obs     -- the airfoil config's first fold (E = 14, s = 97) through the
+               observability shell: the span tree (root
+               fit.GaussianProcessRegression, the JAX package's phase
+               names under it), the journal's K1 launches = nfev = the
+               wrapper's count, the peak gauge = max_memory_allocated over
+               the fit, the OpenMetrics page parsed; the tracing overhead
+               over 5 interleaved pairs (GP_TRACING=0 and on, each side the
+               median of 7 fits): the median under 5%.
+44. profile -- the same fold with setProfileDir: the Chrome trace's K1
+               kernel events, one a call (n <= 128), nfev of them.
+45. ladder-oom -- the protein-matfree config (maxiter 5) on the exact lane
+               under a per-process memory fraction that holds a matrix-free
+               evaluation and not the 595 MB gram stack: real allocator
+               OOMs, native -> iterative -> matfree; K2 = nfev (iters + 2)
+               + the solver report's iters, K2-VJP = 2 nfev; RMSE within 2%
+               of protein-matfree's.
+46. memplan -- under the same fraction the auto lane resolves matfree from
+               the card's budget (no OOM, no transition), iterative at
+               fraction 1.0; one evaluation's predicted peak within 1-4x
+               of its measured peak on each lane at (9, 4065, 9) and
+               (14, 97, 5).
+47. predict-ladder -- the obs fold's model predicts all 1503 rows with
+               every chunk above 128 rows failing: four halvings to 93
+               rows, results within 1e-6 of the clean predict, no host rung.
+48. terminal -- every fit.host dispatch failing: one
+               DegradationExhaustedError of class oom and one incident
+               bundle with the failing span tree, for the airfoil config
+               (rungs native -> iterative -> host_f64: ARD does not stream)
+               and the same fold under the isotropic RBF (every rung).
+49. slice8-phases -- the seconds of phases 43-48.
+50. kernels -- one line with every kernel's numbers.
+The last line is ``{"ok": true, "device": {...}}``.  Every phase line
+carries ``fallback_transitions``, the ladder's transitions since the line
+before it; a phase that stages no fault fails if it moved them.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -271,7 +303,25 @@ SYNTHETICS_BAR, TIMESERIES_BAR = 0.11, 0.1
 OBJECTIVE_BARS = {"loo": (1e-5, 1e-4), "elbo": (1e-4, 1e-3)}
 
 
+# the phases that stage a fault; every other phase must leave the fit
+# ladder's transition count where the phase before it left it
+FAULT_PHASES = ("ladder-oom", "predict-ladder", "terminal")
+_transitions_seen = [0.0]
+
+
 def emit(obj) -> None:
+    """Print one phase's JSON line, with the degradation-ladder
+    transitions since the previous line (``fallback_transitions``); a
+    phase that staged no fault and moved them fails."""
+    if "phase" in obj:
+        from spark_gp_tpu_torch.obs.runtime import telemetry
+
+        now = telemetry.snapshot()["counters"].get("fallback.transitions", 0.0)
+        moved, _transitions_seen[0] = now - _transitions_seen[0], now
+        obj = {**obj, "fallback_transitions": moved}
+        if moved and obj["phase"] not in FAULT_PHASES:
+            print(json.dumps(obj), flush=True)
+            raise AssertionError(f"{obj['phase']}: {moved} fallback transitions in a clean phase")
     print(json.dumps(obj), flush=True)
 
 
@@ -466,6 +516,30 @@ def regression_cv(gp, x, y, folds) -> dict:
     return {"rmse": float(np.mean(scores)), "seconds": time.perf_counter() - start,
             "nfev": nfev, **phases, "experts": sorted(shapes),
             "gram_cache_engaged": sorted(engaged), "first_model": first}
+
+
+def matfree_kernel():
+    """The protein-matfree config's kernel: the isotropic RBF."""
+    from spark_gp_tpu_torch import RBFKernel, WhiteNoiseKernel
+
+    return 1.0 * RBFKernel(1.0, 1e-6, 10) + WhiteNoiseKernel(0.1, 0.0, 1.0)
+
+
+def matfree_gp(lane, max_iter: int = 10):
+    """The protein-matfree config (expert 4096, E = 9, s = 4065) on the
+    solver lane ``lane`` (``None``: leave the process lane as it is)."""
+    from spark_gp_tpu_torch import GaussianProcessRegression
+
+    gp = (
+        GaussianProcessRegression()
+        .setKernel(matfree_kernel)
+        .setSigma2(1e-3)
+        .setDatasetSizeForExpert(4096)
+        .setActiveSetSize(1000)
+        .setMaxIter(max_iter)
+        .setSeed(13)
+    )
+    return gp if lane is None else gp.setSolverLane(lane)
 
 
 def protein_kernel():
@@ -2240,18 +2314,6 @@ def slice7_stacks(torch, d7: dict, stacks: dict) -> dict:
     return out
 
 
-def poisoned_airfoil(x, y, experts: int, nan_expert: int, huge_expert: int):
-    """Airfoil training rows with every row of one expert given a NaN
-    feature and every row of another scaled by 1e300 (the JAX package's
-    ``chaos.poison_expert`` kinds ``nan`` and ``huge``: round-robin
-    grouping puts row i in expert i % E)."""
-    x, y = np.array(x, dtype=np.float64), np.array(y, dtype=np.float64)
-    rows = np.arange(nan_expert, x.shape[0], experts)
-    x[rows, np.random.default_rng(1).integers(0, x.shape[1], size=rows.shape[0])] = np.nan
-    x[np.arange(huge_expert, x.shape[0], experts)] *= 1e300
-    return x, y
-
-
 def weighted_matfree_phase(torch, mf_data) -> dict:
     """weighted-matfree: the marginal objective with per-expert weights and
     the recovery ladder's jitter on the matrix-free lane (K2, K2-VJP)
@@ -2308,6 +2370,7 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
     from spark_gp_tpu_torch.models.poe import make_poe_predictor
     from spark_gp_tpu_torch.ops.linalg import JITTER_SCHEDULE
     from spark_gp_tpu_torch.resilience import diagnose_experts
+    from spark_gp_tpu_torch.resilience.chaos import poison_expert
     from spark_gp_tpu_torch.utils.validation import rmse
 
     launches = {}
@@ -2434,7 +2497,11 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
     kept = ~np.isin(np.arange(train.shape[0]) % experts, [nan_expert, huge_expert])
     survivors = airfoil_gp(100).fit(x[train][kept], y[train][kept])
     clean_rmse = rmse(y[test], survivors.predict(x[test]))
-    xq, yq = poisoned_airfoil(x[train], y[train], experts, nan_expert, huge_expert)
+    # the port's injector: every row of one expert given a NaN feature,
+    # every row of another scaled by 1e300 (round-robin grouping puts row
+    # i in expert i % E)
+    xq, yq = poison_expert(x[train], y[train], nan_expert, experts, kind="nan", seed=1)
+    xq, yq = poison_expert(xq, yq, huge_expert, experts, kind="huge")
     spd.spd_inv_logdet.launches = 0
     model = airfoil_gp(100).fit(xq, yq)
     launches["quarantine"] = spd.spd_inv_logdet.launches
@@ -2487,6 +2554,400 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
     return launches, k2
 
 
+# -- slice 8: the fit's observability shell and its degradation ladder -----
+
+# the JAX package's phase names, in the order a regression fit runs them
+FIT_PHASES = ["group_experts", "optimize_hypers", "active_set", "kmn_stats", "magic_solve"]
+# tracing overhead on an airfoil fold fit: the median over interleaved
+# pairs (tracing off, on) must stay under this.  Each side of a pair is
+# the median of seven fits run in turns with the other side's: one fit's
+# host time (L-BFGS and the host magic solve) spreads by up to ~20% a
+# pair, and with three fits a side the median still read -3.1% to +4.5%
+# across runs of the same code, against a shell cost of ~0.1%
+TRACING_OVERHEAD_BAR, TRACING_PAIRS, TRACING_FITS = 0.05, 5, 7
+# the ladder-oom budget: what the process holds after emptying the cache,
+# plus this much -- under the 595 MB float32 gram stack (and the exact and
+# iterative lanes' evaluations, 5.4 and 4.3 GB), over a matrix-free
+# evaluation (34 MB), the PPA statistics' chunks and the predict
+LADDER_HEADROOM = 400e6
+# ladder-oom's RMSE against protein-matfree's (maxiter 10 there, 5 here)
+LADDER_RMSE_REL = 0.02
+# predicted peak of one evaluation over the measured one
+MEMPLAN_BRACKET = (1.0, 4.0)
+# the predict ladder against the clean predict, relative to its largest
+PREDICT_LADDER_REL = 1e-6
+
+def check_openmetrics(page: str) -> dict:
+    """Parse an OpenMetrics page as a scraper would: ``# TYPE`` /
+    ``# UNIT`` / ``# HELP`` lines, samples ``name{labels} value`` of a
+    declared family, one block per family, ``# EOF`` last.  Returns the
+    family and sample counts; raises on the first malformed line."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*"'
+                        r'(,[a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*")*)\})? '
+                        r'(NaN|[+-]Inf|-?[0-9.]+(e[+-]?[0-9]+)?)$')
+    lines = page.rstrip("\n").split("\n")
+    if lines[-1] != "# EOF":
+        raise AssertionError("OpenMetrics page does not end with # EOF")
+    families, samples, seen = {}, 0, []
+    for line in lines[:-1]:
+        if line.startswith("# "):
+            kind, family = line.split(" ")[1:3]
+            if kind not in ("TYPE", "UNIT", "HELP"):
+                raise AssertionError(f"OpenMetrics: bad descriptor {line!r}")
+            if kind == "TYPE":
+                if family in families:
+                    raise AssertionError(f"OpenMetrics: family {family} declared twice")
+                families[family] = line.split(" ")[3]
+                seen.append(family)
+            continue
+        match = sample.match(line)
+        if match is None or not match.group(1).startswith(seen[-1]):
+            raise AssertionError(f"OpenMetrics: bad sample {line!r}")
+        samples += 1
+    return {"families": len(families), "samples": samples}
+
+
+def airfoil_fold_fit(gp, x, y, train):
+    """``gp`` fitted on one airfoil fold, synchronized, and its seconds."""
+    import torch
+
+    start = time.perf_counter()
+    model = gp.fit(x[train], y[train])
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - start
+
+
+def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: float, smi: str):
+    """This slice's phases (obs, profile, ladder-oom, memplan,
+    predict-ladder, terminal); returns the launches of K1, K2 and K2-VJP
+    on each phase's fits."""
+    import shutil
+    import tempfile
+
+    from spark_gp_tpu_torch import Const, EyeKernel, GaussianProcessRegression, RBFKernel
+    from spark_gp_tpu_torch.kernels.base import supports_matfree
+    from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
+    from spark_gp_tpu_torch.obs import expo
+    from spark_gp_tpu_torch.obs.recorder import validate_bundle
+    from spark_gp_tpu_torch.obs.runtime import telemetry, validate_journal, write_run_journal
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+    from spark_gp_tpu_torch.resilience import chaos, fallback, memplan
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    def counters():
+        return telemetry.snapshot()["counters"]
+
+    def delta(before, key):
+        return counters().get(key, 0.0) - before.get(key, 0.0)
+
+    launches = {"spd_inv_logdet": {}, "streamed_matvec": {}, "streamed_matvec_vjp": {}}
+    start_all = time.perf_counter()
+    x, y, folds = data_main["x"], data_main["y"], data_main["folds"]
+    train, test = folds[0]
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+
+    # obs: the airfoil config's first fold with the shell on; then the
+    # tracing overhead over interleaved pairs with GP_TRACING=0 and on
+    spd.spd_inv_logdet.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    obs_model, fit_s = airfoil_fold_fit(airfoil_gp(100), x, y, train)
+    peak_allocated = torch.cuda.max_memory_allocated()
+    journal = obs_model.run_journal
+    nfev = obs_model.metrics["lbfgs_nfev"]
+    tree = journal["spans"]
+    page = expo.render_openmetrics(obs_model.instr, telemetry.snapshot())
+    parsed = check_openmetrics(page)
+    k1_journal = journal["kernels"]["launches"].get("spd_inv_logdet")
+    k1_wrapper = spd.spd_inv_logdet.launches
+    peak_gauge = journal["memory"]["peak"]["memory.peak_bytes_in_use"]
+    seconds, phases = {"off": [], "on": []}, {"off": [], "on": []}
+    for pair in range(TRACING_PAIRS):
+        for _ in range(TRACING_FITS):
+            for mode in (("off", "on") if pair % 2 == 0 else ("on", "off")):
+                if mode == "off":
+                    os.environ["GP_TRACING"] = "0"
+                try:
+                    fitted, fit = airfoil_fold_fit(airfoil_gp(100), x, y, train)
+                finally:
+                    os.environ.pop("GP_TRACING", None)
+                seconds[mode].append(fit)
+                phases[mode].append([fitted.metrics[key] for key in PHASES])
+    overhead = [float(np.median(seconds["on"][i:i + TRACING_FITS])
+                      / np.median(seconds["off"][i:i + TRACING_FITS]) - 1.0)
+                for i in range(0, TRACING_PAIRS * TRACING_FITS, TRACING_FITS)]
+    # the shell's own work: one allocator sample (a fit takes 7) and one
+    # journal, each timed over a loop
+    shell_ms = {}
+    for label, fn, reps in (("memory_sample", telemetry.sample_memory, 200),
+                            ("journal", lambda: write_run_journal(obs_model.instr, None, None), 50)):
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        shell_ms[label] = (time.perf_counter() - start) / reps * 1e3
+    median = float(np.median(overhead))
+    launches["spd_inv_logdet"]["obs"] = spd.spd_inv_logdet.launches
+    obs = {"fit_seconds": fit_s, "nfev": nfev,
+           "span_tree": [{"name": n["name"], "children": [c["name"] for c in n["children"]]}
+                         for n in tree],
+           "journal_valid": validate_journal(journal) == [], "trace_id": journal["trace_id"],
+           "k1_launches_journal": k1_journal, "k1_launches_wrapper": k1_wrapper,
+           "peak_gauge_bytes": peak_gauge, "max_memory_allocated": peak_allocated,
+           "memory_samples": [s["phase"] for s in journal["memory"]["samples"]],
+           "openmetrics": parsed, "openmetrics_bytes": len(page),
+           "tracing_seconds": seconds, "tracing_phase_seconds": phases,
+           "tracing_overhead_per_pair": overhead,
+           "tracing_overhead_median": median, "bar": TRACING_OVERHEAD_BAR,
+           "shell_ms": shell_ms,
+           "launches": launches["spd_inv_logdet"]["obs"]}
+    emit({"phase": "obs", **obs, "card": smi})
+    if not (len(tree) == 1 and tree[0]["name"] == "fit.GaussianProcessRegression"
+            and [c["name"] for c in tree[0]["children"]] == FIT_PHASES
+            and obs["journal_valid"] and k1_journal == nfev == k1_wrapper
+            and peak_gauge == peak_allocated and median < TRACING_OVERHEAD_BAR):
+        raise AssertionError(f"obs: {obs}")
+
+    # profile: the same fold with setProfileDir; K1's kernel events in the
+    # Chrome trace, one a call at n <= 128
+    profile_dir = tempfile.mkdtemp(prefix="gp_profile_")
+    try:
+        spd.spd_inv_logdet.launches = 0
+        start = time.perf_counter()
+        model, _ = airfoil_fold_fit(airfoil_gp(100).setProfileDir(profile_dir), x, y, train)
+        seconds = time.perf_counter() - start
+        files = os.listdir(profile_dir)
+        with open(os.path.join(profile_dir, files[0]), encoding="utf-8") as fh:
+            doc = json.load(fh)
+        trace_bytes = os.path.getsize(os.path.join(profile_dir, files[0]))
+    finally:
+        shutil.rmtree(profile_dir, ignore_errors=True)
+    kernel_events = {}
+    for event in doc.get("traceEvents", []):
+        if event.get("cat") == "kernel" and "spd_inv_logdet" in event.get("name", ""):
+            kernel_events[event["name"]] = kernel_events.get(event["name"], 0) + 1
+    launches["spd_inv_logdet"]["profile"] = spd.spd_inv_logdet.launches
+    nfev = model.metrics["lbfgs_nfev"]
+    prof = {"files": len(files), "trace_bytes": trace_bytes, "seconds": seconds,
+            "k1_kernel_events": kernel_events, "nfev": nfev,
+            "launches": launches["spd_inv_logdet"]["profile"]}
+    emit({"phase": "profile", **prof})
+    if not (len(files) == 1 and list(kernel_events.values()) == [nfev]
+            and "spd_inv_logdet_blocked_kernel" in next(iter(kernel_events))
+            and launches["spd_inv_logdet"]["profile"] == nfev):
+        raise AssertionError(f"profile: {prof}")
+
+    # ladder-oom: the protein-matfree config on the exact lane under a
+    # per-process memory fraction that holds a matrix-free evaluation and
+    # not the gram stack: a real allocator OOM at native, then at
+    # iterative, and the fit completes on matfree
+    xp, yp, tr, te = (data_main[key] for key in ("xp", "yp", "tr", "te"))
+    yp_tr, y_mean, y_std = (data_main[key] for key in ("yp_tr", "y_mean", "y_std"))
+    cfg = it_ops.solver_config(4065)
+
+    def set_budget():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        budget = torch.cuda.memory_reserved() + LADDER_HEADROOM
+        torch.cuda.set_per_process_memory_fraction(budget / total_memory)
+        return budget
+
+    before = counters()
+    sm.streamed_matvec.launches = sm.streamed_matvec_vjp.launches = 0
+    start = time.perf_counter()
+    budget = set_budget()
+    try:
+        model = matfree_gp(None, max_iter=5).fit(xp[tr], yp_tr)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - start
+    pred = model.predict(xp[te]) * y_std + y_mean
+    nfev = model.metrics["lbfgs_nfev"]
+    k2, vjp = sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches
+    launches["streamed_matvec"]["ladder_oom"] = k2
+    launches["streamed_matvec_vjp"]["ladder_oom"] = vjp
+    rungs = [(d["from"], d["to"], d["failure_class"]) for d in model.degradations]
+    ladder = {"budget_bytes": budget, "fraction": budget / total_memory,
+              "degradations": model.degradations, "solver_lane": model.metrics["solver_lane"],
+              "nfev": nfev, "rmse": rmse(yp[te], pred), "protein_matfree_rmse": mf_rmse,
+              "rmse_rel": rmse(yp[te], pred) / mf_rmse - 1.0, "bar_rmse_rel": LADDER_RMSE_REL,
+              "launches": {"streamed_matvec": k2, "streamed_matvec_vjp": vjp},
+              "k2_rule": "nfev * (iters + 2) + iters (solver report)",
+              "oom_failures": delta(before, "fallback.failures.oom"),
+              "journal_degradations": len(model.run_journal["degradations"]),
+              "seconds": seconds}
+    emit({"phase": "ladder-oom", **ladder, "card": smi})
+    if not (rungs == [("native", "iterative", "oom"), ("iterative", "matfree", "oom")]
+            and model.metrics["solver_lane"] == "matfree" and np.all(np.isfinite(pred))
+            and k2 == nfev * (cfg.iters + 2) + cfg.iters and vjp == 2 * nfev
+            and abs(ladder["rmse_rel"]) <= LADDER_RMSE_REL):
+        raise AssertionError(f"ladder-oom: {ladder}")
+
+    # memplan: under the same fraction the auto lane resolves matfree from
+    # the card's budget before any dispatch, and the fit runs with no OOM
+    # and no transition; at fraction 1.0 it resolves iterative.  Then the
+    # byte model against one evaluation's measured peak on each lane at
+    # two shapes
+    hints = {"num_experts": 9, "n_features": 9, "itemsize": 4}
+    before = counters()
+    sm.streamed_matvec.launches = sm.streamed_matvec_vjp.launches = 0
+    start = time.perf_counter()
+    budget = set_budget()
+    try:
+        resolved_limited = it_ops.resolve_solver(4065, "auto", **hints)
+        card_budget = memplan.memory_budget_bytes()
+        model = matfree_gp("auto", max_iter=5).fit(xp[tr], yp_tr)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+        it_ops.set_solver_lane(None)
+    fit_s = time.perf_counter() - start
+    resolved_full = it_ops.resolve_solver(4065, "auto", **hints)
+    pred = model.predict(xp[te]) * y_std + y_mean
+    launches["streamed_matvec"]["memplan"] = sm.streamed_matvec.launches
+    launches["streamed_matvec_vjp"]["memplan"] = sm.streamed_matvec_vjp.launches
+    auto = {"budget_bytes": budget, "card_budget_bytes": card_budget,
+            "resolved_under_fraction": resolved_limited, "resolved_at_fraction_1": resolved_full,
+            "solver_lane": model.metrics["solver_lane"], "rmse": rmse(yp[te], pred),
+            "oom_failures": delta(before, "fallback.failures.oom"),
+            "transitions": delta(before, "fallback.transitions"), "fit_seconds": fit_s,
+            "nfev": model.metrics["lbfgs_nfev"],
+            "launches": {"streamed_matvec": launches["streamed_matvec"]["memplan"],
+                         "streamed_matvec_vjp": launches["streamed_matvec_vjp"]["memplan"]}}
+    counts = (spd.spd_inv_logdet.launches, sm.streamed_matvec.launches,
+              sm.streamed_matvec_vjp.launches)
+    brackets = {}
+    for label, kernel, data in (
+            ("protein_matfree", matfree_kernel() + Const(1e-3) * EyeKernel(), mf_data),
+            ("airfoil", airfoil_kernel() + Const(1e-4) * EyeKernel(),
+             group_for_experts(x[train], y[train], 100, dtype=torch.float32, device="cuda"))):
+        e, s, p = (int(d) for d in data.x.shape)
+        stack = sum(t.numel() * t.element_size() for t in (data.x, data.y, data.mask))
+        for lane in ("exact", "iterative", "matfree"):
+            it_ops.set_solver_lane(lane)
+            try:
+                vag = make_value_and_grad(kernel, data)
+                vag(kernel.init_theta())
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                vag(kernel.init_theta())
+                torch.cuda.synchronize()
+                measured = torch.cuda.max_memory_allocated() - base + stack
+            finally:
+                it_ops.set_solver_lane(None)
+                torch.cuda.empty_cache()
+            rung = memplan.fit_rung_of_lane(lane, supports_matfree(kernel))
+            predicted = memplan.predicted_bytes(memplan.fit_dispatch_bytes(e, s, p, 4, rung))
+            brackets[f"{label}/{lane}"] = {"shape": [e, s, p], "rung": rung,
+                                           "measured_bytes": measured,
+                                           "predicted_bytes": predicted,
+                                           "ratio": predicted / measured}
+    spd.spd_inv_logdet.launches, sm.streamed_matvec.launches, \
+        sm.streamed_matvec_vjp.launches = counts
+    # the measured peaks calibrate the models: a model the peak exceeds
+    # ratchets up (none should: the brackets' low end)
+    for label, b in brackets.items():
+        e, s, p = b["shape"]
+        key = memplan.fit_model_key(None, b["rung"])
+        memplan.observe_measured(key, memplan.fit_dispatch_bytes(e, s, p, 4, b["rung"]),
+                                 b["measured_bytes"])
+        b["calibration_scale"] = memplan.calibration_scale(key)
+    memplan.reset_calibration()
+    emit({"phase": "memplan", **auto,
+          "brackets": brackets, "bracket": MEMPLAN_BRACKET, "card": smi})
+    low, high = MEMPLAN_BRACKET
+    if not (resolved_limited == "matfree" and resolved_full == "iterative"
+            and model.metrics["solver_lane"] == "matfree" and auto["oom_failures"] == 0
+            and auto["transitions"] == 0 and not model.degradations
+            and all(low <= b["ratio"] <= high for b in brackets.values())):
+        raise AssertionError(f"memplan: {auto}, {brackets}")
+
+    # predict-ladder: the obs phase's airfoil model predicts all 1503 rows
+    # with every chunk above 128 rows failing: the chunk halves to 93
+    clean_mean, clean_var = obs_model.predict_with_var(x)
+    before = counters()
+    with chaos.oom_after_calls(0, op="predict.chunk", rows_above=128) as fired:
+        mean, var = obs_model.predict_with_var(x)
+    halvings = {key: value - before.get(key, 0.0) for key, value in counters().items()
+                if key.startswith("fallback.rung.chunk_") and value != before.get(key, 0.0)}
+    err = {"mean": float(np.max(np.abs(mean - clean_mean)) / np.max(np.abs(clean_mean))),
+           "var": float(np.max(np.abs(var - clean_var)) / np.max(np.abs(clean_var)))}
+    # why the predict contracts in float64: the same means with a float32
+    # contraction, in one 1503-row chunk against 93-row chunks
+    raw = obs_model.raw_predictor
+    xt = torch.as_tensor(x, dtype=torch.float32, device="cuda")
+    theta_t, active_t = (torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                         for a in (raw.theta, raw.active))
+    mv32 = torch.as_tensor(raw.magic_vector, dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        whole = (raw.kernel.cross(theta_t, xt, active_t) @ mv32).cpu().numpy()
+        parts = torch.cat([raw.kernel.cross(theta_t, xt[i:i + 93], active_t) @ mv32
+                           for i in range(0, xt.shape[0], 93)]).cpu().numpy()
+    err["mean_float32_contraction"] = float(np.max(np.abs(parts - whole)) / np.max(np.abs(whole)))
+    pl = {"rows": int(x.shape[0]), "injected": fired[0], "halvings": halvings,
+          "host_solve": delta(before, "fallback.rung.host_solve"), "rel_err": err,
+          "bar": PREDICT_LADDER_REL, "plan_miss": delta(before, "plan.miss")}
+    emit({"phase": "predict-ladder", **pl})
+    if not (set(halvings) == {"fallback.rung.chunk_751", "fallback.rung.chunk_375",
+                              "fallback.rung.chunk_187", "fallback.rung.chunk_93"}
+            and pl["host_solve"] == 0 and max(err["mean"], err["var"]) <= PREDICT_LADDER_REL):
+        raise AssertionError(f"predict-ladder: {pl}")
+
+    # terminal: every fit.host dispatch OOMs, so the fit exhausts its
+    # ladder: one DegradationExhaustedError of class oom and one incident
+    # bundle with the failing span tree -- the airfoil config (ARD, which
+    # does not stream: no matfree rung) and the same fold under the
+    # isotropic RBF (every rung)
+    incident_dir = tempfile.mkdtemp(prefix="gp_incident_")
+    os.environ["GP_INCIDENT_DIR"] = incident_dir
+    terminal = {}
+    try:
+        for label, gp in (("airfoil", airfoil_gp(100)),
+                          ("airfoil_rbf", airfoil_gp(100).setKernel(lambda: 1.0 * RBFKernel(1.0)
+                                                                    + Const(1.0) * EyeKernel()))):
+            before_files = set(os.listdir(incident_dir))
+            errors = []
+            with chaos.oom_after_calls(0, op="fit.host"):
+                try:
+                    gp.fit(x[train], y[train])
+                except fallback.DegradationExhaustedError as exc:
+                    errors.append(exc)
+            new = sorted(set(os.listdir(incident_dir)) - before_files)
+            bundle = {}
+            if len(new) == 1:
+                with open(os.path.join(incident_dir, new[0]), encoding="utf-8") as fh:
+                    bundle = json.load(fh)
+            root = (bundle.get("spans") or [{}])[0]
+            terminal[label] = {
+                "errors": len(errors),
+                "failure_class": errors[0].failure_class if errors else None,
+                "rungs": ([errors[0].degradations[0]["from"]]
+                          + [d["to"] for d in errors[0].degradations]) if errors else None,
+                "bundles": len(new), "bundle_valid": validate_bundle(bundle) == [],
+                "bundle_root": root.get("name"), "bundle_root_status": root.get("status"),
+                "bundle_children": [c["name"] for c in root.get("children", [])],
+                "bundle_events": [e["name"] for e in root.get("events", [])]}
+    finally:
+        os.environ.pop("GP_INCIDENT_DIR", None)
+        shutil.rmtree(incident_dir, ignore_errors=True)
+    emit({"phase": "terminal", **terminal})
+    expected = {"airfoil": ["native", "iterative", "host_f64"],
+                "airfoil_rbf": ["native", "iterative", "matfree", "host_f64"]}
+    for label, t in terminal.items():
+        if not (t["errors"] == 1 and t["failure_class"] == "oom" and t["rungs"] == expected[label]
+                and t["bundles"] == 1 and t["bundle_valid"]
+                and t["bundle_root"] == "fit.GaussianProcessRegression"
+                and t["bundle_root_status"] == "error"
+                and t["bundle_children"] == ["group_experts"]):
+            raise AssertionError(f"terminal: {terminal}")
+    emit({"phase": "slice8-phases", "seconds": time.perf_counter() - start_all, "card": smi})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2498,8 +2959,6 @@ def main() -> int:
         Const,
         EyeKernel,
         GaussianProcessRegression,
-        RBFKernel,
-        WhiteNoiseKernel,
     )
     from spark_gp_tpu_torch.models import ep
     from spark_gp_tpu_torch.models import laplace as lap
@@ -2564,9 +3023,6 @@ def main() -> int:
 
     # the protein-matfree configuration: the same split, experts of
     # s = 4065 (E = 9, one masked row), the isotropic RBF
-    def matfree_kernel():
-        return 1.0 * RBFKernel(1.0, 1e-6, 10) + WhiteNoiseKernel(0.1, 0.0, 1.0)
-
     mf_data = group_for_experts(xp[tr], yp_tr, 4096, dtype=torch.float32, device="cuda")
     if tuple(mf_data.x.shape) != (9, 4065, 9):
         raise AssertionError(f"protein-matfree stack {tuple(mf_data.x.shape)}")
@@ -2793,18 +3249,6 @@ def main() -> int:
     # counted on its own), then the same config on the iterative and
     # exact lanes.  RMSE bars: within 2% of the iterative lane's (the same
     # surrogate objective) and 5% of the exact lane's.
-    def matfree_gp(lane):
-        return (
-            GaussianProcessRegression()
-            .setKernel(matfree_kernel)
-            .setSigma2(1e-3)
-            .setDatasetSizeForExpert(4096)
-            .setActiveSetSize(1000)
-            .setMaxIter(10)
-            .setSeed(13)
-            .setSolverLane(lane)
-        )
-
     report_launches = {}
     emit_solver_stats = GaussianProcessRegression._emit_solver_stats
 
@@ -2972,8 +3416,11 @@ def main() -> int:
     # 37-42. slice 7: PoE aggregation, fit-time selection, quarantine,
     # the weighted matrix-free objective
     slice7, k2_weighted = slice7_phases(torch, spd, d7, data_main, mf_data, smi)
+    # 43-49. slice 8: obs, profile, ladder-oom, memplan, predict-ladder,
+    # terminal
+    slice8 = slice8_phases(torch, spd, sm, it_ops, data_main, mf_data, rm, smi)
 
-    # 37. kernels: K1 at the protein stack, then at the airfoil fold's, on
+    # 50. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
     # the three exact-lane regression fits and the three classifier runs; K2
     # at a CG step's width (n = 9) and K2-VJP at the surrogate leg's
@@ -3000,7 +3447,7 @@ def main() -> int:
         "launches": (launches_airfoil + launches_protein + launches_450
                      + launches_gpc_mnist + launches_iris + launches_iris_native
                      + sum(regression.values()) + sum(slice6.values())
-                     + sum(slice7.values())),
+                     + sum(slice7.values()) + sum(slice8["spd_inv_logdet"].values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
@@ -3010,6 +3457,7 @@ def main() -> int:
         **{f"launches_{key}": value for key, value in regression.items()},
         **{f"launches_{key}": value for key, value in slice6.items()},
         **{f"launches_{key}": value for key, value in slice7.items()},
+        **{f"launches_{key}": value for key, value in slice8["spd_inv_logdet"].items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
@@ -3045,8 +3493,10 @@ def main() -> int:
         "source": "spark_gp_tpu_torch/csrc/streamed_matvec.cu",
         "replaces": "spark_gp_tpu/ops/pallas_matvec.py:211",
         "launches": (launches_k2 + report_launches["streamed_matvec"]
-                     + k2_weighted["streamed_matvec"]),
+                     + k2_weighted["streamed_matvec"]
+                     + sum(slice8["streamed_matvec"].values())),
         "launches_optimize": launches_k2,
+        **{f"launches_{key}": value for key, value in slice8["streamed_matvec"].items()},
         "launches_weighted_matfree": k2_weighted["streamed_matvec"],
         "launches_solver_report": report_launches["streamed_matvec"],
         **leg(k2_rows, 9, "matvec"),
@@ -3059,8 +3509,10 @@ def main() -> int:
         "source": "spark_gp_tpu_torch/csrc/streamed_matvec.cu",
         "replaces": "spark_gp_tpu/ops/pallas_matvec.py:133",
         "replaces_note": "no Pallas kernel: XLA differentiates the checkpointed scan",
-        "launches": launches_vjp + k2_weighted["streamed_matvec_vjp"],
+        "launches": (launches_vjp + k2_weighted["streamed_matvec_vjp"]
+                     + sum(slice8["streamed_matvec_vjp"].values())),
         "launches_weighted_matfree": k2_weighted["streamed_matvec_vjp"],
+        **{f"launches_{key}": value for key, value in slice8["streamed_matvec_vjp"].items()},
         **leg(vjp_rows, 8, "vjp", ("first_design_ms", "wall_ms")),
         "max_rel_err_all_checks": max(e["vjp_rel"] for e in k2_errs.values()),
         "legs": {"n1": leg(vjp_rows, 1, "vjp", ("first_design_ms", "wall_ms"))},

@@ -16,7 +16,11 @@ with Poisson or Negative Binomial likelihoods.  Regression also predicts
 by a product of experts (``poe_predictor``: PoE, gPoE, BCM, rBCM or the
 healed product), and every fit screens out experts with non-finite rows
 and recovers a failed attempt by per-expert jitter escalation and
-quarantine (``setExpertQuarantine``, ``setFitRetries``).
+quarantine (``setExpertQuarantine``, ``setFitRetries``).  Every fit
+runs inside an observability shell (spans, a run journal, incident
+bundles, an OpenMetrics page, profiler traces: ``obs/``) and a
+degradation ladder that re-runs a fit failing for memory on the
+iterative, the matrix-free and then the float64 lane (``resilience/``).
 Kernels, theta layout, setter names and numerics match the JAX package,
 which stays the reference the port is tested against.
 

@@ -5,11 +5,17 @@ The port adds ``setDevice``: entry points run on ``cuda`` unless the
 caller asks for ``cpu`` (``utils/device.py``).  Setters for what this
 slice does not port raise ``NotImplementedError`` naming the ROADMAP.md
 item that ports them.
+
+Every fit runs inside the observability shell (:meth:`_observed_fit`:
+the root span ``fit.<Family>``, the kernel and memory capture, the run
+journal, an incident bundle on a terminal classified failure), around
+the degradation ladder (``resilience/fallback.py``), around the per-expert
+recovery (:meth:`_run_with_expert_resilience`).
 """
 
 from __future__ import annotations
 
-import logging
+import contextlib
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -25,13 +31,14 @@ from spark_gp_tpu_torch.kernels.base import (
     supports_matfree,
 )
 from spark_gp_tpu_torch.models import ppa
-from spark_gp_tpu_torch.models.likelihood import masked_matfree_operator
 from spark_gp_tpu_torch.models.active_set import (
     ActiveSetProvider,
     GreedilyOptimizingActiveSetProvider,
     KMeansActiveSetProvider,
     RandomActiveSetProvider,
 )
+from spark_gp_tpu_torch.models.likelihood import masked_matfree_operator
+from spark_gp_tpu_torch.obs import trace as obs_trace
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops.streamed_matvec import matvec_tiles
 from spark_gp_tpu_torch.optimize.lbfgsb import (
@@ -41,6 +48,7 @@ from spark_gp_tpu_torch.optimize.lbfgsb import (
 )
 from spark_gp_tpu_torch.parallel.experts import ExpertData, group_for_experts, num_experts_for
 from spark_gp_tpu_torch.utils.device import working_dtype
+from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
 
 
 def _not_ported(what: str, item: int):
@@ -67,6 +75,7 @@ class GaussianProcessParams:
         self._predictive_variance: bool = True
         self._expert_quarantine: bool = True
         self._fit_retries: int = 2
+        self._profile_dir: Optional[str] = None
         self._device = device
 
     def setKernel(self, value: Union[Kernel, Callable[[], Kernel]]):
@@ -190,9 +199,12 @@ class GaussianProcessParams:
         raise _not_ported("optimizer checkpointing", 7)
 
     def setProfileDir(self, path: Optional[str]):
-        """``None`` (no trace), the only value the port takes."""
-        if path is not None:
-            raise _not_ported("profiler traces of a fit", 3)
+        """Capture a ``torch.profiler`` trace (CPU and CUDA activities) of
+        the fit's optimization and PPA build into this directory as a
+        Chrome trace (``utils/instrumentation.maybe_profile``); ``None``
+        (the default) captures nothing unless ``GP_TRACE_DIR`` names a
+        directory."""
+        self._profile_dir = None if path is None else str(path)
         return self
 
     def setExpertQuarantine(self, value: bool):
@@ -269,21 +281,6 @@ class GaussianProcessParams:
     set_aggregation_policy = setAggregationPolicy
 
 
-class FitLog:
-    """What a fit records beside its result: the metrics that join
-    ``model.metrics``, warnings on the package's logger, and the
-    aggregation weights of fit-time selection, which a quarantine
-    zeroes."""
-
-    def __init__(self) -> None:
-        self.metrics: dict = {}
-        self.agg_weights: Optional[np.ndarray] = None
-
-    @staticmethod
-    def warn(message: str) -> None:
-        logging.getLogger("spark_gp_tpu_torch").warning(message)
-
-
 def _default_kernel_factory() -> Kernel:
     from spark_gp_tpu_torch.kernels.rbf import RBFKernel
 
@@ -297,6 +294,111 @@ class GaussianProcessCommons(GaussianProcessParams):
     _objective = "marginal"
     #: whether the PPA model keeps U1 and u2 for ``update`` (regression)
     _keeps_update_statistics = False
+    #: the degradation ladder's rung override while an attempt runs
+    #: (``resilience/fallback._fit_rung_scope``)
+    _fallback_mode: Optional[str] = None
+
+    # --- the observability shell and the ladder's plumbing ---------------
+    def _observed_fit(self, instr: Instrumentation, run):
+        """The observability shell around one complete public fit: opens
+        the root span ``fit.<name>`` every phase span nests under,
+        activates the capture (kernel builds and launches, memory samples
+        at phase boundaries), mints the fit's trace id, and stamps the
+        returned model with its ``run_journal`` (``obs/runtime.py``).  A
+        terminal classified failure escaping the fit dumps exactly one
+        incident bundle (``obs/recorder.py``) before re-raising.  With
+        tracing off (``GP_TRACING=0``) there are no spans, capture or
+        journal, but the failure shell stays (the recorder has its own
+        gate, ``GP_RECORDER``)."""
+        from spark_gp_tpu_torch.obs import recorder as obs_recorder
+        from spark_gp_tpu_torch.obs import runtime as obs_runtime
+
+        entry = f"fit.{instr.name}"
+        if not obs_trace.tracing_enabled():
+            try:
+                return run()
+            except Exception as exc:  # classified-failure-site: bundle + re-raise
+                obs_recorder.record_fit_failure(exc, entry=entry, instr=instr)
+                raise
+        token = obs_runtime.new_trace_token()
+        with obs_runtime.trace_token_scope(token), obs_runtime.fit_capture(instr.name) as cap:
+            root = None
+            try:
+                with obs_trace.span(entry, family=type(self).__name__, trace_token=token) as root:
+                    model = run()
+            except Exception as exc:  # classified-failure-site: bundle + re-raise
+                obs_recorder.record_fit_failure(exc, entry=entry, instr=instr, root=root,
+                                                capture=cap)
+                raise
+        model.run_journal = obs_runtime.write_run_journal(
+            getattr(model, "instr", None) or instr, root, cap, trace_token=token)
+        return model
+
+    def _resolved_optimizer(self) -> str:
+        """``"host"``: SciPy L-BFGS-B, the port's only optimizer (the
+        on-device one is ROADMAP.md queue 1, item 4), on every rung."""
+        return "host"
+
+    def _host_f64_operands(self, data: ExpertData, extra=(), cache=None):
+        """``(data, extra, cache)`` with the stack in float64 ON ITS DEVICE
+        and no gram cache while the ladder's ``host_f64`` rung runs (the
+        same fit with float64 operands, where K1's gate sends the stack to
+        the batched Cholesky: ``ops/spd_linalg.kernel_applies``); the inputs
+        untouched otherwise."""
+        if self._fallback_mode != "host_f64":
+            return data, extra, cache
+        f64 = torch.float64
+        data64 = ExpertData(x=data.x.to(f64), y=data.y.to(f64), mask=data.mask.to(f64))
+        extra64 = tuple(e.to(f64) if isinstance(e, torch.Tensor) else e for e in extra)
+        return data64, extra64, None
+
+    def _dispatch_raw_bytes(self, data: ExpertData) -> float:
+        """Modeled raw peak bytes of one objective evaluation of the fit
+        about to run (``memplan.fit_dispatch_bytes`` at the resolved lane's
+        rung, in the stack's dtype)."""
+        from spark_gp_tpu_torch.resilience import memplan
+
+        e, s, p = (int(d) for d in data.x.shape)
+        rung = memplan.fit_rung_of_lane(it_ops.resolve_for(data),
+                                        supports_matfree(self._get_kernel()))
+        n_targets = int(data.y.shape[2]) if data.y.ndim == 3 else 1
+        return memplan.fit_dispatch_bytes(e, s, p, data.x.element_size(), rung, n_targets,
+                                          type(self).__name__)
+
+    @contextlib.contextmanager
+    def _optimize_phase(self, instr: Instrumentation, data: ExpertData):
+        """The ``optimize_hypers`` phase around the host optimizer, opened
+        by the ``fit.host`` fault-injection point.  Unlike the JAX
+        package's, that point passes the resolved lane's modeled bytes, so
+        a staged ``chaos.memory_limit_bytes`` acts on the host path: the
+        port has no other."""
+        from spark_gp_tpu_torch.resilience import chaos
+
+        chaos.maybe_injected_failure("fit.host", nbytes=self._dispatch_raw_bytes(data))
+        with instr.phase("optimize_hypers"):
+            yield
+
+    def _attempt_operands(self, kernel: Kernel, data: ExpertData):
+        """``(data, cache)`` of one latent-family fit attempt: the float64
+        stack without a cache on the ``host_f64`` rung, else the stack with
+        its gram cache (built inside the attempt, so a rung's lane decides
+        whether it exists)."""
+        if self._fallback_mode == "host_f64":
+            return self._host_f64_operands(data)[0], None
+        return data, self._gram_cache(kernel, data)
+
+    @staticmethod
+    def _phase_metrics(instr: Instrumentation) -> dict:
+        """``group_seconds``, ``optimize_seconds`` and ``ppa_seconds`` from
+        the phase timings (summed over the attempts of a recovered or
+        degraded fit; ``ppa_seconds`` is active_set + kmn_stats +
+        magic_solve)."""
+        t = instr.timings
+        return {
+            "group_seconds": t.get("group_experts", 0.0),
+            "optimize_seconds": t.get("optimize_hypers", 0.0),
+            "ppa_seconds": sum(t.get(k, 0.0) for k in ("active_set", "kmn_stats", "magic_solve")),
+        }
 
     def _get_kernel(self) -> Kernel:
         """User kernel + sigma2 * I -- the noise-augmented model kernel."""
@@ -308,7 +410,7 @@ class GaussianProcessCommons(GaussianProcessParams):
             dtype=working_dtype(device), device=device,
         )
 
-    def _group_screened(self, log: FitLog, x, y, device) -> ExpertData:
+    def _group_screened(self, instr: Instrumentation, x, y, device) -> ExpertData:
         """Group, and the data screen: experts carrying a non-finite row
         are quarantined here, before the objective meets it.  Round-robin
         grouping puts row ``i`` in expert ``i % E``, so the bad experts
@@ -322,7 +424,7 @@ class GaussianProcessCommons(GaussianProcessParams):
                 bad_experts[np.flatnonzero(~finite) % e] = True
         data = self._group(x, y, device)
         if bad_experts is not None:
-            data = self._apply_quarantine(log, data, bad_experts, "data screen")
+            data = self._apply_quarantine(instr, data, bad_experts, "data screen")
         return data
 
     @staticmethod
@@ -370,7 +472,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         if renorm is not None and "final_nll" in metrics:
             metrics["final_nll_renormalized"] = metrics["final_nll"] * renorm
 
-    def _apply_quarantine(self, log: FitLog, data: ExpertData, bad, source: str) -> ExpertData:
+    def _apply_quarantine(self, instr: Instrumentation, data: ExpertData, bad, source: str) -> ExpertData:
         """Make the ``bad`` experts inert and account for it:
         ``experts_active_initial`` is pinned at the first drop, so later
         rounds count against the original stack, and ``bcm_renorm`` maps
@@ -394,24 +496,27 @@ class GaussianProcessCommons(GaussianProcessParams):
                 + GLOBAL_FAILURE_ADVICE
             )
         data = quarantine_experts(data, bad)
-        metrics = log.metrics
+        metrics = instr.metrics
         base = metrics.setdefault("experts_active_initial", float(active))
         dropped = metrics.get("experts_quarantined", 0.0) + n_bad
         metrics["experts_quarantined"] = dropped
         renorm = renorm_factor(base, dropped)
         metrics["bcm_renorm"] = renorm
-        if log.agg_weights is not None:
+        if instr.agg_weights is not None:
             # a quarantined expert's aggregation weight is exactly 0
-            log.agg_weights = np.where(bad, 0.0, log.agg_weights)
-            metrics["agg.effective_experts"] = effective_expert_count(log.agg_weights)
-        log.warn(
+            instr.agg_weights = np.where(bad, 0.0, instr.agg_weights)
+            metrics["agg.effective_experts"] = effective_expert_count(instr.agg_weights)
+        instr.log_warning(
             f"{source}: quarantined {n_bad} non-finite expert(s) "
             f"({int(dropped)}/{int(base)} total dropped); BCM objective "
             f"renormalized by {renorm:.4f}"
         )
+        # the drop as a span event: the run journal shows WHEN it happened
+        obs_trace.add_event("experts.quarantined", count=n_bad, source=source,
+                            total_dropped=int(dropped))
         return data
 
-    def _apply_expert_selection(self, log: FitLog, data: ExpertData):
+    def _apply_expert_selection(self, instr: Instrumentation, data: ExpertData):
         """Fit-time expert selection (``models/aggregation.py``), before any
         objective evaluation: ``drop`` mode compacts the stack to the kept
         experts, ``downweight`` mode hands back fractional weights for the
@@ -426,7 +531,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         if mode == "downweight" and self._objective != "marginal":
             # only the marginal objective takes the weights; masking works
             # for every objective
-            log.warn(
+            instr.log_warning(
                 "aggregation selection: downweight mode requires the "
                 "marginal objective; falling back to drop semantics "
                 f"for objective {self._objective!r}"
@@ -434,14 +539,16 @@ class GaussianProcessCommons(GaussianProcessParams):
             mode = "drop"
         report = agg.select_experts(data, mode=mode, seed=self._seed)
         weights = np.asarray(report.weights, dtype=np.float64)
-        log.agg_weights = weights
-        log.metrics["agg.selection_dropped"] = float(report.num_dropped)
-        log.metrics["agg.renorm"] = report.renorm
-        log.metrics["agg.effective_experts"] = agg.effective_expert_count(weights)
+        instr.agg_weights = weights
+        instr.metrics["agg.selection_dropped"] = float(report.num_dropped)
+        instr.metrics["agg.renorm"] = report.renorm
+        instr.metrics["agg.effective_experts"] = agg.effective_expert_count(weights)
         if report.clean:
             return data, ()
+        obs_trace.add_event("experts.deselected", dropped=report.num_dropped,
+                            mode=report.mode, threshold=report.threshold)
         if report.mode == "downweight":
-            log.warn(
+            instr.log_warning(
                 "aggregation selection: "
                 f"{int(np.sum((weights > 0) & (weights < 1.0)))} "
                 f"expert(s) down-weighted of {report.num_active} "
@@ -452,8 +559,8 @@ class GaussianProcessCommons(GaussianProcessParams):
                                                 device=data.x.device))
         keep = np.flatnonzero(~report.drop)
         # the kept experts all carry w_e = 1 in the compacted stack
-        log.agg_weights = weights[keep]
-        log.warn(
+        instr.agg_weights = weights[keep]
+        instr.log_warning(
             f"aggregation selection: dropped {report.num_dropped} "
             f"redundant expert(s) of {report.num_active} before "
             f"factorization (threshold {report.threshold:.2f}); "
@@ -462,7 +569,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         idx = torch.as_tensor(keep, device=data.x.device)
         return ExpertData(x=data.x[idx], y=data.y[idx], mask=data.mask[idx]), ()
 
-    def _run_with_expert_resilience(self, log: FitLog, data: ExpertData, run_fit):
+    def _run_with_expert_resilience(self, instr: Instrumentation, data: ExpertData, run_fit):
         """Bounded recovery around one complete fit attempt.
 
         ``run_fit(data, extra, cache)`` is the whole optimize-to-PPA
@@ -481,7 +588,7 @@ class GaussianProcessCommons(GaussianProcessParams):
             retry_with_backoff,
         )
 
-        data, sel_extra = self._apply_expert_selection(log, data)
+        data, sel_extra = self._apply_expert_selection(instr, data)
         cache = self._gram_cache(self._get_kernel(), data)
         if not self._expert_quarantine or self._fit_retries < 1:
             return run_fit(data, sel_extra, cache)
@@ -494,6 +601,7 @@ class GaussianProcessCommons(GaussianProcessParams):
             return run_fit(state["data"], state["extra"], state["cache"])
 
         def recover(attempt_idx, exc):
+            obs_trace.add_event("fit.retry", attempt=attempt_idx + 1, error=type(exc).__name__)
             kernel = self._get_kernel()
             report = diagnose_experts(kernel, kernel.init_theta(), state["data"],
                                       objective=probe_objective,
@@ -501,8 +609,9 @@ class GaussianProcessCommons(GaussianProcessParams):
             if report.clean:
                 raise exc  # not a per-expert fault
             if report.num_jittered:
-                log.metrics["experts_jittered"] = report.num_jittered
-                log.warn(
+                instr.metrics["experts_jittered"] = report.num_jittered
+                obs_trace.add_event("experts.jittered", count=report.num_jittered)
+                instr.log_warning(
                     f"fit recovery: {report.num_jittered} expert(s) "
                     "repaired by adaptive jitter escalation "
                     f"(max relative jitter {report.jitter.max():.1e})"
@@ -512,11 +621,11 @@ class GaussianProcessCommons(GaussianProcessParams):
                                                   device=state["data"].x.device),
                                   ) + tuple(state["extra"][1:])
             if report.num_dropped:
-                state["data"] = self._apply_quarantine(log, state["data"], report.bad,
+                state["data"] = self._apply_quarantine(instr, state["data"], report.bad,
                                                        "fit recovery")
                 # the dropped experts have new (benign) rows
                 state["cache"] = self._gram_cache(kernel, state["data"])
-            log.metrics["fit_retries"] = float(attempt_idx + 1)
+            instr.metrics["fit_retries"] = float(attempt_idx + 1)
 
         try:
             return retry_with_backoff(
@@ -552,7 +661,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         inducing set, which the self-distance cache does not cover."""
         if self._objective == "elbo":
             return None
-        if supports_matfree(kernel) and it_ops.resolve_solver(data.expert_size) == "matfree":
+        if supports_matfree(kernel) and it_ops.resolve_for(data) == "matfree":
             return None
         return prepare_gram_cache(kernel, data.x)
 
@@ -659,7 +768,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         return np.asarray(active)
 
     def _projected_process(
-        self, kernel: Kernel, theta_opt: np.ndarray, x: np.ndarray,
+        self, instr: Instrumentation, kernel: Kernel, theta_opt: np.ndarray, x: np.ndarray,
         y: np.ndarray, data: ExpertData, active: Optional[np.ndarray] = None,
     ) -> ppa.ProjectedProcessRawPredictor:
         """Active set -> (U1, u2) in float64 on the fit's device -> magic
@@ -669,29 +778,31 @@ class GaussianProcessCommons(GaussianProcessParams):
         equations square the conditioning (sigma2 as small as 1e-4)."""
         device = data.x.device
         if active is None:
-            active = self._select_active(kernel, theta_opt, x, y, device)
+            with instr.phase("active_set"):
+                active = self._select_active(kernel, theta_opt, x, y, device)
         f64 = torch.float64
-        data64 = ExpertData(
-            x=data.x.to(f64), y=data.y.to(f64), mask=data.mask.to(f64)
-        )
-        u1, u2 = ppa.kmn_stats(
-            kernel,
-            torch.as_tensor(np.asarray(theta_opt, dtype=np.float64), device=device),
-            torch.as_tensor(np.asarray(active, dtype=np.float64), device=device),
-            data64,
-        )
-        return self._build_predictor(
-            kernel, theta_opt, active, u1.cpu().numpy(), u2.cpu().numpy(), device
-        )
+        with instr.phase("kmn_stats"):
+            data64 = ExpertData(
+                x=data.x.to(f64), y=data.y.to(f64), mask=data.mask.to(f64)
+            )
+            u1, u2 = ppa.kmn_stats(
+                kernel,
+                torch.as_tensor(np.asarray(theta_opt, dtype=np.float64), device=device),
+                torch.as_tensor(np.asarray(active, dtype=np.float64), device=device),
+                data64,
+            )
+            u1, u2 = u1.cpu().numpy(), u2.cpu().numpy()
+        return self._build_predictor(instr, kernel, theta_opt, active, u1, u2, device)
 
     def _build_predictor(
-        self, kernel: Kernel, theta, active, u1, u2, device
+        self, instr: Instrumentation, kernel: Kernel, theta, active, u1, u2, device
     ) -> ppa.ProjectedProcessRawPredictor:
         active64 = np.asarray(active, dtype=np.float64)
-        magic_vector, magic_matrix = ppa.magic_solve(
-            kernel, theta, active64, u1, u2,
-            with_variance=self._predictive_variance,
-        )
+        with instr.phase("magic_solve"):
+            magic_vector, magic_matrix = ppa.magic_solve(
+                kernel, theta, active64, u1, u2,
+                with_variance=self._predictive_variance,
+            )
         return ppa.ProjectedProcessRawPredictor(
             kernel=kernel,
             theta=np.asarray(theta, dtype=np.float64),
@@ -717,7 +828,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         ``solver.residual``.  A matfree fit's pass runs the streamed
         operator the fit ran -- never a materialized stand-in -- and adds
         ``solver.matfree_engaged`` and ``solver.matvec_tiles``."""
-        resolved = it_ops.resolve_solver(data.expert_size)
+        resolved = it_ops.resolve_for(data)
         metrics["solver_lane"] = resolved
         if resolved not in ("iterative", "matfree"):
             return

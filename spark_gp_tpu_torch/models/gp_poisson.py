@@ -12,18 +12,18 @@ theta* as the PPA targets.  The model predicts the log-rate posterior and
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models import laplace_generic as lg
-from spark_gp_tpu_torch.models.common import FitLog, GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
 from spark_gp_tpu_torch.utils.device import resolve_device
+from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
 
 
 class GaussianProcessPoissonRegression(GaussianProcessCommons):
@@ -43,48 +43,58 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
         if np.any(y < 0) or not np.all(y == np.floor(y)):
             raise ValueError("targets must be non-negative integer counts")
         device = resolve_device(self._device)
+        # the NB subclass logs and reports under its own name
+        instr = Instrumentation(name=type(self).__name__)
+        return self._observed_fit(instr, lambda: self._fit_body(instr, x, y, device))
+
+    def _fit_body(self, instr, x, y, device) -> "GaussianProcessPoissonModel":
+        from spark_gp_tpu_torch.resilience import fallback
+
         lik = self._likelihood
         iterations = lg.laplace_generic_mode.iterations
         calls = lg.batched_neg_logz_generic.calls
-        # host wall-clock per phase; each phase ends in a device-to-host copy
-        clock = [time.perf_counter()]
-        log = FitLog()
-        data = self._group_screened(log, x, y, device)
+        with instr.phase("group_experts"):
+            data = self._group_screened(instr, x, y, device)
         kernel = self._get_kernel()
-        cache = self._gram_cache(kernel, data)
-        clock.append(time.perf_counter())
-        objective = lg.make_generic_objective(lik, kernel, data.x, data.y, data.mask,
-                                              self._tol, cache)
-        res, f_final = self._optimize_latent_host(kernel, objective, torch.zeros_like(data.y))
-        clock.append(time.perf_counter())
-        # the latent log-rates replace the counts in the PPA build and as
-        # the provider's targets (GPClf.scala:62-65)
-        latent = f_final * data.mask
         x_prov, n_orig, row_filter = self._provider_rows_filter(x)
-        raw = self._projected_process(
-            kernel, res.theta, x_prov, row_filter(ungroup(latent.cpu().numpy(), n_orig)),
-            ExpertData(x=data.x, y=latent, mask=data.mask),
-        )
-        clock.append(time.perf_counter())
-        model = GaussianProcessPoissonModel(raw)
-        model.metrics = {
-            "num_experts": data.num_experts,
-            "expert_size": data.expert_size,
-            "solver_lane": it_ops.resolve_solver(data.expert_size),
-            "likelihood": type(lik).__name__,
-            "lbfgs_iters": res.nit,
-            "lbfgs_nfev": res.nfev,
-            "final_nll": res.fun,
-            "newton_iterations": lg.laplace_generic_mode.iterations - iterations,
-            "objective_calls": lg.batched_neg_logz_generic.calls - calls,
-            "gram_cache_engaged": float(cache is not None),
-            "group_seconds": clock[1] - clock[0],
-            "optimize_seconds": clock[2] - clock[1],
-            "ppa_seconds": clock[3] - clock[2],
-            **log.metrics,
-        }
-        self._log_renormalized_nll(model.metrics)
-        self._emit_aggregation_stats(model.metrics, data)
+
+        def attempt():
+            data_a, cache = self._attempt_operands(kernel, data)
+            with maybe_profile(self._profile_dir, instr.name):
+                with self._optimize_phase(instr, data_a):
+                    objective = lg.make_generic_objective(lik, kernel, data_a.x, data_a.y,
+                                                          data_a.mask, self._tol, cache)
+                    res, f_final = self._optimize_latent_host(kernel, objective,
+                                                              torch.zeros_like(data_a.y))
+                # the latent log-rates replace the counts in the PPA build
+                # and as the provider's targets (GPClf.scala:62-65)
+                latent = f_final * data_a.mask
+                raw = self._projected_process(
+                    instr, kernel, res.theta, x_prov,
+                    row_filter(ungroup(latent.cpu().numpy(), n_orig)),
+                    ExpertData(x=data_a.x, y=latent, mask=data_a.mask),
+                )
+            model = GaussianProcessPoissonModel(raw)
+            model.instr = instr
+            model.metrics = instr.metrics
+            model.metrics.update({
+                "num_experts": data.num_experts,
+                "expert_size": data.expert_size,
+                "solver_lane": it_ops.resolve_for(data_a),
+                "likelihood": type(lik).__name__,
+                "lbfgs_iters": res.nit,
+                "lbfgs_nfev": res.nfev,
+                "final_nll": res.fun,
+                "newton_iterations": lg.laplace_generic_mode.iterations - iterations,
+                "objective_calls": lg.batched_neg_logz_generic.calls - calls,
+                "gram_cache_engaged": float(cache is not None),
+            })
+            self._log_renormalized_nll(model.metrics)
+            self._emit_aggregation_stats(model.metrics, data_a)
+            return model
+
+        model = fallback.run_fit_ladder(self, instr, attempt, data=data)
+        model.metrics.update(self._phase_metrics(instr))
         return model
 
     def fit_distributed(self, data, active_set=None):
@@ -116,6 +126,10 @@ class GaussianProcessPoissonModel:
     def __init__(self, raw_predictor: ProjectedProcessRawPredictor):
         self.raw_predictor = raw_predictor
         self.metrics: Optional[dict] = None
+        #: the fit's Instrumentation, run journal and ladder history
+        self.instr = None
+        self.run_journal: Optional[dict] = None
+        self.degradations: list = []
 
     def predict_latent(self, x_test):
         """``(mean, var)`` of the log-rate posterior (``var`` is None on

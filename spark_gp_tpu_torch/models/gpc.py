@@ -21,19 +21,19 @@ reduces a multiclass problem to it.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models import laplace
-from spark_gp_tpu_torch.models.common import FitLog, GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops.integrator import Integrator
 from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
 from spark_gp_tpu_torch.utils.device import resolve_device
+from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
 
 
 class GaussianProcessClassifier(GaussianProcessCommons):
@@ -58,41 +58,50 @@ class GaussianProcessClassifier(GaussianProcessCommons):
         if not np.all(np.isin(y, (0.0, 1.0))):
             raise ValueError("Only 0 and 1 labels are supported.")
         device = resolve_device(self._device)
-        log = FitLog()
-        # host wall-clock per phase; each phase ends in a device-to-host copy
-        clock = [time.perf_counter()]
-        data = self._group_screened(log, x, y, device)
+        # the EP subclass logs and reports under its own name
+        instr = Instrumentation(name=type(self).__name__)
+        return self._observed_fit(instr, lambda: self._fit_body(instr, x, y, device))
+
+    def _fit_body(self, instr, x, y, device) -> "GaussianProcessClassificationModel":
+        from spark_gp_tpu_torch.resilience import fallback
+
+        with instr.phase("group_experts"):
+            data = self._group_screened(instr, x, y, device)
         kernel = self._get_kernel()
-        cache = self._gram_cache(kernel, data)
-        clock.append(time.perf_counter())
-        res, latent, engine_metrics = self._fit_latent(kernel, data, cache)
-        clock.append(time.perf_counter())
         # the latent targets replace the labels in the PPA build, and the
         # active-set provider sees them too (GPClf.scala:62-65); it gets
         # only the finite rows, and their targets
         x_prov, n_orig, row_filter = self._provider_rows_filter(x)
-        raw = self._projected_process(
-            kernel, res.theta, x_prov, row_filter(ungroup(latent.cpu().numpy(), n_orig)),
-            ExpertData(x=data.x, y=latent, mask=data.mask),
-        )
-        clock.append(time.perf_counter())
-        model = self._make_model(raw)
-        model.metrics = {
-            "num_experts": data.num_experts,
-            "expert_size": data.expert_size,
-            "solver_lane": it_ops.resolve_solver(data.expert_size),
-            "lbfgs_iters": res.nit,
-            "lbfgs_nfev": res.nfev,
-            "final_nll": res.fun,
-            **engine_metrics,
-            "gram_cache_engaged": float(cache is not None),
-            "group_seconds": clock[1] - clock[0],
-            "optimize_seconds": clock[2] - clock[1],
-            "ppa_seconds": clock[3] - clock[2],
-            **log.metrics,
-        }
-        self._log_renormalized_nll(model.metrics)
-        self._emit_aggregation_stats(model.metrics, data)
+
+        def attempt():
+            data_a, cache = self._attempt_operands(kernel, data)
+            with maybe_profile(self._profile_dir, instr.name):
+                with self._optimize_phase(instr, data_a):
+                    res, latent, engine_metrics = self._fit_latent(kernel, data_a, cache)
+                raw = self._projected_process(
+                    instr, kernel, res.theta, x_prov,
+                    row_filter(ungroup(latent.cpu().numpy(), n_orig)),
+                    ExpertData(x=data_a.x, y=latent, mask=data_a.mask),
+                )
+            model = self._make_model(raw)
+            model.instr = instr
+            model.metrics = instr.metrics
+            model.metrics.update({
+                "num_experts": data.num_experts,
+                "expert_size": data.expert_size,
+                "solver_lane": it_ops.resolve_for(data_a),
+                "lbfgs_iters": res.nit,
+                "lbfgs_nfev": res.nfev,
+                "final_nll": res.fun,
+                **engine_metrics,
+                "gram_cache_engaged": float(cache is not None),
+            })
+            self._log_renormalized_nll(model.metrics)
+            self._emit_aggregation_stats(model.metrics, data_a)
+            return model
+
+        model = fallback.run_fit_ladder(self, instr, attempt, data=data)
+        model.metrics.update(self._phase_metrics(instr))
         return model
 
     def _fit_latent(self, kernel, data: ExpertData, cache):
@@ -124,6 +133,10 @@ class GaussianProcessClassificationModel:
     def __init__(self, raw_predictor: ProjectedProcessRawPredictor):
         self.raw_predictor = raw_predictor
         self.metrics: Optional[dict] = None
+        #: the fit's Instrumentation, run journal and ladder history
+        self.instr = None
+        self.run_journal: Optional[dict] = None
+        self.degradations: list = []
         self._integrator = None
 
     def _latent_mean(self, x_test) -> np.ndarray:

@@ -23,18 +23,18 @@ fits (ROADMAP.md queue 1, items 4, 6, 7 and 5).
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models import laplace_mc
-from spark_gp_tpu_torch.models.common import FitLog, GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
 from spark_gp_tpu_torch.utils.device import resolve_device
+from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
 
 
 def _one_hot_masked(y, mask, n_classes: int):
@@ -78,50 +78,59 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
     def fit(self, x, y) -> "GaussianProcessMulticlassModel":
         x, y_int, n_classes = _validated_labels(x, y)
         device = resolve_device(self._device)
+        instr = Instrumentation(name=type(self).__name__)
+        return self._observed_fit(
+            instr, lambda: self._fit_body(instr, x, y_int, n_classes, device))
+
+    def _fit_body(self, instr, x, y_int, n_classes, device) -> "GaussianProcessMulticlassModel":
+        from spark_gp_tpu_torch.resilience import fallback
+
         iterations = laplace_mc.laplace_mc_mode.iterations
         calls = laplace_mc.batched_neg_logz_mc.calls
-        # host wall-clock per phase; each phase ends in a device-to-host copy
-        clock = [time.perf_counter()]
-        log = FitLog()
-        data = self._group_screened(log, x, y_int.astype(np.float64), device)
-        y1h = _one_hot_masked(data.y, data.mask, n_classes)
+        with instr.phase("group_experts"):
+            data = self._group_screened(instr, x, y_int.astype(np.float64), device)
         kernel = self._get_kernel()
-        cache = self._gram_cache(kernel, data)
-        clock.append(time.perf_counter())
-        objective = laplace_mc.make_mc_objective(
-            kernel, data.x, y1h, data.mask, self._tol, cache
-        )
-        res, f_final = self._optimize_latent_host(kernel, objective, torch.zeros_like(y1h))
-        clock.append(time.perf_counter())
-        # the per-class latent modes are the PPA targets; the provider
-        # sees each point's strongest class latent
-        latents = f_final * data.mask[..., None]
-        margin = torch.max(latents, dim=-1).values.cpu().numpy()
         x_prov, n_orig, row_filter = self._provider_rows_filter(x)
-        raw = self._projected_process(
-            kernel, res.theta, x_prov, row_filter(ungroup(margin, n_orig)),
-            ExpertData(x=data.x, y=latents, mask=data.mask),
-        )
-        clock.append(time.perf_counter())
-        model = GaussianProcessMulticlassModel(raw)
-        model.metrics = {
-            "num_experts": data.num_experts,
-            "expert_size": data.expert_size,
-            "num_classes": n_classes,
-            "solver_lane": it_ops.resolve_solver(data.expert_size),
-            "lbfgs_iters": res.nit,
-            "lbfgs_nfev": res.nfev,
-            "final_nll": res.fun,
-            "newton_iterations": laplace_mc.laplace_mc_mode.iterations - iterations,
-            "objective_calls": laplace_mc.batched_neg_logz_mc.calls - calls,
-            "gram_cache_engaged": float(cache is not None),
-            "group_seconds": clock[1] - clock[0],
-            "optimize_seconds": clock[2] - clock[1],
-            "ppa_seconds": clock[3] - clock[2],
-            **log.metrics,
-        }
-        self._log_renormalized_nll(model.metrics)
-        self._emit_aggregation_stats(model.metrics, data)
+
+        def attempt():
+            data_a, cache = self._attempt_operands(kernel, data)
+            y1h = _one_hot_masked(data_a.y, data_a.mask, n_classes)
+            with maybe_profile(self._profile_dir, instr.name):
+                with self._optimize_phase(instr, data_a):
+                    objective = laplace_mc.make_mc_objective(
+                        kernel, data_a.x, y1h, data_a.mask, self._tol, cache
+                    )
+                    res, f_final = self._optimize_latent_host(kernel, objective,
+                                                              torch.zeros_like(y1h))
+                # the per-class latent modes are the PPA targets; the
+                # provider sees each point's strongest class latent
+                latents = f_final * data_a.mask[..., None]
+                margin = torch.max(latents, dim=-1).values.cpu().numpy()
+                raw = self._projected_process(
+                    instr, kernel, res.theta, x_prov, row_filter(ungroup(margin, n_orig)),
+                    ExpertData(x=data_a.x, y=latents, mask=data_a.mask),
+                )
+            model = GaussianProcessMulticlassModel(raw)
+            model.instr = instr
+            model.metrics = instr.metrics
+            model.metrics.update({
+                "num_experts": data.num_experts,
+                "expert_size": data.expert_size,
+                "num_classes": n_classes,
+                "solver_lane": it_ops.resolve_for(data_a),
+                "lbfgs_iters": res.nit,
+                "lbfgs_nfev": res.nfev,
+                "final_nll": res.fun,
+                "newton_iterations": laplace_mc.laplace_mc_mode.iterations - iterations,
+                "objective_calls": laplace_mc.batched_neg_logz_mc.calls - calls,
+                "gram_cache_engaged": float(cache is not None),
+            })
+            self._log_renormalized_nll(model.metrics)
+            self._emit_aggregation_stats(model.metrics, data_a)
+            return model
+
+        model = fallback.run_fit_ladder(self, instr, attempt, data=data)
+        model.metrics.update(self._phase_metrics(instr))
         return model
 
     def fit_distributed(self, data, n_classes=None, active_set=None):
@@ -136,6 +145,10 @@ class GaussianProcessMulticlassModel:
     def __init__(self, raw_predictor: ProjectedProcessRawPredictor):
         self.raw_predictor = raw_predictor
         self.metrics: Optional[dict] = None
+        #: the fit's Instrumentation, run journal and ladder history
+        self.instr = None
+        self.run_journal: Optional[dict] = None
+        self.degradations: list = []
 
     @property
     def num_classes(self) -> int:

@@ -21,18 +21,18 @@ the per-expert leave-one-out diagnostics at a fitted model's theta, and
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models.active_set import GreedilyOptimizingActiveSetProvider
-from spark_gp_tpu_torch.models.common import FitLog, GaussianProcessCommons
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons
 from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops.linalg import psd_safe_cholesky_np
 from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
+from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
 
 
 def _check_xy(x, y):
@@ -80,13 +80,14 @@ class GaussianProcessRegression(GaussianProcessCommons):
     def fit(self, x, y) -> "GaussianProcessRegressionModel":
         x, y = _check_xy(x, y)
         device = resolve_device(self._device)
-        log = FitLog()
-        # host wall-clock per phase: each phase ends in a device-to-host
-        # copy (the optimizer's per-evaluation fetch, the statistics'
-        # fetch), so the clock covers the device work; the optimize phase
-        # spans every attempt and the recovery between them
-        clock = {"start": time.perf_counter()}
-        data = self._group_screened(log, x, y, device)
+        instr = Instrumentation(name="GaussianProcessRegression")
+        # the observation shell wraps the whole post-validation body, so
+        # the grouping and screen land inside the fit's root span
+        return self._observed_fit(instr, lambda: self._fit_body(instr, x, y, device))
+
+    def _fit_body(self, instr, x, y, device) -> "GaussianProcessRegressionModel":
+        with instr.phase("group_experts"):
+            data = self._group_screened(instr, x, y, device)
         # the providers sample raw host rows: hand them only finite ones
         x, y = self._screen_rows(x, y)
         kernel = self._get_kernel()
@@ -94,7 +95,6 @@ class GaussianProcessRegression(GaussianProcessCommons):
             self._check_elbo_provider(kernel)
 
         def run_fit(data_r, rextra, cache):
-            clock.setdefault("grouped", time.perf_counter())
             x_r, y_r = x, y
             if data_r is not data:
                 # recovery or selection rebuilt the stack: the provider rows
@@ -103,40 +103,47 @@ class GaussianProcessRegression(GaussianProcessCommons):
                 keep = data_r.mask > 0
                 x_r = data_r.x[keep].to(torch.float64).cpu().numpy()
                 y_r = data_r.y[keep].to(torch.float64).cpu().numpy()
-            active, extra = None, (rextra if self._objective == "marginal" else ())
-            if self._objective == "elbo":
-                # the bound needs its inducing set before the optimization,
-                # selected from this attempt's rows
-                active = self._select_active(kernel, kernel.init_theta(), x_r, y_r, device)
-                extra = (active, self._sigma2)
-            res, restart_metrics = self._optimize_with_restarts(
-                kernel, make_value_and_grad(kernel, data_r, cache, self._objective, extra)
-            )
-            clock["optimized"] = time.perf_counter()
-            raw = self._projected_process(kernel, res.theta, x_r, y_r, data_r, active)
-            clock["done"] = time.perf_counter()
-            return res, restart_metrics, raw, data_r, cache
+            data_r, rextra, cache = self._host_f64_operands(data_r, rextra, cache)
+            with maybe_profile(self._profile_dir, instr.name):
+                active, extra = None, (rextra if self._objective == "marginal" else ())
+                if self._objective == "elbo":
+                    # the bound needs its inducing set before the
+                    # optimization, selected from this attempt's rows
+                    with instr.phase("active_set"):
+                        active = self._select_active(kernel, kernel.init_theta(), x_r, y_r,
+                                                     device)
+                    extra = (active, self._sigma2)
+                vag = make_value_and_grad(kernel, data_r, cache, self._objective, extra)
+                with self._optimize_phase(instr, data_r):
+                    res, restart_metrics = self._optimize_with_restarts(kernel, vag)
+                raw = self._projected_process(instr, kernel, res.theta, x_r, y_r, data_r, active)
+            model = GaussianProcessRegressionModel(raw)
+            model.instr = instr
+            model.metrics = instr.metrics
+            model.metrics.update({
+                "num_experts": data.num_experts,
+                "expert_size": data.expert_size,
+                "objective": self._objective,
+                "lbfgs_iters": res.nit,
+                "lbfgs_nfev": res.nfev,
+                "final_nll": res.fun,
+                "gram_cache_engaged": float(cache is not None),
+                **restart_metrics,
+            })
+            self._log_renormalized_nll(model.metrics)
+            self._emit_solver_stats(model.metrics, kernel, res.theta, data_r)
+            self._emit_aggregation_stats(model.metrics, data_r)
+            return model
 
-        res, restart_metrics, raw, data_fit, cache = self._run_with_expert_resilience(
-            log, data, run_fit)
-        model = GaussianProcessRegressionModel(raw)
-        model.metrics = {
-            "num_experts": data.num_experts,
-            "expert_size": data.expert_size,
-            "objective": self._objective,
-            "lbfgs_iters": res.nit,
-            "lbfgs_nfev": res.nfev,
-            "final_nll": res.fun,
-            "gram_cache_engaged": float(cache is not None),
-            "group_seconds": clock["grouped"] - clock["start"],
-            "optimize_seconds": clock["optimized"] - clock["grouped"],
-            "ppa_seconds": clock["done"] - clock["optimized"],
-            **restart_metrics,
-            **log.metrics,
-        }
-        self._log_renormalized_nll(model.metrics)
-        self._emit_solver_stats(model.metrics, kernel, res.theta, data_fit)
-        self._emit_aggregation_stats(model.metrics, data_fit)
+        from spark_gp_tpu_torch.resilience import fallback
+
+        # the degradation ladder wraps the complete attempt, the per-expert
+        # recovery inside it: a classified failure (OOM, compile, exhausted
+        # numerics) re-runs the fit one rung down (GP_FALLBACK=0: raw)
+        model = fallback.run_fit_ladder(
+            self, instr, lambda: self._run_with_expert_resilience(instr, data, run_fit),
+            data=data)
+        model.metrics.update(self._phase_metrics(instr))
         return model
 
     def _check_elbo_provider(self, kernel) -> None:
@@ -203,6 +210,10 @@ class GaussianProcessRegressionModel:
     def __init__(self, raw_predictor: ProjectedProcessRawPredictor):
         self.raw_predictor = raw_predictor
         self.metrics: Optional[dict] = None
+        #: the fit's Instrumentation, run journal and ladder history
+        self.instr = None
+        self.run_journal: Optional[dict] = None
+        self.degradations: list = []
 
     def predict(self, x_test) -> np.ndarray:
         return self.raw_predictor.predict_mean(x_test).cpu().numpy()

@@ -68,7 +68,8 @@ def _posterior_terms_batch(kmat, y, mask, f, with_logdet: bool = True):
     eye = torch.eye(kmat.shape[-1], dtype=kmat.dtype, device=kmat.device)
     b_mat = eye + sqw[:, :, None] * kmat * sqw[:, None, :]
     grad_log_p = (y - pi) * mask
-    if it_ops.resolve_solver(kmat.shape[-1]) in ("iterative", "matfree"):
+    if it_ops.resolve_solver(kmat.shape[-1], num_experts=kmat.shape[0],
+                             itemsize=kmat.element_size()) in ("iterative", "matfree"):
         precond = it_ops.build_spd_preconditioner(b_mat)
         logdet = it_ops.spd_logdet(b_mat, precond=precond) if with_logdet else None
         return pi, w, sqw, ("iter", (b_mat, precond)), logdet, grad_log_p

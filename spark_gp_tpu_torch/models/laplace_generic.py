@@ -169,7 +169,8 @@ def _gen_newton_quantities(lik: Likelihood, kmat, y, mask, f,
     b_mats = eye + sqw[:, :, None] * kmat * sqw[:, None, :]
     b_vec = w * f + grad_log_p
     kb = torch.einsum("eij,ej->ei", kmat, b_vec)
-    if it_ops.resolve_solver(kmat.shape[-1]) in ("iterative", "matfree"):
+    if it_ops.resolve_solver(kmat.shape[-1], num_experts=kmat.shape[0],
+                             itemsize=kmat.element_size()) in ("iterative", "matfree"):
         precond = it_ops.build_spd_preconditioner(b_mats)
         half_logdet_b = (0.5 * it_ops.spd_logdet(b_mats, precond=precond)
                          if with_logdet else None)

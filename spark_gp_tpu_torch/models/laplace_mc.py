@@ -82,7 +82,8 @@ def _mc_newton_quantities(kmat, y1h, mask, f, with_logdet: bool = True) -> McSte
     skips the iterative lane's SLQ log-det, which a Newton step does not
     read (the half-log-determinants are then None on that lane)."""
     pi, sqd, b_vec = _softmax_terms(y1h, mask, f)
-    if it_ops.resolve_solver(kmat.shape[-1]) in ("iterative", "matfree"):
+    if it_ops.resolve_solver(kmat.shape[-1], num_experts=kmat.shape[0],
+                             itemsize=kmat.element_size()) in ("iterative", "matfree"):
         return _mc_newton_quantities_iter(kmat, mask, f, pi, sqd, b_vec, with_logdet)
 
     # B_c = I + sqrt(D_c) K sqrt(D_c), batched over (expert, class)

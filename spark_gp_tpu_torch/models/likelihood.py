@@ -130,7 +130,7 @@ def batched_nll(kernel: Kernel, theta, data: ExpertData, cache=None, jitter=None
     ``weights`` (``[E]``) is the aggregation plane's per-expert weight
     operand (``models/aggregation.py``): the objective becomes
     ``sum_e w_e NLL_e``.  ``None`` for either keeps the plain sum."""
-    resolved = it_ops.resolve_solver(data.expert_size)
+    resolved = it_ops.resolve_for(data)
     ym = data.y * data.mask
     if weights is not None:
         weights = torch.as_tensor(weights, dtype=data.x.dtype, device=data.x.device)

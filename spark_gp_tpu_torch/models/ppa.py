@@ -34,9 +34,12 @@ from spark_gp_tpu_torch.ops.linalg import psd_safe_cholesky_np
 from spark_gp_tpu_torch.parallel.experts import ExpertData
 from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
 
-# Cap on the [m, chunk] cross-kernel intermediate (elements): 64M f64
-# entries = 512 MB.
-_STATS_CHUNK_ELEMS = 64 * 1024 * 1024
+# Cap on the [m, chunk] cross-kernel intermediate (elements): 4M f64
+# entries = 32 MB.  The statistics hold ~3 such buffers at once (the
+# distances, the kernel, its masked copy): at m = 1000 a 36,585-row chunk
+# would hold ~3 x 293 MB, more than the float32 gram stack a matfree fit
+# exists to avoid, so the PPA build could OOM where the fit did not.
+_STATS_CHUNK_ELEMS = 4 * 1024 * 1024
 
 
 def _flat_stats(kernel: Kernel, theta, active, xf, yf, maskf):
@@ -115,8 +118,9 @@ class ProjectedProcessRawPredictor:
     u2: Optional[np.ndarray] = None
     device: Optional[str] = None
 
-    # cap on the [t, m] cross-kernel intermediate per chunk: 32M entries
-    _PREDICT_CHUNK_ELEMS = 32 * 1024 * 1024
+    # cap on the [t, m] cross-kernel intermediate per chunk: 8M entries
+    # (its float64 copy for the contractions is 64 MB)
+    _PREDICT_CHUNK_ELEMS = 8 * 1024 * 1024
 
     def with_additional_data(self, x_new, y_new) -> "ProjectedProcessRawPredictor":
         """A new predictor with ``(x_new, y_new)`` folded into the
@@ -215,22 +219,104 @@ class ProjectedProcessRawPredictor:
 
     @torch.no_grad()
     def _run(self, x_test, mean_only: bool):
+        """The chunked predict under the predict ladder
+        (``resilience/fallback.run_predict_ladder``): the chunk is sized
+        by the memory plan where a budget resolves (``memplan.plan_predict_chunk``),
+        an OOM on a chunk halves it and re-runs the request, and a chunk
+        that cannot get under the ceiling falls to :meth:`_rowwise_f64_predict`
+        on the same device."""
+        from spark_gp_tpu_torch.resilience import memplan
+        from spark_gp_tpu_torch.resilience.fallback import run_predict_ladder
+
         x_test, put = self._inputs(x_test)
-        theta, active, mv = put(self.theta), put(self.active), put(self.magic_vector)
-        mm = None if mean_only else put(self.magic_matrix)
+        theta, active = put(self.theta), put(self.active)
+
+        def put64(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=x_test.device)
+
+        mv = put64(self.magic_vector)
+        mm = None if mean_only else put64(self.magic_matrix)
         t = x_test.shape[0]
-        chunk = max(1, min(self._PREDICT_CHUNK_ELEMS // max(1, active.shape[0]), t))
+        if t == 0:
+            return (x_test.new_zeros((0,) + mv.shape[1:]),
+                    None if mm is None else x_test.new_zeros((0,)))
+        m, p = max(1, active.shape[0]), active.shape[1]
+        itemsize = x_test.element_size()
+        # clamped to the request, so the ladder's halvings walk down from
+        # the size that actually ran
+        chunk = max(1, min(self._PREDICT_CHUNK_ELEMS // m, t))
+        planned = memplan.plan_predict_chunk(chunk, m, p, itemsize, mm is None)
+        if planned is not None:
+            chunk = planned
+
+        def dispatch_bytes(rows: int) -> float:
+            return memplan.predict_dispatch_bytes(rows, m, p, itemsize, mm is None)
+
+        return run_predict_ladder(
+            lambda c: self._run_at_chunk(x_test, theta, active, mv, mm, c, dispatch_bytes),
+            lambda: self._rowwise_f64_predict(x_test, mean_only),
+            chunk,
+            planned=planned is not None,
+        )
+
+    def _predict_block(self, theta, active, mv, mm, part):
+        """``(mean, var)`` of one chunk: the cross kernel in the working
+        dtype, its contractions with the magic vector and matrix in float64
+        (``mv``, ``mm`` are float64).  Both sums cancel heavily (the magic
+        vector's entries are ~1e3 times the mean at small sigma2), and a
+        float32 sum's rounding depends on the reduction order the library
+        picks for the chunk's shape: accumulated in float64, a row's
+        prediction does not depend on the chunk it was computed in."""
+        cross = self.kernel.cross(theta, part, active)  # [c, m]
+        c64 = cross.to(torch.float64)
+        mean = (c64 @ mv).to(part.dtype)
+        if mm is None:
+            return mean, None
+        quad = torch.einsum("tm,mk,tk->t", c64, mm, c64).to(part.dtype)
+        return mean, self.kernel.self_diag(theta, part) + quad
+
+    def _run_at_chunk(self, x_test, theta, active, mv, mm, chunk: int, dispatch_bytes):
+        """The predict in chunks of ``chunk`` rows, every chunk of that one
+        shape (the last padded with copies of its first row), each behind
+        the ``predict.chunk`` fault-injection point."""
+        from spark_gp_tpu_torch.resilience import chaos
+
+        t = x_test.shape[0]
+        if t <= chunk:
+            chaos.maybe_injected_failure("predict.chunk", rows=t, nbytes=dispatch_bytes(t))
+            return self._predict_block(theta, active, mv, mm, x_test)
         means, vars_ = [], []
         for start in range(0, t, chunk):
             part = x_test[start:start + chunk]
-            cross = self.kernel.cross(theta, part, active)  # [c, m]
-            means.append(cross @ mv)
-            if mm is not None:
-                vars_.append(
-                    self.kernel.self_diag(theta, part)
-                    + torch.einsum("tm,mk,tk->t", cross, mm, cross)
-                )
-        mean = torch.cat(means) if means else x_test.new_zeros((0,) + mv.shape[1:])
-        if mm is None:
-            return mean, None
-        return mean, torch.cat(vars_) if vars_ else x_test.new_zeros((0,))
+            pad = chunk - part.shape[0]
+            if pad:
+                part = torch.cat([part, part[:1].expand(pad, part.shape[1])])
+            chaos.maybe_injected_failure("predict.chunk", rows=chunk, nbytes=dispatch_bytes(chunk))
+            mean, var = self._predict_block(theta, active, mv, mm, part)
+            means.append(mean[:chunk - pad])
+            if var is not None:
+                vars_.append(var[:chunk - pad])
+        return torch.cat(means), torch.cat(vars_) if vars_ else None
+
+    def _rowwise_f64_predict(self, x_test, mean_only: bool):
+        """The predict ladder's last rung (``host_solve`` in the ladder's
+        names): the request one row at a time, in float64, on
+        ``x_test``'s own device -- the smallest dispatch there is, at the
+        most precision -- returned in ``x_test``'s dtype.  It runs outside
+        the ``predict.chunk`` fault-injection point."""
+        f64 = torch.float64
+
+        def put64(a):
+            return torch.as_tensor(np.asarray(a), dtype=f64, device=x_test.device)
+
+        theta, active, mv = put64(self.theta), put64(self.active), put64(self.magic_vector)
+        mm = None if mean_only else put64(self.magic_matrix)
+        x64 = x_test.to(f64)
+        means, vars_ = [], []
+        for row in range(x64.shape[0]):
+            mean, var = self._predict_block(theta, active, mv, mm, x64[row:row + 1])
+            means.append(mean)
+            if var is not None:
+                vars_.append(var)
+        mean = torch.cat(means).to(x_test.dtype)
+        return mean, torch.cat(vars_).to(x_test.dtype) if vars_ else None

@@ -7,6 +7,13 @@ takes seconds.  Libraries are keyed by a digest of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
 The build directory ``csrc/build/`` is listed in ``.gitignore``.
 
+A failed build raises :class:`KernelBuildError` and a failed launch
+:class:`KernelLaunchError` (both ``RuntimeError``s): the degradation
+ladder classifies them by type as ``unknown`` and never degrades them
+(``resilience/fallback.py``).  Every build counts
+``kernel.builds.<name>`` and every launch ``kernel.launches.<name>`` in
+the runtime telemetry (``obs/runtime.py``).
+
 Nothing here runs at import: the CPU test harness has no ``nvcc``.
 """
 
@@ -21,6 +28,9 @@ import tempfile
 import time
 from pathlib import Path
 
+from spark_gp_tpu_torch.obs import trace as obs_trace
+from spark_gp_tpu_torch.obs.runtime import telemetry
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
 
@@ -31,6 +41,21 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict = {}
+
+
+class KernelBuildError(RuntimeError):
+    """A hand-written kernel could not be built or loaded (no ``nvcc``, a
+    compiler error, a library that disagrees with its wrapper)."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A hand-written kernel's launch returned a CUDA error."""
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` in the runtime telemetry, attributed
+    to the active trace root: a host dict update, no device work."""
+    telemetry.inc(f"kernel.launches.{name}")
 
 
 def nvcc_path() -> str:
@@ -46,7 +71,7 @@ def nvcc_path() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.is_file():
         return str(default)
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found: set CUDA_HOME to the CUDA toolkit to build the "
         "port's kernels"
     )
@@ -66,8 +91,9 @@ def build_all(names, force: bool = False) -> dict:
     """Compile every ``csrc/<name>.cu`` of ``names`` that is not built
     already (all of them with ``force``), one ``nvcc`` per source, all
     started together.  Returns ``{name: (seconds, log)}`` for the compiles
-    made now (``log`` is nvcc's ``-Xptxas -v`` report); raises with the
-    compiler's output when a build fails."""
+    made now (``log`` is nvcc's ``-Xptxas -v`` report); raises
+    :class:`KernelBuildError` with the compiler's output when a build
+    fails."""
     todo = [n for n in names if force or not library_path(n).is_file()]
     if not todo:
         return {}
@@ -92,8 +118,10 @@ def build_all(names, force: bool = False) -> dict:
             continue
         os.replace(tmp, library_path(name))
         done[name] = (time.perf_counter() - start, log)
+        telemetry.inc(f"kernel.builds.{Path(name).name}")
+        obs_trace.add_event("kernel.build", kernel=name, seconds=done[name][0])
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise KernelBuildError("kernel build failed: " + "\n".join(failed))
     return done
 
 

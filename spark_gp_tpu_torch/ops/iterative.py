@@ -40,9 +40,9 @@ Lane selection: ``GP_SOLVER_LANE`` in {``exact``, ``iterative``,
 ``matfree``, ``auto``}, :func:`set_solver_lane` (process-wide),
 :func:`solver_lane_scope` (thread-local), default ``exact``.  ``auto``
 switches to ``iterative`` when the expert size reaches
-``GP_SOLVER_AUTO_THRESHOLD`` (default 1024); the JAX package's flip to
-``matfree`` under a memory budget waits for the memory planner
-(ROADMAP.md queue 1, item 2).  Knobs, read when an objective is built:
+``GP_SOLVER_AUTO_THRESHOLD`` (default 1024), and to ``matfree`` there
+when the memory planner (``resilience/memplan.py``) prices the
+materialized iterative program over the device budget.  Knobs, read when an objective is built:
 ``GP_SOLVER_MAX_ITERS`` (default ``min(s, 64)``), ``GP_SOLVER_PROBES``
 (8), ``GP_SOLVER_PRECOND_RANK`` (``min(s, 64)``), ``GP_SOLVER_CG_TOL``
 (1e-5), ``GP_SOLVER_SEED`` (0; the probes are redrawn from it at every
@@ -135,14 +135,48 @@ def auto_threshold() -> int:
     return _env_int("GP_SOLVER_AUTO_THRESHOLD", 1024)
 
 
-def resolve_solver(expert_size: int, lane: Optional[str] = None) -> str:
+def resolve_solver(
+    expert_size: int,
+    lane: Optional[str] = None,
+    *,
+    num_experts: Optional[int] = None,
+    n_features: Optional[int] = None,
+    itemsize: Optional[int] = None,
+) -> str:
     """``exact``, ``iterative`` or ``matfree`` for experts of
-    ``expert_size`` rows under ``lane`` (default: the active lane);
-    ``auto`` resolves by the size threshold alone."""
+    ``expert_size`` rows under ``lane`` (default: the active lane).
+
+    ``auto`` is memory-budget-aware, as in the JAX package: below the
+    size threshold ``exact``; at or above it the materialized iterative
+    program is priced (``memplan.fit_dispatch_bytes`` at the iterative
+    rung, with the ``num_experts`` / ``n_features`` / ``itemsize`` hints,
+    1 / 1 / 4 when a caller knows only ``s``) against the planner's
+    budget, and a predicted overshoot resolves ``matfree`` before any
+    dispatch.  With no budget (planning off, or no CUDA context) the
+    threshold alone decides."""
     lane = active_solver_lane() if lane is None else _validate_lane(lane, "resolve_solver")
     if lane != "auto":
         return lane
-    return "exact" if int(expert_size) < auto_threshold() else "iterative"
+    s = int(expert_size)
+    if s < auto_threshold():
+        return "exact"
+    from spark_gp_tpu_torch.resilience import memplan  # memplan imports this module
+
+    budget = memplan.memory_budget_bytes() if memplan.enabled() else None
+    if budget is None:
+        return "iterative"
+    raw = memplan.fit_dispatch_bytes(
+        int(num_experts) if num_experts else 1, s,
+        int(n_features) if n_features else 1, int(itemsize) if itemsize else 4,
+        "iterative",
+    )
+    return "matfree" if memplan.predicted_bytes(raw) > budget else "iterative"
+
+
+def resolve_for(data) -> str:
+    """:func:`resolve_solver` for an expert stack, with its shape hints."""
+    e, s, p = (int(d) for d in data.x.shape)
+    return resolve_solver(s, num_experts=e, n_features=p, itemsize=data.x.element_size())
 
 
 class SolverConfig(NamedTuple):

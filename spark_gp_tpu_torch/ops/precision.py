@@ -12,6 +12,11 @@ from __future__ import annotations
 import torch
 
 
+def active_lane() -> str:
+    """The precision lane in effect: ``"strict"``, the port's only one."""
+    return "strict"
+
+
 def use_strict_lane() -> None:
     """Turn TF32 off for matmuls and convolutions (process-wide)."""
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -97,8 +97,9 @@ def _launch(k: torch.Tensor):
             batch, n, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"spd_inv_logdet kernel launch failed: CUDA error {err}")
+        raise cuda_lib.KernelLaunchError(f"spd_inv_logdet kernel launch failed: CUDA error {err}")
     spd_inv_logdet.launches += 1
+    cuda_lib.count_launch("spd_inv_logdet")
     return kinv, logdet
 
 

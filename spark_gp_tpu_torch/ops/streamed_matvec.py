@@ -191,7 +191,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _library():
     lib = bind(cuda_lib.load("streamed_matvec"))
     if lib.streamed_matvec_row_tile() != ROW_TILE:
-        raise RuntimeError("csrc/streamed_matvec.cu and ROW_TILE disagree on the row tile")
+        raise cuda_lib.KernelBuildError(
+            "csrc/streamed_matvec.cu and ROW_TILE disagree on the row tile")
     return lib
 
 
@@ -232,8 +233,9 @@ def _launch(x, v, params, spec, degree):
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"streamed_matvec kernel launch failed: CUDA error {err}")
+        raise cuda_lib.KernelLaunchError(f"streamed_matvec kernel launch failed: CUDA error {err}")
     streamed_matvec.launches += 1
+    cuda_lib.count_launch("streamed_matvec")
     return out
 
 
@@ -261,8 +263,10 @@ def _launch_vjp(x, w, v, params, spec, degree):
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"streamed_matvec_vjp kernel launch failed: CUDA error {err}")
+        raise cuda_lib.KernelLaunchError(
+            f"streamed_matvec_vjp kernel launch failed: CUDA error {err}")
     streamed_matvec_vjp.launches += 1
+    cuda_lib.count_launch("streamed_matvec_vjp")
     total = partial.sum(dim=0, dtype=torch.float64).to(x.dtype)
     grad[: spec.n_params] = total[: spec.n_params]
     return grad

@@ -11,6 +11,14 @@ retried with repaired operands.
   quarantine with renormalization for experts the ladder cannot repair.
 * :mod:`~spark_gp_tpu_torch.resilience.retry` -- bounded retry with
   backoff for whole fit attempts.
+* :mod:`~spark_gp_tpu_torch.resilience.fallback` -- the closed failure
+  taxonomy and the fit and predict degradation ladders around a whole
+  attempt.
+* :mod:`~spark_gp_tpu_torch.resilience.memplan` -- the device budget, the
+  byte models of each lane and the plan decisions (the budget-aware
+  ``auto`` lane, the predict chunk).
+* :mod:`~spark_gp_tpu_torch.resilience.chaos` -- deterministic fault
+  injection for the fit and predict paths.
 """
 
 from spark_gp_tpu_torch.resilience.quarantine import (

@@ -1,0 +1,420 @@
+"""Degradation ladder: classified execution failures and policy-driven
+fallback re-execution (the port's copy of the JAX package's
+``resilience/fallback.py``).
+
+* a **closed failure taxonomy** (:data:`FAILURE_CLASSES`, the JAX
+  package's) and :func:`classify_failure`, which maps an exception into
+  it by TYPE first: the port's own kernel failures
+  (``KernelBuildError``, ``KernelLaunchError``) are ``unknown`` before
+  any message is read, so no text that nvcc or the driver put into them
+  can make the ladder degrade -- and so route around -- a kernel;
+  ``torch.cuda.OutOfMemoryError``, ``MemoryError`` and the caching
+  allocator's "CUDA out of memory" are ``oom``;
+* **declarative ladders** per entry point (:data:`LADDERS`): a classified
+  failure re-executes the work one rung down.  Fit: ``native`` ->
+  ``iterative`` -> ``matfree`` (the solver lanes, ``ops/iterative.py``)
+  -> ``host_f64`` (the same fit with float64 operands ON THE CARD,
+  under the host optimizer); ``segmented`` waits for the on-device
+  optimizer and ``strict_lane`` for the mixed precision lanes, so they
+  never apply.  No rung moves a fit to the CPU.  Predict: chunk halving
+  on OOM, then the last rung (the JAX package's ``host_solve``), which
+  runs the request one row at a time in float64 on its own device.
+  Every transition is counted
+  (``fallback.*``), is a span event, lands in the run journal and on the
+  model (``degradations``); ``GP_FALLBACK=0`` restores raw propagation;
+* the **single-classified-error guarantee**: an exhausted ladder raises
+  ONE :class:`DegradationExhaustedError` naming the class and the rung
+  history, the last failure chained.
+
+``run_distributed_ladder`` waits for the port's mesh (ROADMAP.md queue
+1, item 6) and ``run_ppa_solve_ladder`` for a device magic solve (item
+11): the port solves on the host at every m.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+from typing import Callable, List, Optional
+
+logger = logging.getLogger("spark_gp_tpu_torch")
+
+# --------------------------------------------------------------------------
+# the closed taxonomy
+# --------------------------------------------------------------------------
+
+#: device/host allocation failure (the caching allocator's OOM)
+OOM = "oom"
+#: compilation or lowering failure of something that is not one of the
+#: port's kernels (those are ``unknown``, see classify_failure)
+COMPILE = "compile"
+#: non-finite objective the per-expert recovery could not attribute/repair
+NON_FINITE_EXHAUSTED = "non_finite_exhausted"
+#: a factorization that exhausted the adaptive jitter ladder
+NOT_PSD_EXHAUSTED = "not_psd_exhausted"
+#: a deadline-guarded multi-host coordination step timed out
+COORD_TIMEOUT = "coord_timeout"
+#: fit-time mixed-precision guard breached its lane bar (GP_GUARD_ACTION)
+GUARD_BREACH = "guard_breach"
+#: silent data corruption caught by the integrity plane
+SDC = "sdc"
+#: everything else -- NEVER degraded, always re-raised raw
+UNKNOWN = "unknown"
+
+FAILURE_CLASSES = (
+    OOM, COMPILE, NON_FINITE_EXHAUSTED, NOT_PSD_EXHAUSTED,
+    COORD_TIMEOUT, GUARD_BREACH, SDC, UNKNOWN,
+)
+
+#: message fragments identifying an allocation failure in a RuntimeError
+_OOM_MARKERS = (
+    "resource_exhausted", "out of memory", "attempting to allocate",
+    "allocation failure",
+)
+#: message fragments identifying a compilation/lowering failure
+_COMPILE_MARKERS = (
+    "compilation failure", "failed to compile", "compile failed",
+    "mosaic", "lowering failed", "internal: during compilation",
+    "xla compilation",
+)
+
+
+class GuardBreachError(RuntimeError):
+    """A non-strict precision lane breached its accuracy bar at fit time
+    (the JAX package's ``GP_GUARD_ACTION=degrade``); the port runs the
+    strict lane only, so nothing raises it yet."""
+
+    def __init__(self, lane: str, worst: float, bar: float):
+        super().__init__(
+            f"mixed_precision_guard: lane {lane!r} deviates {worst:.3e} "
+            f"from strict (bar {bar:.1e}) and GP_GUARD_ACTION=degrade "
+            "requested a strict-lane re-fit"
+        )
+        self.lane = lane
+        self.worst = float(worst)
+        self.bar = float(bar)
+
+
+class DegradationExhaustedError(RuntimeError):
+    """Every applicable rung failed: the ONE classified error the caller
+    sees (cause chained to the last underlying failure).  ``degradations``
+    is the full transition history, ``failure_class`` the final class."""
+
+    def __init__(self, entry: str, failure_class: str, degradations: list,
+                 cause: BaseException):
+        rungs = " -> ".join(
+            [degradations[0]["from"]] + [d["to"] for d in degradations]
+        ) if degradations else "(none)"
+        super().__init__(
+            f"{entry}: degradation ladder exhausted "
+            f"(final failure class {failure_class!r}, rungs {rungs}): {cause}"
+        )
+        self.entry = entry
+        self.failure_class = failure_class
+        self.degradations = list(degradations)
+
+
+def enabled() -> bool:
+    """The kill switch: ``GP_FALLBACK=0`` restores raw propagation."""
+    return os.environ.get("GP_FALLBACK", "").strip().lower() not in ("0", "false", "off")
+
+
+def classify_failure(exc: BaseException) -> str:
+    """Map an exception into the closed taxonomy, by type first, then (for
+    runtime-shaped errors of no known type) by message; anything
+    unrecognized is :data:`UNKNOWN`, which the ladder never degrades."""
+    import torch
+
+    from spark_gp_tpu_torch.ops.cuda_lib import KernelBuildError, KernelLaunchError
+    from spark_gp_tpu_torch.ops.linalg import NotPositiveDefiniteException
+    from spark_gp_tpu_torch.resilience.quarantine import (
+        ExpertQuarantineError,
+        NonFiniteFitError,
+    )
+    from spark_gp_tpu_torch.resilience.retry import RetryBudgetExceededError
+
+    if isinstance(exc, (KernelBuildError, KernelLaunchError)):
+        # a failure of one of the port's own kernels: degrading it would
+        # finish the fit without the kernel, whatever its text says
+        return UNKNOWN
+    if isinstance(exc, DegradationExhaustedError):
+        return exc.failure_class
+    if isinstance(exc, GuardBreachError):
+        return GUARD_BREACH
+    if isinstance(exc, NotPositiveDefiniteException):
+        return NOT_PSD_EXHAUSTED
+    if isinstance(exc, (NonFiniteFitError, ExpertQuarantineError)):
+        return NON_FINITE_EXHAUSTED
+    if isinstance(exc, RetryBudgetExceededError) and exc.__cause__ is not None:
+        return classify_failure(exc.__cause__)
+    if isinstance(exc, (torch.cuda.OutOfMemoryError, MemoryError)):
+        return OOM
+    if isinstance(exc, RuntimeError):
+        msg = str(exc).lower()
+        if any(marker in msg for marker in _OOM_MARKERS):
+            return OOM
+        if any(marker in msg for marker in _COMPILE_MARKERS):
+            return COMPILE
+    return UNKNOWN
+
+
+# --------------------------------------------------------------------------
+# metering
+# --------------------------------------------------------------------------
+
+
+def record_failure(exc: BaseException, entry: str) -> str:
+    """Classify and count one observed failure (``fallback.failures.*``),
+    relayed into the flight recorder; returns the class."""
+    cls = classify_failure(exc)
+    from spark_gp_tpu_torch.obs.recorder import RECORDER
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+
+    telemetry.inc(f"fallback.failures.{cls}", entry=entry)
+    RECORDER.record(
+        "fallback.failure", entry=entry, failure_class=cls,
+        error=f"{type(exc).__name__}: {exc}"[:200],
+    )
+    return cls
+
+
+def _record_transition(entry: str, cls: str, from_rung: str, to_rung: str,
+                       exc: BaseException, instr=None) -> dict:
+    from spark_gp_tpu_torch.obs import trace as obs_trace
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+
+    telemetry.inc("fallback.transitions", entry=entry)
+    telemetry.inc(f"fallback.rung.{to_rung}", entry=entry)
+    obs_trace.add_event(
+        "fallback.engaged",
+        entry=entry, failure_class=cls, from_rung=from_rung, to_rung=to_rung,
+    )
+    message = (
+        f"degradation ladder [{entry}]: {cls} at rung {from_rung!r} — "
+        f"re-executing at rung {to_rung!r} ({type(exc).__name__}: "
+        f"{str(exc)[:200]})"
+    )
+    if instr is not None:
+        instr.log_warning(message)
+    else:
+        logger.warning("%s", message)
+    return {
+        "entry": entry,
+        "failure_class": cls,
+        "from": from_rung,
+        "to": to_rung,
+        "error": f"{type(exc).__name__}: {exc}"[:200],
+    }
+
+
+def _stamp(instr, model, degradations: List[dict]) -> None:
+    """Attach the transition history to the fit's metrics
+    (``fallback.engaged``; the estimators' ``model.metrics`` is
+    ``instr.metrics``), its instr (the run journal) and the model."""
+    instr.degradations = list(degradations)
+    instr.log_metric("fallback.engaged", 1.0)
+    model.degradations = list(degradations)
+
+
+# --------------------------------------------------------------------------
+# the declarative ladders
+# --------------------------------------------------------------------------
+
+#: rung order per entry point (the JAX package's)
+LADDERS = {
+    "fit": (
+        "native", "iterative", "matfree", "segmented", "host_f64",
+        "strict_lane",
+    ),
+    "fit_sharded": ("sharded", "dcn_fallback", "single_host", "strict_lane"),
+    "predict": ("chunked", "chunk_halved", "host_solve"),
+    "ppa": ("device_solve", "host_solve"),
+}
+
+#: per-class candidate rungs at the ``fit`` entry, in order: an OOM tries
+#: the iterative solver lane first (the factorization workspace replaced
+#: by skinny CG state), then the matrix-free lane (no gram stack at all),
+#: and only then the float64 re-run
+_FIT_POLICY = {
+    OOM: ("iterative", "matfree", "segmented", "host_f64"),
+    COMPILE: ("segmented", "host_f64"),
+    NON_FINITE_EXHAUSTED: ("host_f64",),
+    NOT_PSD_EXHAUSTED: ("host_f64",),
+    GUARD_BREACH: ("strict_lane",),
+}
+
+#: bounded chunk halvings before the predict ladder's last rung
+MAX_PREDICT_HALVINGS = 8
+
+
+def _fit_rung_applies(est, rung: str, cls: str, visited, data=None) -> bool:
+    """Whether ``rung`` is a legal next step for this estimator and class.
+    ``data`` (the fit's expert stack) lets the solver rungs resolve an
+    ``auto`` lane and ``host_f64`` see the working dtype."""
+    if rung in visited:
+        return False
+    if rung in ("iterative", "matfree"):
+        from spark_gp_tpu_torch.kernels.base import supports_matfree
+        from spark_gp_tpu_torch.ops.iterative import active_solver_lane, resolve_solver
+
+        if rung == "matfree" and not supports_matfree(est._get_kernel()):
+            # a kernel that cannot stream would re-run the materialized
+            # iterative program: same bytes, same OOM
+            return False
+        lane = active_solver_lane()
+        if data is not None:
+            e, s, p = (int(d) for d in data.x.shape)
+            return resolve_solver(s, lane, num_experts=e, n_features=p,
+                                  itemsize=data.x.element_size()) != rung
+        return lane != rung
+    if rung == "host_f64":
+        if cls in (NON_FINITE_EXHAUSTED, NOT_PSD_EXHAUSTED):
+            # numerical exhaustion degrades only where the rung ADDS
+            # precision: a fit whose working dtype is already float64 (the
+            # CPU harness) keeps raising the reference's advice
+            return data is not None and data.x.element_size() < 8
+        return True
+    # segmented: the on-device optimizer's segment driver (item 4);
+    # strict_lane: the mixed precision lanes (item 14)
+    return False
+
+
+def _next_fit_rung(est, cls: str, visited, data=None) -> Optional[str]:
+    for rung in _FIT_POLICY.get(cls, ()):
+        if _fit_rung_applies(est, rung, cls, visited, data):
+            return rung
+    return None
+
+
+@contextlib.contextmanager
+def _fit_rung_scope(est, rung: str):
+    """Bind one rung's overrides for the span of an attempt: the solver
+    rungs pin this thread's lane (``solver_lane_scope``, which outranks a
+    caller's own scope outside it and leaves other threads' fits alone),
+    ``host_f64`` sets ``est._fallback_mode`` (``common._host_f64_operands``)."""
+    if rung == "native":
+        yield
+        return
+    if rung in ("iterative", "matfree"):
+        from spark_gp_tpu_torch.ops.iterative import solver_lane_scope
+
+        with solver_lane_scope(rung):
+            yield
+        return
+    prev_mode = getattr(est, "_fallback_mode", None)
+    est._fallback_mode = rung
+    try:
+        yield
+    finally:
+        est._fallback_mode = prev_mode
+
+
+def run_fit_ladder(est, instr, attempt: Callable, data=None):
+    """The fit entry point's ladder driver around the complete attempt
+    (which runs the per-expert numerical recovery inside; the ladder sees
+    only what that layer could not repair).  ``data`` (the expert stack)
+    lets the rung gates resolve the lanes.  The attempt starts at
+    ``native``: a starting-rung plan (``memplan.plan_fit_dispatch``) exists
+    only for the on-device optimizer, ROADMAP.md queue 1, item 4."""
+    if not enabled():
+        return attempt()
+    rung = "native"
+    visited = {rung}
+    degradations: List[dict] = []
+    while True:
+        try:
+            with _fit_rung_scope(est, rung):
+                model = attempt()
+        except Exception as exc:  # classified-failure-site: taxonomy dispatch
+            cls = record_failure(exc, entry="fit")
+            nxt = _next_fit_rung(est, cls, visited, data)
+            if nxt is None:
+                if degradations:
+                    from spark_gp_tpu_torch.obs.runtime import telemetry
+
+                    telemetry.inc("fallback.exhausted", entry="fit")
+                    raise DegradationExhaustedError("fit", cls, degradations, exc) from exc
+                raise  # nothing engaged: raw propagation
+            degradations.append(_record_transition("fit", cls, rung, nxt, exc, instr))
+            visited.add(nxt)
+            rung = nxt
+            continue
+        if degradations:
+            _stamp(instr, model, degradations)
+        return model
+
+
+def _dump_predict_incident(exc: BaseException, cls: str, degradations: List[dict]) -> None:
+    """Terminal predict failures bundle here (fits bundle in
+    ``common._observed_fit``): one bundle per terminal classified failure."""
+    if cls == UNKNOWN and not isinstance(exc, DegradationExhaustedError):
+        return
+    from spark_gp_tpu_torch.obs import recorder as obs_recorder
+    from spark_gp_tpu_torch.obs import trace as obs_trace
+
+    current = obs_trace.current_span()
+    obs_recorder.dump_incident(
+        reason="predict", exc=exc, failure_class=cls,
+        root=getattr(current, "root_span", None),
+        extra={"degradations": list(degradations)},
+    )
+
+
+def run_predict_ladder(attempt_at_chunk: Callable[[int], object],
+                       last_attempt: Callable[[], object], chunk: int,
+                       planned: bool = False):
+    """The predict entry point's ladder (``models/ppa.py``): an OOM on a
+    chunked dispatch halves the chunk (at most
+    :data:`MAX_PREDICT_HALVINGS` times) and re-dispatches the whole
+    request; a chunk that cannot shrink under the ceiling, or a compile
+    failure, falls to ``last_attempt`` (the rung keeps the JAX package's
+    name, ``host_solve``; the predictor runs it on the request's device).  ``planned`` marks a chunk
+    the memory plan admitted (an OOM despite it counts ``plan.miss``).
+    Each transition is a ``fallback.engaged`` event in the flight
+    recorder (and the current span), and a ``fallback.rung.*`` count."""
+    if not enabled():
+        return attempt_at_chunk(chunk)
+    degradations: List[dict] = []
+    halvings = 0
+    plan_missed = False
+
+    def transition(cls, from_rung, to_rung, exc):
+        degradations.append(_record_transition("predict", cls, from_rung, to_rung, exc))
+
+    while True:
+        try:
+            return attempt_at_chunk(chunk)
+        except Exception as exc:  # classified-failure-site: taxonomy dispatch
+            cls = record_failure(exc, entry="predict")
+            if planned and not plan_missed and cls == OOM:
+                from spark_gp_tpu_torch.resilience import memplan
+
+                plan_missed = True
+                memplan.record_plan_miss("predict")
+            if cls == OOM and chunk > 1 and halvings < MAX_PREDICT_HALVINGS:
+                transition(cls, f"chunk_{chunk}", f"chunk_{chunk // 2}", exc)
+                chunk //= 2
+                halvings += 1
+                continue
+            if cls in (OOM, COMPILE):
+                transition(cls, f"chunk_{chunk}" if halvings else "chunked", "host_solve", exc)
+                try:
+                    return last_attempt()
+                except Exception as host_exc:  # classified-failure-site
+                    from spark_gp_tpu_torch.obs.runtime import telemetry
+
+                    telemetry.inc("fallback.exhausted", entry="predict")
+                    err = DegradationExhaustedError(
+                        "predict", classify_failure(host_exc), degradations, host_exc)
+                    _dump_predict_incident(err, err.failure_class, degradations)
+                    raise err from host_exc
+            if degradations:
+                from spark_gp_tpu_torch.obs.runtime import telemetry
+
+                telemetry.inc("fallback.exhausted", entry="predict")
+                err = DegradationExhaustedError("predict", cls, degradations, exc)
+                _dump_predict_incident(err, cls, degradations)
+                raise err from exc
+            _dump_predict_incident(exc, cls, degradations)
+            raise

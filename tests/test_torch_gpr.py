@@ -105,8 +105,9 @@ def test_non_finite_rows_raise():
         lambda gp: tgp.GaussianProcessMulticlassClassifier(device="cpu").setNumRestarts(2),
         # the batched device multi-start waits for the device optimizer
         lambda gp: gp.setObjective("elbo").setNumRestarts(2).setOptimizer("device"),
-        # the JAX package's remaining setters, each naming its item
-        lambda gp: gp.setProfileDir("profile"),
+        # the JAX package's remaining setters and model I/O, each naming
+        # its item (setProfileDir is ported: test_torch_obs.py)
+        lambda gp: tgp.GaussianProcessClassificationModel(None).save("model"),
         lambda gp: gp.setCheckpointInterval(5),
         # (quarantine, retries and the aggregation policies are ported:
         # test_resilience_setters_match_jax)

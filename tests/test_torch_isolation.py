@@ -46,6 +46,12 @@ def test_import_pulls_in_no_jax():
         "import spark_gp_tpu_torch.models.poe, spark_gp_tpu_torch.models.aggregation\n"
         "import spark_gp_tpu_torch.resilience, spark_gp_tpu_torch.resilience.quarantine\n"
         "import spark_gp_tpu_torch.resilience.retry\n"
+        "import spark_gp_tpu_torch.obs, spark_gp_tpu_torch.obs.names\n"
+        "import spark_gp_tpu_torch.obs.trace, spark_gp_tpu_torch.obs.runtime\n"
+        "import spark_gp_tpu_torch.obs.recorder, spark_gp_tpu_torch.obs.expo\n"
+        "import spark_gp_tpu_torch.utils.instrumentation\n"
+        "import spark_gp_tpu_torch.resilience.chaos, spark_gp_tpu_torch.resilience.memplan\n"
+        "import spark_gp_tpu_torch.resilience.fallback\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'spark_gp_tpu' or m.startswith('spark_gp_tpu.')]\n"
         "print(bad)\n"
@@ -88,6 +94,15 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(monkeypatch):
         redundancy_matrix(np.ones((3, 4)))
     assert make_poe_predictor(tgp.RBFKernel(), np.ones(1), x, y, 10,
                               device="cpu").data.x.dtype == torch.float64
+    # the shell's defaults stay on the card's side: no CUDA context, no
+    # budget, no CUDA memory gauges
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+    from spark_gp_tpu_torch.resilience import memplan
+
+    assert memplan.memory_budget_bytes() is None
+    assert set(telemetry.sample_memory()) == {"memory.host_peak_rss_bytes"}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgp.GaussianProcessClassifier().setDatasetSizeForExpert(10).fit(x, (y > 0) * 1.0)
     assert resolve_device("cpu").type == "cpu"
     assert working_dtype(resolve_device("cpu")) == torch.float64
     model = tgp.GaussianProcessRegression(device="cpu").setDatasetSizeForExpert(10) \
