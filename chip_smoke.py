@@ -203,7 +203,30 @@ code is non-zero and the final ``ok`` line is never printed:
                (rungs native -> iterative -> host_f64: ARD does not stream)
                and the same fold under the isotropic RBF (every rung).
 49. slice8-phases -- the seconds of phases 43-48.
-50. kernels -- one line with every kernel's numbers.
+50. persist -- the airfoil config on all 1503 rows (m = 1000), saved in the
+               JAX package's format and loaded on the card: the loaded
+               model's predictions bit-equal to the fitted one's; K1
+               launches = evaluations.
+51. checkpoint -- the first airfoil fold with setCheckpointDir, preempted
+               after 3 checkpoint saves (chaos.preempt_after_saves) and
+               refitted: the resumed theta within 1e-3 relative of the
+               uninterrupted fit's; K1 launches = both legs' evaluations.
+52. serve   -- the persisted model behind GPServeServer on the card,
+               buckets 8 .. 256: one CUDA graph a bucket at warmup and none
+               after; per bucket the eager predict block, the graph replay
+               and the whole dispatch (medians of 50); a closed loop of 8
+               clients x 250 requests of 1 .. 300 rows: requests/s, rows/s,
+               p50 / p99 latency, mean batch rows, zero errors, every
+               answer within 1e-5 of predict_with_var (mean relative to
+               max |mean|, variance to the prior variance).
+53. serve-cli -- python -m spark_gp_tpu_torch.serve on the card: the ready
+               line, 100 predicts, health ok, metrics, then SIGTERM: the
+               drained shutdown line and exit 0.
+54. serve-hang -- a second model wedged (chaos.hang_model): the watchdog
+               fails its batch with exec.hung and trips its breaker while
+               the first model keeps answering.
+55. slice9-phases -- the seconds of phases 50-54.
+56. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.  Every phase line
 carries ``fallback_transitions``, the ladder's transitions since the line
 before it; a phase that stages no fault fails if it moved them.
@@ -2948,6 +2971,339 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
     return launches
 
 
+# --- slice 9: persistence, checkpoints and the serving plane -------------
+
+# the serve phase's bucket ladder and closed loop: CLIENTS threads, each
+# REQUESTS requests of 1 .. MAX_ROWS rows (seeded), over the persisted
+# airfoil model; requests above the top bucket are chunked by the batcher
+SERVE_BUCKETS = (8, 256)
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_MAX_ROWS = 8, 250, 300
+# the answers against the model's own predict_with_var: the mean relative
+# to max |mean|, the variance relative to the prior variance
+SERVE_MEAN_REL, SERVE_VAR_REL = 1e-5, 1e-5
+# eager block and graph replay timings per bucket: medians of this many
+SERVE_TIMING_REPS = 50
+# the resumed fold fit's theta against the uninterrupted one's
+CHECKPOINT_THETA_REL = 1e-3
+CHECKPOINT_KILL_AFTER = 3
+SERVE_CLI_PREDICTS = 100
+
+
+def _serve_timings(torch, server, name: str) -> dict:
+    """Per bucket: the eager ``_predict_block`` (the body the graph holds,
+    launched op by op), the graph's replay alone, and the whole bucketed
+    dispatch (copy in, replay, copy out), each the median wall ms of
+    ``SERVE_TIMING_REPS`` synchronized calls."""
+    entry = server.registry.get(name)
+    bp = entry.predictor
+    rows = {}
+    for bucket in bp.buckets:
+        x = np.broadcast_to(bp._pad_row, (bucket, bp.n_features)).copy()
+        xt = torch.as_tensor(x, device="cuda")
+        graph = bp._graphs[bucket]
+
+        def eager():
+            with torch.no_grad():
+                bp._body(xt)
+
+        def replay():
+            graph.graph.replay()
+
+        out = {}
+        for label, fn in (("eager_ms", eager), ("replay_ms", replay),
+                          ("dispatch_ms", lambda: bp.predict(x))):
+            fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(SERVE_TIMING_REPS):
+                start = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - start) * 1e3)
+            out[label] = float(np.median(times))
+        out["eager_over_replay"] = out["eager_ms"] / out["replay_ms"]
+        rows[str(bucket)] = out
+    return rows
+
+
+def _closed_loop(server, name: str, pool: np.ndarray, ref_mean, ref_var, prior: float) -> dict:
+    """``SERVE_CLIENTS`` threads, each submitting ``SERVE_REQUESTS``
+    requests one after another (a closed loop), of seeded sizes and rows
+    drawn from ``pool``; every answer is held against the reference."""
+    import threading
+
+    rng = np.random.default_rng(13)
+    plans = [[(int(size), rng.integers(0, pool.shape[0], size=int(size)))
+              for size in rng.integers(1, SERVE_MAX_ROWS + 1, size=SERVE_REQUESTS)]
+             for _ in range(SERVE_CLIENTS)]
+    latencies, errors, worst = [], [], {"mean": 0.0, "var": 0.0}
+    lock = threading.Lock()
+    mean_scale = float(np.max(np.abs(ref_mean)))
+
+    def client(plan):
+        for size, idx in plan:
+            start = time.perf_counter()
+            try:
+                mean, var = server.submit(name, pool[idx]).result(timeout=60)
+            except Exception as exc:  # noqa: BLE001 -- counted, the bar is zero
+                with lock:
+                    errors.append(f"{type(exc).__name__}: {exc}"[:200])
+                continue
+            elapsed = time.perf_counter() - start
+            e_mean = float(np.max(np.abs(mean - ref_mean[idx]))) / mean_scale
+            e_var = float(np.max(np.abs(var - ref_var[idx]))) / prior
+            with lock:
+                latencies.append(elapsed)
+                worst["mean"] = max(worst["mean"], e_mean)
+                worst["var"] = max(worst["var"], e_var)
+
+    batches0 = server.metrics.counter("batches")
+    rows0 = server.metrics.counter("requests_rows")
+    threads = [threading.Thread(target=client, args=(plan,)) for plan in plans]
+    start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - start
+    batches = server.metrics.counter("batches") - batches0
+    rows = server.metrics.counter("requests_rows") - rows0
+    return {
+        "clients": SERVE_CLIENTS, "requests": SERVE_CLIENTS * SERVE_REQUESTS,
+        "wall_seconds": wall, "requests_per_s": len(latencies) / wall, "rows_per_s": rows / wall,
+        "latency_p50_ms": float(np.percentile(latencies, 50) * 1e3),
+        "latency_p99_ms": float(np.percentile(latencies, 99) * 1e3),
+        "batches": batches, "mean_batch_rows": rows / max(batches, 1),
+        "errors": len(errors), "first_errors": errors[:3],
+        "max_mean_err_rel": worst["mean"], "max_var_err_rel_prior": worst["var"],
+    }
+
+
+def _serve_cli(path: str) -> dict:
+    """``python -m spark_gp_tpu_torch.serve`` on the card as a
+    subprocess: the ready line, ``SERVE_CLI_PREDICTS`` predicts, health,
+    metrics, then SIGTERM and the drained shutdown line with exit 0."""
+    import signal
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_gp_tpu_torch.serve", "--model", f"airfoil={path}",
+         "--max-batch", str(SERVE_BUCKETS[1]), "--min-bucket", str(SERVE_BUCKETS[0])],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=REPO, start_new_session=True,
+    )
+    fence = threading.Timer(180, lambda: os.killpg(proc.pid, signal.SIGKILL))
+    fence.start()
+    try:
+        ready = json.loads(proc.stdout.readline())
+        ready_s = time.perf_counter() - start
+        rng = np.random.default_rng(5)
+        x = rng.normal(size=(SERVE_CLI_PREDICTS, 20, 5))
+        for i in range(SERVE_CLI_PREDICTS):
+            rows = int(rng.integers(1, 21))
+            proc.stdin.write(json.dumps({"id": i, "model": "airfoil",
+                                         "x": x[i, :rows].tolist()}) + "\n")
+        proc.stdin.write(json.dumps({"cmd": "health"}) + "\n")
+        proc.stdin.write(json.dumps({"cmd": "metrics"}) + "\n")
+        proc.stdin.flush()
+        answers, health, metrics = 0, None, None
+        while metrics is None:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError("serve-cli: the server closed its output early")
+            event = json.loads(line)
+            if "id" in event:
+                if "error" in event or not np.all(np.isfinite(event["mean"])):
+                    raise AssertionError(f"serve-cli: {event}")
+                answers += 1
+            elif event.get("event") == "health":
+                health = event
+            elif event.get("event") == "metrics":
+                metrics = event
+        proc.send_signal(signal.SIGTERM)
+        rest, err = proc.communicate(timeout=120)
+    finally:
+        fence.cancel()
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    last = json.loads(rest.strip().splitlines()[-1]) if rest.strip() else {}
+    return {"ready": ready.get("event"), "ready_platform": ready.get("platform"),
+            "ready_seconds": ready_s, "buckets_warmed": ready.get("buckets_warmed"),
+            "answers": answers, "health": health and health["status"],
+            "metrics_requests": metrics["counters"].get("requests"),
+            "shutdown": last, "returncode": proc.returncode, "stderr_tail": err[-300:]}
+
+
+def slice9_phases(torch, spd, data_main: dict, smi: str) -> dict:
+    """This slice's phases (persist, checkpoint, serve, serve-cli,
+    serve-hang); returns K1's launches on each phase's fits."""
+    import shutil
+    import tempfile
+
+    from spark_gp_tpu_torch.models.gpr import GaussianProcessRegressionModel
+    from spark_gp_tpu_torch.resilience import chaos
+    from spark_gp_tpu_torch.serve import ExecHungError, GPServeServer
+    from spark_gp_tpu_torch.utils.checkpoint import load_checkpoint
+
+    launches = {}
+    start_all = time.perf_counter()
+    x, y, folds = data_main["x"], data_main["y"], data_main["folds"]
+    train, test = folds[0]
+    work = tempfile.mkdtemp(prefix="gp_slice9_")
+    try:
+        # persist: the airfoil config on all 1503 rows (m = 1000), saved
+        # and loaded on the card; the loaded model's predictions bit-equal
+        spd.spd_inv_logdet.launches = 0
+        start = time.perf_counter()
+        model = airfoil_gp(100).fit(x, y)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - start
+        launches["persist"] = spd.spd_inv_logdet.launches
+        path = os.path.join(work, "airfoil.npz")
+        start = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - start
+        start = time.perf_counter()
+        loaded = GaussianProcessRegressionModel.load(path)
+        load_s = time.perf_counter() - start
+        mean, var = model.predict_with_var(x)
+        lmean, lvar = loaded.predict_with_var(x)
+        persist = {"rows": int(x.shape[0]), "m": int(model.raw_predictor.active.shape[0]),
+                   "fit_seconds": fit_s, "save_seconds": save_s, "load_seconds": load_s,
+                   "file_bytes": os.path.getsize(path), "nfev": model.metrics["lbfgs_nfev"],
+                   "launches": launches["persist"],
+                   "bit_equal": bool(np.array_equal(mean, lmean) and np.array_equal(var, lvar)),
+                   "loaded_device": loaded.raw_predictor.device,
+                   "provenance": loaded.provenance}
+        emit({"phase": "persist", **persist, "card": smi})
+        if not (persist["bit_equal"] and persist["launches"] == persist["nfev"]
+                and persist["loaded_device"] == "cuda"):
+            raise AssertionError(f"persist: {persist}")
+
+        # checkpoint: the first airfoil fold, uninterrupted, then preempted
+        # after CHECKPOINT_KILL_AFTER saves and resumed
+        full, full_s = airfoil_fold_fit(airfoil_gp(100), x, y, train)
+        ck_dir = os.path.join(work, "ckpt")
+        spd.spd_inv_logdet.launches = 0
+        start = time.perf_counter()
+        try:
+            with chaos.preempt_after_saves(CHECKPOINT_KILL_AFTER):
+                airfoil_gp(100).setCheckpointDir(ck_dir).fit(x[train], y[train])
+            raise AssertionError("checkpoint: the staged preemption did not fire")
+        except chaos.SimulatedPreemption as exc:
+            leg1_nfev = exc.nfev
+        leg1_s = time.perf_counter() - start
+        saved_iteration = load_checkpoint(ck_dir, tag="GaussianProcessRegression")[0]
+        resumed, leg2_s = airfoil_fold_fit(airfoil_gp(100).setCheckpointDir(ck_dir), x, y, train)
+        launches["checkpoint"] = spd.spd_inv_logdet.launches
+        theta_rel = float(np.max(np.abs(resumed.raw_predictor.theta - full.raw_predictor.theta)
+                                 / np.abs(full.raw_predictor.theta)))
+        from spark_gp_tpu_torch.utils.validation import rmse
+
+        ckpt = {"fold": [int(len(train)), int(len(test))], "kill_after_saves": CHECKPOINT_KILL_AFTER,
+                "saved_iteration": saved_iteration,
+                "leg1_nfev": leg1_nfev, "leg1_seconds": leg1_s,
+                "leg2_nfev": resumed.metrics["lbfgs_nfev"], "leg2_seconds": leg2_s,
+                "leg2_iters": resumed.metrics["lbfgs_iters"],
+                "resumed_from_iteration": resumed.metrics.get("resumed_from_iteration"),
+                "full_iters": full.metrics["lbfgs_iters"], "full_nfev": full.metrics["lbfgs_nfev"],
+                "full_seconds": full_s, "theta_rel_err": theta_rel,
+                "bar": CHECKPOINT_THETA_REL, "launches": launches["checkpoint"],
+                "rmse_full": rmse(y[test], full.predict(x[test])),
+                "rmse_resumed": rmse(y[test], resumed.predict(x[test]))}
+        emit({"phase": "checkpoint", **ckpt, "card": smi})
+        if not (theta_rel < CHECKPOINT_THETA_REL and saved_iteration == CHECKPOINT_KILL_AFTER
+                and ckpt["resumed_from_iteration"] == CHECKPOINT_KILL_AFTER
+                and launches["checkpoint"] == leg1_nfev + ckpt["leg2_nfev"]):
+            raise AssertionError(f"checkpoint: {ckpt}")
+
+        # serve: the persisted model behind the server on the card, buckets
+        # 8 .. 256: one graph a bucket at warmup and none after; eager
+        # against replay per bucket; the closed loop against the model
+        server = GPServeServer(min_bucket=SERVE_BUCKETS[0], max_batch=SERVE_BUCKETS[1],
+                               request_timeout_ms=30_000.0, hang_timeout_s=30.0)
+        start = time.perf_counter()
+        entry = server.register("airfoil", path)
+        warmup_s = time.perf_counter() - start
+        server.start()
+        try:
+            captures = dict(entry.predictor.compile_counts)
+            timings = _serve_timings(torch, server, "airfoil")
+            rng = np.random.default_rng(17)
+            pool = np.concatenate([x, x[rng.integers(0, x.shape[0], size=2497)]
+                                   + 0.1 * rng.standard_normal((2497, x.shape[1]))])
+            ref_mean, ref_var = loaded.predict_with_var(pool)
+            raw = loaded.raw_predictor
+            theta64 = torch.as_tensor(raw.theta, dtype=torch.float64)
+            prior = float(torch.max(raw.kernel.self_diag(
+                theta64, torch.as_tensor(pool[:64], dtype=torch.float64))))
+            loop = _closed_loop(server, "airfoil", pool, ref_mean, ref_var, prior)
+            captures_after = dict(entry.predictor.compile_counts)
+            serve = {"buckets": list(entry.predictor.buckets), "warmup_seconds": warmup_s,
+                     "captures": captures, "captures_after": captures_after,
+                     "prior_variance": prior, "per_bucket": timings, "closed_loop": loop,
+                     "bars": {"mean_rel": SERVE_MEAN_REL, "var_rel_prior": SERVE_VAR_REL},
+                     "health": server.health()["status"]}
+        finally:
+            server.stop()
+        emit({"phase": "serve", **serve, "card": smi})
+        if not (set(captures.values()) == {1} and len(captures) == len(entry.predictor.buckets)
+                and captures_after == captures and loop["errors"] == 0
+                and loop["max_mean_err_rel"] < SERVE_MEAN_REL
+                and loop["max_var_err_rel_prior"] < SERVE_VAR_REL and serve["health"] == "ok"):
+            raise AssertionError(f"serve: {serve}")
+
+        # serve-cli: the CLI on the card as a subprocess
+        cli = _serve_cli(path)
+        emit({"phase": "serve-cli", **cli, "card": smi})
+        if not (cli["ready"] == "ready" and cli["ready_platform"] == "gpu"
+                and cli["answers"] == SERVE_CLI_PREDICTS and cli["health"] == "ok"
+                and cli["metrics_requests"] == SERVE_CLI_PREDICTS
+                and cli["shutdown"].get("event") == "shutdown"
+                and cli["shutdown"].get("drained") is True and cli["returncode"] == 0):
+            raise AssertionError(f"serve-cli: {cli}")
+
+        # serve-hang: a second model wedged; the watchdog fails its batch
+        # with exec.hung and trips its breaker, the first keeps answering
+        server = GPServeServer(min_bucket=SERVE_BUCKETS[0], max_batch=32, hang_timeout_s=1.0,
+                               breaker_reset_s=600.0)
+        server.register("airfoil", path)
+        server.register("wedged", path)
+        server.start()
+        hanging = chaos.hang_model(server, "wedged", hang_forever=True)
+        try:
+            start = time.perf_counter()
+            future = server.submit("wedged", x[:4])
+            try:
+                future.result(timeout=60)
+                code = None
+            except ExecHungError as exc:
+                code = exc.code
+            verdict_s = time.perf_counter() - start
+            answered = server.predict("airfoil", x[:16])[0]
+            health = server.health()
+            hang = {"code": code, "verdict_seconds": verdict_s,
+                    "other_model_answers": bool(np.array_equal(answered, lmean[:16])
+                                                or np.allclose(answered, lmean[:16], rtol=1e-5)),
+                    "broken_models": health["broken_models"], "status": health["status"],
+                    "exec_hung": server.metrics.counter("exec.hung"),
+                    "breaker_trips": server.metrics.counter("breaker.trips")}
+        finally:
+            hanging.release()
+            server.stop()
+        emit({"phase": "serve-hang", **hang, "card": smi})
+        if not (code == "exec.hung" and hang["other_model_answers"]
+                and hang["broken_models"] == ["wedged"] and hang["exec_hung"] == 1):
+            raise AssertionError(f"serve-hang: {hang}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "slice9-phases", "seconds": time.perf_counter() - start_all, "card": smi})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3419,8 +3775,10 @@ def main() -> int:
     # 43-49. slice 8: obs, profile, ladder-oom, memplan, predict-ladder,
     # terminal
     slice8 = slice8_phases(torch, spd, sm, it_ops, data_main, mf_data, rm, smi)
+    # 50-55. slice 9: persist, checkpoint, serve, serve-cli, serve-hang
+    slice9 = slice9_phases(torch, spd, data_main, smi)
 
-    # 50. kernels: K1 at the protein stack, then at the airfoil fold's, on
+    # 56. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
     # the three exact-lane regression fits and the three classifier runs; K2
     # at a CG step's width (n = 9) and K2-VJP at the surrogate leg's
@@ -3447,7 +3805,8 @@ def main() -> int:
         "launches": (launches_airfoil + launches_protein + launches_450
                      + launches_gpc_mnist + launches_iris + launches_iris_native
                      + sum(regression.values()) + sum(slice6.values())
-                     + sum(slice7.values()) + sum(slice8["spd_inv_logdet"].values())),
+                     + sum(slice7.values()) + sum(slice8["spd_inv_logdet"].values())
+                     + sum(slice9.values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
@@ -3458,6 +3817,7 @@ def main() -> int:
         **{f"launches_{key}": value for key, value in slice6.items()},
         **{f"launches_{key}": value for key, value in slice7.items()},
         **{f"launches_{key}": value for key, value in slice8["spd_inv_logdet"].items()},
+        **{f"launches_{key}": value for key, value in slice9.items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},

@@ -12,16 +12,18 @@ then this script's ``--leg`` harness against that checkout's package:
 * the airfoil config's first fold (E = 14, s = 97, ARD, m = 1000): three
   fits after a warm-up, each with its ``group_seconds``,
   ``optimize_seconds`` and ``ppa_seconds``, and the 1503-row predict
-  (mean, and mean with variance), the median of 20 synchronized calls;
+  (mean, and mean with variance), the median of 20 synchronized calls,
+  and the eager predict block (``_predict_block``, the body a serving
+  graph holds) at 8 ... 256 rows of the fold model, the median of 50;
 * the protein config (45,730 x 9 stand-in, 80/20 split, expert 100,
   m = 1000, maxiter 10): one fit's phase seconds, the 9,146-row predict
-  (median of 10), and the PPA statistics (``ppa.kmn_stats``) at the
-  fitted theta and active set, the median of 5;
+  (mean, and mean with variance; medians of 10), and the PPA statistics
+  (``ppa.kmn_stats``) at the fitted theta and active set, the median of 5;
 * where the checkout has the fit's tracing switch (``GP_TRACING``):
   single-fit pairs on the airfoil fold, tracing off and on in turns
   (ten pairs, the order alternating), each pair's ratio.
 
-Prints one JSON line per leg and, last, the card's name and power limit
+``--no-smoke`` runs the harness alone in each leg.  Prints one JSON line per leg and, last, the card's name and power limit
 and a summary; every line also lands in ``OUT/ab.jsonl``.  Needs one CUDA
 card.
 """
@@ -79,11 +81,23 @@ def run_leg(tree: str) -> dict:
     for _ in range(3):
         model, seconds = airfoil_fit()
         fits.append({"fit_seconds": seconds, **{k: model.metrics[k] for k in phases}})
+    raw = model.raw_predictor
+    theta, active = (torch.as_tensor(a, device="cuda").to(torch.float32)
+                     for a in (raw.theta, raw.active))
+    mv, mm = (torch.as_tensor(a, dtype=torch.float64, device="cuda")
+              for a in (raw.magic_vector, raw.magic_matrix))
+    block_ms = {}
+    for rows in (8, 16, 32, 64, 128, 256):
+        part = torch.as_tensor(x[:rows], device="cuda").to(torch.float32)
+        with torch.no_grad():
+            block_ms[str(rows)] = _sync_ms(
+                torch, lambda: raw._predict_block(theta, active, mv, mm, part), 50)
     out["airfoil"] = {
         "fits": fits,
         **{f"median_{k}": float(np.median([f[k] for f in fits])) for k in ("fit_seconds",) + phases},
         "predict_1503_mean_ms": _sync_ms(torch, lambda: model.predict(x), 20),
         "predict_1503_mean_var_ms": _sync_ms(torch, lambda: model.predict_with_var(x), 20),
+        "predict_block_eager_ms": block_ms,
     }
 
     xp, tr, te, yp_tr = d["xp"], d["tr"], d["te"], d["yp_tr"]
@@ -100,6 +114,7 @@ def run_leg(tree: str) -> dict:
         "fit_seconds": time.perf_counter() - start,
         **{k: model.metrics[k] for k in phases},
         "predict_9146_mean_ms": _sync_ms(torch, lambda: model.predict(xp[te]), 10),
+        "predict_9146_mean_var_ms": _sync_ms(torch, lambda: model.predict_with_var(xp[te]), 10),
         "kmn_stats_ms": _sync_ms(torch, lambda: ppa.kmn_stats(raw.kernel, theta, active, data), 5),
         "stats_chunk_elems": ppa._STATS_CHUNK_ELEMS,
     }
@@ -142,6 +157,8 @@ def main() -> int:
     parser.add_argument("--order", default="", help="labels, comma-separated")
     parser.add_argument("--out", default="chiprun_out/ab")
     parser.add_argument("--smoke-timeout", type=float, default=1200.0)
+    parser.add_argument("--no-smoke", action="store_true",
+                        help="skip each leg's chip_smoke.py run")
     args = parser.parse_args()
     if args.leg:
         print(json.dumps(run_leg(args.leg)), flush=True)
@@ -171,8 +188,9 @@ def main() -> int:
         start = time.perf_counter()
         with open(log, "w", encoding="utf-8") as fh:
             try:
-                rc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, stdout=fh,
-                                    stderr=subprocess.STDOUT, timeout=args.smoke_timeout).returncode
+                rc = 0 if args.no_smoke else subprocess.run(
+                    [sys.executable, "chip_smoke.py"], cwd=tree, stdout=fh,
+                    stderr=subprocess.STDOUT, timeout=args.smoke_timeout).returncode
             except subprocess.TimeoutExpired:
                 rc = 124
         smoke_s = time.perf_counter() - start
@@ -197,7 +215,14 @@ def main() -> int:
         summary.append({"label": label, "smoke_rc": rc, "smoke_seconds": smoke_s,
                         "airfoil_ppa_s": harness.get("airfoil", {}).get("median_ppa_seconds"),
                         "protein_ppa_s": harness.get("protein", {}).get("ppa_seconds"),
-                        "predict_1503_ms": harness.get("airfoil", {}).get("predict_1503_mean_ms")})
+                        "predict_1503_ms": harness.get("airfoil", {}).get("predict_1503_mean_ms"),
+                        "predict_1503_var_ms": harness.get("airfoil", {}).get(
+                            "predict_1503_mean_var_ms"),
+                        "predict_9146_ms": harness.get("protein", {}).get("predict_9146_mean_ms"),
+                        "predict_9146_var_ms": harness.get("protein", {}).get(
+                            "predict_9146_mean_var_ms"),
+                        "predict_block_eager_ms": harness.get("airfoil", {}).get(
+                            "predict_block_eager_ms")})
     emit({"card": smi()})
     emit({"ok": ok, "summary": summary})
     record.close()

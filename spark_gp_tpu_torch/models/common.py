@@ -16,6 +16,7 @@ recovery (:meth:`_run_with_expert_resilience`).
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -76,6 +77,9 @@ class GaussianProcessParams:
         self._expert_quarantine: bool = True
         self._fit_retries: int = 2
         self._profile_dir: Optional[str] = None
+        self._checkpoint_dir: Optional[str] = None
+        #: the fitted stack's fingerprint while a checkpointed fit optimizes
+        self._fit_data_key: Optional[list] = None
         self._device = device
 
     def setKernel(self, value: Union[Kernel, Callable[[], Kernel]]):
@@ -188,15 +192,33 @@ class GaussianProcessParams:
         return self
 
     def setCheckpointDir(self, path: Optional[str]):
-        if path is not None:
-            raise _not_ported("optimizer checkpointing", 7)
+        """Persist the host optimizer's state for kill-and-resume: theta
+        and the evaluation log are saved every L-BFGS-B iteration
+        (``utils/checkpoint.LbfgsCheckpointer``), and a fit of the same
+        kernel on the same data that finds its checkpoint in this
+        directory resumes from it
+        (:meth:`GaussianProcessCommons._optimize_hypers_body`).  ``None``
+        (the default) saves nothing."""
+        self._checkpoint_dir = None if path is None else str(path)
         return self
 
     def setCheckpointInterval(self, iters: int):
-        """The device optimizer's checkpoint segment length: not ported."""
+        """The device optimizer's segment length, iterations between its
+        checkpoints: validated as in the JAX package, and without effect
+        here, since the port has only the host optimizer, which saves every
+        iteration (the device optimizer is ROADMAP.md queue 1, item 4), so
+        it warns."""
         if int(iters) < 1:
             raise ValueError("checkpoint interval must be >= 1")
-        raise _not_ported("optimizer checkpointing", 7)
+        warnings.warn(
+            "setCheckpointInterval has no effect: it sets the on-device "
+            "optimizer's segment length, which is not ported to PyTorch yet "
+            "(ROADMAP.md queue 1, item 4); the host optimizer checkpoints "
+            "every iteration",
+            UserWarning,
+            stacklevel=2,
+        )
+        return self
 
     def setProfileDir(self, path: Optional[str]):
         """Capture a ``torch.profiler`` trace (CPU and CUDA activities) of
@@ -371,12 +393,20 @@ class GaussianProcessCommons(GaussianProcessParams):
         by the ``fit.host`` fault-injection point.  Unlike the JAX
         package's, that point passes the resolved lane's modeled bytes, so
         a staged ``chaos.memory_limit_bytes`` acts on the host path: the
-        port has no other."""
+        port has no other.  Under ``setCheckpointDir`` it also takes the
+        content fingerprint of the stack being fitted, which ties a
+        checkpoint's evaluation log to its data (:meth:`_resume_payload`)."""
         from spark_gp_tpu_torch.resilience import chaos
+        from spark_gp_tpu_torch.utils.checkpoint import data_fingerprint
 
         chaos.maybe_injected_failure("fit.host", nbytes=self._dispatch_raw_bytes(data))
-        with instr.phase("optimize_hypers"):
-            yield
+        self._fit_data_key = None if self._checkpoint_dir is None else \
+            data_fingerprint(data.x, data.y, data.mask)
+        try:
+            with instr.phase("optimize_hypers"):
+                yield
+        finally:
+            self._fit_data_key = None
 
     def _attempt_operands(self, kernel: Kernel, data: ExpertData):
         """``(data, cache)`` of one latent-family fit attempt: the float64
@@ -665,20 +695,149 @@ class GaussianProcessCommons(GaussianProcessParams):
             return None
         return prepare_gram_cache(kernel, data.x)
 
+    def _checkpoint_tag(self) -> str:
+        """The checkpoint file's tag: the class name, plus the objective
+        when it is not the marginal NLL, plus the ELBO's surface digest
+        (``_objective_salt``): fits of different objectives or ELBO
+        surfaces sharing a directory neither resume from nor overwrite each
+        other's state."""
+        name = type(self).__name__
+        if self._objective == "marginal":
+            return name
+        name = f"{name}-{self._objective}"
+        salt = getattr(self, "_objective_salt", None)
+        if self._objective == "elbo" and salt:
+            name += f"-{salt}"
+        return name
+
+    def _make_checkpointer(self, kernel: Kernel):
+        """The per-iteration checkpoint callback under ``setCheckpointDir``
+        (None without one), stamped with the fitted data's fingerprint and
+        behind a staged preemption (``chaos.preempt_after_saves``)."""
+        if self._checkpoint_dir is None:
+            return None
+        from spark_gp_tpu_torch.resilience import chaos
+        from spark_gp_tpu_torch.utils.checkpoint import LbfgsCheckpointer
+
+        inner = LbfgsCheckpointer(self._checkpoint_dir, kernel, tag=self._checkpoint_tag(),
+                                  seed=self._seed, data=self._fit_data_key)
+        return chaos.maybe_preempting(inner)
+
+    def _resume_payload(self, kernel: Kernel, theta0: np.ndarray):
+        """The payload of a checkpoint of this fit under
+        ``setCheckpointDir``, or None.  Raises ``CheckpointMismatchError``
+        for a checkpoint of another kernel structure and
+        ``CheckpointCorruptError`` for a damaged one.  A payload with an
+        evaluation log that was written for other data or another kernel
+        spec (its ``data_fingerprint`` or ``kernel`` differs) belongs to
+        another fit: it is not resumed, and the fit starts afresh and
+        overwrites it, the JAX package's rule for its device checkpoints
+        (replaying it would return that fit's theta without computing
+        anything on this data).  A payload without the log (the JAX
+        package's host format) carries neither, and is resumed from its
+        theta."""
+        if self._checkpoint_dir is None:
+            return None
+        from spark_gp_tpu_torch.utils.checkpoint import (
+            CheckpointMismatchError,
+            kernel_fingerprint,
+            kernel_signature,
+            load_checkpoint_payload,
+            payload_state,
+        )
+
+        payload = load_checkpoint_payload(self._checkpoint_dir, tag=self._checkpoint_tag())
+        if payload is None:
+            return None
+        _, theta, sig = payload_state(payload)
+        expected = kernel_signature(kernel, theta0.shape[0])
+        if theta.shape != theta0.shape or (sig is not None and sig != expected):
+            raise CheckpointMismatchError(
+                f"checkpoint in {self._checkpoint_dir!r} (tag {self._checkpoint_tag()!r}) "
+                f"was written under a different kernel configuration ({sig!r} != "
+                f"{expected!r}); clear the directory or use one per configuration"
+            )
+        if "evaluations" in payload and (
+            payload.get("data_fingerprint") != self._fit_data_key
+            or payload.get("kernel") != kernel_fingerprint(kernel)
+        ):
+            return None
+        return payload
+
     def _optimize_hypers_body(
         self, kernel: Kernel, value_and_grad: Callable
     ) -> OptimizeResult:
-        """Host L-BFGS-B from ``kernel.init_theta()`` within its bounds."""
+        """Host L-BFGS-B from ``kernel.init_theta()`` within its bounds.
+
+        Under ``setCheckpointDir`` every evaluation is logged and every
+        iteration saved, and a checkpoint of this fit (same kernel
+        structure, spec and data, :meth:`_resume_payload`) resumes it: the
+        optimizer restarts from the initial theta with its evaluations
+        answered from the log while the theta it asks for is the logged
+        one (no objective is computed, no kernel launched), which rebuilds
+        its state exactly, and runs live from there.  ``nit`` and ``nfev``
+        count the live part only.  A payload without a log resumes from
+        its theta with the remaining budget, and a checkpoint already at
+        the budget returns its theta after one evaluation.  A
+        ``SimulatedPreemption`` leaves with the evaluations it ran
+        (``nfev``)."""
+        from spark_gp_tpu_torch.resilience.chaos import SimulatedPreemption
+
+        theta0 = kernel.init_theta()
+        callback = self._make_checkpointer(kernel)
+        payload = self._resume_payload(kernel, theta0)
+        done, replay, max_iter = 0, [], self._max_iter
+        if payload is not None:
+            done = int(payload["iteration"])
+            replay = payload.get("evaluations") or []
+            if done >= self._max_iter:
+                theta = np.asarray(payload["theta"], dtype=np.float64)
+                value, _ = value_and_grad(theta)
+                return OptimizeResult(
+                    theta=theta, fun=float(value), nit=0, nfev=1, success=True,
+                    resumed_from_iteration=done,
+                    message="checkpoint already at the iteration budget; returning its iterate",
+                )
+            if not replay:
+                # a payload without the log: from its theta, with the rest
+                theta0, max_iter = np.asarray(payload["theta"], dtype=np.float64), max_iter - done
+                callback.iteration = done
+        live, replayed = [0], [0]
+
+        def counted(theta):
+            if replayed[0] < len(replay):
+                rec_theta, value, grad = replay[replayed[0]]
+                if np.array_equal(np.asarray(rec_theta), theta):
+                    replayed[0] += 1
+                    callback.record(theta, value, grad)
+                    return value, np.asarray(grad, dtype=np.float64)
+                replay.clear()  # the trajectory left the log: live from here
+            live[0] += 1
+            value, grad = value_and_grad(theta)
+            if callback is not None:
+                callback.record(theta, value, grad)
+            return value, grad
+
         lower, upper = kernel.bounds()
-        return minimize_lbfgsb(
-            value_and_grad,
-            kernel.init_theta(),
-            lower,
-            upper,
-            max_iter=self._max_iter,
-            tol=self._tol,
-            log_space=self._use_log_space(kernel),
-        )
+        try:
+            res = minimize_lbfgsb(
+                counted,
+                theta0,
+                lower,
+                upper,
+                max_iter=max_iter,
+                tol=self._tol,
+                callback=callback,
+                log_space=self._use_log_space(kernel),
+            )
+        except SimulatedPreemption as exc:
+            exc.nfev = live[0]
+            raise
+        if replayed[0]:
+            res.nit = max(0, res.nit - done)
+        res.nfev = live[0]
+        res.resumed_from_iteration = done
+        return res
 
     def _optimize_with_restarts(self, kernel: Kernel, value_and_grad: Callable):
         """The sequential multi-start driver (the JAX package's
@@ -693,7 +852,15 @@ class GaussianProcessCommons(GaussianProcessParams):
         one restart.  Raises ``NonFiniteFitError`` when no restart ends
         finite."""
         if self._num_restarts <= 1:
-            return self._optimize_hypers_body(kernel, value_and_grad), {}
+            res = self._optimize_hypers_body(kernel, value_and_grad)
+            resumed = {"resumed_from_iteration": res.resumed_from_iteration} \
+                if res.resumed_from_iteration else {}
+            return res, resumed
+        if self._checkpoint_dir is not None:
+            raise ValueError(
+                "setNumRestarts(>1) is not combinable with setCheckpointDir "
+                "(restarts would overwrite one state file)"
+            )
         results = [
             self._optimize_hypers_body(ThetaOverrideKernel(kernel, theta0), value_and_grad)
             for theta0 in self._restart_theta_batch(kernel)

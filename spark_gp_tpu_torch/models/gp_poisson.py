@@ -150,8 +150,16 @@ class GaussianProcessPoissonModel:
         return self.predict_rate(x_test)
 
     def save(self, path: str) -> None:
-        raise _not_ported("saving a model", 7)
+        """Write the model in the JAX package's ``.npz`` format, with its
+        sha256 sidecar (``utils/serialization.py``)."""
+        from spark_gp_tpu_torch.utils.serialization import save_model
+
+        save_model(path, self, kind="poisson")
 
     @staticmethod
-    def load(path: str) -> "GaussianProcessPoissonModel":
-        raise _not_ported("loading a model", 7)
+    def load(path: str, device=None) -> "GaussianProcessPoissonModel":
+        """A model saved by either package, predicting on ``device``
+        (``None`` means ``cuda``)."""
+        from spark_gp_tpu_torch.utils.serialization import load_as
+
+        return load_as(path, GaussianProcessPoissonModel, device)

@@ -174,8 +174,16 @@ class GaussianProcessClassificationModel:
         return (self._latent_mean(x_test) > 0.0).astype(np.float64)
 
     def save(self, path: str) -> None:
-        raise _not_ported("saving a model", 7)
+        """Write the model in the JAX package's ``.npz`` format, with its
+        sha256 sidecar (``utils/serialization.py``)."""
+        from spark_gp_tpu_torch.utils.serialization import save_model
+
+        save_model(path, self, kind="classification")
 
     @staticmethod
-    def load(path: str) -> "GaussianProcessClassificationModel":
-        raise _not_ported("loading a model", 7)
+    def load(path: str, device=None) -> "GaussianProcessClassificationModel":
+        """A model saved by either package, predicting on ``device``
+        (``None`` means ``cuda``)."""
+        from spark_gp_tpu_torch.utils.serialization import load_as
+
+        return load_as(path, GaussianProcessClassificationModel, device)

@@ -72,3 +72,18 @@ class GaussianProcessEPClassificationModel(GaussianProcessClassificationModel):
         else:
             p1 = ndtr(self._latent_mean(x_test))
         return np.stack([1.0 - p1, p1], axis=1)
+
+    def save(self, path: str) -> None:
+        """Write the model with its own ``kind``, so that a round trip
+        keeps the probit head (``utils/serialization.py``)."""
+        from spark_gp_tpu_torch.utils.serialization import save_model
+
+        save_model(path, self, kind="ep_classification")
+
+    @staticmethod
+    def load(path: str, device=None) -> "GaussianProcessEPClassificationModel":
+        """An EP model saved by either package, predicting on ``device``
+        (``None`` means ``cuda``)."""
+        from spark_gp_tpu_torch.utils.serialization import load_as
+
+        return load_as(path, GaussianProcessEPClassificationModel, device)

@@ -113,6 +113,8 @@ class GaussianProcessRegression(GaussianProcessCommons):
                         active = self._select_active(kernel, kernel.init_theta(), x_r, y_r,
                                                      device)
                     extra = (active, self._sigma2)
+                    # checkpoint tags carry the bound's surface
+                    self._objective_salt = self._elbo_checkpoint_salt(extra)
                 vag = make_value_and_grad(kernel, data_r, cache, self._objective, extra)
                 with self._optimize_phase(instr, data_r):
                     res, restart_metrics = self._optimize_with_restarts(kernel, vag)
@@ -161,6 +163,18 @@ class GaussianProcessRegression(GaussianProcessCommons):
                 "nonzero white noise (the Seeger scores divide by it); "
                 "set a nonzero sigma2, or use the random/k-means provider"
             )
+
+    @staticmethod
+    def _elbo_checkpoint_salt(extra) -> str:
+        """Digest of the ELBO's objective surface (the inducing set and
+        sigma2): two ELBO fits over different surfaces sharing a checkpoint
+        directory neither resume from nor overwrite each other."""
+        import hashlib
+
+        h = hashlib.sha1()
+        for e in extra:
+            h.update(np.asarray(e, dtype=np.float64).tobytes())
+        return h.hexdigest()[:10]
 
     def loo(self, x, y, model: "Optional[GaussianProcessRegressionModel]" = None) -> dict:
         """Exact per-expert leave-one-out diagnostics (``models/loo.py``)
@@ -251,3 +265,19 @@ class GaussianProcessRegressionModel:
         (``ProjectedProcessRawPredictor.with_additional_data``); this
         model is left as it is."""
         return GaussianProcessRegressionModel(self.raw_predictor.with_additional_data(x_new, y_new))
+
+    def save(self, path: str) -> None:
+        """Write the model in the JAX package's ``.npz`` format, with its
+        sha256 sidecar (``utils/serialization.py``); ``u1`` / ``u2`` go
+        with it, so a loaded model still ``update``s."""
+        from spark_gp_tpu_torch.utils.serialization import save_model
+
+        save_model(path, self, kind="regression")
+
+    @staticmethod
+    def load(path: str, device=None) -> "GaussianProcessRegressionModel":
+        """A model saved by either package, predicting on ``device``
+        (``None`` means ``cuda``)."""
+        from spark_gp_tpu_torch.utils.serialization import load_as
+
+        return load_as(path, GaussianProcessRegressionModel, device)

@@ -12,8 +12,9 @@ the predictor (R&W ch. 8.3.4).
   in host float64 numpy/scipy (Cholesky factors are the PD check, under
   the jitter ladder of ``ops/linalg.py``).
 * Predict -- ``mean = k(x, A) magicVector`` (``[t]`` or ``[t, C]``) and
-  ``var = k(x, x) + k(x, A) magicMatrix k(x, A)^T``, in the working dtype,
-  in chunks that cap the ``[t, m]`` cross kernel; the joint covariance
+  ``var = k(x, x) + k(x, A) magicMatrix k(x, A)^T``, the cross kernel and
+  its contractions in float64, returned in the working dtype, in chunks
+  that cap the ``[t, m]`` cross kernel; the joint covariance
   ``K(x, x) + k(x, A) magicMatrix k(x, A)^T`` (``predict_with_cov``).
 * Update -- the statistics are sums over points, so new rows fold in as
   ``U1 += C C^T``, ``u2 += C y`` with ``C = K(A, x_new)``, then one magic
@@ -174,20 +175,27 @@ class ProjectedProcessRawPredictor:
 
     def predict_with_cov(self, x_test):
         """``(mean [t], cov [t, t])``: the joint predictive covariance
-        ``K(x, x) + k(x, A) magicMatrix k(x, A)^T``, symmetrized; its
-        diagonal is ``predict``'s variance up to rounding.  Not chunked:
-        the result is ``O(t^2)``."""
+        ``K(x, x) + k(x, A) magicMatrix k(x, A)^T``, symmetrized, with the
+        cross kernel and its contractions in float64 as in the predict
+        (:meth:`_predict_block`); its diagonal is ``predict``'s variance up
+        to rounding.  Not chunked: the result is ``O(t^2)``."""
         if self.magic_matrix is None:
             raise ValueError(
                 "model was fitted with setPredictiveVariance(False); "
                 "no covariance operator is available"
             )
         x_test, put = self._inputs(x_test)
-        theta, active = put(self.theta), put(self.active)
+        theta = put(self.theta)
+        f64 = torch.float64
+
+        def put64(a):
+            return torch.as_tensor(np.asarray(a), dtype=f64, device=x_test.device)
+
         with torch.no_grad():
-            cross = self.kernel.cross(theta, x_test, active)  # [t, m]
-            mean = cross @ put(self.magic_vector)
-            cov = self.kernel.gram(theta, x_test) + cross @ put(self.magic_matrix) @ cross.T
+            cross = self.kernel.cross(put64(self.theta), x_test.to(f64), put64(self.active))
+            mean = (cross @ put64(self.magic_vector)).to(x_test.dtype)
+            quad = (cross @ put64(self.magic_matrix) @ cross.T).to(x_test.dtype)
+            cov = self.kernel.gram(theta, x_test) + quad
         return mean, 0.5 * (cov + cov.T)
 
     def predict_mean(self, x_test) -> torch.Tensor:
@@ -241,7 +249,7 @@ class ProjectedProcessRawPredictor:
             return (x_test.new_zeros((0,) + mv.shape[1:]),
                     None if mm is None else x_test.new_zeros((0,)))
         m, p = max(1, active.shape[0]), active.shape[1]
-        itemsize = x_test.element_size()
+        itemsize = 8  # the cross kernel and its contractions are float64
         # clamped to the request, so the ladder's halvings walk down from
         # the size that actually ran
         chunk = max(1, min(self._PREDICT_CHUNK_ELEMS // m, t))
@@ -260,19 +268,22 @@ class ProjectedProcessRawPredictor:
         )
 
     def _predict_block(self, theta, active, mv, mm, part):
-        """``(mean, var)`` of one chunk: the cross kernel in the working
-        dtype, its contractions with the magic vector and matrix in float64
-        (``mv``, ``mm`` are float64).  Both sums cancel heavily (the magic
-        vector's entries are ~1e3 times the mean at small sigma2), and a
-        float32 sum's rounding depends on the reduction order the library
-        picks for the chunk's shape: accumulated in float64, a row's
-        prediction does not depend on the chunk it was computed in."""
-        cross = self.kernel.cross(theta, part, active)  # [c, m]
-        c64 = cross.to(torch.float64)
-        mean = (c64 @ mv).to(part.dtype)
+        """``(mean, var)`` of one chunk, returned in ``part``'s dtype: the
+        cross kernel and its contractions with the magic vector and matrix
+        in float64 (``mv``, ``mm`` are float64; ``theta``, ``active`` and
+        ``part`` are upcast).  Both sums cancel heavily, so a row's
+        prediction carries the cross kernel's rounding amplified; in
+        float32 that rounding depends on the matrix-product kernel the
+        library picks for the chunk's row count (on the card, bucket rows
+        against a 4000-row chunk moved the airfoil mean by 7.0e-5 of its
+        largest value).  In float64 a row's prediction does not depend on
+        the chunk it was computed in."""
+        f64 = torch.float64
+        cross = self.kernel.cross(theta.to(f64), part.to(f64), active.to(f64))  # [c, m]
+        mean = (cross @ mv).to(part.dtype)
         if mm is None:
             return mean, None
-        quad = torch.einsum("tm,mk,tk->t", c64, mm, c64).to(part.dtype)
+        quad = torch.einsum("tm,mk,tk->t", cross, mm, cross).to(part.dtype)
         return mean, self.kernel.self_diag(theta, part) + quad
 
     def _run_at_chunk(self, x_test, theta, active, mv, mm, chunk: int, dispatch_bytes):

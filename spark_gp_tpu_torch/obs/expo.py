@@ -1,12 +1,13 @@
-"""OpenMetrics text exposition of a fit's metric state (the port's copy
-of the JAX package's ``obs/expo.py``, fit half).
+"""OpenMetrics text exposition of the port's metric state (the port's
+copy of the JAX package's ``obs/expo.py``).
 
 Renders an :class:`~spark_gp_tpu_torch.utils.instrumentation.Instrumentation`
-(phase timings + fit metrics), plus the :mod:`spark_gp_tpu_torch.obs.runtime`
-telemetry (kernel builds and launches, memory gauges, ladder and plan
-counters), as one OpenMetrics 1.0 page.  The serving metrics' half (their
-latency histograms and the scrape listener) waits for the port's serve
-layer.
+(phase timings + fit metrics) or a
+:class:`~spark_gp_tpu_torch.serve.metrics.ServingMetrics` (counters,
+gauges and latency histograms), plus the
+:mod:`spark_gp_tpu_torch.obs.runtime` telemetry (kernel builds and
+launches, memory gauges, ladder and plan counters), as one OpenMetrics
+1.0 page; :class:`ScrapeListener` serves it on a localhost socket.
 
 Mapping rules, the JAX package's:
 
@@ -16,6 +17,9 @@ Mapping rules, the JAX package's:
 * catalog patterns with a ``label`` collapse into ONE family with that
   label (``kernel.launches.spd_inv_logdet`` ->
   ``gp_kernel_launches_total{kernel="spd_inv_logdet"}``);
+* a ``LatencyHistogram`` renders its lifetime-cumulative bucket counters
+  (``_bucket`` / ``_count`` / ``_sum``, monotonic as Prometheus needs);
+  its recency window feeds only the p50 / p99 JSON snapshots;
 * fit metrics render as the single labeled family
   ``gp_fit_metric{key="..."}`` (strings as
   ``gp_fit_info{key=...,value=...} 1``).
@@ -27,6 +31,8 @@ from __future__ import annotations
 
 import contextlib
 import math
+import socket
+import threading
 from typing import Dict, List, Optional, Tuple
 
 from spark_gp_tpu_torch.obs import names as _names
@@ -113,10 +119,25 @@ class _Page:
         return "\n".join(lines) + "\n"
 
 
+def _add_histogram(page: _Page, key: str, hist) -> None:
+    # the lifetime-cumulative counters, not the recency window
+    family, unit, labels = _family_for(key)
+    bounds, counts, count, total = hist.cumulative()
+    help_text = _help_for(key, "latency histogram")
+    for le, cum in zip(bounds, counts):
+        page.add(family, "histogram", help_text, unit, "_bucket",
+                 {**labels, "le": _fmt(le)}, cum)
+    page.add(family, "histogram", help_text, unit, "_bucket",
+             {**labels, "le": "+Inf"}, count)
+    page.add(family, "histogram", help_text, unit, "_count", dict(labels), count)
+    page.add(family, "histogram", help_text, unit, "_sum", dict(labels), total)
+
+
 def render_openmetrics(metrics, runtime_snapshot: Optional[dict] = None) -> str:
-    """One OpenMetrics page for an ``Instrumentation`` (or any object with
-    ``counters`` / ``gauges`` / ``timings`` / ``metrics`` dicts), with the
-    runtime telemetry snapshot merged in when given."""
+    """One OpenMetrics page for an ``Instrumentation`` or a
+    ``ServingMetrics`` (any object with ``counters`` / ``gauges`` /
+    ``histograms`` / ``timings`` / ``metrics``), with the runtime telemetry
+    snapshot merged in when given."""
     page = _Page()
 
     # build/runtime identity on every page (OpenMetrics info type: family
@@ -136,6 +157,7 @@ def render_openmetrics(metrics, runtime_snapshot: Optional[dict] = None) -> str:
     with instance_lock if instance_lock is not None else contextlib.nullcontext():
         counters = dict(getattr(metrics, "counters", {}) or {})
         gauges = dict(getattr(metrics, "gauges", {}) or {})
+        histograms = dict(getattr(metrics, "histograms", {}) or {})
         timings = dict(getattr(metrics, "timings", {}) or {})
         fit_metrics = dict(getattr(metrics, "metrics", {}) or {})
 
@@ -147,6 +169,8 @@ def render_openmetrics(metrics, runtime_snapshot: Optional[dict] = None) -> str:
         family, unit, labels = _family_for(key)
         page.add(family, "gauge", _help_for(key, "gauge"), unit,
                  "", labels, value)
+    for key, hist in sorted(histograms.items()):
+        _add_histogram(page, key, hist)  # hist.cumulative() takes its own lock
 
     for key, value in sorted(timings.items()):
         page.add(
@@ -191,3 +215,55 @@ def render_openmetrics(metrics, runtime_snapshot: Optional[dict] = None) -> str:
                      unit, "", labels, value)
 
     return page.render()
+
+
+class ScrapeListener:
+    """A plain-text scrape endpoint for the page on ``host:port`` (0 picks
+    a free port, read back from :attr:`port`): any request gets an
+    HTTP/1.0 200 with the freshly rendered page, enough for ``curl`` and
+    a Prometheus target.  Bound to localhost by default: a metrics page
+    tells much about the process."""
+
+    def __init__(self, render, port: int = 0, host: str = "127.0.0.1"):
+        self._render = render  # zero-argument callable -> page text
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(8)
+        self._sock.settimeout(0.5)
+        self.port = self._sock.getsockname()[1]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="gp-metrics-scrape", daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            with conn:
+                try:
+                    conn.settimeout(2.0)
+                    conn.recv(4096)  # the request itself is ignored
+                    try:
+                        body, status = self._render(), "200 OK"
+                    except Exception as exc:  # noqa: BLE001 -- the listener survives
+                        body = f"# render failed: {type(exc).__name__}\n"
+                        status = "500 Internal Server Error"
+                    payload = body.encode("utf-8")
+                    head = (f"HTTP/1.0 {status}\r\nContent-Type: {CONTENT_TYPE}\r\n"
+                            f"Content-Length: {len(payload)}\r\nConnection: close\r\n\r\n")
+                    conn.sendall(head.encode("ascii") + payload)
+                except OSError:
+                    pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        self._thread.join(timeout=5.0)

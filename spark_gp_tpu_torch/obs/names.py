@@ -37,8 +37,8 @@ class MetricName:
     """One registered key (or ``*`` pattern) and how to expose it."""
 
     key: str
-    #: counter | gauge | metric (fit scalar) | phase (timing) | event
-    #: (span/recorder event name) | info (label-only identity)
+    #: counter | gauge | histogram | metric (fit scalar) | phase (timing)
+    #: | event (span/recorder event name) | info (label-only identity)
     kind: str
     help: str
     #: for patterns: the exposition label the wildcard part becomes
@@ -84,6 +84,57 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("agg.selection_dropped", "metric", "experts masked out by fit-time redundancy selection"),
     MetricName("agg.renorm", "metric", "E_active / sum(w) weighted renormalization factor (quarantine.renorm_factor generalized)"),
     MetricName("*.failed", "metric", "a phase of this name raised", label="phase"),
+    MetricName("resumed_from_iteration", "metric", "checkpoint resume point (utils/checkpoint.py)"),
+    # -- serve counters (serve/metrics.ServingMetrics.inc) -----------------
+    MetricName("requests", "counter", "predict requests admitted at submit"),
+    MetricName("requests_rows", "counter", "input rows across admitted requests"),
+    MetricName("batches", "counter", "micro-batches dispatched"),
+    MetricName("padded_rows", "counter", "bucket-padding rows dispatched beyond request rows"),
+    MetricName("timeouts", "counter", "requests shed for any deadline reason (aggregate)"),
+    MetricName("shed", "counter", "submits rejected at the door (aggregate)"),
+    MetricName("queue.shed.deadline", "counter", "requests whose deadline expired while queued"),
+    MetricName("queue.shed.backpressure", "counter", "submits rejected on a full queue"),
+    MetricName("queue.shed.draining", "counter", "submits rejected while the server drains for shutdown"),
+    MetricName("queue.shed.memory", "counter", "low-priority submits shed by the memory admission gate"),
+    MetricName("queue.poisoned", "counter", "requests isolated as poisoned after a batch failure"),
+    MetricName("shed.breaker", "counter", "submits rejected while a model's breaker was open"),
+    MetricName("shed.poison", "counter", "submits rejected for non-finite payloads"),
+    MetricName("predict.failures", "counter", "raising bucketed predicts"),
+    MetricName("breaker.trips", "counter", "circuit-breaker open transitions"),
+    MetricName("compiles", "counter", "bucket builds paid at registry warmup (a CUDA graph capture on the card, the first eager run on the CPU)"),
+    MetricName("models_loaded", "counter", "registry loads"),
+    MetricName("models_reloaded", "counter", "registry hot-swap reloads"),
+    MetricName("registry.evictions", "counter", "retired model versions unloaded (graphs and pool freed)"),
+    MetricName("exec.hung", "counter", "dispatches failed by the hang watchdog"),
+    # -- serve lifecycle (serve/lifecycle.py) ------------------------------
+    MetricName("lifecycle.drains", "counter", "drain sequences begun (SIGTERM/SIGINT or explicit)"),
+    MetricName("lifecycle.watchdog_trips", "counter", "hang-watchdog verdicts fired"),
+    MetricName("lifecycle.draining", "gauge", "1 while the server is draining"),
+    MetricName("lifecycle.memory_pressure", "gauge", "1 while the memory admission gate is shedding"),
+    MetricName("lifecycle.drain_s", "histogram", "seconds from drain begin to stopped"),
+    MetricName("canary.starts", "counter", "canary rollouts begun"),
+    MetricName("canary.routed", "counter", "default-traffic requests routed to a canary candidate"),
+    MetricName("canary.shadow_scores", "counter", "candidate answers shadow-scored against the incumbent"),
+    MetricName("canary.breaches", "counter", "shadow scores past the guard bar"),
+    MetricName("canary.errors", "counter", "raising candidate dispatches during a canary"),
+    MetricName("canary.promotions", "counter", "canaries auto-promoted to latest"),
+    MetricName("canary.rollbacks", "counter", "canaries auto-rolled-back and quarantined"),
+    MetricName("canary.active.*", "gauge", "1 while the model has an active canary", label="model"),
+    # -- serve gauges and histograms ---------------------------------------
+    MetricName("queue_depth", "gauge", "requests currently queued"),
+    MetricName("breaker.open.*", "gauge", "1 while the model's breaker is open", label="model"),
+    MetricName("batch_rows", "histogram", "rows per dispatched micro-batch"),
+    MetricName("batch_requests", "histogram", "requests coalesced per micro-batch"),
+    MetricName("batch_occupancy", "histogram", "request rows / padded bucket rows"),
+    MetricName("batch_predict_s", "histogram", "device predict seconds per batch"),
+    MetricName("request_latency_s", "histogram", "submit-to-answer seconds per request"),
+    MetricName("load.*", "phase", "registry model load", label="model"),
+    MetricName("warmup.*", "phase", "registry bucket warmup (graph captures)", label="model"),
+    MetricName("compile.bucket_traces", "counter", "serve bucket builds (a CUDA graph capture on the card, the first eager run on the CPU)"),
+    MetricName("compile.recompile_guard_trips", "counter", "builds caught on a frozen serve surface"),
+    MetricName("plan.shed", "counter", "serve submits shed on predicted-per-request bytes vs headroom"),
+    MetricName("integrity.artifact_verified", "counter", "model artifacts whose sha256 sidecar verified on load"),
+    MetricName("integrity.artifact_corrupt", "counter", "model artifacts refused on sidecar digest mismatch"),
     # -- memory planning (resilience/memplan.py) ---------------------------
     MetricName("plan.hit", "counter", "plan decisions whose chosen configuration was predicted-safe"),
     MetricName("plan.miss", "counter", "reactive recovery engaged despite (or no config fit) a plan decision"),
@@ -121,7 +172,26 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("plan.decision", "event", "memory-plan admission decision (chosen config, predicted bytes, budget)"),
     MetricName("kernel.build", "event", "nvcc build of a kernel source on the current span"),
     MetricName("incident.bundle", "event", "incident bundle dumped"),
+    MetricName("breaker.open", "event", "circuit breaker opened"),
+    MetricName("breaker.close", "event", "circuit breaker closed"),
+    MetricName("breaker.reject", "event", "dispatch rejected by an open breaker"),
+    MetricName("queue.isolation", "event", "poisoned batch re-executed singly"),
+    MetricName("canary.start", "event", "canary rollout begun"),
+    MetricName("canary.rollback", "event", "canary rolled back and quarantined"),
+    MetricName("canary.promote", "event", "canary promoted to latest"),
+    MetricName("lifecycle.drain_begin", "event", "graceful drain begun"),
+    MetricName("lifecycle.drain_end", "event", "graceful drain finished"),
+    MetricName("metric.*", "event", "watchlisted serve-metric increment relayed to the flight recorder", label="key"),
 )
+
+#: default cumulative-bucket upper bounds by key shape: a histogram picks
+#: its ladder at creation, so its bucket counters stay monotonic
+LATENCY_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+SIZE_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0, 1024.0)
+RATIO_BUCKETS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 
 _EXACT = {spec.key: spec for spec in CATALOG if "*" not in spec.key}
 _PATTERNS = tuple(spec for spec in CATALOG if "*" in spec.key)
@@ -137,6 +207,15 @@ def lookup(key: str) -> Optional[MetricName]:
         if fnmatch.fnmatchcase(key, spec.key):
             return spec
     return None
+
+
+def buckets_for(key: str) -> Tuple[float, ...]:
+    """Bucket upper bounds of a histogram key, picked by the key's shape."""
+    if key.endswith("_s"):
+        return LATENCY_BUCKETS
+    if "occupancy" in key or "ratio" in key:
+        return RATIO_BUCKETS
+    return SIZE_BUCKETS
 
 
 def is_registered(key_or_pattern: str) -> bool:

@@ -45,6 +45,13 @@ BUNDLE_REQUIRED_KEYS = (
     "build_info", "chaos", "recorder",
 )
 
+#: serving-metric keys whose increments the recorder keeps (the JAX
+#: package's watchlist less its quality-plane keys)
+METRIC_WATCH_PREFIXES = (
+    "shed", "queue.shed", "queue.poisoned", "timeouts", "breaker.trips",
+    "exec.hung", "predict.failures", "lifecycle.", "canary.", "registry.evictions",
+)
+
 _seq = itertools.count(1)  # CPython-atomic, like trace._ids
 
 _forced: Optional[bool] = None
@@ -92,6 +99,14 @@ class FlightRecorder:
             if len(self._buf) == self._buf.maxlen:
                 self.dropped += 1
             self._buf.append(event)
+
+    def note_metric(self, key: str, value: float) -> None:
+        """Relay a serving-metric increment (``ServingMetrics.inc``) into
+        the ring when its key is on the admission / failure watchlist;
+        the request and batch counters stay out (they would evict the
+        events that matter)."""
+        if recording_enabled() and key.startswith(METRIC_WATCH_PREFIXES):
+            self.record(f"metric.{key}", value=float(value))
 
     def snapshot(self, last: Optional[int] = None) -> List[dict]:
         with self._lock:

@@ -8,7 +8,7 @@ float and a float64 numpy gradient -- one device sync per evaluation.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import scipy.optimize
@@ -24,6 +24,8 @@ class OptimizeResult:
     nfev: int
     success: bool
     message: str
+    #: the checkpointed iteration a resumed fit started from (0: a fresh fit)
+    resumed_from_iteration: int = 0
 
 
 def log_space_applicable(theta0, lower) -> bool:
@@ -39,6 +41,7 @@ def minimize_lbfgsb(
     upper: np.ndarray,
     max_iter: int = 100,
     tol: float = 1e-6,
+    callback: Optional[Callable] = None,
     log_space: bool = False,
 ) -> OptimizeResult:
     """Minimize ``value_and_grad`` subject to ``lower <= theta <= upper``.
@@ -49,7 +52,8 @@ def minimize_lbfgsb(
     A non-finite value at the first evaluation raises
     :class:`NotPositiveDefiniteException`; a later one (a non-PD trial
     point of a line search) returns a large finite value with a zero
-    gradient so the search backtracks.
+    gradient so the search backtracks.  ``callback(theta)`` runs after
+    each iteration with the linear-domain iterate (the checkpointer).
     """
     theta0 = np.asarray(theta0, dtype=np.float64)
 
@@ -69,9 +73,10 @@ def minimize_lbfgsb(
             value, grad = inner(theta)
             return value, np.asarray(grad, dtype=np.float64) * theta
 
+        callback_u = None if callback is None else (lambda u: callback(np.exp(u)))
         res = minimize_lbfgsb(
             value_and_grad_u, u0, lo_u, hi_u,
-            max_iter=max_iter, tol=tol, log_space=False,
+            max_iter=max_iter, tol=tol, callback=callback_u, log_space=False,
         )
         res.theta = np.exp(res.theta)
         return res
@@ -102,6 +107,7 @@ def minimize_lbfgsb(
         jac=True,
         method="L-BFGS-B",
         bounds=bounds,
+        callback=callback,
         options={"maxiter": max_iter, "ftol": tol, "gtol": tol},
     )
     return OptimizeResult(

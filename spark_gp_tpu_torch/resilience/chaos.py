@@ -25,14 +25,24 @@ ordinary deterministic tests:
   and a choke point whose modeled byte cost exceeds it raises the OOM.
   Env channel: ``GP_CHAOS_MEMORY_LIMIT_BYTES``.
 
-The serve, mesh and checkpoint faults wait for the port's serve layer,
-mesh and checkpoints (ROADMAP.md queue 1, items 10, 6 and 7).
+* :class:`PreemptingCheckpointer` / :func:`preempt_after_saves` -- a
+  deterministic preemption right after the k-th checkpoint save
+  (:class:`SimulatedPreemption`): the atomic save leaves the complete
+  k-th state on disk, and a refit resumes from it;
+* :class:`FlakyPredictor` / :func:`break_model` -- a serving predict that
+  fails or stalls on schedule (circuit breaker, poisoned-batch isolation);
+* :class:`HangingPredictor` / :func:`hang_model` -- a serving predict that
+  blocks until released (the wedged device the hang watchdog is for).
+
+The mesh faults wait for the port's mesh (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -251,3 +261,154 @@ def failing_compile(times: int = 1, op: Optional[str] = None):
         yield fired
     finally:
         _state.update(prev)
+
+
+# --- preemption (checkpoint/resume) --------------------------------------
+
+
+class SimulatedPreemption(BaseException):
+    """In-process preemption marker (a ``BaseException``: ``except
+    Exception`` recovery code must not swallow a kill).  Raised out of a
+    fit, it carries ``nfev``, the objective evaluations the fit ran."""
+
+
+class PreemptingCheckpointer:
+    """The host optimizer's checkpoint callback
+    (``utils/checkpoint.LbfgsCheckpointer``), killed right after its k-th
+    save by :class:`SimulatedPreemption`.  The wrapped write is atomic, so
+    the file on disk is the complete k-th state and a refit resumes from
+    it."""
+
+    def __init__(self, inner, kill_after_saves: int) -> None:
+        if kill_after_saves < 1:
+            raise ValueError("kill_after_saves must be >= 1")
+        self.inner = inner
+        self.kill_after_saves = int(kill_after_saves)
+        self.saves = 0
+
+    def __call__(self, theta) -> None:
+        self.inner(theta)
+        self.saves += 1
+        if self.saves >= self.kill_after_saves:
+            raise SimulatedPreemption(f"preempted after checkpoint save #{self.saves}")
+
+    def record(self, theta, value, grad) -> None:
+        self.inner.record(theta, value, grad)
+
+    @property
+    def iteration(self):
+        return self.inner.iteration
+
+    @iteration.setter
+    def iteration(self, value) -> None:
+        self.inner.iteration = value
+
+
+_preempt = {"after": None, "last": None}
+
+
+@contextlib.contextmanager
+def preempt_after_saves(k: int):
+    """Stage a preemption: every checkpointer a fit makes inside the block
+    (``setCheckpointDir``) is wrapped in a :class:`PreemptingCheckpointer`
+    that kills after ``k`` saves.  Yields a one-element list holding the
+    last wrapper made."""
+    prev = dict(_preempt)
+    made = [None]
+    _preempt.update(after=int(k), last=made)
+    try:
+        yield made
+    finally:
+        _preempt.update(prev)
+
+
+def maybe_preempting(checkpointer):
+    """``checkpointer`` behind the staged preemption, if one is staged."""
+    if _preempt["after"] is None:
+        return checkpointer
+    wrapped = PreemptingCheckpointer(checkpointer, _preempt["after"])
+    _preempt["last"][0] = wrapped
+    return wrapped
+
+
+# --- serving faults -------------------------------------------------------
+
+
+class FlakyPredictor:
+    """A serving predict that fails or stalls on a deterministic schedule,
+    standing in for ``serve/batcher.BucketedPredictor`` (everything else
+    delegates to the wrapped predictor): the first ``fail_first`` predicts
+    raise ``exc_type``, every one with ``fail_forever``; ``latency_s``
+    sleeps before answering."""
+
+    def __init__(self, inner, fail_first: int = 0, fail_forever: bool = False,
+                 latency_s: float = 0.0, exc_type: type = RuntimeError) -> None:
+        self._inner = inner
+        self.fail_first = int(fail_first)
+        self.fail_forever = bool(fail_forever)
+        self.latency_s = float(latency_s)
+        self.exc_type = exc_type
+        self.calls = 0
+
+    def predict(self, x, *args, **kwargs):
+        self.calls += 1
+        if self.latency_s:
+            time.sleep(self.latency_s)
+        if self.fail_forever or self.calls <= self.fail_first:
+            raise self.exc_type(f"chaos: injected predict failure (call {self.calls})")
+        return self._inner.predict(x, *args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class HangingPredictor:
+    """A serving predict that blocks: the first ``hang_first`` predicts
+    (every one with ``hang_forever``) wait on an event until
+    :meth:`release`, so a test trips the hang watchdog and then unwinds
+    the wedged thread; ``max_block_s`` bounds a forgotten release."""
+
+    def __init__(self, inner, hang_first: int = 0, hang_forever: bool = False,
+                 max_block_s: float = 60.0) -> None:
+        self._inner = inner
+        self.hang_first = int(hang_first)
+        self.hang_forever = bool(hang_forever)
+        self.max_block_s = float(max_block_s)
+        self._release = threading.Event()
+        #: set when a predict starts to hang (a test waits on it)
+        self.entered = threading.Event()
+        self.calls = 0
+        self.hung = 0
+
+    def predict(self, x, *args, **kwargs):
+        self.calls += 1
+        if self.hang_forever or self.calls <= self.hang_first:
+            self.hung += 1
+            self.entered.set()
+            self._release.wait(self.max_block_s)
+        return self._inner.predict(x, *args, **kwargs)
+
+    def release(self) -> None:
+        """Unblock every parked (and every later would-hang) predict."""
+        self._release.set()
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def hang_model(server, name: str, version: Optional[int] = None, **hang_kw):
+    """Swap a registered model's predictor for a :class:`HangingPredictor`;
+    returns it (call ``release()`` in teardown)."""
+    entry = server.registry.get(name, version)
+    hanging = HangingPredictor(entry.predictor, **hang_kw)
+    entry.predictor = hanging
+    return hanging
+
+
+def break_model(server, name: str, version: Optional[int] = None, **flaky_kw):
+    """Swap a registered model's predictor for a :class:`FlakyPredictor`;
+    returns it (its ``calls`` count is the evidence the fault fired)."""
+    entry = server.registry.get(name, version)
+    flaky = FlakyPredictor(entry.predictor, **flaky_kw)
+    entry.predictor = flaky
+    return flaky

@@ -19,7 +19,9 @@ programs against the device budget:
 * **decision** -- :func:`plan_dispatch`: candidates preferred-first, the
   first predicted-safe one wins.  Consumers: ``ops/iterative.resolve_solver``
   (the budget-aware ``auto`` lane), the PPA predict chunk
-  (:func:`plan_predict_chunk`); :func:`plan_fit_dispatch` plans only
+  (:func:`plan_predict_chunk`), the serve admission gate
+  (:func:`predict_request_bytes` against :func:`memory_in_use_bytes`);
+  :func:`plan_fit_dispatch` plans only
   the on-device optimizer, so it is None on the host optimizer, the
   port's only one.  The reactive ladder
   (``resilience/fallback.py``) stays the backstop: an OOM despite a plan
@@ -350,3 +352,46 @@ def plan_predict_chunk(chunk: int, m: int, n_features: int, itemsize: int,
         return None
     planned = int(decision.chosen) if decision.fits else 1
     return max(1, min(chunk, planned))
+
+
+def predict_request_bytes(predictor, rows: int) -> Optional[float]:
+    """Margined predicted bytes of one serve request of ``rows`` against a
+    ``serve/batcher.BucketedPredictor``, sized at the padded bucket shape
+    (the dispatch that will run): the cost the admission gate compares
+    with the remaining headroom.  None when planning is off or the
+    predictor does not expose its shape."""
+    if not enabled():
+        return None
+    try:
+        padded = int(predictor.padded_rows(int(rows)))
+        m = int(predictor.active_rows)
+        p = int(predictor.n_features)
+        itemsize = 8  # the predict block's cross kernel is float64
+        mean_only = bool(predictor.mean_only)
+    except Exception:  # noqa: BLE001 -- no shape, no prediction: the gate
+        # keeps its watermark hysteresis
+        return None
+    return predicted_bytes(predict_dispatch_bytes(padded, m, p, itemsize, mean_only))
+
+
+def memory_in_use_bytes() -> Optional[float]:
+    """Bytes in use now, the serve admission gate's usage read: the
+    caching allocator's ``memory_allocated`` where this process holds a
+    CUDA context, else the current host RSS (``/proc/self/statm``), else
+    the host's peak RSS as the last resort."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        return float(torch.cuda.memory_allocated())
+    try:
+        with open("/proc/self/statm", encoding="ascii") as fh:
+            rss_pages = int(fh.read().split()[1])
+        return float(rss_pages * os.sysconf("SC_PAGE_SIZE"))
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        import resource
+
+        return float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+    except (ImportError, OSError):
+        return None

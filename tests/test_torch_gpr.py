@@ -11,6 +11,7 @@ import spark_gp_tpu_torch as tgp
 from spark_gp_tpu.models import aggregation as j_agg
 from spark_gp_tpu_torch.models import aggregation as t_agg
 from spark_gp_tpu_torch.models.poe import make_poe_predictor
+from spark_gp_tpu_torch.serve import GPServeServer
 
 P = 3
 
@@ -101,14 +102,16 @@ def test_non_finite_rows_raise():
         # restarts are ported for regression only
         lambda gp: tgp.GaussianProcessClassifier(device="cpu").setNumRestarts(3),
         lambda gp: gp.setMesh(object()),
-        lambda gp: gp.setCheckpointDir("ckpt"),
+        # (checkpoints and model I/O are ported: test_torch_checkpoint.py,
+        # test_torch_serialization.py; the serve quality plane is not)
+        lambda gp: GPServeServer(device="cpu", quality=True),
         lambda gp: tgp.GaussianProcessMulticlassClassifier(device="cpu").setNumRestarts(2),
         # the batched device multi-start waits for the device optimizer
         lambda gp: gp.setObjective("elbo").setNumRestarts(2).setOptimizer("device"),
         # the JAX package's remaining setters and model I/O, each naming
         # its item (setProfileDir is ported: test_torch_obs.py)
-        lambda gp: tgp.GaussianProcessClassificationModel(None).save("model"),
-        lambda gp: gp.setCheckpointInterval(5),
+        lambda gp: GPServeServer(device="cpu").observe("m", "request", [0.0]),
+        lambda gp: tgp.GaussianProcessEPClassifier(device="cpu").setNumRestarts(2),
         # (quarantine, retries and the aggregation policies are ported:
         # test_resilience_setters_match_jax)
         lambda gp: gp.setPrecisionLane("fast"),

@@ -2,6 +2,7 @@
 package, and its entry points refuse to run on the CPU unless asked."""
 
 import _torch_env  # noqa: F401  (one PyTorch thread per test process)
+import json
 import os
 import re
 import shutil
@@ -52,6 +53,12 @@ def test_import_pulls_in_no_jax():
         "import spark_gp_tpu_torch.utils.instrumentation\n"
         "import spark_gp_tpu_torch.resilience.chaos, spark_gp_tpu_torch.resilience.memplan\n"
         "import spark_gp_tpu_torch.resilience.fallback\n"
+        "import spark_gp_tpu_torch.resilience.breaker, spark_gp_tpu_torch.resilience.integrity\n"
+        "import spark_gp_tpu_torch.utils.serialization, spark_gp_tpu_torch.utils.checkpoint\n"
+        "import spark_gp_tpu_torch.serve, spark_gp_tpu_torch.serve.__main__\n"
+        "import spark_gp_tpu_torch.serve.codes, spark_gp_tpu_torch.serve.queue\n"
+        "import spark_gp_tpu_torch.serve.batcher, spark_gp_tpu_torch.serve.registry\n"
+        "import spark_gp_tpu_torch.serve.lifecycle, spark_gp_tpu_torch.serve.server\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m == 'spark_gp_tpu' or m.startswith('spark_gp_tpu.')]\n"
         "print(bad)\n"
@@ -129,3 +136,56 @@ def test_chip_smoke_fails_without_the_package(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_loading_a_jax_file_imports_no_jax(tmp_path):
+    """A model the JAX package saved loads through the port in a process
+    that never imports JAX or the JAX package (the restricted unpickler
+    maps the reference's kernel classes onto the port's)."""
+    import spark_gp_tpu as jgp
+    from spark_gp_tpu.models.gpr import GaussianProcessRegressionModel
+    from spark_gp_tpu.models.ppa import ProjectedProcessRawPredictor
+
+    rng = np.random.default_rng(0)
+    kernel = 1.0 * jgp.ARDRBFKernel(2, 0.7) + jgp.Const(1e-3) * jgp.EyeKernel()
+    raw = ProjectedProcessRawPredictor(
+        kernel=kernel, theta=kernel.init_theta(), active=rng.normal(size=(6, 2)),
+        magic_vector=rng.normal(size=6), magic_matrix=-np.eye(6) * 0.1)
+    GaussianProcessRegressionModel(raw).save(str(tmp_path / "jax.npz"))
+    expected = np.asarray(raw.predict_mean(np.ones((1, 2))))[0]
+    code = (
+        "import sys, numpy as np\n"
+        "from spark_gp_tpu_torch.models.gpr import GaussianProcessRegressionModel as M\n"
+        f"m = M.load({str(tmp_path / 'jax.npz')!r}, device='cpu')\n"
+        "print(repr(float(m.predict(np.ones((1, 2)))[0])))\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'spark_gp_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert abs(float(proc.stdout.splitlines()[0]) - expected) <= 1e-12 * abs(expected)
+
+
+def test_model_load_server_and_cli_default_to_cuda(tmp_path, monkeypatch, capsys):
+    from spark_gp_tpu_torch.serve import GPServeServer
+    from spark_gp_tpu_torch.serve import __main__ as cli
+
+    x = np.random.default_rng(1).normal(size=(40, 2))
+    tgp.GaussianProcessRegression(device="cpu").setDatasetSizeForExpert(10) \
+        .setActiveSetSize(5).setMaxIter(2).fit(x, x.sum(1)).save(str(tmp_path / "m.npz"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgp.GaussianProcessRegressionModel.load(str(tmp_path / "m.npz"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPServeServer()
+    assert GPServeServer(device="cpu").device.type == "cpu"
+    assert cli.main(["--model", f"m={tmp_path / 'm.npz'}"]) == 1
+    event = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert event["event"] == "error" and "device='cpu'" in event["error"]
+    # --preflight probes the card and never falls back to the CPU
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    assert cli.main(["--preflight", "--model", f"m={tmp_path / 'm.npz'}"]) == 1
+    event = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert event == {"event": "error", "stage": "preflight", "error": event["error"]}

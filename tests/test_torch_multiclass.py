@@ -324,16 +324,18 @@ def test_label_validation(labels, match):
         _gpc(tgp, device="cpu").fit(x, y)
 
 
-def test_estimator_surface():
+def test_estimator_surface(tmp_path):
     x, y = _blobs()
     gp = _gpc(tgp, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         gp.fit(x[:, 0], y)
     with pytest.raises(NotImplementedError, match="item 6"):
         gp.fit_distributed(None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tgp.GaussianProcessMulticlassModel(None).save("m.npz")
     model = gp.setPredictiveVariance(False).setMaxIter(2).fit(x, y)
     assert model.predict_proba(x[:4]).shape == (4, C)
+    # model I/O is ported (test_torch_serialization.py)
+    model.save(str(tmp_path / "m.npz"))
+    loaded = tgp.GaussianProcessMulticlassModel.load(str(tmp_path / "m.npz"), device="cpu")
+    np.testing.assert_array_equal(loaded.predict_raw(x[:4]), model.predict_raw(x[:4]))
     with pytest.raises(ValueError, match="setPredictiveVariance"):
         model.predict_proba(x[:4], averaged=True)
