@@ -226,7 +226,34 @@ code is non-zero and the final ``ok`` line is never printed:
                fails its batch with exec.hung and trips its breaker while
                the first model keeps answering.
 55. slice9-phases -- the seconds of phases 50-54.
-56. kernels -- one line with every kernel's numbers.
+56. device-opt-check -- the first airfoil fold (14, 97) fitted with
+               setOptimizer("device")'s loop replayed from its captured
+               CUDA graph and run eagerly on the card: theta, f, n_iter and
+               n_fev equal; captures, replays, masked evaluations, host
+               syncs, capture seconds; the step's graph nodes beside the
+               evaluation's alone and the ms of a replay of each.
+57. airfoil-device -- phase 6's 10-fold CV on the device optimizer: RMSE
+               < 2.1; per fold nfev and optimize seconds beside phase 6's;
+               K1 launches = replays + initial evaluations.
+58. synthetics-device -- phase 21's CV and phase 22's three held-out fits
+               on the device optimizer: each RMSE < 0.11; K1 launches =
+               replays + initial evaluations (marginal, LOO), 0 (ELBO).
+59. protein-device -- phase 8's config (366, 100) on the device optimizer:
+               RMSE within 2% of phase 8's; per-evaluation wall beside the
+               host fit's and the step's device ms a replay.
+60. timeseries-sm-device -- phase 27's config with its 8 restarts in one
+               batched loop: extrapolation RMSE < 0.1, every restart's NLL
+               and the winner, one K1 launch (over 16 matrices) a replay.
+61. checkpoint-device -- the first airfoil fold on the device optimizer
+               with setCheckpointDir and setCheckpointInterval(5),
+               preempted after 2 saves and resumed: theta bit-equal to the
+               uninterrupted segmented fit's; K1 launches = both legs'
+               replays + their first evaluations.
+62. segmented-rung -- an OOM staged at the one-shot device fit's choke
+               point: exactly one transition, native -> segmented; theta
+               within 1e-5 relative of the clean device fit's.
+63. slice10-phases -- the seconds of phases 56-62.
+64. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.  Every phase line
 carries ``fallback_transitions``, the ladder's transitions since the line
 before it; a phase that stages no fault fails if it moved them.
@@ -328,7 +355,7 @@ OBJECTIVE_BARS = {"loo": (1e-5, 1e-4), "elbo": (1e-4, 1e-3)}
 
 # the phases that stage a fault; every other phase must leave the fit
 # ladder's transition count where the phase before it left it
-FAULT_PHASES = ("ladder-oom", "predict-ladder", "terminal")
+FAULT_PHASES = ("ladder-oom", "predict-ladder", "terminal", "segmented-rung")
 _transitions_seen = [0.0]
 
 
@@ -516,15 +543,20 @@ def airfoil_gp(expert: int):
 def regression_cv(gp, x, y, folds) -> dict:
     """A fit and predict per fold: the mean test RMSE, the evaluations and
     phase seconds summed over folds, each fold's (E, s) and
-    ``gram_cache_engaged``, the first fold's model and the seconds of the
-    whole."""
+    ``gram_cache_engaged``, each fold's evaluations and optimize seconds,
+    the first fold's model and the seconds of the whole."""
     from spark_gp_tpu_torch.utils.validation import rmse
 
     start = time.perf_counter()
     scores, nfev, shapes, engaged, first = [], 0, set(), set(), None
     phases = dict.fromkeys(PHASES, 0.0)
+    per_fold = []
     for train, test in folds:
         model = copy.copy(gp).fit(x[train], y[train])
+        per_fold.append({"nfev": model.metrics["lbfgs_nfev"],
+                         "optimize_seconds": model.metrics["optimize_seconds"],
+                         **{k: v for k, v in model.metrics.items()
+                            if k.startswith("device_opt.")}})
         pred = model.predict(x[test])
         if not np.all(np.isfinite(pred)) or pred.shape != test.shape:
             raise AssertionError("CV predictions not finite")
@@ -538,7 +570,7 @@ def regression_cv(gp, x, y, folds) -> dict:
             first = model
     return {"rmse": float(np.mean(scores)), "seconds": time.perf_counter() - start,
             "nfev": nfev, **phases, "experts": sorted(shapes),
-            "gram_cache_engaged": sorted(engaged), "first_model": first}
+            "gram_cache_engaged": sorted(engaged), "per_fold": per_fold, "first_model": first}
 
 
 def matfree_kernel():
@@ -1662,6 +1694,9 @@ def regression_phases(torch, spd, d: dict, smi: str) -> dict:
                 and ts[kind]["shape"] == [2, 120]
                 and m["gram_cache_engaged"] == (0.0 if kind == "sm" else 1.0)):
             raise AssertionError(f"timeseries-{kind}: {ts[kind]}")
+    HOST_FITS["timeseries"] = {key: ts["sm"][key] for key in (
+        "extrapolation_rmse", "restart_nlls", "best_restart", "restarts_nfev",
+        "optimize_seconds", "seconds")}
     emit({"phase": "timeseries-sm", **ts["sm"], "bar": TIMESERIES_BAR,
           "jax_cpu_rmse": JAX_CPU_REGRESSION["sm_extrapolation_rmse"],
           "rbf_contrast": ts["rbf"],
@@ -3304,6 +3339,289 @@ def slice9_phases(torch, spd, data_main: dict, smi: str) -> dict:
     return launches
 
 
+# slice 10: the on-device optimizer
+DEVICE_CKPT_INTERVAL, DEVICE_CKPT_KILL_AFTER = 5, 2
+#: the segmented rung's theta against the clean device fit's: the same
+#: captured step on the same inputs, so float32 noise at most
+SEGMENTED_THETA_REL = 1e-5
+PROTEIN_DEVICE_RMSE_REL = 0.02
+REPLAY_TIMING_REPS = 30
+#: the host optimizer's fits the device phases are set beside (airfoil,
+#: protein, timeseries), filled by their phases
+HOST_FITS: dict = {}
+
+
+def k1_rule(m: dict) -> float:
+    """K1 launches a device fit on the marginal or LOO objective makes: one
+    per replay of its step, plus its first evaluation (the initial one, or
+    a resumed leg's capture warm-up)."""
+    first = m.get("device_opt.warmup_evaluations", 0.0) if m.get("resumed_from_iteration") \
+        else 1.0
+    return m.get("device_opt.replays", 0.0) + first
+
+
+def loop_record(m: dict) -> dict:
+    """A device fit's loop metrics, named without the prefix."""
+    return {k.split(".", 1)[1]: v for k, v in m.items() if k.startswith("device_opt.")}
+
+
+def replay_profile(torch, kernel, data, cache=None, objective="marginal", extra=()) -> dict:
+    """The device optimizer's step at its first iterate, captured as the
+    fit captures it, beside the objective evaluation alone captured into a
+    graph of its own: node counts (``cuGraphGetNodes``) and device ms a
+    replay (CUDA events over REPLAY_TIMING_REPS replays), and the host ms
+    of one eager step.  The launches these make are not the main path's:
+    the caller restores K1's count."""
+    from spark_gp_tpu_torch.models import likelihood as lk
+    from spark_gp_tpu_torch.optimize import lbfgs_device as ld
+
+    dev = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=data.x.dtype,
+                                    device=data.x.device)
+    vag = ld.log_transform_vag(lk.make_device_value_and_grad(kernel, data, cache, objective,
+                                                             extra))
+    lower, upper = ld.log_transform_bounds(*(dev(b) for b in kernel.bounds()))
+    cfg = ld.LbfgsConfig(lower=lower, upper=upper)
+    state = ld.lbfgs_init_state(vag, torch.log(dev(kernel.init_theta()))[None], cfg)
+
+    def replay_ms(graph):
+        graph.replay()
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        for _ in range(REPLAY_TIMING_REPS):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return begin.elapsed_time(end) / REPLAY_TIMING_REPS
+
+    eager = {k: v.clone() for k, v in state.items()}
+    limit = torch.full((), 10 ** 6, dtype=torch.int32, device=data.x.device)
+    ld.lbfgs_step(vag, eager, cfg, limit)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(3):
+        eager = ld.lbfgs_step(vag, eager, cfg, limit)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - start) / 3 * 1e3
+    loop = ld.DeviceLoop(vag, state, cfg)
+    loop.iter_limit.fill_(10 ** 6)
+    try:
+        loop.capture(warm=True)
+        step_ms = replay_ms(loop.graph)
+        theta = state["theta"].clone()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            vag(theta)
+        graph.instantiate()
+        eval_nodes, eval_ms = ld.graph_nodes(graph), replay_ms(graph)
+        graph.reset()
+    finally:
+        loop.release()
+    return {"h": int(state["theta"].shape[1]), "step_graph_nodes": loop.counts["graph_nodes"],
+            "eval_graph_nodes": eval_nodes, "step_ms_per_replay": step_ms,
+            "eval_ms_per_replay": eval_ms, "eager_step_host_ms": eager_ms,
+            "capture_seconds": loop.counts["capture_seconds"]}
+
+
+def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: str) -> dict:
+    """This slice's phases (device-opt-check, airfoil-device,
+    synthetics-device, protein-device, timeseries-sm-device,
+    checkpoint-device, segmented-rung); ``host`` carries the host
+    optimizer's phases to set beside them.  Returns K1's launches on each
+    phase's fits."""
+    import shutil
+    import tempfile
+
+    from spark_gp_tpu_torch import Const, EyeKernel
+    from spark_gp_tpu_torch.models import likelihood as lk
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+    from spark_gp_tpu_torch.resilience import chaos
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    launches = {}
+    start_all = time.perf_counter()
+    x, y, folds = data_main["x"], data_main["y"], data_main["folds"]
+    train, test = folds[0]
+
+    # device-opt-check: the fold's device fit, replayed and eager
+    kernel = airfoil_kernel() + Const(1e-4) * EyeKernel()
+    data = group_for_experts(x[train], y[train], 100, dtype=torch.float32, device="cuda")
+    dev = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=torch.float32,
+                                    device="cuda")
+    lower, upper = (dev(b) for b in kernel.bounds())
+    runs = {}
+    before = spd.spd_inv_logdet.launches
+    for mode, capture in (("graph", True), ("eager", False)):
+        loop = {}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = lk.fit_gpr_device(kernel, True, dev(kernel.init_theta()), lower, upper, data, 100,
+                                1e-6, capture=capture, loop_metrics=loop)
+        theta, f, n_iter, n_fev, _ = (v.cpu().numpy() for v in out)
+        runs[mode] = {"theta": theta, "f": float(f), "n_iter": int(n_iter),
+                      "n_fev": int(n_fev), "seconds": time.perf_counter() - start, "loop": loop}
+    profile = replay_profile(torch, kernel, data)
+    spd.spd_inv_logdet.launches = before
+    g, e = runs["graph"], runs["eager"]
+    check = {"shape": list(data.x.shape[:2]), "theta_equal": bool(np.array_equal(g["theta"],
+                                                                                  e["theta"])),
+             "f_equal": g["f"] == e["f"], "n_iter": [g["n_iter"], e["n_iter"]],
+             "n_fev": [g["n_fev"], e["n_fev"]],
+             "seconds": {"graph": g["seconds"], "eager": e["seconds"]},
+             "loop": g["loop"], "eager_loop": e["loop"], **profile,
+             "theta_max_abs_diff": float(np.max(np.abs(g["theta"] - e["theta"])))}
+    emit({"phase": "device-opt-check", **check, "card": smi})
+    if not (check["theta_equal"] and check["f_equal"] and g["n_iter"] == e["n_iter"]
+            and g["n_fev"] == e["n_fev"] and g["loop"]["captures"] == 1):
+        raise AssertionError(f"device-opt-check: {check}")
+
+    # airfoil-device: the 10-fold CV on the device optimizer
+    spd.spd_inv_logdet.launches = 0
+    cv = regression_cv(airfoil_gp(100).setOptimizer("device"), x, y, folds)
+    cv.pop("first_model")
+    rule = sum(k1_rule(fold) for fold in cv["per_fold"])
+    cv["launches"] = launches["airfoil_device"] = spd.spd_inv_logdet.launches
+    emit({"phase": "airfoil-device", **cv, "k1_rule": rule,
+          "host_per_fold": host["airfoil"]["per_fold"],
+          "host_optimize_seconds": host["airfoil"]["optimize_seconds"],
+          "host_nfev": host["airfoil"]["nfev"], "card": smi})
+    if not (cv["rmse"] < 2.1 and cv["launches"] == rule > 0):
+        raise AssertionError(f"airfoil-device: rmse {cv['rmse']}, {cv['launches']} K1 launches "
+                             f"for {rule} by the rule")
+
+    # synthetics-device: the CV and the three held-out objective fits
+    xs, ys, tr, te = rdata["x"], rdata["y"], rdata["tr"], rdata["te"]
+    spd.spd_inv_logdet.launches = 0
+    scv = regression_cv(synthetics_gp().setOptimizer("device"), xs, ys, rdata["folds"])
+    scv.pop("first_model")
+    scv["launches"] = spd.spd_inv_logdet.launches
+    scv["k1_rule"] = sum(k1_rule(fold) for fold in scv["per_fold"])
+    held = {}
+    total = scv["launches"]
+    for objective, counted in (("marginal", 1), ("loo", 1), ("elbo", 0)):
+        spd.spd_inv_logdet.launches = 0
+        model = synthetics_gp(objective).setOptimizer("device").fit(xs[tr], ys[tr])
+        m = model.metrics
+        held[objective] = {"rmse": rmse(ys[te], model.predict(xs[te])),
+                           "final_objective": m["final_nll"], "nfev": m["lbfgs_nfev"],
+                           "optimize_seconds": m["optimize_seconds"],
+                           "launches": spd.spd_inv_logdet.launches,
+                           "k1_rule": counted * k1_rule(m), "loop": loop_record(m)}
+        total += spd.spd_inv_logdet.launches
+    launches["synthetics_device"] = total
+    emit({"phase": "synthetics-device", "cv": scv, "held_out": held, "bar": SYNTHETICS_BAR,
+          "card": smi})
+    if not (scv["rmse"] < SYNTHETICS_BAR and scv["launches"] == scv["k1_rule"] > 0
+            and all(r["rmse"] < SYNTHETICS_BAR and r["launches"] == r["k1_rule"]
+                    for r in held.values())):
+        raise AssertionError(f"synthetics-device: cv {scv['rmse']}, held-out {held}")
+
+    # protein-device: the protein config on the device optimizer
+    xp, yp, ptr, pte = data_main["xp"], data_main["yp"], data_main["tr"], data_main["te"]
+    gp = copy.copy(host["protein"]["gp"]).setOptimizer("device")
+    spd.spd_inv_logdet.launches = 0
+    start = time.perf_counter()
+    model = gp.fit(xp[ptr], data_main["yp_tr"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - start
+    m = model.metrics
+    launches["protein_device"] = spd.spd_inv_logdet.launches
+    pred = model.predict(xp[pte]) * data_main["y_std"] + data_main["y_mean"]
+    pdata = group_for_experts(xp[ptr], data_main["yp_tr"], 100, dtype=torch.float32,
+                              device="cuda")
+    before = spd.spd_inv_logdet.launches
+    pprof = replay_profile(torch, model.raw_predictor.kernel, pdata)
+    spd.spd_inv_logdet.launches = before
+    evals = k1_rule(m)
+    prot = {"rmse": rmse(yp[pte], pred), "host_rmse": host["protein"]["rmse"],
+            "fit_seconds": fit_s, "nfev": m["lbfgs_nfev"], "lbfgs_iters": m["lbfgs_iters"],
+            "optimize_seconds": m["optimize_seconds"], "launches": launches["protein_device"],
+            "k1_rule": evals, "loop": loop_record(m),
+            "wall_ms_per_evaluation": m["optimize_seconds"] / evals * 1e3,
+            "host_optimize_seconds": host["protein"]["optimize_seconds"],
+            "host_nfev": host["protein"]["nfev"],
+            "host_wall_ms_per_evaluation": host["protein"]["optimize_seconds"]
+                                           / host["protein"]["nfev"] * 1e3,
+            "bar_rel": PROTEIN_DEVICE_RMSE_REL, **pprof}
+    emit({"phase": "protein-device", **prot, "card": smi})
+    if not (abs(prot["rmse"] - prot["host_rmse"]) <= PROTEIN_DEVICE_RMSE_REL * prot["host_rmse"]
+            and prot["launches"] == evals > 0):
+        raise AssertionError(f"protein-device: {prot}")
+
+    # timeseries-sm-device: eight restarts as one batched loop
+    xs_ts, ys_ts, xe, ye = rdata["ts"]
+    spd.spd_inv_logdet.launches = 0
+    start = time.perf_counter()
+    model = timeseries_gp("sm").setOptimizer("device").fit(xs_ts, ys_ts)
+    pred = model.predict(xe)
+    seconds = time.perf_counter() - start
+    m = model.metrics
+    launches["timeseries_sm_device"] = spd.spd_inv_logdet.launches
+    ts = {"extrapolation_rmse": rmse(ye, pred), "seconds": seconds,
+          "restart_nlls": [m[f"restart_{r}_nll"] for r in range(m["num_restarts"])],
+          "best_restart": m["best_restart"], "nfev_winner": m["lbfgs_nfev"],
+          "optimize_seconds": m["optimize_seconds"], "launches": launches["timeseries_sm_device"],
+          "k1_rule": k1_rule(m), "matrices_per_launch": int(m["num_restarts"] * m["num_experts"]),
+          "expert_size": m["expert_size"], "loop": loop_record(m), "bar": TIMESERIES_BAR,
+          "host": host["timeseries"]}
+    emit({"phase": "timeseries-sm-device", **ts, "card": smi})
+    if not (ts["extrapolation_rmse"] < TIMESERIES_BAR and ts["launches"] == ts["k1_rule"] > 0
+            and ts["matrices_per_launch"] == 16):
+        raise AssertionError(f"timeseries-sm-device: {ts}")
+
+    work = tempfile.mkdtemp(prefix="gp_slice10_")
+    try:
+        # checkpoint-device: interval 5, preempted after 2 saves, resumed
+        def ck_gp(directory):
+            return airfoil_gp(100).setOptimizer("device").setCheckpointDir(directory) \
+                .setCheckpointInterval(DEVICE_CKPT_INTERVAL)
+
+        full = ck_gp(os.path.join(work, "full")).fit(x[train], y[train])
+        spd.spd_inv_logdet.launches = 0
+        try:
+            with chaos.preempt_after_saves(DEVICE_CKPT_KILL_AFTER):
+                ck_gp(os.path.join(work, "cut")).fit(x[train], y[train])
+            raise AssertionError("checkpoint-device: the staged preemption did not fire")
+        except chaos.SimulatedPreemption as exc:
+            leg1 = {"nfev": exc.nfev, **exc.loop_metrics}
+        resumed = ck_gp(os.path.join(work, "cut")).fit(x[train], y[train])
+        launches["checkpoint_device"] = spd.spd_inv_logdet.launches
+        leg2 = loop_record(resumed.metrics)
+        rule = (leg1["replays"] + 1) + k1_rule(resumed.metrics)
+        ck = {"interval": DEVICE_CKPT_INTERVAL, "kill_after_saves": DEVICE_CKPT_KILL_AFTER,
+              "theta_bit_equal": bool(np.array_equal(resumed.raw_predictor.theta,
+                                                     full.raw_predictor.theta)),
+              "resumed_from_iteration": resumed.metrics.get("resumed_from_iteration"),
+              "leg1": leg1, "leg2": leg2, "full_iters": full.metrics["lbfgs_iters"],
+              "resumed_iters": resumed.metrics["lbfgs_iters"],
+              "launches": launches["checkpoint_device"], "k1_rule": rule}
+        emit({"phase": "checkpoint-device", **ck, "card": smi})
+        if not (ck["theta_bit_equal"]
+                and ck["resumed_from_iteration"] == DEVICE_CKPT_INTERVAL * DEVICE_CKPT_KILL_AFTER
+                and ck["launches"] == rule):
+            raise AssertionError(f"checkpoint-device: {ck}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # segmented-rung: a staged OOM at the one-shot device fit's choke point
+    clean = airfoil_gp(100).setOptimizer("device").fit(x[train], y[train])
+    spd.spd_inv_logdet.launches = 0
+    with chaos.oom_after_calls(0, op="one_dispatch") as fired:
+        model = airfoil_gp(100).setOptimizer("device").fit(x[train], y[train])
+    launches["segmented_rung"] = spd.spd_inv_logdet.launches
+    rel = float(np.max(np.abs(model.raw_predictor.theta - clean.raw_predictor.theta)
+                       / np.abs(clean.raw_predictor.theta)))
+    seg = {"injected": fired[0], "degradations": model.degradations, "theta_rel_err": rel,
+           "bar": SEGMENTED_THETA_REL, "launches": launches["segmented_rung"],
+           "k1_rule": k1_rule(model.metrics), "loop": loop_record(model.metrics)}
+    emit({"phase": "segmented-rung", **seg, "card": smi})
+    if not (fired[0] == 1 and [(d["from"], d["to"]) for d in model.degradations]
+            == [("native", "segmented")] and rel <= SEGMENTED_THETA_REL
+            and seg["launches"] == seg["k1_rule"]):
+        raise AssertionError(f"segmented-rung: {seg}")
+    emit({"phase": "slice10-phases", "seconds": time.perf_counter() - start_all, "card": smi})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3449,6 +3767,7 @@ def main() -> int:
     launches_airfoil = spd.spd_inv_logdet.launches
     model = cv.pop("first_model")
     engaged["airfoil"] = [model.metrics["gram_cache_engaged"]]
+    HOST_FITS["airfoil"] = cv
     emit({"phase": "airfoil", **cv, "launches": launches_airfoil,
           "num_experts": model.metrics["num_experts"],
           "expert_size": model.metrics["expert_size"]})
@@ -3519,6 +3838,9 @@ def main() -> int:
     pred = model.predict(xp[te]) * y_std + y_mean
     if not np.all(np.isfinite(pred)) or pred.shape != te.shape:
         raise AssertionError("protein predictions not finite")
+    HOST_FITS["protein"] = {"gp": gp, "rmse": rmse(yp[te], pred),
+                            "optimize_seconds": model.metrics["optimize_seconds"],
+                            "nfev": model.metrics["lbfgs_nfev"]}
     emit({"phase": "protein", "fit_seconds": fit_s, "rmse": rmse(yp[te], pred),
           "launches": launches_protein, "nfev": model.metrics["lbfgs_nfev"],
           **{key: model.metrics[key] for key in PHASES},
@@ -3777,6 +4099,8 @@ def main() -> int:
     slice8 = slice8_phases(torch, spd, sm, it_ops, data_main, mf_data, rm, smi)
     # 50-55. slice 9: persist, checkpoint, serve, serve-cli, serve-hang
     slice9 = slice9_phases(torch, spd, data_main, smi)
+    # 56-63. slice 10: the on-device optimizer
+    slice10 = slice10_phases(torch, spd, data_main, rdata, HOST_FITS, smi)
 
     # 56. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
@@ -3806,7 +4130,7 @@ def main() -> int:
                      + launches_gpc_mnist + launches_iris + launches_iris_native
                      + sum(regression.values()) + sum(slice6.values())
                      + sum(slice7.values()) + sum(slice8["spd_inv_logdet"].values())
-                     + sum(slice9.values())),
+                     + sum(slice9.values()) + sum(slice10.values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
@@ -3818,6 +4142,7 @@ def main() -> int:
         **{f"launches_{key}": value for key, value in slice7.items()},
         **{f"launches_{key}": value for key, value in slice8["spd_inv_logdet"].items()},
         **{f"launches_{key}": value for key, value in slice9.items()},
+        **{f"launches_{key}": value for key, value in slice10.items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},

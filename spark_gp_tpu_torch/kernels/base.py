@@ -76,6 +76,12 @@ class Kernel:
     prepare_matvec = None
     matvec_from_prepared = None
 
+    def _spec(self) -> tuple:
+        """The spec identity of the JAX package's kernel of the same name:
+        its constants, children included, which device checkpoints
+        fingerprint (``utils/checkpoint.spec_fingerprint``)."""
+        return ()
+
     def init_theta(self) -> np.ndarray:
         return np.zeros((0,), dtype=np.float64)
 
@@ -146,6 +152,9 @@ class ScalarLengthscaleHypers(StationaryKernel):
         self.lower = float(lower)
         self.upper = float(upper)
 
+    def _spec(self) -> tuple:
+        return (self.sigma0, self.lower, self.upper)
+
     def init_theta(self):
         return np.array([self.sigma0], dtype=np.float64)
 
@@ -174,6 +183,10 @@ class ARDHypers(StationaryKernel):
         self.upper_b = np.broadcast_to(
             np.asarray(upper, dtype=np.float64), beta0.shape
         ).copy()
+
+    def _spec(self) -> tuple:
+        return (tuple(self.beta0.tolist()), tuple(self.lower_b.tolist()),
+                tuple(self.upper_b.tolist()))
 
     def init_theta(self):
         return self.beta0.copy()
@@ -246,6 +259,9 @@ class ThetaOverrideKernel(Kernel):
             self.prepare_matvec = None
             self.matvec_from_prepared = None
 
+    def _spec(self) -> tuple:
+        return (self.inner,)
+
     def init_theta(self):
         return np.array(self.theta0_, dtype=np.float64)
 
@@ -300,6 +316,9 @@ class _PairKernel(Kernel):
 
     def _split(self, theta):
         return theta[: self.k1.n_hypers], theta[self.k1.n_hypers:]
+
+    def _spec(self) -> tuple:
+        return (self.k1, self.k2)
 
     def init_theta(self):
         return np.concatenate([self.k1.init_theta(), self.k2.init_theta()])
@@ -412,6 +431,9 @@ class TrainableScaleKernel(Kernel):
             self.prepare_matvec = None
             self.matvec_from_prepared = None
 
+    def _spec(self) -> tuple:
+        return (self.kernel, self.c0, self.lower, self.upper)
+
     def init_theta(self):
         return np.concatenate([[self.c0], self.kernel.init_theta()])
 
@@ -465,6 +487,9 @@ class ConstScaleKernel(Kernel):
         if kernel.matvec_from_prepared is None:
             self.prepare_matvec = None
             self.matvec_from_prepared = None
+
+    def _spec(self) -> tuple:
+        return (self.kernel, self.c)
 
     def init_theta(self):
         return self.kernel.init_theta()

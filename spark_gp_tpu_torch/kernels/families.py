@@ -60,6 +60,9 @@ class _TwoHyperStationary(StationaryKernel):
         self.lower_ = _pair(lower, 1e-6)
         self.upper_ = _pair(upper, math.inf)
 
+    def _spec(self) -> tuple:
+        return (self.theta0_, self.lower_, self.upper_)
+
     def init_theta(self):
         return np.array(self.theta0_, dtype=np.float64)
 
@@ -111,6 +114,9 @@ class ARDRationalQuadraticKernel(ARDHypers):
         self.alpha0 = float(alpha)
         self.alpha_bounds = (float(alpha_lower), float(alpha_upper))
         self.n_hypers = self.beta0.shape[0] + 1
+
+    def _spec(self) -> tuple:
+        return super()._spec() + (self.alpha0, self.alpha_bounds)
 
     def init_theta(self):
         return np.concatenate([self.beta0, [self.alpha0]])
@@ -202,6 +208,10 @@ class SpectralMixtureKernel(Kernel):
         self.w0, self.mu0, self.v0 = w, mu.ravel(), v.ravel()
         self.n_hypers = self.q * (1 + 2 * self.p)
 
+    def _spec(self) -> tuple:
+        return (self.p, self.q, tuple(float(v) for v in self.w0), tuple(float(v) for v in self.mu0),
+                tuple(float(v) for v in self.v0))
+
     def init_theta(self):
         return np.concatenate([self.w0, self.mu0, self.v0])
 
@@ -222,11 +232,13 @@ class SpectralMixtureKernel(Kernel):
         tau = x_a[..., :, None, :] - x_b[..., None, :, :]  # [..., n, n', p]
         expo = torch.einsum("...abp,qp->...qab", tau * tau,
                             (-2.0 * math.pi ** 2) * v)
-        cosp = torch.prod(
-            torch.cos((2.0 * math.pi) * tau[..., None, :, :, :]
-                      * mu[:, None, None, :]),
-            dim=-1,
-        )  # [..., q, n, n']
+        cos = torch.cos((2.0 * math.pi) * tau[..., None, :, :, :] * mu[:, None, None, :])
+        # the product over the p inputs, multiplied out: torch.prod's
+        # backward counts zero factors on the host, which a CUDA graph
+        # (the device optimizer's captured step) cannot hold
+        cosp = cos[..., 0]
+        for d in range(1, self.p):
+            cosp = cosp * cos[..., d]  # [..., q, n, n']
         return torch.einsum("q,...qab->...ab", w, torch.exp(expo) * cosp)
 
     def gram(self, theta, x):
@@ -252,6 +264,9 @@ class _OneHyper(Kernel):
         self.h0 = float(h)
         self.lower = float(lower)
         self.upper = float(upper)
+
+    def _spec(self) -> tuple:
+        return (self.h0, self.lower, self.upper)
 
     def init_theta(self):
         return np.array([self.h0], dtype=np.float64)
@@ -310,6 +325,9 @@ class PolynomialKernel(_OneHyper):
             raise ValueError("degree must be a positive integer")
         self.degree = degree
         super().__init__(c, lower, upper)
+
+    def _spec(self) -> tuple:
+        return (self.degree,) + super()._spec()
 
     def gram(self, theta, x):
         return poly_tile(theta, x @ x.mT, self.degree)

@@ -16,7 +16,6 @@ recovery (:meth:`_run_with_expert_resilience`).
 from __future__ import annotations
 
 import contextlib
-import warnings
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -52,9 +51,19 @@ from spark_gp_tpu_torch.utils.device import working_dtype
 from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item):
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1, item {item})"
+    )
+
+
+def _every_restart_failed():
+    """The multi-start drivers' error when no restart ends finite."""
+    from spark_gp_tpu_torch.resilience.quarantine import NonFiniteFitError
+
+    return NonFiniteFitError(
+        "every restart produced a non-finite final NLL — the model "
+        "configuration is numerically unusable at these settings"
     )
 
 
@@ -78,6 +87,8 @@ class GaussianProcessParams:
         self._fit_retries: int = 2
         self._profile_dir: Optional[str] = None
         self._checkpoint_dir: Optional[str] = None
+        self._checkpoint_interval: int = 10
+        self._optimizer: str = "auto"
         #: the fitted stack's fingerprint while a checkpointed fit optimizes
         self._fit_data_key: Optional[list] = None
         self._device = device
@@ -144,29 +155,36 @@ class GaussianProcessParams:
         return self
 
     def setOptimizer(self, value: str):
-        """``"host"`` (SciPy L-BFGS-B) or ``"auto"``, which is ``"host"``."""
+        """``"host"`` -- SciPy L-BFGS-B on the host, one device round trip
+        per objective evaluation; ``"device"`` -- the whole L-BFGS-B loop
+        on the fit's device (``optimize/lbfgs_device.py``), replayed from
+        one captured CUDA graph on the card, for the regression fit on the
+        exact solver lane (the other lanes and families are ROADMAP.md
+        queue 1, item 4b); ``"auto"`` (the default) -- ``"host"`` until
+        every estimator has its device fit."""
         if value not in ("auto", "host", "device"):
             raise ValueError("optimizer must be 'auto', 'host' or 'device'")
-        if value == "device":
-            raise _not_ported("the on-device optimizer", 4)
+        if value == "device" and not self._device_fit_ported:
+            raise _not_ported(f"the on-device optimizer of {type(self).__name__}", "4b")
+        self._optimizer = value
         return self
 
-    #: whether the estimator's fit runs the multi-start driver
-    _restarts_ported = False
+    #: whether the estimator has a device fit (``setOptimizer("device")``)
+    _device_fit_ported = False
 
     def setNumRestarts(self, value: int, scale: float = 0.5):
         """Multi-start hyperparameter optimization: ``value`` > 1 runs
         L-BFGS-B from the kernel's initial theta and from ``value - 1``
         seeded perturbations of it (``scale`` wide; log-normal in the log
-        hyper space, else relative-scale normal, clipped to the bounds),
-        one after another on the host, and keeps the lowest final
-        objective (:meth:`GaussianProcessCommons._optimize_with_restarts`).
-        Regression only; the classifiers' restarts and the batched device
-        multi-start are ROADMAP.md queue 1, items 5 and 4."""
+        hyper space, else relative-scale normal, clipped to the bounds)
+        and keeps the lowest final objective: one after another on the
+        host (:meth:`GaussianProcessCommons._optimize_with_restarts`, the
+        classifiers' :meth:`GaussianProcessCommons._fit_with_restarts`),
+        or, for the regression fit under ``setOptimizer("device")``, all
+        at once in one batched device loop.  The classifiers' batched
+        device multi-start is ROADMAP.md queue 1, item 4b."""
         if int(value) < 1:
             raise ValueError("number of restarts must be >= 1")
-        if int(value) > 1 and not self._restarts_ported:
-            raise _not_ported(f"multi-start fitting of {type(self).__name__}", 5)
         self._num_restarts = int(value)
         self._restart_scale = float(scale)
         return self
@@ -192,32 +210,26 @@ class GaussianProcessParams:
         return self
 
     def setCheckpointDir(self, path: Optional[str]):
-        """Persist the host optimizer's state for kill-and-resume: theta
-        and the evaluation log are saved every L-BFGS-B iteration
-        (``utils/checkpoint.LbfgsCheckpointer``), and a fit of the same
-        kernel on the same data that finds its checkpoint in this
+        """Persist the optimizer's state for kill-and-resume.  Host
+        optimizer: theta and the evaluation log are saved every L-BFGS-B
+        iteration (``utils/checkpoint.LbfgsCheckpointer``), and a fit of
+        the same kernel on the same data that finds its checkpoint in this
         directory resumes from it
-        (:meth:`GaussianProcessCommons._optimize_hypers_body`).  ``None``
-        (the default) saves nothing."""
+        (:meth:`GaussianProcessCommons._optimize_hypers_body`).  Device
+        optimizer: the fit runs in ``setCheckpointInterval``-iteration
+        segments and the full optimizer state is saved between them
+        (``utils/checkpoint.DeviceOptimizerCheckpointer``, the JAX
+        package's file).  ``None`` (the default) saves nothing."""
         self._checkpoint_dir = None if path is None else str(path)
         return self
 
     def setCheckpointInterval(self, iters: int):
-        """The device optimizer's segment length, iterations between its
-        checkpoints: validated as in the JAX package, and without effect
-        here, since the port has only the host optimizer, which saves every
-        iteration (the device optimizer is ROADMAP.md queue 1, item 4), so
-        it warns."""
+        """The device optimizer's segment length (default 10): iterations
+        between its checkpoints under ``setCheckpointDir``, one host sync
+        and one save each (the host optimizer saves every iteration)."""
         if int(iters) < 1:
             raise ValueError("checkpoint interval must be >= 1")
-        warnings.warn(
-            "setCheckpointInterval has no effect: it sets the on-device "
-            "optimizer's segment length, which is not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, item 4); the host optimizer checkpoints "
-            "every iteration",
-            UserWarning,
-            stacklevel=2,
-        )
+        self._checkpoint_interval = int(iters)
         return self
 
     def setProfileDir(self, path: Optional[str]):
@@ -357,9 +369,92 @@ class GaussianProcessCommons(GaussianProcessParams):
         return model
 
     def _resolved_optimizer(self) -> str:
-        """``"host"``: SciPy L-BFGS-B, the port's only optimizer (the
-        on-device one is ROADMAP.md queue 1, item 4), on every rung."""
-        return "host"
+        """``"host"`` under the ladder's ``host_f64`` rung (it re-runs the
+        fit host-driven, whatever was asked for), else the optimizer
+        ``setOptimizer`` asked for; ``"auto"`` is ``"host"`` until every
+        estimator has its device fit (ROADMAP.md queue 1, item 4b)."""
+        if self._fallback_mode == "host_f64":
+            return "host"
+        return "device" if self._optimizer == "device" else "host"
+
+    # --- the device optimizer's plumbing ---------------------------------
+    def _fallback_segmented(self) -> bool:
+        """True while the ladder's ``segmented`` rung runs: the device fit
+        goes through the segment driver with an in-memory saver and half
+        the segment length."""
+        return self._fallback_mode == "segmented"
+
+    def _segment_saver_and_chunk(self, file_tag: str):
+        """``(saver, chunk)`` of a segmented device fit: the checkpointer
+        and the configured interval under ``setCheckpointDir``; the
+        ladder's in-memory saver and half the interval on the
+        ``segmented`` rung of a fit that asked for no durability."""
+        if self._checkpoint_dir is not None:
+            return self._make_device_checkpointer(file_tag), self._checkpoint_interval
+        from spark_gp_tpu_torch.resilience.fallback import NullSegmentSaver, fallback_segment_chunk
+
+        return NullSegmentSaver(), fallback_segment_chunk(self._checkpoint_interval)
+
+    def _make_device_checkpointer(self, file_tag: str):
+        """The device optimizer's segment saver, behind a staged preemption
+        (``chaos.preempt_after_saves``)."""
+        from spark_gp_tpu_torch.resilience import chaos
+        from spark_gp_tpu_torch.utils.checkpoint import DeviceOptimizerCheckpointer
+
+        return chaos.maybe_preempting(DeviceOptimizerCheckpointer(self._checkpoint_dir, file_tag))
+
+    def _device_fit_op(self) -> str:
+        """The chaos choke point's name for the device fit about to run:
+        staged faults scope to one dispatch shape, so an injected
+        one-dispatch OOM leaves the segmented rung's fit clean."""
+        if self._checkpoint_dir is not None or self._fallback_segmented():
+            return "fit.device.segment"
+        return "fit.device.one_dispatch"
+
+    def _use_batched_multistart(self) -> bool:
+        """The batched device multi-start applies to a device fit without a
+        checkpoint directory (the sequential driver covers the rest)."""
+        return (
+            self._num_restarts > 1
+            and self._resolved_optimizer() == "device"
+            and self._checkpoint_dir is None
+        )
+
+    def _report_multistart_nlls(self, metrics: dict, nlls) -> None:
+        """Per-restart reporting of a batched multi-start: raises the
+        sequential driver's error when no lane ended finite, else records
+        each restart's NLL and the restart count."""
+        nlls = np.asarray(nlls, dtype=np.float64)
+        if not np.any(np.isfinite(nlls)):
+            raise _every_restart_failed()
+        for r, nll in enumerate(nlls):
+            metrics[f"restart_{r}_nll"] = float(nll) if np.isfinite(nll) else np.inf
+        metrics["num_restarts"] = self._num_restarts
+
+    @staticmethod
+    def _finalize_device_fit(pending: dict) -> dict:
+        """The device fit's results read back in one transfer: ``pending``
+        maps names to device tensors (theta, the scalars, the restart
+        NLLs), the result the same names to float64 numpy arrays."""
+        flat = torch.cat([v.detach().reshape(-1).to(torch.float64) for v in pending.values()])
+        host = flat.cpu().numpy()
+        out, at = {}, 0
+        for key, value in pending.items():
+            n = value.numel()
+            out[key] = host[at:at + n].reshape(tuple(value.shape))
+            at += n
+        return out
+
+    @staticmethod
+    def _device_loop_metrics(loop: dict) -> dict:
+        """The device loop's record (``lbfgs_device.DeviceLoop.counts``)
+        as fit metrics."""
+        keys = ("captures", "replays", "eager_steps", "masked_evaluations", "host_syncs",
+                "capture_seconds", "graph_nodes", "warmup_evaluations")
+        out = {f"device_opt.{k}": float(loop[k]) for k in keys if loop.get(k) is not None}
+        if loop.get("resumed_from_iteration"):
+            out["resumed_from_iteration"] = loop["resumed_from_iteration"]
+        return out
 
     def _host_f64_operands(self, data: ExpertData, extra=(), cache=None):
         """``(data, extra, cache)`` with the stack in float64 ON ITS DEVICE
@@ -377,12 +472,12 @@ class GaussianProcessCommons(GaussianProcessParams):
     def _dispatch_raw_bytes(self, data: ExpertData) -> float:
         """Modeled raw peak bytes of one objective evaluation of the fit
         about to run (``memplan.fit_dispatch_bytes`` at the resolved lane's
-        rung, in the stack's dtype)."""
+        rung, or at ``segmented`` on that rung, in the stack's dtype)."""
         from spark_gp_tpu_torch.resilience import memplan
 
         e, s, p = (int(d) for d in data.x.shape)
-        rung = memplan.fit_rung_of_lane(it_ops.resolve_for(data),
-                                        supports_matfree(self._get_kernel()))
+        rung = "segmented" if self._fallback_segmented() else memplan.fit_rung_of_lane(
+            it_ops.resolve_for(data), supports_matfree(self._get_kernel()))
         n_targets = int(data.y.shape[2]) if data.y.ndim == 3 else 1
         return memplan.fit_dispatch_bytes(e, s, p, data.x.element_size(), rung, n_targets,
                                           type(self).__name__)
@@ -856,11 +951,7 @@ class GaussianProcessCommons(GaussianProcessParams):
             resumed = {"resumed_from_iteration": res.resumed_from_iteration} \
                 if res.resumed_from_iteration else {}
             return res, resumed
-        if self._checkpoint_dir is not None:
-            raise ValueError(
-                "setNumRestarts(>1) is not combinable with setCheckpointDir "
-                "(restarts would overwrite one state file)"
-            )
+        self._check_restarts_without_checkpoints()
         results = [
             self._optimize_hypers_body(ThetaOverrideKernel(kernel, theta0), value_and_grad)
             for theta0 in self._restart_theta_batch(kernel)
@@ -868,12 +959,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         nlls = [res.fun if np.isfinite(res.fun) else np.inf for res in results]
         best = int(np.argmin(nlls))
         if not np.isfinite(nlls[best]):
-            from spark_gp_tpu_torch.resilience.quarantine import NonFiniteFitError
-
-            raise NonFiniteFitError(
-                "every restart produced a non-finite final NLL — the model "
-                "configuration is numerically unusable at these settings"
-            )
+            raise _every_restart_failed()
         metrics = {f"restart_{r}_nll": nll for r, nll in enumerate(nlls)}
         metrics.update(num_restarts=self._num_restarts, best_restart=best,
                        restarts_nfev=sum(res.nfev for res in results))
@@ -900,6 +986,62 @@ class GaussianProcessCommons(GaussianProcessParams):
                 t_r = theta0 + eps * lin_scale
             rows.append(np.clip(t_r, lower, upper))
         return np.stack(rows)
+
+    def _check_restarts_without_checkpoints(self) -> None:
+        """Restarts would overwrite one state file: several restarts with a
+        checkpoint directory are refused (the JAX package's rule)."""
+        if self._num_restarts > 1 and self._checkpoint_dir is not None:
+            raise ValueError(
+                "setNumRestarts(>1) is not combinable with setCheckpointDir "
+                "(restarts would overwrite one state file)"
+            )
+
+    def _fit_with_restarts(self, outer_instr: Instrumentation, fit_once):
+        """The generic sequential multi-start driver (the JAX package's):
+        ``fit_once(kernel, instr)`` runs one complete fit and returns a
+        model whose ``metrics`` carry ``final_nll``.  Restart 0 runs on
+        ``outer_instr`` from the kernel's initial theta; restart r >= 1 on
+        a fresh Instrumentation seeded with the pre-fit metrics and
+        timings, from row r of :meth:`_restart_theta_batch` (every restart
+        through a :class:`ThetaOverrideKernel`).  A restart that raises
+        ``NonFiniteFitError`` scores +inf; the lowest finite final NLL
+        wins (the first on a tie) and carries ``restart_{r}_nll``,
+        ``num_restarts`` and ``best_restart``."""
+        from spark_gp_tpu_torch.resilience.quarantine import NonFiniteFitError
+
+        kernel = self._get_kernel()
+        if self._num_restarts <= 1:
+            return fit_once(kernel, outer_instr)
+        self._check_restarts_without_checkpoints()
+        theta_batch = self._restart_theta_batch(kernel)
+        base_metrics = dict(outer_instr.metrics)
+        base_timings = dict(outer_instr.timings)
+        best_model, best_nll, best_r = None, np.inf, -1
+        nlls = []
+        for r in range(self._num_restarts):
+            if r == 0:
+                instr_r = outer_instr
+            else:
+                instr_r = Instrumentation(name=outer_instr.name)
+                instr_r.metrics.update(base_metrics)
+                instr_r.timings.update(base_timings)
+            try:
+                model = fit_once(ThetaOverrideKernel(kernel, theta_batch[r]), instr_r)
+            except NonFiniteFitError:
+                nlls.append(np.inf)
+                continue
+            nll = float(model.metrics.get("final_nll", np.inf))
+            nlls.append(nll if np.isfinite(nll) else np.inf)
+            if nlls[-1] < best_nll:
+                best_model, best_nll, best_r = model, nlls[-1], r
+        if best_model is None:
+            raise _every_restart_failed()
+        for r, nll in enumerate(nlls):
+            best_model.metrics[f"restart_{r}_nll"] = nll
+        best_model.metrics["num_restarts"] = self._num_restarts
+        best_model.metrics["best_restart"] = best_r
+        self._log_renormalized_nll(best_model.metrics)
+        return best_model
 
     def _optimize_latent_host(self, kernel: Kernel, objective: Callable, f0):
         """Host L-BFGS-B over a latent-carrying objective ``(theta, f0) ->

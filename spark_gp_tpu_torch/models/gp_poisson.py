@@ -60,41 +60,45 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
 
         def attempt():
             data_a, cache = self._attempt_operands(kernel, data)
-            with maybe_profile(self._profile_dir, instr.name):
-                with self._optimize_phase(instr, data_a):
-                    objective = lg.make_generic_objective(lik, kernel, data_a.x, data_a.y,
-                                                          data_a.mask, self._tol, cache)
-                    res, f_final = self._optimize_latent_host(kernel, objective,
-                                                              torch.zeros_like(data_a.y))
-                # the latent log-rates replace the counts in the PPA build
-                # and as the provider's targets (GPClf.scala:62-65)
-                latent = f_final * data_a.mask
-                raw = self._projected_process(
-                    instr, kernel, res.theta, x_prov,
-                    row_filter(ungroup(latent.cpu().numpy(), n_orig)),
-                    ExpertData(x=data_a.x, y=latent, mask=data_a.mask),
-                )
-            model = GaussianProcessPoissonModel(raw)
-            model.instr = instr
-            model.metrics = instr.metrics
-            model.metrics.update({
-                "num_experts": data.num_experts,
-                "expert_size": data.expert_size,
-                "solver_lane": it_ops.resolve_for(data_a),
-                "likelihood": type(lik).__name__,
-                "lbfgs_iters": res.nit,
-                "lbfgs_nfev": res.nfev,
-                "final_nll": res.fun,
-                "newton_iterations": lg.laplace_generic_mode.iterations - iterations,
-                "objective_calls": lg.batched_neg_logz_generic.calls - calls,
-                "gram_cache_engaged": float(cache is not None),
-            })
-            self._log_renormalized_nll(model.metrics)
-            self._emit_aggregation_stats(model.metrics, data_a)
-            return model
+
+            def fit_once(kernel_r, instr_r):
+                with maybe_profile(self._profile_dir, instr_r.name):
+                    with self._optimize_phase(instr_r, data_a):
+                        objective = lg.make_generic_objective(lik, kernel_r, data_a.x, data_a.y,
+                                                              data_a.mask, self._tol, cache)
+                        res, f_final = self._optimize_latent_host(kernel_r, objective,
+                                                                  torch.zeros_like(data_a.y))
+                    # the latent log-rates replace the counts in the PPA build
+                    # and as the provider's targets (GPClf.scala:62-65)
+                    latent = f_final * data_a.mask
+                    raw = self._projected_process(
+                        instr_r, kernel_r, res.theta, x_prov,
+                        row_filter(ungroup(latent.cpu().numpy(), n_orig)),
+                        ExpertData(x=data_a.x, y=latent, mask=data_a.mask),
+                    )
+                model = GaussianProcessPoissonModel(raw)
+                model.instr = instr_r
+                model.metrics = instr_r.metrics
+                model.metrics.update({
+                    "num_experts": data.num_experts,
+                    "expert_size": data.expert_size,
+                    "solver_lane": it_ops.resolve_for(data_a),
+                    "likelihood": type(lik).__name__,
+                    "lbfgs_iters": res.nit,
+                    "lbfgs_nfev": res.nfev,
+                    "final_nll": res.fun,
+                    "newton_iterations": lg.laplace_generic_mode.iterations - iterations,
+                    "objective_calls": lg.batched_neg_logz_generic.calls - calls,
+                    "gram_cache_engaged": float(cache is not None),
+                })
+                self._log_renormalized_nll(model.metrics)
+                self._emit_aggregation_stats(model.metrics, data_a)
+                return model
+
+            return self._fit_with_restarts(instr, fit_once)
 
         model = fallback.run_fit_ladder(self, instr, attempt, data=data)
-        model.metrics.update(self._phase_metrics(instr))
+        model.metrics.update(self._phase_metrics(model.instr))
         return model
 
     def fit_distributed(self, data, active_set=None):

@@ -9,7 +9,9 @@ cache once (``kernels/base.py``), runs host L-BFGS-B on
 the summed Laplace ``-log Z`` (``models/laplace.py``; the latent modes
 warm-start every evaluation), settles the modes with one last evaluation
 at theta*, and builds the Projected Process model with the latent modes
-as its regression targets.
+as its regression targets; ``setNumRestarts`` repeats that from
+perturbed starting points, one after another, and keeps the lowest
+final objective (``models/common._fit_with_restarts``).
 
 The model (GPClf.scala:137-162) predicts the latent mean ``f*`` through
 the PPA predictor: ``predict_raw = (-f*, f*)``, ``predict_proba`` the
@@ -74,34 +76,39 @@ class GaussianProcessClassifier(GaussianProcessCommons):
         x_prov, n_orig, row_filter = self._provider_rows_filter(x)
 
         def attempt():
+            # one cache for every restart: they all wrap this kernel
             data_a, cache = self._attempt_operands(kernel, data)
-            with maybe_profile(self._profile_dir, instr.name):
-                with self._optimize_phase(instr, data_a):
-                    res, latent, engine_metrics = self._fit_latent(kernel, data_a, cache)
-                raw = self._projected_process(
-                    instr, kernel, res.theta, x_prov,
-                    row_filter(ungroup(latent.cpu().numpy(), n_orig)),
-                    ExpertData(x=data_a.x, y=latent, mask=data_a.mask),
-                )
-            model = self._make_model(raw)
-            model.instr = instr
-            model.metrics = instr.metrics
-            model.metrics.update({
-                "num_experts": data.num_experts,
-                "expert_size": data.expert_size,
-                "solver_lane": it_ops.resolve_for(data_a),
-                "lbfgs_iters": res.nit,
-                "lbfgs_nfev": res.nfev,
-                "final_nll": res.fun,
-                **engine_metrics,
-                "gram_cache_engaged": float(cache is not None),
-            })
-            self._log_renormalized_nll(model.metrics)
-            self._emit_aggregation_stats(model.metrics, data_a)
-            return model
+
+            def fit_once(kernel_r, instr_r):
+                with maybe_profile(self._profile_dir, instr_r.name):
+                    with self._optimize_phase(instr_r, data_a):
+                        res, latent, engine_metrics = self._fit_latent(kernel_r, data_a, cache)
+                    raw = self._projected_process(
+                        instr_r, kernel_r, res.theta, x_prov,
+                        row_filter(ungroup(latent.cpu().numpy(), n_orig)),
+                        ExpertData(x=data_a.x, y=latent, mask=data_a.mask),
+                    )
+                model = self._make_model(raw)
+                model.instr = instr_r
+                model.metrics = instr_r.metrics
+                model.metrics.update({
+                    "num_experts": data.num_experts,
+                    "expert_size": data.expert_size,
+                    "solver_lane": it_ops.resolve_for(data_a),
+                    "lbfgs_iters": res.nit,
+                    "lbfgs_nfev": res.nfev,
+                    "final_nll": res.fun,
+                    **engine_metrics,
+                    "gram_cache_engaged": float(cache is not None),
+                })
+                self._log_renormalized_nll(model.metrics)
+                self._emit_aggregation_stats(model.metrics, data_a)
+                return model
+
+            return self._fit_with_restarts(instr, fit_once)
 
         model = fallback.run_fit_ladder(self, instr, attempt, data=data)
-        model.metrics.update(self._phase_metrics(instr))
+        model.metrics.update(self._phase_metrics(model.instr))
         return model
 
     def _fit_latent(self, kernel, data: ExpertData, cache):

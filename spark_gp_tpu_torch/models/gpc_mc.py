@@ -95,42 +95,46 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
         def attempt():
             data_a, cache = self._attempt_operands(kernel, data)
             y1h = _one_hot_masked(data_a.y, data_a.mask, n_classes)
-            with maybe_profile(self._profile_dir, instr.name):
-                with self._optimize_phase(instr, data_a):
-                    objective = laplace_mc.make_mc_objective(
-                        kernel, data_a.x, y1h, data_a.mask, self._tol, cache
+
+            def fit_once(kernel_r, instr_r):
+                with maybe_profile(self._profile_dir, instr_r.name):
+                    with self._optimize_phase(instr_r, data_a):
+                        objective = laplace_mc.make_mc_objective(
+                            kernel_r, data_a.x, y1h, data_a.mask, self._tol, cache
+                        )
+                        res, f_final = self._optimize_latent_host(kernel_r, objective,
+                                                                  torch.zeros_like(y1h))
+                    # the per-class latent modes are the PPA targets; the
+                    # provider sees each point's strongest class latent
+                    latents = f_final * data_a.mask[..., None]
+                    margin = torch.max(latents, dim=-1).values.cpu().numpy()
+                    raw = self._projected_process(
+                        instr_r, kernel_r, res.theta, x_prov, row_filter(ungroup(margin, n_orig)),
+                        ExpertData(x=data_a.x, y=latents, mask=data_a.mask),
                     )
-                    res, f_final = self._optimize_latent_host(kernel, objective,
-                                                              torch.zeros_like(y1h))
-                # the per-class latent modes are the PPA targets; the
-                # provider sees each point's strongest class latent
-                latents = f_final * data_a.mask[..., None]
-                margin = torch.max(latents, dim=-1).values.cpu().numpy()
-                raw = self._projected_process(
-                    instr, kernel, res.theta, x_prov, row_filter(ungroup(margin, n_orig)),
-                    ExpertData(x=data_a.x, y=latents, mask=data_a.mask),
-                )
-            model = GaussianProcessMulticlassModel(raw)
-            model.instr = instr
-            model.metrics = instr.metrics
-            model.metrics.update({
-                "num_experts": data.num_experts,
-                "expert_size": data.expert_size,
-                "num_classes": n_classes,
-                "solver_lane": it_ops.resolve_for(data_a),
-                "lbfgs_iters": res.nit,
-                "lbfgs_nfev": res.nfev,
-                "final_nll": res.fun,
-                "newton_iterations": laplace_mc.laplace_mc_mode.iterations - iterations,
-                "objective_calls": laplace_mc.batched_neg_logz_mc.calls - calls,
-                "gram_cache_engaged": float(cache is not None),
-            })
-            self._log_renormalized_nll(model.metrics)
-            self._emit_aggregation_stats(model.metrics, data_a)
-            return model
+                model = GaussianProcessMulticlassModel(raw)
+                model.instr = instr_r
+                model.metrics = instr_r.metrics
+                model.metrics.update({
+                    "num_experts": data.num_experts,
+                    "expert_size": data.expert_size,
+                    "num_classes": n_classes,
+                    "solver_lane": it_ops.resolve_for(data_a),
+                    "lbfgs_iters": res.nit,
+                    "lbfgs_nfev": res.nfev,
+                    "final_nll": res.fun,
+                    "newton_iterations": laplace_mc.laplace_mc_mode.iterations - iterations,
+                    "objective_calls": laplace_mc.batched_neg_logz_mc.calls - calls,
+                    "gram_cache_engaged": float(cache is not None),
+                })
+                self._log_renormalized_nll(model.metrics)
+                self._emit_aggregation_stats(model.metrics, data_a)
+                return model
+
+            return self._fit_with_restarts(instr, fit_once)
 
         model = fallback.run_fit_ladder(self, instr, attempt, data=data)
-        model.metrics.update(self._phase_metrics(instr))
+        model.metrics.update(self._phase_metrics(model.instr))
         return model
 
     def fit_distributed(self, data, n_classes=None, active_set=None):

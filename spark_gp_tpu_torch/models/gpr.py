@@ -7,9 +7,13 @@ noise-augmented kernel's hyperparameters against the objective
 ``setObjective`` names -- the summed per-expert NLL on the solver lane in
 effect (``setSolverLane``), the LOO pseudo-likelihood (``models/loo.py``)
 or the Titsias ELBO (``models/sgpr.py``) -- with autograd gradients and
-host L-BFGS-B within the kernel's box bounds, from one starting point or
+L-BFGS-B within the kernel's box bounds, from one starting point or
 several (``setNumRestarts``), then builds the m-point Projected Process
-model.  The data screen quarantines experts with non-finite rows, and a
+model.  The optimizer is SciPy's on the host, or, under
+``setOptimizer("device")`` on the exact solver lane, the whole loop on
+the fit's device (``optimize/lbfgs_device.py``): one captured CUDA graph
+per fit on the card, the restarts in one batched loop, the state saved
+every ``setCheckpointInterval`` iterations under ``setCheckpointDir``.  The data screen quarantines experts with non-finite rows, and a
 failed attempt is retried after the per-expert recovery ladder
 (``models/common.py``, ``resilience/``).  The fitted model predicts the
 posterior mean (``predict``), variance (``predict_with_var``) and joint
@@ -27,8 +31,10 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models.active_set import GreedilyOptimizingActiveSetProvider
-from spark_gp_tpu_torch.models.common import GaussianProcessCommons
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
 from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
+from spark_gp_tpu_torch.ops import iterative as it_ops
+from spark_gp_tpu_torch.optimize.lbfgsb import OptimizeResult
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops.linalg import psd_safe_cholesky_np
 from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
@@ -57,7 +63,7 @@ class GaussianProcessRegression(GaussianProcessCommons):
     >>> mean = model.predict(x_test)
     """
 
-    _restarts_ported = True
+    _device_fit_ported = True
     _keeps_update_statistics = True
 
     def setObjective(self, objective: str) -> "GaussianProcessRegression":
@@ -115,9 +121,12 @@ class GaussianProcessRegression(GaussianProcessCommons):
                     extra = (active, self._sigma2)
                     # checkpoint tags carry the bound's surface
                     self._objective_salt = self._elbo_checkpoint_salt(extra)
-                vag = make_value_and_grad(kernel, data_r, cache, self._objective, extra)
-                with self._optimize_phase(instr, data_r):
-                    res, restart_metrics = self._optimize_with_restarts(kernel, vag)
+                if self._resolved_optimizer() == "device":
+                    res, restart_metrics = self._fit_device(instr, kernel, data_r, extra, cache)
+                else:
+                    vag = make_value_and_grad(kernel, data_r, cache, self._objective, extra)
+                    with self._optimize_phase(instr, data_r):
+                        res, restart_metrics = self._optimize_with_restarts(kernel, vag)
                 raw = self._projected_process(instr, kernel, res.theta, x_r, y_r, data_r, active)
             model = GaussianProcessRegressionModel(raw)
             model.instr = instr
@@ -167,14 +176,86 @@ class GaussianProcessRegression(GaussianProcessCommons):
     @staticmethod
     def _elbo_checkpoint_salt(extra) -> str:
         """Digest of the ELBO's objective surface (the inducing set and
-        sigma2): two ELBO fits over different surfaces sharing a checkpoint
-        directory neither resume from nor overwrite each other."""
+        sigma2), or of the device fit's other objective operands: two fits
+        over different surfaces sharing a checkpoint directory neither
+        resume from nor overwrite each other (the JAX package's digest)."""
         import hashlib
 
         h = hashlib.sha1()
         for e in extra:
+            if e is None:  # the aggregation plane's placeholder slot
+                h.update(b"none")
+                continue
+            if isinstance(e, torch.Tensor):
+                e = e.detach().cpu().numpy()
             h.update(np.asarray(e, dtype=np.float64).tobytes())
         return h.hexdigest()[:10]
+
+    def _fit_device(self, instr, kernel, data, extra=(), cache=None):
+        """The device optimizer's fit of one attempt (the JAX package's
+        ``_fit_device`` and ``_fit_device_multistart``): the batched
+        multi-start for several restarts, the segment driver under
+        ``setCheckpointDir`` or the ladder's ``segmented`` rung, else one
+        loop; the results come back in one transfer inside the
+        ``optimize_hypers`` phase.  Returns ``(OptimizeResult, metrics)``;
+        raises ``NonFiniteFitError`` for a non-finite final objective
+        (the loop cannot raise mid-flight)."""
+        from spark_gp_tpu_torch.models import likelihood as lk
+        from spark_gp_tpu_torch.resilience import chaos
+        from spark_gp_tpu_torch.resilience.quarantine import NonFiniteFitError
+
+        lane = it_ops.resolve_for(data)
+        if lane != "exact":
+            raise _not_ported(f"the on-device optimizer on the {lane!r} solver lane", "4b")
+        self._check_restarts_without_checkpoints()
+        dtype, device = data.x.dtype, data.x.device
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
+
+        lower, upper = (dev(b) for b in kernel.bounds())
+        log_space = self._use_log_space(kernel)
+        chaos.maybe_injected_failure(self._device_fit_op(), nbytes=self._dispatch_raw_bytes(data))
+        loop: dict = {}
+        multistart = self._use_batched_multistart()
+        with instr.phase("optimize_hypers"):
+            if multistart:
+                out = lk.fit_gpr_device_multistart(
+                    kernel, log_space, dev(self._restart_theta_batch(kernel)), lower, upper,
+                    data, self._max_iter, self._tol, extra, cache, self._objective,
+                    loop_metrics=loop)
+                names = ("theta", "f", "n_iter", "n_fev", "stalled", "f_all", "best")
+            elif self._checkpoint_dir is not None or self._fallback_segmented():
+                tag = "gpr" if self._objective == "marginal" else f"gpr-{self._objective}"
+                if extra:
+                    tag += "-" + self._elbo_checkpoint_salt(extra)
+                saver, chunk = self._segment_saver_and_chunk(tag)
+                out = lk.fit_gpr_device_checkpointed(
+                    kernel, log_space, dev(kernel.init_theta()), lower, upper, data,
+                    self._max_iter, self._tol, chunk, saver, self._objective, extra, cache,
+                    loop_metrics=loop)
+                names = ("theta", "f", "n_iter", "n_fev", "stalled")
+            else:
+                out = lk.fit_gpr_device(
+                    kernel, log_space, dev(kernel.init_theta()), lower, upper, data,
+                    self._max_iter, self._tol, extra, cache, self._objective, loop_metrics=loop)
+                names = ("theta", "f", "n_iter", "n_fev", "stalled")
+            host = self._finalize_device_fit(dict(zip(names, out)))
+        stalled = bool(host["stalled"])
+        res = OptimizeResult(
+            theta=np.asarray(host["theta"], dtype=np.float64), fun=float(host["f"]),
+            nit=int(host["n_iter"]), nfev=int(host["n_fev"]), success=not stalled,
+            message="line search stalled" if stalled else "converged or at the iteration budget",
+            resumed_from_iteration=int(loop.get("resumed_from_iteration", 0)),
+        )
+        metrics = {"optimizer": "device", "lbfgs_stalled": float(stalled),
+                   **self._device_loop_metrics(loop)}
+        if multistart:
+            self._report_multistart_nlls(metrics, host["f_all"])
+            metrics["best_restart"] = int(host["best"])
+        elif self._expert_quarantine and not np.isfinite(res.fun):
+            raise NonFiniteFitError("device fit converged to a non-finite objective")
+        return res, metrics
 
     def loo(self, x, y, model: "Optional[GaussianProcessRegressionModel]" = None) -> dict:
         """Exact per-expert leave-one-out diagnostics (``models/loo.py``)

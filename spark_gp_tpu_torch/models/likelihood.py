@@ -191,10 +191,7 @@ def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
     transfer.  ``cache``: as for :func:`batched_nll`, resident on the
     device across evaluations."""
     fn = objective_fn(objective)
-    if objective == "elbo":
-        active, sigma2 = extra
-        extra = (torch.as_tensor(np.asarray(active, dtype=np.float64), dtype=data.x.dtype,
-                                 device=data.x.device), sigma2)
+    extra = _objective_operands(data, objective, extra)
 
     def vag(theta):
         t = torch.as_tensor(
@@ -207,3 +204,190 @@ def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
         return float(host[0]), host[1:]
 
     return vag
+
+
+# --- the on-device optimizer's objectives and fits -----------------------------
+#
+# The device fits (``optimize/lbfgs_device.py``) evaluate R lanes of
+# theta at once and keep value and gradient on the device.  They run the
+# exact lane only: the CG / SLQ lanes stop on a tolerance, a loop the
+# captured step cannot hold (ROADMAP.md queue 1, item 4b).
+
+
+def _lane_grams(kernel: Kernel, thetas, data: ExpertData, cache=None, jitter=None):
+    """``[R, E, s, s]``: the masked (and optionally jittered) gram stack of
+    each lane's theta."""
+    kmat = torch.stack([masked_gram_stack(kernel, thetas[r], data.x, data.mask, cache)
+                        for r in range(thetas.shape[0])])
+    if jitter is not None:
+        s = kmat.shape[-1]
+        scale = trace_scale(torch.diagonal(kmat, dim1=-2, dim2=-1).sum(-1), s)
+        boost = jitter if isinstance(jitter, torch.Tensor) else float(jitter)
+        kmat = kmat + (boost * scale)[..., None, None] * torch.eye(
+            s, dtype=kmat.dtype, device=kmat.device)
+    return kmat
+
+
+def lanes_nll(kernel: Kernel, thetas, data: ExpertData, cache=None, jitter=None, weights=None):
+    """``[R]``: the exact-lane BCM NLL (:func:`batched_nll`) of each lane's
+    theta.  The R lanes' gram stacks go through one batched inverse: one
+    K1 launch over ``[R * E, s, s]`` where the kernel applies, one batched
+    Cholesky otherwise."""
+    r = thetas.shape[0]
+    kmat = _lane_grams(kernel, thetas, data, cache, jitter)
+    e, s = kmat.shape[1], kmat.shape[-1]
+    flat = kmat.reshape(r * e, s, s)
+    ym = (data.y * data.mask).repeat(r, 1)
+    if kernel_applies(flat):
+        kinv, logdet = spd_inv_logdet(flat)
+        alpha = torch.einsum("bij,bj->bi", kinv, ym)
+    else:
+        chol_l = cholesky(flat)
+        alpha, logdet = chol_solve(chol_l, ym), chol_logdet(chol_l)
+    quad = torch.einsum("bi,bi->b", ym, alpha).reshape(r, e)
+    logdet = logdet.reshape(r, e)
+    if weights is None:
+        return 0.5 * quad.sum(-1) + 0.5 * logdet.sum(-1)
+    w = weights if isinstance(weights, torch.Tensor) else torch.as_tensor(
+        weights, dtype=quad.dtype, device=quad.device)
+    return 0.5 * (quad * w).sum(-1) + 0.5 * (w * logdet).sum(-1)
+
+
+def lanes_objective(objective: str):
+    """The lanes counterpart of :func:`objective_fn`: ``(kernel, thetas
+    [R, h], data, cache, *extra) -> values [R]``."""
+    if objective == "marginal":
+        return lanes_nll
+    if objective == "loo":
+        from spark_gp_tpu_torch.models.loo import lanes_loo_nll
+
+        return lambda kernel, thetas, data, cache, *extra: lanes_loo_nll(
+            kernel, thetas, data, cache)
+    if objective == "elbo":
+        from spark_gp_tpu_torch.models.sgpr import batched_elbo_nll
+
+        return lambda kernel, thetas, data, cache, active, sigma2: torch.stack([
+            batched_elbo_nll(kernel, thetas[r], data, active, sigma2)
+            for r in range(thetas.shape[0])])
+    raise ValueError(
+        f"unknown objective {objective!r}; expected 'marginal', 'loo' or 'elbo'"
+    )
+
+
+def _objective_operands(data: ExpertData, objective: str, extra=()):
+    """``extra`` with the ELBO's inducing set as a tensor in the stack's
+    dtype and device and sigma2 a float (the other objectives' operands
+    already are what they need)."""
+    if objective != "elbo":
+        return tuple(extra)
+    active, sigma2 = extra
+    return (torch.as_tensor(np.asarray(active, dtype=np.float64), dtype=data.x.dtype,
+                            device=data.x.device), float(sigma2))
+
+
+def make_device_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
+                               objective: str = "marginal", extra=()):
+    """``thetas [R, h] -> (values [R], grads [R, h])`` of ``objective`` on the
+    stack's device, nothing read back to the host: the function the device
+    optimizer's captured step evaluates.  ``extra`` as for
+    :func:`make_value_and_grad`."""
+    fn = lanes_objective(objective)
+    extra = _objective_operands(data, objective, extra)
+
+    def vag(thetas):
+        with torch.enable_grad():
+            t = thetas.detach().requires_grad_(True)
+            values = fn(kernel, t, data, cache, *extra)
+            (grad,) = torch.autograd.grad(values.sum(), t)
+        return values.detach(), grad
+
+    return vag
+
+
+def _device_fit_scope():
+    """The ``fit.device`` span around a device fit (the JAX package's cost
+    entry of the same name)."""
+    from spark_gp_tpu_torch.obs import trace as obs_trace
+
+    return obs_trace.span("fit.device")
+
+
+def fit_gpr_device(kernel: Kernel, log_space: bool, theta0, lower, upper, data: ExpertData,
+                   max_iter: int, tol: float, extra=(), cache=None, objective="marginal",
+                   capture: bool = True, loop_metrics=None):
+    """The single-start device fit: the objective and the box L-BFGS-B loop
+    on the stack's device, replayed from one captured CUDA graph on the
+    card (``optimize/lbfgs_device.py``).  ``theta0``, ``lower``, ``upper``
+    are tensors in the stack's dtype and device.  Returns device tensors
+    ``(theta, f, n_iter, n_fev, stalled)``, theta in linear coordinates."""
+    from spark_gp_tpu_torch.optimize.lbfgs_device import lbfgs_minimize_device, log_reparam
+
+    vag = make_device_value_and_grad(kernel, data, cache, objective, extra)
+    from_u = (lambda t: t)
+    if log_space:
+        vag, theta0, lower, upper, from_u = log_reparam(vag, theta0, lower, upper)
+    with _device_fit_scope():
+        theta, f, n_iter, n_fev, stalled = lbfgs_minimize_device(
+            vag, theta0, lower, upper, max_iter=max_iter, tol=tol, capture=capture,
+            loop_metrics=loop_metrics)
+    return from_u(theta), f, n_iter, n_fev, stalled
+
+
+def fit_gpr_device_multistart(kernel: Kernel, log_space: bool, theta0_batch, lower, upper,
+                              data: ExpertData, max_iter: int, tol: float, extra=(), cache=None,
+                              objective="marginal", loop_metrics=None):
+    """All R restarts as one lockstep device loop, every evaluation one
+    pass over the R lanes (one K1 launch over their ``[R * E, s, s]``
+    stacks); the gram cache is shared by the lanes.  Returns
+    ``(theta_best, f_best, n_iter, n_fev, stalled, f_all [R], best)``."""
+    from spark_gp_tpu_torch.optimize.lbfgs_device import multistart_minimize
+
+    vag = make_device_value_and_grad(kernel, data, cache, objective, extra)
+    with _device_fit_scope():
+        return multistart_minimize(vag, log_space, theta0_batch, lower, upper, max_iter, tol,
+                                   loop_metrics=loop_metrics)
+
+
+def fit_gpr_device_checkpointed(kernel: Kernel, log_space: bool, theta0, lower, upper,
+                                data: ExpertData, max_iter: int, tol: float, chunk: int, saver,
+                                objective: str = "marginal", extra=(), cache=None,
+                                loop_metrics=None):
+    """The device fit in ``chunk``-iteration segments with the full
+    optimizer state persisted through ``saver`` between them
+    (``utils/checkpoint.run_segmented``); a checkpoint of the same fit
+    (the JAX package's resume meta: objective, kernel, tol,
+    parameterization, start, stack shapes and data fingerprint) resumes
+    it without the initial evaluation.  Returns ``(theta, f, n_iter,
+    n_fev, stalled)``."""
+    from spark_gp_tpu_torch.optimize.lbfgs_device import (
+        LbfgsConfig,
+        log_transform_bounds,
+        log_transform_vag,
+    )
+    from spark_gp_tpu_torch.utils.checkpoint import run_segmented, segment_meta
+
+    family = "gpr" if objective == "marginal" else f"gpr-{objective}"
+    extra_meta = {
+        f"objective_extra_{i}": (
+            [] if e is None else [float(v) for v in np.asarray(
+                e.detach().cpu().numpy() if isinstance(e, torch.Tensor) else e).ravel()]
+        )
+        for i, e in enumerate(extra)
+    }
+    # tol as the stack's dtype holds it, as the JAX package records it
+    tol_meta = float(torch.tensor(tol, dtype=data.x.dtype))
+    meta = segment_meta(family, kernel, tol_meta, log_space, theta0, data.x, data.y, data.mask,
+                        **extra_meta)
+    vag = make_device_value_and_grad(kernel, data, cache, objective, extra)
+    if log_space:
+        vag = log_transform_vag(vag)
+        lower, upper = log_transform_bounds(lower, upper)
+        start = torch.log(theta0)
+    else:
+        start = theta0
+    cfg = LbfgsConfig(lower=lower, upper=upper, tol=float(tol))
+    with _device_fit_scope():
+        state = run_segmented(vag, start, cfg, saver, meta, max_iter, chunk,
+                              loop_metrics=loop_metrics)
+    theta = torch.exp(state["theta"][0]) if log_space else state["theta"][0]
+    return theta, state["f"][0], state["n_iter"][0], state["n_fev"][0], state["stalled"][0]

@@ -65,6 +65,23 @@ def batched_loo_nll(kernel: Kernel, theta, data: ExpertData, cache=None, weights
     return -weighted_expert_sum(log_density * data.mask, weights)
 
 
+def lanes_loo_nll(kernel: Kernel, thetas, data: ExpertData, cache=None, weights=None):
+    """``[R]``: :func:`batched_loo_nll` of each lane's theta ``thetas [R, h]``,
+    the R lanes' gram stacks through one batched inverse (one K1 launch
+    over ``[R * E, s, s]`` where it applies): the device optimizer's
+    multi-start objective."""
+    r = thetas.shape[0]
+    kmat = torch.stack([masked_gram_stack(kernel, thetas[i], data.x, data.mask, cache)
+                        for i in range(r)])
+    kinv, _ = spd_linalg.batched_spd_inv_logdet(kmat)
+    e, s = kmat.shape[1], kmat.shape[-1]
+    _, _, log_density = moments_from_inverse(kinv.reshape(r * e, s, s),
+                                             (data.y * data.mask).repeat(r, 1))
+    log_density = log_density.reshape(r, e, s)
+    return torch.stack([-weighted_expert_sum(log_density[i] * data.mask, weights)
+                        for i in range(r)])
+
+
 @torch.no_grad()
 def loo_diagnostics(kernel: Kernel, theta, x, y, dataset_size_for_expert: int,
                     dtype, device) -> dict:

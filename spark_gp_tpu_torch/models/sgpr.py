@@ -43,8 +43,10 @@ def batched_elbo_nll(kernel: Kernel, theta, data: ExpertData, active, sigma2):
     sum."""
     e, _, p = data.x.shape
     m = active.shape[0]
-    sigma2 = torch.as_tensor(sigma2, dtype=data.x.dtype, device=data.x.device)
-    sigma = torch.sqrt(sigma2)
+    # a Python float: no host-to-device copy, so the objective can run
+    # inside a captured CUDA graph (the device optimizer)
+    sigma2 = float(sigma2)
+    sigma = math.sqrt(sigma2)
     eye = torch.eye(m, dtype=data.x.dtype, device=data.x.device)
 
     kmm = kernel.gram(theta, active)
@@ -65,11 +67,13 @@ def batched_elbo_nll(kernel: Kernel, theta, data: ExpertData, active, sigma2):
     c = torch.linalg.solve_triangular(chol_b, ay[:, None], upper=False)[:, 0]
     log_det_b = 2.0 * torch.sum(torch.log(torch.diagonal(chol_b)))
     elbo = (
-        -0.5 * n * torch.log(2.0 * math.pi * sigma2)
+        -0.5 * n * math.log(2.0 * math.pi * sigma2)
         - 0.5 * log_det_b
         - 0.5 * yy / sigma2
         + 0.5 * torch.sum(c * c)
         - 0.5 * tr_knn / sigma2
-        + 0.5 * torch.trace(aat)  # tr(Q_nn) / (2 sigma2)
+        # tr(Q_nn) / (2 sigma2); the diagonal's sum, as torch.trace's backward
+        # reads its size on the host (no capture in a CUDA graph)
+        + 0.5 * torch.diagonal(aat).sum()
     )
     return -elbo

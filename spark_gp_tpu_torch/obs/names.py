@@ -58,6 +58,16 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("best_restart", "metric", "winning restart index"),
     MetricName("restart_*_nll", "metric", "per-restart final NLL", label="restart"),
     MetricName("restarts_nfev", "metric", "objective evaluations summed over every host restart"),
+    MetricName("optimizer", "metric", "hyperparameter optimizer the fit ran (host/device)"),
+    MetricName("lbfgs_stalled", "metric", "1 when the device optimizer's line search ended without an acceptable step"),
+    MetricName("device_opt.captures", "metric", "device optimizer: CUDA graph captures of its step (1 per fit on the card)"),
+    MetricName("device_opt.replays", "metric", "device optimizer: replays of the captured step"),
+    MetricName("device_opt.eager_steps", "metric", "device optimizer: steps run eagerly (the CPU, or the check against the graph)"),
+    MetricName("device_opt.masked_evaluations", "metric", "device optimizer: lane evaluations run after the lane froze (discarded)"),
+    MetricName("device_opt.host_syncs", "metric", "device optimizer: host reads of the loop's state"),
+    MetricName("device_opt.capture_seconds", "metric", "device optimizer: host seconds spent capturing the step"),
+    MetricName("device_opt.graph_nodes", "metric", "device optimizer: nodes of the captured step's CUDA graph"),
+    MetricName("device_opt.warmup_evaluations", "metric", "device optimizer: objective evaluations that warmed a capture of a resumed state"),
     MetricName("objective", "metric", "regression training objective (marginal/loo/elbo)"),
     MetricName("likelihood", "metric", "count-regression likelihood (PoissonLikelihood/NegativeBinomialLikelihood)"),
     MetricName("newton_iterations", "metric", "Laplace Newton iterations over the fit"),

@@ -7,24 +7,30 @@ takes seconds.  Libraries are keyed by a digest of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
 The build directory ``csrc/build/`` is listed in ``.gitignore``.
 
-A failed build raises :class:`KernelBuildError` and a failed launch
-:class:`KernelLaunchError` (both ``RuntimeError``s): the degradation
+A failed build raises :class:`KernelBuildError`, a failed launch
+:class:`KernelLaunchError` and a CUDA graph that could not be captured
+:class:`GraphCaptureError` (all ``RuntimeError``s): the degradation
 ladder classifies them by type as ``unknown`` and never degrades them
 (``resilience/fallback.py``).  Every build counts
 ``kernel.builds.<name>`` and every launch ``kernel.launches.<name>`` in
-the runtime telemetry (``obs/runtime.py``).
+the runtime telemetry (``obs/runtime.py``).  A wrapper called while a
+CUDA graph is being captured under :func:`capture_tally` launches
+nothing yet: it tallies the launch into the graph's record, and each
+replay of the graph counts the tallied launches (:func:`count_replays`).
 
 Nothing here runs at import: the CPU test harness has no ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -52,10 +58,59 @@ class KernelLaunchError(RuntimeError):
     """A hand-written kernel's launch returned a CUDA error."""
 
 
-def count_launch(name: str) -> None:
-    """One launch of kernel ``name`` in the runtime telemetry, attributed
-    to the active trace root: a host dict update, no device work."""
-    telemetry.inc(f"kernel.launches.{name}")
+class GraphCaptureError(RuntimeError):
+    """Work that must run from a captured CUDA graph could not be
+    captured (an operation that reads the device from the host, or one
+    the capture refuses)."""
+
+
+def count_launch(name: str, n: float = 1.0) -> None:
+    """``n`` launches of kernel ``name`` in the runtime telemetry,
+    attributed to the active trace root: a host dict update, no device
+    work."""
+    telemetry.inc(f"kernel.launches.{name}", n=n)
+
+
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Around a CUDA graph capture: the wrappers called inside, while the
+    stream captures, tally their launches into the yielded dict (kernel
+    name -> ``[wrapper, launches per replay]``) instead of counting them."""
+    prev = getattr(_CAPTURE, "tally", None)
+    tally: dict = {}
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = prev
+
+
+def record_launch(wrapper, name: str) -> None:
+    """The wrappers' one launch counter: ``wrapper.launches`` and the
+    telemetry count one launch, or, while a graph captures under
+    :func:`capture_tally`, the capture's tally does."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        import torch
+
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            tally.setdefault(name, [wrapper, 0])[1] += 1
+            return
+    wrapper.launches += 1
+    count_launch(name)
+
+
+def count_replays(tally: dict, replays: int) -> None:
+    """Count the launches of ``replays`` replays of a graph whose capture
+    tallied ``tally``: each replay launches every tallied kernel again."""
+    for name, (wrapper, per_replay) in tally.items():
+        n = int(per_replay) * int(replays)
+        if n:
+            wrapper.launches += n
+            count_launch(name, n)
 
 
 def nvcc_path() -> str:

@@ -11,7 +11,9 @@ The BCM likelihood needs, for every expert's ``s x s`` gram: ``log|K|``,
   block per matrix in shared memory, above it a sequence of launches over
   32 x 32 tiles of a workspace (many blocks per matrix), whose size the
   library reports.  The launch counter counts one per call, however many
-  CUDA launches the call makes;
+  CUDA launches the call makes; a call made while a CUDA graph captures
+  (the device optimizer's step) counts once per replay of the graph
+  (``ops/cuda_lib.record_launch``);
 * on a CPU tensor it runs :func:`spd_inv_logdet_plain`, the same function
   in plain PyTorch (Cholesky, logdet from the diagonal, ``cholesky_inverse``);
 * anything else on CUDA raises -- there is no silent fallback.
@@ -98,8 +100,7 @@ def _launch(k: torch.Tensor):
         )
     if err != 0:
         raise cuda_lib.KernelLaunchError(f"spd_inv_logdet kernel launch failed: CUDA error {err}")
-    spd_inv_logdet.launches += 1
-    cuda_lib.count_launch("spd_inv_logdet")
+    cuda_lib.record_launch(spd_inv_logdet, "spd_inv_logdet")
     return kinv, logdet
 
 

@@ -234,8 +234,7 @@ def _launch(x, v, params, spec, degree):
         )
     if err != 0:
         raise cuda_lib.KernelLaunchError(f"streamed_matvec kernel launch failed: CUDA error {err}")
-    streamed_matvec.launches += 1
-    cuda_lib.count_launch("streamed_matvec")
+    cuda_lib.record_launch(streamed_matvec, "streamed_matvec")
     return out
 
 
@@ -265,8 +264,7 @@ def _launch_vjp(x, w, v, params, spec, degree):
     if err != 0:
         raise cuda_lib.KernelLaunchError(
             f"streamed_matvec_vjp kernel launch failed: CUDA error {err}")
-    streamed_matvec_vjp.launches += 1
-    cuda_lib.count_launch("streamed_matvec_vjp")
+    cuda_lib.record_launch(streamed_matvec_vjp, "streamed_matvec_vjp")
     total = partial.sum(dim=0, dtype=torch.float64).to(x.dtype)
     grad[: spec.n_params] = total[: spec.n_params]
     return grad

@@ -1,1 +1,2 @@
-"""Hyperparameter optimizers: host L-BFGS-B."""
+"""Hyperparameter optimizers: L-BFGS-B on the host (SciPy, ``lbfgsb.py``)
+and on the device (``lbfgs_device.py``)."""

@@ -274,8 +274,9 @@ class SimulatedPreemption(BaseException):
 
 class PreemptingCheckpointer:
     """The host optimizer's checkpoint callback
-    (``utils/checkpoint.LbfgsCheckpointer``), killed right after its k-th
-    save by :class:`SimulatedPreemption`.  The wrapped write is atomic, so
+    (``utils/checkpoint.LbfgsCheckpointer``) or the device optimizer's
+    segment saver, killed right after its k-th save by
+    :class:`SimulatedPreemption`.  The wrapped write is atomic, so
     the file on disk is the complete k-th state and a refit resumes from
     it."""
 
@@ -294,6 +295,17 @@ class PreemptingCheckpointer:
 
     def record(self, theta, value, grad) -> None:
         self.inner.record(theta, value, grad)
+
+    def save(self, state, meta: dict) -> None:
+        """The device optimizer's segment save (``utils/checkpoint.
+        DeviceOptimizerCheckpointer``), killed the same way."""
+        self.inner.save(state, meta)
+        self.saves += 1
+        if self.saves >= self.kill_after_saves:
+            raise SimulatedPreemption(f"preempted after checkpoint save #{self.saves}")
+
+    def load(self, template, meta: dict):
+        return self.inner.load(template, meta)
 
     @property
     def iteration(self):

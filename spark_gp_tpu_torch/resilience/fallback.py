@@ -5,18 +5,24 @@ fallback re-execution (the port's copy of the JAX package's
 * a **closed failure taxonomy** (:data:`FAILURE_CLASSES`, the JAX
   package's) and :func:`classify_failure`, which maps an exception into
   it by TYPE first: the port's own kernel failures
-  (``KernelBuildError``, ``KernelLaunchError``) are ``unknown`` before
-  any message is read, so no text that nvcc or the driver put into them
-  can make the ladder degrade -- and so route around -- a kernel;
+  (``KernelBuildError``, ``KernelLaunchError``) and a device optimizer
+  step that could not be captured (``GraphCaptureError``) are
+  ``unknown`` before any message is read, so no text that nvcc or the
+  driver put into them can make the ladder degrade -- and so route
+  around -- a kernel or the captured loop;
   ``torch.cuda.OutOfMemoryError``, ``MemoryError`` and the caching
   allocator's "CUDA out of memory" are ``oom``;
 * **declarative ladders** per entry point (:data:`LADDERS`): a classified
   failure re-executes the work one rung down.  Fit: ``native`` ->
   ``iterative`` -> ``matfree`` (the solver lanes, ``ops/iterative.py``)
-  -> ``host_f64`` (the same fit with float64 operands ON THE CARD,
-  under the host optimizer); ``segmented`` waits for the on-device
-  optimizer and ``strict_lane`` for the mixed precision lanes, so they
-  never apply.  No rung moves a fit to the CPU.  Predict: chunk halving
+  -> ``segmented`` (the device optimizer's fit in segments of half the
+  checkpoint interval, with an in-memory saver) -> ``host_f64`` (the
+  same fit with float64 operands ON THE CARD, under the host optimizer);
+  the solver rungs do not apply to a device-optimizer fit, whose other
+  lanes are ROADMAP.md queue 1, item 4b, and ``strict_lane`` waits for
+  the mixed precision lanes.  No rung moves a fit to the CPU.  With a
+  device budget, the memory planner picks the starting rung of a
+  device-optimizer fit (``memplan.plan_fit_dispatch``).  Predict: chunk halving
   on OOM, then the last rung (the JAX package's ``host_solve``), which
   runs the request one row at a time in float64 on its own device.
   Every transition is counted
@@ -126,7 +132,11 @@ def classify_failure(exc: BaseException) -> str:
     unrecognized is :data:`UNKNOWN`, which the ladder never degrades."""
     import torch
 
-    from spark_gp_tpu_torch.ops.cuda_lib import KernelBuildError, KernelLaunchError
+    from spark_gp_tpu_torch.ops.cuda_lib import (
+        GraphCaptureError,
+        KernelBuildError,
+        KernelLaunchError,
+    )
     from spark_gp_tpu_torch.ops.linalg import NotPositiveDefiniteException
     from spark_gp_tpu_torch.resilience.quarantine import (
         ExpertQuarantineError,
@@ -134,9 +144,10 @@ def classify_failure(exc: BaseException) -> str:
     )
     from spark_gp_tpu_torch.resilience.retry import RetryBudgetExceededError
 
-    if isinstance(exc, (KernelBuildError, KernelLaunchError)):
-        # a failure of one of the port's own kernels: degrading it would
-        # finish the fit without the kernel, whatever its text says
+    if isinstance(exc, (KernelBuildError, KernelLaunchError, GraphCaptureError)):
+        # a failure of one of the port's own kernels, or of the capture of
+        # the loop that launches them: degrading it would finish the fit
+        # without them, whatever its text says
         return UNKNOWN
     if isinstance(exc, DegradationExhaustedError):
         return exc.failure_class
@@ -248,6 +259,26 @@ _FIT_POLICY = {
 MAX_PREDICT_HALVINGS = 8
 
 
+def fallback_segment_chunk(checkpoint_interval: int) -> int:
+    """The ``segmented`` rung's segment: half the configured checkpoint
+    interval (``setCheckpointInterval``, default 10)."""
+    return max(1, int(checkpoint_interval) // 2)
+
+
+class NullSegmentSaver:
+    """The ``segmented`` rung's in-memory saver: the device fit's segment
+    loop without persisted state (the fit asked for no checkpoint
+    directory)."""
+
+    path = None
+
+    def load(self, template, meta: dict):
+        return None
+
+    def save(self, state, meta: dict) -> None:
+        pass
+
+
 def _fit_rung_applies(est, rung: str, cls: str, visited, data=None) -> bool:
     """Whether ``rung`` is a legal next step for this estimator and class.
     ``data`` (the fit's expert stack) lets the solver rungs resolve an
@@ -256,6 +287,10 @@ def _fit_rung_applies(est, rung: str, cls: str, visited, data=None) -> bool:
         return False
     if rung in ("iterative", "matfree"):
         from spark_gp_tpu_torch.kernels.base import supports_matfree
+
+        if est._resolved_optimizer() == "device":
+            # the device optimizer runs the exact lane only (item 4b)
+            return False
         from spark_gp_tpu_torch.ops.iterative import active_solver_lane, resolve_solver
 
         if rung == "matfree" and not supports_matfree(est._get_kernel()):
@@ -275,7 +310,14 @@ def _fit_rung_applies(est, rung: str, cls: str, visited, data=None) -> bool:
             # CPU harness) keeps raising the reference's advice
             return data is not None and data.x.element_size() < 8
         return True
-    # segmented: the on-device optimizer's segment driver (item 4);
+    if rung == "segmented":
+        # the plain single-start device fit: a checkpointed fit is already
+        # segmented, and the batched multi-start has no segment driver
+        return (
+            est._checkpoint_dir is None
+            and est._num_restarts == 1
+            and est._resolved_optimizer() == "device"
+        )
     # strict_lane: the mixed precision lanes (item 14)
     return False
 
@@ -292,7 +334,8 @@ def _fit_rung_scope(est, rung: str):
     """Bind one rung's overrides for the span of an attempt: the solver
     rungs pin this thread's lane (``solver_lane_scope``, which outranks a
     caller's own scope outside it and leaves other threads' fits alone),
-    ``host_f64`` sets ``est._fallback_mode`` (``common._host_f64_operands``)."""
+    ``segmented`` and ``host_f64`` set ``est._fallback_mode``
+    (``common._fallback_segmented``, ``common._host_f64_operands``)."""
     if rung == "native":
         yield
         return
@@ -314,20 +357,29 @@ def run_fit_ladder(est, instr, attempt: Callable, data=None):
     """The fit entry point's ladder driver around the complete attempt
     (which runs the per-expert numerical recovery inside; the ladder sees
     only what that layer could not repair).  ``data`` (the expert stack)
-    lets the rung gates resolve the lanes.  The attempt starts at
-    ``native``: a starting-rung plan (``memplan.plan_fit_dispatch``) exists
-    only for the on-device optimizer, ROADMAP.md queue 1, item 4."""
+    lets the rung gates resolve the lanes.  With a device budget the
+    memory planner picks a device-optimizer fit's starting rung
+    (``memplan.plan_fit_dispatch``: ``native`` or the pre-sized
+    ``segmented``); a failure despite a plan that admitted it counts
+    ``plan.miss``, and the ladder degrades as without one."""
     if not enabled():
         return attempt()
-    rung = "native"
-    visited = {rung}
+    from spark_gp_tpu_torch.resilience import memplan
+
+    plan = memplan.plan_fit_dispatch(est, instr, data)
+    rung = "native" if plan is None else plan.chosen
+    visited = {"native", rung}
     degradations: List[dict] = []
+    plan_missed = False
     while True:
         try:
             with _fit_rung_scope(est, rung):
                 model = attempt()
         except Exception as exc:  # classified-failure-site: taxonomy dispatch
             cls = record_failure(exc, entry="fit")
+            if plan is not None and plan.fits and not plan_missed and cls == OOM:
+                plan_missed = True
+                memplan.record_plan_miss("fit")
             nxt = _next_fit_rung(est, cls, visited, data)
             if nxt is None:
                 if degradations:

@@ -20,10 +20,9 @@ programs against the device budget:
   first predicted-safe one wins.  Consumers: ``ops/iterative.resolve_solver``
   (the budget-aware ``auto`` lane), the PPA predict chunk
   (:func:`plan_predict_chunk`), the serve admission gate
-  (:func:`predict_request_bytes` against :func:`memory_in_use_bytes`);
-  :func:`plan_fit_dispatch` plans only
-  the on-device optimizer, so it is None on the host optimizer, the
-  port's only one.  The reactive ladder
+  (:func:`predict_request_bytes` against :func:`memory_in_use_bytes`),
+  and the fit's starting rung (:func:`plan_fit_dispatch`, the device
+  optimizer's fits only).  The reactive ladder
   (``resilience/fallback.py``) stays the backstop: an OOM despite a plan
   counts ``plan.miss``.
 
@@ -45,9 +44,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 #: operands at (14, 97) (K1) and (9, 4065) (cuSOLVER); the iterative
 #: lane's materialized gram, its jittered copy and the autograd residuals
 #: of its two differentiated products ~6.9.  ``host_f64`` is the exact lane in float64 (callers pass
-#: ``itemsize=8``); ``matfree`` builds no gram.
+#: ``itemsize=8``); ``matfree`` builds no gram.  ``segmented`` is the
+#: device optimizer's fit in segments: the same captured step as its
+#: one-shot fit, so the same evaluation's buffers (its calibration key is
+#: its own, so a measured one-shot peak above the model leaves the
+#: segmented rung's prediction, and the planner may start there).
 _FIT_RUNG_WORK_FACTOR = {
     "native": 9.0,
+    "segmented": 9.0,
     "host_f64": 9.0,
     "iterative": 6.5,
     "matfree": 0.0,
@@ -320,10 +324,32 @@ def fit_rung_of_lane(resolved: str, streams: bool) -> str:
 
 
 def plan_fit_dispatch(est, instr, data) -> Optional[PlanDecision]:
-    """The fit's starting-rung plan: None on the host optimizer, the
-    port's only one (the JAX package's rule); the on-device optimizer it
-    plans for is ROADMAP.md queue 1, item 4."""
-    return None
+    """The fit's starting rung, planned before the first attempt (called by
+    ``fallback.run_fit_ladder``): ``native`` (the one-shot device fit)
+    preferred, the ladder's ``segmented`` rung as the pre-sized
+    alternative where it applies (``fallback._fit_rung_applies``).  Only
+    the device optimizer's fits are planned (the host optimizer's
+    per-evaluation work is the same on every rung it has); None -- no
+    constraint -- for them, without a stack, or without a budget."""
+    if not enabled() or data is None:
+        return None
+    if est._resolved_optimizer() != "device":
+        return None
+    budget = memory_budget_bytes()
+    if budget is None:
+        return None
+    e, s, p = (int(d) for d in data.x.shape)
+    itemsize = data.x.element_size()
+    family = type(est).__name__
+    candidates = [("native", fit_dispatch_bytes(e, s, p, itemsize, "native", 1, family))]
+    from spark_gp_tpu_torch.resilience import fallback
+
+    if fallback._fit_rung_applies(est, "segmented", fallback.OOM, set(), data):
+        candidates.append(
+            ("segmented", fit_dispatch_bytes(e, s, p, itemsize, "segmented", 1, family)))
+    decision = plan_dispatch("fit", candidates, budget)
+    stamp_decision(instr, decision)
+    return decision
 
 
 def plan_predict_chunk(chunk: int, m: int, n_features: int, itemsize: int,

@@ -1,5 +1,5 @@
-"""Preemption-safe checkpoints of the host L-BFGS-B optimizer (the host
-half of the JAX package's ``utils/checkpoint.py``).
+"""Preemption-safe checkpoints of the L-BFGS-B optimizers (the JAX
+package's ``utils/checkpoint.py``).
 
 :class:`LbfgsCheckpointer` is the optimizer's per-iteration callback: it
 saves theta, the iteration count and the estimator seed as one JSON
@@ -14,9 +14,19 @@ from the initial theta and answers its evaluations from the log, which
 rebuilds the optimizer's state exactly at no objective cost; from the
 preempted iteration on the fit runs live and retraces the uninterrupted
 one.  A payload without the log resumes as the JAX package's does, from
-the saved theta with the remaining iteration budget.  The device
-optimizer's segment checkpointer comes with that optimizer (ROADMAP.md
-queue 1, item 4).
+the saved theta with the remaining iteration budget.
+
+:class:`DeviceOptimizerCheckpointer` is the device optimizer's segment
+saver (``optimize/lbfgs_device.py``): between segments it writes one
+lane's full ``_LbfgsState`` -- iterate, gradient, curvature history,
+counters and flags -- in the JAX package's ``.npz`` layout (``leaf_i``
+arrays in the state's field order, ``meta_json`` and a sha256
+``checksum``), so a device checkpoint moves between the two packages.
+:func:`run_segmented` is the segment loop, and :func:`segment_meta` the
+resume guard both packages write: a checkpoint whose meta differs (other
+objective, kernel spec, tol, parameterization, start, stack shape or
+data) is ignored with a warning.  Saves fall on iteration boundaries,
+so a payload never holds a half-finished line search.
 
 Durability: the payload is written to ``<path>.tmp``, fsynced and
 ``os.replace``d over the file, so a kill at any instant leaves the
@@ -31,6 +41,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -215,3 +226,193 @@ def load_checkpoint_payload(directory: str, tag: str = "gp"):
             "restart the fit from scratch"
         )
     return payload
+
+
+# --- the device optimizer's checkpoints ---------------------------------------
+
+
+def _npz_digest(arrays) -> str:
+    """sha256 over the sorted ``name -> array`` entries but ``checksum``
+    (the JAX package's device-checkpoint digest)."""
+    digest = hashlib.sha256()
+    for key in sorted(k for k in arrays if k != "checksum"):
+        digest.update(key.encode())
+        digest.update(np.ascontiguousarray(arrays[key]).tobytes())
+    return digest.hexdigest()
+
+
+def spec_fingerprint(kernel) -> str:
+    """The JAX package's device-checkpoint kernel fingerprint: the class
+    tree with every spec constant (``Kernel._spec``, which the port's
+    kernels mirror), so a checkpoint written by either package names the
+    same kernel the same way."""
+
+    def render(v) -> str:
+        if hasattr(v, "_spec") and hasattr(v, "init_theta"):
+            return f"{type(v).__name__}({','.join(render(c) for c in v._spec())})"
+        if isinstance(v, tuple):
+            return "(" + ",".join(render(c) for c in v) + ")"
+        return repr(v)
+
+    return render(kernel)
+
+
+def _as_numpy(a):
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def segment_meta(kind, kernel, tol, log_space, theta0, x, y, mask, **extra) -> dict:
+    """The segmented fit's resume guard, as the JAX package writes it:
+    everything that must match for a stored state to resume -- the
+    objective family, the kernel spec, tol, the parameterization, the
+    starting point, the stack's shape and a content fingerprint of its
+    data."""
+    theta0 = _as_numpy(theta0)
+    meta = {
+        "kind": str(kind),
+        "kernel": spec_fingerprint(kernel),
+        "tol": float(tol),
+        "log_space": bool(log_space),
+        "theta0": [float(v) for v in theta0.ravel()],
+        "theta_dim": int(theta0.shape[0]),
+        "num_experts": int(x.shape[0]),
+        "expert_size": int(x.shape[1]),
+        "data_fingerprint": data_fingerprint(x, y, mask),
+    }
+    meta.update(extra)
+    return meta
+
+
+def _meta_matches(stored: dict, want: dict) -> bool:
+    """Equal metas, the data fingerprints to summation-order rounding (the
+    two packages sum the stack in different orders)."""
+    if set(stored) != set(want):
+        return False
+    for key, value in want.items():
+        if key == "data_fingerprint":
+            a, b = stored[key], value
+            if len(a) != len(b) or any(
+                    abs(u - v) > 1e-9 * max(1.0, abs(u), abs(v)) for u, v in zip(a, b)):
+                return False
+        elif stored[key] != value:
+            return False
+    return True
+
+
+class DeviceOptimizerCheckpointer:
+    """Saves the device optimizer's full state between segments
+    (``<directory>/<tag>_device_lbfgs.npz``, the JAX package's file),
+    written atomically; a checkpoint of another configuration (meta or
+    layout) is ignored with a warning rather than trusted."""
+
+    def __init__(self, directory: str, tag: str = "gp") -> None:
+        os.makedirs(directory, exist_ok=True)
+        self.path = os.path.join(directory, f"{tag}_device_lbfgs.npz")
+
+    def build_arrays(self, state, meta: dict) -> dict:
+        """The payload: one lane's state (a device state dict or an
+        ``_LbfgsState``) as ``leaf_i`` arrays, the meta and the
+        checksum."""
+        from spark_gp_tpu_torch.optimize.lbfgs_device import host_state
+
+        host = host_state(state) if isinstance(state, dict) else state
+        arrays = {f"leaf_{i}": np.asarray(v) for i, v in enumerate(host)}
+        arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+        arrays["checksum"] = np.frombuffer(_npz_digest(arrays).encode(), dtype=np.uint8)
+        return arrays
+
+    def save(self, state, meta: dict) -> None:
+        tmp = self.path + ".tmp.npz"
+        np.savez(tmp, **self.build_arrays(state, meta))
+        _fsync_replace(tmp, self.path)
+
+    def load(self, template: dict, meta: dict):
+        """The stored ``_LbfgsState``, or None when there is none or it was
+        written for another configuration; ``template`` is
+        ``lbfgs_device.state_template``'s ``{field: (shape, dtype)}``.
+        Raises :class:`CheckpointCorruptError` on a checksum failure."""
+        from spark_gp_tpu_torch.optimize.lbfgs_device import STATE_FIELDS, _LbfgsState
+
+        if not os.path.exists(self.path):
+            return None
+        with np.load(self.path) as npz:
+            if "checksum" in npz.files:
+                stored = bytes(npz["checksum"]).decode()
+                if stored != _npz_digest({k: npz[k] for k in npz.files}):
+                    raise CheckpointCorruptError(
+                        f"device checkpoint {self.path} failed its content checksum; "
+                        "delete it to restart the fit from scratch"
+                    )
+            stored_meta = json.loads(bytes(npz["meta_json"]))
+            # the JAX package's multi-host stamp: the iterate is replicated,
+            # so it does not bind a single-process resume
+            stored_meta.pop("elastic", None)
+            if not _meta_matches(stored_meta, meta):
+                warnings.warn(
+                    f"ignoring device checkpoint {self.path}: configuration changed "
+                    f"({stored_meta} != {meta})",
+                    stacklevel=2,
+                )
+                return None
+            leaves = []
+            for i, field in enumerate(STATE_FIELDS):
+                key = f"leaf_{i}"
+                shape, dtype = template[field]
+                if key not in npz.files or npz[key].shape != tuple(shape) \
+                        or npz[key].dtype != dtype:
+                    warnings.warn(f"ignoring device checkpoint {self.path}: state layout changed",
+                                  stacklevel=2)
+                    return None
+                leaves.append(np.array(npz[key]))
+        return _LbfgsState(*leaves)
+
+
+def run_segmented(vag, start, cfg, saver, meta: dict, max_iter: int, chunk: int,
+                  loop_metrics: Optional[dict] = None):
+    """The segmented device fit's loop: load the state ``saver`` holds for
+    ``meta`` (a resume skips the initial evaluation) or start at ``start``
+    ``[h]``, advance it ``chunk`` iterations at a time on one
+    ``lbfgs_device.DeviceLoop`` (one captured step on the card), and hand
+    the state to ``saver.save`` after each segment.  Returns the final
+    one-lane state dict; ``loop_metrics`` receives the loop's metrics and
+    ``resumed_from_iteration``."""
+    from spark_gp_tpu_torch.optimize.lbfgs_device import (
+        DeviceLoop,
+        device_state,
+        lbfgs_init_state,
+        state_template,
+    )
+    from spark_gp_tpu_torch.resilience.chaos import SimulatedPreemption
+
+    host = saver.load(state_template(int(start.shape[0]), start.dtype, cfg.m_hist), meta)
+    if host is None:
+        state, resumed = lbfgs_init_state(vag, start[None], cfg), 0
+    else:
+        state, resumed = device_state(host, cfg, start.device), int(host.n_iter)
+    loop = DeviceLoop(vag, state, cfg)
+    try:
+        while True:
+            loop.counts["host_syncs"] += 1
+            done, n_iter = _host_ints(loop.state["done"][0], loop.state["n_iter"][0])
+            if done or n_iter >= max_iter:
+                break
+            loop.advance(min(n_iter + int(chunk), int(max_iter)), warm=host is None)
+            saver.save(loop.state, meta)
+    except SimulatedPreemption as exc:
+        exc.nfev = int(loop.state["n_fev"][0])
+        exc.loop_metrics = loop.counts
+        raise
+    finally:
+        loop.release()
+        if loop_metrics is not None:
+            loop_metrics.update(loop.counts, resumed_from_iteration=resumed)
+    return loop.state
+
+
+def _host_ints(*scalars):
+    """Device scalars read back in one transfer, as int64."""
+    import torch
+
+    return torch.stack([s.to(torch.int64) for s in scalars]).cpu().tolist()

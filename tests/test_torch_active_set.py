@@ -103,10 +103,16 @@ def test_two_restart_fit_matches_jax():
 
 
 def test_classifiers_refuse_restarts():
+    """The classifiers take restarts (the sequential driver,
+    test_torch_restarts.py) and, as the JAX package's, refuse them beside a
+    checkpoint directory, before any fit work."""
+    x = np.zeros((12, 2))
     for cls in (tgp.GaussianProcessClassifier, tgp.GaussianProcessMulticlassClassifier):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            cls(device="cpu").setNumRestarts(2)
+        assert cls(device="cpu").setNumRestarts(2)._num_restarts == 2
         assert cls(device="cpu").setNumRestarts(1)._num_restarts == 1
+        gp = cls(device="cpu").setNumRestarts(2).setCheckpointDir("/nonexistent/checkpoints")
+        with pytest.raises(ValueError, match="not combinable"):
+            gp.fit(x, np.arange(12.0) % 2)
 
 
 @pytest.fixture(scope="module")

@@ -218,7 +218,7 @@ def test_count_fit_matches_jax(dispersion):
 @pytest.mark.parametrize("call, error, message", [
     (lambda gp, x, y: gp.fit(x, y - 0.5), ValueError, "non-negative integer counts"),
     (lambda gp, x, y: gp.fit(x, -y - 1.0), ValueError, "non-negative integer counts"),
-    (lambda gp, x, y: gp.setNumRestarts(2), NotImplementedError, r"item 5"),
+    (lambda gp, x, y: gp.setOptimizer("device"), NotImplementedError, r"item 4b"),
     (lambda gp, x, y: gp.fit_distributed(None), NotImplementedError, r"item 6"),
 ])
 def test_count_estimator_surface(call, error, message):

@@ -98,20 +98,19 @@ def test_non_finite_rows_raise():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda gp: gp.setOptimizer("device"),
-        # restarts are ported for regression only
-        lambda gp: tgp.GaussianProcessClassifier(device="cpu").setNumRestarts(3),
+        # the device optimizer is ported for the regression fit only
+        lambda gp: tgp.GaussianProcessNegativeBinomialRegression(device="cpu").setOptimizer("device"),
+        lambda gp: tgp.GaussianProcessClassifier(device="cpu").setOptimizer("device"),
         lambda gp: gp.setMesh(object()),
         # (checkpoints and model I/O are ported: test_torch_checkpoint.py,
         # test_torch_serialization.py; the serve quality plane is not)
         lambda gp: GPServeServer(device="cpu", quality=True),
-        lambda gp: tgp.GaussianProcessMulticlassClassifier(device="cpu").setNumRestarts(2),
-        # the batched device multi-start waits for the device optimizer
-        lambda gp: gp.setObjective("elbo").setNumRestarts(2).setOptimizer("device"),
+        lambda gp: tgp.GaussianProcessMulticlassClassifier(device="cpu").setOptimizer("device"),
+        lambda gp: tgp.GaussianProcessPoissonRegression(device="cpu").setOptimizer("device"),
         # the JAX package's remaining setters and model I/O, each naming
         # its item (setProfileDir is ported: test_torch_obs.py)
         lambda gp: GPServeServer(device="cpu").observe("m", "request", [0.0]),
-        lambda gp: tgp.GaussianProcessEPClassifier(device="cpu").setNumRestarts(2),
+        lambda gp: tgp.GaussianProcessEPClassifier(device="cpu").setOptimizer("device"),
         # (quarantine, retries and the aggregation policies are ported:
         # test_resilience_setters_match_jax)
         lambda gp: gp.setPrecisionLane("fast"),

@@ -116,7 +116,7 @@ def test_byte_models_order_the_lanes_at_the_protein_matfree_shape():
 
 
 def test_fit_plan_is_none_on_the_host_optimizer():
-    # the port's only optimizer: the fit starts at native whatever the budget
+    # the host optimizer: the fit starts at native whatever the budget
     x = np.random.default_rng(0).normal(size=(400, 3))
     est = tgp.GaussianProcessRegression(device="cpu").setKernel(lambda: tgp.RBFKernel(1.0))
     data = group_for_experts(x, x.sum(1), 200, dtype=torch.float32, device="cpu")
