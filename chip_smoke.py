@@ -253,7 +253,33 @@ code is non-zero and the final ``ok`` line is never printed:
                point: exactly one transition, native -> segmented; theta
                within 1e-5 relative of the clean device fit's.
 63. slice10-phases -- the seconds of phases 56-62.
-64. kernels -- one line with every kernel's numbers.
+64. gpc-device-check -- gpc-mnist's training stack (16, 100) fitted by
+               laplace.fit_gpc_device, its loop replayed from the captured
+               graph and run eagerly: theta, latent modes, f, n_iter,
+               n_fev, and the device-counted Newton iterations and
+               gradient passes equal; K1 launches on the step's rule
+               (every replay runs its 3 Newton iterations and its pass:
+               torch 2.11 has no conditional graph node); the step's
+               graph nodes and replay ms beside one trial's alone.
+65. gpc-mnist-device -- phase 14 on the device optimizer: accuracy > 0.84.
+66. iris-ovr-device -- phase 16 on the device optimizer (30 fits): >= 0.9.
+67. iris-native-device -- phase 18 on the device optimizer: > 0.9 and
+               within 0.02 of the JAX package's.
+68. poisson-device, nb-device -- phases 38-39 on the device optimizer:
+               rate errors < 0.1 / < 0.15.
+69. multistart -- iris-native's first fold with 4 restarts in one loop:
+               one K1 launch over all lanes' 84 B_c matrices a Newton
+               iteration; the winner is the lowest restart NLL.
+70. checkpoint-device-gpc -- iris versicolor-vs-rest on the first fold,
+               segments of one iteration, preempted after 2 saves and
+               resumed: theta bit-equal to the uninterrupted fit's.
+71. segmented-rung-gpc -- the same fit under an OOM staged at the
+               one-shot device fit's choke point: exactly one transition.
+72. laplace-device-table -- the host-against-device table of gpc-mnist,
+               iris-ovr, iris-native, Poisson and NB.
+73. slice11-phases -- the seconds of phases 64-72.  Every K1 launch in
+               64-71 follows the step's rule (``latent_k1_rule``).
+74. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.  Every phase line
 carries ``fallback_transitions``, the ladder's transitions since the line
 before it; a phase that stages no fault fails if it moved them.
@@ -355,7 +381,8 @@ OBJECTIVE_BARS = {"loo": (1e-5, 1e-4), "elbo": (1e-4, 1e-3)}
 
 # the phases that stage a fault; every other phase must leave the fit
 # ladder's transition count where the phase before it left it
-FAULT_PHASES = ("ladder-oom", "predict-ladder", "terminal", "segmented-rung")
+FAULT_PHASES = ("ladder-oom", "predict-ladder", "terminal", "segmented-rung",
+                "segmented-rung-gpc")
 _transitions_seen = [0.0]
 
 
@@ -792,16 +819,18 @@ def iris_native_cv(torch, d: dict, device=None) -> dict:
     return cv_fits(torch, d, lambda: iris_native_gpc(device), lambda model: [model], device)
 
 
-def cv_fits(torch, d: dict, make, models, device, engine: str = "newton_iterations") -> dict:
+def cv_fits(torch, d: dict, make, models, device, engine: str = "newton_iterations",
+            extra=()) -> dict:
     """A fit of ``make()`` per iris fold: the mean accuracy, the metrics of
     the fitted classifiers (``models(fitted)``) summed (``engine`` names
-    the inference engine's count: Newton iterations, or EP's sweeps), their
+    the inference engine's count: Newton iterations, or EP's sweeps;
+    ``extra`` more metrics to sum), their
     number, (E, s) and ``gram_cache_engaged`` values, and the seconds of
     the whole."""
     from spark_gp_tpu_torch.utils.validation import accuracy
 
     start = time.perf_counter()
-    keys = ("lbfgs_nfev", engine, "objective_calls") + PHASES
+    keys = ("lbfgs_nfev", engine, "objective_calls") + PHASES + tuple(extra)
     scores, sums, shapes, engaged, fits = [], dict.fromkeys(keys, 0), set(), set(), []
     for train, test in d["folds_i"]:
         fitted = make().fit(d["xi"][train], d["yi"][train])
@@ -811,7 +840,7 @@ def cv_fits(torch, d: dict, make, models, device, engine: str = "newton_iteratio
             shapes.add((model.metrics["num_experts"], model.metrics["expert_size"]))
             engaged.add(model.metrics["gram_cache_engaged"])
             for key in sums:
-                sums[key] += model.metrics[key]
+                sums[key] += model.metrics.get(key, 0.0) if key in extra else model.metrics[key]
     if device is None:
         torch.cuda.synchronize()
     per_eval = "newton_per_eval" if engine == "newton_iterations" else f"{engine}_per_eval"
@@ -1138,6 +1167,7 @@ def classifier_phases(torch, spd, lap, it_ops, cdata: dict) -> dict:
     prof["newton_per_eval"] = ((lap.laplace_mode_batch.iterations - before[1])
                                / (lap.batched_neg_logz.calls - before[2]))
     spd.spd_inv_logdet.launches = before[0]
+    HOST_FITS["gpc_mnist"] = fit
     emit({"phase": "gpc-mnist", "shape": [16, 100, 784], **fit, "launches": launches_gpc_mnist,
           "host_reads": iterations + 2 * calls, "theta": theta_fit.tolist(),
           "bar": GPC_BARS["gpc_mnist"], "jax_cpu_accuracy": JAX_CPU_ACCURACY["gpc_mnist"],
@@ -1174,6 +1204,7 @@ def classifier_phases(torch, spd, lap, it_ops, cdata: dict) -> dict:
     if iris["experts"] != [(7, 20)]:
         raise AssertionError(f"iris-ovr: (E, s) per fit {iris['experts']}")
     iris_cpu = iris_cv(torch, cdata, "cpu")
+    HOST_FITS["iris_ovr"] = iris
     emit({"phase": "iris-ovr", **iris, "launches": launches_iris,
           "host_reads": iris["newton_iterations"] + 2 * iris["objective_calls"],
           "bar": GPC_BARS["iris_ovr"], "jax_cpu_accuracy": JAX_CPU_ACCURACY["iris_ovr"],
@@ -1283,6 +1314,7 @@ def multiclass_phases(torch, spd, lap_mc, it_ops, cdata: dict) -> dict:
     prof["newton_per_eval"] = ((lap_mc.laplace_mc_mode.iterations - before[1])
                                / (lap_mc.batched_neg_logz_mc.calls - before[2]))
     spd.spd_inv_logdet.launches = launches
+    HOST_FITS["iris_native"] = native
     spread = abs(native["accuracy"] - JAX_CPU_ACCURACY["iris_native"])
     emit({"phase": "iris-native", "shape": [7, 20, 3], "b_stack": [21, 20], **native,
           "launches": launches, "launches_rule": "newton_iterations + 2 * objective_calls",
@@ -2194,7 +2226,7 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
         expected = 0 if lane else row["newton_iterations"] + 2 * row["objective_calls"]
         if lane is None:
             row["cpu"] = count_fit(poisson_gp(dispersion, "cpu"), d6, y_counts)
-        counts[label] = row
+        counts[label] = HOST_FITS[label] = row
         emit({"phase": label.replace("_", "-"), **row, "bar": SLICE6_BARS[label],
               "jax_cpu": JAX_CPU_SLICE6.get(label)})
         if not (row["mean_relative_rate_error"] < SLICE6_BARS[label]
@@ -3373,6 +3405,7 @@ def replay_profile(torch, kernel, data, cache=None, objective="marginal", extra=
     of one eager step.  The launches these make are not the main path's:
     the caller restores K1's count."""
     from spark_gp_tpu_torch.models import likelihood as lk
+    from spark_gp_tpu_torch.ops import cuda_lib
     from spark_gp_tpu_torch.optimize import lbfgs_device as ld
 
     dev = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=data.x.dtype,
@@ -3409,7 +3442,8 @@ def replay_profile(torch, kernel, data, cache=None, objective="marginal", extra=
         step_ms = replay_ms(loop.graph)
         theta = state["theta"].clone()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
+        with cuda_lib.collector_held(), \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
             vag(theta)
         graph.instantiate()
         eval_nodes, eval_ms = ld.graph_nodes(graph), replay_ms(graph)
@@ -3619,6 +3653,353 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
             and seg["launches"] == seg["k1_rule"]):
         raise AssertionError(f"segmented-rung: {seg}")
     emit({"phase": "slice10-phases", "seconds": time.perf_counter() - start_all, "card": smi})
+    return launches
+
+
+# --- slice 11: the device fits of the Laplace families ------------------------
+
+#: the checkpoint-device-gpc leg's interval and kill point
+GPC_CKPT_INTERVAL, GPC_CKPT_KILL_AFTER = 1, 2
+#: the multistart phase's restarts (iris-native, one batched loop)
+MC_RESTARTS = 4
+
+
+def latent_k1_rule(m: dict) -> float:
+    """K1 launches of a Laplace family's device fit (summed metrics of one
+    or more fits): every replay or eager step runs the step's ``newton_k``
+    Newton iterations and its gradient pass (``pass_k1_calls`` K1 calls;
+    the card's PyTorch has no conditional graph node to skip them), and
+    every eager evaluation (the initial one, a resumed leg's warm-up) its
+    own Newton iterations and pass."""
+    steps = m.get("device_opt.replays", 0.0) + m.get("device_opt.eager_steps", 0.0)
+    k, p = m["device_opt.newton_k"], m["device_opt.pass_k1_calls"]
+    return (steps * (k + p) + m["device_opt.eager_newton_iterations"]
+            + p * m["device_opt.eager_evaluations"])
+
+
+def summed_rule(models) -> float:
+    """:func:`latent_k1_rule` over several fits."""
+    return sum(latent_k1_rule(model.metrics) for model in models)
+
+
+#: the device-loop metrics a device CV sums over its fits
+LATENT_LOOP_KEYS = tuple(f"device_opt.{k}" for k in (
+    "replays", "eager_steps", "masked_evaluations", "host_syncs", "capture_seconds",
+    "graph_nodes", "newton_iterations", "gradient_passes"))
+
+
+def latent_replay_profile(torch, lanes, log_space: bool, theta0) -> dict:
+    """The Laplace device step at its first iterate, captured as the fit
+    captures it, beside one trial alone (the step's Newton iterations and
+    gradient pass from a fresh Newton state) captured into a graph of its
+    own: node counts and device ms a replay, the host ms of one eager step,
+    and whether the capture used conditional nodes (the card's PyTorch
+    has none).  The launches are not the main path's: the caller restores
+    K1's count."""
+    from spark_gp_tpu_torch.ops import cuda_lib
+    from spark_gp_tpu_torch.optimize import lbfgs_device as ld
+
+    dev = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=lanes.x.dtype,
+                                    device=lanes.x.device)
+    vag = ld.log_transform_vag(lanes) if log_space else lanes
+    lower, upper = (dev(b) for b in lanes.kernel.bounds())
+    if log_space:
+        lower, upper = ld.log_transform_bounds(lower, upper)
+    start = torch.log(dev(theta0)) if log_space else dev(theta0)
+    cfg = ld.LbfgsConfig(lower=lower, upper=upper)
+    state = ld.lbfgs_init_state(vag, start[None], cfg, lanes.aux0(1))
+
+    def replay_ms(graph):
+        graph.replay()
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        for _ in range(REPLAY_TIMING_REPS):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return begin.elapsed_time(end) / REPLAY_TIMING_REPS
+
+    eager = {k: v.clone() for k, v in state.items()}
+    limit = torch.full((), 10 ** 6, dtype=torch.int32, device=lanes.x.device)
+    ld.lbfgs_step(vag, eager, cfg, limit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eager = ld.lbfgs_step(vag, eager, cfg, limit)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / 3 * 1e3
+    loop = ld.DeviceLoop(vag, state, cfg)
+    loop.iter_limit.fill_(10 ** 6)
+    try:
+        loop.capture(warm=True)
+        step_ms = replay_ms(loop.graph)
+        theta = state["theta"].clone()
+        carry = lanes.reset(state["aux"].clone())
+        run = torch.ones(1, dtype=torch.bool, device=lanes.x.device)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with cuda_lib.collector_held(), \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            vag.trial(theta, carry, run)
+        graph.instantiate()
+        trial_nodes, trial_ms = ld.graph_nodes(graph), replay_ms(graph)
+        graph.reset()
+    finally:
+        loop.release()
+    return {"h": int(state["theta"].shape[1]), "newton_k": lanes.newton_k,
+            "step_graph_nodes": loop.counts["graph_nodes"], "trial_graph_nodes": trial_nodes,
+            "step_ms_per_replay": step_ms, "trial_ms_per_replay": trial_ms,
+            "eager_step_host_ms": eager_ms, "capture_seconds": loop.counts["capture_seconds"],
+            "conditional_nodes": hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")}
+
+
+def device_row(label: str, seconds: float, m: dict, fits: int = 1) -> dict:
+    """One row of the host-against-device table: optimize seconds,
+    evaluations, Newton iterations an evaluation, the loop's replays,
+    masked lane steps, graph nodes and capture seconds, and wall ms an
+    evaluation (``m`` the fits' summed metrics)."""
+    nfev = m["lbfgs_nfev"]
+    return {"config": label, "fits": fits, "seconds": seconds,
+            "optimize_seconds": m["optimize_seconds"], "evaluations": nfev,
+            "newton_per_eval": m["newton_iterations"] / max(1.0, m["objective_calls"]),
+            "replays": m.get("device_opt.replays"),
+            "masked_lane_steps": m.get("device_opt.masked_evaluations"),
+            "graph_nodes_per_fit": m.get("device_opt.graph_nodes", 0.0) / fits,
+            "capture_seconds": m.get("device_opt.capture_seconds"),
+            "wall_ms_per_evaluation": m["optimize_seconds"] / nfev * 1e3}
+
+
+def host_row(label: str, h, fits: int = 1):
+    """The host optimizer's row of the same config, from its phase."""
+    if not h:
+        return None
+    return {"config": label, "fits": fits, "seconds": h["seconds"],
+            "optimize_seconds": h["optimize_seconds"], "evaluations": h["lbfgs_nfev"],
+            "newton_per_eval": h["newton_iterations"] / max(1.0, h["objective_calls"]),
+            "wall_ms_per_evaluation": h["optimize_seconds"] / h["lbfgs_nfev"] * 1e3}
+
+
+def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> dict:
+    """This slice's phases (gpc-device-check, gpc-mnist-device,
+    iris-ovr-device, iris-native-device, poisson-device, nb-device,
+    multistart, checkpoint-device-gpc, segmented-rung-gpc,
+    laplace-device-table); ``host`` carries the host optimizer's phases
+    to set beside them.  Returns K1's launches on each phase's fits."""
+    import shutil
+    import tempfile
+
+    from spark_gp_tpu_torch.kernels.base import prepare_gram_cache
+    from spark_gp_tpu_torch.models import laplace as lap
+    from spark_gp_tpu_torch.resilience import chaos
+    from spark_gp_tpu_torch.utils.validation import OneVsRest
+
+    launches, rows = {}, []
+    start_all = time.perf_counter()
+    xm_tr, ym_tr = cdata["xm"][cdata["tr_m"]], cdata["ym"][cdata["tr_m"]]
+
+    # gpc-device-check: gpc-mnist's device fit (E = 16, s = 100), replayed
+    # and eager: the same theta, latent modes, objective and counts
+    gp = mnist_gpc()
+    kernel = gp._get_kernel()
+    data = gp._group(xm_tr, ym_tr, torch.device("cuda"))
+    cache = prepare_gram_cache(kernel, data.x)
+    dev = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=torch.float32,
+                                    device="cuda")
+    lower, upper = (dev(b) for b in kernel.bounds())
+    log_space = gp._use_log_space(kernel)
+    runs = {}
+    before = spd.spd_inv_logdet.launches
+    for mode, capture in (("graph", True), ("eager", False)):
+        loop = {}
+        spd.spd_inv_logdet.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lap.fit_gpc_device(kernel, gp._tol, log_space, dev(kernel.init_theta()), lower,
+                                 upper, data, gp._max_iter, cache, capture=capture,
+                                 loop_metrics=loop)
+        theta, aux, f, n_iter, n_fev, _ = (v.cpu().numpy() for v in out)
+        m = {f"device_opt.{k}": float(v) for k, v in loop.items() if v is not None}
+        runs[mode] = {"theta": theta, "aux": aux, "f": float(f), "n_iter": int(n_iter),
+                      "n_fev": int(n_fev), "seconds": time.perf_counter() - t0, "loop": loop,
+                      "launches": spd.spd_inv_logdet.launches, "k1_rule": latent_k1_rule(m)}
+    profile = latent_replay_profile(torch, lap.BinaryLaplaceLanes(kernel, data, gp._tol, cache),
+                                    log_space, kernel.init_theta())
+    spd.spd_inv_logdet.launches = before
+    g, e = runs["graph"], runs["eager"]
+    launches["gpc_device_check"] = g["launches"] + e["launches"]
+    check = {"shape": list(data.x.shape[:2]),
+             "theta_equal": bool(np.array_equal(g["theta"], e["theta"])),
+             "aux_equal": bool(np.array_equal(g["aux"], e["aux"])), "f_equal": g["f"] == e["f"],
+             "n_iter": [g["n_iter"], e["n_iter"]], "n_fev": [g["n_fev"], e["n_fev"]],
+             "newton_iterations": [g["loop"]["newton_iterations"],
+                                   e["loop"]["newton_iterations"]],
+             "gradient_passes": [g["loop"]["gradient_passes"], e["loop"]["gradient_passes"]],
+             "launches": [g["launches"], e["launches"]], "k1_rule": [g["k1_rule"], e["k1_rule"]],
+             "seconds": {"graph": g["seconds"], "eager": e["seconds"]},
+             "loop": g["loop"], "eager_loop": e["loop"], **profile}
+    emit({"phase": "gpc-device-check", **check, "card": smi})
+    if not (check["theta_equal"] and check["aux_equal"] and check["f_equal"]
+            and g["n_iter"] == e["n_iter"] and g["n_fev"] == e["n_fev"]
+            and g["loop"]["newton_iterations"] == e["loop"]["newton_iterations"]
+            and g["loop"]["gradient_passes"] == e["loop"]["gradient_passes"] == g["n_fev"]
+            and g["launches"] == g["k1_rule"] > 0 and e["launches"] == e["k1_rule"]
+            and g["loop"]["captures"] == 1):
+        raise AssertionError(f"gpc-device-check: {check}")
+
+    # gpc-mnist-device: examples/mnist.py's config on the device optimizer
+    spd.spd_inv_logdet.launches = 0
+    fit = split_fit(mnist_gpc().setOptimizer("device"), cdata["xm"], cdata["ym"])
+    model = fit.pop("model")
+    m = model.metrics
+    launches["gpc_mnist_device"] = spd.spd_inv_logdet.launches
+    row = device_row("gpc-mnist", fit["seconds"],
+                     {**m, "optimize_seconds": fit["optimize_seconds"]})
+    rows.append({"device": row, "host": host_row("gpc-mnist", host.get("gpc_mnist"))})
+    emit({"phase": "gpc-mnist-device", **fit, "launches": launches["gpc_mnist_device"],
+          "k1_rule": latent_k1_rule(m), "loop": loop_record(m), "bar": GPC_BARS["gpc_mnist"],
+          "host_accuracy": (host.get("gpc_mnist") or {}).get("accuracy"), "card": smi})
+    if not (fit["accuracy"] > GPC_BARS["gpc_mnist"]
+            and launches["gpc_mnist_device"] == latent_k1_rule(m) > 0):
+        raise AssertionError(f"gpc-mnist-device: {fit}, {launches['gpc_mnist_device']} K1")
+
+    # iris-ovr-device: one-vs-rest 10-fold CV (30 device fits)
+    spd.spd_inv_logdet.launches = 0
+    fitted = []
+    iris = cv_fits(torch, cdata, lambda: OneVsRest(lambda: iris_gpc().setOptimizer("device")),
+                   lambda ovr: fitted.extend(ovr.models_) or ovr.models_, None,
+                   extra=LATENT_LOOP_KEYS)
+    launches["iris_ovr_device"] = spd.spd_inv_logdet.launches
+    rule = summed_rule(fitted)
+    rows.append({"device": device_row("iris-ovr", iris["seconds"], iris, iris["fits"]),
+                 "host": host_row("iris-ovr", host.get("iris_ovr"), 30)})
+    emit({"phase": "iris-ovr-device", **iris, "launches": launches["iris_ovr_device"],
+          "k1_rule": rule, "bar": GPC_BARS["iris_ovr"],
+          "host_accuracy": (host.get("iris_ovr") or {}).get("accuracy"), "card": smi})
+    if not (iris["accuracy"] >= GPC_BARS["iris_ovr"] and iris["fits"] == 30
+            and launches["iris_ovr_device"] == rule > 0):
+        raise AssertionError(f"iris-ovr-device: {iris}, {launches['iris_ovr_device']} K1")
+
+    # iris-native-device: the multiclass 10-fold CV on the device optimizer
+    spd.spd_inv_logdet.launches = 0
+    fitted = []
+    native = cv_fits(torch, cdata, lambda: iris_native_gpc().setOptimizer("device"),
+                     lambda model: fitted.append(model) or [model], None,
+                     extra=LATENT_LOOP_KEYS)
+    launches["iris_native_device"] = spd.spd_inv_logdet.launches
+    rule = summed_rule(fitted)
+    spread = abs(native["accuracy"] - JAX_CPU_ACCURACY["iris_native"])
+    rows.append({"device": device_row("iris-native", native["seconds"], native, native["fits"]),
+                 "host": host_row("iris-native", host.get("iris_native"), 10)})
+    emit({"phase": "iris-native-device", **native, "launches": launches["iris_native_device"],
+          "k1_rule": rule, "bar": GPC_BARS["iris_native"],
+          "jax_cpu_accuracy": JAX_CPU_ACCURACY["iris_native"], "spread": spread,
+          "host_accuracy": (host.get("iris_native") or {}).get("accuracy"), "card": smi})
+    if not (native["accuracy"] > GPC_BARS["iris_native"]
+            and spread <= IRIS_NATIVE_SPREAD["exact"]
+            and launches["iris_native_device"] == rule > 0):
+        raise AssertionError(f"iris-native-device: {native}, {launches['iris_native_device']}")
+
+    # poisson-device, nb-device: quality.py's Poisson part (E = 20,
+    # s = 100) on the device optimizer
+    for label, key, dispersion, y_counts in (("poisson-device", "poisson", None, d6["y"]),
+                                             ("nb-device", "poisson_nb", 2.0, d6["y_nb"])):
+        spd.spd_inv_logdet.launches = 0
+        t0 = time.perf_counter()
+        model = poisson_gp(dispersion).setOptimizer("device").fit(d6["x"], y_counts)
+        rate = model.predict_rate(d6["x"])
+        seconds = time.perf_counter() - t0
+        m = model.metrics
+        launches[key + "_device"] = spd.spd_inv_logdet.launches
+        err = float(np.mean(np.abs(rate - d6["rate"]) / d6["rate"]))
+        rows.append({"device": device_row(key, seconds, m), "host": host_row(key, host.get(key))})
+        emit({"phase": label, "mean_relative_rate_error": err, "seconds": seconds,
+              **{k: m[k] for k in GPC_METRICS}, "launches": launches[key + "_device"],
+              "k1_rule": latent_k1_rule(m), "loop": loop_record(m), "bar": SLICE6_BARS[key],
+              "host_error": (host.get(key) or {}).get("mean_relative_rate_error"), "card": smi})
+        if not (np.all(np.isfinite(rate)) and err < SLICE6_BARS[key]
+                and launches[key + "_device"] == latent_k1_rule(m) > 0):
+            raise AssertionError(f"{label}: error {err}, {launches[key + '_device']} K1 for "
+                                 f"{latent_k1_rule(m)}")
+
+    # multistart: iris-native's first fold with 4 restarts as one loop,
+    # every Newton iteration one K1 launch over all lanes' B_c stacks
+    train, test = cdata["folds_i"][0]
+    spd.spd_inv_logdet.launches = 0
+    t0 = time.perf_counter()
+    model = iris_native_gpc().setOptimizer("device").setNumRestarts(MC_RESTARTS) \
+        .fit(cdata["xi"][train], cdata["yi"][train])
+    m = model.metrics
+    launches["multistart_device"] = spd.spd_inv_logdet.launches
+    ms = {"restarts": MC_RESTARTS, "seconds": time.perf_counter() - t0,
+          "restart_nlls": [m[f"restart_{r}_nll"] for r in range(MC_RESTARTS)],
+          "best_restart": m["best_restart"], "final_nll": m["final_nll"],
+          "accuracy": float(np.mean(model.predict(cdata["xi"][test]) == cdata["yi"][test])),
+          "b_c_matrices_per_launch": MC_RESTARTS * int(m["num_experts"]) * 3,
+          "launches": launches["multistart_device"], "k1_rule": latent_k1_rule(m),
+          "loop": loop_record(m)}
+    emit({"phase": "multistart", **ms, "card": smi})
+    if not (ms["launches"] == ms["k1_rule"] > 0 and ms["b_c_matrices_per_launch"] == 84
+            and ms["final_nll"] == min(ms["restart_nlls"])):
+        raise AssertionError(f"multistart: {ms}")
+
+    # checkpoint-device-gpc: iris versicolor-vs-rest on the first fold, in
+    # segments of one iteration, preempted after 2 saves and resumed
+    yb = (cdata["yi"][train] == 1).astype(np.float64)
+    work = tempfile.mkdtemp(prefix="gp_slice11_")
+    try:
+        def ck_gp(directory):
+            return iris_gpc().setOptimizer("device").setCheckpointDir(directory) \
+                .setCheckpointInterval(GPC_CKPT_INTERVAL)
+
+        full = ck_gp(os.path.join(work, "full")).fit(cdata["xi"][train], yb)
+        spd.spd_inv_logdet.launches = 0
+        try:
+            with chaos.preempt_after_saves(GPC_CKPT_KILL_AFTER):
+                ck_gp(os.path.join(work, "cut")).fit(cdata["xi"][train], yb)
+            raise AssertionError("checkpoint-device-gpc: the staged preemption did not fire")
+        except chaos.SimulatedPreemption as exc:
+            leg1 = {"nfev": exc.nfev, **exc.loop_metrics}
+        resumed = ck_gp(os.path.join(work, "cut")).fit(cdata["xi"][train], yb)
+        launches["checkpoint_device_gpc"] = spd.spd_inv_logdet.launches
+        leg1_rule = latent_k1_rule({f"device_opt.{k}": v for k, v in leg1.items()
+                                    if isinstance(v, (int, float))})
+        ck = {"interval": GPC_CKPT_INTERVAL, "kill_after_saves": GPC_CKPT_KILL_AFTER,
+              "theta_bit_equal": bool(np.array_equal(resumed.raw_predictor.theta,
+                                                     full.raw_predictor.theta)),
+              "predictions_equal": bool(np.array_equal(resumed.predict(cdata["xi"][test]),
+                                                       full.predict(cdata["xi"][test]))),
+              "resumed_from_iteration": resumed.metrics.get("resumed_from_iteration"),
+              "leg1": leg1, "leg2": loop_record(resumed.metrics),
+              "full_iters": full.metrics["lbfgs_iters"],
+              "launches": launches["checkpoint_device_gpc"],
+              "k1_rule": leg1_rule + latent_k1_rule(resumed.metrics)}
+        emit({"phase": "checkpoint-device-gpc", **ck, "card": smi})
+        if not (ck["theta_bit_equal"] and ck["predictions_equal"]
+                and ck["resumed_from_iteration"] == GPC_CKPT_INTERVAL * GPC_CKPT_KILL_AFTER
+                < ck["full_iters"] and ck["launches"] == ck["k1_rule"]):
+            raise AssertionError(f"checkpoint-device-gpc: {ck}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # segmented-rung-gpc: a staged OOM at the one-shot device fit's choke
+    # point of the same binary fit
+    clean = iris_gpc().setOptimizer("device").fit(cdata["xi"][train], yb)
+    spd.spd_inv_logdet.launches = 0
+    with chaos.oom_after_calls(0, op="one_dispatch") as fired:
+        model = iris_gpc().setOptimizer("device").fit(cdata["xi"][train], yb)
+    launches["segmented_rung_gpc"] = spd.spd_inv_logdet.launches
+    rel = float(np.max(np.abs(model.raw_predictor.theta - clean.raw_predictor.theta)
+                       / np.abs(clean.raw_predictor.theta)))
+    seg = {"injected": fired[0], "degradations": model.degradations, "theta_rel_err": rel,
+           "bar": SEGMENTED_THETA_REL, "launches": launches["segmented_rung_gpc"],
+           "k1_rule": latent_k1_rule(model.metrics), "loop": loop_record(model.metrics)}
+    emit({"phase": "segmented-rung-gpc", **seg, "card": smi})
+    if not (fired[0] == 1 and [(d["from"], d["to"]) for d in model.degradations]
+            == [("native", "segmented")] and rel <= SEGMENTED_THETA_REL
+            and seg["launches"] == seg["k1_rule"]):
+        raise AssertionError(f"segmented-rung-gpc: {seg}")
+
+    emit({"phase": "laplace-device-table", "rows": rows, "card": smi})
+    emit({"phase": "slice11-phases", "seconds": time.perf_counter() - start_all, "card": smi})
     return launches
 
 
@@ -4101,6 +4482,8 @@ def main() -> int:
     slice9 = slice9_phases(torch, spd, data_main, smi)
     # 56-63. slice 10: the on-device optimizer
     slice10 = slice10_phases(torch, spd, data_main, rdata, HOST_FITS, smi)
+    # 64-73. slice 11: the device fits of the Laplace families
+    slice11 = slice11_phases(torch, spd, cdata, d6, HOST_FITS, smi)
 
     # 56. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
@@ -4130,7 +4513,8 @@ def main() -> int:
                      + launches_gpc_mnist + launches_iris + launches_iris_native
                      + sum(regression.values()) + sum(slice6.values())
                      + sum(slice7.values()) + sum(slice8["spd_inv_logdet"].values())
-                     + sum(slice9.values()) + sum(slice10.values())),
+                     + sum(slice9.values()) + sum(slice10.values())
+                     + sum(slice11.values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
@@ -4143,6 +4527,7 @@ def main() -> int:
         **{f"launches_{key}": value for key, value in slice8["spd_inv_logdet"].items()},
         **{f"launches_{key}": value for key, value in slice9.items()},
         **{f"launches_{key}": value for key, value in slice10.items()},
+        **{f"launches_{key}": value for key, value in slice11.items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},

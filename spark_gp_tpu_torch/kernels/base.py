@@ -82,6 +82,12 @@ class Kernel:
         fingerprint (``utils/checkpoint.spec_fingerprint``)."""
         return ()
 
+    def describe(self, theta) -> str:
+        """The JAX package's human-readable render of the kernel at
+        ``theta``, string for string; ``describe(zeros)`` is the host
+        checkpoint's structural signature (``utils/checkpoint.py``)."""
+        return type(self).__name__
+
     def init_theta(self) -> np.ndarray:
         return np.zeros((0,), dtype=np.float64)
 
@@ -223,6 +229,9 @@ class EyeKernel(Kernel):
     def white_noise_var(self, theta):
         return torch.ones((), dtype=theta.dtype, device=theta.device)
 
+    def describe(self, theta) -> str:
+        return "I"
+
     def prepare(self, x):
         # a zero-byte carrier of the batch shape, n, dtype and device:
         # the identity needs nothing else
@@ -295,6 +304,9 @@ class ThetaOverrideKernel(Kernel):
 
     def white_noise_var(self, theta):
         return self.inner.white_noise_var(theta)
+
+    def describe(self, theta) -> str:
+        return self.inner.describe(theta)
 
 
 class _PairKernel(Kernel):
@@ -370,6 +382,10 @@ class SumKernel(_PairKernel):
         t1, t2 = self._split(theta)
         return self.k1.white_noise_var(t1) + self.k2.white_noise_var(t2)
 
+    def describe(self, theta) -> str:
+        t1, t2 = self._split(np.asarray(theta))
+        return " + ".join(p for p in (self.k1.describe(t1), self.k2.describe(t2)) if p)
+
 
 class ProductKernel(_PairKernel):
     """``k1 * k2``: the elementwise (Schur) product of two kernels, PSD by
@@ -411,6 +427,10 @@ class ProductKernel(_PairKernel):
     def self_diag(self, theta, x):
         t1, t2 = self._split(theta)
         return self.k1.self_diag(t1, x) * self.k2.self_diag(t2, x)
+
+    def describe(self, theta) -> str:
+        t1, t2 = self._split(np.asarray(theta))
+        return f"({self.k1.describe(t1)}) * ({self.k2.describe(t2)})"
 
 
 class TrainableScaleKernel(Kernel):
@@ -472,6 +492,10 @@ class TrainableScaleKernel(Kernel):
     def white_noise_var(self, theta):
         return theta[0] * self.kernel.white_noise_var(theta[1:])
 
+    def describe(self, theta) -> str:
+        t = np.asarray(theta)
+        return f"{float(t[0]):.1e} * {self.kernel.describe(t[1:])}"
+
 
 class ConstScaleKernel(Kernel):
     """``C * k`` with a fixed, non-trainable ``C``."""
@@ -523,6 +547,11 @@ class ConstScaleKernel(Kernel):
 
     def white_noise_var(self, theta):
         return self.c * self.kernel.white_noise_var(theta)
+
+    def describe(self, theta) -> str:
+        if self.c == 0:
+            return ""
+        return f"{self.c:.1e} * {self.kernel.describe(np.asarray(theta))}"
 
 
 def _carries_white_noise(kernel: Kernel) -> bool:

@@ -100,6 +100,10 @@ class RationalQuadraticKernel(_TwoHyperStationary):
     def matvec_from_prepared(self, theta, mcache, v):
         return streamed_matvec(mcache, v, "rq", theta)
 
+    def describe(self, theta) -> str:
+        t = np.asarray(theta)
+        return f"RationalQuadraticKernel(sigma={float(t[0]):.1e}, alpha={float(t[1]):.1e})"
+
 
 class ARDRationalQuadraticKernel(ARDHypers):
     """ARD rational quadratic ``k = (1 + |(x - x') * beta|^2 / alpha)^-alpha``
@@ -139,6 +143,11 @@ class ARDRationalQuadraticKernel(ARDHypers):
     def cross(self, theta, x_test, x_train):
         return self._k(theta, x_test, x_train)
 
+    def describe(self, theta) -> str:
+        t = np.asarray(theta)
+        vals = ", ".join(f"{v:.1e}" for v in t[:-1])
+        return f"ARDRationalQuadraticKernel(beta=[{vals}], alpha={float(t[-1]):.1e})"
+
 
 class PeriodicKernel(_TwoHyperStationary):
     """Per-dimension ExpSineSquared,
@@ -169,6 +178,10 @@ class PeriodicKernel(_TwoHyperStationary):
 
     def cross(self, theta, x_test, x_train):
         return self._k(theta, x_test, x_train)
+
+    def describe(self, theta) -> str:
+        t = np.asarray(theta)
+        return f"PeriodicKernel(period={float(t[0]):.1e}, ell={float(t[1]):.1e})"
 
 
 class SpectralMixtureKernel(Kernel):
@@ -254,6 +267,12 @@ class SpectralMixtureKernel(Kernel):
     def self_diag(self, theta, x):
         return self.diag(theta, x)
 
+    def describe(self, theta) -> str:
+        w, mu, _ = self._split(np.asarray(theta))
+        top = int(np.argmax(w))
+        return (f"SpectralMixtureKernel(q={self.q}, p={self.p}, w_top={float(w[top]):.1e}, "
+                f"mu_top={np.round(np.asarray(mu[top]), 3).tolist()})")
+
 
 class _OneHyper(Kernel):
     """One trainable hyperparameter ``h`` in ``[lower, upper]``."""
@@ -312,6 +331,9 @@ class DotProductKernel(_OneHyper):
     def matvec_from_prepared(self, theta, mcache, v):
         return streamed_matvec(mcache, v, "dot", theta)
 
+    def describe(self, theta) -> str:
+        return f"DotProductKernel(sigma0={float(np.asarray(theta)[0]):.1e})"
+
 
 class PolynomialKernel(_OneHyper):
     """Polynomial kernel ``k(x, x') = (<x, x'> + c)^degree`` with a static
@@ -343,3 +365,6 @@ class PolynomialKernel(_OneHyper):
 
     def matvec_from_prepared(self, theta, mcache, v):
         return streamed_matvec(mcache, v, "poly", theta, self.degree)
+
+    def describe(self, theta) -> str:
+        return f"PolynomialKernel(degree={self.degree}, c={float(np.asarray(theta)[0]):.1e})"

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
+
 from spark_gp_tpu_torch.kernels.base import ARDHypers, ScalarLengthscaleHypers
 from spark_gp_tpu_torch.ops.distance import (
     sq_dist,
@@ -63,6 +65,9 @@ class _MaternIso(ScalarLengthscaleHypers):
     def matvec_from_prepared(self, theta, mcache, v):
         return streamed_matvec(mcache, v, f"matern{self._nu2}2", theta)
 
+    def describe(self, theta) -> str:
+        return f"Matern{self._nu2}2Kernel(sigma={float(np.asarray(theta)[0]):.1e})"
+
 
 class Matern12Kernel(_MaternIso):
     """Exponential / Ornstein-Uhlenbeck kernel (Matern nu = 1/2)."""
@@ -95,6 +100,10 @@ class _MaternARD(ARDHypers):
 
     def cross(self, theta, x_test, x_train):
         return self._of_sqd(weighted_sq_dist(x_test, x_train, theta))
+
+    def describe(self, theta) -> str:
+        vals = ", ".join(f"{v:.1e}" for v in np.asarray(theta))
+        return f"ARDMatern{self._nu2}2Kernel(beta=[{vals}])"
 
 
 class ARDMatern32Kernel(_MaternARD):

@@ -7,6 +7,7 @@ neither a gram cache (``prepare`` stays None) nor a streaming form."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_gp_tpu_torch.kernels.base import ARDHypers, ScalarLengthscaleHypers
@@ -42,6 +43,9 @@ class RBFKernel(ScalarLengthscaleHypers):
     def matvec_from_prepared(self, theta, mcache, v):
         return streamed_matvec(mcache, v, "rbf", theta)
 
+    def describe(self, theta) -> str:
+        return f"RBFKernel(sigma={float(np.asarray(theta)[0]):.1e})"
+
 
 class ARDRBFKernel(ARDHypers):
     """Automatic Relevance Determination RBF:
@@ -54,3 +58,7 @@ class ARDRBFKernel(ARDHypers):
 
     def cross(self, theta, x_test, x_train):
         return torch.exp(-weighted_sq_dist(x_test, x_train, theta))
+
+    def describe(self, theta) -> str:
+        vals = ", ".join(f"{v:.1e}" for v in np.asarray(theta))
+        return f"ARDRBFKernel(beta=[{vals}])"

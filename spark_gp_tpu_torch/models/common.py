@@ -158,10 +158,11 @@ class GaussianProcessParams:
         """``"host"`` -- SciPy L-BFGS-B on the host, one device round trip
         per objective evaluation; ``"device"`` -- the whole L-BFGS-B loop
         on the fit's device (``optimize/lbfgs_device.py``), replayed from
-        one captured CUDA graph on the card, for the regression fit on the
-        exact solver lane (the other lanes and families are ROADMAP.md
-        queue 1, item 4b); ``"auto"`` (the default) -- ``"host"`` until
-        every estimator has its device fit."""
+        one captured CUDA graph on the card, for the regression fit, the
+        Laplace classifiers and the count models on the exact solver lane
+        (EP and the other lanes are ROADMAP.md queue 1, item 4b);
+        ``"auto"`` (the default) -- ``"host"`` until a measured rule says
+        otherwise (item 4b)."""
         if value not in ("auto", "host", "device"):
             raise ValueError("optimizer must be 'auto', 'host' or 'device'")
         if value == "device" and not self._device_fit_ported:
@@ -180,9 +181,9 @@ class GaussianProcessParams:
         and keeps the lowest final objective: one after another on the
         host (:meth:`GaussianProcessCommons._optimize_with_restarts`, the
         classifiers' :meth:`GaussianProcessCommons._fit_with_restarts`),
-        or, for the regression fit under ``setOptimizer("device")``, all
-        at once in one batched device loop.  The classifiers' batched
-        device multi-start is ROADMAP.md queue 1, item 4b."""
+        or, under ``setOptimizer("device")``, all at once in one batched
+        device loop (the regression fit, the Laplace classifiers and the
+        count models)."""
         if int(value) < 1:
             raise ValueError("number of restarts must be >= 1")
         self._num_restarts = int(value)
@@ -371,8 +372,8 @@ class GaussianProcessCommons(GaussianProcessParams):
     def _resolved_optimizer(self) -> str:
         """``"host"`` under the ladder's ``host_f64`` rung (it re-runs the
         fit host-driven, whatever was asked for), else the optimizer
-        ``setOptimizer`` asked for; ``"auto"`` is ``"host"`` until every
-        estimator has its device fit (ROADMAP.md queue 1, item 4b)."""
+        ``setOptimizer`` asked for; ``"auto"`` is ``"host"`` until a
+        measured rule says otherwise (ROADMAP.md queue 1, item 4b)."""
         if self._fallback_mode == "host_f64":
             return "host"
         return "device" if self._optimizer == "device" else "host"
@@ -450,7 +451,9 @@ class GaussianProcessCommons(GaussianProcessParams):
         """The device loop's record (``lbfgs_device.DeviceLoop.counts``)
         as fit metrics."""
         keys = ("captures", "replays", "eager_steps", "masked_evaluations", "host_syncs",
-                "capture_seconds", "graph_nodes", "warmup_evaluations")
+                "capture_seconds", "graph_nodes", "warmup_evaluations", "newton_iterations",
+                "gradient_passes", "eager_newton_iterations", "eager_evaluations", "newton_k",
+                "pass_k1_calls")
         out = {f"device_opt.{k}": float(loop[k]) for k in keys if loop.get(k) is not None}
         if loop.get("resumed_from_iteration"):
             out["resumed_from_iteration"] = loop["resumed_from_iteration"]
@@ -480,7 +483,16 @@ class GaussianProcessCommons(GaussianProcessParams):
             it_ops.resolve_for(data), supports_matfree(self._get_kernel()))
         n_targets = int(data.y.shape[2]) if data.y.ndim == 3 else 1
         return memplan.fit_dispatch_bytes(e, s, p, data.x.element_size(), rung, n_targets,
-                                          type(self).__name__)
+                                          type(self).__name__, self._device_latent_heads())
+
+    #: the latent heads of a Laplace family's device fit (the memory
+    #: planner's latent and B stacks): 1 binary and count models, the
+    #: class count multiclass; 0 for the regression fit
+    _latent_heads = 0
+
+    def _device_latent_heads(self) -> int:
+        """:attr:`_latent_heads` under the device optimizer, else 0."""
+        return self._latent_heads if self._resolved_optimizer() == "device" else 0
 
     @contextlib.contextmanager
     def _optimize_phase(self, instr: Instrumentation, data: ExpertData):
@@ -494,7 +506,9 @@ class GaussianProcessCommons(GaussianProcessParams):
         from spark_gp_tpu_torch.resilience import chaos
         from spark_gp_tpu_torch.utils.checkpoint import data_fingerprint
 
-        chaos.maybe_injected_failure("fit.host", nbytes=self._dispatch_raw_bytes(data))
+        if self._resolved_optimizer() != "device":
+            # a device fit has its own choke point (``_device_fit_op``)
+            chaos.maybe_injected_failure("fit.host", nbytes=self._dispatch_raw_bytes(data))
         self._fit_data_key = None if self._checkpoint_dir is None else \
             data_fingerprint(data.x, data.y, data.mask)
         try:
@@ -824,8 +838,8 @@ class GaussianProcessCommons(GaussianProcessParams):
         for a checkpoint of another kernel structure and
         ``CheckpointCorruptError`` for a damaged one.  A payload with an
         evaluation log that was written for other data or another kernel
-        spec (its ``data_fingerprint`` or ``kernel`` differs) belongs to
-        another fit: it is not resumed, and the fit starts afresh and
+        spec (its ``data_fingerprint`` or ``kernel_fingerprint`` differs)
+        belongs to another fit: it is not resumed, and the fit starts afresh and
         overwrites it, the JAX package's rule for its device checkpoints
         (replaying it would return that fit's theta without computing
         anything on this data).  A payload without the log (the JAX
@@ -854,7 +868,7 @@ class GaussianProcessCommons(GaussianProcessParams):
             )
         if "evaluations" in payload and (
             payload.get("data_fingerprint") != self._fit_data_key
-            or payload.get("kernel") != kernel_fingerprint(kernel)
+            or payload.get("kernel_fingerprint") != kernel_fingerprint(kernel)
         ):
             return None
         return payload
@@ -1042,6 +1056,105 @@ class GaussianProcessCommons(GaussianProcessParams):
         best_model.metrics["best_restart"] = best_r
         self._log_renormalized_nll(best_model.metrics)
         return best_model
+
+    def _device_fit_prelude(self, kernel: Kernel, data: ExpertData):
+        """The checks and operands every device fit starts with: item 4b
+        off the exact lane, no restarts beside a checkpoint directory, the
+        staged fault of the dispatch about to run (``_device_fit_op``);
+        returns ``(dev, lower, upper, log_space)``, ``dev`` casting an
+        array to the stack's dtype and device."""
+        from spark_gp_tpu_torch.resilience import chaos
+
+        lane = it_ops.resolve_for(data)
+        if lane != "exact":
+            raise _not_ported(f"the on-device optimizer on the {lane!r} solver lane", "4b")
+        self._check_restarts_without_checkpoints()
+        dtype, device = data.x.dtype, data.x.device
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
+
+        lower, upper = (dev(b) for b in kernel.bounds())
+        log_space = self._use_log_space(kernel)
+        chaos.maybe_injected_failure(self._device_fit_op(), nbytes=self._dispatch_raw_bytes(data))
+        return dev, lower, upper, log_space
+
+    def _device_fit_result(self, host: dict, loop: dict, multistart: bool):
+        """``(OptimizeResult, metrics)`` of a device fit from its results
+        read back (``_finalize_device_fit``) and its loop's record; raises
+        ``NonFiniteFitError`` for a non-finite final objective of a single
+        start (the loop cannot raise mid-flight)."""
+        from spark_gp_tpu_torch.resilience.quarantine import NonFiniteFitError
+
+        stalled = bool(host["stalled"])
+        res = OptimizeResult(
+            theta=np.asarray(host["theta"], dtype=np.float64), fun=float(host["f"]),
+            nit=int(host["n_iter"]), nfev=int(host["n_fev"]), success=not stalled,
+            message="line search stalled" if stalled else "converged or at the iteration budget",
+            resumed_from_iteration=int(loop.get("resumed_from_iteration", 0)),
+        )
+        metrics = {"optimizer": "device", "lbfgs_stalled": float(stalled),
+                   **self._device_loop_metrics(loop)}
+        if multistart:
+            self._report_multistart_nlls(metrics, host["f_all"])
+            metrics["best_restart"] = int(host["best"])
+        elif self._expert_quarantine and not np.isfinite(res.fun):
+            raise NonFiniteFitError("device fit converged to a non-finite objective")
+        return res, metrics
+
+    def _latent_device_fit(self, kernel: Kernel, data: ExpertData, lanes, kind: str,
+                           file_tag: str, **meta_extra):
+        """The device optimizer's fit of a Laplace family, one attempt (the
+        JAX package's ``_fit_device`` and ``_fit_device_multistart`` of the
+        classifiers and count models): the batched multi-start for several
+        restarts, the segment driver under ``setCheckpointDir`` or the
+        ladder's ``segmented`` rung (``kind`` and ``meta_extra`` the JAX
+        ``segment_meta``'s, ``file_tag`` the state file's), else one loop;
+        ``lanes`` is the family's ``models/laplace_device.LaplaceLanes``.
+        The results come back in one transfer.  Returns
+        ``(OptimizeResult, latent modes [E, s, ...] on the device,
+        metrics)``."""
+        from spark_gp_tpu_torch.models import laplace_device as ld
+
+        dev, lower, upper, log_space = self._device_fit_prelude(kernel, data)
+        loop: dict = {}
+        multistart = self._use_batched_multistart()
+        names = ("theta", "latent", "f", "n_iter", "n_fev", "stalled")
+        if multistart:
+            out = ld.fit_latent_device_multistart(
+                lanes, log_space, dev(self._restart_theta_batch(kernel)), lower, upper,
+                self._max_iter, self._tol, loop_metrics=loop)
+            names += ("f_all", "best")
+        elif self._checkpoint_dir is not None or self._fallback_segmented():
+            saver, chunk = self._segment_saver_and_chunk(file_tag)
+            out = ld.fit_latent_device_checkpointed(
+                lanes, kind, log_space, dev(kernel.init_theta()), lower, upper, self._max_iter,
+                self._tol, chunk, saver, loop_metrics=loop, **meta_extra)
+        else:
+            out = ld.fit_latent_device(lanes, log_space, dev(kernel.init_theta()), lower, upper,
+                                       self._max_iter, self._tol, loop_metrics=loop)
+        pending = dict(zip(names, out))
+        latent = pending.pop("latent")
+        res, metrics = self._device_fit_result(self._finalize_device_fit(pending), loop,
+                                               multistart)
+        metrics.update(newton_iterations=int(loop.get("newton_iterations", 0)),
+                       objective_calls=int(loop.get("gradient_passes", 0)))
+        return res, latent, metrics
+
+    def _latent_fit_with_restarts(self, instr: Instrumentation, fit_once):
+        """The restarts of a Laplace family: one batched device loop under
+        the device optimizer (``fit_once`` runs once and its fit takes every
+        restart), else the sequential driver."""
+        if self._use_batched_multistart():
+            return fit_once(self._get_kernel(), instr)
+        return self._fit_with_restarts(instr, fit_once)
+
+    @staticmethod
+    def _resumed_metric(res) -> dict:
+        """``resumed_from_iteration`` of a fit that resumed from a
+        checkpoint, as a metric; nothing for a fresh fit."""
+        done = int(getattr(res, "resumed_from_iteration", 0) or 0)
+        return {"resumed_from_iteration": done} if done else {}
 
     def _optimize_latent_host(self, kernel: Kernel, objective: Callable, f0):
         """Host L-BFGS-B over a latent-carrying objective ``(theta, f0) ->

@@ -1,13 +1,15 @@
 """GP count regression by the Laplace approximation (log link), the port of
-the JAX package's ``models/gp_poisson.py`` (host optimizer).
+the JAX package's ``models/gp_poisson.py``.
 
 ``y_i | f_i ~ Poisson(exp(f_i))`` (or Negative Binomial) with a GP prior
 on the log-rate ``f``.  The fit is the generic-likelihood Laplace core
 (``models/laplace_generic.py``) under the same expert split and PPA model
 as every estimator: host L-BFGS-B from zero latents (the latent modes
 warm-start every evaluation, the gram cache serves each), the modes at
-theta* as the PPA targets.  The model predicts the log-rate posterior and
-``E[exp(f*)] = exp(mu + var / 2)``.
+theta* as the PPA targets; under ``setOptimizer("device")`` the whole
+optimization runs on the device (``models/laplace_device.py``).  The
+model predicts the log-rate posterior and ``E[exp(f*)] = exp(mu + var /
+2)``.
 """
 
 from __future__ import annotations
@@ -51,8 +53,6 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
         from spark_gp_tpu_torch.resilience import fallback
 
         lik = self._likelihood
-        iterations = lg.laplace_generic_mode.iterations
-        calls = lg.batched_neg_logz_generic.calls
         with instr.phase("group_experts"):
             data = self._group_screened(instr, x, y, device)
         kernel = self._get_kernel()
@@ -64,10 +64,7 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
             def fit_once(kernel_r, instr_r):
                 with maybe_profile(self._profile_dir, instr_r.name):
                     with self._optimize_phase(instr_r, data_a):
-                        objective = lg.make_generic_objective(lik, kernel_r, data_a.x, data_a.y,
-                                                              data_a.mask, self._tol, cache)
-                        res, f_final = self._optimize_latent_host(kernel_r, objective,
-                                                                  torch.zeros_like(data_a.y))
+                        res, f_final, engine = self._fit_latent(kernel_r, data_a, cache)
                     # the latent log-rates replace the counts in the PPA build
                     # and as the provider's targets (GPClf.scala:62-65)
                     latent = f_final * data_a.mask
@@ -87,19 +84,49 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
                     "lbfgs_iters": res.nit,
                     "lbfgs_nfev": res.nfev,
                     "final_nll": res.fun,
-                    "newton_iterations": lg.laplace_generic_mode.iterations - iterations,
-                    "objective_calls": lg.batched_neg_logz_generic.calls - calls,
+                    **engine,
                     "gram_cache_engaged": float(cache is not None),
                 })
                 self._log_renormalized_nll(model.metrics)
                 self._emit_aggregation_stats(model.metrics, data_a)
                 return model
 
-            return self._fit_with_restarts(instr, fit_once)
+            return self._latent_fit_with_restarts(instr, fit_once)
 
         model = fallback.run_fit_ladder(self, instr, attempt, data=data)
         model.metrics.update(self._phase_metrics(model.instr))
         return model
+
+    #: ``setOptimizer("device")``: the generic Laplace device fit
+    _device_fit_ported = True
+    _latent_heads = 1
+
+    def _fit_latent(self, kernel, data: ExpertData, cache):
+        """``(OptimizeResult, the latent log-rate modes [E, s], the
+        engine's metrics)``: host L-BFGS-B on the summed ``-log Z`` (the
+        modes warm-start every evaluation and are settled at theta*), or
+        under ``setOptimizer("device")`` the device fit
+        (``laplace_generic.fit_generic_device*``; its state file is keyed
+        by the likelihood, the JAX package's tag)."""
+        lik = self._likelihood
+        if self._resolved_optimizer() == "device":
+            import hashlib
+
+            lanes = lg.GenericLaplaceLanes(lik, kernel, data.x, data.y, data.mask, self._tol,
+                                           cache)
+            digest = hashlib.sha1(repr((type(lik).__name__, lik._spec())).encode()).hexdigest()
+            return self._latent_device_fit(kernel, data, lanes, lg.segment_kind(lik),
+                                           f"generic-{type(lik).__name__}-{digest[:10]}")
+        iterations = lg.laplace_generic_mode.iterations
+        calls = lg.batched_neg_logz_generic.calls
+        objective = lg.make_generic_objective(lik, kernel, data.x, data.y, data.mask, self._tol,
+                                              cache)
+        res, f_final = self._optimize_latent_host(kernel, objective, torch.zeros_like(data.y))
+        return res, f_final, {
+            "newton_iterations": lg.laplace_generic_mode.iterations - iterations,
+            "objective_calls": lg.batched_neg_logz_generic.calls - calls,
+            **self._resumed_metric(res),
+        }
 
     def fit_distributed(self, data, active_set=None):
         raise _not_ported("the multi-host count-regression fit", 6)

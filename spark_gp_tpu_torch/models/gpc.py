@@ -11,7 +11,9 @@ warm-start every evaluation), settles the modes with one last evaluation
 at theta*, and builds the Projected Process model with the latent modes
 as its regression targets; ``setNumRestarts`` repeats that from
 perturbed starting points, one after another, and keeps the lowest
-final objective (``models/common._fit_with_restarts``).
+final objective (``models/common._fit_with_restarts``).  Under
+``setOptimizer("device")`` the whole optimization runs on the device
+(``models/laplace_device.py``), restarts as one batched loop.
 
 The model (GPClf.scala:137-162) predicts the latent mean ``f*`` through
 the PPA predictor: ``predict_raw = (-f*, f*)``, ``predict_proba`` the
@@ -105,17 +107,28 @@ class GaussianProcessClassifier(GaussianProcessCommons):
                 self._emit_aggregation_stats(model.metrics, data_a)
                 return model
 
-            return self._fit_with_restarts(instr, fit_once)
+            return self._latent_fit_with_restarts(instr, fit_once)
 
         model = fallback.run_fit_ladder(self, instr, attempt, data=data)
         model.metrics.update(self._phase_metrics(model.instr))
         return model
 
+    #: ``setOptimizer("device")``: the Laplace device fit (EP has none)
+    _device_fit_ported = True
+    _latent_heads = 1
+
     def _fit_latent(self, kernel, data: ExpertData, cache):
         """The inference engine's part of the fit: ``(OptimizeResult, the
         latent PPA targets [E, s], the engine's metrics)``.  Laplace: host
         L-BFGS-B on the summed ``-log Z`` (the latent modes warm-start
-        every evaluation), the modes as the targets."""
+        every evaluation, and one more evaluation at theta* settles them),
+        or under ``setOptimizer("device")`` the device fit
+        (``laplace.fit_gpc_device*``), whose modes are those of the last
+        accepted iterate; the modes are the targets."""
+        if self._resolved_optimizer() == "device":
+            lanes = laplace.BinaryLaplaceLanes(kernel, data, self._tol, cache)
+            res, latent, metrics = self._latent_device_fit(kernel, data, lanes, "gpc", "gpc")
+            return res, latent * data.mask, metrics
         iterations = laplace.laplace_mode_batch.iterations
         calls = laplace.batched_neg_logz.calls
         objective = laplace.make_laplace_objective(kernel, data, self._tol, cache)
@@ -123,6 +136,7 @@ class GaussianProcessClassifier(GaussianProcessCommons):
         return res, f_final * data.mask, {
             "newton_iterations": laplace.laplace_mode_batch.iterations - iterations,
             "objective_calls": laplace.batched_neg_logz.calls - calls,
+            **self._resumed_metric(res),
         }
 
     def _make_model(self, raw):

@@ -30,6 +30,9 @@ from spark_gp_tpu_torch.parallel.experts import ExpertData
 class GaussianProcessEPClassifier(GaussianProcessClassifier):
     """Binary classifier with the EP inference engine; labels 0 or 1."""
 
+    #: EP's device fit (its aux is the site pair) is ROADMAP.md item 4b
+    _device_fit_ported = False
+
     def _gram_cache(self, kernel, data: ExpertData):
         """None: the site sweeps have no cached-gram path, so no cache is
         built (``gram_cache_engaged`` is 0)."""

@@ -85,8 +85,7 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
     def _fit_body(self, instr, x, y_int, n_classes, device) -> "GaussianProcessMulticlassModel":
         from spark_gp_tpu_torch.resilience import fallback
 
-        iterations = laplace_mc.laplace_mc_mode.iterations
-        calls = laplace_mc.batched_neg_logz_mc.calls
+        self._latent_heads = n_classes
         with instr.phase("group_experts"):
             data = self._group_screened(instr, x, y_int.astype(np.float64), device)
         kernel = self._get_kernel()
@@ -99,11 +98,7 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
             def fit_once(kernel_r, instr_r):
                 with maybe_profile(self._profile_dir, instr_r.name):
                     with self._optimize_phase(instr_r, data_a):
-                        objective = laplace_mc.make_mc_objective(
-                            kernel_r, data_a.x, y1h, data_a.mask, self._tol, cache
-                        )
-                        res, f_final = self._optimize_latent_host(kernel_r, objective,
-                                                                  torch.zeros_like(y1h))
+                        res, f_final, engine = self._fit_latent(kernel_r, data_a, y1h, cache)
                     # the per-class latent modes are the PPA targets; the
                     # provider sees each point's strongest class latent
                     latents = f_final * data_a.mask[..., None]
@@ -123,19 +118,42 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
                     "lbfgs_iters": res.nit,
                     "lbfgs_nfev": res.nfev,
                     "final_nll": res.fun,
-                    "newton_iterations": laplace_mc.laplace_mc_mode.iterations - iterations,
-                    "objective_calls": laplace_mc.batched_neg_logz_mc.calls - calls,
+                    **engine,
                     "gram_cache_engaged": float(cache is not None),
                 })
                 self._log_renormalized_nll(model.metrics)
                 self._emit_aggregation_stats(model.metrics, data_a)
                 return model
 
-            return self._fit_with_restarts(instr, fit_once)
+            return self._latent_fit_with_restarts(instr, fit_once)
 
         model = fallback.run_fit_ladder(self, instr, attempt, data=data)
         model.metrics.update(self._phase_metrics(model.instr))
         return model
+
+    #: ``setOptimizer("device")``: the softmax Laplace device fit
+    _device_fit_ported = True
+
+    def _fit_latent(self, kernel, data: ExpertData, y1h, cache):
+        """``(OptimizeResult, the latent modes [E, s, C], the engine's
+        metrics)``: host L-BFGS-B on the summed ``-log Z`` (the modes
+        warm-start every evaluation and are settled at theta*), or under
+        ``setOptimizer("device")`` the device fit
+        (``laplace_mc.fit_gpc_mc_device*``)."""
+        if self._resolved_optimizer() == "device":
+            lanes = laplace_mc.MulticlassLaplaceLanes(kernel, data.x, y1h, data.mask, self._tol,
+                                                      cache)
+            return self._latent_device_fit(kernel, data, lanes, "gpc_mc", "gpc_mc",
+                                           num_classes=int(y1h.shape[-1]))
+        iterations = laplace_mc.laplace_mc_mode.iterations
+        calls = laplace_mc.batched_neg_logz_mc.calls
+        objective = laplace_mc.make_mc_objective(kernel, data.x, y1h, data.mask, self._tol, cache)
+        res, f_final = self._optimize_latent_host(kernel, objective, torch.zeros_like(y1h))
+        return res, f_final, {
+            "newton_iterations": laplace_mc.laplace_mc_mode.iterations - iterations,
+            "objective_calls": laplace_mc.batched_neg_logz_mc.calls - calls,
+            **self._resumed_metric(res),
+        }
 
     def fit_distributed(self, data, n_classes=None, active_set=None):
         raise _not_ported("the multi-host multiclass fit", 6)

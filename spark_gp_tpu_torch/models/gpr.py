@@ -31,10 +31,8 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models.active_set import GreedilyOptimizingActiveSetProvider
-from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons
 from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
-from spark_gp_tpu_torch.ops import iterative as it_ops
-from spark_gp_tpu_torch.optimize.lbfgsb import OptimizeResult
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops.linalg import psd_safe_cholesky_np
 from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
@@ -201,21 +199,8 @@ class GaussianProcessRegression(GaussianProcessCommons):
         raises ``NonFiniteFitError`` for a non-finite final objective
         (the loop cannot raise mid-flight)."""
         from spark_gp_tpu_torch.models import likelihood as lk
-        from spark_gp_tpu_torch.resilience import chaos
-        from spark_gp_tpu_torch.resilience.quarantine import NonFiniteFitError
 
-        lane = it_ops.resolve_for(data)
-        if lane != "exact":
-            raise _not_ported(f"the on-device optimizer on the {lane!r} solver lane", "4b")
-        self._check_restarts_without_checkpoints()
-        dtype, device = data.x.dtype, data.x.device
-
-        def dev(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
-
-        lower, upper = (dev(b) for b in kernel.bounds())
-        log_space = self._use_log_space(kernel)
-        chaos.maybe_injected_failure(self._device_fit_op(), nbytes=self._dispatch_raw_bytes(data))
+        dev, lower, upper, log_space = self._device_fit_prelude(kernel, data)
         loop: dict = {}
         multistart = self._use_batched_multistart()
         with instr.phase("optimize_hypers"):
@@ -241,21 +226,7 @@ class GaussianProcessRegression(GaussianProcessCommons):
                     self._max_iter, self._tol, extra, cache, self._objective, loop_metrics=loop)
                 names = ("theta", "f", "n_iter", "n_fev", "stalled")
             host = self._finalize_device_fit(dict(zip(names, out)))
-        stalled = bool(host["stalled"])
-        res = OptimizeResult(
-            theta=np.asarray(host["theta"], dtype=np.float64), fun=float(host["f"]),
-            nit=int(host["n_iter"]), nfev=int(host["n_fev"]), success=not stalled,
-            message="line search stalled" if stalled else "converged or at the iteration budget",
-            resumed_from_iteration=int(loop.get("resumed_from_iteration", 0)),
-        )
-        metrics = {"optimizer": "device", "lbfgs_stalled": float(stalled),
-                   **self._device_loop_metrics(loop)}
-        if multistart:
-            self._report_multistart_nlls(metrics, host["f_all"])
-            metrics["best_restart"] = int(host["best"])
-        elif self._expert_quarantine and not np.isfinite(res.fun):
-            raise NonFiniteFitError("device fit converged to a non-finite objective")
-        return res, metrics
+        return self._device_fit_result(host, loop, multistart)
 
     def loo(self, x, y, model: "Optional[GaussianProcessRegressionModel]" = None) -> dict:
         """Exact per-expert leave-one-out diagnostics (``models/loo.py``)

@@ -15,7 +15,10 @@ masked updates, so each iteration factors every expert's
 with ``s <= 512`` the hand-written kernel of ``ops/spd_linalg.py`` (K1),
 on the CPU one batched Cholesky, on the iterative lanes preconditioned CG
 and SLQ (``ops/iterative.py``).  Deciding whether to go on is one host
-read a Newton iteration.
+read a Newton iteration on the host optimizer's path; the device fits
+(:func:`fit_gpc_device` and its multi-start and segmented variants,
+``models/laplace_device.py``) run the same iteration without it, masked,
+inside the device optimizer's captured step.
 
 The gradient needs only the converged state, so neither the loop nor K1
 is differentiated.  With ``a``, ``R = sqrtW B^-1 sqrtW``, ``g = grad log
@@ -44,6 +47,15 @@ import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
 from spark_gp_tpu_torch.models.aggregation import weighted_expert_sum
+from spark_gp_tpu_torch.models.laplace_device import (
+    LaplaceLanes,
+    fit_latent_device,
+    fit_latent_device_checkpointed,
+    fit_latent_device_multistart,
+    newton_running,
+    newton_start,
+    newton_update,
+)
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops import spd_linalg
 from spark_gp_tpu_torch.ops.linalg import chol_logdet, chol_solve, cholesky
@@ -122,6 +134,16 @@ def _objective_batch(a, f_new, y, mask):
     )
 
 
+def _newton_proposal(kmat, y, mask, f):
+    """``(a, K a)``: one Newton step's ``a`` from latent ``f`` and the full
+    step's latent, for the whole stack (the iterative lanes skip the
+    log-det, which the step does not read)."""
+    _, w, sqw, factor, _, grad_log_p = _posterior_terms_batch(kmat, y, mask, f,
+                                                             with_logdet=False)
+    a = _newton_a_batch(kmat, w, sqw, factor, grad_log_p, f)
+    return a, torch.einsum("eij,ej->ei", kmat, a)
+
+
 @torch.no_grad()
 def laplace_mode_batch(kmat, y, mask, f0, tol):
     """Newton's method with per-expert step halving over the whole stack;
@@ -131,33 +153,17 @@ def laplace_mode_batch(kmat, y, mask, f0, tol):
     (GPClf.scala:91-111): a candidate is accepted iff its objective beats
     ``old``, else that expert's step halves; an expert whose
     ``|old - new| > tol and step > tol`` has failed freezes while the
-    others go on.  The loop ends when no expert runs, which is one host
-    read an iteration."""
-    dtype = kmat.dtype
-    e = kmat.shape[0]
+    others go on (``laplace_device.newton_update``).  The loop ends when
+    no expert runs, which is one host read an iteration."""
     f = f0
-    old = torch.full((e,), -torch.inf, dtype=dtype, device=kmat.device)
-    new = torch.full((e,), torch.finfo(dtype).min, dtype=dtype, device=kmat.device)
-    step = torch.ones((e,), dtype=dtype, device=kmat.device)
+    old, new, step = newton_start(f0)
     while True:
-        run = (torch.abs(old - new) > tol) & (step > tol)
+        run = newton_running(old, new, step, tol)
         if not bool(run.any()):
             return f, new
         laplace_mode_batch.iterations += 1
-        _, w, sqw, factor, _, grad_log_p = _posterior_terms_batch(
-            kmat, y, mask, f, with_logdet=False
-        )
-        a = _newton_a_batch(kmat, w, sqw, factor, grad_log_p, f)
-        f_cand = (1.0 - step)[:, None] * f + step[:, None] * torch.einsum(
-            "eij,ej->ei", kmat, a
-        )
-        obj_cand = _objective_batch(a, f_cand, y, mask)
-        accept = obj_cand > old
-        upd = run & accept
-        f = torch.where(upd[:, None], f_cand, f)
-        old = torch.where(upd, new, old)
-        new = torch.where(upd, obj_cand, new)
-        step = torch.where(run & ~accept, step / 2.0, step)
+        f, old, new, step = newton_update(_newton_proposal, _objective_batch, kmat, y, mask, f,
+                                          old, new, step, run)
 
 
 #: Newton iterations since the last reset
@@ -177,11 +183,21 @@ def batched_neg_logz(kernel: Kernel, tol, theta, data: ExpertData, f0, cache=Non
     th = theta.detach().requires_grad_(True)
     with torch.enable_grad():
         kmat_g = masked_gram_stack(kernel, th, data.x, data.mask, cache)
-    kmat = kmat_g.detach()
-    y, mask = data.y, data.mask
     with torch.no_grad():
-        f, new_obj = laplace_mode_batch(kmat, y, mask, f0, tol)
-        # the converged state (the reference's last iteration: f is fixed)
+        f, new_obj = laplace_mode_batch(kmat_g.detach(), data.y, data.mask, f0, tol)
+    log_z, grad = _converged_pass(kmat_g, th, data.y, data.mask, f, new_obj, weights)
+    return -weighted_expert_sum(log_z, weights), -grad, f
+
+
+def _converged_pass(kmat_g, th, y, mask, f, new_obj, weights=None):
+    """``(log Z_e [B], d/dtheta of the surrogate)`` at the converged modes
+    ``f`` of a ``[B, s, s]`` gram stack ``kmat_g`` that carries theta's
+    graph (module doc): the reference's last iteration (f is fixed), one
+    K1 call on the exact lane, then one reverse pass.  The surrogate sums
+    over the stack, so ``th`` may hold several lanes' thetas whose grams
+    the stack concatenates: each lane's gradient is its own."""
+    kmat = kmat_g.detach()
+    with torch.no_grad():
         pi, w, sqw, factor, logdet, grad_log_p = _posterior_terms_batch(kmat, y, mask, f)
         a = _newton_a_batch(kmat, w, sqw, factor, grad_log_p, f)
         binv = _binv_full(factor)
@@ -208,7 +224,7 @@ def batched_neg_logz(kernel: Kernel, tol, theta, data: ExpertData, f0, cache=Non
             + torch.einsum("ei,eij,ej->", wu, kmat_g, grad_log_p)
         )
         (grad,) = torch.autograd.grad(surrogate, th)
-    return -weighted_expert_sum(log_z, weights), -grad, f
+    return log_z, grad
 
 
 #: objective evaluations since the last reset
@@ -248,3 +264,64 @@ def make_laplace_objective(kernel: Kernel, data: ExpertData, tol, cache=None):
         return float(host[0]), host[1:], f_new
 
     return objective
+
+
+# --- the device fits (``models/laplace_device.py``) --------------------------------
+
+
+class BinaryLaplaceLanes(LaplaceLanes):
+    """R lanes of the binary Laplace objective for the device optimizer:
+    the host loop's Newton step and Algorithm 5.1's converged pass over the
+    flat ``[R * E, s, s]`` stack, one K1 call each."""
+
+    family = "gpc"
+    passes = 1
+    mode_loop = staticmethod(laplace_mode_batch)
+    _proposal = staticmethod(_newton_proposal)
+    _inner_objective = staticmethod(_objective_batch)
+
+    def __init__(self, kernel: Kernel, data: ExpertData, tol, cache=None):
+        super().__init__(kernel, data.x, data.y, data.mask, tol, cache)
+
+    def _gradient_pass(self, thetas, f, new_obj):
+        r, e, s = f.shape
+        th = thetas.detach().requires_grad_(True)
+        kmat_g = self.lane_grams(th, grad=True)
+        y, mask = self.lane_targets(r)
+        log_z, grad = _converged_pass(kmat_g, th, y, mask, f.reshape(r * e, s),
+                                      new_obj.reshape(-1))
+        return -log_z.reshape(r, e).sum(-1), -grad
+
+
+def fit_gpc_device(kernel: Kernel, tol, log_space: bool, theta0, lower, upper, data: ExpertData,
+                   max_iter: int, cache=None, capture: bool = True, loop_metrics=None):
+    """The single-start device fit of the binary classifier (JAX
+    ``fit_gpc_device``): the latent warm-start stack is the optimizer's
+    aux carry.  ``theta0``, ``lower``, ``upper`` are tensors in the stack's
+    dtype and device.  Returns device tensors ``(theta, f_latents [E, s],
+    nll, n_iter, n_fev, stalled)``."""
+    lanes = BinaryLaplaceLanes(kernel, data, tol, cache)
+    return fit_latent_device(lanes, log_space, theta0, lower, upper, max_iter, tol,
+                             capture=capture, loop_metrics=loop_metrics)
+
+
+def fit_gpc_device_multistart(kernel: Kernel, tol, log_space: bool, theta0_batch, lower, upper,
+                              data: ExpertData, max_iter: int, cache=None, loop_metrics=None):
+    """R restarts as one device loop (JAX ``fit_gpc_device_multistart``):
+    ``(theta_best, f_latents_best, nll_best, n_iter, n_fev, stalled,
+    f_all [R], best)``."""
+    lanes = BinaryLaplaceLanes(kernel, data, tol, cache)
+    return fit_latent_device_multistart(lanes, log_space, theta0_batch, lower, upper, max_iter,
+                                        tol, loop_metrics=loop_metrics)
+
+
+def fit_gpc_device_checkpointed(kernel: Kernel, tol, log_space: bool, theta0, lower, upper,
+                                data: ExpertData, max_iter: int, chunk: int, saver, cache=None,
+                                loop_metrics=None):
+    """The segmented binary device fit (JAX ``fit_gpc_device_checkpointed``,
+    ``segment_meta`` kind ``"gpc"``): a resume continues from the saved
+    modes.  Returns the single-start fit's tuple."""
+    lanes = BinaryLaplaceLanes(kernel, data, tol, cache)
+    return fit_latent_device_checkpointed(lanes, "gpc", log_space, theta0, lower, upper,
+                                          max_iter, tol, chunk, saver, loop_metrics=loop_metrics)
+

@@ -1,5 +1,5 @@
 """The Laplace approximation for any pointwise log-concave likelihood, the
-port of the JAX package's ``models/laplace_generic.py`` (host objective).
+port of the JAX package's ``models/laplace_generic.py``.
 
 A likelihood is one function ``log_lik(f, y)``, per point; its gradient
 and negative Hessian come from ``grad_hess`` (autograd by default, closed
@@ -25,11 +25,15 @@ systems are materialized) they are preconditioned CG and SLQ
 
 Counters: ``laplace_generic_mode.iterations`` (Newton iterations) and
 ``batched_neg_logz_generic.calls`` (objective evaluations).  On the exact
-lane K1 runs once a Newton iteration and twice an evaluation.
+lane K1 runs once a Newton iteration and twice an evaluation.  The device
+fits (:func:`fit_generic_device` and its variants,
+``models/laplace_device.py``) run the same Newton step and gradient inside
+the device optimizer's captured step.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -38,6 +42,15 @@ import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
 from spark_gp_tpu_torch.models.aggregation import weighted_expert_sum
+from spark_gp_tpu_torch.models.laplace_device import (
+    LaplaceLanes,
+    fit_latent_device,
+    fit_latent_device_checkpointed,
+    fit_latent_device_multistart,
+    newton_running,
+    newton_start,
+    newton_update,
+)
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops import spd_linalg
 
@@ -197,32 +210,33 @@ def _gen_objective(lik: Likelihood, a, f_new, y, mask):
     return -0.5 * torch.sum(a * f_new, dim=-1) + torch.sum(ll * mask, dim=-1)
 
 
+def _gen_proposal(lik: Likelihood):
+    """``(kmat, y, mask, f) -> (a, K a)``: one Newton step from latent ``f``
+    for ``lik`` (no log-det)."""
+    def proposal(kmat, y, mask, f):
+        stp = _gen_newton_quantities(lik, kmat, y, mask, f, with_logdet=False)
+        return stp.a, stp.f_new
+
+    return proposal
+
+
 @torch.no_grad()
 def laplace_generic_mode(lik: Likelihood, kmat, y, mask, f0, tol):
     """Newton's method with per-expert step halving over the whole stack,
-    the binary loop's acceptance and termination for any likelihood;
-    returns ``(f_modes [E, s], objective [E])``.  One host read an
-    iteration."""
-    dtype = kmat.dtype
-    e = kmat.shape[0]
+    the binary loop's acceptance and termination for any likelihood
+    (``laplace_device.newton_update``); returns ``(f_modes [E, s],
+    objective [E])``.  One host read an iteration."""
     f = f0
-    old = torch.full((e,), -torch.inf, dtype=dtype, device=kmat.device)
-    new = torch.full((e,), torch.finfo(dtype).min, dtype=dtype, device=kmat.device)
-    step = torch.ones((e,), dtype=dtype, device=kmat.device)
+    old, new, step = newton_start(f0)
+    proposal = _gen_proposal(lik)
+    objective = functools.partial(_gen_objective, lik)
     while True:
-        run = (torch.abs(old - new) > tol) & (step > tol)
+        run = newton_running(old, new, step, tol)
         if not bool(run.any()):
             return f, new
         laplace_generic_mode.iterations += 1
-        stp = _gen_newton_quantities(lik, kmat, y, mask, f, with_logdet=False)
-        f_cand = (1.0 - step)[:, None] * f + step[:, None] * stp.f_new
-        obj_cand = _gen_objective(lik, stp.a, f_cand, y, mask)
-        accept = obj_cand > old
-        upd = run & accept
-        f = torch.where(upd[:, None], f_cand, f)
-        old = torch.where(upd, new, old)
-        new = torch.where(upd, obj_cand, new)
-        step = torch.where(run & ~accept, step / 2.0, step)
+        f, old, new, step = newton_update(proposal, objective, kmat, y, mask, f, old, new, step,
+                                          run)
 
 
 #: Newton iterations since the last reset
@@ -242,14 +256,20 @@ def batched_neg_logz_generic(lik: Likelihood, kernel: Kernel, tol, theta, x, y, 
     with torch.enable_grad():
         kmat = masked_gram_stack(kernel, th, x, mask, cache)
         f_hat, _ = laplace_generic_mode(lik, kmat.detach(), y, mask, f0, tol)
-        stp = _gen_newton_quantities(lik, kmat, y, mask, f_hat, with_logdet=False)
-        # the determinant at the differentiable iterate: f_new equals f_hat
-        # in value but carries the mode's derivative in theta
-        det = _gen_newton_quantities(lik, kmat, y, mask, stp.f_new)
-        log_z = _gen_objective(lik, stp.a, stp.f_new, y, mask) - det.half_logdet_b
-        value = -weighted_expert_sum(log_z, weights)
+        value = -weighted_expert_sum(_log_z_at_mode(lik, kmat, y, mask, f_hat), weights)
         (grad,) = torch.autograd.grad(value, th)
     return value.detach(), grad, f_hat
+
+
+def _log_z_at_mode(lik: Likelihood, kmat, y, mask, f_hat):
+    """``log Z_e`` ``[B]`` at the mode ``f_hat``, differentiable in the
+    gram ``kmat``: one Newton step from the mode, ``log|B|`` at the
+    stepped iterate (module doc), two K1 calls on the exact lane."""
+    stp = _gen_newton_quantities(lik, kmat, y, mask, f_hat, with_logdet=False)
+    # the determinant at the differentiable iterate: f_new equals f_hat in
+    # value but carries the mode's derivative in theta
+    det = _gen_newton_quantities(lik, kmat, y, mask, stp.f_new)
+    return _gen_objective(lik, stp.a, stp.f_new, y, mask) - det.half_logdet_b
 
 
 #: objective evaluations since the last reset
@@ -272,3 +292,75 @@ def make_generic_objective(lik: Likelihood, kernel: Kernel, x, y, mask, tol, cac
         return float(host[0]), host[1:], f_new
 
     return objective
+
+
+# --- the device fits (``models/laplace_device.py``) --------------------------------
+
+
+class GenericLaplaceLanes(LaplaceLanes):
+    """R lanes of the generic-likelihood Laplace objective for the device
+    optimizer: the host loop's Newton step over the flat ``[R * E]`` stack
+    (one K1 call, the solve refined once through its inverse) and the
+    gradient by autograd through one Newton step from the modes (two K1
+    calls)."""
+
+    family = "generic"
+    passes = 2
+    mode_loop = staticmethod(laplace_generic_mode)
+
+    def __init__(self, lik: Likelihood, kernel: Kernel, x, y, mask, tol, cache=None) -> None:
+        super().__init__(kernel, x, y, mask, tol, cache)
+        self.lik = lik
+        self.mode_args = (lik,)
+        self._proposal = _gen_proposal(lik)
+        self._inner_objective = functools.partial(_gen_objective, lik)
+
+    def _gradient_pass(self, thetas, f, new_obj):
+        r, e = f.shape[:2]
+        with torch.enable_grad():
+            th = thetas.detach().requires_grad_(True)
+            y, mask = self.lane_targets(r)
+            log_z = _log_z_at_mode(self.lik, self.lane_grams(th, grad=True), y, mask,
+                                   f.reshape(r * e, -1))
+            values = -log_z.reshape(r, e).sum(-1)
+            (grad,) = torch.autograd.grad(values.sum(), th)
+        return values.detach(), grad
+
+
+def segment_kind(lik: Likelihood) -> str:
+    """The JAX package's ``segment_meta`` kind of a generic fit."""
+    return f"generic:{type(lik).__name__}{lik._spec()}"
+
+
+def fit_generic_device(lik: Likelihood, kernel: Kernel, tol, log_space: bool, theta0, lower,
+                       upper, x, y, mask, max_iter: int, cache=None, loop_metrics=None):
+    """The single-start device fit of a count model (JAX
+    ``fit_generic_device``) from zero latents.  Returns device tensors
+    ``(theta, f_latents [E, s], nll, n_iter, n_fev, stalled)``."""
+    lanes = GenericLaplaceLanes(lik, kernel, x, y, mask, tol, cache)
+    return fit_latent_device(lanes, log_space, theta0, lower, upper, max_iter, tol,
+                             loop_metrics=loop_metrics)
+
+
+def fit_generic_device_multistart(lik: Likelihood, kernel: Kernel, tol, log_space: bool,
+                                  theta0_batch, lower, upper, x, y, mask, max_iter: int,
+                                  cache=None, loop_metrics=None):
+    """R restarts as one device loop (JAX ``fit_generic_device_multistart``):
+    ``(theta_best, f_latents_best, nll_best, n_iter, n_fev, stalled,
+    f_all [R], best)``."""
+    lanes = GenericLaplaceLanes(lik, kernel, x, y, mask, tol, cache)
+    return fit_latent_device_multistart(lanes, log_space, theta0_batch, lower, upper, max_iter,
+                                        tol, loop_metrics=loop_metrics)
+
+
+def fit_generic_device_checkpointed(lik: Likelihood, kernel: Kernel, tol, log_space: bool,
+                                    theta0, lower, upper, x, y, mask, max_iter: int, chunk: int,
+                                    saver, cache=None, loop_metrics=None):
+    """The segmented count-model device fit (JAX
+    ``fit_generic_device_checkpointed``, ``segment_meta`` kind
+    :func:`segment_kind`)."""
+    lanes = GenericLaplaceLanes(lik, kernel, x, y, mask, tol, cache)
+    return fit_latent_device_checkpointed(lanes, segment_kind(lik), log_space, theta0, lower,
+                                          upper, max_iter, tol, chunk, saver,
+                                          loop_metrics=loop_metrics)
+

@@ -1,5 +1,5 @@
 """Laplace approximation for multiclass GP classification (softmax link),
-the port of the JAX package's ``models/laplace_mc.py`` (host objective).
+the port of the JAX package's ``models/laplace_mc.py``.
 
 One latent function per class under a shared GP prior, coupled through
 the softmax likelihood (R&W ch. 3.5).  With ``pi = softmax(f)``,
@@ -35,7 +35,10 @@ backward by K1's own VJP.
 
 Counters: ``laplace_mc_mode.iterations`` (Newton iterations) and
 ``batched_neg_logz_mc.calls`` (objective evaluations).  On the exact lane
-K1 runs once a Newton iteration and twice an evaluation.
+K1 runs once a Newton iteration and twice an evaluation.  The device fits
+(:func:`fit_gpc_mc_device` and its variants, ``models/laplace_device.py``)
+run the same Newton step and gradient inside the device optimizer's
+captured step, every lane's B_c stacks one K1 launch.
 """
 
 from __future__ import annotations
@@ -47,6 +50,15 @@ import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
 from spark_gp_tpu_torch.models.aggregation import weighted_expert_sum
+from spark_gp_tpu_torch.models.laplace_device import (
+    LaplaceLanes,
+    fit_latent_device,
+    fit_latent_device_checkpointed,
+    fit_latent_device_multistart,
+    newton_running,
+    newton_start,
+    newton_update,
+)
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops import spd_linalg
 from spark_gp_tpu_torch.ops.linalg import chol_solve, cholesky
@@ -147,36 +159,31 @@ def _mc_objective(a, f_new, y1h, mask):
     return -0.5 * torch.sum(a * f_new, dim=(-2, -1)) + _mc_log_lik(f_new, y1h, mask)
 
 
+def _mc_proposal(kmat, y1h, mask, f):
+    """``(a, K a)`` of one Newton step from latent ``f`` (no log-det)."""
+    stp = _mc_newton_quantities(kmat, y1h, mask, f, with_logdet=False)
+    return stp.a, stp.f_new
+
+
 @torch.no_grad()
 def laplace_mc_mode(kmat, y1h, mask, f0, tol):
     """The softmax-Laplace Newton loop with per-expert step halving over
     the whole stack; returns ``(f_modes [E, s, C], objective [E])``.
 
     Acceptance and termination are the binary loop's (and the JAX
-    ``while_loop``'s): a candidate is accepted iff its objective beats
-    ``old``, else that expert's step halves; an expert runs while
-    ``|old - new| > tol and step > tol``.  Deciding whether to go on is
-    one host read an iteration."""
-    dtype = kmat.dtype
-    e = kmat.shape[0]
+    ``while_loop``'s, ``laplace_device.newton_update``): a candidate is
+    accepted iff its objective beats ``old``, else that expert's step
+    halves; an expert runs while ``|old - new| > tol and step > tol``.
+    Deciding whether to go on is one host read an iteration."""
     f = f0
-    old = torch.full((e,), -torch.inf, dtype=dtype, device=kmat.device)
-    new = torch.full((e,), torch.finfo(dtype).min, dtype=dtype, device=kmat.device)
-    step = torch.ones((e,), dtype=dtype, device=kmat.device)
+    old, new, step = newton_start(f0)
     while True:
-        run = (torch.abs(old - new) > tol) & (step > tol)
+        run = newton_running(old, new, step, tol)
         if not bool(run.any()):
             return f, new
         laplace_mc_mode.iterations += 1
-        stp = _mc_newton_quantities(kmat, y1h, mask, f, with_logdet=False)
-        f_cand = (1.0 - step)[:, None, None] * f + step[:, None, None] * stp.f_new
-        obj_cand = _mc_objective(stp.a, f_cand, y1h, mask)
-        accept = obj_cand > old
-        upd = run & accept
-        f = torch.where(upd[:, None, None], f_cand, f)
-        old = torch.where(upd, new, old)
-        new = torch.where(upd, obj_cand, new)
-        step = torch.where(run & ~accept, step / 2.0, step)
+        f, old, new, step = newton_update(_mc_proposal, _mc_objective, kmat, y1h, mask, f, old,
+                                          new, step, run)
 
 
 #: Newton iterations since the last reset
@@ -198,15 +205,21 @@ def batched_neg_logz_mc(kernel: Kernel, tol, theta, x, y1h, mask, f0, cache=None
     with torch.enable_grad():
         kmat = masked_gram_stack(kernel, th, x, mask, cache)
         f_hat, _ = laplace_mc_mode(kmat.detach(), y1h, mask, f0, tol)
-        stp = _mc_newton_quantities(kmat, y1h, mask, f_hat, with_logdet=False)
-        # the determinants at the differentiable iterate: f_new equals
-        # f_hat in value but carries the mode's derivative in theta
-        det = _mc_newton_quantities(kmat, y1h, mask, stp.f_new)
-        log_z = (_mc_objective(stp.a, stp.f_new, y1h, mask)
-                 - det.half_logdet_b - det.half_logdet_m)
-        value = -weighted_expert_sum(log_z, weights)
+        value = -weighted_expert_sum(_log_z_at_mode(kmat, y1h, mask, f_hat), weights)
         (grad,) = torch.autograd.grad(value, th)
     return value.detach(), grad, f_hat
+
+
+def _log_z_at_mode(kmat, y1h, mask, f_hat):
+    """``log Z_e`` ``[B]`` at the mode ``f_hat``, differentiable in the
+    gram ``kmat``: one Newton step from the mode, the determinants at the
+    stepped iterate (module doc), two K1 calls on the exact lane."""
+    stp = _mc_newton_quantities(kmat, y1h, mask, f_hat, with_logdet=False)
+    # the determinants at the differentiable iterate: f_new equals f_hat
+    # in value but carries the mode's derivative in theta
+    det = _mc_newton_quantities(kmat, y1h, mask, stp.f_new)
+    return (_mc_objective(stp.a, stp.f_new, y1h, mask)
+            - det.half_logdet_b - det.half_logdet_m)
 
 
 #: objective evaluations since the last reset
@@ -228,3 +241,65 @@ def make_mc_objective(kernel: Kernel, x, y1h, mask, tol, cache=None):
         return float(host[0]), host[1:], f_new
 
     return objective
+
+
+# --- the device fits (``models/laplace_device.py``) --------------------------------
+
+
+class MulticlassLaplaceLanes(LaplaceLanes):
+    """R lanes of the softmax Laplace objective for the device optimizer:
+    the host loop's Newton step over the flat ``[R * E]`` stack (one K1
+    call over its ``[R * E * C, s, s]`` B_c stack) and the gradient by
+    autograd through one Newton step from the modes (two K1 calls)."""
+
+    family = "gpc_mc"
+    passes = 2
+    mode_loop = staticmethod(laplace_mc_mode)
+    _proposal = staticmethod(_mc_proposal)
+    _inner_objective = staticmethod(_mc_objective)
+
+    def _gradient_pass(self, thetas, f, new_obj):
+        r, e = f.shape[:2]
+        with torch.enable_grad():
+            th = thetas.detach().requires_grad_(True)
+            y, mask = self.lane_targets(r)
+            log_z = _log_z_at_mode(self.lane_grams(th, grad=True), y, mask,
+                                   f.reshape((r * e,) + tuple(f.shape[2:])))
+            values = -log_z.reshape(r, e).sum(-1)
+            (grad,) = torch.autograd.grad(values.sum(), th)
+        return values.detach(), grad
+
+
+def fit_gpc_mc_device(kernel: Kernel, tol, log_space: bool, theta0, lower, upper, x, y1h, mask,
+                      max_iter: int, cache=None, loop_metrics=None):
+    """The single-start device fit of the multiclass classifier (JAX
+    ``fit_gpc_mc_device``) from zero latents ``[E, s, C]``.  Returns device
+    tensors ``(theta, f_latents [E, s, C], nll, n_iter, n_fev, stalled)``."""
+    lanes = MulticlassLaplaceLanes(kernel, x, y1h, mask, tol, cache)
+    return fit_latent_device(lanes, log_space, theta0, lower, upper, max_iter, tol,
+                             loop_metrics=loop_metrics)
+
+
+def fit_gpc_mc_device_multistart(kernel: Kernel, tol, log_space: bool, theta0_batch, lower,
+                                 upper, x, y1h, mask, max_iter: int, cache=None,
+                                 loop_metrics=None):
+    """R restarts as one device loop (JAX ``fit_gpc_mc_device_multistart``),
+    every Newton iteration one K1 launch over all lanes' B_c stacks:
+    ``(theta_best, f_latents_best, nll_best, n_iter, n_fev, stalled,
+    f_all [R], best)``."""
+    lanes = MulticlassLaplaceLanes(kernel, x, y1h, mask, tol, cache)
+    return fit_latent_device_multistart(lanes, log_space, theta0_batch, lower, upper, max_iter,
+                                        tol, loop_metrics=loop_metrics)
+
+
+def fit_gpc_mc_device_checkpointed(kernel: Kernel, tol, log_space: bool, theta0, lower, upper,
+                                   x, y1h, mask, max_iter: int, chunk: int, saver, cache=None,
+                                   loop_metrics=None):
+    """The segmented multiclass device fit (JAX
+    ``fit_gpc_mc_device_checkpointed``, ``segment_meta`` kind ``"gpc_mc"``
+    with ``num_classes``)."""
+    lanes = MulticlassLaplaceLanes(kernel, x, y1h, mask, tol, cache)
+    return fit_latent_device_checkpointed(lanes, "gpc_mc", log_space, theta0, lower, upper,
+                                          max_iter, tol, chunk, saver, loop_metrics=loop_metrics,
+                                          num_classes=int(y1h.shape[-1]))
+

@@ -68,6 +68,12 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("device_opt.capture_seconds", "metric", "device optimizer: host seconds spent capturing the step"),
     MetricName("device_opt.graph_nodes", "metric", "device optimizer: nodes of the captured step's CUDA graph"),
     MetricName("device_opt.warmup_evaluations", "metric", "device optimizer: objective evaluations that warmed a capture of a resumed state"),
+    MetricName("device_opt.newton_iterations", "metric", "device optimizer, Laplace families: Newton iterations in which some expert ran, counted on the device"),
+    MetricName("device_opt.gradient_passes", "metric", "device optimizer, Laplace families: gradient passes that ended a trial, counted on the device"),
+    MetricName("device_opt.eager_newton_iterations", "metric", "device optimizer, Laplace families: Newton iterations of the evaluations run eagerly (the initial one, a resumed leg's warm-up)"),
+    MetricName("device_opt.eager_evaluations", "metric", "device optimizer, Laplace families: evaluations run eagerly"),
+    MetricName("device_opt.newton_k", "metric", "device optimizer, Laplace families: Newton iterations unrolled in the captured step"),
+    MetricName("device_opt.pass_k1_calls", "metric", "device optimizer, Laplace families: K1 calls of one gradient pass"),
     MetricName("objective", "metric", "regression training objective (marginal/loo/elbo)"),
     MetricName("likelihood", "metric", "count-regression likelihood (PoissonLikelihood/NegativeBinomialLikelihood)"),
     MetricName("newton_iterations", "metric", "Laplace Newton iterations over the fit"),

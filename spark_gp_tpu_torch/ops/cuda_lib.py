@@ -88,6 +88,24 @@ def capture_tally():
         _CAPTURE.tally = prev
 
 
+@contextlib.contextmanager
+def collector_held():
+    """Around a CUDA graph capture: hold Python's cyclic garbage collector
+    off until the capture ends, so no finalizer of a dead reference cycle
+    runs on the capturing thread mid-capture (a dead CUDA graph's
+    ``reset`` there is an API call the capture forbids, and it invalidates
+    the capture); the cycle is collected after."""
+    import gc
+
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
 def record_launch(wrapper, name: str) -> None:
     """The wrappers' one launch counter: ``wrapper.launches`` and the
     telemetry count one launch, or, while a graph captures under

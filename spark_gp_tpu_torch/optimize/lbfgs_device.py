@@ -36,6 +36,29 @@ trials) has a fixed count:
   K1 launch over the R lanes' stacks), a finished lane stays frozen with
   its own diagnostics, and the winner is chosen on the device.
 
+An objective with an inner loop -- the Laplace families' Newton loop
+for the latent modes -- is a *latent objective* (``trial`` /
+``evaluate`` / ``reset``, :func:`is_latent`), the JAX package's
+``value_and_grad_aux`` with its ``aux`` carry:
+
+* ``state["aux"]`` (``[R, E, s]`` or ``[R, E, s, C]``) holds the modes at
+  the last accepted iterate; every trial of the line search starts its
+  Newton loop from them, the kept trial's modes ride in ``aux_new``
+  under the same mask as ``f_new`` / ``g_new``, and become ``aux`` when
+  the iteration ends (JAX ``lbfgs_device.py`` ``aux_new`` / ``aux``);
+* one step holds ``k`` unrolled Newton iterations (the objective's
+  ``newton_k``), each masked per expert exactly as the host loop, then
+  the converged-state gradient pass.  A trial whose Newton loop has not
+  ended after ``k`` iterations carries its Newton state (``nt_f``,
+  ``nt_old``, ``nt_new``, ``nt_step``) to the next step, and the line
+  search holds, masked, until it ends; so any ``k`` gives the iterates of
+  the uncapped JAX ``while_loop``.  The card's PyTorch (2.11) has no
+  CUDA-graph conditional node, so the unrolled iterations and the pass
+  run on every replay, masked to no-ops where they have nothing to do;
+  ``newton_iterations`` and ``gradient_passes`` count, on the device,
+  the ones that did work (the host loop's count), read at the loop's
+  existing host reads.
+
 Fixed-count loops (the Cauchy point's h segments, the history's m_hist
 BFGS updates, the ``[h, h]`` solve) are unrolled.  The subspace solve is
 LU with partial pivoting in plain tensor operations (h is the kernel's
@@ -56,18 +79,15 @@ import torch
 REPLAY_BATCH = 8
 
 #: the JAX package's ``_LbfgsState`` fields, in order (its checkpoint
-#: payload's ``leaf_i`` layout); ``aux`` is the objectives' carry, a zero
-#: scalar for the regression objectives the port runs here
+#: payload's ``leaf_i`` layout); ``aux`` is the objectives' carry: the
+#: latent modes of a latent objective, a zero scalar (not held on the
+#: device) for the regression objectives
 STATE_FIELDS = (
     "theta", "f", "grad", "aux", "s_hist", "y_hist", "hist_count",
     "hist_head", "n_iter", "n_fev", "done", "stalled",
 )
-#: the line search's carry, prepared at each iteration's start
-SEARCH_FIELDS = (
-    "direction", "g_dot_d", "t", "low", "high", "f_new", "g_new",
-    "theta_new", "ls_accepted", "armijo_seen", "n_ls", "ls_fev",
-    "already_opt",
-)
+#: a latent objective's Newton state of the trial in flight
+NEWTON_FIELDS = ("nt_f", "nt_old", "nt_new", "nt_step")
 
 
 class _LbfgsState(NamedTuple):
@@ -103,9 +123,40 @@ class LbfgsConfig(NamedTuple):
 # --- log-domain reparameterization ------------------------------------------
 
 
+def is_latent(vag) -> bool:
+    """Whether ``vag`` is a latent objective (module doc): an object with
+    ``trial(thetas, carry, run) -> (f [R], g [R, h], carry, finished [R],
+    worked)``, ``evaluate(thetas, aux) -> (f, g, aux)`` (one whole
+    evaluation, eagerly) and ``reset(aux) -> carry``."""
+    return hasattr(vag, "trial")
+
+
+class _LogLatent:
+    """A latent objective in ``u = log(theta)`` coordinates."""
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+
+    def evaluate(self, u, aux):
+        theta = torch.exp(u)
+        value, grad, aux = self.inner.evaluate(theta, aux)
+        return value, grad * theta, aux
+
+    def trial(self, u, carry, run):
+        theta = torch.exp(u)
+        value, grad, carry, finished, worked = self.inner.trial(theta, carry, run)
+        return value, grad * theta, carry, finished, worked
+
+    def reset(self, aux):
+        return self.inner.reset(aux)
+
+
 def log_transform_vag(vag):
     """Chain-rule wrap of a lanes objective ``theta [R, h] -> (f [R],
-    g [R, h])`` for ``u = log(theta)`` coordinates."""
+    g [R, h])`` (or of a latent objective) for ``u = log(theta)``
+    coordinates."""
+    if is_latent(vag):
+        return _LogLatent(vag)
 
     def vag_u(u):
         theta = torch.exp(u)
@@ -300,13 +351,17 @@ def _proj_grad_norm(theta, grad, cfg: LbfgsConfig):
     return (_proj(theta - grad, cfg) - theta).abs().amax(-1)
 
 
-def lbfgs_init_state(vag, theta0, cfg: LbfgsConfig) -> Dict[str, torch.Tensor]:
-    """Evaluate the objective once at ``theta0 [R, h]`` and build the
-    carried state, the next iteration prepared (:func:`prepare`)."""
+def lbfgs_init_state(vag, theta0, cfg: LbfgsConfig, aux0=None) -> Dict[str, torch.Tensor]:
+    """Evaluate the objective once at ``theta0 [R, h]`` (a latent
+    objective from the modes ``aux0``) and build the carried state, the
+    next iteration prepared (:func:`prepare`)."""
     with torch.no_grad():
         r, h = theta0.shape
         dtype, dev = theta0.dtype, theta0.device
-        f0, g0 = vag(theta0)
+        if is_latent(vag):
+            f0, g0, aux = vag.evaluate(theta0, aux0)
+        else:
+            f0, g0 = vag(theta0)
         i32 = dict(dtype=torch.int32, device=dev)
         state = {
             "theta": theta0.clone(), "f": f0, "grad": g0,
@@ -318,8 +373,21 @@ def lbfgs_init_state(vag, theta0, cfg: LbfgsConfig) -> Dict[str, torch.Tensor]:
             "stalled": torch.zeros(r, dtype=torch.bool, device=dev),
             "evaluations": torch.zeros(r, **i32),
         }
+        if is_latent(vag):
+            state.update(_latent_fields(vag, aux))
         state.update(prepare(state, cfg))
         return state
+
+
+def _latent_fields(vag, aux) -> Dict[str, torch.Tensor]:
+    """The state a latent objective adds: the modes, the Newton carry of
+    the next trial, and the device counters of Newton iterations and
+    gradient passes that did work and of the lanes' steps."""
+    i32 = dict(dtype=torch.int32, device=aux.device)
+    return {"aux": aux, **vag.reset(aux),
+            "newton_iterations": torch.zeros((), **i32),
+            "gradient_passes": torch.zeros((), **i32),
+            "lane_steps": torch.zeros(aux.shape[0], **i32)}
 
 
 def prepare(state, cfg: LbfgsConfig) -> Dict[str, torch.Tensor]:
@@ -347,7 +415,7 @@ def prepare(state, cfg: LbfgsConfig) -> Dict[str, torch.Tensor]:
             d_max = one
         t_init = torch.where(state["hist_count"] == 0, torch.minimum(one, 1.0 / d_max), one)
         zero_i = torch.zeros_like(state["n_iter"])
-        return {
+        search = {
             "direction": direction, "g_dot_d": _dot(grad, direction), "t": t_init.to(dtype),
             "low": torch.zeros_like(one), "high": torch.full_like(one, math.inf),
             "f_new": state["f"].clone(), "g_new": grad.clone(), "theta_new": theta.clone(),
@@ -355,6 +423,9 @@ def prepare(state, cfg: LbfgsConfig) -> Dict[str, torch.Tensor]:
             "armijo_seen": torch.zeros_like(already_opt), "n_ls": zero_i, "ls_fev": zero_i.clone(),
             "already_opt": already_opt,
         }
+        if "aux" in state:
+            search["aux_new"] = state["aux"].clone()
+        return search
 
 
 def lbfgs_step(vag, st, cfg: LbfgsConfig, iter_limit) -> Dict[str, torch.Tensor]:
@@ -370,7 +441,16 @@ def lbfgs_step(vag, st, cfg: LbfgsConfig, iter_limit) -> Dict[str, torch.Tensor]
 
         # one line-search trial on the clipped path
         theta_cand = _proj(theta + t[:, None] * direction, cfg)
-        f_cand, g_cand = vag(theta_cand)
+        latent = "aux" in st
+        if latent:
+            # k Newton iterations of the trial in flight; the search moves
+            # only for the lanes whose Newton loop has ended
+            active = run
+            f_cand, g_cand, carry, finished, worked = vag.trial(
+                theta_cand, {k: st[k] for k in NEWTON_FIELDS}, run)
+            run = run & finished
+        else:
+            f_cand, g_cand = vag(theta_cand)
         delta = theta_cand - theta
         finite = torch.isfinite(f_cand) & torch.isfinite(g_cand).all(-1)
         armijo = (f_cand <= f + cfg.armijo_c1 * _dot(grad, delta)) & finite
@@ -400,6 +480,9 @@ def lbfgs_step(vag, st, cfg: LbfgsConfig, iter_limit) -> Dict[str, torch.Tensor]
             "n_ls": st["n_ls"] + run.to(torch.int32),
             "ls_fev": st["ls_fev"] + run.to(torch.int32),
         }
+        if latent:
+            keep_a = keep.view((-1,) + (1,) * (carry["nt_f"].dim() - 1))
+            ls["aux_new"] = torch.where(keep_a, carry["nt_f"], st["aux_new"])
         ended = ~frozen & (ls["ls_accepted"] | (ls["n_ls"] >= cfg.max_ls))
 
         # the iteration's end: accept, update the history, test convergence
@@ -426,18 +509,30 @@ def lbfgs_step(vag, st, cfg: LbfgsConfig, iter_limit) -> Dict[str, torch.Tensor]
             "n_iter": st["n_iter"] + 1, "n_fev": st["n_fev"] + ls["ls_fev"],
             "done": converged | stalled, "stalled": stalled,
         }
+        if latent:
+            fin["aux"] = ls["aux_new"]
         nxt = prepare(fin, cfg)
 
         out = {"evaluations": st["evaluations"] + run.to(torch.int32)}
         for key in STATE_FIELDS:
-            if key == "aux":
+            if key not in fin:
                 continue
             new, old = fin[key], st[key]
             out[key] = torch.where(ended.view((-1,) + (1,) * (new.dim() - 1)), new, old)
-        for key in SEARCH_FIELDS:
-            new = nxt[key]
+        for key, new in nxt.items():
             old = ls[key] if key in ls else st[key]
             out[key] = torch.where(ended.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+        if latent:
+            # a lane whose trial ended, or whose iteration ended, starts
+            # its next trial's Newton loop from the modes of its iterate
+            fresh = run | ended
+            reset = vag.reset(out["aux"])
+            for key in NEWTON_FIELDS:
+                new, old = reset[key], carry[key]
+                out[key] = torch.where(fresh.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+            out["newton_iterations"] = st["newton_iterations"] + worked
+            out["gradient_passes"] = st["gradient_passes"] + run.any().to(torch.int32)
+            out["lane_steps"] = st["lane_steps"] + active.to(torch.int32)
         return out
 
 
@@ -484,9 +579,12 @@ class DeviceLoop:
     runs eagerly.
 
     ``counts``: ``captures``, ``replays``, ``eager_steps``,
-    ``masked_evaluations`` (lane evaluations after the lane froze),
+    ``masked_evaluations`` (lane steps after the lane froze),
     ``host_syncs`` (reads of the frozen flags), ``capture_seconds``,
-    ``graph_nodes`` and ``warmup_evaluations``."""
+    ``graph_nodes`` and ``warmup_evaluations``; for a latent objective
+    also ``newton_iterations`` and ``gradient_passes`` (device counts
+    since the state was made: the Newton iterations and gradient passes
+    in which some lane did work)."""
 
     def __init__(self, vag, state, cfg: LbfgsConfig, capture: bool = True):
         self.vag = vag
@@ -514,13 +612,20 @@ class DeviceLoop:
         if not warm:
             # a loaded state: warm the capture with one evaluation
             with torch.cuda.stream(side), torch.no_grad():
-                self.vag(self.state["theta"].clone())
+                if is_latent(self.vag):
+                    self.vag.evaluate(self.state["theta"].clone(), self.state["aux"].clone())
+                else:
+                    self.vag(self.state["theta"].clone())
             self.counts["warmup_evaluations"] += 1
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
-            with cuda_lib.capture_tally() as tally:
-                with torch.cuda.graph(graph):
+            # thread_local: another thread's CUDA calls (a serving thread
+            # replaying or freeing its graphs) must not invalidate the
+            # capture, and no garbage collection runs finalizers on this
+            # thread during it; this thread's host reads still fail
+            with cuda_lib.capture_tally() as tally, cuda_lib.collector_held():
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                     new = lbfgs_step(self.vag, self.state, self.cfg, self.iter_limit)
                     for key, buf in self.state.items():
                         buf.copy_(new[key])
@@ -538,10 +643,21 @@ class DeviceLoop:
 
     def _snapshot(self):
         """One host read: whether every lane is frozen, and the lanes'
-        evaluations so far."""
+        steps that were not masked so far (their evaluations; for a latent
+        objective their steps, a trial taking one or more, and the device
+        counts of Newton iterations and gradient passes, which land in
+        ``counts``)."""
         self.counts["host_syncs"] += 1
         frozen = frozen_mask(self.state, self.iter_limit).all().to(torch.int64)
-        snap = torch.stack([frozen, self.state["evaluations"].sum().to(torch.int64)]).cpu()
+        latent = "aux" in self.state
+        steps = self.state["lane_steps" if latent else "evaluations"].sum().to(torch.int64)
+        read = [frozen, steps]
+        if latent:
+            read += [self.state["newton_iterations"].to(torch.int64),
+                     self.state["gradient_passes"].to(torch.int64)]
+        snap = torch.stack(read).cpu().tolist()
+        if latent:
+            self.counts["newton_iterations"], self.counts["gradient_passes"] = snap[2], snap[3]
         return bool(snap[0]), int(snap[1])
 
     def advance(self, iter_limit: int, warm: bool = False) -> Dict[str, torch.Tensor]:
@@ -581,32 +697,39 @@ class DeviceLoop:
 
 def host_state(state, lane: int = 0) -> _LbfgsState:
     """One lane of a device state as the JAX package's ``_LbfgsState`` in
-    numpy (the checkpoint payload's leaves)."""
-    get = {k: state[k][lane].detach().cpu().numpy() for k in STATE_FIELDS if k != "aux"}
-    get["aux"] = np.zeros((), dtype=get["f"].dtype)
+    numpy (the checkpoint payload's leaves; ``aux`` the lane's latent
+    modes, or the zero scalar of an objective without them)."""
+    get = {k: state[k][lane].detach().cpu().numpy() for k in STATE_FIELDS if k in state}
+    if "aux" not in get:
+        get["aux"] = np.zeros((), dtype=get["f"].dtype)
     return _LbfgsState(**{k: get[k] for k in STATE_FIELDS})
 
 
-def device_state(host: _LbfgsState, cfg: LbfgsConfig, device) -> Dict[str, torch.Tensor]:
+def device_state(host: _LbfgsState, cfg: LbfgsConfig, device, vag=None) -> Dict[str, torch.Tensor]:
     """A one-lane device state from a host ``_LbfgsState`` (a checkpoint),
-    its next iteration prepared; no objective is evaluated."""
+    its next iteration prepared; no objective is evaluated.  A latent
+    objective ``vag`` takes the saved modes as its ``aux`` (a save falls
+    on an iteration boundary, so the Newton carry is the modes')."""
     state = {}
     for key in STATE_FIELDS:
         if key == "aux":
             continue
         state[key] = torch.as_tensor(np.asarray(getattr(host, key)), device=device)[None].clone()
     state["evaluations"] = torch.zeros_like(state["n_iter"])
+    if vag is not None and is_latent(vag):
+        aux = torch.as_tensor(np.asarray(host.aux), device=device)[None].clone()
+        state.update(_latent_fields(vag, aux))
     state.update(prepare(state, cfg))
     return state
 
 
-def state_template(h: int, dtype, m_hist: int = 10) -> dict:
+def state_template(h: int, dtype, m_hist: int = 10, aux_shape=()) -> dict:
     """``{field: (shape, numpy dtype)}`` of one lane's ``_LbfgsState``:
     what a checkpoint must hold to resume a fit with ``h`` hyperparameters
-    in ``dtype``."""
+    in ``dtype`` (and latent modes of ``aux_shape``)."""
     fdt = np.dtype(str(dtype).replace("torch.", ""))
     return {
-        "theta": ((h,), fdt), "f": ((), fdt), "grad": ((h,), fdt), "aux": ((), fdt),
+        "theta": ((h,), fdt), "f": ((), fdt), "grad": ((h,), fdt), "aux": (tuple(aux_shape), fdt),
         "s_hist": ((m_hist, h), fdt), "y_hist": ((m_hist, h), fdt),
         "hist_count": ((), np.dtype(np.int32)), "hist_head": ((), np.dtype(np.int32)),
         "n_iter": ((), np.dtype(np.int32)), "n_fev": ((), np.dtype(np.int32)),
@@ -641,15 +764,26 @@ def lbfgs_minimize_device_lanes(vag, theta0, lower, upper, max_iter: int = 100,
     """:func:`lbfgs_minimize_device` over ``[R, h]`` starting points, every
     lane with its own diagnostics: ``(theta [R, h], f [R], n_iter [R],
     n_fev [R], stalled [R])``."""
+    final = lbfgs_run_lanes(vag, theta0, lower, upper, max_iter, tol, m_hist, max_ls, armijo_c1,
+                            capture, loop_metrics)
+    return tuple(final[k] for k in ("theta", "f", "n_iter", "n_fev", "stalled"))
+
+
+def lbfgs_run_lanes(vag, theta0, lower, upper, max_iter: int = 100, tol: float = 1e-6,
+                    m_hist: int = 10, max_ls: int = 25, armijo_c1: float = 1e-4,
+                    capture: bool = True, loop_metrics: Optional[dict] = None, aux0=None):
+    """The loop of :func:`lbfgs_minimize_device_lanes` from ``[R, h]``
+    starting points (a latent objective from the modes ``aux0``); returns
+    a copy of the final state dict."""
     if max_ls < 1:
         raise ValueError("max_ls must be >= 1")
     cfg = LbfgsConfig(lower=lower, upper=upper, tol=float(tol), m_hist=int(m_hist),
                       max_ls=int(max_ls), armijo_c1=float(armijo_c1))
-    state = lbfgs_init_state(vag, theta0, cfg)
+    state = lbfgs_init_state(vag, theta0, cfg, aux0)
     loop = DeviceLoop(vag, state, cfg, capture=capture)
     try:
         final = loop.advance(int(max_iter), warm=True)
-        result = tuple(final[k].clone() for k in ("theta", "f", "n_iter", "n_fev", "stalled"))
+        result = {k: v.clone() for k, v in final.items()}
     finally:
         loop.release()
         if loop_metrics is not None:

@@ -15,7 +15,8 @@ fallback re-execution (the port's copy of the JAX package's
 * **declarative ladders** per entry point (:data:`LADDERS`): a classified
   failure re-executes the work one rung down.  Fit: ``native`` ->
   ``iterative`` -> ``matfree`` (the solver lanes, ``ops/iterative.py``)
-  -> ``segmented`` (the device optimizer's fit in segments of half the
+  -> ``segmented`` (the device optimizer's fit -- regression, the Laplace
+  classifiers, the count models -- in segments of half the
   checkpoint interval, with an in-memory saver) -> ``host_f64`` (the
   same fit with float64 operands ON THE CARD, under the host optimizer);
   the solver rungs do not apply to a device-optimizer fit, whose other

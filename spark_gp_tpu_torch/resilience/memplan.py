@@ -127,6 +127,7 @@ def fit_dispatch_bytes(
     rung: str = "native",
     n_targets: int = 1,
     family: Optional[str] = None,
+    latent_heads: int = 0,
 ) -> float:
     """Modeled RAW peak bytes of one objective evaluation at ``rung``: the
     expert stack (``[E, s, p]`` features, targets and mask), the
@@ -135,7 +136,12 @@ def fit_dispatch_bytes(
     multiclass Laplace crosses every latent-head pair), and on the solver
     lanes the skinny ``[E, s, rank + 5 (1 + probes)]`` buffers.  The
     matfree lane has no gram term, not even the cache, which that lane
-    never builds.  A cost model, not an accounting identity: calibration
+    never builds.  A device fit of a Laplace family (``latent_heads`` > 0:
+    1, or the class count of the multiclass fit) adds the per-lane latent
+    stacks it carries (the modes, the kept trial's and the Newton carry:
+    three ``[E, s, heads]``) and the B stack one Newton iteration factors
+    with its inverse (two ``[E * heads, s, s]``).  A cost model, not an
+    accounting identity: calibration
     (:func:`observe_measured`) raises it where a measurement proves it
     low, and the margin covers the rest."""
     from spark_gp_tpu_torch.ops.iterative import solver_config
@@ -150,6 +156,9 @@ def fit_dispatch_bytes(
     if rung != "matfree":
         k = _FIT_RUNG_WORK_FACTOR.get(rung, _FIT_RUNG_WORK_FACTOR["native"])
         raw += (1.0 + k * heads * heads) * gram
+    if latent_heads:
+        lat = float(latent_heads)
+        raw += (3.0 * e * s * lat + 2.0 * e * lat * s * s) * itemsize
     skinny = _FIT_RUNG_SKINNY_FACTOR.get(rung)
     if skinny:
         cfg = solver_config(int(s))
@@ -341,12 +350,13 @@ def plan_fit_dispatch(est, instr, data) -> Optional[PlanDecision]:
     e, s, p = (int(d) for d in data.x.shape)
     itemsize = data.x.element_size()
     family = type(est).__name__
-    candidates = [("native", fit_dispatch_bytes(e, s, p, itemsize, "native", 1, family))]
+    heads = est._device_latent_heads()
+    candidates = [("native", fit_dispatch_bytes(e, s, p, itemsize, "native", 1, family, heads))]
     from spark_gp_tpu_torch.resilience import fallback
 
     if fallback._fit_rung_applies(est, "segmented", fallback.OOM, set(), data):
         candidates.append(
-            ("segmented", fit_dispatch_bytes(e, s, p, itemsize, "segmented", 1, family)))
+            ("segmented", fit_dispatch_bytes(e, s, p, itemsize, "segmented", 1, family, heads)))
     decision = plan_dispatch("fit", candidates, budget)
     stamp_decision(instr, decision)
     return decision

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
+from spark_gp_tpu_torch.ops import cuda_lib
 from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
 
 
@@ -179,8 +180,9 @@ class BucketedPredictor:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
-            with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool,
-                                                   capture_error_mode="thread_local"):
+            # no collection finalizes a dead graph on this thread mid-capture
+            with torch.no_grad(), cuda_lib.collector_held(), \
+                    torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 mean, var = self._body(x)
         except Exception as exc:  # classified-failure-site: typed, never eager
             raise GraphCaptureError(

@@ -5,7 +5,10 @@ package's ``utils/checkpoint.py``).
 saves theta, the iteration count and the estimator seed as one JSON
 payload (the JAX package's keys), plus the log of every objective
 evaluation so far (``evaluations``: theta, value, gradient) and the
-kernel and data fingerprints that tie the log to its fit.
+kernel and data fingerprints that tie the log to its fit.  The
+structural signature ``kernel_sig`` is the JAX package's
+(``kernel.describe`` at a zero theta), so a host checkpoint written by
+either package resumes in the other.
 ``setCheckpointDir`` installs it, and a refit of the same kernel on the
 same data resumes
 (``models/common.GaussianProcessCommons._optimize_hypers_body``): SciPy's
@@ -83,21 +86,13 @@ def _payload_checksum(payload: dict) -> str:
     return hashlib.sha256(json.dumps(body, sort_keys=True).encode()).hexdigest()
 
 
-def _children(kernel):
-    return [c for c in (getattr(kernel, a, None) for a in ("k1", "k2", "kernel", "inner"))
-            if c is not None and hasattr(c, "n_hypers")]
-
-
 def kernel_signature(kernel, theta_dim: int) -> str:
-    """Structural identity of a kernel configuration: the class tree with
-    each node's hyperparameter count (no values), so that a checkpoint is
-    not resumed under another kernel that happens to share ``theta_dim``."""
-
-    def render(k) -> str:
-        inner = ",".join(render(c) for c in _children(k))
-        return f"{type(k).__name__}[{int(k.n_hypers)}]({inner})"
-
-    return f"{render(kernel)}/{int(theta_dim)}"
+    """Structural identity of a kernel configuration, the JAX package's:
+    ``kernel.describe`` at a zero theta (no values), so that a checkpoint
+    is not resumed under another kernel that happens to share
+    ``theta_dim``, and a checkpoint written by either package is checked
+    by the other the same way."""
+    return kernel.describe(np.zeros(int(theta_dim)))
 
 
 def kernel_fingerprint(kernel) -> str:
@@ -173,8 +168,9 @@ class LbfgsCheckpointer:
             "iteration": self.iteration,
             "theta": theta.tolist(),
             "seed": self.seed,
-            "kernel": kernel_fingerprint(self.kernel),
+            "kernel": self.kernel.describe(theta),
             "kernel_sig": kernel_signature(self.kernel, theta.shape[0]),
+            "kernel_fingerprint": kernel_fingerprint(self.kernel),
             "data_fingerprint": self.data,
             "evaluations": list(self.evaluations),
         }
@@ -370,10 +366,11 @@ class DeviceOptimizerCheckpointer:
 
 
 def run_segmented(vag, start, cfg, saver, meta: dict, max_iter: int, chunk: int,
-                  loop_metrics: Optional[dict] = None):
+                  loop_metrics: Optional[dict] = None, aux0=None):
     """The segmented device fit's loop: load the state ``saver`` holds for
     ``meta`` (a resume skips the initial evaluation) or start at ``start``
-    ``[h]``, advance it ``chunk`` iterations at a time on one
+    ``[h]`` (a latent objective from the modes ``aux0``, ``[1, ...]``),
+    advance it ``chunk`` iterations at a time on one
     ``lbfgs_device.DeviceLoop`` (one captured step on the card), and hand
     the state to ``saver.save`` after each segment.  Returns the final
     one-lane state dict; ``loop_metrics`` receives the loop's metrics and
@@ -386,11 +383,13 @@ def run_segmented(vag, start, cfg, saver, meta: dict, max_iter: int, chunk: int,
     )
     from spark_gp_tpu_torch.resilience.chaos import SimulatedPreemption
 
-    host = saver.load(state_template(int(start.shape[0]), start.dtype, cfg.m_hist), meta)
+    aux_shape = () if aux0 is None else tuple(aux0.shape[1:])
+    host = saver.load(state_template(int(start.shape[0]), start.dtype, cfg.m_hist, aux_shape),
+                      meta)
     if host is None:
-        state, resumed = lbfgs_init_state(vag, start[None], cfg), 0
+        state, resumed = lbfgs_init_state(vag, start[None], cfg, aux0), 0
     else:
-        state, resumed = device_state(host, cfg, start.device), int(host.n_iter)
+        state, resumed = device_state(host, cfg, start.device, vag), int(host.n_iter)
     loop = DeviceLoop(vag, state, cfg)
     try:
         while True:

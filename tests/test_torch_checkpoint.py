@@ -222,7 +222,9 @@ def test_checkpointer_payload_and_fingerprints(tmp_path):
         ck(np.array([1.0, 0.1 * (i + 1)]))
     payload = load_checkpoint_payload(str(tmp_path), tag="t")
     assert payload["iteration"] == 10 and payload["seed"] == 7
-    assert payload["kernel"] == kernel_fingerprint(kernel) and payload["data_fingerprint"] is None
+    assert payload["kernel"] == kernel.describe(np.array([1.0, 1.0]))
+    assert payload["kernel_fingerprint"] == kernel_fingerprint(kernel)
+    assert payload["data_fingerprint"] is None
     assert payload["kernel_sig"] == kernel_signature(kernel, 2)
     assert kernel_signature(kernel, 2) != kernel_signature(1.0 * tgp.Matern52Kernel(0.1), 2)
     a = kernel_fingerprint(1.0 * tgp.RBFKernel(0.1, 1e-6, 10.0))

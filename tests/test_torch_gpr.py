@@ -95,18 +95,32 @@ def test_non_finite_rows_raise():
     assert np.all(np.isfinite(model.predict(x[4:9])))
 
 
+def _device_fit_on_the_iterative_lane(est):
+    """A device fit of ``est`` on the iterative solver lane (item 4b: the
+    Laplace device fits run the exact lane only)."""
+    from spark_gp_tpu_torch.ops.iterative import solver_lane_scope
+
+    x = np.random.default_rng(0).normal(size=(24, 2))
+    y = (x[:, 0] > 0).astype(np.float64)  # binary labels, two classes, counts
+    with solver_lane_scope("iterative"):
+        est.setOptimizer("device").setDatasetSizeForExpert(12).setActiveSetSize(8).fit(x, y)
+
+
 @pytest.mark.parametrize(
     "call",
     [
-        # the device optimizer is ported for the regression fit only
-        lambda gp: tgp.GaussianProcessNegativeBinomialRegression(device="cpu").setOptimizer("device"),
-        lambda gp: tgp.GaussianProcessClassifier(device="cpu").setOptimizer("device"),
+        # the device optimizer runs the exact lane only, and not EP
+        lambda gp: _device_fit_on_the_iterative_lane(
+            tgp.GaussianProcessNegativeBinomialRegression(device="cpu")),
+        lambda gp: _device_fit_on_the_iterative_lane(tgp.GaussianProcessClassifier(device="cpu")),
         lambda gp: gp.setMesh(object()),
         # (checkpoints and model I/O are ported: test_torch_checkpoint.py,
         # test_torch_serialization.py; the serve quality plane is not)
         lambda gp: GPServeServer(device="cpu", quality=True),
-        lambda gp: tgp.GaussianProcessMulticlassClassifier(device="cpu").setOptimizer("device"),
-        lambda gp: tgp.GaussianProcessPoissonRegression(device="cpu").setOptimizer("device"),
+        lambda gp: _device_fit_on_the_iterative_lane(
+            tgp.GaussianProcessMulticlassClassifier(device="cpu")),
+        lambda gp: _device_fit_on_the_iterative_lane(
+            tgp.GaussianProcessPoissonRegression(device="cpu")),
         # the JAX package's remaining setters and model I/O, each naming
         # its item (setProfileDir is ported: test_torch_obs.py)
         lambda gp: GPServeServer(device="cpu").observe("m", "request", [0.0]),
