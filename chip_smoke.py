@@ -250,8 +250,10 @@ code is non-zero and the final ``ok`` line is never printed:
                uninterrupted segmented fit's; K1 launches = both legs'
                replays + their first evaluations.
 62. segmented-rung -- an OOM staged at the one-shot device fit's choke
-               point: exactly one transition, native -> segmented; theta
-               within 1e-5 relative of the clean device fit's.
+               point: native -> iterative -> segmented (the solver rungs
+               apply to a device fit and fail at the same choke point; the
+               ARD kernel does not stream); theta within 1e-5 relative of
+               the clean device fit's.
 63. slice10-phases -- the seconds of phases 56-62.
 64. gpc-device-check -- gpc-mnist's training stack (16, 100) fitted by
                laplace.fit_gpc_device, its loop replayed from the captured
@@ -274,12 +276,53 @@ code is non-zero and the final ``ok`` line is never printed:
                segments of one iteration, preempted after 2 saves and
                resumed: theta bit-equal to the uninterrupted fit's.
 71. segmented-rung-gpc -- the same fit under an OOM staged at the
-               one-shot device fit's choke point: exactly one transition.
+               one-shot device fit's choke point: native -> iterative ->
+               matfree -> segmented.
 72. laplace-device-table -- the host-against-device table of gpc-mnist,
                iris-ovr, iris-native, Poisson and NB.
 73. slice11-phases -- the seconds of phases 64-72.  Every K1 launch in
                64-71 follows the step's rule (``latent_k1_rule``).
-74. kernels -- one line with every kernel's numbers.
+74. slq-quadrature -- the SLQ quadrature kernel (csrc/slq_quadrature.cu)
+               against its plain version (float64 eigh of the same
+               float32 tridiagonals) on the main path's Lanczos matrices:
+               protein-matfree (9, 8, 64) and the B systems of gpc-mnist
+               (16, 8, 64), Poisson (20, 8, 64) and the iris fold (7, 8,
+               20); its device ms beside the eigh route's, its bound from
+               this run's QL rotations.
+75. device-opt-check-matfree -- protein-matfree's device fit at maxiter 3,
+               replayed from its graph and run eagerly: theta, f, n_iter,
+               n_fev equal; K2 = evaluations x (iters + 2), K2-VJP = 2 x
+               evaluations, one quadrature an evaluation; the graph fit's
+               peak CUDA memory under a quarter of the gram stack; the
+               step's graph nodes and replay ms beside the evaluation's.
+76. protein-matfree-device -- the protein-matfree config on the device
+               optimizer: RMSE within 2% of phase 11's; launches on the
+               rules (the solver report's iters K2 and one quadrature).
+77. protein-iterative-device -- the same on the iterative lane.
+78. memplan-device -- one device step's measured peak on each CG lane
+               (protein-matfree's stack; gpc-mnist's binary step on the
+               iterative lane) within 1-4x of the planner's prediction.
+79. gpc-mnist-iterative-device -- phase 15 on the device optimizer:
+               accuracy > 0.84, no K1, one quadrature kernel launch a
+               gradient pass and one for the solver report.
+80. iris-native-iterative-device -- phase 19 on the device optimizer:
+               > 0.9 and within 0.04 of the JAX package's.
+81. poisson-iterative-device -- phase 34 on the device optimizer at
+               maxiter 3 (25 took 133 evaluations): rate error < 0.1.
+82. ep-device-check -- the first iris fold's first one-vs-rest EP problem
+               (7, 20) by ep.fit_gpc_ep_device, replayed and eager: theta,
+               sites, latent mean, f, n_iter, n_fev and sweeps equal; K1 =
+               (replays + eager steps) x (8 sweeps + 1) + the eager
+               evaluations' sweeps + 1 each + 1 (the posterior mean).
+83. iris-ep-device -- phase 31 on the device optimizer: > 0.9.
+84. iris-ep-multistart -- the same with 4 restarts a loop: > 0.9.
+85. ladder-oom-device -- phase 45's config as a device fit under the same
+               memory fraction: native -> iterative -> matfree, each a real
+               OOM; RMSE within 2% of protein-matfree's; K2, K2-VJP and
+               the quadrature on their rules.
+86. cg-device-table -- host against device for the new configs.
+87. slice12-phases -- the seconds of phases 74-86.
+88. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.  Every phase line
 carries ``fallback_transitions``, the ladder's transitions since the line
 before it; a phase that stages no fault fails if it moved them.
@@ -382,7 +425,7 @@ OBJECTIVE_BARS = {"loo": (1e-5, 1e-4), "elbo": (1e-4, 1e-3)}
 # the phases that stage a fault; every other phase must leave the fit
 # ladder's transition count where the phase before it left it
 FAULT_PHASES = ("ladder-oom", "predict-ladder", "terminal", "segmented-rung",
-                "segmented-rung-gpc")
+                "segmented-rung-gpc", "ladder-oom-device")
 _transitions_seen = [0.0]
 
 
@@ -1182,6 +1225,7 @@ def classifier_phases(torch, spd, lap, it_ops, cdata: dict) -> dict:
         it_ops.set_solver_lane(None)
     launches_iterative = spd.spd_inv_logdet.launches
     lane = it_fit.pop("model").metrics["solver_lane"]
+    HOST_FITS["gpc_mnist_iterative"] = it_fit
     emit({"phase": "gpc-mnist-iterative", **it_fit, "solver_lane": lane,
           "launches": launches_iterative, "bar": GPC_BARS["gpc_mnist"]})
     if lane != "iterative" or launches_iterative != 0:
@@ -1338,6 +1382,7 @@ def multiclass_phases(torch, spd, lap_mc, it_ops, cdata: dict) -> dict:
     finally:
         it_ops.set_solver_lane(None)
     launches_iterative = spd.spd_inv_logdet.launches
+    HOST_FITS["iris_native_iterative"] = native_it
     spread_it = abs(native_it["accuracy"] - JAX_CPU_ACCURACY["iris_native_iterative"])
     emit({"phase": "iris-native-iterative", **native_it, "solver_lane": "iterative",
           "launches": launches_iterative,
@@ -2192,6 +2237,7 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
     iris = cv_fits(torch, cdata, lambda: OneVsRest(ep_gpc), lambda ovr: ovr.models_, None,
                    engine="ep_sweeps")
     launches["iris_ep"] = spd.spd_inv_logdet.launches
+    HOST_FITS["iris_ep"] = iris
     if (ep.ep_fit_sites.sweeps - sweeps, ep.batched_neg_logz_ep.calls - calls) \
             != (iris["ep_sweeps"], iris["objective_calls"]):
         raise AssertionError(f"iris-ep: counters against the fits' metrics {iris}")
@@ -3383,6 +3429,17 @@ REPLAY_TIMING_REPS = 30
 HOST_FITS: dict = {}
 
 
+def staged_oom_walk(gp) -> list:
+    """The rungs an OOM staged at every one-shot device dispatch walks: the
+    solver rungs (a device fit takes them, and fails there at the same
+    choke point; matfree only for a kernel that streams), then
+    ``segmented``, whose segments complete the fit."""
+    from spark_gp_tpu_torch.kernels.base import supports_matfree
+
+    rungs = ["native", "iterative"] + (["matfree"] if supports_matfree(gp._get_kernel()) else [])
+    return list(zip(rungs, rungs[1:] + ["segmented"]))
+
+
 def k1_rule(m: dict) -> float:
     """K1 launches a device fit on the marginal or LOO objective makes: one
     per replay of its step, plus its first evaluation (the initial one, or
@@ -3648,9 +3705,9 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
            "bar": SEGMENTED_THETA_REL, "launches": launches["segmented_rung"],
            "k1_rule": k1_rule(model.metrics), "loop": loop_record(model.metrics)}
     emit({"phase": "segmented-rung", **seg, "card": smi})
-    if not (fired[0] == 1 and [(d["from"], d["to"]) for d in model.degradations]
-            == [("native", "segmented")] and rel <= SEGMENTED_THETA_REL
-            and seg["launches"] == seg["k1_rule"]):
+    walk = staged_oom_walk(airfoil_gp(100))
+    if not (fired[0] == len(walk) and [(d["from"], d["to"]) for d in model.degradations]
+            == walk and rel <= SEGMENTED_THETA_REL and seg["launches"] == seg["k1_rule"]):
         raise AssertionError(f"segmented-rung: {seg}")
     emit({"phase": "slice10-phases", "seconds": time.perf_counter() - start_all, "card": smi})
     return launches
@@ -3993,14 +4050,566 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
            "bar": SEGMENTED_THETA_REL, "launches": launches["segmented_rung_gpc"],
            "k1_rule": latent_k1_rule(model.metrics), "loop": loop_record(model.metrics)}
     emit({"phase": "segmented-rung-gpc", **seg, "card": smi})
-    if not (fired[0] == 1 and [(d["from"], d["to"]) for d in model.degradations]
-            == [("native", "segmented")] and rel <= SEGMENTED_THETA_REL
-            and seg["launches"] == seg["k1_rule"]):
+    walk = staged_oom_walk(iris_gpc())
+    if not (fired[0] == len(walk) and [(d["from"], d["to"]) for d in model.degradations]
+            == walk and rel <= SEGMENTED_THETA_REL and seg["launches"] == seg["k1_rule"]):
         raise AssertionError(f"segmented-rung-gpc: {seg}")
 
     emit({"phase": "laplace-device-table", "rows": rows, "card": smi})
     emit({"phase": "slice11-phases", "seconds": time.perf_counter() - start_all, "card": smi})
     return launches
+
+
+# --- slice 12: the device optimizer on the CG lanes and for EP --------------------
+
+#: the SLQ quadrature kernel against its plain version in float64 on the
+#: same (float32) tridiagonals: absolute error over max(1, |reference|)
+SLQ_BAR = 1e-5
+#: float64 peak outside the tensor cores, NVIDIA's data sheets (the
+#: quadrature kernel computes in double)
+F64_PEAKS = {"H100 PCIe": 25.6e12, "H100 NVL": 30e12, "H100": 34e12, "H200": 34e12}
+#: double operations of one QL rotation of the quadrature kernel: hypot
+#: (two products, a sum, a square root), two divisions, the rotated
+#: diagonal pair (five), the next shift (two) and the eigenvector row (six)
+SLQ_OPS_PER_ROTATION = 25
+#: the CG lanes' device fits against the host protein-matfree fit: RMSE
+#: within 2%; the matfree device step's peak under a quarter of the gram
+#: stack (PERF.md §2)
+CG_DEVICE_RMSE_REL = 0.02
+MATFREE_PEAK_SHARE = 0.25
+#: restarts of iris-ep-multistart's loops
+EP_RESTARTS = 4
+#: poisson-iterative-device's maxiter: the device L-BFGS-B's line search
+#: on this surrogate takes ~11 evaluations an iteration on the card (25
+#: iterations: 133 evaluations, 63 s; 5: 56, 29 s), so the host fit's 25
+#: cost a minute of every run for the same rate error (PERF.md §6)
+POISSON_DEVICE_MAXITER = 3
+
+
+def k2_launch_rule(evaluations: float, iters: int, reports: int = 0) -> tuple:
+    """(K2, K2-VJP) launches of ``evaluations`` matfree evaluations (every
+    replay or eager step is one): ``iters`` CG products and the two
+    differentiated ones each, their two VJPs; a solver report runs
+    ``iters`` products more."""
+    return evaluations * (iters + 2) + reports * iters, 2 * evaluations
+
+
+def regression_evaluations(m: dict) -> float:
+    """The evaluations a single-start regression device fit ran (its loop
+    metrics): every replay and eager step, and its first evaluation."""
+    return k1_rule(m) + m.get("device_opt.eager_steps", 0.0)
+
+
+def latent_quad_rule(m: dict) -> float:
+    """Quadrature launches of a Laplace family's device fit on a CG lane:
+    one a gradient pass (every replay or eager step runs one, masked or
+    not, and every eager evaluation its own) and one for the post-fit
+    solver report."""
+    steps = m.get("device_opt.replays", 0.0) + m.get("device_opt.eager_steps", 0.0)
+    return steps + m["device_opt.eager_evaluations"] + 1.0
+
+
+def slq_tridiagonals(torch, it_ops, mf_data, kernel, b_stacks: dict) -> dict:
+    """The Lanczos tridiagonals the main path hands the quadrature kernel,
+    from real PCG runs at init theta: the protein-matfree marginal engine
+    (E = 9, 8 probes, t = 64), and the B systems' log-dets of gpc-mnist
+    (16, 100), the Poisson config (20, 100) and the iris fold (7, 20)."""
+    from spark_gp_tpu_torch.models.likelihood import masked_matfree_operator
+    from spark_gp_tpu_torch.ops.slq_quadrature import lanczos_tridiagonal
+
+    out = {}
+    theta = torch.as_tensor(kernel.init_theta(), dtype=torch.float32, device="cuda")
+    _, mv_sg, diag_sg, col_sg = masked_matfree_operator(kernel, theta, mf_data.x, mf_data.mask)
+    cfg = it_ops.solver_config(mf_data.x.shape[1])
+    with torch.no_grad():
+        res, _, _ = it_ops._solve_pass(mv_sg, diag_sg, col_sg, mf_data.y * mf_data.mask, cfg)
+        out["protein_matfree"] = lanczos_tridiagonal(res.alphas[..., 1:], res.betas[..., 1:])
+        for label, amat in b_stacks.items():
+            cfg = it_ops.solver_config(amat.shape[-1])
+            apply_p, lmat, delta, _ = it_ops._spd_preconditioner(amat, cfg)
+            g1, g2 = it_ops.draw_probes(cfg._replace(seed=cfg.seed + 1), amat.shape[:-2],
+                                        lmat.shape[-1], amat.shape[-1], amat.dtype, amat.device)
+            z = lmat @ g1 + torch.sqrt(delta)[..., None, None] * g2
+            res = it_ops.batched_pcg(lambda v: amat @ v, z, apply_p, cfg.iters, cfg.tol)
+            out[label] = lanczos_tridiagonal(res.alphas, res.betas)
+    return out
+
+
+def slq_quadrature_phase(torch, sq, tridiagonals: dict, peaks, f64_peak, smi: str) -> dict:
+    """slq-quadrature: the kernel against its plain version on each of the
+    main path's tridiagonal stacks (float64 eigh of the same float32
+    inputs, at SLQ_BAR; the float32 eigh route's error recorded), its
+    device ms (graph replay) beside the eigh route's (plain ms: the whole
+    plain version; library ms: ``torch.linalg.eigh`` alone on the dense
+    T), and its bound from this run's QL rotations.  Launches here are not
+    the main path's: the count is restored."""
+    before = sq.slq_quadrature.launches
+    rows = {}
+    for label, (diag, off) in tridiagonals.items():
+        out = sq.slq_quadrature(diag, off)
+        torch.cuda.synchronize()
+        ref = sq.slq_quadrature_plain(diag.double(), off.double())
+        route32 = sq.slq_quadrature_plain(diag, off)
+        err = float((out.double() - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        rotations = torch.zeros(diag.shape[:-1], dtype=torch.int32, device="cuda")
+        sq._launch(diag, off, rotations)
+        tmat = torch.diag_embed(diag) + torch.diag_embed(off, offset=1) \
+            + torch.diag_embed(off, offset=-1)
+        nbytes = (diag.numel() + off.numel() + out.numel()) * diag.element_size()
+        ops = float(rotations.sum()) * SLQ_OPS_PER_ROTATION
+        bound = {"bytes": nbytes / peaks[0] * 1e3, "operations": ops / f64_peak * 1e3}
+        by = max(bound, key=bound.get)
+        rows[label] = {
+            "shape": list(diag.shape), "max_abs_err": err, "rel_err": err / scale,
+            "eigh_f32_route_abs_err": float((route32.double() - ref).abs().max()),
+            "ms": time_device_ms(lambda: sq.slq_quadrature(diag, off)),
+            "plain_ms": time_ms(lambda: sq.slq_quadrature_plain(diag, off), reps=3, windows=3),
+            "library_ms": time_ms(lambda: torch.linalg.eigh(tmat), reps=3, windows=3),
+            "bound_ms": bound[by], "bound_by": by, "rotations": float(rotations.sum()),
+            "rotations_per_matrix": float(rotations.double().mean()),
+        }
+    sq.slq_quadrature.launches = before
+    bad = {k: r["rel_err"] for k, r in rows.items() if not r["rel_err"] <= SLQ_BAR}
+    emit({"phase": "slq-quadrature", "kernel": "slq_quadrature", "bar": SLQ_BAR, "rows": rows,
+          "card": smi})
+    if bad:
+        raise AssertionError(f"slq-quadrature: {bad}")
+    return rows
+
+
+class LaunchCounts:
+    """The four wrappers' launch counters around this slice's phases:
+    :meth:`zero` before a phase's fits, :meth:`take` after them (recorded
+    under the phase's label in ``launches``)."""
+
+    NAMES = ("spd_inv_logdet", "streamed_matvec", "streamed_matvec_vjp", "slq_quadrature")
+
+    def __init__(self, spd, sm, sq):
+        self.wrappers = dict(zip(self.NAMES, (spd.spd_inv_logdet, sm.streamed_matvec,
+                                              sm.streamed_matvec_vjp, sq.slq_quadrature)))
+        self.launches = {n: {} for n in self.NAMES}
+
+    def zero(self):
+        for w in self.wrappers.values():
+            w.launches = 0
+
+    def take(self, label):
+        got = {n: w.launches for n, w in self.wrappers.items()}
+        for n in self.NAMES:
+            self.launches[n][label] = got[n]
+        return got
+
+
+def cg_regression_phases(torch, it_ops, counts, data_main: dict, mf_data, cdata: dict,
+                         mf_rmse: float, host: dict, rows: list, smi: str) -> None:
+    """device-opt-check-matfree, protein-matfree-device,
+    protein-iterative-device and memplan-device (``counts`` a
+    :class:`LaunchCounts`; the host-against-device rows go to ``rows``)."""
+    from spark_gp_tpu_torch.kernels.base import supports_matfree
+    from spark_gp_tpu_torch.models import laplace as lap
+    from spark_gp_tpu_torch.models import likelihood as lk
+    from spark_gp_tpu_torch.optimize import lbfgs_device as ld
+    from spark_gp_tpu_torch.resilience import memplan
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    xp, yp, tr, te = (data_main[key] for key in ("xp", "yp", "tr", "te"))
+    yp_tr, y_mean, y_std = (data_main[key] for key in ("yp_tr", "y_mean", "y_std"))
+    gram_stack_bytes = 9 * 4065 * 4065 * 4
+    iters = it_ops.solver_config(4065).iters
+    gp = matfree_gp(None, max_iter=3)
+    kernel = gp._get_kernel()
+
+    # device-opt-check-matfree: protein-matfree's device fit at maxiter 3,
+    # its loop replayed from the captured graph and run eagerly: theta, f,
+    # n_iter, n_fev equal; K2, K2-VJP and the quadrature on their rules;
+    # the graph's peak CUDA memory against the gram stack's
+    dev = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=torch.float32,
+                                    device="cuda")
+    lower, upper = (dev(b) for b in kernel.bounds())
+    log_space = gp._use_log_space(kernel)
+    runs = {}
+    with it_ops.solver_lane_scope("matfree"):
+        for mode, capture in (("graph", True), ("eager", False)):
+            loop = {}
+            counts.zero()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = lk.fit_gpr_device(kernel, log_space, dev(kernel.init_theta()), lower, upper,
+                                    mf_data, 3, gp._tol, capture=capture, loop_metrics=loop)
+            theta, f, n_iter, n_fev, _ = (v.cpu().numpy() for v in out)
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            m = {f"device_opt.{k}": float(v) for k, v in loop.items() if v is not None}
+            runs[mode] = {"theta": theta, "f": float(f), "n_iter": int(n_iter),
+                          "n_fev": int(n_fev), "seconds": seconds, "loop": loop,
+                          "peak_cuda_bytes": peak, "launches": counts.take(f"check_{mode}"),
+                          "evaluations": regression_evaluations(m)}
+        profile = replay_profile(torch, kernel, mf_data)
+    counts.zero()
+    g, e = runs["graph"], runs["eager"]
+    rules = {mode: dict(zip(("streamed_matvec", "streamed_matvec_vjp"),
+                            k2_launch_rule(r["evaluations"], iters)),
+                        slq_quadrature=r["evaluations"], spd_inv_logdet=0)
+             for mode, r in runs.items()}
+    check = {"shape": list(mf_data.x.shape), "max_iter": 3,
+             "theta_equal": bool(np.array_equal(g["theta"], e["theta"])),
+             "f_equal": g["f"] == e["f"], "n_iter": [g["n_iter"], e["n_iter"]],
+             "n_fev": [g["n_fev"], e["n_fev"]], "launches": [g["launches"], e["launches"]],
+             "rules": [rules["graph"], rules["eager"]],
+             "seconds": {"graph": g["seconds"], "eager": e["seconds"]},
+             "peak_cuda_bytes": {"graph": g["peak_cuda_bytes"], "eager": e["peak_cuda_bytes"]},
+             "gram_stack_bytes": gram_stack_bytes, "loop": g["loop"], "eager_loop": e["loop"],
+             **profile}
+    emit({"phase": "device-opt-check-matfree", **check, "card": smi})
+    if not (check["theta_equal"] and check["f_equal"] and g["n_iter"] == e["n_iter"]
+            and g["n_fev"] == e["n_fev"] and g["loop"]["captures"] == 1
+            and all(runs[k]["launches"] == rules[k] for k in runs)
+            and g["peak_cuda_bytes"] < MATFREE_PEAK_SHARE * gram_stack_bytes):
+        raise AssertionError(f"device-opt-check-matfree: {check}")
+
+    # protein-matfree-device and its iterative twin: the protein-matfree
+    # config (maxiter 10) on the device optimizer, RMSE within 2% of the
+    # host protein-matfree fit's
+    for lane in ("matfree", "iterative"):
+        counts.zero()
+        t0 = time.perf_counter()
+        try:
+            model = matfree_gp(lane).setOptimizer("device").fit(xp[tr], yp_tr)
+            torch.cuda.synchronize()
+        finally:
+            it_ops.set_solver_lane(None)
+        seconds = time.perf_counter() - t0
+        got = counts.take(f"protein_{lane}_device")
+        m = model.metrics
+        pred = model.predict(xp[te]) * y_std + y_mean
+        err = rmse(yp[te], pred)
+        evals = regression_evaluations(m)
+        k2, vjp = k2_launch_rule(evals, iters, 1) if lane == "matfree" else (0, 0)
+        rule = {"spd_inv_logdet": 0, "streamed_matvec": k2, "streamed_matvec_vjp": vjp,
+                "slq_quadrature": evals + 1}
+        row = {"rmse": err, "host_matfree_rmse": mf_rmse, "rmse_rel": err / mf_rmse - 1.0,
+               "bar_rmse_rel": CG_DEVICE_RMSE_REL, "seconds": seconds,
+               "solver_lane": m["solver_lane"], "nfev": m["lbfgs_nfev"],
+               "optimize_seconds": m["optimize_seconds"], "launches": got, "rule": rule,
+               "loop": loop_record(m), "theta": model.raw_predictor.theta.tolist(),
+               **{k: v for k, v in m.items() if k.startswith("solver.")}}
+        emit({"phase": f"protein-{lane}-device", **row, "card": smi})
+        h = host.get(f"protein_{lane}")
+        rows.append({"device": regression_row(f"protein-{lane}", seconds, m),
+                     "host": None if not h else {
+                         "config": f"protein-{lane}", "seconds": h["fit_seconds"],
+                         "optimize_seconds": h["optimize_seconds"], "evaluations": h["nfev"],
+                         "wall_ms_per_evaluation": h["optimize_seconds"] / h["nfev"] * 1e3}})
+        if not (np.all(np.isfinite(pred)) and abs(row["rmse_rel"]) <= CG_DEVICE_RMSE_REL
+                and m["solver_lane"] == lane and got == rule):
+            raise AssertionError(f"protein-{lane}-device: {row}")
+
+    # memplan-device: one device step's measured peak on each CG lane
+    # against the planner's byte model, protein-matfree's stack and
+    # gpc-mnist's (a Laplace family's step; the binary classifier's B
+    # systems on the iterative lane)
+    brackets = {}
+    xm_tr, ym_tr = cdata["xm"][cdata["tr_m"]], cdata["ym"][cdata["tr_m"]]
+    cases = [("protein_matfree", lane, "GaussianProcessRegression", 0) for lane in
+             ("iterative", "matfree")] + [("gpc_mnist", "iterative",
+                                           "GaussianProcessClassifier", 1)]
+    for label, lane, family, heads in cases:
+        with it_ops.solver_lane_scope(lane):
+            if heads:
+                cgp = mnist_gpc()
+                ckernel = cgp._get_kernel()
+                data = cgp._group(xm_tr, ym_tr, torch.device("cuda"))
+                vag = lap.BinaryLaplaceLanes(ckernel, data, cgp._tol)
+                aux0, bounds, theta0 = vag.aux0(1), ckernel.bounds(), ckernel.init_theta()
+            else:
+                data, aux0 = mf_data, None
+                vag = lk.make_device_value_and_grad(kernel, data)
+                bounds, theta0 = kernel.bounds(), kernel.init_theta()
+            cfg = ld.LbfgsConfig(lower=dev(bounds[0]), upper=dev(bounds[1]))
+            state = ld.lbfgs_init_state(vag, dev(theta0)[None], cfg, aux0)
+            limit = torch.full((), 10 ** 6, dtype=torch.int32, device="cuda")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ld.lbfgs_step(vag, state, cfg, limit)
+            torch.cuda.synchronize()
+            stack = sum(t.numel() * t.element_size() for t in (data.x, data.y, data.mask))
+            measured = torch.cuda.max_memory_allocated() - base + stack
+            del state, vag
+            torch.cuda.empty_cache()
+        e_, s_, p_ = (int(d) for d in data.x.shape)
+        rung = memplan.fit_rung_of_lane(lane, supports_matfree(kernel))
+        predicted = memplan.predicted_bytes(
+            memplan.fit_dispatch_bytes(e_, s_, p_, 4, rung, 1, family, heads))
+        brackets[f"{label}/{lane}"] = {"shape": [e_, s_, p_], "rung": rung, "family": family,
+                                       "measured_bytes": measured, "predicted_bytes": predicted,
+                                       "ratio": predicted / measured}
+    counts.zero()
+    low, high = MEMPLAN_BRACKET
+    emit({"phase": "memplan-device", "brackets": brackets, "bracket": MEMPLAN_BRACKET,
+          "card": smi})
+    if not all(low <= b["ratio"] <= high for b in brackets.values()):
+        raise AssertionError(f"memplan-device: {brackets}")
+
+
+
+def cg_latent_phases(torch, it_ops, counts, cdata: dict, d6: dict, host: dict, rows: list,
+                     smi: str) -> None:
+    """gpc-mnist-iterative-device, iris-native-iterative-device and
+    poisson-iterative-device."""
+    # gpc-mnist-iterative-device: phase 15 on the device optimizer
+    counts.zero()
+    try:
+        fit = split_fit(mnist_gpc().setSolverLane("iterative").setOptimizer("device"),
+                        cdata["xm"], cdata["ym"])
+    finally:
+        it_ops.set_solver_lane(None)
+    model = fit.pop("model")
+    m = model.metrics
+    got = counts.take("gpc_mnist_iterative_device")
+    rule = {"spd_inv_logdet": 0, "streamed_matvec": 0, "streamed_matvec_vjp": 0,
+            "slq_quadrature": latent_quad_rule(m)}
+    rows.append({"device": device_row("gpc-mnist-iterative", fit["seconds"],
+                                      {**m, "optimize_seconds": m["optimize_seconds"]}),
+                 "host": host_row("gpc-mnist-iterative", host.get("gpc_mnist_iterative"))})
+    emit({"phase": "gpc-mnist-iterative-device", **fit, "solver_lane": m["solver_lane"],
+          "launches": got, "rule": rule, "loop": loop_record(m), "bar": GPC_BARS["gpc_mnist"],
+          "host_accuracy": (host.get("gpc_mnist_iterative") or {}).get("accuracy"),
+          "card": smi})
+    if not (fit["accuracy"] > GPC_BARS["gpc_mnist"] and m["solver_lane"] == "iterative"
+            and got == rule):
+        raise AssertionError(f"gpc-mnist-iterative-device: {fit}, {got}, {rule}")
+
+    # iris-native-iterative-device: phase 19 on the device optimizer
+    counts.zero()
+    fitted = []
+    try:
+        it_ops.set_solver_lane("iterative")
+        native = cv_fits(torch, cdata, lambda: iris_native_gpc().setOptimizer("device"),
+                         lambda model: fitted.append(model) or [model], None,
+                         extra=LATENT_LOOP_KEYS)
+    finally:
+        it_ops.set_solver_lane(None)
+    got = counts.take("iris_native_iterative_device")
+    rule = {"spd_inv_logdet": 0, "streamed_matvec": 0, "streamed_matvec_vjp": 0,
+            "slq_quadrature": sum(latent_quad_rule(f.metrics) for f in fitted)}
+    spread = abs(native["accuracy"] - JAX_CPU_ACCURACY["iris_native_iterative"])
+    rows.append({"device": device_row("iris-native-iterative", native["seconds"], native,
+                                      native["fits"]),
+                 "host": host_row("iris-native-iterative", host.get("iris_native_iterative"),
+                                  10)})
+    emit({"phase": "iris-native-iterative-device", **native, "launches": got, "rule": rule,
+          "bar": GPC_BARS["iris_native"], "spread": spread,
+          "jax_cpu_accuracy": JAX_CPU_ACCURACY["iris_native_iterative"],
+          "lanes": sorted({f.metrics["solver_lane"] for f in fitted}), "card": smi})
+    if not (native["accuracy"] > GPC_BARS["iris_native"]
+            and spread <= IRIS_NATIVE_SPREAD["iterative"] and got == rule
+            and all(f.metrics["solver_lane"] == "iterative" for f in fitted)):
+        raise AssertionError(f"iris-native-iterative-device: {native}, {got}, {rule}")
+
+    # poisson-iterative-device: phase 34 on the device optimizer at
+    # POISSON_DEVICE_MAXITER (the host fit's 25 took 133 evaluations, 63 s,
+    # on this surrogate: PERF.md §6)
+    counts.zero()
+    t0 = time.perf_counter()
+    try:
+        model = poisson_gp().setMaxIter(POISSON_DEVICE_MAXITER).setSolverLane("iterative") \
+            .setOptimizer("device").fit(d6["x"], d6["y"])
+    finally:
+        it_ops.set_solver_lane(None)
+    rate = model.predict_rate(d6["x"])
+    seconds = time.perf_counter() - t0
+    m = model.metrics
+    got = counts.take("poisson_iterative_device")
+    rule = {"spd_inv_logdet": 0, "streamed_matvec": 0, "streamed_matvec_vjp": 0,
+            "slq_quadrature": latent_quad_rule(m)}
+    err = float(np.mean(np.abs(rate - d6["rate"]) / d6["rate"]))
+    rows.append({"device": {**device_row("poisson-iterative", seconds, m),
+                            "max_iter": POISSON_DEVICE_MAXITER},
+                 "host": host_row("poisson-iterative", host.get("poisson_iterative"))})
+    emit({"phase": "poisson-iterative-device", "mean_relative_rate_error": err,
+          "seconds": seconds, **{k: m[k] for k in GPC_METRICS}, "solver_lane": m["solver_lane"],
+          "launches": got, "rule": rule, "loop": loop_record(m),
+          "max_iter": POISSON_DEVICE_MAXITER, "bar": SLICE6_BARS["poisson_iterative"],
+          "host_error": (host.get("poisson_iterative") or {}).get("mean_relative_rate_error"),
+          "card": smi})
+    if not (np.all(np.isfinite(rate)) and err < SLICE6_BARS["poisson_iterative"]
+            and m["solver_lane"] == "iterative" and got == rule):
+        raise AssertionError(f"poisson-iterative-device: error {err}, {got}, {rule}")
+
+
+
+def ep_device_phases(torch, counts, cdata: dict, host: dict, rows: list, smi: str) -> None:
+    """ep-device-check, iris-ep-device and iris-ep-multistart."""
+    from spark_gp_tpu_torch.models import ep
+    from spark_gp_tpu_torch.utils.validation import OneVsRest
+
+    dev = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=torch.float32,
+                                    device="cuda")
+    # ep-device-check: the first iris fold's first one-vs-rest EP problem
+    # (7, 20) fitted by ep.fit_gpc_ep_device, its loop replayed from the
+    # captured graph and run eagerly: theta, sites, latent mean, f, n_iter,
+    # n_fev and the sweeps equal; K1 on the step's rule plus the posterior
+    # mean
+    train, _ = cdata["folds_i"][0]
+    egp = ep_gpc()
+    ekernel = egp._get_kernel()
+    yb = (cdata["yi"][train] == 0).astype(np.float64)
+    data = egp._group(cdata["xi"][train], yb, torch.device("cuda"))
+    elower, eupper = (dev(b) for b in ekernel.bounds())
+    runs = {}
+    for mode, capture in (("graph", True), ("eager", False)):
+        loop = {}
+        counts.zero()
+        t0 = time.perf_counter()
+        out = ep.fit_gpc_ep_device(ekernel, egp._tol, egp._use_log_space(ekernel),
+                                   dev(ekernel.init_theta()), elower, eupper, data,
+                                   egp._max_iter, capture=capture, loop_metrics=loop)
+        theta, (tau, nu), mu, f, n_iter, n_fev, _ = out
+        m = {f"device_opt.{k}": float(v) for k, v in loop.items() if v is not None}
+        runs[mode] = {"theta": theta.cpu().numpy(), "tau": tau.cpu().numpy(),
+                      "nu": nu.cpu().numpy(), "mu": mu.cpu().numpy(), "f": float(f),
+                      "n_iter": int(n_iter), "n_fev": int(n_fev),
+                      "sweeps": loop["newton_iterations"], "loop": loop,
+                      "seconds": time.perf_counter() - t0, "launches": counts.take(f"ep_check_{mode}"),
+                      "k1_rule": latent_k1_rule(m) + 1}
+    counts.zero()
+    g, e = runs["graph"], runs["eager"]
+    check = {"shape": list(data.x.shape[:2]),
+             **{f"{k}_equal": bool(np.array_equal(g[k], e[k]))
+                for k in ("theta", "tau", "nu", "mu")},
+             "f_equal": g["f"] == e["f"], "n_iter": [g["n_iter"], e["n_iter"]],
+             "n_fev": [g["n_fev"], e["n_fev"]], "sweeps": [g["sweeps"], e["sweeps"]],
+             "launches": [g["launches"], e["launches"]], "k1_rule": [g["k1_rule"], e["k1_rule"]],
+             "seconds": {"graph": g["seconds"], "eager": e["seconds"]}, "loop": g["loop"],
+             "eager_loop": e["loop"]}
+    emit({"phase": "ep-device-check", **check, "card": smi})
+    if not (all(check[f"{k}_equal"] for k in ("theta", "tau", "nu", "mu")) and check["f_equal"]
+            and g["n_iter"] == e["n_iter"] and g["n_fev"] == e["n_fev"]
+            and g["sweeps"] == e["sweeps"] and g["loop"]["captures"] == 1
+            and all(r["launches"]["spd_inv_logdet"] == r["k1_rule"] for r in (g, e))):
+        raise AssertionError(f"ep-device-check: {check}")
+
+    # iris-ep-device and iris-ep-multistart: phase 31's 10-fold one-vs-rest
+    # CV on the device optimizer, single start and 4 restarts in one loop
+    for label, restarts in (("iris_ep_device", 1), ("iris_ep_multistart", EP_RESTARTS)):
+        counts.zero()
+        fitted = []
+        iris = cv_fits(torch, cdata,
+                       lambda: OneVsRest(lambda: ep_gpc().setOptimizer("device")
+                                         .setNumRestarts(restarts)),
+                       lambda ovr: fitted.extend(ovr.models_) or ovr.models_, None,
+                       engine="ep_sweeps", extra=LATENT_LOOP_KEYS)
+        got = counts.take(label)
+        rule = sum(latent_k1_rule(f.metrics) + 1 for f in fitted)
+        if restarts == 1:
+            rows.append({"device": device_row("iris-ep", iris["seconds"],
+                                              {**iris, "newton_iterations": iris["ep_sweeps"]},
+                                              iris["fits"]),
+                         "host": host_row("iris-ep", {**host["iris_ep"], "newton_iterations":
+                                                      host["iris_ep"]["ep_sweeps"]}, 30)
+                         if host.get("iris_ep") else None})
+        emit({"phase": label.replace("_", "-"), **iris, "restarts": restarts, "launches": got,
+              "k1_rule": rule, "bar": SLICE6_BARS["iris_ep"],
+              "host_accuracy": (host.get("iris_ep") or {}).get("accuracy"), "card": smi})
+        if not (iris["accuracy"] > SLICE6_BARS["iris_ep"] and iris["fits"] == 30
+                and got["spd_inv_logdet"] == rule > 0
+                and all(f.metrics.get("num_restarts", 1) == restarts for f in fitted)):
+            raise AssertionError(f"{label}: {iris}, {got}, {rule}")
+
+
+
+def ladder_oom_device_phase(torch, it_ops, counts, data_main: dict, mf_rmse: float,
+                            smi: str) -> None:
+    """ladder-oom-device."""
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    xp, yp, tr, te = (data_main[key] for key in ("xp", "yp", "tr", "te"))
+    yp_tr, y_mean, y_std = (data_main[key] for key in ("yp_tr", "y_mean", "y_std"))
+    iters = it_ops.solver_config(4065).iters
+    # ladder-oom-device: ladder-oom's config as a device fit under the same
+    # memory fraction: real allocator OOMs at native and iterative, the
+    # device fit completes on matfree
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    counts.zero()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    budget = torch.cuda.memory_reserved() + LADDER_HEADROOM
+    torch.cuda.set_per_process_memory_fraction(budget / total_memory)
+    try:
+        model = matfree_gp(None, max_iter=5).setOptimizer("device").fit(xp[tr], yp_tr)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    m = model.metrics
+    got = counts.take("ladder_oom_device")
+    pred = model.predict(xp[te]) * y_std + y_mean
+    evals = regression_evaluations(m)
+    k2, vjp = k2_launch_rule(evals, iters, 1)
+    rule = {"spd_inv_logdet": 0, "streamed_matvec": k2, "streamed_matvec_vjp": vjp,
+            "slq_quadrature": evals + 1}
+    rungs = [(d["from"], d["to"], d["failure_class"]) for d in model.degradations]
+    ladder = {"budget_bytes": budget, "fraction": budget / total_memory,
+              "degradations": model.degradations, "solver_lane": m["solver_lane"],
+              "optimizer": m.get("optimizer"), "nfev": m["lbfgs_nfev"], "rmse": rmse(yp[te], pred),
+              "protein_matfree_rmse": mf_rmse, "rmse_rel": rmse(yp[te], pred) / mf_rmse - 1.0,
+              "bar_rmse_rel": LADDER_RMSE_REL, "launches": got, "rule": rule,
+              "loop": loop_record(m), "seconds": seconds}
+    emit({"phase": "ladder-oom-device", **ladder, "card": smi})
+    if not (rungs == [("native", "iterative", "oom"), ("iterative", "matfree", "oom")]
+            and m["solver_lane"] == "matfree" and m.get("optimizer") == "device"
+            and np.all(np.isfinite(pred)) and got == rule
+            and abs(ladder["rmse_rel"]) <= LADDER_RMSE_REL):
+        raise AssertionError(f"ladder-oom-device: {ladder}")
+
+
+
+def slice12_phases(torch, spd, sm, sq, it_ops, cdata: dict, d6: dict, data_main: dict,
+                   mf_data, mf_rmse: float, b_stacks: dict, host: dict, smi: str) -> dict:
+    """This slice's phases (slq-quadrature, device-opt-check-matfree,
+    protein-matfree-device, protein-iterative-device, memplan-device,
+    gpc-mnist-iterative-device, iris-native-iterative-device,
+    poisson-iterative-device, ep-device-check, iris-ep-device,
+    iris-ep-multistart, ladder-oom-device, cg-device-table); ``host``
+    carries the host optimizer's phases to set beside them.  Returns each
+    kernel's launches on each phase's fits, and the quadrature kernel's
+    checks."""
+    start_all = time.perf_counter()
+    counts = LaunchCounts(spd, sm, sq)
+    rows: list = []
+    name = torch.cuda.get_device_name(0)
+    quad = slq_quadrature_phase(
+        torch, sq, slq_tridiagonals(torch, it_ops, mf_data, matfree_gp(None)._get_kernel(),
+                                    b_stacks),
+        peaks_for(name), F64_PEAKS[next(k for k in F64_PEAKS if k in name)], smi)
+    cg_regression_phases(torch, it_ops, counts, data_main, mf_data, cdata, mf_rmse, host, rows,
+                         smi)
+    cg_latent_phases(torch, it_ops, counts, cdata, d6, host, rows, smi)
+    ep_device_phases(torch, counts, cdata, host, rows, smi)
+    ladder_oom_device_phase(torch, it_ops, counts, data_main, mf_rmse, smi)
+    emit({"phase": "cg-device-table", "rows": rows, "card": smi})
+    emit({"phase": "slice12-phases", "seconds": time.perf_counter() - start_all, "card": smi})
+    return {"launches": counts.launches, "slq_quadrature": quad}
+
+
+def regression_row(label: str, seconds: float, m: dict) -> dict:
+    """One row of the host-against-device table for a regression device
+    fit (no Newton loop): optimize seconds, evaluations, the loop's
+    replays, masked evaluations, graph nodes and capture seconds."""
+    nfev = m["lbfgs_nfev"]
+    return {"config": label, "fits": 1, "seconds": seconds,
+            "optimize_seconds": m["optimize_seconds"], "evaluations": nfev,
+            "replays": m.get("device_opt.replays"),
+            "masked_lane_steps": m.get("device_opt.masked_evaluations"),
+            "graph_nodes_per_fit": m.get("device_opt.graph_nodes"),
+            "capture_seconds": m.get("device_opt.capture_seconds"),
+            "wall_ms_per_evaluation": m["optimize_seconds"] / nfev * 1e3}
 
 
 def main() -> int:
@@ -4023,6 +4632,7 @@ def main() -> int:
     from spark_gp_tpu_torch.models.ppa import magic_solve
     from spark_gp_tpu_torch.ops import cuda_lib
     from spark_gp_tpu_torch.ops import iterative as it_ops
+    from spark_gp_tpu_torch.ops import slq_quadrature as sq
     from spark_gp_tpu_torch.ops import spd_linalg as spd
     from spark_gp_tpu_torch.ops import streamed_matvec as sm
     from spark_gp_tpu_torch.parallel.experts import group_for_experts
@@ -4041,8 +4651,8 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together; the first
     # designs of K1 and K2-VJP (csrc/dev/) are built to be timed beside them
     start = time.perf_counter()
-    built = cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec", K1_FIRST_DESIGN,
-                                VJP_FIRST_DESIGN], force=True)
+    built = cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec", "slq_quadrature",
+                                K1_FIRST_DESIGN, VJP_FIRST_DESIGN], force=True)
     report = {}
     for source, (seconds, log) in built.items():
         regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines()
@@ -4051,6 +4661,9 @@ def main() -> int:
                   if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
         report[source] = {"seconds": seconds, "registers": regs, "spills": spills}
     emit({"phase": "build", "seconds": time.perf_counter() - start, "kernels": report})
+    # the quadrature kernel runs in the device fits on the CG lanes of the
+    # phases below: its count is the main path's from here on
+    sq.slq_quadrature.launches = 0
 
     # the main path's data and the gram stacks it hands K1 at init theta
     data_main = main_path_data()
@@ -4342,6 +4955,8 @@ def main() -> int:
         if lane == "matfree":
             mf_model, mf_total = model, total
             engaged["protein_matfree"] = [model.metrics["gram_cache_engaged"]]
+        if lane != "exact":
+            HOST_FITS[f"protein_{lane}"] = fits[lane]
     nfev = fits["matfree"]["nfev"]
     launches_k2 = mf_total[0] - report_launches["streamed_matvec"]
     launches_vjp = mf_total[1] - report_launches["streamed_matvec_vjp"]
@@ -4484,6 +5099,15 @@ def main() -> int:
     slice10 = slice10_phases(torch, spd, data_main, rdata, HOST_FITS, smi)
     # 64-73. slice 11: the device fits of the Laplace families
     slice11 = slice11_phases(torch, spd, cdata, d6, HOST_FITS, smi)
+    # 74-87. slice 12: the device optimizer on the CG lanes and for EP (its
+    # phases zero the wrappers' counters and record each phase's launches)
+    quad_before = sq.slq_quadrature.launches
+    slice12 = slice12_phases(
+        torch, spd, sm, sq, it_ops, cdata, d6, data_main, mf_data, rm,
+        {"gpc_mnist_b": b_stacks["gpc_mnist"], "poisson_b": stacks["poisson_b"],
+         "iris_b": b_stacks["iris_fold"]}, HOST_FITS, smi)
+    quad = slice12["slq_quadrature"]
+    l12 = slice12["launches"]
 
     # 56. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
@@ -4504,7 +5128,7 @@ def main() -> int:
                  ptxas_usage(built["streamed_matvec"][1], *VJP_PTXAS).items()
                  if key.endswith(("/NB1", "/NB8"))}
 
-    emit({"kernels": [{
+    kernels = [{
         "name": "spd_inv_logdet",
         "route": "cuda",
         "source": "spark_gp_tpu_torch/csrc/spd_inv_logdet.cu",
@@ -4514,7 +5138,7 @@ def main() -> int:
                      + sum(regression.values()) + sum(slice6.values())
                      + sum(slice7.values()) + sum(slice8["spd_inv_logdet"].values())
                      + sum(slice9.values()) + sum(slice10.values())
-                     + sum(slice11.values())),
+                     + sum(slice11.values()) + sum(l12["spd_inv_logdet"].values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
@@ -4528,6 +5152,7 @@ def main() -> int:
         **{f"launches_{key}": value for key, value in slice9.items()},
         **{f"launches_{key}": value for key, value in slice10.items()},
         **{f"launches_{key}": value for key, value in slice11.items()},
+        **{f"launches_{key}": value for key, value in l12["spd_inv_logdet"].items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
@@ -4564,9 +5189,11 @@ def main() -> int:
         "replaces": "spark_gp_tpu/ops/pallas_matvec.py:211",
         "launches": (launches_k2 + report_launches["streamed_matvec"]
                      + k2_weighted["streamed_matvec"]
-                     + sum(slice8["streamed_matvec"].values())),
+                     + sum(slice8["streamed_matvec"].values())
+                     + sum(l12["streamed_matvec"].values())),
         "launches_optimize": launches_k2,
         **{f"launches_{key}": value for key, value in slice8["streamed_matvec"].items()},
+        **{f"launches_{key}": value for key, value in l12["streamed_matvec"].items()},
         "launches_weighted_matfree": k2_weighted["streamed_matvec"],
         "launches_solver_report": report_launches["streamed_matvec"],
         **leg(k2_rows, 9, "matvec"),
@@ -4580,16 +5207,38 @@ def main() -> int:
         "replaces": "spark_gp_tpu/ops/pallas_matvec.py:133",
         "replaces_note": "no Pallas kernel: XLA differentiates the checkpointed scan",
         "launches": (launches_vjp + k2_weighted["streamed_matvec_vjp"]
-                     + sum(slice8["streamed_matvec_vjp"].values())),
+                     + sum(slice8["streamed_matvec_vjp"].values())
+                     + sum(l12["streamed_matvec_vjp"].values())),
         "launches_weighted_matfree": k2_weighted["streamed_matvec_vjp"],
         **{f"launches_{key}": value for key, value in slice8["streamed_matvec_vjp"].items()},
+        **{f"launches_{key}": value for key, value in l12["streamed_matvec_vjp"].items()},
         **leg(vjp_rows, 8, "vjp", ("first_design_ms", "wall_ms")),
         "max_rel_err_all_checks": max(e["vjp_rel"] for e in k2_errs.values()),
         "legs": {"n1": leg(vjp_rows, 1, "vjp", ("first_design_ms", "wall_ms"))},
         "first_design_source": f"spark_gp_tpu_torch/csrc/{VJP_FIRST_DESIGN}.cu",
         "ptxas_registers_spill_bytes": vjp_ptxas,
         "checked": True,
-    }]})
+    }, {
+        "name": "slq_quadrature",
+        "route": "cuda",
+        "source": "spark_gp_tpu_torch/csrc/slq_quadrature.cu",
+        "replaces": "spark_gp_tpu/ops/iterative.py:510",
+        "replaces_note": "no Pallas kernel: XLA's eigh in slq_logdet_from_coeffs, which "
+                         "torch.linalg.eigh cannot replace inside a captured step",
+        "launches": quad_before + sum(l12["slq_quadrature"].values()),
+        "launches_before_slice12": quad_before,
+        **{f"launches_{key}": value for key, value in l12["slq_quadrature"].items()},
+        "shape": quad["protein_matfree"]["shape"],
+        **{key: quad["protein_matfree"][key] for key in keys + ("rotations",)},
+        "max_abs_err": max(r["max_abs_err"] for r in quad.values()),
+        "inputs": quad,
+        "checked": True,
+    }]
+    # every kernel of the path ran on it
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: {idle}")
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

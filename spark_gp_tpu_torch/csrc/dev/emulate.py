@@ -3,9 +3,10 @@ before it goes to the card.
 
     python3 spark_gp_tpu_torch/csrc/dev/emulate.py [SOURCE.cu ...]
 
-With no argument it runs ``csrc/streamed_matvec.cu`` and
-``csrc/spd_inv_logdet.cu``; a source is checked as K1 if it defines
-``spd_inv_logdet_f32``, else as K2.  The source is translated to plain C++
+With no argument it runs ``csrc/streamed_matvec.cu``,
+``csrc/spd_inv_logdet.cu`` and ``csrc/slq_quadrature.cu``; a source is
+checked as K1 if it defines ``spd_inv_logdet_f32``, as the SLQ quadrature
+if it defines ``slq_quadrature_f32``, else as K2.  The source is translated to plain C++
 (``cuda_emu.h`` runs each block as ``blockDim.x`` threads with a real
 barrier and emulated warp shuffles; a launch becomes a loop over blocks,
 ``extern __shared__`` a pointer to the launch's buffer, NaN-filled for each
@@ -23,7 +24,14 @@ against the plain float64 versions:
   the entry asks for, NaN-filled), on batches of two kinds of SPD matrix,
   and batches with a non-PD matrix at n = 100 and 300 whose batch mates
   must stay within the bar; bars K^-1 within 5e-5 of max|K^-1|, logdet within
-  1e-4 + 1e-5 |logdet|.
+  1e-4 + 1e-5 |logdet|;
+- the SLQ quadrature (``ops/slq_quadrature.py``) on Lanczos tridiagonals of
+  real PCG runs (t = 1, 20, 64, 65, 100, float32 and float64, the
+  workspace NaN-filled; one run past its convergence, whose frozen steps
+  split T and repeat the eigenvalue 1),
+  against the float64 ``eigh`` route: within 1e-5 of max(1, |value|)
+  (float32 inputs) and 1e-10 (float64), every matrix's QL rotations
+  counted.
 This checks tiling, staging and bounds; it says nothing about speed, and
 nvcc may still refuse what g++ takes.  Exits 1 if a case misses its bar.
 """
@@ -44,6 +52,8 @@ import torch
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
 
+from spark_gp_tpu_torch.ops import iterative as it_ops  # noqa: E402
+from spark_gp_tpu_torch.ops import slq_quadrature as sq  # noqa: E402
 from spark_gp_tpu_torch.ops import spd_linalg as spd  # noqa: E402
 from spark_gp_tpu_torch.ops import streamed_matvec as sm  # noqa: E402
 
@@ -136,6 +146,15 @@ def is_k1(source: Path) -> bool:
     return "spd_inv_logdet_f32" in source.read_text()
 
 
+def is_slq(source: Path) -> bool:
+    return "slq_quadrature_f32" in source.read_text()
+
+
+def binder(source: Path):
+    """The wrapper module's ``bind`` for the source's entry points."""
+    return spd.bind if is_k1(source) else sq.bind if is_slq(source) else sm.bind
+
+
 def build(source: Path, out: Path) -> ctypes.CDLL:
     """The emulated library of ``source``, its entry points declared.
     Each library keeps its own copy of the header's globals
@@ -148,7 +167,7 @@ def build(source: Path, out: Path) -> ctypes.CDLL:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(proc.stdout + proc.stderr)
-    return (spd.bind if is_k1(source) else sm.bind)(ctypes.CDLL(str(out)))
+    return binder(source)(ctypes.CDLL(str(out)))
 
 
 def stack(shape, n, rng):
@@ -243,6 +262,60 @@ def check_spd(lib, k: np.ndarray) -> tuple[float, np.ndarray]:
     return rel, ld_rel
 
 
+def lanczos_stack(b: int, s: int, t: int, rng, dtype=np.float32):
+    """``(diag [b, r, t], off [b, r, t - 1])`` of the Lanczos tridiagonals
+    of a PCG run of ``t`` steps on ``b`` SPD grams (RBF of points in 2-D
+    plus 0.1 I) against 8 Gaussian right-hand sides, unpreconditioned:
+    what ``ops/iterative.py`` hands the quadrature."""
+    x = rng.normal(size=(b, s, 2))
+    d = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
+    k = torch.as_tensor(np.exp(-0.5 * d) + 0.1 * np.eye(s))
+    z = torch.as_tensor(rng.normal(size=(b, s, 8)))
+    res = it_ops.batched_pcg(lambda v: k @ v, z, None, t, 1e-12)
+    diag, off = sq.lanczos_tridiagonal(res.alphas, res.betas)
+    return diag.numpy().astype(dtype), off.numpy().astype(dtype)
+
+
+def check_slq(lib, diag: np.ndarray, off: np.ndarray) -> tuple[float, np.ndarray]:
+    """The quadrature entry on ``(diag, off)`` against the float64 eigh
+    route on the same inputs: the largest error over max(1, |value|), and
+    each matrix's rotation count (NaN-filled output and -1 counts before
+    the call, so an entry never written shows)."""
+    t = diag.shape[-1]
+    d = np.ascontiguousarray(diag.reshape(-1, t))
+    o = np.ascontiguousarray(off.reshape(d.shape[0], t - 1))
+    out = np.full(d.shape[0], np.nan, dtype=diag.dtype)
+    rot = np.full(d.shape[0], -1, dtype=np.int32)
+    work = np.full(lib.slq_quadrature_workspace_doubles(d.shape[0], t), np.nan)
+    entry = lib.slq_quadrature_f32 if diag.dtype == np.float32 else lib.slq_quadrature_f64
+    err = entry(d.ctypes.data, o.ctypes.data, out.ctypes.data, rot.ctypes.data,
+                work.ctypes.data, d.shape[0], t, None)
+    if err:
+        raise SystemExit(f"entry returned {err} at {diag.shape}")
+    ref = sq.slq_quadrature_plain(torch.as_tensor(d).double(), torch.as_tensor(o).double())
+    ref = ref.numpy()
+    return float(np.max(np.abs(out - ref) / np.maximum(1.0, np.abs(ref)))), rot
+
+
+#: (experts, rows, PCG steps): one step, the iris B systems' t = 20, the
+#: main path's t = 64, 64 steps on 30 rows (converged early: frozen steps
+#: split T), and t = 65 and 100 (``GP_SOLVER_MAX_ITERS`` over 64)
+SLQ_CASES = [(2, 30, 1), (3, 20, 20), (2, 100, 64), (1, 64, 64), (2, 30, 64), (1, 80, 65),
+             (1, 150, 100)]
+
+
+def main_slq(lib, rng) -> int:
+    failed = 0
+    for b, s, t in SLQ_CASES:
+        for dtype, bar in ((np.float32, 1e-5), (np.float64, 1e-10)):
+            rel, rot = check_slq(lib, *lanczos_stack(b, s, t, rng, dtype))
+            ok = rel <= bar and bool((rot >= 0).all())
+            failed += not ok
+            print(f"{'ok  ' if ok else 'FAIL'} SLQ ({b}, {s}, t={t}) {np.dtype(dtype).name}: "
+                  f"{rel:.2e}, rotations {int(rot.sum())}", flush=True)
+    return failed
+
+
 def main_k1(lib, rng) -> int:
     failed = 0
     print("smem max n", lib.spd_inv_logdet_smem_max_n())
@@ -281,14 +354,16 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("source", nargs="*",
                         default=[str(HERE.parent / "streamed_matvec.cu"),
-                                 str(HERE.parent / "spd_inv_logdet.cu")])
+                                 str(HERE.parent / "spd_inv_logdet.cu"),
+                                 str(HERE.parent / "slq_quadrature.cu")])
     args = parser.parse_args()
     rng = np.random.default_rng(0)
     failed = 0
     with tempfile.TemporaryDirectory() as tmp:
         for i, source in enumerate(map(Path, args.source)):
             lib = build(source, Path(tmp) / f"libemu{i}.so")
-            failed += (main_k1 if is_k1(source) else main_k2)(lib, rng)
+            main_of = main_k1 if is_k1(source) else main_slq if is_slq(source) else main_k2
+            failed += main_of(lib, rng)
     print(f"{failed} failed")
     return 1 if failed else 0
 

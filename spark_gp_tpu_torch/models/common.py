@@ -158,20 +158,14 @@ class GaussianProcessParams:
         """``"host"`` -- SciPy L-BFGS-B on the host, one device round trip
         per objective evaluation; ``"device"`` -- the whole L-BFGS-B loop
         on the fit's device (``optimize/lbfgs_device.py``), replayed from
-        one captured CUDA graph on the card, for the regression fit, the
-        Laplace classifiers and the count models on the exact solver lane
-        (EP and the other lanes are ROADMAP.md queue 1, item 4b);
-        ``"auto"`` (the default) -- ``"host"`` until a measured rule says
-        otherwise (item 4b)."""
+        one captured CUDA graph on the card, for every estimator on every
+        solver lane (EP's sweeps ignore the lane, as in the JAX package);
+        ``"auto"`` (the default) -- ``"host"``: the rule that would pick
+        the device loop waits for the port's benchmark (ROADMAP.md)."""
         if value not in ("auto", "host", "device"):
             raise ValueError("optimizer must be 'auto', 'host' or 'device'")
-        if value == "device" and not self._device_fit_ported:
-            raise _not_ported(f"the on-device optimizer of {type(self).__name__}", "4b")
         self._optimizer = value
         return self
-
-    #: whether the estimator has a device fit (``setOptimizer("device")``)
-    _device_fit_ported = False
 
     def setNumRestarts(self, value: int, scale: float = 0.5):
         """Multi-start hyperparameter optimization: ``value`` > 1 runs
@@ -373,7 +367,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         """``"host"`` under the ladder's ``host_f64`` rung (it re-runs the
         fit host-driven, whatever was asked for), else the optimizer
         ``setOptimizer`` asked for; ``"auto"`` is ``"host"`` until a
-        measured rule says otherwise (ROADMAP.md queue 1, item 4b)."""
+        measured rule says otherwise (ROADMAP.md)."""
         if self._fallback_mode == "host_f64":
             return "host"
         return "device" if self._optimizer == "device" else "host"
@@ -1058,16 +1052,13 @@ class GaussianProcessCommons(GaussianProcessParams):
         return best_model
 
     def _device_fit_prelude(self, kernel: Kernel, data: ExpertData):
-        """The checks and operands every device fit starts with: item 4b
-        off the exact lane, no restarts beside a checkpoint directory, the
-        staged fault of the dispatch about to run (``_device_fit_op``);
-        returns ``(dev, lower, upper, log_space)``, ``dev`` casting an
-        array to the stack's dtype and device."""
+        """The checks and operands every device fit starts with: no
+        restarts beside a checkpoint directory, the staged fault of the
+        dispatch about to run (``_device_fit_op``); returns ``(dev, lower,
+        upper, log_space)``, ``dev`` casting an array to the stack's dtype
+        and device."""
         from spark_gp_tpu_torch.resilience import chaos
 
-        lane = it_ops.resolve_for(data)
-        if lane != "exact":
-            raise _not_ported(f"the on-device optimizer on the {lane!r} solver lane", "4b")
         self._check_restarts_without_checkpoints()
         dtype, device = data.x.dtype, data.x.device
 
@@ -1111,9 +1102,8 @@ class GaussianProcessCommons(GaussianProcessParams):
         ladder's ``segmented`` rung (``kind`` and ``meta_extra`` the JAX
         ``segment_meta``'s, ``file_tag`` the state file's), else one loop;
         ``lanes`` is the family's ``models/laplace_device.LaplaceLanes``.
-        The results come back in one transfer.  Returns
-        ``(OptimizeResult, latent modes [E, s, ...] on the device,
-        metrics)``."""
+        The results come back in one transfer.  Returns ``(OptimizeResult,
+        latent modes [E, s, ...] on the device, metrics)``."""
         from spark_gp_tpu_torch.models import laplace_device as ld
 
         dev, lower, upper, log_space = self._device_fit_prelude(kernel, data)
@@ -1241,7 +1231,9 @@ class GaussianProcessCommons(GaussianProcessParams):
 
     def _emit_solver_stats(self, metrics: dict, kernel: Kernel, theta,
                            data: ExpertData) -> None:
-        """The solver lane's fit-time record, into ``metrics``.
+        """The solver lane's fit-time record, into ``metrics``, for every
+        estimator and optimizer (the latent families pass their PPA
+        targets as ``data.y``).
 
         Always stamps the engaged lane (``solver_lane``).  On the iterative
         and matfree lanes it also runs one forward pass of the solver at
@@ -1256,7 +1248,8 @@ class GaussianProcessCommons(GaussianProcessParams):
             return
         probe = min(8, data.num_experts)
         x_p, mask_p = data.x[:probe], data.mask[:probe]
-        y_p = data.y[:probe] * mask_p
+        # a multiclass stack probes its first latent head, as the JAX package
+        y_p = (data.y[:probe] if data.y.ndim == 2 else data.y[:probe, :, 0]) * mask_p
         theta_p = torch.as_tensor(
             np.asarray(theta, dtype=np.float64), dtype=data.x.dtype, device=data.x.device
         )

@@ -28,15 +28,33 @@ Counters: ``ep_fit_sites.sweeps`` (site sweeps, one host read each) and
 ``batched_neg_logz_ep.calls`` (objective evaluations).  On the exact lane
 K1 runs once a sweep and once an evaluation, and once for the posterior
 mean at the end of a fit.
+
+The device fits (:func:`fit_gpc_ep_device` and its batched multi-start,
+the JAX package's) run the sweeps inside the device optimizer's captured
+step (:class:`EPLanes`, a latent objective of ``optimize/lbfgs_device.py``
+whose ``aux`` is the site pair): a step holds ``k`` damped sweeps over
+every lane's ``[R * E, s, s]`` B stack, one K1 launch each, a lane's
+sweeps going on while the largest site change over all of its experts
+exceeds ``tol`` (the JAX ``ep_fit_sites`` under its multi-start ``vmap``),
+at most 60 a trial, carried across replays; then the gradient pass at the
+sites reached.  EP has no iterative lane: its B systems go through K1 (or
+the Cholesky) on every solver lane, as in the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
 from spark_gp_tpu_torch.models.aggregation import weighted_expert_sum
+from spark_gp_tpu_torch.models.laplace_device import (
+    LaplaceLanes,
+    fit_latent_device,
+    fit_latent_device_multistart,
+)
 from spark_gp_tpu_torch.ops import spd_linalg
 from spark_gp_tpu_torch.parallel.experts import ExpertData
 
@@ -102,9 +120,22 @@ def _site_update(y_pm, mask, tau, nu, sigma_diag, mu):
     return tau_new * mask, nu_new * mask
 
 
+#: the site sweeps' damping and their cap a site fit (the JAX defaults)
+DAMPING = 0.7
+MAX_SWEEPS = 60
+
+
+def _damped_sweep(kmat, y_pm, mask, tau, nu, damping: float = DAMPING):
+    """One damped parallel sweep: the new sites ``(tau_d, nu_d)``, one
+    batched inverse of B (K1 on the card)."""
+    sigma_diag, mu, _, _ = _posterior_marginals(kmat, tau, nu)
+    tau_new, nu_new = _site_update(y_pm, mask, tau, nu, sigma_diag, mu)
+    return (1.0 - damping) * tau + damping * tau_new, (1.0 - damping) * nu + damping * nu_new
+
+
 @torch.no_grad()
-def ep_fit_sites(kmat, y_pm, mask, tau0, nu0, tol, max_sweeps: int = 60,
-                 damping: float = 0.7):
+def ep_fit_sites(kmat, y_pm, mask, tau0, nu0, tol, max_sweeps: int = MAX_SWEEPS,
+                 damping: float = DAMPING):
     """Damped parallel EP from the sites ``(tau0, nu0)`` while the largest
     site change of the last sweep exceeds ``tol`` and fewer than
     ``max_sweeps`` have run (one host read a sweep); returns
@@ -113,10 +144,7 @@ def ep_fit_sites(kmat, y_pm, mask, tau0, nu0, tol, max_sweeps: int = 60,
     delta = torch.full((), torch.inf, dtype=kmat.dtype, device=kmat.device)
     sweeps = 0
     while sweeps < max_sweeps and bool(delta > tol):
-        sigma_diag, mu, _, _ = _posterior_marginals(kmat, tau, nu)
-        tau_new, nu_new = _site_update(y_pm, mask, tau, nu, sigma_diag, mu)
-        tau_d = (1.0 - damping) * tau + damping * tau_new
-        nu_d = (1.0 - damping) * nu + damping * nu_new
+        tau_d, nu_d = _damped_sweep(kmat, y_pm, mask, tau, nu, damping)
         delta = torch.maximum(torch.max(torch.abs(tau_d - tau)), torch.max(torch.abs(nu_d - nu)))
         tau, nu = tau_d, nu_d
         sweeps += 1
@@ -199,3 +227,138 @@ def ep_posterior_mean(kernel: Kernel, theta, x, mask, tau, nu):
     kmat = masked_gram_stack(kernel, theta, x, mask)
     _, mu, _, _ = _posterior_marginals(kmat, tau, nu)
     return mu * mask
+
+
+# --- the device fits (``models/laplace_device.py``'s drivers) ---------------------------
+
+
+class EPLanes(LaplaceLanes):
+    """R lanes of EP's objective for the device optimizer (module doc):
+    ``aux`` is the ``[R, E, s, 2]`` site pair ``(tau, nu)``; a trial carries
+    its sites, the lane's last largest site change and its sweep count
+    (``carry_fields``) across steps.  ``newton_k`` is the sweeps of a step;
+    a gradient pass is one K1 call.  No gram cache: EP's sweeps have no
+    cached-gram path."""
+
+    family = "ep"
+    passes = 1
+    carry_fields = ("nt_f", "nt_delta", "nt_sweeps")
+
+    def __init__(self, kernel: Kernel, data: ExpertData, tol, max_sweeps: int = MAX_SWEEPS,
+                 damping: float = DAMPING) -> None:
+        super().__init__(kernel, data.x, data.y, data.mask, tol, None)
+        self.max_sweeps, self.damping = int(max_sweeps), float(damping)
+
+    def aux0(self, r: int):
+        """Zero sites ``[r, E, s, 2]``."""
+        return torch.zeros((r,) + tuple(self.y.shape) + (2,), dtype=self.x.dtype,
+                           device=self.x.device)
+
+    def reset(self, aux) -> Dict[str, torch.Tensor]:
+        """A site fit from ``aux``: no change seen yet (``inf``), no sweep."""
+        r = aux.shape[0]
+        return {"nt_f": aux.clone(),
+                "nt_delta": torch.full((r,), torch.inf, dtype=aux.dtype, device=aux.device),
+                "nt_sweeps": torch.zeros((r,), dtype=torch.int32, device=aux.device)}
+
+    def _going(self, delta, sweeps):
+        return (delta > self.tol) & (sweeps < self.max_sweeps)
+
+    def _sweep(self, kmat, y_pm, mask, tau, nu, delta, sweeps, going):
+        """One damped sweep of every lane's stack, kept for the lanes in
+        ``going``; a lane's change is the largest over all its experts."""
+        r = going.shape[0]
+        tau_d, nu_d = _damped_sweep(kmat, y_pm, mask, tau, nu, self.damping)
+        change = torch.maximum((tau_d - tau).abs().reshape(r, -1).amax(-1),
+                               (nu_d - nu).abs().reshape(r, -1).amax(-1))
+        keep = going.repeat_interleave(tau.shape[0] // r)[:, None]
+        return (torch.where(keep, tau_d, tau), torch.where(keep, nu_d, nu),
+                torch.where(going, change, delta), sweeps + going.to(torch.int32))
+
+    def _sites(self, aux):
+        r, e, s = aux.shape[:3]
+        return aux[..., 0].reshape(r * e, s), aux[..., 1].reshape(r * e, s)
+
+    def _trial(self, thetas, carry, run):
+        r, e, s = carry["nt_f"].shape[:3]
+        kmat = self.lane_grams(thetas)
+        y, mask = self.lane_targets(r)
+        y_pm = (2.0 * y - 1.0) * mask
+        tau, nu = self._sites(carry["nt_f"])
+        delta, sweeps = carry["nt_delta"], carry["nt_sweeps"]
+        worked = torch.zeros((), dtype=torch.int32, device=tau.device)
+        for _ in range(self.newton_k):
+            going = self._going(delta, sweeps) & run
+            worked = worked + going.any().to(torch.int32)
+            tau, nu, delta, sweeps = self._sweep(kmat, y_pm, mask, tau, nu, delta, sweeps, going)
+        finished = ~(self._going(delta, sweeps) & run)
+        values, grads = self._gradient_pass(thetas, tau, nu)
+        sites = torch.stack([tau, nu], dim=-1).reshape(r, e, s, 2)
+        return values, grads, {"nt_f": sites, "nt_delta": delta, "nt_sweeps": sweeps}, \
+            finished, worked
+
+    def _evaluate(self, thetas, aux):
+        """One whole evaluation, eagerly: masked sweeps of every lane until
+        none goes on (one host read a sweep), then the gradient pass."""
+        r, e, s = aux.shape[:3]
+        kmat = self.lane_grams(thetas)
+        y, mask = self.lane_targets(r)
+        y_pm = (2.0 * y - 1.0) * mask
+        tau, nu = self._sites(aux)
+        start = self.reset(aux)
+        delta, sweeps = start["nt_delta"], start["nt_sweeps"]
+        while True:
+            going = self._going(delta, sweeps)
+            if not bool(going.any()):
+                break
+            self.eager_iterations += 1
+            tau, nu, delta, sweeps = self._sweep(kmat, y_pm, mask, tau, nu, delta, sweeps, going)
+        self.eager_evaluations += 1
+        values, grads = self._gradient_pass(thetas, tau, nu)
+        return values, grads, torch.stack([tau, nu], dim=-1).reshape(r, e, s, 2)
+
+    def _gradient_pass(self, thetas, tau, nu):
+        """``(-sum_e log Z_EP [R], its gradient [R, h])`` at the sites, by
+        autograd through ``log Z_EP`` in every lane's gram (one K1 call)."""
+        r = thetas.shape[0]
+        with torch.enable_grad():
+            th = thetas.detach().requires_grad_(True)
+            y, mask = self.lane_targets(r)
+            log_z = _ep_log_z(self.lane_grams(th, grad=True), (2.0 * y - 1.0) * mask, mask,
+                              tau, nu)
+            values = -log_z.reshape(r, -1).sum(-1)
+            (grad,) = torch.autograd.grad(values.sum(), th)
+        return values.detach(), grad
+
+
+def _lanes_posterior_mean(lanes: EPLanes, theta, sites):
+    """The latent posterior mean ``[E, s]`` at ``theta`` and one lane's
+    sites ``[E, s, 2]``, on the device (one K1 call)."""
+    return ep_posterior_mean(lanes.kernel, theta, lanes.x, lanes.mask, sites[..., 0],
+                             sites[..., 1])
+
+
+def fit_gpc_ep_device(kernel: Kernel, tol, log_space: bool, theta0, lower, upper,
+                      data: ExpertData, max_iter: int, capture: bool = True, loop_metrics=None):
+    """The single-start device fit of the EP classifier from zero sites (JAX
+    ``fit_gpc_ep_device``): ``(theta, (tau, nu), latent_mu [E, s], nll,
+    n_iter, n_fev, stalled)`` as device tensors, the latent mean the PPA
+    targets at theta and the sites of the last accepted iterate."""
+    lanes = EPLanes(kernel, data, tol)
+    theta, sites, f, n_iter, n_fev, stalled = fit_latent_device(
+        lanes, log_space, theta0, lower, upper, max_iter, tol, capture=capture,
+        loop_metrics=loop_metrics)
+    return (theta, (sites[..., 0], sites[..., 1]), _lanes_posterior_mean(lanes, theta, sites), f,
+            n_iter, n_fev, stalled)
+
+
+def fit_gpc_ep_device_multistart(kernel: Kernel, tol, log_space: bool, theta0_batch, lower,
+                                 upper, data: ExpertData, max_iter: int, loop_metrics=None):
+    """R restarts as one device loop, the site pairs riding per lane (JAX
+    ``fit_gpc_ep_device_multistart``): ``(theta_best, latent_mu_best, nll_best,
+    n_iter, n_fev, stalled, f_all [R], best)``."""
+    lanes = EPLanes(kernel, data, tol)
+    theta, sites, f, n_iter, n_fev, stalled, f_all, best = fit_latent_device_multistart(
+        lanes, log_space, theta0_batch, lower, upper, max_iter, tol, loop_metrics=loop_metrics)
+    return (theta, _lanes_posterior_mean(lanes, theta, sites), f, n_iter, n_fev, stalled, f_all,
+            best)

@@ -22,7 +22,6 @@ import torch
 from spark_gp_tpu_torch.models import laplace_generic as lg
 from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
-from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
 from spark_gp_tpu_torch.utils.device import resolve_device
 from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
@@ -79,7 +78,6 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
                 model.metrics.update({
                     "num_experts": data.num_experts,
                     "expert_size": data.expert_size,
-                    "solver_lane": it_ops.resolve_for(data_a),
                     "likelihood": type(lik).__name__,
                     "lbfgs_iters": res.nit,
                     "lbfgs_nfev": res.nfev,
@@ -88,6 +86,8 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
                     "gram_cache_engaged": float(cache is not None),
                 })
                 self._log_renormalized_nll(model.metrics)
+                self._emit_solver_stats(model.metrics, kernel_r, res.theta,
+                                        ExpertData(x=data_a.x, y=latent, mask=data_a.mask))
                 self._emit_aggregation_stats(model.metrics, data_a)
                 return model
 
@@ -97,8 +97,6 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
         model.metrics.update(self._phase_metrics(model.instr))
         return model
 
-    #: ``setOptimizer("device")``: the generic Laplace device fit
-    _device_fit_ported = True
     _latent_heads = 1
 
     def _fit_latent(self, kernel, data: ExpertData, cache):

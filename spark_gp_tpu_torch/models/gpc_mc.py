@@ -31,7 +31,6 @@ import torch
 from spark_gp_tpu_torch.models import laplace_mc
 from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
-from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
 from spark_gp_tpu_torch.utils.device import resolve_device
 from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
@@ -114,7 +113,6 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
                     "num_experts": data.num_experts,
                     "expert_size": data.expert_size,
                     "num_classes": n_classes,
-                    "solver_lane": it_ops.resolve_for(data_a),
                     "lbfgs_iters": res.nit,
                     "lbfgs_nfev": res.nfev,
                     "final_nll": res.fun,
@@ -122,6 +120,8 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
                     "gram_cache_engaged": float(cache is not None),
                 })
                 self._log_renormalized_nll(model.metrics)
+                self._emit_solver_stats(model.metrics, kernel_r, res.theta,
+                                        ExpertData(x=data_a.x, y=latents, mask=data_a.mask))
                 self._emit_aggregation_stats(model.metrics, data_a)
                 return model
 
@@ -131,8 +131,6 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
         model.metrics.update(self._phase_metrics(model.instr))
         return model
 
-    #: ``setOptimizer("device")``: the softmax Laplace device fit
-    _device_fit_ported = True
 
     def _fit_latent(self, kernel, data: ExpertData, y1h, cache):
         """``(OptimizeResult, the latent modes [E, s, C], the engine's

@@ -61,7 +61,6 @@ class GaussianProcessRegression(GaussianProcessCommons):
     >>> mean = model.predict(x_test)
     """
 
-    _device_fit_ported = True
     _keeps_update_statistics = True
 
     def setObjective(self, objective: str) -> "GaussianProcessRegression":

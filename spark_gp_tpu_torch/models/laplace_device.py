@@ -20,31 +20,54 @@ objective and converged-state gradient pass as hooks.
 * :meth:`LaplaceLanes.evaluate` is one whole evaluation, eagerly, the
   Newton loop ending on a host read per iteration: the fit's initial
   evaluation and the warm-up before a capture.
-* ``newton_k`` (:data:`NEWTON_K` per family) is the Newton iterations of a
-  step; it changes how many steps a trial takes, never the iterates.
+* ``newton_k`` (:func:`newton_k`: :data:`NEWTON_K` per family, with
+  :data:`NEWTON_K_CG`'s entries on the CG lanes) is the Newton iterations
+  of a step; it changes how many steps a trial takes, never the iterates.
+* the solver lane resolves once a fit, when the lanes are made, and every
+  evaluation runs on it; on the CG lanes (``ops/iterative.py``: a fixed
+  PCG trip count, converged columns masked) the B systems' probes are
+  drawn at the fit's first evaluation and kept (``ops.iterative.ProbeSet``,
+  one ``[E]`` draw shared by the R lanes, as the JAX package's vmapped
+  lanes share it).
 
 The fit drivers (:func:`fit_latent_device`,
 :func:`fit_latent_device_multistart`, :func:`fit_latent_device_checkpointed`)
 are the JAX package's ``fit_*_device``, ``fit_*_device_multistart`` and
 ``fit_*_device_checkpointed`` for any family; each family module names
-them after its JAX counterparts.  They run the exact lane only (the CG
-lanes stop on a tolerance: ROADMAP.md queue 1, item 4b).
+them after its JAX counterparts.  EP's sweeps ride the same drivers
+(``models/ep.EPLanes``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict
 
 import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack
+from spark_gp_tpu_torch.ops import iterative as it_ops
 
 #: Newton iterations a captured step holds, per family: the Newton
 #: iterations an evaluation takes on the card, rounded up (PERF.md §5:
 #: 2.76 binary, 5.77 multiclass, 25.6 / 25.9 Poisson / NB, half a trial
-#: a step for the last)
-NEWTON_K = {"gpc": 3, "gpc_mc": 6, "generic": 13}
+#: a step for the last; EP's site sweeps, 7.4 a trial on the host path)
+NEWTON_K = {"gpc": 3, "gpc_mc": 6, "generic": 13, "ep": 8}
+#: where the iterative and matfree lanes differ from :data:`NEWTON_K`, by
+#: the same rule (the device fit's Newton iterations an evaluation there,
+#: rounded up: 2.25 binary, 3.98 multiclass, 26.1 Poisson; PERF.md §5).
+#: Each Newton iteration holds a rank-64 pivoted Cholesky and a 64-step
+#: PCG (~2,200 graph nodes at s = 100), the gradient pass five PCGs more,
+#: and every replay runs the pass, masked or not: one iteration a step
+#: made Poisson's fit 3,440 replays of a 21,707-node step, 170 s
+NEWTON_K_CG = {"gpc_mc": 4}
+
+
+def newton_k(family: str, cg: bool) -> int:
+    """The Newton iterations (EP: site sweeps) a captured step holds for
+    ``family``, on a CG lane if ``cg``."""
+    return int((NEWTON_K_CG if cg else {}).get(family, NEWTON_K[family]))
 
 
 def newton_start(f0):
@@ -101,7 +124,14 @@ class LaplaceLanes:
         self.kernel, self.x, self.y, self.mask = kernel, x, y, mask
         self.tol = float(tol)
         self.cache = cache
-        self.newton_k = int(NEWTON_K[self.family])
+        e, s, p = (int(d) for d in x.shape)
+        #: the fit's solver lane, resolved once (the JAX ``solver=`` key)
+        self.lane = it_ops.resolve_solver(s, num_experts=e, n_features=p,
+                                          itemsize=x.element_size())
+        cg = self.lane in ("iterative", "matfree")
+        self.newton_k = newton_k(self.family, cg)
+        #: the CG lanes' probes, drawn at the first evaluation and kept
+        self.probes = it_ops.ProbeSet(experts=e)
         self._lanes: Dict[int, tuple] = {}
         #: Newton iterations and evaluations run eagerly (:meth:`evaluate`)
         self.eager_iterations = 0
@@ -124,6 +154,12 @@ class LaplaceLanes:
         raise NotImplementedError
 
     # --- shared -------------------------------------------------------------
+    @contextlib.contextmanager
+    def scope(self):
+        """The fit's lane and probes around an evaluation."""
+        with it_ops.solver_lane_scope(self.lane), it_ops.probe_scope(self.probes):
+            yield
+
     def lane_targets(self, r: int):
         """``(y, mask)`` repeated over ``r`` lanes, flat ``[r * E, ...]``
         (kept, so a captured step reads the same buffers every replay)."""
@@ -162,6 +198,10 @@ class LaplaceLanes:
         grads [R, h], carry, finished [R], worked)``, ``worked`` the
         unrolled iterations in which some expert ran (an int32 device
         scalar).  ``run`` ``[R]`` masks the lanes that evaluate."""
+        with self.scope():
+            return self._trial(thetas, carry, run)
+
+    def _trial(self, thetas, carry, run):
         r, e = carry["nt_old"].shape
         kmat = self.lane_grams(thetas)
         y, mask = self.lane_targets(r)
@@ -188,6 +228,10 @@ class LaplaceLanes:
         eagerly, through the family's host Newton loop (which ends on a host
         read per iteration): ``(values [R], grads [R, h], modes [R, E,
         ...])``."""
+        with self.scope():
+            return self._evaluate(thetas, aux)
+
+    def _evaluate(self, thetas, aux):
         r, e = aux.shape[:2]
         y, mask = self.lane_targets(r)
         before = self.mode_loop.iterations

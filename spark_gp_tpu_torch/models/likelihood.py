@@ -25,6 +25,8 @@ computed, as in the JAX package:
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -209,9 +211,13 @@ def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
 # --- the on-device optimizer's objectives and fits -----------------------------
 #
 # The device fits (``optimize/lbfgs_device.py``) evaluate R lanes of
-# theta at once and keep value and gradient on the device.  They run the
-# exact lane only: the CG / SLQ lanes stop on a tolerance, a loop the
-# captured step cannot hold (ROADMAP.md queue 1, item 4b).
+# theta at once and keep value and gradient on the device, on every solver
+# lane.  The lane resolves once a fit (:func:`_device_fit_scope`), as the
+# JAX package's ``solver=`` jit key.  The CG / SLQ lanes run a fixed trip
+# count with converged columns frozen by a mask (``ops/iterative.py``), so
+# a captured step holds them; their probes are drawn once a fit, at the
+# first evaluation (``ops.iterative.ProbeSet``), and their quadrature is a
+# kernel the capture can hold (``ops/slq_quadrature.py``).
 
 
 def _lane_grams(kernel: Kernel, thetas, data: ExpertData, cache=None, jitter=None):
@@ -229,11 +235,16 @@ def _lane_grams(kernel: Kernel, thetas, data: ExpertData, cache=None, jitter=Non
 
 
 def lanes_nll(kernel: Kernel, thetas, data: ExpertData, cache=None, jitter=None, weights=None):
-    """``[R]``: the exact-lane BCM NLL (:func:`batched_nll`) of each lane's
-    theta.  The R lanes' gram stacks go through one batched inverse: one
-    K1 launch over ``[R * E, s, s]`` where the kernel applies, one batched
-    Cholesky otherwise."""
+    """``[R]``: the BCM NLL (:func:`batched_nll`) of each lane's theta.  On
+    the exact lane the R lanes' gram stacks go through one batched inverse:
+    one K1 launch over ``[R * E, s, s]`` where the kernel applies, one
+    batched Cholesky otherwise; on the CG lanes each lane runs the solver
+    engine on its own stack (or streamed operator), lane after lane, on the
+    same probes, as the JAX package's vmapped lanes do."""
     r = thetas.shape[0]
+    if it_ops.resolve_for(data) in ("iterative", "matfree"):
+        return torch.stack([batched_nll(kernel, thetas[i], data, cache, jitter, weights)
+                            for i in range(r)])
     kmat = _lane_grams(kernel, thetas, data, cache, jitter)
     e, s = kmat.shape[1], kmat.shape[-1]
     flat = kmat.reshape(r * e, s, s)
@@ -293,9 +304,11 @@ def make_device_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
     :func:`make_value_and_grad`."""
     fn = lanes_objective(objective)
     extra = _objective_operands(data, objective, extra)
+    # the CG lanes' probes, drawn at the fit's first evaluation and kept
+    probes = it_ops.ProbeSet(experts=data.num_experts)
 
     def vag(thetas):
-        with torch.enable_grad():
+        with torch.enable_grad(), it_ops.probe_scope(probes):
             t = thetas.detach().requires_grad_(True)
             values = fn(kernel, t, data, cache, *extra)
             (grad,) = torch.autograd.grad(values.sum(), t)
@@ -304,12 +317,17 @@ def make_device_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
     return vag
 
 
-def _device_fit_scope():
+@contextlib.contextmanager
+def _device_fit_scope(data: ExpertData):
     """The ``fit.device`` span around a device fit (the JAX package's cost
-    entry of the same name)."""
+    entry of the same name), with the fit's solver lane resolved once for
+    the stack (the JAX package's ``solver=`` jit key) and pinned on this
+    thread, so the step the card captures runs one lane whatever the
+    process setting does meanwhile."""
     from spark_gp_tpu_torch.obs import trace as obs_trace
 
-    return obs_trace.span("fit.device")
+    with obs_trace.span("fit.device"), it_ops.solver_lane_scope(it_ops.resolve_for(data)):
+        yield
 
 
 def fit_gpr_device(kernel: Kernel, log_space: bool, theta0, lower, upper, data: ExpertData,
@@ -326,7 +344,7 @@ def fit_gpr_device(kernel: Kernel, log_space: bool, theta0, lower, upper, data: 
     from_u = (lambda t: t)
     if log_space:
         vag, theta0, lower, upper, from_u = log_reparam(vag, theta0, lower, upper)
-    with _device_fit_scope():
+    with _device_fit_scope(data):
         theta, f, n_iter, n_fev, stalled = lbfgs_minimize_device(
             vag, theta0, lower, upper, max_iter=max_iter, tol=tol, capture=capture,
             loop_metrics=loop_metrics)
@@ -343,7 +361,7 @@ def fit_gpr_device_multistart(kernel: Kernel, log_space: bool, theta0_batch, low
     from spark_gp_tpu_torch.optimize.lbfgs_device import multistart_minimize
 
     vag = make_device_value_and_grad(kernel, data, cache, objective, extra)
-    with _device_fit_scope():
+    with _device_fit_scope(data):
         return multistart_minimize(vag, log_space, theta0_batch, lower, upper, max_iter, tol,
                                    loop_metrics=loop_metrics)
 
@@ -386,7 +404,7 @@ def fit_gpr_device_checkpointed(kernel: Kernel, log_space: bool, theta0, lower, 
     else:
         start = theta0
     cfg = LbfgsConfig(lower=lower, upper=upper, tol=float(tol))
-    with _device_fit_scope():
+    with _device_fit_scope(data):
         state = run_segmented(vag, start, cfg, saver, meta, max_iter, chunk,
                               loop_metrics=loop_metrics)
     theta = torch.exp(state["theta"][0]) if log_space else state["theta"][0]

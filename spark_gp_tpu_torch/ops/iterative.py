@@ -17,8 +17,16 @@ module expresses the marginal NLL's two terms through products alone:
   through the Woodbury identity; its exact log-determinant anchors the
   log-det estimate;
 * **stochastic Lanczos quadrature** for the log-det from the PCG
-  coefficients (:func:`slq_logdet_from_coeffs`), with the Hutchinson
-  surrogate ``mean_i v_i^T K u_i`` carrying its gradient.
+  coefficients (:func:`slq_logdet_from_coeffs`; on the card the quadrature
+  of each probe's tridiagonal is the hand-written kernel of
+  ``ops/slq_quadrature.py``), with the Hutchinson surrogate
+  ``mean_i v_i^T K u_i`` carrying its gradient.
+
+Nothing in the engine reads the device from the host, so the device
+optimizer's captured step holds it (``models/likelihood.py``,
+``models/laplace_device.py``): the PCG loop has a fixed trip count, the
+pivoted Cholesky keeps its pivots on the device, and a device fit's probes
+come from a :class:`ProbeSet` drawn at its first (eager) evaluation.
 
 No autograd traverses the CG loop: the quadratic term is the CG
 iterate's variational value ``2 a^T y - a^T K a`` with ``a`` detached
@@ -45,8 +53,9 @@ when the memory planner (``resilience/memplan.py``) prices the
 materialized iterative program over the device budget.  Knobs, read when an objective is built:
 ``GP_SOLVER_MAX_ITERS`` (default ``min(s, 64)``), ``GP_SOLVER_PROBES``
 (8), ``GP_SOLVER_PRECOND_RANK`` (``min(s, 64)``), ``GP_SOLVER_CG_TOL``
-(1e-5), ``GP_SOLVER_SEED`` (0; the probes are redrawn from it at every
-evaluation, so the objective is a deterministic surrogate).
+(1e-5), ``GP_SOLVER_SEED`` (0; the probes are drawn from it at every
+evaluation, or once a fit under :func:`probe_scope`, the same numbers
+either way, so the objective is a deterministic surrogate).
 """
 
 from __future__ import annotations
@@ -221,21 +230,31 @@ def pivoted_cholesky_cols(diag0, col_fn, rank: int):
     Returns ``(L [..., s, k], delta [...])`` with ``L L^T ~= K`` on the k
     dominant pivots and ``delta`` the mean residual diagonal, floored at
     ``100 eps trace / s`` so ``P = L L^T + delta I`` is SPD.  No host sync:
-    pivots stay on the device."""
+    pivots stay on the device.
+
+    A float32 stack is factored in float64 and the result rounded back:
+    in float32 the residual diagonal's cancellation flips near-tied
+    pivots, so ``P`` -- and with it the probes and the stochastic estimate
+    -- leaves the float64 engine's.  At the protein-matfree config the
+    float32-pivot NLL sat 2.9e-5 to 4.9e-2 (relative) from the float64
+    one, the float64-pivot NLL 2.7e-7 to 1.5e-5
+    (``spark_gp_tpu_torch/dev/slq_routes.py``, PERF.md §6)."""
+    dtype = diag0.dtype
+    work = torch.float64 if dtype == torch.float32 else dtype
     s = diag0.shape[-1]
     k = max(1, min(int(rank), s))
     batch = diag0.shape[:-1]
-    trace = torch.sum(diag0, dim=-1)
+    d = diag0.to(work)
+    trace = torch.sum(d, dim=-1)
     scale = torch.where(trace > 0, trace / s, torch.ones_like(trace))
-    floor = 100.0 * torch.finfo(diag0.dtype).eps * scale
-    lmat = diag0.new_zeros(batch + (s, k))
-    d = diag0
+    floor = 100.0 * torch.finfo(dtype).eps * scale
+    lmat = d.new_zeros(batch + (s, k))
     iota = torch.arange(s, device=diag0.device)
     for j in range(k):
         piv = torch.argmax(d, dim=-1)
         dmax = torch.gather(d, -1, piv[..., None])[..., 0]
         ok = dmax > floor
-        col = col_fn(piv)
+        col = col_fn(piv).to(work)
         lrow = torch.gather(lmat, -2, piv[..., None, None].expand(batch + (1, k)))[..., 0, :]
         proj = torch.einsum("...sk,...k->...s", lmat, lrow)
         denom = torch.sqrt(torch.where(ok, dmax, 1.0))
@@ -246,7 +265,7 @@ def pivoted_cholesky_cols(diag0, col_fn, rank: int):
         d = torch.where(iota == piv[..., None], -torch.inf, d)
     resid = torch.where(d > 0, d, 0.0)
     delta = torch.maximum(torch.sum(resid, dim=-1) / max(s - k, 1), floor)
-    return lmat, delta
+    return lmat.to(dtype), delta.to(dtype)
 
 
 def _gather_col(kmat):
@@ -362,21 +381,14 @@ def slq_logdet_from_coeffs(alphas, betas, weights):
     Lanczos tridiagonal has ``T_jj = 1/alpha_j + beta_{j-1}/alpha_{j-1}``
     and ``T_{j,j+1} = sqrt(beta_j)/alpha_j``.  With probes ``z ~ N(0, P)``
     and ``weights = z^T P^-1 z``, ``mean_i weights_i e1^T log(T_i) e1``
-    estimates ``logdet(K) - logdet(P)`` (Gardner et al. 2018); the small
-    eigenproblems run as one batched ``eigh``."""
-    t = alphas.shape[0]
-    a = torch.movedim(alphas, 0, -1)  # [..., n, t]
-    b = torch.movedim(betas, 0, -1)
-    inv_a = 1.0 / a
-    diag = inv_a + torch.cat([torch.zeros_like(b[..., :1]), b[..., :-1] * inv_a[..., :-1]], dim=-1)
-    tmat = torch.diag_embed(diag)
-    if t > 1:
-        off = torch.sqrt(torch.clamp_min(b[..., :-1], 0.0)) * inv_a[..., :-1]
-        tmat = tmat + torch.diag_embed(off, offset=1) + torch.diag_embed(off, offset=-1)
-    evals, evecs = torch.linalg.eigh(tmat)
-    log_evals = torch.log(torch.clamp_min(evals, 1e-12))
-    e1sq = evecs[..., 0, :] ** 2  # first component of each eigenvector
-    per_probe = torch.sum(e1sq * log_evals, dim=-1)  # [..., n]
+    estimates ``logdet(K) - logdet(P)`` (Gardner et al. 2018); the
+    quadrature of every probe's ``T`` is one call of
+    ``ops/slq_quadrature.py``: the hand-written kernel on the card, which
+    a captured step can hold, one batched ``eigh`` on the CPU, as in the
+    JAX package."""
+    from spark_gp_tpu_torch.ops.slq_quadrature import lanczos_tridiagonal, slq_quadrature
+
+    per_probe = slq_quadrature(*lanczos_tridiagonal(alphas, betas))
     return torch.sum(weights * per_probe, dim=-1) / per_probe.shape[-1]
 
 
@@ -394,6 +406,96 @@ def draw_probes(cfg: SolverConfig, batch, rank: int, s: int, dtype, device):
     return g1, g2
 
 
+class ProbeSet:
+    """A fit's probe draws, drawn once each and kept: the device optimizer's
+    objectives hold one and evaluate under :func:`probe_scope`, so the draws
+    happen at the fit's first (eager) evaluation, before any capture, and
+    every later evaluation -- each replay of the captured step -- reads the
+    same tensors.  The draws are :func:`draw_probes`' and
+    :func:`draw_rademacher`'s at the same arguments, so the numbers are the
+    per-call draws'.  ``experts`` (the stack's E) makes an ``[R * E, ...]``
+    batch of R restart lanes share one ``[E, ...]`` draw, repeated, as the
+    JAX package's vmapped lanes see the same probes."""
+
+    def __init__(self, experts: Optional[int] = None) -> None:
+        self.experts = experts
+        self._draws: dict = {}
+
+    def _lanes(self, lead: int) -> int:
+        e = self.experts
+        return lead // e if e and lead > e and lead % e == 0 else 1
+
+    def _get(self, key, draw):
+        got = self._draws.get(key)
+        if got is None:
+            if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "a solver probe was drawn while a CUDA graph captures: the "
+                    "fit's first evaluation must run before the capture")
+            got = draw()
+            self._draws[key] = got
+        return got
+
+    def gaussian(self, cfg: SolverConfig, batch, rank: int, s: int, dtype, device):
+        batch = tuple(int(b) for b in batch)
+        lanes = self._lanes(batch[0]) if batch else 1
+        key = ("gaussian", int(cfg.seed), int(cfg.probes), batch, int(rank), int(s), dtype,
+               str(device))
+
+        def draw():
+            one = (batch[0] // lanes,) + batch[1:] if batch else batch
+            g1, g2 = draw_probes(cfg, one, rank, s, dtype, device)
+            if lanes > 1:
+                g1, g2 = (g.repeat((lanes,) + (1,) * (g.dim() - 1)) for g in (g1, g2))
+            return g1, g2
+
+        return self._get(key, draw)
+
+    def rademacher(self, cfg: SolverConfig, shape, dtype, device):
+        shape = tuple(int(d) for d in shape)
+        lanes = self._lanes(shape[0])
+        key = ("rademacher", int(cfg.seed), shape, dtype, str(device))
+
+        def draw():
+            z = draw_rademacher(cfg, (shape[0] // lanes,) + shape[1:], dtype, device)
+            return z.repeat((lanes,) + (1,) * (z.dim() - 1)) if lanes > 1 else z
+
+        return self._get(key, draw)
+
+
+_PROBES = threading.local()
+
+
+@contextlib.contextmanager
+def probe_scope(probes: Optional[ProbeSet]):
+    """Evaluate with ``probes`` (a :class:`ProbeSet`) as this thread's
+    probe source inside the block; ``None`` is a no-op (per-call draws)."""
+    prev = getattr(_PROBES, "current", None)
+    _PROBES.current = probes if probes is not None else prev
+    try:
+        yield
+    finally:
+        _PROBES.current = prev
+
+
+def _gaussian_probes(cfg: SolverConfig, batch, rank: int, s: int, dtype, device):
+    """The engine's Gaussian draws: the scoped fit's :class:`ProbeSet`, else
+    one :func:`draw_probes` call."""
+    probes = getattr(_PROBES, "current", None)
+    if probes is not None:
+        return probes.gaussian(cfg, batch, rank, s, dtype, device)
+    return draw_probes(cfg, batch, rank, s, dtype, device)
+
+
+def _rademacher_probes(cfg: SolverConfig, shape, dtype, device):
+    """The factored log-det's Rademacher draws: the scoped fit's
+    :class:`ProbeSet`, else one :func:`draw_rademacher` call."""
+    probes = getattr(_PROBES, "current", None)
+    if probes is not None:
+        return probes.rademacher(cfg, shape, dtype, device)
+    return draw_rademacher(cfg, shape, dtype, device)
+
+
 # --------------------------------------------------------------------------
 # the marginal-NLL engine
 # --------------------------------------------------------------------------
@@ -406,7 +508,7 @@ def _solve_pass(matvec_sg, diag_sg, col_fn_sg, y, cfg: SolverConfig):
     s = y.shape[-1]
     lmat, delta = pivoted_cholesky_cols(diag_sg, col_fn_sg, cfg.rank)
     cfac = woodbury_factor(lmat, delta)
-    g1, g2 = draw_probes(cfg, y.shape[:-1], lmat.shape[-1], s, y.dtype, y.device)
+    g1, g2 = _gaussian_probes(cfg, y.shape[:-1], lmat.shape[-1], s, y.dtype, y.device)
     z = lmat @ g1 + torch.sqrt(delta)[..., None, None] * g2
     res = batched_pcg(
         matvec_sg,
@@ -545,8 +647,8 @@ def spd_logdet(amat, config: Optional[SolverConfig] = None, precond=None):
     cfg = config or solver_config(s)
     am = amat.detach()
     apply_p, lmat, delta, cfac = _precond_applier(am, cfg, precond)
-    g1, g2 = draw_probes(cfg._replace(seed=cfg.seed + 1), am.shape[:-2],
-                         lmat.shape[-1], s, am.dtype, am.device)
+    g1, g2 = _gaussian_probes(cfg._replace(seed=cfg.seed + 1), am.shape[:-2],
+                              lmat.shape[-1], s, am.dtype, am.device)
     z = lmat @ g1 + torch.sqrt(delta)[..., None, None] * g2
     with torch.no_grad():
         res = batched_pcg(lambda v: am @ v, z, apply_p, cfg.iters, cfg.tol)
@@ -656,8 +758,8 @@ def factored_logdet(kmat, smat, config: Optional[SolverConfig] = None):
     c = smat.shape[-1]
     cfg = config or solver_config(s)
     km, sm = kmat.detach(), smat.detach()
-    z = draw_rademacher(cfg._replace(seed=cfg.seed + 2), (e, s * c, cfg.probes),
-                        km.dtype, km.device)
+    z = _rademacher_probes(cfg._replace(seed=cfg.seed + 2), (e, s * c, cfg.probes),
+                           km.dtype, km.device)
 
     def to_probes(vs):  # [E, sC, n] -> [E, n, s, C]
         return vs.movedim(-1, 1).reshape(e, cfg.probes, s, c)
@@ -701,8 +803,13 @@ def solver_report(kmat, y, config: Optional[SolverConfig] = None, *,
     with torch.no_grad():
         res, _, logdet = _solve_pass(matvec, diag, col_fn, y, cfg)
         quad = torch.sum(res.x[..., 0] * y, dim=-1)
-    rel = res.rel_resid[..., 0].cpu().numpy()
-    iters = res.iters_used[..., 0].cpu().numpy()
+        # the pass's one host read: residuals, live iterations, finiteness
+        flat = torch.cat([res.rel_resid[..., 0].reshape(-1), res.iters_used[..., 0].reshape(-1),
+                          torch.isfinite(quad).all().to(y.dtype)[None],
+                          torch.isfinite(logdet).all().to(y.dtype)[None]])
+    host = flat.to(torch.float64).cpu().numpy()
+    k = res.rel_resid[..., 0].numel()
+    rel, iters = host[:k], host[k:2 * k]
     return {
         "cg_iters": float(iters.max(initial=0.0)),
         "cg_iters_mean": float(iters.mean()) if iters.size else 0.0,
@@ -710,6 +817,6 @@ def solver_report(kmat, y, config: Optional[SolverConfig] = None, *,
         "precond_rank": float(cfg.rank),
         "probes": float(cfg.probes),
         "max_iters": float(cfg.iters),
-        "quad_finite": bool(np.all(np.isfinite(quad.cpu().numpy()))),
-        "logdet_finite": bool(np.all(np.isfinite(logdet.cpu().numpy()))),
+        "quad_finite": bool(host[2 * k]),
+        "logdet_finite": bool(host[2 * k + 1]),
     }

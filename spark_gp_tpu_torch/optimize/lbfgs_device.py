@@ -86,8 +86,15 @@ STATE_FIELDS = (
     "theta", "f", "grad", "aux", "s_hist", "y_hist", "hist_count",
     "hist_head", "n_iter", "n_fev", "done", "stalled",
 )
-#: a latent objective's Newton state of the trial in flight
+#: a latent objective's Newton state of the trial in flight (an objective
+#: with another inner loop names its own carry in ``carry_fields``, the
+#: trial's latents always ``nt_f``: EP's site sweeps, ``models/ep.py``)
 NEWTON_FIELDS = ("nt_f", "nt_old", "nt_new", "nt_step")
+
+
+def carry_fields(vag) -> tuple:
+    """The state fields of a latent objective's trial in flight."""
+    return tuple(getattr(vag, "carry_fields", NEWTON_FIELDS))
 
 
 class _LbfgsState(NamedTuple):
@@ -136,6 +143,7 @@ class _LogLatent:
 
     def __init__(self, inner) -> None:
         self.inner = inner
+        self.carry_fields = carry_fields(inner)
 
     def evaluate(self, u, aux):
         theta = torch.exp(u)
@@ -447,7 +455,7 @@ def lbfgs_step(vag, st, cfg: LbfgsConfig, iter_limit) -> Dict[str, torch.Tensor]
             # only for the lanes whose Newton loop has ended
             active = run
             f_cand, g_cand, carry, finished, worked = vag.trial(
-                theta_cand, {k: st[k] for k in NEWTON_FIELDS}, run)
+                theta_cand, {k: st[k] for k in carry_fields(vag)}, run)
             run = run & finished
         else:
             f_cand, g_cand = vag(theta_cand)
@@ -527,7 +535,7 @@ def lbfgs_step(vag, st, cfg: LbfgsConfig, iter_limit) -> Dict[str, torch.Tensor]
             # its next trial's Newton loop from the modes of its iterate
             fresh = run | ended
             reset = vag.reset(out["aux"])
-            for key in NEWTON_FIELDS:
+            for key in carry_fields(vag):
                 new, old = reset[key], carry[key]
                 out[key] = torch.where(fresh.view((-1,) + (1,) * (new.dim() - 1)), new, old)
             out["newton_iterations"] = st["newton_iterations"] + worked
@@ -623,8 +631,12 @@ class DeviceLoop:
             # thread_local: another thread's CUDA calls (a serving thread
             # replaying or freeing its graphs) must not invalidate the
             # capture, and no garbage collection runs finalizers on this
-            # thread during it; this thread's host reads still fail
-            with cuda_lib.capture_tally() as tally, cuda_lib.collector_held():
+            # thread during it; this thread's host reads still fail.  The
+            # backward runs on this thread too (autograd's device threads
+            # off), so a kernel it launches (K2-VJP) tallies in the
+            # capture's record, which is this thread's
+            with cuda_lib.capture_tally() as tally, cuda_lib.collector_held(), \
+                    torch.autograd.set_multithreading_enabled(False):
                 with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                     new = lbfgs_step(self.vag, self.state, self.cfg, self.iter_limit)
                     for key, buf in self.state.items():

@@ -19,9 +19,9 @@ fallback re-execution (the port's copy of the JAX package's
   classifiers, the count models -- in segments of half the
   checkpoint interval, with an in-memory saver) -> ``host_f64`` (the
   same fit with float64 operands ON THE CARD, under the host optimizer);
-  the solver rungs do not apply to a device-optimizer fit, whose other
-  lanes are ROADMAP.md queue 1, item 4b, and ``strict_lane`` waits for
-  the mixed precision lanes.  No rung moves a fit to the CPU.  With a
+  the solver rungs apply to host and device-optimizer fits alike (the
+  device loop runs on every lane), and ``strict_lane`` waits for the
+  mixed precision lanes.  No rung moves a fit to the CPU.  With a
   device budget, the memory planner picks the starting rung of a
   device-optimizer fit (``memplan.plan_fit_dispatch``).  Predict: chunk halving
   on OOM, then the last rung (the JAX package's ``host_solve``), which
@@ -288,10 +288,6 @@ def _fit_rung_applies(est, rung: str, cls: str, visited, data=None) -> bool:
         return False
     if rung in ("iterative", "matfree"):
         from spark_gp_tpu_torch.kernels.base import supports_matfree
-
-        if est._resolved_optimizer() == "device":
-            # the device optimizer runs the exact lane only (item 4b)
-            return False
         from spark_gp_tpu_torch.ops.iterative import active_solver_lane, resolve_solver
 
         if rung == "matfree" and not supports_matfree(est._get_kernel()):

@@ -61,6 +61,17 @@ _FIT_RUNG_WORK_FACTOR = {
 #: recurrences), from the same measurements: ~12 on the iterative lane
 #: (its autograd keeps per-step state), ~2 on the matfree lane.
 _FIT_RUNG_SKINNY_FACTOR = {"iterative": 13.0, "matfree": 2.5}
+#: a Laplace family's device step on a CG rung (its B systems are
+#: materialized on both): gram-sized work buffers besides the gram (the
+#: binary classifier's gradient pass solves B for all s columns of its
+#: inverse, ~17 measured; the multiclass factored operator and the count
+#: models' single solves ~3) and skinny buffers (~3-19 measured), from one
+#: step's peak on the CPU at (4, 100) and (2, 300), the kernels' own
+#: buffers left out (``tests/test_torch_memplan.py``); the card's step at
+#: the configs' shapes is chip_smoke.py's memplan-device line
+_CG_LATENT_WORK = {"GaussianProcessClassifier": 18.0}
+_CG_LATENT_WORK_DEFAULT = 3.0
+_CG_LATENT_SKINNY = 16.0
 
 
 #: the safety margin multiplied into every prediction (the JAX package's
@@ -139,8 +150,15 @@ def fit_dispatch_bytes(
     never builds.  A device fit of a Laplace family (``latent_heads`` > 0:
     1, or the class count of the multiclass fit) adds the per-lane latent
     stacks it carries (the modes, the kept trial's and the Newton carry:
-    three ``[E, s, heads]``) and the B stack one Newton iteration factors
-    with its inverse (two ``[E * heads, s, s]``).  A cost model, not an
+    three ``[E, s, heads]``) and, on the exact rungs, the B stack one
+    Newton iteration factors with its inverse (two ``[E * heads, s, s]``);
+    on the CG rungs (iterative, and matfree, where the B systems are
+    materialized too) its step holds the gram, the B stack and the solves'
+    work (:data:`_CG_LATENT_WORK` gram-sized buffers a ``family``) beside
+    the PCG state, the pivoted-Cholesky panel and the fit's probes
+    (:data:`_CG_LATENT_SKINNY` skinny ``[E, s, rank + 5 (1 + probes)]``
+    buffers).  A regression device step holds what an evaluation does
+    (the L-BFGS state is ``[R, m, h]``).  A cost model, not an
     accounting identity: calibration
     (:func:`observe_measured`) raises it where a measurement proves it
     low, and the margin covers the rest."""
@@ -153,6 +171,12 @@ def fit_dispatch_bytes(
     stack = e * s * (p + 2.0 * heads) * itemsize
     gram = e * s * s * itemsize
     raw = stack
+    if latent_heads and rung in ("iterative", "matfree"):
+        cfg = solver_config(int(s))
+        work = _CG_LATENT_WORK.get(family, _CG_LATENT_WORK_DEFAULT)
+        raw += (1.0 + work) * gram + 3.0 * e * s * float(latent_heads) * itemsize
+        raw += _CG_LATENT_SKINNY * e * s * (cfg.rank + 5.0 * (1.0 + cfg.probes)) * itemsize
+        return _calibrated(fit_model_key(family, rung), raw)
     if rung != "matfree":
         k = _FIT_RUNG_WORK_FACTOR.get(rung, _FIT_RUNG_WORK_FACTOR["native"])
         raw += (1.0 + k * heads * heads) * gram

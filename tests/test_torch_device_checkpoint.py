@@ -8,7 +8,9 @@ one-shot theta; a device checkpoint the JAX package wrote resumes in the
 port to the JAX package's uninterrupted theta (1e-6, the GP-fit bar of
 ``test_torch_device_optimizer.py``); a checkpoint of another
 configuration is ignored with a warning; a staged OOM at the one-shot
-fit's choke point makes exactly one transition, native -> segmented."""
+fit's choke point walks the solver rungs (which a device fit takes, by the
+JAX package's rule; the ARD kernel cannot stream, so no matfree rung) to
+the segmented rung."""
 
 import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 
@@ -113,26 +115,29 @@ def test_a_checkpoint_of_another_configuration_is_ignored(tmp_path):
 
 
 def test_segmented_rung_under_a_staged_oom():
-    """An OOM at the one-shot device fit's choke point: the solver rungs do
-    not apply to the device optimizer, so the ladder makes one transition,
-    native -> segmented, whose segments land on the clean fit's theta."""
+    """An OOM at the one-shot device fit's choke point: the solver rungs
+    apply to the device optimizer (its loop runs on every lane) and fail at
+    the same choke point, so the ladder walks native -> iterative ->
+    segmented (the ARD kernel cannot stream: no matfree rung), whose
+    segments land on the clean fit's theta."""
     x, y = _problem(seed=4)
     clean = _port().fit(x, y)
     with chaos.oom_after_calls(0, op="one_dispatch") as fired:
         model = _port().fit(x, y)
-    assert fired[0] == 1
+    assert fired[0] == 2
     assert [(d["from"], d["to"], d["failure_class"]) for d in model.degradations] == [
-        ("native", "segmented", "oom")]
+        ("native", "iterative", "oom"), ("iterative", "segmented", "oom")]
     np.testing.assert_array_equal(model.raw_predictor.theta, clean.raw_predictor.theta)
 
 
 def test_segmented_rung_gates_and_the_fit_plan(tmp_path):
     """``segmented`` applies to the plain single-start device fit only; the
-    solver rungs never apply to a device fit; the memory planner plans
+    solver rungs apply to a device fit off their own lane; the memory planner plans
     device fits alone, ``native`` first; a capture failure is never
     degraded, whatever its text."""
     import torch
 
+    from spark_gp_tpu_torch.ops.iterative import solver_lane_scope as it_lane
     from spark_gp_tpu_torch.parallel.experts import group_for_experts
     from spark_gp_tpu_torch.resilience import fallback, memplan
 
@@ -140,8 +145,11 @@ def test_segmented_rung_gates_and_the_fit_plan(tmp_path):
     data = group_for_experts(x, y, 40, dtype=torch.float32, device="cpu")
     oom = fallback.OOM
     assert fallback._fit_rung_applies(_port(), "segmented", oom, {"native"}, data)
-    for rung in ("iterative", "matfree"):
-        assert not fallback._fit_rung_applies(_port(), rung, oom, {"native"}, data)
+    assert fallback._fit_rung_applies(_port(), "iterative", oom, {"native"}, data)
+    with it_lane("iterative"):
+        assert not fallback._fit_rung_applies(_port(), "iterative", oom, {"native"}, data)
+    # the ARD kernel cannot stream
+    assert not fallback._fit_rung_applies(_port(), "matfree", oom, {"native"}, data)
     assert not fallback._fit_rung_applies(_port(tmp_path), "segmented", oom, {"native"}, data)
     assert not fallback._fit_rung_applies(_port().setNumRestarts(2), "segmented", oom,
                                           {"native"}, data)

@@ -16,8 +16,9 @@ captures).
   the one-shot fit; a device checkpoint the JAX package wrote resumes in
   the port.
 * The estimators fit under ``setOptimizer("device")`` (binary,
-  one-vs-rest, multiclass, Poisson, NB), EP still raises item 4b, and a
-  staged OOM takes the segmented rung."""
+  one-vs-rest, multiclass, Poisson, NB, and EP, whose device fit is
+  ``test_torch_device_ep.py``'s), and a staged OOM takes the segmented
+  rung."""
 
 import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 
@@ -200,8 +201,8 @@ def test_a_jax_written_classifier_checkpoint_resumes_in_the_port(tmp_path):
 
 def test_estimators_fit_on_the_device():
     """Every Laplace estimator takes ``setOptimizer("device")`` and lands
-    on its host fit's optimum; one-vs-rest through the binary one; EP and
-    ``"auto"`` are unchanged."""
+    on its host fit's optimum; one-vs-rest through the binary one; EP
+    fits on the device too; ``"auto"`` is unchanged."""
     from spark_gp_tpu_torch.utils.validation import OneVsRest
 
     rng = np.random.default_rng(4)
@@ -228,15 +229,20 @@ def test_estimators_fit_on_the_device():
     ovr = OneVsRest(lambda: tgp.GaussianProcessClassifier(device="cpu")
                     .setDatasetSizeForExpert(30).setActiveSetSize(30).setOptimizer("device"))
     assert float(np.mean(ovr.fit(x, labels).predict(x) == labels)) > 0.9
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        tgp.GaussianProcessEPClassifier(device="cpu").setOptimizer("device")
+    ep_host, ep_dev = (tgp.GaussianProcessEPClassifier(device="cpu").setDatasetSizeForExpert(30)
+                       .setActiveSetSize(30).setTol(TOL).setOptimizer(opt).fit(x, labels > 0)
+                       for opt in ("host", "device"))
+    assert ep_dev.metrics["optimizer"] == "device" and ep_dev.metrics["lbfgs_stalled"] == 0.0
+    np.testing.assert_allclose(ep_dev.metrics["final_nll"], ep_host.metrics["final_nll"],
+                               rtol=1e-6)
     assert tgp.GaussianProcessClassifier(device="cpu")._resolved_optimizer() == "host"
 
 
 def test_restarts_and_the_segmented_rung():
     """Restarts run as one batched loop; an OOM staged at the one-shot
-    fit's choke point makes exactly one transition, native -> segmented,
-    whose segments land on the clean fit's theta."""
+    fit's choke point walks the solver rungs, which a device fit takes by
+    the JAX package's rule (the same choke point fails there too), to the
+    segmented rung, whose segments land on the clean fit's theta."""
     x, y = _stack("gpc")
     model = _classifier().setNumRestarts(3).fit(x, y)
     assert model.metrics["num_restarts"] == 3 and "restart_2_nll" in model.metrics
@@ -244,9 +250,10 @@ def test_restarts_and_the_segmented_rung():
     clean = _classifier().fit(x, y)
     with chaos.oom_after_calls(0, op="one_dispatch") as fired:
         degraded = _classifier().fit(x, y)
-    assert fired[0] == 1
+    assert fired[0] == 3
     assert [(d["from"], d["to"], d["failure_class"]) for d in degraded.degradations] == [
-        ("native", "segmented", "oom")]
+        ("native", "iterative", "oom"), ("iterative", "matfree", "oom"),
+        ("matfree", "segmented", "oom")]
     np.testing.assert_array_equal(degraded.raw_predictor.theta, clean.raw_predictor.theta)
 
 

@@ -261,8 +261,9 @@ def test_batched_multistart_matches_the_jax_package():
 
 
 def test_optimizer_setting_and_lanes():
-    """``"auto"`` stays the host optimizer; ``"device"`` on the iterative
-    lane raises, naming item 4b; an unknown name is refused."""
+    """``"auto"`` stays the host optimizer; ``"device"`` fits on the
+    iterative lane, where the whole loop runs on the CG engine; an unknown
+    name is refused."""
     x, y = _airfoil()
     gp = tgp.GaussianProcessRegression(device="cpu").setDatasetSizeForExpert(50) \
         .setActiveSetSize(20).setMaxIter(2)
@@ -272,10 +273,12 @@ def test_optimizer_setting_and_lanes():
         gp.setOptimizer("gpu")
     gp.setSolverLane("iterative")
     try:
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            gp.fit(x, y)
+        model = gp.fit(x, y)
     finally:
         gp.setSolverLane("exact")
+    assert model.metrics["optimizer"] == "device" and model.metrics["solver_lane"] == "iterative"
+    assert model.metrics["lbfgs_iters"] <= 2 and model.metrics["solver.residual"] < 1e-3
+    assert np.isfinite(model.metrics["final_nll"])
     assert gp.setOptimizer("host").fit(x, y).metrics["lbfgs_iters"] <= 2
 
 

@@ -179,6 +179,35 @@ def test_a_fit_under_a_memory_limit_completes_on_iterative():
     assert abs(nll["port"][1] - nll["jax"][1]) <= 1e-2 * abs(nll["jax"][1])
 
 
+def test_a_device_fit_under_a_memory_limit_walks_to_matfree():
+    """A staged budget between the matfree and iterative rungs' byte models
+    of a device fit (one expert of 400 rows): the device optimizer takes
+    the solver rungs by the JAX package's rule, so the fit walks native ->
+    iterative -> matfree and completes there, on the device loop, its
+    ``final_nll`` within 1e-2 relative of the clean device fit's."""
+    x, y = _data(400)
+    family = "GaussianProcessRegression"
+    raw = {rung: memplan.fit_dispatch_bytes(1, 400, 3, 8, rung, family=family)
+           for rung in ("native", "iterative", "matfree")}
+    assert raw["matfree"] < min(raw["iterative"], raw["native"])
+    limit = (raw["matfree"] * min(raw["iterative"], raw["native"])) ** 0.5
+
+    def gp():
+        return _gp(tgp, expert=400, device="cpu").setOptimizer("device")
+
+    clean = gp().fit(x, y)
+    with chaos.memory_limit_bytes(limit) as fired:
+        limited = gp().fit(x, y)
+    assert fired[0] == 2
+    assert _history(limited.degradations) == [("fit", "oom", "native", "iterative"),
+                                              ("fit", "oom", "iterative", "matfree")]
+    m = limited.metrics
+    assert m["solver_lane"] == "matfree" and m["optimizer"] == "device"
+    assert m["solver.matfree_engaged"] == 1.0 and m["device_opt.eager_steps"] >= 1
+    assert abs(m["final_nll"] - clean.metrics["final_nll"]) <= 1e-2 * abs(
+        clean.metrics["final_nll"])
+
+
 def test_a_rung_outranks_the_callers_lane_scope_on_its_thread_only():
     # the iterative rung scopes its lane to the fit's thread: under the
     # caller's own solver_lane_scope("exact") the re-run still runs (and

@@ -96,35 +96,51 @@ def test_non_finite_rows_raise():
 
 
 def _device_fit_on_the_iterative_lane(est):
-    """A device fit of ``est`` on the iterative solver lane (item 4b: the
-    Laplace device fits run the exact lane only)."""
+    """A device fit of ``est`` on the iterative solver lane, which every
+    estimator takes: the fitted model."""
     from spark_gp_tpu_torch.ops.iterative import solver_lane_scope
 
     x = np.random.default_rng(0).normal(size=(24, 2))
     y = (x[:, 0] > 0).astype(np.float64)  # binary labels, two classes, counts
     with solver_lane_scope("iterative"):
-        est.setOptimizer("device").setDatasetSizeForExpert(12).setActiveSetSize(8).fit(x, y)
+        return est.setOptimizer("device").setDatasetSizeForExpert(12).setActiveSetSize(8) \
+            .setMaxIter(3).fit(x, y)
+
+
+def _device_fit_of_ep(est):
+    """EP's device fit (its site pair the optimizer's carry): the model."""
+    x = np.random.default_rng(0).normal(size=(24, 2))
+    y = (x[:, 0] > 0).astype(np.float64)
+    return est.setOptimizer("device").setDatasetSizeForExpert(12).setActiveSetSize(8) \
+        .setMaxIter(3).fit(x, y)
+
+
+def _fits(call):
+    """A case of the table below that, since the device fits' slice, fits."""
+    call.fits = True
+    return call
 
 
 @pytest.mark.parametrize(
     "call",
     [
-        # the device optimizer runs the exact lane only, and not EP
-        lambda gp: _device_fit_on_the_iterative_lane(
-            tgp.GaussianProcessNegativeBinomialRegression(device="cpu")),
-        lambda gp: _device_fit_on_the_iterative_lane(tgp.GaussianProcessClassifier(device="cpu")),
+        # the device optimizer on the iterative lane (these cases fit)
+        _fits(lambda gp: _device_fit_on_the_iterative_lane(
+            tgp.GaussianProcessNegativeBinomialRegression(device="cpu"))),
+        _fits(lambda gp: _device_fit_on_the_iterative_lane(
+            tgp.GaussianProcessClassifier(device="cpu"))),
         lambda gp: gp.setMesh(object()),
         # (checkpoints and model I/O are ported: test_torch_checkpoint.py,
         # test_torch_serialization.py; the serve quality plane is not)
         lambda gp: GPServeServer(device="cpu", quality=True),
-        lambda gp: _device_fit_on_the_iterative_lane(
-            tgp.GaussianProcessMulticlassClassifier(device="cpu")),
-        lambda gp: _device_fit_on_the_iterative_lane(
-            tgp.GaussianProcessPoissonRegression(device="cpu")),
+        _fits(lambda gp: _device_fit_on_the_iterative_lane(
+            tgp.GaussianProcessMulticlassClassifier(device="cpu"))),
+        _fits(lambda gp: _device_fit_on_the_iterative_lane(
+            tgp.GaussianProcessPoissonRegression(device="cpu"))),
         # the JAX package's remaining setters and model I/O, each naming
         # its item (setProfileDir is ported: test_torch_obs.py)
         lambda gp: GPServeServer(device="cpu").observe("m", "request", [0.0]),
-        lambda gp: tgp.GaussianProcessEPClassifier(device="cpu").setOptimizer("device"),
+        _fits(lambda gp: _device_fit_of_ep(tgp.GaussianProcessEPClassifier(device="cpu"))),
         # (quarantine, retries and the aggregation policies are ported:
         # test_resilience_setters_match_jax)
         lambda gp: gp.setPrecisionLane("fast"),
@@ -135,6 +151,12 @@ def _device_fit_on_the_iterative_lane(est):
     ],
 )
 def test_unported_options_name_their_roadmap_item(call):
+    if getattr(call, "fits", False):
+        # a device fit that ROADMAP.md item 4b refused before it was ported
+        model = call(tgp.GaussianProcessRegression(device="cpu"))
+        assert model.metrics["optimizer"] == "device"
+        assert model.metrics["lbfgs_nfev"] >= 1 and np.isfinite(model.metrics["final_nll"])
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item \d"):
         call(tgp.GaussianProcessRegression(device="cpu"))
 

@@ -17,7 +17,12 @@ against its plain float64 version at the card's bars (K^-1 within 5e-5 of
 max|K^-1|, logdet within 1e-4 + 1e-5 |logdet|) at n from one panel to a
 full 128 with ragged last panels, on the tiled workspace path (n = 129, a
 ragged 200, a whole-tile 256, batches of two, every matrix over many
-blocks), and on batches with a non-PD matrix on both paths.  This covers the kernels' tiling, staging,
+blocks), and on batches with a non-PD matrix on both paths.  The SLQ
+quadrature kernel (``csrc/slq_quadrature.cu``) is held against the
+float64 ``eigh`` route on the Lanczos tridiagonals of real PCG runs (t =
+1, 20, 64, 65 and 100; one run past its convergence, whose frozen steps
+split T), float32 within 1e-5 of max(1, |value|) and float64 within
+1e-10, every output and rotation count written, its workspace NaN-filled.  This covers the kernels' tiling, staging,
 barriers and bounds here; their speed, and what only nvcc refuses, show
 on the card.
 """
@@ -31,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from spark_gp_tpu_torch.ops import slq_quadrature as sq
 from spark_gp_tpu_torch.ops import spd_linalg as spd
 from spark_gp_tpu_torch.ops import streamed_matvec as sm
 
@@ -161,3 +167,30 @@ def test_k1_workspace_size_query(emulated_k1):
     for n in (129, 200, 512):
         one = lib.spd_inv_logdet_workspace_floats(1, n)
         assert one >= n * n and lib.spd_inv_logdet_workspace_floats(3, n) == 3 * one
+
+
+@pytest.fixture(scope="module")
+def emulated_slq(tmp_path_factory):
+    return _emulated(tmp_path_factory, "slq_quadrature")
+
+
+def test_slq_t_max_agrees_with_the_wrapper(emulated_slq):
+    """The source has no largest t: its working columns live in a
+    workspace of 3 t doubles a matrix, which the wrapper allocates at the
+    size the library asks for, and the wrapper takes any t >= 1."""
+    _, lib = emulated_slq
+    for batch, t in ((72, 1), (72, 64), (72, 65), (3, 4096)):
+        assert lib.slq_quadrature_workspace_doubles(batch, t) == 3 * batch * t
+    meta = torch.empty(9, 8, 100, device="meta")
+    assert not sq.kernel_applies(meta) and not sq.kernel_applies(torch.zeros(2, 100))
+
+
+@pytest.mark.parametrize("b,s,t", [(2, 30, 1), (3, 20, 20), (2, 100, 64), (1, 64, 64),
+                                   (2, 30, 64), (1, 80, 65), (1, 150, 100)])
+@pytest.mark.parametrize("dtype,bar", [(np.float32, 1e-5), (np.float64, 1e-10)])
+def test_slq_source_matches_the_eigh_route(emulated_slq, b, s, t, dtype, bar):
+    emu, lib = emulated_slq
+    rel, rotations = emu.check_slq(lib, *emu.lanczos_stack(b, s, t, np.random.default_rng(s + t),
+                                                           dtype))
+    assert rel <= bar, rel
+    assert (rotations >= 0).all() and (t == 1 or rotations.sum() > 0)

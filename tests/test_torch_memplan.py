@@ -123,3 +123,132 @@ def test_fit_plan_is_none_on_the_host_optimizer():
     with chaos.memory_limit_bytes(2.0e6):
         assert memplan.plan_fit_dispatch(est, None, data) is None
     assert est._resolved_optimizer() == "host"
+
+
+class _LiveBytes:
+    """Live bytes of the storages the ops inside the block allocate, and
+    their peak (a ``TorchDispatchMode``; a storage counts until it is
+    freed): the CPU's view of what the caching allocator measures on the
+    card above what was allocated before.  ``untracked(fn)`` runs ``fn``
+    counting only its outputs, the stand-in for the streamed product's
+    kernel, whose tiles never reach device memory (the CPU's plain version
+    materializes them), and for the SLQ quadrature's kernel, which reads
+    the tridiagonals where the plain version builds them dense."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if not outer.paused:
+                    outer.track(out)
+                return out
+
+        self.mode, self.paused, self.live, self.peak, self._seen = Mode(), 0, 0, 0, {}
+
+    def track(self, out):
+        import weakref
+
+        from torch.utils._pytree import tree_flatten
+
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                key = st.data_ptr()
+                if key in self._seen or not st.nbytes():
+                    continue
+                self._seen[key] = st.nbytes()
+                self.live += st.nbytes()
+                self.peak = max(self.peak, self.live)
+                weakref.finalize(st, self._free, key)
+
+    def _free(self, key):
+        self.live -= self._seen.pop(key, 0)
+
+    def untracked(self, fn):
+        def run(*args, **kw):
+            self.paused += 1
+            try:
+                out = fn(*args, **kw)
+            finally:
+                self.paused -= 1
+            self.track(out)
+            return out
+
+        return run
+
+
+def _device_step_peak(vag, theta0, bounds, aux0=None, meter=None):
+    """The peak bytes of one device-optimizer step (``lbfgs_step``, the
+    step the card captures) above the state it starts from."""
+    from spark_gp_tpu_torch.optimize import lbfgs_device as ld
+
+    cfg = ld.LbfgsConfig(lower=bounds[0], upper=bounds[1], tol=1e-6)
+    state = ld.lbfgs_init_state(vag, theta0[None], cfg, aux0)
+    meter = meter or _LiveBytes()
+    with meter.mode:
+        ld.lbfgs_step(vag, state, cfg, torch.tensor(100, dtype=torch.int32))
+    return meter.peak
+
+
+@pytest.mark.parametrize("family", ["GaussianProcessRegression", "GaussianProcessClassifier",
+                                    "GaussianProcessMulticlassClassifier",
+                                    "GaussianProcessPoissonRegression"])
+@pytest.mark.parametrize("lane", ["iterative", "matfree"])
+def test_device_step_peaks_on_the_cg_lanes_lie_in_the_bracket(monkeypatch, family, lane):
+    """The byte model of a device step on each CG lane (``fit_dispatch_bytes``
+    at the lane's rung with the family's latent heads) against one step's
+    measured peak plus the stack, float32 at (4, 100, 3): predicted over
+    measured in [1, 4], the bracket chip_smoke.py's memplan phases hold on
+    the card."""
+    from spark_gp_tpu_torch.kernels.base import supports_matfree
+    from spark_gp_tpu_torch.models import laplace as lap
+    from spark_gp_tpu_torch.models import laplace_generic as gen
+    from spark_gp_tpu_torch.models import laplace_mc as mc
+    from spark_gp_tpu_torch.models import likelihood as lk
+    from spark_gp_tpu_torch.models.gpc_mc import _one_hot_masked
+    from spark_gp_tpu_torch.ops import slq_quadrature as sq
+    from spark_gp_tpu_torch.ops import streamed_matvec as sm
+
+    for var in [v for v in __import__("os").environ if v.startswith("GP_SOLVER_")]:
+        monkeypatch.delenv(var)
+    meter = _LiveBytes()
+    monkeypatch.setattr(sm, "streamed_matvec_plain", meter.untracked(sm.streamed_matvec_plain))
+    monkeypatch.setattr(sm, "streamed_matvec_vjp_plain",
+                        meter.untracked(sm.streamed_matvec_vjp_plain))
+    monkeypatch.setattr(sq, "slq_quadrature_plain", meter.untracked(sq.slq_quadrature_plain))
+    rng = np.random.default_rng(0)
+    e, s, p = 4, 100, 3
+    x = rng.normal(size=(e * s, p))
+    f32 = dict(dtype=torch.float32, device="cpu")
+    kernel = 1.0 * tgp.RBFKernel(1.0) + tgp.Const(1e-3) * tgp.EyeKernel()
+    heads, aux0 = 0, None
+    with it_ops.solver_lane_scope(lane):
+        if family == "GaussianProcessRegression":
+            data = group_for_experts(x, np.sin(x.sum(1)), s, **f32)
+            vag = lk.make_device_value_and_grad(kernel, data)
+        elif family == "GaussianProcessClassifier":
+            data = group_for_experts(x, (x[:, 0] > 0).astype(float), s, **f32)
+            vag, heads = lap.BinaryLaplaceLanes(kernel, data, 1e-6), 1
+        elif family == "GaussianProcessMulticlassClassifier":
+            data = group_for_experts(x, np.clip(np.round(x[:, 0] + 1), 0, 2), s, **f32)
+            vag, heads = mc.MulticlassLaplaceLanes(
+                kernel, data.x, _one_hot_masked(data.y, data.mask, 3), data.mask, 1e-6), 3
+        else:
+            data = group_for_experts(x, rng.poisson(np.exp(np.sin(x.sum(1)))).astype(float), s,
+                                     **f32)
+            vag, heads = gen.GenericLaplaceLanes(gen.PoissonLikelihood(), kernel, data.x, data.y,
+                                                 data.mask, 1e-6), 1
+        if heads:
+            aux0 = vag.aux0(1)
+        bounds = tuple(torch.as_tensor(b, **f32) for b in kernel.bounds())
+        step = _device_step_peak(vag, torch.as_tensor(kernel.init_theta(), **f32), bounds, aux0,
+                                 meter)
+    stack = sum(t.numel() * t.element_size() for t in (data.x, data.y, data.mask))
+    rung = memplan.fit_rung_of_lane(lane, supports_matfree(kernel))
+    predicted = memplan.predicted_bytes(memplan.fit_dispatch_bytes(e, s, p, 4, rung, 1, family,
+                                                                   heads))
+    assert 1.0 <= predicted / (step + stack) <= 4.0, (predicted, step + stack)
