@@ -9,8 +9,8 @@ code is non-zero and the final ``ok`` line is never printed:
 1. env      -- Python, torch and CUDA versions; the card's name and power
                limit as ``nvidia-smi`` reports them.
 2. build    -- compile every CUDA kernel from ``csrc/``, and the first
-               designs of K1 and K2-VJP from ``csrc/dev/``, one nvcc per
-               source, all started together.
+               designs of K1, K2-VJP and the SLQ quadrature from
+               ``csrc/dev/``, one nvcc per source, all started together.
 3. check    -- each kernel against its plain PyTorch version (float64 on
                the same inputs upcast).  K1: on random batches at the main
                path's shapes and more (ragged panels, the workspace path
@@ -287,8 +287,11 @@ code is non-zero and the final ``ok`` line is never printed:
                float32 tridiagonals) on the main path's Lanczos matrices:
                protein-matfree (9, 8, 64) and the B systems of gpc-mnist
                (16, 8, 64), Poisson (20, 8, 64) and the iris fold (7, 8,
-               20); its device ms beside the eigh route's, its bound from
-               this run's QL rotations.
+               20); its device ms and its first design's in turns, beside
+               the eigh route's; its bound from this run's QL rotations of
+               the first design; both work counts; then protein-matfree at
+               t = 100, T over the workspace (t = 1100) and the QL route
+               (a stack below the clamp), each at the bar.
 75. device-opt-check-matfree -- protein-matfree's device fit at maxiter 3,
                replayed from its graph and run eagerly: theta, f, n_iter,
                n_fev equal; K2 = evaluations x (iters + 2), K2-VJP = 2 x
@@ -371,10 +374,11 @@ K2_NAMES = {"streamed_matvec": ("streamed_matvec_kernel", "streamed_matvec_sqnor
 VJP_PTXAS = (r"streamed_matvec_vjp_kernelILi(\d)ELi(\d+)EE", "F{0}/NB{1}")
 
 
-# the first designs of K1 and K2-VJP, sources under csrc/ built and timed
-# beside the kernels
+# the first designs of K1, K2-VJP and the SLQ quadrature, sources under
+# csrc/ built and timed beside the kernels
 K1_FIRST_DESIGN = "dev/spd_inv_logdet_first"
 VJP_FIRST_DESIGN = "dev/streamed_matvec_vjp_first"
+SLQ_FIRST_DESIGN = "dev/slq_quadrature_first"
 
 # host seconds per fit phase, as the estimator reports them
 PHASES = ("group_seconds", "optimize_seconds", "ppa_seconds")
@@ -4113,7 +4117,9 @@ def slq_tridiagonals(torch, it_ops, mf_data, kernel, b_stacks: dict) -> dict:
     """The Lanczos tridiagonals the main path hands the quadrature kernel,
     from real PCG runs at init theta: the protein-matfree marginal engine
     (E = 9, 8 probes, t = 64), and the B systems' log-dets of gpc-mnist
-    (16, 100), the Poisson config (20, 100) and the iris fold (7, 20)."""
+    (16, 100), the Poisson config (20, 100) and the iris fold (7, 20).
+    ``protein_matfree_t100`` is the same engine at 100 PCG steps (a
+    ``GP_SOLVER_MAX_ITERS`` over 64), for the large-t check."""
     from spark_gp_tpu_torch.models.likelihood import masked_matfree_operator
     from spark_gp_tpu_torch.ops.slq_quadrature import lanczos_tridiagonal
 
@@ -4122,8 +4128,10 @@ def slq_tridiagonals(torch, it_ops, mf_data, kernel, b_stacks: dict) -> dict:
     _, mv_sg, diag_sg, col_sg = masked_matfree_operator(kernel, theta, mf_data.x, mf_data.mask)
     cfg = it_ops.solver_config(mf_data.x.shape[1])
     with torch.no_grad():
-        res, _, _ = it_ops._solve_pass(mv_sg, diag_sg, col_sg, mf_data.y * mf_data.mask, cfg)
-        out["protein_matfree"] = lanczos_tridiagonal(res.alphas[..., 1:], res.betas[..., 1:])
+        for label, iters in (("protein_matfree", cfg.iters), ("protein_matfree_t100", 100)):
+            res, _, _ = it_ops._solve_pass(mv_sg, diag_sg, col_sg, mf_data.y * mf_data.mask,
+                                           cfg._replace(iters=iters))
+            out[label] = lanczos_tridiagonal(res.alphas[..., 1:], res.betas[..., 1:])
         for label, amat in b_stacks.items():
             cfg = it_ops.solver_config(amat.shape[-1])
             apply_p, lmat, delta, _ = it_ops._spd_preconditioner(amat, cfg)
@@ -4135,43 +4143,88 @@ def slq_tridiagonals(torch, it_ops, mf_data, kernel, b_stacks: dict) -> dict:
     return out
 
 
+def slq_check_stacks(torch, tridiagonals: dict) -> dict:
+    """The quadrature kernel's other routes on the card: protein-matfree
+    at t = 100, 1100-row SPD tridiagonals (T over the workspace: above the
+    kernel's 1024 shared-memory rows) and the protein-matfree stack shifted
+    below the clamp (the QL route), each held to SLQ_BAR."""
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    diag = 2.0 + torch.rand(4, 1100, generator=gen)
+    off = 0.1 + 0.8 * torch.rand(4, 1099, generator=gen)
+    pd, po = tridiagonals["protein_matfree"]
+    return {"protein_matfree_t100": tridiagonals["protein_matfree_t100"],
+            "workspace_t1100": (diag.to("cuda"), off.to("cuda")),
+            "below_clamp": (pd - float(pd.amax()) / 2, po)}
+
+
 def slq_quadrature_phase(torch, sq, tridiagonals: dict, peaks, f64_peak, smi: str) -> dict:
     """slq-quadrature: the kernel against its plain version on each of the
     main path's tridiagonal stacks (float64 eigh of the same float32
-    inputs, at SLQ_BAR; the float32 eigh route's error recorded), its
-    device ms (graph replay) beside the eigh route's (plain ms: the whole
-    plain version; library ms: ``torch.linalg.eigh`` alone on the dense
-    T), and its bound from this run's QL rotations.  Launches here are not
-    the main path's: the count is restored."""
+    inputs, at SLQ_BAR; the first design's and the float32 eigh route's
+    errors recorded), its device ms (graph replay) and its first design's
+    (``csrc/dev/slq_quadrature_first.cu``) timed in turns, beside the
+    eigh route's (plain ms: the whole plain version; library ms:
+    ``torch.linalg.eigh`` alone on the dense T), its bound from this run's
+    QL rotations of the first design (the same work whatever design runs
+    it), and both designs' work counts (``steps``: the kernel's pivot
+    steps or QL rotations).  Then the large-t, workspace and QL-route
+    checks of :func:`slq_check_stacks`.  Launches here are not the main
+    path's: the count is restored."""
+    from spark_gp_tpu_torch.ops import cuda_lib
+
+    first_design = sq.bind(cuda_lib.load(SLQ_FIRST_DESIGN))
+    package_library = sq._library
+
+    def counts(diag, off, library):
+        sq._library = library
+        try:
+            work = torch.zeros(diag.shape[:-1], dtype=torch.int32, device="cuda")
+            out = sq._launch(diag, off, work)
+        finally:
+            sq._library = package_library
+        return out, work
+
     before = sq.slq_quadrature.launches
-    rows = {}
-    for label, (diag, off) in tridiagonals.items():
-        out = sq.slq_quadrature(diag, off)
+    rows, checks = {}, {}
+    main_stacks = {k: v for k, v in tridiagonals.items() if k != "protein_matfree_t100"}
+    for label, (diag, off) in main_stacks.items():
+        out, steps = counts(diag, off, package_library)
+        first_out, rotations = counts(diag, off, lambda: first_design)
         torch.cuda.synchronize()
         ref = sq.slq_quadrature_plain(diag.double(), off.double())
         route32 = sq.slq_quadrature_plain(diag, off)
         err = float((out.double() - ref).abs().max())
         scale = max(1.0, float(ref.abs().max()))
-        rotations = torch.zeros(diag.shape[:-1], dtype=torch.int32, device="cuda")
-        sq._launch(diag, off, rotations)
         tmat = torch.diag_embed(diag) + torch.diag_embed(off, offset=1) \
             + torch.diag_embed(off, offset=-1)
         nbytes = (diag.numel() + off.numel() + out.numel()) * diag.element_size()
         ops = float(rotations.sum()) * SLQ_OPS_PER_ROTATION
         bound = {"bytes": nbytes / peaks[0] * 1e3, "operations": ops / f64_peak * 1e3}
         by = max(bound, key=bound.get)
+        turns = time_in_turns(sq, first_design, lambda: sq.slq_quadrature(diag, off))
         rows[label] = {
             "shape": list(diag.shape), "max_abs_err": err, "rel_err": err / scale,
+            "first_design_rel_err": float((first_out.double() - ref).abs().max()) / scale,
             "eigh_f32_route_abs_err": float((route32.double() - ref).abs().max()),
-            "ms": time_device_ms(lambda: sq.slq_quadrature(diag, off)),
+            **turns, "speedup": turns["first_design_ms"] / turns["ms"],
             "plain_ms": time_ms(lambda: sq.slq_quadrature_plain(diag, off), reps=3, windows=3),
             "library_ms": time_ms(lambda: torch.linalg.eigh(tmat), reps=3, windows=3),
             "bound_ms": bound[by], "bound_by": by, "rotations": float(rotations.sum()),
             "rotations_per_matrix": float(rotations.double().mean()),
+            "steps": float(steps.double().sum()),
+            "steps_per_matrix": float(steps.double().mean()),
         }
+    for label, (diag, off) in slq_check_stacks(torch, tridiagonals).items():
+        out, steps = counts(diag, off, package_library)
+        ref = sq.slq_quadrature_plain(diag.double(), off.double())
+        err = float((out.double() - ref).abs().max())
+        checks[label] = {"shape": list(diag.shape), "rel_err": err / max(1.0, float(ref.abs().max())),
+                         "ms": time_device_ms(lambda: sq.slq_quadrature(diag, off)),
+                         "steps_per_matrix": float(steps.double().mean())}
     sq.slq_quadrature.launches = before
-    bad = {k: r["rel_err"] for k, r in rows.items() if not r["rel_err"] <= SLQ_BAR}
+    bad = {k: r["rel_err"] for k, r in {**rows, **checks}.items() if not r["rel_err"] <= SLQ_BAR}
     emit({"phase": "slq-quadrature", "kernel": "slq_quadrature", "bar": SLQ_BAR, "rows": rows,
+          "checks": checks, "first_design_source": f"spark_gp_tpu_torch/csrc/{SLQ_FIRST_DESIGN}.cu",
           "card": smi})
     if bad:
         raise AssertionError(f"slq-quadrature: {bad}")
@@ -4649,10 +4702,11 @@ def main() -> int:
           "device": name, "nvidia_smi": smi})
 
     # 2. build: one nvcc per source, all started together; the first
-    # designs of K1 and K2-VJP (csrc/dev/) are built to be timed beside them
+    # designs of K1, K2-VJP and the quadrature (csrc/dev/) are built to be
+    # timed beside them
     start = time.perf_counter()
     built = cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec", "slq_quadrature",
-                                K1_FIRST_DESIGN, VJP_FIRST_DESIGN], force=True)
+                                K1_FIRST_DESIGN, VJP_FIRST_DESIGN, SLQ_FIRST_DESIGN], force=True)
     report = {}
     for source, (seconds, log) in built.items():
         regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines()
@@ -5229,7 +5283,9 @@ def main() -> int:
         "launches_before_slice12": quad_before,
         **{f"launches_{key}": value for key, value in l12["slq_quadrature"].items()},
         "shape": quad["protein_matfree"]["shape"],
-        **{key: quad["protein_matfree"][key] for key in keys + ("rotations",)},
+        **{key: quad["protein_matfree"][key]
+           for key in keys + ("first_design_ms", "rotations", "steps")},
+        "first_design_source": f"spark_gp_tpu_torch/csrc/{SLQ_FIRST_DESIGN}.cu",
         "max_abs_err": max(r["max_abs_err"] for r in quad.values()),
         "inputs": quad,
         "checked": True,

@@ -26,12 +26,14 @@ against the plain float64 versions:
   must stay within the bar; bars K^-1 within 5e-5 of max|K^-1|, logdet within
   1e-4 + 1e-5 |logdet|;
 - the SLQ quadrature (``ops/slq_quadrature.py``) on Lanczos tridiagonals of
-  real PCG runs (t = 1, 20, 64, 65, 100, float32 and float64, the
-  workspace NaN-filled; one run past its convergence, whose frozen steps
-  split T and repeat the eigenvalue 1),
+  real PCG runs (t = 1, 20, 64, 65, 100, float32 and float64; one run past
+  its convergence, whose frozen steps split T) and on the cases of
+  ``SLQ_SPECIAL`` (T split at row 0 and mid-matrix, a float64 run far past
+  convergence whose Ritz values repeat, a spectrum of condition ~1e6, t =
+  2, t = 1100 over the workspace, an indefinite T, a NaN batch mate),
   against the float64 ``eigh`` route: within 1e-5 of max(1, |value|)
-  (float32 inputs) and 1e-10 (float64), every matrix's QL rotations
-  counted.
+  (float32 inputs) and 1e-10 (float64), every matrix's work counted, the
+  workspace NaN-filled.
 This checks tiling, staging and bounds; it says nothing about speed, and
 nvcc may still refuse what g++ takes.  Exits 1 if a case misses its bar.
 """
@@ -262,39 +264,83 @@ def check_spd(lib, k: np.ndarray) -> tuple[float, np.ndarray]:
     return rel, ld_rel
 
 
-def lanczos_stack(b: int, s: int, t: int, rng, dtype=np.float32):
+def lanczos_stack(b: int, s: int, t: int, rng, dtype=np.float32, tol: float = 1e-12,
+                  jitter: float = 0.1):
     """``(diag [b, r, t], off [b, r, t - 1])`` of the Lanczos tridiagonals
     of a PCG run of ``t`` steps on ``b`` SPD grams (RBF of points in 2-D
-    plus 0.1 I) against 8 Gaussian right-hand sides, unpreconditioned:
-    what ``ops/iterative.py`` hands the quadrature."""
+    plus ``jitter`` I) against 8 Gaussian right-hand sides, unpreconditioned,
+    columns freezing under ``tol`` (0: never): what ``ops/iterative.py``
+    hands the quadrature."""
     x = rng.normal(size=(b, s, 2))
     d = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
-    k = torch.as_tensor(np.exp(-0.5 * d) + 0.1 * np.eye(s))
+    k = torch.as_tensor(np.exp(-0.5 * d) + jitter * np.eye(s))
     z = torch.as_tensor(rng.normal(size=(b, s, 8)))
-    res = it_ops.batched_pcg(lambda v: k @ v, z, None, t, 1e-12)
+    res = it_ops.batched_pcg(lambda v: k @ v, z, None, t, tol)
     diag, off = sq.lanczos_tridiagonal(res.alphas, res.betas)
     return diag.numpy().astype(dtype), off.numpy().astype(dtype)
 
 
+def spd_tridiagonal(b: int, t: int, rng, dtype=np.float64):
+    """``b`` random diagonally dominant (so SPD, no negligible coupling)
+    tridiagonals of ``t`` rows: diagonal in [2, 3), off-diagonal in
+    [0.1, 0.9)."""
+    diag = 2.0 + rng.random((b, t))
+    off = 0.1 + 0.8 * rng.random((b, t - 1))
+    return diag.astype(dtype), off.astype(dtype)
+
+
+def slq_special(name: str, dtype, rng):
+    """The ``(diag, off)`` stack of one case of ``SLQ_SPECIAL``."""
+    if name in ("split-row-0", "split-mid"):
+        diag, off = lanczos_stack(2, 100, 64, rng, dtype)
+        off[..., 0 if name == "split-row-0" else 31] = 0.0
+        return diag, off
+    if name == "past-convergence":  # 64 steps on 20 rows: Ritz values repeat
+        return lanczos_stack(1, 20, 64, rng, dtype, tol=0.0)
+    if name == "wide-spectrum":  # condition number ~1e6
+        return lanczos_stack(1, 100, 64, rng, dtype, jitter=4e-5)
+    if name == "t2":
+        return lanczos_stack(2, 30, 2, rng, dtype)
+    if name == "workspace":
+        return spd_tridiagonal(2, 1100, rng, dtype)
+    if name == "indefinite":  # shifted down by 1: eigenvalues below the clamp
+        diag, off = lanczos_stack(1, 30, 20, rng, dtype)
+        return diag - dtype(1.0), off
+    if name == "nan-mate":
+        diag, off = lanczos_stack(1, 30, 20, rng, dtype)
+        diag[0, 3, 5] = np.nan
+        return diag, off
+    raise KeyError(name)
+
+
 def check_slq(lib, diag: np.ndarray, off: np.ndarray) -> tuple[float, np.ndarray]:
     """The quadrature entry on ``(diag, off)`` against the float64 eigh
-    route on the same inputs: the largest error over max(1, |value|), and
-    each matrix's rotation count (NaN-filled output and -1 counts before
-    the call, so an entry never written shows)."""
+    route on the same inputs: the largest error over max(1, |value|) over
+    the matrices of finite entries (NaN expected of the others; a NaN where
+    it is not expected, or a finite value where it is, is an infinite
+    error), and each matrix's work count
+    (NaN-filled output, -1 counts and a NaN-filled workspace before the
+    call, so an entry never written, or a workspace word read before it is
+    written, shows)."""
     t = diag.shape[-1]
     d = np.ascontiguousarray(diag.reshape(-1, t))
     o = np.ascontiguousarray(off.reshape(d.shape[0], t - 1))
     out = np.full(d.shape[0], np.nan, dtype=diag.dtype)
-    rot = np.full(d.shape[0], -1, dtype=np.int32)
+    steps = np.full(d.shape[0], -1, dtype=np.int32)
     work = np.full(lib.slq_quadrature_workspace_doubles(d.shape[0], t), np.nan)
     entry = lib.slq_quadrature_f32 if diag.dtype == np.float32 else lib.slq_quadrature_f64
-    err = entry(d.ctypes.data, o.ctypes.data, out.ctypes.data, rot.ctypes.data,
+    err = entry(d.ctypes.data, o.ctypes.data, out.ctypes.data, steps.ctypes.data,
                 work.ctypes.data, d.shape[0], t, None)
     if err:
         raise SystemExit(f"entry returned {err} at {diag.shape}")
-    ref = sq.slq_quadrature_plain(torch.as_tensor(d).double(), torch.as_tensor(o).double())
-    ref = ref.numpy()
-    return float(np.max(np.abs(out - ref) / np.maximum(1.0, np.abs(ref)))), rot
+    finite = np.isfinite(d).all(-1) & np.isfinite(o).all(-1)
+    ref = np.full(d.shape[0], np.nan)
+    ref[finite] = sq.slq_quadrature_plain(torch.as_tensor(d[finite]).double(),
+                                          torch.as_tensor(o[finite]).double()).numpy()
+    if not np.array_equal(np.isfinite(out), finite):
+        return float("inf"), steps
+    rel = np.abs(out[finite] - ref[finite]) / np.maximum(1.0, np.abs(ref[finite]))
+    return float(rel.max(initial=0.0)), steps
 
 
 #: (experts, rows, PCG steps): one step, the iris B systems' t = 20, the
@@ -302,17 +348,23 @@ def check_slq(lib, diag: np.ndarray, off: np.ndarray) -> tuple[float, np.ndarray
 #: split T), and t = 65 and 100 (``GP_SOLVER_MAX_ITERS`` over 64)
 SLQ_CASES = [(2, 30, 1), (3, 20, 20), (2, 100, 64), (1, 64, 64), (2, 30, 64), (1, 80, 65),
              (1, 150, 100)]
+#: the cases of :func:`slq_special`
+SLQ_SPECIAL = ["split-row-0", "split-mid", "past-convergence", "wide-spectrum", "t2",
+               "workspace", "indefinite", "nan-mate"]
 
 
 def main_slq(lib, rng) -> int:
     failed = 0
-    for b, s, t in SLQ_CASES:
+    cases = [(f"({b}, {s}, t={t})", lambda dt, c=(b, s, t): lanczos_stack(*c, rng, dt))
+             for b, s, t in SLQ_CASES]
+    cases += [(name, lambda dt, n=name: slq_special(n, dt, rng)) for name in SLQ_SPECIAL]
+    for label, make in cases:
         for dtype, bar in ((np.float32, 1e-5), (np.float64, 1e-10)):
-            rel, rot = check_slq(lib, *lanczos_stack(b, s, t, rng, dtype))
-            ok = rel <= bar and bool((rot >= 0).all())
+            rel, steps = check_slq(lib, *make(dtype))
+            ok = rel <= bar and bool((steps >= 0).all())
             failed += not ok
-            print(f"{'ok  ' if ok else 'FAIL'} SLQ ({b}, {s}, t={t}) {np.dtype(dtype).name}: "
-                  f"{rel:.2e}, rotations {int(rot.sum())}", flush=True)
+            print(f"{'ok  ' if ok else 'FAIL'} SLQ {label} {np.dtype(dtype).name}: "
+                  f"{rel:.2e}, work {int(steps.sum())}", flush=True)
     return failed
 
 

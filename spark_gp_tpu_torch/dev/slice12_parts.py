@@ -61,7 +61,8 @@ def main() -> int:
                 laplace_device.NEWTON_K_CG[family] = args.newton_k_cg
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec", "slq_quadrature"])
+    cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec", "slq_quadrature",
+                        cs.SLQ_FIRST_DESIGN])
     data_main, cdata, d6 = cs.main_path_data(), cs.classifier_data(), cs.slice6_data()
     xp, yp, tr, te = (data_main[k] for k in ("xp", "yp", "tr", "te"))
     mf_data = group_for_experts(xp[tr], data_main["yp_tr"], 4096, dtype=torch.float32,

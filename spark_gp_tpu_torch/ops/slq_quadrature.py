@@ -7,10 +7,13 @@ quadrature ``sum_j (e1^T v_j)^2 log(lambda_j)`` over its eigenpairs
 stack of tridiagonals:
 
 * on a CUDA float32 or float64 stack it launches the hand-written kernel
-  ``csrc/slq_quadrature.cu`` (implicit-shift QL, one thread a matrix, only
-  the eigenvectors' first row rotated, its working columns in a workspace
-  the wrapper allocates, so any ``t``), which a CUDA graph can capture:
-  the device optimizer's step on the CG lanes holds it;
+  ``csrc/slq_quadrature.cu`` (one block a matrix, T in shared memory: the
+  leading unreduced block's ``e1^T log(T) e1`` as a trapezoid rule over
+  ``int_0^inf (1/(1+s) - e1^T (T + sI)^-1 e1) ds``, one pivot pass a node
+  and a thread; a T with an eigenvalue under the clamp runs implicit-shift
+  QL; above 1024 rows T lives in a workspace the wrapper allocates, so any
+  ``t``), which a CUDA graph can capture: the device optimizer's step on
+  the CG lanes holds it;
 * on a CPU tensor it runs :func:`slq_quadrature_plain`, the JAX package's
   route: the dense ``T``, one batched ``torch.linalg.eigh``, the first
   components of the eigenvectors;
@@ -81,10 +84,11 @@ def _library():
     return bind(cuda_lib.load("slq_quadrature"))
 
 
-def _launch(diag, off, rotations=None):
-    """The kernel on a ``[..., t]`` stack; ``rotations`` (an int32 tensor of
-    the stack's leading shape, or None) receives each matrix's QL rotation
-    count."""
+def _launch(diag, off, steps=None):
+    """The kernel on a ``[..., t]`` stack; ``steps`` (an int32 tensor of
+    the stack's leading shape, or None) receives each matrix's work count
+    (the kernel's pivot steps or QL rotations; the first design's QL
+    rotations)."""
     if not kernel_applies(diag) or off.dtype != diag.dtype or off.device != diag.device \
             or tuple(off.shape) != tuple(diag.shape[:-1]) + (diag.shape[-1] - 1,):
         raise ValueError(
@@ -98,16 +102,16 @@ def _launch(diag, off, rotations=None):
     out = torch.empty(d.shape[0], dtype=diag.dtype, device=diag.device)
     if out.numel() == 0:
         return out.reshape(diag.shape[:-1])
-    if rotations is not None and (rotations.dtype != torch.int32 or not rotations.is_contiguous()
-                                  or rotations.numel() != out.numel()):
-        raise ValueError("rotations must be a contiguous int32 tensor, one entry a matrix")
+    if steps is not None and (steps.dtype != torch.int32 or not steps.is_contiguous()
+                              or steps.numel() != out.numel()):
+        raise ValueError("steps must be a contiguous int32 tensor, one entry a matrix")
     lib = _library()
     work = torch.empty(lib.slq_quadrature_workspace_doubles(d.shape[0], t), dtype=torch.float64,
                        device=diag.device)
     entry = lib.slq_quadrature_f32 if diag.dtype == torch.float32 else lib.slq_quadrature_f64
     with torch.cuda.device(diag.device):
         err = entry(d.data_ptr(), o.data_ptr(), out.data_ptr(),
-                    None if rotations is None else rotations.data_ptr(), work.data_ptr(),
+                    None if steps is None else steps.data_ptr(), work.data_ptr(),
                     d.shape[0], t, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise cuda_lib.KernelLaunchError(f"slq_quadrature kernel launch failed: CUDA error {err}")

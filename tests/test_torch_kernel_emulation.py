@@ -18,11 +18,15 @@ max|K^-1|, logdet within 1e-4 + 1e-5 |logdet|) at n from one panel to a
 full 128 with ragged last panels, on the tiled workspace path (n = 129, a
 ragged 200, a whole-tile 256, batches of two, every matrix over many
 blocks), and on batches with a non-PD matrix on both paths.  The SLQ
-quadrature kernel (``csrc/slq_quadrature.cu``) is held against the
-float64 ``eigh`` route on the Lanczos tridiagonals of real PCG runs (t =
-1, 20, 64, 65 and 100; one run past its convergence, whose frozen steps
-split T), float32 within 1e-5 of max(1, |value|) and float64 within
-1e-10, every output and rotation count written, its workspace NaN-filled.  This covers the kernels' tiling, staging,
+quadrature kernel (``csrc/slq_quadrature.cu``) and its first design
+(``csrc/dev/slq_quadrature_first.cu``) are held against the float64
+``eigh`` route on the Lanczos tridiagonals of real PCG runs (t = 1, 20,
+64, 65 and 100; one run past its convergence, whose frozen steps split T)
+and on ``emulate.SLQ_SPECIAL`` (splits at row 0 and mid-matrix, repeated
+Ritz values far past convergence, condition ~1e6, t = 2, t = 1100 over the
+workspace, an indefinite T, a NaN batch mate), float32 within 1e-5 of
+max(1, |value|) and float64 within 1e-10, every output and work count
+written, the workspace NaN-filled.  This covers the kernels' tiling, staging,
 barriers and bounds here; their speed, and what only nvcc refuses, show
 on the card.
 """
@@ -50,7 +54,7 @@ def _emulated(tmp_path_factory, source: str):
     emu = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(emu)
     lib = emu.build(emu.HERE.parent / f"{source}.cu",
-                    tmp_path_factory.mktemp("emulated") / f"lib{source}.so")
+                    tmp_path_factory.mktemp("emulated") / f"lib{Path(source).name}.so")
     return emu, lib
 
 
@@ -174,23 +178,56 @@ def emulated_slq(tmp_path_factory):
     return _emulated(tmp_path_factory, "slq_quadrature")
 
 
+@pytest.fixture(scope="module")
+def emulated_slq_first(tmp_path_factory):
+    return _emulated(tmp_path_factory, "dev/slq_quadrature_first")
+
+
 def test_slq_t_max_agrees_with_the_wrapper(emulated_slq):
-    """The source has no largest t: its working columns live in a
-    workspace of 3 t doubles a matrix, which the wrapper allocates at the
-    size the library asks for, and the wrapper takes any t >= 1."""
+    """The source has no largest t: up to 1024 rows a block keeps T in
+    shared memory and asks for no workspace, above it for 3 t doubles a
+    matrix, which the wrapper allocates at the size the library asks for;
+    the wrapper takes any t >= 1."""
     _, lib = emulated_slq
-    for batch, t in ((72, 1), (72, 64), (72, 65), (3, 4096)):
+    for batch, t in ((72, 1), (72, 64), (72, 65), (72, 1024)):
+        assert lib.slq_quadrature_workspace_doubles(batch, t) == 0
+    for batch, t in ((72, 1025), (3, 4096)):
         assert lib.slq_quadrature_workspace_doubles(batch, t) == 3 * batch * t
     meta = torch.empty(9, 8, 100, device="meta")
     assert not sq.kernel_applies(meta) and not sq.kernel_applies(torch.zeros(2, 100))
 
 
-@pytest.mark.parametrize("b,s,t", [(2, 30, 1), (3, 20, 20), (2, 100, 64), (1, 64, 64),
-                                   (2, 30, 64), (1, 80, 65), (1, 150, 100)])
+SLQ_CASES = [(2, 30, 1), (3, 20, 20), (2, 100, 64), (1, 64, 64), (2, 30, 64), (1, 80, 65),
+             (1, 150, 100)]
+
+
+@pytest.mark.parametrize("b,s,t", SLQ_CASES)
 @pytest.mark.parametrize("dtype,bar", [(np.float32, 1e-5), (np.float64, 1e-10)])
 def test_slq_source_matches_the_eigh_route(emulated_slq, b, s, t, dtype, bar):
     emu, lib = emulated_slq
+    rel, steps = emu.check_slq(lib, *emu.lanczos_stack(b, s, t, np.random.default_rng(s + t),
+                                                       dtype))
+    assert rel <= bar, rel
+    assert (steps > 0).all()
+
+
+@pytest.mark.parametrize("b,s,t", SLQ_CASES)
+@pytest.mark.parametrize("dtype,bar", [(np.float32, 1e-5), (np.float64, 1e-10)])
+def test_slq_first_design_matches_the_eigh_route(emulated_slq_first, b, s, t, dtype, bar):
+    emu, lib = emulated_slq_first
     rel, rotations = emu.check_slq(lib, *emu.lanczos_stack(b, s, t, np.random.default_rng(s + t),
                                                            dtype))
     assert rel <= bar, rel
     assert (rotations >= 0).all() and (t == 1 or rotations.sum() > 0)
+
+
+@pytest.mark.parametrize("design", ["kernel", "first_design"])
+@pytest.mark.parametrize("name", ["split-row-0", "split-mid", "past-convergence",
+                                  "wide-spectrum", "t2", "workspace", "indefinite", "nan-mate"])
+@pytest.mark.parametrize("dtype,bar", [(np.float32, 1e-5), (np.float64, 1e-10)])
+def test_slq_special_cases_match_the_eigh_route(request, design, name, dtype, bar):
+    emu, lib = request.getfixturevalue("emulated_slq" if design == "kernel"
+                                       else "emulated_slq_first")
+    rel, steps = emu.check_slq(lib, *emu.slq_special(name, dtype, np.random.default_rng(7)))
+    assert rel <= bar, rel
+    assert (steps >= 0).all()
