@@ -325,7 +325,47 @@ code is non-zero and the final ``ok`` line is never printed:
                the quadrature on their rules.
 86. cg-device-table -- host against device for the new configs.
 87. slice12-phases -- the seconds of phases 74-86.
-88. kernels -- one line with every kernel's numbers.
+88. lane-gram-check -- the lane kernel (csrc/lane_gram.cu) against its
+               plain version on the card in both modes (3xTF32, TF32) on
+               the first airfoil fold ARD-scaled (14, 97, 5) as a
+               self-gram (diagonal exactly 0) and as distances, protein
+               (366, 100, 9), the first Synthetics fold (18, 100, 1) and
+               the periodic feature map's inner products, within 1e-5 of
+               max|x1|^2 + max|x2|^2.
+89. lane-gram-time -- its device ms in both modes, the plain version's,
+               the library's TF32 matmul distances and the bound.
+90. large-m -- benchmarks/large_m.py's config (120,000 x 3, E = 1200,
+               m = 4096): RMSE < 0.15, one device magic solve, handed the
+               statistics on the card, and no transition, K1 launches =
+               nfev, kmn_stats / magic_solve
+               seconds, predict rows/s; the mean-only model's mean
+               bit-equal and K_mm never factored; device against host on
+               the fit's (U1, u2): residuals, predictive mean and variance
+               (MAGIC_SOLVE_BARS).
+91. large-m-crossover -- device against host solve seconds at m = 1000,
+               2048 (seeded statistics) and 4096 (the fit's), in turns.
+92. large-m-oom -- an OOM staged at ppa.magic_solve: one ppa transition
+               device_solve -> host_solve, the host solve's answer within
+               MAGIC_SOLVE_BARS (a repeated host solve recorded beside
+               it: the host BLAS need not repeat its rounding).
+93-94. lanes-airfoil, lanes-synthetics -- the 10-fold CVs at the mixed
+               lane (airfoil < 2.1, Synthetics < 0.11, no guard breach)
+               and the fast lane (recorded); lane kernel launches =
+               evaluations + folds (airfoil, ARD: a gram an evaluation)
+               or 2 a fold (Synthetics, RBF: the gram cache and the
+               guard's probe); K1 = evaluations (the guard's probe
+               takes float64 linear algebra); beside them the strict
+               lane's own float32 error on the probe expert.
+95. lanes-device -- the first airfoil fold's device fit at mixed, the
+               lane kernel inside the captured step: RMSE < 2.1.
+96. lanes-breach -- the mixed bar forced below 0 under
+               GP_GUARD_ACTION=degrade: one native -> strict_lane
+               transition, theta within 1e-6 of the strict fit's.
+97. lanes-breach-log -- the same under the default (log): breach 1, no
+               transition.
+98. lanes-k1 -- K1 at mixed bit-equal to strict.
+99. slice14-phases -- the seconds of phases 88-98.
+100. kernels -- one line with every kernel's numbers.
 The last line is ``{"ok": true, "device": {...}}``.  Every phase line
 carries ``fallback_transitions``, the ladder's transitions since the line
 before it; a phase that stages no fault fails if it moved them.
@@ -429,7 +469,7 @@ OBJECTIVE_BARS = {"loo": (1e-5, 1e-4), "elbo": (1e-4, 1e-3)}
 # the phases that stage a fault; every other phase must leave the fit
 # ladder's transition count where the phase before it left it
 FAULT_PHASES = ("ladder-oom", "predict-ladder", "terminal", "segmented-rung",
-                "segmented-rung-gpc", "ladder-oom-device")
+                "segmented-rung-gpc", "ladder-oom-device", "large-m-oom", "lanes-breach")
 _transitions_seen = [0.0]
 
 
@@ -1646,6 +1686,7 @@ def regression_phases(torch, spd, d: dict, smi: str) -> dict:
     if not (cv["rmse"] < SYNTHETICS_BAR and cv["experts"] == [(18, 100)]
             and cv["launches"] == cv["nfev"] > 0 and cv["gram_cache_engaged"] == [1.0]):
         raise AssertionError(f"synthetics: {cv}")
+    HOST_FITS["synthetics"] = {"rmse": cv["rmse"]}
 
     # synthetics-objectives: quality.py's objectives part, one fit per
     # objective on the 1500 / 500 split (E = 15, s = 100).  K1 once an
@@ -4651,6 +4692,563 @@ def slice12_phases(torch, spd, sm, sq, it_ops, cdata: dict, d6: dict, data_main:
     return {"launches": counts.launches, "slq_quadrature": quad}
 
 
+# --- slice 14: the device magic solve (item 11), the precision lanes (item 14)
+
+#: the large-m config (benchmarks/large_m.py): rows, active points, RMSE bar
+LARGE_M_N = 120_000
+LARGE_M = 4096
+LARGE_M_RMSE_BAR = 0.15
+#: the active-set sizes of the crossover timing's seeded statistics
+CROSSOVER_M = (1000, 2048)
+#: device against host magic solve on the large-m fit's (U1, u2), float64.
+#: PD = sn2 K_mm + U1 has a condition number ~2e13 here (recorded), so two
+#: backward-stable factorizations (cuSOLVER's, LAPACK's) give magic vectors
+#: that differ entrywise far above 1e-8 (debug runs: 4.2e-4, the matrices
+#: 3.3e-3; recorded).  Held: each solve's normwise residual
+#: |PD mv - u2| / (|PD| |mv|) (backward stability); the magic vectors'
+#: normwise difference within 10 x cond(PD) x the two residuals (the
+#: forward error two such solves may show); and what a user reads on the
+#: first 2,000 rows: the predictive mean (over max |mean|; debug run
+#: 9.6e-7) and variance (over the prior variance; 8.1e-10)
+MAGIC_SOLVE_BARS = {"residual_device": 1e-11, "residual_host": 1e-11, "mean": 1e-5,
+                    "variance": 1e-8}
+
+#: lane_gram against its plain version: over max|x1|^2 + max|x2|^2 (the
+#: terms that cancel), or max|x1| max|x2| for inner products
+LANE_GRAM_BAR = 1e-5
+#: dense TF32 tensor-core rates by card name (NVIDIA's data sheets: 495
+#: TFLOP/s for the H100 SXM)
+TF32_PEAKS = {"H100 PCIe": 378e12, "H100": 495e12, "H200": 495e12}
+#: the mixed lane's hard bars (the strict lane's own, examples/*.py)
+MIXED_BARS = {"airfoil": 2.1, "synthetics": 0.11}
+GUARD_KEYS = ("delta_nll_rel", "delta_grad_rel", "delta_predict_rel", "breach")
+
+
+def large_m_data():
+    """benchmarks/large_m.py's surface, copied: 120,000 x 3 uniform rows
+    (rng 42), y = sin(2 pi x . [1, 0.7, 0.4]) + 0.05 noise."""
+    rng = np.random.default_rng(42)
+    x = rng.uniform(size=(LARGE_M_N, 3))
+    y = np.sin(2.0 * np.pi * x @ np.array([1.0, 0.7, 0.4])) + 0.05 * rng.normal(size=LARGE_M_N)
+    return x, y
+
+
+def large_m_gp(variance: bool = True):
+    """benchmarks/large_m.py's estimator, copied: RBF(0.3, 1e-6, 10),
+    expert 100 (E = 1200), active 4096, seed 13, sigma2 1e-3, maxiter 10."""
+    from spark_gp_tpu_torch import GaussianProcessRegression, RBFKernel
+
+    return (GaussianProcessRegression().setKernel(lambda: RBFKernel(0.3, 1e-6, 10))
+            .setDatasetSizeForExpert(100).setActiveSetSize(LARGE_M).setSeed(13)
+            .setSigma2(1e-3).setMaxIter(10).setPredictiveVariance(variance))
+
+
+class SolveRecord:
+    """Around fits: counts the device magic solves, records whether each
+    was handed its statistics on the card (no round trip through the
+    host), and the name and jitter of every device factorization
+    (``ppa._device_factor``)."""
+
+    def __init__(self, ppa):
+        self.ppa, self.solves, self.factors, self.stats_on_card = ppa, 0, [], []
+
+    def __enter__(self):
+        ppa = self.ppa
+        self._solve, self._factor = ppa.magic_solve_device, ppa._device_factor
+
+        def solve(*args, **kw):
+            self.solves += 1
+            self.stats_on_card.append(bool(getattr(args[3], "is_cuda", False)))
+            return self._solve(*args, **kw)
+
+        def factor(mat, tau, name):
+            self.factors.append([name, tau])
+            return self._factor(mat, tau, name)
+
+        ppa.magic_solve_device, ppa._device_factor = solve, factor
+        return self
+
+    def __exit__(self, *exc):
+        self.ppa.magic_solve_device, self.ppa._device_factor = self._solve, self._factor
+
+
+def seeded_stats(torch, ppa, kernel, theta, x, m: int, rows: int = 20_000):
+    """``(active, U1, u2)`` over the first ``rows`` of ``x`` against ``m``
+    of them drawn at seed m, on the card in float64."""
+    from spark_gp_tpu_torch.parallel.experts import ExpertData
+
+    active = x[np.random.default_rng(m).choice(rows, size=m, replace=False)]
+    dev = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    xs = dev(x[:rows])[None]
+    data = ExpertData(x=xs, y=dev(np.sin(x[:rows].sum(1)))[None], mask=torch.ones_like(xs[..., 0]))
+    u1, u2 = ppa.kmn_stats(kernel, dev(theta), dev(active), data)
+    return active, u1.cpu().numpy(), u2.cpu().numpy()
+
+
+def solve_seconds(torch, fn) -> float:
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - start
+
+
+def magic_crossover(torch, ppa, kernel, theta, x, fits: dict) -> dict:
+    """Wall seconds of the device solve (transfers in and out included)
+    and the host solve, in turns device, host, host, device, at m = 1000
+    and 2048 on seeded statistics and at 4096 on the large-m fit's own."""
+    out = {}
+    for m in CROSSOVER_M + (LARGE_M,):
+        if m == LARGE_M:
+            active, u1, u2 = fits["active"], fits["u1"], fits["u2"]
+            th = fits["theta"]
+        else:
+            active, u1, u2 = seeded_stats(torch, ppa, kernel, theta, x, m)
+            th = theta
+        runs = {"device": [], "host": []}
+        for side in ("device", "host", "host", "device"):
+            fn = (lambda: ppa.magic_solve_device(kernel, th, active, u1, u2, device="cuda")) \
+                if side == "device" else (lambda: ppa._host_magic_solve(kernel, th, active, u1, u2))
+            runs[side].append(solve_seconds(torch, fn))
+        out[str(m)] = {"device_seconds": runs["device"], "host_seconds": runs["host"],
+                       "device_mean": float(np.mean(runs["device"])),
+                       "host_mean": float(np.mean(runs["host"])),
+                       "host_over_device": float(np.mean(runs["host"]) / np.mean(runs["device"]))}
+    return out
+
+
+def large_m_phases(torch, spd, smi: str) -> dict:
+    """large-m, large-m-crossover and large-m-oom (module doc).  Returns
+    K1's launches on the two fits."""
+    from spark_gp_tpu_torch.models import ppa
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+    from spark_gp_tpu_torch.resilience import chaos
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    x, y = large_m_data()
+    x_eval, y_eval = x[:20_000], y[:20_000]
+    spd.spd_inv_logdet.launches = 0
+    with SolveRecord(ppa) as rec:
+        torch.cuda.reset_peak_memory_stats()
+        model, fit_s = airfoil_fold_fit(large_m_gp(), x, y, np.arange(LARGE_M_N))
+        peak = torch.cuda.max_memory_allocated()
+    k1_full = spd.spd_inv_logdet.launches
+    m = model.metrics
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    mean, var = model.predict_with_var(x_eval)
+    predict_s = time.perf_counter() - start
+    score = rmse(y_eval, mean)
+    raw = model.raw_predictor
+    if not (np.all(np.isfinite(mean)) and np.all(np.isfinite(var)) and mean.shape == (20_000,)):
+        raise AssertionError("large-m predictions not finite")
+    # the same config mean-only: its mean is the full model's, and K_mm is
+    # never factored
+    spd.spd_inv_logdet.launches = 0
+    with SolveRecord(ppa) as rec_mean:
+        model_mean, fit_mean_s = airfoil_fold_fit(large_m_gp(False), x, y, np.arange(LARGE_M_N))
+    k1_mean = spd.spd_inv_logdet.launches
+    mean_only = model_mean.predict(x_eval)
+    # device against host on the fit's own statistics
+    kernel = raw.kernel
+    dev_mv, dev_mm = ppa.magic_solve_device(kernel, raw.theta, raw.active, raw.u1, raw.u2,
+                                            device="cuda")
+    host_mv, host_mm = ppa._host_magic_solve(kernel, raw.theta, raw.active, raw.u1, raw.u2)
+    # the predictive mean and variance each solve gives, in float64 on the
+    # card; each solve's residual; the two matrices' condition numbers
+    dev64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64, device="cuda")
+    theta64, xq, act64 = dev64(raw.theta), dev64(x_eval[:2000]), dev64(raw.active)
+    cross = kernel.cross(theta64, xq, act64)
+    prior = kernel.self_diag(theta64, xq)
+    kmm = kernel.gram(theta64, act64)
+    pd = kernel.white_noise_var(theta64) * kmm + dev64(raw.u1)
+
+    def residual(mv):
+        mv = dev64(mv)
+        r = torch.linalg.vector_norm(pd @ mv - dev64(raw.u2))
+        return float(r / (torch.linalg.matrix_norm(pd, 2) * torch.linalg.vector_norm(mv)))
+
+    def cond(a):
+        ev = torch.linalg.eigvalsh(a)
+        return float(ev[-1] / ev[0])
+
+    def agreement(a, b, names):
+        """Solve ``a`` against solve ``b`` (each ``(magicVector,
+        magicMatrix)``): the MAGIC_SOLVE_BARS quantities under ``names``
+        (the residual keys) and the entrywise gaps, recorded without a bar."""
+        means = [(cross @ dev64(mv)).cpu().numpy() for mv in (a[0], b[0])]
+        variances = [(prior + torch.einsum("tm,mk,tk->t", cross, dev64(mm), cross)).cpu().numpy()
+                     for mm in (a[1], b[1])]
+        return {names[0]: residual(a[0]), names[1]: residual(b[0]),
+                "magic_vector_norm_rel": float(np.linalg.norm(a[0] - b[0])
+                                               / np.linalg.norm(b[0])),
+                "mean": float(np.abs(means[0] - means[1]).max() / np.abs(means[1]).max()),
+                "variance": float(np.abs(variances[0] - variances[1]).max()
+                                  / float(prior.max())),
+                "magic_vector_no_bar": float(np.abs(a[0] - b[0]).max() / np.abs(b[0]).max()),
+                "magic_matrix_no_bar": float(np.abs(a[1] - b[1]).max() / np.abs(b[1]).max()),
+                "bit_equal": bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))}
+
+    def agrees(errs, names):
+        bars = MAGIC_SOLVE_BARS
+        return (errs[names[0]] <= bars["residual_device"]
+                and errs[names[1]] <= bars["residual_host"]
+                and errs["mean"] <= bars["mean"] and errs["variance"] <= bars["variance"]
+                and errs["magic_vector_norm_rel"] <= 10.0 * cond_pd * (errs[names[0]]
+                                                                      + errs[names[1]]))
+
+    cond_pd = cond(pd)
+    errs = agreement((dev_mv, dev_mm), (host_mv, host_mm), ("residual_device", "residual_host"))
+    errs.update(cond_pd=cond_pd, cond_kmm=cond(kmm))
+    errs["magic_vector_bound"] = 10.0 * cond_pd * (errs["residual_device"]
+                                                 + errs["residual_host"])
+    row = {"phase": "large-m", "n": LARGE_M_N, "m": LARGE_M,
+           "num_experts": m["num_experts"], "expert_size": m["expert_size"],
+           "rmse": score, "rmse_bar": LARGE_M_RMSE_BAR, "fit_seconds": fit_s,
+           "kmn_stats_seconds": model.instr.timings.get("kmn_stats"),
+           "magic_solve_seconds": model.instr.timings.get("magic_solve"),
+           "phase_seconds": dict(model.instr.timings),
+           "predict_rows_per_second": 20_000 / predict_s, "predict_seconds": predict_s,
+           "nfev": m["lbfgs_nfev"], "k1_launches": k1_full, "device_solves": rec.solves,
+           "stats_on_card": rec.stats_on_card, "factors": rec.factors, "peak_cuda_bytes": peak,
+           "mean_only": {"fit_seconds": fit_mean_s, "device_solves": rec_mean.solves,
+                         "factors": rec_mean.factors, "k1_launches": k1_mean,
+                         "nfev": model_mean.metrics["lbfgs_nfev"],
+                         "mean_max_abs_diff": float(np.abs(mean_only - mean).max())},
+           "device_vs_host": errs, "bars": MAGIC_SOLVE_BARS,
+           "degradations": getattr(model, "degradations", None), "card": smi}
+    emit(row)
+    if not (score < LARGE_M_RMSE_BAR and rec.solves == 1 and k1_full == m["lbfgs_nfev"] > 0
+            and rec.stats_on_card == [True] and not getattr(model, "degradations", None)):
+        raise AssertionError(f"large-m: rmse {score}, {rec.solves} device solves, {k1_full} K1 "
+                             f"launches for {m['lbfgs_nfev']} evaluations")
+    if not (rec_mean.solves == 1 and all(f[0] == "PD" for f in rec_mean.factors)
+            and np.array_equal(mean_only, mean) and k1_mean == model_mean.metrics["lbfgs_nfev"]):
+        raise AssertionError(f"large-m mean-only: {row['mean_only']}")
+    if not agrees(errs, ("residual_device", "residual_host")):
+        raise AssertionError(f"large-m device vs host magic solve: {errs}")
+
+    # large-m-crossover: the device solve against the host solve
+    fits = {"active": raw.active, "u1": raw.u1, "u2": raw.u2, "theta": raw.theta}
+    emit({"phase": "large-m-crossover", "threshold_m": ppa._DEVICE_SOLVE_MIN_M,
+          "seconds": magic_crossover(torch, ppa, kernel, kernel.init_theta(), x, fits),
+          "card": smi})
+
+    # large-m-oom: an OOM staged at the device solve's choke point takes the
+    # ppa ladder's one transition and gives the host solve's answer, held
+    # as device against host is: the host BLAS need not repeat its own
+    # rounding bit for bit (one run of this phase read the two host solves
+    # unequal), and at cond(PD) ~2e13 a rounding moves the magic vector
+    # ~4e-4; a second direct host solve records how far it does
+    counters = lambda: telemetry.snapshot()["per_entry"].get("fallback.rung.host_solve", {})
+    before = counters().get("ppa", 0.0)
+    with chaos.oom_after_calls(0, op="ppa.magic_solve"):
+        oom = ppa.magic_solve(kernel, raw.theta, raw.active, raw.u1, raw.u2, device="cuda")
+    moved = counters().get("ppa", 0.0) - before
+    names = ("residual_oom", "residual_host")
+    oom_errs = agreement(oom, (host_mv, host_mm), names)
+    repeat = agreement(ppa._host_magic_solve(kernel, raw.theta, raw.active, raw.u1, raw.u2),
+                       (host_mv, host_mm), ("residual_repeat", "residual_host"))
+    emit({"phase": "large-m-oom", "ppa_host_solve_transitions": moved,
+          "against_host_solve": oom_errs, "host_solve_repeat_no_bar": repeat,
+          "bars": MAGIC_SOLVE_BARS, "card": smi})
+    if not (moved == 1 and agrees(oom_errs, names)):
+        raise AssertionError(f"large-m-oom: {moved} ppa transitions, {oom_errs}")
+    return {"large_m": k1_full, "large_m_mean_only": k1_mean}
+
+
+def lane_gram_inputs(torch, data_main: dict, rdata: dict) -> dict:
+    """The operands the lanes hand the kernel: the first airfoil fold's
+    stack (14, 97, 5) ARD-scaled by the kernel's initial weights, as a
+    self-gram and as distances; the protein stack (366, 100, 9); the first
+    Synthetics fold's (18, 100, 1); and the periodic feature map of the
+    airfoil fold as inner products."""
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+
+    def stack(x, y, expert):
+        return group_for_experts(x, y, expert, dtype=torch.float32, device="cuda").x
+
+    x, y, folds = data_main["x"], data_main["y"], data_main["folds"]
+    air = stack(x[folds[0][0]], y[folds[0][0]], 100)
+    w = torch.as_tensor(1.0 / airfoil_kernel().init_theta()[1:6], dtype=torch.float32,
+                        device="cuda")
+    prot = stack(data_main["xp"][data_main["tr"]], data_main["yp_tr"], 100)
+    syn_tr = rdata["folds"][0][0]
+    syn = stack(rdata["x"][syn_tr], rdata["y"][syn_tr], 100)
+    phi = torch.cat([torch.cos(2.0 * np.pi * air), torch.sin(2.0 * np.pi * air)], dim=-1)
+    return {"airfoil_ard_self": (air * w, True, False), "airfoil_ard": (air * w, False, False),
+            "protein": (prot, False, False), "synthetics": (syn, True, False),
+            "periodic_inner": (phi, False, True)}
+
+
+def check_lane_gram(torch, lg, inputs: dict) -> dict:
+    """The kernel against its plain version on the card, both modes, every
+    input: the error over the bar's scale; self-gram diagonals exactly 0.
+    Launches here are not the main path's: the caller restores the count."""
+    errs = {}
+    for label, (x, self_gram, inner) in inputs.items():
+        sq = x.double().pow(2).sum(-1).max().item()
+        scale = sq if inner else 2.0 * sq
+        for mode in lg.MODES:
+            got = lg.lane_gram(x, x, mode, self_gram=self_gram, inner=inner)
+            ref = lg.lane_gram_plain(x, x, mode, self_gram, inner)
+            torch.cuda.synchronize()
+            err = float((got.double() - ref.double()).abs().max()) / scale
+            diag_zero = (not self_gram) or bool(
+                (torch.diagonal(got, dim1=-2, dim2=-1) == 0).all())
+            errs[f"{label}/{mode}"] = err
+            if not (err <= LANE_GRAM_BAR and diag_zero and torch.isfinite(got).all()):
+                raise AssertionError(f"lane_gram {label} {mode}: error {err} over "
+                                     f"{LANE_GRAM_BAR}, zero diagonal {diag_zero}")
+    return errs
+
+
+def time_lane_gram(torch, lg, inputs: dict, peaks, tf32_peak: float) -> dict:
+    """Device ms of the kernel (both modes), its plain version and the
+    library's one call for the same distances (``sq_dist`` by
+    ``torch.matmul`` with TF32 on, inside ``tf32_library_matmuls``), and
+    the bound: the operand read once (every timed call is ``x`` against
+    itself) and the output written once at the card's memory rate, against
+    2 n1 n2 p flop a TF32 pass at the tensor cores' peak."""
+    from spark_gp_tpu_torch.ops.precision import tf32_library_matmuls
+
+    def library(x):
+        n = torch.sum(x * x, dim=-1)
+        d = n[..., :, None] + n[..., None, :] - 2.0 * torch.matmul(x, x.mT)
+        return torch.clamp_min(d, 0.0)
+
+    rows = {}
+    for label in ("airfoil_ard_self", "protein", "synthetics"):
+        x, self_gram, inner = inputs[label]
+        b, n, p = x.shape
+        out = {"shape": [b, n, p]}
+        for mode, passes in (("3xtf32", 3), ("tf32", 1)):
+            key = "" if mode == "3xtf32" else "_tf32"
+            out[f"ms{key}"] = time_device_ms(lambda: lg._launch(x, x, mode, int(self_gram)))
+            out[f"plain_ms{key}"] = time_device_ms(
+                lambda: lg.lane_gram_plain(x, x, mode, self_gram, inner))
+            byte_s = (b * n * p + b * n * n) * 4 / peaks[0]
+            flop_s = passes * 2.0 * b * n * n * p / tf32_peak
+            out[f"bound_ms{key}"] = max(byte_s, flop_s) * 1e3
+            out[f"bound_by{key}"] = "bytes" if byte_s >= flop_s else "operations"
+        with tf32_library_matmuls():
+            out["library_ms"] = time_device_ms(lambda: library(x))
+        rows[label] = out
+    return rows
+
+
+def lane_cv(torch, lg, spd, lane: str, make_gp, x, y, folds) -> dict:
+    """``regression_cv`` at ``lane`` with the lane kernel's and K1's
+    launches, and each fold's guard metrics."""
+    from spark_gp_tpu_torch.ops.precision import set_precision_lane
+
+    lg.lane_gram.launches = spd.spd_inv_logdet.launches = 0
+    prev = set_precision_lane(lane)
+    try:
+        cv = regression_cv(make_gp(), x, y, folds)
+    finally:
+        set_precision_lane(prev)
+    first = cv.pop("first_model")
+    cv.update(lane_gram_launches=lg.lane_gram.launches,
+              k1_launches=spd.spd_inv_logdet.launches,
+              precision_lane=first.metrics["precision_lane"],
+              first_theta=first.raw_predictor.theta)
+    return cv
+
+
+def strict_probe_noise(torch, spd, x, y, theta) -> dict:
+    """How far the strict lane's float32 objective (K1's route) on the
+    guard's probe expert -- the first expert of ``(x, y)`` at expert 100 --
+    lies from float64 at ``theta``: the relative NLL and gradient deltas
+    on the guard's scales.  It is rounding every lane shares, which the
+    guard's float64 probe leaves out."""
+    from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
+    from spark_gp_tpu_torch.parallel.experts import ExpertData, group_for_experts
+
+    before = spd.spd_inv_logdet.launches
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        d = group_for_experts(x, y, 100, dtype=dtype, device="cuda")
+        one = ExpertData(x=d.x[:1], y=d.y[:1], mask=d.mask[:1])
+        out[dtype] = make_value_and_grad(airfoil_gp(100)._get_kernel(), one)(theta)
+    spd.spd_inv_logdet.launches = before
+    (v32, g32), (v64, g64) = out[torch.float32], out[torch.float64]
+    scale = max(abs(v64), 97.0, 1.0)
+    return {"delta_nll_rel": abs(v32 - v64) / scale,
+            "delta_grad_rel": float(np.max(np.abs(g32 - g64)) / max(np.max(np.abs(g64)), scale))}
+
+
+def lanes_phases(torch, lg, spd, data_main: dict, rdata: dict, smi: str) -> dict:
+    """lanes-airfoil, lanes-synthetics, lanes-device, lanes-breach,
+    lanes-breach-log and lanes-k1 (module doc).  Returns K1's launches on
+    each phase's fits and the lane kernel's."""
+    from spark_gp_tpu_torch.ops import precision
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+
+    x, y, folds = data_main["x"], data_main["y"], data_main["folds"]
+    xs, ys, sfolds = rdata["x"], rdata["y"], rdata["folds"]
+    from spark_gp_tpu_torch import GaussianProcessRegression
+
+    k1, lane_launches = {}, {}
+    guards = {}
+    guard_log: list = []
+    emit_guard = GaussianProcessRegression._emit_precision_guard
+
+    def recorded_guard(self, instr, *args):
+        emit_guard(self, instr, *args)
+        guard_log.append({k: instr.metrics.get(f"mixed_precision_guard.{k}")
+                          for k in GUARD_KEYS})
+
+    for config, make_gp, xx, yy, ff, bar in (
+            ("airfoil", lambda: airfoil_gp(100), x, y, folds, MIXED_BARS["airfoil"]),
+            ("synthetics", synthetics_gp, xs, ys, sfolds, MIXED_BARS["synthetics"])):
+        rows = {}
+        for lane in ("mixed", "fast"):
+            guard_log.clear()
+            GaussianProcessRegression._emit_precision_guard = recorded_guard
+            try:
+                cv = lane_cv(torch, lg, spd, lane, make_gp, xx, yy, ff)
+            finally:
+                GaussianProcessRegression._emit_precision_guard = emit_guard
+            guard = list(guard_log)
+            nfev = cv["nfev"]
+            # ARD (airfoil): one gram an evaluation and one for the guard's
+            # probe; RBF (Synthetics): the gram cache once a fit and once
+            # in the probe
+            rule = nfev + len(ff) if config == "airfoil" else 2 * len(ff)
+            # the guard's probes take float64 linear algebra: no K1
+            k1_rule_lanes = nfev
+            rows[lane] = {**{k: cv[k] for k in ("rmse", "seconds", "nfev", "optimize_seconds",
+                                                 "lane_gram_launches", "k1_launches",
+                                                 "precision_lane", "first_theta")},
+                          "lane_gram_rule": rule, "k1_rule": k1_rule_lanes, "guard": guard}
+            k1[f"lanes_{config}_{lane}"] = cv["k1_launches"]
+            lane_launches[f"lanes_{config}_{lane}"] = cv["lane_gram_launches"]
+            if cv["lane_gram_launches"] != rule or cv["k1_launches"] != k1_rule_lanes \
+                    or cv["precision_lane"] != lane:
+                raise AssertionError(f"lanes-{config} {lane}: {rows[lane]}")
+            if lane == "mixed" and not (cv["rmse"] < bar
+                                        and all(g["breach"] == 0.0 for g in guard)):
+                raise AssertionError(f"lanes-{config} mixed: rmse {cv['rmse']} (bar {bar}), "
+                                     f"guard {guard}")
+        guards[config] = rows
+        extra = {}
+        if config == "airfoil":
+            extra["strict_probe_noise_fold0"] = strict_probe_noise(
+                torch, spd, x[folds[0][0]], y[folds[0][0]], rows["mixed"].pop("first_theta"))
+        for row in rows.values():
+            row.pop("first_theta", None)
+        emit({"phase": f"lanes-{config}", "strict_rmse": HOST_FITS.get(config, {}).get("rmse"),
+              **rows, **extra, "bar_mixed": bar, "card": smi})
+
+    # lanes-device: the first airfoil fold's device fit at mixed, the lane
+    # kernel inside the captured step
+    train, test = folds[0]
+    lg.lane_gram.launches = spd.spd_inv_logdet.launches = 0
+    prev = precision.set_precision_lane("mixed")
+    try:
+        model, seconds = airfoil_fold_fit(airfoil_gp(100).setOptimizer("device"), x, y, train)
+    finally:
+        precision.set_precision_lane(prev)
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    m = model.metrics
+    dev_rmse = rmse(y[test], model.predict(x[test]))
+    lane_rule, k1_dev_rule = k1_rule(m) + 1, k1_rule(m)
+    row = {"phase": "lanes-device", "rmse": dev_rmse, "seconds": seconds,
+           "nfev": m["lbfgs_nfev"], "loop": loop_record(m),
+           "lane_gram_launches": lg.lane_gram.launches, "lane_gram_rule": lane_rule,
+           "k1_launches": spd.spd_inv_logdet.launches, "k1_rule": k1_dev_rule,
+           "guard": {k: m.get(f"mixed_precision_guard.{k}") for k in GUARD_KEYS}, "card": smi}
+    k1["lanes_device"] = spd.spd_inv_logdet.launches
+    lane_launches["lanes_device"] = lg.lane_gram.launches
+    emit(row)
+    if not (dev_rmse < MIXED_BARS["airfoil"] and m.get("device_opt.captures") == 1
+            and row["lane_gram_launches"] == lane_rule and row["k1_launches"] == k1_dev_rule):
+        raise AssertionError(f"lanes-device: {row}")
+
+    # lanes-breach: the mixed bar forced below 0 under GP_GUARD_ACTION=degrade
+    # makes one strict_lane transition and ends at the strict fit's theta;
+    # under the default (log) it warns and makes none
+    strict_model, _ = airfoil_fold_fit(airfoil_gp(100), x, y, train)
+    bar_before = precision.GUARD_BARS["mixed"]
+    precision.GUARD_BARS["mixed"] = -1.0
+    prev = precision.set_precision_lane("mixed")
+    os.environ["GP_GUARD_ACTION"] = "degrade"
+    lg.lane_gram.launches = spd.spd_inv_logdet.launches = 0
+    try:
+        degraded, _ = airfoil_fold_fit(airfoil_gp(100), x, y, train)
+        k1["lanes_breach"] = spd.spd_inv_logdet.launches
+        lane_launches["lanes_breach"] = lg.lane_gram.launches
+        os.environ.pop("GP_GUARD_ACTION")
+        logged, _ = airfoil_fold_fit(airfoil_gp(100), x, y, train)
+    finally:
+        os.environ.pop("GP_GUARD_ACTION", None)
+        precision.set_precision_lane(prev)
+        precision.GUARD_BARS["mixed"] = bar_before
+    walk = [(d["from"], d["to"]) for d in getattr(degraded, "degradations", None) or []]
+    theta_rel = float(np.max(np.abs(degraded.raw_predictor.theta
+                                    - strict_model.raw_predictor.theta)
+                             / np.abs(strict_model.raw_predictor.theta)))
+    row = {"phase": "lanes-breach", "walk": walk, "theta_rel_vs_strict": theta_rel,
+           "theta_equal": bool(np.array_equal(degraded.raw_predictor.theta,
+                                              strict_model.raw_predictor.theta)),
+           "precision_lane": degraded.metrics["precision_lane"], "card": smi}
+    emit(row)
+    if not (walk == [("native", "strict_lane")] and theta_rel <= 1e-6
+            and row["precision_lane"] == "strict"):
+        raise AssertionError(f"lanes-breach: {row}")
+    k1["lanes_breach_log"] = spd.spd_inv_logdet.launches - k1["lanes_breach"]
+    lane_launches["lanes_breach_log"] = lg.lane_gram.launches - lane_launches["lanes_breach"]
+    row = {"phase": "lanes-breach-log", "breach": logged.metrics["mixed_precision_guard.breach"],
+           "degradations": getattr(logged, "degradations", None),
+           "precision_lane": logged.metrics["precision_lane"], "card": smi}
+    emit(row)
+    if not (row["breach"] == 1.0 and not row["degradations"] and row["precision_lane"] == "mixed"):
+        raise AssertionError(f"lanes-breach-log: {row}")
+
+    # lanes-k1: K1 reads no lane -- its output at mixed is strict's, bit for bit
+    data = group_for_experts(x[train], y[train], 100, dtype=torch.float32, device="cuda")
+    kmat = airfoil_kernel().gram(torch.as_tensor(airfoil_kernel().init_theta(),
+                                                 dtype=torch.float32, device="cuda"), data.x)
+    kmat = kmat + 1e-4 * torch.eye(kmat.shape[-1], device="cuda")
+    before = spd.spd_inv_logdet.launches
+    outs = {}
+    for lane in ("strict", "mixed"):
+        with precision.precision_lane_scope(lane):
+            outs[lane] = spd.spd_inv_logdet(kmat)
+    spd.spd_inv_logdet.launches = before
+    equal = all(torch.equal(a, b) for a, b in zip(outs["strict"], outs["mixed"]))
+    emit({"phase": "lanes-k1", "shape": list(kmat.shape[:2]), "bit_equal": equal, "card": smi})
+    if not equal:
+        raise AssertionError("lanes-k1: K1 at mixed differs from strict")
+    return {"k1": k1, "lane_gram": lane_launches, "guards": guards}
+
+
+def slice14_phases(torch, spd, lg, data_main: dict, rdata: dict, smi: str) -> dict:
+    """This slice's phases: lane-gram-check, lane-gram-time, large-m,
+    large-m-crossover, large-m-oom, lanes-airfoil, lanes-synthetics,
+    lanes-device, lanes-breach, lanes-breach-log, lanes-k1.  Returns K1's
+    launches on each phase's fits, the lane kernel's and its checks and
+    timings."""
+    start_all = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    inputs = lane_gram_inputs(torch, data_main, rdata)
+    before = lg.lane_gram.launches
+    errs = check_lane_gram(torch, lg, inputs)
+    emit({"phase": "lane-gram-check", "bar": f"{LANE_GRAM_BAR} x (max|x1|^2 + max|x2|^2)",
+          "max_err_over_scale": errs, "card": smi})
+    timing = time_lane_gram(torch, lg, inputs, peaks_for(name),
+                            TF32_PEAKS[next(k for k in TF32_PEAKS if k in name)])
+    lg.lane_gram.launches = before
+    emit({"phase": "lane-gram-time", "rows": timing, "card": smi})
+    k1 = large_m_phases(torch, spd, smi)
+    lanes = lanes_phases(torch, lg, spd, data_main, rdata, smi)
+    k1.update(lanes["k1"])
+    emit({"phase": "slice14-phases", "seconds": time.perf_counter() - start_all, "card": smi})
+    return {"k1": k1, "lane_gram": lanes["lane_gram"], "errs": errs, "timing": timing}
+
+
 def regression_row(label: str, seconds: float, m: dict) -> dict:
     """One row of the host-against-device table for a regression device
     fit (no Newton loop): optimize seconds, evaluations, the loop's
@@ -4685,6 +5283,7 @@ def main() -> int:
     from spark_gp_tpu_torch.models.ppa import magic_solve
     from spark_gp_tpu_torch.ops import cuda_lib
     from spark_gp_tpu_torch.ops import iterative as it_ops
+    from spark_gp_tpu_torch.ops import lane_gram as lg
     from spark_gp_tpu_torch.ops import slq_quadrature as sq
     from spark_gp_tpu_torch.ops import spd_linalg as spd
     from spark_gp_tpu_torch.ops import streamed_matvec as sm
@@ -4706,7 +5305,8 @@ def main() -> int:
     # timed beside them
     start = time.perf_counter()
     built = cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec", "slq_quadrature",
-                                K1_FIRST_DESIGN, VJP_FIRST_DESIGN, SLQ_FIRST_DESIGN], force=True)
+                                "lane_gram", K1_FIRST_DESIGN, VJP_FIRST_DESIGN,
+                                SLQ_FIRST_DESIGN], force=True)
     report = {}
     for source, (seconds, log) in built.items():
         regs = sorted({int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines()
@@ -5162,6 +5762,9 @@ def main() -> int:
          "iris_b": b_stacks["iris_fold"]}, HOST_FITS, smi)
     quad = slice12["slq_quadrature"]
     l12 = slice12["launches"]
+    # 88-99. slice 14: the device magic solve at m = 4096 and the precision
+    # lanes (K1's launches on each phase's fits; the lane kernel's)
+    slice14 = slice14_phases(torch, spd, lg, data_main, rdata, smi)
 
     # 56. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
@@ -5192,7 +5795,8 @@ def main() -> int:
                      + sum(regression.values()) + sum(slice6.values())
                      + sum(slice7.values()) + sum(slice8["spd_inv_logdet"].values())
                      + sum(slice9.values()) + sum(slice10.values())
-                     + sum(slice11.values()) + sum(l12["spd_inv_logdet"].values())),
+                     + sum(slice11.values()) + sum(l12["spd_inv_logdet"].values())
+                     + sum(slice14["k1"].values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
@@ -5207,6 +5811,7 @@ def main() -> int:
         **{f"launches_{key}": value for key, value in slice10.items()},
         **{f"launches_{key}": value for key, value in slice11.items()},
         **{f"launches_{key}": value for key, value in l12["spd_inv_logdet"].items()},
+        **{f"launches_{key}": value for key, value in slice14["k1"].items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
@@ -5288,6 +5893,24 @@ def main() -> int:
         "first_design_source": f"spark_gp_tpu_torch/csrc/{SLQ_FIRST_DESIGN}.cu",
         "max_abs_err": max(r["max_abs_err"] for r in quad.values()),
         "inputs": quad,
+        "checked": True,
+    }, {
+        "name": "lane_gram",
+        "route": "cuda",
+        "source": "spark_gp_tpu_torch/csrc/lane_gram.cu",
+        "replaces": "spark_gp_tpu/ops/distance.py:63",
+        "replaces_note": "no Pallas kernel: XLA's contractions of the mixed lane's "
+                         "_inner_compensated (the fast lane's _inner, distance.py:47, is the "
+                         "kernel's tf32 mode); the lane is an argument of the launch",
+        "launches": sum(slice14["lane_gram"].values()),
+        **{f"launches_{key}": value for key, value in slice14["lane_gram"].items()},
+        "shape": slice14["timing"]["airfoil_ard_self"]["shape"],
+        "mode": "3xtf32",
+        **{key: slice14["timing"]["airfoil_ard_self"][key] for key in keys},
+        "max_abs_err": max(slice14["errs"].values()),
+        "max_abs_err_note": f"over max|x1|^2 + max|x2|^2 (bar {LANE_GRAM_BAR})",
+        "inputs": slice14["timing"],
+        "checks": slice14["errs"],
         "checked": True,
     }]
     # every kernel of the path ran on it

@@ -35,7 +35,11 @@ iteration's ``B``); on the
 matrix-free solver lane (``setSolverLane("matfree")``) every gram-matrix
 product of the regression objective is the hand-written kernel
 ``csrc/streamed_matvec.cu``, and the ``[E, s, s]`` gram stack is never
-built.
+built.  At the ``mixed`` and ``fast`` precision lanes
+(``setPrecisionLane``) every float32 gram and cross kernel runs on the
+TF32 tensor cores through ``csrc/lane_gram.cu`` (3xTF32, or one pass),
+with a fit-time guard against the strict lane; from 2048 active points
+on, the PPA magic solve runs in float64 on the fit's device.
 """
 
 from spark_gp_tpu_torch.kernels import (

@@ -109,6 +109,50 @@ inline void emu_cp_async_cg_shared_global(unsigned dst, const void* src, int byt
 }
 inline void emu_cp_async_wait_all() {}
 
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+// cvt.rna.tf32.f32: round to TF32 (10 mantissa bits), nearest, ties away
+// from zero: the low 13 bits of the magnitude rounded off
+inline void emu_cvt_rna_tf32_f32(uint32_t& r, float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, sizeof u);
+  r = (u + 0x1000u) & ~0x1FFFu;
+}
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32: the warp's 32 threads
+// post their fragments, then each computes its four accumulators (PTX ISA
+// fragment layouts: a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8,
+// q + 4); b0 (k = q, n = g), b1 (k = q + 4, n = g); c_r (g + 8 (r >= 2),
+// 2 q + (r & 1)), with g = lane / 4, q = lane % 4), float32 sums in k order
+inline uint32_t g_mma_a[1024][4];
+inline uint32_t g_mma_b[1024][2];
+inline void emu_mma_sync_aligned_m16n8k8_row_col_f32_tf32_tf32_f32(
+    float& d0, float& d1, float& d2, float& d3, uint32_t a0, uint32_t a1, uint32_t a2,
+    uint32_t a3, uint32_t b0, uint32_t b1, float c0, float c1, float c2, float c3) {
+  const unsigned t = threadIdx.x, base = t / 32 * 32, lane = t % 32;
+  g_mma_a[t][0] = a0; g_mma_a[t][1] = a1; g_mma_a[t][2] = a2; g_mma_a[t][3] = a3;
+  g_mma_b[t][0] = b0; g_mma_b[t][1] = b1;
+  __syncwarp();
+  const unsigned g = lane / 4, q = lane % 4;
+  const float c[4] = {c0, c1, c2, c3};
+  float d[4];
+  for (unsigned r = 0; r < 4; ++r) {
+    const unsigned row = g + (r >= 2 ? 8 : 0), col = 2 * q + (r & 1);
+    float acc = c[r];
+    for (unsigned k = 0; k < 8; ++k) {
+      const float a = __uint_as_float(
+          g_mma_a[base + (row % 8) * 4 + k % 4][(row >= 8 ? 1 : 0) + (k >= 4 ? 2 : 0)]);
+      const float b = __uint_as_float(g_mma_b[base + col * 4 + k % 4][k >= 4 ? 1 : 0]);
+      acc += a * b;
+    }
+    d[r] = acc;
+  }
+  __syncwarp();
+  d0 = d[0]; d1 = d[1]; d2 = d[2]; d3 = d[3];
+}
+
 template <class F>
 void emu_launch(F f, dim3 g, dim3 b, size_t shared_bytes = 0, cudaStream_t = nullptr) {
   gridDim = g;

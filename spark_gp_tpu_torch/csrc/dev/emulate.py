@@ -4,9 +4,11 @@ before it goes to the card.
     python3 spark_gp_tpu_torch/csrc/dev/emulate.py [SOURCE.cu ...]
 
 With no argument it runs ``csrc/streamed_matvec.cu``,
-``csrc/spd_inv_logdet.cu`` and ``csrc/slq_quadrature.cu``; a source is
-checked as K1 if it defines ``spd_inv_logdet_f32``, as the SLQ quadrature
-if it defines ``slq_quadrature_f32``, else as K2.  The source is translated to plain C++
+``csrc/spd_inv_logdet.cu``, ``csrc/slq_quadrature.cu`` and
+``csrc/lane_gram.cu``; a source is checked as K1 if it defines
+``spd_inv_logdet_f32``, as the SLQ quadrature if it defines
+``slq_quadrature_f32``, as the lane gram if it defines ``lane_gram_f32``,
+else as K2.  The source is translated to plain C++
 (``cuda_emu.h`` runs each block as ``blockDim.x`` threads with a real
 barrier and emulated warp shuffles; a launch becomes a loop over blocks,
 ``extern __shared__`` a pointer to the launch's buffer, NaN-filled for each
@@ -33,7 +35,13 @@ against the plain float64 versions:
   2, t = 1100 over the workspace, an indefinite T, a NaN batch mate),
   against the float64 ``eigh`` route: within 1e-5 of max(1, |value|)
   (float32 inputs) and 1e-10 (float64), every matrix's work counted, the
-  workspace NaN-filled.
+  workspace NaN-filled;
+- the lane gram (``ops/lane_gram.py``) on ``LANE_CASES`` (ragged tiles, p
+  over one staged chunk, p = 1, self-grams, inner products) in both
+  modes, against its plain float32 version on the same inputs: within
+  1e-5 of the case's scale (max |x1|^2 + max |x2|^2, or max |x1| max |x2|
+  for inner products), every entry written, self-gram diagonals exactly 0.
+  The emulation's ``mma.sync`` sums each 8-term product in order.
 This checks tiling, staging and bounds; it says nothing about speed, and
 nvcc may still refuse what g++ takes.  Exits 1 if a case misses its bar.
 """
@@ -55,6 +63,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
 
 from spark_gp_tpu_torch.ops import iterative as it_ops  # noqa: E402
+from spark_gp_tpu_torch.ops import lane_gram as lg  # noqa: E402
 from spark_gp_tpu_torch.ops import slq_quadrature as sq  # noqa: E402
 from spark_gp_tpu_torch.ops import spd_linalg as spd  # noqa: E402
 from spark_gp_tpu_torch.ops import streamed_matvec as sm  # noqa: E402
@@ -121,7 +130,7 @@ def _asm_call(body: str) -> str:
     exprs = [op[op.index("("):].strip()[1:-1]
              for section in sections[1:3] for op in _split(section, ",") if op.strip()]
     mnemonic, _, args = template.partition(" ")
-    args = [re.sub(r"%(\d+)", lambda m: f"({exprs[int(m.group(1))]})", a).strip(" []")
+    args = [re.sub(r"%(\d+)", lambda m: f"({exprs[int(m.group(1))]})", a).strip(" []{}")
             for a in args.split(",") if a.strip()]
     return f"emu_{mnemonic.replace('.', '_')}({', '.join(args)});"
 
@@ -152,8 +161,14 @@ def is_slq(source: Path) -> bool:
     return "slq_quadrature_f32" in source.read_text()
 
 
+def is_lane(source: Path) -> bool:
+    return "lane_gram_f32" in source.read_text()
+
+
 def binder(source: Path):
     """The wrapper module's ``bind`` for the source's entry points."""
+    if is_lane(source):
+        return lg.bind
     return spd.bind if is_k1(source) else sq.bind if is_slq(source) else sm.bind
 
 
@@ -368,6 +383,49 @@ def main_slq(lib, rng) -> int:
     return failed
 
 
+#: (batch, n1, n2, p, self-gram, inner products): ragged tiles, 2 x 2
+#: tiles, p over one staged chunk, p = 1 (the Synthetics width), a full
+#: tile, the airfoil fold's ARD self-gram
+LANE_CASES = [(2, 37, 45, 5, False, False), (3, 70, 70, 9, True, False),
+              (1, 20, 130, 33, False, True), (1, 18, 100, 1, False, False),
+              (1, 64, 64, 8, True, False), (2, 97, 97, 5, True, False),
+              (1, 3, 70, 40, False, False)]
+
+
+def check_lane(lib, case, mode: str, rng) -> tuple[float, bool]:
+    """The entry on one case against :func:`lane_gram_plain`: the largest
+    error over the case's scale (infinite where an entry stayed NaN), and
+    whether a self-gram's diagonal is exactly 0."""
+    b, n1, n2, p, self_gram, inner = case
+    x1 = rng.normal(size=(b, n1, p)).astype(np.float32)
+    x2 = x1 if self_gram else rng.normal(size=(b, n2, p)).astype(np.float32)
+    out = np.full((b, n1, n2), np.nan, np.float32)
+    flags = (1 if self_gram else 0) | (2 if inner else 0)
+    err = lib.lane_gram_f32(x1.ctypes.data, x2.ctypes.data, out.ctypes.data, b, n1, n2, p,
+                            lg.MODES[mode], flags, None)
+    if err:
+        raise SystemExit(f"entry returned {err} at {case}")
+    ref = lg.lane_gram_plain(torch.as_tensor(x1), torch.as_tensor(x2), mode, self_gram,
+                             inner).numpy()
+    sq1, sq2 = (np.sum(x.astype(np.float64) ** 2, -1).max() for x in (x1, x2))
+    scale = np.sqrt(sq1 * sq2) if inner else sq1 + sq2
+    rel = float(np.abs(out - ref).max() / scale) if np.isfinite(out).all() else float("inf")
+    diag_ok = not self_gram or bool((np.diagonal(out, axis1=1, axis2=2) == 0.0).all())
+    return rel, diag_ok
+
+
+def main_lane(lib, rng) -> int:
+    failed = 0
+    for case in LANE_CASES:
+        for mode in lg.MODES:
+            rel, diag_ok = check_lane(lib, case, mode, rng)
+            ok = rel <= 1e-5 and diag_ok
+            failed += not ok
+            print(f"{'ok  ' if ok else 'FAIL'} lane_gram {case} {mode}: {rel:.2e}"
+                  f"{'' if diag_ok else ', diagonal not 0'}", flush=True)
+    return failed
+
+
 def main_k1(lib, rng) -> int:
     failed = 0
     print("smem max n", lib.spd_inv_logdet_smem_max_n())
@@ -407,14 +465,16 @@ def main() -> int:
     parser.add_argument("source", nargs="*",
                         default=[str(HERE.parent / "streamed_matvec.cu"),
                                  str(HERE.parent / "spd_inv_logdet.cu"),
-                                 str(HERE.parent / "slq_quadrature.cu")])
+                                 str(HERE.parent / "slq_quadrature.cu"),
+                                 str(HERE.parent / "lane_gram.cu")])
     args = parser.parse_args()
     rng = np.random.default_rng(0)
     failed = 0
     with tempfile.TemporaryDirectory() as tmp:
         for i, source in enumerate(map(Path, args.source)):
             lib = build(source, Path(tmp) / f"libemu{i}.so")
-            main_of = main_k1 if is_k1(source) else main_slq if is_slq(source) else main_k2
+            main_of = (main_k1 if is_k1(source) else main_slq if is_slq(source)
+                       else main_lane if is_lane(source) else main_k2)
             failed += main_of(lib, rng)
     print(f"{failed} failed")
     return 1 if failed else 0

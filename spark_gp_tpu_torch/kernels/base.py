@@ -654,8 +654,12 @@ def supports_gram_cache(kernel: Kernel) -> bool:
 @torch.no_grad()
 def prepare_gram_cache(kernel: Kernel, x):
     """The per-expert theta-invariant cache of an ``[E, s, p]`` stack, one
-    ``prepare`` pass in the stack's dtype on its device; ``None`` when the
-    kernel has no invariant or ``GP_GRAM_CACHE=0``."""
+    ``prepare`` pass in the stack's dtype on its device, on the precision
+    lane in effect (``ops/precision.py``); ``None`` when the kernel has no
+    invariant or ``GP_GRAM_CACHE=0``.  A fit builds it once, so the lane's
+    gram (the mixed lane's 3xTF32 distances) is paid once a fit, and the
+    cached distances are the ones the per-evaluation build would give at
+    that lane."""
     if not supports_gram_cache(kernel):
         return None
     return kernel.prepare(x)

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.kernels.base import ARDHypers, Kernel, StationaryKernel
-from spark_gp_tpu_torch.ops.distance import sq_dist, sq_dist_self, weighted_sq_dist
+from spark_gp_tpu_torch.ops.distance import mxu_inner, sq_dist, sq_dist_self, weighted_sq_dist
 from spark_gp_tpu_torch.ops.streamed_matvec import (
     dot_tile,
     poly_tile,
@@ -155,7 +155,7 @@ class PeriodicKernel(_TwoHyperStationary):
     ``theta = [period, ell]``.  With ``Phi(x) = [cos(2 pi x / period),
     sin(2 pi x / period)]``, ``sum_d cos(2 pi (x_d - x'_d) / period) =
     <Phi(x), Phi(x')>``, so ``k = exp((<Phi, Phi'> - p) / ell^2)``: one
-    feature-map matmul (IEEE float32 on the card, ``ops/precision.py``),
+    feature-map contraction on the gram lane (``ops/distance.mxu_inner``),
     the exponent clamped at 0 so the cancellation of its O(p) terms never
     lifts k above 1."""
 
@@ -170,7 +170,7 @@ class PeriodicKernel(_TwoHyperStationary):
 
     def _k(self, theta, x_a, x_b):
         ell2 = theta[1] * theta[1]
-        cos_sum = self._phi(theta, x_a) @ self._phi(theta, x_b).mT
+        cos_sum = mxu_inner(self._phi(theta, x_a), self._phi(theta, x_b))
         return torch.exp(torch.clamp_max(cos_sum - x_a.shape[-1], 0.0) / ell2)
 
     def gram(self, theta, x):
@@ -302,7 +302,7 @@ class _OneHyper(Kernel):
     def prepare(self, x):
         # the inner products are the theta-invariant cache; the
         # hyperparameter acts elementwise on them
-        return x @ x.mT
+        return mxu_inner(x, x)
 
     def prepare_matvec(self, x):
         return x
@@ -317,13 +317,13 @@ class DotProductKernel(_OneHyper):
         super().__init__(sigma0, lower, upper)
 
     def gram(self, theta, x):
-        return dot_tile(theta, x @ x.mT)
+        return dot_tile(theta, mxu_inner(x, x))
 
     def gram_from_cache(self, theta, cache):
         return dot_tile(theta, cache)
 
     def cross(self, theta, x_test, x_train):
-        return dot_tile(theta, x_test @ x_train.mT)
+        return dot_tile(theta, mxu_inner(x_test, x_train))
 
     def diag(self, theta, x):
         return dot_tile(theta, torch.sum(x * x, dim=-1))
@@ -352,13 +352,13 @@ class PolynomialKernel(_OneHyper):
         return (self.degree,) + super()._spec()
 
     def gram(self, theta, x):
-        return poly_tile(theta, x @ x.mT, self.degree)
+        return poly_tile(theta, mxu_inner(x, x), self.degree)
 
     def gram_from_cache(self, theta, cache):
         return poly_tile(theta, cache, self.degree)
 
     def cross(self, theta, x_test, x_train):
-        return poly_tile(theta, x_test @ x_train.mT, self.degree)
+        return poly_tile(theta, mxu_inner(x_test, x_train), self.degree)
 
     def diag(self, theta, x):
         return poly_tile(theta, torch.sum(x * x, dim=-1), self.degree)

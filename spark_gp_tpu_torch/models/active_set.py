@@ -113,7 +113,12 @@ def _kmeanspp_init(gen: torch.Generator, x, k: int):
 def _lloyd(x, centroids, max_iter: int):
     """``max_iter`` Lloyd steps from ``centroids [k, p]`` over ``x [n, p]``:
     assignment by the squared distance, then each centroid the mean of its
-    points (a one-hot matmul); an empty cluster keeps its centroid."""
+    points (a one-hot matmul); an empty cluster keeps its centroid.  The
+    two contractions ride the precision lanes as the JAX package's do: the
+    distances the gram stage (``ops/distance.sq_dist``), the one-hot sums
+    the linalg stage, which the port runs in IEEE arithmetic on every lane
+    (``ops/precision.py``).  The provider runs in float64, where every
+    lane is the strict one."""
     k = centroids.shape[0]
     for _ in range(max_iter):
         assign = torch.argmin(sq_dist(x, centroids), dim=1)

@@ -256,11 +256,21 @@ class GaussianProcessParams:
         return self
 
     def setPrecisionLane(self, value: str):
-        """``"strict"``, the port's only lane (``ops/precision.py``)."""
-        if value not in ("strict", "mixed", "fast"):
-            raise ValueError("precision lane must be 'strict', 'mixed' or 'fast'")
-        if value != "strict":
-            raise _not_ported(f"the {value!r} precision lane", 14)
+        """Precision lane of the gram contractions (``ops/precision.py``):
+        ``"strict"`` (the default: IEEE float32 everywhere), ``"mixed"``
+        (3xTF32 tensor-core grams, ``ops/lane_gram.py``) or ``"fast"``
+        (1-pass TF32 grams, for experiments).  The factorizations and the
+        float64 PPA statistics, solve and predict are lane-immune.  A
+        fluent veneer over the process-wide setting
+        (``set_precision_lane`` / ``GP_PRECISION_LANE``): it applies to
+        every later fit.  A fit at a non-strict lane checks itself against
+        the strict lane on one probe expert
+        (``mixed_precision_guard.*`` in ``model.metrics``), with a warning
+        (or, under ``GP_GUARD_ACTION=degrade``, a strict-lane re-fit) when
+        the lane's bar is breached."""
+        from spark_gp_tpu_torch.ops.precision import set_precision_lane
+
+        set_precision_lane(value)
         return self
 
     def setAggregationPolicy(self, value: str):
@@ -1187,7 +1197,9 @@ class GaussianProcessCommons(GaussianProcessParams):
         solve -> predictor.  ``active`` is a set selected before the
         optimization (the ELBO's), else the provider selects one at
         ``theta_opt``.  The statistics run in float64 because the normal
-        equations square the conditioning (sigma2 as small as 1e-4)."""
+        equations square the conditioning (sigma2 as small as 1e-4), and
+        stay on the device for the solve (``[m, m]`` is 134 MB at m =
+        4096); the phase ends when they are ready."""
         device = data.x.device
         if active is None:
             with instr.phase("active_set"):
@@ -1203,18 +1215,27 @@ class GaussianProcessCommons(GaussianProcessParams):
                 torch.as_tensor(np.asarray(active, dtype=np.float64), device=device),
                 data64,
             )
-            u1, u2 = u1.cpu().numpy(), u2.cpu().numpy()
-        return self._build_predictor(instr, kernel, theta_opt, active, u1, u2, device)
+            if u1.is_cuda:
+                torch.cuda.synchronize(u1.device)
+        return self._build_predictor(instr, kernel, theta_opt, active, u1, u2, device, data)
 
     def _build_predictor(
-        self, instr: Instrumentation, kernel: Kernel, theta, active, u1, u2, device
+        self, instr: Instrumentation, kernel: Kernel, theta, active, u1, u2, device,
+        data: Optional[ExpertData] = None,
     ) -> ppa.ProjectedProcessRawPredictor:
+        """The magic solve (``ppa.magic_solve``: on the host, or on the
+        fit's device from ``ppa._DEVICE_SOLVE_MIN_M`` active points on, on
+        the statistics ``u1``, ``u2`` where the fit built them), the
+        fit-time precision guard on ``data`` (the fitted stack), and the
+        predictor, which downloads the statistics only where it keeps
+        them."""
         active64 = np.asarray(active, dtype=np.float64)
         with instr.phase("magic_solve"):
             magic_vector, magic_matrix = ppa.magic_solve(
                 kernel, theta, active64, u1, u2,
-                with_variance=self._predictive_variance,
+                with_variance=self._predictive_variance, device=device,
             )
+        self._emit_precision_guard(instr, kernel, theta, data)
         return ppa.ProjectedProcessRawPredictor(
             kernel=kernel,
             theta=np.asarray(theta, dtype=np.float64),
@@ -1224,10 +1245,82 @@ class GaussianProcessCommons(GaussianProcessParams):
             # kept only where they sum over the raw targets (regression),
             # so that model.update() can fold new rows in; the Laplace
             # families' statistics sum over latent targets
-            u1=np.asarray(u1, dtype=np.float64) if self._keeps_update_statistics else None,
-            u2=np.asarray(u2, dtype=np.float64) if self._keeps_update_statistics else None,
+            u1=ppa._host64(u1) if self._keeps_update_statistics else None,
+            u2=ppa._host64(u2) if self._keeps_update_statistics else None,
             device=str(device),
         )
+
+    def _emit_precision_guard(self, instr: Instrumentation, kernel: Kernel, theta,
+                              data: Optional[ExpertData]) -> None:
+        """The fit-time accuracy check of the precision lanes.
+
+        Stamps the lane (``precision_lane``) on every fit.  At a non-strict
+        lane it evaluates the objective and its gradient through the
+        lane's gram (``likelihood.guard_probe_value_and_grad``: the gram
+        at the lane, the linear algebra in float64) on the first expert,
+        at the fitted lane and at strict, and records the relative deltas
+        ``mixed_precision_guard.delta_{nll,grad}_rel``, ``.delta_predict_rel``
+        (0: the predict is float64, which no lane reaches) and
+        ``.breach`` (1 where the worst exceeds ``GUARD_BARS[lane]`` or is
+        not finite).  A breach warns; under ``GP_GUARD_ACTION=degrade`` it
+        raises ``GuardBreachError`` into the degradation ladder, whose
+        ``strict_lane`` rung re-runs the fit on the strict lane.  A
+        multiclass stack probes its first latent head."""
+        from spark_gp_tpu_torch.models.likelihood import guard_probe_value_and_grad
+        from spark_gp_tpu_torch.ops import precision
+
+        lane = precision.active_lane()
+        instr.metrics["precision_lane"] = lane
+        # an earlier attempt's guard (the breach the strict_lane rung
+        # re-runs) is not this fit's
+        for key in [k for k in instr.metrics if k.startswith("mixed_precision_guard.")]:
+            del instr.metrics[key]
+        if lane == "strict" or data is None:
+            return
+        x_p, mask_p = data.x[:1], data.mask[:1]
+        y_p = data.y[:1] if data.y.ndim == 2 else data.y[:1, :, 0]
+        theta_p = torch.as_tensor(np.asarray(theta, dtype=np.float64), dtype=data.x.dtype,
+                                  device=data.x.device)
+
+        def probe(lane_name):
+            nll, grad = guard_probe_value_and_grad(kernel, theta_p, x_p, y_p, mask_p,
+                                                   lane=lane_name)
+            host = torch.cat([nll.reshape(1), grad.reshape(-1)]).cpu().numpy()
+            return float(host[0]), host[1:]
+
+        nll_s, grad_s = probe("strict")
+        nll_l, grad_l = probe(lane)
+
+        def rel(delta, scale):
+            return float(delta / max(scale, 1e-30))
+
+        # each leg's scale is floored at the probe's row count (the JAX
+        # package's floor: a per-point NLL term is O(1)), so a near-zero
+        # strict value cannot turn a healthy O(eps) delta into a breach
+        nll_scale = max(abs(nll_s), float(mask_p.to(torch.float64).sum()), 1.0)
+        d_nll = rel(abs(nll_l - nll_s), nll_scale)
+        d_grad = rel(float(np.max(np.abs(grad_l - grad_s), initial=0.0)),
+                     max(float(np.max(np.abs(grad_s), initial=0.0)), nll_scale))
+        instr.log_metric("mixed_precision_guard.delta_nll_rel", d_nll)
+        instr.log_metric("mixed_precision_guard.delta_grad_rel", d_grad)
+        # predict runs in float64 (``ProjectedProcessRawPredictor._predict_block``),
+        # which no lane reaches
+        instr.log_metric("mixed_precision_guard.delta_predict_rel", 0.0)
+        bar = precision.GUARD_BARS.get(lane, 1e-3)
+        worst = float(np.max([d_nll, d_grad]))  # NaN propagates: a NaN leg breaches
+        breach = float(not np.isfinite(worst) or worst > bar)
+        instr.log_metric("mixed_precision_guard.breach", breach)
+        if breach:
+            instr.log_warning(
+                f"mixed_precision_guard: lane {lane!r} deviates from the strict lane "
+                f"beyond its bar ({worst:.3e} > {bar:.1e}) on the probe expert -- this "
+                "kernel/data combination should run on the strict lane "
+                "(setPrecisionLane('strict'))"
+            )
+            from spark_gp_tpu_torch.resilience import fallback
+
+            if precision.guard_action() == "degrade" and fallback.enabled():
+                raise fallback.GuardBreachError(lane, worst, bar)
 
     def _emit_solver_stats(self, metrics: dict, kernel: Kernel, theta,
                            data: ExpertData) -> None:

@@ -21,6 +21,12 @@ computed, as in the JAX package:
   ``alpha = K^-1 y``; anything else (the CPU, float64, larger experts)
   one batched Cholesky, one vector solve and the logdet from the
   diagonal.
+
+Every evaluation runs on the precision lane in effect
+(``ops/precision.py``: ``precision_lane_scope`` is the one way to pin
+it); the device objective resolves it once a fit and pins it around its
+captured step.  :func:`guard_probe_value_and_grad` evaluates one probe
+stack at an explicit lane for the fit-time precision guard.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack, supports_matfree
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops.linalg import chol_logdet, chol_solve, cholesky, trace_scale
+from spark_gp_tpu_torch.ops.precision import precision_lane_scope
 from spark_gp_tpu_torch.ops.spd_linalg import kernel_applies, spd_inv_logdet
 from spark_gp_tpu_torch.parallel.experts import ExpertData
 
@@ -191,7 +198,8 @@ def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
     ``(active [m, p] numpy, sigma2)``): theta is cast to the stack's dtype
     and device, and the value and gradient come back to the host in one
     transfer.  ``cache``: as for :func:`batched_nll`, resident on the
-    device across evaluations."""
+    device across evaluations.  Each evaluation runs on the precision lane
+    in effect at its call."""
     fn = objective_fn(objective)
     extra = _objective_operands(data, objective, extra)
 
@@ -206,6 +214,34 @@ def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
         return float(host[0]), host[1:]
 
     return vag
+
+
+def guard_probe_value_and_grad(kernel: Kernel, theta, x, y, mask, *, lane: str):
+    """``(NLL, grad)`` of one probe stack at an explicit precision ``lane``:
+    the objective leg of the fit-time precision guard
+    (``models/common._emit_precision_guard``).  Like the fit, the probe
+    builds the kernel's gram cache when it has one -- under the probed
+    lane, so the lane's cache build is part of what the guard compares --
+    and the masked gram from it, in the stack's dtype.  The NLL and its
+    gradient through that gram are then taken in float64 by one Cholesky,
+    whatever solver lane the fit ran: the port's linear-algebra stage
+    reads no lane (K1, the SPD VJP and the CG engine run the same float32
+    arithmetic on every lane), so the gram is the one thing a lane
+    changes, and the guard measures it rather than float32 rounding that
+    every lane shares -- on an airfoil expert at sigma2 1e-4 the strict
+    lane's own float32 inverse route leaves its gradient 1e-2 .. 4e-2 from
+    float64 (PERF.md §6) -- or the CG lanes' stochastic log-det.
+    ``theta`` is a tensor in the stack's dtype and device; the value and
+    gradient come back in float64."""
+    from spark_gp_tpu_torch.kernels.base import prepare_gram_cache
+
+    with precision_lane_scope(lane), torch.enable_grad():
+        cache = prepare_gram_cache(kernel, x)
+        t = theta.detach().clone().requires_grad_(True)
+        kmat = masked_gram_stack(kernel, t, x, mask, cache).to(torch.float64)
+        value = nll_from_cholesky(kmat, (y * mask).to(torch.float64))
+        (grad,) = torch.autograd.grad(value, t)
+    return value.detach(), grad.to(torch.float64)
 
 
 # --- the on-device optimizer's objectives and fits -----------------------------
@@ -301,14 +337,19 @@ def make_device_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
     """``thetas [R, h] -> (values [R], grads [R, h])`` of ``objective`` on the
     stack's device, nothing read back to the host: the function the device
     optimizer's captured step evaluates.  ``extra`` as for
-    :func:`make_value_and_grad`."""
+    :func:`make_value_and_grad`.  The precision lane in effect is resolved
+    here, once a fit, and pinned around every evaluation, so the captured
+    step holds that lane's gram."""
+    from spark_gp_tpu_torch.ops.precision import active_lane
+
     fn = lanes_objective(objective)
     extra = _objective_operands(data, objective, extra)
+    lane = active_lane()
     # the CG lanes' probes, drawn at the fit's first evaluation and kept
     probes = it_ops.ProbeSet(experts=data.num_experts)
 
     def vag(thetas):
-        with torch.enable_grad(), it_ops.probe_scope(probes):
+        with torch.enable_grad(), it_ops.probe_scope(probes), precision_lane_scope(lane):
             t = thetas.detach().requires_grad_(True)
             values = fn(kernel, t, data, cache, *extra)
             (grad,) = torch.autograd.grad(values.sum(), t)

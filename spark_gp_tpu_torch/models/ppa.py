@@ -9,8 +9,11 @@ the predictor (R&W ch. 8.3.4).
 * Solve -- with ``sn2`` the total white-noise variance of the fitted
   noise-augmented kernel, ``PD = sn2 K_mm + U1``:
   ``magicVector = PD^-1 u2`` (``[m]`` or ``[m, C]``) and ``magicMatrix = sn2 PD^-1 - K_mm^-1``,
-  in host float64 numpy/scipy (Cholesky factors are the PD check, under
-  the jitter ladder of ``ops/linalg.py``).
+  in float64, the Cholesky factors being the PD check under the jitter
+  ladder of ``ops/linalg.py``: on the host (numpy / scipy) below
+  ``_DEVICE_SOLVE_MIN_M`` active points, on the model's device from there
+  on (:func:`magic_solve_device`, under the ``ppa`` degradation ladder,
+  whose last rung is the host solve).
 * Predict -- ``mean = k(x, A) magicVector`` (``[t]`` or ``[t, C]``) and
   ``var = k(x, x) + k(x, A) magicMatrix k(x, A)^T``, the cross kernel and
   its contractions in float64, returned in the working dtype, in chunks
@@ -26,12 +29,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import logging
+
 import numpy as np
 import torch
 from scipy.linalg import solve_triangular
 
-from spark_gp_tpu_torch.kernels.base import Kernel
-from spark_gp_tpu_torch.ops.linalg import psd_safe_cholesky_np
+from spark_gp_tpu_torch.kernels.base import Kernel, prepare_gram_cache
+from spark_gp_tpu_torch.ops.linalg import (
+    JITTER_SCHEDULE,
+    NotPositiveDefiniteException,
+    psd_safe_cholesky_np,
+)
 from spark_gp_tpu_torch.parallel.experts import ExpertData
 from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
 
@@ -77,18 +86,48 @@ def _chol_solve_np(chol_l, b):
     return solve_triangular(chol_l, y, lower=True, trans=1)
 
 
-@torch.no_grad()
+#: from this many active points on, the O(m^3) magic solve runs on the
+#: model's device (:func:`magic_solve_device`); below it on the host, where
+#: it is milliseconds and needs no transfer (the JAX package's threshold)
+_DEVICE_SOLVE_MIN_M = 2048
+
+
 def magic_solve(kernel: Kernel, theta, active, u1, u2,
-                with_variance: bool = True):
-    """Host float64 solve for ``(magicVector, magicMatrix)``; the matrix is
-    ``None`` when ``with_variance`` is False.  Raises
-    ``NotPositiveDefiniteException`` when the jitter ladder is exhausted."""
-    theta64 = torch.as_tensor(np.asarray(theta, dtype=np.float64))
-    active64 = torch.as_tensor(np.asarray(active, dtype=np.float64))
+                with_variance: bool = True, device=None):
+    """Float64 solve for ``(magicVector, magicMatrix)``; the matrix is
+    ``None`` when ``with_variance`` is False.  Dispatches by m: the host
+    solve (:func:`_host_magic_solve`) below :data:`_DEVICE_SOLVE_MIN_M`,
+    else :func:`magic_solve_device` on ``device`` (``None``: ``cuda``)
+    under the ``ppa`` ladder (``resilience/fallback.run_ppa_solve_ladder``:
+    an OOM or compile failure re-runs the solve on the host).  Raises
+    ``NotPositiveDefiniteException`` when the jitter ladder is exhausted,
+    on either path."""
+    if np.asarray(active).shape[0] >= _DEVICE_SOLVE_MIN_M:
+        from spark_gp_tpu_torch.resilience.fallback import run_ppa_solve_ladder
+
+        return run_ppa_solve_ladder(
+            lambda: magic_solve_device(kernel, theta, active, u1, u2, with_variance, device),
+            lambda: _host_magic_solve(kernel, theta, active, u1, u2, with_variance),
+        )
+    return _host_magic_solve(kernel, theta, active, u1, u2, with_variance)
+
+
+def _host64(a) -> np.ndarray:
+    """``a`` (numpy, or a tensor on any device) as float64 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
+@torch.no_grad()
+def _host_magic_solve(kernel: Kernel, theta, active, u1, u2, with_variance: bool = True):
+    """The host float64 solve (numpy / scipy): the small-m path and the
+    ``ppa`` ladder's last rung.  The operands may be numpy or tensors on
+    any device."""
+    theta64, active64 = torch.tensor(_host64(theta)), torch.tensor(_host64(active))
     kmm = kernel.gram(theta64, active64).numpy()
     sn2 = float(kernel.white_noise_var(theta64))
-    u1 = np.asarray(u1, dtype=np.float64)
-    u2 = np.asarray(u2, dtype=np.float64)
+    u1, u2 = _host64(u1), _host64(u2)
 
     l_pd = psd_safe_cholesky_np(sn2 * kmm + u1, "sigma2*K_mm + Kmn*Knm")
     magic_vector = _chol_solve_np(l_pd, u2)
@@ -98,6 +137,87 @@ def magic_solve(kernel: Kernel, theta, active, u1, u2,
     eye = np.eye(kmm.shape[0])
     magic_matrix = sn2 * _chol_solve_np(l_pd, eye) - _chol_solve_np(l_mm, eye)
     return magic_vector, magic_matrix
+
+
+def _device_factor(mat: torch.Tensor, tau: float, name: str):
+    """``(L, bad)``: one factorization attempt of ``0.5 (mat + mat^T) +
+    tau * trace / m * I`` (``name`` says which matrix: ``"PD"`` or
+    ``"K_mm"``), and a device flag that it failed."""
+    m = mat.shape[-1]
+    sym = 0.5 * (mat + mat.mT)
+    eye = torch.eye(m, dtype=mat.dtype, device=mat.device)
+    chol_l, info = torch.linalg.cholesky_ex(sym + (tau * torch.trace(sym) / m) * eye)
+    bad = (info != 0) | ~torch.isfinite(torch.diagonal(chol_l)).all()
+    return chol_l, bad
+
+
+def _device_chol_solve(chol_l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    y = torch.linalg.solve_triangular(chol_l, b, upper=False)
+    return torch.linalg.solve_triangular(chol_l.mT, y, upper=True)
+
+
+@torch.no_grad()
+def magic_solve_device(kernel: Kernel, theta, active, u1, u2, with_variance: bool = True,
+                       device=None):
+    """The float64 magic solve on ``device`` (``None``: ``cuda``; a CPU
+    model runs the same code on the CPU) for large active sets:
+    ``torch.linalg.cholesky_ex`` of the symmetrized matrices under the
+    trace-relative jitter schedule (``ops/linalg.JITTER_SCHEDULE``), driven
+    from the host: each attempt factors the matrices still failing and its
+    failure flags are read once on the host.  Each factor walks the
+    schedule on its own, as the host solve's factors do, so the two solves
+    agree where one factor needs jitter and the other none, and a
+    mean-only solve (``with_variance=False``, which never factors K_mm)
+    gives the full solve's magic vector.  The active set's gram cache is
+    built once, before the schedule.  Takes ``u2 [m]`` or ``[m, C]``, as
+    numpy or as tensors (the fit passes its statistics where it built
+    them, so nothing crosses to the host and back before the solve);
+    returns float64 numpy ``(magicVector, magicMatrix or None)``.  A staged
+    fault at the ``ppa.magic_solve`` choke point (``resilience/chaos.py``)
+    raises where an allocator failure on the ``[m, m]`` solve would."""
+    from spark_gp_tpu_torch.resilience import chaos
+
+    chaos.maybe_injected_failure("ppa.magic_solve")
+    dev = resolve_device(device)
+
+    def put(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev, torch.float64)
+        return torch.tensor(np.asarray(a, dtype=np.float64), device=dev)
+
+    theta_d, active_d, u1_d, u2_d = put(theta), put(active), put(u1), put(u2)
+    cache = prepare_gram_cache(kernel, active_d)
+    kmm = kernel.gram(theta_d, active_d) if cache is None else \
+        kernel.gram_from_cache(theta_d, cache)
+    sn2 = kernel.white_noise_var(theta_d)
+    mats = {"PD": sn2 * kmm + u1_d}
+    if with_variance:
+        mats["K_mm"] = kmm
+    factors, taus = {}, {}
+    for tau in JITTER_SCHEDULE:
+        attempt = {name: _device_factor(mat, tau, name)
+                   for name, mat in mats.items() if name not in factors}
+        bad = torch.stack([flag for _, flag in attempt.values()]).cpu().tolist()
+        for (name, (chol_l, _)), failed in zip(attempt.items(), bad):
+            if not failed:
+                factors[name], taus[name] = chol_l, tau
+        if len(factors) == len(mats):
+            break
+    else:
+        raise NotPositiveDefiniteException()
+    for name, tau in taus.items():
+        if tau:
+            logging.getLogger("spark_gp_tpu_torch").warning(
+                "device magic solve: %s required relative jitter %.3e for positive "
+                "definiteness", name, tau)
+    rhs = u2_d if u2_d.ndim == 2 else u2_d[:, None]
+    mv = _device_chol_solve(factors["PD"], rhs)
+    mv = mv if u2_d.ndim == 2 else mv[:, 0]
+    if not with_variance:
+        return mv.cpu().numpy(), None
+    eye = torch.eye(kmm.shape[0], dtype=kmm.dtype, device=dev)
+    mm = sn2 * _device_chol_solve(factors["PD"], eye) - _device_chol_solve(factors["K_mm"], eye)
+    return mv.cpu().numpy(), mm.cpu().numpy()
 
 
 @dataclass
@@ -127,7 +247,7 @@ class ProjectedProcessRawPredictor:
         """A new predictor with ``(x_new, y_new)`` folded into the
         statistics (``U1 += C C^T``, ``u2 += C y``, ``C = K(A, x_new)``,
         in float64 on the predictor's device, in chunks that cap ``C``),
-        then the host magic solve at the same theta and active set.  The
+        then the magic solve (:func:`magic_solve`) at the same theta and active set.  The
         projected process with its inducing set and kernel held fixed:
         refit when the new rows may move the hyperparameters."""
         if self.u1 is None or self.u2 is None:
@@ -162,11 +282,11 @@ class ProjectedProcessRawPredictor:
                 cross = self.kernel.cross(theta, active, xt[start:start + chunk])  # [m, c]
                 u1 = u1 + cross @ cross.T
                 u2 = u2 + cross @ yt[start:start + chunk]
-        u1, u2 = u1.cpu().numpy(), u2.cpu().numpy()
         magic_vector, magic_matrix = magic_solve(
             self.kernel, self.theta, self.active, u1, u2,
-            with_variance=self.magic_matrix is not None,
+            with_variance=self.magic_matrix is not None, device=device,
         )
+        u1, u2 = u1.cpu().numpy(), u2.cpu().numpy()
         return ProjectedProcessRawPredictor(
             kernel=self.kernel, theta=self.theta, active=self.active,
             magic_vector=magic_vector, magic_matrix=magic_matrix,

@@ -95,6 +95,11 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("solver.matfree_engaged", "metric", "1 when the matrix-free streamed-matvec lane executed the fit (0: matfree requested but the kernel carries no matvec — materialized fallback ran)"),
     MetricName("solver.matvec_tiles", "metric", "matfree lane: row panels per streamed gram.vector pass (ceil(s / GP_MATVEC_TILE))"),
     MetricName("gram_cache_engaged", "metric", "1 when the theta-invariant gram cache served the fit hot loop"),
+    MetricName("precision_lane", "metric", "precision lane the fit ran at (strict/mixed/fast -- ops/precision.py)"),
+    MetricName("mixed_precision_guard.delta_nll_rel", "metric", "guard: relative NLL delta vs strict on the probe expert"),
+    MetricName("mixed_precision_guard.delta_grad_rel", "metric", "guard: relative gradient delta vs strict on the probe expert"),
+    MetricName("mixed_precision_guard.delta_predict_rel", "metric", "guard: relative posterior-mean delta vs strict (0: the predict is float64, which no lane reaches)"),
+    MetricName("mixed_precision_guard.breach", "metric", "guard: 1 when a delta exceeded the lane's bar (GUARD_BARS) or was not finite"),
     MetricName("agg.policy", "metric", "expert aggregation policy the fit engaged (poe/gpoe/rbcm/healed — models/aggregation.py)"),
     MetricName("agg.effective_experts", "metric", "participation ratio (sum w)^2 / sum w^2 of the per-expert weights"),
     MetricName("agg.selection_dropped", "metric", "experts masked out by fit-time redundancy selection"),
@@ -166,7 +171,7 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("optimize_hypers", "phase", "hyperparameter optimization"),
     MetricName("active_set", "phase", "active-set provider selection"),
     MetricName("kmn_stats", "phase", "distributed (U1, u2) accumulation"),
-    MetricName("magic_solve", "phase", "host f64 PPA magic solve"),
+    MetricName("magic_solve", "phase", "f64 PPA magic solve (host below ppa._DEVICE_SOLVE_MIN_M active points, the model's device from there)"),
     # -- runtime telemetry (obs/runtime.py) --------------------------------
     MetricName("kernel.builds.*", "counter", "nvcc builds of a hand-written CUDA kernel source", label="kernel"),
     MetricName("kernel.launches.*", "counter", "launches of a hand-written CUDA kernel by its wrapper", label="kernel"),

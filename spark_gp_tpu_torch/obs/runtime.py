@@ -325,7 +325,7 @@ def write_run_journal(instr, root, capture: Optional[FitCapture],
         "trace_id": trace_token if trace_token is not None else active_trace_token(),
         "pid": os.getpid(),
         "build_info": build_info(),
-        "precision_lane": active_lane(),
+        "precision_lane": metrics.get("precision_lane", active_lane()),
         "solver_lane": metrics.get("solver_lane", active_solver_lane()),
         "mesh": None,
         "timings": dict(getattr(instr, "timings", {})),

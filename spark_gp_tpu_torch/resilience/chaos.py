@@ -13,7 +13,9 @@ ordinary deterministic tests:
 * :func:`oom_after_calls` / :func:`failing_compile` -- execution faults
   for the degradation ladder (``resilience/fallback.py``), raised at the
   choke points (:func:`maybe_injected_failure`: ``fit.host`` before the
-  host optimizer, ``predict.chunk`` before each predict dispatch).  An
+  host optimizer, ``predict.chunk`` before each predict dispatch,
+  ``ppa.magic_solve`` before the device magic solve, where an allocator
+  failure on its ``[m, m]`` buffers would surface).  An
   injected OOM is a genuine ``torch.cuda.OutOfMemoryError`` in the
   caching allocator's wording, so the classifier and every ``except``
   clause see what a real allocator failure looks like.  Env channel:
@@ -152,7 +154,8 @@ def _oom(message: str) -> torch.cuda.OutOfMemoryError:
 def maybe_injected_failure(op: str, rows: Optional[int] = None,
                            nbytes: Optional[float] = None) -> None:
     """The execution-failure trigger point, called before the work it
-    names (``fit.host``, ``predict.chunk``):
+    names (``fit.host``, ``predict.chunk``, ``ppa.magic_solve``, the
+    device fits' ``fit.device.*``):
 
     * **memory budget** (:func:`memory_limit_bytes`): work whose modeled
       byte cost ``nbytes`` exceeds the staged limit raises the OOM;

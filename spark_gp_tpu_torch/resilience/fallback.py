@@ -20,8 +20,10 @@ fallback re-execution (the port's copy of the JAX package's
   checkpoint interval, with an in-memory saver) -> ``host_f64`` (the
   same fit with float64 operands ON THE CARD, under the host optimizer);
   the solver rungs apply to host and device-optimizer fits alike (the
-  device loop runs on every lane), and ``strict_lane`` waits for the
-  mixed precision lanes.  No rung moves a fit to the CPU.  With a
+  device loop runs on every lane); a fit-time precision guard breach
+  under ``GP_GUARD_ACTION=degrade`` (:class:`GuardBreachError`) takes the
+  ``strict_lane`` rung, the same fit pinned to the strict precision lane
+  on its thread.  No rung moves a fit to the CPU.  With a
   device budget, the memory planner picks the starting rung of a
   device-optimizer fit (``memplan.plan_fit_dispatch``).  Predict: chunk halving
   on OOM, then the last rung (the JAX package's ``host_solve``), which
@@ -33,9 +35,11 @@ fallback re-execution (the port's copy of the JAX package's
   ONE :class:`DegradationExhaustedError` naming the class and the rung
   history, the last failure chained.
 
+* the magic solve's ladder (:func:`run_ppa_solve_ladder`):
+  ``device_solve`` -> ``host_solve`` on an OOM or compile failure.
+
 ``run_distributed_ladder`` waits for the port's mesh (ROADMAP.md queue
-1, item 6) and ``run_ppa_solve_ladder`` for a device magic solve (item
-11): the port solves on the host at every m.
+1, item 6).
 """
 
 from __future__ import annotations
@@ -89,8 +93,9 @@ _COMPILE_MARKERS = (
 
 class GuardBreachError(RuntimeError):
     """A non-strict precision lane breached its accuracy bar at fit time
-    (the JAX package's ``GP_GUARD_ACTION=degrade``); the port runs the
-    strict lane only, so nothing raises it yet."""
+    (``models/common._emit_precision_guard``) under
+    ``GP_GUARD_ACTION=degrade``: the ladder turns it into a strict-lane
+    re-fit."""
 
     def __init__(self, lane: str, worst: float, bar: float):
         super().__init__(
@@ -315,7 +320,10 @@ def _fit_rung_applies(est, rung: str, cls: str, visited, data=None) -> bool:
             and est._num_restarts == 1
             and est._resolved_optimizer() == "device"
         )
-    # strict_lane: the mixed precision lanes (item 14)
+    if rung == "strict_lane":
+        from spark_gp_tpu_torch.ops.precision import active_lane
+
+        return active_lane() != "strict"
     return False
 
 
@@ -331,10 +339,17 @@ def _fit_rung_scope(est, rung: str):
     """Bind one rung's overrides for the span of an attempt: the solver
     rungs pin this thread's lane (``solver_lane_scope``, which outranks a
     caller's own scope outside it and leaves other threads' fits alone),
+    ``strict_lane`` this thread's precision lane (``precision_lane_scope``),
     ``segmented`` and ``host_f64`` set ``est._fallback_mode``
     (``common._fallback_segmented``, ``common._host_f64_operands``)."""
     if rung == "native":
         yield
+        return
+    if rung == "strict_lane":
+        from spark_gp_tpu_torch.ops.precision import precision_lane_scope
+
+        with precision_lane_scope("strict"):
+            yield
         return
     if rung in ("iterative", "matfree"):
         from spark_gp_tpu_torch.ops.iterative import solver_lane_scope
@@ -467,3 +482,21 @@ def run_predict_ladder(attempt_at_chunk: Callable[[int], object],
                 raise err from exc
             _dump_predict_incident(exc, cls, degradations)
             raise
+
+
+def run_ppa_solve_ladder(device_attempt: Callable, host_attempt: Callable):
+    """The magic solve's ladder (``models/ppa.magic_solve``): an OOM or a
+    compile failure of the device float64 solve re-runs the same solve on
+    the host (``device_solve`` -> ``host_solve``, counted).  Anything else,
+    ``NotPositiveDefiniteException`` among it, is re-raised as it was: the
+    ladder changes where the solve runs, never the jitter policy."""
+    if not enabled():
+        return device_attempt()
+    try:
+        return device_attempt()
+    except Exception as exc:  # classified-failure-site: taxonomy dispatch
+        cls = record_failure(exc, entry="ppa")
+        if cls not in (OOM, COMPILE):
+            raise
+        _record_transition("ppa", cls, "device_solve", "host_solve", exc)
+        return host_attempt()

@@ -9,7 +9,7 @@ memory-pressure admission (the port's copy of the JAX package's
 * **canary rollout with auto-rollback** -- a new version takes a
   deterministic slice of default traffic while its answers are
   shadow-scored against the incumbent's on the same rows; a delta past
-  the bar (the JAX package's mixed-lane guard bar, 1e-2) or repeated
+  the bar (the mixed lane's guard bar, 1e-2) or repeated
   errors roll it back and quarantine the version, enough clean scores
   promote it (the predecessor's graphs are released by retention);
 * **hang watchdog** -- a dispatch past its hang deadline trips the
@@ -38,6 +38,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from spark_gp_tpu_torch.obs import trace as obs_trace
+from spark_gp_tpu_torch.ops.precision import GUARD_BARS
 
 
 class DrainingError(RuntimeError):
@@ -407,10 +408,10 @@ class MemoryAdmissionGate:
 # --------------------------------------------------------------------------
 
 
-#: the JAX package's ``GUARD_BARS["mixed"]`` (its ``ops/precision.py``):
-#: the mixed lane's calibrated "predictions drifted more than numerics can
-#: explain" bar, the canary's default shadow-delta bar
-MIXED_GUARD_BAR = 1e-2
+#: the mixed lane's guard bar (``ops/precision.GUARD_BARS["mixed"]``): its
+#: calibrated "predictions drifted more than numerics can explain" bar, the
+#: canary's default shadow-delta bar
+MIXED_GUARD_BAR = GUARD_BARS["mixed"]
 
 
 def _default_predict_bar() -> float:

@@ -14,7 +14,12 @@ and its clean fit on the host optimizer) ends each fit after one
 ``final_nll`` within 1e-2 relative of its clean fit's and the other
 package's; the same limit under the caller's ``solver_lane_scope("exact")``
 ends on ``iterative`` too.  The predict ladder's halvings, and its last
-rung, give predictions within 1e-12 of the clean predict."""
+rung, give predictions within 1e-12 of the clean predict.  A precision
+guard breach (the mixed lane's bar forced below 0) under
+``GP_GUARD_ACTION=degrade`` takes one ``native -> strict_lane``
+transition in both packages and ends at the strict fit's theta bit for
+bit; under ``log`` it only warns; ``GP_GUARD_ACTION`` is validated with
+the JAX package's message."""
 
 import _torch_env  # noqa: F401  (one PyTorch thread per test process)
 
@@ -275,3 +280,89 @@ def test_predict_ladder_halvings_match_the_clean_predict():
     assert fired[0] == 1 + fallback.MAX_PREDICT_HALVINGS
     assert telemetry.snapshot()["counters"]["fallback.rung.host_solve"] == host + 1
     np.testing.assert_allclose(mean, clean_mean, rtol=0, atol=1e-12)
+
+
+# -- the precision guard's breach -------------------------------------------
+
+
+@pytest.fixture
+def forced_guard_breach(monkeypatch):
+    """Both packages at the mixed lane with its guard bar below 0, so any
+    guard breaches (the JAX package's tests/test_fallback.py fixture)."""
+    from spark_gp_tpu.ops import precision as j_precision
+    from spark_gp_tpu_torch.ops import precision
+
+    monkeypatch.setitem(precision.GUARD_BARS, "mixed", -1.0)
+    monkeypatch.setitem(j_precision.GUARD_BARS, "mixed", -1.0)
+    prev = precision.set_precision_lane("mixed"), j_precision.set_precision_lane("mixed")
+    yield
+    precision.set_precision_lane(prev[0])
+    j_precision.set_precision_lane(prev[1])
+
+
+def test_guard_breach_degrades_to_the_strict_lane(forced_guard_breach, monkeypatch):
+    """``GP_GUARD_ACTION=degrade``: the breaching fit re-runs on the strict
+    lane, one ``guard_breach`` transition ``native -> strict_lane`` in each
+    package; the port's re-fit is the strict fit (theta bit-equal) and
+    records the strict lane and no guard."""
+    monkeypatch.setenv("GP_GUARD_ACTION", "degrade")
+    x, y = _data(200)
+    j_model = _gp(jgp).fit(x, y)
+    model = _gp(tgp, device="cpu").fit(x, y)
+    assert _history(model.degradations) == _history(j_model.degradations) == [
+        ("fit", "guard_breach", "native", "strict_lane")]
+    assert model.metrics["precision_lane"] == "strict"
+    assert not any(k.startswith("mixed_precision_guard.") for k in model.metrics)
+    from spark_gp_tpu_torch.ops.precision import precision_lane_scope
+
+    with precision_lane_scope("strict"):
+        strict = _gp(tgp, device="cpu").fit(x, y)
+    assert np.array_equal(model.raw_predictor.theta, strict.raw_predictor.theta)
+
+
+def test_guard_breach_only_warns_by_default(forced_guard_breach, monkeypatch):
+    monkeypatch.delenv("GP_GUARD_ACTION", raising=False)
+    x, y = _data(200)
+    before = telemetry.snapshot()["counters"].get("fallback.transitions", 0.0)
+    model = _gp(tgp, device="cpu").fit(x, y)
+    assert not model.degradations
+    assert telemetry.snapshot()["counters"].get("fallback.transitions", 0.0) == before
+    assert model.metrics["mixed_precision_guard.breach"] == 1.0
+    assert model.metrics["precision_lane"] == "mixed"
+    # the kill switch keeps the breach a warning even under degrade
+    monkeypatch.setenv("GP_GUARD_ACTION", "degrade")
+    monkeypatch.setenv("GP_FALLBACK", "0")
+    assert _gp(tgp, device="cpu").fit(x, y).metrics["mixed_precision_guard.breach"] == 1.0
+
+
+def test_guard_action_is_validated(monkeypatch):
+    from spark_gp_tpu.ops import precision as j_precision
+    from spark_gp_tpu_torch.ops import precision
+
+    monkeypatch.delenv("GP_GUARD_ACTION", raising=False)
+    assert precision.guard_action() == j_precision.guard_action() == "log"
+    monkeypatch.setenv("GP_GUARD_ACTION", " Degrade ")
+    assert precision.guard_action() == "degrade"
+    monkeypatch.setenv("GP_GUARD_ACTION", "panic")
+    for pkg in (precision, j_precision):
+        with pytest.raises(ValueError, match=r"GP_GUARD_ACTION='panic' is not supported; "
+                                             r"use one of \['degrade', 'log'\]"):
+            pkg.guard_action()
+
+
+def test_strict_lane_rung_gate_and_the_ppa_ladder():
+    from spark_gp_tpu_torch.ops.precision import precision_lane_scope
+
+    est = _gp(tgp, device="cpu")
+    assert fallback.LADDERS["ppa"] == j_fallback.LADDERS["ppa"] == ("device_solve", "host_solve")
+    assert not fallback._fit_rung_applies(est, "strict_lane", fallback.GUARD_BREACH, set())
+    with precision_lane_scope("fast"):
+        assert fallback._next_fit_rung(est, fallback.GUARD_BREACH, {"native"}) == "strict_lane"
+        assert not fallback._fit_rung_applies(est, "strict_lane", fallback.GUARD_BREACH,
+                                              {"native", "strict_lane"})
+        # the rung pins the strict lane on its thread for the attempt
+        with fallback._fit_rung_scope(est, "strict_lane"):
+            from spark_gp_tpu_torch.ops.precision import active_lane
+
+            assert active_lane() == "strict"
+        assert active_lane() == "fast"

@@ -115,6 +115,23 @@ def _device_fit_of_ep(est):
         .setMaxIter(3).fit(x, y)
 
 
+def _device_fit_at_lane(gp, lane):
+    """A device fit of the regression estimator ``gp`` at the precision
+    ``lane`` (``setPrecisionLane``, process-wide, reset after): the fitted
+    model, which carries the lane and the guard's metrics."""
+    from spark_gp_tpu_torch.ops.precision import set_precision_lane
+
+    x = np.random.default_rng(0).normal(size=(24, 2))
+    try:
+        model = gp.setPrecisionLane(lane).setOptimizer("device").setDatasetSizeForExpert(12) \
+            .setActiveSetSize(8).setMaxIter(3).fit(x, np.sin(x.sum(1)))
+    finally:
+        set_precision_lane(None)
+    assert model.metrics["precision_lane"] == lane
+    assert model.metrics["mixed_precision_guard.breach"] == 0.0
+    return model
+
+
 def _fits(call):
     """A case of the table below that, since the device fits' slice, fits."""
     call.fits = True
@@ -143,16 +160,17 @@ def _fits(call):
         _fits(lambda gp: _device_fit_of_ep(tgp.GaussianProcessEPClassifier(device="cpu"))),
         # (quarantine, retries and the aggregation policies are ported:
         # test_resilience_setters_match_jax)
-        lambda gp: gp.setPrecisionLane("fast"),
+        _fits(lambda gp: _device_fit_at_lane(gp, "fast")),
         lambda gp: tgp.GaussianProcessClassifier(device="cpu").fit_distributed(None),
-        lambda gp: gp.setPrecisionLane("mixed"),
+        _fits(lambda gp: _device_fit_at_lane(gp, "mixed")),
         lambda gp: make_poe_predictor(tgp.RBFKernel(), np.ones(1), np.zeros((4, 1)),
                                       np.zeros(4), 2, mesh=object()),
     ],
 )
 def test_unported_options_name_their_roadmap_item(call):
     if getattr(call, "fits", False):
-        # a device fit that ROADMAP.md item 4b refused before it was ported
+        # a device fit that ROADMAP.md item 4b (or, at a precision lane,
+        # item 14) refused before it was ported
         model = call(tgp.GaussianProcessRegression(device="cpu"))
         assert model.metrics["optimizer"] == "device"
         assert model.metrics["lbfgs_nfev"] >= 1 and np.isfinite(model.metrics["final_nll"])

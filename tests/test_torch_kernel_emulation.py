@@ -26,7 +26,13 @@ and on ``emulate.SLQ_SPECIAL`` (splits at row 0 and mid-matrix, repeated
 Ritz values far past convergence, condition ~1e6, t = 2, t = 1100 over the
 workspace, an indefinite T, a NaN batch mate), float32 within 1e-5 of
 max(1, |value|) and float64 within 1e-10, every output and work count
-written, the workspace NaN-filled.  This covers the kernels' tiling, staging,
+written, the workspace NaN-filled.  The lane gram (``csrc/lane_gram.cu``,
+its ``mma.sync.m16n8k8`` TF32 tiles emulated fragment by fragment) is
+held against its plain float32 version in both modes on
+``emulate.LANE_CASES`` (ragged tiles, p over one staged chunk, p = 1,
+self-grams, inner products) within 1e-5 of max |x1|^2 + max |x2|^2 (or
+max |x1| max |x2|), every entry written, self-gram diagonals exactly 0.
+This covers the kernels' tiling, staging,
 barriers and bounds here; their speed, and what only nvcc refuses, show
 on the card.
 """
@@ -231,3 +237,18 @@ def test_slq_special_cases_match_the_eigh_route(request, design, name, dtype, ba
     rel, steps = emu.check_slq(lib, *emu.slq_special(name, dtype, np.random.default_rng(7)))
     assert rel <= bar, rel
     assert (steps >= 0).all()
+
+
+@pytest.fixture(scope="module")
+def emulated_lane(tmp_path_factory):
+    return _emulated(tmp_path_factory, "lane_gram")
+
+
+@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("mode", ["3xtf32", "tf32"])
+def test_lane_gram_source_matches_plain(emulated_lane, case, mode):
+    emu, lib = emulated_lane
+    assert len(emu.LANE_CASES) == 7
+    rel, diag_ok = emu.check_lane(lib, emu.LANE_CASES[case], mode, np.random.default_rng(case))
+    assert rel <= 1e-5, rel
+    assert diag_ok
