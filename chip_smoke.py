@@ -365,8 +365,53 @@ code is non-zero and the final ``ok`` line is never printed:
                transition.
 98. lanes-k1 -- K1 at mixed bit-equal to strict.
 99. slice14-phases -- the seconds of phases 88-98.
-100. kernels -- one line with every kernel's numbers.
-The last line is ``{"ok": true, "device": {...}}``.  Every phase line
+100. cost   -- cost attribution (``obs/cost.py``) with metering on: the
+               first airfoil fold on the host optimizer in turns
+               (unmetered, metered, metered, unmetered), a protein-matfree
+               fit at maxiter 2, the fold's device fit and the gpc-mnist
+               host fit, each bit-equal in theta (and RMSE or accuracy) to
+               the same fit unmetered; each fit's executions equal its
+               evaluations (objective calls; replays and eager steps for
+               the device fit), and each kernel's metered work equals its
+               work model times its launches in that entry; a 1503-row
+               predict_with_var in 501-row chunks is one execution a chunk,
+               100 serve requests one a bucket batch; ``xla_cost`` names the
+               card, the peak and the power limit.  Recorded: the metering
+               overhead of one evaluation (first signature, steady), the
+               metered peak against the planner's prediction.
+101. expert-quality -- the fit-time probe (``quarantine.expert_nll``) on
+               the first airfoil fold on the card against the CPU in
+               float64 at init theta (1e-4 of max(1, |nll|)), and at the
+               fit's theta recorded beside the share of the probe's own
+               float32 algebra (the float32 gram's rounding dominates
+               there); one K1 launch a probe and the fit's journal equal
+               to it within the bar; on the
+               protein-matfree stack no [E, s, s] (peak under the matfree
+               bar), K2 and the quadrature only.  Recorded: its ms at
+               protein (366, 100) and large-m (1200, 100).
+102. quality -- the persisted airfoil model (m = 1000) behind the server,
+               the plane on: a stream whose labels follow the served
+               distribution never alerts within 512 observations;
+               chaos.miscalibrate(0.5) and chaos.drift_inputs(4 std(x))
+               alert within 512; a canary under quality_guard rolls back
+               under an active alert; the CLI's observe (serve-cli)
+               joined.  Recorded: z statistics and coverage, the model's
+               own labels' calibration, closed-loop requests/s with the
+               plane on and off in turns against the JAX package's 2%.
+103. slice15-phases -- the seconds of phases 100-102.
+104. launch-totals -- each kernel's launches beside the totals this
+               script counted before the expert-quality probe and slice 15
+               (``LAUNCH_TOTALS_BEFORE``), and the probes' share.
+105. kernels -- one line with every kernel's numbers.
+The last line is ``{"ok": true, "device": {...}}``.
+
+Every fit an estimator makes runs the fit-time expert-quality probe after
+its PPA build: one batched pass over the stack with no gradient (one K1
+launch on the exact lane; the CG engine's K2 and quadrature launches on
+the CG lanes; a lane-gram launch at a non-strict lane).  Every launch rule
+above states it as a term of its own: the fits' stamps
+(``expert_quality.probe_launches.<kernel>``, :func:`probe_rule`) or their
+sum since the wrapper's counter was zeroed (:func:`probes`).  Every phase line
 carries ``fallback_transitions``, the ladder's transitions since the line
 before it; a phase that stages no fault fails if it moved them.
 
@@ -386,18 +431,6 @@ import types
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-
-# peak rates by card name: (bytes/s, f32 flop/s outside the tensor cores,
-# special-function results/s).  Memory and f32 rates from NVIDIA's data
-# sheets; the special-function (exp) rate is 16 results per clock per SM
-# (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
-# capability 9.0) times the SM count and the boost clock.
-PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12, 114 * 16 * 1.755e9),
-    "H100 NVL": (3.9e12, 60e12, 132 * 16 * 1.785e9),
-    "H100": (3.35e12, 67e12, 132 * 16 * 1.98e9),
-    "H200": (4.8e12, 67e12, 132 * 16 * 1.98e9),
-}
 
 # the seven tile transforms of K2 with the parameters they are checked at
 MATFREE_FAMILIES = {
@@ -489,11 +522,51 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def card_peaks(name: str):
+    """The card's row of the port's peak table (``ops/precision.chip_peaks``:
+    memory rate; float32, float64 and TF32 peaks; special-function rate)."""
+    from spark_gp_tpu_torch.ops.precision import chip_peaks
+
+    row = chip_peaks(name)
+    if row is None:
+        raise RuntimeError(f"no peak rates known for {name!r}")
+    return row
+
+
 def peaks_for(name: str):
-    for key, value in PEAKS.items():
-        if key in name:
-            return value
-    raise RuntimeError(f"no peak rates known for {name!r}")
+    """``(bytes/s, float32 flop/s outside the tensor cores, special-function
+    results/s)`` of the card."""
+    row = card_peaks(name)
+    return row.bytes_per_s, row.f32, row.sfu
+
+
+#: the fit-time expert-quality probe's launches of each kernel when its
+#: wrapper's counter was last zeroed (:func:`zero`)
+PROBE_BASE: dict = {}
+
+
+def zero(*wrappers):
+    """Zero the wrappers' launch counters, and start each one's probe term
+    (:func:`probes`) at the same point."""
+    from spark_gp_tpu_torch.resilience.quarantine import PROBE_LAUNCHES
+
+    for w in wrappers:
+        w.launches = 0
+        PROBE_BASE[w.__name__] = PROBE_LAUNCHES.get(w.__name__, 0.0)
+
+
+def probes(wrapper) -> float:
+    """The probe term of a launch rule: the launches of ``wrapper``'s kernel
+    by the fits' expert-quality probes (one batched pass a fit, no
+    gradient: one K1 launch on the exact lane, the CG engine's K2 and
+    quadrature launches on the CG lanes, a lane-gram launch at a non-strict
+    lane) since its counter was zeroed, from the stamps the fits leave
+    (``expert_quality.probe_launches.<kernel>``, summed by the port in
+    ``resilience/quarantine.PROBE_LAUNCHES``)."""
+    from spark_gp_tpu_torch.resilience.quarantine import PROBE_LAUNCHES
+
+    name = wrapper if isinstance(wrapper, str) else wrapper.__name__
+    return PROBE_LAUNCHES.get(name, 0.0) - PROBE_BASE.get(name, 0.0)
 
 
 def ptxas_usage(log: str, pattern: str, label: str) -> dict:
@@ -670,7 +743,7 @@ def regression_cv(gp, x, y, folds) -> dict:
         per_fold.append({"nfev": model.metrics["lbfgs_nfev"],
                          "optimize_seconds": model.metrics["optimize_seconds"],
                          **{k: v for k, v in model.metrics.items()
-                            if k.startswith("device_opt.")}})
+                            if k.startswith(("device_opt.", "expert_quality.probe_launches."))}})
         pred = model.predict(x[test])
         if not np.all(np.isfinite(pred)) or pred.shape != test.shape:
             raise AssertionError("CV predictions not finite")
@@ -1037,8 +1110,7 @@ def time_spd_inv_logdet(torch, spd, first_design, inputs: dict, peaks) -> dict:
         def kernel(k=k):
             return spd.spd_inv_logdet(k)
 
-        nbytes = 2 * b * n * n * 4 + b * 4
-        flops = b * n ** 3
+        flops, nbytes = spd.work(b, n)
         out[label] = {
             "shape": [b, n],
             **time_in_turns(spd, first_design, kernel),
@@ -1127,7 +1199,7 @@ def time_streamed_matvec(torch, sm, x, peaks, vjp_first_design):
     4n flops for <W_i, V_j> + <W_j, V_i> and 2 for its product with dk."""
     bw, f32, sfu = peaks
     e, s, p = x.shape
-    pairs, half = e * s * s, e * s * (s - 1) // 2
+    half = sm.exps(e, s)
     par = torch.ones(1, dtype=torch.float32, device="cuda")
     gen = np.random.default_rng(11)
     out = {}
@@ -1138,7 +1210,7 @@ def time_streamed_matvec(torch, sm, x, peaks, vjp_first_design):
     for n in (9, 1, 8):
         v = torch.as_tensor(gen.normal(size=(e, s, n)), dtype=torch.float32, device="cuda")
         w = torch.as_tensor(gen.normal(size=(e, s, n)), dtype=torch.float32, device="cuda")
-        legs = [("streamed_matvec", half * (2 * p + 3) + pairs * 2 * n, 4 * e * s * (p + 2 * n),
+        legs = [("streamed_matvec", *sm.work(e, s, p, n),
                  lambda v=v: sm.streamed_matvec(x, v, "rbf", par),
                  lambda v=v: sm.streamed_matvec_plain(x, v, "rbf", par),
                  lambda v=v: torch.bmm(gram(), v))]
@@ -1147,8 +1219,7 @@ def time_streamed_matvec(torch, sm, x, peaks, vjp_first_design):
                 d = torch.cdist(x, x) ** 2
                 return torch.sum(torch.bmm(w, v.mT) * torch.exp(-0.5 * d) * d)
 
-            legs.append(("streamed_matvec_vjp", half * (2 * p + 8 + 4 * n),
-                         4 * e * s * (p + 2 * n),
+            legs.append(("streamed_matvec_vjp", *sm.work_vjp(e, s, p, n),
                          lambda v=v, w=w: sm.streamed_matvec_vjp(x, w, v, "rbf", par),
                          lambda v=v, w=w: sm.streamed_matvec_vjp_plain(x, w, v, "rbf", par),
                          library_vjp))
@@ -1220,19 +1291,22 @@ def classifier_phases(torch, spd, lap, it_ops, cdata: dict) -> dict:
     # (one more as each loop ends) and the value and gradient once an
     # evaluation.  Then one evaluation at the fitted theta, warm-started
     # from its own mode, under the profiler.
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     lap.laplace_mode_batch.iterations = lap.batched_neg_logz.calls = 0
     fit = split_fit(mnist_gpc(), cdata["xm"], cdata["ym"])
     launches_gpc_mnist = spd.spd_inv_logdet.launches
+    probe_gpc_mnist = probes(spd.spd_inv_logdet)
     iterations, calls = lap.laplace_mode_batch.iterations, lap.batched_neg_logz.calls
     model = fit.pop("model")
     if (iterations, calls) != (fit["newton_iterations"], fit["objective_calls"]):
         raise AssertionError(f"gpc-mnist: counters {iterations}, {calls} against the "
                              f"fit's metrics {fit['newton_iterations']}, "
                              f"{fit['objective_calls']}")
-    if launches_gpc_mnist != iterations + calls or iterations == 0 or calls == 0:
+    if launches_gpc_mnist != iterations + calls + probe_gpc_mnist or iterations == 0 \
+            or calls == 0 or probe_gpc_mnist != 1:
         raise AssertionError(f"gpc-mnist: {launches_gpc_mnist} K1 launches for {iterations} "
-                             f"Newton iterations and {calls} objective calls")
+                             f"Newton iterations, {calls} objective calls and "
+                             f"{probe_gpc_mnist} probe launches")
     if (fit["num_experts"], fit["expert_size"]) != (16, 100):
         raise AssertionError(f"gpc-mnist stack ({fit['num_experts']}, {fit['expert_size']})")
     if not fit["accuracy"] > GPC_BARS["gpc_mnist"]:
@@ -1256,13 +1330,14 @@ def classifier_phases(torch, spd, lap, it_ops, cdata: dict) -> dict:
     spd.spd_inv_logdet.launches = before[0]
     HOST_FITS["gpc_mnist"] = fit
     emit({"phase": "gpc-mnist", "shape": [16, 100, 784], **fit, "launches": launches_gpc_mnist,
+          "probe_launches": probe_gpc_mnist,
           "host_reads": iterations + 2 * calls, "theta": theta_fit.tolist(),
           "bar": GPC_BARS["gpc_mnist"], "jax_cpu_accuracy": JAX_CPU_ACCURACY["gpc_mnist"],
           "cpu": cpu_fit, "eval_profile": prof})
 
     # 15. gpc-mnist-iterative: the same fit on the iterative lane, whose
     # B systems are CG solves and SLQ log-dets: no K1 launch
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     try:
         it_fit = split_fit(mnist_gpc().setSolverLane("iterative"), cdata["xm"], cdata["ym"])
     finally:
@@ -1280,20 +1355,21 @@ def classifier_phases(torch, spd, lap, it_ops, cdata: dict) -> dict:
 
     # 16. iris-ovr: examples/iris.py's one-vs-rest 10-fold CV at seed 13
     # (30 binary fits, each E = 7, s = 20), on the card and on the CPU
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     lap.laplace_mode_batch.iterations = lap.batched_neg_logz.calls = 0
     iris = iris_cv(torch, cdata)
     launches_iris = spd.spd_inv_logdet.launches
-    if launches_iris != iris["newton_iterations"] + iris["objective_calls"] \
+    probe_iris = probes(spd.spd_inv_logdet)
+    if launches_iris != iris["newton_iterations"] + iris["objective_calls"] + probe_iris \
             or launches_iris == 0:
-        raise AssertionError(f"iris-ovr: {launches_iris} K1 launches for "
+        raise AssertionError(f"iris-ovr: {launches_iris} K1 launches ({probe_iris} probes) for "
                              f"{iris['newton_iterations']} Newton iterations and "
                              f"{iris['objective_calls']} objective calls")
     if iris["experts"] != [(7, 20)]:
         raise AssertionError(f"iris-ovr: (E, s) per fit {iris['experts']}")
     iris_cpu = iris_cv(torch, cdata, "cpu")
     HOST_FITS["iris_ovr"] = iris
-    emit({"phase": "iris-ovr", **iris, "launches": launches_iris,
+    emit({"phase": "iris-ovr", **iris, "launches": launches_iris, "probe_launches": probe_iris,
           "host_reads": iris["newton_iterations"] + 2 * iris["objective_calls"],
           "bar": GPC_BARS["iris_ovr"], "jax_cpu_accuracy": JAX_CPU_ACCURACY["iris_ovr"],
           "cpu": iris_cpu})
@@ -1356,7 +1432,7 @@ def multiclass_phases(torch, spd, lap_mc, it_ops, cdata: dict) -> dict:
     # through K1's backward too).  Then one evaluation of the first
     # fold's objective at its fitted theta, warm-started from its own
     # mode, under the profiler.
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     lap_mc.laplace_mc_mode.iterations = lap_mc.batched_neg_logz_mc.calls = 0
     # the Newton loops' lengths, by a wrapper in the loop's place for this
     # CV: the loop counts into whatever the module name holds
@@ -1376,14 +1452,15 @@ def multiclass_phases(torch, spd, lap_mc, it_ops, cdata: dict) -> dict:
         lap_mc.laplace_mc_mode = mode
         mode.iterations = counted_mode.iterations
     launches = spd.spd_inv_logdet.launches
+    probe_native = probes(spd.spd_inv_logdet)
     iterations, calls = lap_mc.laplace_mc_mode.iterations, lap_mc.batched_neg_logz_mc.calls
     if (iterations, calls) != (native["newton_iterations"], native["objective_calls"]):
         raise AssertionError(f"iris-native: counters {iterations}, {calls} against the fits' "
                              f"metrics {native['newton_iterations']}, "
                              f"{native['objective_calls']}")
-    if launches != iterations + 2 * calls or calls == 0:
+    if launches != iterations + 2 * calls + probe_native or calls == 0:
         raise AssertionError(f"iris-native: {launches} K1 launches for {iterations} Newton "
-                             f"iterations and {calls} objective calls")
+                             f"iterations, {calls} objective calls and {probe_native} probes")
     if native["experts"] != [(7, 20)] or native["gram_cache_engaged"] != [1.0]:
         raise AssertionError(f"iris-native: (E, s) {native['experts']}, gram cache "
                              f"{native['gram_cache_engaged']}")
@@ -1405,7 +1482,8 @@ def multiclass_phases(torch, spd, lap_mc, it_ops, cdata: dict) -> dict:
     HOST_FITS["iris_native"] = native
     spread = abs(native["accuracy"] - JAX_CPU_ACCURACY["iris_native"])
     emit({"phase": "iris-native", "shape": [7, 20, 3], "b_stack": [21, 20], **native,
-          "launches": launches, "launches_rule": "newton_iterations + 2 * objective_calls",
+          "launches": launches, "probe_launches": probe_native,
+          "launches_rule": "newton_iterations + 2 * objective_calls + probes",
           "host_reads": iterations + 2 * calls,
           "newton_loop_lengths": {str(n): lengths.count(n) for n in sorted(set(lengths))},
           "bar": GPC_BARS["iris_native"],
@@ -1419,7 +1497,7 @@ def multiclass_phases(torch, spd, lap_mc, it_ops, cdata: dict) -> dict:
     # 19. iris-native-iterative: the same CV on the iterative lane, whose
     # Newton steps are CG solves on the factored operator and whose
     # determinant is SLQ: no K1 launch
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     try:
         it_ops.set_solver_lane("iterative")
         native_it = iris_native_cv(torch, cdata)
@@ -1677,14 +1755,16 @@ def regression_phases(torch, spd, d: dict, smi: str) -> dict:
     # synthetics: examples/synthetics.py verbatim, 10-fold CV at seed 13
     # (E = 18, s = 100 on every fold); K1 once an evaluation; the
     # isotropic RBF engages the gram cache
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     cv = regression_cv(synthetics_gp(), x, y, d["folds"])
     cv.pop("first_model")
     cv["launches"] = launches["synthetics"] = spd.spd_inv_logdet.launches
+    cv["probe_launches"] = probes(spd.spd_inv_logdet)
     emit({"phase": "synthetics", **cv, "bar": SYNTHETICS_BAR,
           "jax_cpu_rmse": JAX_CPU_REGRESSION["synthetics_cv_rmse"]})
     if not (cv["rmse"] < SYNTHETICS_BAR and cv["experts"] == [(18, 100)]
-            and cv["launches"] == cv["nfev"] > 0 and cv["gram_cache_engaged"] == [1.0]):
+            and cv["launches"] == cv["nfev"] + cv["probe_launches"] > 0
+            and cv["probe_launches"] == len(d["folds"]) and cv["gram_cache_engaged"] == [1.0]):
         raise AssertionError(f"synthetics: {cv}")
     HOST_FITS["synthetics"] = {"rmse": cv["rmse"]}
 
@@ -1695,7 +1775,7 @@ def regression_phases(torch, spd, d: dict, smi: str) -> dict:
     # cache
     objectives, models = {}, {}
     for objective, rule, cached in (("marginal", 1, 1.0), ("loo", 1, 1.0), ("elbo", 0, 0.0)):
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         start = time.perf_counter()
         model = synthetics_gp(objective).fit(x[tr], y[tr])
         mean, var = model.predict_with_var(x[te])
@@ -1706,13 +1786,15 @@ def regression_phases(torch, spd, d: dict, smi: str) -> dict:
             "rmse": rmse(y[te], mean), "nlpd": nlpd(y[te], mean, var),
             "final_objective": m["final_nll"], "nfev": m["lbfgs_nfev"],
             "launches": spd.spd_inv_logdet.launches, "seconds": seconds,
+            "probe_launches": probes(spd.spd_inv_logdet),
             "gram_cache_engaged": m["gram_cache_engaged"],
             **{key: m[key] for key in PHASES},
             "jax_cpu": JAX_CPU_REGRESSION["objectives"][objective]}
         launches[f"objectives_{objective}"] = spd.spd_inv_logdet.launches
         row = objectives[objective]
         if not (row["rmse"] < SYNTHETICS_BAR and np.isfinite(row["nlpd"])
-                and row["launches"] == rule * row["nfev"] and row["nfev"] > 0
+                and row["launches"] == rule * row["nfev"] + row["probe_launches"]
+                and row["probe_launches"] == 1 and row["nfev"] > 0
                 and row["gram_cache_engaged"] == cached and m["objective"] == objective
                 and (m["num_experts"], m["expert_size"]) == (15, 100)):
             raise AssertionError(f"synthetics-objectives {objective}: {row}")
@@ -1721,14 +1803,15 @@ def regression_phases(torch, spd, d: dict, smi: str) -> dict:
 
     # synthetics-loo: the marginal fit on all 2000 rows, then gp.loo at
     # its theta: one K1 launch at (20, 100)
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     gp = synthetics_gp()
     model = gp.fit(x, y)
     fit_launches = spd.spd_inv_logdet.launches
-    if fit_launches != model.metrics["lbfgs_nfev"]:
+    if fit_launches != model.metrics["lbfgs_nfev"] + probes(spd.spd_inv_logdet):
         raise AssertionError(f"synthetics-loo fit: {fit_launches} K1 launches for "
-                             f"{model.metrics['lbfgs_nfev']} evaluations")
-    spd.spd_inv_logdet.launches = 0
+                             f"{model.metrics['lbfgs_nfev']} evaluations and "
+                             f"{probes(spd.spd_inv_logdet)} probes")
+    zero(spd.spd_inv_logdet)
     start = time.perf_counter()
     diag = gp.loo(x, y, model)
     loo_seconds = time.perf_counter() - start
@@ -1794,7 +1877,7 @@ def regression_phases(torch, spd, d: dict, smi: str) -> dict:
     ts = {}
     xs, ys, xe, ye = d["ts"]
     for kind in ("sm", "rbf"):
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1807,12 +1890,14 @@ def regression_phases(torch, spd, d: dict, smi: str) -> dict:
                     "restart_nlls": [m[f"restart_{r}_nll"] for r in range(m["num_restarts"])],
                     "best_restart": m["best_restart"], "restarts_nfev": m["restarts_nfev"],
                     "best_nfev": m["lbfgs_nfev"], "launches": spd.spd_inv_logdet.launches,
+                    "probe_launches": probes(spd.spd_inv_logdet),
                     "gram_cache_engaged": m["gram_cache_engaged"],
                     "shape": [m["num_experts"], m["expert_size"]],
                     "peak_cuda_bytes_above_base": torch.cuda.max_memory_allocated() - base,
                     **{key: m[key] for key in PHASES}}
         launches[f"timeseries_{kind}"] = spd.spd_inv_logdet.launches
-        if not (np.all(np.isfinite(pred)) and ts[kind]["launches"] == m["restarts_nfev"]
+        if not (np.all(np.isfinite(pred))
+                and ts[kind]["launches"] == m["restarts_nfev"] + ts[kind]["probe_launches"]
                 and ts[kind]["shape"] == [2, 120]
                 and m["gram_cache_engaged"] == (0.0 if kind == "sm" else 1.0)):
             raise AssertionError(f"timeseries-{kind}: {ts[kind]}")
@@ -2136,7 +2221,7 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
     # greedy-vs-random: quality.py's part verbatim (E = 20, s = 100): the
     # greedy fit at seed 13, random at seeds 13, 17, 29; RMSE on the
     # training rows; K1 once an evaluation of every fit
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     start = time.perf_counter()
     rows, nfev = {}, 0
     for label, provider, seed in (("greedy", timed_greedy(), 13),
@@ -2156,17 +2241,18 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
         if not (np.all(np.isfinite(pred)) and rows[label]["shape"] == [20, 100]):
             raise AssertionError(f"greedy-vs-random {label}: {rows[label]}")
     launches["greedy_vs_random"] = spd.spd_inv_logdet.launches
+    probe = probes(spd.spd_inv_logdet)
     best_random = min(rows[k]["rmse"] for k in rows if k != "greedy")
     emit({"phase": "greedy-vs-random", **rows, "best_random_rmse": best_random,
-          "launches": launches["greedy_vs_random"], "nfev": nfev,
+          "launches": launches["greedy_vs_random"], "nfev": nfev, "probe_launches": probe,
           "seconds": time.perf_counter() - start, "bar": SLICE6_BARS["greedy"],
           "jax_cpu": {"greedy_rmse": JAX_CPU_SLICE6["greedy_rmse"],
                       "random_rmses": JAX_CPU_SLICE6["random_rmses"]}})
     if not (rows["greedy"]["rmse"] < SLICE6_BARS["greedy"] and rows["greedy"]["rmse"] < best_random
-            and launches["greedy_vs_random"] == nfev > 0):
+            and launches["greedy_vs_random"] == nfev + probe > 0 and probe == 4):
         raise AssertionError(f"greedy-vs-random: greedy {rows['greedy']['rmse']}, best random "
                              f"{best_random}, {launches['greedy_vs_random']} K1 launches for "
-                             f"{nfev} evaluations")
+                             f"{nfev} evaluations and {probe} probes")
 
     # greedy-scale: quality.py's part verbatim on the Year-MSD stand-in
     # (40,000 x 90 training rows, E = 400, s = 100, m = 512): one warm-up
@@ -2174,7 +2260,7 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
     # maxiter 12; K1 once an evaluation at (400, 100)
     xy, ysy, tr, te = d6["xy"], d6["ysy"], d6["tr_y"], d6["te_y"]
     p = xy.shape[1]
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     nfev = 0
     start = time.perf_counter()
     for provider in (RandomActiveSetProvider, timed_greedy()):
@@ -2201,8 +2287,10 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
                 and m["gram_cache_engaged"] == 0.0):
             raise AssertionError(f"greedy-scale {label}: {scale[label]}")
     launches["greedy_scale"] = spd.spd_inv_logdet.launches
+    probe = probes(spd.spd_inv_logdet)
     emit({"phase": "greedy-scale", "n": int(xy.shape[0]), "p": p, "m": 512, **scale,
-          "launches": launches["greedy_scale"], "nfev": nfev, "warmup_seconds": warmup_seconds,
+          "launches": launches["greedy_scale"], "nfev": nfev, "probe_launches": probe,
+          "warmup_seconds": warmup_seconds,
           "seconds": time.perf_counter() - start,
           "bar_spread": SLICE6_BARS["greedy_scale_spread"],
           "jax_cpu_greedy_fit_seconds": JAX_CPU_SLICE6["greedy_scale"]["greedy_fit_seconds"],
@@ -2212,9 +2300,9 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
         if not abs(scale[label]["rmse_scaled"] - JAX_CPU_SLICE6["greedy_scale"][label]) \
                 < SLICE6_BARS["greedy_scale_spread"]:
             raise AssertionError(f"greedy-scale {label} RMSE {scale[label]['rmse_scaled']}")
-    if launches["greedy_scale"] != nfev:
+    if launches["greedy_scale"] != nfev + probe or probe != 4:
         raise AssertionError(f"greedy-scale: {launches['greedy_scale']} K1 launches for {nfev} "
-                             "evaluations")
+                             f"evaluations and {probe} probes")
 
     # joint-posterior: the Synthetics config fitted on the objectives
     # split's 1500 rows (A); predict_with_cov against predict_with_var on
@@ -2222,10 +2310,11 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
     # covariance; update with the 500 held-out rows (B) against the
     # statistics of A and B together at the same theta and active set
     x, y, tr_s, te_s = rdata["x"], rdata["y"], rdata["tr"], rdata["te"]
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     start = time.perf_counter()
     model = synthetics_gp().fit(x[tr_s], y[tr_s])
     launches["joint_posterior"] = spd.spd_inv_logdet.launches
+    probe = probes(spd.spd_inv_logdet)
     nfev = model.metrics["lbfgs_nfev"]
     xt = x[te_s][:200]
     mean, cov = model.predict_with_cov(xt)
@@ -2264,36 +2353,38 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
              "update_stats_rel_err": stats_err,
              "rmse_held_out_before": rmse(y[te_s], model.predict(x[te_s])),
              "rmse_held_out_after_update": rmse(y[te_s], pred_up),
-             "nfev": nfev, "launches": launches["joint_posterior"],
+             "nfev": nfev, "launches": launches["joint_posterior"], "probe_launches": probe,
              "gram_cache_engaged": model.metrics["gram_cache_engaged"],
              "seconds": time.perf_counter() - start}
     emit({"phase": "joint-posterior", "split": [1500, 500], **joint, "bars": JOINT_BARS})
     if not (diag_err <= JOINT_BARS["cov_diag_rel_prior"] and cov_err <= cov_bar
             and stats_err <= JOINT_BARS["update_stats_rel"] and np.all(np.isfinite(pred_up))
-            and np.all(np.isfinite(draws)) and launches["joint_posterior"] == nfev > 0):
+            and np.all(np.isfinite(draws)) and launches["joint_posterior"] == nfev + probe > 0):
         raise AssertionError(f"joint-posterior: {joint}")
 
     # iris-ep: examples/iris.py --ep verbatim (one-vs-rest over EP, 30
     # binary fits at E = 7, s = 20), 10-fold CV at seed 13, on the card
     # and on the CPU.  K1 once a site sweep, once an evaluation (log Z_EP,
     # differentiated) and once a fit (the posterior mean)
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     sweeps, calls = ep.ep_fit_sites.sweeps, ep.batched_neg_logz_ep.calls
     iris = cv_fits(torch, cdata, lambda: OneVsRest(ep_gpc), lambda ovr: ovr.models_, None,
                    engine="ep_sweeps")
     launches["iris_ep"] = spd.spd_inv_logdet.launches
+    probe = probes(spd.spd_inv_logdet)
     HOST_FITS["iris_ep"] = iris
     if (ep.ep_fit_sites.sweeps - sweeps, ep.batched_neg_logz_ep.calls - calls) \
             != (iris["ep_sweeps"], iris["objective_calls"]):
         raise AssertionError(f"iris-ep: counters against the fits' metrics {iris}")
     iris_cpu = cv_fits(torch, cdata, lambda: OneVsRest(lambda: ep_gpc("cpu")),
                        lambda ovr: ovr.models_, "cpu", engine="ep_sweeps")
-    emit({"phase": "iris-ep", **iris, "launches": launches["iris_ep"],
+    emit({"phase": "iris-ep", **iris, "launches": launches["iris_ep"], "probe_launches": probe,
           "bar": SLICE6_BARS["iris_ep"], "jax_cpu_accuracy": JAX_CPU_SLICE6["iris_ep"],
           "cpu": iris_cpu})
     if not (iris["accuracy"] > SLICE6_BARS["iris_ep"] and iris["experts"] == [(7, 20)]
-            and iris["gram_cache_engaged"] == [0.0] and launches["iris_ep"]
-            == iris["ep_sweeps"] + iris["objective_calls"] + iris["fits"] > 0):
+            and iris["gram_cache_engaged"] == [0.0] and probe == iris["fits"]
+            and launches["iris_ep"]
+            == iris["ep_sweeps"] + iris["objective_calls"] + iris["fits"] + probe > 0):
         raise AssertionError(f"iris-ep: accuracy {iris['accuracy']}, {launches['iris_ep']} K1 "
                              f"launches, {iris}")
 
@@ -2305,7 +2396,7 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
     for label, dispersion, y_counts, lane in (("poisson", None, d6["y"], None),
                                               ("poisson_nb", 2.0, d6["y_nb"], None),
                                               ("poisson_iterative", None, d6["y"], "iterative")):
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         try:
             gp = poisson_gp(dispersion)
             if lane is not None:
@@ -2314,7 +2405,9 @@ def slice6_phases(torch, spd, d6: dict, rdata: dict, cdata: dict, smi: str) -> d
         finally:
             it_ops.set_solver_lane(None)
         row["launches"] = launches[label] = spd.spd_inv_logdet.launches
-        expected = 0 if lane else row["newton_iterations"] + 2 * row["objective_calls"]
+        row["probe_launches"] = probes(spd.spd_inv_logdet)
+        expected = (0 if lane else row["newton_iterations"] + 2 * row["objective_calls"]) \
+            + row["probe_launches"]
         if lane is None:
             row["cpu"] = count_fit(poisson_gp(dispersion, "cpu"), d6, y_counts)
         counts[label] = HOST_FITS[label] = row
@@ -2520,7 +2613,7 @@ def weighted_matfree_phase(torch, mf_data) -> dict:
         out = {}
         for lane in ("matfree", "iterative"):
             it_ops.set_solver_lane(lane)
-            sm.streamed_matvec.launches = sm.streamed_matvec_vjp.launches = 0
+            zero(sm.streamed_matvec, sm.streamed_matvec_vjp)
             out[lane] = make_value_and_grad(kernel, mf_data, None, "marginal", extra)(
                 kernel.init_theta())
             if lane == "matfree":
@@ -2558,7 +2651,7 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
     start_all = time.perf_counter()
 
     # aggregation: quality.py's part through the port on the card
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     start = time.perf_counter()
     gp = aggregation_gp(2, 0.7)
     model = gp.fit(d7["xc"], d7["yc"])
@@ -2571,6 +2664,7 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches["aggregation"] = spd.spd_inv_logdet.launches
+    probe = probes(spd.spd_inv_logdet)
     nfev = model.metrics["lbfgs_nfev"] + modelh.metrics["lbfgs_nfev"]
     rmse_bar = float(np.hypot(AGG_STRUCTURAL_RMSE, clustered_noise_floor()))
     lo, hi = AGG_COVERAGE_BAND
@@ -2585,18 +2679,19 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
     emit({"phase": "aggregation", "clustered": clustered, "heteroscedastic": hetero,
           "rmse_bar": rmse_bar, "coverage_band": list(AGG_COVERAGE_BAND), "bars": bars,
           "jax_cpu": JAX_CPU_AGGREGATION, "seconds": seconds, "launches": launches["aggregation"],
-          "nfev": nfev, "shapes": {"clustered": [model.metrics["num_experts"],
-                                                 model.metrics["expert_size"]],
-                                   "heteroscedastic": [modelh.metrics["num_experts"],
-                                                       modelh.metrics["expert_size"]]},
+          "nfev": nfev, "probe_launches": probe,
+          "shapes": {"clustered": [model.metrics["num_experts"],
+                                   model.metrics["expert_size"]],
+                     "heteroscedastic": [modelh.metrics["num_experts"],
+                                         modelh.metrics["expert_size"]]},
           "theta": {"clustered": model.raw_predictor.theta.tolist(),
                     "heteroscedastic": modelh.raw_predictor.theta.tolist()},
           **{f"{k}_seconds": model.metrics[k + "_seconds"] for k in ("optimize", "ppa")}})
     if not all(bars.values()):
         raise AssertionError(f"aggregation bars: {bars}")
-    if launches["aggregation"] != nfev or nfev == 0:
+    if launches["aggregation"] != nfev + probe or nfev == 0 or probe != 2:
         raise AssertionError(f"aggregation: {launches['aggregation']} launches for {nfev} "
-                             "evaluations")
+                             f"evaluations and {probe} probes")
     if (model.metrics["num_experts"], model.metrics["expert_size"]) != (64, 64):
         raise AssertionError(f"clustered stack {model.metrics['num_experts']}")
 
@@ -2638,7 +2733,7 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
         err = d7["y_sel_te"] - np.asarray(mean, np.float64)
         return float(np.mean(0.5 * np.log(2 * np.pi * var) + err ** 2 / (2 * var)))
 
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     start = time.perf_counter()
     saved = {key: os.environ.pop(key, None) for key in ("GP_AGG_SELECT", "GP_AGG_SELECT_MODE")}
     try:
@@ -2649,18 +2744,20 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
         os.environ.pop("GP_AGG_SELECT", None)
         os.environ.update({key: value for key, value in saved.items() if value is not None})
     launches["selection"] = spd.spd_inv_logdet.launches
+    probe = probes(spd.spd_inv_logdet)
     sel = {"nlpd_off": nlpd(off), "nlpd_on": nlpd(on),
            "final_nll_off": off.metrics["final_nll"],
            "final_nll_renormalized_on": on.metrics["final_nll_renormalized"],
            **{key: on.metrics[key] for key in ("agg.selection_dropped", "agg.renorm",
                                                "agg.effective_experts", "num_experts")},
            "nfev": [off.metrics["lbfgs_nfev"], on.metrics["lbfgs_nfev"]],
-           "launches": launches["selection"], "seconds": time.perf_counter() - start}
+           "launches": launches["selection"], "probe_launches": probe,
+           "seconds": time.perf_counter() - start}
     emit({"phase": "selection", **sel, "bar_nlpd_rel": SELECTION_NLPD_REL})
     if not (sel["agg.selection_dropped"] >= 0.25 * on.metrics["num_experts"]
             and sel["agg.renorm"] == 2.0
             and sel["nlpd_on"] - sel["nlpd_off"] <= SELECTION_NLPD_REL * abs(sel["nlpd_off"])
-            and launches["selection"] == sum(sel["nfev"])):
+            and launches["selection"] == sum(sel["nfev"]) + probe and probe == 2):
         raise AssertionError(f"selection: {sel}")
 
     # quarantine: the first airfoil fold at expert 100 with one expert's
@@ -2683,20 +2780,22 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
     # i in expert i % E)
     xq, yq = poison_expert(x[train], y[train], nan_expert, experts, kind="nan", seed=1)
     xq, yq = poison_expert(xq, yq, huge_expert, experts, kind="huge")
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     model = airfoil_gp(100).fit(xq, yq)
     launches["quarantine"] = spd.spd_inv_logdet.launches
+    quality_probe = probes(spd.spd_inv_logdet)
     pred = model.predict(x[test])
     if not np.all(np.isfinite(pred)):
         raise AssertionError("quarantine predictions not finite")
     m = model.metrics
     # one failed first evaluation, then the probe: every expert on its own
     # at rung 0, the one unhealthy expert alone at each jitter rung (the
-    # huge expert never heals), then the retry's evaluations
-    probes = len(JITTER_SCHEDULE)
+    # huge expert never heals), then the retry's evaluations, and the
+    # fit-time expert-quality probe's one batched pass
+    rungs = len(JITTER_SCHEDULE)
     unhealthy = 1  # the huge expert; the NaN one is masked inert by the screen
-    probe_launches = experts + (probes - 1) * unhealthy
-    rule = 1 + probe_launches + m["lbfgs_nfev"]
+    probe_launches = experts + (rungs - 1) * unhealthy
+    rule = 1 + probe_launches + m["lbfgs_nfev"] + quality_probe
     q = {"rmse": rmse(y[test], pred), "clean_rmse": clean_rmse,
          "rmse_rel_change": rmse(y[test], pred) / clean_rmse - 1.0,
          "full_clean_rmse": full_rmse, "rmse_rel_change_full": rmse(y[test], pred) / full_rmse - 1.0,
@@ -2704,10 +2803,10 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
                                         "bcm_renorm", "experts_jittered", "fit_retries",
                                         "final_nll", "final_nll_renormalized",
                                         "agg.effective_experts", "lbfgs_nfev")},
-         "clean_final_nll": clean.metrics["final_nll"], "probe_rungs": probes,
+         "clean_final_nll": clean.metrics["final_nll"], "probe_rungs": rungs,
          "launches": launches["quarantine"],
-         "launches_rule": "1 + E + (rungs - 1) * unhealthy + nfev",
-         "probe_launches": probe_launches,
+         "launches_rule": "1 + E + (rungs - 1) * unhealthy + nfev + expert-quality probes",
+         "probe_launches": probe_launches, "expert_quality_probe_launches": quality_probe,
          "active_set_finite": bool(np.all(np.isfinite(model.raw_predictor.active))),
          "seconds": time.perf_counter() - start}
     # which experts: the screen's (host rows) and the probe's on the card's
@@ -2727,7 +2826,7 @@ def slice7_phases(torch, spd, d7: dict, data_main: dict, mf_data, smi: str):
             and m.get("fit_retries") == 1.0 and q["active_set_finite"]
             and q["screened"] == [nan_expert] and q["probed_bad"] == [huge_expert]
             and abs(q["rmse_rel_change"]) <= QUARANTINE_RMSE_REL
-            and launches["quarantine"] == rule):
+            and launches["quarantine"] == rule and quality_probe == 1):
         raise AssertionError(f"quarantine: {q}, rule {rule}")
 
     k2 = weighted_matfree_phase(torch, mf_data)
@@ -2831,7 +2930,7 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
 
     # obs: the airfoil config's first fold with the shell on; then the
     # tracing overhead over interleaved pairs with GP_TRACING=0 and on
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     torch.cuda.reset_peak_memory_stats()
     obs_model, fit_s = airfoil_fold_fit(airfoil_gp(100), x, y, train)
     peak_allocated = torch.cuda.max_memory_allocated()
@@ -2842,6 +2941,7 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
     parsed = check_openmetrics(page)
     k1_journal = journal["kernels"]["launches"].get("spd_inv_logdet")
     k1_wrapper = spd.spd_inv_logdet.launches
+    obs_probe = probes(spd.spd_inv_logdet)
     peak_gauge = journal["memory"]["peak"]["memory.peak_bytes_in_use"]
     seconds, phases = {"off": [], "on": []}, {"off": [], "on": []}
     for pair in range(TRACING_PAIRS):
@@ -2874,6 +2974,7 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
                          for n in tree],
            "journal_valid": validate_journal(journal) == [], "trace_id": journal["trace_id"],
            "k1_launches_journal": k1_journal, "k1_launches_wrapper": k1_wrapper,
+           "probe_launches": obs_probe, "expert_quality": journal["expert_quality"],
            "peak_gauge_bytes": peak_gauge, "max_memory_allocated": peak_allocated,
            "memory_samples": [s["phase"] for s in journal["memory"]["samples"]],
            "openmetrics": parsed, "openmetrics_bytes": len(page),
@@ -2885,7 +2986,9 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
     emit({"phase": "obs", **obs, "card": smi})
     if not (len(tree) == 1 and tree[0]["name"] == "fit.GaussianProcessRegression"
             and [c["name"] for c in tree[0]["children"]] == FIT_PHASES
-            and obs["journal_valid"] and k1_journal == nfev == k1_wrapper
+            and obs["journal_valid"] and k1_journal == nfev + obs_probe == k1_wrapper
+            and obs_probe == 1 and journal["expert_quality"]["experts"] == 14
+            and all(np.isfinite(journal["expert_quality"]["nll"]))
             and peak_gauge == peak_allocated and median < TRACING_OVERHEAD_BAR):
         raise AssertionError(f"obs: {obs}")
 
@@ -2893,7 +2996,7 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
     # Chrome trace, one a call at n <= 128
     profile_dir = tempfile.mkdtemp(prefix="gp_profile_")
     try:
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         start = time.perf_counter()
         model, _ = airfoil_fold_fit(airfoil_gp(100).setProfileDir(profile_dir), x, y, train)
         seconds = time.perf_counter() - start
@@ -2909,13 +3012,14 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
             kernel_events[event["name"]] = kernel_events.get(event["name"], 0) + 1
     launches["spd_inv_logdet"]["profile"] = spd.spd_inv_logdet.launches
     nfev = model.metrics["lbfgs_nfev"]
+    probe = probes(spd.spd_inv_logdet)
     prof = {"files": len(files), "trace_bytes": trace_bytes, "seconds": seconds,
-            "k1_kernel_events": kernel_events, "nfev": nfev,
+            "k1_kernel_events": kernel_events, "nfev": nfev, "probe_launches": probe,
             "launches": launches["spd_inv_logdet"]["profile"]}
     emit({"phase": "profile", **prof})
-    if not (len(files) == 1 and list(kernel_events.values()) == [nfev]
+    if not (len(files) == 1 and list(kernel_events.values()) == [nfev + probe]
             and "spd_inv_logdet_blocked_kernel" in next(iter(kernel_events))
-            and launches["spd_inv_logdet"]["profile"] == nfev):
+            and launches["spd_inv_logdet"]["profile"] == nfev + probe and probe == 1):
         raise AssertionError(f"profile: {prof}")
 
     # ladder-oom: the protein-matfree config on the exact lane under a
@@ -2934,7 +3038,7 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
         return budget
 
     before = counters()
-    sm.streamed_matvec.launches = sm.streamed_matvec_vjp.launches = 0
+    zero(sm.streamed_matvec, sm.streamed_matvec_vjp)
     start = time.perf_counter()
     budget = set_budget()
     try:
@@ -2947,6 +3051,7 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
     pred = model.predict(xp[te]) * y_std + y_mean
     nfev = model.metrics["lbfgs_nfev"]
     k2, vjp = sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches
+    probe_k2, probe_vjp = probes(sm.streamed_matvec), probes(sm.streamed_matvec_vjp)
     launches["streamed_matvec"]["ladder_oom"] = k2
     launches["streamed_matvec_vjp"]["ladder_oom"] = vjp
     rungs = [(d["from"], d["to"], d["failure_class"]) for d in model.degradations]
@@ -2955,14 +3060,16 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
               "nfev": nfev, "rmse": rmse(yp[te], pred), "protein_matfree_rmse": mf_rmse,
               "rmse_rel": rmse(yp[te], pred) / mf_rmse - 1.0, "bar_rmse_rel": LADDER_RMSE_REL,
               "launches": {"streamed_matvec": k2, "streamed_matvec_vjp": vjp},
-              "k2_rule": "nfev * (iters + 2) + iters (solver report)",
+              "probe_launches": {"streamed_matvec": probe_k2, "streamed_matvec_vjp": probe_vjp},
+              "k2_rule": "nfev * (iters + 2) + iters (solver report) + probes",
               "oom_failures": delta(before, "fallback.failures.oom"),
               "journal_degradations": len(model.run_journal["degradations"]),
               "seconds": seconds}
     emit({"phase": "ladder-oom", **ladder, "card": smi})
     if not (rungs == [("native", "iterative", "oom"), ("iterative", "matfree", "oom")]
             and model.metrics["solver_lane"] == "matfree" and np.all(np.isfinite(pred))
-            and k2 == nfev * (cfg.iters + 2) + cfg.iters and vjp == 2 * nfev
+            and k2 == nfev * (cfg.iters + 2) + cfg.iters + probe_k2 and vjp == 2 * nfev
+            and probe_k2 == cfg.iters + 2 and probe_vjp == 0
             and abs(ladder["rmse_rel"]) <= LADDER_RMSE_REL):
         raise AssertionError(f"ladder-oom: {ladder}")
 
@@ -2973,7 +3080,7 @@ def slice8_phases(torch, spd, sm, it_ops, data_main: dict, mf_data, mf_rmse: flo
     # two shapes
     hints = {"num_experts": 9, "n_features": 9, "itemsize": 4}
     before = counters()
-    sm.streamed_matvec.launches = sm.streamed_matvec_vjp.launches = 0
+    zero(sm.streamed_matvec, sm.streamed_matvec_vjp)
     start = time.perf_counter()
     budget = set_budget()
     try:
@@ -3145,6 +3252,8 @@ SERVE_TIMING_REPS = 50
 CHECKPOINT_THETA_REL = 1e-3
 CHECKPOINT_KILL_AFTER = 3
 SERVE_CLI_PREDICTS = 100
+#: the serve-cli phase's ``observed`` reply (the quality phase reads it)
+CLI_OBSERVED: dict = {}
 
 
 def _serve_timings(torch, server, name: str) -> dict:
@@ -3239,8 +3348,10 @@ def _closed_loop(server, name: str, pool: np.ndarray, ref_mean, ref_var, prior: 
 
 def _serve_cli(path: str) -> dict:
     """``python -m spark_gp_tpu_torch.serve`` on the card as a
-    subprocess: the ready line, ``SERVE_CLI_PREDICTS`` predicts, health,
-    metrics, then SIGTERM and the drained shutdown line with exit 0."""
+    subprocess: the ready line, ``SERVE_CLI_PREDICTS`` predicts, one more
+    carrying a ``request_id`` and the ``observe`` of its three labels (the
+    quality plane is on by default), health, metrics, then SIGTERM and the
+    drained shutdown line with exit 0."""
     import signal
     import threading
 
@@ -3263,11 +3374,15 @@ def _serve_cli(path: str) -> dict:
             rows = int(rng.integers(1, 21))
             proc.stdin.write(json.dumps({"id": i, "model": "airfoil",
                                          "x": x[i, :rows].tolist()}) + "\n")
+        proc.stdin.write(json.dumps({"id": SERVE_CLI_PREDICTS, "model": "airfoil",
+                                     "x": x[0, :3].tolist(), "request_id": "cli-q"}) + "\n")
+        proc.stdin.write(json.dumps({"cmd": "observe", "model": "airfoil", "request_id": "cli-q",
+                                     "y": [0.0, 0.5, -0.5]}) + "\n")
         proc.stdin.write(json.dumps({"cmd": "health"}) + "\n")
         proc.stdin.write(json.dumps({"cmd": "metrics"}) + "\n")
         proc.stdin.flush()
-        answers, health, metrics = 0, None, None
-        while metrics is None:
+        answers, health, metrics, observed = 0, None, None, None
+        while metrics is None or observed is None:
             line = proc.stdout.readline()
             if not line:
                 raise AssertionError("serve-cli: the server closed its output early")
@@ -3280,6 +3395,8 @@ def _serve_cli(path: str) -> dict:
                 health = event
             elif event.get("event") == "metrics":
                 metrics = event
+            elif event.get("event") == "observed":
+                observed = event
         proc.send_signal(signal.SIGTERM)
         rest, err = proc.communicate(timeout=120)
     finally:
@@ -3290,7 +3407,7 @@ def _serve_cli(path: str) -> dict:
     last = json.loads(rest.strip().splitlines()[-1]) if rest.strip() else {}
     return {"ready": ready.get("event"), "ready_platform": ready.get("platform"),
             "ready_seconds": ready_s, "buckets_warmed": ready.get("buckets_warmed"),
-            "answers": answers, "health": health and health["status"],
+            "answers": answers, "health": health and health["status"], "observed": observed,
             "metrics_requests": metrics["counters"].get("requests"),
             "shutdown": last, "returncode": proc.returncode, "stderr_tail": err[-300:]}
 
@@ -3314,12 +3431,13 @@ def slice9_phases(torch, spd, data_main: dict, smi: str) -> dict:
     try:
         # persist: the airfoil config on all 1503 rows (m = 1000), saved
         # and loaded on the card; the loaded model's predictions bit-equal
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         start = time.perf_counter()
         model = airfoil_gp(100).fit(x, y)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - start
         launches["persist"] = spd.spd_inv_logdet.launches
+        persist_probe = probes(spd.spd_inv_logdet)
         path = os.path.join(work, "airfoil.npz")
         start = time.perf_counter()
         model.save(path)
@@ -3332,12 +3450,13 @@ def slice9_phases(torch, spd, data_main: dict, smi: str) -> dict:
         persist = {"rows": int(x.shape[0]), "m": int(model.raw_predictor.active.shape[0]),
                    "fit_seconds": fit_s, "save_seconds": save_s, "load_seconds": load_s,
                    "file_bytes": os.path.getsize(path), "nfev": model.metrics["lbfgs_nfev"],
-                   "launches": launches["persist"],
+                   "launches": launches["persist"], "probe_launches": persist_probe,
                    "bit_equal": bool(np.array_equal(mean, lmean) and np.array_equal(var, lvar)),
                    "loaded_device": loaded.raw_predictor.device,
                    "provenance": loaded.provenance}
         emit({"phase": "persist", **persist, "card": smi})
-        if not (persist["bit_equal"] and persist["launches"] == persist["nfev"]
+        if not (persist["bit_equal"]
+                and persist["launches"] == persist["nfev"] + persist_probe == persist["nfev"] + 1
                 and persist["loaded_device"] == "cuda"):
             raise AssertionError(f"persist: {persist}")
 
@@ -3345,7 +3464,7 @@ def slice9_phases(torch, spd, data_main: dict, smi: str) -> dict:
         # after CHECKPOINT_KILL_AFTER saves and resumed
         full, full_s = airfoil_fold_fit(airfoil_gp(100), x, y, train)
         ck_dir = os.path.join(work, "ckpt")
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         start = time.perf_counter()
         try:
             with chaos.preempt_after_saves(CHECKPOINT_KILL_AFTER):
@@ -3357,6 +3476,7 @@ def slice9_phases(torch, spd, data_main: dict, smi: str) -> dict:
         saved_iteration = load_checkpoint(ck_dir, tag="GaussianProcessRegression")[0]
         resumed, leg2_s = airfoil_fold_fit(airfoil_gp(100).setCheckpointDir(ck_dir), x, y, train)
         launches["checkpoint"] = spd.spd_inv_logdet.launches
+        ckpt_probe = probes(spd.spd_inv_logdet)
         theta_rel = float(np.max(np.abs(resumed.raw_predictor.theta - full.raw_predictor.theta)
                                  / np.abs(full.raw_predictor.theta)))
         from spark_gp_tpu_torch.utils.validation import rmse
@@ -3370,12 +3490,14 @@ def slice9_phases(torch, spd, data_main: dict, smi: str) -> dict:
                 "full_iters": full.metrics["lbfgs_iters"], "full_nfev": full.metrics["lbfgs_nfev"],
                 "full_seconds": full_s, "theta_rel_err": theta_rel,
                 "bar": CHECKPOINT_THETA_REL, "launches": launches["checkpoint"],
+                "probe_launches": ckpt_probe,
                 "rmse_full": rmse(y[test], full.predict(x[test])),
                 "rmse_resumed": rmse(y[test], resumed.predict(x[test]))}
         emit({"phase": "checkpoint", **ckpt, "card": smi})
         if not (theta_rel < CHECKPOINT_THETA_REL and saved_iteration == CHECKPOINT_KILL_AFTER
                 and ckpt["resumed_from_iteration"] == CHECKPOINT_KILL_AFTER
-                and launches["checkpoint"] == leg1_nfev + ckpt["leg2_nfev"]):
+                and launches["checkpoint"] == leg1_nfev + ckpt["leg2_nfev"] + ckpt_probe
+                and ckpt_probe == 1):
             raise AssertionError(f"checkpoint: {ckpt}")
 
         # serve: the persisted model behind the server on the card, buckets
@@ -3416,10 +3538,12 @@ def slice9_phases(torch, spd, data_main: dict, smi: str) -> dict:
 
         # serve-cli: the CLI on the card as a subprocess
         cli = _serve_cli(path)
+        CLI_OBSERVED.update(cli["observed"] or {})
         emit({"phase": "serve-cli", **cli, "card": smi})
         if not (cli["ready"] == "ready" and cli["ready_platform"] == "gpu"
-                and cli["answers"] == SERVE_CLI_PREDICTS and cli["health"] == "ok"
-                and cli["metrics_requests"] == SERVE_CLI_PREDICTS
+                and cli["answers"] == SERVE_CLI_PREDICTS + 1 and cli["health"] == "ok"
+                and cli["metrics_requests"] == SERVE_CLI_PREDICTS + 1
+                and cli["observed"].get("joined") == 3 and "error" not in cli["observed"]
                 and cli["shutdown"].get("event") == "shutdown"
                 and cli["shutdown"].get("drained") is True and cli["returncode"] == 0):
             raise AssertionError(f"serve-cli: {cli}")
@@ -3492,6 +3616,20 @@ def k1_rule(m: dict) -> float:
     first = m.get("device_opt.warmup_evaluations", 0.0) if m.get("resumed_from_iteration") \
         else 1.0
     return m.get("device_opt.replays", 0.0) + first
+
+
+def probe_rule(m: dict, kernel: str = "spd_inv_logdet") -> float:
+    """The probe term of a launch rule from one fit's metrics: the launches
+    of ``kernel`` its expert-quality probe stamped
+    (``expert_quality.probe_launches.<kernel>``; one batched pass, no
+    gradient)."""
+    return m.get(f"expert_quality.probe_launches.{kernel}", 0.0)
+
+
+def with_probes(rule: dict, *metrics) -> dict:
+    """``rule`` (kernel name -> launches) with each fit's probe term
+    (:func:`probe_rule`) added, ``metrics`` one dict a fit."""
+    return {k: v + sum(probe_rule(m, k) for m in metrics) for k, v in rule.items()}
 
 
 def loop_record(m: dict) -> dict:
@@ -3611,37 +3749,41 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
         raise AssertionError(f"device-opt-check: {check}")
 
     # airfoil-device: the 10-fold CV on the device optimizer
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     cv = regression_cv(airfoil_gp(100).setOptimizer("device"), x, y, folds)
     cv.pop("first_model")
-    rule = sum(k1_rule(fold) for fold in cv["per_fold"])
+    rule = sum(k1_rule(fold) + probe_rule(fold) for fold in cv["per_fold"])
     cv["launches"] = launches["airfoil_device"] = spd.spd_inv_logdet.launches
     emit({"phase": "airfoil-device", **cv, "k1_rule": rule,
+          "k1_rule_terms": "replays + first evaluations + expert-quality probes",
+          "probe_launches": probes(spd.spd_inv_logdet),
           "host_per_fold": host["airfoil"]["per_fold"],
           "host_optimize_seconds": host["airfoil"]["optimize_seconds"],
           "host_nfev": host["airfoil"]["nfev"], "card": smi})
-    if not (cv["rmse"] < 2.1 and cv["launches"] == rule > 0):
+    if not (cv["rmse"] < 2.1 and cv["launches"] == rule > 0
+            and probes(spd.spd_inv_logdet) == len(folds)):
         raise AssertionError(f"airfoil-device: rmse {cv['rmse']}, {cv['launches']} K1 launches "
                              f"for {rule} by the rule")
 
     # synthetics-device: the CV and the three held-out objective fits
     xs, ys, tr, te = rdata["x"], rdata["y"], rdata["tr"], rdata["te"]
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     scv = regression_cv(synthetics_gp().setOptimizer("device"), xs, ys, rdata["folds"])
     scv.pop("first_model")
     scv["launches"] = spd.spd_inv_logdet.launches
-    scv["k1_rule"] = sum(k1_rule(fold) for fold in scv["per_fold"])
+    scv["k1_rule"] = sum(k1_rule(fold) + probe_rule(fold) for fold in scv["per_fold"])
     held = {}
     total = scv["launches"]
     for objective, counted in (("marginal", 1), ("loo", 1), ("elbo", 0)):
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         model = synthetics_gp(objective).setOptimizer("device").fit(xs[tr], ys[tr])
         m = model.metrics
         held[objective] = {"rmse": rmse(ys[te], model.predict(xs[te])),
                            "final_objective": m["final_nll"], "nfev": m["lbfgs_nfev"],
                            "optimize_seconds": m["optimize_seconds"],
                            "launches": spd.spd_inv_logdet.launches,
-                           "k1_rule": counted * k1_rule(m), "loop": loop_record(m)}
+                           "k1_rule": counted * k1_rule(m) + probe_rule(m),
+                           "probe_launches": probe_rule(m), "loop": loop_record(m)}
         total += spd.spd_inv_logdet.launches
     launches["synthetics_device"] = total
     emit({"phase": "synthetics-device", "cv": scv, "held_out": held, "bar": SYNTHETICS_BAR,
@@ -3654,7 +3796,7 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
     # protein-device: the protein config on the device optimizer
     xp, yp, ptr, pte = data_main["xp"], data_main["yp"], data_main["tr"], data_main["te"]
     gp = copy.copy(host["protein"]["gp"]).setOptimizer("device")
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     start = time.perf_counter()
     model = gp.fit(xp[ptr], data_main["yp_tr"])
     torch.cuda.synchronize()
@@ -3668,10 +3810,11 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
     pprof = replay_profile(torch, model.raw_predictor.kernel, pdata)
     spd.spd_inv_logdet.launches = before
     evals = k1_rule(m)
+    probe = probe_rule(m)
     prot = {"rmse": rmse(yp[pte], pred), "host_rmse": host["protein"]["rmse"],
             "fit_seconds": fit_s, "nfev": m["lbfgs_nfev"], "lbfgs_iters": m["lbfgs_iters"],
             "optimize_seconds": m["optimize_seconds"], "launches": launches["protein_device"],
-            "k1_rule": evals, "loop": loop_record(m),
+            "k1_rule": evals + probe, "probe_launches": probe, "loop": loop_record(m),
             "wall_ms_per_evaluation": m["optimize_seconds"] / evals * 1e3,
             "host_optimize_seconds": host["protein"]["optimize_seconds"],
             "host_nfev": host["protein"]["nfev"],
@@ -3680,12 +3823,12 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
             "bar_rel": PROTEIN_DEVICE_RMSE_REL, **pprof}
     emit({"phase": "protein-device", **prot, "card": smi})
     if not (abs(prot["rmse"] - prot["host_rmse"]) <= PROTEIN_DEVICE_RMSE_REL * prot["host_rmse"]
-            and prot["launches"] == evals > 0):
+            and prot["launches"] == evals + probe and evals > 0 and probe == 1):
         raise AssertionError(f"protein-device: {prot}")
 
     # timeseries-sm-device: eight restarts as one batched loop
     xs_ts, ys_ts, xe, ye = rdata["ts"]
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     start = time.perf_counter()
     model = timeseries_gp("sm").setOptimizer("device").fit(xs_ts, ys_ts)
     pred = model.predict(xe)
@@ -3696,7 +3839,8 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
           "restart_nlls": [m[f"restart_{r}_nll"] for r in range(m["num_restarts"])],
           "best_restart": m["best_restart"], "nfev_winner": m["lbfgs_nfev"],
           "optimize_seconds": m["optimize_seconds"], "launches": launches["timeseries_sm_device"],
-          "k1_rule": k1_rule(m), "matrices_per_launch": int(m["num_restarts"] * m["num_experts"]),
+          "k1_rule": k1_rule(m) + probe_rule(m), "probe_launches": probe_rule(m),
+          "matrices_per_launch": int(m["num_restarts"] * m["num_experts"]),
           "expert_size": m["expert_size"], "loop": loop_record(m), "bar": TIMESERIES_BAR,
           "host": host["timeseries"]}
     emit({"phase": "timeseries-sm-device", **ts, "card": smi})
@@ -3712,7 +3856,7 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
                 .setCheckpointInterval(DEVICE_CKPT_INTERVAL)
 
         full = ck_gp(os.path.join(work, "full")).fit(x[train], y[train])
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         try:
             with chaos.preempt_after_saves(DEVICE_CKPT_KILL_AFTER):
                 ck_gp(os.path.join(work, "cut")).fit(x[train], y[train])
@@ -3722,7 +3866,7 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
         resumed = ck_gp(os.path.join(work, "cut")).fit(x[train], y[train])
         launches["checkpoint_device"] = spd.spd_inv_logdet.launches
         leg2 = loop_record(resumed.metrics)
-        rule = (leg1["replays"] + 1) + k1_rule(resumed.metrics)
+        rule = (leg1["replays"] + 1) + k1_rule(resumed.metrics) + probe_rule(resumed.metrics)
         ck = {"interval": DEVICE_CKPT_INTERVAL, "kill_after_saves": DEVICE_CKPT_KILL_AFTER,
               "theta_bit_equal": bool(np.array_equal(resumed.raw_predictor.theta,
                                                      full.raw_predictor.theta)),
@@ -3740,7 +3884,7 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
 
     # segmented-rung: a staged OOM at the one-shot device fit's choke point
     clean = airfoil_gp(100).setOptimizer("device").fit(x[train], y[train])
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     with chaos.oom_after_calls(0, op="one_dispatch") as fired:
         model = airfoil_gp(100).setOptimizer("device").fit(x[train], y[train])
     launches["segmented_rung"] = spd.spd_inv_logdet.launches
@@ -3748,7 +3892,8 @@ def slice10_phases(torch, spd, data_main: dict, rdata: dict, host: dict, smi: st
                        / np.abs(clean.raw_predictor.theta)))
     seg = {"injected": fired[0], "degradations": model.degradations, "theta_rel_err": rel,
            "bar": SEGMENTED_THETA_REL, "launches": launches["segmented_rung"],
-           "k1_rule": k1_rule(model.metrics), "loop": loop_record(model.metrics)}
+           "k1_rule": k1_rule(model.metrics) + probe_rule(model.metrics),
+           "probe_launches": probe_rule(model.metrics), "loop": loop_record(model.metrics)}
     emit({"phase": "segmented-rung", **seg, "card": smi})
     walk = staged_oom_walk(airfoil_gp(100))
     if not (fired[0] == len(walk) and [(d["from"], d["to"]) for d in model.degradations]
@@ -3772,15 +3917,17 @@ def latent_k1_rule(m: dict) -> float:
     Newton iterations and its gradient pass (``pass_k1_calls`` K1 calls;
     the card's PyTorch has no conditional graph node to skip them), and
     every eager evaluation (the initial one, a resumed leg's warm-up) its
-    own Newton iterations and pass."""
+    own Newton iterations and pass; plus the probe term, the fit's
+    expert-quality probe (:func:`probe_rule`: one K1 launch on the exact
+    lane; 0 for a loop's metrics outside an estimator's fit)."""
     steps = m.get("device_opt.replays", 0.0) + m.get("device_opt.eager_steps", 0.0)
     k, p = m["device_opt.newton_k"], m["device_opt.pass_k1_calls"]
     return (steps * (k + p) + m["device_opt.eager_newton_iterations"]
-            + p * m["device_opt.eager_evaluations"])
+            + p * m["device_opt.eager_evaluations"] + probe_rule(m))
 
 
 def summed_rule(models) -> float:
-    """:func:`latent_k1_rule` over several fits."""
+    """:func:`latent_k1_rule` over several fits (each with its probe term)."""
     return sum(latent_k1_rule(model.metrics) for model in models)
 
 
@@ -3912,7 +4059,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
     before = spd.spd_inv_logdet.launches
     for mode, capture in (("graph", True), ("eager", False)):
         loop = {}
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = lap.fit_gpc_device(kernel, gp._tol, log_space, dev(kernel.init_theta()), lower,
@@ -3948,7 +4095,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
         raise AssertionError(f"gpc-device-check: {check}")
 
     # gpc-mnist-device: examples/mnist.py's config on the device optimizer
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     fit = split_fit(mnist_gpc().setOptimizer("device"), cdata["xm"], cdata["ym"])
     model = fit.pop("model")
     m = model.metrics
@@ -3957,6 +4104,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
                      {**m, "optimize_seconds": fit["optimize_seconds"]})
     rows.append({"device": row, "host": host_row("gpc-mnist", host.get("gpc_mnist"))})
     emit({"phase": "gpc-mnist-device", **fit, "launches": launches["gpc_mnist_device"],
+          "probe_launches": probe_rule(m),
           "k1_rule": latent_k1_rule(m), "loop": loop_record(m), "bar": GPC_BARS["gpc_mnist"],
           "host_accuracy": (host.get("gpc_mnist") or {}).get("accuracy"), "card": smi})
     if not (fit["accuracy"] > GPC_BARS["gpc_mnist"]
@@ -3964,7 +4112,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
         raise AssertionError(f"gpc-mnist-device: {fit}, {launches['gpc_mnist_device']} K1")
 
     # iris-ovr-device: one-vs-rest 10-fold CV (30 device fits)
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     fitted = []
     iris = cv_fits(torch, cdata, lambda: OneVsRest(lambda: iris_gpc().setOptimizer("device")),
                    lambda ovr: fitted.extend(ovr.models_) or ovr.models_, None,
@@ -3974,6 +4122,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
     rows.append({"device": device_row("iris-ovr", iris["seconds"], iris, iris["fits"]),
                  "host": host_row("iris-ovr", host.get("iris_ovr"), 30)})
     emit({"phase": "iris-ovr-device", **iris, "launches": launches["iris_ovr_device"],
+          "probe_launches": probes(spd.spd_inv_logdet),
           "k1_rule": rule, "bar": GPC_BARS["iris_ovr"],
           "host_accuracy": (host.get("iris_ovr") or {}).get("accuracy"), "card": smi})
     if not (iris["accuracy"] >= GPC_BARS["iris_ovr"] and iris["fits"] == 30
@@ -3981,7 +4130,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
         raise AssertionError(f"iris-ovr-device: {iris}, {launches['iris_ovr_device']} K1")
 
     # iris-native-device: the multiclass 10-fold CV on the device optimizer
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     fitted = []
     native = cv_fits(torch, cdata, lambda: iris_native_gpc().setOptimizer("device"),
                      lambda model: fitted.append(model) or [model], None,
@@ -3992,6 +4141,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
     rows.append({"device": device_row("iris-native", native["seconds"], native, native["fits"]),
                  "host": host_row("iris-native", host.get("iris_native"), 10)})
     emit({"phase": "iris-native-device", **native, "launches": launches["iris_native_device"],
+          "probe_launches": probes(spd.spd_inv_logdet),
           "k1_rule": rule, "bar": GPC_BARS["iris_native"],
           "jax_cpu_accuracy": JAX_CPU_ACCURACY["iris_native"], "spread": spread,
           "host_accuracy": (host.get("iris_native") or {}).get("accuracy"), "card": smi})
@@ -4004,7 +4154,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
     # s = 100) on the device optimizer
     for label, key, dispersion, y_counts in (("poisson-device", "poisson", None, d6["y"]),
                                              ("nb-device", "poisson_nb", 2.0, d6["y_nb"])):
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         t0 = time.perf_counter()
         model = poisson_gp(dispersion).setOptimizer("device").fit(d6["x"], y_counts)
         rate = model.predict_rate(d6["x"])
@@ -4015,6 +4165,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
         rows.append({"device": device_row(key, seconds, m), "host": host_row(key, host.get(key))})
         emit({"phase": label, "mean_relative_rate_error": err, "seconds": seconds,
               **{k: m[k] for k in GPC_METRICS}, "launches": launches[key + "_device"],
+              "probe_launches": probe_rule(m),
               "k1_rule": latent_k1_rule(m), "loop": loop_record(m), "bar": SLICE6_BARS[key],
               "host_error": (host.get(key) or {}).get("mean_relative_rate_error"), "card": smi})
         if not (np.all(np.isfinite(rate)) and err < SLICE6_BARS[key]
@@ -4025,7 +4176,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
     # multistart: iris-native's first fold with 4 restarts as one loop,
     # every Newton iteration one K1 launch over all lanes' B_c stacks
     train, test = cdata["folds_i"][0]
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     t0 = time.perf_counter()
     model = iris_native_gpc().setOptimizer("device").setNumRestarts(MC_RESTARTS) \
         .fit(cdata["xi"][train], cdata["yi"][train])
@@ -4037,6 +4188,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
           "accuracy": float(np.mean(model.predict(cdata["xi"][test]) == cdata["yi"][test])),
           "b_c_matrices_per_launch": MC_RESTARTS * int(m["num_experts"]) * 3,
           "launches": launches["multistart_device"], "k1_rule": latent_k1_rule(m),
+          "probe_launches": probe_rule(m),
           "loop": loop_record(m)}
     emit({"phase": "multistart", **ms, "card": smi})
     if not (ms["launches"] == ms["k1_rule"] > 0 and ms["b_c_matrices_per_launch"] == 84
@@ -4053,7 +4205,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
                 .setCheckpointInterval(GPC_CKPT_INTERVAL)
 
         full = ck_gp(os.path.join(work, "full")).fit(cdata["xi"][train], yb)
-        spd.spd_inv_logdet.launches = 0
+        zero(spd.spd_inv_logdet)
         try:
             with chaos.preempt_after_saves(GPC_CKPT_KILL_AFTER):
                 ck_gp(os.path.join(work, "cut")).fit(cdata["xi"][train], yb)
@@ -4085,7 +4237,7 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
     # segmented-rung-gpc: a staged OOM at the one-shot device fit's choke
     # point of the same binary fit
     clean = iris_gpc().setOptimizer("device").fit(cdata["xi"][train], yb)
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     with chaos.oom_after_calls(0, op="one_dispatch") as fired:
         model = iris_gpc().setOptimizer("device").fit(cdata["xi"][train], yb)
     launches["segmented_rung_gpc"] = spd.spd_inv_logdet.launches
@@ -4110,13 +4262,6 @@ def slice11_phases(torch, spd, cdata: dict, d6: dict, host: dict, smi: str) -> d
 #: the SLQ quadrature kernel against its plain version in float64 on the
 #: same (float32) tridiagonals: absolute error over max(1, |reference|)
 SLQ_BAR = 1e-5
-#: float64 peak outside the tensor cores, NVIDIA's data sheets (the
-#: quadrature kernel computes in double)
-F64_PEAKS = {"H100 PCIe": 25.6e12, "H100 NVL": 30e12, "H100": 34e12, "H200": 34e12}
-#: double operations of one QL rotation of the quadrature kernel: hypot
-#: (two products, a sum, a square root), two divisions, the rotated
-#: diagonal pair (five), the next shift (two) and the eigenvector row (six)
-SLQ_OPS_PER_ROTATION = 25
 #: the CG lanes' device fits against the host protein-matfree fit: RMSE
 #: within 2%; the matfree device step's peak under a quarter of the gram
 #: stack (PERF.md §2)
@@ -4239,7 +4384,7 @@ def slq_quadrature_phase(torch, sq, tridiagonals: dict, peaks, f64_peak, smi: st
         tmat = torch.diag_embed(diag) + torch.diag_embed(off, offset=1) \
             + torch.diag_embed(off, offset=-1)
         nbytes = (diag.numel() + off.numel() + out.numel()) * diag.element_size()
-        ops = float(rotations.sum()) * SLQ_OPS_PER_ROTATION
+        ops = float(rotations.sum()) * sq.OPS_PER_ROTATION
         bound = {"bytes": nbytes / peaks[0] * 1e3, "operations": ops / f64_peak * 1e3}
         by = max(bound, key=bound.get)
         turns = time_in_turns(sq, first_design, lambda: sq.slq_quadrature(diag, off))
@@ -4273,25 +4418,24 @@ def slq_quadrature_phase(torch, sq, tridiagonals: dict, peaks, f64_peak, smi: st
 
 
 class LaunchCounts:
-    """The four wrappers' launch counters around this slice's phases:
+    """The wrappers' launch counters around a slice's phases (K1, K2,
+    K2-VJP and the quadrature; the lane gram's too when ``lg`` is given):
     :meth:`zero` before a phase's fits, :meth:`take` after them (recorded
     under the phase's label in ``launches``)."""
 
-    NAMES = ("spd_inv_logdet", "streamed_matvec", "streamed_matvec_vjp", "slq_quadrature")
-
-    def __init__(self, spd, sm, sq):
-        self.wrappers = dict(zip(self.NAMES, (spd.spd_inv_logdet, sm.streamed_matvec,
-                                              sm.streamed_matvec_vjp, sq.slq_quadrature)))
-        self.launches = {n: {} for n in self.NAMES}
+    def __init__(self, spd, sm, sq, lg=None):
+        wrappers = [spd.spd_inv_logdet, sm.streamed_matvec, sm.streamed_matvec_vjp,
+                    sq.slq_quadrature] + ([lg.lane_gram] if lg is not None else [])
+        self.wrappers = {w.__name__: w for w in wrappers}
+        self.launches = {n: {} for n in self.wrappers}
 
     def zero(self):
-        for w in self.wrappers.values():
-            w.launches = 0
+        zero(*self.wrappers.values())
 
     def take(self, label):
         got = {n: w.launches for n, w in self.wrappers.items()}
-        for n in self.NAMES:
-            self.launches[n][label] = got[n]
+        for n, v in got.items():
+            self.launches[n][label] = v
         return got
 
 
@@ -4382,8 +4526,8 @@ def cg_regression_phases(torch, it_ops, counts, data_main: dict, mf_data, cdata:
         err = rmse(yp[te], pred)
         evals = regression_evaluations(m)
         k2, vjp = k2_launch_rule(evals, iters, 1) if lane == "matfree" else (0, 0)
-        rule = {"spd_inv_logdet": 0, "streamed_matvec": k2, "streamed_matvec_vjp": vjp,
-                "slq_quadrature": evals + 1}
+        rule = with_probes({"spd_inv_logdet": 0, "streamed_matvec": k2,
+                            "streamed_matvec_vjp": vjp, "slq_quadrature": evals + 1}, m)
         row = {"rmse": err, "host_matfree_rmse": mf_rmse, "rmse_rel": err / mf_rmse - 1.0,
                "bar_rmse_rel": CG_DEVICE_RMSE_REL, "seconds": seconds,
                "solver_lane": m["solver_lane"], "nfev": m["lbfgs_nfev"],
@@ -4464,8 +4608,8 @@ def cg_latent_phases(torch, it_ops, counts, cdata: dict, d6: dict, host: dict, r
     model = fit.pop("model")
     m = model.metrics
     got = counts.take("gpc_mnist_iterative_device")
-    rule = {"spd_inv_logdet": 0, "streamed_matvec": 0, "streamed_matvec_vjp": 0,
-            "slq_quadrature": latent_quad_rule(m)}
+    rule = with_probes({"spd_inv_logdet": 0, "streamed_matvec": 0, "streamed_matvec_vjp": 0,
+                        "slq_quadrature": latent_quad_rule(m)}, m)
     rows.append({"device": device_row("gpc-mnist-iterative", fit["seconds"],
                                       {**m, "optimize_seconds": m["optimize_seconds"]}),
                  "host": host_row("gpc-mnist-iterative", host.get("gpc_mnist_iterative"))})
@@ -4488,8 +4632,9 @@ def cg_latent_phases(torch, it_ops, counts, cdata: dict, d6: dict, host: dict, r
     finally:
         it_ops.set_solver_lane(None)
     got = counts.take("iris_native_iterative_device")
-    rule = {"spd_inv_logdet": 0, "streamed_matvec": 0, "streamed_matvec_vjp": 0,
-            "slq_quadrature": sum(latent_quad_rule(f.metrics) for f in fitted)}
+    rule = with_probes({"spd_inv_logdet": 0, "streamed_matvec": 0, "streamed_matvec_vjp": 0,
+                        "slq_quadrature": sum(latent_quad_rule(f.metrics) for f in fitted)},
+                       *(f.metrics for f in fitted))
     spread = abs(native["accuracy"] - JAX_CPU_ACCURACY["iris_native_iterative"])
     rows.append({"device": device_row("iris-native-iterative", native["seconds"], native,
                                       native["fits"]),
@@ -4518,8 +4663,8 @@ def cg_latent_phases(torch, it_ops, counts, cdata: dict, d6: dict, host: dict, r
     seconds = time.perf_counter() - t0
     m = model.metrics
     got = counts.take("poisson_iterative_device")
-    rule = {"spd_inv_logdet": 0, "streamed_matvec": 0, "streamed_matvec_vjp": 0,
-            "slq_quadrature": latent_quad_rule(m)}
+    rule = with_probes({"spd_inv_logdet": 0, "streamed_matvec": 0, "streamed_matvec_vjp": 0,
+                        "slq_quadrature": latent_quad_rule(m)}, m)
     err = float(np.mean(np.abs(rate - d6["rate"]) / d6["rate"]))
     rows.append({"device": {**device_row("poisson-iterative", seconds, m),
                             "max_iter": POISSON_DEVICE_MAXITER},
@@ -4646,8 +4791,8 @@ def ladder_oom_device_phase(torch, it_ops, counts, data_main: dict, mf_rmse: flo
     pred = model.predict(xp[te]) * y_std + y_mean
     evals = regression_evaluations(m)
     k2, vjp = k2_launch_rule(evals, iters, 1)
-    rule = {"spd_inv_logdet": 0, "streamed_matvec": k2, "streamed_matvec_vjp": vjp,
-            "slq_quadrature": evals + 1}
+    rule = with_probes({"spd_inv_logdet": 0, "streamed_matvec": k2, "streamed_matvec_vjp": vjp,
+                        "slq_quadrature": evals + 1}, m)
     rungs = [(d["from"], d["to"], d["failure_class"]) for d in model.degradations]
     ladder = {"budget_bytes": budget, "fraction": budget / total_memory,
               "degradations": model.degradations, "solver_lane": m["solver_lane"],
@@ -4681,7 +4826,7 @@ def slice12_phases(torch, spd, sm, sq, it_ops, cdata: dict, d6: dict, data_main:
     quad = slq_quadrature_phase(
         torch, sq, slq_tridiagonals(torch, it_ops, mf_data, matfree_gp(None)._get_kernel(),
                                     b_stacks),
-        peaks_for(name), F64_PEAKS[next(k for k in F64_PEAKS if k in name)], smi)
+        peaks_for(name), card_peaks(name).f64, smi)
     cg_regression_phases(torch, it_ops, counts, data_main, mf_data, cdata, mf_rmse, host, rows,
                          smi)
     cg_latent_phases(torch, it_ops, counts, cdata, d6, host, rows, smi)
@@ -4716,9 +4861,6 @@ MAGIC_SOLVE_BARS = {"residual_device": 1e-11, "residual_host": 1e-11, "mean": 1e
 #: lane_gram against its plain version: over max|x1|^2 + max|x2|^2 (the
 #: terms that cancel), or max|x1| max|x2| for inner products
 LANE_GRAM_BAR = 1e-5
-#: dense TF32 tensor-core rates by card name (NVIDIA's data sheets: 495
-#: TFLOP/s for the H100 SXM)
-TF32_PEAKS = {"H100 PCIe": 378e12, "H100": 495e12, "H200": 495e12}
 #: the mixed lane's hard bars (the strict lane's own, examples/*.py)
 MIXED_BARS = {"airfoil": 2.1, "synthetics": 0.11}
 GUARD_KEYS = ("delta_nll_rel", "delta_grad_rel", "delta_predict_rel", "breach")
@@ -4827,12 +4969,13 @@ def large_m_phases(torch, spd, smi: str) -> dict:
 
     x, y = large_m_data()
     x_eval, y_eval = x[:20_000], y[:20_000]
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     with SolveRecord(ppa) as rec:
         torch.cuda.reset_peak_memory_stats()
         model, fit_s = airfoil_fold_fit(large_m_gp(), x, y, np.arange(LARGE_M_N))
         peak = torch.cuda.max_memory_allocated()
     k1_full = spd.spd_inv_logdet.launches
+    probe_full = probes(spd.spd_inv_logdet)
     m = model.metrics
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -4844,10 +4987,11 @@ def large_m_phases(torch, spd, smi: str) -> dict:
         raise AssertionError("large-m predictions not finite")
     # the same config mean-only: its mean is the full model's, and K_mm is
     # never factored
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     with SolveRecord(ppa) as rec_mean:
         model_mean, fit_mean_s = airfoil_fold_fit(large_m_gp(False), x, y, np.arange(LARGE_M_N))
     k1_mean = spd.spd_inv_logdet.launches
+    probe_mean = probes(spd.spd_inv_logdet)
     mean_only = model_mean.predict(x_eval)
     # device against host on the fit's own statistics
     kernel = raw.kernel
@@ -4909,21 +5053,25 @@ def large_m_phases(torch, spd, smi: str) -> dict:
            "magic_solve_seconds": model.instr.timings.get("magic_solve"),
            "phase_seconds": dict(model.instr.timings),
            "predict_rows_per_second": 20_000 / predict_s, "predict_seconds": predict_s,
-           "nfev": m["lbfgs_nfev"], "k1_launches": k1_full, "device_solves": rec.solves,
+           "nfev": m["lbfgs_nfev"], "k1_launches": k1_full, "probe_launches": probe_full,
+           "device_solves": rec.solves,
            "stats_on_card": rec.stats_on_card, "factors": rec.factors, "peak_cuda_bytes": peak,
            "mean_only": {"fit_seconds": fit_mean_s, "device_solves": rec_mean.solves,
                          "factors": rec_mean.factors, "k1_launches": k1_mean,
+                         "probe_launches": probe_mean,
                          "nfev": model_mean.metrics["lbfgs_nfev"],
                          "mean_max_abs_diff": float(np.abs(mean_only - mean).max())},
            "device_vs_host": errs, "bars": MAGIC_SOLVE_BARS,
            "degradations": getattr(model, "degradations", None), "card": smi}
     emit(row)
-    if not (score < LARGE_M_RMSE_BAR and rec.solves == 1 and k1_full == m["lbfgs_nfev"] > 0
+    if not (score < LARGE_M_RMSE_BAR and rec.solves == 1
+            and k1_full == m["lbfgs_nfev"] + probe_full and m["lbfgs_nfev"] > 0 and probe_full == 1
             and rec.stats_on_card == [True] and not getattr(model, "degradations", None)):
         raise AssertionError(f"large-m: rmse {score}, {rec.solves} device solves, {k1_full} K1 "
                              f"launches for {m['lbfgs_nfev']} evaluations")
     if not (rec_mean.solves == 1 and all(f[0] == "PD" for f in rec_mean.factors)
-            and np.array_equal(mean_only, mean) and k1_mean == model_mean.metrics["lbfgs_nfev"]):
+            and np.array_equal(mean_only, mean)
+            and k1_mean == model_mean.metrics["lbfgs_nfev"] + probe_mean):
         raise AssertionError(f"large-m mean-only: {row['mean_only']}")
     if not agrees(errs, ("residual_device", "residual_host")):
         raise AssertionError(f"large-m device vs host magic solve: {errs}")
@@ -5022,13 +5170,13 @@ def time_lane_gram(torch, lg, inputs: dict, peaks, tf32_peak: float) -> dict:
         x, self_gram, inner = inputs[label]
         b, n, p = x.shape
         out = {"shape": [b, n, p]}
-        for mode, passes in (("3xtf32", 3), ("tf32", 1)):
+        for mode in ("3xtf32", "tf32"):
             key = "" if mode == "3xtf32" else "_tf32"
             out[f"ms{key}"] = time_device_ms(lambda: lg._launch(x, x, mode, int(self_gram)))
             out[f"plain_ms{key}"] = time_device_ms(
                 lambda: lg.lane_gram_plain(x, x, mode, self_gram, inner))
-            byte_s = (b * n * p + b * n * n) * 4 / peaks[0]
-            flop_s = passes * 2.0 * b * n * n * p / tf32_peak
+            flops, nbytes = lg.work(b, n, n, p, mode, same_operand=True)
+            byte_s, flop_s = nbytes / peaks[0], flops / tf32_peak
             out[f"bound_ms{key}"] = max(byte_s, flop_s) * 1e3
             out[f"bound_by{key}"] = "bytes" if byte_s >= flop_s else "operations"
         with tf32_library_matmuls():
@@ -5042,7 +5190,7 @@ def lane_cv(torch, lg, spd, lane: str, make_gp, x, y, folds) -> dict:
     launches, and each fold's guard metrics."""
     from spark_gp_tpu_torch.ops.precision import set_precision_lane
 
-    lg.lane_gram.launches = spd.spd_inv_logdet.launches = 0
+    zero(lg.lane_gram, spd.spd_inv_logdet)
     prev = set_precision_lane(lane)
     try:
         cv = regression_cv(make_gp(), x, y, folds)
@@ -5051,6 +5199,8 @@ def lane_cv(torch, lg, spd, lane: str, make_gp, x, y, folds) -> dict:
     first = cv.pop("first_model")
     cv.update(lane_gram_launches=lg.lane_gram.launches,
               k1_launches=spd.spd_inv_logdet.launches,
+              probe_launches={"lane_gram": probes(lg.lane_gram),
+                              "spd_inv_logdet": probes(spd.spd_inv_logdet)},
               precision_lane=first.metrics["precision_lane"],
               first_theta=first.raw_predictor.theta)
     return cv
@@ -5114,18 +5264,22 @@ def lanes_phases(torch, lg, spd, data_main: dict, rdata: dict, smi: str) -> dict
             nfev = cv["nfev"]
             # ARD (airfoil): one gram an evaluation and one for the guard's
             # probe; RBF (Synthetics): the gram cache once a fit and once
-            # in the probe
-            rule = nfev + len(ff) if config == "airfoil" else 2 * len(ff)
+            # in the probe; and each fit's expert-quality probe, one gram
+            # and one K1 launch a fit
+            probe = cv["probe_launches"]
+            rule = (nfev + len(ff) if config == "airfoil" else 2 * len(ff)) + probe["lane_gram"]
             # the guard's probes take float64 linear algebra: no K1
-            k1_rule_lanes = nfev
+            k1_rule_lanes = nfev + probe["spd_inv_logdet"]
             rows[lane] = {**{k: cv[k] for k in ("rmse", "seconds", "nfev", "optimize_seconds",
                                                  "lane_gram_launches", "k1_launches",
-                                                 "precision_lane", "first_theta")},
+                                                 "precision_lane", "first_theta",
+                                                 "probe_launches")},
                           "lane_gram_rule": rule, "k1_rule": k1_rule_lanes, "guard": guard}
             k1[f"lanes_{config}_{lane}"] = cv["k1_launches"]
             lane_launches[f"lanes_{config}_{lane}"] = cv["lane_gram_launches"]
             if cv["lane_gram_launches"] != rule or cv["k1_launches"] != k1_rule_lanes \
-                    or cv["precision_lane"] != lane:
+                    or cv["precision_lane"] != lane \
+                    or probe != {"lane_gram": len(ff), "spd_inv_logdet": len(ff)}:
                 raise AssertionError(f"lanes-{config} {lane}: {rows[lane]}")
             if lane == "mixed" and not (cv["rmse"] < bar
                                         and all(g["breach"] == 0.0 for g in guard)):
@@ -5144,7 +5298,7 @@ def lanes_phases(torch, lg, spd, data_main: dict, rdata: dict, smi: str) -> dict
     # lanes-device: the first airfoil fold's device fit at mixed, the lane
     # kernel inside the captured step
     train, test = folds[0]
-    lg.lane_gram.launches = spd.spd_inv_logdet.launches = 0
+    zero(lg.lane_gram, spd.spd_inv_logdet)
     prev = precision.set_precision_lane("mixed")
     try:
         model, seconds = airfoil_fold_fit(airfoil_gp(100).setOptimizer("device"), x, y, train)
@@ -5154,7 +5308,8 @@ def lanes_phases(torch, lg, spd, data_main: dict, rdata: dict, smi: str) -> dict
 
     m = model.metrics
     dev_rmse = rmse(y[test], model.predict(x[test]))
-    lane_rule, k1_dev_rule = k1_rule(m) + 1, k1_rule(m)
+    lane_rule = k1_rule(m) + 1 + probe_rule(m, "lane_gram")
+    k1_dev_rule = k1_rule(m) + probe_rule(m)
     row = {"phase": "lanes-device", "rmse": dev_rmse, "seconds": seconds,
            "nfev": m["lbfgs_nfev"], "loop": loop_record(m),
            "lane_gram_launches": lg.lane_gram.launches, "lane_gram_rule": lane_rule,
@@ -5175,7 +5330,7 @@ def lanes_phases(torch, lg, spd, data_main: dict, rdata: dict, smi: str) -> dict
     precision.GUARD_BARS["mixed"] = -1.0
     prev = precision.set_precision_lane("mixed")
     os.environ["GP_GUARD_ACTION"] = "degrade"
-    lg.lane_gram.launches = spd.spd_inv_logdet.launches = 0
+    zero(lg.lane_gram, spd.spd_inv_logdet)
     try:
         degraded, _ = airfoil_fold_fit(airfoil_gp(100), x, y, train)
         k1["lanes_breach"] = spd.spd_inv_logdet.launches
@@ -5238,8 +5393,7 @@ def slice14_phases(torch, spd, lg, data_main: dict, rdata: dict, smi: str) -> di
     errs = check_lane_gram(torch, lg, inputs)
     emit({"phase": "lane-gram-check", "bar": f"{LANE_GRAM_BAR} x (max|x1|^2 + max|x2|^2)",
           "max_err_over_scale": errs, "card": smi})
-    timing = time_lane_gram(torch, lg, inputs, peaks_for(name),
-                            TF32_PEAKS[next(k for k in TF32_PEAKS if k in name)])
+    timing = time_lane_gram(torch, lg, inputs, peaks_for(name), card_peaks(name).tf32)
     lg.lane_gram.launches = before
     emit({"phase": "lane-gram-time", "rows": timing, "card": smi})
     k1 = large_m_phases(torch, spd, smi)
@@ -5247,6 +5401,556 @@ def slice14_phases(torch, spd, lg, data_main: dict, rdata: dict, smi: str) -> di
     k1.update(lanes["k1"])
     emit({"phase": "slice14-phases", "seconds": time.perf_counter() - start_all, "card": smi})
     return {"k1": k1, "lane_gram": lanes["lane_gram"], "errs": errs, "timing": timing}
+
+
+# --- slice 15: cost attribution and the statistical quality plane ------------
+
+#: the quality plane's acceptance bound (the JAX package's
+#: tests/test_quality_obs.py): an injected fault alerts within this many
+#: observations (rows, for drift); the clean stream never does
+ALERT_BUDGET = 512
+#: the card's per-expert NLL against the CPU's float64 on the same stack
+#: and theta: |difference| over max(1, |nll|)
+EXPERT_NLL_BAR = 1e-4
+#: the JAX package's bar on the quality plane's share of the serve path
+#: (recorded against the closed loop here, not asserted)
+QUALITY_OVERHEAD_BAR = 0.02
+#: the closed loop timed with the plane on and off: clients x requests of
+#: QUALITY_LOOP_ROWS rows, each with a request_id
+QUALITY_LOOP_CLIENTS, QUALITY_LOOP_REQUESTS, QUALITY_LOOP_ROWS = 4, 150, 4
+#: the cost phase's serve requests (4 rows: one bucket-8 batch each)
+COST_SERVE_REQUESTS = 100
+#: the launch totals this script counted on the H100 before the
+#: expert-quality probe and slice 15, beside which this run's stand
+LAUNCH_TOTALS_BEFORE = {"spd_inv_logdet": 25574, "streamed_matvec": 5732,
+                      "streamed_matvec_vjp": 164, "slq_quadrature": 516, "lane_gram": 799}
+
+
+def metered(on: bool, fn):
+    """``fn()`` with cost metering forced on or off, the gate restored."""
+    from spark_gp_tpu_torch.obs import cost
+
+    cost.set_cost_metering(on)
+    try:
+        return fn()
+    finally:
+        cost.set_cost_metering(None)
+
+
+def cost_row(model, entry: str = "fit.GaussianProcessRegression") -> dict:
+    """A fit's journal ``xla_cost`` entry row (raises if absent)."""
+    xc = model.run_journal["xla_cost"]
+    if not xc or entry not in xc["entries"] or len(xc["entries"]) != 1:
+        raise AssertionError(f"cost: journal xla_cost {xc}")
+    return xc["entries"][entry]
+
+
+def kernel_work_matches(row: dict, name: str, launches: float, flops: float,
+                        nbytes: float) -> bool:
+    k = row["kernels"].get(name, {"launches": 0.0, "flops": 0.0, "bytes": 0.0})
+    return k["launches"] == launches and k["flops"] == flops and k["bytes"] == nbytes
+
+
+def cost_phase(torch, spd, sm, sq, data_main: dict, cdata: dict, model_path: str,
+               counts, smi: str) -> dict:
+    """cost (module doc); returns the phase's record."""
+    from spark_gp_tpu_torch.models import laplace as lap
+    from spark_gp_tpu_torch.models import ppa
+    from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
+    from spark_gp_tpu_torch.obs import cost
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+    from spark_gp_tpu_torch.ops import iterative as it_ops
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+    from spark_gp_tpu_torch.resilience import memplan
+    from spark_gp_tpu_torch import GaussianProcessRegressionModel
+    from spark_gp_tpu_torch.serve import GPServeServer
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    x, y, folds = data_main["x"], data_main["y"], data_main["folds"]
+    train, test = folds[0]
+    out, checks = {}, {}
+    counts.zero()
+    memplan.reset_calibration()
+    cost.clear_cache()
+
+    # host fit of the first airfoil fold, in turns: unmetered, metered,
+    # metered, unmetered; all four bit-equal
+    turns = []
+    for on in (False, True, True, False):
+        model, seconds = metered(on, lambda: airfoil_fold_fit(airfoil_gp(100), x, y, train))
+        turns.append((on, model, seconds))
+    ref = turns[0][1]
+    m = turns[1][1].metrics
+    e, s = int(m["num_experts"]), int(m["expert_size"])
+    row = cost_row(turns[1][1])
+    flops, nbytes = spd.work(e, s)
+    nfev = m["lbfgs_nfev"]
+    xc = turns[1][1].run_journal["xla_cost"]
+    mfu = xc["measured_mfu_optimize"]
+    host_peak = memplan.compiled_peak("fit.GaussianProcessRegression")
+    out["airfoil_host"] = {
+        "turns_seconds": [[on, sec] for on, _, sec in turns],
+        "optimize_seconds_turns": [[on, mm.metrics["optimize_seconds"]] for on, mm, _ in turns],
+        "row": row, "nfev": nfev, "shape": [e, s], "flops_total": xc["flops_total"],
+        "measured_mfu_optimize": mfu,
+        "compiled_peak_bytes": host_peak,
+        "predicted_bytes": memplan.predicted_bytes(
+            memplan.fit_dispatch_bytes(e, s, 5, 4, "native")),
+        "actual_peak_bytes": turns[1][1].run_journal["memory"]["peak"].get(
+            "memory.peak_bytes_in_use"),
+        "memory_plan": turns[1][1].run_journal["memory_plan"],
+        "expert_quality_in_journal": turns[1][1].run_journal["expert_quality"] is not None,
+        "expert_quality_metrics": {k: v for k, v in m.items() if k.startswith("expert_quality.")}}
+    checks["airfoil_host"] = (
+        all(np.array_equal(t[1].raw_predictor.theta, ref.raw_predictor.theta) for t in turns)
+        and all(rmse(y[test], t[1].predict(x[test])) == rmse(y[test], ref.predict(x[test]))
+                for t in turns)
+        and row["executions"] == nfev
+        and kernel_work_matches(row, "spd_inv_logdet", nfev, nfev * flops, nfev * nbytes)
+        and turns[0][1].run_journal["xla_cost"] is None
+        and mfu is not None and mfu["device_kind"] == torch.cuda.get_device_name(0)
+        and mfu["peak"] == "float32 (no tensor cores)" and mfu["power_limit"]
+        and out["airfoil_host"]["expert_quality_in_journal"]
+        and {"expert_quality.nll_spread", "expert_quality.nll_std", "expert_quality.jitter_max",
+             "expert_quality.weight_min"} <= set(m))
+
+    # the overhead of metering one evaluation: a plain call, the first of a
+    # signature (measured under the counter) and a cached one
+    data = group_for_experts(x[train], y[train], 100, dtype=torch.float32, device="cuda")
+    kernel, theta = ref.raw_predictor.kernel, ref.raw_predictor.theta
+
+    def eval_ms(vag, reps):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vag(theta)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    plain = metered(False, lambda: eval_ms(make_value_and_grad(kernel, data), 21))
+    first = [metered(True, lambda: eval_ms(make_value_and_grad(kernel, data), 1))[0]
+             for _ in range(5)]
+    vag = make_value_and_grad(kernel, data)
+    steady = metered(True, lambda: eval_ms(vag, 21))[1:]
+    out["overhead_ms"] = {"plain": float(np.median(plain[1:])),
+                          "first_signature": float(np.median(first)),
+                          "steady": float(np.median(steady))}
+
+    # protein-matfree at maxiter 2 on the host optimizer: K2, K2-VJP and
+    # the quadrature, every launch's work its work model's
+    xp, tr, yp_tr = data_main["xp"], data_main["tr"], data_main["yp_tr"]
+    cfg = it_ops.solver_config(4065)
+    pm = {}
+    for on in (False, True):
+        try:
+            pm[on] = metered(on, lambda: matfree_gp("matfree", max_iter=2).fit(xp[tr], yp_tr))
+        finally:
+            it_ops.set_solver_lane(None)
+    m = pm[True].metrics
+    e, s, p = int(m["num_experts"]), int(m["expert_size"]), xp.shape[1]
+    nfev = m["lbfgs_nfev"]
+    row = cost_row(pm[True])
+    # per evaluation: iters CG products of width 1 + probes, and the two
+    # differentiated legs (widths 1 and probes)
+    widths = {1 + cfg.probes: cfg.iters, 1: 1, cfg.probes: 1}
+    k2 = tuple(sum(sm.work(e, s, p, n)[i] * times for n, times in widths.items())
+               for i in (0, 1))
+    vjp = tuple(sum(sm.work_vjp(e, s, p, n)[i] for n in (1, cfg.probes)) for i in (0, 1))
+    quad = sq.work(e * cfg.probes, cfg.iters)
+    out["protein_matfree_host"] = {"row": row, "nfev": nfev, "shape": [e, s, p],
+                                   "iters": cfg.iters, "probes": cfg.probes}
+    checks["protein_matfree_host"] = (
+        np.array_equal(pm[True].raw_predictor.theta, pm[False].raw_predictor.theta)
+        and row["executions"] == nfev
+        and kernel_work_matches(row, "streamed_matvec", nfev * (cfg.iters + 2), nfev * k2[0],
+                                nfev * k2[1])
+        and kernel_work_matches(row, "streamed_matvec_vjp", 2 * nfev, nfev * vjp[0],
+                                nfev * vjp[1])
+        and kernel_work_matches(row, "slq_quadrature", nfev, nfev * quad[0], nfev * quad[1]))
+
+    # the fold's device fit: one execution a replay or eager step, the
+    # step's cost counted at its capture
+    dev = {on: metered(on, lambda: airfoil_fold_fit(airfoil_gp(100).setOptimizer("device"),
+                                                    x, y, train)[0]) for on in (False, True)}
+    m = dev[True].metrics
+    steps = m.get("device_opt.replays", 0.0) + m.get("device_opt.eager_steps", 0.0)
+    row = cost_row(dev[True])
+    e, s = int(m["num_experts"]), int(m["expert_size"])
+    flops, nbytes = spd.work(e, s)
+    out["airfoil_device"] = {"row": row, "steps": steps, "loop": loop_record(m),
+                             "memory_plan": dev[True].run_journal["memory_plan"]}
+    checks["airfoil_device"] = (
+        np.array_equal(dev[True].raw_predictor.theta, dev[False].raw_predictor.theta)
+        and row["executions"] == steps > 0
+        and kernel_work_matches(row, "spd_inv_logdet", steps, steps * flops, steps * nbytes))
+
+    # gpc-mnist on the host optimizer: one execution an objective call, K1
+    # once a Newton iteration and once a call inside them
+    lap.laplace_mode_batch.iterations = lap.batched_neg_logz.calls = 0
+    gfit = {on: metered(on, lambda: split_fit(mnist_gpc(), cdata["xm"], cdata["ym"]))
+            for on in (False, True)}
+    gm = gfit[True]["model"].metrics
+    row = cost_row(gfit[True]["model"], "fit.GaussianProcessClassifier")
+    k1_launches = gm["newton_iterations"] + gm["objective_calls"]
+    flops, nbytes = spd.work(int(gm["num_experts"]), int(gm["expert_size"]))
+    out["gpc_mnist_host"] = {"row": row, "objective_calls": gm["objective_calls"],
+                             "newton_iterations": gm["newton_iterations"],
+                             "accuracy": [gfit[False]["accuracy"], gfit[True]["accuracy"]]}
+    checks["gpc_mnist_host"] = (
+        np.array_equal(gfit[True]["model"].raw_predictor.theta,
+                       gfit[False]["model"].raw_predictor.theta)
+        and gfit[True]["accuracy"] == gfit[False]["accuracy"]
+        and row["executions"] == gm["objective_calls"]
+        and kernel_work_matches(row, "spd_inv_logdet", k1_launches, k1_launches * flops,
+                                k1_launches * nbytes))
+
+    # a 1503-row predict_with_var of the persisted model in 501-row chunks:
+    # one execution a chunk
+    loaded = GaussianProcessRegressionModel.load(model_path)
+    raw = loaded.raw_predictor
+    raw._PREDICT_CHUNK_ELEMS = 501 * raw.active.shape[0]
+
+    def predict_flops():
+        before = telemetry.snapshot()["counters"].get("xla.flops.predict.ppa", 0.0)
+        keys = set(cost._CACHE)
+        mean, var = loaded.predict_with_var(x)
+        new = [cost._CACHE[k] for k in set(cost._CACHE) - keys]
+        return telemetry.snapshot()["counters"]["xla.flops.predict.ppa"] - before, new, mean
+
+    d1, new1, mean_metered = metered(True, predict_flops)
+    d2, new2, _ = metered(True, predict_flops)
+    mean_plain = loaded.predict_with_var(x)[0]
+    out["predict"] = {"rows": int(x.shape[0]), "chunks": 3, "flops_first": d1,
+                      "flops_second": d2, "chunk_cost": new1}
+    checks["predict"] = (len(new1) == 1 and d1 == 3 * new1[0]["flops"] == d2 and not new2
+                         and np.array_equal(mean_metered, mean_plain))
+
+    # 100 requests of 4 rows to the persisted model behind the server: one
+    # bucket-8 batch a request, one execution a batch
+    def serve_flops():
+        server = GPServeServer(min_bucket=8, max_batch=32, request_timeout_ms=30_000.0)
+        server.register("airfoil", model_path)
+        server.start()
+        try:
+            graph = server.registry.get("airfoil").predictor._graphs[8]
+            before = telemetry.snapshot()["counters"].get("xla.flops.serve.batch", 0.0)
+            batches = server.metrics.counter("batches")
+            for i in range(COST_SERVE_REQUESTS):
+                server.predict("airfoil", x[4 * i:4 * i + 4])
+            flops = telemetry.snapshot()["counters"]["xla.flops.serve.batch"] - before
+            return flops, server.metrics.counter("batches") - batches, graph.meter.cost
+        finally:
+            server.stop()
+
+    flops, batches, bucket_cost = metered(True, serve_flops)
+    out["serve"] = {"requests": COST_SERVE_REQUESTS, "batches": batches, "flops": flops,
+                    "bucket_8_cost": bucket_cost}
+    checks["serve"] = (batches == COST_SERVE_REQUESTS and bucket_cost is not None
+                       and flops == batches * bucket_cost["flops"])
+    out["launches"] = counts.take("cost")
+    out["checks"] = checks
+    emit({"phase": "cost", **out, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"cost: {checks}")
+    return out
+
+
+def expert_nll_on_f64_algebra(torch, kernel, theta, data):
+    """Per-expert NLL of ``data``'s float32 gram (built on its device, as
+    the probe builds it) in float64 linear algebra: the reference that
+    leaves out the probe's float32 algebra but keeps the gram's rounding."""
+    from spark_gp_tpu_torch.kernels.base import masked_gram_stack
+
+    with torch.no_grad():
+        t = torch.as_tensor(np.asarray(theta), dtype=data.x.dtype, device=data.x.device)
+        kmat = masked_gram_stack(kernel, t, data.x, data.mask).double()
+        ym = (data.y * data.mask).double()
+        chol = torch.linalg.cholesky(kmat)
+        alpha = torch.cholesky_solve(ym[..., None], chol)[..., 0]
+        logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+        return (0.5 * (ym * alpha).sum(-1) + 0.5 * logdet).cpu().numpy()
+
+
+def expert_quality_phase(torch, spd, sm, sq, data_main: dict, mf_data, counts, smi: str) -> dict:
+    """expert-quality (module doc)."""
+    from spark_gp_tpu_torch import Const, EyeKernel, RBFKernel
+    from spark_gp_tpu_torch.ops import iterative as it_ops
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+    from spark_gp_tpu_torch.resilience.quarantine import expert_nll
+
+    x, y, folds = data_main["x"], data_main["y"], data_main["folds"]
+    train = folds[0][0]
+    counts.zero()
+    model, _ = airfoil_fold_fit(airfoil_gp(100), x, y, train)
+    fit_launches = counts.take("expert_quality_fit")
+    kernel, theta = model.raw_predictor.kernel, model.raw_predictor.theta
+    card = group_for_experts(x[train], y[train], 100, dtype=torch.float32, device="cuda")
+    cpu = group_for_experts(x[train], y[train], 100, dtype=torch.float64, device="cpu")
+    # the bar at init theta (the parity phase's point); at the fit's theta
+    # (sigma2 1e-4, cond ~3e5) the float32 gram alone is 1.4e-2 off the
+    # float64 one, so there the error is recorded beside the part of it
+    # the probe's own float32 algebra makes (float64 algebra on the card's
+    # float32 gram)
+    counts.zero()
+    nll_card = expert_nll(kernel, theta, card)
+    probe_launches = counts.take("expert_quality_probe")
+    nll_cpu = expert_nll(kernel, theta, cpu)
+    theta0 = kernel.init_theta()
+    rel = {"init_theta": expert_nll(kernel, theta0, card), "init_theta_cpu":
+           expert_nll(kernel, theta0, cpu)}
+    err = np.abs(rel["init_theta"] - rel["init_theta_cpu"]) / np.maximum(
+        1.0, np.abs(rel["init_theta_cpu"]))
+    err_fit = np.abs(nll_card - nll_cpu) / np.maximum(1.0, np.abs(nll_cpu))
+    algebra = expert_nll_on_f64_algebra(torch, kernel, theta, card)
+    err_algebra = np.abs(nll_card - algebra) / np.maximum(1.0, np.abs(algebra))
+    journal_nll = np.asarray(model.run_journal["expert_quality"]["nll"])
+
+    # the matfree lane: K2 and the quadrature, no [E, s, s] stack
+    mkernel = matfree_gp(None)._get_kernel()
+    gram_stack_bytes = mf_data.num_experts * mf_data.expert_size ** 2 * 4
+    counts.zero()
+    with it_ops.solver_lane_scope("matfree"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        nll_mf = expert_nll(mkernel, mkernel.init_theta(), mf_data)
+        peak = torch.cuda.max_memory_allocated() - base
+    mf_launches = counts.take("expert_quality_matfree")
+
+    # the probe's time at protein (366, 100, 9) and large-m (1200, 100, 3),
+    # exact lane; its launches there are not a fit's
+    xp, tr, yp_tr = data_main["xp"], data_main["tr"], data_main["yp_tr"]
+    xl, yl = large_m_data()
+    timing = {}
+    before = spd.spd_inv_logdet.launches
+    for label, kern, stack in (
+            ("protein", protein_kernel() + Const(1e-3) * EyeKernel(),
+             group_for_experts(xp[tr], yp_tr, 100, dtype=torch.float32, device="cuda")),
+            ("large_m", RBFKernel(0.3, 1e-6, 10) + Const(1e-3) * EyeKernel(),
+             group_for_experts(xl, yl, 100, dtype=torch.float32, device="cuda"))):
+        theta0 = kern.init_theta()
+        expert_nll(kern, theta0, stack)
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            expert_nll(kern, theta0, stack)
+            times.append((time.perf_counter() - t0) * 1e3)
+        timing[label] = {"shape": list(stack.x.shape), "ms": float(np.median(times)),
+                         "ms_all": times}
+    spd.spd_inv_logdet.launches = before
+    out = {"shape": list(card.x.shape[:2]), "bar": EXPERT_NLL_BAR,
+           "max_rel_err": float(err.max()), "nll_card_init_theta": rel["init_theta"].tolist(),
+           "fit_theta": {"max_rel_err": float(err_fit.max()),
+                         "max_rel_err_of_float32_algebra": float(err_algebra.max()),
+                         "nll_card": nll_card.tolist(), "nll_cpu_f64": nll_cpu.tolist()},
+           "journal_vs_probe_max_abs": float(np.max(np.abs(journal_nll - nll_card))),
+           "fit_probe_stamps": {k: v for k, v in model.metrics.items()
+                                if k.startswith("expert_quality.probe_launches.")},
+           "fit_launches": fit_launches, "probe_launches": probe_launches,
+           "matfree": {"shape": list(mf_data.x.shape), "peak_bytes": peak,
+                       "gram_stack_bytes": gram_stack_bytes, "bar_share": MATFREE_PEAK_SHARE,
+                       "launches": mf_launches, "finite": bool(np.all(np.isfinite(nll_mf)))},
+           "probe_ms": timing}
+    emit({"phase": "expert-quality", **out, "card": smi})
+    iters = it_ops.solver_config(mf_data.expert_size).iters
+    if not (out["max_rel_err"] <= EXPERT_NLL_BAR
+            and out["journal_vs_probe_max_abs"] <= EXPERT_NLL_BAR * max(1.0, float(
+                np.max(np.abs(nll_cpu))))
+            and probe_launches == {"spd_inv_logdet": 1, "streamed_matvec": 0,
+                                   "streamed_matvec_vjp": 0, "slq_quadrature": 0, "lane_gram": 0}
+            and out["fit_probe_stamps"] == {"expert_quality.probe_launches.spd_inv_logdet": 1.0}
+            and mf_launches == {"spd_inv_logdet": 0, "streamed_matvec": iters + 2,
+                                "streamed_matvec_vjp": 0, "slq_quadrature": 1, "lane_gram": 0}
+            and peak < MATFREE_PEAK_SHARE * gram_stack_bytes and out["matfree"]["finite"]):
+        raise AssertionError(f"expert-quality: {out}")
+    return out
+
+
+def quality_phase(torch, data_main: dict, model_path: str, counts, smi: str) -> dict:
+    """quality (module doc)."""
+    import threading
+
+    from spark_gp_tpu_torch.resilience import chaos
+    from spark_gp_tpu_torch.serve import GPServeServer
+    from spark_gp_tpu_torch.serve.lifecycle import CanaryPolicy
+
+    x, y = data_main["x"], data_main["y"]
+    counts.zero()
+    server = GPServeServer(min_bucket=8, max_batch=32, max_wait_ms=1.0,
+                           request_timeout_ms=30_000.0, quality_window=64)
+    for name in ("calibration", "drift", "canary", "labels"):
+        server.register(name, model_path)
+    server.start()
+    out = {}
+    try:
+        rng = np.random.default_rng(17)
+
+        def feed(name, n_obs, factor, tag):
+            """Requests of 4 rows with ids; each observed with labels drawn
+            from the served distribution at ``factor`` x its sigma.  The
+            observations when ``name`` first alerts, or 0."""
+            done = i = 0
+            while done < n_obs:
+                rid = f"{tag}-{i}"
+                i += 1
+                row = int(rng.integers(0, x.shape[0] - 8))
+                mean, var = server.submit(name, x[row:row + 4], request_id=rid).result(30.0)
+                server.observe(name, rid, mean + factor * np.sqrt(var) * rng.standard_normal(4))
+                done += 4
+                if server.quality.alert_reason(name) is not None:
+                    return done
+            return 0
+
+        clean = feed("calibration", ALERT_BUDGET, 1.0, "clean")
+        snap = server.quality.snapshot()["models"]["calibration"]["calibration"]
+        out["clean"] = {"alerted_at": clean, "observations": snap["observations"],
+                        "z_mean": snap["z_mean"], "z_std": snap["z_std"],
+                        "coverage": snap["coverage"]}
+        health_clean = server.health()["status"]
+        with chaos.miscalibrate(0.5):
+            tripped = feed("calibration", ALERT_BUDGET, 2.0, "shrunk")
+        out["miscalibrate"] = {"scale": 0.5, "alerted_at": tripped,
+                               "reason": server.quality.alert_reason("calibration"),
+                               "health": server.health()["status"]}
+
+        def pump(n_rows):
+            """Requests of 8 training rows drawn at random (the file's rows
+            are ordered, so consecutive ones are not the training mass)."""
+            done = 0
+            while done < n_rows:
+                server.submit("drift", x[rng.integers(0, x.shape[0], size=8)]).result(30.0)
+                done += 8
+                if server.quality.alert_reason("drift") is not None:
+                    return done
+            return 0
+
+        drift_clean = pump(ALERT_BUDGET)
+        shift = 4.0 * float(x.std())
+        with chaos.drift_inputs(shift):
+            drift = pump(ALERT_BUDGET)
+        out["drift"] = {"shift": shift, "clean_alerted_at": drift_clean, "alerted_at": drift,
+                        "reason": server.quality.alert_reason("drift")}
+
+        # the canary: the model under an active miscalibration alert, then a
+        # candidate that clears the shadow bar under quality_guard
+        for i in range(40):
+            rid = f"g{i}"
+            row = int(rng.integers(0, x.shape[0] - 8))
+            mean, var = server.submit("canary", x[row:row + 4], request_id=rid).result(30.0)
+            server.observe("canary", rid, mean + 3.0 * np.sqrt(var) * rng.standard_normal(4))
+        alert_before = server.quality.alert_reason("canary")
+        server.register("canary", model_path, canary_policy=CanaryPolicy(
+            fraction=1.0, promote_after=3, quality_guard=True))
+        for i in range(8):
+            server.submit("canary", x[i:i + 2]).result(30.0)
+            if server.canaries.active("canary") is None:
+                break
+        out["canary"] = {"alert_before": alert_before,
+                         "rollbacks": server.metrics.counter("canary.rollbacks"),
+                         "promotions": server.metrics.counter("canary.promotions"),
+                         "quarantined": server.canaries.snapshot()["quarantined"]}
+
+        # the model's own labels (its training rows): recorded
+        for i in range(ALERT_BUDGET // 4):
+            rid = f"y{i}"
+            idx = np.arange(4 * i, 4 * i + 4) % x.shape[0]
+            server.submit("labels", x[idx], request_id=rid).result(30.0)
+            server.observe("labels", rid, y[idx])
+        snap = server.quality.snapshot()["models"]["labels"]["calibration"]
+        out["true_labels"] = {"observations": snap["observations"], "z_mean": snap["z_mean"],
+                              "z_std": snap["z_std"], "coverage": snap["coverage"],
+                              "alert": snap["alert"]}
+        out["health_clean"] = health_clean
+        out["health_end"] = server.health()["quality"]["alerting"]
+    finally:
+        server.stop()
+    out["cli_observed"] = dict(CLI_OBSERVED)
+
+    # the closed loop with the plane on and off, in turns (on, off, off, on)
+    servers = {}
+    for on in (True, False):
+        servers[on] = GPServeServer(min_bucket=8, max_batch=32, max_wait_ms=1.0,
+                                    request_timeout_ms=30_000.0, quality=on)
+        servers[on].register("airfoil", model_path)
+        servers[on].start()
+
+    def loop(server, tag):
+        plans = [np.random.default_rng(c).integers(0, x.shape[0] - QUALITY_LOOP_ROWS,
+                                                   size=QUALITY_LOOP_REQUESTS)
+                 for c in range(QUALITY_LOOP_CLIENTS)]
+
+        def client(c, plan):
+            for j, row in enumerate(plan):
+                server.submit("airfoil", x[row:row + QUALITY_LOOP_ROWS],
+                              request_id=f"{tag}-{c}-{j}").result(30.0)
+
+        threads = [threading.Thread(target=client, args=(c, plan))
+                   for c, plan in enumerate(plans)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return QUALITY_LOOP_CLIENTS * QUALITY_LOOP_REQUESTS / (time.perf_counter() - t0)
+
+    try:
+        rates = {True: [], False: []}
+        for k, on in enumerate((True, False, False, True) * 2):
+            rates[on].append(loop(servers[on], f"t{k}"))
+    finally:
+        for server in servers.values():
+            server.stop()
+    on_rps, off_rps = float(np.mean(rates[True])), float(np.mean(rates[False]))
+    overhead = 1.0 - on_rps / off_rps
+    out["closed_loop"] = {"clients": QUALITY_LOOP_CLIENTS, "requests": QUALITY_LOOP_REQUESTS,
+                          "rows": QUALITY_LOOP_ROWS, "requests_per_s_on": rates[True],
+                          "requests_per_s_off": rates[False], "overhead": overhead,
+                          "jax_bar": QUALITY_OVERHEAD_BAR,
+                          "jax_bar_met": bool(overhead <= QUALITY_OVERHEAD_BAR)}
+    out["launches"] = counts.take("quality")
+    out["alert_budget"] = ALERT_BUDGET
+    emit({"phase": "quality", **out, "card": smi})
+    if not (out["clean"]["alerted_at"] == 0 and out["health_clean"] == "ok"
+            and 0 < out["miscalibrate"]["alerted_at"] <= ALERT_BUDGET
+            and out["miscalibrate"]["health"] == "degraded"
+            and out["drift"]["clean_alerted_at"] == 0
+            and 0 < out["drift"]["alerted_at"] <= ALERT_BUDGET
+            and out["canary"]["alert_before"] is not None and out["canary"]["rollbacks"] == 1
+            and out["canary"]["promotions"] == 0
+            and any("quality alert" in r for r in out["canary"]["quarantined"].values())
+            and out["cli_observed"].get("joined") == 3):
+        raise AssertionError(f"quality: {out}")
+    return out
+
+
+def slice15_phases(torch, spd, sm, sq, lg, data_main: dict, mf_data, cdata: dict,
+                   smi: str) -> dict:
+    """This slice's phases: cost, expert-quality, quality.  The airfoil
+    config on all 1503 rows (m = 1000) is fitted and saved once for the
+    cost phase's predict and serve legs and the quality phase's server.
+    Returns each kernel's launches on each phase."""
+    import shutil
+    import tempfile
+
+    start_all = time.perf_counter()
+    counts = LaunchCounts(spd, sm, sq, lg)
+    work = tempfile.mkdtemp(prefix="gp_slice15_")
+    try:
+        counts.zero()
+        model = airfoil_gp(100).fit(data_main["x"], data_main["y"])
+        counts.take("persist_model")
+        path = os.path.join(work, "airfoil.npz")
+        model.save(path)
+        cost = cost_phase(torch, spd, sm, sq, data_main, cdata, path, counts, smi)
+        eq = expert_quality_phase(torch, spd, sm, sq, data_main, mf_data, counts, smi)
+        quality = quality_phase(torch, data_main, path, counts, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "slice15-phases", "seconds": time.perf_counter() - start_all, "card": smi})
+    return {"launches": counts.launches, "cost": cost, "expert_quality": eq, "quality": quality}
 
 
 def regression_row(label: str, seconds: float, m: dict) -> dict:
@@ -5317,8 +6021,10 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - start, "kernels": report})
     # the quadrature kernel runs in the device fits on the CG lanes of the
     # phases below: its count is the main path's from here on
-    sq.slq_quadrature.launches = 0
+    zero(sq.slq_quadrature)
+    from spark_gp_tpu_torch.resilience.quarantine import PROBE_LAUNCHES
 
+    probe_start = dict(PROBE_LAUNCHES)
     # the main path's data and the gram stacks it hands K1 at init theta
     data_main = main_path_data()
     x, y, folds = data_main["x"], data_main["y"], data_main["folds"]
@@ -5410,34 +6116,39 @@ def main() -> int:
         emit({"phase": "parity", "rel_value_err": dv, "rel_grad_err": dg})
 
     # 6. airfoil: 10-fold CV of the reference's acceptance config
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     cv = regression_cv(airfoil_gp(100), x, y, folds)
     launches_airfoil = spd.spd_inv_logdet.launches
+    probe_airfoil = probes(spd.spd_inv_logdet)
     model = cv.pop("first_model")
     engaged["airfoil"] = [model.metrics["gram_cache_engaged"]]
     HOST_FITS["airfoil"] = cv
     emit({"phase": "airfoil", **cv, "launches": launches_airfoil,
+          "probe_launches": probe_airfoil, "k1_rule": "nfev + expert-quality probes",
           "num_experts": model.metrics["num_experts"],
           "expert_size": model.metrics["expert_size"]})
     if not cv["rmse"] < 2.1:
         raise AssertionError(f"airfoil 10-fold RMSE {cv['rmse']} >= 2.1")
-    if launches_airfoil != cv["nfev"] or launches_airfoil == 0:
-        raise AssertionError(f"airfoil: {launches_airfoil} launches for {cv['nfev']} evaluations")
+    if launches_airfoil != cv["nfev"] + probe_airfoil or launches_airfoil == 0 \
+            or probe_airfoil != len(folds):
+        raise AssertionError(f"airfoil: {launches_airfoil} launches for {cv['nfev']} evaluations "
+                             f"and {probe_airfoil} probes")
 
     # 7. airfoil-expert450: the same config at expert 450, E = 3 and
     # s = 451 on every fold, so every evaluation runs K1's workspace path
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     cv = regression_cv(airfoil_gp(450), x, y, folds)
     launches_450 = spd.spd_inv_logdet.launches
+    probe_450 = probes(spd.spd_inv_logdet)
     model = cv.pop("first_model")
     engaged["airfoil_expert450"] = [model.metrics["gram_cache_engaged"]]
     if cv["experts"] != [(3, 451)]:
         raise AssertionError(f"airfoil-expert450: (E, s) per fold {cv['experts']}")
     if not cv["rmse"] < 2.1:
         raise AssertionError(f"airfoil-expert450 10-fold RMSE {cv['rmse']} >= 2.1")
-    if launches_450 != cv["nfev"] or launches_450 == 0:
+    if launches_450 != cv["nfev"] + probe_450 or launches_450 == 0 or probe_450 != len(folds):
         raise AssertionError(f"airfoil-expert450: {launches_450} launches for "
-                             f"{cv['nfev']} evaluations")
+                             f"{cv['nfev']} evaluations and {probe_450} probes")
     # K1's share: one evaluation of the first fold at its fitted theta
     # under the profiler; and that fold fitted again with K1's first design
     # between two fits with K1, for the optimize seconds side by side
@@ -5458,6 +6169,7 @@ def main() -> int:
         spd._library = package_library
     spd.spd_inv_logdet.launches = launches_450
     emit({"phase": "airfoil-expert450", **cv, "launches": launches_450,
+          "probe_launches": probe_450,
           "num_experts": 3, "expert_size": 451,
           "k1_device_ms_per_eval": k1_eval["device_ms"],
           "k1_device_share": k1_eval["device_share"], "k1_wall_share": k1_eval["wall_share"],
@@ -5476,12 +6188,13 @@ def main() -> int:
         .setSeed(13)
     )
     torch.cuda.reset_peak_memory_stats()
-    spd.spd_inv_logdet.launches = 0
+    zero(spd.spd_inv_logdet)
     start = time.perf_counter()
     model = gp.fit(xp[tr], yp_tr)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - start
     launches_protein = spd.spd_inv_logdet.launches
+    probe_protein = probes(spd.spd_inv_logdet)
     engaged["protein"] = [model.metrics["gram_cache_engaged"]]
     pred = model.predict(xp[te]) * y_std + y_mean
     if not np.all(np.isfinite(pred)) or pred.shape != te.shape:
@@ -5490,12 +6203,14 @@ def main() -> int:
                             "optimize_seconds": model.metrics["optimize_seconds"],
                             "nfev": model.metrics["lbfgs_nfev"]}
     emit({"phase": "protein", "fit_seconds": fit_s, "rmse": rmse(yp[te], pred),
-          "launches": launches_protein, "nfev": model.metrics["lbfgs_nfev"],
+          "launches": launches_protein, "probe_launches": probe_protein,
+          "nfev": model.metrics["lbfgs_nfev"],
           **{key: model.metrics[key] for key in PHASES},
           "num_experts": model.metrics["num_experts"],
           "expert_size": model.metrics["expert_size"],
           "peak_cuda_bytes": torch.cuda.max_memory_allocated()})
-    if launches_protein != model.metrics["lbfgs_nfev"] or launches_protein == 0:
+    if launches_protein != model.metrics["lbfgs_nfev"] + probe_protein or launches_protein == 0 \
+            or probe_protein != 1:
         raise AssertionError(f"protein: {launches_protein} launches")
 
     # 9. profile: where one protein objective evaluation spends its time,
@@ -5589,12 +6304,13 @@ def main() -> int:
         if lane == "matfree":
             GaussianProcessRegression._emit_solver_stats = counted_emit
         try:
-            sm.streamed_matvec.launches = sm.streamed_matvec_vjp.launches = 0
+            zero(sm.streamed_matvec, sm.streamed_matvec_vjp)
             start = time.perf_counter()
             model = matfree_gp(lane).fit(xp[tr], yp_tr)
             torch.cuda.synchronize()
             fit_s = time.perf_counter() - start
             total = (sm.streamed_matvec.launches, sm.streamed_matvec_vjp.launches)
+            total_probe = (probes(sm.streamed_matvec), probes(sm.streamed_matvec_vjp))
         finally:
             GaussianProcessRegression._emit_solver_stats = emit_solver_stats
             it_ops.set_solver_lane(None)
@@ -5607,16 +6323,18 @@ def main() -> int:
                       "theta": model.raw_predictor.theta.tolist(),
                       **{k: v for k, v in model.metrics.items() if k.startswith("solver")}}
         if lane == "matfree":
-            mf_model, mf_total = model, total
+            mf_model, mf_total, mf_probe = model, total, total_probe
             engaged["protein_matfree"] = [model.metrics["gram_cache_engaged"]]
         if lane != "exact":
             HOST_FITS[f"protein_{lane}"] = fits[lane]
     nfev = fits["matfree"]["nfev"]
     launches_k2 = mf_total[0] - report_launches["streamed_matvec"]
     launches_vjp = mf_total[1] - report_launches["streamed_matvec_vjp"]
-    if launches_k2 != nfev * (cfg.iters + 2) or launches_vjp != nfev * 2:
+    # the rule's probe term: the expert-quality probe's one pass, no gradient
+    if launches_k2 != nfev * (cfg.iters + 2) + mf_probe[0] or launches_vjp != nfev * 2 \
+            or mf_probe != (cfg.iters + 2, 0):
         raise AssertionError(f"protein-matfree: {launches_k2} K2 and {launches_vjp} "
-                             f"K2-VJP launches for {nfev} evaluations")
+                             f"K2-VJP launches for {nfev} evaluations and {mf_probe} probes")
     if report_launches != {"streamed_matvec": cfg.iters, "streamed_matvec_vjp": 0}:
         raise AssertionError(f"solver report launches {report_launches}")
     if fits["matfree"]["solver.matfree_engaged"] != 1.0:
@@ -5765,6 +6483,10 @@ def main() -> int:
     # 88-99. slice 14: the device magic solve at m = 4096 and the precision
     # lanes (K1's launches on each phase's fits; the lane kernel's)
     slice14 = slice14_phases(torch, spd, lg, data_main, rdata, smi)
+    # 100-103. slice 15: cost attribution and the statistical quality plane
+    # (each phase's launches, all five kernels)
+    slice15 = slice15_phases(torch, spd, sm, sq, lg, data_main, mf_data, cdata, smi)
+    s15 = slice15["launches"]
 
     # 56. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
@@ -5796,7 +6518,7 @@ def main() -> int:
                      + sum(slice7.values()) + sum(slice8["spd_inv_logdet"].values())
                      + sum(slice9.values()) + sum(slice10.values())
                      + sum(slice11.values()) + sum(l12["spd_inv_logdet"].values())
-                     + sum(slice14["k1"].values())),
+                     + sum(slice14["k1"].values()) + sum(s15["spd_inv_logdet"].values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
@@ -5812,6 +6534,7 @@ def main() -> int:
         **{f"launches_{key}": value for key, value in slice11.items()},
         **{f"launches_{key}": value for key, value in l12["spd_inv_logdet"].items()},
         **{f"launches_{key}": value for key, value in slice14["k1"].items()},
+        **{f"launches_{key}": value for key, value in s15["spd_inv_logdet"].items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
@@ -5849,10 +6572,12 @@ def main() -> int:
         "launches": (launches_k2 + report_launches["streamed_matvec"]
                      + k2_weighted["streamed_matvec"]
                      + sum(slice8["streamed_matvec"].values())
-                     + sum(l12["streamed_matvec"].values())),
+                     + sum(l12["streamed_matvec"].values())
+                     + sum(s15["streamed_matvec"].values())),
         "launches_optimize": launches_k2,
         **{f"launches_{key}": value for key, value in slice8["streamed_matvec"].items()},
         **{f"launches_{key}": value for key, value in l12["streamed_matvec"].items()},
+        **{f"launches_{key}": value for key, value in s15["streamed_matvec"].items()},
         "launches_weighted_matfree": k2_weighted["streamed_matvec"],
         "launches_solver_report": report_launches["streamed_matvec"],
         **leg(k2_rows, 9, "matvec"),
@@ -5867,10 +6592,12 @@ def main() -> int:
         "replaces_note": "no Pallas kernel: XLA differentiates the checkpointed scan",
         "launches": (launches_vjp + k2_weighted["streamed_matvec_vjp"]
                      + sum(slice8["streamed_matvec_vjp"].values())
-                     + sum(l12["streamed_matvec_vjp"].values())),
+                     + sum(l12["streamed_matvec_vjp"].values())
+                     + sum(s15["streamed_matvec_vjp"].values())),
         "launches_weighted_matfree": k2_weighted["streamed_matvec_vjp"],
         **{f"launches_{key}": value for key, value in slice8["streamed_matvec_vjp"].items()},
         **{f"launches_{key}": value for key, value in l12["streamed_matvec_vjp"].items()},
+        **{f"launches_{key}": value for key, value in s15["streamed_matvec_vjp"].items()},
         **leg(vjp_rows, 8, "vjp", ("first_design_ms", "wall_ms")),
         "max_rel_err_all_checks": max(e["vjp_rel"] for e in k2_errs.values()),
         "legs": {"n1": leg(vjp_rows, 1, "vjp", ("first_design_ms", "wall_ms"))},
@@ -5884,9 +6611,11 @@ def main() -> int:
         "replaces": "spark_gp_tpu/ops/iterative.py:510",
         "replaces_note": "no Pallas kernel: XLA's eigh in slq_logdet_from_coeffs, which "
                          "torch.linalg.eigh cannot replace inside a captured step",
-        "launches": quad_before + sum(l12["slq_quadrature"].values()),
+        "launches": (quad_before + sum(l12["slq_quadrature"].values())
+                     + sum(s15["slq_quadrature"].values())),
         "launches_before_slice12": quad_before,
         **{f"launches_{key}": value for key, value in l12["slq_quadrature"].items()},
+        **{f"launches_{key}": value for key, value in s15["slq_quadrature"].items()},
         "shape": quad["protein_matfree"]["shape"],
         **{key: quad["protein_matfree"][key]
            for key in keys + ("first_design_ms", "rotations", "steps")},
@@ -5902,8 +6631,9 @@ def main() -> int:
         "replaces_note": "no Pallas kernel: XLA's contractions of the mixed lane's "
                          "_inner_compensated (the fast lane's _inner, distance.py:47, is the "
                          "kernel's tf32 mode); the lane is an argument of the launch",
-        "launches": sum(slice14["lane_gram"].values()),
+        "launches": sum(slice14["lane_gram"].values()) + sum(s15["lane_gram"].values()),
         **{f"launches_{key}": value for key, value in slice14["lane_gram"].items()},
+        **{f"launches_{key}": value for key, value in s15["lane_gram"].items()},
         "shape": slice14["timing"]["airfoil_ard_self"]["shape"],
         "mode": "3xtf32",
         **{key: slice14["timing"]["airfoil_ard_self"][key] for key in keys},
@@ -5913,6 +6643,16 @@ def main() -> int:
         "checks": slice14["errs"],
         "checked": True,
     }]
+    # the totals beside the ones before the probe, and the probes' share
+    from spark_gp_tpu_torch.resilience.quarantine import PROBE_LAUNCHES
+
+    emit({"phase": "launch-totals", "card": smi, "kernels": {
+        k["name"]: {"launches": k["launches"], "before_probe": LAUNCH_TOTALS_BEFORE[k["name"]],
+                    "probe_launches": PROBE_LAUNCHES.get(k["name"], 0.0)
+                    - probe_start.get(k["name"], 0.0),
+                    "probe_share": (PROBE_LAUNCHES.get(k["name"], 0.0)
+                                    - probe_start.get(k["name"], 0.0)) / k["launches"]}
+        for k in kernels}})
     # every kernel of the path ran on it
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     if idle:

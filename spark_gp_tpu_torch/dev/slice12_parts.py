@@ -87,7 +87,7 @@ def main() -> int:
         "slq": lambda: cs.slq_quadrature_phase(
             torch, sq, cs.slq_tridiagonals(torch, it_ops, mf_data,
                                            cs.matfree_gp(None)._get_kernel(), b_stacks),
-            cs.peaks_for(name), cs.F64_PEAKS[next(k for k in cs.F64_PEAKS if k in name)], smi),
+            cs.peaks_for(name), cs.card_peaks(name).f64, smi),
         "regression": lambda: cs.cg_regression_phases(torch, it_ops, counts, data_main, mf_data,
                                                       cdata, mf_rmse, host, rows, smi),
         "latent": lambda: cs.cg_latent_phases(torch, it_ops, counts, cdata, d6, host, rows, smi),

@@ -50,8 +50,7 @@ def main() -> int:
                  cs.check_lane_gram(torch, lg, inputs), "card": smi})
         name = torch.cuda.get_device_name(0)
         cs.emit({"phase": "lane-gram-time", "rows": cs.time_lane_gram(
-            torch, lg, inputs, cs.peaks_for(name),
-            cs.TF32_PEAKS[next(k for k in cs.TF32_PEAKS if k in name)]), "card": smi})
+            torch, lg, inputs, cs.peaks_for(name), cs.card_peaks(name).tf32), "card": smi})
     if "largem" in parts:
         cs.large_m_phases(torch, spd, smi)
     if "lanes" in parts:

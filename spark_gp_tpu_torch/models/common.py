@@ -16,6 +16,8 @@ recovery (:meth:`_run_with_expert_resilience`).
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -49,6 +51,8 @@ from spark_gp_tpu_torch.optimize.lbfgsb import (
 from spark_gp_tpu_torch.parallel.experts import ExpertData, group_for_experts, num_experts_for
 from spark_gp_tpu_torch.utils.device import working_dtype
 from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
+
+logger = logging.getLogger("spark_gp_tpu_torch")
 
 
 def _not_ported(what: str, item):
@@ -479,15 +483,21 @@ class GaussianProcessCommons(GaussianProcessParams):
     def _dispatch_raw_bytes(self, data: ExpertData) -> float:
         """Modeled raw peak bytes of one objective evaluation of the fit
         about to run (``memplan.fit_dispatch_bytes`` at the resolved lane's
-        rung, or at ``segmented`` on that rung, in the stack's dtype)."""
+        rung, or at ``segmented`` on that rung, in the stack's dtype); arms
+        the memory planner's calibration loop with it."""
         from spark_gp_tpu_torch.resilience import memplan
 
         e, s, p = (int(d) for d in data.x.shape)
         rung = "segmented" if self._fallback_segmented() else memplan.fit_rung_of_lane(
             it_ops.resolve_for(data), supports_matfree(self._get_kernel()))
         n_targets = int(data.y.shape[2]) if data.y.ndim == 3 else 1
-        return memplan.fit_dispatch_bytes(e, s, p, data.x.element_size(), rung, n_targets,
-                                          type(self).__name__, self._device_latent_heads())
+        family = type(self).__name__
+        raw = memplan.fit_dispatch_bytes(e, s, p, data.x.element_size(), rung, n_targets,
+                                         family, self._device_latent_heads())
+        # arm the calibration loop: the metered peak of the dispatch about
+        # to run judges this model (obs/cost.py, GP_XLA_COST)
+        memplan.note_expected_dispatch(memplan.fit_model_key(family, rung), raw)
+        return raw
 
     #: the latent heads of a Laplace family's device fit (the memory
     #: planner's latent and B stacks): 1 binary and count models, the
@@ -763,6 +773,9 @@ class GaussianProcessCommons(GaussianProcessParams):
                 state["extra"] = (torch.as_tensor(report.jitter, dtype=state["data"].x.dtype,
                                                   device=state["data"].x.device),
                                   ) + tuple(state["extra"][1:])
+                # per-expert jitter levels ride into the post-fit quality
+                # probe (_emit_expert_quality) and the run journal
+                instr.expert_jitter = np.asarray(report.jitter, dtype=np.float64)
             if report.num_dropped:
                 state["data"] = self._apply_quarantine(instr, state["data"], report.bad,
                                                        "fit recovery")
@@ -1236,6 +1249,8 @@ class GaussianProcessCommons(GaussianProcessParams):
                 with_variance=self._predictive_variance, device=device,
             )
         self._emit_precision_guard(instr, kernel, theta, data)
+        self._emit_expert_quality(instr, kernel, theta, data)
+        self._emit_covariate_summary(instr, data, active64)
         return ppa.ProjectedProcessRawPredictor(
             kernel=kernel,
             theta=np.asarray(theta, dtype=np.float64),
@@ -1249,6 +1264,109 @@ class GaussianProcessCommons(GaussianProcessParams):
             u2=ppa._host64(u2) if self._keeps_update_statistics else None,
             device=str(device),
         )
+
+    @staticmethod
+    def _probeable_stack(data: Optional[ExpertData]) -> bool:
+        """Whether the fitted stack can be probed for post-fit telemetry
+        (the JAX package's gate; the port's stacks are all process-local)."""
+        return data is not None
+
+    #: per-expert rows the journal keeps (bounded for E in the thousands)
+    _EXPERT_QUALITY_CAP = 512
+
+    def _emit_expert_quality(self, instr: Instrumentation, kernel: Kernel, theta,
+                             data: Optional[ExpertData]) -> None:
+        """Fit-time per-expert quality telemetry, the fit-side leg of the
+        statistical quality plane (``obs/quality.py``; JAX
+        ``_emit_expert_quality``): every expert's marginal NLL at theta*
+        in ONE batched pass with no gradient
+        (``resilience/quarantine.expert_nll``: one K1 launch on the card's
+        exact lane, no ``[E, s, s]`` stack on the matfree lane), the
+        per-expert jitter the recovery settled on, and the aggregation
+        weight each expert entered the objective with (``instr.agg_weights``
+        when selection ran, else the uniform renormalization).  Stamped as
+        ``instr.expert_quality`` (the run journal's ``expert_quality``) with
+        the four ``expert_quality.*`` spread metrics, and the probe's
+        kernel launches as ``expert_quality.probe_launches.<kernel>``.  A
+        multi-head stack probes head 0.  ``GP_EXPERT_TELEMETRY=0``
+        disables it; a failure is logged and never fails the fit."""
+        if instr is None or not self._probeable_stack(data):
+            return
+        if os.environ.get("GP_EXPERT_TELEMETRY", "").strip().lower() in ("0", "off", "false"):
+            return
+        try:
+            from spark_gp_tpu_torch.ops import lane_gram, slq_quadrature, spd_linalg
+            from spark_gp_tpu_torch.ops import streamed_matvec as sm
+            from spark_gp_tpu_torch.resilience.quarantine import PROBE_LAUNCHES, expert_nll
+
+            wrappers = {"spd_inv_logdet": spd_linalg.spd_inv_logdet,
+                        "streamed_matvec": sm.streamed_matvec,
+                        "streamed_matvec_vjp": sm.streamed_matvec_vjp,
+                        "slq_quadrature": slq_quadrature.slq_quadrature,
+                        "lane_gram": lane_gram.lane_gram}
+            before = {name: w.launches for name, w in wrappers.items()}
+            y = data.y if data.y.ndim == 2 else data.y[..., 0]
+            probe = ExpertData(x=data.x, y=y, mask=data.mask)
+            jitter = instr.expert_jitter
+            nll = expert_nll(kernel, theta, probe, jitter=jitter)
+            for name, w in wrappers.items():
+                if w.launches != before[name]:
+                    n = float(w.launches - before[name])
+                    instr.log_metric(f"expert_quality.probe_launches.{name}", n)
+                    PROBE_LAUNCHES[name] = PROBE_LAUNCHES.get(name, 0.0) + n
+            active = data.mask.sum(dim=1).cpu().numpy() > 0
+            renorm = float(instr.metrics.get("bcm_renorm", 1.0))
+            agg_w = instr.agg_weights
+            if agg_w is not None and np.asarray(agg_w).shape[0] == len(active):
+                weights = np.asarray(agg_w, dtype=np.float64)
+            else:
+                weights = np.where(active, renorm, 0.0)
+            jit_arr = (np.zeros(nll.shape[0]) if jitter is None
+                       else np.broadcast_to(np.asarray(jitter, dtype=np.float64), nll.shape))
+            act_nll = nll[active & np.isfinite(nll)]
+            cap = self._EXPERT_QUALITY_CAP
+            instr.expert_quality = {
+                "objective": "marginal_proxy",
+                "experts": int(nll.shape[0]),
+                "active": int(active.sum()),
+                "nll": [float(v) for v in nll[:cap]],
+                "jitter": [float(v) for v in jit_arr[:cap]],
+                "weight": [float(v) for v in weights[:cap]],
+                "truncated": bool(nll.shape[0] > cap),
+            }
+            if act_nll.size:
+                instr.log_metric("expert_quality.nll_spread",
+                                 float(act_nll.max() - act_nll.min()))
+                instr.log_metric("expert_quality.nll_std", float(act_nll.std()))
+            instr.log_metric("expert_quality.jitter_max", float(jit_arr.max(initial=0.0)))
+            instr.log_metric("expert_quality.weight_min",
+                             float(weights.min(initial=renorm)) if nll.shape[0] else 0.0)
+        except Exception:  # noqa: BLE001 -- telemetry must never fail a fit
+            logger.warning("per-expert quality telemetry failed", exc_info=True)
+
+    def _emit_covariate_summary(self, instr: Instrumentation, data: Optional[ExpertData],
+                                active64) -> None:
+        """The training covariates' summary (per-dim moments and the
+        active-set-centroid distance sketch, ``obs/quality.
+        summarize_covariates``) stamped as ``instr.covariate_summary``; the
+        saved model carries it in ``provenance_json``, so serve scores
+        incoming rows for input drift against this fit's training mass.
+        ``GP_COVARIATE_SUMMARY=0`` disables it (one host copy of the stack
+        a fit is its cost); a failure is logged and never fails the fit."""
+        if instr is None or not self._probeable_stack(data):
+            return
+        if os.environ.get("GP_COVARIATE_SUMMARY", "").strip().lower() in ("0", "off", "false"):
+            return
+        try:
+            from spark_gp_tpu_torch.obs.quality import summarize_covariates
+
+            x = data.x.to(torch.float64).cpu().numpy()
+            mask = data.mask.cpu().numpy()
+            rows = x.reshape(-1, x.shape[-1])[mask.reshape(-1) > 0]
+            instr.covariate_summary = summarize_covariates(rows, active=active64,
+                                                           seed=self._seed)
+        except Exception:  # noqa: BLE001 -- telemetry must never fail a fit
+            logger.warning("covariate summary failed", exc_info=True)
 
     def _emit_precision_guard(self, instr: Instrumentation, kernel: Kernel, theta,
                               data: Optional[ExpertData]) -> None:

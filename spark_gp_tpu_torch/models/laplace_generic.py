@@ -51,6 +51,7 @@ from spark_gp_tpu_torch.models.laplace_device import (
     newton_start,
     newton_update,
 )
+from spark_gp_tpu_torch.obs import cost as obs_cost
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops import spd_linalg
 
@@ -283,13 +284,17 @@ def make_generic_objective(lik: Likelihood, kernel: Kernel, x, y, mask, tol, cac
     transfer, and the latent modes (and the gram ``cache``) stay on the
     device."""
 
-    def objective(theta, f0):
+    def evaluate(theta, f0):
         t = torch.as_tensor(np.asarray(theta, dtype=np.float64), dtype=x.dtype,
                             device=x.device)
         value, grad, f_new = batched_neg_logz_generic(lik, kernel, tol, t, x, y, mask, f0,
                                                       cache)
         host = torch.cat([value[None], grad]).to(torch.float64).cpu().numpy()
         return float(host[0]), host[1:], f_new
+
+    def objective(theta, f0):
+        # metered flops and bytes per evaluation (obs/cost.py, GP_XLA_COST)
+        return obs_cost.observed_call("fit.host_objective", evaluate, theta, f0)
 
     return objective
 

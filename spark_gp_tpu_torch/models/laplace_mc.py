@@ -59,6 +59,7 @@ from spark_gp_tpu_torch.models.laplace_device import (
     newton_start,
     newton_update,
 )
+from spark_gp_tpu_torch.obs import cost as obs_cost
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops import spd_linalg
 from spark_gp_tpu_torch.ops.linalg import chol_solve, cholesky
@@ -233,12 +234,16 @@ def make_mc_objective(kernel: Kernel, x, y1h, mask, tol, cache=None):
     host in one transfer, and the latent modes and the gram ``cache``
     stay on the device."""
 
-    def objective(theta, f0):
+    def evaluate(theta, f0):
         t = torch.as_tensor(np.asarray(theta, dtype=np.float64), dtype=x.dtype,
                             device=x.device)
         value, grad, f_new = batched_neg_logz_mc(kernel, tol, t, x, y1h, mask, f0, cache)
         host = torch.cat([value[None], grad]).to(torch.float64).cpu().numpy()
         return float(host[0]), host[1:], f_new
+
+    def objective(theta, f0):
+        # metered flops and bytes per evaluation (obs/cost.py, GP_XLA_COST)
+        return obs_cost.observed_call("fit.host_objective", evaluate, theta, f0)
 
     return objective
 

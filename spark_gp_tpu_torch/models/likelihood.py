@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.kernels.base import Kernel, masked_gram_stack, supports_matfree
+from spark_gp_tpu_torch.obs import cost as obs_cost
 from spark_gp_tpu_torch.ops import iterative as it_ops
 from spark_gp_tpu_torch.ops.linalg import chol_logdet, chol_solve, cholesky, trace_scale
 from spark_gp_tpu_torch.ops.precision import precision_lane_scope
@@ -126,7 +127,7 @@ def masked_matfree_operator(kernel: Kernel, theta, x, mask, jitter=None):
 
 
 def batched_nll(kernel: Kernel, theta, data: ExpertData, cache=None, jitter=None,
-                weights=None):
+                weights=None, reduce: bool = True):
     """Sum of per-expert NLLs over the ``[E, s, ...]`` stack, on the lane
     ``ops.iterative.resolve_solver`` picks for the expert size.  ``cache``
     is the fit's theta-invariant gram cache (``kernels/base.py``); the
@@ -138,8 +139,13 @@ def batched_nll(kernel: Kernel, theta, data: ExpertData, cache=None, jitter=None
     adds ``jitter * trace / s * I`` to each expert's operator.
     ``weights`` (``[E]``) is the aggregation plane's per-expert weight
     operand (``models/aggregation.py``): the objective becomes
-    ``sum_e w_e NLL_e``.  ``None`` for either keeps the plain sum."""
+    ``sum_e w_e NLL_e``.  ``None`` for either keeps the plain sum.
+    ``reduce=False`` returns the ``[E]`` per-expert NLLs unsummed (and
+    unweighted) from the same single pass: the fit-time expert-quality
+    probe (``resilience/quarantine.expert_nll``)."""
     resolved = it_ops.resolve_for(data)
+    if not reduce:
+        weights = None
     ym = data.y * data.mask
     if weights is not None:
         weights = torch.as_tensor(weights, dtype=data.x.dtype, device=data.x.device)
@@ -149,6 +155,8 @@ def batched_nll(kernel: Kernel, theta, data: ExpertData, cache=None, jitter=None
         quad, logdet = it_ops.inv_quad_logdet_matfree(
             *masked_matfree_operator(kernel, theta, data.x, data.mask, jitter), ym
         )
+        if not reduce:
+            return 0.5 * quad + 0.5 * logdet
         return _quad_logdet_nll(quad, logdet, weights)
     kmat = masked_gram_stack(kernel, theta, data.x, data.mask, cache)
     if jitter is not None:
@@ -159,7 +167,17 @@ def batched_nll(kernel: Kernel, theta, data: ExpertData, cache=None, jitter=None
             s, dtype=kmat.dtype, device=kmat.device)
     if resolved in ("iterative", "matfree"):
         quad, logdet = it_ops.inv_quad_logdet(kmat, ym)
+        if not reduce:
+            return 0.5 * quad + 0.5 * logdet
         return _quad_logdet_nll(quad, logdet, weights)
+    if not reduce:
+        if kernel_applies(kmat):
+            kinv, logdet = spd_inv_logdet(kmat)
+            alpha = torch.einsum("eij,ej->ei", kinv, ym)
+        else:
+            chol_l = cholesky(kmat)
+            alpha, logdet = chol_solve(chol_l, ym), chol_logdet(chol_l)
+        return 0.5 * torch.einsum("ei,ei->e", ym, alpha) + 0.5 * logdet
     if kernel_applies(kmat):
         return nll_from_inverse(kmat, ym, weights=weights)
     return nll_from_cholesky(kmat, ym, weights=weights)
@@ -203,7 +221,7 @@ def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
     fn = objective_fn(objective)
     extra = _objective_operands(data, objective, extra)
 
-    def vag(theta):
+    def evaluate(theta):
         t = torch.as_tensor(
             np.asarray(theta, dtype=np.float64), dtype=data.x.dtype,
             device=data.x.device,
@@ -212,6 +230,10 @@ def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
         (grad,) = torch.autograd.grad(value, t)
         host = torch.cat([value.detach()[None], grad]).to(torch.float64).cpu().numpy()
         return float(host[0]), host[1:]
+
+    def vag(theta):
+        # metered flops and bytes per evaluation (obs/cost.py, GP_XLA_COST)
+        return obs_cost.observed_call("fit.host_objective", evaluate, theta)
 
     return vag
 

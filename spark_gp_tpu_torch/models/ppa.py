@@ -220,6 +220,12 @@ def magic_solve_device(kernel: Kernel, theta, active, u1, u2, with_variance: boo
     return mv.cpu().numpy(), mm.cpu().numpy()
 
 
+def _predict_chunk(predictor, theta, active, mv, mm, part):
+    """One predict chunk: the metered entry function (``obs/cost.py``
+    keys its cost by this function and the operands' signature)."""
+    return predictor._predict_block(theta, active, mv, mm, part)
+
+
 @dataclass
 class ProjectedProcessRawPredictor:
     """``(mean, variance)`` predictor against the m-point model.
@@ -378,7 +384,11 @@ class ProjectedProcessRawPredictor:
             chunk = planned
 
         def dispatch_bytes(rows: int) -> float:
-            return memplan.predict_dispatch_bytes(rows, m, p, itemsize, mm is None)
+            # also arms the calibration loop: the metered peak of this
+            # chunk's dispatch judges the model (obs/cost.py)
+            raw = memplan.predict_dispatch_bytes(rows, m, p, itemsize, mm is None)
+            memplan.note_expected_dispatch(memplan.predict_model_key(mm is None), raw)
+            return raw
 
         return run_predict_ladder(
             lambda c: self._run_at_chunk(x_test, theta, active, mv, mm, c, dispatch_bytes),
@@ -410,12 +420,15 @@ class ProjectedProcessRawPredictor:
         """The predict in chunks of ``chunk`` rows, every chunk of that one
         shape (the last padded with copies of its first row), each behind
         the ``predict.chunk`` fault-injection point."""
+        from spark_gp_tpu_torch.obs import cost as obs_cost
         from spark_gp_tpu_torch.resilience import chaos
 
         t = x_test.shape[0]
         if t <= chunk:
             chaos.maybe_injected_failure("predict.chunk", rows=t, nbytes=dispatch_bytes(t))
-            return self._predict_block(theta, active, mv, mm, x_test)
+            # metered flops and bytes per chunk (obs/cost.py, GP_XLA_COST)
+            return obs_cost.observed_call("predict.ppa", _predict_chunk, self,
+                                          theta, active, mv, mm, x_test)
         means, vars_ = [], []
         for start in range(0, t, chunk):
             part = x_test[start:start + chunk]
@@ -423,7 +436,8 @@ class ProjectedProcessRawPredictor:
             if pad:
                 part = torch.cat([part, part[:1].expand(pad, part.shape[1])])
             chaos.maybe_injected_failure("predict.chunk", rows=chunk, nbytes=dispatch_bytes(chunk))
-            mean, var = self._predict_block(theta, active, mv, mm, part)
+            mean, var = obs_cost.observed_call("predict.ppa", _predict_chunk, self,
+                                               theta, active, mv, mm, part)
             means.append(mean[:chunk - pad])
             if var is not None:
                 vars_.append(var[:chunk - pad])

@@ -8,6 +8,14 @@
   per-fit ``run_journal``.
 * :mod:`~spark_gp_tpu_torch.obs.recorder` -- the flight recorder and the
   incident bundles dumped on terminal classified failures.
+* :mod:`~spark_gp_tpu_torch.obs.cost` -- cost attribution: metered flops
+  and bytes per entry point (``GP_XLA_COST``), the library operations
+  under a dispatch counter once a signature and the kernels' work models
+  at every launch; the journal's ``xla_cost`` and
+  ``gp_xla_flops_total{entry=...}``.
+* :mod:`~spark_gp_tpu_torch.obs.quality` -- the statistical quality
+  plane: calibration and drift monitors, the pending ring behind the
+  serve ``observe`` verb, the covariate summary.
 * :mod:`~spark_gp_tpu_torch.obs.expo` -- the OpenMetrics page of a fit's
   ``Instrumentation`` and the telemetry.
 * :mod:`~spark_gp_tpu_torch.obs.names` -- the catalog of every emitted

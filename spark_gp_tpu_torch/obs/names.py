@@ -105,6 +105,12 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("agg.selection_dropped", "metric", "experts masked out by fit-time redundancy selection"),
     MetricName("agg.renorm", "metric", "E_active / sum(w) weighted renormalization factor (quarantine.renorm_factor generalized)"),
     MetricName("*.failed", "metric", "a phase of this name raised", label="phase"),
+    # fit-time per-expert quality telemetry (models/common.py)
+    MetricName("expert_quality.nll_spread", "metric", "max - min per-expert NLL at theta* (marginal proxy, active experts)"),
+    MetricName("expert_quality.nll_std", "metric", "std of per-expert NLL at theta* across active experts"),
+    MetricName("expert_quality.jitter_max", "metric", "largest per-expert adaptive-jitter level the fit settled on"),
+    MetricName("expert_quality.weight_min", "metric", "smallest per-expert effective BCM weight (0 = quarantined)"),
+    MetricName("expert_quality.probe_launches.*", "metric", "launches of a hand-written kernel by the fit's expert-quality probe (one batched pass, no gradient)", label="kernel"),
     MetricName("resumed_from_iteration", "metric", "checkpoint resume point (utils/checkpoint.py)"),
     # -- serve counters (serve/metrics.ServingMetrics.inc) -----------------
     MetricName("requests", "counter", "predict requests admitted at submit"),
@@ -154,6 +160,24 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("compile.bucket_traces", "counter", "serve bucket builds (a CUDA graph capture on the card, the first eager run on the CPU)"),
     MetricName("compile.recompile_guard_trips", "counter", "builds caught on a frozen serve surface"),
     MetricName("plan.shed", "counter", "serve submits shed on predicted-per-request bytes vs headroom"),
+    # -- statistical health plane (obs/quality.py) -------------------------
+    MetricName("quality.observations", "counter", "ground-truth labels joined to served predictions"),
+    MetricName("quality.observe.unknown_request", "counter", "observations naming a request_id with no pending prediction"),
+    MetricName("quality.observe.duplicate", "counter", "idempotent re-observations of an already-joined request_id"),
+    MetricName("quality.windows", "counter", "calibration verdict windows closed"),
+    MetricName("quality.alerts", "counter", "sustained-miscalibration alerts raised"),
+    MetricName("drift.windows", "counter", "input-drift verdict windows closed"),
+    MetricName("drift.alerts", "counter", "sustained-input-drift alerts raised"),
+    MetricName("quality.alert.*", "gauge", "1 while the model has an active miscalibration alert", label="model"),
+    MetricName("quality.z_mean.*", "gauge", "lifetime mean standardized residual of graded predictions", label="model"),
+    MetricName("quality.z_std.*", "gauge", "lifetime std of standardized residuals (1.0 = calibrated)", label="model"),
+    MetricName("quality.nll_mean.*", "gauge", "lifetime mean predictive NLL of graded predictions", label="model"),
+    MetricName("quality.coverage_50.*", "gauge", "empirical coverage of the nominal 50% central interval", label="model"),
+    MetricName("quality.coverage_90.*", "gauge", "empirical coverage of the nominal 90% central interval", label="model"),
+    MetricName("quality.coverage_99.*", "gauge", "empirical coverage of the nominal 99% central interval", label="model"),
+    MetricName("quality.pending_depth.*", "gauge", "predictions parked awaiting delayed labels", label="model"),
+    MetricName("drift.alert.*", "gauge", "1 while the model has an active input-drift alert", label="model"),
+    MetricName("drift.score.*", "gauge", "last drift window's max per-dim mean shift in train-std units", label="model"),
     MetricName("integrity.artifact_verified", "counter", "model artifacts whose sha256 sidecar verified on load"),
     MetricName("integrity.artifact_corrupt", "counter", "model artifacts refused on sidecar digest mismatch"),
     # -- memory planning (resilience/memplan.py) ---------------------------
@@ -182,6 +206,9 @@ CATALOG: Tuple[MetricName, ...] = (
     # -- forensics plane (obs/recorder.py) ---------------------------------
     MetricName("incident.bundles", "counter", "incident bundles assembled on terminal classified failures"),
     MetricName("incident.bundle_failures", "counter", "incident bundles that could not be persisted"),
+    MetricName("xla.flops.*", "counter", "metered flops executed per entry point: the library operations of one execution counted once per signature by the dispatch counter (obs/cost.py) times the executions, plus every hand-written kernel's work model per launch", label="entry"),
+    MetricName("xla.bytes.*", "counter", "metered bytes moved per entry point (each operation's inputs read once, outputs written once; the kernels' work models)", label="entry"),
+    MetricName("xla.cost_failures", "counter", "signature measurements that failed (metering skipped, the call unaffected)"),
     MetricName("build", "info", "build/runtime identity (package, torch, CUDA, backend, lane, process count)"),
     # -- span/recorder event names (trace.add_event / RECORDER.record) -----
     MetricName("error", "event", "span closed with an escaping exception"),
@@ -202,6 +229,10 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("canary.promote", "event", "canary promoted to latest"),
     MetricName("lifecycle.drain_begin", "event", "graceful drain begun"),
     MetricName("lifecycle.drain_end", "event", "graceful drain finished"),
+    MetricName("quality.alert", "event", "sustained-miscalibration alert raised"),
+    MetricName("quality.recovered", "event", "miscalibration alert cleared by a clean window"),
+    MetricName("drift.alert", "event", "sustained-input-drift alert raised"),
+    MetricName("drift.recovered", "event", "input-drift alert cleared by a clean window"),
     MetricName("metric.*", "event", "watchlisted serve-metric increment relayed to the flight recorder", label="key"),
 )
 

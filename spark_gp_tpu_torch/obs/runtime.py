@@ -12,9 +12,14 @@
   boundaries into ``memory.bytes_in_use`` / ``memory.peak_bytes_in_use``
   (allocated now and at peak) and ``memory.bytes_reserved`` (held by the
   caching allocator); the host peak RSS where no CUDA context exists;
+* **cost** -- with metering on (``obs/cost.py``, ``GP_XLA_COST``) the
+  active fit capture keeps a per-entry table of metered executions
+  (:meth:`FitCapture.note_xla_cost`), from which the journal's
+  ``xla_cost`` block and the memory plan's ``compiled_peak_bytes`` come;
 * **run journal** -- every fit is stamped with a ``run_journal`` dict
   (span tree, lanes, quarantine events, degradations, memory plan,
-  kernel builds and launches, memory samples), persisted as JSON when
+  kernel builds and launches, memory samples, the fit-time
+  ``expert_quality`` table, ``xla_cost``), persisted as JSON when
   ``GP_RUN_JOURNAL_DIR`` names a directory.
 
 All keys are registered in :mod:`spark_gp_tpu_torch.obs.names`.
@@ -190,12 +195,48 @@ class FitCapture:
         self._base_entry = {k: dict(v) for k, v in snap["per_entry"].items()}
         self.memory_samples: List[dict] = []
         self.kernels: Dict[str, Dict] = {"builds": {}, "launches": {}, "by_entry": {}}
+        # entry -> {flops_per_execution, bytes_per_execution, executions,
+        # kernels}, fed by obs/cost.py while this capture is active
+        self.xla_costs: Dict[str, Dict] = {}
         self._finished = False
 
     def add_memory_sample(self, tag: str) -> None:
         sample = telemetry.sample_memory()
         if sample:
             self.memory_samples.append({"phase": tag, **sample})
+
+    def note_xla_cost(self, entry: str, cost: Dict[str, float], weight: float = 1.0,
+                      kernels: Optional[Dict[str, list]] = None) -> None:
+        """One metered batch of executions (``obs/cost.py``): ``weight``
+        executions of ``cost`` (the library operations of one execution)
+        and the kernels' work they launched (``{kernel: [launches, flops,
+        bytes]}``).  Distinct programs under one entry (host and device
+        paths in one fit, a degraded re-run) keep one row each, by their
+        per-execution cost, suffixed ``#2``, ``#3`` (the JAX package's
+        rule)."""
+        key = entry
+        suffix = 2
+        while True:
+            row = self.xla_costs.get(key)
+            if row is None or (row["flops_per_execution"] == cost["flops"]
+                               and row["bytes_per_execution"] == cost["bytes"]):
+                break
+            key = f"{entry}#{suffix}"
+            suffix += 1
+        row = self.xla_costs.setdefault(key, {
+            "flops_per_execution": cost["flops"],
+            "bytes_per_execution": cost["bytes"],
+            "executions": 0.0,
+            "kernels": {},
+        })
+        if cost.get("peak_bytes"):
+            row["peak_bytes_per_execution"] = cost["peak_bytes"]
+        row["executions"] += weight
+        for name, (launches, flops, nbytes) in (kernels or {}).items():
+            k = row["kernels"].setdefault(name, {"launches": 0.0, "flops": 0.0, "bytes": 0.0})
+            k["launches"] += launches
+            k["flops"] += flops
+            k["bytes"] += nbytes
 
     def finish(self) -> None:
         if self._finished:
@@ -241,6 +282,24 @@ def fit_capture(name: str):
         cap.finish()
 
 
+def sample_capture_memory(tag: str) -> None:
+    """A memory sample into the active fit capture, if any (the cost
+    meter takes one before it resets the card's peak reads)."""
+    cap = _active_capture.get()
+    if cap is not None:
+        cap.add_memory_sample(tag)
+
+
+def note_xla_cost(entry: str, cost: Dict[str, float], weight: float = 1.0,
+                  kernels: Optional[Dict[str, list]] = None) -> None:
+    """Relay one metered batch of executions into the active fit capture
+    (the journal's per-entry table); dropped outside a capture -- the
+    process-wide totals live in the telemetry counters regardless."""
+    cap = _active_capture.get()
+    if cap is not None:
+        cap.note_xla_cost(entry, cost, weight, kernels)
+
+
 def on_phase_boundary(instr_name: str, phase_name: str) -> None:
     """Called by ``Instrumentation.phase`` on every phase exit: samples
     memory into the active capture; a contextvar read otherwise."""
@@ -283,17 +342,60 @@ def validate_journal(journal: dict) -> List[str]:
     return problems
 
 
+def _xla_cost_summary(capture: Optional[FitCapture], timings: Dict[str, float],
+                      lane: str) -> Optional[dict]:
+    """The journal's metered-cost block: the per-entry tables of the
+    capture (``flops_total`` / ``bytes_total``: the library operations'
+    per-execution cost times the executions, plus the kernels' work) and
+    the optimize phase's MFU against the card's peak for ``lane``
+    (``obs/cost.mfu_against_peak``, None on the CPU).  None when metering
+    was off for the fit."""
+    if capture is None or not capture.xla_costs:
+        return None
+    from spark_gp_tpu_torch.obs import cost as obs_cost
+
+    entries = {}
+    flops_total = 0.0
+    for entry, row in capture.xla_costs.items():
+        kernels = {k: dict(v) for k, v in row["kernels"].items()}
+        total = row["flops_per_execution"] * row["executions"] + sum(
+            k["flops"] for k in kernels.values())
+        nbytes = row["bytes_per_execution"] * row["executions"] + sum(
+            k["bytes"] for k in kernels.values())
+        entries[entry] = {**row, "kernels": kernels, "flops_total": total, "bytes_total": nbytes}
+        flops_total += total
+    opt_s = timings.get("optimize_hypers")
+    return {
+        "entries": entries,
+        "flops_total": flops_total,
+        "optimize_seconds": opt_s,
+        "measured_mfu_optimize": obs_cost.mfu_against_peak(flops_total, opt_s or 0.0, lane),
+    }
+
+
 def _memory_plan_rows(instr, capture: Optional[FitCapture]) -> List[dict]:
     """The journal's ``memory_plan`` block: every plan decision stamped on
-    the fit, annotated with the fit's measured device peak; a peak above
-    a fitting row's margined prediction counts ``plan.margin_breach``."""
+    the fit, annotated with the fit's measured device peak and, when cost
+    metering ran, the largest metered per-execution peak
+    (``compiled_peak_bytes``, ``obs/cost.py``).  The breach compares like
+    for like: the metered per-execution peak where there is one (the
+    prediction's own granularity), else the whole fit's device peak; a
+    peak above a fitting row's margined prediction counts
+    ``plan.margin_breach``."""
     rows = [dict(r) for r in (getattr(instr, "memory_plan", []) or [])]
-    actual = None if capture is None else capture.peak_memory.get("memory.peak_bytes_in_use")
+    actual = compiled = None
+    if capture is not None:
+        actual = capture.peak_memory.get("memory.peak_bytes_in_use")
+        peaks = [row.get("peak_bytes_per_execution") for row in capture.xla_costs.values()
+                 if row.get("peak_bytes_per_execution")]
+        compiled = max(peaks) if peaks else None
     for row in rows:
         row["actual_peak_bytes"] = actual
-        row["compiled_peak_bytes"] = None
+        row["compiled_peak_bytes"] = compiled
         predicted = row.get("predicted_bytes")
-        breach = bool(predicted and row.get("fits") and actual is not None and actual > predicted)
+        measured = compiled if compiled is not None else actual
+        breach = bool(predicted and row.get("fits") and measured is not None
+                      and measured > predicted)
         row["margin_breach"] = breach
         if breach:
             telemetry.inc("plan.margin_breach", entry=row.get("entry"))
@@ -332,7 +434,9 @@ def write_run_journal(instr, root, capture: Optional[FitCapture],
         "metrics": dict(metrics),
         "degradations": list(getattr(instr, "degradations", [])),
         "memory_plan": _memory_plan_rows(instr, capture),
-        "expert_quality": None,
+        # the fit-time per-expert quality probe (models/common.
+        # _emit_expert_quality); None when it was skipped or disabled
+        "expert_quality": getattr(instr, "expert_quality", None),
         "quarantine": {
             "experts_quarantined": metrics.get("experts_quarantined", 0.0),
             "experts_jittered": metrics.get("experts_jittered", 0.0),
@@ -349,7 +453,11 @@ def write_run_journal(instr, root, capture: Optional[FitCapture],
         ),
         "span_count": len(spans),
         "spans": _trace.span_tree(spans),
-        "xla_cost": None,
+        # metered flops and bytes and the optimize phase's MFU
+        # (obs/cost.py); None when GP_XLA_COST was off for the fit
+        "xla_cost": _xla_cost_summary(
+            capture, dict(getattr(instr, "timings", {})),
+            metrics.get("precision_lane", active_lane())),
         "path": None,
     }
     journal_dir = os.environ.get("GP_RUN_JOURNAL_DIR", "").strip() or None

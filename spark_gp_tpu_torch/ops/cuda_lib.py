@@ -34,6 +34,7 @@ import threading
 import time
 from pathlib import Path
 
+from spark_gp_tpu_torch.obs import cost as obs_cost
 from spark_gp_tpu_torch.obs import trace as obs_trace
 from spark_gp_tpu_torch.obs.runtime import telemetry
 
@@ -78,7 +79,8 @@ _CAPTURE = threading.local()
 def capture_tally():
     """Around a CUDA graph capture: the wrappers called inside, while the
     stream captures, tally their launches into the yielded dict (kernel
-    name -> ``[wrapper, launches per replay]``) instead of counting them."""
+    name -> ``[wrapper, launches, flops, bytes]`` per replay) instead of
+    counting them."""
     prev = getattr(_CAPTURE, "tally", None)
     tally: dict = {}
     _CAPTURE.tally = tally
@@ -106,29 +108,46 @@ def collector_held():
             gc.enable()
 
 
-def record_launch(wrapper, name: str) -> None:
+def record_launch(wrapper, name: str, work=None) -> None:
     """The wrappers' one launch counter: ``wrapper.launches`` and the
     telemetry count one launch, or, while a graph captures under
-    :func:`capture_tally`, the capture's tally does."""
+    :func:`capture_tally`, the capture's tally does.  ``work`` is the
+    launch's ``(flops, bytes)`` from its kernel's work model, which goes
+    to the cost meter (``obs/cost.py``) with the launch, or with each
+    replay of the graph that tallied it."""
     tally = getattr(_CAPTURE, "tally", None)
     if tally is not None:
         import torch
 
         if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-            tally.setdefault(name, [wrapper, 0])[1] += 1
+            row = tally.setdefault(name, [wrapper, 0, 0.0, 0.0])
+            row[1] += 1
+            if work is not None:
+                row[2] += float(work[0])
+                row[3] += float(work[1])
             return
     wrapper.launches += 1
     count_launch(name)
+    obs_cost.note_kernel(name, work)
+
+
+def record_plain(name: str, work) -> None:
+    """A wrapper's plain branch did its kernel's work (on the CPU): the
+    cost meter counts the kernel's work model, as for a launch; no launch
+    is counted."""
+    obs_cost.note_kernel(name, work)
 
 
 def count_replays(tally: dict, replays: int) -> None:
     """Count the launches of ``replays`` replays of a graph whose capture
-    tallied ``tally``: each replay launches every tallied kernel again."""
-    for name, (wrapper, per_replay) in tally.items():
+    tallied ``tally``: each replay launches every tallied kernel again,
+    and does its work again (``obs/cost.py``)."""
+    for name, (wrapper, per_replay, flops, nbytes) in tally.items():
         n = int(per_replay) * int(replays)
         if n:
             wrapper.launches += n
             count_launch(name, n)
+            obs_cost.note_kernel(name, (flops * replays, nbytes * replays), n)
 
 
 def nvcc_path() -> str:

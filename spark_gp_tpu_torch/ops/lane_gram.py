@@ -33,6 +33,7 @@ import functools
 
 import torch
 
+from spark_gp_tpu_torch.obs import cost as obs_cost
 from spark_gp_tpu_torch.ops import cuda_lib
 
 #: the kernel's modes (its ``mode`` argument)
@@ -88,6 +89,29 @@ def lane_gram_plain(x1, x2, mode: str, self_gram: bool = False, inner: bool = Fa
     return zero_diag(d) if self_gram else d
 
 
+#: TF32 tensor-core passes of each mode
+PASSES = {"tf32": 1, "3xtf32": 3}
+
+
+def work(b: int, n1: int, n2: int, p: int, mode: str, same_operand: bool = False,
+         itemsize: int = 4):
+    """``(flops, bytes)`` of one launch on ``b`` pairs of ``[n1, p]`` and
+    ``[n2, p]`` operands: ``2 n1 n2 p`` flops a TF32 pass (:data:`PASSES`)
+    and each operand read once (once in all where ``x1`` is ``x2``), the
+    ``[n1, n2]`` output written once."""
+    operands = b * n1 * p + (0 if same_operand else b * n2 * p)
+    return (float(PASSES[mode] * 2 * b * n1 * n2 * p),
+            float((operands + b * n1 * n2) * itemsize))
+
+
+def _work_of(x1, x2, mode: str):
+    """:func:`work` of one call on operands of one batch shape."""
+    n1, p = x1.shape[-2], x1.shape[-1]
+    b = x1.numel() // max(1, n1 * p)
+    same = x1.data_ptr() == x2.data_ptr() and x1.shape == x2.shape
+    return work(b, n1, x2.shape[-2], p, mode, same, x1.element_size())
+
+
 def kernel_applies(x1: torch.Tensor, x2: torch.Tensor) -> bool:
     """Both operands CUDA float32 on one device, with matching features."""
     return (x1.is_cuda and x2.is_cuda and x1.device == x2.device
@@ -128,14 +152,17 @@ def _launch(x1, x2, mode: str, flags: int):
                                        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise cuda_lib.KernelLaunchError(f"lane_gram kernel launch failed: CUDA error {err}")
-    cuda_lib.record_launch(lane_gram, "lane_gram")
+    cuda_lib.record_launch(lane_gram, "lane_gram", _work_of(x1, x2, mode))
     return out
 
 
 def _forward(x1, x2, mode: str, flags: int):
-    if x1.device.type == "cpu" and x2.device.type == "cpu":
-        return lane_gram_plain(x1, x2, mode, bool(flags & _SELF), bool(flags & _INNER))
-    return _launch(x1, x2, mode, flags)
+    with obs_cost.library_paused():
+        if x1.device.type == "cpu" and x2.device.type == "cpu":
+            out = lane_gram_plain(x1, x2, mode, bool(flags & _SELF), bool(flags & _INNER))
+            cuda_lib.record_plain("lane_gram", _work_of(x1, x2, mode))
+            return out
+        return _launch(x1, x2, mode, flags)
 
 
 class _LaneGram(torch.autograd.Function):

@@ -57,7 +57,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -76,6 +76,41 @@ class PrecisionPolicy(NamedTuple):
 
     lane: str    # "strict" | "mixed" | "fast"
     gram: str    # "highest" | "compensated" | "high" | "default"
+
+
+class CardPeaks(NamedTuple):
+    """Peak rates of one NVIDIA card (NVIDIA's data sheets): memory
+    bytes/s; float32, float64 and dense TF32 tensor-core flop/s; and
+    special-function results/s (16 a clock a streaming multiprocessor,
+    CUDA C++ Programming Guide, compute capability 9.0, times the SM
+    count and the boost clock).  ``tf32`` is None where the table has no
+    figure."""
+
+    key: str
+    bytes_per_s: float
+    f32: float
+    sfu: float
+    f64: float
+    tf32: Optional[float]
+
+
+#: peak rates by a substring of ``torch.cuda.get_device_name()``, the
+#: first match winning (so ``H100 PCIe`` and ``H100 NVL`` before ``H100``)
+CARD_PEAKS = {
+    "H100 PCIe": CardPeaks("H100 PCIe", 2.0e12, 51e12, 114 * 16 * 1.755e9, 25.6e12, 378e12),
+    "H100 NVL": CardPeaks("H100 NVL", 3.9e12, 60e12, 132 * 16 * 1.785e9, 30e12, None),
+    "H100": CardPeaks("H100", 3.35e12, 67e12, 132 * 16 * 1.98e9, 34e12, 495e12),
+    "H200": CardPeaks("H200", 4.8e12, 67e12, 132 * 16 * 1.98e9, 34e12, 495e12),
+}
+
+
+def chip_peaks(device_name: Optional[str]) -> Optional[CardPeaks]:
+    """The :data:`CARD_PEAKS` row of a card name (the JAX package's
+    ``chip_peaks`` for NVIDIA cards), or None for an unknown name, the
+    CPU, or no name."""
+    if not device_name:
+        return None
+    return next((row for key, row in CARD_PEAKS.items() if key in device_name), None)
 
 
 #: the three named lanes; ``GP_PRECISION_GRAM`` refines them

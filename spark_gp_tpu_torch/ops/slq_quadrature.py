@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from spark_gp_tpu_torch.obs import cost as obs_cost
 from spark_gp_tpu_torch.ops import cuda_lib
 
 
@@ -60,6 +61,25 @@ def slq_quadrature_plain(diag, off):
     log_evals = torch.log(torch.clamp_min(evals, 1e-12))
     e1sq = evecs[..., 0, :] ** 2  # first component of each eigenvector
     return torch.sum(e1sq * log_evals, dim=-1)
+
+
+#: double operations of one QL rotation of the first design: hypot (two
+#: products, a sum, a square root), two divisions, the rotated diagonal
+#: pair (five), the next shift (two) and the eigenvector row (six)
+OPS_PER_ROTATION = 25
+
+
+def work(batch: int, t: int, itemsize: int = 4):
+    """``(flops, bytes)`` of one quadrature launch over ``batch``
+    tridiagonals of ``t`` rows, from the shapes alone: each matrix's
+    diagonal, off-diagonal and result moved once, and the first design's
+    Golub-Welsch QL at its textbook count, two implicit-shift iterations
+    an eigenvalue over on average half the rows still unreduced, i.e.
+    ``t^2`` rotations a matrix of :data:`OPS_PER_ROTATION` double
+    operations each.  (``chip_smoke.py``'s bound counts this run's own
+    rotations, which depend on the data.)"""
+    return (float(batch * t * t * OPS_PER_ROTATION),
+            float((batch * t + batch * max(t - 1, 0) + batch) * itemsize))
 
 
 def kernel_applies(diag: torch.Tensor) -> bool:
@@ -106,25 +126,30 @@ def _launch(diag, off, steps=None):
                               or steps.numel() != out.numel()):
         raise ValueError("steps must be a contiguous int32 tensor, one entry a matrix")
     lib = _library()
-    work = torch.empty(lib.slq_quadrature_workspace_doubles(d.shape[0], t), dtype=torch.float64,
-                       device=diag.device)
+    workspace = torch.empty(lib.slq_quadrature_workspace_doubles(d.shape[0], t),
+                            dtype=torch.float64, device=diag.device)
     entry = lib.slq_quadrature_f32 if diag.dtype == torch.float32 else lib.slq_quadrature_f64
     with torch.cuda.device(diag.device):
         err = entry(d.data_ptr(), o.data_ptr(), out.data_ptr(),
-                    None if steps is None else steps.data_ptr(), work.data_ptr(),
+                    None if steps is None else steps.data_ptr(), workspace.data_ptr(),
                     d.shape[0], t, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise cuda_lib.KernelLaunchError(f"slq_quadrature kernel launch failed: CUDA error {err}")
-    cuda_lib.record_launch(slq_quadrature, "slq_quadrature")
+    cuda_lib.record_launch(slq_quadrature, "slq_quadrature",
+                           work(d.shape[0], t, diag.element_size()))
     return out.reshape(diag.shape[:-1])
 
 
 def slq_quadrature(diag, off):
     """``[...]``: the quadrature of each tridiagonal (module doc); the
     kernel on the card, the plain version on the CPU."""
-    if diag.device.type == "cpu":
-        return slq_quadrature_plain(diag, off)
-    return _launch(diag, off)
+    with obs_cost.library_paused():
+        if diag.device.type == "cpu":
+            out = slq_quadrature_plain(diag, off)
+            cuda_lib.record_plain("slq_quadrature",
+                                  work(out.numel(), diag.shape[-1], diag.element_size()))
+            return out
+        return _launch(diag, off)
 
 
 #: kernel launches since the last reset (the wrapper's launch counter)

@@ -35,6 +35,7 @@ import functools
 
 import torch
 
+from spark_gp_tpu_torch.obs import cost as obs_cost
 from spark_gp_tpu_torch.ops import cuda_lib
 from spark_gp_tpu_torch.ops.linalg import chol_logdet, chol_solve, cholesky
 
@@ -47,6 +48,14 @@ def spd_inv_logdet_plain(k: torch.Tensor):
     matrix gives NaN in both outputs for that matrix."""
     chol = cholesky(k)
     return torch.cholesky_inverse(chol), chol_logdet(chol)
+
+
+def work(batch: int, n: int, itemsize: int = 4):
+    """``(flops, bytes)`` of one K1 call on ``[batch, n, n]``, whatever
+    design runs it: ``batch n^3`` flops (the Cholesky, ``L^-1`` and
+    ``W^T W``, ``n^3 / 3`` each) and ``K`` read once, ``K^-1`` and the
+    log-determinants written once."""
+    return float(batch * n ** 3), float(2 * batch * n * n * itemsize + batch * itemsize)
 
 
 def kernel_applies(k: torch.Tensor) -> bool:
@@ -100,19 +109,23 @@ def _launch(k: torch.Tensor):
         )
     if err != 0:
         raise cuda_lib.KernelLaunchError(f"spd_inv_logdet kernel launch failed: CUDA error {err}")
-    cuda_lib.record_launch(spd_inv_logdet, "spd_inv_logdet")
+    cuda_lib.record_launch(spd_inv_logdet, "spd_inv_logdet", work(batch, n, k.element_size()))
     return kinv, logdet
 
 
 def _forward(k: torch.Tensor):
-    if k.device.type == "cpu":
-        return spd_inv_logdet_plain(k)
-    if not kernel_applies(k):
-        raise ValueError(
-            "spd_inv_logdet on the card takes a float32 [B, n, n] CUDA tensor "
-            f"with n <= {N_MAX}; got {k.dtype} {tuple(k.shape)} on {k.device}"
-        )
-    return _launch(k)
+    with obs_cost.library_paused():
+        if k.device.type == "cpu":
+            out = spd_inv_logdet_plain(k)
+            cuda_lib.record_plain("spd_inv_logdet",
+                                  work(k.shape[0], k.shape[-1], k.element_size()))
+            return out
+        if not kernel_applies(k):
+            raise ValueError(
+                "spd_inv_logdet on the card takes a float32 [B, n, n] CUDA tensor "
+                f"with n <= {N_MAX}; got {k.dtype} {tuple(k.shape)} on {k.device}"
+            )
+        return _launch(k)
 
 
 class _SpdInvLogdet(torch.autograd.Function):

@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from spark_gp_tpu_torch.obs import cost as obs_cost
 from spark_gp_tpu_torch.ops import cuda_lib
 
 #: rows per block of the CUDA forward kernel: the row tile of ``solver.matvec_tiles``
@@ -166,6 +167,33 @@ def streamed_matvec_vjp_plain(x, w, v, family: str, params, degree: int = 1):
     return grad
 
 
+def exps(e: int, s: int) -> int:
+    """Special-function results (one ``exp`` a pair) of the least work of
+    one K2 or K2-VJP launch on ``[e, s, p]``: each unordered off-diagonal
+    pair once, since K is symmetric."""
+    return e * s * (s - 1) // 2
+
+
+def work(e: int, s: int, p: int, n: int, itemsize: int = 4):
+    """``(flops, bytes)`` of one K2 launch on ``[e, s, p]`` rows and ``n``
+    right-hand sides: the least work of the product, whatever design runs
+    it.  Each unordered off-diagonal pair's distance and map once
+    (``2p + 3`` flops, the RBF map's count, taken for every family) and the
+    product over every ordered pair (``2n``); ``x`` and ``V`` read once,
+    ``K V`` written once.  The ``exp``s are :func:`exps`."""
+    return (float(exps(e, s) * (2 * p + 3) + e * s * s * 2 * n),
+            float(itemsize * e * s * (p + 2 * n)))
+
+
+def work_vjp(e: int, s: int, p: int, n: int, itemsize: int = 4):
+    """``(flops, bytes)`` of one K2-VJP launch: per unordered off-diagonal
+    pair (the RBF map's dk/dsigma is 0 at r = 0) the distance and the
+    derivative (``2p + 6``), ``<W_i, V_j> + <W_j, V_i>`` (``4n``) and its
+    product with dk (2); ``x``, ``W`` and ``V`` read once (the theta
+    cotangent written is negligible and not counted)."""
+    return float(exps(e, s) * (2 * p + 8 + 4 * n)), float(itemsize * e * s * (p + 2 * n))
+
+
 def kernel_applies(x: torch.Tensor) -> bool:
     """A CUDA float32 row stack: the kernel takes any ``s``, ``p`` and ``n``
     (ragged tiles are bounds-checked), so no plain path remains on the card."""
@@ -234,7 +262,8 @@ def _launch(x, v, params, spec, degree):
         )
     if err != 0:
         raise cuda_lib.KernelLaunchError(f"streamed_matvec kernel launch failed: CUDA error {err}")
-    cuda_lib.record_launch(streamed_matvec, "streamed_matvec")
+    cuda_lib.record_launch(streamed_matvec, "streamed_matvec",
+                           work(batch, s, p, n, x.element_size()))
     return out
 
 
@@ -264,7 +293,8 @@ def _launch_vjp(x, w, v, params, spec, degree):
     if err != 0:
         raise cuda_lib.KernelLaunchError(
             f"streamed_matvec_vjp kernel launch failed: CUDA error {err}")
-    cuda_lib.record_launch(streamed_matvec_vjp, "streamed_matvec_vjp")
+    cuda_lib.record_launch(streamed_matvec_vjp, "streamed_matvec_vjp",
+                           work_vjp(batch, s, p, n, x.element_size()))
     total = partial.sum(dim=0, dtype=torch.float64).to(x.dtype)
     grad[: spec.n_params] = total[: spec.n_params]
     return grad
@@ -273,20 +303,30 @@ def _launch_vjp(x, w, v, params, spec, degree):
 def streamed_matvec_vjp(x, w, v, family: str, params, degree: int = 1):
     """The theta-cotangent of ``sum(w * (K(params) @ v))`` over an
     ``[E, s, ...]`` stack: the VJP kernel on the card, autograd through the
-    plain version on the CPU."""
-    if x.device.type == "cpu":
-        return streamed_matvec_vjp_plain(x, w, v, family, params, degree)
-    return _launch_vjp(x, w, v, params, TILE_TRANSFORMS[family], degree)
+    plain version on the CPU (which reports the kernel's work,
+    ``obs/cost.py``)."""
+    with obs_cost.library_paused():
+        if x.device.type == "cpu":
+            grad = streamed_matvec_vjp_plain(x, w, v, family, params, degree)
+            e, s, p = x.shape
+            cuda_lib.record_plain("streamed_matvec_vjp",
+                                  work_vjp(e, s, p, v.shape[-1], x.element_size()))
+            return grad
+        return _launch_vjp(x, w, v, params, TILE_TRANSFORMS[family], degree)
 
 
 class _StreamedMatvec(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, v, params, family, degree):
         spec = TILE_TRANSFORMS[family]
-        if x.device.type == "cpu":
-            out = streamed_matvec_plain(x, v, family, params, degree)
-        else:
-            out = _launch(x, v, params, spec, degree)
+        with obs_cost.library_paused():
+            if x.device.type == "cpu":
+                out = streamed_matvec_plain(x, v, family, params, degree)
+                e, s, p = x.shape
+                cuda_lib.record_plain("streamed_matvec",
+                                      work(e, s, p, v.shape[-1], x.element_size()))
+            else:
+                out = _launch(x, v, params, spec, degree)
         ctx.family, ctx.degree = family, degree
         ctx.save_for_backward(x, v, params)
         return out

@@ -75,6 +75,8 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from spark_gp_tpu_torch.obs import cost as obs_cost
+
 #: replays between two host reads of the lanes' frozen flags
 REPLAY_BATCH = 8
 
@@ -603,6 +605,9 @@ class DeviceLoop:
         self.iter_limit = torch.zeros((), dtype=torch.int32, device=self.device)
         self.graph = None
         self.tally: dict = {}
+        # metered cost of one step (obs/cost.py): counted at capture (or
+        # the first eager step), one execution a replay or eager step
+        self.meter = obs_cost.ReplayMeter("fit.device")
         self.counts = {
             "captures": 0, "replays": 0, "eager_steps": 0, "masked_evaluations": 0,
             "host_syncs": 0, "capture_seconds": 0.0, "graph_nodes": None,
@@ -637,7 +642,8 @@ class DeviceLoop:
             # capture's record, which is this thread's
             with cuda_lib.capture_tally() as tally, cuda_lib.collector_held(), \
                     torch.autograd.set_multithreading_enabled(False):
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"), \
+                        self.meter.capturing():
                     new = lbfgs_step(self.vag, self.state, self.cfg, self.iter_limit)
                     for key, buf in self.state.items():
                         buf.copy_(new[key])
@@ -686,13 +692,15 @@ class DeviceLoop:
             if self.use_graph:
                 if self.graph is None:
                     self.capture(warm)
-                for _ in range(REPLAY_BATCH):
-                    self.graph.replay()
-                cuda_lib.count_replays(self.tally, REPLAY_BATCH)
+                with self.meter.replays(REPLAY_BATCH):
+                    for _ in range(REPLAY_BATCH):
+                        self.graph.replay()
+                    cuda_lib.count_replays(self.tally, REPLAY_BATCH)
                 self.counts["replays"] += REPLAY_BATCH
                 steps = REPLAY_BATCH
             else:
-                self.state = lbfgs_step(self.vag, self.state, self.cfg, self.iter_limit)
+                with self.meter.eager_step():
+                    self.state = lbfgs_step(self.vag, self.state, self.cfg, self.iter_limit)
                 self.counts["eager_steps"] += 1
                 steps = 1
             frozen, now = self._snapshot()

@@ -27,6 +27,13 @@ ordinary deterministic tests:
   and a choke point whose modeled byte cost exceeds it raises the OOM.
   Env channel: ``GP_CHAOS_MEMORY_LIMIT_BYTES``.
 
+* :func:`miscalibrate` / :func:`drift_inputs` -- statistical-quality
+  faults on the serve path: the served variance scaled by ``scale**2``
+  (:func:`sigma_scale`), every admitted request's features shifted
+  (:func:`input_shift`); the quality plane (``obs/quality.py``) must
+  alert.  Env channels: ``GP_CHAOS_MISCALIBRATE``,
+  ``GP_CHAOS_DRIFT_INPUTS``;
+
 * :class:`PreemptingCheckpointer` / :func:`preempt_after_saves` -- a
   deterministic preemption right after the k-th checkpoint save
   (:class:`SimulatedPreemption`): the atomic save leaves the complete
@@ -122,6 +129,8 @@ _state = {
     "compile_fired": None,   # one-element list: injected-failure count
     "memory_limit": None,    # float | None: staged device memory budget
     "memory_fired": None,    # one-element list: budget-OOM count
+    "sigma_scale": None,     # float | None: staged served-sigma factor
+    "input_shift": None,     # float | None: staged covariate shift
 }
 
 
@@ -264,6 +273,62 @@ def failing_compile(times: int = 1, op: Optional[str] = None):
         yield fired
     finally:
         _state.update(prev)
+
+
+# --- statistical-quality faults (obs/quality.py reads them on the serve path)
+
+
+def sigma_scale() -> Optional[float]:
+    """The staged served-sigma miscalibration factor, or None: the
+    in-process stage (:func:`miscalibrate`) wins, else
+    ``GP_CHAOS_MISCALIBRATE``.  The serve executor scales the served
+    variance by ``scale**2`` after a successful predict, modeling a model
+    whose sigma is ``scale`` times wrong (``scale < 1``: overconfident)."""
+    staged = _state["sigma_scale"]
+    if staged is not None:
+        return float(staged)
+    return _env_chaos_float("GP_CHAOS_MISCALIBRATE")
+
+
+def input_shift() -> Optional[float]:
+    """The staged additive covariate shift, or None: the in-process stage
+    (:func:`drift_inputs`) wins, else ``GP_CHAOS_DRIFT_INPUTS``.  The serve
+    submit path shifts every admitted request's features by it, modeling
+    upstream feature drift the fit never saw."""
+    staged = _state["input_shift"]
+    if staged is not None:
+        return float(staged)
+    return _env_chaos_float("GP_CHAOS_DRIFT_INPUTS")
+
+
+@contextlib.contextmanager
+def miscalibrate(scale: float):
+    """Stage a served-sigma miscalibration: every serve answer's variance
+    is scaled by ``scale**2`` (``0.5``: the classic 2x sigma shrink).  The
+    quality monitor must raise ``quality.alert.*`` within a bounded number
+    of graded observations.  Subprocess channel: ``GP_CHAOS_MISCALIBRATE``."""
+    if float(scale) <= 0:
+        raise ValueError("sigma scale must be > 0")
+    prev = _state["sigma_scale"]
+    _state["sigma_scale"] = float(scale)
+    try:
+        yield
+    finally:
+        _state["sigma_scale"] = prev
+
+
+@contextlib.contextmanager
+def drift_inputs(shift: float):
+    """Stage an additive covariate shift on every admitted serve request:
+    the drift monitor must raise ``drift.alert.*`` within a bounded number
+    of rows while a clean run never does.  Subprocess channel:
+    ``GP_CHAOS_DRIFT_INPUTS``."""
+    prev = _state["input_shift"]
+    _state["input_shift"] = float(shift)
+    try:
+        yield
+    finally:
+        _state["input_shift"] = prev
 
 
 # --- preemption (checkpoint/resume) --------------------------------------

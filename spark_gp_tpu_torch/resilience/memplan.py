@@ -15,7 +15,9 @@ programs against the device budget:
   PPA predict chunk; :func:`predicted_bytes` applies the margin
   (:data:`MARGIN`), and :func:`observe_measured`
   ratchets a model up whenever a measured peak (the caching allocator's
-  ``max_memory_allocated``) exceeds it.
+  ``max_memory_allocated``) exceeds it; with cost metering on, the
+  dispatch sites arm the loop (:func:`note_expected_dispatch`) and the
+  metered per-execution peak closes it (:func:`note_compiled_peak`).
 * **decision** -- :func:`plan_dispatch`: candidates preferred-first, the
   first predicted-safe one wins.  Consumers: ``ops/iterative.resolve_solver``
   (the budget-aware ``auto`` lane), the PPA predict chunk
@@ -218,6 +220,15 @@ def predicted_bytes(raw: float) -> float:
 _LOCK = threading.Lock()
 #: model key -> multiplicative scale (>1 only), for the process life
 _CALIBRATION: Dict[Tuple, float] = {}
+#: entry name -> the largest metered per-execution peak seen
+#: (``obs/cost.py``: ``max_memory_allocated`` over the first execution of
+#: a signature, less the allocation at entry)
+_COMPILED_PEAKS: Dict[str, float] = {}
+#: the calibration loop's armed dispatch: the dispatch sites
+#: (``models/common._dispatch_raw_bytes``, the PPA predict chunk) deposit
+#: (model key, raw model bytes) just before dispatching; the metered peak
+#: relayed from the same thread right after the dispatch closes the loop
+_EXPECT = threading.local()
 
 
 def _calibrated(key: Tuple, raw: float) -> float:
@@ -240,6 +251,48 @@ def observe_measured(key: Tuple, raw_model_bytes: float, measured_bytes: float) 
             _CALIBRATION[key] = scale
 
 
+def note_expected_dispatch(key: Tuple, raw_bytes: float) -> None:
+    """Arm the calibration loop for the dispatch about to run: when cost
+    metering relays its measured peak, the model under ``key`` is judged
+    against it (:func:`observe_measured`).  Overwritten by the next
+    dispatch; consumed at most once."""
+    _EXPECT.pending = (key, float(raw_bytes))
+
+
+def note_compiled_peak(entry: str, peak_bytes: float) -> None:
+    """Record one entry point's metered per-execution peak (fed by
+    ``obs/cost.py`` whenever metering measures on the card) and close the
+    calibration loop against the armed dispatch when its kind matches
+    the entry's (a fit model by a ``fit.`` entry, a predict model by a
+    ``predict.`` or ``serve.`` entry, so a stale expectation is never
+    consumed by another kind)."""
+    if not peak_bytes or peak_bytes <= 0:
+        return
+    with _LOCK:
+        if peak_bytes > _COMPILED_PEAKS.get(entry, 0.0):
+            _COMPILED_PEAKS[entry] = float(peak_bytes)
+    pending = getattr(_EXPECT, "pending", None)
+    if pending is None:
+        return
+    key, raw = pending
+    kind = key[0]
+    if (kind == "fit" and entry.startswith("fit.")) or (
+            kind == "predict" and entry.startswith(("predict.", "serve."))):
+        _EXPECT.pending = None
+        observe_measured(key, raw, float(peak_bytes))
+
+
+def compiled_peak(entry: str) -> Optional[float]:
+    """The largest metered peak of ``entry``, or None when never metered."""
+    with _LOCK:
+        return _COMPILED_PEAKS.get(entry)
+
+
+def compiled_peaks() -> Dict[str, float]:
+    with _LOCK:
+        return dict(_COMPILED_PEAKS)
+
+
 def calibration_scale(key: Tuple) -> float:
     """The scale calibration has applied to ``key``'s model (1 = none)."""
     with _LOCK:
@@ -247,9 +300,10 @@ def calibration_scale(key: Tuple) -> float:
 
 
 def reset_calibration() -> None:
-    """Drop the calibration state."""
+    """Drop the calibration state and the metered peaks."""
     with _LOCK:
         _CALIBRATION.clear()
+        _COMPILED_PEAKS.clear()
 
 
 # --------------------------------------------------------------------------

@@ -125,6 +125,39 @@ def expert_health(kernel, theta, data: ExpertData, objective: str = "marginal",
     return host[:, 0], host[:, 1]
 
 
+#: the fit-time expert-quality probes' kernel launches in this process,
+#: by kernel: the sum of every fit's ``expert_quality.probe_launches.<kernel>``
+#: stamps (``models/common._emit_expert_quality``), which a launch count
+#: over many fits states as its probe term
+PROBE_LAUNCHES: dict = {}
+
+
+def expert_nll(kernel, theta, data: ExpertData, jitter=None, cache=None) -> np.ndarray:
+    """``[E]`` float64 numpy: every expert's marginal NLL at ``theta``
+    unsummed, in ONE pass over the ``[E, s, ...]`` stack on the solver
+    lane in effect (``models/likelihood.batched_nll(reduce=False)``): one
+    K1 launch over ``[E, s, s]`` on the card's exact lane, the CG engine's
+    per-expert estimate on the iterative lane, K2 and the quadrature with
+    no ``[E, s, s]`` stack on the matfree lane.  ``jitter`` (scalar or
+    ``[E]``, trace-relative) is the recovery's per-expert ridge.  No
+    gradient is taken (the JAX package's vmapped probe discards it), so
+    one expert's NaN stays in its own entry; :func:`expert_health` keeps
+    its per-expert graphs for the gradients the diagnosis needs.  The
+    fit-time expert-quality probe (``models/common._emit_expert_quality``)."""
+    from spark_gp_tpu_torch.models.likelihood import batched_nll
+
+    dtype, device = data.x.dtype, data.x.device
+    theta_t = torch.as_tensor(np.asarray(theta, dtype=np.float64), dtype=dtype, device=device)
+    jit = None
+    if jitter is not None:
+        jit = torch.as_tensor(
+            np.broadcast_to(np.asarray(jitter, np.float64), (data.num_experts,)).copy(),
+            dtype=dtype, device=device)
+    with torch.no_grad():
+        nll = batched_nll(kernel, theta_t, data, cache, jit, reduce=False)
+    return nll.to(torch.float64).cpu().numpy()
+
+
 def _healthy(nll: np.ndarray, gnorm: np.ndarray) -> np.ndarray:
     return np.isfinite(nll) & np.isfinite(gnorm)
 

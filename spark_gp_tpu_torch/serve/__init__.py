@@ -23,8 +23,9 @@ package keeps a finite, warm set of captured programs:
 * ``python -m spark_gp_tpu_torch.serve`` -- the JSON-lines CLI (stdin or
   localhost TCP) that warms every bucket before it reports ready.
 
-The quality plane (``observe``, drift) and the multi-replica fleet are
-ROADMAP.md queue 1, items 10b and 10c.
+The statistical quality plane (``observe``, calibration and drift
+monitors, ``obs/quality.py``) is on by default; the multi-replica fleet
+is ROADMAP.md queue 1, item 10c.
 """
 
 from spark_gp_tpu_torch.resilience.breaker import BreakerOpenError, CircuitBreaker

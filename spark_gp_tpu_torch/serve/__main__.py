@@ -23,8 +23,10 @@ Protocol (one JSON object per line, in either direction):
     {"cmd": "metrics"}  ({"format": "openmetrics"} for the page) -> {"event": "metrics", ...}
     {"cmd": "health"}   (alias {"op": "health"}) -> {"event": "health", "status": ...}
     {"cmd": "reload", "model": "m"}  (+ "canary_fraction") -> {"event": "reloaded" | "canary", ...}
-    {"cmd": "observe", ...} -> {"event": "observed", "error": ...}: the
-           quality plane is not ported yet (ROADMAP.md queue 1, item 10b)
+    {"cmd": "observe", "model": "m", "request_id": "abc", "y": [...]}
+        -> {"event": "observed", "joined": n, "duplicate": false, "alert": ...}:
+           the delayed labels of a request served with that request_id,
+           graded by the model's calibration monitor (obs/quality.py)
     {"cmd": "shutdown"}  (or EOF on stdin)       -> {"event": "shutdown", ...}
 
 ``health`` answers at once, outside the ordered writer queue.  Error
@@ -107,9 +109,9 @@ def _parse_args(argv):
     )
     parser.add_argument(
         "--quality", type=int, default=None, choices=(0, 1),
-        help="statistical quality plane: 1 asks for the calibration / "
-        "drift monitors and the observe verb, which are not ported yet "
-        "(the server then refuses to start)",
+        help="statistical quality plane: the calibration and drift "
+        "monitors and the observe verb (default on: GP_SERVE_QUALITY, "
+        "0 turns it off)",
     )
     parser.add_argument(
         "--metrics-port", type=int, default=None,

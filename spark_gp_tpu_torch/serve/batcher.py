@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
+from spark_gp_tpu_torch.obs import cost as obs_cost
 from spark_gp_tpu_torch.ops import cuda_lib
 from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
 
@@ -85,12 +86,22 @@ def bucket_sizes(max_batch: int, min_bucket: int = 8) -> Tuple[int, ...]:
 
 
 class _BucketGraph:
-    """One bucket's captured graph and its static buffers."""
+    """One bucket's captured graph, its static buffers and its cost meter
+    (``obs/cost.py``: one execution's cost counted at capture, one
+    execution a replay)."""
 
-    __slots__ = ("graph", "x", "mean", "var")
+    __slots__ = ("graph", "x", "mean", "var", "meter")
 
-    def __init__(self, graph, x, mean, var):
+    def __init__(self, graph, x, mean, var, meter=None):
         self.graph, self.x, self.mean, self.var = graph, x, mean, var
+        self.meter = meter if meter is not None else obs_cost.ReplayMeter("serve.batch")
+
+
+def _bucket_body(predictor, x):
+    """One padded bucket's predict: the metered entry function of the
+    eager (CPU) path (``obs/cost.py`` keys its cost by this function and
+    the operands' signature)."""
+    return predictor._body(x)
 
 
 class BucketedPredictor:
@@ -180,16 +191,18 @@ class BucketedPredictor:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
+            meter = obs_cost.ReplayMeter("serve.batch")
             # no collection finalizes a dead graph on this thread mid-capture
             with torch.no_grad(), cuda_lib.collector_held(), \
-                    torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                    torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"), \
+                    meter.capturing():
                 mean, var = self._body(x)
         except Exception as exc:  # classified-failure-site: typed, never eager
             raise GraphCaptureError(
                 f"capturing the predict graph of bucket {bucket} failed: "
                 f"{type(exc).__name__}: {exc}"
             ) from exc
-        return _BucketGraph(graph, x, mean, var)
+        return _BucketGraph(graph, x, mean, var, meter)
 
     # --- lifecycle -------------------------------------------------------
     def release(self) -> None:
@@ -251,7 +264,9 @@ class BucketedPredictor:
                 if bucket not in self.compile_counts:
                     self._note_build(bucket)
                 with torch.no_grad():
-                    mean, var = self._body(torch.as_tensor(np.ascontiguousarray(x_padded)))
+                    mean, var = obs_cost.observed_call(
+                        "serve.batch", _bucket_body, self,
+                        torch.as_tensor(np.ascontiguousarray(x_padded)))
                 return (mean[:rows].numpy(), None if var is None else var[:rows].numpy())
             entry = self._graphs.get(bucket)
             if entry is None:
@@ -259,7 +274,13 @@ class BucketedPredictor:
                 self._note_build(bucket)
             try:
                 entry.x.copy_(torch.from_numpy(np.ascontiguousarray(x_padded)))
-                entry.graph.replay()
+                with entry.meter.replays(1):
+                    if entry.meter.cost is None and obs_cost.cost_metering_enabled():
+                        # captured while metering was off: one eager run of
+                        # the body (answer discarded) prices an execution
+                        with torch.no_grad(), entry.meter.capturing():
+                            self._body(entry.x)
+                    entry.graph.replay()
                 mean = entry.mean[:rows].cpu().numpy()  # synchronizes
                 var = None if entry.var is None else entry.var[:rows].cpu().numpy()
             except Exception as exc:  # classified-failure-site: typed, never eager

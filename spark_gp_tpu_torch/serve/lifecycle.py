@@ -24,8 +24,10 @@ memory-pressure admission (the port's copy of the JAX package's
 Transitions are span events and catalogued ``lifecycle.*`` /
 ``canary.*`` metrics (``obs/names.py``), surfaced by the server's
 ``health`` verb.  The canary's statistical-quality input
-(``quality_lookup``) stays unused until the quality plane is ported
-(ROADMAP.md queue 1, item 10b).
+(``quality_lookup``) is the server's quality plane
+(``obs/quality.ServeQualityPlane.alert_reason``): a policy with
+``quality_guard`` rolls the candidate back while a miscalibration or
+drift alert is active at promotion.
 """
 
 from __future__ import annotations

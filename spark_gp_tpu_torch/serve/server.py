@@ -16,6 +16,7 @@ without a GPU otherwise.
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Callable, List, Optional, Sequence
@@ -23,6 +24,12 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from spark_gp_tpu_torch.obs import trace as obs_trace
+from spark_gp_tpu_torch.obs.quality import (
+    QualityDisabledError,
+    ServeQualityPlane,
+    quality_enabled_default,
+)
+from spark_gp_tpu_torch.resilience import chaos as _chaos
 from spark_gp_tpu_torch.resilience.breaker import BreakerOpenError, CircuitBreaker
 from spark_gp_tpu_torch.serve.lifecycle import (
     CanaryController,
@@ -42,11 +49,7 @@ from spark_gp_tpu_torch.serve.queue import (
 )
 from spark_gp_tpu_torch.serve.registry import ModelRegistry, ServableModel
 
-
-def _not_ported(what: str, item):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1, item {item})"
-    )
+logger = logging.getLogger("spark_gp_tpu_torch")
 
 
 class GPServeServer:
@@ -78,11 +81,11 @@ class GPServeServer:
         drain_deadline_s: float = 30.0,
         replica_id: Optional[str] = None,
         quality: Optional[bool] = None,
+        quality_window: int = 128,
+        pending_capacity: int = 4096,
         device=None,
         clock: Callable[[], float] = time.monotonic,
     ):
-        if quality:
-            raise _not_ported("the serve quality plane (calibration, drift, observe)", "10b")
         # replica identity (health verb): explicit arg > GP_REPLICA_ID env
         # > a pid-derived default, stable for the process's lifetime
         self.replica_id = (
@@ -145,9 +148,20 @@ class GPServeServer:
                 "lifecycle.memory_pressure", 1.0 if shedding else 0.0
             ),
         )
-        #: the statistical quality plane waits for its port (item 10b)
-        self.quality = None
-        self.canaries = CanaryController(self.registry, self.metrics)
+        # statistical health plane (obs/quality.py): per-model calibration
+        # and drift monitors fed by the observe verb and the batch
+        # executor; on by default, GP_SERVE_QUALITY=0 / quality=False turn
+        # it off
+        enabled = quality_enabled_default() if quality is None else bool(quality)
+        self.quality = (
+            ServeQualityPlane(self.metrics, window=quality_window,
+                              pending_capacity=pending_capacity)
+            if enabled else None
+        )
+        self.canaries = CanaryController(
+            self.registry, self.metrics,
+            quality_lookup=None if self.quality is None else self.quality.alert_reason,
+        )
 
     def _breaker_for(self, name: str) -> CircuitBreaker:
         breaker = self._breakers.get(name)
@@ -249,6 +263,8 @@ class GPServeServer:
         self._queue.stop(drain=drain)
         if self._watchdog is not None:
             self._watchdog.stop()
+        if self.quality is not None:
+            self.quality.close()  # joins the drainer; idempotent
         self._started = False
         self._state = "stopped"
         # begin_drain() -> stop() (without drain()) must not leave the
@@ -282,6 +298,8 @@ class GPServeServer:
         self._queue.stop(drain=drained)
         if self._watchdog is not None:
             self._watchdog.stop()
+        if self.quality is not None:
+            self.quality.close()
         self._started = False
         self._state = "stopped"
         self.metrics.observe("lifecycle.drain_s", time.monotonic() - started)
@@ -361,6 +379,12 @@ class GPServeServer:
         x = np.asarray(x, dtype=entry.predictor.dtype)
         if x.ndim == 1:
             x = x[None, :]
+        # chaos: staged upstream covariate drift (resilience/chaos.py):
+        # the real features move, so the drift monitor must alarm; a dict
+        # read and an env probe when unstaged
+        shift = _chaos.input_shift()
+        if shift is not None:
+            x = x + shift
         if x.ndim != 2 or x.shape[1] != entry.predictor.n_features:
             raise ValueError(
                 f"model {name!r} expects [t, {entry.predictor.n_features}] "
@@ -448,9 +472,20 @@ class GPServeServer:
 
     # -- delayed-label feedback (any thread) ------------------------------
     def observe(self, name: str, request_id: str, y) -> dict:
-        """Delayed-label feedback (the JAX package's ``observe`` verb):
-        the statistical quality plane it feeds is not ported yet."""
-        raise _not_ported("the serve quality plane's observe verb", "10b")
+        """Join delayed ground-truth labels to the prediction served for
+        ``request_id`` and feed the model's calibration monitor
+        (``obs/quality.py``).  ``y`` is the label vector for that
+        request's rows.  Idempotent per id (a duplicate is a counted
+        no-op); raises :class:`~spark_gp_tpu_torch.obs.quality.
+        UnknownRequestError` (``code=observe.unknown_request``) when no
+        prediction is pending, :class:`~spark_gp_tpu_torch.obs.quality.
+        QualityDisabledError` when the plane is off."""
+        if self.quality is None:
+            raise QualityDisabledError()
+        # resolve for existence (KeyError for unknown names), and so the
+        # drift scorer binds the model's fit-time covariate summary
+        entry = self.registry.get(name)
+        return self.quality.observe(name, request_id, y, entry=entry)
 
     # -- batch execution (batcher thread) ---------------------------------
     def _execute(self, group: List[PredictRequest]) -> None:
@@ -545,6 +580,12 @@ class GPServeServer:
                     # incident bundle — the wedged dispatch's own evidence
                     token.span = predict_span
                 mean, var = entry.predict(x)
+                # chaos: staged sigma miscalibration (resilience/chaos.py):
+                # the served variance is wrong by scale^2, the fault the
+                # quality monitor's alert must catch; one dict read unstaged
+                scale = _chaos.sigma_scale()
+                if scale is not None and var is not None:
+                    var = var * (scale * scale)
         except BaseException as exc:  # classified-failure-site: counted via classify_failure, re-raised
             if token is not None:
                 self._watchdog.end(token)
@@ -601,6 +642,16 @@ class GPServeServer:
             if token is not None and token.fired:
                 return  # futures already failed, worker already replaced
         elapsed = time.monotonic() - started
+        if self.quality is not None:
+            # statistical health plane: hand this dispatch to the quality
+            # drainer thread (the pending-ring puts for the delayed-label
+            # join and the drift scoring run off the batcher, which pays an
+            # id sweep and a bounded enqueue of the host copies the reply
+            # already made); never allowed to fail a dispatch
+            try:
+                self.quality.note_predictions(name, entry, group, rows, mean, var, x)
+            except Exception:  # noqa: BLE001 -- telemetry must never fail a predict
+                logger.warning("quality plane note_predictions failed", exc_info=True)
         padded = entry.predictor.padded_rows(total)
         self.metrics.inc("batches")
         self.metrics.inc("padded_rows", padded - total)
@@ -713,7 +764,9 @@ class GPServeServer:
             name: b.snapshot() for name, b in sorted(dict(self._breakers).items())
         }
         snap["lifecycle"] = self.lifecycle_snapshot()
-        snap["quality"] = {"enabled": False}
+        snap["quality"] = (
+            {"enabled": False} if self.quality is None else self.quality.snapshot()
+        )
         return snap
 
     def openmetrics(self) -> str:
@@ -741,8 +794,9 @@ class GPServeServer:
 
         ``status``: ``"ok"`` (ready, all breakers closed),
         ``"degraded"`` (serving, but at least one model's breaker is
-        open/half-open, the queue is above 90% capacity, or the memory
-        gate is shedding), ``"draining"`` (shutdown in progress: finish
+        open/half-open, the queue is above 90% capacity, the memory gate
+        is shedding, or a sustained miscalibration or drift alert is
+        active, ``obs/quality.py``), ``"draining"`` (shutdown in progress: finish
         queued work, route new traffic elsewhere) or ``"unready"`` (not
         started / no models).  A degraded server still answers requests
         for its healthy models — that is the point.
@@ -758,11 +812,19 @@ class GPServeServer:
             if b["state"] != CircuitBreaker.CLOSED
         )
         lifecycle = self.lifecycle_snapshot()
+        # statistical health (obs/quality.py): a model whose served sigmas
+        # are provably dishonest, or whose inputs drifted off the training
+        # mass, degrades the replica as an open breaker does
+        quality = (
+            {"enabled": False} if self.quality is None else self.quality.snapshot()
+        )
+        quality_alerting = quality.get("alerting") or []
         if lifecycle["draining"]:
             status = "draining"
         elif not self.ready():
             status = "unready"
-        elif broken or queue_pressure > 0.9 or lifecycle["memory"]["shedding"]:
+        elif (broken or queue_pressure > 0.9 or lifecycle["memory"]["shedding"]
+              or quality_alerting):
             status = "degraded"
         else:
             status = "ok"
@@ -784,7 +846,7 @@ class GPServeServer:
             "ready": self.ready(),
             "models": self.registry.names(),
             "broken_models": broken,
-            "quality": {"enabled": False},
+            "quality": quality,
             "breakers": breakers,
             "lifecycle": lifecycle,
             "queue": {

@@ -39,7 +39,8 @@ class Instrumentation:
     """Per-phase wall-clock timings and scalar metrics of one fit, with
     what the fit records beside its result: the aggregation weights of
     fit-time selection (a quarantine zeroes them), the ladder's
-    ``degradations`` and the memory plan's rows."""
+    ``degradations``, the memory plan's rows, the recovery's per-expert
+    jitter, the expert-quality table and the covariate summary."""
 
     name: str = "gp"
     timings: Dict[str, float] = field(default_factory=dict)
@@ -47,6 +48,12 @@ class Instrumentation:
     agg_weights: Optional[np.ndarray] = None
     degradations: List[dict] = field(default_factory=list)
     memory_plan: List[dict] = field(default_factory=list)
+    #: the per-expert jitter the recovery ladder settled on (None: none)
+    expert_jitter: Optional[np.ndarray] = None
+    #: the fit-time per-expert quality probe's table (run journal)
+    expert_quality: Optional[dict] = None
+    #: the training covariates' summary (``obs/quality.summarize_covariates``)
+    covariate_summary: Optional[dict] = None
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
     def log_warning(self, msg: str) -> None:

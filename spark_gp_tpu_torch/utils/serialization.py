@@ -200,9 +200,14 @@ def _process_count() -> int:
 
 def _provenance(model) -> dict:
     """The JAX package's provenance record: ``process_count``, the ladder's
-    ``degradations``, and the ``solver`` / ``aggregation`` keys of the
-    fit's metrics (``covariate_summary`` waits for the quality plane)."""
+    ``degradations``, the ``solver`` / ``aggregation`` keys of the fit's
+    metrics, and the fit-time ``covariate_summary``
+    (``obs/quality.summarize_covariates``), which the serve drift monitor
+    scores incoming rows against: carried on the model (a load -> save
+    round trip) or on its fit's instrumentation (a fresh fit)."""
     instr = getattr(model, "instr", None)
+    covariate_summary = (getattr(model, "covariate_summary", None)
+                         or (getattr(instr, "covariate_summary", None) if instr else None))
     fit_metrics = dict(getattr(instr, "metrics", {}) or {}) if instr is not None else {}
     if not fit_metrics:
         fit_metrics = dict(getattr(model, "metrics", None) or {})
@@ -217,6 +222,7 @@ def _provenance(model) -> dict:
         "degradations": list(getattr(model, "degradations", None) or ()),
         **({"solver": solver} if solver else {}),
         **({"aggregation": aggregation} if aggregation else {}),
+        **({"covariate_summary": covariate_summary} if covariate_summary else {}),
     }
 
 
@@ -300,6 +306,9 @@ def load_model(path: str, device=None):
         )
     model = _model_class(kind)(raw)
     model.provenance = provenance
+    # the drift monitor's input (obs/quality.py): the serve registry binds
+    # a DriftMonitor from the model without re-reading provenance
+    model.covariate_summary = provenance.get("covariate_summary") if provenance else None
     if provenance and provenance.get("degradations"):
         # a save -> load -> save round trip keeps the ladder's history
         model.degradations = provenance["degradations"]

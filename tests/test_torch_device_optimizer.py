@@ -301,5 +301,5 @@ def test_graph_launch_tally_counts_replays():
     with cuda_lib.capture_tally() as tally:
         cuda_lib.record_launch(wrapper, "test_kernel")  # no stream captures here
     assert tally == {} and wrapper.launches == 2
-    cuda_lib.count_replays({"test_kernel": [wrapper, 2]}, 3)
+    cuda_lib.count_replays({"test_kernel": [wrapper, 2, 0.0, 0.0]}, 3)
     assert wrapper.launches == 8 and counted() - before == 8

@@ -138,6 +138,32 @@ def _fits(call):
     return call
 
 
+def _works(call):
+    """A case of the table below that, since its item was ported, does
+    what the JAX package does: the call returns True."""
+    call.works = True
+    return call
+
+
+def _server_quality_plane_on():
+    """The serve quality plane (item 10b) is on when asked for."""
+    server = GPServeServer(device="cpu", quality=True)
+    try:
+        return server.quality is not None and server.snapshot()["quality"]["enabled"] is True
+    finally:
+        server.stop()
+
+
+def _observe_refused_with_its_code_when_the_plane_is_off():
+    """``observe`` on a server with the plane off raises the JAX
+    package's coded error, not an unported item."""
+    from spark_gp_tpu_torch.obs.quality import QualityDisabledError
+
+    with pytest.raises(QualityDisabledError) as info:
+        GPServeServer(device="cpu", quality=False).observe("m", "request", [0.0])
+    return info.value.code == "observe.disabled"
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -148,15 +174,16 @@ def _fits(call):
             tgp.GaussianProcessClassifier(device="cpu"))),
         lambda gp: gp.setMesh(object()),
         # (checkpoints and model I/O are ported: test_torch_checkpoint.py,
-        # test_torch_serialization.py; the serve quality plane is not)
-        lambda gp: GPServeServer(device="cpu", quality=True),
+        # test_torch_serialization.py; the serve quality plane too,
+        # test_torch_quality.py)
+        _works(lambda gp: _server_quality_plane_on()),
         _fits(lambda gp: _device_fit_on_the_iterative_lane(
             tgp.GaussianProcessMulticlassClassifier(device="cpu"))),
         _fits(lambda gp: _device_fit_on_the_iterative_lane(
             tgp.GaussianProcessPoissonRegression(device="cpu"))),
         # the JAX package's remaining setters and model I/O, each naming
         # its item (setProfileDir is ported: test_torch_obs.py)
-        lambda gp: GPServeServer(device="cpu").observe("m", "request", [0.0]),
+        _works(lambda gp: _observe_refused_with_its_code_when_the_plane_is_off()),
         _fits(lambda gp: _device_fit_of_ep(tgp.GaussianProcessEPClassifier(device="cpu"))),
         # (quarantine, retries and the aggregation policies are ported:
         # test_resilience_setters_match_jax)
@@ -174,6 +201,9 @@ def test_unported_options_name_their_roadmap_item(call):
         model = call(tgp.GaussianProcessRegression(device="cpu"))
         assert model.metrics["optimizer"] == "device"
         assert model.metrics["lbfgs_nfev"] >= 1 and np.isfinite(model.metrics["final_nll"])
+        return
+    if getattr(call, "works", False):
+        assert call(tgp.GaussianProcessRegression(device="cpu")) is True
         return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item \d"):
         call(tgp.GaussianProcessRegression(device="cpu"))

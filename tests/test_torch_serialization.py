@@ -168,7 +168,11 @@ def test_fitted_port_model_round_trips_and_updates(tmp_path):
     assert again.provenance["process_count"] == 1
     assert again.provenance["degradations"] == []
     assert again.provenance["solver"]["solver_lane"] == "exact"
-    assert "covariate_summary" not in again.provenance
+    # the fit-time covariate summary (the serve drift monitor's input) is
+    # saved in the provenance and restored onto the loaded model
+    assert again.provenance["covariate_summary"] == model.instr.covariate_summary
+    assert again.covariate_summary == model.instr.covariate_summary
+    assert again.covariate_summary["n"] == 160
     upd = again.update(x[:5], y[:5])
     ref = model.update(x[:5], y[:5])
     np.testing.assert_allclose(upd.predict(x[:7]), ref.predict(x[:7]), rtol=1e-12)

@@ -273,10 +273,16 @@ def test_refusals(saved):
         server.submit("a", saved["x"][:3, :2])
     with pytest.raises(KeyError):
         server.submit("nope", saved["x"][:3])
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    from spark_gp_tpu_torch.obs.quality import QualityDisabledError, UnknownRequestError
+
+    # the quality plane (on by default) refuses an id it never served,
+    # and a server with it off refuses observe, each with its wire code
+    with pytest.raises(UnknownRequestError) as info:
         server.observe("a", "request", [0.0])
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        _server(quality=True)
+    assert info.value.code == "observe.unknown_request"
+    with pytest.raises(QualityDisabledError) as info:
+        _server(quality=False).observe("a", "request", [0.0])
+    assert info.value.code == "observe.disabled"
 
 
 def _emitted_codes():

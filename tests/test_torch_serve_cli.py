@@ -103,8 +103,10 @@ def test_cli_boot_score_and_sigterm_drain(tiny_model):
     assert any("bad request line" in e.get("error", "") for e in events)
     health = next(e for e in events if e.get("event") == "health")
     assert health["status"] == "ok" and health["replica"]["replica_id"] == "cli-r0"
+    # the observe verb joins request r-1's three labels (quality on by default)
     observed = next(e for e in events if e.get("event") == "observed")
-    assert "NotImplementedError" in observed["error"] and "item 10b" in observed["error"]
+    assert "error" not in observed, observed
+    assert observed["joined"] == 3 and observed["duplicate"] is False
     page = next(e for e in events if e.get("format") == "openmetrics")["body"]
     assert "gp_requests_total" in page and page.endswith("# EOF\n")
     assert events[-1]["counters"]["requests"] == 2
