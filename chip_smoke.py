@@ -372,7 +372,9 @@ code is non-zero and the final ``ok`` line is never printed:
                host fit, each bit-equal in theta (and RMSE or accuracy) to
                the same fit unmetered; each fit's executions equal its
                evaluations (objective calls; replays and eager steps for
-               the device fit), and each kernel's metered work equals its
+               the device fit, and its initial evaluation, whose metered
+               peak the memory plan compares without a
+               ``plan.margin_breach``), and each kernel's metered work equals its
                work model times its launches in that entry; a 1503-row
                predict_with_var in 501-row chunks is one execution a chunk,
                100 serve requests one a bucket batch; ``xla_cost`` names the
@@ -399,10 +401,31 @@ code is non-zero and the final ``ok`` line is never printed:
                own labels' calibration, closed-loop requests/s with the
                plane on and off in turns against the JAX package's 2%.
 103. slice15-phases -- the seconds of phases 100-102.
-104. launch-totals -- each kernel's launches beside the totals this
+104. mesh-nccl1 -- the sharded fit over a process group of one rank
+               under NCCL, in a child process
+               (``spark_gp_tpu_torch/dev/mesh_phases.py``): airfoil 10-fold
+               with ``setMesh``, each fold's theta bit-equal to phase 6's
+               unsharded fit; the first fold on the device optimizer,
+               bit-equal to the unsharded device fit, its all-reduce
+               inside the captured step; K1 = evaluations + probes (host),
+               replays + 1 + probe (device).  Recorded: the all-reduce's ms
+               at the step's and the host objective's payloads.
+105. mesh-gloo2 -- two ranks over gloo on the one card, in two child
+               processes started with mesh-nccl1's: the first evaluation
+               within 1e-5 / 1e-4 of the unsharded one; airfoil 10-fold
+               sharded 7 + 7, RMSE < 2.1 and within 1% of phase 6's;
+               gpc-mnist's fit_distributed, each rank its block of the
+               training stack (8 + 8 experts), accuracy > 0.84;
+               distribute_global_experts of 900 / 603 airfoil rows, its
+               padded dims _pad_stack's and one active set on both ranks;
+               each rank's K1 its own evaluations' (and Newton
+               iterations') plus probes.  Recorded: the all-reduce's ms
+               at the host objective's payload and at U1 (m = 1000).
+106. launch-totals -- each kernel's launches beside the totals this
                script counted before the expert-quality probe and slice 15
                (``LAUNCH_TOTALS_BEFORE``), and the probes' share.
-105. kernels -- one line with every kernel's numbers.
+107. kernels -- one line with every kernel's numbers, the mesh phases'
+               children's launches among them (``launches_mesh_*``).
 The last line is ``{"ok": true, "device": {...}}``.
 
 Every fit an estimator makes runs the fit-time expert-quality probe after
@@ -742,6 +765,7 @@ def regression_cv(gp, x, y, folds) -> dict:
         model = copy.copy(gp).fit(x[train], y[train])
         per_fold.append({"nfev": model.metrics["lbfgs_nfev"],
                          "optimize_seconds": model.metrics["optimize_seconds"],
+                         "theta": model.raw_predictor.theta.tolist(),
                          **{k: v for k, v in model.metrics.items()
                             if k.startswith(("device_opt.", "expert_quality.probe_launches."))}})
         pred = model.predict(x[test])
@@ -5571,20 +5595,36 @@ def cost_phase(torch, spd, sm, sq, data_main: dict, cdata: dict, model_path: str
         and kernel_work_matches(row, "slq_quadrature", nfev, nfev * quad[0], nfev * quad[1]))
 
     # the fold's device fit: one execution a replay or eager step, the
-    # step's cost counted at its capture
-    dev = {on: metered(on, lambda: airfoil_fold_fit(airfoil_gp(100).setOptimizer("device"),
-                                                    x, y, train)[0]) for on in (False, True)}
+    # step's cost counted at its capture, and one for the initial
+    # evaluation, which runs eagerly before the capture and carries the
+    # fit's one per-execution peak: the memory plan compares that peak,
+    # like for like, and must not breach (ROADMAP.md fault 3b).
+    # The unmetered fit has no per-execution peak, so its plan compares the
+    # whole fit's (the JAX package's rule): the counter is read around the
+    # metered fit alone
+    dev = {False: metered(False, lambda: airfoil_fold_fit(
+        airfoil_gp(100).setOptimizer("device"), x, y, train)[0])}
+    breaches = telemetry.snapshot()["counters"].get("plan.margin_breach", 0.0)
+    dev[True] = metered(True, lambda: airfoil_fold_fit(airfoil_gp(100).setOptimizer("device"),
+                                                       x, y, train)[0])
     m = dev[True].metrics
     steps = m.get("device_opt.replays", 0.0) + m.get("device_opt.eager_steps", 0.0)
+    execs = steps + 1
     row = cost_row(dev[True])
     e, s = int(m["num_experts"]), int(m["expert_size"])
     flops, nbytes = spd.work(e, s)
-    out["airfoil_device"] = {"row": row, "steps": steps, "loop": loop_record(m),
-                             "memory_plan": dev[True].run_journal["memory_plan"]}
+    plan = dev[True].run_journal["memory_plan"]
+    out["airfoil_device"] = {"row": row, "steps": steps, "executions": execs,
+                             "loop": loop_record(m), "memory_plan": plan,
+                             "plan_margin_breach": telemetry.snapshot()["counters"].get(
+                                 "plan.margin_breach", 0.0) - breaches}
     checks["airfoil_device"] = (
         np.array_equal(dev[True].raw_predictor.theta, dev[False].raw_predictor.theta)
-        and row["executions"] == steps > 0
-        and kernel_work_matches(row, "spd_inv_logdet", steps, steps * flops, steps * nbytes))
+        and row["executions"] == execs and steps > 0
+        and kernel_work_matches(row, "spd_inv_logdet", execs, execs * flops, execs * nbytes)
+        and row.get("peak_bytes_per_execution", 0.0) > 0
+        and out["airfoil_device"]["plan_margin_breach"] == 0
+        and not any(r.get("margin_breach") for r in plan))
 
     # gpc-mnist on the host optimizer: one execution an objective call, K1
     # once a Newton iteration and once a call inside them
@@ -5953,6 +5993,45 @@ def slice15_phases(torch, spd, sm, sq, lg, data_main: dict, mf_data, cdata: dict
     return {"launches": counts.launches, "cost": cost, "expert_quality": eq, "quality": quality}
 
 
+def mesh_phases(airfoil_thetas, airfoil_rmse: float, smi: str) -> dict:
+    """mesh-nccl1 and mesh-gloo2 (module doc), each rank a child process
+    (``spark_gp_tpu_torch/dev/mesh_phases.py``), all three started at once;
+    returns each kernel's launches in each child, under the labels
+    ``mesh_nccl1``, ``mesh_gloo2_rank0`` and ``mesh_gloo2_rank1``."""
+    from spark_gp_tpu_torch.dev.mesh_phases import run_mesh_phases
+
+    out = run_mesh_phases(airfoil_thetas)
+    nccl, gloo = out["nccl1"], out["gloo2"]
+    emit({"phase": "mesh-nccl1", "seconds": nccl["seconds"], "wall_seconds": out["seconds"],
+          "card": smi, **{k: v for k, v in nccl.items() if k != "seconds"}})
+    if not all(nccl["checks"].values()):
+        raise AssertionError(f"mesh-nccl1: {nccl['checks']}")
+    rmse_mesh = gloo[0]["airfoil"]["rmse"]
+    agree = {
+        "airfoil_thetas": gloo[0]["airfoil"]["thetas"] == gloo[1]["airfoil"]["thetas"],
+        "gpc_mnist_theta": gloo[0]["gpc_mnist"]["theta"] == gloo[1]["gpc_mnist"]["theta"],
+        "gpc_mnist_accuracy": gloo[0]["gpc_mnist"]["accuracy"] == gloo[1]["gpc_mnist"]["accuracy"],
+        "distribute_active": (gloo[0]["distribute"]["active_digest"]
+                              == gloo[1]["distribute"]["active_digest"]),
+        "distribute_theta": gloo[0]["distribute"]["theta"] == gloo[1]["distribute"]["theta"],
+        "airfoil_rmse": rmse_mesh == gloo[1]["airfoil"]["rmse"],
+    }
+    bars = {"airfoil_rmse": rmse_mesh < 2.1,
+            "airfoil_within_1pct": abs(rmse_mesh - airfoil_rmse) / airfoil_rmse < 0.01}
+    emit({"phase": "mesh-gloo2", "seconds": max(r["seconds"] for r in gloo), "card": smi,
+          "unsharded_airfoil_rmse": airfoil_rmse, "ranks_agree": agree, "bars": bars,
+          "ranks": [{k: v for k, v in r.items() if k != "thetas"} for r in gloo]})
+    failed = [f"rank {r['rank']}: {r['checks']}" for r in gloo if not all(r["checks"].values())]
+    if failed or not all(agree.values()) or not all(bars.values()):
+        raise AssertionError(f"mesh-gloo2: {failed} {agree} {bars}")
+    launches = {}
+    for label, rec in (("mesh_nccl1", nccl), ("mesh_gloo2_rank0", gloo[0]),
+                       ("mesh_gloo2_rank1", gloo[1])):
+        for name, n in rec["launches"].items():
+            launches.setdefault(name, {})[label] = n
+    return launches
+
+
 def regression_row(label: str, seconds: float, m: dict) -> dict:
     """One row of the host-against-device table for a regression device
     fit (no Newton loop): optimize seconds, evaluations, the loop's
@@ -6123,6 +6202,9 @@ def main() -> int:
     model = cv.pop("first_model")
     engaged["airfoil"] = [model.metrics["gram_cache_engaged"]]
     HOST_FITS["airfoil"] = cv
+    # the unsharded folds the mesh phases hold their sharded fits to
+    airfoil_thetas = [f.pop("theta") for f in cv["per_fold"]]
+    airfoil_rmse = cv["rmse"]
     emit({"phase": "airfoil", **cv, "launches": launches_airfoil,
           "probe_launches": probe_airfoil, "k1_rule": "nfev + expert-quality probes",
           "num_experts": model.metrics["num_experts"],
@@ -6487,6 +6569,9 @@ def main() -> int:
     # (each phase's launches, all five kernels)
     slice15 = slice15_phases(torch, spd, sm, sq, lg, data_main, mf_data, cdata, smi)
     s15 = slice15["launches"]
+    # 104-105. slice 16: the mesh phases, each rank a child process (each
+    # kernel's launches in each child)
+    mesh = mesh_phases(airfoil_thetas, airfoil_rmse, smi)
 
     # 56. kernels: K1 at the protein stack, then at the airfoil fold's, on
     # the workspace path and at the classifiers' B stacks, launches over
@@ -6518,7 +6603,8 @@ def main() -> int:
                      + sum(slice7.values()) + sum(slice8["spd_inv_logdet"].values())
                      + sum(slice9.values()) + sum(slice10.values())
                      + sum(slice11.values()) + sum(l12["spd_inv_logdet"].values())
-                     + sum(slice14["k1"].values()) + sum(s15["spd_inv_logdet"].values())),
+                     + sum(slice14["k1"].values()) + sum(s15["spd_inv_logdet"].values())
+                     + sum(mesh["spd_inv_logdet"].values())),
         "launches_airfoil": launches_airfoil,
         "launches_protein": launches_protein,
         "launches_airfoil_expert450": launches_450,
@@ -6535,6 +6621,7 @@ def main() -> int:
         **{f"launches_{key}": value for key, value in l12["spd_inv_logdet"].items()},
         **{f"launches_{key}": value for key, value in slice14["k1"].items()},
         **{f"launches_{key}": value for key, value in s15["spd_inv_logdet"].items()},
+        **{f"launches_{key}": value for key, value in mesh["spd_inv_logdet"].items()},
         "max_abs_err": max(errs["airfoil_fold"], errs["protein"]),
         "shape": [366, 100],
         **{key: timing["protein"][key] for key in keys + ("first_design_ms",)},
@@ -6573,11 +6660,13 @@ def main() -> int:
                      + k2_weighted["streamed_matvec"]
                      + sum(slice8["streamed_matvec"].values())
                      + sum(l12["streamed_matvec"].values())
-                     + sum(s15["streamed_matvec"].values())),
+                     + sum(s15["streamed_matvec"].values())
+                     + sum(mesh["streamed_matvec"].values())),
         "launches_optimize": launches_k2,
         **{f"launches_{key}": value for key, value in slice8["streamed_matvec"].items()},
         **{f"launches_{key}": value for key, value in l12["streamed_matvec"].items()},
         **{f"launches_{key}": value for key, value in s15["streamed_matvec"].items()},
+        **{f"launches_{key}": value for key, value in mesh["streamed_matvec"].items()},
         "launches_weighted_matfree": k2_weighted["streamed_matvec"],
         "launches_solver_report": report_launches["streamed_matvec"],
         **leg(k2_rows, 9, "matvec"),
@@ -6593,11 +6682,13 @@ def main() -> int:
         "launches": (launches_vjp + k2_weighted["streamed_matvec_vjp"]
                      + sum(slice8["streamed_matvec_vjp"].values())
                      + sum(l12["streamed_matvec_vjp"].values())
-                     + sum(s15["streamed_matvec_vjp"].values())),
+                     + sum(s15["streamed_matvec_vjp"].values())
+                     + sum(mesh["streamed_matvec_vjp"].values())),
         "launches_weighted_matfree": k2_weighted["streamed_matvec_vjp"],
         **{f"launches_{key}": value for key, value in slice8["streamed_matvec_vjp"].items()},
         **{f"launches_{key}": value for key, value in l12["streamed_matvec_vjp"].items()},
         **{f"launches_{key}": value for key, value in s15["streamed_matvec_vjp"].items()},
+        **{f"launches_{key}": value for key, value in mesh["streamed_matvec_vjp"].items()},
         **leg(vjp_rows, 8, "vjp", ("first_design_ms", "wall_ms")),
         "max_rel_err_all_checks": max(e["vjp_rel"] for e in k2_errs.values()),
         "legs": {"n1": leg(vjp_rows, 1, "vjp", ("first_design_ms", "wall_ms"))},
@@ -6612,10 +6703,12 @@ def main() -> int:
         "replaces_note": "no Pallas kernel: XLA's eigh in slq_logdet_from_coeffs, which "
                          "torch.linalg.eigh cannot replace inside a captured step",
         "launches": (quad_before + sum(l12["slq_quadrature"].values())
-                     + sum(s15["slq_quadrature"].values())),
+                     + sum(s15["slq_quadrature"].values())
+                     + sum(mesh["slq_quadrature"].values())),
         "launches_before_slice12": quad_before,
         **{f"launches_{key}": value for key, value in l12["slq_quadrature"].items()},
         **{f"launches_{key}": value for key, value in s15["slq_quadrature"].items()},
+        **{f"launches_{key}": value for key, value in mesh["slq_quadrature"].items()},
         "shape": quad["protein_matfree"]["shape"],
         **{key: quad["protein_matfree"][key]
            for key in keys + ("first_design_ms", "rotations", "steps")},
@@ -6631,9 +6724,11 @@ def main() -> int:
         "replaces_note": "no Pallas kernel: XLA's contractions of the mixed lane's "
                          "_inner_compensated (the fast lane's _inner, distance.py:47, is the "
                          "kernel's tf32 mode); the lane is an argument of the launch",
-        "launches": sum(slice14["lane_gram"].values()) + sum(s15["lane_gram"].values()),
+        "launches": (sum(slice14["lane_gram"].values()) + sum(s15["lane_gram"].values())
+                     + sum(mesh["lane_gram"].values())),
         **{f"launches_{key}": value for key, value in slice14["lane_gram"].items()},
         **{f"launches_{key}": value for key, value in s15["lane_gram"].items()},
+        **{f"launches_{key}": value for key, value in mesh["lane_gram"].items()},
         "shape": slice14["timing"]["airfoil_ard_self"]["shape"],
         "mode": "3xtf32",
         **{key: slice14["timing"]["airfoil_ard_self"][key] for key in keys},

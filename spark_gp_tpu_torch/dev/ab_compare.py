@@ -23,7 +23,8 @@ then this script's ``--leg`` harness against that checkout's package:
   single-fit pairs on the airfoil fold, tracing off and on in turns
   (ten pairs, the order alternating), each pair's ratio.
 
-``--no-smoke`` runs the harness alone in each leg.  Prints one JSON line per leg and, last, the card's name and power limit
+``--no-smoke`` runs the harness alone in each leg, ``--no-harness`` the
+whole ``chip_smoke.py`` alone (its seconds and each phase's).  Prints one JSON line per leg and, last, the card's name and power limit
 and a summary; every line also lands in ``OUT/ab.jsonl``.  Needs one CUDA
 card.
 """
@@ -159,6 +160,8 @@ def main() -> int:
     parser.add_argument("--smoke-timeout", type=float, default=1200.0)
     parser.add_argument("--no-smoke", action="store_true",
                         help="skip each leg's chip_smoke.py run")
+    parser.add_argument("--no-harness", action="store_true",
+                        help="skip each leg's harness run")
     args = parser.parse_args()
     if args.leg:
         print(json.dumps(run_leg(args.leg)), flush=True)
@@ -203,15 +206,18 @@ def main() -> int:
                         if isinstance(row.get(key), (int, float)):
                             phase_seconds.setdefault(row["phase"], {})[key] = row[key]
         start = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--leg", tree],
-                              capture_output=True, text=True, timeout=1200)
-        harness = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else {
-            "rc": proc.returncode, "stderr_tail": proc.stderr[-2000:]}
+        harness, harness_rc = {}, 0
+        if not args.no_harness:
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--leg", tree],
+                                  capture_output=True, text=True, timeout=1200)
+            harness_rc = proc.returncode
+            harness = json.loads(proc.stdout.strip().splitlines()[-1]) if harness_rc == 0 else {
+                "rc": harness_rc, "stderr_tail": proc.stderr[-2000:]}
         row = {"leg": i, "label": label, "smoke_rc": rc, "smoke_seconds": smoke_s,
                "smoke_phase_seconds": phase_seconds, "harness_seconds": time.perf_counter() - start,
                "harness": harness}
         emit(row)
-        ok = ok and rc == 0 and proc.returncode == 0
+        ok = ok and rc == 0 and harness_rc == 0
         summary.append({"label": label, "smoke_rc": rc, "smoke_seconds": smoke_s,
                         "airfoil_ppa_s": harness.get("airfoil", {}).get("median_ppa_seconds"),
                         "protein_ppa_s": harness.get("protein", {}).get("ppa_seconds"),

@@ -10,8 +10,13 @@ optimal hyperparameters, and returns the ``[m, p]`` active points.
   forward selection (``greedy.py``), on the fit's device in its working
   dtype.
 
-The sharded-stack entry point (``from_stack``) comes with the mesh,
-ROADMAP.md queue 1, item 6.
+Each provider also selects straight off a rank-local expert stack
+(``from_stack(m, data, kernel, theta, seed, mesh)``, the entry
+``fit_distributed`` and the mesh fits use where no rank holds every
+row): the same active set on every rank, from collectives over the
+``mesh`` (``parallel/mesh.py``; ``None`` for a stack that is whole
+here).  ``data.y`` carries the targets (labels, or a classifier's latent
+modes).
 """
 
 from __future__ import annotations
@@ -33,6 +38,22 @@ class ActiveSetProvider:
     def __call__(self, active_set_size, x, y, kernel, theta_opt, seed):
         raise NotImplementedError
 
+    def from_stack(self, active_set_size, data, kernel, theta, seed, mesh):
+        """``[m, p]`` active points off a rank-local stack.  A provider
+        without its own implementation falls back, with a warning, to the
+        uniform draw."""
+        import warnings
+
+        from spark_gp_tpu_torch.parallel.distributed import sample_active_from_stack
+
+        warnings.warn(
+            f"{type(self).__name__} has no sharded-stack implementation; "
+            "falling back to uniform sampling for fit_distributed.  "
+            "Implement from_stack(...) to override.",
+            stacklevel=2,
+        )
+        return sample_active_from_stack(data, active_set_size, seed, mesh)
+
 
 class _RandomActiveSetProvider(ActiveSetProvider):
     """Uniform sample of m training rows without replacement, from numpy's
@@ -45,6 +66,13 @@ class _RandomActiveSetProvider(ActiveSetProvider):
         n = x.shape[0]
         idx = rng.choice(n, size=min(active_set_size, n), replace=False)
         return np.asarray(x)[idx]
+
+    def from_stack(self, active_set_size, data, kernel, theta, seed, mesh):
+        """The uniform draw over the stack's real rows
+        (``parallel/distributed.sample_active_from_stack``)."""
+        from spark_gp_tpu_torch.parallel.distributed import sample_active_from_stack
+
+        return sample_active_from_stack(data, active_set_size, seed, mesh)
 
 
 RandomActiveSetProvider = _RandomActiveSetProvider()
@@ -75,6 +103,26 @@ class KMeansActiveSetProvider(ActiveSetProvider):
         centroids = _lloyd(xt, _kmeanspp_init(gen, xt, k), self.max_iter)
         return centroids.cpu().numpy()
 
+    def from_stack(self, active_set_size, data, kernel, theta, seed, mesh):
+        """Sharded Lloyd over the rank-local stack (the JAX package's):
+        k-means++ seeds from a uniform subsample of ``max(4 m, 4096)`` real
+        rows (``sample_active_from_stack``, the same rows on every rank),
+        then ``max_iter`` Lloyd steps in float64 on the stack's device, each
+        rank's per-cluster sums and counts summed by one all-reduce a
+        step, so every rank holds the same centroids."""
+        from spark_gp_tpu_torch.parallel.distributed import sample_active_from_stack
+
+        sub = sample_active_from_stack(data, max(4 * active_set_size, 4096), seed, mesh)
+        device = data.x.device
+        xs = torch.as_tensor(sub, dtype=torch.float64, device=device)
+        k = min(active_set_size, xs.shape[0])
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        p = data.x.shape[-1]
+        centroids = _lloyd(data.x.reshape(-1, p).to(torch.float64),
+                           _kmeanspp_init(gen, xs, k), self.max_iter,
+                           mask=data.mask.reshape(-1).to(torch.float64), mesh=mesh)
+        return centroids.cpu().numpy()
+
 
 class GreedilyOptimizingActiveSetProvider(ActiveSetProvider):
     """Seeger et al. 2003 fast forward selection (ASP.scala:59-136) on
@@ -88,9 +136,10 @@ class GreedilyOptimizingActiveSetProvider(ActiveSetProvider):
         return greedy_active_set(active_set_size, x, y, kernel, theta_opt, seed, device)
 
     def from_stack(self, active_set_size, data, kernel, theta, seed, mesh):
-        from spark_gp_tpu_torch.models.common import _not_ported
+        """The sharded Seeger rounds (``greedy.greedy_active_set_from_stack``)."""
+        from spark_gp_tpu_torch.models.greedy import greedy_active_set_from_stack
 
-        raise _not_ported("greedy selection from a sharded expert stack", 6)
+        return greedy_active_set_from_stack(active_set_size, data, kernel, theta, seed, mesh)
 
 
 def _kmeanspp_init(gen: torch.Generator, x, k: int):
@@ -110,10 +159,13 @@ def _kmeanspp_init(gen: torch.Generator, x, k: int):
     return torch.cat(centroids)
 
 
-def _lloyd(x, centroids, max_iter: int):
+def _lloyd(x, centroids, max_iter: int, mask=None, mesh=None):
     """``max_iter`` Lloyd steps from ``centroids [k, p]`` over ``x [n, p]``:
     assignment by the squared distance, then each centroid the mean of its
-    points (a one-hot matmul); an empty cluster keeps its centroid.  The
+    points (a one-hot matmul); an empty cluster keeps its centroid.
+    ``mask [n]`` keeps padded rows out of the sums and counts; with
+    ``mesh`` the rows are this rank's and one all-reduce a step sums the
+    ranks' ``[k, p + 1]`` sums and counts.  The
     two contractions ride the precision lanes as the JAX package's do: the
     distances the gram stage (``ops/distance.sq_dist``), the one-hot sums
     the linalg stage, which the port runs in IEEE arithmetic on every lane
@@ -123,7 +175,12 @@ def _lloyd(x, centroids, max_iter: int):
     for _ in range(max_iter):
         assign = torch.argmin(sq_dist(x, centroids), dim=1)
         onehot = torch.nn.functional.one_hot(assign, k).to(x.dtype)  # [n, k]
+        if mask is not None:
+            onehot = onehot * mask[:, None]
         counts = onehot.sum(dim=0)[:, None]
         sums = onehot.mT @ x
+        if mesh is not None:
+            fused = mesh.all_reduce(torch.cat([sums, counts], dim=1))
+            sums, counts = fused[:, :-1], fused[:, -1:]
         centroids = torch.where(counts > 0, sums / torch.clamp_min(counts, 1.0), centroids)
     return centroids

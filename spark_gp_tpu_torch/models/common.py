@@ -6,6 +6,13 @@ caller asks for ``cpu`` (``utils/device.py``).  Setters for what this
 slice does not port raise ``NotImplementedError`` naming the ROADMAP.md
 item that ports them.
 
+``setMesh`` splits the expert axis over the ranks of a process group
+(``parallel/mesh.py``): every rank calls ``fit(x, y)`` with the same rows
+and keeps its own block of the stack, or ``fit_distributed`` with its
+block from ``parallel/distributed.distribute_global_experts``; the
+objective, its gradient and the PPA statistics are summed over the ranks,
+and every rank ends with the same model.
+
 Every fit runs inside the observability shell (:meth:`_observed_fit`:
 the root span ``fit.<Family>``, the kernel and memory capture, the run
 journal, an incident bundle on a terminal classified failure), around
@@ -96,6 +103,8 @@ class GaussianProcessParams:
         #: the fitted stack's fingerprint while a checkpointed fit optimizes
         self._fit_data_key: Optional[list] = None
         self._device = device
+        #: the expert mesh (``parallel/mesh.ExpertMesh``), or None
+        self._mesh = None
 
     def setKernel(self, value: Union[Kernel, Callable[[], Kernel]]):
         """A kernel factory (zero-arg callable) or a kernel spec."""
@@ -189,8 +198,20 @@ class GaussianProcessParams:
         return self
 
     def setMesh(self, mesh):
-        if mesh is not None:
-            raise _not_ported("sharding experts over several devices", 6)
+        """Split the experts over the ranks of ``mesh``
+        (``parallel/mesh.expert_mesh``), or ``None`` (the default) for one
+        process: every rank runs the same fit on its own block of the
+        expert stack, and the objective's value and gradient and the PPA
+        statistics are all-reduced, so every rank ends with the same
+        model.  ``fit(x, y)`` takes the same rows on every rank;
+        ``fit_distributed`` takes each rank's own block."""
+        from spark_gp_tpu_torch.parallel.mesh import ExpertMesh
+
+        if mesh is not None and not isinstance(mesh, ExpertMesh):
+            raise TypeError(
+                f"setMesh takes an ExpertMesh (parallel/mesh.expert_mesh), got "
+                f"{type(mesh).__name__}")
+        self._mesh = mesh
         return self
 
     def setSolverLane(self, value: str):
@@ -410,7 +431,18 @@ class GaussianProcessCommons(GaussianProcessParams):
         from spark_gp_tpu_torch.resilience import chaos
         from spark_gp_tpu_torch.utils.checkpoint import DeviceOptimizerCheckpointer
 
+        self._check_no_mesh_checkpoints()
         return chaos.maybe_preempting(DeviceOptimizerCheckpointer(self._checkpoint_dir, file_tag))
+
+    def _check_no_mesh_checkpoints(self) -> None:
+        """A checkpoint directory under a mesh needs the coordinated
+        checkpointers of ``parallel/coord.py``."""
+        if self._mesh is not None:
+            raise _not_ported("a checkpoint directory under a mesh", "6c")
+
+    def _mesh_of_ranks(self) -> bool:
+        """True under a mesh of more than one rank."""
+        return self._mesh is not None and self._mesh.world_size > 1
 
     def _device_fit_op(self) -> str:
         """The chaos choke point's name for the device fit about to run:
@@ -418,6 +450,8 @@ class GaussianProcessCommons(GaussianProcessParams):
         one-dispatch OOM leaves the segmented rung's fit clean."""
         if self._checkpoint_dir is not None or self._fallback_segmented():
             return "fit.device.segment"
+        if self._mesh is not None:
+            return "fit.device.sharded"
         return "fit.device.one_dispatch"
 
     def _use_batched_multistart(self) -> bool:
@@ -480,12 +514,17 @@ class GaussianProcessCommons(GaussianProcessParams):
         extra64 = tuple(e.to(f64) if isinstance(e, torch.Tensor) else e for e in extra)
         return data64, extra64, None
 
-    def _dispatch_raw_bytes(self, data: ExpertData) -> float:
+    def _dispatch_raw_bytes(self, data: ExpertData) -> Optional[float]:
         """Modeled raw peak bytes of one objective evaluation of the fit
         about to run (``memplan.fit_dispatch_bytes`` at the resolved lane's
         rung, or at ``segmented`` on that rung, in the stack's dtype); arms
-        the memory planner's calibration loop with it."""
+        the memory planner's calibration loop with it.  None for a sharded
+        fit, which the planner skips (the JAX package's rule: a rank's
+        footprint has no model yet)."""
         from spark_gp_tpu_torch.resilience import memplan
+
+        if self._mesh is not None:
+            return None
 
         e, s, p = (int(d) for d in data.x.shape)
         rung = "segmented" if self._fallback_segmented() else memplan.fit_rung_of_lane(
@@ -558,10 +597,17 @@ class GaussianProcessCommons(GaussianProcessParams):
         return self._kernel_factory() + Const(self._sigma2) * EyeKernel()
 
     def _group(self, x: np.ndarray, y: np.ndarray, device) -> ExpertData:
-        return group_for_experts(
+        """The expert stack of ``(x, y)`` on ``device``; under a mesh, this
+        rank's block of it (``parallel/mesh.shard_experts``)."""
+        data = group_for_experts(
             x, y, self._dataset_size_for_expert,
             dtype=working_dtype(device), device=device,
         )
+        if self._mesh is not None:
+            from spark_gp_tpu_torch.parallel.mesh import shard_experts
+
+            data = shard_experts(data, self._mesh)
+        return data
 
     def _group_screened(self, instr: Instrumentation, x, y, device) -> ExpertData:
         """Group, and the data screen: experts carrying a non-finite row
@@ -577,6 +623,11 @@ class GaussianProcessCommons(GaussianProcessParams):
                 bad_experts[np.flatnonzero(~finite) % e] = True
         data = self._group(x, y, device)
         if bad_experts is not None:
+            if self._mesh is not None:
+                # the flags of this rank's block; padded experts are inert
+                from spark_gp_tpu_torch.parallel.mesh import shard_rows
+
+                bad_experts = shard_rows(bad_experts, self._mesh, fill=False)
             data = self._apply_quarantine(instr, data, bad_experts, "data screen")
         return data
 
@@ -634,21 +685,28 @@ class GaussianProcessCommons(GaussianProcessParams):
         from spark_gp_tpu_torch.resilience.quarantine import (
             GLOBAL_FAILURE_ADVICE,
             ExpertQuarantineError,
-            quarantine_experts,
             renorm_factor,
         )
 
         bad = np.asarray(bad, dtype=bool)
         n_bad = int(bad.sum())
+        active = int((data.mask.sum(dim=1) > 0).sum())
+        mesh = self._mesh
+        if mesh is not None:
+            # the counts are the mesh's, so every rank renormalizes alike
+            n_bad, active = (int(v) for v in mesh.all_reduce_host([n_bad, active]))
         if n_bad == 0:
             return data
-        active = int((data.mask.sum(dim=1) > 0).sum())
         if n_bad >= active:
             raise ExpertQuarantineError(
                 f"{source}: all {active} active expert(s) are non-finite — "
                 + GLOBAL_FAILURE_ADVICE
             )
-        data = quarantine_experts(data, bad)
+        # a rank whose every expert is bad has no finite row of its own to
+        # stand in for the dropped features (one process alone never gets
+        # here with every expert bad: it raised above)
+        benign = torch.zeros_like(data.x[0, :1]) if bad.all() else None
+        data = data.with_experts_masked(bad, benign)
         metrics = instr.metrics
         base = metrics.setdefault("experts_active_initial", float(active))
         dropped = metrics.get("experts_quarantined", 0.0) + n_bad
@@ -680,6 +738,8 @@ class GaussianProcessCommons(GaussianProcessParams):
 
         if not agg.selection_enabled():
             return data, ()
+        if self._mesh_of_ranks():
+            raise _not_ported("fit-time expert selection over a mesh", "6a")
         mode = agg.selection_mode()
         if mode == "downweight" and self._objective != "marginal":
             # only the marginal objective takes the weights; masking works
@@ -743,7 +803,10 @@ class GaussianProcessCommons(GaussianProcessParams):
 
         data, sel_extra = self._apply_expert_selection(instr, data)
         cache = self._gram_cache(self._get_kernel(), data)
-        if not self._expert_quarantine or self._fit_retries < 1:
+        if not self._expert_quarantine or self._fit_retries < 1 or self._mesh_of_ranks():
+            # over several ranks a failed attempt propagates: a probe of one
+            # rank's experts cannot decide a retry every rank must join
+            # (the data screen still quarantines before the fit)
             return run_fit(data, sel_extra, cache)
         state = {"data": data, "extra": sel_extra, "cache": cache}
         # the probe needs an objective that decomposes over experts; the
@@ -758,7 +821,9 @@ class GaussianProcessCommons(GaussianProcessParams):
             kernel = self._get_kernel()
             report = diagnose_experts(kernel, kernel.init_theta(), state["data"],
                                       objective=probe_objective,
-                                      allow_jitter=self._objective == "marginal")
+                                      # the sharded objectives carry no jitter
+                                      allow_jitter=(self._objective == "marginal"
+                                                    and self._mesh is None))
             if report.clean:
                 raise exc  # not a per-expert fault
             if report.num_jittered:
@@ -842,6 +907,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         behind a staged preemption (``chaos.preempt_after_saves``)."""
         if self._checkpoint_dir is None:
             return None
+        self._check_no_mesh_checkpoints()
         from spark_gp_tpu_torch.resilience import chaos
         from spark_gp_tpu_torch.utils.checkpoint import LbfgsCheckpointer
 
@@ -1074,6 +1140,84 @@ class GaussianProcessCommons(GaussianProcessParams):
         self._log_renormalized_nll(best_model.metrics)
         return best_model
 
+    # --- the sharded fit ---------------------------------------------------
+    @contextlib.contextmanager
+    def _stack_mesh(self, data: ExpertData):
+        """The mesh of a ``fit_distributed`` call: ``setMesh``'s, else the
+        default process group's (``parallel/distributed.global_expert_mesh``;
+        a mesh of this process alone without one) on the stack's device;
+        the estimator's own mesh is restored on exit, so it stays reusable
+        for ``fit``."""
+        from spark_gp_tpu_torch.parallel.distributed import global_expert_mesh
+
+        prev = self._mesh
+        if self._mesh is None:
+            self._mesh = global_expert_mesh(data.x.device)
+        try:
+            yield self._mesh
+        finally:
+            self._mesh = prev
+
+    def _run_fit_distributed(self, name: str, data: ExpertData, active_set, prepare):
+        """The shell of every estimator's ``fit_distributed`` (the JAX
+        package's): resolve the mesh, then, inside the observability shell
+        and the distributed ladder (``fallback.run_distributed_ladder``),
+        the data screen on this rank's block and ``prepare(instr, active64,
+        data) -> fit_once(kernel, instr)`` through the family's restart
+        driver (:meth:`_fit_distributed_body`).  ``prepare`` must use the
+        ``data`` it is handed (the screened stack), never its caller's."""
+        from spark_gp_tpu_torch.resilience import fallback
+
+        if not isinstance(data, ExpertData):
+            raise TypeError(
+                "fit_distributed takes this rank's ExpertData block "
+                "(parallel/distributed.distribute_global_experts)")
+        instr = Instrumentation(name=name)
+        with self._stack_mesh(data):
+            return self._observed_fit(instr, lambda: fallback.run_distributed_ladder(
+                self, instr, data, active_set, prepare))
+
+    def _fit_distributed_body(self, instr: Instrumentation, data: ExpertData, active_set,
+                              prepare):
+        """One attempt of the distributed fit: the data screen on the
+        rank-local block (the JAX package screens host-local stacks so; the
+        quarantine counts are the mesh's), the explicit active set in
+        float64, then the family's fit of the stack."""
+        from spark_gp_tpu_torch.resilience.quarantine import nonfinite_expert_mask
+
+        instr.metrics["num_experts"] = int(data.num_experts) * (
+            1 if self._mesh is None else self._mesh.world_size)
+        instr.metrics["expert_size"] = int(data.expert_size)
+        if self._expert_quarantine:
+            bad = nonfinite_expert_mask(data)
+            data = self._apply_quarantine(instr, data, bad, "data screen")
+        active64 = None if active_set is None else np.asarray(active_set, dtype=np.float64)
+        fit_once = prepare(instr, active64, data)
+        return self._stack_fit_with_restarts(instr, fit_once)
+
+    def _stack_fit_with_restarts(self, instr: Instrumentation, fit_once):
+        """The restart driver of a fit from a stack: the Laplace families'
+        (:meth:`_latent_fit_with_restarts`); regression runs its restarts
+        inside one fit and overrides this."""
+        return self._latent_fit_with_restarts(instr, fit_once)
+
+    @staticmethod
+    def _provider_stack(data: ExpertData) -> ExpertData:
+        """The stack a ``from_stack`` provider selects off: the PPA stack,
+        with a multiclass stack's ``[E, s, C]`` latents reduced to each
+        point's strongest class latent (the host rows' targets)."""
+        if data.y.ndim == 3:
+            return ExpertData(x=data.x, y=torch.max(data.y, dim=-1).values, mask=data.mask)
+        return data
+
+    def _gathered_stack(self, values: torch.Tensor, num_experts: int) -> np.ndarray:
+        """A per-expert ``[E_local, ...]`` device array of this rank, as the
+        whole ``[E, ...]`` stack's numpy (every rank's block in rank order,
+        the padding dropped); the array itself without a mesh."""
+        if self._mesh is None:
+            return values.cpu().numpy()
+        return torch.cat(self._mesh.all_gather(values.contiguous())).cpu().numpy()[:num_experts]
+
     def _device_fit_prelude(self, kernel: Kernel, data: ExpertData):
         """The checks and operands every device fit starts with: no
         restarts beside a checkpoint directory, the staged fault of the
@@ -1129,6 +1273,8 @@ class GaussianProcessCommons(GaussianProcessParams):
         latent modes [E, s, ...] on the device, metrics)``."""
         from spark_gp_tpu_torch.models import laplace_device as ld
 
+        if self._mesh is not None:
+            raise _not_ported("the sharded device fits of the Laplace families and EP", "6a")
         dev, lower, upper, log_space = self._device_fit_prelude(kernel, data)
         loop: dict = {}
         multistart = self._use_batched_multistart()
@@ -1174,8 +1320,15 @@ class GaussianProcessCommons(GaussianProcessParams):
         (value, grad, f_new)``: every evaluation, line-search trials
         included, starts from the latent modes the previous one left
         (the reference mutates them in place, GPClf.scala:53-60), and one
-        last evaluation at theta* settles them (GPClf.scala:60).  Returns
-        ``(OptimizeResult, f_final)``."""
+        last evaluation at theta* settles them (GPClf.scala:60).  Under a
+        mesh, ``objective`` is this rank's: its value and gradient are
+        all-reduced here (``parallel/mesh.allreduced_objective``, what each
+        family's ``make_sharded_*`` objective is), its latent carry stays
+        local.  Returns ``(OptimizeResult, f_final)``."""
+        if self._mesh is not None:
+            from spark_gp_tpu_torch.parallel.mesh import allreduced_objective
+
+            objective = allreduced_objective(objective, self._mesh)
         state = {"f": f0}
 
         def value_and_grad(theta):
@@ -1186,10 +1339,17 @@ class GaussianProcessCommons(GaussianProcessParams):
         _, _, f_final = objective(res.theta, state["f"])
         return res, f_final
 
-    def _select_active(self, kernel, theta, x, y, device) -> np.ndarray:
+    def _select_active(self, kernel, theta, x, y, device, data=None) -> np.ndarray:
         """The configured provider's ``[m, p]`` rows; the k-means and
-        greedy providers run on the fit's ``device``."""
+        greedy providers run on the fit's ``device``.  ``x`` None (the
+        distributed fit, where no rank holds every row): the provider
+        selects off the stack ``data`` (``from_stack``; ``data.y`` carries
+        the targets) over the fit's mesh."""
         provider = self._active_set_provider
+        if x is None:
+            return np.asarray(provider.from_stack(
+                self._active_set_size, data, kernel, np.asarray(theta, dtype=np.float64),
+                self._seed, self._mesh))
         on_device = (KMeansActiveSetProvider, GreedilyOptimizingActiveSetProvider)
         kw = {"device": device} if isinstance(provider, on_device) else {}
         if getattr(provider, "uses_fit_outputs", True):
@@ -1216,18 +1376,20 @@ class GaussianProcessCommons(GaussianProcessParams):
         device = data.x.device
         if active is None:
             with instr.phase("active_set"):
-                active = self._select_active(kernel, theta_opt, x, y, device)
+                active = self._select_active(kernel, theta_opt, x, y, device,
+                                             self._provider_stack(data))
         f64 = torch.float64
         with instr.phase("kmn_stats"):
             data64 = ExpertData(
                 x=data.x.to(f64), y=data.y.to(f64), mask=data.mask.to(f64)
             )
-            u1, u2 = ppa.kmn_stats(
-                kernel,
-                torch.as_tensor(np.asarray(theta_opt, dtype=np.float64), device=device),
-                torch.as_tensor(np.asarray(active, dtype=np.float64), device=device),
-                data64,
-            )
+            theta_t = torch.as_tensor(np.asarray(theta_opt, dtype=np.float64), device=device)
+            active_t = torch.as_tensor(np.asarray(active, dtype=np.float64), device=device)
+            if self._mesh is None:
+                u1, u2 = ppa.kmn_stats(kernel, theta_t, active_t, data64)
+            else:
+                # each rank's sums, all-reduced: every rank solves alike
+                u1, u2 = ppa.kmn_stats_sharded(kernel, self._mesh, theta_t, active_t, data64)
             if u1.is_cuda:
                 torch.cuda.synchronize(u1.device)
         return self._build_predictor(instr, kernel, theta_opt, active, u1, u2, device, data)
@@ -1426,6 +1588,11 @@ class GaussianProcessCommons(GaussianProcessParams):
         instr.log_metric("mixed_precision_guard.delta_predict_rel", 0.0)
         bar = precision.GUARD_BARS.get(lane, 1e-3)
         worst = float(np.max([d_nll, d_grad]))  # NaN propagates: a NaN leg breaches
+        if self._mesh_of_ranks():
+            # each rank probes its own first expert: the worst over the ranks
+            # decides, so every rank takes the same rung
+            worst = float(self._mesh.all_reduce_host(
+                [worst if np.isfinite(worst) else np.inf], "max")[0])
         breach = float(not np.isfinite(worst) or worst > bar)
         instr.log_metric("mixed_precision_guard.breach", breach)
         if breach:

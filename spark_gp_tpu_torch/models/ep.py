@@ -219,6 +219,15 @@ def make_ep_objective(kernel: Kernel, data: ExpertData, tol):
     return objective
 
 
+def make_sharded_ep_objective(kernel: Kernel, data: ExpertData, tol, mesh):
+    """:func:`make_ep_objective` over ``mesh``: this rank's block, its
+    sites local, the value and gradient all-reduced
+    (``parallel/mesh.allreduced_objective``)."""
+    from spark_gp_tpu_torch.parallel.mesh import allreduced_objective
+
+    return allreduced_objective(make_ep_objective(kernel, data, tol), mesh)
+
+
 @torch.no_grad()
 def ep_posterior_mean(kernel: Kernel, theta, x, mask, tau, nu):
     """The posterior latent mean ``mu [E, s]`` at ``(theta, sites)`` (zero

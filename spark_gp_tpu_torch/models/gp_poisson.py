@@ -20,9 +20,9 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models import laplace_generic as lg
-from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
-from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
+from spark_gp_tpu_torch.parallel.experts import ExpertData, num_experts_for, ungroup
 from spark_gp_tpu_torch.utils.device import resolve_device
 from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
 
@@ -51,51 +51,80 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
     def _fit_body(self, instr, x, y, device) -> "GaussianProcessPoissonModel":
         from spark_gp_tpu_torch.resilience import fallback
 
-        lik = self._likelihood
         with instr.phase("group_experts"):
             data = self._group_screened(instr, x, y, device)
         kernel = self._get_kernel()
         x_prov, n_orig, row_filter = self._provider_rows_filter(x)
+        n_experts = num_experts_for(n_orig, self._dataset_size_for_expert)
+
+        def targets_of(latent):
+            # every rank's log-rates (over a mesh), in point order
+            return row_filter(ungroup(self._gathered_stack(latent, n_experts), n_orig))
 
         def attempt():
             data_a, cache = self._attempt_operands(kernel, data)
-
-            def fit_once(kernel_r, instr_r):
-                with maybe_profile(self._profile_dir, instr_r.name):
-                    with self._optimize_phase(instr_r, data_a):
-                        res, f_final, engine = self._fit_latent(kernel_r, data_a, cache)
-                    # the latent log-rates replace the counts in the PPA build
-                    # and as the provider's targets (GPClf.scala:62-65)
-                    latent = f_final * data_a.mask
-                    raw = self._projected_process(
-                        instr_r, kernel_r, res.theta, x_prov,
-                        row_filter(ungroup(latent.cpu().numpy(), n_orig)),
-                        ExpertData(x=data_a.x, y=latent, mask=data_a.mask),
-                    )
-                model = GaussianProcessPoissonModel(raw)
-                model.instr = instr_r
-                model.metrics = instr_r.metrics
-                model.metrics.update({
-                    "num_experts": data.num_experts,
-                    "expert_size": data.expert_size,
-                    "likelihood": type(lik).__name__,
-                    "lbfgs_iters": res.nit,
-                    "lbfgs_nfev": res.nfev,
-                    "final_nll": res.fun,
-                    **engine,
-                    "gram_cache_engaged": float(cache is not None),
-                })
-                self._log_renormalized_nll(model.metrics)
-                self._emit_solver_stats(model.metrics, kernel_r, res.theta,
-                                        ExpertData(x=data_a.x, y=latent, mask=data_a.mask))
-                self._emit_aggregation_stats(model.metrics, data_a)
-                return model
-
-            return self._latent_fit_with_restarts(instr, fit_once)
+            return self._latent_fit_with_restarts(
+                instr, self._stack_fit_once(data_a, cache, x_prov, targets_of))
 
         model = fallback.run_fit_ladder(self, instr, attempt, data=data)
         model.metrics.update(self._phase_metrics(model.instr))
         return model
+
+    def fit_distributed(self, data, active_set=None) -> "GaussianProcessPoissonModel":
+        """The fit from this rank's block of a global stack of counts
+        (``parallel/distributed.distribute_global_experts``): the generic
+        Laplace objective all-reduced, the log-rate modes on their rank,
+        the provider selecting over them off the stack."""
+        def prepare(instr, active64, data):
+            real = data.mask > 0
+            bad = float(torch.sum(real & ((data.y < 0) | (data.y != torch.floor(data.y)))))
+            if self._mesh is not None:
+                bad = float(self._mesh.all_reduce_host([bad])[0])
+            if bad:
+                raise ValueError("targets must be non-negative integer counts")
+            data_a, cache = self._attempt_operands(self._get_kernel(), data)
+            return self._stack_fit_once(data_a, cache, None, None, active64)
+
+        model = self._run_fit_distributed(type(self).__name__, data, active_set, prepare)
+        model.metrics.update(self._phase_metrics(model.instr))
+        return model
+
+    def _stack_fit_once(self, data_a: ExpertData, cache, x_prov, targets_of, active=None):
+        """``fit_once(kernel, instr)`` over the stack ``data_a`` (this
+        rank's block under a mesh): the fit, then the PPA model over the
+        latent log-rates (GPClf.scala:62-65).  ``x_prov`` None selects the
+        active set off the latent stack."""
+        lik = self._likelihood
+
+        def fit_once(kernel_r, instr_r):
+            with maybe_profile(self._profile_dir, instr_r.name):
+                with self._optimize_phase(instr_r, data_a):
+                    res, f_final, engine = self._fit_latent(kernel_r, data_a, cache)
+                latent = f_final * data_a.mask
+                latent_stack = ExpertData(x=data_a.x, y=latent, mask=data_a.mask)
+                raw = self._projected_process(
+                    instr_r, kernel_r, res.theta, x_prov,
+                    None if x_prov is None else targets_of(latent), latent_stack, active)
+            model = GaussianProcessPoissonModel(raw)
+            model.instr = instr_r
+            model.metrics = instr_r.metrics
+            model.metrics.update({
+                "num_experts": data_a.num_experts * (1 if self._mesh is None
+                                                     else self._mesh.world_size),
+                "expert_size": data_a.expert_size,
+                "likelihood": type(lik).__name__,
+                "lbfgs_iters": res.nit,
+                "lbfgs_nfev": res.nfev,
+                "final_nll": res.fun,
+                **engine,
+                "gram_cache_engaged": float(cache is not None),
+            })
+            self._log_renormalized_nll(model.metrics)
+            self._emit_solver_stats(model.metrics, kernel_r, res.theta, latent_stack)
+            self._emit_aggregation_stats(model.metrics, data_a)
+            return model
+
+        return fit_once
 
     _latent_heads = 1
 
@@ -117,17 +146,14 @@ class GaussianProcessPoissonRegression(GaussianProcessCommons):
                                            f"generic-{type(lik).__name__}-{digest[:10]}")
         iterations = lg.laplace_generic_mode.iterations
         calls = lg.batched_neg_logz_generic.calls
-        objective = lg.make_generic_objective(lik, kernel, data.x, data.y, data.mask, self._tol,
-                                              cache)
+        objective = lg.make_generic_objective(
+            lik, kernel, data.x, data.y, data.mask, self._tol, cache)
         res, f_final = self._optimize_latent_host(kernel, objective, torch.zeros_like(data.y))
         return res, f_final, {
             "newton_iterations": lg.laplace_generic_mode.iterations - iterations,
             "objective_calls": lg.batched_neg_logz_generic.calls - calls,
             **self._resumed_metric(res),
         }
-
-    def fit_distributed(self, data, active_set=None):
-        raise _not_ported("the multi-host count-regression fit", 6)
 
 
 class GaussianProcessNegativeBinomialRegression(GaussianProcessPoissonRegression):

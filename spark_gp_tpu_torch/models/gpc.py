@@ -31,10 +31,10 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models import laplace
-from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops.integrator import Integrator
-from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
+from spark_gp_tpu_torch.parallel.experts import ExpertData, num_experts_for, ungroup
 from spark_gp_tpu_torch.utils.device import resolve_device
 from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
 
@@ -75,43 +75,81 @@ class GaussianProcessClassifier(GaussianProcessCommons):
         # active-set provider sees them too (GPClf.scala:62-65); it gets
         # only the finite rows, and their targets
         x_prov, n_orig, row_filter = self._provider_rows_filter(x)
+        n_experts = num_experts_for(n_orig, self._dataset_size_for_expert)
+
+        def targets_of(latent):
+            # every rank's latents (over a mesh), in point order
+            return row_filter(ungroup(self._gathered_stack(latent, n_experts), n_orig))
 
         def attempt():
             # one cache for every restart: they all wrap this kernel
             data_a, cache = self._attempt_operands(kernel, data)
-
-            def fit_once(kernel_r, instr_r):
-                with maybe_profile(self._profile_dir, instr_r.name):
-                    with self._optimize_phase(instr_r, data_a):
-                        res, latent, engine_metrics = self._fit_latent(kernel_r, data_a, cache)
-                    raw = self._projected_process(
-                        instr_r, kernel_r, res.theta, x_prov,
-                        row_filter(ungroup(latent.cpu().numpy(), n_orig)),
-                        ExpertData(x=data_a.x, y=latent, mask=data_a.mask),
-                    )
-                model = self._make_model(raw)
-                model.instr = instr_r
-                model.metrics = instr_r.metrics
-                model.metrics.update({
-                    "num_experts": data.num_experts,
-                    "expert_size": data.expert_size,
-                    "lbfgs_iters": res.nit,
-                    "lbfgs_nfev": res.nfev,
-                    "final_nll": res.fun,
-                    **engine_metrics,
-                    "gram_cache_engaged": float(cache is not None),
-                })
-                self._log_renormalized_nll(model.metrics)
-                self._emit_solver_stats(model.metrics, kernel_r, res.theta,
-                                        ExpertData(x=data_a.x, y=latent, mask=data_a.mask))
-                self._emit_aggregation_stats(model.metrics, data_a)
-                return model
-
-            return self._latent_fit_with_restarts(instr, fit_once)
+            return self._latent_fit_with_restarts(
+                instr, self._stack_fit_once(data_a, cache, x_prov, targets_of))
 
         model = fallback.run_fit_ladder(self, instr, attempt, data=data)
         model.metrics.update(self._phase_metrics(model.instr))
         return model
+
+    def fit_distributed(self, data, active_set=None) -> "GaussianProcessClassificationModel":
+        """The fit from this rank's block of a global stack of {0, 1} labels
+        (``parallel/distributed.distribute_global_experts``): the Laplace
+        objective's value and gradient are all-reduced, the latent modes
+        stay on their rank, and the provider selects over them off the
+        stack (``from_stack``).  The mesh is ``setMesh``'s, else the
+        default process group's."""
+        def prepare(instr, active64, data):
+            self._check_stack_labels(data)
+            data_a, cache = self._attempt_operands(self._get_kernel(), data)
+            return self._stack_fit_once(data_a, cache, None, None, active64)
+
+        model = self._run_fit_distributed(type(self).__name__, data, active_set, prepare)
+        model.metrics.update(self._phase_metrics(model.instr))
+        return model
+
+    def _check_stack_labels(self, data: ExpertData) -> None:
+        """The label check of a stack (GPClf.scala:68-72), over every rank."""
+        real = data.mask > 0
+        bad = float(torch.sum(real & (data.y != 0) & (data.y != 1)))
+        if self._mesh is not None:
+            bad = float(self._mesh.all_reduce_host([bad])[0])
+        if bad:
+            raise ValueError("Only 0 and 1 labels are supported.")
+
+    def _stack_fit_once(self, data_a: ExpertData, cache, x_prov, targets_of, active=None):
+        """``fit_once(kernel, instr)`` over the stack ``data_a`` (this
+        rank's block under a mesh): the inference engine's fit, then the
+        PPA model over the latent targets.  ``x_prov`` None selects the
+        active set off the latent stack; ``targets_of(latent)`` gives the
+        host rows' targets otherwise; ``active`` is a set chosen before."""
+
+        def fit_once(kernel_r, instr_r):
+            with maybe_profile(self._profile_dir, instr_r.name):
+                with self._optimize_phase(instr_r, data_a):
+                    res, latent, engine_metrics = self._fit_latent(kernel_r, data_a, cache)
+                latent_stack = ExpertData(x=data_a.x, y=latent, mask=data_a.mask)
+                raw = self._projected_process(
+                    instr_r, kernel_r, res.theta, x_prov,
+                    None if x_prov is None else targets_of(latent), latent_stack, active)
+            model = self._make_model(raw)
+            model.instr = instr_r
+            model.metrics = instr_r.metrics
+            model.metrics.update({
+                "num_experts": data_a.num_experts * (1 if self._mesh is None
+                                                     else self._mesh.world_size),
+                "expert_size": data_a.expert_size,
+                "lbfgs_iters": res.nit,
+                "lbfgs_nfev": res.nfev,
+                "final_nll": res.fun,
+                **engine_metrics,
+                "gram_cache_engaged": float(cache is not None),
+            })
+            self._log_renormalized_nll(model.metrics)
+            self._emit_solver_stats(model.metrics, kernel_r, res.theta, latent_stack)
+            self._emit_aggregation_stats(model.metrics, data_a)
+            return model
+
+        return fit_once
 
     _latent_heads = 1
 
@@ -139,9 +177,6 @@ class GaussianProcessClassifier(GaussianProcessCommons):
 
     def _make_model(self, raw):
         return GaussianProcessClassificationModel(raw)
-
-    def fit_distributed(self, data, active_set=None):
-        raise _not_ported("the multi-host classifier fit", 6)
 
 
 class GaussianProcessClassificationModel:

@@ -11,8 +11,10 @@ site pair its aux carry (``ep.fit_gpc_ep_device``; restarts as one
 batched loop), and the latent mean at theta* is computed on the device;
 a checkpoint directory sends the fit to the host driver, and the ladder's
 ``segmented`` rung runs the one-loop device fit, as in the JAX package,
-which wires no segmented EP variant.  EP's sweeps have no cached-gram
-path, so the fit builds no gram cache.
+which wires no segmented EP variant.  ``setMesh`` and ``fit_distributed``
+(the classifier's) sum the EP objective over the ranks on the host
+optimizer (the all-reduced ``ep.make_ep_objective``).  EP's sweeps have
+no cached-gram path, so the fit builds no gram cache.
 
 The model's probit posterior predictive is closed form:
 ``p(y = 1 | x) = Phi(mu / sqrt(1 + var))`` (``averaged=True``), else
@@ -63,6 +65,10 @@ class GaussianProcessEPClassifier(GaussianProcessClassifier):
         the latent mean at theta* computed on the device; one loop on the
         ladder's ``segmented`` rung too, as the JAX estimator runs it (no
         segmented EP variant).  The results come back in one transfer."""
+        if self._mesh is not None:
+            from spark_gp_tpu_torch.models.common import _not_ported
+
+            raise _not_ported("the sharded device fits of the Laplace families and EP", "6a")
         dev, lower, upper, log_space = self._device_fit_prelude(kernel, data)
         loop: dict = {}
         multistart = self._use_batched_multistart()

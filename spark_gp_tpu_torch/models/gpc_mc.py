@@ -29,9 +29,9 @@ import numpy as np
 import torch
 
 from spark_gp_tpu_torch.models import laplace_mc
-from spark_gp_tpu_torch.models.common import GaussianProcessCommons, _not_ported
+from spark_gp_tpu_torch.models.common import GaussianProcessCommons
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
-from spark_gp_tpu_torch.parallel.experts import ExpertData, ungroup
+from spark_gp_tpu_torch.parallel.experts import ExpertData, num_experts_for, ungroup
 from spark_gp_tpu_torch.utils.device import resolve_device
 from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
 
@@ -89,48 +89,92 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
             data = self._group_screened(instr, x, y_int.astype(np.float64), device)
         kernel = self._get_kernel()
         x_prov, n_orig, row_filter = self._provider_rows_filter(x)
+        n_experts = num_experts_for(n_orig, self._dataset_size_for_expert)
+
+        def targets_of(latents):
+            # the provider sees each point's strongest class latent, every
+            # rank's (over a mesh) in point order
+            margin = torch.max(latents, dim=-1).values
+            return row_filter(ungroup(self._gathered_stack(margin, n_experts), n_orig))
 
         def attempt():
             data_a, cache = self._attempt_operands(kernel, data)
             y1h = _one_hot_masked(data_a.y, data_a.mask, n_classes)
-
-            def fit_once(kernel_r, instr_r):
-                with maybe_profile(self._profile_dir, instr_r.name):
-                    with self._optimize_phase(instr_r, data_a):
-                        res, f_final, engine = self._fit_latent(kernel_r, data_a, y1h, cache)
-                    # the per-class latent modes are the PPA targets; the
-                    # provider sees each point's strongest class latent
-                    latents = f_final * data_a.mask[..., None]
-                    margin = torch.max(latents, dim=-1).values.cpu().numpy()
-                    raw = self._projected_process(
-                        instr_r, kernel_r, res.theta, x_prov, row_filter(ungroup(margin, n_orig)),
-                        ExpertData(x=data_a.x, y=latents, mask=data_a.mask),
-                    )
-                model = GaussianProcessMulticlassModel(raw)
-                model.instr = instr_r
-                model.metrics = instr_r.metrics
-                model.metrics.update({
-                    "num_experts": data.num_experts,
-                    "expert_size": data.expert_size,
-                    "num_classes": n_classes,
-                    "lbfgs_iters": res.nit,
-                    "lbfgs_nfev": res.nfev,
-                    "final_nll": res.fun,
-                    **engine,
-                    "gram_cache_engaged": float(cache is not None),
-                })
-                self._log_renormalized_nll(model.metrics)
-                self._emit_solver_stats(model.metrics, kernel_r, res.theta,
-                                        ExpertData(x=data_a.x, y=latents, mask=data_a.mask))
-                self._emit_aggregation_stats(model.metrics, data_a)
-                return model
-
-            return self._latent_fit_with_restarts(instr, fit_once)
+            return self._latent_fit_with_restarts(
+                instr, self._stack_fit_once(data_a, y1h, cache, x_prov, targets_of))
 
         model = fallback.run_fit_ladder(self, instr, attempt, data=data)
         model.metrics.update(self._phase_metrics(model.instr))
         return model
 
+    def fit_distributed(self, data, n_classes=None, active_set=None
+                        ) -> "GaussianProcessMulticlassModel":
+        """The fit from this rank's block of a global stack of integer labels
+        ``0 .. C-1`` (``parallel/distributed.distribute_global_experts``): the
+        softmax-Laplace objective all-reduced, the ``[E, s, C]`` modes on
+        their rank, the provider selecting off the stack over each point's
+        strongest class latent.  ``n_classes`` defaults to the largest label
+        over every rank, plus one."""
+        def prepare(instr, active64, data):
+            real = data.mask > 0
+            labels = data.y[real]
+            top = float(labels.max()) if labels.numel() else -1.0
+            bad = float(torch.sum((labels != torch.round(labels)) | (labels < 0)))
+            if self._mesh is not None:
+                top = float(self._mesh.all_reduce_host([top], "max")[0])
+                bad = float(self._mesh.all_reduce_host([bad])[0])
+            n_cls = int(top) + 1 if n_classes is None else int(n_classes)
+            if n_cls < 2:
+                raise ValueError("need at least 2 classes")
+            if bad or top >= n_cls:
+                raise ValueError("labels must be integers 0 .. C-1")
+            self._latent_heads = n_cls
+            instr.metrics["num_classes"] = n_cls
+            data_a, cache = self._attempt_operands(self._get_kernel(), data)
+            y1h = _one_hot_masked(data_a.y, data_a.mask, n_cls)
+            return self._stack_fit_once(data_a, y1h, cache, None, None, active64)
+
+        model = self._run_fit_distributed(type(self).__name__, data, active_set, prepare)
+        model.metrics.update(self._phase_metrics(model.instr))
+        return model
+
+    def _stack_fit_once(self, data_a: ExpertData, y1h, cache, x_prov, targets_of, active=None):
+        """``fit_once(kernel, instr)`` over the stack ``data_a`` (this
+        rank's block under a mesh) and its one-hot targets: the fit, then
+        the PPA model over the per-class latent modes.  ``x_prov`` None
+        selects the active set off the latent stack."""
+        n_classes = int(y1h.shape[-1])
+
+        def fit_once(kernel_r, instr_r):
+            with maybe_profile(self._profile_dir, instr_r.name):
+                with self._optimize_phase(instr_r, data_a):
+                    res, f_final, engine = self._fit_latent(kernel_r, data_a, y1h, cache)
+                # the per-class latent modes are the PPA targets
+                latents = f_final * data_a.mask[..., None]
+                latent_stack = ExpertData(x=data_a.x, y=latents, mask=data_a.mask)
+                raw = self._projected_process(
+                    instr_r, kernel_r, res.theta, x_prov,
+                    None if x_prov is None else targets_of(latents), latent_stack, active)
+            model = GaussianProcessMulticlassModel(raw)
+            model.instr = instr_r
+            model.metrics = instr_r.metrics
+            model.metrics.update({
+                "num_experts": data_a.num_experts * (1 if self._mesh is None
+                                                     else self._mesh.world_size),
+                "expert_size": data_a.expert_size,
+                "num_classes": n_classes,
+                "lbfgs_iters": res.nit,
+                "lbfgs_nfev": res.nfev,
+                "final_nll": res.fun,
+                **engine,
+                "gram_cache_engaged": float(cache is not None),
+            })
+            self._log_renormalized_nll(model.metrics)
+            self._emit_solver_stats(model.metrics, kernel_r, res.theta, latent_stack)
+            self._emit_aggregation_stats(model.metrics, data_a)
+            return model
+
+        return fit_once
 
     def _fit_latent(self, kernel, data: ExpertData, y1h, cache):
         """``(OptimizeResult, the latent modes [E, s, C], the engine's
@@ -152,9 +196,6 @@ class GaussianProcessMulticlassClassifier(GaussianProcessCommons):
             "objective_calls": laplace_mc.batched_neg_logz_mc.calls - calls,
             **self._resumed_metric(res),
         }
-
-    def fit_distributed(self, data, n_classes=None, active_set=None):
-        raise _not_ported("the multi-host multiclass fit", 6)
 
 
 class GaussianProcessMulticlassModel:

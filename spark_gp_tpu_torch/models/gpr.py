@@ -102,46 +102,14 @@ class GaussianProcessRegression(GaussianProcessCommons):
             if data_r is not data:
                 # recovery or selection rebuilt the stack: the provider rows
                 # come from it (a poisoned row can be finite, and one in the
-                # active set would poison the PPA statistics)
+                # active set would poison the PPA statistics); over a mesh
+                # the provider selects off the rebuilt stack itself
                 keep = data_r.mask > 0
-                x_r = data_r.x[keep].to(torch.float64).cpu().numpy()
-                y_r = data_r.y[keep].to(torch.float64).cpu().numpy()
-            data_r, rextra, cache = self._host_f64_operands(data_r, rextra, cache)
-            with maybe_profile(self._profile_dir, instr.name):
-                active, extra = None, (rextra if self._objective == "marginal" else ())
-                if self._objective == "elbo":
-                    # the bound needs its inducing set before the
-                    # optimization, selected from this attempt's rows
-                    with instr.phase("active_set"):
-                        active = self._select_active(kernel, kernel.init_theta(), x_r, y_r,
-                                                     device)
-                    extra = (active, self._sigma2)
-                    # checkpoint tags carry the bound's surface
-                    self._objective_salt = self._elbo_checkpoint_salt(extra)
-                if self._resolved_optimizer() == "device":
-                    res, restart_metrics = self._fit_device(instr, kernel, data_r, extra, cache)
-                else:
-                    vag = make_value_and_grad(kernel, data_r, cache, self._objective, extra)
-                    with self._optimize_phase(instr, data_r):
-                        res, restart_metrics = self._optimize_with_restarts(kernel, vag)
-                raw = self._projected_process(instr, kernel, res.theta, x_r, y_r, data_r, active)
-            model = GaussianProcessRegressionModel(raw)
-            model.instr = instr
-            model.metrics = instr.metrics
-            model.metrics.update({
-                "num_experts": data.num_experts,
-                "expert_size": data.expert_size,
-                "objective": self._objective,
-                "lbfgs_iters": res.nit,
-                "lbfgs_nfev": res.nfev,
-                "final_nll": res.fun,
-                "gram_cache_engaged": float(cache is not None),
-                **restart_metrics,
-            })
-            self._log_renormalized_nll(model.metrics)
-            self._emit_solver_stats(model.metrics, kernel, res.theta, data_r)
-            self._emit_aggregation_stats(model.metrics, data_r)
-            return model
+                x_r = None if self._mesh is not None else \
+                    data_r.x[keep].to(torch.float64).cpu().numpy()
+                y_r = None if self._mesh is not None else \
+                    data_r.y[keep].to(torch.float64).cpu().numpy()
+            return self._fit_stack(instr, kernel, data_r, x_r, y_r, rextra, cache)
 
         from spark_gp_tpu_torch.resilience import fallback
 
@@ -152,6 +120,95 @@ class GaussianProcessRegression(GaussianProcessCommons):
             self, instr, lambda: self._run_with_expert_resilience(instr, data, run_fit),
             data=data)
         model.metrics.update(self._phase_metrics(instr))
+        return model
+
+    def fit_distributed(self, data, active_set=None) -> "GaussianProcessRegressionModel":
+        """The fit from this rank's block of a global expert stack
+        (``parallel/distributed.distribute_global_experts``): no rank needs
+        every row.  The active set is ``active_set`` (``[m, p]``, the same
+        on every rank) or the provider's selection off the stack
+        (``from_stack``: random, sharded-Lloyd k-means, sharded greedy).
+        The mesh is ``setMesh``'s, else the default process group's; one
+        process alone, it is the fit of a pre-grouped stack."""
+        def prepare(instr, active64, data):
+            kernel = self._get_kernel()
+            if self._objective == "elbo":
+                from spark_gp_tpu_torch.models.likelihood import _require_shard_map_support
+
+                _require_shard_map_support(self._objective)
+            # one cache for the distributed fit, built from the rank's block
+            cache = self._gram_cache(kernel, data)
+            return lambda kernel_r, instr_r: self._fit_stack(
+                instr_r, kernel, data, None, None, (), cache, active64)
+
+        model = self._run_fit_distributed("GaussianProcessRegression", data, active_set,
+                                          prepare)
+        model.metrics.update(self._phase_metrics(model.instr))
+        return model
+
+    def _stack_fit_with_restarts(self, instr, fit_once):
+        """Regression runs its restarts inside one fit
+        (:meth:`_optimize_with_restarts`, or the batched device loop)."""
+        return fit_once(self._get_kernel(), instr)
+
+    def _value_and_grad(self, kernel, data, cache, extra):
+        """The host optimizer's objective: summed over the mesh's ranks when
+        there is one (``likelihood.make_sharded_value_and_grad``, which
+        carries the aggregation weights of slot 1, never the jitter of
+        slot 0)."""
+        if self._mesh is None:
+            return make_value_and_grad(kernel, data, cache, self._objective, extra)
+        from spark_gp_tpu_torch.models.likelihood import make_sharded_value_and_grad
+
+        weights = extra[1] if len(extra) > 1 else None
+        return make_sharded_value_and_grad(kernel, data, self._mesh, self._objective, cache,
+                                           weights)
+
+    def _fit_stack(self, instr, kernel, data_r, x_r, y_r, rextra, cache, active=None):
+        """Optimize, select, build the PPA model over the stack ``data_r``
+        (this rank's block under a mesh): the shared tail of ``fit`` and
+        ``fit_distributed``.  ``x_r`` None selects the active set off the
+        stack; ``active`` is a set chosen before (``fit_distributed``'s)."""
+        data_r, rextra, cache = self._host_f64_operands(data_r, rextra, cache)
+        device = data_r.x.device
+        with maybe_profile(self._profile_dir, instr.name):
+            extra = rextra if self._objective == "marginal" else ()
+            if self._objective == "elbo":
+                if self._mesh is not None:
+                    from spark_gp_tpu_torch.models.likelihood import _require_shard_map_support
+
+                    _require_shard_map_support(self._objective)
+                # the bound needs its inducing set before the
+                # optimization, selected from this attempt's rows
+                with instr.phase("active_set"):
+                    active = self._select_active(kernel, kernel.init_theta(), x_r, y_r, device)
+                extra = (active, self._sigma2)
+                # checkpoint tags carry the bound's surface
+                self._objective_salt = self._elbo_checkpoint_salt(extra)
+            if self._resolved_optimizer() == "device":
+                res, restart_metrics = self._fit_device(instr, kernel, data_r, extra, cache)
+            else:
+                vag = self._value_and_grad(kernel, data_r, cache, extra)
+                with self._optimize_phase(instr, data_r):
+                    res, restart_metrics = self._optimize_with_restarts(kernel, vag)
+            raw = self._projected_process(instr, kernel, res.theta, x_r, y_r, data_r, active)
+        model = GaussianProcessRegressionModel(raw)
+        model.instr = instr
+        model.metrics = instr.metrics
+        model.metrics.update({
+            "num_experts": data_r.num_experts * (1 if self._mesh is None
+                                                 else self._mesh.world_size),
+            "expert_size": data_r.expert_size,
+            "objective": self._objective,
+            "lbfgs_iters": res.nit,
+            "lbfgs_nfev": res.nfev,
+            "final_nll": res.fun,
+            "gram_cache_engaged": float(cache is not None),
+            **restart_metrics,
+        })
+        self._log_renormalized_nll(model.metrics)
+        self._emit_solver_stats(model.metrics, kernel, res.theta, data_r)
+        self._emit_aggregation_stats(model.metrics, data_r)
         return model
 
     def _check_elbo_provider(self, kernel) -> None:
@@ -207,7 +264,7 @@ class GaussianProcessRegression(GaussianProcessCommons):
                 out = lk.fit_gpr_device_multistart(
                     kernel, log_space, dev(self._restart_theta_batch(kernel)), lower, upper,
                     data, self._max_iter, self._tol, extra, cache, self._objective,
-                    loop_metrics=loop)
+                    loop_metrics=loop, mesh=self._mesh)
                 names = ("theta", "f", "n_iter", "n_fev", "stalled", "f_all", "best")
             elif self._checkpoint_dir is not None or self._fallback_segmented():
                 tag = "gpr" if self._objective == "marginal" else f"gpr-{self._objective}"
@@ -217,12 +274,13 @@ class GaussianProcessRegression(GaussianProcessCommons):
                 out = lk.fit_gpr_device_checkpointed(
                     kernel, log_space, dev(kernel.init_theta()), lower, upper, data,
                     self._max_iter, self._tol, chunk, saver, self._objective, extra, cache,
-                    loop_metrics=loop)
+                    loop_metrics=loop, mesh=self._mesh)
                 names = ("theta", "f", "n_iter", "n_fev", "stalled")
             else:
                 out = lk.fit_gpr_device(
                     kernel, log_space, dev(kernel.init_theta()), lower, upper, data,
-                    self._max_iter, self._tol, extra, cache, self._objective, loop_metrics=loop)
+                    self._max_iter, self._tol, extra, cache, self._objective, loop_metrics=loop,
+                    mesh=self._mesh)
                 names = ("theta", "f", "n_iter", "n_fev", "stalled")
             host = self._finalize_device_fit(dict(zip(names, out)))
         return self._device_fit_result(host, loop, multistart)
@@ -264,7 +322,7 @@ class GaussianProcessRegression(GaussianProcessCommons):
         x, y, kernel, theta = self._resolve_eval_inputs(x, y, model)
         device = resolve_device(self._device)
         return make_poe_predictor(kernel, theta, x, y, self._dataset_size_for_expert, mode=mode,
-                                  dtype=working_dtype(device), device=device)
+                                  dtype=working_dtype(device), device=device, mesh=self._mesh)
 
 
 class GaussianProcessRegressionModel:

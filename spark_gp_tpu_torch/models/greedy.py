@@ -49,14 +49,24 @@ def _solve_t(l_mat, b):
 
 
 @torch.no_grad()
-def _greedy_core(kernel: Kernel, m: int, theta, xf, yf, maskf, first_idx):
+def _greedy_core(kernel: Kernel, m: int, theta, xf, yf, maskf, first_idx, mesh=None):
     """Forward selection over the candidates ``xf [n, p]``, ``yf [n]``,
     ``maskf [n]`` from the seed row ``first_idx`` (a 0-d device tensor);
     returns ``(points [m, p], indices [m], winning deltas [m])``, the
-    deltas NaN for the seed round, which has no score."""
+    deltas NaN for the seed round, which has no score.
+
+    With ``mesh`` the candidates are this rank's block of a stack whose
+    blocks are the ranks' in rank order, ``first_idx`` and the returned
+    indices are global flat indices, and a round costs four collectives
+    (the JAX package's sharded rounds): one sum of every statistic of the
+    chosen point (its row, its ``K_mm`` column and diagonal entry), one
+    sum of the cross-row products, and the distributed argmax (the largest
+    delta, the lowest global index on ties)."""
     n = xf.shape[0]
     dtype, device = xf.dtype, xf.device
-    gids = torch.arange(n, device=device)
+    base = 0 if mesh is None else mesh.rank * n
+    gids = torch.arange(n, device=device) + base
+    p = xf.shape[1]
     sigma2 = kernel.white_noise_var(theta).to(dtype)
     k_diag = kernel.diag(theta, xf)  # includes the +sigma2 noise diagonal
     k_diag_masked = k_diag * maskf
@@ -70,18 +80,28 @@ def _greedy_core(kernel: Kernel, m: int, theta, xf, yf, maskf, first_idx):
     mu_vec = torch.zeros(n, dtype=dtype, device=device)
     sel = torch.zeros(n, dtype=torch.bool, device=device)
     chosen = torch.zeros(m, dtype=torch.long, device=device)
+    chosen_x = torch.zeros((m, p), dtype=dtype, device=device)
     deltas = torch.full((m,), torch.nan, dtype=dtype, device=device)
 
     def append(k, gidx):
         nonlocal p_vec, q_vec, mu_vec, sel
-        at = gidx.reshape(1)
-        x_sel = xf.index_select(0, at)[0]
-        kmm_col = ksel.index_select(1, at)[:, 0]  # zeros past k: identity-padded
-        kmm_nn = k_diag_masked.index_select(0, at)[0]  # factors forward-solve to 0
+        if mesh is None:
+            at = gidx.reshape(1)
+            x_sel = xf.index_select(0, at)[0]
+            kmm_col = ksel.index_select(1, at)[:, 0]  # zeros past k: identity-padded
+            kmm_nn = k_diag_masked.index_select(0, at)[0]  # factors forward-solve to 0
+        else:
+            onehot = (gids == gidx).to(dtype)
+            fused = mesh.all_reduce(torch.cat([onehot @ xf, ksel @ onehot,
+                                               (k_diag_masked @ onehot).reshape(1)]))
+            x_sel, kmm_col, kmm_nn = fused[:p], fused[p:p + m], fused[p + m]
         # the Eye (noise) part of the model kernel is 0 off its training
         # set; masked so padded slots never feed the statistics
         c_new = kernel.cross(theta, x_sel[None, :], xf)[0] * maskf
-        ksel_c = ksel @ c_new
+        cross = torch.cat([ksel @ c_new, (c_new @ c_new).reshape(1), (c_new @ yf).reshape(1)])
+        if mesh is not None:
+            cross = mesh.all_reduce(cross)
+        ksel_c, c_c, c_y = cross[:m], cross[m], cross[m + 1]
 
         w = _solve(l_mm, kmm_col)
         d = torch.sqrt(kmm_nn - w @ w)
@@ -93,7 +113,7 @@ def _greedy_core(kernel: Kernel, m: int, theta, xf, yf, maskf, first_idx):
         p_vec = p_vec + w_row * w_row
 
         pd_col = sigma2 * kmm_col + ksel_c
-        pd_nn = sigma2 * kmm_nn + c_new @ c_new
+        pd_nn = sigma2 * kmm_nn + c_c
         v = _solve(l_pd, pd_col)
         e = torch.sqrt(pd_nn - v @ v)
         v_row = (c_new - _solve_t(l_pd, v) @ ksel) / e
@@ -101,13 +121,14 @@ def _greedy_core(kernel: Kernel, m: int, theta, xf, yf, maskf, first_idx):
         l_pd[k] = v
         q_vec = q_vec + v_row * v_row
 
-        z_k = (c_new @ yf - v[:k] @ z[:k]) / e
+        z_k = (c_y - v[:k] @ z[:k]) / e
         z[k] = z_k
         mu_vec = mu_vec + v_row * z_k
 
         ksel[k] = c_new
         sel = sel | (gids == gidx)
         chosen[k] = gidx
+        chosen_x[k] = x_sel
 
     append(0, first_idx)
     for k in range(1, m):
@@ -122,10 +143,19 @@ def _greedy_core(kernel: Kernel, m: int, theta, xf, yf, maskf, first_idx):
             + 2.0
         )
         delta = torch.where(torch.isnan(delta) | sel | (maskf == 0), -torch.inf, delta)
-        gidx = torch.argmax(delta)
-        deltas[k] = delta.index_select(0, gidx.reshape(1))[0]
+        loc = torch.argmax(delta)
+        best = delta.index_select(0, loc.reshape(1))
+        if mesh is None:
+            gidx = loc
+        else:
+            best = mesh.all_reduce(best, "max")
+            tied = torch.where(delta.index_select(0, loc.reshape(1)) == best,
+                               gids.index_select(0, loc.reshape(1)),
+                               torch.full_like(loc.reshape(1), torch.iinfo(torch.int64).max))
+            gidx = mesh.all_reduce(tied, "min")[0]
+        deltas[k] = best[0]
         append(k, gidx)
-    return xf.index_select(0, chosen), chosen, deltas
+    return chosen_x, chosen, deltas
 
 
 def warn_on_flat_delta_profile(deltas: np.ndarray):
@@ -183,3 +213,29 @@ def greedy_active_set(active_set_size: int, x, y, kernel: Kernel, theta_opt, see
     )
     warn_on_flat_delta_profile(deltas.cpu().numpy())
     return x[idx.cpu().numpy()]
+
+
+def greedy_active_set_from_stack(active_set_size: int, data, kernel: Kernel, theta, seed: int,
+                                 mesh) -> np.ndarray:
+    """Greedy selection straight off a rank-local stack (the JAX package's
+    ``greedy_active_set_from_stack``): the candidate statistics stay on
+    their rank for all m rounds and only the chosen rows are summed
+    across ranks (:func:`_greedy_core` with ``mesh``).  The seed is
+    ``np.random.default_rng(seed).choice`` over the stack's real rows in
+    global order (``parallel/distributed.replicated_valid_indices``), the
+    targets whatever ``data.y`` carries (labels, or a classifier's latent
+    modes).  Returns ``[m, p]`` float64, the same on every rank; ``mesh``
+    None selects over a stack that is whole here."""
+    from spark_gp_tpu_torch.parallel.distributed import replicated_valid_indices
+
+    valid = replicated_valid_indices(data, mesh)
+    m = min(int(active_set_size), valid.size)
+    first = int(np.random.default_rng(seed).choice(valid))
+    device, dtype = data.x.device, data.x.dtype
+    p = data.x.shape[-1]
+    theta_dev = torch.as_tensor(np.asarray(theta, dtype=np.float64), dtype=dtype, device=device)
+    chosen_x, _, deltas = _greedy_core(
+        kernel, m, theta_dev, data.x.reshape(-1, p), data.y.reshape(-1).to(dtype),
+        data.mask.reshape(-1).to(dtype), torch.tensor(first, device=device), mesh)
+    warn_on_flat_delta_profile(deltas.cpu().numpy())
+    return chosen_x.to(torch.float64).cpu().numpy()

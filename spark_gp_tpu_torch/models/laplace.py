@@ -271,6 +271,18 @@ def make_laplace_objective(kernel: Kernel, data: ExpertData, tol, cache=None):
     return objective
 
 
+def make_sharded_laplace_objective(kernel: Kernel, data: ExpertData, tol, mesh, cache=None):
+    """:func:`make_laplace_objective` over ``mesh``: ``data`` (and
+    ``cache``) is this rank's block, the latent modes stay on their rank,
+    and the value and gradient, each rank's sum over its experts, are
+    all-reduced (``parallel/mesh.allreduced_objective``).  The gradient is
+    assembled by hand (Alg. 5.1), so it needs that sum as much as the
+    value."""
+    from spark_gp_tpu_torch.parallel.mesh import allreduced_objective
+
+    return allreduced_objective(make_laplace_objective(kernel, data, tol, cache), mesh)
+
+
 # --- the device fits (``models/laplace_device.py``) --------------------------------
 
 

@@ -299,6 +299,17 @@ def make_generic_objective(lik: Likelihood, kernel: Kernel, x, y, mask, tol, cac
     return objective
 
 
+def make_sharded_generic_objective(lik: Likelihood, kernel: Kernel, x, y, mask, tol, mesh,
+                                   cache=None):
+    """:func:`make_generic_objective` over ``mesh``: this rank's block, its
+    modes local, the value and gradient all-reduced
+    (``parallel/mesh.allreduced_objective``)."""
+    from spark_gp_tpu_torch.parallel.mesh import allreduced_objective
+
+    return allreduced_objective(make_generic_objective(lik, kernel, x, y, mask, tol, cache),
+                                mesh)
+
+
 # --- the device fits (``models/laplace_device.py``) --------------------------------
 
 

@@ -248,6 +248,15 @@ def make_mc_objective(kernel: Kernel, x, y1h, mask, tol, cache=None):
     return objective
 
 
+def make_sharded_mc_objective(kernel: Kernel, x, y1h, mask, tol, mesh, cache=None):
+    """:func:`make_mc_objective` over ``mesh``: this rank's block of the
+    stack and its one-hot targets, the per-class modes local, the value
+    and gradient all-reduced (``parallel/mesh.allreduced_objective``)."""
+    from spark_gp_tpu_torch.parallel.mesh import allreduced_objective
+
+    return allreduced_objective(make_mc_objective(kernel, x, y1h, mask, tol, cache), mesh)
+
+
 # --- the device fits (``models/laplace_device.py``) --------------------------------
 
 

@@ -209,6 +209,21 @@ def objective_fn(objective: str):
     )
 
 
+def objective_supports_shard_map(objective: str) -> bool:
+    """The dispatch rule of the sharded paths (the JAX package's): an
+    objective that is a sum over experts (the marginal NLL, LOO) sums its
+    ranks' partial sums; the ELBO, a nonlinear function of global sums,
+    does not, and over a mesh is ROADMAP.md item 6a-rest."""
+    return objective != "elbo"
+
+
+def _require_shard_map_support(objective: str) -> None:
+    if not objective_supports_shard_map(objective):
+        from spark_gp_tpu_torch.models.common import _not_ported
+
+        raise _not_ported(f"the {objective!r} objective over a mesh", "6a")
+
+
 def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
                         objective: str = "marginal", extra=()):
     """``theta (float64 numpy) -> (float, float64 numpy grad)`` of
@@ -236,6 +251,25 @@ def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
         return obs_cost.observed_call("fit.host_objective", evaluate, theta)
 
     return vag
+
+
+def make_sharded_value_and_grad(kernel: Kernel, data: ExpertData, mesh,
+                                objective: str = "marginal", cache=None, weights=None):
+    """``theta -> (nll, grad)`` summed over the ranks of ``mesh``: ``data``
+    is this rank's block of the stack (``parallel/mesh.shard_experts``,
+    ``distribute_global_experts``), ``cache`` and ``weights`` its blocks of
+    the gram cache and the ``[E]`` aggregation weights.  Each rank takes
+    its experts' value and autograd gradient (:func:`make_value_and_grad`:
+    one K1 launch on the exact lane, K2 / K2-VJP and the quadrature on the
+    matfree lane), then one all-reduce sums both in float64; theta is
+    replicated.  The marginal and LOO objectives; the jitter operand of
+    the recovery loop rides no sharded path (the JAX package's rule)."""
+    _require_shard_map_support(objective)
+    extra = () if weights is None or objective != "marginal" else (None, weights)
+    local = make_value_and_grad(kernel, data, cache, objective, extra)
+    from spark_gp_tpu_torch.parallel.mesh import allreduced_objective
+
+    return allreduced_objective(local, mesh)
 
 
 def guard_probe_value_and_grad(kernel: Kernel, theta, x, y, mask, *, lane: str):
@@ -355,13 +389,15 @@ def _objective_operands(data: ExpertData, objective: str, extra=()):
 
 
 def make_device_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
-                               objective: str = "marginal", extra=()):
+                               objective: str = "marginal", extra=(), mesh=None):
     """``thetas [R, h] -> (values [R], grads [R, h])`` of ``objective`` on the
     stack's device, nothing read back to the host: the function the device
     optimizer's captured step evaluates.  ``extra`` as for
     :func:`make_value_and_grad`.  The precision lane in effect is resolved
     here, once a fit, and pinned around every evaluation, so the captured
-    step holds that lane's gram."""
+    step holds that lane's gram.  With ``mesh``, ``data`` is this rank's
+    block and the values and gradients are summed over the ranks by one
+    all-reduce on the device (``parallel/mesh.allreduced_lanes``)."""
     from spark_gp_tpu_torch.ops.precision import active_lane
 
     fn = lanes_objective(objective)
@@ -377,54 +413,103 @@ def make_device_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
             (grad,) = torch.autograd.grad(values.sum(), t)
         return values.detach(), grad
 
+    if mesh is not None:
+        from spark_gp_tpu_torch.parallel.mesh import allreduced_lanes
+
+        return allreduced_lanes(vag, mesh)
     return vag
 
 
 @contextlib.contextmanager
-def _device_fit_scope(data: ExpertData):
-    """The ``fit.device`` span around a device fit (the JAX package's cost
-    entry of the same name), with the fit's solver lane resolved once for
-    the stack (the JAX package's ``solver=`` jit key) and pinned on this
-    thread, so the step the card captures runs one lane whatever the
-    process setting does meanwhile."""
+def _device_fit_scope(data: ExpertData, mesh=None):
+    """The ``fit.device`` span (``fit.device.sharded`` over a mesh) around a
+    device fit (the JAX package's cost entries of the same names), with
+    the fit's solver lane resolved once for the stack (the JAX package's
+    ``solver=`` jit key) and pinned on this thread, so the step the card
+    captures runs one lane whatever the process setting does meanwhile."""
     from spark_gp_tpu_torch.obs import trace as obs_trace
 
-    with obs_trace.span("fit.device"), it_ops.solver_lane_scope(it_ops.resolve_for(data)):
+    name = "fit.device" if mesh is None else "fit.device.sharded"
+    with obs_trace.span(name), it_ops.solver_lane_scope(it_ops.resolve_for(data)):
         yield
+
+
+def check_capturable(mesh, data: ExpertData, capture: bool = True) -> None:
+    """Raise :class:`~spark_gp_tpu_torch.parallel.mesh.MeshCaptureError` for
+    a sharded device fit on the card whose collectives cannot ride the
+    captured step (a gloo collective synchronizes with the host)."""
+    if mesh is None or not data.x.is_cuda or not capture or mesh.capturable:
+        return
+    from spark_gp_tpu_torch.parallel.mesh import MeshCaptureError
+
+    raise MeshCaptureError(
+        f"a sharded device fit on the card needs collectives a CUDA graph can "
+        f"capture; the {mesh.backend!r} group's synchronize with the host "
+        "(use an NCCL group, or setOptimizer('host'))")
 
 
 def fit_gpr_device(kernel: Kernel, log_space: bool, theta0, lower, upper, data: ExpertData,
                    max_iter: int, tol: float, extra=(), cache=None, objective="marginal",
-                   capture: bool = True, loop_metrics=None):
+                   capture: bool = True, loop_metrics=None, mesh=None):
     """The single-start device fit: the objective and the box L-BFGS-B loop
     on the stack's device, replayed from one captured CUDA graph on the
     card (``optimize/lbfgs_device.py``).  ``theta0``, ``lower``, ``upper``
     are tensors in the stack's dtype and device.  Returns device tensors
-    ``(theta, f, n_iter, n_fev, stalled)``, theta in linear coordinates."""
+    ``(theta, f, n_iter, n_fev, stalled)``, theta in linear coordinates.
+
+    With ``mesh``, every rank runs the same loop on its own block ``data``
+    (``cache`` and the weights of ``extra`` its blocks; no jitter operand
+    rides a sharded fit), and the step's one all-reduce of value and
+    gradient sits inside the captured CUDA graph, so an evaluation costs
+    one collective and no host sync (the JAX package's whole-loop
+    ``shard_map``).  The communicator exists by then: the fit's initial
+    evaluation, which runs eagerly, makes the group's first collective.
+    NCCL only on the card (:func:`check_capturable`); on the CPU the same
+    step runs eagerly, as every device fit there.  The results are the
+    same on every rank."""
     from spark_gp_tpu_torch.optimize.lbfgs_device import lbfgs_minimize_device, log_reparam
 
-    vag = make_device_value_and_grad(kernel, data, cache, objective, extra)
+    if mesh is not None:
+        _require_shard_map_support(objective)
+        check_capturable(mesh, data, capture)
+    vag = make_device_value_and_grad(kernel, data, cache, objective, extra, mesh)
     from_u = (lambda t: t)
     if log_space:
         vag, theta0, lower, upper, from_u = log_reparam(vag, theta0, lower, upper)
-    with _device_fit_scope(data):
+    with _device_fit_scope(data, mesh):
         theta, f, n_iter, n_fev, stalled = lbfgs_minimize_device(
             vag, theta0, lower, upper, max_iter=max_iter, tol=tol, capture=capture,
             loop_metrics=loop_metrics)
     return from_u(theta), f, n_iter, n_fev, stalled
 
 
+def fit_gpr_device_sharded(kernel: Kernel, mesh, log_space: bool, theta0, lower, upper,
+                           data: ExpertData, max_iter: int, tol: float, cache=None,
+                           objective="marginal", weights=None, capture: bool = True,
+                           loop_metrics=None):
+    """The JAX package's sharded device fit under its name:
+    :func:`fit_gpr_device` over ``mesh`` with the aggregation ``weights``
+    (this rank's block) as its only operand."""
+    extra = () if weights is None or objective != "marginal" else (None, weights)
+    return fit_gpr_device(kernel, log_space, theta0, lower, upper, data, max_iter, tol, extra,
+                          cache, objective, capture=capture, loop_metrics=loop_metrics,
+                          mesh=mesh)
+
+
 def fit_gpr_device_multistart(kernel: Kernel, log_space: bool, theta0_batch, lower, upper,
                               data: ExpertData, max_iter: int, tol: float, extra=(), cache=None,
-                              objective="marginal", loop_metrics=None):
+                              objective="marginal", loop_metrics=None, mesh=None):
     """All R restarts as one lockstep device loop, every evaluation one
     pass over the R lanes (one K1 launch over their ``[R * E, s, s]``
     stacks); the gram cache is shared by the lanes.  Returns
     ``(theta_best, f_best, n_iter, n_fev, stalled, f_all [R], best)``."""
     from spark_gp_tpu_torch.optimize.lbfgs_device import multistart_minimize
 
-    vag = make_device_value_and_grad(kernel, data, cache, objective, extra)
-    with _device_fit_scope(data):
+    if mesh is not None:
+        _require_shard_map_support(objective)
+        check_capturable(mesh, data)
+    vag = make_device_value_and_grad(kernel, data, cache, objective, extra, mesh)
+    with _device_fit_scope(data, mesh):
         return multistart_minimize(vag, log_space, theta0_batch, lower, upper, max_iter, tol,
                                    loop_metrics=loop_metrics)
 
@@ -432,7 +517,7 @@ def fit_gpr_device_multistart(kernel: Kernel, log_space: bool, theta0_batch, low
 def fit_gpr_device_checkpointed(kernel: Kernel, log_space: bool, theta0, lower, upper,
                                 data: ExpertData, max_iter: int, tol: float, chunk: int, saver,
                                 objective: str = "marginal", extra=(), cache=None,
-                                loop_metrics=None):
+                                loop_metrics=None, mesh=None):
     """The device fit in ``chunk``-iteration segments with the full
     optimizer state persisted through ``saver`` between them
     (``utils/checkpoint.run_segmented``); a checkpoint of the same fit
@@ -459,7 +544,10 @@ def fit_gpr_device_checkpointed(kernel: Kernel, log_space: bool, theta0, lower, 
     tol_meta = float(torch.tensor(tol, dtype=data.x.dtype))
     meta = segment_meta(family, kernel, tol_meta, log_space, theta0, data.x, data.y, data.mask,
                         **extra_meta)
-    vag = make_device_value_and_grad(kernel, data, cache, objective, extra)
+    if mesh is not None:
+        _require_shard_map_support(objective)
+        check_capturable(mesh, data)
+    vag = make_device_value_and_grad(kernel, data, cache, objective, extra, mesh)
     if log_space:
         vag = log_transform_vag(vag)
         lower, upper = log_transform_bounds(lower, upper)
@@ -467,7 +555,7 @@ def fit_gpr_device_checkpointed(kernel: Kernel, log_space: bool, theta0, lower, 
     else:
         start = theta0
     cfg = LbfgsConfig(lower=lower, upper=upper, tol=float(tol))
-    with _device_fit_scope(data):
+    with _device_fit_scope(data, mesh):
         state = run_segmented(vag, start, cfg, saver, meta, max_iter, chunk,
                               loop_metrics=loop_metrics)
     theta = torch.exp(state["theta"][0]) if log_space else state["theta"][0]

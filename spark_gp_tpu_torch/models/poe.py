@@ -108,7 +108,7 @@ class PoEPredictor:
     # solve intermediates: bounded memory at any test-set size
     _PREDICT_CHUNK_ELEMS = 4_000_000
 
-    def __init__(self, kernel: Kernel, theta, data: ExpertData, mode=None):
+    def __init__(self, kernel: Kernel, theta, data: ExpertData, mode=None, mesh=None):
         if mode is None:
             from spark_gp_tpu_torch.models.aggregation import resolve_predictor_mode
 
@@ -120,6 +120,9 @@ class PoEPredictor:
                                      device=data.x.device)
         self.data = data
         self.mode = mode
+        #: with a mesh, ``data`` is this rank's block and every prediction
+        #: sums the ranks' expert reductions (one all-reduce a test chunk)
+        self.mesh = mesh
         with torch.no_grad():
             kmat = masked_gram_stack(kernel, self.theta, data.x, data.mask)
             self._chol = cholesky(kmat)
@@ -142,7 +145,9 @@ class PoEPredictor:
         x_test = torch.as_tensor(np.asarray(x_test, dtype=np.float64), dtype=self.data.x.dtype,
                                  device=self.data.x.device)
         t = x_test.shape[0]
-        rows = max(1, self.data.num_experts * self.data.expert_size)
+        # every rank streams the same chunks (its block has the same shape)
+        world = 1 if self.mesh is None else self.mesh.world_size
+        rows = max(1, self.data.num_experts * world * self.data.expert_size)
         chunk = max(1, self._PREDICT_CHUNK_ELEMS // rows)
         means, vars_ = [], []
         with torch.no_grad():
@@ -161,6 +166,13 @@ class PoEPredictor:
         k_ss = self.kernel.self_diag(self.theta, x_test)
         sums = _local_moments(self.kernel, self.mode, self.theta, self.data.x, self.data.mask,
                               self._chol, self._alpha, x_test, k_ss)
+        if self.mesh is not None:
+            # the JAX package's sharded predict: the three [t] sums and the
+            # alive count summed over the ranks in one collective
+            t = k_ss.shape[0]
+            flat = self.mesh.all_reduce(torch.cat([sums[0], sums[1], sums[2],
+                                                   sums[3].reshape(1)]))
+            sums = (flat[:t], flat[t:2 * t], flat[2 * t:3 * t], flat[3 * t])
         return _aggregate(self.mode, sums, k_ss)
 
 
@@ -168,14 +180,18 @@ def make_poe_predictor(kernel: Kernel, theta, x, y, dataset_size_for_expert: int
                        dtype=None, device=None, mesh=None) -> PoEPredictor:
     """Group, factor and wrap on ``device`` (``None`` means ``"cuda"``) in
     ``dtype`` (default: float32 on the card, float64 on the CPU).
-    ``mode=None`` resolves the engaged aggregation policy, else ``rbcm``."""
+    ``mode=None`` resolves the engaged aggregation policy, else ``rbcm``.
+    With ``mesh`` (``parallel/mesh.py``; every rank passes the same rows)
+    each rank factors and predicts from its own block of the experts
+    (``shard_experts``), and the precisions and precision-weighted means
+    are summed over the ranks (the JAX package's sharded PoE)."""
     from spark_gp_tpu_torch.parallel.experts import group_for_experts
 
-    if mesh is not None:
-        from spark_gp_tpu_torch.models.common import _not_ported
-
-        raise _not_ported("the sharded PoE predictor", 6)
     device = resolve_device(device)
     dtype = working_dtype(device) if dtype is None else dtype
     data = group_for_experts(x, y, dataset_size_for_expert, dtype=dtype, device=device)
-    return PoEPredictor(kernel, theta, data, mode=mode)
+    if mesh is not None:
+        from spark_gp_tpu_torch.parallel.mesh import shard_experts
+
+        data = shard_experts(data, mesh)
+    return PoEPredictor(kernel, theta, data, mode=mode, mesh=mesh)

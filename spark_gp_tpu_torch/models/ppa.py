@@ -81,6 +81,22 @@ def kmn_stats(kernel: Kernel, theta, active, data: ExpertData):
     return u1, u2
 
 
+def kmn_stats_sharded(kernel: Kernel, mesh, theta, active, data: ExpertData):
+    """``(U1, u2)`` over every rank's experts: this rank's block ``data``
+    accumulates its own statistics (:func:`kmn_stats`, float64 when the
+    fit passes float64), then one all-reduce each sums them; the active
+    set and theta are replicated.  The magic solve that follows runs on
+    every rank alike (``magic_solve``)."""
+    u1, u2 = kmn_stats(kernel, theta, active, data)
+    return mesh.all_reduce(u1), mesh.all_reduce(u2)
+
+
+def make_sharded_kmn_stats(kernel: Kernel, mesh):
+    """``(theta, active, data) -> (U1, u2)`` summed over ``mesh``'s ranks
+    (:func:`kmn_stats_sharded`)."""
+    return lambda theta, active, data: kmn_stats_sharded(kernel, mesh, theta, active, data)
+
+
 def _chol_solve_np(chol_l, b):
     y = solve_triangular(chol_l, b, lower=True)
     return solve_triangular(chol_l, y, lower=True, trans=1)

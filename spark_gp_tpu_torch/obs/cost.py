@@ -499,12 +499,53 @@ class ReplayMeter:
     operations (the kernels it launches are tallied with their work,
     ``ops/cuda_lib.capture_tally``); :meth:`replays` around replays (or
     eager steps) attributes ``n`` executions and the kernels' work that
-    ``count_replays`` (or the eager launches) report.  Every method is a
-    plain pass-through when metering is off."""
+    ``count_replays`` (or the eager launches) report.  :meth:`initial`
+    around the loop's initial evaluation, which runs eagerly before the
+    first step, meters it as one more execution: its kernels' work, and on
+    the card its own peak, the one per-execution peak a captured loop
+    has (a capture cannot read one), relayed to the memory planner as a
+    host evaluation's is.  It is attributed at the step's per-execution
+    cost once the step is metered, so the fit keeps one journal row (the
+    JAX package meters its whole loop as one program), and at its own
+    cost by :meth:`finish` where no step ran.  Every method is a plain
+    pass-through when metering is off."""
 
     def __init__(self, entry_fallback: str):
         self.entry_fallback = entry_fallback
         self.cost: Optional[Dict[str, float]] = None
+        #: the initial evaluation's ``(cost, kernels)``, until attributed
+        self._initial = None
+
+    @contextlib.contextmanager
+    def initial(self):
+        """The loop's initial evaluation, metered as one execution (class
+        doc)."""
+        if not cost_metering_enabled():
+            yield
+            return
+        sink: dict = {}
+        with _execution() as ex:
+            with _measured(sink):
+                yield
+        if sink.get("cost") is not None:
+            self._initial = (sink["cost"], ex.kernels)
+
+    def _flush_initial(self, cost: Optional[Dict[str, float]] = None) -> None:
+        if self._initial is None:
+            return
+        own, kernels = self._initial
+        self._initial = None
+        at = dict(own if cost is None else cost)
+        peaks = [c.get("peak_bytes") or 0.0 for c in (own, at)]
+        at.pop("peak_bytes", None)
+        if max(peaks) > 0:
+            at["peak_bytes"] = max(peaks)
+        _attribute(self.entry_fallback, at, 1.0, kernels)
+
+    def finish(self) -> None:
+        """At the loop's end: an initial evaluation no step followed is
+        attributed at its own cost."""
+        self._flush_initial()
 
     @contextlib.contextmanager
     def capturing(self):
@@ -528,6 +569,7 @@ class ReplayMeter:
             yield
         if self.cost is not None:
             _attribute(self.entry_fallback, self.cost, float(n), ex.kernels)
+            self._flush_initial(self.cost)
 
     @contextlib.contextmanager
     def eager_step(self):

@@ -185,6 +185,8 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("plan.miss", "counter", "reactive recovery engaged despite (or no config fit) a plan decision"),
     MetricName("plan.margin_breach", "counter", "measured peaks that exceeded the margined prediction"),
     # -- degradation ladder (resilience/fallback.py) -----------------------
+    # -- the process group (parallel/distributed.py) -----------------------
+    MetricName("coord.degraded", "counter", "distributed.initialize degraded to one process (an environment naming no more than one process whose group could not start)"),
     MetricName("fallback.engaged", "metric", "1 when the fit completed through at least one degradation rung"),
     MetricName("fallback.transitions", "counter", "degradation-ladder rung transitions executed"),
     MetricName("fallback.exhausted", "counter", "ladders that ran out of applicable rungs (classified error raised)"),

@@ -379,9 +379,11 @@ def _memory_plan_rows(instr, capture: Optional[FitCapture]) -> List[dict]:
     metering ran, the largest metered per-execution peak
     (``compiled_peak_bytes``, ``obs/cost.py``).  The breach compares like
     for like: the metered per-execution peak where there is one (the
-    prediction's own granularity), else the whole fit's device peak; a
-    peak above a fitting row's margined prediction counts
-    ``plan.margin_breach``."""
+    prediction's own granularity; a device fit's is its initial
+    evaluation's, the one execution of the loop that runs outside the
+    captured graph, ``obs/cost.ReplayMeter.initial``), else the whole
+    fit's device peak; a peak above a fitting row's margined prediction
+    counts ``plan.margin_breach``."""
     rows = [dict(r) for r in (getattr(instr, "memory_plan", []) or [])]
     actual = compiled = None
     if capture is not None:

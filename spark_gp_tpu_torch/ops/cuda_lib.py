@@ -5,7 +5,11 @@ compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library at
 first use and loaded with :mod:`ctypes` -- no PyTorch headers, so a build
 takes seconds.  Libraries are keyed by a digest of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
-The build directory ``csrc/build/`` is listed in ``.gitignore``.
+The build directory ``csrc/build/`` is listed in ``.gitignore``.  Each
+build compiles into a temporary file there and renames it into place
+(``os.replace``, atomic), so processes that build the same source at once
+-- the ranks of a process group at their first launch -- each load a
+whole library, and the last rename leaves the same bytes.
 
 A failed build raises :class:`KernelBuildError`, a failed launch
 :class:`KernelLaunchError` and a CUDA graph that could not be captured

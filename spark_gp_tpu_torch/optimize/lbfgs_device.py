@@ -596,7 +596,7 @@ class DeviceLoop:
     since the state was made: the Newton iterations and gradient passes
     in which some lane did work)."""
 
-    def __init__(self, vag, state, cfg: LbfgsConfig, capture: bool = True):
+    def __init__(self, vag, state, cfg: LbfgsConfig, capture: bool = True, meter=None):
         self.vag = vag
         self.cfg = cfg
         self.state = state
@@ -606,8 +606,9 @@ class DeviceLoop:
         self.graph = None
         self.tally: dict = {}
         # metered cost of one step (obs/cost.py): counted at capture (or
-        # the first eager step), one execution a replay or eager step
-        self.meter = obs_cost.ReplayMeter("fit.device")
+        # the first eager step), one execution a replay or eager step; the
+        # meter that measured the initial evaluation, when given
+        self.meter = obs_cost.ReplayMeter("fit.device") if meter is None else meter
         self.counts = {
             "captures": 0, "replays": 0, "eager_steps": 0, "masked_evaluations": 0,
             "host_syncs": 0, "capture_seconds": 0.0, "graph_nodes": None,
@@ -799,12 +800,15 @@ def lbfgs_run_lanes(vag, theta0, lower, upper, max_iter: int = 100, tol: float =
         raise ValueError("max_ls must be >= 1")
     cfg = LbfgsConfig(lower=lower, upper=upper, tol=float(tol), m_hist=int(m_hist),
                       max_ls=int(max_ls), armijo_c1=float(armijo_c1))
-    state = lbfgs_init_state(vag, theta0, cfg, aux0)
-    loop = DeviceLoop(vag, state, cfg, capture=capture)
+    meter = obs_cost.ReplayMeter("fit.device")
+    with meter.initial():
+        state = lbfgs_init_state(vag, theta0, cfg, aux0)
+    loop = DeviceLoop(vag, state, cfg, capture=capture, meter=meter)
     try:
         final = loop.advance(int(max_iter), warm=True)
         result = {k: v.clone() for k, v in final.items()}
     finally:
+        meter.finish()
         loop.release()
         if loop_metrics is not None:
             loop_metrics.update(loop.counts)

@@ -56,6 +56,20 @@ class ExpertData:
         keep = (~drop_dev).to(self.mask.dtype)
         return ExpertData(x=x, y=y, mask=self.mask * keep[:, None])
 
+    def pad_experts(self, multiple: int) -> "ExpertData":
+        """The expert axis padded up to a multiple of ``multiple`` (even
+        shards over a mesh): padded experts are copies of expert 0 with
+        zero labels and a zero mask, so they add nothing."""
+        e = self.num_experts
+        pad = math.ceil(e / multiple) * multiple - e
+        if pad == 0:
+            return self
+        x = torch.cat([self.x, self.x[:1].repeat((pad,) + (1,) * (self.x.ndim - 1))])
+        y = torch.cat([self.y, torch.zeros_like(self.y[:1]).repeat(
+            (pad,) + (1,) * (self.y.ndim - 1))])
+        mask = torch.cat([self.mask, torch.zeros_like(self.mask[:1]).repeat(pad, 1)])
+        return ExpertData(x=x, y=y, mask=mask)
+
 
 def num_experts_for(n_points: int, dataset_size_for_expert: int) -> int:
     """E = round(N / s) (half-up), at least 1."""

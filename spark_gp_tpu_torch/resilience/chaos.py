@@ -43,7 +43,8 @@ ordinary deterministic tests:
 * :class:`HangingPredictor` / :func:`hang_model` -- a serving predict that
   blocks until released (the wedged device the hang watchdog is for).
 
-The mesh faults wait for the port's mesh (ROADMAP.md queue 1, item 6).
+The mesh faults (a dead or straggling rank) need the deadline-guarded
+collectives of the coordination plane (ROADMAP.md queue 1, item 6c).
 """
 
 from __future__ import annotations

@@ -38,8 +38,13 @@ fallback re-execution (the port's copy of the JAX package's
 * the magic solve's ladder (:func:`run_ppa_solve_ladder`):
   ``device_solve`` -> ``host_solve`` on an OOM or compile failure.
 
-``run_distributed_ladder`` waits for the port's mesh (ROADMAP.md queue
-1, item 6).
+* the ``fit_distributed`` ladder (:func:`run_distributed_ladder`):
+  ``sharded`` -> ``single_host`` on an OOM or compile failure, legal only
+  where this rank holds every row (a mesh of one rank), and
+  ``strict_lane`` on a guard breach.  The JAX package's ``dcn_fallback``
+  rung between them re-runs the fit over its key-value store; it waits
+  for the coordination plane (ROADMAP.md queue 1, item 6c), and a process
+  group needs no such fallback to cross processes.
 """
 
 from __future__ import annotations
@@ -261,6 +266,9 @@ _FIT_POLICY = {
     GUARD_BREACH: ("strict_lane",),
 }
 
+#: classes the sharded-fit ladder degrades (everything else re-raises)
+_SHARDED_POLICY = (OOM, COMPILE, COORD_TIMEOUT)
+
 #: bounded chunk halvings before the predict ladder's last rung
 MAX_PREDICT_HALVINGS = 8
 
@@ -406,6 +414,62 @@ def run_fit_ladder(est, instr, attempt: Callable, data=None):
             continue
         if degradations:
             _stamp(instr, model, degradations)
+        return model
+
+
+def run_distributed_ladder(est, instr, data, active_set, prepare):
+    """The ``fit_distributed`` ladder (the JAX package's, without its
+    ``dcn_fallback`` rung): ``sharded`` runs the fit over the mesh; an OOM
+    or compile failure re-runs it as ``single_host`` -- the same body over
+    the same stack with no mesh -- only where this rank's stack is the
+    whole data (a mesh of one rank): a rank that re-fit its block alone
+    would return a model of a fragment.  A guard breach re-runs it
+    ``strict_lane``.  Every transition is recorded as in the fit ladder;
+    ``GP_FALLBACK=0`` runs the body straight."""
+    if not enabled():
+        return est._fit_distributed_body(instr, data, active_set, prepare)
+    from spark_gp_tpu_torch.ops.precision import active_lane, precision_lane_scope
+
+    degradations: List[dict] = []
+    rung = "sharded"
+
+    def whole_here() -> bool:
+        mesh = getattr(est, "_mesh", None)
+        return mesh is None or mesh.world_size == 1
+
+    while True:
+        try:
+            if rung == "strict_lane":
+                with precision_lane_scope("strict"):
+                    model = est._fit_distributed_body(instr, data, active_set, prepare)
+            elif rung == "single_host":
+                mesh_prev, est._mesh = est._mesh, None
+                try:
+                    model = est._fit_distributed_body(instr, data, active_set, prepare)
+                finally:
+                    est._mesh = mesh_prev
+            else:
+                model = est._fit_distributed_body(instr, data, active_set, prepare)
+        except Exception as exc:  # classified-failure-site: taxonomy dispatch
+            cls = record_failure(exc, entry="fit_sharded")
+            nxt = None
+            if cls == GUARD_BREACH and rung != "strict_lane" and active_lane() != "strict":
+                nxt = "strict_lane"
+            elif cls in _SHARDED_POLICY and rung == "sharded" and whole_here():
+                nxt = "single_host"
+            if nxt is None:
+                if degradations:
+                    from spark_gp_tpu_torch.obs.runtime import telemetry
+
+                    telemetry.inc("fallback.exhausted", entry="fit_sharded")
+                    raise DegradationExhaustedError("fit_sharded", cls, degradations,
+                                                    exc) from exc
+                raise
+            degradations.append(_record_transition("fit_sharded", cls, rung, nxt, exc, instr))
+            rung = nxt
+            continue
+        if degradations:
+            _stamp(getattr(model, "instr", None) or instr, model, degradations)
         return model
 
 

@@ -420,7 +420,9 @@ def plan_fit_dispatch(est, instr, data) -> Optional[PlanDecision]:
     constraint -- for them, without a stack, or without a budget."""
     if not enabled() or data is None:
         return None
-    if est._resolved_optimizer() != "device":
+    if est._resolved_optimizer() != "device" or getattr(est, "_mesh", None) is not None:
+        # a sharded dispatch is not planned (the JAX package's rule: no
+        # model of a rank's footprint yet)
         return None
     budget = memory_budget_bytes()
     if budget is None:

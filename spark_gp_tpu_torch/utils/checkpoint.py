@@ -386,11 +386,15 @@ def run_segmented(vag, start, cfg, saver, meta: dict, max_iter: int, chunk: int,
     aux_shape = () if aux0 is None else tuple(aux0.shape[1:])
     host = saver.load(state_template(int(start.shape[0]), start.dtype, cfg.m_hist, aux_shape),
                       meta)
+    from spark_gp_tpu_torch.obs.cost import ReplayMeter
+
+    meter = ReplayMeter("fit.device")
     if host is None:
-        state, resumed = lbfgs_init_state(vag, start[None], cfg, aux0), 0
+        with meter.initial():
+            state, resumed = lbfgs_init_state(vag, start[None], cfg, aux0), 0
     else:
         state, resumed = device_state(host, cfg, start.device, vag), int(host.n_iter)
-    loop = DeviceLoop(vag, state, cfg)
+    loop = DeviceLoop(vag, state, cfg, meter=meter)
     try:
         while True:
             loop.counts["host_syncs"] += 1
@@ -404,6 +408,7 @@ def run_segmented(vag, start, cfg, saver, meta: dict, max_iter: int, chunk: int,
         exc.loop_metrics = loop.counts
         raise
     finally:
+        meter.finish()
         loop.release()
         if loop_metrics is not None:
             loop_metrics.update(loop.counts, resumed_from_iteration=resumed)

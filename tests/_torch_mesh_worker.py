@@ -1,0 +1,299 @@
+"""The ranks of a gloo process group for the port's mesh tests.
+
+:class:`MeshPool` starts ``world`` processes once (a test module's
+fixture), each joining one gloo group through a ``FileStore`` file under
+the test's temporary directory (no TCP port: several test files run at
+once).  :meth:`MeshPool.run` sends every rank the same scenario, which
+each runs on its own block, and returns the ranks' results as numpy.
+Every wait has a timeout: the group's own (``init_process_group``), and
+the pool's on each reply.  The ranks import the port and never JAX.
+
+Scenarios are the functions in :data:`SCENARIOS`; each takes the rank's
+mesh first.  :func:`estimator` builds the port's estimator from a plain
+spec, so a test builds the JAX one from the same spec."""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing as mp
+import os
+import traceback
+
+import numpy as np
+
+#: seconds a rank waits on the group, and the pool on one reply
+TIMEOUT_S = 120.0
+
+
+def estimator(spec: dict, m=None):
+    """The estimator of ``spec`` in the package ``m`` (the port when None):
+    ``family`` (``gpr``, ``gpc``, ``gpc_mc``, ``poisson``, ``ep``), ``p``
+    (the ARD width; 0 for an isotropic RBF), ``s``, ``m_active``,
+    ``sigma2``, ``maxiter``, ``seed``, ``provider`` (``random``,
+    ``kmeans``, ``greedy``), ``optimizer``, ``tol``."""
+    if m is None:
+        import spark_gp_tpu_torch as m
+    cls = {"gpr": m.GaussianProcessRegression, "gpc": m.GaussianProcessClassifier,
+           "gpc_mc": m.GaussianProcessMulticlassClassifier,
+           "poisson": m.GaussianProcessPoissonRegression,
+           "ep": m.GaussianProcessEPClassifier}[spec["family"]]
+    kw = {} if m.__name__ == "spark_gp_tpu" else {"device": "cpu"}
+    p = int(spec.get("p", 0))
+
+    def kernel():
+        if p:
+            return 1.0 * m.ARDRBFKernel(p) + m.Const(1.0) * m.EyeKernel()
+        return m.RBFKernel(float(spec.get("length", 1.0)))
+
+    gp = (cls(**kw).setKernel(kernel).setDatasetSizeForExpert(int(spec["s"]))
+          .setActiveSetSize(int(spec.get("m_active", 20))).setSigma2(float(spec.get("sigma2", 1e-3)))
+          .setMaxIter(int(spec.get("maxiter", 10))).setSeed(int(spec.get("seed", 7)))
+          .setTol(float(spec.get("tol", 1e-6))))
+    provider = spec.get("provider", "random")
+    if provider == "kmeans":
+        gp = gp.setActiveSetProvider(m.KMeansActiveSetProvider())
+    elif provider == "greedy":
+        gp = gp.setActiveSetProvider(m.GreedilyOptimizingActiveSetProvider())
+    if spec.get("optimizer"):
+        gp = gp.setOptimizer(spec["optimizer"])
+    return gp
+
+
+def _stack(x, y, s, mesh):
+    """This rank's block of the stack of all rows ``(x, y)``."""
+    import torch
+
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+    from spark_gp_tpu_torch.parallel.mesh import shard_experts
+
+    data = group_for_experts(x, y, s, dtype=torch.float64, device="cpu")
+    return data if mesh is None else shard_experts(data, mesh)
+
+
+def _kernel_of(spec):
+    return estimator(spec)._get_kernel()
+
+
+# -- scenarios (each rank runs one with its mesh) --------------------------------
+
+
+def objective(mesh, spec, x, y, theta, objective="marginal", lane="exact", weights=None):
+    """The sharded regression objective's ``(value, grad)`` at ``theta``."""
+    import torch
+
+    from spark_gp_tpu_torch.models.likelihood import make_sharded_value_and_grad
+    from spark_gp_tpu_torch.ops.iterative import solver_lane_scope
+    from spark_gp_tpu_torch.parallel.mesh import sharded_weights_operand
+
+    data = _stack(x, y, spec["s"], mesh)
+    w = sharded_weights_operand(None if weights is None else torch.as_tensor(weights), mesh)
+    with solver_lane_scope(lane):
+        vag = make_sharded_value_and_grad(_kernel_of(spec), data, mesh, objective, weights=w)
+        value, grad = vag(theta)
+    return np.asarray([value]), grad
+
+
+def kmn(mesh, spec, x, y, theta, active):
+    """The sharded ``(U1, u2)``."""
+    import torch
+
+    from spark_gp_tpu_torch.models import ppa
+
+    data = _stack(x, y, spec["s"], mesh)
+    u1, u2 = ppa.make_sharded_kmn_stats(_kernel_of(spec), mesh)(
+        torch.as_tensor(theta), torch.as_tensor(active), data)
+    return u1.numpy(), u2.numpy()
+
+
+def latent_objective(mesh, spec, x, y, theta):
+    """The sharded Laplace-family (or EP) objective's ``(value, grad)`` at
+    ``theta`` from zero latents."""
+    import torch
+
+    from spark_gp_tpu_torch.models import ep, laplace, laplace_generic, laplace_mc
+
+    data = _stack(x, y, spec["s"], mesh)
+    kernel, fam, tol = _kernel_of(spec), spec["family"], float(spec.get("tol", 1e-6))
+    if fam == "gpc":
+        obj = laplace.make_sharded_laplace_objective(kernel, data, tol, mesh)
+        value, grad, _ = obj(theta, torch.zeros_like(data.y))
+    elif fam == "gpc_mc":
+        c = int(spec["classes"])
+        y1h = torch.nn.functional.one_hot(data.y.long(), c).double() * data.mask[..., None]
+        obj = laplace_mc.make_sharded_mc_objective(kernel, data.x, y1h, data.mask, tol, mesh)
+        value, grad, _ = obj(theta, torch.zeros_like(y1h))
+    elif fam == "poisson":
+        obj = laplace_generic.make_sharded_generic_objective(
+            laplace_generic.PoissonLikelihood(), kernel, data.x, data.y, data.mask, tol, mesh)
+        value, grad, _ = obj(theta, torch.zeros_like(data.y))
+    else:
+        obj = ep.make_sharded_ep_objective(kernel, data, tol, mesh)
+        value, grad, _ = obj(theta, (torch.zeros_like(data.y), torch.zeros_like(data.y)))
+    return np.asarray([value]), grad
+
+
+def fit(mesh, spec, x, y, xt, mode="mesh_fit", active=None, rows=None):
+    """A fit over the mesh and its ``(theta, predictions at xt, active set,
+    [nfev, num_experts])``.  ``mode``: ``mesh_fit`` (``setMesh(mesh).fit``
+    on every rank's copy of the rows), ``distributed`` (``fit_distributed``
+    of this rank's block of the stack of all rows), ``rows``
+    (``fit_distributed`` of ``distribute_global_experts`` over this rank's
+    slice ``rows[rank]`` of the rows)."""
+    from spark_gp_tpu_torch.parallel.distributed import distribute_global_experts
+
+    gp = estimator(spec)
+    if mesh is not None:
+        gp = gp.setMesh(mesh)
+    if mode == "mesh_fit":
+        model = gp.fit(x, y)
+    elif mode == "distributed":
+        model = gp.fit_distributed(_stack(x, y, spec["s"], mesh), active_set=active)
+    else:
+        lo, hi = rows[0 if mesh is None else mesh.rank]
+        data = distribute_global_experts(x[lo:hi], y[lo:hi], spec["s"], mesh, device="cpu")
+        model = gp.fit_distributed(data, active_set=active)
+    raw = model.raw_predictor
+    pred = raw.predict_mean(xt).cpu().numpy()
+    return (np.asarray(raw.theta), np.asarray(pred), np.asarray(raw.active),
+            np.asarray([model.metrics["lbfgs_nfev"], model.metrics["num_experts"]]))
+
+
+def poe(mesh, spec, x, y, xt, theta, mode):
+    """The sharded PoE predictor's ``(mean, var)``."""
+    from spark_gp_tpu_torch.models.poe import make_poe_predictor
+
+    pred = make_poe_predictor(_kernel_of(spec), theta, x, y, spec["s"], mode=mode,
+                              device="cpu", mesh=mesh)
+    return pred.predict_with_var(xt)
+
+
+def distribute(mesh, x_parts, y_parts, s):
+    """``distribute_global_experts`` of this rank's rows: its block."""
+    from spark_gp_tpu_torch.parallel.distributed import distribute_global_experts
+
+    r = mesh.rank
+    data = distribute_global_experts(x_parts[r], y_parts[r], s, mesh, device="cpu")
+    return data.x.numpy(), data.y.numpy(), data.mask.numpy()
+
+
+def sample(mesh, x_parts, y_parts, s, m, seed, provider="random", spec=None, theta=None):
+    """The active set a ``from_stack`` provider draws off the distributed
+    stack."""
+    from spark_gp_tpu_torch.parallel.distributed import distribute_global_experts
+
+    r = mesh.rank
+    data = distribute_global_experts(x_parts[r], y_parts[r], s, mesh, device="cpu")
+    gp = estimator(spec or {"family": "gpr", "s": s, "provider": provider})
+    kernel = gp._get_kernel()
+    th = kernel.init_theta() if theta is None else theta
+    return gp._active_set_provider.from_stack(m, data, kernel, th, seed, mesh)
+
+
+def default_device(mesh):
+    """The device of a mesh over this group that names none: the card,
+    or the error of a host without one."""
+    from spark_gp_tpu_torch.parallel.mesh import expert_mesh
+
+    try:
+        return str(expert_mesh().device)
+    except RuntimeError as exc:
+        return f"raised: {exc}"
+
+
+SCENARIOS = {f.__name__: f for f in (objective, kmn, latent_objective, fit, poe, distribute,
+                                     sample, default_device)}
+
+
+# -- the ranks -----------------------------------------------------------------------
+
+
+def _serve(rank: int, world: int, init_file: str, conn) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from spark_gp_tpu_torch.parallel.mesh import expert_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    mesh = expert_mesh(device="cpu")
+    try:
+        while True:
+            msg = conn.recv()
+            if msg is None:
+                break
+            name, kwargs = msg
+            try:
+                conn.send(("ok", SCENARIOS[name](mesh, **kwargs)))
+            except Exception:  # noqa: BLE001 -- the test reports the rank's traceback
+                conn.send(("error", traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+class MeshPool:
+    """``world`` ranks of one gloo group, started once."""
+
+    def __init__(self, world: int, tmpdir) -> None:
+        ctx = mp.get_context("spawn")
+        init_file = os.path.join(str(tmpdir), "gloo_store")
+        self.world = world
+        self.conns, self.procs = [], []
+        self._pending = None
+        for rank in range(world):
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=_serve, args=(rank, world, init_file, child), daemon=True)
+            proc.start()
+            self.conns.append(parent)
+            self.procs.append(proc)
+
+    def submit(self, name: str, **kwargs):
+        """Send every rank scenario ``name`` and return at once, so the ranks
+        work while the caller computes its own side; the function returned
+        waits for the ranks' results, in rank order, and raises with a
+        rank's traceback, or after :data:`TIMEOUT_S` without a reply."""
+        self._drain()
+        for conn in self.conns:
+            conn.send((name, kwargs))
+        self._pending = name
+        return self._collect
+
+    def run(self, name: str, **kwargs) -> list:
+        """Every rank's result of scenario ``name`` (:meth:`submit`, then
+        wait)."""
+        return self.submit(name, **kwargs)()
+
+    def _replies(self) -> list:
+        name, self._pending = self._pending, None
+        out = []
+        for rank, conn in enumerate(self.conns):
+            if not conn.poll(TIMEOUT_S):
+                raise TimeoutError(f"rank {rank} gave no reply to {name!r} in {TIMEOUT_S} s")
+            out.append(conn.recv())
+        return [name] + out
+
+    def _collect(self) -> list:
+        name, *replies = self._replies()
+        for rank, (status, value) in enumerate(replies):
+            if status != "ok":
+                raise RuntimeError(f"rank {rank} failed {name!r}:\n{value}")
+        return [value for _, value in replies]
+
+    def _drain(self) -> None:
+        """Read the replies to a scenario whose test failed before it waited
+        for them, so the next scenario's replies are its own."""
+        if self._pending is not None:
+            self._replies()
+
+    def close(self) -> None:
+        for conn in self.conns:
+            try:
+                conn.send(None)
+            except (BrokenPipeError, OSError):
+                pass
+        for proc in self.procs:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=5)

@@ -131,7 +131,8 @@ def test_a_metered_fit_is_bit_equal_and_counts_its_executions(metering, optimize
     assert entry == "fit.GaussianProcessRegression"
     m = metered.metrics
     # host: one execution an evaluation; device: one a step (eager here)
-    want = m["lbfgs_nfev"] if optimizer == "host" else m["device_opt.eager_steps"]
+    # and one for the initial evaluation, which runs before any step
+    want = m["lbfgs_nfev"] if optimizer == "host" else m["device_opt.eager_steps"] + 1
     assert row["executions"] == want > 0
     assert row["flops_total"] == row["flops_per_execution"] * want > 0
     assert xc["measured_mfu_optimize"] is None   # no device figure on the CPU
@@ -279,3 +280,58 @@ def test_serve_batches_are_executions_of_the_batch_root(metering, tmp_path):
         assert telemetry.snapshot()["counters"]["xla.flops.serve.batch"] > before
     finally:
         server.stop()
+
+
+def test_a_device_loops_initial_evaluation_is_one_execution_with_its_peak(metering):
+    """The device optimizer's initial evaluation runs eagerly before the
+    captured step: it is metered as one execution at the step's cost, with
+    its own peak as the loop's per-execution peak (a capture can read
+    none), and alone, where no step follows, at its own cost.  The memory
+    plan then compares that peak, not the whole fit's."""
+    from spark_gp_tpu_torch.obs import runtime as obs_runtime
+    from spark_gp_tpu_torch.obs.runtime import FitCapture, _memory_plan_rows
+    from spark_gp_tpu_torch.utils.instrumentation import Instrumentation
+
+    x = torch.ones(64, dtype=torch.float64)
+    with obs_runtime.fit_capture("t") as cap:
+        meter = cost.ReplayMeter("fit.device")
+        with meter.initial():
+            (x * 2.0).sum()
+            cost.note_kernel("spd_inv_logdet", (10.0, 20.0))
+        # the step, measured at its first eager run, then replayed twice
+        with meter.eager_step():
+            (x * 3.0 + 1.0).sum()
+            cost.note_kernel("spd_inv_logdet", (10.0, 20.0))
+        with meter.replays(2.0):
+            cost.note_kernel("spd_inv_logdet", (20.0, 40.0), launches=2.0)
+        meter.finish()
+    (row,) = cap.xla_costs.values()
+    assert row["executions"] == 4.0
+    assert row["kernels"]["spd_inv_logdet"] == {"launches": 4.0, "flops": 40.0, "bytes": 80.0}
+    with obs_runtime.fit_capture("t") as alone:
+        meter = cost.ReplayMeter("fit.device")
+        with meter.initial():
+            (x * 2.0).sum()
+        meter.finish()
+    (row,) = alone.xla_costs.values()
+    assert row["executions"] == 1.0 and row["flops_per_execution"] > 0
+    # a captured step has no peak of its own: the row keeps the initial one
+    cap2 = FitCapture("t")
+    token = obs_runtime._active_capture.set(cap2)
+    try:
+        meter = cost.ReplayMeter("fit.device")
+        meter._initial = ({"flops": 1.0, "bytes": 2.0, "peak_bytes": 100.0}, {})
+        meter.cost = {"flops": 5.0, "bytes": 6.0}
+        with meter.replays(3.0):
+            pass
+    finally:
+        obs_runtime._active_capture.reset(token)
+    (row,) = cap2.xla_costs.values()
+    assert row["executions"] == 4.0 and row["peak_bytes_per_execution"] == 100.0
+    # the plan compares the per-execution peak, not the fit's 500
+    cap2.memory_samples.append({"phase": "optimize_hypers", "memory.peak_bytes_in_use": 500.0})
+    instr = Instrumentation()
+    instr.memory_plan = [{"entry": "fit", "predicted_bytes": 120.0, "fits": True}]
+    (plan_row,) = _memory_plan_rows(instr, cap2)
+    assert plan_row["compiled_peak_bytes"] == 100.0 and plan_row["actual_peak_bytes"] == 500.0
+    assert plan_row["margin_breach"] is False

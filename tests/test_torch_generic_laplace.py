@@ -224,11 +224,24 @@ def _device_fit_on_the_iterative_lane(gp, x, y):
     assert np.all(np.isfinite(model.predict_rate(x[:5])))
 
 
+def _fit_distributed_at_world_size_one(gp, x, y):
+    """``fit_distributed`` (item 6a) of a one-rank stack of counts fits the
+    same theta as ``fit`` on the same rows; negative counts are refused."""
+    from spark_gp_tpu_torch.parallel.distributed import distribute_global_experts
+
+    s = gp._dataset_size_for_expert
+    model = gp.setMaxIter(3).fit_distributed(distribute_global_experts(x, y, s, device="cpu"))
+    np.testing.assert_array_equal(model.raw_predictor.theta, gp.fit(x, y).raw_predictor.theta)
+    assert np.all(np.isfinite(model.predict_rate(x[:5])))
+    with pytest.raises(ValueError, match="non-negative integer counts"):
+        gp.fit_distributed(distribute_global_experts(x, -y - 1.0, s, device="cpu"))
+
+
 @pytest.mark.parametrize("call, error, message", [
     (lambda gp, x, y: gp.fit(x, y - 0.5), ValueError, "non-negative integer counts"),
     (lambda gp, x, y: gp.fit(x, -y - 1.0), ValueError, "non-negative integer counts"),
     (lambda gp, x, y: _device_fit_on_the_iterative_lane(gp, x, y), None, None),
-    (lambda gp, x, y: gp.fit_distributed(None), NotImplementedError, r"item 6"),
+    (lambda gp, x, y: _fit_distributed_at_world_size_one(gp, x, y), None, None),
 ])
 def test_count_estimator_surface(call, error, message):
     x, y = _counts(30)

@@ -165,8 +165,18 @@ def test_estimator_surface(tmp_path):
         copy.copy(gp).setExpertQuarantine(False).fit(bad, (y == 1).astype(np.float64))
     with pytest.raises(ValueError, match="shape"):
         copy.copy(gp).fit(x[:, 0], y)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gp.fit_distributed(None)
+    # fit_distributed (item 6a) of a one-rank stack fits the same theta as
+    # fit on the same rows; a stack of other labels is refused
+    from spark_gp_tpu_torch.parallel.distributed import distribute_global_experts
+
+    y01 = (y == 1).astype(np.float64)
+    stack = distribute_global_experts(x, y01, gp._dataset_size_for_expert, device="cpu")
+    dist_model = copy.copy(gp).setMaxIter(3).fit_distributed(stack)
+    np.testing.assert_array_equal(dist_model.raw_predictor.theta,
+                                  copy.copy(gp).setMaxIter(3).fit(x, y01).raw_predictor.theta)
+    with pytest.raises(ValueError, match="Only 0 and 1 labels"):
+        gp.fit_distributed(distribute_global_experts(x, y, gp._dataset_size_for_expert,
+                                                     device="cpu"))
     # model I/O is ported (test_torch_serialization.py): a round trip
     # predicts the same
     model.save(str(tmp_path / "m.npz"))

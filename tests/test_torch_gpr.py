@@ -164,6 +164,51 @@ def _observe_refused_with_its_code_when_the_plane_is_off():
     return info.value.code == "observe.disabled"
 
 
+def _mesh_fit_at_world_size_one(gp):
+    """``setMesh`` (item 6a) over a mesh of this process alone: the
+    sharded code paths, with identity collectives, fit what ``fit`` fits."""
+    from spark_gp_tpu_torch.parallel.mesh import expert_mesh
+
+    x, y = _data(n=120)
+    plain = _estimator(tgp, device="cpu").setMaxIter(5).fit(x, y)
+    meshed = _estimator(tgp, device="cpu").setMaxIter(5).setMesh(expert_mesh(device="cpu")) \
+        .fit(x, y)
+    with pytest.raises(TypeError, match="ExpertMesh"):
+        gp.setMesh(object())
+    return (np.array_equal(meshed.raw_predictor.theta, plain.raw_predictor.theta)
+            and np.array_equal(meshed.predict(x[:9]), plain.predict(x[:9])))
+
+
+def _classifier_fit_distributed_at_world_size_one():
+    """The classifier's ``fit_distributed`` (item 6a) of a one-rank stack:
+    the same theta as ``fit`` on the same rows (its active set is drawn
+    off the stack, so its predictions differ)."""
+    from spark_gp_tpu_torch.parallel.distributed import distribute_global_experts
+
+    x, y = _data(n=120)
+    labels = (y > 0).astype(np.float64)
+    gp = tgp.GaussianProcessClassifier(device="cpu").setDatasetSizeForExpert(40) \
+        .setActiveSetSize(20).setMaxIter(3)
+    model = gp.fit_distributed(distribute_global_experts(x, labels, 40, device="cpu"))
+    plain = gp.fit(x, labels)
+    return (np.array_equal(model.raw_predictor.theta, plain.raw_predictor.theta)
+            and bool(np.all(np.isfinite(model.predict_proba(x[:5])))))
+
+
+def _sharded_poe_at_world_size_one():
+    """The sharded PoE (item 6a) over a mesh of this process alone predicts
+    what the unsharded one does."""
+    from spark_gp_tpu_torch.parallel.mesh import expert_mesh
+
+    x, y = _data(n=60)
+    kernel = _kernel(tgp)
+    args = (kernel, kernel.init_theta(), x, y, 20)
+    plain = make_poe_predictor(*args, device="cpu").predict_with_var(x[:7])
+    meshed = make_poe_predictor(*args, device="cpu",
+                                mesh=expert_mesh(device="cpu")).predict_with_var(x[:7])
+    return all(np.array_equal(a, b) for a, b in zip(plain, meshed))
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -172,7 +217,7 @@ def _observe_refused_with_its_code_when_the_plane_is_off():
             tgp.GaussianProcessNegativeBinomialRegression(device="cpu"))),
         _fits(lambda gp: _device_fit_on_the_iterative_lane(
             tgp.GaussianProcessClassifier(device="cpu"))),
-        lambda gp: gp.setMesh(object()),
+        _works(_mesh_fit_at_world_size_one),
         # (checkpoints and model I/O are ported: test_torch_checkpoint.py,
         # test_torch_serialization.py; the serve quality plane too,
         # test_torch_quality.py)
@@ -188,10 +233,9 @@ def _observe_refused_with_its_code_when_the_plane_is_off():
         # (quarantine, retries and the aggregation policies are ported:
         # test_resilience_setters_match_jax)
         _fits(lambda gp: _device_fit_at_lane(gp, "fast")),
-        lambda gp: tgp.GaussianProcessClassifier(device="cpu").fit_distributed(None),
+        _works(lambda gp: _classifier_fit_distributed_at_world_size_one()),
         _fits(lambda gp: _device_fit_at_lane(gp, "mixed")),
-        lambda gp: make_poe_predictor(tgp.RBFKernel(), np.ones(1), np.zeros((4, 1)),
-                                      np.zeros(4), 2, mesh=object()),
+        _works(lambda gp: _sharded_poe_at_world_size_one()),
     ],
 )
 def test_unported_options_name_their_roadmap_item(call):

@@ -96,8 +96,18 @@ def test_elbo_with_greedy_needs_white_noise():
         .setActiveSetProvider(tgp.GreedilyOptimizingActiveSetProvider())
     with pytest.raises(ValueError, match="needs nonzero white noise"):
         gp.fit(x, y)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 6"):
-        tgp.GreedilyOptimizingActiveSetProvider().from_stack(8, None, None, None, 0, None)
+    # from_stack (item 6a) over a stack that is whole here selects the rows
+    # the host-row provider does, from the same seed row: a stack of every
+    # row as the only expert has its rows in point order
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+
+    gp = gp.setSigma2(1e-2)
+    kernel, theta = gp._get_kernel(), gp._get_kernel().init_theta()
+    stack = group_for_experts(x, y, x.shape[0], device="cpu")
+    provider = tgp.GreedilyOptimizingActiveSetProvider()
+    np.testing.assert_array_equal(
+        provider.from_stack(8, stack, kernel, theta, 0, None),
+        provider(8, x, y, kernel, theta, 0, device="cpu"))
 
 
 def _gp(m, **kw):

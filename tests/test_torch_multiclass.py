@@ -329,8 +329,15 @@ def test_estimator_surface(tmp_path):
     gp = _gpc(tgp, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         gp.fit(x[:, 0], y)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gp.fit_distributed(None)
+    # fit_distributed (item 6a) of a one-rank stack: the class count from
+    # the labels, the same theta as fit on the same rows
+    from spark_gp_tpu_torch.parallel.distributed import distribute_global_experts
+
+    stack = distribute_global_experts(x, y, gp._dataset_size_for_expert, device="cpu")
+    dist_model = gp.setMaxIter(2).fit_distributed(stack)
+    assert dist_model.metrics["num_classes"] == C
+    np.testing.assert_array_equal(dist_model.raw_predictor.theta,
+                                  gp.fit(x, y).raw_predictor.theta)
     model = gp.setPredictiveVariance(False).setMaxIter(2).fit(x, y)
     assert model.predict_proba(x[:4]).shape == (4, C)
     # model I/O is ported (test_torch_serialization.py)
