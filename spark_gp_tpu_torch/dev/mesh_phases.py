@@ -6,24 +6,42 @@ the one card, each rank a child process.
   with ``setMesh`` on the host optimizer, each fold's theta bit-equal to
   the unsharded fit's (the parent's airfoil phase, handed over); the first
   fold on ``setOptimizer("device")`` sharded and unsharded, bit-equal, the
-  step's all-reduce inside the captured graph.
+  step's all-reduce inside the captured graph.  Then the same pairs for
+  the device fits of the binary Laplace (gpc-mnist), the native
+  multiclass (iris, fold 0), Poisson (quality.py's) and EP (iris, fold 0,
+  setosa against the rest), each step's all-reduce captured (graph nodes
+  beside the unsharded step's); the ELBO fit of the Synthetics objectives
+  split on both optimizers; the selection phase's config under
+  ``GP_AGG_SELECT=1``.
 * ``mesh-gloo2``: two ranks over gloo on the same card.  The first
   evaluation's NLL and gradient against the unsharded one; airfoil
   10-fold sharded 7 + 7 (the parent holds its RMSE to the bar and to the
   unsharded run's); gpc-mnist's ``fit_distributed``, each rank with its
   block of the training stack (8 + 8 experts); ``distribute_global_experts`` of
   unequal airfoil rows (900 / 603), its padded dims and the active set
-  every rank holds.
+  every rank holds.  Then the ELBO's first evaluation against the
+  unsharded one and its host fit's RMSE against the unsharded fit's; the
+  selection config's dropped set and weights against the single-process
+  selection's; the row-sharded magic solve at the large-m config's fitted
+  theta and active set (m = 4096; ``(U1, u2)`` from each rank's half of
+  the rows), held to chip_smoke's device-against-host bars against the
+  one-rank device solve of the same statistics, its panel checks counted
+  and a staged ``corrupt_device(1)`` raising ``PanelMismatchError``
+  naming rank 1 on both ranks.
 
 Every rank checks its K1 launches against its own evaluations (each rank
 launches K1 once an evaluation on its block), times its collectives, and
-writes one JSON record.  The parent (:func:`run_mesh_phases`) starts all
+writes one JSON record.  Beside them, by hand only, ``--cards N`` runs
+mesh-cards: one rank a card under NCCL (a call with N chips), the
+large-m magic solve row-sharded over the cards against one card's device
+solve, and gpc-mnist's device fit over the cards.  The parent (:func:`run_mesh_phases`) starts all
 three children at once, each with a timeout, kills what outlives it, and
 raises on any child's failure; it needs the kernels built already.  A
-child imports the port and never JAX.  Run one phase by hand from the
+child imports the port and never JAX.  Run the phases by hand from the
 repo root::
 
     python3 -m spark_gp_tpu_torch.dev.mesh_phases
+    python3 -m spark_gp_tpu_torch.dev.mesh_phases --cards 4
 """
 
 from __future__ import annotations
@@ -161,9 +179,99 @@ def nccl1(args: dict) -> dict:
         "host_objective_payload": _reduce_ms(mesh, np.zeros(1 + h), host=True)}
     rec["payload_bytes"] = {"device_step": 4 * (1 + h), "host_objective": 8 * (1 + h),
                             "u1_u2": 8 * (1000 * 1000 + 1000)}
+    rec["slice17"] = slice17_nccl1(mesh, w, checks)
     rec["launches"] = {n: wr.launches for n, wr in w.items()}
     rec["checks"] = checks
     return rec
+
+
+def _same_model(a, b, xt) -> bool:
+    """Two fits' theta, magic vector and predictions at ``xt`` bit-equal."""
+    ra, rb = a.raw_predictor, b.raw_predictor
+    return bool(np.array_equal(ra.theta, rb.theta)
+                and np.array_equal(ra.magic_vector, rb.magic_vector)
+                and np.array_equal(ra.predict_mean(xt).cpu().numpy(),
+                                   rb.predict_mean(xt).cpu().numpy()))
+
+
+def _pair(make, x, y, mesh):
+    """``make()``'s fit over ``mesh`` and without it, on the same rows, with
+    the seconds of each."""
+    t0 = time.perf_counter()
+    sharded = make().setMesh(mesh).fit(x, y)
+    t1 = time.perf_counter()
+    alone = make().fit(x, y)
+    return sharded, alone, {"sharded": t1 - t0, "unsharded": time.perf_counter() - t1}
+
+
+def _selected(env: dict, make):
+    """``make()`` with ``env`` set around it, the environment restored."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return make()
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def slice17_nccl1(mesh, w: dict, checks: dict) -> dict:
+    """mesh-nccl1's latent, ELBO and selection pairs (module doc), each
+    pair's K1 launches held to its rule; ``checks`` gains one entry a
+    pair."""
+    import chip_smoke as cs
+
+    cdata, d6, rdata, d7 = cs.classifier_data(), cs.poisson_data(), cs.regression_data(), \
+        cs.slice7_data()
+    xm, ym, tr = cdata["xm"], cdata["ym"], cdata["tr_m"]
+    train_i = cdata["folds_i"][0][0]
+    xi, yi = cdata["xi"][train_i], cdata["yi"][train_i]
+    xs, ys = rdata["x"][rdata["tr"]], rdata["y"][rdata["tr"]]
+    select = {"GP_AGG_SELECT": "1"}
+    latent = cs.latent_k1_rule
+    pairs = {
+        "gpc_mnist": (lambda: cs.mnist_gpc().setOptimizer("device"), xm[tr], ym[tr], latent),
+        "iris_native": (lambda: cs.iris_native_gpc().setOptimizer("device"), xi, yi, latent),
+        "poisson": (lambda: cs.poisson_gp().setOptimizer("device"), d6["x"], d6["y"], latent),
+        # EP's rule: the Laplace step's and one K1 launch for the posterior mean
+        "iris_ep": (lambda: cs.ep_gpc().setOptimizer("device"), xi, (yi == 0).astype(float),
+                    lambda m: latent(m) + 1),
+        "elbo_host": (lambda: cs.synthetics_gp("elbo"), xs, ys, cs.probe_rule),
+        "elbo_device": (lambda: cs.synthetics_gp("elbo").setOptimizer("device"), xs, ys,
+                        cs.probe_rule),
+        "selection": (lambda: _selected(select, cs.selection_gp), d7["x_sel"], d7["y_sel"],
+                      lambda m: m["lbfgs_nfev"] + cs.probe_rule(m)),
+    }
+    out = {}
+    for name, (make, x, y, rule) in pairs.items():
+        before = w["spd_inv_logdet"].launches
+        if name == "selection":
+            sharded, alone, seconds = _selected(select, lambda: _pair(make, x, y, mesh))
+        else:
+            sharded, alone, seconds = _pair(make, x, y, mesh)
+        k1 = w["spd_inv_logdet"].launches - before
+        ms, ma = sharded.metrics, alone.metrics
+        row = {"seconds": seconds, "nfev": [ms["lbfgs_nfev"], ma["lbfgs_nfev"]], "k1": k1,
+               "k1_rule": rule(ms) + rule(ma), "bit_equal": _same_model(sharded, alone, x[:200])}
+        if "device_opt.graph_nodes" in ms:
+            row["graph_nodes"] = [ms["device_opt.graph_nodes"], ma["device_opt.graph_nodes"]]
+            row["captured"] = ms.get("device_opt.captures") == 1.0 and \
+                ms.get("device_opt.replays", 0.0) > 0
+        if name == "selection":
+            row["dropped"] = [ms["agg.selection_dropped"], ma["agg.selection_dropped"]]
+        out[name] = row
+        checks[f"{name}_bit_equal"] = row["bit_equal"]
+        checks[f"{name}_k1_rule"] = k1 == row["k1_rule"]
+        if "graph_nodes" in row:
+            # the step's one all-reduce: a few nodes over the unsharded step
+            extra = row["graph_nodes"][0] - row["graph_nodes"][1]
+            checks[f"{name}_all_reduce_captured"] = row["captured"] and 0 < extra <= 16
+        if name == "selection":
+            checks["selection_dropped"] = row["dropped"][0] == row["dropped"][1] > 0
+    return out
 
 
 def gloo2(args: dict) -> dict:
@@ -272,7 +380,194 @@ def gloo2(args: dict) -> dict:
         "host_objective_payload": _reduce_ms(mesh, np.zeros(1 + h), host=True),
         "u1": _reduce_ms(mesh, u1)}
     rec["payload_bytes"] = {"host_objective": 8 * (1 + h), "u1": 8 * 1000 * 1000}
+    rec["slice17"] = slice17_gloo2(mesh, w, checks, args["large_m"])
     rec["launches"] = {n: wr.launches for n, wr in w.items()}
+    rec["checks"] = checks
+    return rec
+
+
+def slice17_gloo2(mesh, w: dict, checks: dict, large_m: dict) -> dict:
+    """mesh-gloo2's ELBO, selection and sharded magic solve (module doc);
+    ``checks`` gains their entries."""
+    import torch
+
+    import chip_smoke as cs
+    from spark_gp_tpu_torch.models.likelihood import (
+        make_sharded_value_and_grad,
+        make_value_and_grad,
+    )
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+    from spark_gp_tpu_torch.parallel.mesh import shard_experts
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    out = {}
+    rdata = cs.regression_data()
+    xs, ys = rdata["x"][rdata["tr"]], rdata["y"][rdata["tr"]]
+    xe, ye = rdata["x"][rdata["te"]], rdata["y"][rdata["te"]]
+    # the ELBO's first evaluation, sharded against unsharded, at the
+    # initial theta over 100 seeded rows
+    gp = cs.synthetics_gp("elbo")
+    kernel, sigma2 = gp._get_kernel(), gp._sigma2
+    active = xs[np.random.default_rng(13).choice(xs.shape[0], 100, replace=False)]
+    whole = group_for_experts(xs, ys, 100, dtype=torch.float32, device=mesh.device)
+    extra = (active, sigma2)
+    v1, g1 = make_value_and_grad(kernel, whole, None, "elbo", extra)(kernel.init_theta())
+    v2, g2 = make_sharded_value_and_grad(kernel, shard_experts(whole, mesh), mesh, "elbo",
+                                         extra=extra)(kernel.init_theta())
+    first = {"rel_value_err": abs(v2 - v1) / abs(v1),
+             "rel_grad_err": float(np.max(np.abs(g2 - g1)) / np.max(np.abs(g1)))}
+    checks["elbo_first_evaluation"] = first["rel_value_err"] <= 1e-6 and \
+        first["rel_grad_err"] <= 1e-7
+    # the ELBO's host fit, sharded and not: RMSE within 1%
+    before = w["spd_inv_logdet"].launches
+    sharded, alone, seconds = _pair(lambda: cs.synthetics_gp("elbo"), xs, ys, mesh)
+    scores = [float(rmse(ye, m.predict(xe))) for m in (sharded, alone)]
+    k1 = w["spd_inv_logdet"].launches - before
+    out["elbo"] = {"first_evaluation": first, "rmse": scores, "seconds": seconds,
+                   "nfev": [sharded.metrics["lbfgs_nfev"], alone.metrics["lbfgs_nfev"]],
+                   "k1": k1}
+    checks["elbo_rmse_within_1pct"] = abs(scores[0] - scores[1]) <= 0.01 * scores[1]
+    checks["elbo_k1_rule"] = k1 == cs.probe_rule(sharded.metrics) + cs.probe_rule(alone.metrics)
+    # the selection config: the same dropped set and weights as the
+    # selection in one process
+    d7 = cs.slice7_data()
+    before = w["spd_inv_logdet"].launches
+    sharded, alone, seconds = _selected(
+        {"GP_AGG_SELECT": "1"}, lambda: _pair(cs.selection_gp, d7["x_sel"], d7["y_sel"], mesh))
+    k1 = w["spd_inv_logdet"].launches - before
+    ms, ma = sharded.metrics, alone.metrics
+    out["selection"] = {"dropped": [ms["agg.selection_dropped"], ma["agg.selection_dropped"]],
+                        "renorm": [ms["agg.renorm"], ma["agg.renorm"]],
+                        "weights": sharded.instr.agg_weights.tolist(), "seconds": seconds,
+                        "nfev": [ms["lbfgs_nfev"], ma["lbfgs_nfev"]], "k1": k1}
+    checks["selection_same_report"] = (
+        ms["agg.selection_dropped"] == ma["agg.selection_dropped"] > 0
+        and ms["agg.renorm"] == ma["agg.renorm"]
+        and np.array_equal(sharded.instr.agg_weights, alone.instr.agg_weights))
+    # each rank launches K1 once an evaluation on its own block
+    checks["selection_k1_rule"] = k1 == (ms["lbfgs_nfev"] + cs.probe_rule(ms)
+                                         + ma["lbfgs_nfev"] + cs.probe_rule(ma))
+    out["magic_solve"] = sharded_solve(mesh, checks, large_m)
+    return out
+
+
+def sharded_solve(mesh, checks: dict, large_m: dict) -> dict:
+    """The row-sharded magic solve at the large-m fit's theta and active set
+    against the one-rank device solve of the same statistics (module
+    doc), held to chip_smoke's ``MAGIC_SOLVE_BARS``; then the tripwire's
+    staged corruption.  Both ranks compute the reference solve (the card
+    is shared, so their seconds are a record, not a bar)."""
+    import torch
+
+    import chip_smoke as cs
+    from spark_gp_tpu_torch.models import ppa
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+    from spark_gp_tpu_torch.ops import dist_linalg as dl
+    from spark_gp_tpu_torch.parallel.experts import group_for_experts
+    from spark_gp_tpu_torch.parallel.mesh import shard_experts
+    from spark_gp_tpu_torch.resilience import chaos, integrity
+
+    x, y = cs.large_m_data()
+    kernel = cs.large_m_gp()._get_kernel()
+    theta, active = np.asarray(large_m["theta"]), np.asarray(large_m["active"])
+    dev = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64, device=mesh.device)
+    data = shard_experts(group_for_experts(x, y, 100, dtype=torch.float64, device=mesh.device),
+                         mesh)
+    u1, u2 = ppa.kmn_stats_sharded(kernel, mesh, dev(theta), dev(active), data)
+    counter = lambda: telemetry.snapshot()["counters"].get("integrity.panel_checks", 0.0)
+    before = counter()
+    got = {}
+    seconds = {
+        "sharded": cs.solve_seconds(torch, lambda: got.setdefault(
+            "sharded", ppa.sharded_magic_solve(kernel, theta, active, u1, u2, mesh))),
+        "device": cs.solve_seconds(torch, lambda: got.setdefault(
+            "device", ppa.magic_solve_device(kernel, theta, active, u1, u2,
+                                             device=mesh.device)))}
+    panel_checks = counter() - before
+    # the honest copies' largest relative difference: 0 when every rank
+    # received the all-reduced block bit for bit
+    spread = telemetry.snapshot()["gauges"]["integrity.panel_spread"]
+    # the factorizations of the solve (PD and K_mm at tau = 0; a jitter
+    # rung refactors) times the panels sampled at the default rate
+    per_factor = sum(integrity.panel_checked(k) for k in range(cs.LARGE_M // 128))
+    # the MAGIC_SOLVE_BARS quantities on the first 2,000 rows
+    theta64, act64, xq = dev(theta), dev(active), dev(x[:2000])
+    cross = kernel.cross(theta64, xq, act64)
+    prior = kernel.self_diag(theta64, xq)
+    pd = kernel.white_noise_var(theta64) * kernel.gram(theta64, act64) + u1
+
+    def residual(mv):
+        mv = dev(mv)
+        return float(torch.linalg.vector_norm(pd @ mv - u2)
+                     / (torch.linalg.matrix_norm(pd, 2) * torch.linalg.vector_norm(mv)))
+
+    (s_mv, s_mm), (d_mv, d_mm) = got["sharded"], got["device"]
+    means = [(cross @ dev(mv)).cpu().numpy() for mv in (s_mv, d_mv)]
+    variances = [(prior + torch.einsum("tm,mk,tk->t", cross, dev(mm), cross)).cpu().numpy()
+                 for mm in (s_mm, d_mm)]
+    errs = {"residual_sharded": residual(s_mv), "residual_device": residual(d_mv),
+            "mean": float(np.abs(means[0] - means[1]).max() / np.abs(means[1]).max()),
+            "variance": float(np.abs(variances[0] - variances[1]).max() / float(prior.max())),
+            "magic_vector_no_bar": float(np.abs(s_mv - d_mv).max() / np.abs(d_mv).max()),
+            "magic_matrix_no_bar": float(np.abs(s_mm - d_mm).max() / np.abs(d_mm).max())}
+    bars = cs.MAGIC_SOLVE_BARS
+    checks["magic_solve_bars"] = (errs["residual_sharded"] <= bars["residual_device"]
+                                  and errs["residual_device"] <= bars["residual_device"]
+                                  and errs["mean"] <= bars["mean"]
+                                  and errs["variance"] <= bars["variance"])
+    checks["magic_solve_panel_checks"] = panel_checks >= 2 * per_factor > 0 and \
+        panel_checks % per_factor == 0 and spread == 0.0
+    # the tripwire: rank 1's panel copies scaled, named on both ranks
+    t0 = time.perf_counter()
+    verdict = None
+    try:
+        with chaos.corrupt_device(1):
+            ppa.sharded_magic_solve(kernel, theta, active, u1, u2, mesh)
+    except integrity.PanelMismatchError as exc:
+        verdict = {"pid": exc.pid, "code": exc.code}
+    checks["magic_solve_tripwire"] = verdict == {"pid": 1, "code": "panel_divergence"}
+    return {"m": int(active.shape[0]), "block": 128, "seconds": seconds, "errs": errs,
+            "bars": bars, "panel_checks": panel_checks, "panel_checks_per_factor": per_factor,
+            "panel_spread": spread,
+            "tripwire": verdict, "tripwire_seconds": time.perf_counter() - t0,
+            "panel_divergence_bar": dl.PANEL_DIVERGENCE_BAR}
+
+
+def cards(args: dict) -> dict:
+    """mesh-cards, one rank a card under NCCL (``--cards N``, not a
+    chip_smoke phase): the large-m config's magic solve row-sharded over
+    the cards against one card's device solve (:func:`sharded_solve`:
+    the bars, the panels' spread, the staged corruption), and gpc-mnist's
+    device fit over the cards beside the unsharded device fit."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from spark_gp_tpu_torch.parallel import distributed as pd
+    from spark_gp_tpu_torch.utils.validation import accuracy
+
+    rank, world = int(args["rank"]), int(args["world"])
+    pd.initialize(f"file://{args['store']}", world, rank, backend=args.get("backend"),
+                  timeout_s=CHILD_TIMEOUT_S)
+    mesh = pd.global_expert_mesh(args.get("device"))
+    checks, rec = {}, {"backend": mesh.backend, "world_size": world, "rank": rank,
+                       "device": str(mesh.device)}
+    rec["magic_solve"] = sharded_solve(mesh, checks, args["large_m"])
+    cdata = cs.classifier_data()
+    xm, ym, tr = cdata["xm"], cdata["ym"], cdata["tr_m"]
+    te = np.setdiff1d(np.arange(xm.shape[0]), tr)
+    make = lambda: cs.mnist_gpc(args.get("device")).setOptimizer("device")
+    sharded, alone, seconds = _pair(make, xm[tr], ym[tr], mesh)
+    ms = sharded.metrics
+    rec["gpc_mnist"] = {"seconds": seconds, "theta": sharded.raw_predictor.theta.tolist(),
+                        "theta_unsharded": alone.raw_predictor.theta.tolist(),
+                        "accuracy": [float(accuracy(ym[te], m.predict(xm[te])))
+                                     for m in (sharded, alone)],
+                        "nfev": [ms["lbfgs_nfev"], alone.metrics["lbfgs_nfev"]],
+                        "graph_nodes": [ms.get("device_opt.graph_nodes"),
+                                        alone.metrics.get("device_opt.graph_nodes")],
+                        "captures": ms.get("device_opt.captures")}
+    checks["gpc_mnist_accuracy"] = min(rec["gpc_mnist"]["accuracy"]) > 0.84
     rec["checks"] = checks
     return rec
 
@@ -283,7 +578,7 @@ def child_main(argv) -> int:
     with open(args_path, encoding="utf-8") as fh:
         args = json.load(fh)
     start = time.perf_counter()
-    rec = {"nccl1": nccl1, "gloo2": gloo2}[phase](args)
+    rec = {"nccl1": nccl1, "gloo2": gloo2, "cards": cards}[phase](args)
     rec["seconds"] = time.perf_counter() - start
     import torch.distributed as dist
 
@@ -293,25 +588,24 @@ def child_main(argv) -> int:
     return 0
 
 
-def run_mesh_phases(unsharded_thetas, timeout_s: float = CHILD_TIMEOUT_S) -> dict:
-    """Start the three ranks (mesh-nccl1's and mesh-gloo2's two) at once,
-    each with ``timeout_s``; return ``{"nccl1": record, "gloo2": [rank 0,
-    rank 1], "seconds": wall}``.  Raises naming the child that failed,
-    timed out or wrote no record (its output's tail in the message), after
-    every child has ended."""
+def _run_children(jobs_args, timeout_s: float, env=None) -> list:
+    """Start one child a ``(phase, rank, args)`` at once, each with
+    ``timeout_s``; their records in order.  Raises naming the child that
+    failed, timed out or wrote no record (its output's tail in the
+    message), after every child has ended."""
     work = tempfile.mkdtemp(prefix="gp_mesh_")
     jobs = []
-    for phase, rank in (("nccl1", 0), ("gloo2", 0), ("gloo2", 1)):
-        args = {"rank": rank, "store": os.path.join(work, f"{phase}.store"),
-                "unsharded_thetas": unsharded_thetas}
+    for phase, rank, args in jobs_args:
+        args = dict(args, rank=rank, store=os.path.join(work, f"{phase}.store"))
         args_path = os.path.join(work, f"{phase}-{rank}.args.json")
         with open(args_path, "w", encoding="utf-8") as fh:
             json.dump(args, fh)
         out_path = os.path.join(work, f"{phase}-{rank}.json")
         log = open(os.path.join(work, f"{phase}-{rank}.log"), "w+", encoding="utf-8")
+        child_env = None if env is None else dict(os.environ, **env(rank))
         proc = subprocess.Popen(
             [sys.executable, "-m", "spark_gp_tpu_torch.dev.mesh_phases", phase, args_path,
-             out_path], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+             out_path], cwd=REPO, stdout=log, stderr=subprocess.STDOUT, env=child_env)
         jobs.append((phase, rank, proc, out_path, log))
     start = time.perf_counter()
     failures = []
@@ -330,17 +624,42 @@ def run_mesh_phases(unsharded_thetas, timeout_s: float = CHILD_TIMEOUT_S) -> dic
         log.close()
     if failures:
         raise AssertionError("mesh phases failed:\n" + "\n".join(failures))
-    recs = {}
-    for phase, rank, _, out_path, _ in jobs:
+    out = []
+    for _, _, _, out_path, _ in jobs:
         with open(out_path, encoding="utf-8") as fh:
-            recs.setdefault(phase, []).append(json.load(fh))
-    return {"nccl1": recs["nccl1"][0], "gloo2": recs["gloo2"],
-            "seconds": time.perf_counter() - start}
+            out.append(json.load(fh))
+    return out
 
 
-def main() -> int:
-    """By hand: build the kernels, fit the unsharded airfoil folds, run
-    the mesh phases and print their records."""
+def run_cards(world: int, large_m: dict, timeout_s: float = CHILD_TIMEOUT_S) -> dict:
+    """mesh-cards (:func:`cards`) over ``world`` cards, one child a card:
+    ``{"ranks": [records], "seconds": wall}``."""
+    start = time.perf_counter()
+    recs = _run_children([("cards", r, {"world": world, "large_m": large_m})
+                          for r in range(world)], timeout_s,
+                         env=lambda rank: {"LOCAL_RANK": str(rank)})
+    return {"ranks": recs, "seconds": time.perf_counter() - start}
+
+
+def run_mesh_phases(unsharded_thetas, large_m: dict, timeout_s: float = CHILD_TIMEOUT_S) -> dict:
+    """Start the three ranks (mesh-nccl1's and mesh-gloo2's two) at once,
+    each with ``timeout_s``; ``large_m`` is the large-m fit's ``theta`` and
+    ``active`` (lists).  Return ``{"nccl1": record, "gloo2": [rank 0,
+    rank 1], "seconds": wall}``.  Raises naming the child that failed,
+    timed out or wrote no record (its output's tail in the message), after
+    every child has ended."""
+    args = {"unsharded_thetas": unsharded_thetas, "large_m": large_m}
+    start = time.perf_counter()
+    nccl, *gloo = _run_children([("nccl1", 0, args), ("gloo2", 0, args), ("gloo2", 1, args)],
+                                timeout_s)
+    return {"nccl1": nccl, "gloo2": gloo, "seconds": time.perf_counter() - start}
+
+
+def main(argv) -> int:
+    """By hand: build the kernels, fit the large-m config and (for the
+    mesh phases) the unsharded airfoil folds, run the mesh phases, or with
+    ``--cards N`` mesh-cards over N cards (a call with N chips), and print
+    their records."""
     import torch
 
     if not torch.cuda.is_available():
@@ -351,13 +670,18 @@ def main() -> int:
     from spark_gp_tpu_torch.ops import cuda_lib
 
     cuda_lib.build_all(["spd_inv_logdet", "streamed_matvec", "slq_quadrature", "lane_gram"])
+    raw = cs.large_m_gp().fit(*cs.large_m_data()).raw_predictor
+    large_m = {"theta": raw.theta.tolist(), "active": raw.active.tolist()}
+    if argv[:1] == ["--cards"]:
+        print(json.dumps(run_cards(int(argv[1]), large_m)))
+        return 0
     x, y, folds = airfoil_data()
     cv = cs.regression_cv(cs.airfoil_gp(100), x, y, folds)
-    out = run_mesh_phases([f["theta"] for f in cv["per_fold"]])
+    out = run_mesh_phases([f["theta"] for f in cv["per_fold"]], large_m)
     out["unsharded_rmse"] = cv["rmse"]
     print(json.dumps(out))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(child_main(sys.argv[1:]) if len(sys.argv) == 4 else main())
+    sys.exit(child_main(sys.argv[1:]) if len(sys.argv) == 4 else main(sys.argv[1:]))

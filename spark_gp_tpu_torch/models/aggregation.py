@@ -162,12 +162,16 @@ def sketch_dim() -> int:
         return 64
 
 
-def expert_sketches(data, dim: Optional[int] = None, seed: int = 0) -> np.ndarray:
+def expert_sketches(data, dim: Optional[int] = None, seed: int = 0, mesh=None) -> np.ndarray:
     """Order-invariant per-expert random-feature sketches ``[E, d]``
     (float64 host numpy): each expert's masked mean of ``[cos(z W),
     sin(z W)]`` over its rows ``z = (x, y)``, standardized against the
     whole stack's masked moments; ``W`` from numpy's ``default_rng(seed)``,
-    the JAX package's draws."""
+    the JAX package's draws.  Over a ``mesh`` ``data`` is this rank's
+    block: the moments are the mesh's (``n`` and ``sum z`` all-reduced,
+    then ``sum (z - mu)^2``), and the blocks' sketches are all-gathered
+    into the global stack's ``[E, d]`` in expert order, the same on every
+    rank."""
     x = data.x.detach().to(torch.float64).cpu().numpy()
     y = data.y.detach().to(torch.float64).cpu().numpy()
     m = data.mask.detach().to(torch.float64).cpu().numpy()
@@ -175,9 +179,14 @@ def expert_sketches(data, dim: Optional[int] = None, seed: int = 0) -> np.ndarra
         y = y[..., 0]
     z = np.concatenate([x, y[..., None]], axis=-1)  # [E, s, p+1]
     w = m[..., None]
-    n = max(float(w.sum()), 1.0)
-    mu = (z * w).sum(axis=(0, 1)) / n
-    var = (np.square(z - mu) * w).sum(axis=(0, 1)) / n
+    if mesh is None:
+        total = np.concatenate([[w.sum()], (z * w).sum(axis=(0, 1))])
+    else:
+        total = mesh.all_reduce_host(np.concatenate([[w.sum()], (z * w).sum(axis=(0, 1))]))
+    n = max(float(total[0]), 1.0)
+    mu = total[1:] / n
+    sq = (np.square(z - mu) * w).sum(axis=(0, 1))
+    var = (sq if mesh is None else mesh.all_reduce_host(sq)) / n
     z = (z - mu) / np.sqrt(var + 1e-12)
     half = max(2, (dim if dim is not None else sketch_dim()) // 2)
     rng = np.random.default_rng(seed)
@@ -185,7 +194,16 @@ def expert_sketches(data, dim: Optional[int] = None, seed: int = 0) -> np.ndarra
     proj = z @ freqs  # [E, s, half]
     feats = np.concatenate([np.cos(proj), np.sin(proj)], axis=-1)
     n_e = np.maximum(m.sum(axis=1), 1.0)[:, None]
-    return (feats * w).sum(axis=1) / n_e  # [E, 2 * half]
+    sketches = (feats * w).sum(axis=1) / n_e  # [E, 2 * half]
+    return sketches if mesh is None else _gathered(sketches, mesh)
+
+
+def _gathered(block: np.ndarray, mesh) -> np.ndarray:
+    """Every rank's ``[E_block, ...]`` float64 ``block`` in rank order (the
+    global expert order), through the mesh's device."""
+    dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+    t = torch.as_tensor(np.ascontiguousarray(block), dtype=torch.float64, device=dev)
+    return torch.cat(mesh.all_gather(t)).cpu().numpy()
 
 
 def redundancy_matrix_host(sketches: np.ndarray) -> np.ndarray:
@@ -285,27 +303,40 @@ def effective_expert_count(weights) -> float:
 
 
 def select_experts(data, threshold: Optional[float] = None, mode: Optional[str] = None,
-                   seed: int = 0) -> SelectionReport:
+                   seed: int = 0, mesh=None, num_experts: Optional[int] = None) -> SelectionReport:
     """Score redundancy and pick the expert subset, first kept first:
     walking the stack in order, each kept expert claims every unclaimed
     expert whose similarity reaches the threshold; claimed experts are
     dropped (``drop``) or every member of the group is down-weighted to
     1/|group| (``downweight``).  Fully masked experts stay at ``w_e = 0``
-    and claim no one."""
+    and claim no one.
+
+    Over a ``mesh`` ``data`` is this rank's block, and the report is the
+    global stack's, the same on every rank: the sketches are the mesh's
+    (:func:`expert_sketches`), every rank scores and walks the same matrix.
+    ``num_experts`` is the stack's count before the mesh's padding (its
+    tail: ``parallel/mesh.shard_experts``): only those experts are scored,
+    so the report is the unsharded stack's; the padded experts' entries
+    are inactive (kept, weight 0)."""
     mask = data.mask.detach().to(torch.float64).cpu().numpy()
+    if mesh is not None:
+        mask = _gathered(mask, mesh)
     active = mask.sum(axis=1) > 0
-    e = mask.shape[0]
+    e_all = mask.shape[0]
+    e = e_all if num_experts is None else int(num_experts)
     thr = selection_threshold() if threshold is None else float(threshold)
     mode = selection_mode() if mode is None else str(mode)
-    sim = redundancy_matrix(expert_sketches(data, seed=seed), device=data.x.device)
-    drop = np.zeros(e, dtype=bool)
+    sketches = expert_sketches(data, seed=seed, mesh=mesh)[:e]
+    sim = redundancy_matrix(sketches, device=data.x.device)
+    active[e:] = False
+    drop = np.zeros(e_all, dtype=bool)
     weights = np.where(active, 1.0, 0.0)
     claimed = ~active
     for i in range(e):
         if claimed[i]:
             continue
         claimed[i] = True
-        dups = np.flatnonzero((sim[i] >= thr) & ~claimed)
+        dups = np.flatnonzero((sim[i] >= thr) & ~claimed[:e])
         claimed[dups] = True
         if dups.size == 0:
             continue

@@ -63,6 +63,9 @@ logger = logging.getLogger("spark_gp_tpu_torch")
 
 
 def _not_ported(what: str, item):
+    """The error of a path the port does not have yet, naming the ROADMAP.md
+    item that ports it; the one left is item 6c's checkpoint directory
+    under a mesh (the coordinated checkpointers)."""
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1, item {item})"
     )
@@ -727,19 +730,27 @@ class GaussianProcessCommons(GaussianProcessParams):
                             total_dropped=int(dropped))
         return data
 
-    def _apply_expert_selection(self, instr: Instrumentation, data: ExpertData):
+    def _apply_expert_selection(self, instr: Instrumentation, data: ExpertData,
+                                num_experts: Optional[int] = None):
         """Fit-time expert selection (``models/aggregation.py``), before any
         objective evaluation: ``drop`` mode compacts the stack to the kept
         experts, ``downweight`` mode hands back fractional weights for the
         marginal objective.  Returns ``(data, extra)``, ``extra`` either
         ``()`` or the marginal objective's ``(None, weights)`` (slot 0 is
-        the recovery loop's jitter).  Off unless ``GP_AGG_SELECT``."""
+        the recovery loop's jitter).  Off unless ``GP_AGG_SELECT``.
+
+        Under a mesh ``data`` is this rank's block and the report the
+        global stack's (``num_experts`` its count before the mesh's
+        padding), the same on every rank: ``instr.agg_weights`` and the
+        ``agg.*`` metrics are the report's; each rank keeps its block's
+        weights (``downweight``), or its block's kept experts (``drop``),
+        padded with inert experts to the largest kept count of any rank,
+        so the blocks stay equal for the mesh's gathers."""
         from spark_gp_tpu_torch.models import aggregation as agg
 
         if not agg.selection_enabled():
             return data, ()
-        if self._mesh_of_ranks():
-            raise _not_ported("fit-time expert selection over a mesh", "6a")
+        mesh = self._mesh
         mode = agg.selection_mode()
         if mode == "downweight" and self._objective != "marginal":
             # only the marginal objective takes the weights; masking works
@@ -750,7 +761,8 @@ class GaussianProcessCommons(GaussianProcessParams):
                 f"for objective {self._objective!r}"
             )
             mode = "drop"
-        report = agg.select_experts(data, mode=mode, seed=self._seed)
+        report = agg.select_experts(data, mode=mode, seed=self._seed, mesh=mesh,
+                                    num_experts=num_experts)
         weights = np.asarray(report.weights, dtype=np.float64)
         instr.agg_weights = weights
         instr.metrics["agg.selection_dropped"] = float(report.num_dropped)
@@ -768,6 +780,10 @@ class GaussianProcessCommons(GaussianProcessParams):
                 f"(threshold {report.threshold:.2f}); weighted "
                 f"objective renormalizes by {report.renorm:.4f}"
             )
+            if mesh is not None:
+                from spark_gp_tpu_torch.parallel.mesh import shard_rows
+
+                weights = shard_rows(weights, mesh)
             return data, (None, torch.as_tensor(weights, dtype=data.x.dtype,
                                                 device=data.x.device))
         keep = np.flatnonzero(~report.drop)
@@ -779,10 +795,29 @@ class GaussianProcessCommons(GaussianProcessParams):
             f"factorization (threshold {report.threshold:.2f}); "
             f"objective renormalizes by {report.renorm:.4f}"
         )
+        if mesh is not None:
+            return self._kept_block(data, ~report.drop, mesh), ()
         idx = torch.as_tensor(keep, device=data.x.device)
         return ExpertData(x=data.x[idx], y=data.y[idx], mask=data.mask[idx]), ()
 
-    def _run_with_expert_resilience(self, instr: Instrumentation, data: ExpertData, run_fit):
+    @staticmethod
+    def _kept_block(data: ExpertData, kept, mesh) -> ExpertData:
+        """This rank's block of a selection's ``kept`` flags (global, the
+        same on every rank): its kept experts, then inert copies of its
+        first expert (zero labels and mask) up to the largest kept count of
+        any rank, which every rank reads off the same flags."""
+        per = kept.shape[0] // mesh.world_size
+        counts = kept.reshape(mesh.world_size, per).sum(axis=1)
+        idx = torch.as_tensor(np.flatnonzero(kept[mesh.rank * per:(mesh.rank + 1) * per]),
+                              device=data.x.device, dtype=torch.long)
+        pad = int(counts.max()) - idx.numel()
+        first = (data.x[:1], torch.zeros_like(data.y[:1]), torch.zeros_like(data.mask[:1]))
+        parts = [torch.cat([part[idx], tmpl.repeat((pad,) + (1,) * (tmpl.ndim - 1))])
+                 for part, tmpl in zip((data.x, data.y, data.mask), first)]
+        return ExpertData(x=parts[0], y=parts[1], mask=parts[2])
+
+    def _run_with_expert_resilience(self, instr: Instrumentation, data: ExpertData, run_fit,
+                                    num_experts: Optional[int] = None):
         """Bounded recovery around one complete fit attempt.
 
         ``run_fit(data, extra, cache)`` is the whole optimize-to-PPA
@@ -801,7 +836,7 @@ class GaussianProcessCommons(GaussianProcessParams):
             retry_with_backoff,
         )
 
-        data, sel_extra = self._apply_expert_selection(instr, data)
+        data, sel_extra = self._apply_expert_selection(instr, data, num_experts)
         cache = self._gram_cache(self._get_kernel(), data)
         if not self._expert_quarantine or self._fit_retries < 1 or self._mesh_of_ranks():
             # over several ranks a failed attempt propagates: a probe of one
@@ -1269,29 +1304,31 @@ class GaussianProcessCommons(GaussianProcessParams):
         ladder's ``segmented`` rung (``kind`` and ``meta_extra`` the JAX
         ``segment_meta``'s, ``file_tag`` the state file's), else one loop;
         ``lanes`` is the family's ``models/laplace_device.LaplaceLanes``.
-        The results come back in one transfer.  Returns ``(OptimizeResult,
-        latent modes [E, s, ...] on the device, metrics)``."""
+        The results come back in one transfer.  Under a mesh every driver
+        runs the sharded fit (``laplace_device.ShardedLanes``: this rank's
+        latent modes, one all-reduce of the lanes' values and gradients a
+        step).  Returns ``(OptimizeResult, latent modes [E, s, ...] on the
+        device, metrics)``."""
         from spark_gp_tpu_torch.models import laplace_device as ld
 
-        if self._mesh is not None:
-            raise _not_ported("the sharded device fits of the Laplace families and EP", "6a")
         dev, lower, upper, log_space = self._device_fit_prelude(kernel, data)
+        mesh = self._mesh
         loop: dict = {}
         multistart = self._use_batched_multistart()
         names = ("theta", "latent", "f", "n_iter", "n_fev", "stalled")
         if multistart:
             out = ld.fit_latent_device_multistart(
                 lanes, log_space, dev(self._restart_theta_batch(kernel)), lower, upper,
-                self._max_iter, self._tol, loop_metrics=loop)
+                self._max_iter, self._tol, loop_metrics=loop, mesh=mesh)
             names += ("f_all", "best")
         elif self._checkpoint_dir is not None or self._fallback_segmented():
             saver, chunk = self._segment_saver_and_chunk(file_tag)
             out = ld.fit_latent_device_checkpointed(
                 lanes, kind, log_space, dev(kernel.init_theta()), lower, upper, self._max_iter,
-                self._tol, chunk, saver, loop_metrics=loop, **meta_extra)
+                self._tol, chunk, saver, loop_metrics=loop, mesh=mesh, **meta_extra)
         else:
             out = ld.fit_latent_device(lanes, log_space, dev(kernel.init_theta()), lower, upper,
-                                       self._max_iter, self._tol, loop_metrics=loop)
+                                       self._max_iter, self._tol, loop_metrics=loop, mesh=mesh)
         pending = dict(zip(names, out))
         latent = pending.pop("latent")
         res, metrics = self._device_fit_result(self._finalize_device_fit(pending), loop,
@@ -1399,8 +1436,9 @@ class GaussianProcessCommons(GaussianProcessParams):
         data: Optional[ExpertData] = None,
     ) -> ppa.ProjectedProcessRawPredictor:
         """The magic solve (``ppa.magic_solve``: on the host, or on the
-        fit's device from ``ppa._DEVICE_SOLVE_MIN_M`` active points on, on
-        the statistics ``u1``, ``u2`` where the fit built them), the
+        fit's device from ``ppa._DEVICE_SOLVE_MIN_M`` active points on,
+        row-sharded over the fit's mesh of several ranks, on the statistics
+        ``u1``, ``u2`` where the fit built them), the
         fit-time precision guard on ``data`` (the fitted stack), and the
         predictor, which downloads the statistics only where it keeps
         them."""
@@ -1408,7 +1446,7 @@ class GaussianProcessCommons(GaussianProcessParams):
         with instr.phase("magic_solve"):
             magic_vector, magic_matrix = ppa.magic_solve(
                 kernel, theta, active64, u1, u2,
-                with_variance=self._predictive_variance, device=device,
+                with_variance=self._predictive_variance, device=device, mesh=self._mesh,
             )
         self._emit_precision_guard(instr, kernel, theta, data)
         self._emit_expert_quality(instr, kernel, theta, data)

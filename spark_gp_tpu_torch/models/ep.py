@@ -348,26 +348,34 @@ def _lanes_posterior_mean(lanes: EPLanes, theta, sites):
 
 
 def fit_gpc_ep_device(kernel: Kernel, tol, log_space: bool, theta0, lower, upper,
-                      data: ExpertData, max_iter: int, capture: bool = True, loop_metrics=None):
+                      data: ExpertData, max_iter: int, capture: bool = True, loop_metrics=None,
+                      mesh=None):
     """The single-start device fit of the EP classifier from zero sites (JAX
     ``fit_gpc_ep_device``): ``(theta, (tau, nu), latent_mu [E, s], nll,
     n_iter, n_fev, stalled)`` as device tensors, the latent mean the PPA
-    targets at theta and the sites of the last accepted iterate."""
+    targets at theta and the sites of the last accepted iterate.  With
+    ``mesh`` (JAX ``fit_gpc_ep_device_sharded``), ``data`` is this rank's
+    block: its site pair stays on the rank, each rank's sweeps stop on its
+    own experts' largest change (as each JAX device's do), and the sites
+    and latent mean returned are the block's."""
     lanes = EPLanes(kernel, data, tol)
     theta, sites, f, n_iter, n_fev, stalled = fit_latent_device(
         lanes, log_space, theta0, lower, upper, max_iter, tol, capture=capture,
-        loop_metrics=loop_metrics)
+        loop_metrics=loop_metrics, mesh=mesh)
     return (theta, (sites[..., 0], sites[..., 1]), _lanes_posterior_mean(lanes, theta, sites), f,
             n_iter, n_fev, stalled)
 
 
 def fit_gpc_ep_device_multistart(kernel: Kernel, tol, log_space: bool, theta0_batch, lower,
-                                 upper, data: ExpertData, max_iter: int, loop_metrics=None):
+                                 upper, data: ExpertData, max_iter: int, loop_metrics=None,
+                                 mesh=None):
     """R restarts as one device loop, the site pairs riding per lane (JAX
     ``fit_gpc_ep_device_multistart``): ``(theta_best, latent_mu_best, nll_best,
-    n_iter, n_fev, stalled, f_all [R], best)``."""
+    n_iter, n_fev, stalled, f_all [R], best)``.  ``mesh``: as for
+    :func:`fit_gpc_ep_device`."""
     lanes = EPLanes(kernel, data, tol)
     theta, sites, f, n_iter, n_fev, stalled, f_all, best = fit_latent_device_multistart(
-        lanes, log_space, theta0_batch, lower, upper, max_iter, tol, loop_metrics=loop_metrics)
+        lanes, log_space, theta0_batch, lower, upper, max_iter, tol, loop_metrics=loop_metrics,
+        mesh=mesh)
     return (theta, _lanes_posterior_mean(lanes, theta, sites), f, n_iter, n_fev, stalled, f_all,
             best)

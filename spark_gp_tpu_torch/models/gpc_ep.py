@@ -12,8 +12,9 @@ batched loop), and the latent mean at theta* is computed on the device;
 a checkpoint directory sends the fit to the host driver, and the ladder's
 ``segmented`` rung runs the one-loop device fit, as in the JAX package,
 which wires no segmented EP variant.  ``setMesh`` and ``fit_distributed``
-(the classifier's) sum the EP objective over the ranks on the host
-optimizer (the all-reduced ``ep.make_ep_objective``).  EP's sweeps have
+(the classifier's) sum the EP objective over the ranks: on the host
+optimizer the all-reduced ``ep.make_ep_objective``, on the device one
+the sharded device fit (``ep.fit_gpc_ep_device(mesh=)``).  EP's sweeps have
 no cached-gram path, so the fit builds no gram cache.
 
 The model's probit posterior predictive is closed form:
@@ -65,10 +66,6 @@ class GaussianProcessEPClassifier(GaussianProcessClassifier):
         the latent mean at theta* computed on the device; one loop on the
         ladder's ``segmented`` rung too, as the JAX estimator runs it (no
         segmented EP variant).  The results come back in one transfer."""
-        if self._mesh is not None:
-            from spark_gp_tpu_torch.models.common import _not_ported
-
-            raise _not_ported("the sharded device fits of the Laplace families and EP", "6a")
         dev, lower, upper, log_space = self._device_fit_prelude(kernel, data)
         loop: dict = {}
         multistart = self._use_batched_multistart()
@@ -76,12 +73,12 @@ class GaussianProcessEPClassifier(GaussianProcessClassifier):
             theta, latent, f, n_iter, n_fev, stalled, f_all, best = \
                 ep.fit_gpc_ep_device_multistart(
                     kernel, self._tol, log_space, dev(self._restart_theta_batch(kernel)), lower,
-                    upper, data, self._max_iter, loop_metrics=loop)
+                    upper, data, self._max_iter, loop_metrics=loop, mesh=self._mesh)
             extra = {"f_all": f_all, "best": best}
         else:
             theta, _, latent, f, n_iter, n_fev, stalled = ep.fit_gpc_ep_device(
                 kernel, self._tol, log_space, dev(kernel.init_theta()), lower, upper, data,
-                self._max_iter, loop_metrics=loop)
+                self._max_iter, loop_metrics=loop, mesh=self._mesh)
             extra = {}
         pending = {"theta": theta, "f": f, "n_iter": n_iter, "n_fev": n_fev, "stalled": stalled,
                    **extra}

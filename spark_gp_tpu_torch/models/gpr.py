@@ -35,6 +35,7 @@ from spark_gp_tpu_torch.models.common import GaussianProcessCommons
 from spark_gp_tpu_torch.models.likelihood import make_value_and_grad
 from spark_gp_tpu_torch.models.ppa import ProjectedProcessRawPredictor
 from spark_gp_tpu_torch.ops.linalg import psd_safe_cholesky_np
+from spark_gp_tpu_torch.parallel.experts import ExpertData, num_experts_for
 from spark_gp_tpu_torch.utils.device import resolve_device, working_dtype
 from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_profile
 
@@ -91,6 +92,7 @@ class GaussianProcessRegression(GaussianProcessCommons):
     def _fit_body(self, instr, x, y, device) -> "GaussianProcessRegressionModel":
         with instr.phase("group_experts"):
             data = self._group_screened(instr, x, y, device)
+        n_experts = num_experts_for(x.shape[0], self._dataset_size_for_expert)
         # the providers sample raw host rows: hand them only finite ones
         x, y = self._screen_rows(x, y)
         kernel = self._get_kernel()
@@ -103,12 +105,15 @@ class GaussianProcessRegression(GaussianProcessCommons):
                 # recovery or selection rebuilt the stack: the provider rows
                 # come from it (a poisoned row can be finite, and one in the
                 # active set would poison the PPA statistics); over a mesh
-                # the provider selects off the rebuilt stack itself
-                keep = data_r.mask > 0
-                x_r = None if self._mesh is not None else \
-                    data_r.x[keep].to(torch.float64).cpu().numpy()
-                y_r = None if self._mesh is not None else \
-                    data_r.y[keep].to(torch.float64).cpu().numpy()
+                # every rank gathers the rebuilt blocks, in the global
+                # stack's order, so the rows are the unsharded fit's
+                whole = data_r
+                if self._mesh is not None:
+                    whole = ExpertData(*(torch.cat(self._mesh.all_gather(part)) for part in
+                                         (data_r.x, data_r.y, data_r.mask)))
+                keep = whole.mask > 0
+                x_r = whole.x[keep].to(torch.float64).cpu().numpy()
+                y_r = whole.y[keep].to(torch.float64).cpu().numpy()
             return self._fit_stack(instr, kernel, data_r, x_r, y_r, rextra, cache)
 
         from spark_gp_tpu_torch.resilience import fallback
@@ -117,7 +122,8 @@ class GaussianProcessRegression(GaussianProcessCommons):
         # recovery inside it: a classified failure (OOM, compile, exhausted
         # numerics) re-runs the fit one rung down (GP_FALLBACK=0: raw)
         model = fallback.run_fit_ladder(
-            self, instr, lambda: self._run_with_expert_resilience(instr, data, run_fit),
+            self, instr, lambda: self._run_with_expert_resilience(instr, data, run_fit,
+                                                                  n_experts),
             data=data)
         model.metrics.update(self._phase_metrics(instr))
         return model
@@ -132,10 +138,6 @@ class GaussianProcessRegression(GaussianProcessCommons):
         process alone, it is the fit of a pre-grouped stack."""
         def prepare(instr, active64, data):
             kernel = self._get_kernel()
-            if self._objective == "elbo":
-                from spark_gp_tpu_torch.models.likelihood import _require_shard_map_support
-
-                _require_shard_map_support(self._objective)
             # one cache for the distributed fit, built from the rank's block
             cache = self._gram_cache(kernel, data)
             return lambda kernel_r, instr_r: self._fit_stack(
@@ -160,6 +162,9 @@ class GaussianProcessRegression(GaussianProcessCommons):
             return make_value_and_grad(kernel, data, cache, self._objective, extra)
         from spark_gp_tpu_torch.models.likelihood import make_sharded_value_and_grad
 
+        if self._objective == "elbo":
+            return make_sharded_value_and_grad(kernel, data, self._mesh, self._objective,
+                                               extra=extra)
         weights = extra[1] if len(extra) > 1 else None
         return make_sharded_value_and_grad(kernel, data, self._mesh, self._objective, cache,
                                            weights)
@@ -173,15 +178,14 @@ class GaussianProcessRegression(GaussianProcessCommons):
         device = data_r.x.device
         with maybe_profile(self._profile_dir, instr.name):
             extra = rextra if self._objective == "marginal" else ()
-            if self._objective == "elbo":
-                if self._mesh is not None:
-                    from spark_gp_tpu_torch.models.likelihood import _require_shard_map_support
-
-                    _require_shard_map_support(self._objective)
+            if self._objective == "elbo" and active is None:
                 # the bound needs its inducing set before the
-                # optimization, selected from this attempt's rows
+                # optimization, selected from this attempt's rows (off the
+                # stack over a mesh without them)
                 with instr.phase("active_set"):
-                    active = self._select_active(kernel, kernel.init_theta(), x_r, y_r, device)
+                    active = self._select_active(kernel, kernel.init_theta(), x_r, y_r, device,
+                                                 self._provider_stack(data_r))
+            if self._objective == "elbo":
                 extra = (active, self._sigma2)
                 # checkpoint tags carry the bound's surface
                 self._objective_salt = self._elbo_checkpoint_salt(extra)

@@ -244,14 +244,60 @@ class LaplaceLanes:
         return values, grads, f
 
 
+class ShardedLanes:
+    """A latent objective's lanes over a mesh (the JAX package's
+    ``_segment_vag(mesh)`` and sharded device fits): this rank's
+    ``lanes`` run their Newton iterations (EP: site sweeps) on its own
+    block, its latent modes and Newton state stay on the rank, and each
+    evaluation all-reduces ``[values, grads, unfinished]`` ``[R, 1 + h +
+    1]`` once on the device, so a captured step holds one collective a
+    replay whatever the Newton loop does (its iterations are unrolled and
+    masked).  A lane is finished when every rank's block finished it.  The
+    Newton iterations counted (``worked``, the eager counts) are this
+    rank's own: each rank's loop stops on its own experts."""
+
+    def __init__(self, lanes: LaplaceLanes, mesh) -> None:
+        from spark_gp_tpu_torch.optimize.lbfgs_device import carry_fields
+
+        self.lanes, self.mesh = lanes, mesh
+        self.carry_fields = carry_fields(lanes)
+
+    def trial(self, thetas, carry, run):
+        values, grads, carry, finished, worked = self.lanes.trial(thetas, carry, run)
+        flat = self.mesh.all_reduce(torch.cat(
+            [values[:, None], grads, (~finished).to(values.dtype)[:, None]], dim=1))
+        return flat[:, 0], flat[:, 1:-1], carry, flat[:, -1] == 0, worked
+
+    def evaluate(self, thetas, aux):
+        values, grads, aux = self.lanes.evaluate(thetas, aux)
+        flat = self.mesh.all_reduce(torch.cat([values[:, None], grads], dim=1))
+        return flat[:, 0], flat[:, 1:], aux
+
+    def reset(self, aux):
+        return self.lanes.reset(aux)
+
+
+def over_mesh(lanes: LaplaceLanes, mesh, capture: bool = True):
+    """``lanes`` summed over ``mesh`` (:class:`ShardedLanes`), or as they are
+    without one; a gloo group on the card raises ``MeshCaptureError``
+    (``likelihood.check_capturable``) before anything runs."""
+    if mesh is None:
+        return lanes
+    from spark_gp_tpu_torch.models.likelihood import check_capturable
+
+    check_capturable(mesh, lanes, capture)
+    return ShardedLanes(lanes, mesh)
+
+
 # --- the fit drivers -------------------------------------------------------------
 
 
-def _device_fit_scope():
-    """The ``fit.device`` span around a device fit."""
+def _device_fit_scope(mesh=None):
+    """The ``fit.device`` span (``fit.device.sharded`` over a mesh) around
+    a device fit."""
     from spark_gp_tpu_torch.obs import trace as obs_trace
 
-    return obs_trace.span("fit.device")
+    return obs_trace.span("fit.device" if mesh is None else "fit.device.sharded")
 
 
 def _add_eager_counts(lanes: LaplaceLanes, loop_metrics) -> None:
@@ -270,17 +316,21 @@ def _add_eager_counts(lanes: LaplaceLanes, loop_metrics) -> None:
 
 
 def fit_latent_device(lanes: LaplaceLanes, log_space: bool, theta0, lower, upper, max_iter: int,
-                      tol: float, capture: bool = True, loop_metrics=None):
+                      tol: float, capture: bool = True, loop_metrics=None, mesh=None):
     """The single-start device fit of a Laplace family from zero latents:
     ``(theta, f_latents [E, s, ...], nll, n_iter, n_fev, stalled)`` as
     device tensors, theta in linear coordinates, the latents the modes at
-    the last accepted iterate (JAX ``fit_gpc_device``)."""
+    the last accepted iterate (JAX ``fit_gpc_device``).  With ``mesh``,
+    ``lanes`` hold this rank's block and the fit is the sharded one
+    (:class:`ShardedLanes`, JAX ``fit_gpc_device_sharded``): every rank runs
+    the same loop, the latents returned are its block's, and the rest is
+    the same on every rank."""
     from spark_gp_tpu_torch.optimize.lbfgs_device import lbfgs_run_lanes, log_reparam
 
-    vag, from_u = lanes, (lambda t: t)
+    vag, from_u = over_mesh(lanes, mesh, capture), (lambda t: t)
     if log_space:
-        vag, theta0, lower, upper, from_u = log_reparam(lanes, theta0, lower, upper)
-    with _device_fit_scope():
+        vag, theta0, lower, upper, from_u = log_reparam(vag, theta0, lower, upper)
+    with _device_fit_scope(mesh):
         st = lbfgs_run_lanes(vag, theta0[None], lower, upper, max_iter=max_iter, tol=tol,
                              capture=capture, loop_metrics=loop_metrics, aux0=lanes.aux0(1))
     _add_eager_counts(lanes, loop_metrics)
@@ -289,19 +339,20 @@ def fit_latent_device(lanes: LaplaceLanes, log_space: bool, theta0, lower, upper
 
 
 def fit_latent_device_multistart(lanes: LaplaceLanes, log_space: bool, theta0_batch, lower,
-                                 upper, max_iter: int, tol: float, loop_metrics=None):
+                                 upper, max_iter: int, tol: float, loop_metrics=None, mesh=None):
     """All R restarts as one lockstep device loop, every trial's Newton
     iterations one K1 launch over the R lanes' stacks; the lanes start from
     zero latents each (JAX ``fit_gpc_device_multistart``).  Returns
     ``(theta_best, f_latents_best, nll_best, n_iter, n_fev, stalled,
-    f_all [R], best)``: the lowest finite final objective wins."""
+    f_all [R], best)``: the lowest finite final objective wins.  ``mesh``:
+    as for :func:`fit_latent_device`."""
     from spark_gp_tpu_torch.optimize.lbfgs_device import lbfgs_run_lanes, log_reparam
 
-    vag, from_u = lanes, (lambda t: t)
+    vag, from_u = over_mesh(lanes, mesh), (lambda t: t)
     if log_space:
-        vag, theta0_batch, lower, upper, from_u = log_reparam(lanes, theta0_batch, lower, upper)
+        vag, theta0_batch, lower, upper, from_u = log_reparam(vag, theta0_batch, lower, upper)
     r = theta0_batch.shape[0]
-    with _device_fit_scope():
+    with _device_fit_scope(mesh):
         st = lbfgs_run_lanes(vag, theta0_batch, lower, upper, max_iter=max_iter, tol=tol,
                              loop_metrics=loop_metrics, aux0=lanes.aux0(r))
     _add_eager_counts(lanes, loop_metrics)
@@ -313,13 +364,15 @@ def fit_latent_device_multistart(lanes: LaplaceLanes, log_space: bool, theta0_ba
 
 def fit_latent_device_checkpointed(lanes: LaplaceLanes, kind: str, log_space: bool, theta0,
                                    lower, upper, max_iter: int, tol: float, chunk: int, saver,
-                                   loop_metrics=None, **meta_extra):
+                                   loop_metrics=None, mesh=None, **meta_extra):
     """The device fit in ``chunk``-iteration segments with the full
     optimizer state, the latent modes included, persisted through
     ``saver`` (``utils/checkpoint.run_segmented``); a resume continues
     from the saved modes.  ``kind`` and ``meta_extra`` are the JAX
     package's ``segment_meta`` kind and extras.  Returns the single-start
-    fit's tuple."""
+    fit's tuple.  ``mesh``: as for :func:`fit_latent_device` (the
+    ladder's ``segmented`` rung with its in-memory saver; a checkpoint
+    directory under a mesh is refused before this runs)."""
     from spark_gp_tpu_torch.optimize.lbfgs_device import (
         LbfgsConfig,
         log_transform_bounds,
@@ -332,13 +385,13 @@ def fit_latent_device_checkpointed(lanes: LaplaceLanes, kind: str, log_space: bo
     tol_meta = float(torch.tensor(tol, dtype=lanes.x.dtype))
     meta = segment_meta(kind, lanes.kernel, tol_meta, log_space, theta0, lanes.x, lanes.y,
                         lanes.mask, **meta_extra)
-    vag, start = lanes, theta0
+    vag, start = over_mesh(lanes, mesh), theta0
     if log_space:
-        vag = log_transform_vag(lanes)
+        vag = log_transform_vag(vag)
         lower, upper = log_transform_bounds(lower, upper)
         start = torch.log(theta0)
     cfg = LbfgsConfig(lower=lower, upper=upper, tol=float(tol))
-    with _device_fit_scope():
+    with _device_fit_scope(mesh):
         try:
             st = run_segmented(vag, start, cfg, saver, meta, max_iter, chunk,
                                loop_metrics=loop_metrics, aux0=lanes.aux0(1))

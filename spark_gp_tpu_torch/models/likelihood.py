@@ -210,39 +210,47 @@ def objective_fn(objective: str):
 
 
 def objective_supports_shard_map(objective: str) -> bool:
-    """The dispatch rule of the sharded paths (the JAX package's): an
+    """The JAX package's dispatch rule, which path it takes over a mesh: an
     objective that is a sum over experts (the marginal NLL, LOO) sums its
-    ranks' partial sums; the ELBO, a nonlinear function of global sums,
-    does not, and over a mesh is ROADMAP.md item 6a-rest."""
+    ranks' partial sums in ``shard_map``; the ELBO, a nonlinear function of
+    global sums, rides GSPMD there.  The port sums every objective over
+    the ranks (the ELBO its sums, ``models/sgpr.elbo_value_and_grad``), so
+    it only reports."""
     return objective != "elbo"
 
 
-def _require_shard_map_support(objective: str) -> None:
-    if not objective_supports_shard_map(objective):
-        from spark_gp_tpu_torch.models.common import _not_ported
-
-        raise _not_ported(f"the {objective!r} objective over a mesh", "6a")
-
-
 def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
-                        objective: str = "marginal", extra=()):
+                        objective: str = "marginal", extra=(), mesh=None):
     """``theta (float64 numpy) -> (float, float64 numpy grad)`` of
     ``objective`` (:func:`objective_fn`; ``extra`` is the ELBO's
     ``(active [m, p] numpy, sigma2)``): theta is cast to the stack's dtype
     and device, and the value and gradient come back to the host in one
     transfer.  ``cache``: as for :func:`batched_nll`, resident on the
     device across evaluations.  Each evaluation runs on the precision lane
-    in effect at its call."""
+    in effect at its call.  The ELBO runs its two passes
+    (``models/sgpr.elbo_value_and_grad``), its sums all-reduced over
+    ``mesh`` when one is given (``data`` this rank's block); ``mesh`` is
+    only for the ELBO (:func:`make_sharded_value_and_grad` sums the
+    others)."""
     fn = objective_fn(objective)
     extra = _objective_operands(data, objective, extra)
+    if objective == "elbo":
+        from spark_gp_tpu_torch.models.sgpr import elbo_value_and_grad
+
+        reduce = None if mesh is None else mesh.all_reduce
 
     def evaluate(theta):
         t = torch.as_tensor(
             np.asarray(theta, dtype=np.float64), dtype=data.x.dtype,
             device=data.x.device,
-        ).requires_grad_(True)
-        value = fn(kernel, t, data, cache, *extra)
-        (grad,) = torch.autograd.grad(value, t)
+        )
+        if objective == "elbo":
+            value, grad = elbo_value_and_grad(kernel, t[None], data, *extra, reduce=reduce)
+            value, grad = value[0], grad[0]
+        else:
+            t.requires_grad_(True)
+            value = fn(kernel, t, data, cache, *extra)
+            (grad,) = torch.autograd.grad(value, t)
         host = torch.cat([value.detach()[None], grad]).to(torch.float64).cpu().numpy()
         return float(host[0]), host[1:]
 
@@ -254,17 +262,23 @@ def make_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
 
 
 def make_sharded_value_and_grad(kernel: Kernel, data: ExpertData, mesh,
-                                objective: str = "marginal", cache=None, weights=None):
+                                objective: str = "marginal", cache=None, weights=None,
+                                extra=()):
     """``theta -> (nll, grad)`` summed over the ranks of ``mesh``: ``data``
     is this rank's block of the stack (``parallel/mesh.shard_experts``,
     ``distribute_global_experts``), ``cache`` and ``weights`` its blocks of
-    the gram cache and the ``[E]`` aggregation weights.  Each rank takes
-    its experts' value and autograd gradient (:func:`make_value_and_grad`:
-    one K1 launch on the exact lane, K2 / K2-VJP and the quadrature on the
-    matfree lane), then one all-reduce sums both in float64; theta is
-    replicated.  The marginal and LOO objectives; the jitter operand of
-    the recovery loop rides no sharded path (the JAX package's rule)."""
-    _require_shard_map_support(objective)
+    the gram cache and the ``[E]`` aggregation weights.  The marginal and
+    LOO objectives: each rank takes its experts' value and autograd
+    gradient (:func:`make_value_and_grad`: one K1 launch on the exact lane,
+    K2 / K2-VJP and the quadrature on the matfree lane), then one
+    all-reduce sums both in float64; theta is replicated.  The ELBO
+    (``extra`` its ``(active, sigma2)``): the bound of the all-reduced sums
+    and the all-reduced vector-Jacobian product of each rank's sums
+    (``models/sgpr.elbo_value_and_grad``), two collectives.  The jitter
+    operand of the recovery loop rides no sharded path (the JAX package's
+    rule)."""
+    if objective == "elbo":
+        return make_value_and_grad(kernel, data, None, objective, extra, mesh=mesh)
     extra = () if weights is None or objective != "marginal" else (None, weights)
     local = make_value_and_grad(kernel, data, cache, objective, extra)
     from spark_gp_tpu_torch.parallel.mesh import allreduced_objective
@@ -357,8 +371,9 @@ def lanes_nll(kernel: Kernel, thetas, data: ExpertData, cache=None, jitter=None,
 
 
 def lanes_objective(objective: str):
-    """The lanes counterpart of :func:`objective_fn`: ``(kernel, thetas
-    [R, h], data, cache, *extra) -> values [R]``."""
+    """The lanes counterpart of :func:`objective_fn` for the marginal and
+    LOO objectives: ``(kernel, thetas [R, h], data, cache, *extra) ->
+    values [R]``."""
     if objective == "marginal":
         return lanes_nll
     if objective == "loo":
@@ -366,14 +381,9 @@ def lanes_objective(objective: str):
 
         return lambda kernel, thetas, data, cache, *extra: lanes_loo_nll(
             kernel, thetas, data, cache)
-    if objective == "elbo":
-        from spark_gp_tpu_torch.models.sgpr import batched_elbo_nll
-
-        return lambda kernel, thetas, data, cache, active, sigma2: torch.stack([
-            batched_elbo_nll(kernel, thetas[r], data, active, sigma2)
-            for r in range(thetas.shape[0])])
     raise ValueError(
-        f"unknown objective {objective!r}; expected 'marginal', 'loo' or 'elbo'"
+        f"unknown objective {objective!r}; expected 'marginal' or 'loo' (the ELBO's "
+        "lanes are models/sgpr.elbo_value_and_grad)"
     )
 
 
@@ -397,12 +407,24 @@ def make_device_value_and_grad(kernel: Kernel, data: ExpertData, cache=None,
     here, once a fit, and pinned around every evaluation, so the captured
     step holds that lane's gram.  With ``mesh``, ``data`` is this rank's
     block and the values and gradients are summed over the ranks by one
-    all-reduce on the device (``parallel/mesh.allreduced_lanes``)."""
+    all-reduce on the device (``parallel/mesh.allreduced_lanes``); the
+    ELBO's two passes all-reduce its sums and then its gradient
+    (``models/sgpr.elbo_value_and_grad``), on the device too."""
     from spark_gp_tpu_torch.ops.precision import active_lane
 
-    fn = lanes_objective(objective)
     extra = _objective_operands(data, objective, extra)
     lane = active_lane()
+    if objective == "elbo":
+        from spark_gp_tpu_torch.models.sgpr import elbo_value_and_grad
+
+        reduce = None if mesh is None else mesh.all_reduce
+
+        def elbo_vag(thetas):
+            with precision_lane_scope(lane):
+                return elbo_value_and_grad(kernel, thetas, data, *extra, reduce=reduce)
+
+        return elbo_vag
+    fn = lanes_objective(objective)
     # the CG lanes' probes, drawn at the fit's first evaluation and kept
     probes = it_ops.ProbeSet(experts=data.num_experts)
 
@@ -470,7 +492,6 @@ def fit_gpr_device(kernel: Kernel, log_space: bool, theta0, lower, upper, data: 
     from spark_gp_tpu_torch.optimize.lbfgs_device import lbfgs_minimize_device, log_reparam
 
     if mesh is not None:
-        _require_shard_map_support(objective)
         check_capturable(mesh, data, capture)
     vag = make_device_value_and_grad(kernel, data, cache, objective, extra, mesh)
     from_u = (lambda t: t)
@@ -506,7 +527,6 @@ def fit_gpr_device_multistart(kernel: Kernel, log_space: bool, theta0_batch, low
     from spark_gp_tpu_torch.optimize.lbfgs_device import multistart_minimize
 
     if mesh is not None:
-        _require_shard_map_support(objective)
         check_capturable(mesh, data)
     vag = make_device_value_and_grad(kernel, data, cache, objective, extra, mesh)
     with _device_fit_scope(data, mesh):
@@ -545,7 +565,6 @@ def fit_gpr_device_checkpointed(kernel: Kernel, log_space: bool, theta0, lower, 
     meta = segment_meta(family, kernel, tol_meta, log_space, theta0, data.x, data.y, data.mask,
                         **extra_meta)
     if mesh is not None:
-        _require_shard_map_support(objective)
         check_capturable(mesh, data)
     vag = make_device_value_and_grad(kernel, data, cache, objective, extra, mesh)
     if log_space:

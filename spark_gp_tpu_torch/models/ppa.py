@@ -12,8 +12,9 @@ the predictor (R&W ch. 8.3.4).
   in float64, the Cholesky factors being the PD check under the jitter
   ladder of ``ops/linalg.py``: on the host (numpy / scipy) below
   ``_DEVICE_SOLVE_MIN_M`` active points, on the model's device from there
-  on (:func:`magic_solve_device`, under the ``ppa`` degradation ladder,
-  whose last rung is the host solve).
+  on (:func:`magic_solve_device`, or over a mesh of several ranks the
+  row-sharded :func:`sharded_magic_solve`, under the ``ppa`` degradation
+  ladder, whose last rung is the host solve).
 * Predict -- ``mean = k(x, A) magicVector`` (``[t]`` or ``[t, C]``) and
   ``var = k(x, x) + k(x, A) magicMatrix k(x, A)^T``, the cross kernel and
   its contractions in float64, returned in the working dtype, in chunks
@@ -109,21 +110,32 @@ _DEVICE_SOLVE_MIN_M = 2048
 
 
 def magic_solve(kernel: Kernel, theta, active, u1, u2,
-                with_variance: bool = True, device=None):
+                with_variance: bool = True, device=None, mesh=None):
     """Float64 solve for ``(magicVector, magicMatrix)``; the matrix is
     ``None`` when ``with_variance`` is False.  Dispatches by m: the host
-    solve (:func:`_host_magic_solve`) below :data:`_DEVICE_SOLVE_MIN_M`,
-    else :func:`magic_solve_device` on ``device`` (``None``: ``cuda``)
+    solve (:func:`_host_magic_solve`) below :data:`_DEVICE_SOLVE_MIN_M`;
+    from there, over a ``mesh`` of more than one rank, the row-sharded
+    solve (:func:`sharded_magic_solve`, on the mesh's devices), else
+    :func:`magic_solve_device` on ``device`` (``None``: ``cuda``), both
     under the ``ppa`` ladder (``resilience/fallback.run_ppa_solve_ladder``:
-    an OOM or compile failure re-runs the solve on the host).  Raises
+    an OOM or compile failure re-runs the solve on the host; over several
+    ranks it takes no host rung, see there).  Raises
     ``NotPositiveDefiniteException`` when the jitter ladder is exhausted,
-    on either path."""
+    on every path."""
     if np.asarray(active).shape[0] >= _DEVICE_SOLVE_MIN_M:
         from spark_gp_tpu_torch.resilience.fallback import run_ppa_solve_ladder
 
+        if mesh is not None and mesh.world_size > 1:
+            def device_attempt():
+                return sharded_magic_solve(kernel, theta, active, u1, u2, mesh,
+                                           with_variance=with_variance)
+        else:
+            def device_attempt():
+                return magic_solve_device(kernel, theta, active, u1, u2, with_variance, device)
         return run_ppa_solve_ladder(
-            lambda: magic_solve_device(kernel, theta, active, u1, u2, with_variance, device),
+            device_attempt,
             lambda: _host_magic_solve(kernel, theta, active, u1, u2, with_variance),
+            mesh=mesh,
         )
     return _host_magic_solve(kernel, theta, active, u1, u2, with_variance)
 
@@ -234,6 +246,74 @@ def magic_solve_device(kernel: Kernel, theta, active, u1, u2, with_variance: boo
     eye = torch.eye(kmm.shape[0], dtype=kmm.dtype, device=dev)
     mm = sn2 * _device_chol_solve(factors["PD"], eye) - _device_chol_solve(factors["K_mm"], eye)
     return mv.cpu().numpy(), mm.cpu().numpy()
+
+
+@torch.no_grad()
+def sharded_magic_solve(kernel: Kernel, theta, active, u1, u2, mesh, block: int = 128,
+                        with_variance: bool = True):
+    """The magic solve with its ``[m, m]`` factorizations row-sharded over
+    ``mesh`` (``ops/dist_linalg.py``), on the mesh's devices in float64:
+    the same trace-relative jitter schedule as :func:`magic_solve_device`,
+    each factor walking it on its own (the JAX package's sharded solve
+    walks both factors together; the port's device and host solves do
+    not, and this one gives their answers), the finite check of each
+    attempt all-reduced, so every rank takes the same rung.  ``m`` is
+    padded to a multiple of ``world * block`` with an identity block,
+    sliced away after the solves.  ``u1`` / ``u2`` are the replicated
+    statistics (:func:`kmn_stats_sharded`), ``u2`` ``[m]`` or ``[m, C]``;
+    every rank returns the same float64 numpy ``(magicVector, magicMatrix
+    or None)``.  A mean-only solve never factors ``K_mm``.  A staged fault
+    at the ``ppa.magic_solve`` choke point raises on every rank before
+    any collective."""
+    from spark_gp_tpu_torch.ops import dist_linalg as dl
+    from spark_gp_tpu_torch.resilience import chaos
+
+    chaos.maybe_injected_failure("ppa.magic_solve")
+    dev = mesh.device
+
+    def put(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev, torch.float64)
+        return torch.tensor(np.asarray(a, dtype=np.float64), device=dev)
+
+    theta_d, active_d, u1_d, u2_d = put(theta), put(active), put(u1), put(u2)
+    cache = prepare_gram_cache(kernel, active_d)
+    kmm = kernel.gram(theta_d, active_d) if cache is None else \
+        kernel.gram_from_cache(theta_d, cache)
+    sn2 = kernel.white_noise_var(theta_d)
+    m = kmm.shape[0]
+    gran = mesh.world_size * block
+    m_pad = -(-m // gran) * gran
+    eye = torch.eye(m, dtype=kmm.dtype, device=dev)
+    mats = {"PD": sn2 * kmm + u1_d}
+    if with_variance:
+        mats["K_mm"] = kmm
+    mats = {name: 0.5 * (mat + mat.mT) for name, mat in mats.items()}
+    factors, taus = {}, {}
+    for tau in JITTER_SCHEDULE:
+        attempt = {name: dl.sharded_cholesky(
+                       mesh, dl.pad_spd(mat + (tau * torch.trace(mat) / m) * eye, m_pad), block)
+                   for name, mat in mats.items() if name not in factors}
+        for (name, chol_loc), ok in zip(attempt.items(), dl.all_finite(mesh, *attempt.values())):
+            if ok:
+                factors[name], taus[name] = chol_loc, tau
+        if len(factors) == len(mats):
+            break
+    else:
+        raise NotPositiveDefiniteException()
+    for name, tau in taus.items():
+        if tau:
+            logging.getLogger("spark_gp_tpu_torch").warning(
+                "sharded magic solve: %s required relative jitter %.3e for positive "
+                "definiteness", name, tau)
+    rhs = torch.cat([u2_d, u2_d.new_zeros((m_pad - m,) + tuple(u2_d.shape[1:]))])
+    mv = dl.sharded_chol_solve(mesh, factors["PD"], rhs, block)[:m]
+    if not with_variance:
+        return mv.cpu().numpy(), None
+    eye_pad = torch.eye(m_pad, m, dtype=kmm.dtype, device=dev)
+    pd_inv = dl.sharded_chol_solve(mesh, factors["PD"], eye_pad, block)[:m]
+    kmm_inv = dl.sharded_chol_solve(mesh, factors["K_mm"], eye_pad, block)[:m]
+    return mv.cpu().numpy(), (sn2 * pd_inv - kmm_inv).cpu().numpy()
 
 
 def _predict_chunk(predictor, theta, active, mv, mm, part):

@@ -180,6 +180,9 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("drift.score.*", "gauge", "last drift window's max per-dim mean shift in train-std units", label="model"),
     MetricName("integrity.artifact_verified", "counter", "model artifacts whose sha256 sidecar verified on load"),
     MetricName("integrity.artifact_corrupt", "counter", "model artifacts refused on sidecar digest mismatch"),
+    MetricName("integrity.panel_checks", "counter", "sharded Cholesky diagonal panels compared across the ranks (ops/dist_linalg.py)"),
+    MetricName("integrity.panel_mismatch", "counter", "checked panels that differed across the ranks (an SDC verdict naming the rank; also a span event)"),
+    MetricName("integrity.panel_spread", "gauge", "the last checked sharded factorization's largest relative difference between the ranks' panel copies (0 when they agree bit for bit)"),
     # -- memory planning (resilience/memplan.py) ---------------------------
     MetricName("plan.hit", "counter", "plan decisions whose chosen configuration was predicted-safe"),
     MetricName("plan.miss", "counter", "reactive recovery engaged despite (or no config fit) a plan decision"),

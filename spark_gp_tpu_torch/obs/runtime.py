@@ -67,6 +67,10 @@ class RuntimeTelemetry:
             by = self.per_entry.setdefault(key, {})
             by[entry] = by.get(entry, 0.0) + n
 
+    def set_gauge(self, key: str, value: float) -> None:
+        with self._lock:
+            self.gauges[key] = float(value)
+
     def sample_memory(self) -> Dict[str, float]:
         """One sample of the card's allocator (the host peak RSS where this
         process holds no CUDA context).  Reads the caching allocator's own

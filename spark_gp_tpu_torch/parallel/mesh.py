@@ -31,8 +31,10 @@ while a gloo collective synchronizes with the host, so a device fit on
 the card over a gloo group raises :class:`MeshCaptureError` before it
 captures anything.
 
-The payloads are small: ``h + 1`` scalars an objective evaluation, the
-``[m, m]`` float64 ``U1`` once a fit.
+The payloads are small: ``h + 1`` scalars an objective evaluation (the
+ELBO's ``m^2 + m + 3`` sums and then ``h``), the ``[m, m]`` float64
+``U1`` once a fit, and from 2,048 active points the row-sharded magic
+solve's ``[m, b]`` panels (``ops/dist_linalg.py``).
 """
 
 from __future__ import annotations

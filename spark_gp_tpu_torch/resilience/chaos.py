@@ -43,7 +43,12 @@ ordinary deterministic tests:
 * :class:`HangingPredictor` / :func:`hang_model` -- a serving predict that
   blocks until released (the wedged device the hang watchdog is for).
 
-The mesh faults (a dead or straggling rank) need the deadline-guarded
+* :func:`corrupt_device` -- one rank's redundant diagonal-panel copies
+  inside the sharded Cholesky (``ops/dist_linalg.py``) scaled: the silent
+  corruption the panel tripwire (``resilience/integrity.py``) is for.
+  Env channel: ``GP_CHAOS_CORRUPT_DEVICE`` (+ ``GP_CHAOS_CORRUPT_SCALE``).
+
+The other mesh faults (a dead or straggling rank) need the deadline-guarded
 collectives of the coordination plane (ROADMAP.md queue 1, item 6c).
 """
 
@@ -132,6 +137,8 @@ _state = {
     "memory_fired": None,    # one-element list: budget-OOM count
     "sigma_scale": None,     # float | None: staged served-sigma factor
     "input_shift": None,     # float | None: staged covariate shift
+    "corrupt_device": None,  # int | None: the rank whose panel copies go wrong
+    "corrupt_scale": None,   # float | None: the factor they are scaled by
 }
 
 
@@ -493,3 +500,30 @@ def break_model(server, name: str, version: Optional[int] = None, **flaky_kw):
     flaky = FlakyPredictor(entry.predictor, **flaky_kw)
     entry.predictor = flaky
     return flaky
+
+
+def staged_device_corruption() -> Optional[tuple]:
+    """``(rank, scale)`` when a sharded-solve fault is staged
+    (:func:`corrupt_device`, else ``GP_CHAOS_CORRUPT_DEVICE`` with
+    ``GP_CHAOS_CORRUPT_SCALE``, default 1e3), else None: read by
+    ``ops/dist_linalg.sharded_cholesky``."""
+    rank, scale = _state["corrupt_device"], _state["corrupt_scale"]
+    if rank is None:
+        env_rank = _env_chaos_float("GP_CHAOS_CORRUPT_DEVICE")
+        if env_rank is None:
+            return None
+        rank, scale = int(env_rank), _env_chaos_float("GP_CHAOS_CORRUPT_SCALE")
+    return int(rank), float(scale if scale else 1e3)
+
+
+@contextlib.contextmanager
+def corrupt_device(index: int, scale: float = 1e3):
+    """Scale rank ``index``'s redundantly computed diagonal panel copies
+    inside the sharded blocked Cholesky by ``scale``: the cross-rank
+    divergence the integrity plane's panel tripwire exists to catch."""
+    prev = (_state["corrupt_device"], _state["corrupt_scale"])
+    _state["corrupt_device"], _state["corrupt_scale"] = int(index), float(scale)
+    try:
+        yield
+    finally:
+        _state["corrupt_device"], _state["corrupt_scale"] = prev

@@ -164,6 +164,10 @@ def classify_failure(exc: BaseException) -> str:
         return exc.failure_class
     if isinstance(exc, GuardBreachError):
         return GUARD_BREACH
+    from spark_gp_tpu_torch.resilience.integrity import IntegrityError
+
+    if isinstance(exc, IntegrityError):
+        return SDC
     if isinstance(exc, NotPositiveDefiniteException):
         return NOT_PSD_EXHAUSTED
     if isinstance(exc, (NonFiniteFitError, ExpertQuarantineError)):
@@ -548,13 +552,21 @@ def run_predict_ladder(attempt_at_chunk: Callable[[int], object],
             raise
 
 
-def run_ppa_solve_ladder(device_attempt: Callable, host_attempt: Callable):
+def run_ppa_solve_ladder(device_attempt: Callable, host_attempt: Callable, mesh=None):
     """The magic solve's ladder (``models/ppa.magic_solve``): an OOM or a
     compile failure of the device float64 solve re-runs the same solve on
     the host (``device_solve`` -> ``host_solve``, counted).  Anything else,
     ``NotPositiveDefiniteException`` among it, is re-raised as it was: the
-    ladder changes where the solve runs, never the jitter policy."""
-    if not enabled():
+    ladder changes where the solve runs, never the jitter policy.
+
+    Over a ``mesh`` of several ranks no rank takes the host rung: a rank
+    whose sharded solve failed midway cannot rejoin its peers' collectives
+    to agree on a verdict, so its failure propagates (the multi-rank rule
+    of the fit's recovery, ``models/common._run_with_expert_resilience``).
+    A staged fault at the solve's choke point fires before any collective,
+    on every rank that staged it; a real one on one rank leaves its peers
+    to the group's timeout, which raises on them."""
+    if not enabled() or (mesh is not None and mesh.world_size > 1):
         return device_attempt()
     try:
         return device_attempt()

@@ -30,7 +30,7 @@ def estimator(spec: dict, m=None):
     ``family`` (``gpr``, ``gpc``, ``gpc_mc``, ``poisson``, ``ep``), ``p``
     (the ARD width; 0 for an isotropic RBF), ``s``, ``m_active``,
     ``sigma2``, ``maxiter``, ``seed``, ``provider`` (``random``,
-    ``kmeans``, ``greedy``), ``optimizer``, ``tol``."""
+    ``kmeans``, ``greedy``), ``optimizer``, ``tol``, ``objective``."""
     if m is None:
         import spark_gp_tpu_torch as m
     cls = {"gpr": m.GaussianProcessRegression, "gpc": m.GaussianProcessClassifier,
@@ -56,6 +56,8 @@ def estimator(spec: dict, m=None):
         gp = gp.setActiveSetProvider(m.GreedilyOptimizingActiveSetProvider())
     if spec.get("optimizer"):
         gp = gp.setOptimizer(spec["optimizer"])
+    if spec.get("objective"):
+        gp = gp.setObjective(spec["objective"])
     return gp
 
 
@@ -132,18 +134,32 @@ def latent_objective(mesh, spec, x, y, theta):
     return np.asarray([value]), grad
 
 
-def fit(mesh, spec, x, y, xt, mode="mesh_fit", active=None, rows=None):
+def fit(mesh, spec, x, y, xt, mode="mesh_fit", active=None, rows=None, env=None):
     """A fit over the mesh and its ``(theta, predictions at xt, active set,
-    [nfev, num_experts])``.  ``mode``: ``mesh_fit`` (``setMesh(mesh).fit``
-    on every rank's copy of the rows), ``distributed`` (``fit_distributed``
-    of this rank's block of the stack of all rows), ``rows``
-    (``fit_distributed`` of ``distribute_global_experts`` over this rank's
-    slice ``rows[rank]`` of the rows)."""
-    from spark_gp_tpu_torch.parallel.distributed import distribute_global_experts
-
+    [nfev, num_experts])``; the environment ``env`` is set around it.
+    ``mode``: ``mesh_fit`` (``setMesh(mesh).fit`` on every rank's copy of
+    the rows), ``distributed`` (``fit_distributed`` of this rank's block of
+    the stack of all rows), ``rows`` (``fit_distributed`` of
+    ``distribute_global_experts`` over this rank's slice ``rows[rank]`` of
+    the rows)."""
     gp = estimator(spec)
     if mesh is not None:
         gp = gp.setMesh(mesh)
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        return _fit_record(gp, mesh, spec, x, y, xt, mode, active, rows)
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def _fit_record(gp, mesh, spec, x, y, xt, mode, active, rows):
+    from spark_gp_tpu_torch.parallel.distributed import distribute_global_experts
+
     if mode == "mesh_fit":
         model = gp.fit(x, y)
     elif mode == "distributed":
@@ -200,8 +216,134 @@ def default_device(mesh):
         return f"raised: {exc}"
 
 
+def raised(fn):
+    """``fn()``'s result, or ``"raised <type>: <message>"`` for its error."""
+    try:
+        return fn()
+    except Exception as exc:  # noqa: BLE001 -- the test reads the rank's verdict
+        return f"raised {type(exc).__name__}: {exc}"
+
+
+def dist_chol(mesh, a, rhs, block):
+    """The sharded factor of ``a`` gathered whole, and its solves of each
+    right-hand side of ``rhs`` (or the error: a granularity refused)."""
+    import torch
+
+    from spark_gp_tpu_torch.ops import dist_linalg as dl
+
+    def run():
+        chol = dl.sharded_cholesky(mesh, torch.as_tensor(a), block)
+        full = torch.cat(mesh.all_gather(chol)).numpy()
+        return [full] + [dl.sharded_chol_solve(mesh, chol, torch.as_tensor(r), block).numpy()
+                         for r in rhs]
+
+    return raised(run)
+
+
+def tripwire(mesh, a, block, corrupt):
+    """The panel tripwire at ``GP_INTEGRITY_PANEL_SAMPLE=1``: the clean
+    factor, the panel checks it counted and their cross-rank spread, the
+    verdict on a staged
+    ``corrupt_device(corrupt)`` (``(pid, code, failure class)``), and the
+    factor the same corruption gives silently at ``GP_INTEGRITY=0``."""
+    import torch
+
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+    from spark_gp_tpu_torch.ops import dist_linalg as dl
+    from spark_gp_tpu_torch.resilience import chaos, integrity
+    from spark_gp_tpu_torch.resilience.fallback import classify_failure
+
+    a = torch.as_tensor(a)
+    saved = {k: os.environ.get(k) for k in ("GP_INTEGRITY", "GP_INTEGRITY_PANEL_SAMPLE")}
+    os.environ["GP_INTEGRITY_PANEL_SAMPLE"] = "1.0"
+    try:
+        before = telemetry.snapshot()["counters"].get("integrity.panel_checks", 0.0)
+        clean = torch.cat(mesh.all_gather(dl.sharded_cholesky(mesh, a, block))).numpy()
+        snap = telemetry.snapshot()
+        checks = snap["counters"].get("integrity.panel_checks", 0.0) - before
+        spread = snap["gauges"]["integrity.panel_spread"]
+        verdict = None
+        try:
+            with chaos.corrupt_device(corrupt):
+                dl.sharded_cholesky(mesh, a, block)
+        except integrity.PanelMismatchError as exc:
+            verdict = (exc.pid, exc.code, classify_failure(exc))
+        os.environ["GP_INTEGRITY"] = "0"
+        with chaos.corrupt_device(corrupt):
+            silent = torch.cat(mesh.all_gather(dl.sharded_cholesky(mesh, a, block))).numpy()
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    return clean, checks, spread, verdict, silent
+
+
+def magic(mesh, length, noise, active, u1, u2, block, with_variance=True):
+    """``ppa.sharded_magic_solve`` of an RBF(``length``) + ``noise`` Eye
+    kernel at its initial theta, and the jitter warnings it logged."""
+    import logging
+
+    from spark_gp_tpu_torch import Const, EyeKernel, RBFKernel
+    from spark_gp_tpu_torch.models import ppa
+
+    kernel = RBFKernel(length) + Const(noise) * EyeKernel()
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: records.append(rec.getMessage())
+    logger = logging.getLogger("spark_gp_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        mv, mm = ppa.sharded_magic_solve(kernel, kernel.init_theta(), active, u1, u2, mesh,
+                                         block=block, with_variance=with_variance)
+    finally:
+        logger.removeHandler(handler)
+    return mv, mm, records
+
+
+def elbo(mesh, spec, x, y, theta, active, sigma2):
+    """The sharded ELBO's ``(value, grad)`` at ``theta``."""
+    from spark_gp_tpu_torch.models.likelihood import make_sharded_value_and_grad
+
+    data = _stack(x, y, spec["s"], mesh)
+    value, grad = make_sharded_value_and_grad(_kernel_of(spec), data, mesh, "elbo",
+                                              extra=(active, sigma2))(theta)
+    return np.asarray([value]), grad
+
+
+def select(mesh, x, y, s, mode, seed):
+    """Fit-time selection's report over the mesh: ``(drop, weights)``."""
+    from spark_gp_tpu_torch.models.aggregation import select_experts
+    from spark_gp_tpu_torch.parallel.experts import num_experts_for
+
+    report = select_experts(_stack(x, y, s, mesh), mode=mode, seed=seed, mesh=mesh,
+                            num_experts=num_experts_for(x.shape[0], s))
+    return report.drop, report.weights
+
+
+def row_sharded_fit(mesh, spec, x, y, xt, min_m):
+    """A ``setMesh`` fit with the device solve's threshold lowered to
+    ``min_m``: its record (:func:`fit`) and the sharded magic solves it ran."""
+    from spark_gp_tpu_torch.models import ppa
+
+    solve, threshold = ppa.sharded_magic_solve, ppa._DEVICE_SOLVE_MIN_M
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[2].shape[0])
+        return solve(*args, **kw)
+
+    ppa.sharded_magic_solve, ppa._DEVICE_SOLVE_MIN_M = counted, int(min_m)
+    try:
+        return fit(mesh, spec, x, y, xt) + (np.asarray(calls),)
+    finally:
+        ppa.sharded_magic_solve, ppa._DEVICE_SOLVE_MIN_M = solve, threshold
+
+
 SCENARIOS = {f.__name__: f for f in (objective, kmn, latent_objective, fit, poe, distribute,
-                                     sample, default_device)}
+                                     sample, default_device, dist_chol, tripwire, magic, elbo,
+                                     select, row_sharded_fit)}
 
 
 # -- the ranks -----------------------------------------------------------------------

@@ -4,11 +4,12 @@ two gloo ranks on the CPU, started once for this file
 stack, against the JAX package's sharded functions on the 8-device CPU
 mesh (``tests/conftest.py``), in float64.  Tolerances: the marginal and
 LOO value and gradient rtol 1e-10 / 1e-9; ``(U1, u2)`` 1e-12; the Laplace,
-multiclass, generic and EP objectives 1e-9; fits theta rtol 1e-5 and
-predictions rtol 1e-6 (``test_torch_gpr.py``'s); the sharded device fit
-against the unsharded one 1e-8."""
+multiclass, generic and EP objectives 1e-9; the ELBO 1e-10; fits theta
+rtol 1e-5 and predictions rtol 1e-6 (``test_torch_gpr.py``'s); the sharded
+device fits against the unsharded ones 1e-8; selection's report exactly."""
 
 import _torch_env  # noqa: F401  (one PyTorch thread per test process)
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,11 +17,13 @@ import torch
 
 import _torch_mesh_worker as w
 import spark_gp_tpu as jgp
+from spark_gp_tpu.models import aggregation as j_agg
 from spark_gp_tpu.models import ep as j_ep
 from spark_gp_tpu.models import laplace as j_lap
 from spark_gp_tpu.models import laplace_generic as j_lg
 from spark_gp_tpu.models import laplace_mc as j_mc
 from spark_gp_tpu.models import ppa as j_ppa
+from spark_gp_tpu.models import sgpr as j_sgpr
 from spark_gp_tpu.models.likelihood import make_sharded_value_and_grad as j_sharded_vag
 from spark_gp_tpu.models.poe import make_poe_predictor as j_poe
 from spark_gp_tpu.parallel.experts import group_for_experts as j_group
@@ -218,6 +221,95 @@ def test_sharded_device_fit_matches_the_unsharded_device_fit(pool):
     np.testing.assert_allclose(port[0], alone[0], rtol=1e-8)
     np.testing.assert_allclose(port[1], alone[1], rtol=1e-8, atol=1e-8)
     assert port[3][0] == alone[3][0]   # the same evaluations
+
+
+def test_sharded_elbo_matches_jax(pool):
+    """The ELBO over two ranks (the bound of the all-reduced sums, the
+    all-reduced vector-Jacobian product) against the JAX package's
+    ``batched_elbo_nll`` over the whole stack."""
+    x, y, _ = _data()
+    spec = dict(SPEC, sigma2=1e-2)
+    theta = np.asarray(w.estimator(spec)._get_kernel().init_theta()) * 0.9
+    active = x[::12]
+    ranks = pool.submit("elbo", spec=spec, x=x, y=y, theta=theta, active=active, sigma2=1e-2)
+    kernel = w.estimator(spec, jgp)._get_kernel()
+    jv, jg = jax.jit(jax.value_and_grad(lambda t: j_sgpr.batched_elbo_nll(
+        kernel, t, j_group(x, y, S), jnp.asarray(active), 1e-2)))(jnp.asarray(theta))
+    value, grad = _same_on_every_rank(ranks())
+    np.testing.assert_allclose(value[0], float(jv), rtol=1e-10)
+    np.testing.assert_allclose(grad, np.asarray(jg), rtol=1e-10, atol=1e-10 * np.abs(jg).max())
+
+
+#: fits over two ranks against the same fit unsharded: the device fits of
+#: the latent families from zero latents on their labels (the inner loops'
+#: tolerance tight enough that EP's per-rank stop of its sweeps does not
+#: depend on the split), the ELBO on both optimizers, and fit-time
+#: selection (GP_AGG_SELECT) on seven experts with duplicates (one padded)
+MESH_FITS = {
+    "gpc": {"family": "gpc"}, "gpc_mc": {"family": "gpc_mc"},
+    "poisson": {"family": "poisson"}, "ep": {"family": "ep"},
+    "elbo": {"family": "gpr", "objective": "elbo", "sigma2": 1e-2},
+    "elbo-host": {"family": "gpr", "objective": "elbo", "sigma2": 1e-2, "optimizer": "host"},
+    "select-drop": {"family": "gpr", "optimizer": "host"},
+    "select-downweight": {"family": "gpr", "optimizer": "host"},
+}
+
+
+@pytest.mark.parametrize("name", list(MESH_FITS))
+def test_sharded_fits_match_the_unsharded_fits(pool, name):
+    x, y, xt = _data()
+    spec = dict({"optimizer": "device"}, **MESH_FITS[name], p=P, s=S, m_active=16, maxiter=5,
+                tol=1e-10)
+    env = None
+    if name.startswith("select"):
+        x, y = _duplicated()
+        env = {"GP_AGG_SELECT": "1", "GP_AGG_SELECT_MODE": name.split("-")[1]}
+    elif spec["family"] != "gpr":
+        y = _labels(spec["family"], x)
+    ranks = pool.submit("fit", spec=spec, x=x, y=y, xt=xt, mode="mesh_fit", env=env)
+    alone = w.fit(None, spec, x, y, xt, mode="mesh_fit", env=env)
+    port = _same_on_every_rank(ranks())
+    np.testing.assert_allclose(port[0], alone[0], rtol=1e-8)
+    np.testing.assert_allclose(port[1], alone[1], rtol=1e-8, atol=1e-8 * np.abs(alone[1]).max())
+    assert port[3][0] == alone[3][0]   # the same evaluations
+
+
+def test_a_fit_over_the_threshold_solves_row_sharded(pool):
+    """With ``ppa._DEVICE_SOLVE_MIN_M`` lowered to the active set's size,
+    a two-rank fit runs the row-sharded magic solve once (the fit passes
+    its mesh) and equals the unsharded fit's host solve."""
+    x, y, xt = _data()
+    spec = dict(SPEC, m_active=64, maxiter=4)
+    ranks = pool.submit("row_sharded_fit", spec=spec, x=x, y=y, xt=xt, min_m=64)
+    alone = w.fit(None, spec, x, y, xt)
+    *port, calls = _same_on_every_rank(ranks())
+    np.testing.assert_array_equal(calls, [64])
+    np.testing.assert_allclose(port[0], alone[0], rtol=1e-8)
+    np.testing.assert_allclose(port[1], alone[1], rtol=1e-8, atol=1e-8 * np.abs(alone[1]).max())
+
+
+def _duplicated(e=7, s=S, seed=9):
+    """Rows whose round-robin experts 1 and 4 repeat experts 0 and 3."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(e * s, P))
+    rows = np.arange(e * s)
+    for dup, src in ((1, 0), (4, 3)):
+        x[rows % e == dup] = x[rows % e == src]
+    return x, np.sin(x @ np.array([1.0, 0.5, -0.7]))
+
+
+@pytest.mark.parametrize("mode", ["drop", "downweight"])
+def test_selection_over_the_mesh_matches_jax(pool, mode):
+    """Seven experts over two ranks (one padded): the global report equals
+    the JAX package's ``select_experts`` over the whole stack, the padded
+    expert inactive."""
+    x, y = _duplicated()
+    ranks = pool.submit("select", x=x, y=y, s=S, mode=mode, seed=7)
+    j_report = j_agg.select_experts(j_group(x, y, S), threshold=0.95, mode=mode, seed=7)
+    drop, weights = _same_on_every_rank(ranks())
+    np.testing.assert_array_equal(drop, np.append(j_report.drop, False))
+    np.testing.assert_array_equal(weights, np.append(j_report.weights, 0.0))
+    assert j_report.num_dropped == (2 if mode == "drop" else 0)
 
 
 @pytest.mark.parametrize("mode", ["rbcm", "poe"])

@@ -290,3 +290,29 @@ def test_elbo_ppa_uses_the_preselected_set(fit_data):
 def test_set_objective_rejects_unknown():
     with pytest.raises(ValueError, match="unknown objective"):
         tgp.GaussianProcessRegression().setObjective("map")
+
+
+@pytest.mark.parametrize("scale", [(1.0, 1.0), (2.0, 2.0)])
+def test_float32_elbo_holds_the_card_bars(scale):
+    """The Synthetics ELBO config on 1,500 rows in float32 against float64
+    on the CPU, within 1e-5 of the value and 1e-4 of the largest gradient
+    component, at the initial theta and at twice it.  Each trace term
+    ``tr K_nn / 2 sigma2`` is 7.6e4 here, 180 times the bound at the
+    initial theta.  Here the float64 sums leave about 2e-8 / 1e-7.  The
+    float32 form that summed the two traces apart missed the bars at both
+    points (3.3e-5 / 1.2e-4 at the initial theta, 9.9e-7 / 5.9e-4 at twice
+    it, in one thread), and so did the residual trace alone in float32
+    (1.7e-5 / 1.2e-4, 1.8e-6 / 5.1e-4)."""
+    x, y = make_synthetics(n=1500)
+    gp = (tgp.GaussianProcessRegression(device="cpu").setKernel(lambda: 1.0 * tgp.RBFKernel(
+        0.1, 1e-6, 10)).setActiveSetProvider(tgp.KMeansActiveSetProvider()).setSigma2(1e-2)
+        .setSeed(13))
+    kernel = gp._get_kernel()
+    active = gp._select_active(kernel, kernel.init_theta(), x, y, torch.device("cpu"))
+    theta = kernel.init_theta() * np.asarray(scale)
+    sides = [make_value_and_grad(kernel, t_group(x, y, 100, dtype=dtype), objective="elbo",
+                                 extra=(active, 1e-2))(theta)
+             for dtype in (torch.float32, torch.float64)]
+    (v32, g32), (v64, g64) = sides
+    assert abs(v32 - v64) / abs(v64) <= 1e-5
+    assert _rel(g32, g64) <= 1e-4
