@@ -438,7 +438,31 @@ code is non-zero and the final ``ok`` line is never printed:
                predictive mean and variance on 2,000 rows), its panel
                checks counted, and a staged corrupt_device(1) raising
                PanelMismatchError naming rank 1 on both ranks.  Recorded:
-               the sharded and the device solve's seconds.
+               the sharded and the device solve's seconds.  Slice 18 (the
+               coordination plane): fold 0 in the key-value-store mode
+               (GP_DCN_MODE=1, no gloo collective), theta bit-equal on
+               both ranks, RMSE < 2.1 and within 1e-6 of the gloo fold,
+               K1 once an evaluation; the same fold with every evaluation
+               audited (GP_INTEGRITY_DUPCHECK_P=1), every audit passing,
+               its rung and K1 (one more a rank an audit, and one on its
+               target) recorded; corrupt_host(1, "bitflip", op="vag")
+               raising AttestationError naming rank 1 on both ranks; a
+               coordinated host checkpoint with a preemption staged on
+               rank 1 stopping both ranks at the same save, the resume at
+               the fold's theta; last, rank 1 dead before a guarded step
+               (exit 137) and rank 0 naming it within 8 s at
+               GP_COORD_TIMEOUT_S=5.  Then this process resumes fold 0
+               alone from the two-rank checkpoint the preemption left
+               (iteration 1): one elastic resume, the logged evaluations
+               replayed and the rest run live, RMSE < 2.1 and within 1%
+               of the two-rank fit's, final NLL within 1e-4 relative of
+               it (theta's distance recorded: a one-process float32
+               continuation takes another path).  Recorded: the
+               store round trip of one evaluation's payload (ms).
+               mesh-nccl1 also runs fold 0's device fit with
+               setCheckpointDir under the mesh, bit-equal to the same
+               segmented fit without it, its all-reduce captured, and a
+               staged preemption plus resume at the same theta.
 106. launch-totals -- each kernel's launches beside the totals this
                script counted before the expert-quality probe and slice 15
                (``LAUNCH_TOTALS_BEFORE``), and the probes' share.
@@ -6025,9 +6049,12 @@ def mesh_phases(airfoil_thetas, airfoil_rmse: float, smi: str) -> dict:
     (``spark_gp_tpu_torch/dev/mesh_phases.py``), all three started at once;
     returns each kernel's launches in each child, under the labels
     ``mesh_nccl1``, ``mesh_gloo2_rank0`` and ``mesh_gloo2_rank1``."""
-    from spark_gp_tpu_torch.dev.mesh_phases import run_mesh_phases
+    from spark_gp_tpu_torch.dev.mesh_phases import elastic_resume, run_mesh_phases
 
     out = run_mesh_phases(airfoil_thetas, LARGE_M_FIT)
+    # this process's own step: fold 0 resumed alone from mesh-gloo2's
+    # two-rank host checkpoint (an elastic resume, 2 -> 1)
+    elastic = elastic_resume(out)
     nccl, gloo = out["nccl1"], out["gloo2"]
     emit({"phase": "mesh-nccl1", "seconds": nccl["seconds"], "wall_seconds": out["seconds"],
           "card": smi, **{k: v for k, v in nccl.items() if k != "seconds"}})
@@ -6045,11 +6072,30 @@ def mesh_phases(airfoil_thetas, airfoil_rmse: float, smi: str) -> dict:
         "elbo_rmse": gloo[0]["slice17"]["elbo"]["rmse"] == gloo[1]["slice17"]["elbo"]["rmse"],
         "selection_weights": (gloo[0]["slice17"]["selection"]["weights"]
                               == gloo[1]["slice17"]["selection"]["weights"]),
+        # slice 18: the store mode and the coordinated checkpoint
+        **{f"{key}_theta": gloo[0]["coord"][key]["theta"] == gloo[1]["coord"][key]["theta"]
+           for key in ("store_fit", "audited_fit", "preemption")},
+        "audit_rungs": (gloo[0]["coord"]["audited_fit"]["audit_rungs"]
+                        == gloo[1]["coord"]["audited_fit"]["audit_rungs"]),
+        "corrupt_host_verdict": (gloo[0]["coord"]["corrupt_host"]["verdict"]
+                                 == gloo[1]["coord"]["corrupt_host"]["verdict"]),
+        "coord_checkpoints": (gloo[0]["coord"]["preemption"]["checkpoints"]
+                              == gloo[1]["coord"]["preemption"]["checkpoints"] >= 1),
     }
     bars = {"airfoil_rmse": rmse_mesh < 2.1,
-            "airfoil_within_1pct": abs(rmse_mesh - airfoil_rmse) / airfoil_rmse < 0.01}
+            "airfoil_within_1pct": abs(rmse_mesh - airfoil_rmse) / airfoil_rmse < 0.01,
+            "elastic_resume_counted": elastic["elastic_resumes"] == 1
+            and elastic["stored_process_count"] == 2,
+            "elastic_resume_live": elastic["resumed_from_iteration"] == 1
+            and elastic["nfev"] > 0,
+            "elastic_resume_fit": elastic["rmse"] < 2.1
+            and abs(elastic["rmse"] - elastic["two_rank_rmse"]) < 0.01 * elastic["two_rank_rmse"]
+            and abs(elastic["final_nll"] - elastic["two_rank_final_nll"])
+            <= 1e-4 * abs(elastic["two_rank_final_nll"]),
+            "elastic_k1_rule": elastic["k1"] == elastic["k1_rule"]}
     emit({"phase": "mesh-gloo2", "seconds": max(r["seconds"] for r in gloo), "card": smi,
           "unsharded_airfoil_rmse": airfoil_rmse, "ranks_agree": agree, "bars": bars,
+          "elastic_resume": elastic,
           "ranks": [{k: v for k, v in r.items() if k != "thetas"} for r in gloo]})
     failed = [f"rank {r['rank']}: {r['checks']}" for r in gloo if not all(r["checks"].values())]
     if failed or not all(agree.values()) or not all(bars.values()):
@@ -6059,6 +6105,7 @@ def mesh_phases(airfoil_thetas, airfoil_rmse: float, smi: str) -> dict:
                        ("mesh_gloo2_rank1", gloo[1])):
         for name, n in rec["launches"].items():
             launches.setdefault(name, {})[label] = n
+    launches["spd_inv_logdet"]["mesh_elastic_main"] = elastic["k1"]
     return launches
 
 

@@ -28,6 +28,29 @@ the one card, each rank a child process.
   one-rank device solve of the same statistics, its panel checks counted
   and a staged ``corrupt_device(1)`` raising ``PanelMismatchError``
   naming rank 1 on both ranks.
+* the coordination plane (``parallel/coord.py``; :func:`coord_gloo2`,
+  :func:`coord_nccl1`).  mesh-gloo2: airfoil fold 0 again in the
+  key-value-store mode (``GP_DCN_MODE=1``: every sum a round over the
+  group's ``FileStore``, no gloo collective), theta bit-equal on both
+  ranks, RMSE < 2.1 and within 1e-6 of the gloo-sharded fold, K1 once an
+  evaluation; the same fold with every evaluation audited by duplicate
+  dispatch (``GP_INTEGRITY_DUPCHECK_P=1``: each audit one K1 launch a
+  rank and one more on its target), every audit passing and its rung
+  recorded; ``corrupt_host(1, "bitflip", op="vag")`` raising
+  ``AttestationError`` naming rank 1 on both ranks; a coordinated host
+  checkpoint under the gloo mesh with a preemption staged on rank 1
+  (both ranks stop with ``PreemptedError`` at the same save, the resume
+  ends at the uninterrupted fold's theta; rank 0 keeps a copy of the
+  checkpoint the preemption left, from which the parent resumes the fold
+  in one process: an elastic resume that runs most of the fit live); and,
+  after the ranks
+  wrote their records, rank 1 dies before a guarded step
+  (``DeadHost(exit_process=True)``, exit 137) while rank 0, at
+  ``GP_COORD_TIMEOUT_S=5``, raises ``CoordinationTimeoutError`` naming
+  it.  mesh-nccl1: fold 0's device fit with ``setCheckpointDir`` under
+  the mesh (segmented, the coordinated device shell at world size 1)
+  bit-equal to the same segmented fit without it, the all-reduce still
+  captured, and a staged preemption plus resume at the same theta.
 
 Every rank checks its K1 launches against its own evaluations (each rank
 launches K1 once an evaluation on its block), times its collectives, and
@@ -48,10 +71,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -180,6 +205,7 @@ def nccl1(args: dict) -> dict:
     rec["payload_bytes"] = {"device_step": 4 * (1 + h), "host_objective": 8 * (1 + h),
                             "u1_u2": 8 * (1000 * 1000 + 1000)}
     rec["slice17"] = slice17_nccl1(mesh, w, checks)
+    rec["coord"] = coord_nccl1(mesh, w, checks, x, y, folds, args["ckpt_dir"])
     rec["launches"] = {n: wr.launches for n, wr in w.items()}
     rec["checks"] = checks
     return rec
@@ -381,6 +407,7 @@ def gloo2(args: dict) -> dict:
         "u1": _reduce_ms(mesh, u1)}
     rec["payload_bytes"] = {"host_objective": 8 * (1 + h), "u1": 8 * 1000 * 1000}
     rec["slice17"] = slice17_gloo2(mesh, w, checks, args["large_m"])
+    rec["coord"] = coord_gloo2(mesh, w, checks, x, y, folds, fits[0], args["ckpt_dir"])
     rec["launches"] = {n: wr.launches for n, wr in w.items()}
     rec["checks"] = checks
     return rec
@@ -449,6 +476,227 @@ def slice17_gloo2(mesh, w: dict, checks: dict, large_m: dict) -> dict:
                                          + ma["lbfgs_nfev"] + cs.probe_rule(ma))
     out["magic_solve"] = sharded_solve(mesh, checks, large_m)
     return out
+
+
+def _fold_rmse(model, x, y, test) -> float:
+    from spark_gp_tpu_torch.utils.validation import rmse
+
+    return float(rmse(y[test], model.predict(x[test])))
+
+
+def _audited_k1(first: int, nfev: int, audits: int, rank: int, world: int, p: float) -> int:
+    """K1 launches of a store-mode host fit's audits on ``rank``: every
+    audited vag round (``integrity.should_spot_check`` of the context's
+    round index, from ``first``) recomputes one expert claim on every rank
+    and the target computes its claim too."""
+    from spark_gp_tpu_torch.resilience import integrity
+
+    rounds = [k for k in range(first, first + nfev) if integrity.should_spot_check(k, p)]
+    if len(rounds) != audits:
+        return -1
+    return len(rounds) + sum(integrity.spot_check_target(k, world) == rank for k in rounds)
+
+
+def coord_gloo2(mesh, w: dict, checks: dict, x, y, folds, fold0: dict, ckpt_dir: str) -> dict:
+    """mesh-gloo2's coordination phases (module doc), fold 0; ``fold0`` is
+    the gloo-sharded fold's record; ``checks`` gains their entries."""
+    import json
+
+    import chip_smoke as cs
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+    from spark_gp_tpu_torch.parallel import coord
+    from spark_gp_tpu_torch.resilience import chaos, integrity
+
+    train, test = folds[0]
+    out = {}
+    k1 = w["spd_inv_logdet"]
+
+    def counter(key):
+        return telemetry.snapshot()["counters"].get(key, 0.0)
+
+    def store_fit(p):
+        """The fold in the store mode with audits at rate ``p``: its record."""
+        with_env = {"GP_DCN_MODE": "1", "GP_INTEGRITY_DUPCHECK_P": str(p)}
+        ctx = _selected(with_env, coord.dcn_context)
+        rounds, audits, before = dict(ctx.gathers), len(ctx.audits), k1.launches
+        first = ctx.gathers.get("vag", 0)
+        t0 = time.perf_counter()
+        model = _selected(with_env, lambda: cs.airfoil_gp(100).setMesh(mesh).fit(x[train],
+                                                                                  y[train]))
+        seconds = time.perf_counter() - t0
+        m = model.metrics
+        nfev, probe = int(m["lbfgs_nfev"]), _probe_k1(model)
+        new_audits = list(ctx.audits[audits:])
+        return {"seconds": seconds, "nfev": nfev, "theta": model.raw_predictor.theta.tolist(),
+                "rmse": _fold_rmse(model, x, y, test), "k1": k1.launches - before,
+                "probe_k1": probe,
+                "k1_rule": nfev + probe + _audited_k1(first, nfev, len(new_audits), mesh.rank,
+                                                      mesh.world_size, p),
+                "audits": len(new_audits), "audit_rungs": sorted({str(r) for r in new_audits}),
+                "store_rounds": {k: v - rounds.get(k, 0) for k, v in ctx.gathers.items()
+                                 if v - rounds.get(k, 0)}}
+
+    rec = store_fit(0.0)
+    ctx = _selected({"GP_DCN_MODE": "1"}, coord.dcn_context)
+    h = len(rec["theta"])
+    times = []
+    for _ in range(TIMED_REDUCES):
+        t0 = time.perf_counter()
+        ctx.allreduce_arrays("timed_vag", np.zeros(1), np.zeros(h), np.zeros(1))
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec["round_trip_ms"] = float(np.median(times))
+    rec["round_trip_payload_bytes"] = 8 * (h + 2)
+    out["store_fit"] = rec
+    checks["store_fit_rmse"] = rec["rmse"] < 2.1
+    checks["store_fit_vs_gloo"] = abs(rec["rmse"] - fold0["rmse"]) <= 1e-6 * fold0["rmse"]
+    checks["store_fit_k1_rule"] = rec["k1"] == rec["k1_rule"] > 0
+    # every evaluation audited by duplicate dispatch
+    audited = store_fit(1.0)
+    out["audited_fit"] = audited
+    checks["audits_pass"] = audited["audits"] == audited["nfev"] > 0 and \
+        "None" not in audited["audit_rungs"]
+    checks["audited_k1_rule"] = audited["k1"] == audited["k1_rule"] > 0
+    # a bit flip on rank 1's published vag payloads
+    verdict = None
+    t0 = time.perf_counter()
+    try:
+        with chaos.corrupt_host(1, "bitflip", op="vag"):
+            _selected({"GP_DCN_MODE": "1", "GP_INTEGRITY_DUPCHECK_P": "0"},
+                      lambda: cs.airfoil_gp(100).setMesh(mesh).fit(x[train], y[train]))
+    except integrity.AttestationError as exc:
+        verdict = {"type": type(exc).__name__, "pid": exc.pid, "code": exc.code}
+    out["corrupt_host"] = {"verdict": verdict, "seconds": time.perf_counter() - t0}
+    checks["corrupt_host_named"] = verdict is not None and verdict["pid"] == 1 \
+        and verdict["code"] == "digest_mismatch"
+    # a coordinated host checkpoint under the gloo mesh, rank 1 preempted
+    directory = os.path.join(ckpt_dir, "gloo2_host")
+    saves0, before = counter("coord.checkpoints"), k1.launches
+    raised = None
+    if mesh.rank == 1:
+        chaos.stage_preemption(True)
+    try:
+        cs.airfoil_gp(100).setMesh(mesh).setCheckpointDir(directory).fit(x[train], y[train])
+    except coord.PreemptedError as exc:
+        raised = type(exc).__name__
+    finally:
+        chaos.stage_preemption(False)
+        coord.clear_preemption_for_testing()
+    with open(os.path.join(directory, "lbfgs_state_GaussianProcessRegression.json")) as fh:
+        saved = json.load(fh)
+    preempted_evals = len(saved["evaluations"])
+    # the preempted checkpoint, kept for the parent's elastic resume (rank 0
+    # is the writer: the ranks' resume below overwrites the original)
+    preempted_copy = directory + "_preempted"
+    if mesh.rank == 0:
+        shutil.copytree(directory, preempted_copy)
+    resumed = cs.airfoil_gp(100).setMesh(mesh).setCheckpointDir(directory).fit(x[train],
+                                                                            y[train])
+    m = resumed.metrics
+    out["preemption"] = {
+        "raised": raised, "saved_iteration": saved["iteration"],
+        "checkpoints": counter("coord.checkpoints") - saves0,
+        "preempted_evaluations": preempted_evals, "resumed_nfev": int(m["lbfgs_nfev"]),
+        "resumed_from_iteration": m.get("resumed_from_iteration", 0),
+        "k1": k1.launches - before,
+        "k1_rule": preempted_evals + int(m["lbfgs_nfev"]) + _probe_k1(resumed),
+        "theta": resumed.raw_predictor.theta.tolist(), "final_nll": m["final_nll"],
+        "rmse": _fold_rmse(resumed, x, y, test), "preempted_copy": preempted_copy,
+        "elastic_process_count": saved.get("elastic", {}).get("process_count")}
+    checks["preemption_stops"] = raised == "PreemptedError" and saved["iteration"] == 1
+    out["preemption"]["bit_equal"] = out["preemption"]["theta"] == fold0["theta"]
+    checks["preemption_resume_theta"] = _rel_diff(out["preemption"]["theta"],
+                                                  fold0["theta"]) <= 1e-9
+    checks["preemption_k1_rule"] = out["preemption"]["k1"] == out["preemption"]["k1_rule"]
+    return out
+
+
+def dead_rank(rank: int, timeout_s: float = 5.0) -> Optional[dict]:
+    """The last gloo2 step, after the ranks wrote their records: rank 1
+    dies before a guarded step (exit 137); rank 0 meets the deadline and
+    returns what it raised."""
+    from spark_gp_tpu_torch.parallel import coord
+    from spark_gp_tpu_torch.resilience import chaos
+
+    if rank == 1:
+        with chaos.DeadHost(exit_process=True):
+            coord.guard_collective("dead-rank")
+        return None  # not reached
+    os.environ["GP_COORD_TIMEOUT_S"] = str(timeout_s)
+    t0 = time.perf_counter()
+    try:
+        coord.guard_collective("dead-rank")
+    except coord.CoordinationTimeoutError as exc:
+        return {"missing": list(exc.missing), "seconds": time.perf_counter() - t0,
+                "timeout_s": timeout_s}
+    return {"missing": [], "seconds": time.perf_counter() - t0, "timeout_s": timeout_s}
+
+
+def coord_nccl1(mesh, w: dict, checks: dict, x, y, folds, ckpt_dir: str) -> dict:
+    """mesh-nccl1's coordinated device checkpoint (module doc), fold 0;
+    ``checks`` gains its entries."""
+    import chip_smoke as cs
+    from spark_gp_tpu_torch.parallel import coord
+    from spark_gp_tpu_torch.resilience import chaos
+
+    train = folds[0][0]
+    k1 = w["spd_inv_logdet"]
+
+    def fit(name, with_mesh):
+        gp = cs.airfoil_gp(100).setOptimizer("device").setCheckpointDir(
+            os.path.join(ckpt_dir, name))
+        return (gp.setMesh(mesh) if with_mesh else gp).fit(x[train], y[train])
+
+    before = k1.launches
+    t0 = time.perf_counter()
+    meshed = fit("nccl1_mesh", True)
+    t1 = time.perf_counter()
+    alone = fit("nccl1_alone", False)
+    seconds = {"sharded": t1 - t0, "unsharded": time.perf_counter() - t1}
+    ms, ma = meshed.metrics, alone.metrics
+
+    def device_rule(model):
+        m = model.metrics
+        return m["device_opt.replays"] + m.get("device_opt.eager_steps", 0.0) + 1 + \
+            _probe_k1(model)
+
+    rec = {"seconds": seconds, "k1": k1.launches - before,
+           "k1_rule": device_rule(meshed) + device_rule(alone),
+           "graph_nodes": [ms.get("device_opt.graph_nodes"), ma.get("device_opt.graph_nodes")],
+           "captures": [ms.get("device_opt.captures"), ma.get("device_opt.captures")],
+           "replays": [ms.get("device_opt.replays"), ma.get("device_opt.replays")],
+           "bit_equal": _same_model(meshed, alone, x[:200])}
+    checks["ckpt_device_bit_equal"] = rec["bit_equal"]
+    extra = (rec["graph_nodes"][0] or 0) - (rec["graph_nodes"][1] or 0)
+    checks["ckpt_device_all_reduce_captured"] = ms.get("device_opt.captures") == 1.0 \
+        and ms.get("device_opt.replays", 0) > 0 and 0 < extra <= 16
+    checks["ckpt_device_k1_rule"] = rec["k1"] == rec["k1_rule"]
+    # a staged preemption at the first segment save, then the resume
+    raised = None
+    chaos.stage_preemption(True)
+    try:
+        fit("nccl1_preempt", True)
+    except coord.PreemptedError as exc:
+        raised = type(exc).__name__
+    finally:
+        chaos.stage_preemption(False)
+        coord.clear_preemption_for_testing()
+    resumed = fit("nccl1_preempt", True)
+    rec["preemption"] = {"raised": raised,
+                         "resumed_from_iteration": resumed.metrics.get("resumed_from_iteration",
+                                                                       0),
+                         "bit_equal": _same_model(resumed, meshed, x[:200]),
+                         "max_rel_theta_diff": _rel_diff(resumed.raw_predictor.theta,
+                                                         meshed.raw_predictor.theta)}
+    checks["ckpt_device_preemption"] = raised == "PreemptedError" and \
+        rec["preemption"]["resumed_from_iteration"] > 0 and \
+        rec["preemption"]["max_rel_theta_diff"] <= 1e-6
+    return rec
+
+
+def _rel_diff(a, b) -> float:
+    """The largest relative difference of two thetas."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
 
 
 def sharded_solve(mesh, checks: dict, large_m: dict) -> dict:
@@ -582,17 +830,27 @@ def child_main(argv) -> int:
     rec["seconds"] = time.perf_counter() - start
     import torch.distributed as dist
 
-    dist.destroy_process_group()
     with open(out_path, "w", encoding="utf-8") as fh:
         json.dump(rec, fh)
-    return 0
+    if phase != "gloo2":
+        dist.destroy_process_group()
+        return 0
+    # the last step: rank 1 dies (exit 137), rank 0 names it at the deadline
+    rec["dead_rank"] = dead_rank(int(args["rank"]))
+    rec["checks"]["dead_rank_named"] = rec["dead_rank"]["missing"] == [1] and \
+        rec["dead_rank"]["seconds"] < 8.0
+    with open(out_path, "w", encoding="utf-8") as fh:
+        json.dump(rec, fh)
+    # a group whose peer is gone is not torn down: exit without the teardown
+    os._exit(0)
 
 
-def _run_children(jobs_args, timeout_s: float, env=None) -> list:
+def _run_children(jobs_args, timeout_s: float, env=None, exits=None) -> list:
     """Start one child a ``(phase, rank, args)`` at once, each with
-    ``timeout_s``; their records in order.  Raises naming the child that
-    failed, timed out or wrote no record (its output's tail in the
-    message), after every child has ended."""
+    ``timeout_s``; their records in order.  ``exits`` maps ``(phase,
+    rank)`` to the exit code a child is to end with (default 0).  Raises
+    naming the child that failed, timed out or wrote no record (its
+    output's tail in the message), after every child has ended."""
     work = tempfile.mkdtemp(prefix="gp_mesh_")
     jobs = []
     for phase, rank, args in jobs_args:
@@ -617,7 +875,8 @@ def _run_children(jobs_args, timeout_s: float, env=None) -> list:
             proc.kill()
             proc.wait()
             failures.append(f"{phase} rank {rank}: timed out after {timeout_s} s")
-        if proc.returncode != 0 or not os.path.exists(out_path):
+        if proc.returncode != (exits or {}).get((phase, rank), 0) \
+                or not os.path.exists(out_path):
             log.seek(0)
             failures.append(f"{phase} rank {rank}: exit {proc.returncode}\n"
                             + log.read()[-3000:])
@@ -645,14 +904,70 @@ def run_mesh_phases(unsharded_thetas, large_m: dict, timeout_s: float = CHILD_TI
     """Start the three ranks (mesh-nccl1's and mesh-gloo2's two) at once,
     each with ``timeout_s``; ``large_m`` is the large-m fit's ``theta`` and
     ``active`` (lists).  Return ``{"nccl1": record, "gloo2": [rank 0,
-    rank 1], "seconds": wall}``.  Raises naming the child that failed,
-    timed out or wrote no record (its output's tail in the message), after
-    every child has ended."""
-    args = {"unsharded_thetas": unsharded_thetas, "large_m": large_m}
+    rank 1], "seconds": wall, "ckpt_dir": the checkpoints' directory,
+    "unsharded_thetas": as given}``
+    (the caller resumes from mesh-gloo2's host checkpoint, then removes
+    the directory).  Raises naming the child that failed, timed out or
+    wrote no record (its output's tail in the message), after every child
+    has ended; mesh-gloo2's rank 1 is to end with exit 137 (its dead-rank
+    step)."""
+    ckpt_dir = tempfile.mkdtemp(prefix="gp_mesh_ckpt_")
+    args = {"unsharded_thetas": unsharded_thetas, "large_m": large_m, "ckpt_dir": ckpt_dir}
     start = time.perf_counter()
-    nccl, *gloo = _run_children([("nccl1", 0, args), ("gloo2", 0, args), ("gloo2", 1, args)],
-                                timeout_s)
-    return {"nccl1": nccl, "gloo2": gloo, "seconds": time.perf_counter() - start}
+    try:
+        nccl, *gloo = _run_children(
+            [("nccl1", 0, args), ("gloo2", 0, args), ("gloo2", 1, args)], timeout_s,
+            exits={("gloo2", 1): 137})
+    except BaseException:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        raise
+    return {"nccl1": nccl, "gloo2": gloo, "seconds": time.perf_counter() - start,
+            "ckpt_dir": ckpt_dir, "unsharded_thetas": unsharded_thetas}
+
+
+def elastic_resume(out: dict) -> dict:
+    """The parent's step after the children: a plain one-process fit of
+    airfoil fold 0 resumes from the two-rank host checkpoint that
+    mesh-gloo2's preemption left (an elastic resume, counted once): it
+    replays the evaluations the two ranks logged and runs the rest of the
+    fit live on the whole fold; removes the checkpoints' directory.
+    Returns its record: beside the counts, its RMSE and final NLL (the
+    bars compare them with the two-rank fit's) and theta's largest
+    relative distance from the two-rank fit's and from the uninterrupted
+    one-process fold's.  On the card a live continuation in one process
+    sums the experts' float32 values in another order than two ranks do,
+    which moves L-BFGS along the flat directions of the airfoil surface:
+    theta is recorded, not held to the two-rank fit's."""
+    import chip_smoke as cs
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+    from spark_gp_tpu_torch.ops import spd_linalg as spd
+
+    try:
+        x, y, folds = airfoil_data()
+        train, test = folds[0]
+        pre = out["gloo2"][0]["coord"]["preemption"]
+        before = telemetry.snapshot()["counters"].get("coord.elastic_resumes", 0.0)
+        k1_before = spd.spd_inv_logdet.launches
+        t0 = time.perf_counter()
+        model = cs.airfoil_gp(100).setCheckpointDir(pre["preempted_copy"]).fit(x[train],
+                                                                                y[train])
+        seconds = time.perf_counter() - t0
+        theta, ref = model.raw_predictor.theta, np.asarray(pre["theta"])
+        return {"seconds": seconds,
+                "elastic_resumes": telemetry.snapshot()["counters"].get(
+                    "coord.elastic_resumes", 0.0) - before,
+                "resumed_from_iteration": model.metrics.get("resumed_from_iteration", 0),
+                "nfev": int(model.metrics["lbfgs_nfev"]),
+                "k1": spd.spd_inv_logdet.launches - k1_before,
+                "k1_rule": int(model.metrics["lbfgs_nfev"]) + _probe_k1(model),
+                "max_rel_theta_diff": _rel_diff(theta, ref),
+                "max_rel_theta_diff_unsharded": _rel_diff(theta, out["unsharded_thetas"][0]),
+                "rmse": _fold_rmse(model, x, y, test),
+                "final_nll": model.metrics["final_nll"],
+                "two_rank_rmse": pre["rmse"], "two_rank_final_nll": pre["final_nll"],
+                "stored_process_count": pre["elastic_process_count"]}
+    finally:
+        shutil.rmtree(out["ckpt_dir"], ignore_errors=True)
 
 
 def main(argv) -> int:
@@ -678,6 +993,7 @@ def main(argv) -> int:
     x, y, folds = airfoil_data()
     cv = cs.regression_cv(cs.airfoil_gp(100), x, y, folds)
     out = run_mesh_phases([f["theta"] for f in cv["per_fold"]], large_m)
+    out["elastic_resume"] = elastic_resume(out)
     out["unsharded_rmse"] = cv["rmse"]
     print(json.dumps(out))
     return 0

@@ -2,16 +2,20 @@
 
 Setter names and defaults are the JAX package's (and the reference's).
 The port adds ``setDevice``: entry points run on ``cuda`` unless the
-caller asks for ``cpu`` (``utils/device.py``).  Setters for what this
-slice does not port raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them.
+caller asks for ``cpu`` (``utils/device.py``).
 
 ``setMesh`` splits the expert axis over the ranks of a process group
 (``parallel/mesh.py``): every rank calls ``fit(x, y)`` with the same rows
 and keeps its own block of the stack, or ``fit_distributed`` with its
 block from ``parallel/distributed.distribute_global_experts``; the
 objective, its gradient and the PPA statistics are summed over the ranks,
-and every rank ends with the same model.
+and every rank ends with the same model.  Under ``GP_DCN_MODE=1`` a fit
+over a mesh of several ranks runs in the key-value-store mode
+(:meth:`_dcn_scope`, ``parallel/coord.py``): every cross-rank sum is a
+round over the group's store and the fit runs the host optimizer.  A
+checkpoint directory under a mesh saves through the coordinated
+checkpointers: rank 0 writes, every rank checks the digest, and a resume
+on the same or another rank count continues from rank 0's state.
 
 Every fit runs inside the observability shell (:meth:`_observed_fit`:
 the root span ``fit.<Family>``, the kernel and memory capture, the run
@@ -62,15 +66,6 @@ from spark_gp_tpu_torch.utils.instrumentation import Instrumentation, maybe_prof
 logger = logging.getLogger("spark_gp_tpu_torch")
 
 
-def _not_ported(what: str, item):
-    """The error of a path the port does not have yet, naming the ROADMAP.md
-    item that ports it; the one left is item 6c's checkpoint directory
-    under a mesh (the coordinated checkpointers)."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1, item {item})"
-    )
-
-
 def _every_restart_failed():
     """The multi-start drivers' error when no restart ends finite."""
     from spark_gp_tpu_torch.resilience.quarantine import NonFiniteFitError
@@ -108,6 +103,9 @@ class GaussianProcessParams:
         self._device = device
         #: the expert mesh (``parallel/mesh.ExpertMesh``), or None
         self._mesh = None
+        #: the key-value-store fit context while a fit runs in that mode
+        #: (``parallel/coord.DcnContext``), or None
+        self._dcn_ctx = None
 
     def setKernel(self, value: Union[Kernel, Callable[[], Kernel]]):
         """A kernel factory (zero-arg callable) or a kernel spec."""
@@ -376,9 +374,17 @@ class GaussianProcessCommons(GaussianProcessParams):
         incident bundle (``obs/recorder.py``) before re-raising.  With
         tracing off (``GP_TRACING=0``) there are no spans, capture or
         journal, but the failure shell stays (the recorder has its own
-        gate, ``GP_RECORDER``)."""
+        gate, ``GP_RECORDER``).  The whole fit runs inside
+        :meth:`_dcn_scope`, and under a mesh of several ranks its trace id
+        is rank 0's (``coord.stitch_trace_token``), so every rank's journal
+        of one fit carries the same ``trace_id``."""
+        with self._dcn_scope():
+            return self._observed_fit_body(instr, run)
+
+    def _observed_fit_body(self, instr: Instrumentation, run):
         from spark_gp_tpu_torch.obs import recorder as obs_recorder
         from spark_gp_tpu_torch.obs import runtime as obs_runtime
+        from spark_gp_tpu_torch.parallel import coord
 
         entry = f"fit.{instr.name}"
         if not obs_trace.tracing_enabled():
@@ -387,7 +393,9 @@ class GaussianProcessCommons(GaussianProcessParams):
             except Exception as exc:  # classified-failure-site: bundle + re-raise
                 obs_recorder.record_fit_failure(exc, entry=entry, instr=instr)
                 raise
-        token = obs_runtime.new_trace_token()
+        # one trace id for every rank of a fit over a mesh: rank 0's, over
+        # the store (a plain fit keeps its own)
+        token = coord.stitch_trace_token(self._coord_ctx_for_checkpoint())
         with obs_runtime.trace_token_scope(token), obs_runtime.fit_capture(instr.name) as cap:
             root = None
             try:
@@ -403,12 +411,80 @@ class GaussianProcessCommons(GaussianProcessParams):
 
     def _resolved_optimizer(self) -> str:
         """``"host"`` under the ladder's ``host_f64`` rung (it re-runs the
-        fit host-driven, whatever was asked for), else the optimizer
-        ``setOptimizer`` asked for; ``"auto"`` is ``"host"`` until a
-        measured rule says otherwise (ROADMAP.md)."""
-        if self._fallback_mode == "host_f64":
+        fit host-driven, whatever was asked for) and in the
+        key-value-store mode (a store round a evaluation needs a host
+        boundary a evaluation; nothing store-bound may enter a captured
+        step), else the optimizer ``setOptimizer`` asked for; ``"auto"``
+        is ``"host"`` until a measured rule says otherwise (ROADMAP.md)."""
+        if self._fallback_mode == "host_f64" or getattr(self, "_dcn_ctx", None) is not None:
             return "host"
         return "device" if self._optimizer == "device" else "host"
+
+    # --- the coordination plane (parallel/coord.py) ------------------------
+    @contextlib.contextmanager
+    def _dcn_scope(self):
+        """Bind the key-value-store fit context (``coord.dcn_context``:
+        ``GP_DCN_MODE=1`` over a group of several processes, or a test's
+        context) to a fit over a mesh: inside, the mesh is the store mesh
+        of the same ranks (``coord.store_mesh``: every collective a round
+        over the store, no process-group collective), the optimizer is the
+        host's, each evaluation's value and gradient and the (U1, u2)
+        statistics are summed over the store, and checkpoints coordinate
+        over it.  A fit without a mesh, or with the mode off, runs as it
+        did."""
+        from spark_gp_tpu_torch.parallel import coord
+
+        ctx = coord.dcn_context() if self._mesh is not None \
+            and getattr(self, "_dcn_ctx", None) is None else None
+        with self._dcn_bound(ctx):
+            yield ctx
+
+    @contextlib.contextmanager
+    def _dcn_bound(self, ctx):
+        """``ctx`` bound and the mesh swapped for its store mesh on the
+        mesh's device for the span of the block (nothing when ``ctx`` is
+        None); both restored on exit."""
+        if ctx is None:
+            yield
+            return
+        from spark_gp_tpu_torch.parallel import coord
+        from spark_gp_tpu_torch.parallel.mesh import _rank_device
+
+        prev_ctx, prev_mesh = getattr(self, "_dcn_ctx", None), self._mesh
+        device = prev_mesh.device if prev_mesh is not None else _rank_device(self._device)
+        self._dcn_ctx, self._mesh = ctx, coord.store_mesh(ctx, device)
+        try:
+            yield
+        finally:
+            self._dcn_ctx, self._mesh = prev_ctx, prev_mesh
+
+    def _coord_ctx_for_checkpoint(self):
+        """The context the checkpoint writers coordinate over: the
+        store-mode context when one is bound, else -- under a mesh of
+        several ranks -- the process's cached bare context over the
+        group's store (``coord.checkpoint_coordination_context``), else
+        None.  A plain fit without a mesh keeps plain local writers: two
+        independent fits must never meet on the store."""
+        from spark_gp_tpu_torch.parallel import coord
+
+        ctx = getattr(self, "_dcn_ctx", None)
+        if ctx is not None:
+            return ctx
+        if not self._mesh_of_ranks():
+            return None
+        return coord.checkpoint_coordination_context()
+
+    def _global_data_key(self, data: ExpertData) -> list:
+        """The content fingerprint of the stack being fitted
+        (``utils/checkpoint.stack_fingerprint``: over the experts that
+        hold a point, so the padding that evens out the ranks does not
+        count), of the whole stack under a mesh: every rank's block's sums,
+        summed over the ranks, so every rank's checkpoint payload (and its
+        digest) is the same."""
+        from spark_gp_tpu_torch.utils.checkpoint import stack_fingerprint
+
+        return stack_fingerprint(data.x, data.y, data.mask,
+                                 self._mesh if self._mesh_of_ranks() else None)[0]
 
     # --- the device optimizer's plumbing ---------------------------------
     def _fallback_segmented(self) -> bool:
@@ -417,31 +493,39 @@ class GaussianProcessCommons(GaussianProcessParams):
         the segment length."""
         return self._fallback_mode == "segmented"
 
-    def _segment_saver_and_chunk(self, file_tag: str):
-        """``(saver, chunk)`` of a segmented device fit: the checkpointer
-        and the configured interval under ``setCheckpointDir``; the
-        ladder's in-memory saver and half the interval on the
-        ``segmented`` rung of a fit that asked for no durability."""
+    def _segment_saver_and_chunk(self, file_tag: str, data: ExpertData):
+        """``(saver, chunk)`` of a segmented device fit of ``data``: the
+        checkpointer and the configured interval under
+        ``setCheckpointDir``; the ladder's in-memory saver and half the
+        interval on the ``segmented`` rung of a fit that asked for no
+        durability."""
         if self._checkpoint_dir is not None:
-            return self._make_device_checkpointer(file_tag), self._checkpoint_interval
+            return self._make_device_checkpointer(file_tag, data), self._checkpoint_interval
         from spark_gp_tpu_torch.resilience.fallback import NullSegmentSaver, fallback_segment_chunk
 
         return NullSegmentSaver(), fallback_segment_chunk(self._checkpoint_interval)
 
-    def _make_device_checkpointer(self, file_tag: str):
-        """The device optimizer's segment saver, behind a staged preemption
-        (``chaos.preempt_after_saves``)."""
+    def _make_device_checkpointer(self, file_tag: str, data: ExpertData):
+        """The device optimizer's segment saver, stamped with the elastic
+        metadata (``coord.elastic_meta``: the process count, the mesh and
+        the global expert assignment of ``data``), in the coordinated shell
+        under a mesh (``coord.CoordinatedDeviceCheckpointer``: rank 0
+        writes, every rank checks the digest, a load ships rank 0's state),
+        and behind a staged preemption (``chaos.preempt_after_saves``)."""
+        from spark_gp_tpu_torch.parallel import coord
         from spark_gp_tpu_torch.resilience import chaos
         from spark_gp_tpu_torch.utils.checkpoint import DeviceOptimizerCheckpointer
 
-        self._check_no_mesh_checkpoints()
-        return chaos.maybe_preempting(DeviceOptimizerCheckpointer(self._checkpoint_dir, file_tag))
-
-    def _check_no_mesh_checkpoints(self) -> None:
-        """A checkpoint directory under a mesh needs the coordinated
-        checkpointers of ``parallel/coord.py``."""
+        ctx = self._coord_ctx_for_checkpoint()
+        world = 1 if self._mesh is None else self._mesh.world_size
+        elastic = coord.elastic_meta(
+            self._mesh, num_experts=int(data.x.shape[0]) * world,
+            expert_size=int(data.x.shape[1]),
+            process_count=None if ctx is None else ctx.num_processes)
+        saver = DeviceOptimizerCheckpointer(self._checkpoint_dir, file_tag, elastic=elastic)
         if self._mesh is not None:
-            raise _not_ported("a checkpoint directory under a mesh", "6c")
+            saver = coord.CoordinatedDeviceCheckpointer(saver, ctx)
+        return chaos.maybe_preempting(saver)
 
     def _mesh_of_ranks(self) -> bool:
         """True under a mesh of more than one rank."""
@@ -557,16 +641,16 @@ class GaussianProcessCommons(GaussianProcessParams):
         package's, that point passes the resolved lane's modeled bytes, so
         a staged ``chaos.memory_limit_bytes`` acts on the host path: the
         port has no other.  Under ``setCheckpointDir`` it also takes the
-        content fingerprint of the stack being fitted, which ties a
-        checkpoint's evaluation log to its data (:meth:`_resume_payload`)."""
+        content fingerprint of the stack being fitted (of the whole stack
+        under a mesh, :meth:`_global_data_key`), which ties a checkpoint's
+        evaluation log to its data (:meth:`_resume_payload`)."""
         from spark_gp_tpu_torch.resilience import chaos
-        from spark_gp_tpu_torch.utils.checkpoint import data_fingerprint
 
         if self._resolved_optimizer() != "device":
             # a device fit has its own choke point (``_device_fit_op``)
             chaos.maybe_injected_failure("fit.host", nbytes=self._dispatch_raw_bytes(data))
         self._fit_data_key = None if self._checkpoint_dir is None else \
-            data_fingerprint(data.x, data.y, data.mask)
+            self._global_data_key(data)
         try:
             with instr.phase("optimize_hypers"):
                 yield
@@ -939,15 +1023,24 @@ class GaussianProcessCommons(GaussianProcessParams):
     def _make_checkpointer(self, kernel: Kernel):
         """The per-iteration checkpoint callback under ``setCheckpointDir``
         (None without one), stamped with the fitted data's fingerprint and
-        behind a staged preemption (``chaos.preempt_after_saves``)."""
+        the elastic metadata (``coord.elastic_meta``), in the coordinated
+        shell under a mesh (``coord.CoordinatedLbfgsCheckpointer``: rank 0
+        writes, every rank checks the digest) and behind a staged
+        preemption (``chaos.preempt_after_saves``)."""
         if self._checkpoint_dir is None:
             return None
-        self._check_no_mesh_checkpoints()
+        from spark_gp_tpu_torch.parallel import coord
         from spark_gp_tpu_torch.resilience import chaos
         from spark_gp_tpu_torch.utils.checkpoint import LbfgsCheckpointer
 
-        inner = LbfgsCheckpointer(self._checkpoint_dir, kernel, tag=self._checkpoint_tag(),
-                                  seed=self._seed, data=self._fit_data_key)
+        ctx = self._coord_ctx_for_checkpoint()
+        inner = LbfgsCheckpointer(
+            self._checkpoint_dir, kernel, tag=self._checkpoint_tag(), seed=self._seed,
+            data=self._fit_data_key,
+            elastic=coord.elastic_meta(
+                self._mesh, process_count=None if ctx is None else ctx.num_processes))
+        if self._mesh is not None:
+            inner = coord.CoordinatedLbfgsCheckpointer(inner, ctx)
         return chaos.maybe_preempting(inner)
 
     def _resume_payload(self, kernel: Kernel, theta0: np.ndarray):
@@ -962,20 +1055,41 @@ class GaussianProcessCommons(GaussianProcessParams):
         (replaying it would return that fit's theta without computing
         anything on this data).  A payload without the log (the JAX
         package's host format) carries neither, and is resumed from its
-        theta."""
+        theta.
+
+        Under a mesh of several ranks only rank 0 is sure to hold the file
+        (it is the writer), so rank 0 reads it and ships it over the store,
+        and every rank resumes from the same state.  A payload stamped by
+        another process count is an elastic resume, counted
+        (``coord.elastic_resumes``) and marked by a span event, then
+        resumed: theta is replicated."""
         if self._checkpoint_dir is None:
             return None
+        import json
+
         from spark_gp_tpu_torch.utils.checkpoint import (
+            SUMMATION_RTOL,
             CheckpointMismatchError,
+            fingerprints_match,
             kernel_fingerprint,
             kernel_signature,
             load_checkpoint_payload,
+            note_elastic_resume,
             payload_state,
         )
 
-        payload = load_checkpoint_payload(self._checkpoint_dir, tag=self._checkpoint_tag())
+        ctx = self._coord_ctx_for_checkpoint()
+        payload = None
+        if ctx is None or ctx.process_id == 0:
+            payload = load_checkpoint_payload(self._checkpoint_dir, tag=self._checkpoint_tag())
+        if ctx is not None and ctx.num_processes > 1:
+            blob = json.dumps(payload or {}).encode()
+            payload = json.loads(ctx.allgather_bytes("ckpt_resume", blob)[0].decode()) or None
         if payload is None:
             return None
+        elastic = payload.get("elastic")
+        stored = None if elastic is None else elastic.get("process_count")
+        current = 1 if ctx is None else ctx.num_processes
         _, theta, sig = payload_state(payload)
         expected = kernel_signature(kernel, theta0.shape[0])
         if theta.shape != theta0.shape or (sig is not None and sig != expected):
@@ -984,11 +1098,15 @@ class GaussianProcessCommons(GaussianProcessParams):
                 f"was written under a different kernel configuration ({sig!r} != "
                 f"{expected!r}); clear the directory or use one per configuration"
             )
+        # exact on the same rank count; another count sums in another order
+        rtol = 0.0 if stored in (None, current) else SUMMATION_RTOL
         if "evaluations" in payload and (
-            payload.get("data_fingerprint") != self._fit_data_key
+            not fingerprints_match(payload.get("data_fingerprint"), self._fit_data_key, rtol)
             or payload.get("kernel_fingerprint") != kernel_fingerprint(kernel)
         ):
             return None
+        if stored not in (None, current):
+            note_elastic_resume(stored, current)
         return payload
 
     def _optimize_hypers_body(
@@ -1045,18 +1163,23 @@ class GaussianProcessCommons(GaussianProcessParams):
                 callback.record(theta, value, grad)
             return value, grad
 
+        from spark_gp_tpu_torch.parallel import coord
+
         lower, upper = kernel.bounds()
+        # SIGTERM watch only while a save boundary exists to act on it
+        watch = coord.preemption_watch() if callback is not None else contextlib.nullcontext()
         try:
-            res = minimize_lbfgsb(
-                counted,
-                theta0,
-                lower,
-                upper,
-                max_iter=max_iter,
-                tol=self._tol,
-                callback=callback,
-                log_space=self._use_log_space(kernel),
-            )
+            with watch:
+                res = minimize_lbfgsb(
+                    counted,
+                    theta0,
+                    lower,
+                    upper,
+                    max_iter=max_iter,
+                    tol=self._tol,
+                    callback=callback,
+                    log_space=self._use_log_space(kernel),
+                )
         except SimulatedPreemption as exc:
             exc.nfev = live[0]
             raise
@@ -1322,7 +1445,7 @@ class GaussianProcessCommons(GaussianProcessParams):
                 self._max_iter, self._tol, loop_metrics=loop, mesh=mesh)
             names += ("f_all", "best")
         elif self._checkpoint_dir is not None or self._fallback_segmented():
-            saver, chunk = self._segment_saver_and_chunk(file_tag)
+            saver, chunk = self._segment_saver_and_chunk(file_tag, data)
             out = ld.fit_latent_device_checkpointed(
                 lanes, kind, log_space, dev(kernel.init_theta()), lower, upper, self._max_iter,
                 self._tol, chunk, saver, loop_metrics=loop, mesh=mesh, **meta_extra)
@@ -1422,7 +1545,14 @@ class GaussianProcessCommons(GaussianProcessParams):
             )
             theta_t = torch.as_tensor(np.asarray(theta_opt, dtype=np.float64), device=device)
             active_t = torch.as_tensor(np.asarray(active, dtype=np.float64), device=device)
-            if self._mesh is None:
+            dcn = getattr(self, "_dcn_ctx", None)
+            if dcn is not None:
+                # the store mode: this rank's sums, then one round over the
+                # store summed in rank order -- every rank solves alike
+                u1, u2 = ppa.kmn_stats(kernel, theta_t, active_t, data64)
+                u1, u2 = (torch.as_tensor(a, device=device) for a in dcn.allreduce_arrays(
+                    "kmn_stats", u1.cpu().numpy(), u2.cpu().numpy()))
+            elif self._mesh is None:
                 u1, u2 = ppa.kmn_stats(kernel, theta_t, active_t, data64)
             else:
                 # each rank's sums, all-reduced: every rank solves alike
@@ -1443,10 +1573,13 @@ class GaussianProcessCommons(GaussianProcessParams):
         predictor, which downloads the statistics only where it keeps
         them."""
         active64 = np.asarray(active, dtype=np.float64)
+        # the store mode's ranks hold the same summed statistics: each
+        # solves them whole rather than row-sharded over store rounds
+        solve_mesh = None if getattr(self, "_dcn_ctx", None) is not None else self._mesh
         with instr.phase("magic_solve"):
             magic_vector, magic_matrix = ppa.magic_solve(
                 kernel, theta, active64, u1, u2,
-                with_variance=self._predictive_variance, device=device, mesh=self._mesh,
+                with_variance=self._predictive_variance, device=device, mesh=solve_mesh,
             )
         self._emit_precision_guard(instr, kernel, theta, data)
         self._emit_expert_quality(instr, kernel, theta, data)

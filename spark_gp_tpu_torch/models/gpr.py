@@ -193,8 +193,20 @@ class GaussianProcessRegression(GaussianProcessCommons):
                 res, restart_metrics = self._fit_device(instr, kernel, data_r, extra, cache)
             else:
                 vag = self._value_and_grad(kernel, data_r, cache, extra)
-                with self._optimize_phase(instr, data_r):
-                    res, restart_metrics = self._optimize_with_restarts(kernel, vag)
+                dcn = getattr(self, "_dcn_ctx", None)
+                if dcn is not None:
+                    # the store mode's duplicate-dispatch audits of this
+                    # stack (resilience/integrity.py), disarmed after the
+                    # fit: the context outlives it
+                    from spark_gp_tpu_torch.resilience import integrity
+
+                    integrity.stage_spot_check(dcn, kernel, data_r, self._objective)
+                try:
+                    with self._optimize_phase(instr, data_r):
+                        res, restart_metrics = self._optimize_with_restarts(kernel, vag)
+                finally:
+                    if dcn is not None:
+                        dcn.dup_check = None
             raw = self._projected_process(instr, kernel, res.theta, x_r, y_r, data_r, active)
         model = GaussianProcessRegressionModel(raw)
         model.instr = instr
@@ -274,7 +286,7 @@ class GaussianProcessRegression(GaussianProcessCommons):
                 tag = "gpr" if self._objective == "marginal" else f"gpr-{self._objective}"
                 if extra:
                     tag += "-" + self._elbo_checkpoint_salt(extra)
-                saver, chunk = self._segment_saver_and_chunk(tag)
+                saver, chunk = self._segment_saver_and_chunk(tag, data)
                 out = lk.fit_gpr_device_checkpointed(
                     kernel, log_space, dev(kernel.init_theta()), lower, upper, data,
                     self._max_iter, self._tol, chunk, saver, self._objective, extra, cache,

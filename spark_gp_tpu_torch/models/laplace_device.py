@@ -370,9 +370,9 @@ def fit_latent_device_checkpointed(lanes: LaplaceLanes, kind: str, log_space: bo
     ``saver`` (``utils/checkpoint.run_segmented``); a resume continues
     from the saved modes.  ``kind`` and ``meta_extra`` are the JAX
     package's ``segment_meta`` kind and extras.  Returns the single-start
-    fit's tuple.  ``mesh``: as for :func:`fit_latent_device` (the
-    ladder's ``segmented`` rung with its in-memory saver; a checkpoint
-    directory under a mesh is refused before this runs)."""
+    fit's tuple.  ``mesh``: as for :func:`fit_latent_device`; under a mesh
+    the meta is the whole stack's (``utils/checkpoint.segment_meta``) and
+    ``saver`` the coordinated shell (``parallel/coord.py``)."""
     from spark_gp_tpu_torch.optimize.lbfgs_device import (
         LbfgsConfig,
         log_transform_bounds,
@@ -384,7 +384,7 @@ def fit_latent_device_checkpointed(lanes: LaplaceLanes, kind: str, log_space: bo
     # tol as the stack's dtype holds it, as the JAX package records it
     tol_meta = float(torch.tensor(tol, dtype=lanes.x.dtype))
     meta = segment_meta(kind, lanes.kernel, tol_meta, log_space, theta0, lanes.x, lanes.y,
-                        lanes.mask, **meta_extra)
+                        lanes.mask, mesh=mesh, **meta_extra)
     vag, start = over_mesh(lanes, mesh), theta0
     if log_space:
         vag = log_transform_vag(vag)

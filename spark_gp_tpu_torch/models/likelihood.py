@@ -563,7 +563,7 @@ def fit_gpr_device_checkpointed(kernel: Kernel, log_space: bool, theta0, lower, 
     # tol as the stack's dtype holds it, as the JAX package records it
     tol_meta = float(torch.tensor(tol, dtype=data.x.dtype))
     meta = segment_meta(family, kernel, tol_meta, log_space, theta0, data.x, data.y, data.mask,
-                        **extra_meta)
+                        mesh=mesh, **extra_meta)
     if mesh is not None:
         check_capturable(mesh, data)
     vag = make_device_value_and_grad(kernel, data, cache, objective, extra, mesh)

@@ -183,13 +183,36 @@ CATALOG: Tuple[MetricName, ...] = (
     MetricName("integrity.panel_checks", "counter", "sharded Cholesky diagonal panels compared across the ranks (ops/dist_linalg.py)"),
     MetricName("integrity.panel_mismatch", "counter", "checked panels that differed across the ranks (an SDC verdict naming the rank; also a span event)"),
     MetricName("integrity.panel_spread", "gauge", "the last checked sharded factorization's largest relative difference between the ranks' panel copies (0 when they agree bit for bit)"),
+    MetricName("integrity.attestation_failures", "counter", "published store payloads failing digest/identity/replay attestation (parallel/coord.kv_allgather)"),
+    MetricName("integrity.bounds_violations", "counter", "finite store-mode contributions past the GP_INTEGRITY_MAX_ABS magnitude bar"),
+    MetricName("integrity.spot_checks", "counter", "duplicate-dispatch spot checks run during store-mode fits (also an event with the rung)"),
+    MetricName("integrity.spot_check_disagreements", "counter", "spot checks where a recompute contradicted a rank's published claim (also an event)"),
+    MetricName("integrity.host_suspect", "counter", "trust-ledger ranks escalated trusted -> suspect (also an event)"),
+    MetricName("integrity.host_quarantined", "counter", "trust-ledger ranks quarantined: a definitive verdict or the strikes exhausted (also an event)"),
+    MetricName("integrity.corrupt_payload", "event", "a store payload failed attestation (the publishing rank and the code attributed)"),
+    MetricName("integrity.bounds_violation", "event", "a rank's store contribution breached the magnitude attestation bar"),
     # -- memory planning (resilience/memplan.py) ---------------------------
     MetricName("plan.hit", "counter", "plan decisions whose chosen configuration was predicted-safe"),
     MetricName("plan.miss", "counter", "reactive recovery engaged despite (or no config fit) a plan decision"),
     MetricName("plan.margin_breach", "counter", "measured peaks that exceeded the margined prediction"),
     # -- degradation ladder (resilience/fallback.py) -----------------------
     # -- the process group (parallel/distributed.py) -----------------------
-    MetricName("coord.degraded", "counter", "distributed.initialize degraded to one process (an environment naming no more than one process whose group could not start)"),
+    MetricName("coord.degraded", "counter", "distributed.initialize degraded to one process (an environment naming no more than one process whose group could not start), or the store mode was asked for without a store"),
+    # -- the coordination plane (parallel/coord.py) ------------------------
+    MetricName("coord.heartbeats", "counter", "liveness stamps this process published"),
+    MetricName("coord.stragglers", "counter", "peers flagged straggling (stale heartbeat)"),
+    MetricName("coord.dead_hosts", "counter", "peers declared dead (heartbeat past the dead threshold)"),
+    MetricName("coord.barrier_timeouts", "counter", "deadline-guarded coordination steps that timed out"),
+    MetricName("coord.checkpoints", "counter", "coordinated checkpoint saves completed"),
+    MetricName("coord.elastic_resumes", "counter", "resumes under a different process count than the save"),
+    MetricName("coord.preemptions", "counter", "preemption signals acted on at a save boundary"),
+    MetricName("coord.elastic_resume", "event", "resume under a different process count"),
+    MetricName("coord.barrier_timeout", "event", "deadline-guarded coordination step timed out"),
+    MetricName("coord.recovered", "event", "straggling peer resumed heartbeating"),
+    MetricName("coord.dead_host", "event", "peer declared dead by the heartbeat registry"),
+    MetricName("coord.straggler", "event", "peer flagged straggling"),
+    MetricName("coord.checkpoint", "event", "coordinated checkpoint save completed"),
+    MetricName("coord.preempted", "event", "preemption acted on at a save boundary"),
     MetricName("fallback.engaged", "metric", "1 when the fit completed through at least one degradation rung"),
     MetricName("fallback.transitions", "counter", "degradation-ladder rung transitions executed"),
     MetricName("fallback.exhausted", "counter", "ladders that ran out of applicable rungs (classified error raised)"),

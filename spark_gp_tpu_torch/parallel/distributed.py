@@ -20,11 +20,13 @@ explicit arguments::
     model = GaussianProcessRegression().setMesh(mesh).fit_distributed(data)
 
 One process alone needs none of it: :func:`initialize` is then a no-op
-and the mesh has one rank.  The JAX package's DCN-fallback mode (sums
-over a key-value store where its runtime cannot run one program across
-processes) has no counterpart: a process group's collectives already
-cross processes.  Its deadline-guarded coordination (``coord``) is
-ROADMAP.md queue 1, item 6c.
+and the mesh has one rank.  :func:`initialize` builds the group's store
+itself -- a ``FileStore`` for ``file://``, a ``TCPStore`` hosted by rank 0
+for ``tcp://`` and ``env://`` -- and keeps it under the ``coord`` prefix
+for ``parallel/coord.py``: the deadline-guarded barrier before every
+blocking step here, liveness, the coordinated checkpoints, and the
+key-value-store fit mode (``GP_DCN_MODE=1``: every cross-rank sum a
+round over the store, no process-group collective in the fit).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spark_gp_tpu_torch.parallel import coord
 from spark_gp_tpu_torch.parallel.experts import ExpertData, group_for_experts
 from spark_gp_tpu_torch.parallel.mesh import ExpertMesh, expert_mesh, shard_experts
 
@@ -44,6 +47,46 @@ from spark_gp_tpu_torch.parallel.mesh import ExpertMesh, expert_mesh, shard_expe
 DEFAULT_TIMEOUT_S = 300.0
 
 _ENV_KEYS = ("MASTER_ADDR", "WORLD_SIZE", "RANK")
+
+#: ``(PrefixStore("coord", store), rank, world size, host rank)`` of the
+#: group :func:`initialize` brought up, or None
+_COORD_STORE = None
+
+
+def coord_store():
+    """The coordination handle of the group :func:`initialize` brought up:
+    ``(store, rank, world_size, host_rank)`` with the store under the
+    ``coord`` prefix and ``host_rank`` the rank hosting a ``TCPStore``
+    (None for a ``FileStore``); None without such a group."""
+    import torch.distributed as dist
+
+    if _COORD_STORE is None or not (dist.is_available() and dist.is_initialized()):
+        return None
+    return _COORD_STORE
+
+
+def _make_store(init_method: str, world_size: int, rank: int, timeout):
+    """``(store, host_rank)`` of ``init_method``: a ``FileStore`` for
+    ``file://<path>``, a ``TCPStore`` that rank 0 hosts for
+    ``tcp://<host>:<port>`` and ``env://`` (``MASTER_ADDR`` /
+    ``MASTER_PORT``)."""
+    from urllib.parse import urlparse
+
+    import torch.distributed as dist
+
+    url = urlparse(init_method)
+    if url.scheme == "file":
+        return dist.FileStore(url.path, int(world_size)), None
+    if url.scheme == "tcp":
+        host, port = url.hostname, url.port
+    elif url.scheme == "env":
+        host, port = os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"])
+    else:
+        raise ValueError(f"initialize takes file://, tcp:// or env://, got {init_method!r}")
+    if host is None or port is None:
+        raise ValueError(f"{init_method!r} names no host and port")
+    return dist.TCPStore(host, int(port), int(world_size), int(rank) == 0,
+                         timeout=timeout), 0
 
 
 def initialize(init_method: Optional[str] = None, world_size: Optional[int] = None,
@@ -58,7 +101,8 @@ def initialize(init_method: Optional[str] = None, world_size: Optional[int] = No
     ``rank``) or from the environment (``env://``), it joins the group;
     the backend is NCCL when the card is present and gloo otherwise,
     unless ``backend`` names one, and ``timeout_s`` bounds every wait of
-    the group.  Under NCCL the rank's device is ``LOCAL_RANK`` (else the
+    the group.  The store is built here and handed to the group, and kept
+    for ``parallel/coord.py`` (:func:`coord_store`).  Under NCCL the rank's device is ``LOCAL_RANK`` (else the
     rank modulo the card count).
 
     A configuration that names several processes and cannot start
@@ -98,14 +142,18 @@ def initialize(init_method: Optional[str] = None, world_size: Optional[int] = No
         local = _env_int("LOCAL_RANK", int(rank) % max(1, torch.cuda.device_count()))
         torch.cuda.set_device(local)
         kwargs["device_id"] = torch.device("cuda", local)
+    global _COORD_STORE
+    timeout = datetime.timedelta(seconds=float(timeout_s))
     try:
-        dist.init_process_group(
-            backend, init_method=init_method, world_size=int(world_size), rank=int(rank),
-            timeout=datetime.timedelta(seconds=float(timeout_s)), **kwargs)
-    except (RuntimeError, ValueError) as exc:
+        store, host_rank = _make_store(init_method, int(world_size), int(rank), timeout)
+        coord.initialize_runtime(backend, store, int(world_size), int(rank), timeout, **kwargs)
+    except (RuntimeError, ValueError, KeyError) as exc:
         if not auto or int(world_size) > 1:
             raise
         _degraded_to_single_process(type(exc).__name__, exc)
+        return
+    _COORD_STORE = (dist.PrefixStore("coord", store), int(rank), int(world_size), host_rank)
+    coord.reset_runtime_state()
 
 
 def _env_int(key: str, default: int) -> int:
@@ -155,7 +203,13 @@ def distribute_global_experts(x_local, y_local, dataset_size_for_expert: int,
     the ranks' blocks in rank order.  On ``device`` (default the mesh's)
     in ``dtype`` (default float32 on the card, float64 on the CPU).  One
     rank: :func:`~spark_gp_tpu_torch.parallel.mesh.shard_experts` of the
-    grouped rows."""
+    grouped rows.
+
+    Over several ranks a deadline-guarded barrier comes first
+    (``coord.guard_collective("stitch")``), so a dead or wedged rank is
+    named by a ``CoordinationTimeoutError`` instead of stalling the
+    gather; under the key-value-store mode (``GP_DCN_MODE=1``) the dims
+    travel by ``coord.kv_allgather`` instead of the group."""
     from spark_gp_tpu_torch.utils.device import working_dtype
 
     if mesh is None:
@@ -164,9 +218,8 @@ def distribute_global_experts(x_local, y_local, dataset_size_for_expert: int,
     dtype = working_dtype(device) if dtype is None else dtype
     local = group_for_experts(x_local, y_local, dataset_size_for_expert)
     if mesh.world_size > 1:
-        dims = torch.tensor([local.num_experts, local.expert_size], dtype=torch.int64,
-                            device=mesh.device)
-        gathered = torch.stack(mesh.all_gather(dims)).cpu().numpy()
+        dims = np.asarray([local.num_experts, local.expert_size], dtype=np.int64)
+        gathered = _exchange_dims(dims, mesh)
         e_max, s_max = (int(v) for v in gathered.max(axis=0))
         if (local.num_experts, local.expert_size) != (e_max, s_max):
             local = _pad_stack(local, e_max, s_max)
@@ -174,6 +227,29 @@ def distribute_global_experts(x_local, y_local, dataset_size_for_expert: int,
                      y=local.y.to(device=device, dtype=dtype),
                      mask=local.mask.to(device=device, dtype=dtype))
     return shard_experts(out, mesh) if mesh.world_size == 1 else out
+
+
+_DIMS_ROUND = 0
+
+
+def _exchange_dims(dims: np.ndarray, mesh: ExpertMesh) -> np.ndarray:
+    """``[P, 2]`` every rank's ``(num_experts, expert_size)``, in rank
+    order, after the guarded barrier: through the store under the
+    key-value-store mode (every rank's k-th exchange is every peer's k-th,
+    so the counter is the round's name), else one all-gather of the
+    group."""
+    global _DIMS_ROUND
+    coord.guard_collective("stitch")
+    client = coord.coord_client()
+    if coord.dcn_context() is not None and client is not None:
+        round_id, _DIMS_ROUND = _DIMS_ROUND, _DIMS_ROUND + 1
+        payloads = coord.kv_allgather(f"dims/{round_id}", dims.tobytes(), client=client)
+        if round_id >= 2:
+            # the r-2 cleanup of DcnContext.allgather_bytes
+            client.delete(f"ag/dims/{round_id - 2}/{client.process_id}")
+        return np.stack([np.frombuffer(p, dtype=dims.dtype) for p in payloads])
+    t = torch.as_tensor(dims, device=mesh.device)
+    return torch.stack(mesh.all_gather(t)).cpu().numpy()
 
 
 def _pad_stack(data: ExpertData, e_target: int, s_target: int) -> ExpertData:
@@ -215,7 +291,12 @@ def sample_active_from_stack(data: ExpertData, m: int, seed: int,
     :func:`replicated_valid_indices` (the JAX draw, index for index),
     fills the rows of its own block into a zero buffer, and one all-reduce
     assembles them; the traffic is the m rows, not the data.  ``mesh``
-    None: the whole stack is here, and the rows are taken from it."""
+    None: the whole stack is here, and the rows are taken from it.  A
+    store mesh (the key-value-store mode) draws the same rows by
+    ``coord.sample_active_dcn``: the valid-row counts and then only the
+    chosen rows cross the store."""
+    if mesh is not None and mesh.ctx is not None:
+        return coord.sample_active_dcn(mesh.ctx, data, m, seed)
     p = data.x.shape[-1]
     valid = replicated_valid_indices(data, mesh)
     m = min(int(m), valid.size)

@@ -29,7 +29,12 @@ backend's name is the capture rule (:attr:`ExpertMesh.capturable`): a
 CUDA graph can hold an NCCL collective once its communicator exists,
 while a gloo collective synchronizes with the host, so a device fit on
 the card over a gloo group raises :class:`MeshCaptureError` before it
-captures anything.
+captures anything.  The third backend, ``"store"``, is the key-value-store
+fit mode (``GP_DCN_MODE=1``, ``parallel/coord.py``): the same ranks with
+every collective a deadline-guarded, attested round over the group's
+store, host work that the fit runs on the host optimizer.  What stands
+around the collectives -- barriers before a blocking step, liveness,
+coordinated checkpoints -- is ``parallel/coord.py``'s.
 
 The payloads are small: ``h + 1`` scalars an objective evaluation (the
 ELBO's ``m^2 + m + 3`` sums and then ``h``), the ``[m, m]`` float64
@@ -61,19 +66,35 @@ class ExpertMesh:
     """A 1-D ``experts`` mesh: the process group (``None`` for a mesh of one
     rank without one), this rank, the world size, this rank's device and
     the group's backend (``"nccl"``, ``"gloo"``, or ``"none"`` without a
-    group)."""
+    group).  A mesh with ``backend="store"`` has no group: its ``ctx`` is a
+    key-value-store fit context (``parallel/coord.store_mesh``) and every
+    collective is a round over the store, summed in float64 in rank order,
+    so the result is the same bits on every rank."""
 
     group: Optional[object]
     rank: int
     world_size: int
     device: torch.device
     backend: str
+    ctx: Optional[object] = None
 
     @property
     def capturable(self) -> bool:
         """Whether the collectives can run inside a captured CUDA graph:
-        NCCL's can, and a mesh without a group has none to capture."""
+        NCCL's can, and a mesh without a group has none to capture (a store
+        round is host work, never captured)."""
         return self.backend in ("nccl", "none")
+
+    def _store_reduce(self, a: np.ndarray, op: str, name: str) -> np.ndarray:
+        """``a`` reduced over the ranks through the store context."""
+        if op == "sum":
+            return self.ctx.allreduce_arrays(name, a)[0]
+        parts = [p[0] for p in self.ctx.allgather_arrays(f"{name}_{op}", a)]
+        fold = np.maximum if op == "max" else np.minimum
+        out = parts[0]
+        for part in parts[1:]:
+            out = fold(out, part)
+        return out
 
     def all_reduce(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """``tensor`` reduced over the ranks (``op``: ``"sum"``, ``"max"``
@@ -82,6 +103,10 @@ class ExpertMesh:
         detached values and gradients (a differentiable all-reduce would
         sum the replicated theta's upstream gradient again in its
         backward, multiplying it by the world size)."""
+        if self.ctx is not None:
+            a = tensor.detach().to(torch.float64).cpu().numpy()
+            return torch.as_tensor(self._store_reduce(a, op, "mesh/all_reduce"),
+                                   dtype=tensor.dtype, device=tensor.device)
         if self.group is None:
             return tensor.clone()
         import torch.distributed as dist
@@ -97,6 +122,8 @@ class ExpertMesh:
         card under NCCL (which takes no host tensor), on the host under
         gloo."""
         a = np.asarray(array, dtype=np.float64)
+        if self.ctx is not None:
+            return self._store_reduce(a, op, "mesh/all_reduce_host")
         if self.group is None:
             return a.copy()
         dev = self.device if self.backend == "nccl" else torch.device("cpu")
@@ -106,6 +133,10 @@ class ExpertMesh:
     def all_gather(self, tensor: torch.Tensor) -> list:
         """Every rank's ``tensor`` (the same shape on every rank), in rank
         order, on ``tensor``'s device."""
+        if self.ctx is not None:
+            parts = self.ctx.allgather_arrays("mesh/all_gather", tensor.detach().cpu().numpy())
+            return [torch.as_tensor(p[0], dtype=tensor.dtype, device=tensor.device)
+                    for p in parts]
         if self.group is None:
             return [tensor.clone()]
         import torch.distributed as dist
@@ -242,6 +273,11 @@ def allreduced_objective(objective, mesh: ExpertMesh):
     are all-reduced in float64 in one collective.  The gradient is the
     local autograd (or hand-assembled) one, reduced once -- never through
     a differentiable collective."""
+
+    if mesh.ctx is not None:
+        # the store mode: the vag round, with the preemption flag and the
+        # spot checks (parallel/coord.DcnContext.wrap_value_and_grad)
+        return mesh.ctx.wrap_value_and_grad(objective)
 
     def reduced(theta, *carry):
         value, grad, *rest = objective(theta, *carry)

@@ -48,8 +48,19 @@ ordinary deterministic tests:
   corruption the panel tripwire (``resilience/integrity.py``) is for.
   Env channel: ``GP_CHAOS_CORRUPT_DEVICE`` (+ ``GP_CHAOS_CORRUPT_SCALE``).
 
-The other mesh faults (a dead or straggling rank) need the deadline-guarded
-collectives of the coordination plane (ROADMAP.md queue 1, item 6c).
+* the mesh faults, consumed at the coordination plane's choke points
+  (``parallel/coord.py``): :func:`StragglerHost` (every guarded step
+  entered late; ``GP_CHAOS_STRAGGLER_S`` + ``GP_CHAOS_STRAGGLER_OP``),
+  :func:`DeadHost` (die before the next guarded step and stop
+  heartbeating; ``GP_CHAOS_DEAD_HOST=1`` exits the process),
+  ``GP_CHAOS_NO_HEARTBEAT=1`` (stamps suppressed),
+  :func:`stage_preemption` (an in-process SIGTERM for the preemption
+  watcher), :func:`kill_process_after` (``os._exit`` after N save
+  boundaries; ``GP_CHAOS_KILL_AFTER_ITERS``) and :func:`corrupt_host`
+  (one rank publishes corrupted store payloads: ``bitflip``, ``stuck`` or
+  ``scale``; ``GP_CHAOS_CORRUPT_PID`` + ``GP_CHAOS_CORRUPT_KIND`` /
+  ``_OP`` / ``_SCALE``), which the attested collectives
+  (``resilience/integrity.py``) must refuse and attribute.
 """
 
 from __future__ import annotations
@@ -139,7 +150,22 @@ _state = {
     "input_shift": None,     # float | None: staged covariate shift
     "corrupt_device": None,  # int | None: the rank whose panel copies go wrong
     "corrupt_scale": None,   # float | None: the factor they are scaled by
+    "straggler_s": None,     # float | None: delay before a guarded step
+    "straggler_op": None,    # substring filter | None
+    "dead_host": False,      # True -> die before the next guarded step
+    "dead_exit": True,       # os._exit vs SimulatedPreemption
+    "no_heartbeat": False,   # True -> suppress heartbeat stamps
+    "kill_after": None,      # int | None: save boundaries left before os._exit
+    "preempt": False,        # True -> coord.preemption_requested()
+    "corrupt_pid": None,     # int | None: the rank whose payloads go wrong
+    "corrupt_kind": None,    # "bitflip" | "stuck" | "scale" | None
+    "corrupt_op": None,      # substring filter | None
+    "corrupt_fired": None,   # one-element list: corruption count
+    "corrupt_prev": None,    # {(pid, base_op): last sealed blob} (stuck)
 }
+
+#: the exit code of a staged dead rank or kill (a SIGKILLed process's)
+PREEMPTION_EXIT_CODE = 137
 
 
 def _env_chaos_float(name: str) -> Optional[float]:
@@ -527,3 +553,191 @@ def corrupt_device(index: int, scale: float = 1e3):
         yield
     finally:
         _state["corrupt_device"], _state["corrupt_scale"] = prev
+
+
+# --- mesh faults (parallel/coord.py consumes them at its choke points) --------
+
+
+def apply_straggler_delay(op: str) -> float:
+    """Sleep the staged straggler delay before the named coordination step
+    (when the op filter matches); returns the seconds slept.  Staged by
+    :func:`StragglerHost`, or ``GP_CHAOS_STRAGGLER_S`` (+ the substring
+    filter ``GP_CHAOS_STRAGGLER_OP``) in a subprocess."""
+    delay, op_filter = _state["straggler_s"], _state["straggler_op"]
+    if delay is None:
+        delay = _env_chaos_float("GP_CHAOS_STRAGGLER_S")
+        op_filter = os.environ.get("GP_CHAOS_STRAGGLER_OP", "") or None
+    if not delay or (op_filter and op_filter not in op):
+        return 0.0
+    time.sleep(delay)
+    return delay
+
+
+def maybe_die_before_collective(op: str) -> None:
+    """The dead-rank trigger: guarded steps call this first, so a staged
+    dead rank exits (or raises :class:`SimulatedPreemption`) BEFORE a call
+    its peers would wait on."""
+    if _state["dead_host"] or os.environ.get("GP_CHAOS_DEAD_HOST", "") == "1":
+        if _state["dead_host"] and not _state["dead_exit"]:
+            raise SimulatedPreemption(f"chaos: DeadHost died before collective {op!r}")
+        os._exit(PREEMPTION_EXIT_CODE)
+
+
+def heartbeats_suppressed() -> bool:
+    return (_state["no_heartbeat"] or _state["dead_host"]
+            or os.environ.get("GP_CHAOS_NO_HEARTBEAT", "") == "1"
+            or os.environ.get("GP_CHAOS_DEAD_HOST", "") == "1")
+
+
+def preemption_staged() -> bool:
+    """The in-process stand-in for a delivered SIGTERM
+    (:func:`stage_preemption`)."""
+    return bool(_state["preempt"])
+
+
+def stage_preemption(on: bool = True) -> None:
+    _state["preempt"] = bool(on)
+
+
+@contextlib.contextmanager
+def StragglerHost(delay_s: float, op: Optional[str] = None):
+    """Make THIS process a straggler: every guarded step (only those whose
+    name contains ``op``, when given) is entered ``delay_s`` late."""
+    prev = (_state["straggler_s"], _state["straggler_op"])
+    _state["straggler_s"], _state["straggler_op"] = float(delay_s), op
+    try:
+        yield
+    finally:
+        _state["straggler_s"], _state["straggler_op"] = prev
+
+
+@contextlib.contextmanager
+def DeadHost(exit_process: bool = False):
+    """Make THIS process die before its next guarded step and stop
+    heartbeating at once: ``exit_process=True`` exits with
+    ``os._exit(137)`` (subprocesses); the default raises
+    :class:`SimulatedPreemption` at the step."""
+    prev = (_state["dead_host"], _state["dead_exit"])
+    _state["dead_host"], _state["dead_exit"] = True, bool(exit_process)
+    try:
+        yield
+    finally:
+        _state["dead_host"], _state["dead_exit"] = prev
+
+
+def kill_process_after(n_iters: int) -> None:
+    """Stage ``os._exit(137)`` after ``n_iters`` more save boundaries
+    (:func:`tick_kill_counter`, called at each by ``utils/checkpoint.py``
+    and the coordinated checkpointers); ``GP_CHAOS_KILL_AFTER_ITERS=<n>``
+    in a subprocess."""
+    if int(n_iters) < 1:
+        raise ValueError("n_iters must be >= 1")
+    _state["kill_after"] = int(n_iters)
+
+
+def tick_kill_counter() -> None:
+    remaining = _state["kill_after"]
+    if remaining is None:
+        raw = os.environ.get("GP_CHAOS_KILL_AFTER_ITERS", "").strip()
+        if not raw:
+            return
+        try:
+            remaining = int(raw)
+        except ValueError:
+            return
+    remaining -= 1
+    _state["kill_after"] = remaining
+    if remaining <= 0:
+        os._exit(PREEMPTION_EXIT_CODE)
+
+
+def _corrupt_staged(op: str, pid) -> Optional[tuple]:
+    """``(kind, scale, fired)`` when the staged corruption targets this
+    (op, rank), else None.  Scoped by rank because the protocol tests run
+    every logical rank as a thread of one process."""
+    cpid, kind = _state["corrupt_pid"], _state["corrupt_kind"]
+    op_filter, scale, fired = _state["corrupt_op"], _state["corrupt_scale"], \
+        _state["corrupt_fired"]
+    if cpid is None:
+        env_pid = _env_chaos_float("GP_CHAOS_CORRUPT_PID")
+        if env_pid is None:
+            return None
+        cpid = int(env_pid)
+        kind = os.environ.get("GP_CHAOS_CORRUPT_KIND", "").strip() or "bitflip"
+        op_filter = os.environ.get("GP_CHAOS_CORRUPT_OP", "").strip() or None
+        scale = _env_chaos_float("GP_CHAOS_CORRUPT_SCALE")
+    if int(pid) != int(cpid) or (op_filter and op_filter not in op):
+        return None
+    return kind, float(scale if scale else 1e3), fired
+
+
+def maybe_corrupt_published(op: str, pid, blob: bytes) -> bytes:
+    """The byte-level corruption point: ``coord.kv_allgather`` passes every
+    payload through here AFTER sealing, right before the store.
+    ``bitflip`` flips one bit of the payload; ``stuck`` republishes this
+    (rank, op)'s previous round's blob (the first matching round publishes
+    honestly to have something to replay).  ``scale`` is a value fault
+    (:func:`maybe_corrupt_arrays`)."""
+    staged = _corrupt_staged(op, pid)
+    if staged is None:
+        return blob
+    kind, _, fired = staged
+    if kind == "bitflip" and blob:
+        if fired is not None:
+            fired[0] += 1
+        return blob[:-1] + bytes([blob[-1] ^ 0x01])
+    if kind == "stuck":
+        prev_map = _state["corrupt_prev"]
+        if prev_map is None:
+            prev_map = _state["corrupt_prev"] = {}
+        key = (int(pid), op.split("/")[0])
+        prev = prev_map.get(key)
+        prev_map[key] = blob
+        if prev is not None and prev != blob:
+            if fired is not None:
+                fired[0] += 1
+            return prev
+    return blob
+
+
+def maybe_corrupt_arrays(op: str, pid, arrays):
+    """The value-level corruption point: the store mode's array gathers pass
+    this rank's contribution through here before packing; ``scale``
+    multiplies every float array by the staged factor (a rank whose
+    COMPUTE is silently wrong: its bytes are consistent, so only the
+    magnitude bar or a spot check catches it)."""
+    staged = _corrupt_staged(op, pid)
+    if staged is None or staged[0] != "scale":
+        return arrays
+    _, scale, fired = staged
+    out, changed = [], False
+    for a in arrays:
+        a = np.asarray(a)
+        if a.size and np.issubdtype(a.dtype, np.floating):
+            out.append((a * scale).astype(a.dtype))
+            changed = True
+        else:
+            out.append(a)
+    if changed and fired is not None:
+        fired[0] += 1
+    return out
+
+
+@contextlib.contextmanager
+def corrupt_host(pid: int, kind: str = "bitflip", op: Optional[str] = None,
+                 scale: float = 1e3):
+    """Make rank ``pid`` publish corrupted store payloads (``kind`` one of
+    bitflip, stuck, scale; only collectives whose name contains ``op``,
+    when given).  Yields a one-element fired-count list."""
+    if kind not in ("bitflip", "stuck", "scale"):
+        raise ValueError(f"unknown corruption kind {kind!r}")
+    keys = ("corrupt_pid", "corrupt_kind", "corrupt_op", "corrupt_scale", "corrupt_fired",
+            "corrupt_prev")
+    prev = {k: _state[k] for k in keys}
+    fired = [0]
+    _state.update(corrupt_pid=int(pid), corrupt_kind=kind, corrupt_op=op,
+                  corrupt_scale=float(scale), corrupt_fired=fired, corrupt_prev={})
+    try:
+        yield fired
+    finally:
+        _state.update(prev)

@@ -39,12 +39,18 @@ fallback re-execution (the port's copy of the JAX package's
   ``device_solve`` -> ``host_solve`` on an OOM or compile failure.
 
 * the ``fit_distributed`` ladder (:func:`run_distributed_ladder`):
-  ``sharded`` -> ``single_host`` on an OOM or compile failure, legal only
-  where this rank holds every row (a mesh of one rank), and
-  ``strict_lane`` on a guard breach.  The JAX package's ``dcn_fallback``
-  rung between them re-runs the fit over its key-value store; it waits
-  for the coordination plane (ROADMAP.md queue 1, item 6c), and a process
-  group needs no such fallback to cross processes.
+  ``sharded`` -> ``dcn_fallback`` -> ``single_host`` on an OOM or compile
+  failure, and ``strict_lane`` on a guard breach.  ``dcn_fallback``
+  re-runs the fit in the key-value-store mode (``parallel/coord.py``:
+  every cross-rank sum a round over the group's store, not over the
+  process group whose step failed) where ``coord.dcn_fallback_available``
+  allows it (several processes, a reachable store, the fit not in the
+  mode already) and every rank votes for it in one store round
+  (``coord.ranks_agree``); ``single_host`` is legal only where this rank holds
+  every row (a mesh of one rank, and never a store-mode stack of
+  several).  A ``CoordinationTimeoutError`` is ``coord_timeout``: it
+  takes the same rungs, and a rank that is gone cannot vote, so over
+  several ranks the vote's own deadline raises naming it.
 """
 
 from __future__ import annotations
@@ -174,6 +180,10 @@ def classify_failure(exc: BaseException) -> str:
         return NON_FINITE_EXHAUSTED
     if isinstance(exc, RetryBudgetExceededError) and exc.__cause__ is not None:
         return classify_failure(exc.__cause__)
+    from spark_gp_tpu_torch.parallel.coord import CoordinationTimeoutError
+
+    if isinstance(exc, CoordinationTimeoutError):
+        return COORD_TIMEOUT
     if isinstance(exc, (torch.cuda.OutOfMemoryError, MemoryError)):
         return OOM
     if isinstance(exc, RuntimeError):
@@ -422,22 +432,32 @@ def run_fit_ladder(est, instr, attempt: Callable, data=None):
 
 
 def run_distributed_ladder(est, instr, data, active_set, prepare):
-    """The ``fit_distributed`` ladder (the JAX package's, without its
-    ``dcn_fallback`` rung): ``sharded`` runs the fit over the mesh; an OOM
-    or compile failure re-runs it as ``single_host`` -- the same body over
-    the same stack with no mesh -- only where this rank's stack is the
-    whole data (a mesh of one rank): a rank that re-fit its block alone
-    would return a model of a fragment.  A guard breach re-runs it
-    ``strict_lane``.  Every transition is recorded as in the fit ladder;
-    ``GP_FALLBACK=0`` runs the body straight."""
+    """The ``fit_distributed`` ladder (the JAX package's): ``sharded`` runs
+    the fit over the mesh; an OOM or compile failure re-runs it as
+    ``dcn_fallback`` -- the same body in the key-value-store mode -- where
+    ``coord.dcn_fallback_available`` allows and every rank's failure takes
+    the rung (one vote over the store, cast by every failing rank), else
+    (and after it) as
+    ``single_host`` -- the same body over the same stack with no mesh --
+    only where this rank's stack is the whole data (a mesh of one rank): a
+    rank that re-fit its block alone would return a model of a fragment.
+    A guard breach re-runs it ``strict_lane``.  Every transition is
+    recorded as in the fit ladder; ``GP_FALLBACK=0`` runs the body
+    straight."""
     if not enabled():
         return est._fit_distributed_body(instr, data, active_set, prepare)
     from spark_gp_tpu_torch.ops.precision import active_lane, precision_lane_scope
+    from spark_gp_tpu_torch.parallel import coord
 
     degradations: List[dict] = []
     rung = "sharded"
 
     def whole_here() -> bool:
+        # a store-mode stack of several ranks is 1/P of the data: re-fitting
+        # it alone would be the wrong-results bug the ladder must not make
+        ctx = getattr(est, "_dcn_ctx", None)
+        if ctx is not None:
+            return ctx.num_processes <= 1
         mesh = getattr(est, "_mesh", None)
         return mesh is None or mesh.world_size == 1
 
@@ -452,6 +472,9 @@ def run_distributed_ladder(est, instr, data, active_set, prepare):
                     model = est._fit_distributed_body(instr, data, active_set, prepare)
                 finally:
                     est._mesh = mesh_prev
+            elif rung == "dcn_fallback":
+                with est._dcn_bound(coord.store_context()):
+                    model = est._fit_distributed_body(instr, data, active_set, prepare)
             else:
                 model = est._fit_distributed_body(instr, data, active_set, prepare)
         except Exception as exc:  # classified-failure-site: taxonomy dispatch
@@ -459,7 +482,16 @@ def run_distributed_ladder(est, instr, data, active_set, prepare):
             nxt = None
             if cls == GUARD_BREACH and rung != "strict_lane" and active_lane() != "strict":
                 nxt = "strict_lane"
+            elif rung == "sharded" and coord.dcn_fallback_available(
+                    getattr(est, "_dcn_ctx", None)):
+                # every failing rank votes, so the ranks take the rung together
+                if coord.ranks_agree("dcn_fallback", cls in _SHARDED_POLICY):
+                    nxt = "dcn_fallback"
+                elif cls in _SHARDED_POLICY and whole_here():
+                    nxt = "single_host"
             elif cls in _SHARDED_POLICY and rung == "sharded" and whole_here():
+                nxt = "single_host"
+            elif cls in _SHARDED_POLICY and rung == "dcn_fallback" and whole_here():
                 nxt = "single_host"
             if nxt is None:
                 if degradations:

@@ -99,17 +99,6 @@ class ExecHungError(RuntimeError):
         )
 
 
-def _flag_handler(flag: threading.Event):
-    """A signal handler that sets ``flag`` and nothing else: metrics or
-    span emission take locks the interrupted thread may hold, a
-    self-deadlock inside a handler."""
-
-    def _on_signal(signum, frame):
-        flag.set()
-
-    return _on_signal
-
-
 def install_drain_signals(
     flag: Optional[threading.Event] = None,
 ) -> Optional[threading.Event]:
@@ -123,9 +112,12 @@ def install_drain_signals(
 
     if threading.current_thread() is not threading.main_thread():
         return None
+    from spark_gp_tpu_torch.parallel.coord import make_flag_handler
+
     flag = flag if flag is not None else threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
-        signal.signal(sig, _flag_handler(flag))
+        # the coordination plane's flag-only factory, with nothing chained
+        signal.signal(sig, make_flag_handler(flag))
     return flag
 
 

@@ -795,8 +795,9 @@ class GPServeServer:
         ``status``: ``"ok"`` (ready, all breakers closed),
         ``"degraded"`` (serving, but at least one model's breaker is
         open/half-open, the queue is above 90% capacity, the memory gate
-        is shedding, or a sustained miscalibration or drift alert is
-        active, ``obs/quality.py``), ``"draining"`` (shutdown in progress: finish
+        is shedding, a sustained miscalibration or drift alert is
+        active, ``obs/quality.py``, or a peer of the process group is dead
+        or straggling, ``coord``), ``"draining"`` (shutdown in progress: finish
         queued work, route new traffic elsewhere) or ``"unready"`` (not
         started / no models).  A degraded server still answers requests
         for its healthy models — that is the point.
@@ -828,6 +829,19 @@ class GPServeServer:
             status = "degraded"
         else:
             status = "ok"
+        # a process of a group: the coordination plane's liveness (dead or
+        # straggling peers, parallel/coord.py); None for one process.  A
+        # dead or straggling peer marks the process degraded: it serves
+        # fine alone, but its distributed fits will not
+        coord_live = None
+        try:
+            from spark_gp_tpu_torch.parallel import coord
+
+            coord_live = coord.liveness_snapshot()
+        except Exception:  # noqa: BLE001 — health must answer regardless
+            pass
+        if coord_live is not None and (coord_live.get("dead") or coord_live.get("stragglers")):
+            status = "degraded" if status == "ok" else status
         try:
             from spark_gp_tpu_torch.obs.runtime import build_info
 
@@ -849,6 +863,7 @@ class GPServeServer:
             "quality": quality,
             "breakers": breakers,
             "lifecycle": lifecycle,
+            "coord": coord_live,
             "queue": {
                 "depth": depth,
                 "capacity": self._queue.capacity,

@@ -31,6 +31,18 @@ objective, kernel spec, tol, parameterization, start, stack shape or
 data) is ignored with a warning.  Saves fall on iteration boundaries,
 so a payload never holds a half-finished line search.
 
+Under a mesh both writers sit in the coordinated shells of
+``parallel/coord.py`` (rank 0 writes, every rank checks the digest of the
+payload it would have written: hence :meth:`LbfgsCheckpointer.build_payload`
+/ ``write_payload`` and :meth:`DeviceOptimizerCheckpointer.build_arrays` /
+``write_arrays``), and both payloads carry the JAX package's ``elastic``
+stamp (``coord.elastic_meta``): a checkpoint written by P ranks resumes on
+P' ranks -- counted as ``coord.elastic_resumes`` -- while a stamped device
+payload of a P > 1 fit whose identity differs raises
+:class:`ElasticResumeError` instead of being ignored.  A save boundary
+acts on a preemption signal (``coord.preemption_watch``): the fit stops
+there with ``coord.PreemptedError``, the checkpoint complete.
+
 Durability: the payload is written to ``<path>.tmp``, fsynced and
 ``os.replace``d over the file, so a kill at any instant leaves the
 previous complete checkpoint or the new one, never a torn file.  Each
@@ -60,6 +72,55 @@ class CheckpointCorruptError(RuntimeError):
     """The checkpoint (or a model artifact) failed its content checksum:
     corruption on disk, since the atomic write rules out torn files.
     Delete the file to restart the fit from scratch."""
+
+
+class ElasticResumeError(RuntimeError):
+    """A coordinated checkpoint of a multi-rank fit cannot resume under the
+    current configuration: its identity (kernel, objective, data, stack
+    shapes) differs from the fit resuming.  A different PROCESS COUNT is
+    fine (theta is replicated and the stack re-shards); a different fit is
+    not, and silently restarting would discard the work without a trace."""
+
+
+def _raise_if_preempted() -> None:
+    """The save boundary's preemption hook (``parallel/coord.py``): when a
+    SIGTERM landed (or one is staged), the save that just completed is
+    the final one -- stop here with ``coord.PreemptedError``.  The
+    telemetry record happens here, never in the signal handler."""
+    from spark_gp_tpu_torch.parallel import coord
+
+    if coord.preemption_requested():
+        coord.note_preemption_observed()
+        coord.consume_preemption()  # acted on: must not poison later fits
+        raise coord.PreemptedError(
+            "preemption signalled: the checkpoint just written is the final coordinated "
+            "save -- resume after rescheduling")
+
+
+def note_elastic_resume(stored_process_count, current_process_count) -> None:
+    """Count one elastic resume (``coord.elastic_resumes``) and mark it with
+    a span event."""
+    from spark_gp_tpu_torch.obs import trace as obs_trace
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+
+    telemetry.inc("coord.elastic_resumes")
+    obs_trace.add_event("coord.elastic_resume", stored_process_count=stored_process_count,
+                        current_process_count=current_process_count)
+
+
+def fingerprints_match(a, b, rtol: float = 0.0) -> bool:
+    """Two :func:`data_fingerprint` lists equal, or equal to ``rtol`` where
+    the two sides summed in different orders (the two packages, or a stack
+    summed on P ranks against P' ranks)."""
+    if a is None or b is None:
+        return a is None and b is None
+    if len(a) != len(b):
+        return False
+    return all(abs(u - v) <= rtol * max(1.0, abs(u), abs(v)) for u, v in zip(a, b))
+
+
+#: the tolerance of a fingerprint summed in another order
+SUMMATION_RTOL = 1e-9
 
 
 def _fsync_replace(tmp: str, path: str) -> None:
@@ -131,6 +192,26 @@ def data_fingerprint(*arrays) -> list:
     return vals
 
 
+def stack_fingerprint(x, y, mask, mesh=None):
+    """``(fingerprint, experts)`` of an expert stack: the
+    :func:`data_fingerprint` of ``(x, y, mask)`` and the count of its
+    experts, both over the experts that hold a point.  An expert whose
+    mask is all zero -- the padding ``parallel/mesh.shard_experts`` and
+    ``distribute_global_experts`` add to even out the ranks -- is left
+    out, so the stack fitted on P ranks and on P' ranks gives the same
+    values up to summation order.  For a stack without such experts these
+    are the JAX package's ``data_fingerprint(x, y, mask)`` and
+    ``x.shape[0]``.  Under a ``mesh`` of several ranks the stack is this
+    rank's block, and both are the whole stack's (summed over the
+    ranks)."""
+    x, y, mask = _as_numpy(x), _as_numpy(y), _as_numpy(mask)
+    keep = mask.reshape(mask.shape[0], -1).any(axis=1)
+    values = data_fingerprint(x[keep], y[keep], mask[keep]) + [float(keep.sum())]
+    if mesh is not None and int(mesh.world_size) > 1:
+        values = [float(v) for v in mesh.all_reduce_host(values)]
+    return values[:-1], int(round(values[-1]))
+
+
 class LbfgsCheckpointer:
     """Host L-BFGS-B callback that saves the optimizer's state each
     iteration.
@@ -138,17 +219,20 @@ class LbfgsCheckpointer:
     ``tag`` (the estimator's class name, plus the objective) keys the file,
     so fits of different families or objectives sharing a directory do
     not meet.  The payload: theta, the iteration count (the resume budget),
-    the seed, the evaluation log, and what ties the log to its fit: the
+    the seed, the evaluation log, what ties the log to its fit (the
     kernel's :func:`kernel_fingerprint` and ``data``, the
-    :func:`data_fingerprint` of the fitted stack."""
+    :func:`data_fingerprint` of the fitted stack) and ``elastic``, the
+    multi-rank stamp (``coord.elastic_meta``) when given."""
 
     def __init__(self, directory: str, kernel, tag: str = "gp",
-                 seed: Optional[int] = None, data: Optional[list] = None) -> None:
+                 seed: Optional[int] = None, data: Optional[list] = None,
+                 elastic: Optional[dict] = None) -> None:
         os.makedirs(directory, exist_ok=True)
         self.path = os.path.join(directory, f"lbfgs_state_{tag}.json")
         self.kernel = kernel
         self.seed = seed
         self.data = data
+        self.elastic = elastic
         self.iteration = 0
         #: every objective evaluation so far: [theta, value, gradient]
         self.evaluations: list = []
@@ -160,7 +244,9 @@ class LbfgsCheckpointer:
                                  np.asarray(grad, dtype=np.float64).tolist()])
 
     def build_payload(self, theta) -> dict:
-        """Advance the iteration state and render the payload."""
+        """Advance the iteration state and render the payload (apart from
+        the write, so the coordinated shell can check the digest every rank
+        would have written before rank 0 writes it)."""
         theta = np.asarray(theta, dtype=np.float64)
         self.iteration += 1
         payload = {
@@ -174,6 +260,8 @@ class LbfgsCheckpointer:
             "data_fingerprint": self.data,
             "evaluations": list(self.evaluations),
         }
+        if self.elastic is not None:
+            payload["elastic"] = self.elastic
         payload["checksum"] = _payload_checksum(payload)
         return payload
 
@@ -185,7 +273,13 @@ class LbfgsCheckpointer:
         _fsync_replace(tmp, self.path)
 
     def __call__(self, theta) -> None:
+        from spark_gp_tpu_torch.resilience import chaos
+
         self.write_payload(self.build_payload(theta))
+        # tick AFTER the write (as run_segmented): "kill after N save
+        # boundaries" leaves N complete saves on disk
+        chaos.tick_kill_counter()
+        _raise_if_preempted()
 
 
 def payload_state(payload: dict):
@@ -259,13 +353,18 @@ def _as_numpy(a):
     return np.asarray(a)
 
 
-def segment_meta(kind, kernel, tol, log_space, theta0, x, y, mask, **extra) -> dict:
+def segment_meta(kind, kernel, tol, log_space, theta0, x, y, mask, mesh=None,
+                 **extra) -> dict:
     """The segmented fit's resume guard, as the JAX package writes it:
     everything that must match for a stored state to resume -- the
     objective family, the kernel spec, tol, the parameterization, the
     starting point, the stack's shape and a content fingerprint of its
-    data."""
+    data (:func:`stack_fingerprint`: the experts that hold a point, so the
+    padding that evens out the ranks does not count).  Under a ``mesh`` of
+    several ranks ``x``, ``y``, ``mask`` are this rank's block and the meta
+    is the whole stack's, so every rank's payload is the same."""
     theta0 = _as_numpy(theta0)
+    fingerprint, experts = stack_fingerprint(x, y, mask, mesh)
     meta = {
         "kind": str(kind),
         "kernel": spec_fingerprint(kernel),
@@ -273,9 +372,9 @@ def segment_meta(kind, kernel, tol, log_space, theta0, x, y, mask, **extra) -> d
         "log_space": bool(log_space),
         "theta0": [float(v) for v in theta0.ravel()],
         "theta_dim": int(theta0.shape[0]),
-        "num_experts": int(x.shape[0]),
+        "num_experts": experts,
         "expert_size": int(x.shape[1]),
-        "data_fingerprint": data_fingerprint(x, y, mask),
+        "data_fingerprint": fingerprint,
     }
     meta.update(extra)
     return meta
@@ -288,9 +387,7 @@ def _meta_matches(stored: dict, want: dict) -> bool:
         return False
     for key, value in want.items():
         if key == "data_fingerprint":
-            a, b = stored[key], value
-            if len(a) != len(b) or any(
-                    abs(u - v) > 1e-9 * max(1.0, abs(u), abs(v)) for u, v in zip(a, b)):
+            if not fingerprints_match(stored[key], value, SUMMATION_RTOL):
                 return False
         elif stored[key] != value:
             return False
@@ -301,34 +398,52 @@ class DeviceOptimizerCheckpointer:
     """Saves the device optimizer's full state between segments
     (``<directory>/<tag>_device_lbfgs.npz``, the JAX package's file),
     written atomically; a checkpoint of another configuration (meta or
-    layout) is ignored with a warning rather than trusted."""
+    layout) is ignored with a warning rather than trusted, unless it is a
+    stamped checkpoint of a multi-rank fit (:class:`ElasticResumeError`).
+    ``elastic`` (``coord.elastic_meta``) is stamped into the meta and
+    compared apart from the fit's identity."""
 
-    def __init__(self, directory: str, tag: str = "gp") -> None:
+    def __init__(self, directory: str, tag: str = "gp",
+                 elastic: Optional[dict] = None) -> None:
         os.makedirs(directory, exist_ok=True)
         self.path = os.path.join(directory, f"{tag}_device_lbfgs.npz")
+        self.elastic = elastic
 
     def build_arrays(self, state, meta: dict) -> dict:
         """The payload: one lane's state (a device state dict or an
-        ``_LbfgsState``) as ``leaf_i`` arrays, the meta and the
-        checksum."""
+        ``_LbfgsState``) as ``leaf_i`` arrays, the meta (with the elastic
+        stamp) and the checksum -- apart from the write, so the
+        coordinated shell can check every rank's digest first."""
         from spark_gp_tpu_torch.optimize.lbfgs_device import host_state
 
+        if self.elastic is not None and "elastic" not in meta:
+            meta = {**meta, "elastic": self.elastic}
         host = host_state(state) if isinstance(state, dict) else state
         arrays = {f"leaf_{i}": np.asarray(v) for i, v in enumerate(host)}
         arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
         arrays["checksum"] = np.frombuffer(_npz_digest(arrays).encode(), dtype=np.uint8)
         return arrays
 
-    def save(self, state, meta: dict) -> None:
+    def write_arrays(self, arrays: dict) -> None:
         tmp = self.path + ".tmp.npz"
-        np.savez(tmp, **self.build_arrays(state, meta))
+        np.savez(tmp, **arrays)
         _fsync_replace(tmp, self.path)
+
+    def save(self, state, meta: dict) -> None:
+        self.write_arrays(self.build_arrays(state, meta))
 
     def load(self, template: dict, meta: dict):
         """The stored ``_LbfgsState``, or None when there is none or it was
         written for another configuration; ``template`` is
         ``lbfgs_device.state_template``'s ``{field: (shape, dtype)}``.
-        Raises :class:`CheckpointCorruptError` on a checksum failure."""
+        Raises :class:`CheckpointCorruptError` on a checksum failure.
+
+        The ``elastic`` stamp is compared apart from the fit's identity: an
+        identity match under another process count is an elastic resume
+        (loaded, counted as ``coord.elastic_resumes``); an identity
+        mismatch on a payload stamped by more than one process raises
+        :class:`ElasticResumeError`.  Stampless payloads keep the
+        warn-and-ignore rule."""
         from spark_gp_tpu_torch.optimize.lbfgs_device import STATE_FIELDS, _LbfgsState
 
         if not os.path.exists(self.path):
@@ -342,16 +457,29 @@ class DeviceOptimizerCheckpointer:
                         "delete it to restart the fit from scratch"
                     )
             stored_meta = json.loads(bytes(npz["meta_json"]))
-            # the JAX package's multi-host stamp: the iterate is replicated,
-            # so it does not bind a single-process resume
-            stored_meta.pop("elastic", None)
-            if not _meta_matches(stored_meta, meta):
+            want_meta = dict(meta)
+            stored_elastic = stored_meta.pop("elastic", None)
+            want_elastic = want_meta.pop("elastic", self.elastic)
+            if not _meta_matches(stored_meta, want_meta):
+                stored_procs = (stored_elastic or {}).get("process_count") or 1
+                if stored_procs > 1:
+                    diff = sorted(k for k in set(stored_meta) | set(want_meta)
+                                  if stored_meta.get(k) != want_meta.get(k))
+                    raise ElasticResumeError(
+                        f"device checkpoint {self.path} was written by a {stored_procs}-process "
+                        f"coordinated fit but its identity differs from this fit (mismatched: "
+                        f"{diff}); it cannot seed this configuration -- clear the directory or "
+                        "fix the configuration to match the interrupted run")
                 warnings.warn(
                     f"ignoring device checkpoint {self.path}: configuration changed "
-                    f"({stored_meta} != {meta})",
+                    f"({stored_meta} != {want_meta})",
                     stacklevel=2,
                 )
                 return None
+            stored_procs = (stored_elastic or {}).get("process_count")
+            want_procs = (want_elastic or {}).get("process_count")
+            if stored_elastic is not None and stored_procs != want_procs:
+                note_elastic_resume(stored_procs, want_procs)
             leaves = []
             for i, field in enumerate(STATE_FIELDS):
                 key = f"leaf_{i}"
@@ -381,6 +509,8 @@ def run_segmented(vag, start, cfg, saver, meta: dict, max_iter: int, chunk: int,
         lbfgs_init_state,
         state_template,
     )
+    from spark_gp_tpu_torch.parallel import coord
+    from spark_gp_tpu_torch.resilience import chaos
     from spark_gp_tpu_torch.resilience.chaos import SimulatedPreemption
 
     aux_shape = () if aux0 is None else tuple(aux0.shape[1:])
@@ -396,13 +526,19 @@ def run_segmented(vag, start, cfg, saver, meta: dict, max_iter: int, chunk: int,
         state, resumed = device_state(host, cfg, start.device, vag), int(host.n_iter)
     loop = DeviceLoop(vag, state, cfg, meter=meter)
     try:
-        while True:
-            loop.counts["host_syncs"] += 1
-            done, n_iter = _host_ints(loop.state["done"][0], loop.state["n_iter"][0])
-            if done or n_iter >= max_iter:
-                break
-            loop.advance(min(n_iter + int(chunk), int(max_iter)), warm=host is None)
-            saver.save(loop.state, meta)
+        # the SIGTERM watch spans the segment loop: the saves at its
+        # boundaries act on the flag (nothing store-bound or signal-bound
+        # enters the captured step)
+        with coord.preemption_watch():
+            while True:
+                loop.counts["host_syncs"] += 1
+                done, n_iter = _host_ints(loop.state["done"][0], loop.state["n_iter"][0])
+                if done or n_iter >= max_iter:
+                    break
+                loop.advance(min(n_iter + int(chunk), int(max_iter)), warm=host is None)
+                saver.save(loop.state, meta)
+                chaos.tick_kill_counter()
+                _raise_if_preempted()
     except SimulatedPreemption as exc:
         exc.nfev = int(loop.state["n_fev"][0])
         exc.loop_metrics = loop.counts

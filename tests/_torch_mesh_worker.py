@@ -8,13 +8,14 @@ each runs on its own block, and returns the ranks' results as numpy.
 Every wait has a timeout: the group's own (``init_process_group``), and
 the pool's on each reply.  The ranks import the port and never JAX.
 
+The ranks join through ``parallel/distributed.initialize``, which keeps
+the group's store for the coordination plane (``parallel/coord.py``).
 Scenarios are the functions in :data:`SCENARIOS`; each takes the rank's
 mesh first.  :func:`estimator` builds the port's estimator from a plain
 spec, so a test builds the JAX one from the same spec."""
 
 from __future__ import annotations
 
-import datetime
 import multiprocessing as mp
 import os
 import traceback
@@ -134,6 +135,24 @@ def latent_objective(mesh, spec, x, y, theta):
     return np.asarray([value]), grad
 
 
+class _Env:
+    """``env`` set around a block, the environment restored after."""
+
+    def __init__(self, env):
+        self.env = env or {}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for key, value in self.saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
 def fit(mesh, spec, x, y, xt, mode="mesh_fit", active=None, rows=None, env=None):
     """A fit over the mesh and its ``(theta, predictions at xt, active set,
     [nfev, num_experts])``; the environment ``env`` is set around it.
@@ -145,16 +164,8 @@ def fit(mesh, spec, x, y, xt, mode="mesh_fit", active=None, rows=None, env=None)
     gp = estimator(spec)
     if mesh is not None:
         gp = gp.setMesh(mesh)
-    saved = {k: os.environ.get(k) for k in (env or {})}
-    os.environ.update(env or {})
-    try:
+    with _Env(env):
         return _fit_record(gp, mesh, spec, x, y, xt, mode, active, rows)
-    finally:
-        for key, value in saved.items():
-            if value is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = value
 
 
 def _fit_record(gp, mesh, spec, x, y, xt, mode, active, rows):
@@ -341,9 +352,124 @@ def row_sharded_fit(mesh, spec, x, y, xt, min_m):
         ppa.sharded_magic_solve, ppa._DEVICE_SOLVE_MIN_M = solve, threshold
 
 
+#: the process group's collectives, counted by :func:`store_fit`
+_COLLECTIVES = ("all_reduce", "all_gather", "broadcast", "reduce", "gather", "scatter",
+                "all_gather_into_tensor", "reduce_scatter", "reduce_scatter_tensor",
+                "all_to_all", "all_gather_object", "broadcast_object_list", "barrier",
+                "monitored_barrier", "send", "recv")
+
+
+def store_fit(mesh, spec, x, y, xt, env=None):
+    """``fit_distributed`` of this rank's block under ``GP_DCN_MODE=1``
+    (plus ``env``): the record of :func:`fit`, the process-group
+    collectives it made (every one counted), the store rounds of its
+    context by name, and the rungs of its spot checks."""
+    import torch.distributed as dist
+
+    from spark_gp_tpu_torch.parallel import coord
+
+    calls = []
+    saved = {n: getattr(dist, n) for n in _COLLECTIVES if hasattr(dist, n)}
+
+    def counting(name, fn):
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(dist, name, counting(name, fn))
+    try:
+        with _Env(dict({"GP_DCN_MODE": "1"}, **(env or {}))):
+            ctx = coord.dcn_context()
+            gathers, audits = dict(ctx.gathers), len(ctx.audits)
+            rec = fit(mesh, spec, x, y, xt, mode="distributed")
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+    rounds = {k: v - gathers.get(k, 0) for k, v in ctx.gathers.items()}
+    return rec + (len(calls), rounds, list(ctx.audits[audits:]))
+
+
+def ladder_fit(mesh, spec, x, y, xt):
+    """``fit_distributed`` of this rank's block over the process group
+    with a compile failure staged on its first host fit attempt, the
+    store mode switched off: ``(theta, the degradations' target rungs,
+    the store rounds of the process's store context by name)``."""
+    from spark_gp_tpu_torch.parallel import coord
+    from spark_gp_tpu_torch.resilience import chaos
+
+    gp = estimator(spec).setMesh(mesh)
+    with _Env({"GP_DCN_MODE": "0"}), chaos.failing_compile(1, op="fit.host"):
+        model = gp.fit_distributed(_stack(x, y, spec["s"], mesh))
+    return (np.asarray(model.raw_predictor.theta), [d["to"] for d in model.degradations],
+            dict(coord.store_context().gathers))
+
+
+def skipped_barrier(mesh, barrier_name, skip, timeout_s):
+    """Every rank but ``skip`` meets at the store barrier ``barrier_name`` under
+    ``GP_COORD_TIMEOUT_S=timeout_s``: ``(missing, seconds)`` of the
+    timeout each raised (None on the skipping rank)."""
+    import time
+
+    from spark_gp_tpu_torch.parallel import coord
+
+    if mesh.rank == skip:
+        return None
+    t0 = time.perf_counter()
+    with _Env({"GP_COORD_TIMEOUT_S": str(timeout_s)}):
+        try:
+            coord.barrier(barrier_name)
+        except coord.CoordinationTimeoutError as exc:
+            return list(exc.missing), time.perf_counter() - t0
+    return "no timeout", time.perf_counter() - t0
+
+
+def preempted_checkpoint(mesh, spec, x, y, directory, preempt_rank, optimizer="host"):
+    """A ``setMesh`` fit with ``setCheckpointDir(directory)`` while rank
+    ``preempt_rank`` stages a preemption, then the resume: ``(what the
+    first fit raised, coord.checkpoints it counted, the checkpoint's
+    iteration, the uninterrupted fit's theta, the resumed fit's theta,
+    resumed_from_iteration)``."""
+    import json
+
+    from spark_gp_tpu_torch.obs.runtime import telemetry
+    from spark_gp_tpu_torch.parallel import coord
+    from spark_gp_tpu_torch.resilience import chaos
+
+    def gp(ck=None):
+        g = estimator(spec).setMesh(mesh).setOptimizer(optimizer)
+        if ck is not None:
+            g = g.setCheckpointDir(ck).setCheckpointInterval(2)
+        return g
+
+    ref = gp().fit(x, y).raw_predictor.theta
+    before = telemetry.snapshot()["counters"].get("coord.checkpoints", 0.0)
+    raised = None
+    if mesh.rank == preempt_rank:
+        chaos.stage_preemption(True)
+    try:
+        gp(directory).fit(x, y)
+    except coord.PreemptedError as exc:
+        raised = type(exc).__name__
+    finally:
+        chaos.stage_preemption(False)
+        coord.clear_preemption_for_testing()
+    saves = telemetry.snapshot()["counters"].get("coord.checkpoints", 0.0) - before
+    iteration = None
+    path = os.path.join(directory, f"lbfgs_state_{type(gp()).__name__}.json")
+    if os.path.exists(path):
+        with open(path) as fh:
+            iteration = json.load(fh)["iteration"]
+    resumed = gp(directory).fit(x, y)
+    return (raised, saves, iteration, np.asarray(ref), np.asarray(resumed.raw_predictor.theta),
+            resumed.metrics.get("resumed_from_iteration", 0))
+
+
 SCENARIOS = {f.__name__: f for f in (objective, kmn, latent_objective, fit, poe, distribute,
                                      sample, default_device, dist_chol, tripwire, magic, elbo,
-                                     select, row_sharded_fit)}
+                                     select, row_sharded_fit, store_fit, ladder_fit,
+                                     skipped_barrier, preempted_checkpoint)}
 
 
 # -- the ranks -----------------------------------------------------------------------
@@ -355,10 +481,11 @@ def _serve(rank: int, world: int, init_file: str, conn) -> None:
     torch.set_num_threads(1)
     import torch.distributed as dist
 
+    from spark_gp_tpu_torch.parallel import distributed
     from spark_gp_tpu_torch.parallel.mesh import expert_mesh
 
-    dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world,
-                            rank=rank, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    distributed.initialize(f"file://{init_file}", world, rank, backend="gloo",
+                           timeout_s=TIMEOUT_S)
     mesh = expert_mesh(device="cpu")
     try:
         while True:

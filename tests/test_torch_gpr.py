@@ -209,6 +209,35 @@ def _sharded_poe_at_world_size_one():
     return all(np.array_equal(a, b) for a, b in zip(plain, meshed))
 
 
+def _checkpoint_dir_under_a_one_rank_mesh():
+    """A checkpoint directory under a mesh (item 6c, the coordinated
+    checkpointers): a one-rank mesh's fit saves, is preempted after its
+    first save, and its refit resumes to the uninterrupted fit's theta."""
+    import tempfile
+
+    from spark_gp_tpu_torch.parallel.mesh import expert_mesh
+    from spark_gp_tpu_torch.resilience import chaos
+
+    x, y = _data(n=60)
+    with tempfile.TemporaryDirectory() as directory:
+        def gp(ckpt):
+            g = tgp.GaussianProcessRegression(device="cpu").setKernel(lambda: _kernel(tgp)) \
+                .setDatasetSizeForExpert(20).setActiveSetSize(20).setMaxIter(10) \
+                .setMesh(expert_mesh(device="cpu"))
+            return g.setCheckpointDir(directory) if ckpt else g
+
+        with chaos.preempt_after_saves(1):
+            try:
+                gp(True).fit(x, y)
+            except chaos.SimulatedPreemption:
+                pass
+        resumed = gp(True).fit(x, y)
+        plain = gp(False).fit(x, y)
+    return bool(resumed.metrics.get("resumed_from_iteration", 0) == 1
+                and np.allclose(resumed.raw_predictor.theta, plain.raw_predictor.theta,
+                                rtol=1e-8))
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -236,6 +265,7 @@ def _sharded_poe_at_world_size_one():
         _works(lambda gp: _classifier_fit_distributed_at_world_size_one()),
         _fits(lambda gp: _device_fit_at_lane(gp, "mixed")),
         _works(lambda gp: _sharded_poe_at_world_size_one()),
+        _works(lambda gp: _checkpoint_dir_under_a_one_rank_mesh()),
     ],
 )
 def test_unported_options_name_their_roadmap_item(call):
